@@ -1,0 +1,288 @@
+"""The training loop: port of ``distributed_lion_tpu/train/loop.py`` (the
+data-parallel GPT-2 slice).
+
+One process per GPU. Each rank runs forward and backward on its shard of
+the global batch, accumulating ``gradient_accumulation_steps``
+microbatches into the flat grad buffer and averaging them. With
+``async_grad`` (the reference's ``AsyncTrainer``) there is no gradient
+collective at all: the optimizer's vote is the only cross-rank traffic.
+With ``async_grad=False`` one ``all_reduce`` averages the flat grad buffer
+(DDP's all-reduce). ``grad_clip_norm`` clips by the rank's global norm.
+The LR lives on the card and the loop reads no device value except at
+``logging_steps`` and in ``evaluate``.
+
+``TrainConfig`` holds only the fields this slice runs, with their JAX
+defaults; the others (checkpoints, telemetry, the vote guard, the parallel
+axes, …) are not flags here, so argparse refuses them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+import time
+from typing import Callable, Iterator, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from distributed_lion_tpu_torch.models.gpt2 import GPT2, GPT2Config, count_params, fold_seed
+from distributed_lion_tpu_torch.models.loss import clm_loss_and_metrics
+from distributed_lion_tpu_torch.ops.codec import vote_chunk_elems, wire_bytes_per_param
+from distributed_lion_tpu_torch.optim.distributed_lion import distributed_lion
+from distributed_lion_tpu_torch.optim.lion import FlatParams
+from distributed_lion_tpu_torch.parallel import collectives
+from distributed_lion_tpu_torch.parallel.mesh import rank_of, resolve_device
+from distributed_lion_tpu_torch.train.metrics import MetricsLogger
+from distributed_lion_tpu_torch.train.schedule import (
+    constant_schedule,
+    cosine_schedule_with_warmup,
+    linear_schedule_with_warmup,
+)
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """The slice's part of the JAX package's ``TrainConfig``, same names and
+    defaults."""
+
+    lion: bool = True
+    async_grad: bool = True
+    wire: str = "auto"  # 'auto' → resolve_auto_comm
+    vote_every: int = 0  # 0 = auto (1); > 1 is not ported
+    vote_buckets: int = 0  # 0 = auto (resolve_auto_comm)
+    grad_clip_norm: Optional[float] = None
+    learning_rate: float = 1e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.99
+    lr_scheduler_type: str = "cosine"  # cosine | linear | constant
+    warmup_steps: int = 2000
+    max_steps: int = 100_000
+    per_device_train_batch_size: int = 20
+    gradient_accumulation_steps: int = 8
+    per_device_eval_batch_size: int = 20
+    block_size: int = 1024
+    seed: int = 42
+    logging_steps: int = 50
+    eval_steps: int = 1000
+    eval_iters: int = 20
+    output_dir: Optional[str] = None
+
+    def schedule(self) -> Callable:
+        if self.lr_scheduler_type == "cosine":
+            return cosine_schedule_with_warmup(self.learning_rate, self.warmup_steps,
+                                               self.max_steps)
+        if self.lr_scheduler_type == "linear":
+            return linear_schedule_with_warmup(self.learning_rate, self.warmup_steps,
+                                               self.max_steps)
+        if self.lr_scheduler_type == "constant":
+            return constant_schedule(self.learning_rate)
+        raise ValueError(f"unknown lr_scheduler_type {self.lr_scheduler_type!r}")
+
+
+# Auto bucket trigger, kept at the JAX package's value, which was measured
+# for a TPU; not measured on the H100 yet (ROADMAP Queue 1 item 4).
+AUTO_BUCKET_MIN_COORDS = 16_000_000
+
+
+def resolve_auto_comm(cfg: TrainConfig, world: int, n_params: int,
+                      nodes: int = 1, local_world: int = 1) -> TrainConfig:
+    """Resolve ``wire='auto'``, ``vote_every=0`` and ``vote_buckets=0``, the
+    JAX package's decision table (loop.py:436-532) with the torchrun world
+    in place of the mesh: W=1 → sign_psum; several nodes whose local ranks
+    form whole groups → hier:<local ranks>; else packed_a2a. vote_every →
+    1. vote_buckets → 4 when there is a wire and the ballot has at least
+    ``AUTO_BUCKET_MIN_COORDS`` coordinates, else 1."""
+    if cfg.wire != "auto" and cfg.vote_every != 0 and cfg.vote_buckets != 0:
+        return cfg
+    wire, ve, vb = cfg.wire, cfg.vote_every, cfg.vote_buckets
+    if wire == "auto":
+        if not cfg.lion or world == 1:
+            wire = "sign_psum"
+        elif nodes > 1 and local_world > 1 and world % local_world == 0:
+            wire = f"hier:{local_world}"
+        else:
+            wire = "packed_a2a"
+    if ve == 0:
+        ve = 1  # lazy voting is not ported (ROADMAP Queue 1 item 4)
+    if vb == 0:
+        n_voted = (n_params if ve <= 1
+                   else min(n_params, vote_chunk_elems(n_params, ve)))
+        vb = 4 if (cfg.lion and world > 1 and n_voted >= AUTO_BUCKET_MIN_COORDS) else 1
+    return dataclasses.replace(cfg, wire=wire, vote_every=ve, vote_buckets=vb)
+
+
+def _resolve_for_world(cfg: TrainConfig, world: int, n_params: int) -> TrainConfig:
+    """resolve_auto_comm with torchrun's host layout: ``LOCAL_WORLD_SIZE``
+    ranks share a node."""
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    return resolve_auto_comm(cfg, world, n_params, nodes=max(1, world // max(local, 1)),
+                             local_world=local)
+
+
+def make_optimizer(cfg: TrainConfig, group=None):
+    """``--lion`` → majority-vote Lion under the configured schedule. The
+    AdamW path is not ported (ROADMAP Queue 1 item 7)."""
+    if not cfg.lion:
+        if cfg.async_grad:
+            raise ValueError(
+                "--async_grad without --lion would let replicas diverge (no "
+                "grad sync and no vote); the reference silently permits this "
+                "broken combination — we refuse it")
+        raise NotImplementedError(
+            "the AdamW path (--lion false) is not ported yet (ROADMAP Queue 1 item 7)")
+    return distributed_lion(
+        cfg.schedule(), b1=cfg.beta1, b2=cfg.beta2,
+        weight_decay=cfg.weight_decay, group=group,
+        wire="sign_psum" if cfg.wire == "auto" else cfg.wire,
+        vote_every=cfg.vote_every or 1, vote_buckets=cfg.vote_buckets or 1,
+    )
+
+
+class Trainer:
+    """Train/eval loop for the CLM workload on one rank. ``group`` is the
+    vote's process group (None: a world of one)."""
+
+    def __init__(self, cfg: TrainConfig, model: GPT2, *, group=None):
+        self.world = collectives.world_of(group)
+        self.rank = rank_of(group)
+        self.group = group
+        cfg = _resolve_for_world(cfg, self.world, count_params(model))
+        self.cfg = cfg
+        self.model = model
+        self.device = model.wte.device
+        self.flat = FlatParams(model.jax_named_parameters())
+        self.n_params = self.flat.numel
+        self.opt = make_optimizer(cfg, group)
+        self.state = self.opt.init(self.flat)
+        self._schedule = cfg.schedule()
+        self.step_count = 0
+        self.history: list[dict] = []
+        self.logger = MetricsLogger(cfg.output_dir if self.rank == 0 else None)
+
+    @staticmethod
+    def for_gpt2(cfg: TrainConfig, model_cfg: GPT2Config, *, device="cuda",
+                 initial_params: Optional[dict] = None, group=None) -> "Trainer":
+        """A trainer for a fresh GPT-2 (init seeded by ``cfg.seed``) or for
+        ``initial_params``, a state dict such as
+        ``utils.serialization.params_from_jax`` returns."""
+        device = resolve_device(device)
+        model = GPT2(model_cfg, device=device, seed=cfg.seed)
+        if initial_params is not None:
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    p.copy_(initial_params[name])
+        n = count_params(model)
+        world = collectives.world_of(group)
+        cfg = _resolve_for_world(cfg, world, n)
+        acct = wire_bytes_per_param(n, world, cfg.wire, vote_every=cfg.vote_every,
+                                    accum_steps=cfg.gradient_accumulation_steps,
+                                    vote_buckets=cfg.vote_buckets)
+        if rank_of(group) == 0:
+            print(f"[trainer] GPT-2 {n/1e6:.1f}M params | world={world} | vote "
+                  f"wire={cfg.wire}"
+                  + (f" (vote_buckets={cfg.vote_buckets})" if cfg.vote_buckets > 1 else "")
+                  + f": {acct['bits_per_param']:.2f} bits/param/step | device={device}")
+        return Trainer(cfg, model, group=group)
+
+    def global_train_batch(self) -> int:
+        return (self.world * self.cfg.per_device_train_batch_size
+                * self.cfg.gradient_accumulation_steps)
+
+    def _train_step(self, batch: np.ndarray) -> dict:
+        cfg = self.cfg
+        accum, bs = cfg.gradient_accumulation_steps, cfg.per_device_train_batch_size
+        local = torch.from_numpy(
+            batch[self.rank * accum * bs:(self.rank + 1) * accum * bs]
+        ).to(self.device)
+        self.flat.zero_grad()
+        sums: dict = {}
+        for i in range(accum):
+            tokens = local[i * bs:(i + 1) * bs]
+            seed = fold_seed(cfg.seed + 1, self.rank, self.step_count, i)
+            loss, metrics = clm_loss_and_metrics(self.model(tokens, seed), tokens)
+            loss.backward()
+            for k, v in metrics.items():
+                sums[k] = sums.get(k, 0.0) + v.detach()
+        with torch.no_grad():
+            self.flat.grads.div_(accum)
+            if not cfg.async_grad:
+                if self.group is not None:
+                    dist.all_reduce(self.flat.grads, group=self.group)
+                self.flat.grads.div_(self.world)
+            if cfg.grad_clip_norm is not None:
+                sq = torch.sum(torch.square(self.flat.grads.to(torch.float32)))
+                scale = torch.clamp_max(
+                    cfg.grad_clip_norm / torch.clamp_min(torch.sqrt(sq), 1e-12), 1.0)
+                self.flat.grads.mul_(scale.to(self.flat.grads.dtype))
+        self.state = self.opt.step(self.flat, self.state)
+        return {k: v / accum for k, v in sums.items()}
+
+    def _mean_over_ranks(self, metrics: dict) -> dict:
+        vals = torch.stack([v.to(torch.float32) for v in metrics.values()])
+        if self.group is not None:
+            dist.all_reduce(vals, group=self.group)
+            vals = vals / self.world
+        return dict(zip(metrics, vals.tolist()))
+
+    def train(self, train_iter: Iterator[np.ndarray],
+              eval_blocks: Optional[np.ndarray] = None) -> list[dict]:
+        """Step-based training to ``max_steps``; ``train_iter`` yields global
+        batches ``[world*accum*per_device_bs, block]``, each rank taking its
+        shard."""
+        cfg = self.cfg
+        total = cfg.max_steps
+        tokens_per_step = self.global_train_batch() * cfg.block_size
+        t_last, s_last = time.perf_counter(), self.step_count
+        while self.step_count < total:
+            metrics = self._train_step(next(train_iter))
+            self.step_count += 1
+            if self.step_count % cfg.logging_steps == 0 or self.step_count == total:
+                m = self._mean_over_ranks(metrics)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                now = time.perf_counter()
+                steps = self.step_count - s_last
+                m["step_ms"] = 1e3 * (now - t_last) / steps
+                m["tokens_per_sec"] = tokens_per_step * steps / max(now - t_last, 1e-9)
+                m["lr"] = float(self._schedule(torch.tensor(self.step_count - 1)))
+                t_last, s_last = now, self.step_count
+                self.history.append({"step": self.step_count, **m})
+                if self.rank == 0:
+                    self.logger.log(self.step_count, m, prefix="train")
+            if eval_blocks is not None and self.step_count % cfg.eval_steps == 0:
+                self.history.append({"step": self.step_count,
+                                     **self.evaluate(eval_blocks)})
+        return self.history
+
+    @torch.no_grad()
+    def evaluate(self, eval_blocks: np.ndarray) -> dict:
+        """Eval loss, token accuracy and perplexity = exp(loss)."""
+        cfg = self.cfg
+        per_dev = cfg.per_device_eval_batch_size
+        n = len(eval_blocks)
+        if n < self.world * per_dev:
+            per_dev = n // self.world  # shrink rather than skip a small split
+        bs = self.world * per_dev
+        if per_dev == 0:
+            print(f"[trainer] eval skipped: {n} examples < {self.world} ranks")
+            return {"eval/loss": math.nan, "eval/accuracy": math.nan,
+                    "eval/perplexity": math.nan}
+        per_key: dict = {}
+        for i in range(min(cfg.eval_iters, n // bs)):
+            rows = eval_blocks[i * bs + self.rank * per_dev:i * bs + (self.rank + 1) * per_dev]
+            tokens = torch.from_numpy(rows.astype(np.int64)).to(self.device)
+            _, metrics = clm_loss_and_metrics(self.model(tokens), tokens)
+            for k, v in self._mean_over_ranks(metrics).items():
+                per_key.setdefault(k, []).append(v)
+        out = {f"eval/{k}": float(np.mean(v)) for k, v in per_key.items() if k != "n_tokens"}
+        out["eval/perplexity"] = float(np.exp(min(out["eval/loss"], 80.0)))
+        if self.rank == 0:
+            self.logger.log(self.step_count, out, prefix="")
+        return out
+
+    def close(self) -> None:
+        self.logger.close()

@@ -1,0 +1,99 @@
+"""Flat ``.npz`` pytree files and the weight carry-over from the JAX package.
+
+Port of ``distributed_lion_tpu/utils/serialization.py``: nested dicts and
+lists flatten to ``a/b/#i/c`` keys (``#i`` is a list index), the format of
+the JAX package's ``model.npz``. On top of it:
+
+- :func:`params_from_jax` turns the JAX package's GPT-2 params (a numpy
+  pytree or a ``model.npz``) into the port's state dict
+  (``blocks/#0/attn/qkv`` → ``blocks.0.attn.qkv``), and
+  :func:`params_to_jax` goes back;
+- :func:`momentum_from_jax` takes rank ``rank``'s row of the JAX package's
+  stacked ``[world, ...]`` momentum.
+
+bfloat16 tensors are written as float32 (numpy has no bfloat16 without
+extra packages); every value stays exact.
+"""
+
+from __future__ import annotations
+
+import pathlib
+from typing import Any, Union
+
+import numpy as np
+import torch
+
+
+def _flatten(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flatten(v, prefix + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flatten(v, prefix + (f"#{i}",))
+    else:
+        yield "/".join(prefix), tree
+
+
+def save_pytree(path, tree: Any) -> None:
+    flat = {k: np.asarray(v) for k, v in _flatten(tree)}
+    pathlib.Path(path).parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **flat)
+
+
+def load_pytree(path) -> Any:
+    """Rebuild the nested dict/list structure from flat keys."""
+    with np.load(path) as data:
+        root: dict = {}
+        for key in data.files:
+            parts = key.split("/")
+            node = root
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = data[key]
+    return _listify(root)
+
+
+def _listify(node):
+    if isinstance(node, dict):
+        if node and all(k.startswith("#") for k in node):
+            return [_listify(node[f"#{i}"]) for i in range(len(node))]
+        return {k: _listify(v) for k, v in node.items()}
+    return node
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.cpu().numpy()
+
+
+def params_from_jax(tree_or_npz: Union[dict, str, pathlib.Path]) -> dict[str, torch.Tensor]:
+    """The JAX package's params (numpy pytree or ``model.npz`` path) as the
+    port's state dict of CPU tensors."""
+    tree = (load_pytree(tree_or_npz) if isinstance(tree_or_npz, (str, pathlib.Path))
+            else tree_or_npz)
+    return {key.replace("/#", ".").replace("/", "."): torch.from_numpy(np.array(v))
+            for key, v in _flatten(tree)}
+
+
+def params_to_jax(state: Union[dict, torch.nn.Module]) -> dict:
+    """The port's state dict (or module) as the JAX package's nested numpy
+    pytree, list indices restored."""
+    if isinstance(state, torch.nn.Module):
+        state = dict(state.named_parameters())
+    root: dict = {}
+    for name, t in state.items():
+        parts = name.split(".")
+        node = root
+        for p in parts[:-1]:
+            node = node.setdefault(f"#{p}" if p.isdigit() else p, {})
+        node[parts[-1]] = _to_numpy(t)
+    return _listify(root)
+
+
+def momentum_from_jax(exp_avg: dict, rank: int) -> dict[str, torch.Tensor]:
+    """Row ``rank`` of the JAX package's stacked ``[world, ...]`` momentum
+    pytree, as a state dict keyed like the params."""
+    return {name: t[rank] for name, t in params_from_jax(exp_avg).items()}

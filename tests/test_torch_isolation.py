@@ -1,0 +1,53 @@
+"""The port stands alone: no module of ``distributed_lion_tpu_torch``, and
+not ``chip_smoke.py``, imports ``jax`` or anything of the JAX package, and
+importing every port module leaves both out of ``sys.modules``."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "distributed_lion_tpu_torch"
+FORBIDDEN = ("jax", "distributed_lion_tpu")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_no_port_file_imports_jax_or_the_jax_package():
+    offenders = []
+    for path in _port_files():
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [f"{path.relative_to(ROOT)}:{node.lineno} {n}"
+                          for n in names if _forbidden(n)]
+    assert not offenders, offenders
+    assert len(_port_files()) > 20
+
+
+def test_importing_every_port_module_loads_no_jax():
+    modules = ["distributed_lion_tpu_torch." + ".".join(
+        p.relative_to(PORT).with_suffix("").parts).removesuffix(".__init__")
+        for p in sorted(PORT.rglob("*.py"))]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'distributed_lion_tpu' or m.startswith('distributed_lion_tpu.'))\n"
+        "print(len(sys.modules), bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
