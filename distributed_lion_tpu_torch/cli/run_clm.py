@@ -142,6 +142,12 @@ def main(argv=None) -> Trainer:
         print(f"[run_clm] capping block_size {train_cfg.block_size} -> n_ctx {model_cfg.n_ctx}")
         train_cfg.block_size = model_cfg.n_ctx
     trainer = Trainer.for_gpt2(train_cfg, model_cfg, device=device, group=group)
+    if train_cfg.telemetry and rank_of(group) == 0:
+        # only the tally wires carry exact margins; the ±1-proxy wire zeroes
+        # the histogram by design (train/telemetry.tally_wire)
+        print("[run_clm] vote-health telemetry on: margin histogram "
+              + ("EXACT (tally wire " if trainer.margin_exact else "UNAVAILABLE (proxy wire ")
+              + f"{trainer.cfg.wire}); drained every {train_cfg.logging_steps} steps")
     train_blocks, eval_blocks = load_blocks(data_args, train_cfg.block_size,
                                             model_cfg.vocab_size)
     it = batch_iterator(train_blocks, trainer.global_train_batch(), seed=train_cfg.seed)

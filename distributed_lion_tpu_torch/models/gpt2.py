@@ -40,7 +40,7 @@ class GPT2Config:
     d_model: int = 768
     n_ctx: int = 1024
     dropout: float = 0.0
-    attn_impl: str = "auto"   # ops.attention: auto | xla (flash/splash raise)
+    attn_impl: str = "auto"   # ops.attention: auto | xla | flash | splash
     remat: bool = True        # recompute each block in backward
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
@@ -150,7 +150,9 @@ class Attention(nn.Module):
                    for i in range(3))
         if cfg.dropout > 0.0 and seed is not None:
             # attention-prob dropout needs materialized scores, so training
-            # with dropout always takes this branch (gpt2.py:253-265)
+            # with dropout always takes this branch (gpt2.py:253-265); eval
+            # and dropout-0 training take ops.attention (flash on the card
+            # at GPT-2's shape)
             scores = matmul_f32(q, k.transpose(-1, -2)) / math.sqrt(hd)
             causal = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
             scores = scores.masked_fill(~causal, -1e30)

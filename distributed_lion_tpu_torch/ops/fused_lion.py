@@ -1,7 +1,8 @@
 """Fused Lion passes for NVIDIA Hopper, written by hand in Triton.
 
 Port of ``distributed_lion_tpu/ops/pallas_lion.py``. The optimizer's whole
-per-step work over the flat parameter vector is two elementwise passes:
+per-step work over the flat parameter vector is two elementwise passes,
+plus one reduction under ``--telemetry``:
 
 - :func:`fused_ballots` replaces ``pallas_lion.fused_ballots``
   (``_ballot_kernel``, pallas_lion.py:79-102; per-bucket entry
@@ -12,12 +13,18 @@ per-step work over the flat parameter vector is two elementwise passes:
   ``p' = p*(1 - lr*wd) - lr*(tot > 0 ? 1 : -1)`` and
   ``m' = b2*m + (1-b2)*g``, each computed in float32 and rounded once to
   its storage dtype.
+- :func:`bucket_vote_stats` replaces ``pallas_lion.bucket_vote_stats``
+  (``_stats_kernel``, :206-264): the margin histogram of one bucket's
+  tally, ``bin = min(|total|*nbins // world, nbins - 1)``, and the count of
+  coordinates whose local ballot lost, ``(ballot > 0) != (total > 0)``.
 
 **Bound.** Both are pure HBM streams with no data reuse and a few flops
 per byte: the ballot pass moves 9 B per coordinate at float32 (g and m in,
 int8 out), the apply pass 21 B (p, g, m in, an int8 tally in, p and m
 out). At GPT-2 124M that is 1.12 GB and 2.61 GB per step, so on an H100
-SXM (3.35 TB/s) the bounds are about 0.33 ms and 0.78 ms.
+SXM (3.35 TB/s) the bounds are about 0.33 ms and 0.78 ms. The stats pass
+reads 2 B per coordinate with an int8 tally (0.074 ms at GPT-2 124M) and
+5 B with an int32 one.
 
 **Design.** One Triton program per ``BLOCK`` contiguous coordinates (a
 power of two), with the ragged tail masked in the kernel: no padded copy,
@@ -31,7 +38,12 @@ so an LR schedule costs no host sync and no recompile. The constants
 scalars, rounded once, as the JAX weak-typed literals are. The kernels are
 launched with ``enable_fp_fusion=False``: every multiply and add rounds on
 its own, exactly as the plain versions below, so the card's elections are
-bit-identical to theirs.
+bit-identical to theirs. The stats kernel reduces each program's block to
+per-bin counts in registers and adds them with one atomic per bin into an
+``int32[nbins + 1]`` output (the last slot is the disagreement count), the
+masked tail included in no bin: the TPU kernel's resident VMEM tile across
+a sequential grid becomes atomics across parallel programs. The counts are
+exact integers, so the result does not depend on the order.
 
 Each wrapper runs its kernel for a CUDA tensor and its plain PyTorch
 version for a CPU tensor, counts its launches in ``.launches``, and raises
@@ -51,6 +63,7 @@ os.environ.setdefault(
 
 BLOCK = 4096      # coordinates per program: 16 per thread at 8 warps
 NUM_WARPS = 8
+STATS_BLOCK = 16384  # stats: 64 int8 coordinates per thread, 9 atomics per program
 
 # Bound at the first launch by _kernels(): this module must import where
 # triton is absent (the CPU tests take the plain versions).
@@ -78,6 +91,20 @@ def fused_apply_plain(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     p_new = (p32 * (1.0 - lr * wd) - lr * s).to(p.dtype)
     m_new = (m.to(torch.float32) * b2 + g.to(torch.float32) * (1.0 - b2)).to(m.dtype)
     return p_new, m_new
+
+
+def margin_bins(total: torch.Tensor, world: int, nbins: int) -> torch.Tensor:
+    """The margin bin of each coordinate, ``min(|total|*nbins // world,
+    nbins - 1)``, as int32: the rule the stats kernel applies."""
+    return torch.clamp_max(total.to(torch.int32).abs() * nbins // world, nbins - 1)
+
+
+def bucket_vote_stats_plain(ballots: torch.Tensor, total: torch.Tensor, world: int,
+                            nbins: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the stats kernel (pallas_lion.py:206-230): int32
+    ``[nbins]`` margin bincount and the int32 disagreement count."""
+    hist = torch.bincount(margin_bins(total, world, nbins), minlength=nbins).to(torch.int32)
+    return hist, ((ballots > 0) != (total > 0)).sum(dtype=torch.int32)
 
 
 def _kernels() -> dict:
@@ -111,7 +138,23 @@ def _kernels() -> dict:
         m_new = m32 * b2 + g32 * c2
         tl.store(m_ptr + offs, m_new.to(m_ptr.dtype.element_ty), mask=mask)
 
-    _KERNELS.update(ballot=_ballot_kernel, apply=_apply_kernel)
+    # world is not specialized: Triton turns an integer argument equal to 1
+    # into a constant, and at world == 1 that build counted half the
+    # coordinates on the card (torch 2.11, triton 3.6.0)
+    @triton.jit(do_not_specialize=["world"])
+    def _stats_kernel(ballot_ptr, tot_ptr, out_ptr, n, world, NBINS: tl.constexpr,
+                      BLOCK: tl.constexpr):
+        offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+        mask = offs < n
+        t = tl.load(tot_ptr + offs, mask=mask, other=0).to(tl.int32)
+        b = tl.load(ballot_ptr + offs, mask=mask, other=0)
+        binidx = tl.minimum((tl.abs(t) * NBINS) // world, NBINS - 1)
+        for k in tl.static_range(NBINS):
+            tl.atomic_add(out_ptr + k, tl.sum(tl.where(mask & (binidx == k), 1, 0)))
+        dis = tl.where(mask & ((b > 0) != (t > 0)), 1, 0)
+        tl.atomic_add(out_ptr + NBINS, tl.sum(dis))
+
+    _KERNELS.update(ballot=_ballot_kernel, apply=_apply_kernel, stats=_stats_kernel)
     return _KERNELS
 
 
@@ -179,3 +222,29 @@ def fused_apply(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
 
 
 fused_apply.launches = 0
+
+
+def bucket_vote_stats(ballots: torch.Tensor, total: torch.Tensor, world: int,
+                      nbins: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One bucket's vote-health counts from its int8 ballots and its int8 or
+    int32 tally: ``(hist int32[nbins], disagree int32)``, both on the
+    ballots' device."""
+    _check_window("bucket_vote_stats", ballots, total)
+    if ballots.dtype != torch.int8 or total.dtype not in _TALLY_DTYPES:
+        raise ValueError(f"bucket_vote_stats: ballots {ballots.dtype} / tally "
+                         f"{total.dtype} not int8 / int8|int32")
+    if world < 1 or nbins < 1:
+        raise ValueError(f"bucket_vote_stats: world {world} and nbins {nbins} must be >= 1")
+    if ballots.device.type == "cpu":
+        return bucket_vote_stats_plain(ballots, total, world, nbins)
+    out = torch.zeros(nbins + 1, dtype=torch.int32, device=ballots.device)
+    if ballots.numel():
+        n = ballots.numel()
+        _kernels()["stats"][(triton.cdiv(n, STATS_BLOCK),)](
+            ballots, total, out, n, world, NBINS=nbins, BLOCK=STATS_BLOCK,
+            num_warps=NUM_WARPS)
+        bucket_vote_stats.launches += 1
+    return out[:nbins], out[nbins]
+
+
+bucket_vote_stats.launches = 0

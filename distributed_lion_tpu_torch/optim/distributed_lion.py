@@ -16,11 +16,19 @@ boundaries as the JAX package), so a bucket is one window and one launch,
 where the JAX package launches once per leaf window. Momentum is rank-local:
 the JAX package's ``[world, ...]`` stacked momentum is that, stacked.
 
+With ``telemetry=True`` each bucket also runs
+:func:`fused_lion.bucket_vote_stats` on its ballots and its tally, and
+packs its election (``codec.pack_signs``), after the tally arrives and
+before the bucket applies; ``step`` then returns ``(state, frame)``, the
+JAX package's vote-health frame (:437-463, :504-518) for
+``train.telemetry.fold``. Telemetry only observes: the elections and the
+update are the same with it on or off.
+
 Ported: the deterministic mode with ``vote_every == 1`` and uniform dtypes,
-on the three flat wires, momentum in the param dtype. Refused, naming their
-ROADMAP items: stochastic binarization (``max_grad_norm``), lazy refresh
-(``vote_every > 1``), the DCN pipeline (``dcn_pipeline_depth``), the vote
-guard (``guard``) and vote-health telemetry (``telemetry``).
+on the three flat wires, momentum in the param dtype, and vote-health
+telemetry. Refused, naming their ROADMAP items: stochastic binarization
+(``max_grad_norm``), lazy refresh (``vote_every > 1``), the DCN pipeline
+(``dcn_pipeline_depth``) and the vote guard (``guard``).
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ import torch
 import torch.distributed as dist
 
 from distributed_lion_tpu_torch.ops import fused_lion
-from distributed_lion_tpu_torch.ops.codec import bucket_bounds, parse_wire
+from distributed_lion_tpu_torch.ops.codec import bucket_bounds, pack_signs, parse_wire
 from distributed_lion_tpu_torch.optim.lion import (
     FlatParams,
     LionState,
@@ -43,6 +51,7 @@ from distributed_lion_tpu_torch.optim.lion import (
 )
 from distributed_lion_tpu_torch.parallel import collectives
 from distributed_lion_tpu_torch.parallel.mesh import DATA_AXIS
+from distributed_lion_tpu_torch.train import telemetry as _vt
 
 
 def _refuse(what: str, item: str) -> None:
@@ -53,12 +62,14 @@ class DistributedLion:
     """The majority-vote optimizer over a :class:`FlatParams`. ``group`` is
     the vote's process group (None: a world of one, no collective).
     ``tally`` optionally records the bytes each collective hands the
-    backend (:class:`collectives.WireTally`)."""
+    backend (:class:`collectives.WireTally`); ``telemetry`` makes ``step``
+    return the vote-health frame too."""
 
     def __init__(self, learning_rate: Schedule = 1e-4, b1: float = 0.9,
                  b2: float = 0.99, weight_decay: float = 0.0, *, group=None,
                  wire: str = "sign_psum", vote_buckets: int = 1,
-                 tally: Optional[collectives.WireTally] = None):
+                 tally: Optional[collectives.WireTally] = None,
+                 telemetry: bool = False):
         parse_wire(wire)
         _validate(learning_rate, b1, b2)
         if vote_buckets < 1:
@@ -67,34 +78,54 @@ class DistributedLion:
         self.weight_decay = weight_decay
         self.group, self.wire, self.vote_buckets = group, wire, vote_buckets
         self.tally = tally
+        self.telemetry = telemetry
         self.world = collectives.world_of(group)
 
     def init(self, flat: FlatParams) -> LionState:
         return init_state(flat)
 
     @torch.no_grad()
-    def step(self, flat: FlatParams, state: LionState) -> LionState:
+    def step(self, flat: FlatParams, state: LionState):
         """One optimizer step from ``flat.grads``; updates ``flat.params``
-        and ``state.exp_avg`` in place."""
+        and ``state.exp_avg`` in place. Returns the new state, or
+        ``(state, frame)`` with telemetry on."""
         lr = resolve_lr(self.learning_rate, state.count)
         p, g, m = flat.params, flat.grads, state.exp_avg
+        frame = _vt.empty_frame(0, flat.device) if self.telemetry else None
+        packed: list = []
         pending = None
         for start, size in bucket_bounds(flat.numel, self.vote_buckets,
                                          self.world, self.wire):
             w = slice(start, start + size)
             ballots = fused_lion.fused_ballots(g[w], m[w], self.b1)
             vote = collectives.vote_total_async(ballots, self.wire, self.group,
-                                                self.tally)
+                                                self.tally, keep_ballots=self.telemetry)
             if pending is not None:  # apply k−1 while bucket k is on the wire
-                self._apply(p, g, m, lr, *pending)
-            pending = (w, vote)
+                self._apply(p, g, m, lr, frame, packed, *pending)
+            pending = (w, ballots, vote)
         if pending is not None:
-            self._apply(p, g, m, lr, *pending)
-        return LionState(state.count + 1, m)
+            self._apply(p, g, m, lr, frame, packed, *pending)
+        state = LionState(state.count + 1, m)
+        if frame is None:
+            return state
+        n = torch.tensor(flat.numel, dtype=torch.int32, device=flat.device)
+        if not _vt.tally_wire(self.wire):  # a ±1 proxy carries no margin
+            frame["margin_hist"].zero_()
+        # bucket boundaries are byte-aligned, so the per-bucket packed
+        # elections concatenate to the packed full vector
+        frame.update(elected=torch.cat(packed) if packed else frame["elected"],
+                     voted=n, valid=n,
+                     flip_valid=torch.ones_like(frame["flip_valid"]))
+        return state, frame
 
-    def _apply(self, p, g, m, lr, w: slice, vote: collectives.PendingVote):
-        fused_lion.fused_apply(p[w], g[w], m[w], vote.wait(), lr,
-                               self.weight_decay, self.b2)
+    def _apply(self, p, g, m, lr, frame, packed, w: slice, ballots, vote):
+        total = vote.wait()
+        if frame is not None:
+            hist, dis = fused_lion.bucket_vote_stats(ballots, total, self.world, _vt.NBINS)
+            frame["margin_hist"] += hist
+            frame["disagree"] += dis
+            packed.append(pack_signs(total > 0))
+        fused_lion.fused_apply(p[w], g[w], m[w], total, lr, self.weight_decay, self.b2)
 
 
 def distributed_lion(
@@ -142,10 +173,9 @@ def distributed_lion(
                 "ROADMAP Queue 1 item 11")
     if guard != "off":
         _refuse(f"the vote guard (guard={guard!r})", "ROADMAP Queue 1 item 10")
-    if telemetry:
-        _refuse("vote-health telemetry", "ROADMAP Queue 1 item 10")
     if group is None and dist.is_initialized():
         group = dist.group.WORLD
     return DistributedLion(learning_rate, b1, b2, weight_decay, group=group,
-                           wire=wire, vote_buckets=vote_buckets, tally=tally)
+                           wire=wire, vote_buckets=vote_buckets, tally=tally,
+                           telemetry=telemetry)
 

@@ -73,9 +73,13 @@ def world_of(group) -> int:
 
 
 def vote_total_async(ballots: torch.Tensor, wire: str, group=None,
-                     tally: Optional[WireTally] = None) -> PendingVote:
+                     tally: Optional[WireTally] = None,
+                     keep_ballots: bool = False) -> PendingVote:
     """Start the vote over int8 ±1 ``ballots`` ([n]); see the module doc.
-    ``group`` is a process group, or None for a world of one without one."""
+    ``group`` is a process group, or None for a world of one without one.
+    ``sign_psum`` at W <= 127 sums in place into ``ballots`` unless
+    ``keep_ballots`` asks for a copy (telemetry compares the ballots with
+    the tally); the other wires never write them."""
     kind, _ = parse_wire(wire)
     if group is None:
         return PendingVote(lambda: ballots)
@@ -87,7 +91,7 @@ def vote_total_async(ballots: torch.Tensor, wire: str, group=None,
             tally.record("ici", nbytes)
 
     if kind == "sign_psum":
-        buf = ballots.to(torch.int8 if w <= 127 else torch.int32)
+        buf = ballots.to(torch.int8 if w <= 127 else torch.int32, copy=keep_ballots)
         record(buf.numel() * buf.element_size())
         work = dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group,
                                async_op=True)
@@ -139,6 +143,7 @@ def vote_total_async(ballots: torch.Tensor, wire: str, group=None,
 
 
 def vote_total(ballots: torch.Tensor, wire: str, group=None,
-               tally: Optional[WireTally] = None) -> torch.Tensor:
+               tally: Optional[WireTally] = None,
+               keep_ballots: bool = False) -> torch.Tensor:
     """Synchronous form of :func:`vote_total_async`."""
-    return vote_total_async(ballots, wire, group, tally).wait()
+    return vote_total_async(ballots, wire, group, tally, keep_ballots).wait()

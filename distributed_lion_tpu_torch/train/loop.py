@@ -9,11 +9,13 @@ collective at all: the optimizer's vote is the only cross-rank traffic.
 With ``async_grad=False`` one ``all_reduce`` averages the flat grad buffer
 (DDP's all-reduce). ``grad_clip_norm`` clips by the rank's global norm.
 The LR lives on the card and the loop reads no device value except at
-``logging_steps`` and in ``evaluate``.
+``logging_steps`` and in ``evaluate``. With ``telemetry`` the optimizer's
+vote-health frame is folded into ``train.telemetry.VoteHealth`` on the
+card every step and drained into ``vote/*`` metrics at ``logging_steps``.
 
 ``TrainConfig`` holds only the fields this slice runs, with their JAX
-defaults; the others (checkpoints, telemetry, the vote guard, the parallel
-axes, …) are not flags here, so argparse refuses them.
+defaults; the others (checkpoints, the vote guard, the parallel axes, …)
+are not flags here, so argparse refuses them.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from distributed_lion_tpu_torch.optim.distributed_lion import distributed_lion
 from distributed_lion_tpu_torch.optim.lion import FlatParams
 from distributed_lion_tpu_torch.parallel import collectives
 from distributed_lion_tpu_torch.parallel.mesh import rank_of, resolve_device
+from distributed_lion_tpu_torch.train import telemetry
 from distributed_lion_tpu_torch.train.metrics import MetricsLogger
 from distributed_lion_tpu_torch.train.schedule import (
     constant_schedule,
@@ -54,6 +57,7 @@ class TrainConfig:
     vote_every: int = 0  # 0 = auto (1); > 1 is not ported
     vote_buckets: int = 0  # 0 = auto (resolve_auto_comm)
     grad_clip_norm: Optional[float] = None
+    telemetry: bool = False  # vote-health telemetry (train/telemetry.py)
     learning_rate: float = 1e-4
     weight_decay: float = 0.1
     beta1: float = 0.9
@@ -126,6 +130,10 @@ def _resolve_for_world(cfg: TrainConfig, world: int, n_params: int) -> TrainConf
 def make_optimizer(cfg: TrainConfig, group=None):
     """``--lion`` → majority-vote Lion under the configured schedule. The
     AdamW path is not ported (ROADMAP Queue 1 item 7)."""
+    if cfg.telemetry and not cfg.lion:
+        raise ValueError(
+            "--telemetry instruments the majority-vote election; the AdamW "
+            "path has no vote to observe — drop one of the two flags")
     if not cfg.lion:
         if cfg.async_grad:
             raise ValueError(
@@ -139,6 +147,7 @@ def make_optimizer(cfg: TrainConfig, group=None):
         weight_decay=cfg.weight_decay, group=group,
         wire="sign_psum" if cfg.wire == "auto" else cfg.wire,
         vote_every=cfg.vote_every or 1, vote_buckets=cfg.vote_buckets or 1,
+        telemetry=cfg.telemetry,
     )
 
 
@@ -158,6 +167,9 @@ class Trainer:
         self.n_params = self.flat.numel
         self.opt = make_optimizer(cfg, group)
         self.state = self.opt.init(self.flat)
+        self.margin_exact = telemetry.tally_wire(cfg.wire)
+        self.vote_health = (telemetry.init_vote_health(self.n_params, self.device)
+                            if cfg.telemetry else None)
         self._schedule = cfg.schedule()
         self.step_count = 0
         self.history: list[dict] = []
@@ -218,7 +230,12 @@ class Trainer:
                 scale = torch.clamp_max(
                     cfg.grad_clip_norm / torch.clamp_min(torch.sqrt(sq), 1e-12), 1.0)
                 self.flat.grads.mul_(scale.to(self.flat.grads.dtype))
-        self.state = self.opt.step(self.flat, self.state)
+        if self.vote_health is None:
+            self.state = self.opt.step(self.flat, self.state)
+        else:
+            self.state, frame = self.opt.step(self.flat, self.state)
+            self.vote_health = telemetry.fold(self.vote_health, frame, self.group,
+                                              self.world, self.n_params)
         return {k: v / accum for k, v in sums.items()}
 
     def _mean_over_ranks(self, metrics: dict) -> dict:
@@ -250,6 +267,12 @@ class Trainer:
                 m["tokens_per_sec"] = tokens_per_step * steps / max(now - t_last, 1e-9)
                 m["lr"] = float(self._schedule(torch.tensor(self.step_count - 1)))
                 t_last, s_last = now, self.step_count
+                if self.vote_health is not None:
+                    # the interval's one telemetry host read; the previous
+                    # election carries over so flip rates stay continuous
+                    vote = telemetry.drain(self.vote_health, self.margin_exact)
+                    self.vote_health = telemetry.reset_counters(self.vote_health)
+                    m.update({f"vote/{k}": v for k, v in vote.items()})
                 self.history.append({"step": self.step_count, **m})
                 if self.rank == 0:
                     self.logger.log(self.step_count, m, prefix="train")

@@ -107,10 +107,10 @@ def test_refused_options_name_their_roadmap_item():
     for kw, item in ((dict(max_grad_norm=1.0), "Queue 1 item 4"),
                      (dict(vote_every=4), "Queue 1 item 4"),
                      (dict(dcn_pipeline_depth=1), "Queue 1 item 11"),
-                     (dict(guard="enforce"), "Queue 1 item 10"),
-                     (dict(telemetry=True), "Queue 1 item 10")):
+                     (dict(guard="enforce"), "Queue 1 item 10")):
         with pytest.raises(NotImplementedError, match=item):
             distributed_lion(0.01, **kw)
+    assert distributed_lion(0.01, telemetry=True).telemetry  # ported: no longer refused
     assert isinstance(distributed_lion(0.01, axis_name=None), Lion)
     with pytest.raises(ValueError, match="requires a vote axis"):
         distributed_lion(0.01, axis_name=None, max_grad_norm=1.0)

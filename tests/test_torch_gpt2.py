@@ -36,7 +36,7 @@ from distributed_lion_tpu_torch.cli import run_clm
 from distributed_lion_tpu_torch.data.sources import batch_iterator, synthetic_lm_dataset
 from distributed_lion_tpu_torch.models.gpt2 import GPT2, GPT2Config
 from distributed_lion_tpu_torch.models.loss import clm_loss_and_metrics
-from distributed_lion_tpu_torch.ops.attention import attention_xla
+from distributed_lion_tpu_torch.ops.attention import attention_xla, resolve_impl
 from distributed_lion_tpu_torch.ops.products import matmul_f32
 from distributed_lion_tpu_torch.train.loop import TrainConfig, Trainer
 from distributed_lion_tpu_torch.utils.serialization import (
@@ -233,12 +233,11 @@ def test_run_clm_writes_a_model_the_jax_package_reproduces(tmp_path, monkeypatch
 
 def test_unported_options_refused():
     with pytest.raises(SystemExit):  # not a flag of the port: argparse refuses it
-        run_clm.main(["--telemetry"])
+        run_clm.main(["--vote_guard", "enforce"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         run_clm.model_config(run_clm.ModelArguments(model_family="llama"))
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        GPT2(GPT2Config.tiny(attn_impl="flash", compute_dtype=torch.float32),
-             device="cpu")(torch.zeros(1, 8, dtype=torch.long))
+    with pytest.raises(NotImplementedError, match="Queue 2 item 4"):  # float32 flash on the card
+        resolve_impl("flash", "cuda", 1024, 64, torch.float32)
     with pytest.raises(NotImplementedError, match="AdamW"):
         Trainer.for_gpt2(TrainConfig(lion=False, async_grad=False), GPT2Config.tiny(),
                          device="cpu")

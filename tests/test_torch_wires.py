@@ -37,7 +37,11 @@ def _rank(rank, world, init, out, g, m, p):
         for wire in WIRES:
             tally = collectives.WireTally()
             ballots = fused_lion.fused_ballots(gt, mt, 0.9)
+            before = ballots.clone()
+            kept = collectives.vote_total(ballots, wire, dist.group.WORLD, keep_ballots=True)
+            assert torch.equal(ballots, before), f"{wire}: keep_ballots wrote the ballots"
             tot = collectives.vote_total(ballots, wire, dist.group.WORLD, tally)
+            assert torch.equal(tot, kept), f"{wire}: the kept ballots' tally differs"
             np.save(f"{out}/{wire}_elected_{rank}.npy", (tot > 0).numpy())
             np.save(f"{out}/{wire}_bytes_{rank}.npy", np.int64(tally.total()))
 
