@@ -5,9 +5,13 @@
 Phases (none of their failures is caught; any one fails the run):
 
 1. Card check: CUDA must be present; prints the card's name and power limit.
-   The CUDA kernels (``csrc/flash_attention.cu``) are built with ``nvcc``
-   into ``build/cuda/`` first, and the compiler's per-kernel register and
-   spill report is printed.
+   The CUDA kernels (``csrc/flash_attention.cu`` with ``csrc/hopper.cuh``)
+   are built with ``nvcc`` into ``build/cuda/`` first, and the compiler's
+   per-kernel register and spill report is printed. The forward and dK/dV
+   kernels must spill no byte, and ``cuobjdump -sass`` of the library must
+   show ``HGMMA`` (wgmma), ``UTMALDG`` (TMA loads) and no ``HMMA``
+   (``mma.sync``, as ``nvcuda::wmma`` compiles) in each of them; the
+   counts are printed for the dQ kernel too.
 2. Kernel phase, optimizer: each Triton kernel (``ops/fused_lion.py``)
    against its plain PyTorch version on the card, at the main path's size
    (GPT-2 124M, 124,439,808 coordinates) and at a ragged 1,000,003:
@@ -16,8 +20,9 @@ Phases (none of their failures is caught; any one fails the run):
    tally) and of 4 (int8 and int32). Outputs must be ``torch.equal``.
 3. Kernel phase, attention: the three flash kernels
    (``ops/flash_attention.py``) at the main path's shape (B 8, H 12,
-   T 1024, head_dim 64, bfloat16, q/k/v/do as transposed views) and at a
-   ragged T = 1000, against the plain versions and against a float64
+   T 1024, head_dim 64, bfloat16, q/k/v/do as transposed views), at a
+   ragged T = 1000, and at B 2, H 3 with T 40 (shorter than one tile) and
+   130, against the plain versions and against a float64
    reference built from the same bfloat16 inputs. Criterion: for every
    output X (o, lse, dq, dk, dv),
    ``max|X_kernel - X_f64| <= 2 * max|X_plain - X_f64| + slack``, where
@@ -26,9 +31,12 @@ Phases (none of their failures is caught; any one fails the run):
    kernels run twice: on the plain forward's o and lse (the plain
    backward's inputs), and on the forward kernel's own o and lse, as
    training chains them; both are held to the plain backward's error.
-   ``torch.nn.functional.scaled_dot_product_attention`` is timed beside
-   them (forward, and backward) as the library yardstick; the port never
-   calls it.
+   Each kernel called twice on the same inputs must give the same bits
+   (``torch.equal``). ``torch.nn.functional.scaled_dot_product_attention``
+   is timed beside them as the library yardstick (the port never calls
+   it): the forward, and the backward with a fresh graph for each timed
+   call (its forward runs before the start event), each as median and
+   minimum. Each kernel's TFLOP/s is its causal operations over its time.
 4. Slice phase, in one 1-rank NCCL process group: each flat vote wire must
    return the rank's own ballots as the tally; then ``cli.run_clm.main``
    trains GPT-2 124M at full width (T = 1024, float32 params, bfloat16
@@ -46,14 +54,23 @@ Phases (none of their failures is caught; any one fails the run):
    model's eval loss through flash must be finite and within 0.002 of its
    eval loss through ``attention_xla``. (c) ``--dropout 0`` alone: (b)'s
    flash counts and no ``bucket_vote_stats``, so (b) - (c) is the cost of
-   telemetry. The wire check also times ``sign_psum`` at the main path's
+   telemetry. After (c), ``torch.profiler`` traces one forward + backward
+   microbatch of (c)'s model (B 8, T 1024, bfloat16 compute, dropout 0,
+   remat), recording device activity only, and prints the ten device
+   kernels with the most time and the flash kernels wherever they rank
+   (total ms, calls), and the device's idle
+   share over the traced window (1 - the union of device activity over
+   the window from the first to the last device event), beside three
+   unprofiled microbatches timed on the host clock. The wire check also times ``sign_psum`` at the main path's
    size with and without the copy that keeps the ballots (telemetry's
    case). Before the runs a tiny float32
    model's logits on the card must match the CPU's, and the float32-result
    products (``ops/products.py``) must agree with float64 products of the
    same bfloat16 operands to 1/16 of a bfloat16 ulp of the largest value.
 
-Times are medians of 25 CUDA-event runs after 3 warm-up calls. Bounds are
+Times are medians of 25 CUDA-event runs after 3 warm-up calls, queued
+while the card sleeps (``torch.cuda._sleep``) so that they time the card's
+work and not the host's launches. Bounds are
 the larger of bytes moved (each input read once, each output written once)
 over the card's data-sheet bandwidth and the operations done (causal
 products counted over the pairs k <= q only) over its data-sheet bfloat16
@@ -76,6 +93,7 @@ import torch.nn.functional as F
 
 from distributed_lion_tpu_torch.cli import run_clm
 from distributed_lion_tpu_torch.models.gpt2 import GPT2, GPT2Config
+from distributed_lion_tpu_torch.models.loss import clm_loss_and_metrics
 from distributed_lion_tpu_torch.ops import cuda_build, fused_lion
 from distributed_lion_tpu_torch.ops import flash_attention as fa
 from distributed_lion_tpu_torch.ops.codec import bucket_bounds
@@ -86,15 +104,23 @@ N_MAIN = 124_439_808   # GPT-2 124M coordinates: the main path's window
 N_RAGGED = 1_000_003
 FLASH_B, FLASH_H, FLASH_D = 8, 12, 64   # the slice's microbatch at GPT-2 width
 FLASH_TS = (1024, 1000)                 # the main path's T, and a ragged one
+FLASH_SMALL = ((2, 3, 40), (2, 3, 130))  # (B, H, T): shorter than one tile, one tile and a bit
 STEPS = 3
 ACCUM = 2
 EVAL_BATCHES = 2
 N_LAYER = 12
 RUNS = 25
+AHEAD_CYCLES = 50_000_000   # about 30 ms of the card's clock: the host queues the timed calls
 
 # data-sheet HBM bandwidth (bytes/s) and dense bfloat16 tensor rate (FLOP/s)
 CARDS = [("H200", 4.8e12, 989e12), ("H100 PCIe", 2.0e12, 756e12),
          ("H100 NVL", 3.9e12, 835e12), ("H100", 3.35e12, 989e12)]
+
+# the kernels redesigned for Hopper (TMA ring, wgmma): their SASS must show
+# both, and mma.sync nowhere
+HOPPER_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel")
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+PROFILE_TOP = 10
 
 KERNELS = ("fused_ballots", "fused_apply", "bucket_vote_stats", "flash_attention_fwd",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
@@ -128,17 +154,39 @@ def card_rates(name: str) -> tuple[float, float]:
 
 def time_ms(fn, runs=RUNS) -> float:
     """Median CUDA-event time of ``fn`` over ``runs`` launches, after three
-    warm-up calls."""
+    warm-up calls; the card sleeps while the host queues them."""
     for _ in range(3):
         fn()
     events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
               for _ in range(runs)]
+    torch.cuda._sleep(AHEAD_CYCLES)
     for start, end in events:
         start.record()
         fn()
         end.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def time_fresh_ms(setup, fn, runs=RUNS) -> tuple[float, float]:
+    """(median, minimum) CUDA-event time of ``fn(setup())`` over ``runs``
+    calls, each after its own ``setup()``, which is not timed (its work is
+    queued before the start event, and the card sleeps while the host
+    queues the call), after three warm-up calls."""
+    for _ in range(3):
+        fn(setup())
+    times = []
+    for _ in range(runs):
+        arg = setup()
+        torch.cuda._sleep(AHEAD_CYCLES // 16)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(arg)
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    ms = [s.elapsed_time(e) for s, e in times]
+    return statistics.median(ms), min(ms)
 
 
 def bound(nbytes: float, flops: float, rates) -> tuple[float, str]:
@@ -149,12 +197,31 @@ def bound(nbytes: float, flops: float, rates) -> tuple[float, str]:
 
 
 def build_cuda_kernels():
+    """Build the flash library; check the redesigned kernels' spills and
+    SASS."""
     t0 = time.perf_counter()
     lib = cuda_build.build(cuda_build.CSRC / "flash_attention.cu")
     print(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+    log = lib.with_suffix(".log").read_text()
+    for line in log.splitlines():
+        if ("registers" in line or "spill" in line or "Compiling entry" in line
+                or "warning" in line):
             print(f"[build] {line.strip()}", flush=True)
+    spills = cuda_build.ptxas_spills(log)
+    for kernel in HOPPER_KERNELS:
+        found = [v for name, v in spills.items() if kernel in name]
+        if len(found) != 1 or found[0] != (0, 0):
+            raise AssertionError(f"{kernel}: spill bytes (stores, loads) {found} in the ptxas "
+                                 "report, expected one entry of (0, 0)")
+    counts = cuda_build.sass_counts(lib, HOPPER_KERNELS + ("flash_bwd_dq_kernel",), SASS_OPS)
+    for kernel, ops in counts.items():
+        print(f"[sass] {kernel}: " + ", ".join(f"{op} {n}" for op, n in ops.items()),
+              flush=True)
+    for kernel in HOPPER_KERNELS:
+        ops = counts[kernel]
+        if ops["HGMMA"] == 0 or ops["UTMALDG"] == 0 or ops["HMMA"] != 0:
+            raise AssertionError(f"{kernel}: SASS {ops}: expected wgmma (HGMMA) and TMA loads "
+                                 "(UTMALDG), and no mma.sync (HMMA)")
 
 
 def optimizer_kernel_phase(gen, rates):
@@ -249,10 +316,10 @@ def optimizer_kernel_phase(gen, rates):
     return rec, err
 
 
-def flash_inputs(gen, T):
+def flash_inputs(gen, T, B=FLASH_B, H=FLASH_H):
     """q, k, v as the model makes them (transposed views of one [B, T, 3, d]
     projection) and do as a transposed view of [B, T, H, hd]."""
-    B, H, D = FLASH_B, FLASH_H, FLASH_D
+    D = FLASH_D
     qkv = torch.randn(B, T, 3, H * D, generator=gen, device="cuda").bfloat16()
     q, k, v = (qkv[:, :, i].reshape(B, T, H, D).transpose(1, 2) for i in range(3))
     do = torch.randn(B, T, H, D, generator=gen, device="cuda").bfloat16().transpose(1, 2)
@@ -306,15 +373,16 @@ def flash_check(T, name, got, plain, want) -> float:
 
 
 def flash_kernel_phase(gen, rates):
-    """Check the three flash kernels at both T; time them at the main T."""
+    """Check the three flash kernels at every shape; time them at the main one."""
     rec = {}
     err = {k: 0.0 for k in ("flash_attention_fwd", "flash_attention_bwd_dkv",
                             "flash_attention_bwd_dq")}
     owner = {"o": "flash_attention_fwd", "lse": "flash_attention_fwd",
              "dk": "flash_attention_bwd_dkv", "dv": "flash_attention_bwd_dkv",
              "dq": "flash_attention_bwd_dq"}
-    for T in FLASH_TS:
-        q, k, v, do = flash_inputs(gen, T)
+    shapes = [(FLASH_B, FLASH_H, T) for T in FLASH_TS] + list(FLASH_SMALL)
+    for B, H, T in shapes:
+        q, k, v, do = flash_inputs(gen, T, B, H)
         o, lse = fa.flash_attention_fwd(q, k, v)
         op, lp = fa.flash_attention_fwd_plain(q, k, v)
         di = fa.attention_di(op, do)
@@ -335,11 +403,22 @@ def flash_kernel_phase(gen, rates):
         dq_k = fa.flash_attention_bwd_dq(q, k, v, do, lse, di_k)
         for name, got in (("dq", dq_k), ("dk", dk_k), ("dv", dv_k)):
             flash_check(T, f"{name} (after the forward kernel)", got, plain[name], ref[name])
-        del ref, kern, plain, di_k, dk_k, dv_k, dq_k
-        if T != FLASH_TS[0]:
+        # the same inputs again: the same bits
+        o2, lse2 = fa.flash_attention_fwd(q, k, v)
+        dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lp, di)
+        dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lp, di)
+        torch.cuda.synchronize()
+        again = {"o": (o, o2), "lse": (lse, lse2), "dk": (dk, dk2), "dv": (dv, dv2),
+                 "dq": (dq, dq2)}
+        differ = [name for name, (a, b) in again.items() if not torch.equal(a, b)]
+        if differ:
+            raise AssertionError(f"flash at T={T}: a second call differs in {differ}")
+        print(f"[flash] T={T}: a second call gives the same bits in {list(again)}", flush=True)
+        del ref, kern, plain, di_k, dk_k, dv_k, dq_k, again, o2, lse2, dk2, dv2, dq2
+        if (B, H, T) != shapes[0]:
             continue
 
-        B, H, D = FLASH_B, FLASH_H, FLASH_D
+        D = FLASH_D
         pairs = B * H * T * (T + 1) / 2   # (q, k) pairs with k <= q
         elem = B * H * T * D * 2          # one bfloat16 [B, H, T, D] tensor
         row = B * H * T * 4               # one float32 [B, H, T] tensor
@@ -357,23 +436,27 @@ def flash_kernel_phase(gen, rates):
                 5 * elem + 2 * row, 3 * 2 * D * pairs),
         }
         ql, kl, vl = (x.detach().clone().requires_grad_() for x in (q, k, v))
-        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
-        out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
-        lib_bwd = time_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True))
+        lib_fwd, lib_fwd_min = time_fresh_ms(
+            lambda: None, lambda _: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+        lib_bwd, lib_bwd_min = time_fresh_ms(
+            lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=True),
+            lambda out: torch.autograd.grad(out, (ql, kl, vl), do))
         lib_both = time_ms(lambda: torch.autograd.grad(
             F.scaled_dot_product_attention(ql, kl, vl, is_causal=True), (ql, kl, vl), do))
         print(f"[library] scaled_dot_product_attention causal B{B} H{H} T{T} hd{D}: "
-              f"forward {lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms, forward + backward "
+              f"forward {lib_fwd:.4f} ms (min {lib_fwd_min:.4f}), backward {lib_bwd:.4f} ms "
+              f"(min {lib_bwd_min:.4f}; a fresh graph per call), forward + backward "
               f"{lib_both:.4f} ms", flush=True)
         for name, (kern_fn, plain_fn, nbytes, flops) in cases.items():
             ms, plain_ms = time_ms(kern_fn), time_ms(plain_fn)
             bms, by = bound(nbytes, flops, rates)
             library = lib_fwd if name == "flash_attention_fwd" else lib_bwd
-            print(f"[kernel] {name} B{B} H{H} T{T} hd{D}: {ms:.4f} ms (bound {bms:.4f} ms "
-                  f"by {by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; plain "
-                  f"{plain_ms:.4f} ms; library {library:.4f} ms)", flush=True)
+            print(f"[kernel] {name} B{B} H{H} T{T} hd{D}: {ms:.4f} ms, "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s (bound {bms:.4f} ms by {by}: "
+                  f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; plain {plain_ms:.4f} ms; "
+                  f"library {library:.4f} ms)", flush=True)
             rec[name] = (ms, plain_ms, bms, by, library)
-        del out, ql, kl, vl
+        del ql, kl, vl
         torch.cuda.empty_cache()
     return rec, err
 
@@ -437,6 +520,58 @@ def wire_check(gen):
             in_place = time_ms(lambda: collectives.vote_total(ballots, "sign_psum", group))
             print(f"[wire] sign_psum n={n}: {kept:.4f} ms keeping the ballots (a copy), "
                   f"{in_place:.4f} ms in place", flush=True)
+
+
+def profile_step(model, gen) -> None:
+    """``torch.profiler`` over one forward + backward microbatch of ``model``
+    at the slice's shape; prints the top device kernels and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    tokens = torch.randint(0, model.cfg.vocab_size, (8, 1024), generator=gen, device="cuda")
+
+    def microbatch():
+        loss, _ = clm_loss_and_metrics(model(tokens, 0), tokens)
+        loss.backward()
+        return loss
+
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        microbatch()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    # device activity only: tracing the host's ops would slow the host
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        loss = microbatch()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        print("[profile] torch.profiler recorded no device activity: kernel times and the "
+              "idle share not measured", flush=True)
+        return
+    per_name: dict = {}
+    for e in device:
+        total, calls = per_name.get(e.name, (0.0, 0))
+        per_name[e.name] = (total + e.time_range.elapsed_us(), calls + 1)
+    start = min(e.time_range.start for e in device)
+    end = max(e.time_range.end for e in device)
+    busy, reach = 0.0, start
+    for e in sorted(device, key=lambda e: e.time_range.start):
+        lo, hi = max(e.time_range.start, reach), e.time_range.end
+        if hi > lo:
+            busy += hi - lo
+            reach = hi
+    window = end - start
+    print(f"[profile] one forward + backward microbatch, B 8 T 1024, loss {loss.item():.4f}: "
+          f"window {window / 1e3:.3f} ms (first to last device event; unprofiled "
+          f"microbatches {', '.join(f'{w:.3f}' for w in walls)} ms on the host clock), "
+          f"device busy {busy / 1e3:.3f} ms, idle share {1 - busy / window:.4f}, "
+          f"{len(device)} device events", flush=True)
+    ranked = sorted(per_name.items(), key=lambda kv: -kv[1][0])
+    for rank, (name, (total, calls)) in enumerate(ranked, 1):
+        if rank <= PROFILE_TOP or "flash_" in name:   # the top, and the port's flash kernels
+            print(f"[profile] #{rank:<3d} {total / 1e3:9.3f} ms {calls:5d} calls  {name[:110]}",
+                  flush=True)
 
 
 SLICE_ARGS = ["--model_name", "gpt2_124m", "--dataset", "synthetic",
@@ -513,8 +648,10 @@ def slice_phase(tmp, gen):
         world, wire, buckets_cfg = trainer.world, trainer.cfg.wire, trainer.cfg.vote_buckets
         del trainer
         torch.cuda.empty_cache()
-        _, plain_rows, plain_launches = run_counted(["--dropout", "0"])
+        plain, plain_rows, plain_launches = run_counted(["--dropout", "0"])
         expect("dropout 0", plain_launches, dict(launches, bucket_vote_stats=0))
+        profile_step(plain.model, gen)
+        del plain
     finally:
         dist.destroy_process_group()
     return (world, wire, buckets_cfg), [

@@ -16,27 +16,40 @@
 //
 // Bound: at GPT-2 124M's shape (B 8, H 12, T 1024, D 64) the forward moves
 // 50.7 MB and does 12.9 GFLOP of causal products, so on an H100 SXM it is
-// bytes-bound (0.015 ms) and the backward is operations-bound. This first
-// version is simple rather than fast: one block of 4 warps per (b*h, 64-row
-// tile), tiles staged in shared memory by plain 16-byte loads, bf16
-// tensor-core products through nvcuda::wmma (16x16x16, float32 sums), and
-// the softmax in float32 through shared memory. No TMA, no wgmma, no
-// pipelining; that is later work.
+// bytes-bound (0.015 ms) and the backward is operations-bound.
 //
-// Forward (one block per query tile): loops over key tiles up to the
-// diagonal with an online softmax (running max and sum per row, float32);
-// P is rounded to bf16 before P.V, as the plain version rounds the
-// probabilities before its value product.
-// dK/dV (one block per key tile): loops over query tiles from the diagonal
-// to T, recomputing P^T = exp(s^T - lse) and dS^T = P^T * (dP^T - di).
-// dQ (one block per query tile): loops over key tiles up to the diagonal.
-// Each output element is summed by one block, so no atomics are needed and
-// the results are deterministic.
+// Forward and dK/dV (Hopper design, hopper.cuh): one block of three
+// warpgroups. Warpgroup 0 is the producer: one thread issues TMA loads of
+// the tiles (128-byte swizzle, rows past T zero-filled) into a ring of
+// STAGES buffers, each with a full and an empty mbarrier, and the
+// warpgroup gives its registers to the consumers (setmaxnreg). Warpgroups 1
+// and 2 are consumers of 64 rows each: their products are wgmma (bf16,
+// float32 sums in registers), both operands from swizzled shared memory for
+// the scores, and for the second product A from registers (P or dS rounded
+// to bf16 in the accumulator's own layout) and B read MN-major. Scores,
+// softmax and the masks stay in registers; no score tile goes through shared
+// memory. One block per SM (registers bound it); the ring and the
+// asynchronous wgmma hide the latency that resident blocks hid before.
+// - forward: a block per 128 queries walks key tiles of 128 up to the
+//   diagonal (the only masked tile) with an online softmax in the exp2
+//   domain; the row max and sum are shared by the 4 threads of a row by
+//   shuffles. o = O / l, lse = m + log(l) in natural log.
+// - dK/dV: a block per 128 keys holds K and V in shared memory and streams
+//   query tiles of 64 (with their lse and di) from the diagonal to T;
+//   P^T = exp(s^T - lse) and dS^T = P^T (dP^T - di) in registers, then
+//   dV += P^T.dO and dK += dS^T.Q.
+// dQ (one block per 64-row query tile, 4 warps) is still the first design:
+// tiles staged by plain 16-byte loads, nvcuda::wmma 16x16x16 products, the
+// scores through shared memory in float32.
 //
-// Causal masking is applied inside the diagonal tile, and a T that is not a
-// multiple of the tile is masked in the kernel (rows past T load as zeros
-// and are never written). head_dim is a template parameter; only D = 64 is
+// Every output element is summed by one block in a fixed order: no atomics,
+// and the results are the same bits from run to run. P and dS are rounded to
+// bf16 before their products, as the plain versions round them. Causal
+// masking is applied on the diagonal tiles, rows past T load as zeros and
+// are never written. head_dim is a template parameter; only D = 64 is
 // instantiated.
+
+#include "hopper.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,6 +62,362 @@ using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 namespace {
+
+// ------------------------------------------------- forward and dK/dV (Hopper)
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+constexpr int WG_THREADS = 128;
+constexpr int HOPPER_THREADS = 3 * WG_THREADS;  // a producer and two consumer warpgroups
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;  // 128 x 40 + 256 x 232 = 64,512 of the SM's 65,536
+constexpr int STAGES = 2;
+
+// Forward tiles: 128 queries per block (64 per consumer warpgroup), key
+// tiles of 128, so the diagonal is one tile.
+constexpr int FWD_BM = 128;
+constexpr int FWD_BN = 128;
+
+template <int D>
+struct FwdSmem {  // byte offsets from a 1024-byte boundary
+  static constexpr int TILE = FWD_BN * D * 2;
+  static constexpr int Q = 0;
+  static constexpr int K = Q + FWD_BM * D * 2;
+  static constexpr int V = K + STAGES * TILE;
+  static constexpr int BARS = V + STAGES * TILE;  // q_full, full[STAGES], empty[STAGES]
+  static constexpr int BYTES = BARS + (1 + 2 * STAGES) * 8 + hopper::SW128_ATOM_BYTES;
+};
+
+// dK/dV tiles: 128 keys per block (64 per consumer warpgroup), query tiles
+// of 64 streamed through the ring with their lse and di rows.
+constexpr int DKV_BN = 128;
+constexpr int DKV_BQ = 64;
+
+template <int D>
+struct DkvSmem {
+  static constexpr int TILE = DKV_BQ * D * 2;
+  static constexpr int K = 0;
+  static constexpr int V = K + DKV_BN * D * 2;
+  static constexpr int Q = V + DKV_BN * D * 2;
+  static constexpr int DO = Q + STAGES * TILE;
+  static constexpr int LSE = DO + STAGES * TILE;         // float [STAGES][DKV_BQ], lse * log2(e)
+  static constexpr int DI = LSE + STAGES * DKV_BQ * 4;   // float [STAGES][DKV_BQ]
+  static constexpr int BARS = DI + STAGES * DKV_BQ * 4;  // kv_full, full[STAGES], empty[STAGES]
+  static constexpr int BYTES = BARS + (1 + 2 * STAGES) * 8 + hopper::SW128_ATOM_BYTES;
+};
+
+// Row max and row sum over the 4 threads that hold one accumulator row.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Writes a consumer warpgroup's m64n64 accumulator times `mul` as bf16 rows
+// [row0, row0 + 64) of out (contiguous [T, 64] of one (b, h)); rows at or
+// past T are not written.
+__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[32], const float (&mul)[2],
+                                           int row0, int T) {
+  const int t = threadIdx.x % WG_THREADS, lane = t % 32;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 16 * (t / 32) + lane / 4 + 8 * h;
+    if (row >= T) continue;
+    bf16* dst = out + (long long)row * 64 + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h] * mul[h], acc[4 * j + 2 * h + 1] * mul[h]);
+  }
+}
+
+// One block per (b*h, 128-query tile); blockIdx.x is b*h and blockIdx.y
+// counts tiles from the last (the longest rows) down, so the longest start
+// first. Warpgroup 0 loads Q once and K/V tiles 0..tile into the ring;
+// warpgroups 1 and 2 each own 64 query rows.
+template <int D>
+__global__ void __launch_bounds__(HOPPER_THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                 float* __restrict__ lse, int H, int T, float scale_log2) {
+  static_assert(D == 64, "one 128-byte swizzle row per tile row: head_dim 64");
+  using L = FwdSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hopper::align_1024(smem_raw);
+  bf16* sQ = reinterpret_cast<bf16*>(smem + L::Q);
+  bf16* sK = reinterpret_cast<bf16*>(smem + L::K);
+  bf16* sV = reinterpret_cast<bf16*>(smem + L::V);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int tile = gridDim.y - 1 - blockIdx.y;
+  const int q0 = tile * FWD_BM;
+  const int wg = threadIdx.x / WG_THREADS;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2 * WG_THREADS);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_arrive_expect_tx(q_full, FWD_BM * D * 2);
+      hopper::tma_load_4d(sQ, &tq, q_full, 0, q0, h, b);
+      for (int j = 0; j <= tile; ++j) {
+        const int s = j % STAGES;
+        hopper::mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[s], 2 * L::TILE);
+        hopper::tma_load_4d(sK + s * FWD_BN * D, &tk, &full[s], 0, j * FWD_BN, h, b);
+        hopper::tma_load_4d(sV + s * FWD_BN * D, &tv, &full[s], 0, j * FWD_BN, h, b);
+      }
+    }
+  } else {
+    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    const int t = threadIdx.x % WG_THREADS, lane = t % 32;
+    const int row0 = 64 * (wg - 1);                 // this warpgroup's first row in the tile
+    const int r = row0 + 16 * (t / 32) + lane / 4;  // rows r and r + 8 of the tile
+    const bf16* sQw = sQ + row0 * D;
+
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+    float m[2] = {-INFINITY, -INFINITY};  // running max of scale * log2(e) * s
+    float l[2] = {0.0f, 0.0f};             // this thread's part of the running sum
+    hopper::mbar_wait(q_full, 0);
+
+    for (int j = 0; j <= tile; ++j) {
+      const int s = j % STAGES;
+      const bf16* sKs = sK + s * FWD_BN * D;
+      const bf16* sVs = sV + s * FWD_BN * D;
+      hopper::mbar_wait(&full[s], (j / STAGES) & 1);
+
+      float S[64];  // S = Q K^T: 64 rows x 128 keys
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_m64n128k16_ss<0>(S, hopper::desc_k_major(sQw, kk),
+                                       hopper::desc_k_major(sKs, kk), kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(S);
+
+      if (j == tile) {  // the diagonal tile: key column c is masked past row r
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const int c = 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+          if (c > r + 8 * ((i / 2) % 2)) S[i] = -INFINITY;
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int jj = 0; jj < 16; ++jj)
+          mx = fmaxf(mx, fmaxf(S[4 * jj + 2 * hr], S[4 * jj + 2 * hr + 1]));
+        // finite: key 0 of a row's first tile is never masked
+        const float m_new = fmaxf(m[hr], quad_max(mx) * scale_log2);
+        alpha[hr] = exp2f(m[hr] - m_new);
+        m[hr] = m_new;
+      }
+      float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int hr = (i / 2) % 2;
+        S[i] = exp2f(S[i] * scale_log2 - m[hr]);
+        sum[hr] += S[i];
+      }
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) l[hr] = l[hr] * alpha[hr] + sum[hr];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] *= alpha[(i / 2) % 2];
+
+      uint32_t pa[8][4];  // P rounded to bf16, as the A operand of P V
+      hopper::a_fragments(S, pa);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < FWD_BN / 16; ++kk)
+        hopper::wgmma_m64n64k16_rs<1>(acc, pa[kk], hopper::desc_mn_major(sVs, kk), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      hopper::mbar_arrive(&empty[s]);
+    }
+
+    float inv[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      l[hr] = quad_sum(l[hr]);
+      inv[hr] = 1.0f / l[hr];
+    }
+    store_rows(o + (long long)bh * T * D, acc, inv, q0 + row0, T);
+    if (lane % 4 == 0) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int qi = q0 + r + 8 * hr;
+        if (qi < T) lse[(long long)bh * T + qi] = m[hr] * LN2 + logf(l[hr]);
+      }
+    }
+  }
+}
+
+// One block per (b*h, 128-key tile); blockIdx.y counts key tiles from the
+// first (the most query tiles) up. Warpgroup 0 loads K and V once, then its
+// warp 0 streams the Q and dO tiles from the diagonal to T by TMA while its
+// warp 1 stages each tile's lse (times log2(e)) and di rows; warpgroups 1
+// and 2 each own 64 keys and hold their dK and dV in registers.
+template <int D>
+__global__ void __launch_bounds__(HOPPER_THREADS, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                     const float* __restrict__ lse, const float* __restrict__ di,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int T, float scale,
+                     float scale_log2) {
+  static_assert(D == 64, "one 128-byte swizzle row per tile row: head_dim 64");
+  using L = DkvSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hopper::align_1024(smem_raw);
+  bf16* sK = reinterpret_cast<bf16*>(smem + L::K);
+  bf16* sV = reinterpret_cast<bf16*>(smem + L::V);
+  bf16* sQ = reinterpret_cast<bf16*>(smem + L::Q);
+  bf16* sdO = reinterpret_cast<bf16*>(smem + L::DO);
+  float* sLse = reinterpret_cast<float*>(smem + L::LSE);
+  float* sDi = reinterpret_cast<float*>(smem + L::DI);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * DKV_BN;
+  const int first = k0 / DKV_BQ;                  // the first query tile: the diagonal
+  const int n_tiles = (T + DKV_BQ - 1) / DKV_BQ;  // query tiles first..n_tiles-1
+  const int wg = threadIdx.x / WG_THREADS;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1 + 32);  // the TMA thread and the 32 lanes staging lse, di
+      hopper::mbar_init(&empty[s], 2 * WG_THREADS);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (warp == 0 && lane == 0) {
+      hopper::mbar_arrive_expect_tx(kv_full, 2 * DKV_BN * D * 2);
+      hopper::tma_load_4d(sK, &tk, kv_full, 0, k0, h, b);
+      hopper::tma_load_4d(sV, &tv, kv_full, 0, k0, h, b);
+      for (int it = first; it < n_tiles; ++it) {
+        const int n = it - first, s = n % STAGES;
+        hopper::mbar_wait(&empty[s], ((n / STAGES) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[s], 2 * L::TILE);
+        hopper::tma_load_4d(sQ + s * DKV_BQ * D, &tq, &full[s], 0, it * DKV_BQ, h, b);
+        hopper::tma_load_4d(sdO + s * DKV_BQ * D, &tdo, &full[s], 0, it * DKV_BQ, h, b);
+      }
+    } else if (warp == 1) {
+      const float* lse_bh = lse + (long long)bh * T;
+      const float* di_bh = di + (long long)bh * T;
+      for (int it = first; it < n_tiles; ++it) {
+        const int n = it - first, s = n % STAGES;
+        hopper::mbar_wait(&empty[s], ((n / STAGES) & 1) ^ 1);
+#pragma unroll
+        for (int c = lane; c < DKV_BQ; c += 32) {
+          const int qi = it * DKV_BQ + c;
+          sLse[s * DKV_BQ + c] = qi < T ? lse_bh[qi] * LOG2E : 0.0f;
+          sDi[s * DKV_BQ + c] = qi < T ? di_bh[qi] : 0.0f;
+        }
+        hopper::mbar_arrive(&full[s]);
+      }
+    }
+  } else {
+    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    const int t = threadIdx.x % WG_THREADS, lane = t % 32;
+    const int key0 = k0 + 64 * (wg - 1);               // this warpgroup's first key
+    const int kr = key0 + 16 * (t / 32) + lane / 4;  // keys kr and kr + 8
+    const bf16* sKw = sK + 64 * (wg - 1) * D;
+    const bf16* sVw = sV + 64 * (wg - 1) * D;
+
+    float dK[32], dV[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dK[i] = dV[i] = 0.0f;
+    hopper::mbar_wait(kv_full, 0);
+
+    for (int it = first; it < n_tiles; ++it) {
+      const int n = it - first, s = n % STAGES;
+      hopper::mbar_wait(&full[s], (n / STAGES) & 1);
+      if (it * DKV_BQ + DKV_BQ <= key0) {  // every query of the tile precedes these keys
+        hopper::mbar_arrive(&empty[s]);
+        continue;
+      }
+      const bf16* sQs = sQ + s * DKV_BQ * D;
+      const bf16* sdOs = sdO + s * DKV_BQ * D;
+      const float* lse_s = sLse + s * DKV_BQ;
+      const float* di_s = sDi + s * DKV_BQ;
+
+      float St[32], dPt[32];  // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_m64n64k16_ss<0>(St, hopper::desc_k_major(sKw, kk),
+                                      hopper::desc_k_major(sQs, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_m64n64k16_ss<0>(dPt, hopper::desc_k_major(sVw, kk),
+                                      hopper::desc_k_major(sdOs, kk), kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(St);
+      hopper::fence_regs(dPt);
+
+      // P^T = exp(s^T - lse) under the causal mask, dS^T = P^T (dP^T - di)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int c = 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+        const int qi = it * DKV_BQ + c, kj = kr + 8 * ((i / 2) % 2);
+        const float p = (qi < T && kj <= qi) ? exp2f(St[i] * scale_log2 - lse_s[c]) : 0.0f;
+        St[i] = p;
+        dPt[i] = p * (dPt[i] - di_s[c]);
+      }
+      uint32_t pa[4][4], dsa[4][4];
+      hopper::a_fragments(St, pa);
+      hopper::a_fragments(dPt, dsa);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DKV_BQ / 16; ++kk)
+        hopper::wgmma_m64n64k16_rs<1>(dV, pa[kk], hopper::desc_mn_major(sdOs, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < DKV_BQ / 16; ++kk)
+        hopper::wgmma_m64n64k16_rs<1>(dK, dsa[kk], hopper::desc_mn_major(sQs, kk), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dV);
+      hopper::fence_regs(dK);
+      hopper::mbar_arrive(&empty[s]);
+    }
+
+    const long long base = (long long)bh * T * D;
+    const float k_mul[2] = {scale, scale}, v_mul[2] = {1.0f, 1.0f};
+    store_rows(dk + base, dK, k_mul, key0, T);
+    store_rows(dv + base, dV, v_mul, key0, T);
+  }
+}
+
+// ----------------------------------------------------- dQ (first design, wmma)
 
 constexpr int BM = 64;         // query rows per tile
 constexpr int BN = 64;         // key rows per tile
@@ -85,10 +454,9 @@ __device__ void load_tile(bf16* dst, const bf16* src, long long stride_t, int ro
   }
 }
 
-// out[16 x N] (float, stride LDF) = a[16 x K] . b, for this warp's strip.
-// B_COL: b is read as the transpose of a row-major [N, K] tile (b^T), else
-// as a row-major [K, N] tile.
-template <int K, int N, bool B_COL>
+// out[16 x N] (float, stride LDF) = a[16 x K] . b^T, for this warp's strip;
+// b is a row-major [N, K] tile.
+template <int K, int N>
 __device__ void strip_product(float* out, const bf16* a, int lda, const bf16* b, int ldb) {
   static_assert(N <= LDF, "the output strip fits a score tile row");
 #pragma unroll
@@ -98,16 +466,10 @@ __device__ void strip_product(float* out, const bf16* a, int lda, const bf16* b,
 #pragma unroll
     for (int kk = 0; kk < K / 16; ++kk) {
       FragA fa;
+      FragBCol fb;
       wmma::load_matrix_sync(fa, a + kk * 16, lda);
-      if constexpr (B_COL) {
-        FragBCol fb;
-        wmma::load_matrix_sync(fb, b + nf * 16 * ldb + kk * 16, ldb);
-        wmma::mma_sync(c, fa, fb, c);
-      } else {
-        FragBRow fb;
-        wmma::load_matrix_sync(fb, b + kk * 16 * ldb + nf * 16, ldb);
-        wmma::mma_sync(c, fa, fb, c);
-      }
+      wmma::load_matrix_sync(fb, b + nf * 16 * ldb + kk * 16, ldb);
+      wmma::mma_sync(c, fa, fb, c);
     }
     wmma::store_matrix_sync(out + nf * 16, c, LDF, wmma::mem_row_major);
   }
@@ -148,163 +510,6 @@ __device__ void store_strip(bf16* out, const FragC* acc, float* scratch, float m
           __float2bfloat16(scratch[r * LDF + half * (D / 2) + c] * mul);
   }
   __syncwarp();
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-                 int H, int T, Strides sq, Strides sk, Strides sv, float scale) {
-  constexpr int LD = ld_tile<D>();
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + BM * LD;
-  bf16* sV = sK + BN * LD;
-  float* sS = reinterpret_cast<float*>(sV + BN * LD);
-  bf16* sP = reinterpret_cast<bf16*>(sS + BM * LDF);
-
-  const int tile = gridDim.x - 1 - blockIdx.x;  // longest rows first
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = tile * BM;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int row = tid >> 1, half = tid & 1;  // this thread's row, and its half of the columns
-  const int qi = q0 + row;
-  float* wS = sS + warp * 16 * LDF;
-
-  load_tile<D>(sQ, q + b * sq.b + h * sq.h, sq.t, q0, T);
-  const bf16* kb = k + b * sk.b + h * sk.h;
-  const bf16* vb = v + b * sv.b + h * sv.h;
-
-  float acc[D / 2];
-#pragma unroll
-  for (int c = 0; c < D / 2; ++c) acc[c] = 0.0f;
-  float m = -INFINITY, l = 0.0f;
-
-  for (int j = 0; j <= tile; ++j) {
-    const int k0 = j * BN;
-    __syncthreads();
-    load_tile<D>(sK, kb, sk.t, k0, T);
-    load_tile<D>(sV, vb, sv.t, k0, T);
-    __syncthreads();
-
-    strip_product<D, BN, true>(wS, sQ + warp * 16 * LD, LD, sK, LD);  // S = Q K^T
-    __syncwarp();
-
-    float s[BN / 2];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int c = 0; c < BN / 2; ++c) {
-      const int col = half * (BN / 2) + c, kj = k0 + col;
-      const float x = kj <= qi ? sS[row * LDF + col] * scale : -INFINITY;
-      s[c] = x;
-      mx = fmaxf(mx, x);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m, mx);  // finite: key 0 of the row's first tile is unmasked
-    const float alpha = expf(m - m_new);
-    float sum = 0.0f;
-#pragma unroll
-    for (int c = 0; c < BN / 2; ++c) {
-      const float p = expf(s[c] - m_new);
-      sP[row * LDP + half * (BN / 2) + c] = __float2bfloat16(p);
-      sum += p;
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l = l * alpha + sum;
-    m = m_new;
-#pragma unroll
-    for (int c = 0; c < D / 2; ++c) acc[c] *= alpha;
-    __syncwarp();
-
-    strip_product<BN, D, false>(wS, sP + warp * 16 * LDP, LDP, sV, LD);  // P V
-    __syncwarp();
-#pragma unroll
-    for (int c = 0; c < D / 2; ++c) acc[c] += sS[row * LDF + half * (D / 2) + c];
-  }
-
-  if (qi < T) {
-    const float inv = 1.0f / l;
-    bf16* orow = o + ((long long)bh * T + qi) * D + half * (D / 2);
-#pragma unroll
-    for (int c = 0; c < D / 2; ++c) orow[c] = __float2bfloat16(acc[c] * inv);
-    if (half == 0) lse[(long long)bh * T + qi] = m + logf(l);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ di,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int T,
-                     Strides sq, Strides sk, Strides sv, Strides sdo, float scale) {
-  constexpr int LD = ld_tile<D>();
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + BN * LD;
-  bf16* sQ = sV + BN * LD;
-  bf16* sdO = sQ + BM * LD;
-  float* sS = reinterpret_cast<float*>(sdO + BM * LD);  // S^T, keys x queries
-  float* sdP = sS + BN * LDF;                          // dP^T
-  bf16* sP = reinterpret_cast<bf16*>(sdP + BN * LDF);  // P^T, bf16
-  bf16* sdS = sP + BN * LDP;                           // dS^T, bf16
-  float* sLse = reinterpret_cast<float*>(sdS + BN * LDP);
-  float* sDi = sLse + BM;
-
-  const int jt = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int k0 = jt * BN;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int row = tid >> 1, half = tid & 1;
-  const int kj = k0 + row;
-  float* wS = sS + warp * 16 * LDF;
-  float* wdP = sdP + warp * 16 * LDF;
-
-  load_tile<D>(sK, k + b * sk.b + h * sk.h, sk.t, k0, T);
-  load_tile<D>(sV, v + b * sv.b + h * sv.h, sv.t, k0, T);
-  const bf16* qb = q + b * sq.b + h * sq.h;
-  const bf16* dob = dout + b * sdo.b + h * sdo.h;
-  const float* lseb = lse + (long long)bh * T;
-  const float* dib = di + (long long)bh * T;
-
-  FragC dk_acc[D / 16], dv_acc[D / 16];
-#pragma unroll
-  for (int nf = 0; nf < D / 16; ++nf) {
-    wmma::fill_fragment(dk_acc[nf], 0.0f);
-    wmma::fill_fragment(dv_acc[nf], 0.0f);
-  }
-
-  const int n_tiles = (T + BM - 1) / BM;
-  for (int it = jt; it < n_tiles; ++it) {
-    const int q0 = it * BM;
-    __syncthreads();
-    load_tile<D>(sQ, qb, sq.t, q0, T);
-    load_tile<D>(sdO, dob, sdo.t, q0, T);
-    if (tid < BM) {
-      sLse[tid] = q0 + tid < T ? lseb[q0 + tid] : 0.0f;
-      sDi[tid] = q0 + tid < T ? dib[q0 + tid] : 0.0f;
-    }
-    __syncthreads();
-
-    strip_product<D, BM, true>(wS, sK + warp * 16 * LD, LD, sQ, LD);    // S^T = K Q^T
-    strip_product<D, BM, true>(wdP, sV + warp * 16 * LD, LD, sdO, LD);  // dP^T = V dO^T
-    __syncwarp();
-#pragma unroll
-    for (int c = 0; c < BM / 2; ++c) {
-      const int col = half * (BM / 2) + c, qi = q0 + col;
-      float p = 0.0f;
-      if (qi < T && kj <= qi) p = expf(sS[row * LDF + col] * scale - sLse[col]);
-      sP[row * LDP + col] = __float2bfloat16(p);
-      sdS[row * LDP + col] = __float2bfloat16(p * (sdP[row * LDF + col] - sDi[col]));
-    }
-    __syncwarp();
-    strip_accumulate<D>(dv_acc, sP + warp * 16 * LDP, sdO);   // dV += P^T dO
-    strip_accumulate<D>(dk_acc, sdS + warp * 16 * LDP, sQ);   // dK += dS^T Q
-  }
-
-  const long long base = (long long)bh * T * D;
-  store_strip<D>(dk + base, dk_acc, wS, scale, k0, T);
-  store_strip<D>(dv + base, dv_acc, wS, 1.0f, k0, T);
 }
 
 template <int D>
@@ -355,8 +560,8 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     load_tile<D>(sV, vb, sv.t, k0, T);
     __syncthreads();
 
-    strip_product<D, BN, true>(wS, sQ + warp * 16 * LD, LD, sK, LD);    // S = Q K^T
-    strip_product<D, BN, true>(wdP, sdO + warp * 16 * LD, LD, sV, LD);  // dP = dO V^T
+    strip_product<D, BN>(wS, sQ + warp * 16 * LD, LD, sK, LD);    // S = Q K^T
+    strip_product<D, BN>(wdP, sdO + warp * 16 * LD, LD, sV, LD);  // dP = dO V^T
     __syncwarp();
     const float lse_r = sLse[row], di_r = sDi[row];
 #pragma unroll
@@ -371,11 +576,6 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   store_strip<D>(dq + (long long)bh * T * D, dq_acc, wS, scale, q0, T);
-}
-
-template <int D>
-constexpr size_t fwd_smem() {
-  return (size_t)(BM + 2 * BN) * ld_tile<D>() * 2 + (size_t)BM * LDF * 4 + (size_t)BM * LDP * 2;
 }
 
 template <int D>
@@ -400,15 +600,21 @@ int flash_attention_fwd_bf16_hd64(const void* q, const void* k, const void* v, v
                                   float scale, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  constexpr size_t smem = fwd_smem<64>();
-  err = cudaFuncSetAttribute(flash_fwd_kernel<64>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  CUtensorMap maps[3];
+  const void* ops[3] = {q, k, v};
+  const int rows[3] = {FWD_BM, FWD_BN, FWD_BN};
+  for (int i = 0; i < 3 && err == cudaSuccess; ++i)
+    err = hopper::encode_bhtd(&maps[i], ops[i], B, H, T, 64, strides[3 * i], strides[3 * i + 1],
+                              strides[3 * i + 2], rows[i]);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + BM - 1) / BM, B * H);
-  flash_fwd_kernel<64><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), static_cast<float*>(lse), H, T, strides_at(strides, 0),
-      strides_at(strides, 1), strides_at(strides, 2), scale);
+  constexpr int smem = FwdSmem<64>::BYTES;
+  err = cudaFuncSetAttribute(flash_fwd_kernel<64>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (T + FWD_BM - 1) / FWD_BM);
+  flash_fwd_kernel<64><<<grid, HOPPER_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], static_cast<bf16*>(o), static_cast<float*>(lse), H, T,
+      scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -420,17 +626,22 @@ int flash_attention_bwd_dkv_bf16_hd64(const void* q, const void* k, const void* 
                                       void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  constexpr size_t smem = bwd_smem<64>();
-  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<64>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  CUtensorMap maps[4];
+  const void* ops[4] = {q, k, v, dout};
+  const int rows[4] = {DKV_BQ, DKV_BN, DKV_BN, DKV_BQ};
+  for (int i = 0; i < 4 && err == cudaSuccess; ++i)
+    err = hopper::encode_bhtd(&maps[i], ops[i], B, H, T, 64, strides[3 * i], strides[3 * i + 1],
+                              strides[3 * i + 2], rows[i]);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + BN - 1) / BN, B * H);
-  flash_bwd_dkv_kernel<64><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(di), static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, T,
-      strides_at(strides, 0), strides_at(strides, 1), strides_at(strides, 2),
-      strides_at(strides, 3), scale);
+  constexpr int smem = DkvSmem<64>::BYTES;
+  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<64>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (T + DKV_BN - 1) / DKV_BN);
+  flash_bwd_dkv_kernel<64><<<grid, HOPPER_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
+      static_cast<const float*>(di), static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, T, scale,
+      scale * LOG2E);
   return cudaGetLastError();
 }
 

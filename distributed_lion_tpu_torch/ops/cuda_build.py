@@ -5,8 +5,9 @@ expose a plain C interface: pointers, the CUDA stream and sizes as C
 scalars, and a ``cudaError_t`` (as ``int``) returned by every entry point
 after its launch. :func:`load` compiles a source into a shared library for
 Hopper (``sm_90a``) under ``build/cuda/`` of the checkout, named by a hash
-of the source bytes and the compiler flags, so an edited source rebuilds
-and an unchanged one loads at once. The compiler's resource report
+of the source bytes, the headers beside it (``csrc/*.cuh``, ``csrc/*.h``)
+and the compiler flags, so an edited source or header rebuilds and an
+unchanged one loads at once. The compiler's resource report
 (``-Xptxas -v``: registers, shared memory, spills per kernel) is kept
 beside the library as ``<name>-<hash>.log``.
 
@@ -21,6 +22,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -50,10 +52,64 @@ def find_nvcc() -> str:
         "kernels are built from source at first use and have no fallback")
 
 
+def find_cuobjdump() -> str:
+    """``cuobjdump`` beside ``nvcc``."""
+    tool = pathlib.Path(find_nvcc()).with_name("cuobjdump")
+    if not tool.is_file():
+        raise RuntimeError(f"cuobjdump not found beside {find_nvcc()}")
+    return str(tool)
+
+
+def count_sass(sass: str, functions, opcodes) -> dict:
+    """``{function: {opcode: lines}}`` over the ``cuobjdump -sass`` text of
+    a library: the lines of each function whose (mangled) name contains a
+    name of ``functions`` that issue each opcode of ``opcodes`` (with any
+    suffix, as ``HGMMA.64x128x16.F32.BF16``)."""
+    counts = {f: dict.fromkeys(opcodes, 0) for f in functions}
+    pats = {op: re.compile(rf"\b{re.escape(op)}\b") for op in opcodes}
+    current = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = next((f for f in functions if f in line), None)
+        elif current is not None:
+            for op, pat in pats.items():
+                if pat.search(line):
+                    counts[current][op] += 1
+    return counts
+
+
+def ptxas_spills(log: str) -> dict:
+    """``{function: (spill store bytes, spill load bytes)}`` from the
+    ``-Xptxas -v`` report of a build."""
+    spills, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and current is not None:
+            spills[current] = (int(m.group(1)), int(m.group(2)))
+            current = None
+    return spills
+
+
+def sass_counts(library: pathlib.Path, functions, opcodes) -> dict:
+    """:func:`count_sass` of a built library."""
+    proc = subprocess.run([find_cuobjdump(), "-sass", str(library)], capture_output=True,
+                          text=True, check=True)
+    return count_sass(proc.stdout, functions, opcodes)
+
+
 def library_path(source: pathlib.Path) -> pathlib.Path:
     """Where :func:`load` puts the library of ``source``: keyed by a hash of
-    the source bytes and the flags."""
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    the source bytes, the bytes of every header beside it (``*.cuh``,
+    ``*.h``, which the source may include) and the flags."""
+    digest = hashlib.sha256(source.read_bytes())
+    headers = sorted(source.parent.glob("*.cuh")) + sorted(source.parent.glob("*.h"))
+    for header in headers:
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
 
 

@@ -21,8 +21,9 @@ Each wrapper launches its kernel for a CUDA tensor and counts the launch in
 ``.launches``; for a CPU tensor it computes its plain PyTorch version
 below. On CUDA the kernels take bfloat16 with head_dim 64 only, and
 ``q``, ``k``, ``v`` and ``do`` through their strides, with only head_dim
-contiguous (the model's q/k/v are transposed views of one projection);
-anything else raises. The library is built with ``nvcc`` at the first
+contiguous (the model's q/k/v are transposed views of one projection): the
+forward and dK/dV kernels load them by TMA through tensor maps over those
+strides, under the rule of :func:`strided_ok`; anything else raises. The library is built with ``nvcc`` at the first
 launch (``ops/cuda_build.py``); a missing ``nvcc`` or a failed build
 raises.
 
@@ -30,8 +31,9 @@ Rounding (plain versions and kernels alike): scores and softmax in
 float32; the probabilities are rounded to the input dtype before the value
 product, and so are ``P`` and ``dS`` before the backward products, which
 sum in float32. The kernels' forward normalizes after ``P·V`` (online
-softmax) where the plain version normalizes before; the two differ by
-bfloat16 rounding only.
+softmax) where the plain version normalizes before, and the forward and
+dK/dV kernels exponentiate in base 2 with ``log2(e)`` folded into the
+scale; the two differ by bfloat16 rounding and float32 ulps only.
 """
 
 from __future__ import annotations
@@ -128,11 +130,18 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do):
 
 
 # ------------------------------------------------------------ kernel wrappers
+TMA_STRIDE_LIMIT = 1 << 40   # bytes: a tensor map's strides are below it
+
+
 def strided_ok(t: torch.Tensor) -> bool:
-    """The kernels' operand layout: head_dim contiguous, 16-byte aligned
-    rows (every other stride a multiple of 8 elements)."""
-    return (t.stride(-1) == 1 and all(s % 8 == 0 for s in t.stride()[:-1])
-            and t.data_ptr() % 16 == 0)
+    """The kernels' operand layout, which the tensor maps of their TMA loads
+    (``csrc/hopper.cuh``) take as it is: head_dim contiguous, a 16-byte
+    aligned base, and batch, head and time strides that are positive
+    multiples of 16 bytes below 2**40 bytes."""
+    size = t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s > 0 and (s * size) % 16 == 0 and s * size < TMA_STRIDE_LIMIT
+                    for s in t.stride()[:-1]))
 
 
 def _check(name: str, ts: tuple, rows: tuple = ()) -> None:
@@ -165,7 +174,8 @@ def _check(name: str, ts: tuple, rows: tuple = ()) -> None:
     for t in ts:
         if not strided_ok(t):
             raise ValueError(f"{name}: operand strides {t.stride()} are not the kernels' "
-                             "layout (head_dim contiguous, 16-byte aligned rows)")
+                             "layout (head_dim contiguous, 16-byte aligned base, other "
+                             "strides positive multiples of 16 bytes)")
     for t in rows:
         if not t.is_contiguous():
             raise ValueError(f"{name}: lse and di must be contiguous")

@@ -151,6 +151,13 @@ def test_model_qkv_views_are_the_kernels_layout():
     q, k, v = (qkv[:, :, i].reshape(B, T, H, D).transpose(1, 2) for i in range(3))
     assert all(fa.strided_ok(t) and not t.is_contiguous() for t in (q, k, v))
     assert not fa.strided_ok(q.transpose(-1, -2))
+    # TMA's rules: byte strides positive multiples of 16, a 16-byte aligned base
+    assert fa.strided_ok(torch.zeros(B, 12, T, D, dtype=torch.bfloat16))
+    padded = torch.zeros(B, 12, T, D + 1, dtype=torch.bfloat16)[..., :D]
+    assert padded.stride(2) * 2 % 16 == 2 and not fa.strided_ok(padded)
+    shifted = torch.zeros(B * 12 * T * D + 1, dtype=torch.bfloat16)[1:].view(B, 12, T, D)
+    assert shifted.data_ptr() % 16 == 2 and not fa.strided_ok(shifted)
+    assert not fa.strided_ok(torch.zeros(1, 12, T, D, dtype=torch.bfloat16).expand(B, -1, -1, -1))
 
 
 def test_no_nvcc_raises_and_sources_key_the_build(tmp_path, monkeypatch):
@@ -166,6 +173,58 @@ def test_no_nvcc_raises_and_sources_key_the_build(tmp_path, monkeypatch):
     src.write_text("// two\n")
     assert cuda_build.library_path(src) != first
     assert first.parent == cuda_build.BUILD_DIR
+
+
+def test_headers_key_the_build(tmp_path):
+    """A header beside the source (``*.cuh``, ``*.h``) is part of the
+    library's key: editing only the header, or adding one, names another
+    library; an unchanged tree names the same one."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    src, header = csrc / "k.cu", csrc / "blocks.cuh"
+    src.write_text('#include "blocks.cuh"\n')
+    header.write_text("// one\n")
+    first = cuda_build.library_path(src)
+    assert cuda_build.library_path(src) == first
+    header.write_text("// two\n")
+    second = cuda_build.library_path(src)
+    assert second != first and second.name.startswith("k-")
+    (csrc / "more.h").write_text("// three\n")
+    assert cuda_build.library_path(src) not in (first, second)
+
+
+SASS = """
+        code for sm_90a
+                Function : _ZN12_GLOBAL__N_116flash_fwd_kernelILi64EEEv14CUtensorMap_st
+        .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0100*/                   UTMALDG.4D [UR8], [UR4] ;
+        /*0110*/                   UTMALDG.4D [UR16], [UR12] ;
+        /*0200*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+        /*0210*/                   HGMMA.64x64x16.F32.BF16 R88, R152, gdesc[UR8], R88 ;
+                Function : _ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi64EEEvPK13__nv_bfloat16
+        /*0300*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+"""
+
+PTXAS = """
+ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'
+ptxas info    : Function properties for _Z3fooPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Function properties for _Z3barPf
+    8 bytes stack frame, 12 bytes spill stores, 4 bytes spill loads
+"""
+
+
+def test_sass_and_spill_reports_are_read_per_kernel():
+    """What ``chip_smoke.py`` checks in the built library: opcode lines per
+    kernel from ``cuobjdump -sass`` and spill bytes per kernel from the
+    ``-Xptxas -v`` report."""
+    counts = cuda_build.count_sass(SASS, ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                                          "flash_bwd_dkv_kernel"), ("HGMMA", "UTMALDG", "HMMA"))
+    assert counts == {"flash_fwd_kernel": {"HGMMA": 2, "UTMALDG": 2, "HMMA": 0},
+                      "flash_bwd_dq_kernel": {"HGMMA": 0, "UTMALDG": 0, "HMMA": 1},
+                      "flash_bwd_dkv_kernel": {"HGMMA": 0, "UTMALDG": 0, "HMMA": 0}}
+    assert cuda_build.ptxas_spills(PTXAS) == {"_Z3fooPf": (0, 0), "_Z3barPf": (12, 4)}
 
 
 def test_gpt2_dropout0_flash_matches_jax_logits_and_grads():
