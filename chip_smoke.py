@@ -5,19 +5,22 @@
 Phases (none of their failures is caught; any one fails the run):
 
 1. Card check: CUDA must be present; prints the card's name and power limit.
-   The CUDA kernels (``csrc/flash_attention.cu`` with ``csrc/hopper.cuh``)
-   are built with ``nvcc`` into ``build/cuda/`` first, and the compiler's
-   per-kernel register and spill report is printed. The forward and dK/dV
-   kernels must spill no byte, and ``cuobjdump -sass`` of the library must
-   show ``HGMMA`` (wgmma), ``UTMALDG`` (TMA loads) and no ``HMMA``
-   (``mma.sync``, as ``nvcuda::wmma`` compiles) in each of them; the
-   counts are printed for the dQ kernel too.
-2. Kernel phase, optimizer: each Triton kernel (``ops/fused_lion.py``)
-   against its plain PyTorch version on the card, at the main path's size
-   (GPT-2 124M, 124,439,808 coordinates) and at a ragged 1,000,003:
-   ``fused_ballots`` and ``fused_apply`` for float32 and bfloat16 params and
-   int8 and int32 tallies, ``bucket_vote_stats`` for a vote of 1 (int8
-   tally) and of 4 (int8 and int32). Outputs must be ``torch.equal``.
+   The CUDA kernels (``csrc/flash_attention.cu`` with ``csrc/hopper.cuh``,
+   and ``csrc/vote_stats.cu``) are built with ``nvcc`` into ``build/cuda/``
+   first, one ``nvcc`` per source, started together, and the compiler's
+   per-kernel register and spill report is printed. No kernel may spill a
+   byte, and ``cuobjdump -sass`` of the flash library must show ``HGMMA``
+   (wgmma), ``UTMALDG`` (TMA loads) and no ``HMMA`` (``mma.sync``, as
+   ``nvcuda::wmma`` compiles) in each of the forward, dK/dV and dQ kernels.
+2. Kernel phase, optimizer: the two Triton kernels (``ops/fused_lion.py``)
+   and the CUDA stats kernel (``csrc/vote_stats.cu``) against their plain
+   PyTorch versions on the card, at the main path's size (GPT-2 124M,
+   124,439,808 coordinates) and at a ragged 1,000,003: ``fused_ballots``
+   and ``fused_apply`` for float32 and bfloat16 params and int8 and int32
+   tallies, ``bucket_vote_stats`` for a vote of 1 (int8 tally), of 4 (int8
+   and int32), of 3 (both) and of 300 (int32), and on windows that start
+   at an odd byte offset of a larger buffer, with the tally lined up with
+   the ballots and not. Outputs must be ``torch.equal``.
 3. Kernel phase, attention: the three flash kernels
    (``ops/flash_attention.py``) at the main path's shape (B 8, H 12,
    T 1024, head_dim 64, bfloat16, q/k/v/do as transposed views), at a
@@ -78,6 +81,7 @@ tensor rate. The line before the last is the per-kernel JSON record; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
+import concurrent.futures
 import dataclasses
 import json
 import math
@@ -116,9 +120,10 @@ AHEAD_CYCLES = 50_000_000   # about 30 ms of the card's clock: the host queues t
 CARDS = [("H200", 4.8e12, 989e12), ("H100 PCIe", 2.0e12, 756e12),
          ("H100 NVL", 3.9e12, 835e12), ("H100", 3.35e12, 989e12)]
 
+CUDA_SOURCES = ("flash_attention", "vote_stats")   # csrc/<name>.cu
 # the kernels redesigned for Hopper (TMA ring, wgmma): their SASS must show
 # both, and mma.sync nowhere
-HOPPER_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel")
+HOPPER_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
 PROFILE_TOP = 10
 
@@ -134,7 +139,7 @@ ROUTES = {
                       "distributed_lion_tpu/ops/pallas_lion.py:84"),
     "fused_apply": ("triton", "distributed_lion_tpu_torch/ops/fused_lion.py",
                     "distributed_lion_tpu/ops/pallas_lion.py:118"),
-    "bucket_vote_stats": ("triton", "distributed_lion_tpu_torch/ops/fused_lion.py",
+    "bucket_vote_stats": ("cuda", "distributed_lion_tpu_torch/csrc/vote_stats.cu",
                           "distributed_lion_tpu/ops/pallas_lion.py:233"),
     "flash_attention_fwd": ("cuda", "distributed_lion_tpu_torch/csrc/flash_attention.cu",
                             "jax/experimental/pallas/ops/tpu/flash_attention.py:589"),
@@ -197,37 +202,42 @@ def bound(nbytes: float, flops: float, rates) -> tuple[float, str]:
 
 
 def build_cuda_kernels():
-    """Build the flash library; check the redesigned kernels' spills and
-    SASS."""
+    """Build the CUDA libraries, one ``nvcc`` per source, all started
+    together; check every kernel's spills and the Hopper kernels' SASS."""
     t0 = time.perf_counter()
-    lib = cuda_build.build(cuda_build.CSRC / "flash_attention.cu")
-    print(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
-    log = lib.with_suffix(".log").read_text()
-    for line in log.splitlines():
-        if ("registers" in line or "spill" in line or "Compiling entry" in line
-                or "warning" in line):
-            print(f"[build] {line.strip()}", flush=True)
-    spills = cuda_build.ptxas_spills(log)
+    with concurrent.futures.ThreadPoolExecutor(len(CUDA_SOURCES)) as pool:
+        libs = list(pool.map(lambda name: cuda_build.build(cuda_build.CSRC / f"{name}.cu"),
+                             CUDA_SOURCES))
+    print(f"[build] {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for lib in libs:
+        log = lib.with_suffix(".log").read_text()
+        for line in log.splitlines():
+            if ("registers" in line or "spill" in line or "Compiling entry" in line
+                    or "warning" in line):
+                print(f"[build] {line.strip()}", flush=True)
+        spills = cuda_build.ptxas_spills(log)
+        if not spills or any(v != (0, 0) for v in spills.values()):
+            raise AssertionError(f"{lib.name}: spill bytes (stores, loads) {spills} in the ptxas "
+                                 "report, expected (0, 0) for every function")
+    flash = libs[CUDA_SOURCES.index("flash_attention")]
+    spills = cuda_build.ptxas_spills(flash.with_suffix(".log").read_text())
     for kernel in HOPPER_KERNELS:
-        found = [v for name, v in spills.items() if kernel in name]
-        if len(found) != 1 or found[0] != (0, 0):
-            raise AssertionError(f"{kernel}: spill bytes (stores, loads) {found} in the ptxas "
-                                 "report, expected one entry of (0, 0)")
-    counts = cuda_build.sass_counts(lib, HOPPER_KERNELS + ("flash_bwd_dq_kernel",), SASS_OPS)
+        if len([name for name in spills if kernel in name]) != 1:
+            raise AssertionError(f"{kernel}: not one entry in the ptxas report {list(spills)}")
+    counts = cuda_build.sass_counts(flash, HOPPER_KERNELS, SASS_OPS)
     for kernel, ops in counts.items():
         print(f"[sass] {kernel}: " + ", ".join(f"{op} {n}" for op, n in ops.items()),
               flush=True)
-    for kernel in HOPPER_KERNELS:
-        ops = counts[kernel]
         if ops["HGMMA"] == 0 or ops["UTMALDG"] == 0 or ops["HMMA"] != 0:
             raise AssertionError(f"{kernel}: SASS {ops}: expected wgmma (HGMMA) and TMA loads "
                                  "(UTMALDG), and no mma.sync (HMMA)")
 
 
 def optimizer_kernel_phase(gen, rates):
-    """Compare and time the three Triton kernels; returns per-kernel records
-    at the main path's shape (float32, int8 tally) and the max error over
-    all cases."""
+    """Compare and time the two Triton kernels and the stats kernel;
+    returns per-kernel records at the main path's shape (float32, int8
+    tally) and the max error over all cases."""
     rec = {}
     err = {"fused_ballots": 0.0, "fused_apply": 0.0, "bucket_vote_stats": 0.0}
     for n in (N_MAIN, N_RAGGED):
@@ -286,34 +296,65 @@ def optimizer_kernel_phase(gen, rates):
             del g, m, p
             torch.cuda.empty_cache()
 
-        ballots = torch.where(torch.rand(n, generator=gen, device="cuda") < 0.5, 1, -1
-                              ).to(torch.int8)
-        # a vote of 1 (the smoke's: the tally is the ballots) and of 4
-        # (tallies in {-4, -2, 0, 2, 4}), int8 and int32 tallies
-        for world, tdt in ((1, torch.int8), (4, torch.int8), (4, torch.int32)):
-            tot = (ballots.clone() if world == 1 else
-                   2 * torch.randint(0, 5, (n,), generator=gen, device="cuda") - 4).to(tdt)
-            hist, dis = fused_lion.bucket_vote_stats(ballots, tot, world, 8)
-            hp, dp = fused_lion.bucket_vote_stats_plain(ballots, tot, world, 8)
-            torch.cuda.synchronize()
-            if not (torch.equal(hist, hp) and torch.equal(dis, dp)):
-                raise AssertionError(f"bucket_vote_stats != plain at n={n} W={world} tally "
-                                     f"{tdt}: {hist.tolist()} {dis.item()} vs {hp.tolist()} "
-                                     f"{dp.item()}")
-            err["bucket_vote_stats"] = max(
-                err["bucket_vote_stats"], (hist - hp).abs().max().item(), abs(dis.item() - dp.item()))
-            ms = time_ms(lambda: fused_lion.bucket_vote_stats(ballots, tot, world, 8))
-            plain_ms = time_ms(lambda: fused_lion.bucket_vote_stats_plain(ballots, tot, world, 8))
-            bms, by = bound(n * (1 + tot.element_size()), 0, rates)
-            print(f"[kernel] bucket_vote_stats n={n} W={world} tally {str(tdt)[6:]}: "
-                  f"{ms:.4f} ms (bound {bms:.4f} ms, plain {plain_ms:.4f} ms); hist "
-                  f"{hist.tolist()}, disagree {dis.item()}", flush=True)
-            if n == N_MAIN and world == 4 and tdt == torch.int8:
-                rec["bucket_vote_stats"] = (ms, plain_ms, bms, by, None)
-            del tot
-        del ballots
+        stats_cases(gen, rates, n, rec, err)
         torch.cuda.empty_cache()
     return rec, err
+
+
+def stats_check(label, ballots, tot, world, err) -> None:
+    """``bucket_vote_stats`` against its plain version: ``torch.equal``."""
+    hist, dis = fused_lion.bucket_vote_stats(ballots, tot, world, 8)
+    hp, dp = fused_lion.bucket_vote_stats_plain(ballots, tot, world, 8)
+    torch.cuda.synchronize()
+    if not (torch.equal(hist, hp) and torch.equal(dis, dp)):
+        raise AssertionError(f"bucket_vote_stats != plain at {label}: {hist.tolist()} "
+                             f"{dis.item()} vs {hp.tolist()} {dp.item()}")
+    err["bucket_vote_stats"] = max(err["bucket_vote_stats"], (hist - hp).abs().max().item(),
+                                   abs(dis.item() - dp.item()))
+    print(f"[kernel] bucket_vote_stats {label}: == plain; hist {hist.tolist()}, disagree "
+          f"{dis.item()}", flush=True)
+
+
+def stats_cases(gen, rates, n, rec, err) -> None:
+    """The stats kernel at n coordinates: a vote of 1 (the smoke's: the
+    tally is the ballots) and of 4 (tallies in {-4, -2, 0, 2, 4}), int8 and
+    int32 tallies, timed; then untimed, a vote of 3 (a world that does not
+    divide the 8 bins) and of 300 (int32 only: binned by division), and
+    windows that start at an odd byte offset of a larger buffer, lined up
+    (vector body) and not (every coordinate scalar)."""
+    ballots = torch.where(torch.rand(n, generator=gen, device="cuda") < 0.5, 1, -1
+                          ).to(torch.int8)
+
+    def tally(world, tdt, size=n):
+        return torch.randint(-world, world + 1, (size,), generator=gen, device="cuda").to(tdt)
+
+    for world, tdt in ((1, torch.int8), (4, torch.int8), (4, torch.int32)):
+        tot = (ballots.clone() if world == 1 else
+               2 * torch.randint(0, 5, (n,), generator=gen, device="cuda") - 4).to(tdt)
+        label = f"n={n} W={world} tally {str(tdt)[6:]}"
+        stats_check(label, ballots, tot, world, err)
+        ms = time_ms(lambda: fused_lion.bucket_vote_stats(ballots, tot, world, 8))
+        plain_ms = time_ms(lambda: fused_lion.bucket_vote_stats_plain(ballots, tot, world, 8))
+        bms, by = bound(n * (1 + tot.element_size()), 0, rates)
+        print(f"[kernel] bucket_vote_stats {label}: {ms:.4f} ms (bound {bms:.4f} ms, "
+              f"{n * (1 + tot.element_size()) / ms / 1e6:.0f} GB/s, plain {plain_ms:.4f} ms)",
+              flush=True)
+        if n == N_MAIN and world == 4 and tdt == torch.int8:
+            rec["bucket_vote_stats"] = (ms, plain_ms, bms, by, None)
+        del tot
+    for world, tdt in ((3, torch.int8), (3, torch.int32), (300, torch.int32)):
+        stats_check(f"n={n} W={world} tally {str(tdt)[6:]}", ballots, tally(world, tdt), world,
+                    err)
+    big_b = torch.where(torch.rand(n + 64, generator=gen, device="cuda") < 0.5, 1, -1
+                        ).to(torch.int8)
+    for world, tdt in ((4, torch.int8), (4, torch.int32)):
+        big_t = tally(world, tdt, n + 64)
+        for b_off, t_off in ((7, 7), (3, 8)):
+            stats_check(f"n={n} W={world} tally {str(tdt)[6:]} window at offsets "
+                        f"{b_off}, {t_off}", big_b[b_off:b_off + n], big_t[t_off:t_off + n],
+                        world, err)
+        del big_t
+    del ballots, big_b
 
 
 def flash_inputs(gen, T, B=FLASH_B, H=FLASH_H):

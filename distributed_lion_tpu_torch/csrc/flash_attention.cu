@@ -18,7 +18,7 @@
 // 50.7 MB and does 12.9 GFLOP of causal products, so on an H100 SXM it is
 // bytes-bound (0.015 ms) and the backward is operations-bound.
 //
-// Forward and dK/dV (Hopper design, hopper.cuh): one block of three
+// All three kernels (Hopper design, hopper.cuh): one block of three
 // warpgroups. Warpgroup 0 is the producer: one thread issues TMA loads of
 // the tiles (128-byte swizzle, rows past T zero-filled) into a ring of
 // STAGES buffers, each with a full and an empty mbarrier, and the
@@ -38,9 +38,11 @@
 //   query tiles of 64 (with their lse and di) from the diagonal to T;
 //   P^T = exp(s^T - lse) and dS^T = P^T (dP^T - di) in registers, then
 //   dV += P^T.dO and dK += dS^T.Q.
-// dQ (one block per 64-row query tile, 4 warps) is still the first design:
-// tiles staged by plain 16-byte loads, nvcuda::wmma 16x16x16 products, the
-// scores through shared memory in float32.
+// - dQ: a block per 128 queries holds Q and dO in shared memory and streams
+//   K and V tiles from 0 to the diagonal; S = Q.K^T and dP = dO.V^T are
+//   issued together, P = exp2(s - lse) and dS = P (dP - di) in registers,
+//   then dQ += dS.K with the same K tile read MN-major. A consumer skips a
+//   key tile wholly above its rows' diagonal.
 //
 // Every output element is summed by one block in a fixed order: no atomics,
 // and the results are the same bits from run to run. P and dS are rounded to
@@ -53,12 +55,10 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cmath>
 #include <cstdint>
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 namespace {
@@ -417,174 +417,159 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
   }
 }
 
-// ----------------------------------------------------- dQ (first design, wmma)
+// ------------------------------------------------------------ dQ (Hopper)
 
-constexpr int BM = 64;         // query rows per tile
-constexpr int BN = 64;         // key rows per tile
-constexpr int THREADS = 128;   // 4 warps; warp w owns tile rows [16w, 16w+16)
-constexpr int LDF = 64 + 4;    // float row stride of a 64-column score tile
-constexpr int LDP = 64 + 8;    // bf16 row stride of a 64-column probability tile
-
-static_assert(BM == BN, "the diagonal tile is square");
-static_assert(BM == 16 * (THREADS / 32), "one 16-row wmma strip per warp");
+// dQ tiles: 128 queries per block (64 per consumer warpgroup), key tiles of
+// 64 streamed with their V tiles. At 64 keys, S, dP, dQ and the dS fragments
+// of a tile fit the consumers' registers with no spill, and the first
+// consumer skips the upper half of the block's diagonal; 128-key tiles spill.
+constexpr int DQ_BM = 128;
+constexpr int DQ_BN = 64;
 
 template <int D>
-__host__ __device__ constexpr int ld_tile() { return D + 8; }  // bf16 row stride of a [64, D] tile
-
-struct Strides {
-  long long b, h, t;
+struct DqSmem {
+  static constexpr int TILE = DQ_BN * D * 2;
+  static constexpr int Q = 0;
+  static constexpr int DO = Q + DQ_BM * D * 2;
+  static constexpr int K = DO + DQ_BM * D * 2;
+  static constexpr int V = K + STAGES * TILE;
+  static constexpr int BARS = V + STAGES * TILE;  // qdo_full, full[STAGES], empty[STAGES]
+  static constexpr int BYTES = BARS + (1 + 2 * STAGES) * 8 + hopper::SW128_ATOM_BYTES;
 };
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// Rows [row0, row0 + 64) of one (b, h) slice into shared memory, 16 bytes a
-// thread; rows at or past T are zero.
+// d[64 x 64] = a[64 x D] . b[64 x D]^T, both K-major swizzled tiles in
+// shared memory; issued, not waited for.
 template <int D>
-__device__ void load_tile(bf16* dst, const bf16* src, long long stride_t, int row0, int T) {
-  constexpr int CHUNKS = D / 8;
-  for (int idx = threadIdx.x; idx < 64 * CHUNKS; idx += THREADS) {
-    const int r = idx / CHUNKS, c = idx % CHUNKS;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < T)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * stride_t + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * ld_tile<D>() + c * 8) = val;
-  }
+__device__ __forceinline__ void issue_scores(float (&d)[32], const bf16* a, const bf16* b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    hopper::wgmma_m64n64k16_ss<0>(d, hopper::desc_k_major(a, kk), hopper::desc_k_major(b, kk),
+                                  kk > 0);
 }
 
-// out[16 x N] (float, stride LDF) = a[16 x K] . b^T, for this warp's strip;
-// b is a row-major [N, K] tile.
-template <int K, int N>
-__device__ void strip_product(float* out, const bf16* a, int lda, const bf16* b, int ldb) {
-  static_assert(N <= LDF, "the output strip fits a score tile row");
-#pragma unroll
-  for (int nf = 0; nf < N / 16; ++nf) {
-    FragC c;
-    wmma::fill_fragment(c, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < K / 16; ++kk) {
-      FragA fa;
-      FragBCol fb;
-      wmma::load_matrix_sync(fa, a + kk * 16, lda);
-      wmma::load_matrix_sync(fb, b + nf * 16 * ldb + kk * 16, ldb);
-      wmma::mma_sync(c, fa, fb, c);
-    }
-    wmma::store_matrix_sync(out + nf * 16, c, LDF, wmma::mem_row_major);
-  }
-}
-
-// acc[D/16] += a[16 x 64] . b[64 x D] (b row-major), for this warp's strip.
+// One block per (b*h, 128-query tile); blockIdx.y counts tiles from the last
+// (the most key tiles) down, so the longest start first. Warpgroup 0 loads
+// Q and dO once and streams the K and V tiles from 0 to the diagonal into
+// the ring; warpgroups 1 and 2 each own 64 query rows and hold their dQ,
+// and their rows' lse * log2(e) and di, in registers.
 template <int D>
-__device__ void strip_accumulate(FragC* acc, const bf16* a, const bf16* b) {
-#pragma unroll
-  for (int nf = 0; nf < D / 16; ++nf) {
-#pragma unroll
-    for (int kk = 0; kk < 64 / 16; ++kk) {
-      FragA fa;
-      FragBRow fb;
-      wmma::load_matrix_sync(fa, a + kk * 16, LDP);
-      wmma::load_matrix_sync(fb, b + kk * 16 * ld_tile<D>() + nf * 16, ld_tile<D>());
-      wmma::mma_sync(acc[nf], fa, fb, acc[nf]);
-    }
-  }
-}
-
-// Writes this warp's strip of acc, times `mul`, as bf16 rows of out
-// (contiguous [T, D] of one (b, h)); `scratch` is the warp's float strip.
-template <int D>
-__device__ void store_strip(bf16* out, const FragC* acc, float* scratch, float mul,
-                            int row0, int T) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int nf = 0; nf < D / 16; ++nf)
-    wmma::store_matrix_sync(scratch + nf * 16, acc[nf], LDF, wmma::mem_row_major);
-  __syncwarp();
-  const int r = lane >> 1, half = lane & 1;
-  const int row = row0 + warp * 16 + r;
-  if (row < T) {
-#pragma unroll
-    for (int c = 0; c < D / 2; ++c)
-      out[(long long)row * D + half * (D / 2) + c] =
-          __float2bfloat16(scratch[r * LDF + half * (D / 2) + c] * mul);
-  }
-  __syncwarp();
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+__global__ void __launch_bounds__(HOPPER_THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                     const float* __restrict__ lse, const float* __restrict__ di,
-                    bf16* __restrict__ dq, int H, int T,
-                    Strides sq, Strides sk, Strides sv, Strides sdo, float scale) {
-  constexpr int LD = ld_tile<D>();
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = sQ + BM * LD;
-  bf16* sK = sdO + BM * LD;
-  bf16* sV = sK + BN * LD;
-  float* sS = reinterpret_cast<float*>(sV + BN * LD);  // S, queries x keys
-  float* sdP = sS + BM * LDF;
-  bf16* sdS = reinterpret_cast<bf16*>(sdP + BM * LDF);
-  float* sLse = reinterpret_cast<float*>(sdS + BM * LDP);
-  float* sDi = sLse + BM;
+                    bf16* __restrict__ dq, int H, int T, float scale, float scale_log2) {
+  static_assert(D == 64, "one 128-byte swizzle row per tile row: head_dim 64");
+  using L = DqSmem<D>;
+  constexpr int NS = DQ_BN / 2;  // accumulator floats of a 64 x DQ_BN tile per thread
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hopper::align_1024(smem_raw);
+  bf16* sQ = reinterpret_cast<bf16*>(smem + L::Q);
+  bf16* sdO = reinterpret_cast<bf16*>(smem + L::DO);
+  bf16* sK = reinterpret_cast<bf16*>(smem + L::K);
+  bf16* sV = reinterpret_cast<bf16*>(smem + L::V);
+  uint64_t* qdo_full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* full = qdo_full + 1;
+  uint64_t* empty = full + STAGES;
 
-  const int tile = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = tile * BM;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int row = tid >> 1, half = tid & 1;
-  const int qi = q0 + row;
-  float* wS = sS + warp * 16 * LDF;
-  float* wdP = sdP + warp * 16 * LDF;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int tile = gridDim.y - 1 - blockIdx.y;
+  const int q0 = tile * DQ_BM;
+  // key tiles 0..n_kv-1: up to the block's last query, and none wholly past T
+  const int n_kv = min((q0 + DQ_BM + DQ_BN - 1) / DQ_BN, (T + DQ_BN - 1) / DQ_BN);
+  const int wg = threadIdx.x / WG_THREADS;
 
-  load_tile<D>(sQ, q + b * sq.b + h * sq.h, sq.t, q0, T);
-  load_tile<D>(sdO, dout + b * sdo.b + h * sdo.h, sdo.t, q0, T);
-  if (tid < BM) {
-    sLse[tid] = q0 + tid < T ? lse[(long long)bh * T + q0 + tid] : 0.0f;
-    sDi[tid] = q0 + tid < T ? di[(long long)bh * T + q0 + tid] : 0.0f;
-  }
-  const bf16* kb = k + b * sk.b + h * sk.h;
-  const bf16* vb = v + b * sv.b + h * sv.h;
-
-  FragC dq_acc[D / 16];
-#pragma unroll
-  for (int nf = 0; nf < D / 16; ++nf) wmma::fill_fragment(dq_acc[nf], 0.0f);
-
-  for (int j = 0; j <= tile; ++j) {
-    const int k0 = j * BN;
-    __syncthreads();
-    load_tile<D>(sK, kb, sk.t, k0, T);
-    load_tile<D>(sV, vb, sv.t, k0, T);
-    __syncthreads();
-
-    strip_product<D, BN>(wS, sQ + warp * 16 * LD, LD, sK, LD);    // S = Q K^T
-    strip_product<D, BN>(wdP, sdO + warp * 16 * LD, LD, sV, LD);  // dP = dO V^T
-    __syncwarp();
-    const float lse_r = sLse[row], di_r = sDi[row];
-#pragma unroll
-    for (int c = 0; c < BN / 2; ++c) {
-      const int col = half * (BN / 2) + c, kj = k0 + col;
-      float p = 0.0f;
-      if (qi < T && kj <= qi) p = expf(sS[row * LDF + col] * scale - lse_r);
-      sdS[row * LDP + col] = __float2bfloat16(p * (sdP[row * LDF + col] - di_r));
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(qdo_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2 * WG_THREADS);
     }
-    __syncwarp();
-    strip_accumulate<D>(dq_acc, sdS + warp * 16 * LDP, sK);  // dQ += dS K
+    hopper::mbar_fence_init();
   }
+  __syncthreads();
 
-  store_strip<D>(dq + (long long)bh * T * D, dq_acc, wS, scale, q0, T);
+  if (wg == 0) {
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_arrive_expect_tx(qdo_full, 2 * DQ_BM * D * 2);
+      hopper::tma_load_4d(sQ, &tq, qdo_full, 0, q0, h, b);
+      hopper::tma_load_4d(sdO, &tdo, qdo_full, 0, q0, h, b);
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % STAGES;
+        hopper::mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[s], 2 * L::TILE);
+        hopper::tma_load_4d(sK + s * DQ_BN * D, &tk, &full[s], 0, j * DQ_BN, h, b);
+        hopper::tma_load_4d(sV + s * DQ_BN * D, &tv, &full[s], 0, j * DQ_BN, h, b);
+      }
+    }
+  } else {
+    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    const int t = threadIdx.x % WG_THREADS, lane = t % 32;
+    const int row0 = 64 * (wg - 1);                 // this warpgroup's first row in the tile
+    const int r = row0 + 16 * (t / 32) + lane / 4;  // rows r and r + 8 of the tile
+    const int qa = q0 + row0;                       // this warpgroup's first query
+    const bf16* sQw = sQ + row0 * D;
+    const bf16* sdOw = sdO + row0 * D;
+
+    float lse2[2], dii[2];  // rows past T: zeros (their Q and dO rows are zeros, never written)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int qi = q0 + r + 8 * hr;
+      lse2[hr] = qi < T ? lse[(long long)bh * T + qi] * LOG2E : 0.0f;
+      dii[hr] = qi < T ? di[(long long)bh * T + qi] : 0.0f;
+    }
+    float dQ[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dQ[i] = 0.0f;
+    hopper::mbar_wait(qdo_full, 0);
+
+    for (int j = 0; j < n_kv; ++j) {
+      const int s = j % STAGES;
+      const int k0 = j * DQ_BN;
+      hopper::mbar_wait(&full[s], (j / STAGES) & 1);
+      if (k0 > qa + 63 || qa >= T) {  // every key follows these rows, or no row is real
+        hopper::mbar_arrive(&empty[s]);
+        continue;
+      }
+      const bf16* sKs = sK + s * DQ_BN * D;
+      const bf16* sVs = sV + s * DQ_BN * D;
+
+      float S[NS], dP[NS];  // S = Q K^T and dP = dO V^T: 64 rows x DQ_BN keys
+      hopper::wgmma_fence();
+      issue_scores<D>(S, sQw, sKs);
+      issue_scores<D>(dP, sdOw, sVs);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(S);
+      hopper::fence_regs(dP);
+
+      // P = exp2(s * scale * log2(e) - lse * log2(e)) under the causal mask,
+      // dS = P (dP - di), in place of dP
+      const bool diag = k0 + DQ_BN - 1 > qa;
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int c = 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+        const int hr = (i / 2) % 2;
+        const bool masked = diag && k0 + c > q0 + r + 8 * hr;
+        const float p = masked ? 0.0f : exp2f(S[i] * scale_log2 - lse2[hr]);
+        dP[i] = p * (dP[i] - dii[hr]);
+      }
+      uint32_t dsa[DQ_BN / 16][4];  // dS rounded to bf16, as the A operand of dS K
+      hopper::a_fragments(dP, dsa);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DQ_BN / 16; ++kk)
+        hopper::wgmma_m64n64k16_rs<1>(dQ, dsa[kk], hopper::desc_mn_major(sKs, kk), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dQ);
+      hopper::mbar_arrive(&empty[s]);
+    }
+
+    const float mul[2] = {scale, scale};
+    store_rows(dq + (long long)bh * T * D, dQ, mul, qa, T);
+  }
 }
-
-template <int D>
-constexpr size_t bwd_smem() {
-  return (size_t)(2 * BM + 2 * BN) * ld_tile<D>() * 2 + (size_t)2 * 64 * LDF * 4 +
-         (size_t)2 * 64 * LDP * 2 + (size_t)2 * BM * 4;
-}
-
-Strides strides_at(const long long* s, int i) { return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]}; }
 
 }  // namespace
 
@@ -651,16 +636,21 @@ int flash_attention_bwd_dq_bf16_hd64(const void* q, const void* k, const void* v
                                      float scale, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  constexpr size_t smem = bwd_smem<64>();
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<64>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  CUtensorMap maps[4];
+  const void* ops[4] = {q, k, v, dout};
+  const int rows[4] = {DQ_BM, DQ_BN, DQ_BN, DQ_BM};
+  for (int i = 0; i < 4 && err == cudaSuccess; ++i)
+    err = hopper::encode_bhtd(&maps[i], ops[i], B, H, T, 64, strides[3 * i], strides[3 * i + 1],
+                              strides[3 * i + 2], rows[i]);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + BM - 1) / BM, B * H);
-  flash_bwd_dq_kernel<64><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(di), static_cast<bf16*>(dq), H, T, strides_at(strides, 0),
-      strides_at(strides, 1), strides_at(strides, 2), strides_at(strides, 3), scale);
+  constexpr int smem = DqSmem<64>::BYTES;
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<64>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (T + DQ_BM - 1) / DQ_BM);
+  flash_bwd_dq_kernel<64><<<grid, HOPPER_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
+      static_cast<const float*>(di), static_cast<bf16*>(dq), H, T, scale, scale * LOG2E);
   return cudaGetLastError();
 }
 

@@ -22,8 +22,8 @@ Each wrapper launches its kernel for a CUDA tensor and counts the launch in
 below. On CUDA the kernels take bfloat16 with head_dim 64 only, and
 ``q``, ``k``, ``v`` and ``do`` through their strides, with only head_dim
 contiguous (the model's q/k/v are transposed views of one projection): the
-forward and dK/dV kernels load them by TMA through tensor maps over those
-strides, under the rule of :func:`strided_ok`; anything else raises. The library is built with ``nvcc`` at the first
+kernels load them by TMA through tensor maps over those strides, under the
+rule of :func:`strided_ok`; anything else raises. The library is built with ``nvcc`` at the first
 launch (``ops/cuda_build.py``); a missing ``nvcc`` or a failed build
 raises.
 
@@ -31,9 +31,9 @@ Rounding (plain versions and kernels alike): scores and softmax in
 float32; the probabilities are rounded to the input dtype before the value
 product, and so are ``P`` and ``dS`` before the backward products, which
 sum in float32. The kernels' forward normalizes after ``P·V`` (online
-softmax) where the plain version normalizes before, and the forward and
-dK/dV kernels exponentiate in base 2 with ``log2(e)`` folded into the
-scale; the two differ by bfloat16 rounding and float32 ulps only.
+softmax) where the plain version normalizes before, and the kernels
+exponentiate in base 2 with ``log2(e)`` folded into the scale; the two
+differ by bfloat16 rounding and float32 ulps only.
 """
 
 from __future__ import annotations

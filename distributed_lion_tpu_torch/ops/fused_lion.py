@@ -1,4 +1,4 @@
-"""Fused Lion passes for NVIDIA Hopper, written by hand in Triton.
+"""Fused Lion passes for NVIDIA Hopper, written by hand in Triton and CUDA C++.
 
 Port of ``distributed_lion_tpu/ops/pallas_lion.py``. The optimizer's whole
 per-step work over the flat parameter vector is two elementwise passes,
@@ -18,44 +18,58 @@ plus one reduction under ``--telemetry``:
   tally, ``bin = min(|total|*nbins // world, nbins - 1)``, and the count of
   coordinates whose local ballot lost, ``(ballot > 0) != (total > 0)``.
 
-**Bound.** Both are pure HBM streams with no data reuse and a few flops
-per byte: the ballot pass moves 9 B per coordinate at float32 (g and m in,
-int8 out), the apply pass 21 B (p, g, m in, an int8 tally in, p and m
-out). At GPT-2 124M that is 1.12 GB and 2.61 GB per step, so on an H100
-SXM (3.35 TB/s) the bounds are about 0.33 ms and 0.78 ms. The stats pass
-reads 2 B per coordinate with an int8 tally (0.074 ms at GPT-2 124M) and
-5 B with an int32 one.
+**Bound.** All three are pure HBM streams with no data reuse and a few
+operations per byte: the ballot pass moves 9 B per coordinate at float32
+(g and m in, int8 out), the apply pass 21 B (p, g, m in, an int8 tally in,
+p and m out), the stats pass 2 B with an int8 tally (ballots and tally in,
+nine counts out) and 5 B with an int32 one. At GPT-2 124M that is 1.12 GB,
+2.61 GB and 0.25 GB per step, so on an H100 SXM (3.35 TB/s) the bounds are
+about 0.33 ms, 0.78 ms and 0.074 ms.
 
-**Design.** One Triton program per ``BLOCK`` contiguous coordinates (a
-power of two), with the ragged tail masked in the kernel: no padded copy,
-where the TPU version pads to ``[rows, 128]`` (pallas_lion.py:59-76). The
-caller passes windows (views) of its flat buffers, so a vote bucket is one
-launch over one window. The apply pass writes p and m in place, which
-saves the two output buffers a functional version would allocate. ``lr``
-is a float32 device tensor the kernel loads, like the Pallas SMEM scalar,
-so an LR schedule costs no host sync and no recompile. The constants
-``1-b1``, ``1-b2`` and ``wd`` are Python doubles passed as float32
-scalars, rounded once, as the JAX weak-typed literals are. The kernels are
-launched with ``enable_fp_fusion=False``: every multiply and add rounds on
-its own, exactly as the plain versions below, so the card's elections are
-bit-identical to theirs. The stats kernel reduces each program's block to
-per-bin counts in registers and adds them with one atomic per bin into an
-``int32[nbins + 1]`` output (the last slot is the disagreement count), the
-masked tail included in no bin: the TPU kernel's resident VMEM tile across
-a sequential grid becomes atomics across parallel programs. The counts are
-exact integers, so the result does not depend on the order.
+**Design.** The ballot and apply passes are Triton: one program per
+``BLOCK`` contiguous coordinates (a power of two), with the ragged tail
+masked in the kernel: no padded copy, where the TPU version pads to
+``[rows, 128]`` (pallas_lion.py:59-76). The caller passes windows (views)
+of its flat buffers, so a vote bucket is one launch over one window. The
+apply pass writes p and m in place, which saves the two output buffers a
+functional version would allocate. ``lr`` is a float32 device tensor the
+kernel loads, like the Pallas SMEM scalar, so an LR schedule costs no host
+sync and no recompile. The constants ``1-b1``, ``1-b2`` and ``wd`` are
+Python doubles passed as float32 scalars, rounded once, as the JAX
+weak-typed literals are. The kernels are launched with
+``enable_fp_fusion=False``: every multiply and add rounds on its own,
+exactly as the plain versions below, so the card's elections are
+bit-identical to theirs.
+
+The stats pass is CUDA C++ (``csrc/vote_stats.cu``): per coordinate it is
+one comparison into a small fixed set of bins, which registers and
+integer warp reductions do at memory speed. A grid-stride loop over a few
+blocks per SM loads 16-byte vectors (a scalar head and tail, since a
+bucket's window may start at any byte offset), counts into 8-bit lanes in
+registers through a shared-memory table from the tally to its bin's
+increment, and each block adds one atomic per bin into an
+``int32[nbins + 1]`` output (the last slot is the disagreement count). The
+TPU kernel's resident VMEM tile across a sequential grid becomes atomics
+across parallel blocks; the counts are exact integers, so the result does
+not depend on the order. The library is instantiated for ``nbins`` 8
+(``train.telemetry.NBINS``, the only caller's) and raises on another.
 
 Each wrapper runs its kernel for a CUDA tensor and its plain PyTorch
 version for a CPU tensor, counts its launches in ``.launches``, and raises
 on anything else. Triton is imported at the first launch, never at module
 import, and caches its builds under ``build/triton/`` of the checkout
-unless ``TRITON_CACHE_DIR`` is set.
+unless ``TRITON_CACHE_DIR`` is set; the stats library is built by ``nvcc``
+at its first launch (``ops/cuda_build.py``), and a missing ``nvcc`` or a
+failed build raises.
 """
 
+import ctypes
 import os
 import pathlib
 
 import torch
+
+from distributed_lion_tpu_torch.ops import cuda_build
 
 os.environ.setdefault(
     "TRITON_CACHE_DIR",
@@ -63,12 +77,14 @@ os.environ.setdefault(
 
 BLOCK = 4096      # coordinates per program: 16 per thread at 8 warps
 NUM_WARPS = 8
-STATS_BLOCK = 16384  # stats: 64 int8 coordinates per thread, 9 atomics per program
+STATS_NBINS = (8,)   # the bin counts csrc/vote_stats.cu is instantiated for
+STATS_MAX_WORLD = 1 << 28  # csrc/vote_stats.cu MAX_WORLD
 
 # Bound at the first launch by _kernels(): this module must import where
 # triton is absent (the CPU tests take the plain versions).
 triton = tl = None
 _KERNELS: dict = {}
+_STATS_LIB = None
 
 _MOMENTUM_DTYPES = (torch.float32, torch.bfloat16)
 _TALLY_DTYPES = (torch.int8, torch.int32)
@@ -138,24 +154,22 @@ def _kernels() -> dict:
         m_new = m32 * b2 + g32 * c2
         tl.store(m_ptr + offs, m_new.to(m_ptr.dtype.element_ty), mask=mask)
 
-    # world is not specialized: Triton turns an integer argument equal to 1
-    # into a constant, and at world == 1 that build counted half the
-    # coordinates on the card (torch 2.11, triton 3.6.0)
-    @triton.jit(do_not_specialize=["world"])
-    def _stats_kernel(ballot_ptr, tot_ptr, out_ptr, n, world, NBINS: tl.constexpr,
-                      BLOCK: tl.constexpr):
-        offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-        mask = offs < n
-        t = tl.load(tot_ptr + offs, mask=mask, other=0).to(tl.int32)
-        b = tl.load(ballot_ptr + offs, mask=mask, other=0)
-        binidx = tl.minimum((tl.abs(t) * NBINS) // world, NBINS - 1)
-        for k in tl.static_range(NBINS):
-            tl.atomic_add(out_ptr + k, tl.sum(tl.where(mask & (binidx == k), 1, 0)))
-        dis = tl.where(mask & ((b > 0) != (t > 0)), 1, 0)
-        tl.atomic_add(out_ptr + NBINS, tl.sum(dis))
-
-    _KERNELS.update(ballot=_ballot_kernel, apply=_apply_kernel, stats=_stats_kernel)
+    _KERNELS.update(ballot=_ballot_kernel, apply=_apply_kernel)
     return _KERNELS
+
+
+def _stats_lib() -> ctypes.CDLL:
+    global _STATS_LIB
+    if _STATS_LIB is None:
+        lib = cuda_build.load("vote_stats")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.vote_stats_int8, lib.vote_stats_int32):
+            fn.argtypes = [p, p, p, ctypes.c_longlong, i, i, i, p]
+            fn.restype = i
+        lib.vote_stats_error_string.argtypes = [i]
+        lib.vote_stats_error_string.restype = ctypes.c_char_p
+        _STATS_LIB = lib
+    return _STATS_LIB
 
 
 def _check_window(name: str, *ts: torch.Tensor) -> None:
@@ -237,12 +251,23 @@ def bucket_vote_stats(ballots: torch.Tensor, total: torch.Tensor, world: int,
         raise ValueError(f"bucket_vote_stats: world {world} and nbins {nbins} must be >= 1")
     if ballots.device.type == "cpu":
         return bucket_vote_stats_plain(ballots, total, world, nbins)
+    if nbins not in STATS_NBINS:
+        raise NotImplementedError(
+            f"bucket_vote_stats: the CUDA kernel is built for nbins in {STATS_NBINS}, got "
+            f"{nbins} (csrc/vote_stats.cu; ROADMAP Queue 2)")
+    if world > STATS_MAX_WORLD:
+        raise ValueError(f"bucket_vote_stats: world {world} above the CUDA kernel's "
+                         f"{STATS_MAX_WORLD} (|tally| * nbins must fit int32, as in margin_bins)")
     out = torch.zeros(nbins + 1, dtype=torch.int32, device=ballots.device)
     if ballots.numel():
-        n = ballots.numel()
-        _kernels()["stats"][(triton.cdiv(n, STATS_BLOCK),)](
-            ballots, total, out, n, world, NBINS=nbins, BLOCK=STATS_BLOCK,
-            num_warps=NUM_WARPS)
+        lib = _stats_lib()
+        fn = lib.vote_stats_int8 if total.dtype == torch.int8 else lib.vote_stats_int32
+        err = fn(ballots.data_ptr(), total.data_ptr(), out.data_ptr(), ballots.numel(), world,
+                 nbins, ballots.device.index,
+                 torch.cuda.current_stream(ballots.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"bucket_vote_stats: CUDA error {err} at launch "
+                               f"({lib.vote_stats_error_string(err).decode()})")
         bucket_vote_stats.launches += 1
     return out[:nbins], out[nbins]
 

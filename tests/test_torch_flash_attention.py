@@ -161,8 +161,9 @@ def test_model_qkv_views_are_the_kernels_layout():
 
 
 def test_no_nvcc_raises_and_sources_key_the_build(tmp_path, monkeypatch):
-    """Without nvcc the build raises (no fallback); an edited source gets
-    another library name."""
+    """Without nvcc the build raises (no fallback), for the flash and the
+    stats library alike; an edited source gets another library name, and
+    the two sources name different libraries."""
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
@@ -173,6 +174,17 @@ def test_no_nvcc_raises_and_sources_key_the_build(tmp_path, monkeypatch):
     src.write_text("// two\n")
     assert cuda_build.library_path(src) != first
     assert first.parent == cuda_build.BUILD_DIR
+    # the port's two libraries: each its own name, and neither builds without nvcc
+    libs = {name: cuda_build.library_path(cuda_build.CSRC / f"{name}.cu")
+            for name in ("flash_attention", "vote_stats")}
+    assert libs["flash_attention"] != libs["vote_stats"]
+    assert all(path.name.startswith(f"{name}-") for name, path in libs.items())
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cuda_build, "_LIBS", {})
+    for name in libs:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            cuda_build.load(name)
+    assert not (tmp_path / "build").exists()
 
 
 def test_headers_key_the_build(tmp_path):

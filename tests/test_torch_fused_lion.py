@@ -1,7 +1,7 @@
 """The fused Lion kernels' plain versions vs the JAX package's Pallas
 kernels (``pallas_lion.*``, interpret mode on the CPU), and the wrappers'
-routing. The Triton kernels themselves run only on the card: chip_smoke.py
-holds them ``torch.equal`` to these plain versions there.
+routing. The Triton and CUDA kernels themselves run only on the card:
+chip_smoke.py holds them ``torch.equal`` to these plain versions there.
 
 Tolerance: ballots exact; params and momentum ``rtol=1e-6, atol=0``. The
 cause of the 1-ulp float32 differences: XLA:CPU compiles the interpreted
@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from distributed_lion_tpu.ops import pallas_lion
-from distributed_lion_tpu_torch.ops import fused_lion
+from distributed_lion_tpu_torch.ops import cuda_build, fused_lion
 
 # tiny shapes: more intra-op threads only add contention with the other
 # test workers
@@ -102,12 +102,16 @@ def test_apply_tie_elects_minus_one():
 
 
 def test_cpu_path_counts_no_launches():
-    before = (fused_lion.fused_ballots.launches, fused_lion.fused_apply.launches)
+    wrappers = (fused_lion.fused_ballots, fused_lion.fused_apply, fused_lion.bucket_vote_stats)
+    before = [fn.launches for fn in wrappers]
     x = torch.randn(100)
-    fused_lion.fused_apply(x.clone(), x, x.clone(), fused_lion.fused_ballots(x, x, 0.9),
-                           torch.tensor(1e-3), 0.1, 0.99)
-    assert (fused_lion.fused_ballots.launches, fused_lion.fused_apply.launches) == before
+    ballots = fused_lion.fused_ballots(x, x, 0.9)
+    fused_lion.fused_apply(x.clone(), x, x.clone(), ballots, torch.tensor(1e-3), 0.1, 0.99)
+    hist, dis = fused_lion.bucket_vote_stats(ballots, ballots, 1, 8)
+    assert hist.tolist() == [0] * 7 + [100] and int(dis) == 0
+    assert [fn.launches for fn in wrappers] == before
     assert fused_lion.triton is None  # no kernel was built here
+    assert fused_lion._STATS_LIB is None and "vote_stats" not in cuda_build._LIBS
 
 
 def test_wrappers_refuse_what_no_kernel_takes():
@@ -124,3 +128,14 @@ def test_wrappers_refuse_what_no_kernel_takes():
     with pytest.raises(ValueError, match="lr"):
         fused_lion.fused_apply(x, x, x, torch.ones(64, dtype=torch.int8),
                                lr.double(), 0.1, 0.99)
+    votes = torch.ones(64, dtype=torch.int8)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        fused_lion.bucket_vote_stats(votes.to("meta"), votes.to("meta"), 4, 8)
+    with pytest.raises(ValueError, match="tally"):
+        fused_lion.bucket_vote_stats(votes, votes.to(torch.int16), 4, 8)
+    with pytest.raises(ValueError, match="tally"):
+        fused_lion.bucket_vote_stats(x, votes, 4, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_lion.bucket_vote_stats(votes[::2], votes[::2], 4, 8)
+    with pytest.raises(ValueError, match="must be >= 1"):
+        fused_lion.bucket_vote_stats(votes, votes, 0, 8)

@@ -1,6 +1,6 @@
 """The port's vote-health telemetry vs the JAX package's, on the CPU.
 
-- ``bucket_vote_stats_plain`` (what the Triton kernel computes, and what its
+- ``bucket_vote_stats_plain`` (what the CUDA kernel computes, and what its
   wrapper runs on CPU tensors) and ``margin_hist`` are bit-identical to the
   JAX package's Pallas ``bucket_vote_stats`` (interpret mode) and
   ``margin_hist``: the counts are integers.
@@ -37,24 +37,39 @@ BUCKETS = 3
 WIRES = ("sign_psum", "packed_a2a")
 
 
-@pytest.mark.parametrize("tally", [np.int8, np.int32], ids=["int8", "int32"])
-def test_bucket_vote_stats_plain_matches_jax_pallas(tally):
+STATS_CASES = {  # id: (world, nbins, tally dtype)
+    "int8": (8, 8, np.int8), "int32": (8, 8, np.int32),
+    "W1-int8": (1, 8, np.int8),    # a vote of one: every coordinate in the last bin
+    "W3-int8": (3, 8, np.int8),    # a world that does not divide the bins
+    "W6-int32": (6, 8, np.int32),
+    "W5-bins4-int32": (5, 4, np.int32),  # another bin count (the JAX kernel takes up to 128)
+}
+
+
+@pytest.mark.parametrize("world,nbins,tally", list(STATS_CASES.values()),
+                         ids=list(STATS_CASES))
+def test_bucket_vote_stats_plain_matches_jax_pallas(world, nbins, tally):
     import jax.numpy as jnp
 
     from distributed_lion_tpu.ops.pallas_lion import bucket_vote_stats as j_stats
 
-    rng = np.random.default_rng(3)
-    n = 5003  # ragged: not a multiple of the Pallas grid's rows or the Triton block
+    rng = np.random.default_rng(3 if world == 8 else 3 + world)
+    n = 5003  # ragged: not a multiple of the Pallas grid's rows or a kernel step
     ballots = rng.choice([-1, 1], size=n).astype(np.int8)
-    totals = rng.integers(-8, 9, size=n).astype(tally)
-    want_h, want_d = j_stats(jnp.asarray(ballots), jnp.asarray(totals), 8, telemetry.NBINS,
+    if world == 1:
+        totals = ballots.astype(tally)
+    else:
+        totals = rng.integers(-world, world + 1, size=n).astype(tally)
+    want_h, want_d = j_stats(jnp.asarray(ballots), jnp.asarray(totals), world, nbins,
                              interpret=True)
     got_h, got_d = fused_lion.bucket_vote_stats(torch.from_numpy(ballots),
-                                                torch.from_numpy(totals), 8, telemetry.NBINS)
+                                                torch.from_numpy(totals), world, nbins)
     assert got_h.dtype == torch.int32 and got_d.dtype == torch.int32
     np.testing.assert_array_equal(got_h.numpy(), np.asarray(want_h))
     assert int(got_d) == int(want_d)
     assert int(got_h.sum()) == n
+    if world == 1:
+        assert got_h.tolist() == [0] * (nbins - 1) + [n] and int(got_d) == 0
 
 
 def test_margin_hist_matches_jax():
