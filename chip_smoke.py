@@ -11,21 +11,27 @@ Phases (none of their failures is caught; any one fails the run):
    per-kernel register and spill report is printed. No kernel may spill a
    byte, and ``cuobjdump -sass`` of the flash library must show ``HGMMA``
    (wgmma), ``UTMALDG`` (TMA loads) and no ``HMMA`` (``mma.sync``, as
-   ``nvcuda::wmma`` compiles) in each of the forward, dK/dV and dQ kernels.
+   ``nvcuda::wmma`` compiles) in each of the forward, dK/dV and dQ kernels,
+   at head_dim 64 and at 128 (each instantiation checked on its own).
 2. Kernel phase, optimizer: the two Triton kernels (``ops/fused_lion.py``)
    and the CUDA stats kernel (``csrc/vote_stats.cu``) against their plain
    PyTorch versions on the card, at the main path's size (GPT-2 124M,
-   124,439,808 coordinates) and at a ragged 1,000,003: ``fused_ballots``
+   124,439,808 coordinates), at run (d)'s (Llama-2-7B's LoRA adapters,
+   4,194,304) and at a ragged 1,000,003: ``fused_ballots``
    and ``fused_apply`` for float32 and bfloat16 params and int8 and int32
    tallies, ``bucket_vote_stats`` for a vote of 1 (int8 tally), of 4 (int8
    and int32), of 3 (both) and of 300 (int32), and on windows that start
    at an odd byte offset of a larger buffer, with the tally lined up with
    the ballots and not. Outputs must be ``torch.equal``.
 3. Kernel phase, attention: the three flash kernels
-   (``ops/flash_attention.py``) at the main path's shape (B 8, H 12,
-   T 1024, head_dim 64, bfloat16, q/k/v/do as transposed views), at a
-   ragged T = 1000, and at B 2, H 3 with T 40 (shorter than one tile) and
-   130, against the plain versions and against a float64
+   (``ops/flash_attention.py``) at GPT-2's shape (B 8, H 12, T 1024,
+   head_dim 64, bfloat16, q/k/v transposed views of one projection) and at
+   a ragged T = 1000; at Llama-2-7B's (B 4, H 32, T 1024, head_dim 128, q
+   and k contiguous as rope makes them, v a transposed view of its own
+   projection) and at T 2048 and a ragged 1000; do always a transposed
+   view, as autograd hands it back; and at
+   B 2, H 3 with T 40 (shorter than one tile) and 130 at both head dims;
+   against the plain versions and against a float64
    reference built from the same bfloat16 inputs. Criterion: for every
    output X (o, lse, dq, dk, dv),
    ``max|X_kernel - X_f64| <= 2 * max|X_plain - X_f64| + slack``, where
@@ -40,6 +46,9 @@ Phases (none of their failures is caught; any one fails the run):
    it): the forward, and the backward with a fresh graph for each timed
    call (its forward runs before the start event), each as median and
    minimum. Each kernel's TFLOP/s is its causal operations over its time.
+   Both head dims are timed at their T 1024 shape. Then ``ops/quant.py``:
+   ``quantize_nf4`` and ``dequantize`` of a [4096, 11008] weight on the card
+   must equal the CPU's bit for bit.
 4. Slice phase, in one 1-rank NCCL process group: each flat vote wire must
    return the rank's own ballots as the tally; then ``cli.run_clm.main``
    trains GPT-2 124M at full width (T = 1024, float32 params, bfloat16
@@ -57,19 +66,30 @@ Phases (none of their failures is caught; any one fails the run):
    model's eval loss through flash must be finite and within 0.002 of its
    eval loss through ``attention_xla``. (c) ``--dropout 0`` alone: (b)'s
    flash counts and no ``bucket_vote_stats``, so (b) - (c) is the cost of
-   telemetry. After (c), ``torch.profiler`` traces one forward + backward
-   microbatch of (c)'s model (B 8, T 1024, bfloat16 compute, dropout 0,
-   remat), recording device activity only, and prints the ten device
-   kernels with the most time and the flash kernels wherever they rank
-   (total ms, calls), and the device's idle
-   share over the traced window (1 - the union of device activity over
-   the window from the first to the last device event), beside three
-   unprofiled microbatches timed on the host clock. The wire check also times ``sign_psum`` at the main path's
-   size with and without the copy that keeps the ballots (telemetry's
-   case). Before the runs a tiny float32
-   model's logits on the card must match the CPU's, and the float32-result
-   products (``ops/products.py``) must agree with float64 products of the
-   same bfloat16 operands to 1/16 of a bfloat16 ulp of the largest value.
+   telemetry. (d) ``cli.run_sft.main``: Llama-2-7B at full width and depth
+   (32 layers, d 4096, 32 heads of 128, d_ff 11008; the byte vocabulary,
+   259), an NF4 base, LoRA r 8 on wq/wv (4,194,304 trainable coordinates),
+   ``--attn_impl flash``, B 4 x accumulation 2 x T 1024, 3 steps and the
+   run's eval: finite losses; flash forward at head_dim 128 32 x 2 (remat)
+   x accum x steps + 32 x eval batches, dK/dV and dQ 32 x accum x steps,
+   no head_dim 64 launch; the optimizer kernels steps x buckets; the
+   frozen base equal (codes, absmax, norm scales) to a fresh init from the
+   same seed; eval loss through flash within 0.002 of attention_xla's;
+   step ms, tokens/s and peak device memory. After (c) and after (d),
+   ``torch.profiler`` traces one forward + backward microbatch of the run's
+   model (GPT-2: B 8; Llama: B 4; T 1024, bfloat16 compute, remat),
+   recording device activity only, and prints the ten device kernels with
+   the most time and the flash kernels wherever they rank (total ms,
+   calls), and the device's idle share over the traced window (1 - the
+   union of device activity over the window from the first to the last
+   device event), beside three unprofiled microbatches timed on the host
+   clock. The wire check also times ``sign_psum`` at the main path's size
+   with and without the copy that keeps the ballots (telemetry's case).
+   Before the runs a tiny float32 model's logits on the card must match
+   the CPU's, and the float32-result products (``ops/products.py``) must
+   agree with float64 products of the same bfloat16 operands to 1/16 of a
+   bfloat16 ulp of the largest value.
+   Each phase prints its wall time.
 
 Times are medians of 25 CUDA-event runs after 3 warm-up calls, queued
 while the card sleeps (``torch.cuda._sleep``) so that they time the card's
@@ -77,8 +97,11 @@ work and not the host's launches. Bounds are
 the larger of bytes moved (each input read once, each output written once)
 over the card's data-sheet bandwidth and the operations done (causal
 products counted over the pairs k <= q only) over its data-sheet bfloat16
-tensor rate. The line before the last is the per-kernel JSON record; the
-last line is ``{"ok": true, "device": {...}}``.
+tensor rate. The line before the last is the per-kernel JSON record (one
+entry per kernel instantiation: the head_dim 128 flash kernels carry the
+suffix ``_hd128``; launches of the optimizer and head_dim 64 kernels are
+run (b)'s, of the head_dim 128 kernels run (d)'s); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 import concurrent.futures
@@ -95,24 +118,34 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from distributed_lion_tpu_torch.cli import run_clm
+from distributed_lion_tpu_torch.cli import run_clm, run_sft
+from distributed_lion_tpu_torch.data.tokenizer import ByteTokenizer
 from distributed_lion_tpu_torch.models.gpt2 import GPT2, GPT2Config
-from distributed_lion_tpu_torch.models.loss import clm_loss_and_metrics
-from distributed_lion_tpu_torch.ops import cuda_build, fused_lion
+from distributed_lion_tpu_torch.models.llama import llama_init
+from distributed_lion_tpu_torch.models.lora import iter_paths
+from distributed_lion_tpu_torch.ops import cuda_build, fused_lion, quant
 from distributed_lion_tpu_torch.ops import flash_attention as fa
 from distributed_lion_tpu_torch.ops.codec import bucket_bounds
 from distributed_lion_tpu_torch.ops.products import matmul_f32
 from distributed_lion_tpu_torch.parallel import collectives
 
 N_MAIN = 124_439_808   # GPT-2 124M coordinates: the main path's window
+# run (d)'s window: Llama-2-7B's LoRA adapters, r 8 on wq and wv of 32
+# blocks, each A [4096, 8] and B [8, 4096]
+N_SFT = 32 * 2 * (4096 * 8 + 8 * 4096)
 N_RAGGED = 1_000_003
-FLASH_B, FLASH_H, FLASH_D = 8, 12, 64   # the slice's microbatch at GPT-2 width
-FLASH_TS = (1024, 1000)                 # the main path's T, and a ragged one
 FLASH_SMALL = ((2, 3, 40), (2, 3, 130))  # (B, H, T): shorter than one tile, one tile and a bit
+# (head_dim, B, H, timed T, the other T at B x H, the operands that are
+# transposed views of one projection): GPT-2 124M's microbatch, q/k/v all
+# three from c_attn; Llama-2-7B's, v from wv and q, k contiguous (rope makes
+# new tensors), with T 2048 where auto takes flash for it
+FLASH_CASES = ((64, 8, 12, 1024, (1000,), "qkv"), (128, 4, 32, 1024, (2048, 1000), "v"))
 STEPS = 3
 ACCUM = 2
 EVAL_BATCHES = 2
 N_LAYER = 12
+LLAMA_LAYERS = 32   # Llama-2-7B at full depth in run (d)
+EVAL_TOL = 0.002    # |eval loss through flash - through attention_xla|, both runs
 RUNS = 25
 AHEAD_CYCLES = 50_000_000   # about 30 ms of the card's clock: the host queues the timed calls
 
@@ -121,19 +154,26 @@ CARDS = [("H200", 4.8e12, 989e12), ("H100 PCIe", 2.0e12, 756e12),
          ("H100 NVL", 3.9e12, 835e12), ("H100", 3.35e12, 989e12)]
 
 CUDA_SOURCES = ("flash_attention", "vote_stats")   # csrc/<name>.cu
-# the kernels redesigned for Hopper (TMA ring, wgmma): their SASS must show
-# both, and mma.sync nowhere
-HOPPER_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
+# the kernels redesigned for Hopper (TMA ring, wgmma), each instantiation by
+# its mangled template argument: their SASS must show both, and mma.sync
+# nowhere
+HOPPER_KERNELS = tuple(f"flash_{k}_kernelILi{d}E" for d in (64, 128)
+                       for k in ("fwd", "bwd_dkv", "bwd_dq"))
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
 PROFILE_TOP = 10
 
-KERNELS = ("fused_ballots", "fused_apply", "bucket_vote_stats", "flash_attention_fwd",
-           "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+FLASH = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+# one entry per kernel instantiation: the hd64 flash kernels keep their
+# names, the hd128 ones carry the suffix
+KERNELS = ("fused_ballots", "fused_apply", "bucket_vote_stats", *FLASH,
+           *(f"{k}_hd128" for k in FLASH))
+# the optimizer kernels' wrappers count in ``.launches``; the flash
+# wrappers per head_dim in ``.by_head_dim``
 WRAPPERS = {"fused_ballots": fused_lion.fused_ballots, "fused_apply": fused_lion.fused_apply,
-            "bucket_vote_stats": fused_lion.bucket_vote_stats,
-            "flash_attention_fwd": fa.flash_attention_fwd,
-            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
-            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq}
+            "bucket_vote_stats": fused_lion.bucket_vote_stats}
+FLASH_WRAPPERS = {"flash_attention_fwd": fa.flash_attention_fwd,
+                  "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+                  "flash_attention_bwd_dq": fa.flash_attention_bwd_dq}
 ROUTES = {
     "fused_ballots": ("triton", "distributed_lion_tpu_torch/ops/fused_lion.py",
                       "distributed_lion_tpu/ops/pallas_lion.py:84"),
@@ -148,6 +188,23 @@ ROUTES = {
     "flash_attention_bwd_dq": ("cuda", "distributed_lion_tpu_torch/csrc/flash_attention.cu",
                                "jax/experimental/pallas/ops/tpu/flash_attention.py:1287"),
 }
+ROUTES.update({f"{k}_hd128": ROUTES[k] for k in FLASH})
+
+
+def reset_counts() -> None:
+    """Every kernel wrapper's launch counts to 0."""
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    fa.reset_counts()
+
+
+def read_counts() -> dict:
+    """Launches per entry of KERNELS."""
+    counts = {name: fn.launches for name, fn in WRAPPERS.items()}
+    for k, fn in FLASH_WRAPPERS.items():
+        counts[k] = fn.by_head_dim[64]
+        counts[f"{k}_hd128"] = fn.by_head_dim[128]
+    return counts
 
 
 def card_rates(name: str) -> tuple[float, float]:
@@ -240,7 +297,7 @@ def optimizer_kernel_phase(gen, rates):
     tally) and the max error over all cases."""
     rec = {}
     err = {"fused_ballots": 0.0, "fused_apply": 0.0, "bucket_vote_stats": 0.0}
-    for n in (N_MAIN, N_RAGGED):
+    for n in (N_MAIN, N_SFT, N_RAGGED):
         for pdt in (torch.float32, torch.bfloat16):
             mdt = pdt
             g = torch.randn(n, generator=gen, device="cuda").to(mdt)
@@ -357,14 +414,19 @@ def stats_cases(gen, rates, n, rec, err) -> None:
     del ballots, big_b
 
 
-def flash_inputs(gen, T, B=FLASH_B, H=FLASH_H):
-    """q, k, v as the model makes them (transposed views of one [B, T, 3, d]
-    projection) and do as a transposed view of [B, T, H, hd]."""
-    D = FLASH_D
-    qkv = torch.randn(B, T, 3, H * D, generator=gen, device="cuda").bfloat16()
-    q, k, v = (qkv[:, :, i].reshape(B, T, H, D).transpose(1, 2) for i in range(3))
+def flash_inputs(gen, T, B, H, D, views):
+    """q, k, v and do in the layout the model hands the kernels: the
+    operands named in ``views`` transposed views of one [B, T, len(views),
+    H * D] projection, the others contiguous [B, H, T, D]; do a transposed
+    view of [B, T, H, D]."""
+    proj = torch.randn(B, T, len(views), H * D, generator=gen, device="cuda").bfloat16()
+    ops = {name: proj[:, :, i].reshape(B, T, H, D).transpose(1, 2)
+           for i, name in enumerate(views)}
+    for name in "qkv":
+        if name not in ops:
+            ops[name] = torch.randn(B, H, T, D, generator=gen, device="cuda").bfloat16()
     do = torch.randn(B, T, H, D, generator=gen, device="cuda").bfloat16().transpose(1, 2)
-    return q, k, v, do
+    return ops["q"], ops["k"], ops["v"], do
 
 
 def flash_reference64(q, k, v, do):
@@ -391,12 +453,12 @@ def ulp_f32(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(x)) - 23)
 
 
-def flash_check(T, name, got, plain, want) -> float:
+def flash_check(tag, name, got, plain, want) -> float:
     """Hold one output to the criterion of the module doc; returns its max
     difference from the plain version."""
     got, pl = got.double(), plain.double()
     if got.shape != want.shape or not torch.isfinite(got).all():
-        raise AssertionError(f"flash {name} at T={T}: shape {tuple(got.shape)} "
+        raise AssertionError(f"flash {name} at {tag}: shape {tuple(got.shape)} "
                              f"or non-finite values")
     e_k = (got - want).abs().max().item()
     e_p = (pl - want).abs().max().item()
@@ -404,26 +466,30 @@ def flash_check(T, name, got, plain, want) -> float:
     slack = 4 * ulp_f32(top) if name == "lse" else half_ulp_bf16(top)
     limit = 2 * e_p + slack
     vs_plain = (got - pl).abs().max().item()
-    print(f"[flash] T={T} {name}: kernel err {e_k:.3e}, plain err {e_p:.3e}, "
+    print(f"[flash] {tag} {name}: kernel err {e_k:.3e}, plain err {e_p:.3e}, "
           f"limit {limit:.3e} (max |value| {top:.3f}); kernel vs plain {vs_plain:.3e}",
           flush=True)
     if e_k > limit:
-        raise AssertionError(f"flash {name} at T={T}: error {e_k} against float64 "
+        raise AssertionError(f"flash {name} at {tag}: error {e_k} against float64 "
                              f"exceeds 2 x plain ({e_p}) + {slack}")
     return vs_plain
 
 
-def flash_kernel_phase(gen, rates):
-    """Check the three flash kernels at every shape; time them at the main one."""
+def flash_kernel_phase(gen, rates, D, B_main, H_main, T_main, T_more, views):
+    """Check the three flash kernels of head_dim D at every shape, with q,
+    k, v in the model's layout (``views``: see flash_inputs); time them at
+    the main one. Records are named as in KERNELS."""
+    suffix = "" if D == 64 else f"_hd{D}"
     rec = {}
-    err = {k: 0.0 for k in ("flash_attention_fwd", "flash_attention_bwd_dkv",
-                            "flash_attention_bwd_dq")}
+    err = {k + suffix: 0.0 for k in FLASH}
     owner = {"o": "flash_attention_fwd", "lse": "flash_attention_fwd",
              "dk": "flash_attention_bwd_dkv", "dv": "flash_attention_bwd_dkv",
              "dq": "flash_attention_bwd_dq"}
-    shapes = [(FLASH_B, FLASH_H, T) for T in FLASH_TS] + list(FLASH_SMALL)
+    owner = {name: k + suffix for name, k in owner.items()}
+    shapes = [(B_main, H_main, T) for T in (T_main, *T_more)] + list(FLASH_SMALL)
     for B, H, T in shapes:
-        q, k, v, do = flash_inputs(gen, T, B, H)
+        tag = f"hd{D} B{B} H{H} T{T}"
+        q, k, v, do = flash_inputs(gen, T, B, H, D, views)
         o, lse = fa.flash_attention_fwd(q, k, v)
         op, lp = fa.flash_attention_fwd_plain(q, k, v)
         di = fa.attention_di(op, do)
@@ -437,13 +503,13 @@ def flash_kernel_phase(gen, rates):
         ref = flash_reference64(q, k, v, do)
         for name, want in ref.items():
             err[owner[name]] = max(err[owner[name]],
-                                   flash_check(T, name, kern[name], plain[name], want))
+                                   flash_check(tag, name, kern[name], plain[name], want))
         # the backward kernels on the forward kernel's own o and lse
         di_k = fa.attention_di(o, do)
         dk_k, dv_k = fa.flash_attention_bwd_dkv(q, k, v, do, lse, di_k)
         dq_k = fa.flash_attention_bwd_dq(q, k, v, do, lse, di_k)
         for name, got in (("dq", dq_k), ("dk", dk_k), ("dv", dv_k)):
-            flash_check(T, f"{name} (after the forward kernel)", got, plain[name], ref[name])
+            flash_check(tag, f"{name} (after the forward kernel)", got, plain[name], ref[name])
         # the same inputs again: the same bits
         o2, lse2 = fa.flash_attention_fwd(q, k, v)
         dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lp, di)
@@ -453,25 +519,26 @@ def flash_kernel_phase(gen, rates):
                  "dq": (dq, dq2)}
         differ = [name for name, (a, b) in again.items() if not torch.equal(a, b)]
         if differ:
-            raise AssertionError(f"flash at T={T}: a second call differs in {differ}")
-        print(f"[flash] T={T}: a second call gives the same bits in {list(again)}", flush=True)
+            raise AssertionError(f"flash at {tag}: a second call differs in {differ}")
+        print(f"[flash] {tag}: a second call gives the same bits in {list(again)}", flush=True)
         del ref, kern, plain, di_k, dk_k, dv_k, dq_k, again, o2, lse2, dk2, dv2, dq2
         if (B, H, T) != shapes[0]:
+            del q, k, v, do, o, lse, op, lp, di, dk, dv, dq, dkp, dvp, dqp
+            torch.cuda.empty_cache()
             continue
 
-        D = FLASH_D
         pairs = B * H * T * (T + 1) / 2   # (q, k) pairs with k <= q
         elem = B * H * T * D * 2          # one bfloat16 [B, H, T, D] tensor
         row = B * H * T * 4               # one float32 [B, H, T] tensor
         cases = {
-            "flash_attention_fwd": (lambda: fa.flash_attention_fwd(q, k, v),
+            "flash_attention_fwd" + suffix: (lambda: fa.flash_attention_fwd(q, k, v),
                                     lambda: fa.flash_attention_fwd_plain(q, k, v),
                                     4 * elem + row, 2 * 2 * D * pairs),
-            "flash_attention_bwd_dkv": (
+            "flash_attention_bwd_dkv" + suffix: (
                 lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lp, di),
                 lambda: fa.flash_attention_bwd_dkv_plain(q, k, v, do, lp, di),
                 6 * elem + 2 * row, 4 * 2 * D * pairs),
-            "flash_attention_bwd_dq": (
+            "flash_attention_bwd_dq" + suffix: (
                 lambda: fa.flash_attention_bwd_dq(q, k, v, do, lp, di),
                 lambda: fa.flash_attention_bwd_dq_plain(q, k, v, do, lp, di),
                 5 * elem + 2 * row, 3 * 2 * D * pairs),
@@ -491,13 +558,13 @@ def flash_kernel_phase(gen, rates):
         for name, (kern_fn, plain_fn, nbytes, flops) in cases.items():
             ms, plain_ms = time_ms(kern_fn), time_ms(plain_fn)
             bms, by = bound(nbytes, flops, rates)
-            library = lib_fwd if name == "flash_attention_fwd" else lib_bwd
+            library = lib_fwd if name.startswith("flash_attention_fwd") else lib_bwd
             print(f"[kernel] {name} B{B} H{H} T{T} hd{D}: {ms:.4f} ms, "
                   f"{flops / ms / 1e9:.1f} TFLOP/s (bound {bms:.4f} ms by {by}: "
                   f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; plain {plain_ms:.4f} ms; "
                   f"library {library:.4f} ms)", flush=True)
             rec[name] = (ms, plain_ms, bms, by, library)
-        del ql, kl, vl
+        del ql, kl, vl, q, k, v, do, o, lse, op, lp, di, dk, dv, dq, dkp, dvp, dqp
         torch.cuda.empty_cache()
     return rec, err
 
@@ -563,14 +630,17 @@ def wire_check(gen):
                   f"{in_place:.4f} ms in place", flush=True)
 
 
-def profile_step(model, gen) -> None:
-    """``torch.profiler`` over one forward + backward microbatch of ``model``
-    at the slice's shape; prints the top device kernels and the idle share."""
+def profile_step(trainer, model, gen, batch: int, label: str) -> None:
+    """``torch.profiler`` over one forward + backward microbatch of the
+    trainer's loss (``batch`` x T 1024 random tokens of the model's
+    vocabulary, dropout seed 0); prints the top device kernels and the idle
+    share."""
     from torch.profiler import ProfilerActivity, profile
-    tokens = torch.randint(0, model.cfg.vocab_size, (8, 1024), generator=gen, device="cuda")
+    vocab = model.cfg.vocab_size
+    tokens = torch.randint(0, vocab, (batch, 1024), generator=gen, device="cuda")
 
     def microbatch():
-        loss, _ = clm_loss_and_metrics(model(tokens, 0), tokens)
+        loss, _ = trainer.loss_fn(tokens, 0)
         loss.backward()
         return loss
 
@@ -587,8 +657,8 @@ def profile_step(model, gen) -> None:
         torch.cuda.synchronize()
     device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not device:
-        print("[profile] torch.profiler recorded no device activity: kernel times and the "
-              "idle share not measured", flush=True)
+        print(f"[profile] {label}: torch.profiler recorded no device activity: kernel times and "
+              "the idle share not measured", flush=True)
         return
     per_name: dict = {}
     for e in device:
@@ -603,16 +673,16 @@ def profile_step(model, gen) -> None:
             busy += hi - lo
             reach = hi
     window = end - start
-    print(f"[profile] one forward + backward microbatch, B 8 T 1024, loss {loss.item():.4f}: "
-          f"window {window / 1e3:.3f} ms (first to last device event; unprofiled "
-          f"microbatches {', '.join(f'{w:.3f}' for w in walls)} ms on the host clock), "
-          f"device busy {busy / 1e3:.3f} ms, idle share {1 - busy / window:.4f}, "
+    print(f"[profile] {label}: one forward + backward microbatch, B {batch} T 1024, loss "
+          f"{loss.item():.4f}: window {window / 1e3:.3f} ms (first to last device event; "
+          f"unprofiled microbatches {', '.join(f'{w:.3f}' for w in walls)} ms on the host "
+          f"clock), device busy {busy / 1e3:.3f} ms, idle share {1 - busy / window:.4f}, "
           f"{len(device)} device events", flush=True)
     ranked = sorted(per_name.items(), key=lambda kv: -kv[1][0])
     for rank, (name, (total, calls)) in enumerate(ranked, 1):
         if rank <= PROFILE_TOP or "flash_" in name:   # the top, and the port's flash kernels
-            print(f"[profile] #{rank:<3d} {total / 1e3:9.3f} ms {calls:5d} calls  {name[:110]}",
-                  flush=True)
+            print(f"[profile] {label} #{rank:<3d} {total / 1e3:9.3f} ms {calls:5d} calls  "
+                  f"{name[:110]}", flush=True)
 
 
 SLICE_ARGS = ["--model_name", "gpt2_124m", "--dataset", "synthetic",
@@ -626,10 +696,9 @@ SLICE_ARGS = ["--model_name", "gpt2_124m", "--dataset", "synthetic",
 def run_counted(extra):
     """One ``run_clm.main`` with every kernel counter at 0 before and read
     after; checks the losses and returns (trainer, rows, launches)."""
-    for fn in WRAPPERS.values():
-        fn.launches = 0
+    reset_counts()
     trainer = run_clm.main(SLICE_ARGS + extra)
-    launches = {name: fn.launches for name, fn in WRAPPERS.items()}
+    launches = read_counts()
     rows = [r for r in trainer.history if "loss" in r]
     if len(rows) != STEPS or not all(math.isfinite(r["loss"]) for r in rows):
         raise AssertionError(f"expected {STEPS} finite losses, got {rows}")
@@ -643,23 +712,113 @@ def expect(run: str, launches: dict, want: dict) -> None:
                                  f"expected {count} (all counts {launches})")
 
 
-def flash_vs_xla_eval(trainer) -> None:
-    """The trained model's eval loss through flash (``auto``) against its
-    eval loss through ``attention_xla``, on the same weights and blocks."""
-    _, eval_blocks = run_clm.load_blocks(run_clm.DataArguments(synthetic_blocks=400), 1024,
-                                         trainer.model.cfg.vocab_size)
+def flash_vs_xla_eval(trainer, model, eval_blocks, label: str) -> None:
+    """The trained model's eval loss through flash (its run's ``attn_impl``,
+    which takes flash at this shape) against its eval loss through
+    ``attention_xla``, on the same weights and rows: within EVAL_TOL."""
+    cfg = model.cfg
     flash_eval = trainer.evaluate(eval_blocks)["eval/loss"]
-    trainer.model.cfg = dataclasses.replace(trainer.model.cfg, attn_impl="xla")
+    model.cfg = dataclasses.replace(cfg, attn_impl="xla")
     xla_eval = trainer.evaluate(eval_blocks)["eval/loss"]
+    model.cfg = cfg
     if not (math.isfinite(flash_eval) and math.isfinite(xla_eval)):
-        raise AssertionError(f"eval losses {flash_eval}, {xla_eval}")
-    print(f"[slice] eval loss through flash {flash_eval:.6f}, through attention_xla "
-          f"{xla_eval:.6f}", flush=True)
-    if abs(flash_eval - xla_eval) > 0.002:
-        raise AssertionError(f"eval loss through flash {flash_eval} vs xla {xla_eval}")
+        raise AssertionError(f"{label}: eval losses {flash_eval}, {xla_eval}")
+    print(f"[slice] {label}: eval loss through flash {flash_eval:.6f}, through attention_xla "
+          f"{xla_eval:.6f} (bound {EVAL_TOL})", flush=True)
+    if abs(flash_eval - xla_eval) > EVAL_TOL:
+        raise AssertionError(f"{label}: eval loss through flash {flash_eval} vs xla {xla_eval}")
+
+
+def nf4_check(gen) -> None:
+    """``quantize_nf4`` and ``dequantize`` of one [4096, 11008] weight (a
+    Llama-2-7B MLP projection) on the card equal to the CPU's, bit for bit;
+    their times on the card."""
+    w = torch.randn(4096, 11008, generator=gen, device="cuda") * 0.02
+    card, host = quant.quantize_nf4(w), quant.quantize_nf4(w.cpu())
+    torch.cuda.synchronize()
+    if not (torch.equal(card.codes.cpu(), host.codes)
+            and torch.equal(card.absmax.cpu(), host.absmax)):
+        raise AssertionError("quantize_nf4 on the card differs from the CPU: "
+                             f"{(card.codes.cpu() != host.codes).sum().item()} code bytes")
+    for dt in (torch.bfloat16, torch.float32):
+        got, want = quant.dequantize(card, dt).cpu(), quant.dequantize(host, dt)
+        if not torch.equal(got.view(torch.int16 if dt == torch.bfloat16 else torch.int32),
+                           want.view(torch.int16 if dt == torch.bfloat16 else torch.int32)):
+            raise AssertionError(f"dequantize to {dt} on the card differs from the CPU")
+    q_ms = time_ms(lambda: quant.quantize_nf4(w), runs=5)
+    d_ms = time_ms(lambda: quant.dequantize(card, torch.bfloat16))
+    print(f"[nf4] [4096, 11008] on the card == CPU (codes, absmax, dequantized bf16 and "
+          f"float32); quantize {q_ms:.3f} ms, dequantize to bf16 {d_ms:.3f} ms (plain PyTorch)",
+          flush=True)
+
+
+SFT_ARGS = ["--model_name", "llama2_7b", "--quant", "nf4", "--attn_impl", "flash",
+            "--seq_length", "1024", "--per_device_train_batch_size", "4",
+            "--gradient_accumulation_steps", str(ACCUM), "--max_steps", str(STEPS),
+            "--logging_steps", "1", "--lion", "--async_grad", "--wire", "auto"]
+NO_HD128 = {f"{k}_hd128": 0 for k in FLASH}
+NO_HD64 = dict.fromkeys(FLASH, 0)
+
+
+def llama_run(gen):
+    """Run (d): ``cli.run_sft.main`` on Llama-2-7B at full width and depth,
+    NF4 base, LoRA q/v, flash at head_dim 128; returns (rows, launches,
+    peak device bytes, wall s)."""
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer, model, _ = run_sft.main(SFT_ARGS)
+    wall = time.perf_counter() - t0
+    launches, peak = read_counts(), torch.cuda.max_memory_allocated()
+    rows = [r for r in trainer.history if "loss" in r]
+    if len(rows) != STEPS or not all(math.isfinite(r["loss"]) for r in rows):
+        raise AssertionError(f"run (d): expected {STEPS} finite losses, got {rows}")
+    cfg = trainer.cfg
+    args, tok = run_sft.SFTArguments(), ByteTokenizer()
+    train, valid = run_sft.sft_records(args)
+    _, eval_rows = run_sft.sft_batches(args, tok, train, valid, trainer.global_train_batch(),
+                                       cfg.seed, 1.0)
+    per_dev = min(cfg.per_device_eval_batch_size, len(eval_rows))
+    eval_batches = min(cfg.eval_iters, len(eval_rows) // per_dev)
+    if trainer.n_params != N_SFT:
+        raise AssertionError(f"run (d): {trainer.n_params} trainable coordinates, expected "
+                             f"{N_SFT}")
+    buckets = len(bucket_bounds(trainer.n_params, cfg.vote_buckets, trainer.world, cfg.wire))
+    expect("(d)", launches, {
+        "fused_ballots": STEPS * buckets, "fused_apply": STEPS * buckets, "bucket_vote_stats": 0,
+        "flash_attention_fwd_hd128": LLAMA_LAYERS * (ACCUM * 2 * STEPS + eval_batches),
+        "flash_attention_bwd_dkv_hd128": LLAMA_LAYERS * ACCUM * STEPS,
+        "flash_attention_bwd_dq_hd128": LLAMA_LAYERS * ACCUM * STEPS, **NO_HD64})
+    # the frozen base: the same codes, absmax and norm scales as a fresh init
+    fresh = dict(iter_paths(llama_init(model.cfg, seed=cfg.seed, device="cuda", quant="nf4")))
+    trained = dict(iter_paths(model.params))
+    if trained.keys() != fresh.keys():
+        raise AssertionError(f"run (d): the base's leaves {sorted(trained.keys() ^ fresh.keys())} "
+                             "differ from a fresh init's")
+    changed = []
+    for path, got in trained.items():
+        want = fresh[path]
+        if isinstance(got, quant.QuantizedTensor):
+            same = torch.equal(got.codes, want.codes) and torch.equal(got.absmax, want.absmax)
+        else:
+            same = torch.equal(got, want)
+        if not same:
+            changed.append("/".join(path))
+    if changed:
+        raise AssertionError(f"run (d): the frozen base changed in training: {changed[:8]}")
+    del fresh, trained
+    print(f"[slice] (d): the frozen NF4 base is unchanged after training; {trainer.n_params} "
+          f"trainable coordinates in {buckets} bucket(s); eval rows {len(eval_rows)}, "
+          f"{eval_batches} eval batch(es)", flush=True)
+    flash_vs_xla_eval(trainer, model, eval_rows, "Llama-2-7B (d)")
+    profile_step(trainer, model, gen, 4, "Llama-2-7B (d)")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return rows, launches, peak, wall
 
 
 def slice_phase(tmp, gen):
+    t = time.perf_counter()
     torch.cuda.set_device(0)
     dist.init_process_group("nccl", init_method=f"file://{tmp}/pg", rank=0, world_size=1)
     try:
@@ -670,7 +829,7 @@ def slice_phase(tmp, gen):
         expect("default", base_launches, {
             "fused_ballots": STEPS * buckets, "fused_apply": STEPS * buckets,
             "bucket_vote_stats": 0, "flash_attention_fwd": N_LAYER * EVAL_BATCHES,
-            "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0})
+            "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0, **NO_HD128})
         del base
         torch.cuda.empty_cache()
         trainer, rows, launches = run_counted(["--dropout", "0", "--telemetry"])
@@ -679,26 +838,39 @@ def slice_phase(tmp, gen):
             "bucket_vote_stats": STEPS * buckets,
             "flash_attention_fwd": N_LAYER * ACCUM * 2 * STEPS + N_LAYER * EVAL_BATCHES,
             "flash_attention_bwd_dkv": N_LAYER * ACCUM * STEPS,
-            "flash_attention_bwd_dq": N_LAYER * ACCUM * STEPS})
+            "flash_attention_bwd_dq": N_LAYER * ACCUM * STEPS, **NO_HD128})
         for r in rows:
             if r["vote/hist_mass"] != 1.0 or r["vote/disagree_frac"] != 0.0:
                 raise AssertionError(
                     f"a vote of one rank: hist_mass {r['vote/hist_mass']}, disagree_frac "
                     f"{r['vote/disagree_frac']} at step {r['step']}")
-        flash_vs_xla_eval(trainer)
+        _, eval_blocks = run_clm.load_blocks(run_clm.DataArguments(synthetic_blocks=400), 1024,
+                                             trainer.model.cfg.vocab_size)
+        flash_vs_xla_eval(trainer, trainer.model, eval_blocks, "GPT-2 (b)")
         world, wire, buckets_cfg = trainer.world, trainer.cfg.wire, trainer.cfg.vote_buckets
         del trainer
         torch.cuda.empty_cache()
         plain, plain_rows, plain_launches = run_counted(["--dropout", "0"])
         expect("dropout 0", plain_launches, dict(launches, bucket_vote_stats=0))
-        profile_step(plain.model, gen)
+        profile_step(plain, plain.model, gen, 8, "GPT-2 (c)")
         del plain
+        torch.cuda.empty_cache()
+        t = phase_time("slice (a)-(c), GPT-2 124M", t)
+        llama = llama_run(gen)
+        phase_time("slice (d), Llama-2-7B", t)
     finally:
         dist.destroy_process_group()
     return (world, wire, buckets_cfg), [
         ("(a) default (dropout 0.1)", base_rows, base_launches),
         ("(b) dropout 0 + telemetry", rows, launches),
-        ("(c) dropout 0", plain_rows, plain_launches)]
+        ("(c) dropout 0", plain_rows, plain_launches)], llama
+
+
+def phase_time(name: str, since: float) -> float:
+    """Print the wall time of a phase that began at ``since``; returns now."""
+    now = time.perf_counter()
+    print(f"[phase] {name}: {now - since:.1f} s", flush=True)
+    return now
 
 
 def main():
@@ -715,18 +887,25 @@ def main():
     print(f"[card] {name}: {torch.__version__}, CUDA {torch.version.cuda}, data-sheet "
           f"bandwidth {rates[0] / 1e12:.2f} TB/s, bfloat16 {rates[1] / 1e12:.0f} TFLOP/s",
           flush=True)
+    t = time.perf_counter()
     build_cuda_kernels()
+    t = phase_time("build", t)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rec, err = optimizer_kernel_phase(gen, rates)
     print(f"[card] Triton kernels built with triton {fused_lion.triton.__version__}", flush=True)
-    frec, ferr = flash_kernel_phase(gen, rates)
-    rec.update(frec)
-    err.update(ferr)
+    t = phase_time("optimizer kernels", t)
+    for case in FLASH_CASES:
+        frec, ferr = flash_kernel_phase(gen, rates, *case)
+        rec.update(frec)
+        err.update(ferr)
+        t = phase_time(f"flash kernels, head_dim {case[0]}", t)
     model_check()
     product_check(gen)
+    nf4_check(gen)
+    phase_time("model, products, NF4", t)
     with tempfile.TemporaryDirectory() as tmp:
-        (world, wire, buckets), runs = slice_phase(tmp, gen)
+        (world, wire, buckets), runs, llama = slice_phase(tmp, gen)
     for label, rs, counts in runs:
         step_ms = statistics.median(r["step_ms"] for r in rs[1:])
         tok_s = statistics.median(r["tokens_per_sec"] for r in rs[1:])
@@ -734,7 +913,17 @@ def main():
               f"bucket(s), losses {[round(r['loss'], 4) for r in rs]}: steps 2-{STEPS} "
               f"{[r['step_ms'] for r in rs[1:]]} ms, median {step_ms:.1f} ms/step, "
               f"{tok_s:.0f} tokens/s on {card}; launches {counts}", flush=True)
-    launches = runs[1][2]   # the main path: (b)
+    rows, llama_launches, peak, wall = llama
+    print(f"[slice] (d) run_sft Llama-2-7B, NF4 base, LoRA q/v, flash hd128, B 4 x accum "
+          f"{ACCUM} x T 1024, 1 rank: losses {[round(r['loss'], 4) for r in rows]}: steps "
+          f"2-{STEPS} {[r['step_ms'] for r in rows[1:]]} ms, median "
+          f"{statistics.median(r['step_ms'] for r in rows[1:]):.1f} ms/step, "
+          f"{statistics.median(r['tokens_per_sec'] for r in rows[1:]):.0f} tokens/s; peak "
+          f"device memory {peak / 2**30:.2f} GiB; run_sft.main {wall:.1f} s on {card}; "
+          f"launches {llama_launches}", flush=True)
+    # each main path's counts: GPT-2's (b) for the optimizer and hd64 flash
+    # kernels, Llama's (d) for the hd128 ones
+    launches = dict(runs[1][2], **{k: llama_launches[k] for k in NO_HD128})
 
     kernels = []
     for k in KERNELS:

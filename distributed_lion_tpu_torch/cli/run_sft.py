@@ -1,0 +1,208 @@
+"""SFT entry point: port of ``distributed_lion_tpu/cli/run_sft.py``, the reference's ``sft_llama2.py``.
+
+    python -m distributed_lion_tpu_torch.cli.run_sft --lion --async_grad \\
+        --model_name llama2_7b --quant nf4 --per_device_train_batch_size 4 \\
+        --gradient_accumulation_steps 2 --max_steps 100 --output_dir ./sft
+
+A Llama base, frozen and optionally quantized (``--quant nf4``, the
+reference's 4-bit QLoRA base), LoRA adapters r 8, α 16 on ``wq``/``wv``,
+packed synthetic or JSONL Q/A rows, and Distributed Lion over the adapters
+only. Without torchrun it trains a world of one; it runs on the GPU unless
+``DLION_PLATFORM=cpu``. The reference's two guards hold (packing excludes
+``group_by_length``; ``gradient_checkpointing`` is refused, every block is
+rematerialized anyway). The chars/token ratio is logged before training.
+``--merged_output <path>.npz`` saves the LoRA-merged, dequantized model in
+the JAX package's flat format.
+
+The synthetic path takes its vocabulary from the byte tokenizer,
+``max(tokenizer vocab, 259)``, as the JAX package does without a Llama
+tokenizer. Not ported, and refused by name: a pretrained base
+(``--model_path``), PEFT adapters in and out (``--adapter_path``,
+``--adapter_output``), an HF-directory ``--merged_output``, sequence and
+tensor parallelism and the chunked-vocabulary loss (ROADMAP Queue 1 item 9).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+from torch import nn
+
+from distributed_lion_tpu_torch.data.sft import (
+    chars_token_ratio,
+    constant_length_batches,
+    load_pairs_jsonl,
+    padded_batch_iterator,
+    padded_examples,
+    synthetic_qa_pairs,
+)
+from distributed_lion_tpu_torch.data.tokenizer import load_tokenizer
+from distributed_lion_tpu_torch.models.llama import Llama, LlamaConfig, llama_init, tree_nbytes
+from distributed_lion_tpu_torch.models.lora import (
+    LoraConfig,
+    adapter_named_parameters,
+    apply_adapters,
+    lora_init,
+    merge_lora,
+)
+from distributed_lion_tpu_torch.ops.quant import dequantize_tree
+from distributed_lion_tpu_torch.parallel.mesh import init_distributed, platform_device, rank_of
+from distributed_lion_tpu_torch.train.loop import TrainConfig, Trainer, clm_loss_fn
+from distributed_lion_tpu_torch.utils.argparsing import parse_dataclasses
+from distributed_lion_tpu_torch.utils.serialization import save_pytree
+
+NOT_PORTED = "is not ported (ROADMAP Queue 1 item 9)"
+
+
+@dataclasses.dataclass
+class SFTArguments:
+    """The JAX package's ``SFTArguments``: same names and defaults."""
+
+    model_name: str = "llama2_7b"  # llama2_7b | llama3_8b | small | tiny
+    model_path: Optional[str] = None  # a pretrained HF base: not ported
+    dataset: str = "synthetic"     # synthetic | jsonl:<path>
+    seq_length: int = 1024
+    size_valid_set: int = 64
+    num_train_samples: int = 512   # synthetic corpus size
+    quant: str = "none"            # none | int8 | nf4 (reference: nf4)
+    quant_block: Optional[int] = None  # default: nf4 64, int8 256
+    lora_r: int = 8
+    lora_alpha: int = 16
+    lora_dropout: float = 0.05     # adapter-branch dropout
+    packing: bool = True
+    group_by_length: bool = False
+    gradient_checkpointing: bool = False
+    attn_impl: str = "auto"        # ops.attention: auto | xla | flash | splash
+    seq_impl: str = "ring"         # read only under --seq_parallel (not ported)
+    tokenizer_name: Optional[str] = None
+    adapter_path: Optional[str] = None    # PEFT adapters in: not ported
+    adapter_output: Optional[str] = None  # PEFT adapters out: not ported
+    merged_output: Optional[str] = None   # *.npz: the merged model (an HF directory: not ported)
+
+
+@dataclasses.dataclass
+class UnportedArguments:
+    """The JAX ``TrainConfig`` fields ``run_sft`` reads that the port does
+    not have; any value but the default is refused."""
+
+    seq_parallel: int = 1
+    tensor_parallel: int = 1
+    vocab_chunks: int = 0
+
+
+def refuse_unported(args: SFTArguments, unported: UnportedArguments) -> None:
+    """Refuse, by name, what the port does not run."""
+    for flag in ("model_path", "adapter_path", "adapter_output"):
+        if getattr(args, flag):
+            raise NotImplementedError(f"--{flag} {NOT_PORTED}")
+    if args.merged_output and not args.merged_output.endswith(".npz"):
+        raise NotImplementedError(
+            f"--merged_output {args.merged_output!r}: the HF save_pretrained export {NOT_PORTED}; "
+            "give a *.npz path")
+    for f in dataclasses.fields(unported):
+        if getattr(unported, f.name) != f.default:
+            raise NotImplementedError(f"--{f.name} {NOT_PORTED}")
+    if args.seq_impl != "ring":
+        raise NotImplementedError(f"--seq_impl (sequence parallelism) {NOT_PORTED}")
+
+
+def sft_records(args: SFTArguments) -> tuple:
+    """``(train, valid)`` records of ``--dataset``."""
+    if args.dataset == "synthetic":
+        records = synthetic_qa_pairs(args.num_train_samples + args.size_valid_set)
+        return records[args.size_valid_set:], records[: args.size_valid_set]
+    if args.dataset.startswith("jsonl:"):
+        return load_pairs_jsonl(args.dataset[len("jsonl:"):], size_valid_set=args.size_valid_set)
+    raise ValueError(f"unknown dataset spec {args.dataset!r}")
+
+
+def sft_batches(args: SFTArguments, tok, train, valid, global_batch: int, seed: int,
+                ratio: float) -> tuple:
+    """``(train iterator, eval rows or None)``: packed constant-length rows,
+    or with ``--packing false`` padded, loss-masked ``{"tokens", "mask"}``
+    rows, optionally grouped by length."""
+    if args.packing:
+        def batches():
+            gen = constant_length_batches(train, tok, args.seq_length, infinite=True,
+                                          chars_per_token=ratio)
+            while True:
+                yield np.stack([next(gen) for _ in range(global_batch)])
+
+        rows = list(constant_length_batches(valid, tok, args.seq_length, infinite=False,
+                                            chars_per_token=ratio)) if valid else []
+        return batches(), (np.stack(rows) if rows else None)
+    tokens, mask = padded_examples(train, tok, args.seq_length,
+                                   group_by_length=args.group_by_length)
+    it = padded_batch_iterator(tokens, mask, global_batch, seed=seed,
+                               length_grouped=args.group_by_length)
+    if not valid:
+        return it, None
+    ev_tokens, ev_mask = padded_examples(valid, tok, args.seq_length)
+    return it, {"tokens": ev_tokens, "mask": ev_mask}
+
+
+def main(argv=None) -> tuple[Trainer, Llama, dict]:
+    """Train, evaluate, and write ``--merged_output``; returns the (closed)
+    trainer, the :class:`Llama` over the frozen base and the trained
+    adapters (``{path: {"A", "B"}}``)."""
+    args, unported, train_cfg = parse_dataclasses(
+        (SFTArguments, UnportedArguments, TrainConfig), argv)
+    # the reference's guards (sft_llama2.py:53-59)
+    if args.packing and args.group_by_length:
+        raise ValueError("Cannot use both packing and group by length")
+    if args.gradient_checkpointing:
+        raise ValueError(
+            "gradient_checkpointing with LoRA is rejected for parity with the reference "
+            "(sft_llama2.py:56-59); every block is rematerialized regardless")
+    refuse_unported(args, unported)
+    device = platform_device()
+    group = init_distributed(device)
+    rank0 = rank_of(group) == 0
+    tok = load_tokenizer(args.tokenizer_name)
+    train, valid = sft_records(args)
+    ratio = chars_token_ratio(train, tok)
+    if rank0:
+        print(f"[run_sft] chars/token ratio: {ratio:.2f} over {min(len(train), 400)} samples")
+
+    model_cfg = LlamaConfig.named(args.model_name, vocab_size=max(tok.vocab_size, 259),
+                                  attn_impl=args.attn_impl)
+    args.seq_length = min(args.seq_length, model_cfg.n_ctx)
+    train_cfg.block_size = args.seq_length
+    quant = None if args.quant == "none" else args.quant
+    if quant and rank0:
+        print(f"[run_sft] quantizing frozen base to {quant}")
+    base = llama_init(model_cfg, seed=train_cfg.seed, device=device, quant=quant,
+                      quant_block=args.quant_block)
+    lora_cfg = LoraConfig(r=args.lora_r, alpha=args.lora_alpha, dropout=args.lora_dropout)
+    adapters = {path: {k: nn.Parameter(t) for k, t in ab.items()}
+                for path, ab in lora_init(base, lora_cfg, seed=train_cfg.seed + 1).items()}
+    model = Llama(model_cfg, base)
+    named = adapter_named_parameters(adapters)
+    if rank0:
+        print(f"[run_sft] LoRA adapters: {len(adapters)} sites, "
+              f"{sum(p.numel() for _, p in named) / 1e3:.1f}k trainable params; frozen base "
+              f"{tree_nbytes(base) / 2**30:.2f} GiB on {device}")
+
+    def forward(tokens, seed):
+        return model(tokens, apply_adapters(base, adapters, lora_cfg, dropout_seed=seed))
+
+    trainer = Trainer(train_cfg, named, clm_loss_fn(forward), group=group)
+    train_iter, eval_blocks = sft_batches(args, tok, train, valid, trainer.global_train_batch(),
+                                          train_cfg.seed, ratio)
+    try:
+        trainer.train(train_iter, eval_blocks=eval_blocks)
+        if eval_blocks is not None:
+            trainer.evaluate(eval_blocks)
+        if args.merged_output and rank0:
+            merged = dequantize_tree(merge_lora(base, adapters, lora_cfg))
+            save_pytree(args.merged_output, merged)
+            print(f"[run_sft] merged model saved to {args.merged_output}")
+    finally:
+        trainer.close()
+    return trainer, model, adapters
+
+
+if __name__ == "__main__":
+    main()

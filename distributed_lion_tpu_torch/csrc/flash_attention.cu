@@ -16,7 +16,8 @@
 //
 // Bound: at GPT-2 124M's shape (B 8, H 12, T 1024, D 64) the forward moves
 // 50.7 MB and does 12.9 GFLOP of causal products, so on an H100 SXM it is
-// bytes-bound (0.015 ms) and the backward is operations-bound.
+// bytes-bound (0.015 ms) and the backward is operations-bound; the same holds
+// at Llama-2-7B's (B 4, H 32, T 1024, D 128): 134 MB and 34.4 GFLOP forward.
 //
 // All three kernels (Hopper design, hopper.cuh): one block of three
 // warpgroups. Warpgroup 0 is the producer: one thread issues TMA loads of
@@ -35,9 +36,9 @@
 //   domain; the row max and sum are shared by the 4 threads of a row by
 //   shuffles. o = O / l, lse = m + log(l) in natural log.
 // - dK/dV: a block per 128 keys holds K and V in shared memory and streams
-//   query tiles of 64 (with their lse and di) from the diagonal to T;
-//   P^T = exp(s^T - lse) and dS^T = P^T (dP^T - di) in registers, then
-//   dV += P^T.dO and dK += dS^T.Q.
+//   query tiles of 64, or 16 at head_dim 128 (with their lse and di), from
+//   the diagonal to T; P^T = exp(s^T - lse) and dS^T = P^T (dP^T - di) in
+//   registers, then dV += P^T.dO and dK += dS^T.Q.
 // - dQ: a block per 128 queries holds Q and dO in shared memory and streams
 //   K and V tiles from 0 to the diagonal; S = Q.K^T and dP = dO.V^T are
 //   issued together, P = exp2(s - lse) and dS = P (dP - di) in registers,
@@ -48,8 +49,13 @@
 // and the results are the same bits from run to run. P and dS are rounded to
 // bf16 before their products, as the plain versions round them. Causal
 // masking is applied on the diagonal tiles, rows past T load as zeros and
-// are never written. head_dim is a template parameter; only D = 64 is
-// instantiated.
+// are never written. head_dim is a template parameter, instantiated at 64
+// (GPT-2) and 128 (Llama). At 128 a tile row is two 128-byte swizzle rows:
+// each tile is loaded as two TMA boxes of 64 columns into two column blocks
+// (hopper.cuh), the products step across both, and dK/dV streams query
+// tiles of 16, which keeps its dK and dV accumulators, twice as wide, and
+// the scores in the consumers' registers without a spill (at 32 the build
+// spills 112 bytes).
 
 #include "hopper.cuh"
 
@@ -78,6 +84,18 @@ constexpr int STAGES = 2;
 constexpr int FWD_BM = 128;
 constexpr int FWD_BN = 128;
 
+// Bytes between the 64-column blocks of a tile of `rows` rows.
+__host__ __device__ constexpr uint32_t block_bytes(int rows) {
+  return rows * hopper::SW_COLS * 2;
+}
+
+// LBO of an MN-major operand of `rows` rows whose N is the head_dim: the
+// column-block stride at head_dim 128, unused (hopper::MN_LBO) at 64.
+template <int D>
+__host__ __device__ constexpr uint32_t mn_lbo(int rows) {
+  return D == 64 ? hopper::MN_LBO : block_bytes(rows);
+}
+
 template <int D>
 struct FwdSmem {  // byte offsets from a 1024-byte boundary
   static constexpr int TILE = FWD_BN * D * 2;
@@ -89,20 +107,21 @@ struct FwdSmem {  // byte offsets from a 1024-byte boundary
 };
 
 // dK/dV tiles: 128 keys per block (64 per consumer warpgroup), query tiles
-// of 64 streamed through the ring with their lse and di rows.
+// of 64 (head_dim 64) or 16 (head_dim 128) streamed through the ring with
+// their lse and di rows.
 constexpr int DKV_BN = 128;
-constexpr int DKV_BQ = 64;
 
 template <int D>
 struct DkvSmem {
-  static constexpr int TILE = DKV_BQ * D * 2;
+  static constexpr int BQ = D == 64 ? 64 : 16;
+  static constexpr int TILE = BQ * D * 2;
   static constexpr int K = 0;
   static constexpr int V = K + DKV_BN * D * 2;
   static constexpr int Q = V + DKV_BN * D * 2;
   static constexpr int DO = Q + STAGES * TILE;
-  static constexpr int LSE = DO + STAGES * TILE;         // float [STAGES][DKV_BQ], lse * log2(e)
-  static constexpr int DI = LSE + STAGES * DKV_BQ * 4;   // float [STAGES][DKV_BQ]
-  static constexpr int BARS = DI + STAGES * DKV_BQ * 4;  // kv_full, full[STAGES], empty[STAGES]
+  static constexpr int LSE = DO + STAGES * TILE;     // float [STAGES][BQ], lse * log2(e)
+  static constexpr int DI = LSE + STAGES * BQ * 4;   // float [STAGES][BQ]
+  static constexpr int BARS = DI + STAGES * BQ * 4;  // kv_full, full[STAGES], empty[STAGES]
   static constexpr int BYTES = BARS + (1 + 2 * STAGES) * 8 + hopper::SW128_ATOM_BYTES;
 };
 
@@ -117,19 +136,20 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Writes a consumer warpgroup's m64n64 accumulator times `mul` as bf16 rows
-// [row0, row0 + 64) of out (contiguous [T, 64] of one (b, h)); rows at or
+// Writes a consumer warpgroup's m64nD accumulator times `mul` as bf16 rows
+// [row0, row0 + 64) of out (contiguous [T, D] of one (b, h)); rows at or
 // past T are not written.
-__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[32], const float (&mul)[2],
-                                           int row0, int T) {
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[D / 2],
+                                           const float (&mul)[2], int row0, int T) {
   const int t = threadIdx.x % WG_THREADS, lane = t % 32;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + 16 * (t / 32) + lane / 4 + 8 * h;
     if (row >= T) continue;
-    bf16* dst = out + (long long)row * 64 + 2 * (lane % 4);
+    bf16* dst = out + (long long)row * D + 2 * (lane % 4);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
           __floats2bfloat162_rn(acc[4 * j + 2 * h] * mul[h], acc[4 * j + 2 * h + 1] * mul[h]);
   }
@@ -144,7 +164,7 @@ __global__ void __launch_bounds__(HOPPER_THREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
                  float* __restrict__ lse, int H, int T, float scale_log2) {
-  static_assert(D == 64, "one 128-byte swizzle row per tile row: head_dim 64");
+  static_assert(D == 64 || D == 128, "head_dim 64 or 128");
   using L = FwdSmem<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hopper::align_1024(smem_raw);
@@ -174,13 +194,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     hopper::setmaxnreg_dec<PRODUCER_REGS>();
     if (threadIdx.x == 0) {
       hopper::mbar_arrive_expect_tx(q_full, FWD_BM * D * 2);
-      hopper::tma_load_4d(sQ, &tq, q_full, 0, q0, h, b);
+      hopper::tma_load_rows<D>(sQ, &tq, q_full, FWD_BM, q0, h, b);
       for (int j = 0; j <= tile; ++j) {
         const int s = j % STAGES;
         hopper::mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
         hopper::mbar_arrive_expect_tx(&full[s], 2 * L::TILE);
-        hopper::tma_load_4d(sK + s * FWD_BN * D, &tk, &full[s], 0, j * FWD_BN, h, b);
-        hopper::tma_load_4d(sV + s * FWD_BN * D, &tv, &full[s], 0, j * FWD_BN, h, b);
+        hopper::tma_load_rows<D>(sK + s * FWD_BN * D, &tk, &full[s], FWD_BN, j * FWD_BN, h, b);
+        hopper::tma_load_rows<D>(sV + s * FWD_BN * D, &tv, &full[s], FWD_BN, j * FWD_BN, h, b);
       }
     }
   } else {
@@ -188,11 +208,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     const int t = threadIdx.x % WG_THREADS, lane = t % 32;
     const int row0 = 64 * (wg - 1);                 // this warpgroup's first row in the tile
     const int r = row0 + 16 * (t / 32) + lane / 4;  // rows r and r + 8 of the tile
-    const bf16* sQw = sQ + row0 * D;
+    const bf16* sQw = sQ + row0 * hopper::SW_COLS;  // row0 of each column block
 
-    float acc[32];
+    float acc[D / 2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
     float m[2] = {-INFINITY, -INFINITY};  // running max of scale * log2(e) * s
     float l[2] = {0.0f, 0.0f};             // this thread's part of the running sum
     hopper::mbar_wait(q_full, 0);
@@ -207,8 +227,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        hopper::wgmma_m64n128k16_ss<0>(S, hopper::desc_k_major(sQw, kk),
-                                       hopper::desc_k_major(sKs, kk), kk > 0);
+        hopper::wgmma_m64n128k16_ss<0>(S, hopper::desc_k_major(sQw, kk, block_bytes(FWD_BM)),
+                                       hopper::desc_k_major(sKs, kk, block_bytes(FWD_BN)),
+                                       kk > 0);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(S);
@@ -242,14 +263,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) l[hr] = l[hr] * alpha[hr] + sum[hr];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] *= alpha[(i / 2) % 2];
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
 
       uint32_t pa[8][4];  // P rounded to bf16, as the A operand of P V
       hopper::a_fragments(S, pa);
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < FWD_BN / 16; ++kk)
-        hopper::wgmma_m64n64k16_rs<1>(acc, pa[kk], hopper::desc_mn_major(sVs, kk), 1);
+        hopper::wgmma_rs_mn<D>(acc, pa[kk], hopper::desc_mn_major(sVs, kk, mn_lbo<D>(FWD_BN)));
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(acc);
@@ -262,7 +283,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       l[hr] = quad_sum(l[hr]);
       inv[hr] = 1.0f / l[hr];
     }
-    store_rows(o + (long long)bh * T * D, acc, inv, q0 + row0, T);
+    store_rows<D>(o + (long long)bh * T * D, acc, inv, q0 + row0, T);
     if (lane % 4 == 0) {
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
@@ -285,8 +306,9 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
                      const float* __restrict__ lse, const float* __restrict__ di,
                      bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int T, float scale,
                      float scale_log2) {
-  static_assert(D == 64, "one 128-byte swizzle row per tile row: head_dim 64");
+  static_assert(D == 64 || D == 128, "head_dim 64 or 128");
   using L = DkvSmem<D>;
+  constexpr int BQ = L::BQ;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hopper::align_1024(smem_raw);
   bf16* sK = reinterpret_cast<bf16*>(smem + L::K);
@@ -301,8 +323,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
 
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int k0 = blockIdx.y * DKV_BN;
-  const int first = k0 / DKV_BQ;                  // the first query tile: the diagonal
-  const int n_tiles = (T + DKV_BQ - 1) / DKV_BQ;  // query tiles first..n_tiles-1
+  const int first = k0 / BQ;              // the first query tile: the diagonal
+  const int n_tiles = (T + BQ - 1) / BQ;  // query tiles first..n_tiles-1
   const int wg = threadIdx.x / WG_THREADS;
 
   if (threadIdx.x == 0) {
@@ -320,14 +342,14 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     if (warp == 0 && lane == 0) {
       hopper::mbar_arrive_expect_tx(kv_full, 2 * DKV_BN * D * 2);
-      hopper::tma_load_4d(sK, &tk, kv_full, 0, k0, h, b);
-      hopper::tma_load_4d(sV, &tv, kv_full, 0, k0, h, b);
+      hopper::tma_load_rows<D>(sK, &tk, kv_full, DKV_BN, k0, h, b);
+      hopper::tma_load_rows<D>(sV, &tv, kv_full, DKV_BN, k0, h, b);
       for (int it = first; it < n_tiles; ++it) {
         const int n = it - first, s = n % STAGES;
         hopper::mbar_wait(&empty[s], ((n / STAGES) & 1) ^ 1);
         hopper::mbar_arrive_expect_tx(&full[s], 2 * L::TILE);
-        hopper::tma_load_4d(sQ + s * DKV_BQ * D, &tq, &full[s], 0, it * DKV_BQ, h, b);
-        hopper::tma_load_4d(sdO + s * DKV_BQ * D, &tdo, &full[s], 0, it * DKV_BQ, h, b);
+        hopper::tma_load_rows<D>(sQ + s * BQ * D, &tq, &full[s], BQ, it * BQ, h, b);
+        hopper::tma_load_rows<D>(sdO + s * BQ * D, &tdo, &full[s], BQ, it * BQ, h, b);
       }
     } else if (warp == 1) {
       const float* lse_bh = lse + (long long)bh * T;
@@ -336,10 +358,10 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
         const int n = it - first, s = n % STAGES;
         hopper::mbar_wait(&empty[s], ((n / STAGES) & 1) ^ 1);
 #pragma unroll
-        for (int c = lane; c < DKV_BQ; c += 32) {
-          const int qi = it * DKV_BQ + c;
-          sLse[s * DKV_BQ + c] = qi < T ? lse_bh[qi] * LOG2E : 0.0f;
-          sDi[s * DKV_BQ + c] = qi < T ? di_bh[qi] : 0.0f;
+        for (int c = lane; c < BQ; c += 32) {
+          const int qi = it * BQ + c;
+          sLse[s * BQ + c] = qi < T ? lse_bh[qi] * LOG2E : 0.0f;
+          sDi[s * BQ + c] = qi < T ? di_bh[qi] : 0.0f;
         }
         hopper::mbar_arrive(&full[s]);
       }
@@ -349,36 +371,36 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
     const int t = threadIdx.x % WG_THREADS, lane = t % 32;
     const int key0 = k0 + 64 * (wg - 1);               // this warpgroup's first key
     const int kr = key0 + 16 * (t / 32) + lane / 4;  // keys kr and kr + 8
-    const bf16* sKw = sK + 64 * (wg - 1) * D;
-    const bf16* sVw = sV + 64 * (wg - 1) * D;
+    const bf16* sKw = sK + 64 * (wg - 1) * hopper::SW_COLS;  // its 64 rows of each block
+    const bf16* sVw = sV + 64 * (wg - 1) * hopper::SW_COLS;
 
-    float dK[32], dV[32];
+    float dK[D / 2], dV[D / 2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dK[i] = dV[i] = 0.0f;
+    for (int i = 0; i < D / 2; ++i) dK[i] = dV[i] = 0.0f;
     hopper::mbar_wait(kv_full, 0);
 
     for (int it = first; it < n_tiles; ++it) {
       const int n = it - first, s = n % STAGES;
       hopper::mbar_wait(&full[s], (n / STAGES) & 1);
-      if (it * DKV_BQ + DKV_BQ <= key0) {  // every query of the tile precedes these keys
+      if (it * BQ + BQ <= key0) {  // every query of the tile precedes these keys
         hopper::mbar_arrive(&empty[s]);
         continue;
       }
-      const bf16* sQs = sQ + s * DKV_BQ * D;
-      const bf16* sdOs = sdO + s * DKV_BQ * D;
-      const float* lse_s = sLse + s * DKV_BQ;
-      const float* di_s = sDi + s * DKV_BQ;
+      const bf16* sQs = sQ + s * BQ * D;
+      const bf16* sdOs = sdO + s * BQ * D;
+      const float* lse_s = sLse + s * BQ;
+      const float* di_s = sDi + s * BQ;
 
-      float St[32], dPt[32];  // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries
+      float St[BQ / 2], dPt[BQ / 2];  // S^T = K Q^T and dP^T = V dO^T: 64 keys x BQ queries
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        hopper::wgmma_m64n64k16_ss<0>(St, hopper::desc_k_major(sKw, kk),
-                                      hopper::desc_k_major(sQs, kk), kk > 0);
+        hopper::wgmma_ss_k<BQ>(St, hopper::desc_k_major(sKw, kk, block_bytes(DKV_BN)),
+                               hopper::desc_k_major(sQs, kk, block_bytes(BQ)), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        hopper::wgmma_m64n64k16_ss<0>(dPt, hopper::desc_k_major(sVw, kk),
-                                      hopper::desc_k_major(sdOs, kk), kk > 0);
+        hopper::wgmma_ss_k<BQ>(dPt, hopper::desc_k_major(sVw, kk, block_bytes(DKV_BN)),
+                               hopper::desc_k_major(sdOs, kk, block_bytes(BQ)), kk > 0);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(St);
@@ -386,23 +408,23 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
 
       // P^T = exp(s^T - lse) under the causal mask, dS^T = P^T (dP^T - di)
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
+      for (int i = 0; i < BQ / 2; ++i) {
         const int c = 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
-        const int qi = it * DKV_BQ + c, kj = kr + 8 * ((i / 2) % 2);
+        const int qi = it * BQ + c, kj = kr + 8 * ((i / 2) % 2);
         const float p = (qi < T && kj <= qi) ? exp2f(St[i] * scale_log2 - lse_s[c]) : 0.0f;
         St[i] = p;
         dPt[i] = p * (dPt[i] - di_s[c]);
       }
-      uint32_t pa[4][4], dsa[4][4];
+      uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
       hopper::a_fragments(St, pa);
       hopper::a_fragments(dPt, dsa);
       hopper::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < DKV_BQ / 16; ++kk)
-        hopper::wgmma_m64n64k16_rs<1>(dV, pa[kk], hopper::desc_mn_major(sdOs, kk), 1);
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        hopper::wgmma_rs_mn<D>(dV, pa[kk], hopper::desc_mn_major(sdOs, kk, mn_lbo<D>(BQ)));
 #pragma unroll
-      for (int kk = 0; kk < DKV_BQ / 16; ++kk)
-        hopper::wgmma_m64n64k16_rs<1>(dK, dsa[kk], hopper::desc_mn_major(sQs, kk), 1);
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        hopper::wgmma_rs_mn<D>(dK, dsa[kk], hopper::desc_mn_major(sQs, kk, mn_lbo<D>(BQ)));
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(dV);
@@ -412,8 +434,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
 
     const long long base = (long long)bh * T * D;
     const float k_mul[2] = {scale, scale}, v_mul[2] = {1.0f, 1.0f};
-    store_rows(dk + base, dK, k_mul, key0, T);
-    store_rows(dv + base, dV, v_mul, key0, T);
+    store_rows<D>(dk + base, dK, k_mul, key0, T);
+    store_rows<D>(dv + base, dV, v_mul, key0, T);
   }
 }
 
@@ -437,14 +459,15 @@ struct DqSmem {
   static constexpr int BYTES = BARS + (1 + 2 * STAGES) * 8 + hopper::SW128_ATOM_BYTES;
 };
 
-// d[64 x 64] = a[64 x D] . b[64 x D]^T, both K-major swizzled tiles in
-// shared memory; issued, not waited for.
+// d[64 x 64] = a[64 x D] . b[64 x D]^T, a a consumer's rows of a DQ_BM-row
+// tile and b a DQ_BN-row tile, both K-major swizzled tiles in shared memory;
+// issued, not waited for.
 template <int D>
 __device__ __forceinline__ void issue_scores(float (&d)[32], const bf16* a, const bf16* b) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    hopper::wgmma_m64n64k16_ss<0>(d, hopper::desc_k_major(a, kk), hopper::desc_k_major(b, kk),
-                                  kk > 0);
+    hopper::wgmma_m64n64k16_ss<0>(d, hopper::desc_k_major(a, kk, block_bytes(DQ_BM)),
+                                  hopper::desc_k_major(b, kk, block_bytes(DQ_BN)), kk > 0);
 }
 
 // One block per (b*h, 128-query tile); blockIdx.y counts tiles from the last
@@ -458,7 +481,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                     const float* __restrict__ lse, const float* __restrict__ di,
                     bf16* __restrict__ dq, int H, int T, float scale, float scale_log2) {
-  static_assert(D == 64, "one 128-byte swizzle row per tile row: head_dim 64");
+  static_assert(D == 64 || D == 128, "head_dim 64 or 128");
   using L = DqSmem<D>;
   constexpr int NS = DQ_BN / 2;  // accumulator floats of a 64 x DQ_BN tile per thread
   extern __shared__ unsigned char smem_raw[];
@@ -492,14 +515,14 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
     hopper::setmaxnreg_dec<PRODUCER_REGS>();
     if (threadIdx.x == 0) {
       hopper::mbar_arrive_expect_tx(qdo_full, 2 * DQ_BM * D * 2);
-      hopper::tma_load_4d(sQ, &tq, qdo_full, 0, q0, h, b);
-      hopper::tma_load_4d(sdO, &tdo, qdo_full, 0, q0, h, b);
+      hopper::tma_load_rows<D>(sQ, &tq, qdo_full, DQ_BM, q0, h, b);
+      hopper::tma_load_rows<D>(sdO, &tdo, qdo_full, DQ_BM, q0, h, b);
       for (int j = 0; j < n_kv; ++j) {
         const int s = j % STAGES;
         hopper::mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
         hopper::mbar_arrive_expect_tx(&full[s], 2 * L::TILE);
-        hopper::tma_load_4d(sK + s * DQ_BN * D, &tk, &full[s], 0, j * DQ_BN, h, b);
-        hopper::tma_load_4d(sV + s * DQ_BN * D, &tv, &full[s], 0, j * DQ_BN, h, b);
+        hopper::tma_load_rows<D>(sK + s * DQ_BN * D, &tk, &full[s], DQ_BN, j * DQ_BN, h, b);
+        hopper::tma_load_rows<D>(sV + s * DQ_BN * D, &tv, &full[s], DQ_BN, j * DQ_BN, h, b);
       }
     }
   } else {
@@ -508,8 +531,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
     const int row0 = 64 * (wg - 1);                 // this warpgroup's first row in the tile
     const int r = row0 + 16 * (t / 32) + lane / 4;  // rows r and r + 8 of the tile
     const int qa = q0 + row0;                       // this warpgroup's first query
-    const bf16* sQw = sQ + row0 * D;
-    const bf16* sdOw = sdO + row0 * D;
+    const bf16* sQw = sQ + row0 * hopper::SW_COLS;  // row0 of each column block
+    const bf16* sdOw = sdO + row0 * hopper::SW_COLS;
 
     float lse2[2], dii[2];  // rows past T: zeros (their Q and dO rows are zeros, never written)
 #pragma unroll
@@ -518,9 +541,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
       lse2[hr] = qi < T ? lse[(long long)bh * T + qi] * LOG2E : 0.0f;
       dii[hr] = qi < T ? di[(long long)bh * T + qi] : 0.0f;
     }
-    float dQ[32];
+    float dQ[D / 2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dQ[i] = 0.0f;
+    for (int i = 0; i < D / 2; ++i) dQ[i] = 0.0f;
     hopper::mbar_wait(qdo_full, 0);
 
     for (int j = 0; j < n_kv; ++j) {
@@ -559,7 +582,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DQ_BN / 16; ++kk)
-        hopper::wgmma_m64n64k16_rs<1>(dQ, dsa[kk], hopper::desc_mn_major(sKs, kk), 1);
+        hopper::wgmma_rs_mn<D>(dQ, dsa[kk], hopper::desc_mn_major(sKs, kk, mn_lbo<D>(DQ_BN)));
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(dQ);
@@ -567,11 +590,113 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
     }
 
     const float mul[2] = {scale, scale};
-    store_rows(dq + (long long)bh * T * D, dQ, mul, qa, T);
+    store_rows<D>(dq + (long long)bh * T * D, dQ, mul, qa, T);
   }
 }
 
+// ------------------------------------------------------------ launches
+
+template <int D>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B,
+                       int H, int T, const long long* strides, float scale, int device,
+                       void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  CUtensorMap maps[3];
+  const void* ops[3] = {q, k, v};
+  const int rows[3] = {FWD_BM, FWD_BN, FWD_BN};
+  for (int i = 0; i < 3 && err == cudaSuccess; ++i)
+    err = hopper::encode_bhtd(&maps[i], ops[i], B, H, T, D, strides[3 * i], strides[3 * i + 1],
+                              strides[3 * i + 2], rows[i]);
+  if (err != cudaSuccess) return err;
+  constexpr int smem = FwdSmem<D>::BYTES;
+  err = cudaFuncSetAttribute(flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (T + FWD_BM - 1) / FWD_BM);
+  flash_fwd_kernel<D><<<grid, HOPPER_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], static_cast<bf16*>(o), static_cast<float*>(lse), H, T,
+      scale * LOG2E);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                           const void* lse, const void* di, void* dk, void* dv, int B, int H,
+                           int T, const long long* strides, float scale, int device,
+                           void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  CUtensorMap maps[4];
+  const void* ops[4] = {q, k, v, dout};
+  const int rows[4] = {DkvSmem<D>::BQ, DKV_BN, DKV_BN, DkvSmem<D>::BQ};
+  for (int i = 0; i < 4 && err == cudaSuccess; ++i)
+    err = hopper::encode_bhtd(&maps[i], ops[i], B, H, T, D, strides[3 * i], strides[3 * i + 1],
+                              strides[3 * i + 2], rows[i]);
+  if (err != cudaSuccess) return err;
+  constexpr int smem = DkvSmem<D>::BYTES;
+  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (T + DKV_BN - 1) / DKV_BN);
+  flash_bwd_dkv_kernel<D><<<grid, HOPPER_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
+      static_cast<const float*>(di), static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, T, scale,
+      scale * LOG2E);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                          const void* lse, const void* di, void* dq, int B, int H, int T,
+                          const long long* strides, float scale, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  CUtensorMap maps[4];
+  const void* ops[4] = {q, k, v, dout};
+  const int rows[4] = {DQ_BM, DQ_BN, DQ_BN, DQ_BM};
+  for (int i = 0; i < 4 && err == cudaSuccess; ++i)
+    err = hopper::encode_bhtd(&maps[i], ops[i], B, H, T, D, strides[3 * i], strides[3 * i + 1],
+                              strides[3 * i + 2], rows[i]);
+  if (err != cudaSuccess) return err;
+  constexpr int smem = DqSmem<D>::BYTES;
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (T + DQ_BM - 1) / DQ_BM);
+  flash_bwd_dq_kernel<D><<<grid, HOPPER_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
+      static_cast<const float*>(di), static_cast<bf16*>(dq), H, T, scale, scale * LOG2E);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// The C entries, one per kernel and head_dim: flash_attention_{fwd, bwd_dkv,
+// bwd_dq}_bf16_hd{64, 128}. strides: q, k, v (and do for the backward), each
+// (batch, head, time), in elements.
+#define FLASH_ENTRIES(D)                                                                        \
+  int flash_attention_fwd_bf16_hd##D(const void* q, const void* k, const void* v, void* o,      \
+                                     void* lse, int B, int H, int T, const long long* strides,  \
+                                     float scale, int device, void* stream) {                   \
+    return launch_fwd<D>(q, k, v, o, lse, B, H, T, strides, scale, device, stream);             \
+  }                                                                                             \
+  int flash_attention_bwd_dkv_bf16_hd##D(const void* q, const void* k, const void* v,           \
+                                         const void* dout, const void* lse, const void* di,     \
+                                         void* dk, void* dv, int B, int H, int T,               \
+                                         const long long* strides, float scale, int device,     \
+                                         void* stream) {                                        \
+    return launch_bwd_dkv<D>(q, k, v, dout, lse, di, dk, dv, B, H, T, strides, scale, device,   \
+                             stream);                                                           \
+  }                                                                                             \
+  int flash_attention_bwd_dq_bf16_hd##D(const void* q, const void* k, const void* v,            \
+                                        const void* dout, const void* lse, const void* di,      \
+                                        void* dq, int B, int H, int T,                          \
+                                        const long long* strides, float scale, int device,      \
+                                        void* stream) {                                         \
+    return launch_bwd_dq<D>(q, k, v, dout, lse, di, dq, B, H, T, strides, scale, device,        \
+                            stream);                                                            \
+  }
 
 extern "C" {
 
@@ -579,79 +704,7 @@ const char* flash_attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// strides: q then k then v (batch, head, time), in elements.
-int flash_attention_fwd_bf16_hd64(const void* q, const void* k, const void* v, void* o,
-                                  void* lse, int B, int H, int T, const long long* strides,
-                                  float scale, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  CUtensorMap maps[3];
-  const void* ops[3] = {q, k, v};
-  const int rows[3] = {FWD_BM, FWD_BN, FWD_BN};
-  for (int i = 0; i < 3 && err == cudaSuccess; ++i)
-    err = hopper::encode_bhtd(&maps[i], ops[i], B, H, T, 64, strides[3 * i], strides[3 * i + 1],
-                              strides[3 * i + 2], rows[i]);
-  if (err != cudaSuccess) return err;
-  constexpr int smem = FwdSmem<64>::BYTES;
-  err = cudaFuncSetAttribute(flash_fwd_kernel<64>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (T + FWD_BM - 1) / FWD_BM);
-  flash_fwd_kernel<64><<<grid, HOPPER_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      maps[0], maps[1], maps[2], static_cast<bf16*>(o), static_cast<float*>(lse), H, T,
-      scale * LOG2E);
-  return cudaGetLastError();
-}
-
-// strides: q, k, v, do (batch, head, time), in elements.
-int flash_attention_bwd_dkv_bf16_hd64(const void* q, const void* k, const void* v,
-                                      const void* dout, const void* lse, const void* di,
-                                      void* dk, void* dv, int B, int H, int T,
-                                      const long long* strides, float scale, int device,
-                                      void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  CUtensorMap maps[4];
-  const void* ops[4] = {q, k, v, dout};
-  const int rows[4] = {DKV_BQ, DKV_BN, DKV_BN, DKV_BQ};
-  for (int i = 0; i < 4 && err == cudaSuccess; ++i)
-    err = hopper::encode_bhtd(&maps[i], ops[i], B, H, T, 64, strides[3 * i], strides[3 * i + 1],
-                              strides[3 * i + 2], rows[i]);
-  if (err != cudaSuccess) return err;
-  constexpr int smem = DkvSmem<64>::BYTES;
-  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<64>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (T + DKV_BN - 1) / DKV_BN);
-  flash_bwd_dkv_kernel<64><<<grid, HOPPER_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
-      static_cast<const float*>(di), static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, T, scale,
-      scale * LOG2E);
-  return cudaGetLastError();
-}
-
-int flash_attention_bwd_dq_bf16_hd64(const void* q, const void* k, const void* v,
-                                     const void* dout, const void* lse, const void* di,
-                                     void* dq, int B, int H, int T, const long long* strides,
-                                     float scale, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  CUtensorMap maps[4];
-  const void* ops[4] = {q, k, v, dout};
-  const int rows[4] = {DQ_BM, DQ_BN, DQ_BN, DQ_BM};
-  for (int i = 0; i < 4 && err == cudaSuccess; ++i)
-    err = hopper::encode_bhtd(&maps[i], ops[i], B, H, T, 64, strides[3 * i], strides[3 * i + 1],
-                              strides[3 * i + 2], rows[i]);
-  if (err != cudaSuccess) return err;
-  constexpr int smem = DqSmem<64>::BYTES;
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<64>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (T + DQ_BM - 1) / DQ_BM);
-  flash_bwd_dq_kernel<64><<<grid, HOPPER_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
-      static_cast<const float*>(di), static_cast<bf16*>(dq), H, T, scale, scale * LOG2E);
-  return cudaGetLastError();
-}
+FLASH_ENTRIES(64)
+FLASH_ENTRIES(128)
 
 }  // extern "C"

@@ -6,8 +6,8 @@
 //   cp.async.bulk.tensor and the copy completes on an mbarrier.
 // - mbarrier: init, arrive, arrive-expect-tx, and a parity wait.
 // - wgmma: the shared-memory matrix descriptor of a 128-byte-swizzled tile,
-//   fence / commit / wait, and m64n{64,128}k16 bf16 products with float32
-//   sums, with A from shared memory or from registers.
+//   fence / commit / wait, and m64n{16,64,128}k16 bf16 products with
+//   float32 sums, with A from shared memory or from registers.
 // - setmaxnreg: register hand-over between a producer warpgroup and its
 //   consumers.
 //
@@ -21,8 +21,12 @@
 //   the 8-row atoms are SBO = 1024 bytes apart (LBO is unused).
 // - MN-major: the reduction dimension runs down the rows, as for V in P.V.
 //   A k-step of 16 rows starts 2048 bytes further; the 8-row groups along k
-//   are SBO = 1024 bytes apart, and LBO would step to the next 64 columns of
-//   N, which a 64-column tile does not have.
+//   are SBO = 1024 bytes apart, and LBO steps to the next 64 columns of N.
+// A tile wider than 64 columns (head_dim 128) is loaded as one box per 64
+// columns, the column blocks stored one after another, each rows x 128
+// bytes: a K-major k-step past the first block's four starts in the next
+// block, and an MN-major product of N = 128 reads the second block at LBO =
+// the column-block stride.
 // probes/wgmma_forms.py checks each form on the card against torch.matmul.
 
 #pragma once
@@ -38,6 +42,7 @@ namespace hopper {
 constexpr uint32_t SW128_ATOM_BYTES = 1024;  // 8 rows of 128 bytes
 constexpr uint32_t KMAJOR_LBO = 16;          // unused by the hardware for a swizzled K-major tile
 constexpr uint32_t MN_LBO = 0;               // unused for a tile of 64 columns
+constexpr int SW_COLS = 64;                  // bf16 columns of one 128-byte swizzle row (a box)
 constexpr uint64_t WAIT_LIMIT_NS = 20ull * 1000 * 1000 * 1000;
 
 // ------------------------------------------------------------------ host side
@@ -168,6 +173,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// A [rows, D] bf16 tile at time t0 of (b, h) into dst as D / 64 boxes of 64
+// columns, column block c at dst + c * rows * 64 elements, all completing on
+// bar (whose expected bytes count the whole tile).
+template <int D>
+__device__ __forceinline__ void tma_load_rows(__nv_bfloat16* dst, const CUtensorMap* map,
+                                              uint64_t* bar, int rows, int t0, int h, int b) {
+  static_assert(D % SW_COLS == 0, "head_dim a multiple of 64");
+#pragma unroll
+  for (int c = 0; c < D / SW_COLS; ++c)
+    tma_load_4d(dst + c * rows * SW_COLS, map, bar, c * SW_COLS, t0, h, b);
+}
+
 // ---- setmaxnreg (the whole warpgroup executes it)
 
 template <int R>
@@ -189,14 +206,18 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint
          (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | (uint64_t)1 << 62;
 }
 
-// k-step kk (16 elements of k) of a K-major tile.
-__device__ __forceinline__ uint64_t desc_k_major(const void* tile, int kk) {
-  return desc_sw128(smem_addr(tile) + 32 * kk, KMAJOR_LBO, SW128_ATOM_BYTES);
+// k-step kk (16 elements of k) of a K-major tile whose 64-column blocks are
+// block_bytes apart: four k-steps to a block.
+__device__ __forceinline__ uint64_t desc_k_major(const void* tile, int kk, uint32_t block_bytes) {
+  return desc_sw128(smem_addr(tile) + (kk / 4) * block_bytes + 32 * (kk % 4), KMAJOR_LBO,
+                    SW128_ATOM_BYTES);
 }
 
-// k-step kk (16 rows) of an MN-major tile of 64 columns.
-__device__ __forceinline__ uint64_t desc_mn_major(const void* tile, int kk) {
-  return desc_sw128(smem_addr(tile) + 2048 * kk, MN_LBO, SW128_ATOM_BYTES);
+// k-step kk (16 rows) of an MN-major tile whose 64-column blocks are
+// block_bytes apart (MN_LBO for a tile of 64 columns).
+__device__ __forceinline__ uint64_t desc_mn_major(const void* tile, int kk,
+                                                  uint32_t block_bytes = MN_LBO) {
+  return desc_sw128(smem_addr(tile) + 2048 * kk, block_bytes, SW128_ATOM_BYTES);
 }
 
 // Orders register and shared-memory accesses before the next wgmma.
@@ -269,6 +290,19 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
 }
 
+// D[64 x 16] (+)= A[64 x 16] . B[16 x 16], A and B from shared memory.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n16k16_ss(float (&d)[8], uint64_t desc_a,
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, %11;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
+
 // D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B from shared memory.
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
@@ -302,6 +336,56 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// D[64 x 128] (+)= A[64 x 16] . B[16 x 128], A from registers (a fragment
+// of a_fragments), B from shared memory.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// The products by width, for code templated on it. wgmma_ss_k: D[64 x N]
+// (+)= A . B^T with A and B K-major in shared memory (N = 16, 64 or 128);
+// wgmma_rs_mn: D[64 x N] += A . B with A from registers and B MN-major in
+// shared memory (N = 64 or 128).
+template <int N>
+__device__ __forceinline__ void wgmma_ss_k(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                           int scale_d) {
+  static_assert(N == 16 || N == 64 || N == 128, "m64n{16,64,128}k16");
+  if constexpr (N == 16)
+    wgmma_m64n16k16_ss<0>(d, desc_a, desc_b, scale_d);
+  else if constexpr (N == 64)
+    wgmma_m64n64k16_ss<0>(d, desc_a, desc_b, scale_d);
+  else
+    wgmma_m64n128k16_ss<0>(d, desc_a, desc_b, scale_d);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2], const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  static_assert(N == 64 || N == 128, "m64n{64,128}k16 with A from registers");
+  if constexpr (N == 64)
+    wgmma_m64n64k16_rs<1>(d, a, desc_b, 1);
+  else
+    wgmma_m64n128k16_rs<1>(d, a, desc_b, 1);
 }
 
 }  // namespace hopper

@@ -1,0 +1,223 @@
+"""Llama-class decoder: port of ``distributed_lion_tpu/models/llama.py``.
+
+RMSNorm, rotary position embeddings (the interleaved form, pairing even and
+odd columns), a SwiGLU MLP, grouped-query attention, no biases and an
+untied head. The weights are a nested dict and list tree with the JAX
+package's paths and layouts (``blocks/0/attn/wq`` is ``[d, n_head·hd]``),
+so they carry over one to one (``utils.serialization.llama_params_from_jax``).
+Any weight leaf may be a :class:`~distributed_lion_tpu_torch.ops.quant.QuantizedTensor`
+(the QLoRA base) or a :class:`~distributed_lion_tpu_torch.models.lora.LoraTensor`;
+every projection goes through ``models.lora.lora_matmul``.
+
+Rounding follows the JAX package: float32 RMSNorm, float32 rope tables cast
+to the compute dtype before the rotation, compute-dtype products, and the
+head's logits a compute-dtype product with a float32 result
+(``ops.products.matmul_f32``). Each block is rematerialized in the backward
+pass when ``remat`` is on (``torch.utils.checkpoint``). The decode paths
+(KV cache, paged serving), sequence and tensor parallelism and the ``dots``
+remat policy are not ported (ROADMAP Queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from distributed_lion_tpu_torch.models.gpt2 import fold_seed
+from distributed_lion_tpu_torch.models.lora import lora_embed, lora_matmul
+from distributed_lion_tpu_torch.ops.attention import attention
+from distributed_lion_tpu_torch.ops.products import matmul_f32
+from distributed_lion_tpu_torch.ops.quant import maybe_dequant, quantize_leaf
+from distributed_lion_tpu_torch.parallel.mesh import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    n_layer: int = 32
+    n_head: int = 32
+    n_kv_head: int = 32          # < n_head: grouped-query attention
+    d_model: int = 4096
+    d_ff: int = 11008
+    n_ctx: int = 4096
+    rope_theta: float = 10000.0
+    rms_eps: float = 1e-5
+    attn_impl: str = "auto"      # ops.attention: auto | xla | flash | splash
+    remat: bool = True           # recompute each block in backward
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def head_dim(self) -> int:
+        assert self.d_model % self.n_head == 0
+        return self.d_model // self.n_head
+
+    @staticmethod
+    def tiny(**kw) -> "LlamaConfig":
+        return LlamaConfig(**(dict(vocab_size=256, n_layer=2, n_head=4, n_kv_head=2,
+                                   d_model=64, d_ff=128, n_ctx=128) | kw))
+
+    @staticmethod
+    def small(**kw) -> "LlamaConfig":
+        """About 25M params at a byte-level vocabulary."""
+        return LlamaConfig(**(dict(vocab_size=256, n_layer=8, n_head=8, n_kv_head=4,
+                                   d_model=512, d_ff=1376, n_ctx=1024) | kw))
+
+    @staticmethod
+    def llama2_7b(**kw) -> "LlamaConfig":
+        return LlamaConfig(**kw)
+
+    @staticmethod
+    def llama3_8b(**kw) -> "LlamaConfig":
+        return LlamaConfig(**(dict(vocab_size=128256, n_layer=32, n_head=32, n_kv_head=8,
+                                   d_model=4096, d_ff=14336, n_ctx=8192,
+                                   rope_theta=500000.0) | kw))
+
+    @classmethod
+    def named(cls, name: str, **kw) -> "LlamaConfig":
+        ctors = {"tiny": cls.tiny, "small": cls.small,
+                 "llama2_7b": cls.llama2_7b, "llama3_8b": cls.llama3_8b}
+        if name not in ctors:
+            raise ValueError(f"unknown llama model_name {name!r}; pick one of {sorted(ctors)}")
+        return ctors[name](**kw)
+
+
+def llama_init(cfg: LlamaConfig, *, seed: int = 0, device="cuda", quant: Optional[str] = None,
+               quant_block: Optional[int] = None) -> dict:
+    """Random weights (std 0.02, the residual projections 0.02/sqrt(2L);
+    norm scales 1) in the JAX package's tree, made leaf by leaf on
+    ``device`` from ``seed``. With ``quant`` ('nf4' or 'int8') each leaf is
+    quantized as it is made (``ops.quant.quantize_leaf``, the leaves
+    ``quantize_tree`` would pick), so the dense tree never exists whole."""
+    device = resolve_device(device)
+    d, dt, hd = cfg.d_model, cfg.param_dtype, cfg.head_dim
+    counter = iter(range(2 + 7 * cfg.n_layer))
+
+    def normal(shape, std):
+        gen = torch.Generator(device=device).manual_seed(fold_seed(seed, next(counter)))
+        w = (torch.randn(shape, generator=gen, device=device) * std).to(dt)
+        return w if quant is None else quantize_leaf(w, quant, block=quant_block)
+
+    def ones():
+        return torch.ones(d, dtype=dt, device=device)
+
+    resid = 0.02 / math.sqrt(2 * cfg.n_layer)
+    params: dict = {"wte": normal((cfg.vocab_size, d), 0.02),
+                    "lm_head": normal((d, cfg.vocab_size), 0.02),
+                    "ln_f": {"scale": ones()}, "blocks": []}
+    for _ in range(cfg.n_layer):
+        params["blocks"].append({
+            "ln_attn": {"scale": ones()},
+            "attn": {"wq": normal((d, cfg.n_head * hd), 0.02),
+                     "wk": normal((d, cfg.n_kv_head * hd), 0.02),
+                     "wv": normal((d, cfg.n_kv_head * hd), 0.02),
+                     "wo": normal((cfg.n_head * hd, d), resid)},
+            "ln_mlp": {"scale": ones()},
+            "mlp": {"w_gate": normal((d, cfg.d_ff), 0.02),
+                    "w_up": normal((d, cfg.d_ff), 0.02),
+                    "w_down": normal((cfg.d_ff, d), resid)},
+        })
+    return params
+
+
+def rms_norm(x: torch.Tensor, p: dict, eps: float) -> torch.Tensor:
+    """In float32, cast back to x's dtype (llama.py:134-137)."""
+    x32 = x.to(torch.float32)
+    scale = torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
+    return (x32 * scale * p["scale"].to(torch.float32)).to(x.dtype)
+
+
+def rope_angles(t: int, head_dim: int, theta: float, device=None) -> tuple:
+    """float32 cos and sin tables ``[t, head_dim / 2]``."""
+    inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                             device=device) / head_dim))
+    ang = torch.outer(torch.arange(t, dtype=torch.float32, device=device), inv_freq)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x ``[B, H, T, hd]``: rotate the (even, odd) column pairs, the tables
+    cast to x's dtype first (llama.py:140-163)."""
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    c, s = cos[None, None].to(x.dtype), sin[None, None].to(x.dtype)
+    return torch.stack([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).reshape(x.shape)
+
+
+def _attention(x, p, cfg: LlamaConfig, cos, sin):
+    B, T, _ = x.shape
+    H, KV, hd = cfg.n_head, cfg.n_kv_head, cfg.head_dim
+    q = lora_matmul(x, p["wq"]).reshape(B, T, H, hd).transpose(1, 2)
+    k = lora_matmul(x, p["wk"]).reshape(B, T, KV, hd).transpose(1, 2)
+    v = lora_matmul(x, p["wv"]).reshape(B, T, KV, hd).transpose(1, 2)
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    if KV != H:  # GQA: repeat each kv head for its query heads (jnp.repeat)
+        k = k.repeat_interleave(H // KV, dim=1)
+        v = v.repeat_interleave(H // KV, dim=1)
+    out = attention(q, k, v, causal=True, impl=cfg.attn_impl)
+    return lora_matmul(out.transpose(1, 2).reshape(B, T, H * hd), p["wo"])
+
+
+def _mlp(x, p):
+    gate = F.silu(lora_matmul(x, p["w_gate"]))
+    return lora_matmul(gate * lora_matmul(x, p["w_up"]), p["w_down"])
+
+
+def _block(x, p, cfg: LlamaConfig, cos, sin):
+    x = x + _attention(rms_norm(x, p["ln_attn"], cfg.rms_eps), p["attn"], cfg, cos, sin)
+    return x + _mlp(rms_norm(x, p["ln_mlp"], cfg.rms_eps), p["mlp"])
+
+
+class Llama(nn.Module):
+    """The model over a weight tree; ``forward(tokens, params)`` returns
+    float32 logits ``[B, T, vocab_size]``. ``params`` defaults to the tree
+    the model was built with; the trainer passes the tree with the adapters
+    swapped in (``models.lora.apply_adapters``). The tree's tensors are not
+    registered as parameters: the base is frozen."""
+
+    def __init__(self, cfg: LlamaConfig, params: dict):
+        super().__init__()
+        self.cfg = cfg
+        self.params = params
+
+    def hidden(self, tokens: torch.Tensor, params: Optional[dict] = None) -> torch.Tensor:
+        """Backbone: tokens ``[B, T]`` → final hidden ``[B, T, d]`` after the
+        last RMSNorm."""
+        cfg, params = self.cfg, self.params if params is None else params
+        T = tokens.shape[1]
+        if T > cfg.n_ctx:
+            raise ValueError(f"sequence length {T} exceeds n_ctx {cfg.n_ctx}")
+        x = lora_embed(params["wte"], tokens, cfg.compute_dtype)
+        cos, sin = rope_angles(T, cfg.head_dim, cfg.rope_theta, tokens.device)
+        for p in params["blocks"]:
+            if cfg.remat and torch.is_grad_enabled():
+                x = checkpoint(_block, x, p, cfg, cos, sin, use_reentrant=False)
+            else:
+                x = _block(x, p, cfg, cos, sin)
+        return rms_norm(x, params["ln_f"], cfg.rms_eps)
+
+    def head(self, x: torch.Tensor, params: Optional[dict] = None) -> torch.Tensor:
+        """Untied head: hidden ``[B, T, d]`` → float32 logits (the JAX
+        ``preferred_element_type`` einsum, llama.py:436-439)."""
+        params = self.params if params is None else params
+        return matmul_f32(x, maybe_dequant(params["lm_head"], x.dtype).to(x.dtype))
+
+    def forward(self, tokens: torch.Tensor, params: Optional[dict] = None) -> torch.Tensor:
+        return self.head(self.hidden(tokens, params), params)
+
+
+def tree_nbytes(params: Any) -> int:
+    """Bytes a weight tree holds on its device (codes and absmax for a
+    quantized leaf)."""
+    if isinstance(params, dict):
+        return sum(tree_nbytes(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(tree_nbytes(v) for v in params)
+    if isinstance(params, torch.Tensor):
+        return params.numel() * params.element_size()
+    return params.nbytes()

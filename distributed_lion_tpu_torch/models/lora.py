@@ -1,0 +1,198 @@
+"""LoRA adapters over frozen (optionally quantized) base weights: port of ``distributed_lion_tpu/models/lora.py``.
+
+The reference applies PEFT LoRA to Llama-2's q/v projections with r 8,
+α 16 and dropout 0.05, and merges the adapters into the base on save.
+Adapters live in a dict of their own keyed by the adapted leaf's
+``'/'``-joined path, each ``{"A": [d_in, r], "B": [r, *out_dims]}``. An
+adapted leaf is swapped for a :class:`LoraTensor` and every projection of
+the model goes through :func:`lora_matmul`, which computes the factored
+form ``x @ W + (α/r)·(x @ A) @ B`` (``W + ΔW`` is never formed). Only the
+adapters train; the base takes no gradient.
+
+Adapter dropout follows PEFT: inverted dropout on the input of the A
+product only, scale 1/(1−p); the base path is never dropped. The JAX
+package draws each site's mask from a key split over the sorted adapter
+paths; here site ``i`` of the sorted paths draws from a ``torch.Generator``
+seeded ``fold_seed(seed, i)``, so a rematerialized block draws the same mask
+again. The two frameworks' masks differ; their statistics agree.
+
+Tensor parallelism (``copy_to_tp_region``, ``lora_adapter_specs``) is not
+ported (ROADMAP Queue 1 item 9).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import re
+from typing import Any, Optional, Sequence
+
+import torch
+
+from distributed_lion_tpu_torch.models.gpt2 import fold_seed
+from distributed_lion_tpu_torch.ops.quant import QuantizedTensor, maybe_dequant
+
+
+@dataclasses.dataclass
+class LoraTensor:
+    """A frozen base weight (dense or :class:`QuantizedTensor`) with its
+    low-rank adapter, consumed by :func:`lora_matmul` in factored form.
+    ``dropout_seed`` (set by :func:`apply_adapters` in training) arms
+    ``dropout_rate`` on the adapter branch; None is eval."""
+
+    base: Any
+    A: torch.Tensor
+    B: torch.Tensor
+    scaling: float
+    dropout_rate: float = 0.0
+    dropout_seed: Optional[int] = None
+
+
+def _branch_dropout(x: torch.Tensor, w: LoraTensor) -> torch.Tensor:
+    """Inverted dropout on the adapter-branch input; identity without a
+    seed or at rate 0."""
+    if w.dropout_seed is None or w.dropout_rate <= 0.0:
+        return x
+    keep = 1.0 - w.dropout_rate
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(w.dropout_seed)
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+
+def lora_matmul(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w`` for a dense, quantized or LoRA-adapted 2-D weight: the one
+    hook every projection of the models goes through."""
+    if isinstance(w, LoraTensor):
+        dt = x.dtype
+        base = maybe_dequant(w.base, dt)
+        delta = (_branch_dropout(x, w) @ w.A.to(dt)) @ w.B.to(dt)
+        return x @ base.to(dt) + w.scaling * delta
+    return x @ maybe_dequant(w, x.dtype).to(x.dtype)
+
+
+def lora_embed(w, tokens: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Embedding lookup for a dense, quantized or adapted table: for a
+    LoraTensor ``base[tokens] + (α/r)·(A[tokens] @ B)``, with no dropout
+    (PEFT has none on embeddings)."""
+    if isinstance(w, LoraTensor):
+        base = maybe_dequant(w.base, dtype)[tokens].to(dtype)
+        a_rows = w.A[tokens].to(dtype)
+        return base + (w.scaling * (a_rows @ w.B.to(dtype))).to(dtype)
+    return maybe_dequant(w, dtype)[tokens].to(dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class LoraConfig:
+    """r 8, α 16, targets the q/v projections; ``dropout`` applies on the
+    adapter branch in training only."""
+
+    r: int = 8
+    alpha: int = 16
+    dropout: float = 0.0
+    target_patterns: Sequence[str] = ("wq", "wv", "q_proj", "v_proj", "qkv")
+
+    @property
+    def scaling(self) -> float:
+        return self.alpha / self.r
+
+
+def _is_weight_leaf(x) -> bool:
+    return isinstance(x, QuantizedTensor) or (isinstance(x, torch.Tensor) and x.dim() in (2, 3))
+
+
+def iter_paths(tree, prefix=()):
+    """``(path tuple, leaf)`` of a nested dict/list tree, in its order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from iter_paths(v, prefix + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from iter_paths(v, prefix + (str(i),))
+    else:
+        yield prefix, tree
+
+
+def lora_init(base_params: Any, cfg: LoraConfig, *, seed: int = 0,
+              dtype=torch.float32, device=None) -> dict:
+    """``{path: {"A", "B"}}`` for every weight leaf whose last path
+    component matches a target pattern: A ~ N(0, 1/r), B = 0 (the adapter
+    starts as the identity). Draws are made on the CPU from ``seed``, one
+    generator per site in the tree's order."""
+    paths = [(path, leaf) for path, leaf in iter_paths(base_params)
+             if _is_weight_leaf(leaf)
+             and any(re.fullmatch(p, path[-1]) for p in cfg.target_patterns)]
+    if not paths:
+        raise ValueError(f"no base weights matched LoRA targets {tuple(cfg.target_patterns)}")
+    adapters = {}
+    for i, (path, leaf) in enumerate(paths):
+        d_in, out_dims = leaf.shape[0], tuple(leaf.shape[1:])
+        dev = device if device is not None else leaf.device
+        gen = torch.Generator().manual_seed(fold_seed(seed, i))
+        a = torch.randn(d_in, cfg.r, generator=gen) / math.sqrt(cfg.r)
+        adapters["/".join(path)] = {"A": a.to(dtype=dtype, device=dev),
+                                    "B": torch.zeros((cfg.r, *out_dims), dtype=dtype, device=dev)}
+    return adapters
+
+
+def adapter_named_parameters(adapters: dict) -> list:
+    """``("path/A", A), ("path/B", B)`` over the sorted paths: the JAX
+    package's leaf order of the adapter dict (``blocks/0``, ``blocks/1``,
+    ``blocks/10``, …; A before B), which is the flat buffer's layout."""
+    return [(f"{path}/{k}", adapters[path][k]) for path in sorted(adapters) for k in ("A", "B")]
+
+
+def _tree_get(tree, path):
+    node = tree
+    for p in path:
+        node = node[int(p)] if isinstance(node, (list, tuple)) else node[p]
+    return node
+
+
+def _tree_set(tree, path, value):
+    node = _tree_get(tree, path[:-1])
+    if isinstance(node, (list, tuple)):
+        node[int(path[-1])] = value
+    else:
+        node[path[-1]] = value
+
+
+def _copy_tree(tree):
+    """The dict/list structure copied, leaves shared."""
+    if isinstance(tree, dict):
+        return {k: _copy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_copy_tree(v) for v in tree]
+    return tree
+
+
+@torch.no_grad()
+def merge_lora(base_params: Any, adapters: dict, cfg: LoraConfig,
+               dequant_dtype=torch.float32) -> Any:
+    """``W' = W + (α/r)·A@B`` per adapted leaf (PEFT ``merge_and_unload``);
+    quantized bases are dequantized first."""
+    merged = _copy_tree(base_params)
+    for path_str, ab in adapters.items():
+        path = tuple(path_str.split("/"))
+        w = maybe_dequant(_tree_get(base_params, path), dequant_dtype)
+        b = ab["B"].reshape(ab["B"].shape[0], -1)
+        delta = ((ab["A"] @ b) * cfg.scaling).reshape(w.shape)
+        _tree_set(merged, path, w + delta.to(w.dtype))
+    return merged
+
+
+def apply_adapters(base_params: Any, adapters: dict, cfg: LoraConfig,
+                   dropout_seed: Optional[int] = None) -> Any:
+    """The base tree with each adapted leaf swapped for a :class:`LoraTensor`
+    (factored form). ``dropout_seed`` (training only) arms ``cfg.dropout``
+    on every adapter branch, site ``i`` of the sorted paths seeded
+    ``fold_seed(dropout_seed, i)``."""
+    effective = _copy_tree(base_params)
+    rate = cfg.dropout if dropout_seed is not None else 0.0
+    site = {p: i for i, p in enumerate(sorted(adapters))}
+    for path_str, ab in adapters.items():
+        path = tuple(path_str.split("/"))
+        seed = fold_seed(dropout_seed, site[path_str]) if rate > 0.0 else None
+        _tree_set(effective, path, LoraTensor(_tree_get(base_params, path), ab["A"], ab["B"],
+                                              cfg.scaling, rate, seed))
+    return effective

@@ -12,9 +12,11 @@
   sparse mask to port.
 - ``auto``: :func:`resolve_impl`, the JAX table (attention.py:301-379) with
   "on TPU" read as "on CUDA": flash for T ≥ 2048, and at T = 1024 with
-  head_dim 64 (GPT-2); xla everywhere else. Two conditions are the card's
-  own: the kernels take bfloat16 only, so float32 inputs take xla, and
-  they are built for head_dim 64 only, so other head dims take xla. Off
+  head_dim 64 (GPT-2); xla everywhere else, so Llama's head_dim 128 takes
+  flash from T = 2048 and xla at T = 1024, as in the JAX table. Two
+  conditions are the card's own: the kernels take bfloat16 only, so float32
+  inputs take xla, and they are built for head_dim 64 and 128 only, so other
+  head dims take xla. Off
   CUDA, auto is always xla, as the JAX package is off the TPU. The TPU tile
   knobs (``flash@BQxBKV``) and the autotune cache are not ported.
 

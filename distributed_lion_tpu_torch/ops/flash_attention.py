@@ -18,8 +18,10 @@ backward kernels, as jax computes it outside its kernels. Tensors are
 mask; ``lse`` is the float32 log-sum-exp of each row's scores, ``[B, H, T]``.
 
 Each wrapper launches its kernel for a CUDA tensor and counts the launch in
-``.launches``; for a CPU tensor it computes its plain PyTorch version
-below. On CUDA the kernels take bfloat16 with head_dim 64 only, and
+``.by_head_dim[head_dim]``, one count per instantiation; for a CPU tensor
+it computes its plain PyTorch version below. On CUDA the kernels take bfloat16
+with head_dim 64 (GPT-2) or 128 (Llama), one instantiation each
+(``flash_attention_{fwd,bwd_dkv,bwd_dq}_bf16_hd{64,128}``), and
 ``q``, ``k``, ``v`` and ``do`` through their strides, with only head_dim
 contiguous (the model's q/k/v are transposed views of one projection): the
 kernels load them by TMA through tensor maps over those strides, under the
@@ -46,11 +48,11 @@ import torch
 from distributed_lion_tpu_torch.ops import cuda_build
 from distributed_lion_tpu_torch.ops.products import matmul_f32
 
-KERNEL_HEAD_DIMS = (64,)
+KERNEL_HEAD_DIMS = (64, 128)
 UNPORTED_DTYPE = ("flash attention on CUDA runs in bfloat16 only; float32 flash is "
                   "not ported (ROADMAP Queue 2 item 4, PERF.md kernel table row 4)")
-UNPORTED_HEAD_DIM = ("flash attention on CUDA is built for head_dim 64 only; head_dim "
-                     "128 comes with the Llama slice (ROADMAP Queue 2 item 4)")
+UNPORTED_HEAD_DIM = ("flash attention on CUDA is built for head_dim 64 and 128 only "
+                     "(ROADMAP Queue 2 item 4)")
 
 _LIB = None
 _P = ctypes.c_void_p
@@ -62,11 +64,11 @@ def _lib() -> ctypes.CDLL:
         lib = cuda_build.load("flash_attention")
         i, f = ctypes.c_int, ctypes.c_float
         strides = ctypes.POINTER(ctypes.c_longlong)
-        lib.flash_attention_fwd_bf16_hd64.argtypes = [_P] * 5 + [i, i, i, strides, f, i, _P]
-        lib.flash_attention_bwd_dkv_bf16_hd64.argtypes = [_P] * 8 + [i, i, i, strides, f, i, _P]
-        lib.flash_attention_bwd_dq_bf16_hd64.argtypes = [_P] * 7 + [i, i, i, strides, f, i, _P]
-        for fn in ("fwd", "bwd_dkv", "bwd_dq"):
-            getattr(lib, f"flash_attention_{fn}_bf16_hd64").restype = i
+        for hd in KERNEL_HEAD_DIMS:
+            for fn, pointers in (("fwd", 5), ("bwd_dkv", 8), ("bwd_dq", 7)):
+                entry = getattr(lib, f"flash_attention_{fn}_bf16_hd{hd}")
+                entry.argtypes = [_P] * pointers + [i, i, i, strides, f, i, _P]
+                entry.restype = i
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -198,6 +200,12 @@ def _tail(q: torch.Tensor) -> tuple:
     return (_scale(q), q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
 
 
+def reset_counts() -> None:
+    """Set every flash wrapper's launch counts (``.by_head_dim``) to 0."""
+    for wrapper in (flash_attention_fwd, flash_attention_bwd_dkv, flash_attention_bwd_dq):
+        wrapper.by_head_dim = dict.fromkeys(KERNEL_HEAD_DIMS, 0)
+
+
 def flash_attention_fwd(q, k, v) -> tuple[torch.Tensor, torch.Tensor]:
     """Forward kernel: ``(o, lse)``; ``o`` contiguous in q's dtype."""
     _check("flash_attention_fwd", (q, k, v))
@@ -207,13 +215,10 @@ def flash_attention_fwd(q, k, v) -> tuple[torch.Tensor, torch.Tensor]:
     o = torch.empty((B, H, T, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     if o.numel():
-        _launch("flash_attention_fwd_bf16_hd64", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        _launch(f"flash_attention_fwd_bf16_hd{D}", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 o.data_ptr(), lse.data_ptr(), B, H, T, _strides(q, k, v), *_tail(q))
-        flash_attention_fwd.launches += 1
+        flash_attention_fwd.by_head_dim[D] += 1
     return o, lse
-
-
-flash_attention_fwd.launches = 0
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, di) -> tuple[torch.Tensor, torch.Tensor]:
@@ -221,18 +226,15 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, di) -> tuple[torch.Tensor, torch.T
     _check("flash_attention_bwd_dkv", (q, k, v, do), (lse, di))
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_plain(q, k, v, do, lse, di)
-    B, H, T, _ = q.shape
+    B, H, T, D = q.shape
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if dk.numel():
-        _launch("flash_attention_bwd_dkv_bf16_hd64", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                do.data_ptr(), lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                B, H, T, _strides(q, k, v, do), *_tail(q))
-        flash_attention_bwd_dkv.launches += 1
+        _launch(f"flash_attention_bwd_dkv_bf16_hd{D}", q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), B, H, T, _strides(q, k, v, do), *_tail(q))
+        flash_attention_bwd_dkv.by_head_dim[D] += 1
     return dk, dv
-
-
-flash_attention_bwd_dkv.launches = 0
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, di) -> torch.Tensor:
@@ -240,17 +242,17 @@ def flash_attention_bwd_dq(q, k, v, do, lse, di) -> torch.Tensor:
     _check("flash_attention_bwd_dq", (q, k, v, do), (lse, di))
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, di)
-    B, H, T, _ = q.shape
+    B, H, T, D = q.shape
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if dq.numel():
-        _launch("flash_attention_bwd_dq_bf16_hd64", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        _launch(f"flash_attention_bwd_dq_bf16_hd{D}", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
                 B, H, T, _strides(q, k, v, do), *_tail(q))
-        flash_attention_bwd_dq.launches += 1
+        flash_attention_bwd_dq.by_head_dim[D] += 1
     return dq
 
 
-flash_attention_bwd_dq.launches = 0
+reset_counts()
 
 
 class FlashAttention(torch.autograd.Function):

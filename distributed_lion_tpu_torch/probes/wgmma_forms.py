@@ -14,8 +14,20 @@ checks on the card, on seeded bfloat16 matrices:
 - ``c4 = a·v[:64]``: B MN-major from shared memory, once for each candidate
   (LBO, SBO) of the MN-major descriptor, the first being hopper.cuh's.
 
+and the head_dim 128 forms (``wgmma_probe128``), on tiles loaded as two TMA
+boxes of 64 columns (``hopper::tma_load_rows<128>``):
+
+- ``e1``, ``e2``, ``e3 = a·bk[:n]ᵀ`` for n = 128, 16, 64: K-major k-steps
+  across both column blocks (``S = Q·Kᵀ`` of the forward, ``Sᵀ = K·Qᵀ`` of
+  dK/dV at a query tile of 16, ``S = Q·Kᵀ`` of dQ);
+- ``e4 = bf16(e1)·v``, ``e5 = bf16(e2)·v[:16]``, ``e6 = bf16(e3)·bk[:64]``:
+  ``m64n128k16`` with A from registers and B MN-major at N = 128, LBO the
+  column-block stride (``P·V``; ``Pᵀ·dO`` and ``dSᵀ·Q``; ``dS·K``);
+- ``e7 = a[:, :64]·v[:64]``: B MN-major from shared memory at N = 128, once
+  for each candidate (LBO, SBO), the first being hopper.cuh's.
+
 Each is held to float64 products of the same bfloat16 operands within 1e-5
-of the largest magnitude (float32 sums of 64 or 128 terms). Prints one line
+of the largest magnitude (float32 sums of 16 to 128 terms). Prints one line
 per form and exits 1 if a form with hopper.cuh's constants disagrees.
 """
 
@@ -29,6 +41,9 @@ from distributed_lion_tpu_torch.ops import cuda_build
 # (LBO, SBO) of the MN-major descriptor: hopper.cuh's first, then the
 # alternatives a misread of the layout would need
 MN_CANDIDATES = ((0, 1024), (1024, 0), (8192, 1024), (1024, 8192))
+# the same at N = 128 over a tile of 128 rows: its column blocks are 16384
+# bytes apart
+MN128_CANDIDATES = ((16384, 1024), (1024, 16384), (0, 1024), (8192, 1024))
 
 
 def _lib():
@@ -36,6 +51,8 @@ def _lib():
     p = ctypes.c_void_p
     lib.wgmma_probe.argtypes = [p] * 7 + [ctypes.c_uint, ctypes.c_uint, p]
     lib.wgmma_probe.restype = ctypes.c_int
+    lib.wgmma_probe128.argtypes = [p] * 10 + [ctypes.c_uint, ctypes.c_uint, p]
+    lib.wgmma_probe128.restype = ctypes.c_int
     lib.wgmma_probe_error_string.argtypes = [ctypes.c_int]
     lib.wgmma_probe_error_string.restype = ctypes.c_char_p
     return lib
@@ -76,9 +93,49 @@ def main() -> int:
             bad |= i == 0 and not ok
             print(f"[wgmma] {name} MN (LBO, SBO) = ({lbo}, {sbo}): max err {e:.3e} of max "
                   f"|value| -> {'ok' if ok else 'WRONG'}", flush=True)
+    bad |= _forms128(lib, gen)
     print(f"wgmma forms with hopper.cuh's descriptors: {'WRONG' if bad else 'all right'}",
           flush=True)
     return 1 if bad else 0
+
+
+def _forms128(lib, gen) -> bool:
+    """The head_dim 128 forms; True if one with hopper.cuh's constants
+    disagrees."""
+    a = torch.randn(64, 128, generator=gen, device="cuda").bfloat16()
+    bk = torch.randn(128, 128, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(128, 128, generator=gen, device="cuda").bfloat16()
+    ad, bd, vd = a.double(), bk.double(), v.double()
+    bad = False
+    for i, (lbo, sbo) in enumerate(MN128_CANDIDATES):
+        shapes = ((64, 128), (64, 16), (64, 64), (64, 128), (64, 128), (64, 128), (64, 128))
+        e = [torch.full(s, float("nan"), device="cuda") for s in shapes]
+        err = lib.wgmma_probe128(a.data_ptr(), bk.data_ptr(), v.data_ptr(),
+                                 *(t.data_ptr() for t in e), lbo, sbo,
+                                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"wgmma_probe128: CUDA error {err} at launch "
+                               f"({lib.wgmma_probe_error_string(err).decode()})")
+        torch.cuda.synchronize()
+        e1, e2, e3, e4, e5, e6, e7 = e
+        errs = {"e7 (N 128, B MN-major, shared)": _err(e7, ad[:, :64] @ vd[:64])}
+        if i == 0:
+            errs = {"e1 (hd128 K-major, n128)": _err(e1, ad @ bd.T),
+                    "e2 (hd128 K-major, n16)": _err(e2, ad @ bd[:16].T),
+                    "e3 (hd128 K-major, n64)": _err(e3, ad @ bd[:64].T),
+                    "e4 (A registers, B MN-major n128, 8 k-steps)":
+                        _err(e4, e1.bfloat16().double() @ vd),
+                    "e5 (A registers, B MN-major n128, 1 k-step)":
+                        _err(e5, e2.bfloat16().double() @ vd[:16]),
+                    "e6 (A registers, B MN-major n128, 4 k-steps)":
+                        _err(e6, e3.bfloat16().double() @ bd[:64]),
+                    **errs}
+        for name, err_ in errs.items():
+            ok = err_ <= 1e-5
+            bad |= i == 0 and not ok
+            print(f"[wgmma] {name} MN (LBO, SBO) = ({lbo}, {sbo}): max err {err_:.3e} of max "
+                  f"|value| -> {'ok' if ok else 'WRONG'}", flush=True)
+    return bad
 
 
 if __name__ == "__main__":

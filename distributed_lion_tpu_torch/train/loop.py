@@ -1,5 +1,14 @@
 """The training loop: port of ``distributed_lion_tpu/train/loop.py`` (the
-data-parallel GPT-2 slice).
+data-parallel path).
+
+A :class:`Trainer` trains a list of named parameters under a loss function
+``loss_fn(batch, seed) -> (loss, metrics)``, the JAX package's
+``Trainer(params=..., loss_fn=...)`` form: ``seed`` is the microbatch's
+dropout seed, None in eval, and ``batch`` a token tensor ``[B, T]`` or a
+dict of ``"tokens"`` and ``"mask"`` (padded SFT rows). Only the named
+parameters train and have the flat buffers; a frozen base (LoRA) lives in
+the loss function's closure. :meth:`Trainer.for_gpt2` builds the GPT-2
+pretraining trainer.
 
 One process per GPU. Each rank runs forward and backward on its shard of
 the global batch, accumulating ``gradient_accumulation_steps``
@@ -151,19 +160,51 @@ def make_optimizer(cfg: TrainConfig, group=None):
     )
 
 
-class Trainer:
-    """Train/eval loop for the CLM workload on one rank. ``group`` is the
-    vote's process group (None: a world of one)."""
+LossFn = Callable[[object, Optional[int]], tuple]
 
-    def __init__(self, cfg: TrainConfig, model: GPT2, *, group=None):
+
+def _rows(batch, lo: int, hi: int):
+    """Rows ``lo:hi`` of a batch: an array, or a dict of arrays."""
+    if isinstance(batch, dict):
+        return {k: v[lo:hi] for k, v in batch.items()}
+    return batch[lo:hi]
+
+
+def _to_device(batch, device):
+    if isinstance(batch, dict):
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                for k, v in batch.items()}
+    return torch.from_numpy(np.ascontiguousarray(batch).astype(np.int64)).to(device)
+
+
+def clm_loss_fn(model) -> LossFn:
+    """``loss_fn(batch, seed)`` of a causal LM ``model(tokens, seed)``; a dict
+    batch carries its loss mask to ``clm_loss_and_metrics``."""
+    def loss_fn(batch, seed):
+        tokens, mask = ((batch["tokens"], batch["mask"]) if isinstance(batch, dict)
+                        else (batch, None))
+        return clm_loss_and_metrics(model(tokens, seed), tokens, mask)
+    return loss_fn
+
+
+class Trainer:
+    """Train/eval loop on one rank over ``named_params`` (in the JAX
+    package's leaf order: the flat buffers' layout) and ``loss_fn``.
+    ``group`` is the vote's process group (None: a world of one);
+    ``model``, where given, is the module ``loss_fn`` runs, for the caller
+    (``for_gpt2``'s GPT-2: ``run_clm`` saves it)."""
+
+    def __init__(self, cfg: TrainConfig, named_params, loss_fn: LossFn, *, group=None,
+                 model=None):
         self.world = collectives.world_of(group)
         self.rank = rank_of(group)
         self.group = group
-        cfg = _resolve_for_world(cfg, self.world, count_params(model))
+        cfg = _resolve_for_world(cfg, self.world, sum(p.numel() for _, p in named_params))
         self.cfg = cfg
         self.model = model
-        self.device = model.wte.device
-        self.flat = FlatParams(model.jax_named_parameters())
+        self.loss_fn = loss_fn
+        self.flat = FlatParams(named_params)
+        self.device = self.flat.device
         self.n_params = self.flat.numel
         self.opt = make_optimizer(cfg, group)
         self.state = self.opt.init(self.flat)
@@ -198,24 +239,23 @@ class Trainer:
                   f"wire={cfg.wire}"
                   + (f" (vote_buckets={cfg.vote_buckets})" if cfg.vote_buckets > 1 else "")
                   + f": {acct['bits_per_param']:.2f} bits/param/step | device={device}")
-        return Trainer(cfg, model, group=group)
+        return Trainer(cfg, model.jax_named_parameters(), clm_loss_fn(model), group=group,
+                       model=model)
 
     def global_train_batch(self) -> int:
         return (self.world * self.cfg.per_device_train_batch_size
                 * self.cfg.gradient_accumulation_steps)
 
-    def _train_step(self, batch: np.ndarray) -> dict:
+    def _train_step(self, batch) -> dict:
         cfg = self.cfg
         accum, bs = cfg.gradient_accumulation_steps, cfg.per_device_train_batch_size
-        local = torch.from_numpy(
-            batch[self.rank * accum * bs:(self.rank + 1) * accum * bs]
-        ).to(self.device)
+        local = _to_device(_rows(batch, self.rank * accum * bs, (self.rank + 1) * accum * bs),
+                           self.device)
         self.flat.zero_grad()
         sums: dict = {}
         for i in range(accum):
-            tokens = local[i * bs:(i + 1) * bs]
             seed = fold_seed(cfg.seed + 1, self.rank, self.step_count, i)
-            loss, metrics = clm_loss_and_metrics(self.model(tokens, seed), tokens)
+            loss, metrics = self.loss_fn(_rows(local, i * bs, (i + 1) * bs), seed)
             loss.backward()
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + v.detach()
@@ -245,11 +285,10 @@ class Trainer:
             vals = vals / self.world
         return dict(zip(metrics, vals.tolist()))
 
-    def train(self, train_iter: Iterator[np.ndarray],
-              eval_blocks: Optional[np.ndarray] = None) -> list[dict]:
+    def train(self, train_iter: Iterator, eval_blocks=None) -> list[dict]:
         """Step-based training to ``max_steps``; ``train_iter`` yields global
-        batches ``[world*accum*per_device_bs, block]``, each rank taking its
-        shard."""
+        batches of ``world*accum*per_device_bs`` rows (an array, or a dict
+        of ``"tokens"`` and ``"mask"``), each rank taking its shard."""
         cfg = self.cfg
         total = cfg.max_steps
         tokens_per_step = self.global_train_batch() * cfg.block_size
@@ -282,11 +321,12 @@ class Trainer:
         return self.history
 
     @torch.no_grad()
-    def evaluate(self, eval_blocks: np.ndarray) -> dict:
-        """Eval loss, token accuracy and perplexity = exp(loss)."""
+    def evaluate(self, eval_blocks) -> dict:
+        """Eval loss, token accuracy and perplexity = exp(loss) over rows of
+        an array, or of a dict of ``"tokens"`` and ``"mask"``."""
         cfg = self.cfg
         per_dev = cfg.per_device_eval_batch_size
-        n = len(eval_blocks)
+        n = len(eval_blocks["tokens"] if isinstance(eval_blocks, dict) else eval_blocks)
         if n < self.world * per_dev:
             per_dev = n // self.world  # shrink rather than skip a small split
         bs = self.world * per_dev
@@ -296,9 +336,9 @@ class Trainer:
                     "eval/perplexity": math.nan}
         per_key: dict = {}
         for i in range(min(cfg.eval_iters, n // bs)):
-            rows = eval_blocks[i * bs + self.rank * per_dev:i * bs + (self.rank + 1) * per_dev]
-            tokens = torch.from_numpy(rows.astype(np.int64)).to(self.device)
-            _, metrics = clm_loss_and_metrics(self.model(tokens), tokens)
+            rows = _rows(eval_blocks, i * bs + self.rank * per_dev,
+                         i * bs + (self.rank + 1) * per_dev)
+            _, metrics = self.loss_fn(_to_device(rows, self.device), None)
             for k, v in self._mean_over_ranks(metrics).items():
                 per_key.setdefault(k, []).append(v)
         out = {f"eval/{k}": float(np.mean(v)) for k, v in per_key.items() if k != "n_tokens"}

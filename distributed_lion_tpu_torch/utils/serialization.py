@@ -9,7 +9,13 @@ the JAX package's ``model.npz``. On top of it:
   (``blocks/#0/attn/qkv`` → ``blocks.0.attn.qkv``), and
   :func:`params_to_jax` goes back;
 - :func:`momentum_from_jax` takes rank ``rank``'s row of the JAX package's
-  stacked ``[world, ...]`` momentum.
+  stacked ``[world, ...]`` momentum;
+- :func:`llama_params_from_jax` turns the JAX package's Llama params (a
+  numpy pytree whose quantized leaves carry numpy ``codes`` and ``absmax``)
+  into the port's weight tree, :class:`ops.quant.QuantizedTensor` leaves
+  included; :func:`adapters_from_jax` does the same for LoRA adapters, and
+  :func:`adapter_momentum_from_jax` takes one rank's row of the adapters'
+  stacked momentum.
 
 bfloat16 tensors are written as float32 (numpy has no bfloat16 without
 extra packages); every value stays exact.
@@ -22,6 +28,8 @@ from typing import Any, Union
 
 import numpy as np
 import torch
+
+from distributed_lion_tpu_torch.ops.quant import QuantizedTensor, map_tree
 
 
 def _flatten(tree, prefix=()):
@@ -36,7 +44,8 @@ def _flatten(tree, prefix=()):
 
 
 def save_pytree(path, tree: Any) -> None:
-    flat = {k: np.asarray(v) for k, v in _flatten(tree)}
+    flat = {k: _to_numpy(v) if isinstance(v, torch.Tensor) else np.asarray(v)
+            for k, v in _flatten(tree)}
     pathlib.Path(path).parent.mkdir(parents=True, exist_ok=True)
     np.savez(path, **flat)
 
@@ -97,3 +106,35 @@ def momentum_from_jax(exp_avg: dict, rank: int) -> dict[str, torch.Tensor]:
     """Row ``rank`` of the JAX package's stacked ``[world, ...]`` momentum
     pytree, as a state dict keyed like the params."""
     return {name: t[rank] for name, t in params_from_jax(exp_avg).items()}
+
+
+def _leaf_from_jax(leaf, device) -> Any:
+    """A numpy array, or a JAX ``QuantizedTensor`` (read by its fields: its
+    numpy ``codes`` and ``absmax`` and its static ``shape``, ``fmt``,
+    ``block`` and ``layout``), as the port's leaf."""
+    if hasattr(leaf, "codes") and hasattr(leaf, "absmax"):
+        return QuantizedTensor(torch.from_numpy(np.array(leaf.codes, np.uint8)).to(device),
+                               torch.from_numpy(np.array(leaf.absmax, np.float32)).to(device),
+                               tuple(int(d) for d in leaf.shape), leaf.fmt, int(leaf.block),
+                               leaf.layout)
+    return torch.from_numpy(np.array(leaf)).to(device)
+
+
+def llama_params_from_jax(tree: Any, device="cpu") -> Any:
+    """The JAX package's Llama params (nested dicts and lists of numpy
+    arrays and quantized leaves) as the port's weight tree on ``device``."""
+    return map_tree(lambda leaf: _leaf_from_jax(leaf, device), tree)
+
+
+def adapters_from_jax(adapters: dict, device="cpu") -> dict:
+    """The JAX package's ``{path: {"A", "B"}}`` adapters as float tensors."""
+    return {path: {k: torch.from_numpy(np.array(ab[k])).to(device) for k in ("A", "B")}
+            for path, ab in adapters.items()}
+
+
+def adapter_momentum_from_jax(exp_avg: dict, rank: int, device="cpu") -> dict:
+    """Row ``rank`` of the JAX package's stacked ``[world, ...]`` adapter
+    momentum, keyed like :func:`models.lora.adapter_named_parameters`
+    (``"path/A"``, ``"path/B"``)."""
+    return {f"{path}/{k}": torch.from_numpy(np.array(ab[k][rank])).to(device)
+            for path, ab in exp_avg.items() for k in ("A", "B")}

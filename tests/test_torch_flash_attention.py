@@ -93,6 +93,22 @@ def test_flash_matches_jax_splash_and_xla(dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_flash_hd128_matches_jax_splash_and_xla(dtype):
+    """head_dim 128 (Llama), at T 128 and a ragged T 100: the
+    plain versions the hd128 kernels are held to, against the Pallas splash
+    kernel in interpret mode (no head_dim padding at 128) and
+    ``attention_xla``."""
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    arrays = _inputs(128, B=1, H=2, D=128, seed=3)
+    got = _port(arrays, dtype)
+    _assert_close(got, _jax(lambda q, k, v: j_splash(q, k, v, interpret=True), arrays, jdt),
+                  dtype)
+    _assert_close(got, _jax(j_xla, arrays, jdt), dtype)
+    ragged = _inputs(100, B=1, H=2, D=128, seed=4)
+    _assert_close(_port(ragged, dtype), _jax(j_xla, ragged, jdt), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
 def test_flash_ragged_T_matches_jax_xla(dtype):
     """A T that is not a multiple of the kernels' 64-row tile."""
     arrays = _inputs(100, B=1, H=3, seed=1)
@@ -119,7 +135,12 @@ def test_backward_pieces_compose_to_the_plain_backward():
     ("cuda", 512, 64, torch.bfloat16, "xla"),
     ("cuda", 1000, 64, torch.bfloat16, "xla"),
     ("cuda", 1024, 128, torch.bfloat16, "xla"),      # the JAX table keeps hd 128 at T 1024 on xla
-    ("cuda", 2048, 128, torch.bfloat16, "xla"),      # no hd-128 kernel yet
+    ("cuda", 2048, 128, torch.bfloat16, "flash"),    # hd 128 (Llama) at T >= 2048: the kernels
+    ("cuda", 4096, 128, torch.bfloat16, "flash"),
+    ("cuda", 512, 128, torch.bfloat16, "xla"),
+    ("cuda", 2048, 128, torch.float32, "xla"),
+    ("cuda", 2048, 96, torch.bfloat16, "xla"),       # no kernel at another head_dim
+    ("cpu", 2048, 128, torch.bfloat16, "xla"),
     ("cuda", 1024, 64, torch.float32, "xla"),        # the kernels are bfloat16-only
     ("cpu", 1024, 64, torch.bfloat16, "xla"),        # off the card, as JAX off the TPU
     ("cpu", 4096, 64, torch.bfloat16, "xla"),
@@ -264,3 +285,23 @@ def test_gpt2_dropout0_flash_matches_jax_logits_and_grads():
     for name, p in model.named_parameters():
         np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(), err_msg=name,
                                    atol=1e-5, rtol=1e-4)
+
+
+def test_cpu_path_counts_no_launch_at_either_head_dim():
+    """On CPU tensors the wrappers run their plain versions at head_dim 64
+    and 128: no count moves and no library is built."""
+    before = [dict(fn.by_head_dim) for fn in (fa.flash_attention_fwd,
+                                              fa.flash_attention_bwd_dkv,
+                                              fa.flash_attention_bwd_dq)]
+    assert all(set(b) == {64, 128} for b in before)
+    for D in (64, 128):
+        q, k, v, do = (torch.from_numpy(a).bfloat16() for a in _inputs(20, B=1, H=1, D=D))
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        di = fa.attention_di(o, do)
+        fa.flash_attention_bwd_dkv(q, k, v, do, lse, di)
+        fa.flash_attention_bwd_dq(q, k, v, do, lse, di)
+    after = [dict(fn.by_head_dim) for fn in (fa.flash_attention_fwd,
+                                             fa.flash_attention_bwd_dkv,
+                                             fa.flash_attention_bwd_dq)]
+    assert after == before
+    assert fa._LIB is None and "flash_attention" not in cuda_build._LIBS

@@ -51,3 +51,11 @@ def test_importing_every_port_module_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_the_sft_slice_modules_are_among_the_checked_files():
+    """The SFT slice's modules (quantization, LoRA, Llama, the SFT data and
+    CLI) are in the file list both checks above walk."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
+    assert {"ops/quant.py", "models/lora.py", "models/llama.py", "data/tokenizer.py",
+            "data/packing.py", "data/sft.py", "cli/run_sft.py"} <= files
