@@ -12,7 +12,11 @@ Phases (none of their failures is caught; any one fails the run):
    byte, and ``cuobjdump -sass`` of the flash library must show ``HGMMA``
    (wgmma), ``UTMALDG`` (TMA loads) and no ``HMMA`` (``mma.sync``, as
    ``nvcuda::wmma`` compiles) in each of the forward, dK/dV and dQ kernels,
-   at head_dim 64 and at 128 (each instantiation checked on its own).
+   at head_dim 64 and at 128 (each instantiation checked on its own), and
+   ptxas must not serialize the wgmma of any of them (its "wgmma.mma_async
+   instructions are serialized" note: a wait after every product). Each
+   ``[sass]`` line also gives the registers the kernel's code names (a
+   wgmma accumulator counted over its range) and its ``setmaxnreg`` counts.
 2. Kernel phase, optimizer: the two Triton kernels (``ops/fused_lion.py``)
    and the CUDA stats kernel (``csrc/vote_stats.cu``) against their plain
    PyTorch versions on the card, at the main path's size (GPT-2 124M,
@@ -45,8 +49,12 @@ Phases (none of their failures is caught; any one fails the run):
    is timed beside them as the library yardstick (the port never calls
    it): the forward, and the backward with a fresh graph for each timed
    call (its forward runs before the start event), each as median and
-   minimum. Each kernel's TFLOP/s is its causal operations over its time.
-   Both head dims are timed at their T 1024 shape. Then ``ops/quant.py``:
+   minimum. Each kernel's TFLOP/s is its causal operations over its time;
+   each backward kernel's ``[kernel]`` line also names its tiles (from the
+   library) and registers. A ``[library]`` line per head_dim sets the port's
+   whole backward, ``attention_di`` + dK/dV + dQ timed as one call, beside
+   SDPA's backward. Both head dims are timed at their T 1024 shape. Then
+   ``ops/quant.py``:
    ``quantize_nf4`` and ``dequantize`` of a [4096, 11008] weight on the card
    must equal the CPU's bit for bit.
 4. Slice phase, in one 1-rank NCCL process group: each flat vote wire must
@@ -258,9 +266,10 @@ def bound(nbytes: float, flops: float, rates) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def build_cuda_kernels():
+def build_cuda_kernels() -> dict:
     """Build the CUDA libraries, one ``nvcc`` per source, all started
-    together; check every kernel's spills and the Hopper kernels' SASS."""
+    together; check every kernel's spills and the Hopper kernels' SASS.
+    Returns :func:`cuda_build.sass_registers` of the flash kernels."""
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(CUDA_SOURCES)) as pool:
         libs = list(pool.map(lambda name: cuda_build.build(cuda_build.CSRC / f"{name}.cu"),
@@ -278,17 +287,26 @@ def build_cuda_kernels():
             raise AssertionError(f"{lib.name}: spill bytes (stores, loads) {spills} in the ptxas "
                                  "report, expected (0, 0) for every function")
     flash = libs[CUDA_SOURCES.index("flash_attention")]
-    spills = cuda_build.ptxas_spills(flash.with_suffix(".log").read_text())
+    log = flash.with_suffix(".log").read_text()
+    serialized = {f: why for f, why in cuda_build.ptxas_serialized(log).items()
+                  if any(kernel in f for kernel in HOPPER_KERNELS)}
+    if serialized:
+        raise AssertionError(f"ptxas serializes the wgmma of {serialized}")
+    spills = cuda_build.ptxas_spills(log)
     for kernel in HOPPER_KERNELS:
         if len([name for name in spills if kernel in name]) != 1:
             raise AssertionError(f"{kernel}: not one entry in the ptxas report {list(spills)}")
-    counts = cuda_build.sass_counts(flash, HOPPER_KERNELS, SASS_OPS)
+    sass = cuda_build.sass_of(flash)
+    counts = cuda_build.count_sass(sass, HOPPER_KERNELS, SASS_OPS)
+    regs = cuda_build.sass_registers(sass, HOPPER_KERNELS)
     for kernel, ops in counts.items():
-        print(f"[sass] {kernel}: " + ", ".join(f"{op} {n}" for op, n in ops.items()),
-              flush=True)
+        used, sets = regs[kernel]
+        print(f"[sass] {kernel}: " + ", ".join(f"{op} {n}" for op, n in ops.items())
+              + f"; registers used {used}, setmaxnreg {sets}", flush=True)
         if ops["HGMMA"] == 0 or ops["UTMALDG"] == 0 or ops["HMMA"] != 0:
             raise AssertionError(f"{kernel}: SASS {ops}: expected wgmma (HGMMA) and TMA loads "
                                  "(UTMALDG), and no mma.sync (HMMA)")
+    return regs
 
 
 def optimizer_kernel_phase(gen, rates):
@@ -475,10 +493,12 @@ def flash_check(tag, name, got, plain, want) -> float:
     return vs_plain
 
 
-def flash_kernel_phase(gen, rates, D, B_main, H_main, T_main, T_more, views):
+def flash_kernel_phase(gen, rates, regs, D, B_main, H_main, T_main, T_more, views):
     """Check the three flash kernels of head_dim D at every shape, with q,
     k, v in the model's layout (``views``: see flash_inputs); time them at
-    the main one. Records are named as in KERNELS."""
+    the main one, and the port's whole backward (``attention_di``, dK/dV
+    and dQ) beside SDPA's. ``regs``: :func:`cuda_build.sass_registers` of
+    the kernels. Records are named as in KERNELS."""
     suffix = "" if D == 64 else f"_hd{D}"
     rec = {}
     err = {k + suffix: 0.0 for k in FLASH}
@@ -555,15 +575,37 @@ def flash_kernel_phase(gen, rates, D, B_main, H_main, T_main, T_more, views):
               f"forward {lib_fwd:.4f} ms (min {lib_fwd_min:.4f}), backward {lib_bwd:.4f} ms "
               f"(min {lib_bwd_min:.4f}; a fresh graph per call), forward + backward "
               f"{lib_both:.4f} ms", flush=True)
+        tiles = fa.bwd_tiles(D)
+        shape = {"flash_attention_bwd_dkv": f"{tiles['dkv_keys']} keys a block, query tiles of "
+                                           f"{tiles['dkv_queries']}",
+                 "flash_attention_bwd_dq": f"{tiles['dq_queries']} queries a block, key tiles of "
+                                          f"{tiles['dq_keys']}"}
         for name, (kern_fn, plain_fn, nbytes, flops) in cases.items():
             ms, plain_ms = time_ms(kern_fn), time_ms(plain_fn)
             bms, by = bound(nbytes, flops, rates)
             library = lib_fwd if name.startswith("flash_attention_fwd") else lib_bwd
+            base = name.removesuffix(suffix)
+            extra = ""
+            if base in shape:
+                used, sets = regs[f"flash_{base.removeprefix('flash_attention_')}_kernelILi{D}E"]
+                extra = (f"; {shape[base]}; registers: {used} used, setmaxnreg {sets} "
+                         "(consumers, producer)")
             print(f"[kernel] {name} B{B} H{H} T{T} hd{D}: {ms:.4f} ms, "
                   f"{flops / ms / 1e9:.1f} TFLOP/s (bound {bms:.4f} ms by {by}: "
                   f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; plain {plain_ms:.4f} ms; "
-                  f"library {library:.4f} ms)", flush=True)
+                  f"library {library:.4f} ms{extra})", flush=True)
             rec[name] = (ms, plain_ms, bms, by, library)
+
+        def whole_backward():
+            di_w = fa.attention_di(o, do)
+            fa.flash_attention_bwd_dkv(q, k, v, do, lse, di_w)
+            fa.flash_attention_bwd_dq(q, k, v, do, lse, di_w)
+
+        whole, di_ms = time_ms(whole_backward), time_ms(lambda: fa.attention_di(o, do))
+        print(f"[library] backward B{B} H{H} T{T} hd{D}: the port's attention_di + dK/dV + dQ "
+              f"{whole:.4f} ms (attention_di alone {di_ms:.4f} ms), "
+              f"scaled_dot_product_attention's backward {lib_bwd:.4f} ms: "
+              f"{whole / lib_bwd:.3f} x", flush=True)
         del ql, kl, vl, q, k, v, do, o, lse, op, lp, di, dk, dv, dq, dkp, dvp, dqp
         torch.cuda.empty_cache()
     return rec, err
@@ -888,7 +930,7 @@ def main():
           f"bandwidth {rates[0] / 1e12:.2f} TB/s, bfloat16 {rates[1] / 1e12:.0f} TFLOP/s",
           flush=True)
     t = time.perf_counter()
-    build_cuda_kernels()
+    regs = build_cuda_kernels()
     t = phase_time("build", t)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -896,7 +938,7 @@ def main():
     print(f"[card] Triton kernels built with triton {fused_lion.triton.__version__}", flush=True)
     t = phase_time("optimizer kernels", t)
     for case in FLASH_CASES:
-        frec, ferr = flash_kernel_phase(gen, rates, *case)
+        frec, ferr = flash_kernel_phase(gen, rates, regs, *case)
         rec.update(frec)
         err.update(ferr)
         t = phase_time(f"flash kernels, head_dim {case[0]}", t)

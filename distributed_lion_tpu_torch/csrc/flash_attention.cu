@@ -22,28 +22,44 @@
 // All three kernels (Hopper design, hopper.cuh): one block of three
 // warpgroups. Warpgroup 0 is the producer: one thread issues TMA loads of
 // the tiles (128-byte swizzle, rows past T zero-filled) into a ring of
-// STAGES buffers, each with a full and an empty mbarrier, and the
-// warpgroup gives its registers to the consumers (setmaxnreg). Warpgroups 1
-// and 2 are consumers of 64 rows each: their products are wgmma (bf16,
-// float32 sums in registers), both operands from swizzled shared memory for
-// the scores, and for the second product A from registers (P or dS rounded
-// to bf16 in the accumulator's own layout) and B read MN-major. Scores,
-// softmax and the masks stay in registers; no score tile goes through shared
-// memory. One block per SM (registers bound it); the ring and the
+// buffers, each with a full and an empty mbarrier, and the warpgroup gives
+// its registers to the consumers (setmaxnreg). Warpgroups 1 and 2 are
+// consumers of 64 rows each: their products are wgmma (bf16, float32 sums
+// in registers). One block per SM (registers bound it); the ring and the
 // asynchronous wgmma hide the latency that resident blocks hid before.
 // - forward: a block per 128 queries walks key tiles of 128 up to the
 //   diagonal (the only masked tile) with an online softmax in the exp2
 //   domain; the row max and sum are shared by the 4 threads of a row by
-//   shuffles. o = O / l, lse = m + log(l) in natural log.
+//   shuffles. o = O / l, lse = m + log(l) in natural log. P is the A operand
+//   of P.V from registers (the accumulator rounded to bf16 in its own
+//   layout), V read MN-major.
 // - dK/dV: a block per 128 keys holds K and V in shared memory and streams
-//   query tiles of 64, or 16 at head_dim 128 (with their lse and di), from
-//   the diagonal to T; P^T = exp(s^T - lse) and dS^T = P^T (dP^T - di) in
-//   registers, then dV += P^T.dO and dK += dS^T.Q.
+//   query tiles of 64 (with their lse and di) from the diagonal to T;
+//   P^T = exp(s^T - lse) and dS^T = P^T (dP^T - di), then dV += P^T.dO and
+//   dK += dS^T.Q. At head_dim 64 a consumer runs each tile in series, P^T and
+//   dS^T as register A fragments. At 128 its dK and dV take 128 registers a
+//   thread, so P^T and dS^T go to two bf16 tiles in shared memory that its
+//   threads write and dV/dK read as SS products; the next tile's S^T/dP^T
+//   are issued before this tile's dV/dK, which run under the next tile's
+//   exponentials (dkv_consume_overlapped).
 // - dQ: a block per 128 queries holds Q and dO in shared memory and streams
-//   K and V tiles from 0 to the diagonal; S = Q.K^T and dP = dO.V^T are
-//   issued together, P = exp2(s - lse) and dS = P (dP - di) in registers,
-//   then dQ += dS.K with the same K tile read MN-major. A consumer skips a
-//   key tile wholly above its rows' diagonal.
+//   K and V tiles of 64 from 0 to the diagonal; S = Q.K^T and dP = dO.V^T,
+//   P = exp2(s - lse) and dS = P (dP - di), then dQ += dS.K with dS as
+//   register A fragments and the same K tile read MN-major. A consumer skips
+//   a key tile wholly above its rows' diagonal. At head_dim 64 each tile runs
+//   in series; at 128 the next tile's S/dP are issued with this tile's dQ
+//   product and their exponentials run under it (dq_consume_overlapped).
+//
+// At head_dim 128 the backward kernels' loops are shaped for ptxas (CUDA
+// 12.9), which serializes every wgmma of a kernel (a wait after each) when
+// it cannot prove a register operand untouched while a group is in flight:
+// the loops are peeled so each pass issues and waits for the same groups,
+// the warpgroup index comes through a shuffle so descriptors are uniform,
+// fragments are written only while nothing is in flight, and the consumers
+// wait on mbarriers without the trap path (hopper::mbar_wait_spin), whose
+// presence held these kernels to the launch bound's 168 registers. Their
+// grid is tile-major (bwd_grid): at this width a head's Q/dO (or K/V) tiles
+// no longer fit L2 across the heads a head-major grid keeps resident.
 //
 // Every output element is summed by one block in a fixed order: no atomics,
 // and the results are the same bits from run to run. P and dS are rounded to
@@ -52,10 +68,9 @@
 // are never written. head_dim is a template parameter, instantiated at 64
 // (GPT-2) and 128 (Llama). At 128 a tile row is two 128-byte swizzle rows:
 // each tile is loaded as two TMA boxes of 64 columns into two column blocks
-// (hopper.cuh), the products step across both, and dK/dV streams query
-// tiles of 16, which keeps its dK and dV accumulators, twice as wide, and
-// the scores in the consumers' registers without a spill (at 32 the build
-// spills 112 bytes).
+// (hopper.cuh), and the products step across both. The head_dim 128
+// backward computes exp2 by ex2.approx.ftz: an exponent below -126 gives 0
+// where exp2f keeps a denormal, a change to P of less than 2^-126.
 
 #include "hopper.cuh"
 
@@ -77,7 +92,7 @@ constexpr int WG_THREADS = 128;
 constexpr int HOPPER_THREADS = 3 * WG_THREADS;  // a producer and two consumer warpgroups
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;  // 128 x 40 + 256 x 232 = 64,512 of the SM's 65,536
-constexpr int STAGES = 2;
+constexpr int FWD_STAGES = 2;  // the forward's ring
 
 // Forward tiles: 128 queries per block (64 per consumer warpgroup), key
 // tiles of 128, so the diagonal is one tile.
@@ -101,29 +116,59 @@ struct FwdSmem {  // byte offsets from a 1024-byte boundary
   static constexpr int TILE = FWD_BN * D * 2;
   static constexpr int Q = 0;
   static constexpr int K = Q + FWD_BM * D * 2;
-  static constexpr int V = K + STAGES * TILE;
-  static constexpr int BARS = V + STAGES * TILE;  // q_full, full[STAGES], empty[STAGES]
-  static constexpr int BYTES = BARS + (1 + 2 * STAGES) * 8 + hopper::SW128_ATOM_BYTES;
+  static constexpr int V = K + FWD_STAGES * TILE;
+  static constexpr int BARS = V + FWD_STAGES * TILE;  // q_full, full[], empty[]
+  static constexpr int BYTES = BARS + (1 + 2 * FWD_STAGES) * 8 + hopper::SW128_ATOM_BYTES;
 };
 
 // dK/dV tiles: 128 keys per block (64 per consumer warpgroup), query tiles
-// of 64 (head_dim 64) or 16 (head_dim 128) streamed through the ring with
-// their lse and di rows.
+// of 64 streamed through the ring with their lse and di rows. At head_dim
+// 128 the ring has three stages, and each consumer has two bf16 64 x 64
+// tiles of its own (P^T and dS^T) that its threads write and its wgmma read.
 constexpr int DKV_BN = 128;
 
 template <int D>
 struct DkvSmem {
-  static constexpr int BQ = D == 64 ? 64 : 16;
+  static constexpr int BQ = 64;
+  static constexpr int STAGES = D == 64 ? 2 : 3;
   static constexpr int TILE = BQ * D * 2;
+  static constexpr int PT_TILE = 64 * BQ * 2;        // one consumer's P^T or dS^T, bf16
   static constexpr int K = 0;
   static constexpr int V = K + DKV_BN * D * 2;
   static constexpr int Q = V + DKV_BN * D * 2;
   static constexpr int DO = Q + STAGES * TILE;
-  static constexpr int LSE = DO + STAGES * TILE;     // float [STAGES][BQ], lse * log2(e)
+  static constexpr int PT = DO + STAGES * TILE;      // [consumer][P^T, dS^T], head_dim 128
+  static constexpr int LSE = PT + (D == 64 ? 0 : 2 * 2 * PT_TILE);  // float [STAGES][BQ]
   static constexpr int DI = LSE + STAGES * BQ * 4;   // float [STAGES][BQ]
   static constexpr int BARS = DI + STAGES * BQ * 4;  // kv_full, full[STAGES], empty[STAGES]
   static constexpr int BYTES = BARS + (1 + 2 * STAGES) * 8 + hopper::SW128_ATOM_BYTES;
 };
+
+// The backward kernels' grid: a block per (b*h, tile). At head_dim 64 b*h
+// is blockIdx.x, so the resident blocks span many heads, and a head's Q/dO
+// (or K/V) tiles, which every block of that head re-reads, fit L2 at GPT-2's
+// shape all the same. At 128 (Llama-2-7B: 67 MB of Q and dO) they do not,
+// so the tile is blockIdx.x: the blocks of one head run side by side and
+// read its tiles from L2, and the few heads resident at once fit it.
+template <int D>
+__host__ __device__ constexpr bool tile_major() { return D == 128; }
+template <int D>
+dim3 bwd_grid(int bh, int tiles) {
+  return tile_major<D>() ? dim3(tiles, bh) : dim3(bh, tiles);
+}
+// (unsigned, as blockIdx is, so that the arithmetic on them stays unsigned)
+template <int D>
+__device__ __forceinline__ unsigned grid_bh() {
+  return tile_major<D>() ? blockIdx.y : blockIdx.x;
+}
+template <int D>
+__device__ __forceinline__ unsigned grid_tile() {
+  return tile_major<D>() ? blockIdx.x : blockIdx.y;
+}
+template <int D>
+__device__ __forceinline__ unsigned grid_tiles() {
+  return tile_major<D>() ? gridDim.x : gridDim.y;
+}
 
 // Row max and row sum over the 4 threads that hold one accumulator row.
 __device__ __forceinline__ float quad_max(float x) {
@@ -173,7 +218,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   bf16* sV = reinterpret_cast<bf16*>(smem + L::V);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BARS);
   uint64_t* full = q_full + 1;
-  uint64_t* empty = full + STAGES;
+  uint64_t* empty = full + FWD_STAGES;
 
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int tile = gridDim.y - 1 - blockIdx.y;
@@ -182,7 +227,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(q_full, 1);
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < FWD_STAGES; ++s) {
       hopper::mbar_init(&full[s], 1);
       hopper::mbar_init(&empty[s], 2 * WG_THREADS);
     }
@@ -196,8 +241,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       hopper::mbar_arrive_expect_tx(q_full, FWD_BM * D * 2);
       hopper::tma_load_rows<D>(sQ, &tq, q_full, FWD_BM, q0, h, b);
       for (int j = 0; j <= tile; ++j) {
-        const int s = j % STAGES;
-        hopper::mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+        const int s = j % FWD_STAGES;
+        hopper::mbar_wait(&empty[s], ((j / FWD_STAGES) & 1) ^ 1);
         hopper::mbar_arrive_expect_tx(&full[s], 2 * L::TILE);
         hopper::tma_load_rows<D>(sK + s * FWD_BN * D, &tk, &full[s], FWD_BN, j * FWD_BN, h, b);
         hopper::tma_load_rows<D>(sV + s * FWD_BN * D, &tv, &full[s], FWD_BN, j * FWD_BN, h, b);
@@ -218,10 +263,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     hopper::mbar_wait(q_full, 0);
 
     for (int j = 0; j <= tile; ++j) {
-      const int s = j % STAGES;
+      const int s = j % FWD_STAGES;
       const bf16* sKs = sK + s * FWD_BN * D;
       const bf16* sVs = sV + s * FWD_BN * D;
-      hopper::mbar_wait(&full[s], (j / STAGES) & 1);
+      hopper::mbar_wait(&full[s], (j / FWD_STAGES) & 1);
 
       float S[64];  // S = Q K^T: 64 rows x 128 keys
       hopper::wgmma_fence();
@@ -294,11 +339,160 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   }
 }
 
-// One block per (b*h, 128-key tile); blockIdx.y counts key tiles from the
-// first (the most query tiles) up. Warpgroup 0 loads K and V once, then its
-// warp 0 streams the Q and dO tiles from the diagonal to T by TMA while its
-// warp 1 stages each tile's lse (times log2(e)) and di rows; warpgroups 1
-// and 2 each own 64 keys and hold their dK and dV in registers.
+// S^T = K Q^T and dP^T = V dO^T of one query tile for a consumer's 64 keys
+// (m64n64k16, both operands K-major in shared memory, 8 k-steps across the
+// two column blocks at head_dim 128), issued as one wgmma group; the
+// arguments are the tiles' first k-step descriptors.
+template <int D>
+__device__ __forceinline__ void issue_dkv_scores(float (&St)[32], float (&dPt)[32], uint64_t dK0,
+                                                 uint64_t dV0, uint64_t dQ0, uint64_t dO0) {
+  using L = DkvSmem<D>;
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    hopper::wgmma_m64n64k16_ss<0>(St, hopper::desc_k_step(dK0, kk, block_bytes(DKV_BN)),
+                                  hopper::desc_k_step(dQ0, kk, block_bytes(L::BQ)), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    hopper::wgmma_m64n64k16_ss<0>(dPt, hopper::desc_k_step(dV0, kk, block_bytes(DKV_BN)),
+                                  hopper::desc_k_step(dO0, kk, block_bytes(L::BQ)), kk > 0);
+  hopper::wgmma_commit();
+}
+
+// The head_dim 128 consumer of flash_bwd_dkv_kernel: one warpgroup, 64 keys
+// from key0, dK and dV (64 floats a thread each) in registers for the whole
+// walk over query tiles first..n_tiles-1 (stage of tile it: (it - first)
+// % STAGES). Per tile: S^T and dP^T into registers (one wgmma group); P^T =
+// exp2(s^T - lse) and dS^T = P^T (dP^T - di) in place; both rounded to bf16
+// into the consumer's two swizzled tiles (store_sw128_tile, then the proxy
+// fence and a named barrier of its 128 threads); then dV += P^T dO and dK +=
+// dS^T Q as SS products from those tiles (A K-major, B the stage's dO and Q
+// read MN-major), so no A fragment stays in registers beside the 128
+// accumulators. Overlap: the next tile's S^T/dP^T group is issued before
+// this tile's dV/dK group, and the wait at the top of the next tile lets the
+// dV/dK group run under its exponentials (wgmma groups complete in order).
+template <int D>
+__device__ __forceinline__ void dkv_consume_overlapped(
+    const bf16* sK, const bf16* sV, const bf16* sQ, const bf16* sdO, bf16* sPt,
+    const float* sLse, const float* sDi, uint64_t* kv_full, uint64_t* full, uint64_t* empty,
+    bf16* dk, bf16* dv, int first, int n_tiles, int k0, int T, float scale, float scale_log2) {
+  using L = DkvSmem<D>;
+  constexpr int BQ = L::BQ, STAGES = L::STAGES;
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / WG_THREADS, 0);
+  const int t = threadIdx.x % WG_THREADS, lane = t % 32;
+  const int k_off = 64 * (wg - 1);                 // this warpgroup's rows of the K, V tiles
+  const int key0 = k0 + k_off;                     // its first key
+  const int kr = key0 + 16 * (t / 32) + lane / 4;  // keys kr and kr + 8
+  sPt += (wg - 1) * 2 * 64 * BQ;                   // its P^T tile, then its dS^T tile
+  bf16* sdSt = sPt + 64 * BQ;
+  // first k-step descriptors: this warpgroup's K and V rows, its P^T and
+  // dS^T tiles, and stage 0's Q and dO tiles (K-major, and dO, Q MN-major);
+  // a stage is L::TILE bytes further on
+  const uint64_t dK0 = hopper::desc_k_major(sK + k_off * hopper::SW_COLS, 0, 0);
+  const uint64_t dV0 = hopper::desc_k_major(sV + k_off * hopper::SW_COLS, 0, 0);
+  const uint64_t dPt0 = hopper::desc_k_major(sPt, 0, 0), dSt0 = hopper::desc_k_major(sdSt, 0, 0);
+  const uint64_t dQk0 = hopper::desc_k_major(sQ, 0, 0), dOk0 = hopper::desc_k_major(sdO, 0, 0);
+  const uint64_t dQm0 = hopper::desc_mn_major(sQ, 0, block_bytes(BQ));
+  const uint64_t dOm0 = hopper::desc_mn_major(sdO, 0, block_bytes(BQ));
+
+  float dK[D / 2], dV[D / 2], St[32], dPt[32];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dK[i] = dV[i] = 0.0f;
+  hopper::mbar_wait_spin(kv_full, 0);
+
+  // query tiles wholly before these keys: released unread
+  const int mine = key0 / BQ;
+  for (int it = first; it < min(mine, n_tiles); ++it) {
+    const int n = it - first, s = n % STAGES;
+    hopper::mbar_wait_spin(&full[s], (n / STAGES) & 1);
+    hopper::mbar_arrive(&empty[s]);
+  }
+  auto scores = [&](int it) {  // issue tile it's S^T and dP^T
+    const int n = it - first, s = n % STAGES;
+    hopper::mbar_wait_spin(&full[s], (n / STAGES) & 1);
+    issue_dkv_scores<D>(St, dPt, dK0, dV0, hopper::desc_advance(dQk0, s * L::TILE),
+                        hopper::desc_advance(dOk0, s * L::TILE));
+  };
+  // tile it's P^T and dS^T from its finished scores into the two bf16
+  // tiles, once the previous tile's dV/dK group (which reads them) is done
+  auto probs = [&](int it) {
+    hopper::fence_regs(St);
+    hopper::fence_regs(dPt);
+    const int n = it - first, s = n % STAGES;
+    const float* lse_s = sLse + s * BQ;
+    const float* di_s = sDi + s * BQ;
+    // kept: query columns c with lo[h] <= c < hi (the diagonal, and T)
+    const bool edge = it * BQ < key0 + 64 || it * BQ + BQ > T;
+    const int hi = edge ? T - it * BQ : BQ;
+    const int lo[2] = {edge ? kr - it * BQ : 0, edge ? kr + 8 - it * BQ : 0};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * (lane % 4);
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_s + c);
+      const float2 d2 = *reinterpret_cast<const float2*>(di_s + c);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * h + e;
+          const float p = hopper::exp2_ftz(St[i] * scale_log2 - (e ? l2.y : l2.x));
+          St[i] = c + e >= lo[h] && c + e < hi ? p : 0.0f;
+          dPt[i] = St[i] * (dPt[i] - (e ? d2.y : d2.x));
+        }
+      }
+    }
+    hopper::wgmma_wait<0>();
+    if (it > mine) hopper::mbar_arrive(&empty[(n - 1) % STAGES]);
+    hopper::store_sw128_tile(sPt, St);
+    hopper::store_sw128_tile(sdSt, dPt);
+    hopper::fence_proxy_async();
+    hopper::named_barrier_sync(wg, WG_THREADS);
+  };
+  auto grads = [&](int it) {  // issue dV += P^T dO and dK += dS^T Q of tile it
+    const uint32_t stage = ((it - first) % STAGES) * L::TILE;
+    const uint64_t dOm = hopper::desc_advance(dOm0, stage), dQm = hopper::desc_advance(dQm0, stage);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      hopper::wgmma_m64n128k16_ss<1>(dV, hopper::desc_k_step(dPt0, kk, 0),
+                                     hopper::desc_mn_step(dOm, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      hopper::wgmma_m64n128k16_ss<1>(dK, hopper::desc_k_step(dSt0, kk, 0),
+                                     hopper::desc_mn_step(dQm, kk), 1);
+    hopper::wgmma_commit();
+  };
+  if (mine < n_tiles) {
+    // the loop is peeled so that every pass issues and waits for the same
+    // groups: its exponentials run under the previous tile's dV/dK group
+    scores(mine);
+    hopper::wgmma_wait<0>();
+    for (int it = mine; it < n_tiles - 1; ++it) {
+      probs(it);
+      scores(it + 1);
+      grads(it);
+      hopper::wgmma_wait<1>();  // tile it + 1's scores; tile it's dV/dK group runs on
+    }
+    probs(n_tiles - 1);
+    grads(n_tiles - 1);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dV);
+    hopper::fence_regs(dK);
+    hopper::mbar_arrive(&empty[(n_tiles - 1 - first) % STAGES]);
+  }
+
+  const float k_mul[2] = {scale, scale}, v_mul[2] = {1.0f, 1.0f};
+  store_rows<D>(dk, dK, k_mul, key0, T);
+  store_rows<D>(dv, dV, v_mul, key0, T);
+}
+
+// One block per (b*h, 128-key tile), laid out by bwd_grid; key tiles count
+// from the first (the most query tiles) up. Warpgroup 0 loads K and V once,
+// then its warp 0 streams the Q and dO tiles from the diagonal to T by TMA
+// while its warp 1 stages each tile's lse (times log2(e)) and di rows;
+// warpgroups 1 and 2 each own 64 keys and hold their dK and dV in
+// registers. At head_dim 64 a consumer runs each tile in series with P^T
+// and dS^T as register A fragments; at 128, dkv_consume_overlapped.
 template <int D>
 __global__ void __launch_bounds__(HOPPER_THREADS, 1)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -308,7 +502,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
                      float scale_log2) {
   static_assert(D == 64 || D == 128, "head_dim 64 or 128");
   using L = DkvSmem<D>;
-  constexpr int BQ = L::BQ;
+  constexpr int BQ = L::BQ, STAGES = L::STAGES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hopper::align_1024(smem_raw);
   bf16* sK = reinterpret_cast<bf16*>(smem + L::K);
@@ -321,8 +515,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + STAGES;
 
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.y * DKV_BN;
+  const int bh = grid_bh<D>(), b = bh / H, h = bh % H;
+  const int k0 = grid_tile<D>() * DKV_BN;
   const int first = k0 / BQ;              // the first query tile: the diagonal
   const int n_tiles = (T + BQ - 1) / BQ;  // query tiles first..n_tiles-1
   const int wg = threadIdx.x / WG_THREADS;
@@ -366,6 +560,12 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
         hopper::mbar_arrive(&full[s]);
       }
     }
+  } else if constexpr (D == 128) {
+    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    const long long base = (long long)bh * T * D;
+    dkv_consume_overlapped<D>(sK, sV, sQ, sdO, reinterpret_cast<bf16*>(smem + L::PT), sLse, sDi,
+                              kv_full, full, empty, dk + base, dv + base, first, n_tiles, k0, T,
+                              scale, scale_log2);
   } else {
     hopper::setmaxnreg_inc<CONSUMER_REGS>();
     const int t = threadIdx.x % WG_THREADS, lane = t % 32;
@@ -445,11 +645,14 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
 // 64 streamed with their V tiles. At 64 keys, S, dP, dQ and the dS fragments
 // of a tile fit the consumers' registers with no spill, and the first
 // consumer skips the upper half of the block's diagonal; 128-key tiles spill.
+// At head_dim 128 the ring has three stages, and a consumer runs a tile's
+// exponentials under the previous tile's dQ product (dq_consume_overlapped).
 constexpr int DQ_BM = 128;
 constexpr int DQ_BN = 64;
 
 template <int D>
 struct DqSmem {
+  static constexpr int STAGES = D == 64 ? 2 : 3;
   static constexpr int TILE = DQ_BN * D * 2;
   static constexpr int Q = 0;
   static constexpr int DO = Q + DQ_BM * D * 2;
@@ -470,11 +673,139 @@ __device__ __forceinline__ void issue_scores(float (&d)[32], const bf16* a, cons
                                   hopper::desc_k_major(b, kk, block_bytes(DQ_BN)), kk > 0);
 }
 
-// One block per (b*h, 128-query tile); blockIdx.y counts tiles from the last
-// (the most key tiles) down, so the longest start first. Warpgroup 0 loads
-// Q and dO once and streams the K and V tiles from 0 to the diagonal into
-// the ring; warpgroups 1 and 2 each own 64 query rows and hold their dQ,
-// and their rows' lse * log2(e) and di, in registers.
+// P = exp2(s * scale * log2(e) - lse * log2(e)) and dS = P (dP - di) in
+// place of dP for the head_dim 128 consumer, branch-free: exp2_ftz, and the
+// causal mask where `diag` as a select (key column c kept where c <= row -
+// k0, row r of the block's tile).
+__device__ __forceinline__ void dq_softmax_grad_ftz(const float (&S)[32], float (&dP)[32],
+                                                    const float (&lse2)[2], const float (&dii)[2],
+                                                    bool diag, int k0, int q0, int r, int lane,
+                                                    float scale_log2) {
+  const int last[2] = {diag ? q0 + r - k0 : DQ_BN, diag ? q0 + r + 8 - k0 : DQ_BN};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int c = 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+    const int hr = (i / 2) % 2;
+    const float p = hopper::exp2_ftz(S[i] * scale_log2 - lse2[hr]);
+    dP[i] = c <= last[hr] ? p * (dP[i] - dii[hr]) : 0.0f;
+  }
+}
+
+// S = Q K^T and dP = dO V^T of a key tile (m64n64k16, 8 k-steps), issued as
+// one wgmma group: dq, do the first k-step descriptors of the consumer's Q
+// and dO rows, dk, dv those of the tile's stage.
+template <int D>
+__device__ __forceinline__ void issue_dq_scores(float (&S)[32], float (&dP)[32], uint64_t dq,
+                                                uint64_t dout, uint64_t dk, uint64_t dv) {
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    hopper::wgmma_m64n64k16_ss<0>(S, hopper::desc_k_step(dq, kk, block_bytes(DQ_BM)),
+                                  hopper::desc_k_step(dk, kk, block_bytes(DQ_BN)), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    hopper::wgmma_m64n64k16_ss<0>(dP, hopper::desc_k_step(dout, kk, block_bytes(DQ_BM)),
+                                  hopper::desc_k_step(dv, kk, block_bytes(DQ_BN)), kk > 0);
+  hopper::wgmma_commit();
+}
+
+// The head_dim 128 consumer of flash_bwd_dq_kernel: 64 query rows, dQ (64
+// floats a thread) in registers over key tiles 0..n_mine-1, in
+// FlashAttention-3's order: with tile j's dS already bf16 A fragments and
+// no wgmma in flight, issue tile j + 1's S and dP, then dQ += dS K for tile
+// j; wait for the scores alone (wgmma groups complete in order), and run
+// tile j + 1's exponentials while dQ's group runs; then wait for it and
+// repack. So the fragments and every other wgmma input are written only
+// while no group is in flight, and one S/dP register set serves every tile.
+// Key tiles n_mine..n_kv-1, wholly above these rows' diagonal, are released
+// unread. The warpgroup index comes through a shuffle, so the compiler
+// knows it (and every descriptor) to be uniform in the warp.
+template <int D>
+__device__ __forceinline__ void dq_consume_overlapped(
+    const bf16* sQ, const bf16* sdO, const bf16* sK, const bf16* sV, uint64_t* qdo_full,
+    uint64_t* full, uint64_t* empty, const float* lse, const float* di, bf16* dq, int n_kv,
+    int q0, int T, float scale, float scale_log2) {
+  constexpr int STAGES = DqSmem<D>::STAGES;
+  constexpr uint32_t TILE = DqSmem<D>::TILE;
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / WG_THREADS, 0);
+  const int t = threadIdx.x % WG_THREADS, lane = t % 32;
+  const int row0 = 64 * (wg - 1);                 // this warpgroup's first row in the tile
+  const int r = row0 + 16 * (t / 32) + lane / 4;  // rows r and r + 8 of the tile
+  const int qa = q0 + row0;                       // this warpgroup's first query
+  const uint64_t dQd = hopper::desc_k_major(sQ + row0 * hopper::SW_COLS, 0, 0);
+  const uint64_t dOd = hopper::desc_k_major(sdO + row0 * hopper::SW_COLS, 0, 0);
+  const uint64_t dKk = hopper::desc_k_major(sK, 0, 0), dVk = hopper::desc_k_major(sV, 0, 0);
+  const uint64_t dKm = hopper::desc_mn_major(sK, 0, mn_lbo<D>(DQ_BN));
+
+  float lse2[2], dii[2];  // rows past T: zeros (their Q and dO rows are zeros, never written)
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int qi = q0 + r + 8 * hr;
+    lse2[hr] = qi < T ? lse[qi] * LOG2E : 0.0f;
+    dii[hr] = qi < T ? di[qi] : 0.0f;
+  }
+  const int n_mine = qa >= T ? 0 : min(n_kv, qa / DQ_BN + 1);  // up to the diagonal
+  float dQ[D / 2], S[32], dP[32];
+  uint32_t dsa[DQ_BN / 16][4];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dQ[i] = 0.0f;
+  hopper::mbar_wait_spin(qdo_full, 0);
+
+  auto scores = [&](int j) {  // issue key tile j's S and dP
+    const int s = j % STAGES;
+    hopper::mbar_wait_spin(&full[s], (j / STAGES) & 1);
+    issue_dq_scores<D>(S, dP, dQd, dOd, hopper::desc_advance(dKk, s * TILE),
+                       hopper::desc_advance(dVk, s * TILE));
+  };
+  auto grad_ds = [&](int j) {  // dS of key tile j from its finished scores
+    hopper::fence_regs(S);
+    hopper::fence_regs(dP);
+    const int k0 = j * DQ_BN;
+    dq_softmax_grad_ftz(S, dP, lse2, dii, k0 + DQ_BN - 1 > qa, k0, q0, r, lane, scale_log2);
+  };
+  auto grad_q = [&](int j) {  // issue dQ += dS K of key tile j
+    const uint64_t km = hopper::desc_advance(dKm, (j % STAGES) * TILE);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DQ_BN / 16; ++kk)
+      hopper::wgmma_rs_mn<D>(dQ, dsa[kk], hopper::desc_mn_step(km, kk));
+    hopper::wgmma_commit();
+  };
+  if (n_mine > 0) {
+    // peeled, so that every pass issues and waits for the same groups
+    scores(0);
+    hopper::wgmma_wait<0>();
+    grad_ds(0);
+    hopper::a_fragments(dP, dsa);
+    for (int j = 0; j < n_mine - 1; ++j) {
+      scores(j + 1);
+      grad_q(j);
+      hopper::wgmma_wait<1>();  // tile j + 1's scores; tile j's dQ group runs on
+      grad_ds(j + 1);
+      hopper::wgmma_wait<0>();
+      hopper::mbar_arrive(&empty[j % STAGES]);
+      hopper::a_fragments(dP, dsa);
+    }
+    grad_q(n_mine - 1);
+    hopper::wgmma_wait<0>();
+    hopper::mbar_arrive(&empty[(n_mine - 1) % STAGES]);
+  }
+  hopper::fence_regs(dQ);
+  for (int j = n_mine; j < n_kv; ++j) {
+    hopper::mbar_wait_spin(&full[j % STAGES], (j / STAGES) & 1);
+    hopper::mbar_arrive(&empty[j % STAGES]);
+  }
+  const float mul[2] = {scale, scale};
+  store_rows<D>(dq, dQ, mul, qa, T);
+}
+
+// One block per (b*h, 128-query tile), laid out by bwd_grid; tiles count
+// from the last (the most key tiles) down, so the longest start first.
+// Warpgroup 0 loads Q and dO once and streams the K and V tiles from 0 to
+// the diagonal into the ring; warpgroups 1 and 2 each own 64 query rows and
+// hold their dQ, and their rows' lse * log2(e) and di, in registers. At
+// head_dim 64 a consumer runs each key tile in series; at 128,
+// dq_consume_overlapped.
 template <int D>
 __global__ void __launch_bounds__(HOPPER_THREADS, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -483,6 +814,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
                     bf16* __restrict__ dq, int H, int T, float scale, float scale_log2) {
   static_assert(D == 64 || D == 128, "head_dim 64 or 128");
   using L = DqSmem<D>;
+  constexpr int STAGES = L::STAGES;
   constexpr int NS = DQ_BN / 2;  // accumulator floats of a 64 x DQ_BN tile per thread
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hopper::align_1024(smem_raw);
@@ -494,8 +826,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   uint64_t* full = qdo_full + 1;
   uint64_t* empty = full + STAGES;
 
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int tile = gridDim.y - 1 - blockIdx.y;
+  const int bh = grid_bh<D>(), b = bh / H, h = bh % H;
+  const int tile = grid_tiles<D>() - 1 - grid_tile<D>();
   const int q0 = tile * DQ_BM;
   // key tiles 0..n_kv-1: up to the block's last query, and none wholly past T
   const int n_kv = min((q0 + DQ_BM + DQ_BN - 1) / DQ_BN, (T + DQ_BN - 1) / DQ_BN);
@@ -525,6 +857,11 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
         hopper::tma_load_rows<D>(sV + s * DQ_BN * D, &tv, &full[s], DQ_BN, j * DQ_BN, h, b);
       }
     }
+  } else if constexpr (D == 128) {
+    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    dq_consume_overlapped<D>(sQ, sdO, sK, sV, qdo_full, full, empty, lse + (long long)bh * T,
+                             di + (long long)bh * T, dq + (long long)bh * T * D, n_kv, q0, T,
+                             scale, scale_log2);
   } else {
     hopper::setmaxnreg_inc<CONSUMER_REGS>();
     const int t = threadIdx.x % WG_THREADS, lane = t % 32;
@@ -638,7 +975,7 @@ cudaError_t launch_bwd_dkv(const void* q, const void* k, const void* v, const vo
   err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (T + DKV_BN - 1) / DKV_BN);
+  const dim3 grid = bwd_grid<D>(B * H, (T + DKV_BN - 1) / DKV_BN);
   flash_bwd_dkv_kernel<D><<<grid, HOPPER_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
       static_cast<const float*>(di), static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, T, scale,
@@ -663,7 +1000,7 @@ cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const voi
   err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (T + DQ_BM - 1) / DQ_BM);
+  const dim3 grid = bwd_grid<D>(B * H, (T + DQ_BM - 1) / DQ_BM);
   flash_bwd_dq_kernel<D><<<grid, HOPPER_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
       static_cast<const float*>(di), static_cast<bf16*>(dq), H, T, scale, scale * LOG2E);
@@ -702,6 +1039,18 @@ extern "C" {
 
 const char* flash_attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The backward kernels' tiles at head_dim 64 or 128, into out[4]: dK/dV's
+// keys per block and query tile, dQ's queries per block and key tile;
+// returns -1 for another head_dim.
+int flash_attention_bwd_tiles(int head_dim, int* out) {
+  if (head_dim != 64 && head_dim != 128) return -1;
+  out[0] = DKV_BN;
+  out[1] = head_dim == 64 ? DkvSmem<64>::BQ : DkvSmem<128>::BQ;
+  out[2] = DQ_BM;
+  out[3] = DQ_BN;
+  return 0;
 }
 
 FLASH_ENTRIES(64)

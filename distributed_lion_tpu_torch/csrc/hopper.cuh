@@ -7,7 +7,9 @@
 // - mbarrier: init, arrive, arrive-expect-tx, and a parity wait.
 // - wgmma: the shared-memory matrix descriptor of a 128-byte-swizzled tile,
 //   fence / commit / wait, and m64n{16,64,128}k16 bf16 products with
-//   float32 sums, with A from shared memory or from registers.
+//   float32 sums, with A from shared memory or from registers; an
+//   accumulator stored by the threads as such a tile (store_sw128_tile) for
+//   a later product to read, behind the proxy fence and a named barrier.
 // - setmaxnreg: register hand-over between a producer warpgroup and its
 //   consumers.
 //
@@ -147,6 +149,17 @@ __device__ __forceinline__ bool mbar_try_wait(uint32_t addr, uint32_t parity) {
   return done != 0;
 }
 
+// mbar_wait without the time limit: for consumer warpgroups whose registers
+// the accumulators need. ptxas (CUDA 12.9) holds a kernel whose such
+// consumers carry the trap path to the launch bound's 168 registers, their
+// setmaxnreg budget unused; the producer's waits keep the limit, so a
+// consumer that never arrives still ends the launch there.
+__device__ __forceinline__ void mbar_wait_spin(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  while (!mbar_try_wait(addr, parity)) {
+  }
+}
+
 // Waits until the barrier's phase of parity `parity` has completed (a
 // barrier starts in phase 0; waiting on parity 1 first passes at once). A
 // wait longer than WAIT_LIMIT_NS traps, so a wrong parity fails the launch
@@ -220,6 +233,42 @@ __device__ __forceinline__ uint64_t desc_mn_major(const void* tile, int kk,
   return desc_sw128(smem_addr(tile) + 2048 * kk, block_bytes, SW128_ATOM_BYTES);
 }
 
+// Makes this thread's shared-memory stores visible to the async proxy, so
+// that a wgmma issued after a barrier reads them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier `id` (1 to 15; 0 is __syncthreads) over `count` threads.
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// The descriptor `bytes` further along its tile than `desc` (a later k-step,
+// column block or ring stage): the start address field counts 16-byte units
+// and no shared address carries out of it.
+__device__ __forceinline__ uint64_t desc_advance(uint64_t desc, uint32_t bytes) {
+  return desc + (bytes >> 4);
+}
+
+// desc_advance to k-step kk of a K-major tile (see desc_k_major).
+__device__ __forceinline__ uint64_t desc_k_step(uint64_t desc, int kk, uint32_t block_bytes) {
+  return desc_advance(desc, (kk / 4) * block_bytes + 32 * (kk % 4));
+}
+
+// desc_advance to k-step kk of an MN-major tile (see desc_mn_major).
+__device__ __forceinline__ uint64_t desc_mn_step(uint64_t desc, int kk) {
+  return desc_advance(desc, 2048 * kk);
+}
+
+// 2^x by the multi-function unit alone (ex2.approx.ftz: results below 2^-126
+// are 0, where exp2f takes a slower path to keep them as denormals).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // Orders register and shared-memory accesses before the next wgmma.
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -261,6 +310,29 @@ __device__ __forceinline__ void a_fragments(const float (&d)[N], uint32_t (&a)[N
   for (int kk = 0; kk < N / 8; ++kk) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16x2(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+  }
+}
+
+__device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// Stores an m64n64 accumulator, rounded to bf16, as a 64 x 64 tile in the
+// TMA layout (128-byte rows, chunk c of row r at chunk c ^ (r % 8); tile on
+// a 1024-byte boundary), so a following wgmma reads it K-major as its A
+// operand (desc_k_major). Thread t's column pair 8j + 2(l % 4) is 4 bytes
+// of chunk j, stored at chunk j ^ (l / 4) of its rows (r % 8 = l / 4): the
+// address of chunk l / 4 XOR 16 j. The 8 rows a warp writes at once cover
+// the 32 banks once. The caller fences (fence_proxy_async) and synchronizes
+// the warpgroup before the wgmma.
+__device__ __forceinline__ void store_sw128_tile(void* tile, const float (&d)[32]) {
+  const int t = threadIdx.x % 128, l = t % 32;
+  const uint32_t row = smem_addr(tile) + (16 * (t / 32) + l / 4) * 128 + 16 * (l / 4) + 4 * (l % 4);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const uint32_t a = row ^ (16 * j);
+    st_shared_b32(a, pack_bf16x2(d[4 * j], d[4 * j + 1]));             // row r
+    st_shared_b32(a + 8 * 128, pack_bf16x2(d[4 * j + 2], d[4 * j + 3]));  // row r + 8
   }
 }
 

@@ -26,6 +26,24 @@
 //                                      MN-major (dS.K)
 //   e7 [64, 128] = a[:, :64] . v[:64]  B MN-major from shared memory at N = 128
 //                                      with the caller's (LBO, SBO)
+//
+// The head_dim 128 backward forms (wgmma_probe_bwd128): a [64, 128] (a query
+// tile of Q or dO, 64 rows) and bk [128, 128] (a block's 128 keys), loaded
+// as above. Outputs (float32, row-major):
+//   f1 [64, 64]  = bk[64:] . a^T       m64n64k16, A the second 64 rows of the
+//                                      128-row tile, B the 64-row tile, both
+//                                      K-major across both column blocks
+//                                      (dK/dV's S^T = K Q^T, consumer 2)
+//   f2 [64, 128] = bf16(f1) . a        m64n128k16 with A and B from shared
+//                                      memory: A the threads' own bf16 store
+//                                      of f1 (hopper::store_sw128_tile, then
+//                                      the proxy fence and a named barrier),
+//                                      B the 64-row tile MN-major at N = 128
+//                                      (dV += P^T dO, dK += dS^T Q)
+//   f3 [64, 64]  = bk[:64] . a^T       issued as a group before a second
+//   f4 [64, 128] = bf16(f1) . a        group (f4's); wgmma_wait<1> completes
+//                                      f3's group alone, wait<0> f4's (the
+//                                      overlapped loop's two groups in flight)
 
 #include "hopper.cuh"
 
@@ -204,6 +222,73 @@ wgmma_probe128_kernel(const __grid_constant__ CUtensorMap ta,
 
 }
 
+// The head_dim 128 backward forms: see the file's head.
+__global__ void __launch_bounds__(128)
+wgmma_probe_bwd128_kernel(const __grid_constant__ CUtensorMap ta,
+                          const __grid_constant__ CUtensorMap tb, float* f1, float* f2,
+                          float* f3, float* f4) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  bf16* sA = reinterpret_cast<bf16*>(smem);      // [64][128]: 2 blocks of 64 x 128 bytes
+  bf16* sB = sA + 64 * 128;                      // [128][128]
+  bf16* sP = sB + 128 * 128;                     // [64][64], written by the threads
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sP + 64 * 64);
+  constexpr uint32_t A_BLOCK = 64 * 128, B_BLOCK = 128 * 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(bar, (64 + 128) * 128 * 2);
+    tma_load_rows<128>(sA, &ta, bar, 64, 0, 0, 0);
+    tma_load_rows<128>(sB, &tb, bar, 128, 0, 0, 0);
+  }
+  mbar_wait(bar, 0);
+
+  float d1[32], d3[32], d2[64];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_m64n64k16_ss<0>(d1, desc_k_major(sB + 64 * SW_COLS, kk, B_BLOCK),
+                          desc_k_major(sA, kk, A_BLOCK), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(d1);
+  store_acc<64>(f1, d1);
+
+  store_sw128_tile(sP, d1);
+  fence_proxy_async();
+  named_barrier_sync(1, 128);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_m64n128k16_ss<1>(d2, desc_k_major(sP, kk, 0), desc_mn_major(sA, kk, A_BLOCK), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(d2);
+  store_acc<128>(f2, d2);
+
+  // two groups in flight: the scores first, then the product from sP
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_m64n64k16_ss<0>(d3, desc_k_major(sB, kk, B_BLOCK), desc_k_major(sA, kk, A_BLOCK),
+                          kk > 0);
+  wgmma_commit();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_m64n128k16_ss<1>(d2, desc_k_major(sP, kk, 0), desc_mn_major(sA, kk, A_BLOCK), kk > 0);
+  wgmma_commit();
+  wgmma_wait<1>();
+  fence_regs(d3);
+  store_acc<64>(f3, d3);
+  wgmma_wait<0>();
+  fence_regs(d2);
+  store_acc<128>(f4, d2);
+}
+
 }  // namespace
 
 extern "C" {
@@ -252,6 +337,25 @@ int wgmma_probe128(const void* a, const void* bk, const void* v, void* e1, void*
                    static_cast<float*>(e7)};
   wgmma_probe128_kernel<<<1, 128, smem, static_cast<cudaStream_t>(stream)>>>(
       ta, tb, tv, out[0], out[1], out[2], out[3], out[4], out[5], out[6], mn_lbo, mn_sbo);
+  return cudaGetLastError();
+}
+
+// a, bk: contiguous bf16 [64, 128], [128, 128] on the current device; f1..f4
+// contiguous float32 outputs.
+int wgmma_probe_bwd128(const void* a, const void* bk, void* f1, void* f2, void* f3, void* f4,
+                       void* stream) {
+  CUtensorMap ta, tb;
+  cudaError_t err = encode_bhtd(&ta, a, 1, 1, 64, 128, 64 * 128, 64 * 128, 128, 64);
+  if (err == cudaSuccess)
+    err = encode_bhtd(&tb, bk, 1, 1, 128, 128, 128 * 128, 128 * 128, 128, 128);
+  if (err != cudaSuccess) return err;
+  const int smem = (64 + 128) * 128 * 2 + 64 * 64 * 2 + 8 + 1024;
+  err = cudaFuncSetAttribute(wgmma_probe_bwd128_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  wgmma_probe_bwd128_kernel<<<1, 128, smem, static_cast<cudaStream_t>(stream)>>>(
+      ta, tb, static_cast<float*>(f1), static_cast<float*>(f2), static_cast<float*>(f3),
+      static_cast<float*>(f4));
   return cudaGetLastError();
 }
 

@@ -78,6 +78,46 @@ def count_sass(sass: str, functions, opcodes) -> dict:
     return counts
 
 
+def sass_registers(sass: str, functions) -> dict:
+    """``{function: (registers, setmaxnreg values)}`` over the ``cuobjdump
+    -sass`` text of a library: the highest general register a function's
+    code names, counting each ``HGMMA``'s accumulator range from its first
+    register, plus one; and the register counts its ``USETMAXREG``
+    instructions set (a warp-specialized kernel launches with the count
+    ptxas reports, then hands registers between warpgroups)."""
+    out = {}
+    current = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = next((f for f in functions if f in line), None)
+            if current is not None:
+                out[current] = (0, [])
+            continue
+        if current is None:
+            continue
+        regs, sets = out[current]
+        for r in re.findall(r"\bR(\d+)\b", line):
+            regs = max(regs, int(r) + 1)
+        m = re.search(r"HGMMA\.64x(\d+)x16\.F32\S*\s+R(\d+)", line)
+        if m:
+            regs = max(regs, int(m.group(2)) + int(m.group(1)) // 2)
+        m = re.search(r"USETMAXREG\.\S+\s+(?:\w+,\s*)?(0x[0-9a-f]+)", line)
+        if m:
+            sets = sets + [int(m.group(1), 16)]
+        out[current] = (regs, sets)
+    return out
+
+
+def ptxas_serialized(log: str) -> dict:
+    """``{function: reason}`` for each function whose wgmma ptxas
+    serializes (a wait after every product) in the ``-Xptxas -v`` report of
+    a build, with the reason the report gives."""
+    return {m.group(2): m.group(1) for m in re.finditer(
+        r"wgmma\.mma_async instructions are serialized due to (.+?) (?:in|for) the function "
+        r"'([^']+)'",
+        log)}
+
+
 def ptxas_spills(log: str) -> dict:
     """``{function: (spill store bytes, spill load bytes)}`` from the
     ``-Xptxas -v`` report of a build."""
@@ -94,11 +134,10 @@ def ptxas_spills(log: str) -> dict:
     return spills
 
 
-def sass_counts(library: pathlib.Path, functions, opcodes) -> dict:
-    """:func:`count_sass` of a built library."""
-    proc = subprocess.run([find_cuobjdump(), "-sass", str(library)], capture_output=True,
-                          text=True, check=True)
-    return count_sass(proc.stdout, functions, opcodes)
+def sass_of(library: pathlib.Path) -> str:
+    """The ``cuobjdump -sass`` text of a built library."""
+    return subprocess.run([find_cuobjdump(), "-sass", str(library)], capture_output=True,
+                          text=True, check=True).stdout
 
 
 def library_path(source: pathlib.Path) -> pathlib.Path:

@@ -71,6 +71,8 @@ def _lib() -> ctypes.CDLL:
                 entry.restype = i
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
+        lib.flash_attention_bwd_tiles.argtypes = [i, ctypes.POINTER(i)]
+        lib.flash_attention_bwd_tiles.restype = i
         _LIB = lib
     return _LIB
 
@@ -120,8 +122,10 @@ def flash_attention_bwd_dq_plain(q, k, v, do, lse, di) -> torch.Tensor:
 
 
 def attention_di(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
-    """``di = Σ o·do`` over head_dim in float32 (jax ``flash_attention.py:273``)."""
-    return (o.to(torch.float32) * do.to(torch.float32)).sum(-1)
+    """``di = Σ o·do`` over head_dim in float32 (jax ``flash_attention.py:273``).
+    ``do`` is promoted inside the product, which is exact and saves a float32
+    copy of it."""
+    return (o.to(torch.float32) * do).sum(-1)
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do):
@@ -194,6 +198,16 @@ def _launch(fn: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA error {err} at launch "
                            f"({lib.flash_attention_error_string(err).decode()})")
+
+
+def bwd_tiles(head_dim: int) -> dict:
+    """The backward kernels' tiles at ``head_dim``, from the built library:
+    dK/dV's keys per block and query tile, dQ's queries per block and key
+    tile."""
+    out = (ctypes.c_int * 4)()
+    if _lib().flash_attention_bwd_tiles(head_dim, out) != 0:
+        raise ValueError(f"no backward kernels at head_dim {head_dim}")
+    return {"dkv_keys": out[0], "dkv_queries": out[1], "dq_queries": out[2], "dq_keys": out[3]}
 
 
 def _tail(q: torch.Tensor) -> tuple:

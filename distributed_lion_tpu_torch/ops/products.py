@@ -14,9 +14,18 @@ only on CUDA and has no autograd formula. :func:`matmul_f32` gives it one:
   float32.
 - backward: the float32 cotangent is rounded to the operands' dtype and the
   two transposed products run in that dtype with float32 accumulation, as
-  every other product of the model's backward does. The JAX package's
-  transposed products take the float32 cotangent; at float32 compute the
-  two agree.
+  every other product of the model's backward does.
+
+The JAX package's transposed products take the float32 cotangent, and what
+they do with it depends on the backend. The package sets no matmul
+precision, so on a TPU they run at DEFAULT precision, which computes
+float32 products in bfloat16 (``jax.lax.Precision``): the reference rounds
+the cotangent to bfloat16 there just as this backward does. Only XLA:CPU
+keeps it in float32. So on the CPU, at bfloat16 compute, the two differ by
+one bfloat16 rounding of the cotangent carried through the product, at most
+``2⁻⁸·Σ|g||b|`` an element, and agree to a bfloat16 ulp where the cotangent
+is bfloat16-exact; at float32 compute they agree to float32 summation order
+(``tests/test_torch_products.py``).
 """
 
 from __future__ import annotations

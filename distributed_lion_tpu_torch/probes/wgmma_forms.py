@@ -26,6 +26,20 @@ boxes of 64 columns (``hopper::tma_load_rows<128>``):
 - ``e7 = a[:, :64]·v[:64]``: B MN-major from shared memory at N = 128, once
   for each candidate (LBO, SBO), the first being hopper.cuh's.
 
+and the forms of the head_dim 128 backward kernels (``wgmma_probe_bwd128``),
+``a`` a 64-row query tile and ``bk`` a block's 128 keys:
+
+- ``f1 = bk[64:]·aᵀ``: ``m64n64k16`` across both column blocks, A the
+  second consumer's 64 rows of the 128-row tile, B the 64-row tile (dK/dV's
+  ``Sᵀ = K·Qᵀ``);
+- ``f2 = bf16(f1)·a``: ``m64n128k16`` with A and B from shared memory, A the
+  threads' own swizzled bf16 store of ``f1`` (``hopper::store_sw128_tile``,
+  the proxy fence, a named barrier), B the 64-row tile MN-major (``dV +=
+  Pᵀ·dO``, ``dK += dSᵀ·Q``);
+- ``f3 = bk[:64]·aᵀ`` and ``f4 = bf16(f1)·a`` issued as two groups in
+  flight: ``wgmma_wait<1>`` completes ``f3``'s alone (the overlapped loops'
+  order).
+
 Each is held to float64 products of the same bfloat16 operands within 1e-5
 of the largest magnitude (float32 sums of 16 to 128 terms). Prints one line
 per form and exits 1 if a form with hopper.cuh's constants disagrees.
@@ -53,6 +67,8 @@ def _lib():
     lib.wgmma_probe.restype = ctypes.c_int
     lib.wgmma_probe128.argtypes = [p] * 10 + [ctypes.c_uint, ctypes.c_uint, p]
     lib.wgmma_probe128.restype = ctypes.c_int
+    lib.wgmma_probe_bwd128.argtypes = [p] * 7
+    lib.wgmma_probe_bwd128.restype = ctypes.c_int
     lib.wgmma_probe_error_string.argtypes = [ctypes.c_int]
     lib.wgmma_probe_error_string.restype = ctypes.c_char_p
     return lib
@@ -94,6 +110,7 @@ def main() -> int:
             print(f"[wgmma] {name} MN (LBO, SBO) = ({lbo}, {sbo}): max err {e:.3e} of max "
                   f"|value| -> {'ok' if ok else 'WRONG'}", flush=True)
     bad |= _forms128(lib, gen)
+    bad |= _forms_bwd128(lib, gen)
     print(f"wgmma forms with hopper.cuh's descriptors: {'WRONG' if bad else 'all right'}",
           flush=True)
     return 1 if bad else 0
@@ -135,6 +152,34 @@ def _forms128(lib, gen) -> bool:
             bad |= i == 0 and not ok
             print(f"[wgmma] {name} MN (LBO, SBO) = ({lbo}, {sbo}): max err {err_:.3e} of max "
                   f"|value| -> {'ok' if ok else 'WRONG'}", flush=True)
+    return bad
+
+
+def _forms_bwd128(lib, gen) -> bool:
+    """The head_dim 128 backward forms; True if one disagrees."""
+    a = torch.randn(64, 128, generator=gen, device="cuda").bfloat16()
+    bk = torch.randn(128, 128, generator=gen, device="cuda").bfloat16()
+    ad, bd = a.double(), bk.double()
+    f = [torch.full(s, float("nan"), device="cuda") for s in ((64, 64), (64, 128), (64, 64),
+                                                               (64, 128))]
+    err = lib.wgmma_probe_bwd128(a.data_ptr(), bk.data_ptr(), *(t.data_ptr() for t in f),
+                                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wgmma_probe_bwd128: CUDA error {err} at launch "
+                           f"({lib.wgmma_probe_error_string(err).decode()})")
+    torch.cuda.synchronize()
+    f1, f2, f3, f4 = f
+    p = f1.bfloat16().double()
+    errs = {"f1 (hd128 K-major n64, A rows 64-127 of 128)": _err(f1, bd[64:] @ ad.T),
+            "f2 (A and B shared, A a thread-written tile, B MN-major n128)": _err(f2, p @ ad),
+            "f3 (first of two groups in flight, wait<1>)": _err(f3, bd[:64] @ ad.T),
+            "f4 (second of two groups in flight, wait<0>)": _err(f4, p @ ad)}
+    bad = False
+    for name, e in errs.items():
+        ok = e <= 1e-5
+        bad |= not ok
+        print(f"[wgmma] {name}: max err {e:.3e} of max |value| -> {'ok' if ok else 'WRONG'}",
+              flush=True)
     return bad
 
 

@@ -238,7 +238,12 @@ SASS = """
         /*0300*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
 """
 
-PTXAS = """
+SERIALIZED = ("ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions "
+              "are serialized due to non wgmma instructions defining accumulator registers of a "
+              "wgmma between start and end of the pipeline stage in the function '_Z3barPf'\n"
+              "ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async instructions "
+              "are serialized due to insufficient register resources for the function '_Z3bazPf'\n")
+PTXAS = SERIALIZED + """
 ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'
 ptxas info    : Function properties for _Z3fooPf
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
@@ -250,14 +255,57 @@ ptxas info    : Function properties for _Z3barPf
 
 def test_sass_and_spill_reports_are_read_per_kernel():
     """What ``chip_smoke.py`` checks in the built library: opcode lines per
-    kernel from ``cuobjdump -sass`` and spill bytes per kernel from the
-    ``-Xptxas -v`` report."""
+    kernel from ``cuobjdump -sass``, and spill bytes and serialized wgmma per
+    kernel from the ``-Xptxas -v`` report."""
     counts = cuda_build.count_sass(SASS, ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                                           "flash_bwd_dkv_kernel"), ("HGMMA", "UTMALDG", "HMMA"))
     assert counts == {"flash_fwd_kernel": {"HGMMA": 2, "UTMALDG": 2, "HMMA": 0},
                       "flash_bwd_dq_kernel": {"HGMMA": 0, "UTMALDG": 0, "HMMA": 1},
                       "flash_bwd_dkv_kernel": {"HGMMA": 0, "UTMALDG": 0, "HMMA": 0}}
     assert cuda_build.ptxas_spills(PTXAS) == {"_Z3fooPf": (0, 0), "_Z3barPf": (12, 4)}
+    assert cuda_build.ptxas_serialized(PTXAS) == {
+        "_Z3barPf": "non wgmma instructions defining accumulator registers of a wgmma between "
+                    "start and end of the pipeline stage",
+        "_Z3bazPf": "insufficient register resources"}
+
+
+SASS_REGS = """
+                Function : _ZN12_GLOBAL__N_120flash_bwd_dkv_kernelILi128EEEv14CUtensorMap_st
+        /*0500*/                   USETMAXREG.TRY_ALLOC.CTAPOOL UP0, 0xf0 ;
+        /*0600*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR16].tnspB, R24, gsb0 ;
+        /*0610*/                   HGMMA.64x64x16.F32.BF16 R200, gdesc[UR8], RZ, !UPT, gsb0 ;
+        /*0620*/                   FMUL R218, R3, R2 ;
+        /*0700*/                   USETMAXREG.DEALLOC.CTAPOOL 0x18 ;
+                Function : _ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi128EEEv14CUtensorMap_st
+        /*0100*/                   IMAD R7, R1, R2, RZ ;
+"""
+
+
+def test_sass_registers_count_accumulator_ranges_and_setmaxnreg():
+    """The registers ``chip_smoke.py`` prints for a kernel: the highest one
+    its code names, a wgmma's accumulator counted over its whole range (64
+    x 64: 32 registers from the one named), and the register counts its
+    ``setmaxnreg`` instructions hand out."""
+    regs = cuda_build.sass_registers(SASS_REGS, ("flash_bwd_dkv_kernelILi128E",
+                                                 "flash_bwd_dq_kernelILi128E"))
+    assert regs == {"flash_bwd_dkv_kernelILi128E": (232, [240, 24]),
+                    "flash_bwd_dq_kernelILi128E": (8, [])}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_di_is_the_float32_sum_of_float32_products(dtype):
+    """``di`` takes ``do`` as the model hands it (a transposed view) and
+    promotes it inside the product: the same bits as summing the product of
+    two float32 copies, and its inputs untouched."""
+    o_np, do_np = _inputs(40, seed=5)[:2]
+    o = torch.from_numpy(o_np).to(dtype)
+    do = torch.from_numpy(np.ascontiguousarray(do_np.transpose(0, 2, 1, 3))).to(dtype)
+    do = do.transpose(1, 2)
+    o0, do0 = o.clone(), do.clone()
+    di = fa.attention_di(o, do)
+    assert di.dtype == torch.float32 and di.shape == o.shape[:3]
+    assert torch.equal(di, (o.to(torch.float32) * do.to(torch.float32)).sum(-1))
+    assert torch.equal(o, o0) and torch.equal(do, do0)
 
 
 def test_gpt2_dropout0_flash_matches_jax_logits_and_grads():
