@@ -9,7 +9,8 @@ Phases (none of their failures is caught; any one fails the run):
    and ``csrc/vote_stats.cu``) are built with ``nvcc`` into ``build/cuda/``
    first, one ``nvcc`` per source, started together, and the compiler's
    per-kernel register and spill report is printed. No kernel may spill a
-   byte, and ``cuobjdump -sass`` of the flash library must show ``HGMMA``
+   byte (the ``di`` kernels, ``flash_di_kernel``, must be in the report),
+   and ``cuobjdump -sass`` of the flash library must show ``HGMMA``
    (wgmma), ``UTMALDG`` (TMA loads) and no ``HMMA`` (``mma.sync``, as
    ``nvcuda::wmma`` compiles) in each of the forward, dK/dV and dQ kernels,
    at head_dim 64 and at 128 (each instantiation checked on its own), and
@@ -27,7 +28,7 @@ Phases (none of their failures is caught; any one fails the run):
    and int32), of 3 (both) and of 300 (int32), and on windows that start
    at an odd byte offset of a larger buffer, with the tally lined up with
    the ballots and not. Outputs must be ``torch.equal``.
-3. Kernel phase, attention: the three flash kernels
+3. Kernel phase, attention: the three flash kernels and the ``di`` kernel
    (``ops/flash_attention.py``) at GPT-2's shape (B 8, H 12, T 1024,
    head_dim 64, bfloat16, q/k/v transposed views of one projection) and at
    a ragged T = 1000; at Llama-2-7B's (B 4, H 32, T 1024, head_dim 128, q
@@ -40,20 +41,24 @@ Phases (none of their failures is caught; any one fails the run):
    output X (o, lse, dq, dk, dv),
    ``max|X_kernel - X_f64| <= 2 * max|X_plain - X_f64| + slack``, where
    slack is half a bfloat16 ulp of ``max|X_f64|`` for the bfloat16 outputs
-   and four float32 ulps of it for the float32 ``lse``. The backward
-   kernels run twice: on the plain forward's o and lse (the plain
-   backward's inputs), and on the forward kernel's own o and lse, as
-   training chains them; both are held to the plain backward's error.
-   Each kernel called twice on the same inputs must give the same bits
-   (``torch.equal``). ``torch.nn.functional.scaled_dot_product_attention``
+   and four float32 ulps of it for the float32 ``lse``. ``di =
+   flash_attention_di(o, do)`` on the plain forward's o is held row by row
+   to the float64 sum of the same products: ``|di_kernel - di_f64| <= 2 *
+   |di_plain - di_f64| + D * 2**-24 * sum|o * do|`` in every row. The
+   backward kernels run twice: on the plain forward's o, lse and di (the
+   plain backward's inputs), and on the forward kernel's own o and lse with
+   the di kernel's di of them, as training chains them; both are held to
+   the plain backward's error. Each kernel called twice on the same inputs
+   must give the same bits (``torch.equal``). ``torch.nn.functional.scaled_dot_product_attention``
    is timed beside them as the library yardstick (the port never calls
    it): the forward, and the backward with a fresh graph for each timed
    call (its forward runs before the start event), each as median and
    minimum. Each kernel's TFLOP/s is its causal operations over its time;
-   each backward kernel's ``[kernel]`` line also names its tiles (from the
-   library) and registers. A ``[library]`` line per head_dim sets the port's
-   whole backward, ``attention_di`` + dK/dV + dQ timed as one call, beside
-   SDPA's backward. Both head dims are timed at their T 1024 shape. Then
+   each attention kernel's ``[kernel]`` line also names its tiles (from the
+   library), registers, and for the forward its ring stages and grid order.
+   A ``[library]`` line per head_dim sets the port's whole backward,
+   ``flash_attention_di`` + dK/dV + dQ timed as one call, beside SDPA's
+   backward. Both head dims are timed at their T 1024 shape. Then
    ``ops/quant.py``:
    ``quantize_nf4`` and ``dequantize`` of a [4096, 11008] weight on the card
    must equal the CPU's bit for bit.
@@ -66,9 +71,9 @@ Phases (none of their failures is caught; any one fails the run):
    this slice, ``--dropout 0 --telemetry``. Every kernel's launch counter
    is set to 0 just before each run and read just after. (a): finite
    losses, optimizer kernels steps x buckets, flash forward n_layer x eval
-   batches, no backward kernel. (b): finite losses; flash forward
-   n_layer x accum x 2 (remat) x steps + n_layer x eval batches; dK/dV and
-   dQ n_layer x accum x steps each; ``bucket_vote_stats`` and the optimizer
+   batches, no backward kernel and no ``di``. (b): finite losses; flash
+   forward n_layer x accum x 2 (remat) x steps + n_layer x eval batches;
+   ``di``, dK/dV and dQ n_layer x accum x steps each; ``bucket_vote_stats`` and the optimizer
    kernels steps x buckets; ``vote/hist_mass == 1`` and
    ``vote/disagree_frac == 0`` (a vote of one rank). After (b) the trained
    model's eval loss through flash must be finite and within 0.002 of its
@@ -79,8 +84,8 @@ Phases (none of their failures is caught; any one fails the run):
    259), an NF4 base, LoRA r 8 on wq/wv (4,194,304 trainable coordinates),
    ``--attn_impl flash``, B 4 x accumulation 2 x T 1024, 3 steps and the
    run's eval: finite losses; flash forward at head_dim 128 32 x 2 (remat)
-   x accum x steps + 32 x eval batches, dK/dV and dQ 32 x accum x steps,
-   no head_dim 64 launch; the optimizer kernels steps x buckets; the
+   x accum x steps + 32 x eval batches, ``di``, dK/dV and dQ 32 x accum x
+   steps, no head_dim 64 launch; the optimizer kernels steps x buckets; the
    frozen base equal (codes, absmax, norm scales) to a fresh init from the
    same seed; eval loss through flash within 0.002 of attention_xla's;
    step ms, tokens/s and peak device memory. After (c) and after (d),
@@ -105,7 +110,8 @@ work and not the host's launches. Bounds are
 the larger of bytes moved (each input read once, each output written once)
 over the card's data-sheet bandwidth and the operations done (causal
 products counted over the pairs k <= q only) over its data-sheet bfloat16
-tensor rate. The line before the last is the per-kernel JSON record (one
+tensor rate (for ``di``, its float32 multiply-adds over the float32 rate
+outside the tensor cores). The line before the last is the per-kernel JSON record (one
 entry per kernel instantiation: the head_dim 128 flash kernels carry the
 suffix ``_hd128``; launches of the optimizer and head_dim 64 kernels are
 run (b)'s, of the head_dim 128 kernels run (d)'s); the last line is
@@ -157,9 +163,10 @@ EVAL_TOL = 0.002    # |eval loss through flash - through attention_xla|, both ru
 RUNS = 25
 AHEAD_CYCLES = 50_000_000   # about 30 ms of the card's clock: the host queues the timed calls
 
-# data-sheet HBM bandwidth (bytes/s) and dense bfloat16 tensor rate (FLOP/s)
-CARDS = [("H200", 4.8e12, 989e12), ("H100 PCIe", 2.0e12, 756e12),
-         ("H100 NVL", 3.9e12, 835e12), ("H100", 3.35e12, 989e12)]
+# data-sheet HBM bandwidth (bytes/s), dense bfloat16 tensor rate and float32
+# rate outside the tensor cores (FLOP/s)
+CARDS = [("H200", 4.8e12, 989e12, 67e12), ("H100 PCIe", 2.0e12, 756e12, 51e12),
+         ("H100 NVL", 3.9e12, 835e12, 60e12), ("H100", 3.35e12, 989e12, 67e12)]
 
 CUDA_SOURCES = ("flash_attention", "vote_stats")   # csrc/<name>.cu
 # the kernels redesigned for Hopper (TMA ring, wgmma), each instantiation by
@@ -167,10 +174,12 @@ CUDA_SOURCES = ("flash_attention", "vote_stats")   # csrc/<name>.cu
 # nowhere
 HOPPER_KERNELS = tuple(f"flash_{k}_kernelILi{d}E" for d in (64, 128)
                        for k in ("fwd", "bwd_dkv", "bwd_dq"))
+DI_KERNELS = tuple(f"flash_di_kernelILi{d}E" for d in (64, 128))   # no wgmma, no TMA
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
 PROFILE_TOP = 10
 
-FLASH = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+FLASH = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+         "flash_attention_di")
 # one entry per kernel instantiation: the hd64 flash kernels keep their
 # names, the hd128 ones carry the suffix
 KERNELS = ("fused_ballots", "fused_apply", "bucket_vote_stats", *FLASH,
@@ -181,7 +190,8 @@ WRAPPERS = {"fused_ballots": fused_lion.fused_ballots, "fused_apply": fused_lion
             "bucket_vote_stats": fused_lion.bucket_vote_stats}
 FLASH_WRAPPERS = {"flash_attention_fwd": fa.flash_attention_fwd,
                   "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
-                  "flash_attention_bwd_dq": fa.flash_attention_bwd_dq}
+                  "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                  "flash_attention_di": fa.flash_attention_di}
 ROUTES = {
     "fused_ballots": ("triton", "distributed_lion_tpu_torch/ops/fused_lion.py",
                       "distributed_lion_tpu/ops/pallas_lion.py:84"),
@@ -195,6 +205,9 @@ ROUTES = {
                                 "jax/experimental/pallas/ops/tpu/flash_attention.py:941"),
     "flash_attention_bwd_dq": ("cuda", "distributed_lion_tpu_torch/csrc/flash_attention.cu",
                                "jax/experimental/pallas/ops/tpu/flash_attention.py:1287"),
+    "flash_attention_di": ("cuda", "distributed_lion_tpu_torch/csrc/flash_attention.cu",
+                           "jax/experimental/pallas/ops/tpu/flash_attention.py:273 "
+                           "(di in jnp between the pallas_calls, not a pallas_call)"),
 }
 ROUTES.update({f"{k}_hd128": ROUTES[k] for k in FLASH})
 
@@ -215,10 +228,11 @@ def read_counts() -> dict:
     return counts
 
 
-def card_rates(name: str) -> tuple[float, float]:
-    for key, bw, flops in CARDS:
+def card_rates(name: str) -> tuple[float, float, float]:
+    """(bytes/s, bfloat16 tensor FLOP/s, float32 FLOP/s) of the card."""
+    for key, *rates in CARDS:
         if all(part in name for part in key.split()):
-            return bw, flops
+            return tuple(rates)
     raise RuntimeError(f"no data-sheet rates known for {name!r}")
 
 
@@ -259,9 +273,11 @@ def time_fresh_ms(setup, fn, runs=RUNS) -> tuple[float, float]:
     return statistics.median(ms), min(ms)
 
 
-def bound(nbytes: float, flops: float, rates) -> tuple[float, str]:
-    """(least ms, what bounds it) for ``nbytes`` moved and ``flops`` done."""
-    bw, peak = rates
+def bound(nbytes: float, flops: float, rates, tensor: bool = True) -> tuple[float, str]:
+    """(least ms, what bounds it) for ``nbytes`` moved and ``flops`` done,
+    bfloat16 on the tensor cores or, with ``tensor=False``, float32 outside
+    them."""
+    bw, peak = rates[0], rates[1] if tensor else rates[2]
     t_bytes, t_ops = 1e3 * nbytes / bw, 1e3 * flops / peak
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -293,7 +309,7 @@ def build_cuda_kernels() -> dict:
     if serialized:
         raise AssertionError(f"ptxas serializes the wgmma of {serialized}")
     spills = cuda_build.ptxas_spills(log)
-    for kernel in HOPPER_KERNELS:
+    for kernel in HOPPER_KERNELS + DI_KERNELS:
         if len([name for name in spills if kernel in name]) != 1:
             raise AssertionError(f"{kernel}: not one entry in the ptxas report {list(spills)}")
     sass = cuda_build.sass_of(flash)
@@ -493,18 +509,45 @@ def flash_check(tag, name, got, plain, want) -> float:
     return vs_plain
 
 
+def di_check(tag, got, plain, o, do) -> float:
+    """Hold ``di`` to the float64 sum of the same products, row by row:
+    ``|got - f64| <= 2 |plain - f64| + D 2**-24 sum|o do|`` (the plain
+    version's error, and the bound of a float32 sum of D terms in any
+    order); returns its max difference from the plain version."""
+    prod = o.double() * do.double()
+    want, mag = prod.sum(-1), prod.abs().sum(-1)
+    del prod
+    if (got.dtype != torch.float32 or got.shape != want.shape or not got.is_contiguous()
+            or not torch.isfinite(got).all()):
+        raise AssertionError(f"flash di at {tag}: {got.dtype} {tuple(got.shape)}, contiguous "
+                             f"{got.is_contiguous()}, or non-finite values")
+    e_k, e_p = (got.double() - want).abs(), (plain.double() - want).abs()
+    limit = 2 * e_p + o.shape[-1] * 2.0 ** -24 * mag
+    over = int((e_k > limit).sum())
+    vs_plain = (got - plain).abs().max().item()
+    print(f"[flash] {tag} di: kernel err {e_k.max().item():.3e}, plain err "
+          f"{e_p.max().item():.3e}, worst kernel err / row limit "
+          f"{(e_k / limit.clamp_min(1e-300)).max().item():.3f} (max |value| "
+          f"{want.abs().max().item():.3f}); kernel vs plain {vs_plain:.3e}", flush=True)
+    if over:
+        raise AssertionError(f"flash di at {tag}: {over} rows exceed 2 x plain + D 2^-24 "
+                             "sum|o do| against float64")
+    return vs_plain
+
+
 def flash_kernel_phase(gen, rates, regs, D, B_main, H_main, T_main, T_more, views):
-    """Check the three flash kernels of head_dim D at every shape, with q,
-    k, v in the model's layout (``views``: see flash_inputs); time them at
-    the main one, and the port's whole backward (``attention_di``, dK/dV
-    and dQ) beside SDPA's. ``regs``: :func:`cuda_build.sass_registers` of
-    the kernels. Records are named as in KERNELS."""
+    """Check the flash kernels of head_dim D (forward, di, dK/dV, dQ) at
+    every shape, with q, k, v in the model's layout (``views``: see
+    flash_inputs); time them at the main one, and the port's whole backward
+    (``flash_attention_di``, dK/dV and dQ) beside SDPA's. ``regs``:
+    :func:`cuda_build.sass_registers` of the Hopper kernels. Records are
+    named as in KERNELS."""
     suffix = "" if D == 64 else f"_hd{D}"
     rec = {}
     err = {k + suffix: 0.0 for k in FLASH}
     owner = {"o": "flash_attention_fwd", "lse": "flash_attention_fwd",
              "dk": "flash_attention_bwd_dkv", "dv": "flash_attention_bwd_dkv",
-             "dq": "flash_attention_bwd_dq"}
+             "dq": "flash_attention_bwd_dq", "di": "flash_attention_di"}
     owner = {name: k + suffix for name, k in owner.items()}
     shapes = [(B_main, H_main, T) for T in (T_main, *T_more)] + list(FLASH_SMALL)
     for B, H, T in shapes:
@@ -524,24 +567,30 @@ def flash_kernel_phase(gen, rates, regs, D, B_main, H_main, T_main, T_more, view
         for name, want in ref.items():
             err[owner[name]] = max(err[owner[name]],
                                    flash_check(tag, name, kern[name], plain[name], want))
-        # the backward kernels on the forward kernel's own o and lse
-        di_k = fa.attention_di(o, do)
+        # the di kernel on the plain forward's o, against the float64 sum
+        di_kern = fa.flash_attention_di(op, do)
+        err[owner["di"]] = max(err[owner["di"]], di_check(tag, di_kern, di, op, do))
+        # the forward kernel's own o and lse, the di kernel's di of them,
+        # and the backward kernels on those, as training chains them
+        di_k = fa.flash_attention_di(o, do)
         dk_k, dv_k = fa.flash_attention_bwd_dkv(q, k, v, do, lse, di_k)
         dq_k = fa.flash_attention_bwd_dq(q, k, v, do, lse, di_k)
         for name, got in (("dq", dq_k), ("dk", dk_k), ("dv", dv_k)):
-            flash_check(tag, f"{name} (after the forward kernel)", got, plain[name], ref[name])
+            flash_check(tag, f"{name} (after the forward and di kernels)", got, plain[name],
+                        ref[name])
         # the same inputs again: the same bits
         o2, lse2 = fa.flash_attention_fwd(q, k, v)
+        di2 = fa.flash_attention_di(op, do)
         dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lp, di)
         dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lp, di)
         torch.cuda.synchronize()
-        again = {"o": (o, o2), "lse": (lse, lse2), "dk": (dk, dk2), "dv": (dv, dv2),
-                 "dq": (dq, dq2)}
+        again = {"o": (o, o2), "lse": (lse, lse2), "di": (di_kern, di2), "dk": (dk, dk2),
+                 "dv": (dv, dv2), "dq": (dq, dq2)}
         differ = [name for name, (a, b) in again.items() if not torch.equal(a, b)]
         if differ:
             raise AssertionError(f"flash at {tag}: a second call differs in {differ}")
         print(f"[flash] {tag}: a second call gives the same bits in {list(again)}", flush=True)
-        del ref, kern, plain, di_k, dk_k, dv_k, dq_k, again, o2, lse2, dk2, dv2, dq2
+        del ref, kern, plain, di_kern, di_k, dk_k, dv_k, dq_k, again, o2, lse2, di2, dk2, dv2, dq2
         if (B, H, T) != shapes[0]:
             del q, k, v, do, o, lse, op, lp, di, dk, dv, dq, dkp, dvp, dqp
             torch.cuda.empty_cache()
@@ -562,6 +611,10 @@ def flash_kernel_phase(gen, rates, regs, D, B_main, H_main, T_main, T_more, view
                 lambda: fa.flash_attention_bwd_dq(q, k, v, do, lp, di),
                 lambda: fa.flash_attention_bwd_dq_plain(q, k, v, do, lp, di),
                 5 * elem + 2 * row, 3 * 2 * D * pairs),
+            # float32 multiply-adds outside the tensor cores: 2 D a row
+            "flash_attention_di" + suffix: (
+                lambda: fa.flash_attention_di(o, do), lambda: fa.attention_di(o, do),
+                2 * elem + row, 2 * D * B * H * T),
         }
         ql, kl, vl = (x.detach().clone().requires_grad_() for x in (q, k, v))
         lib_fwd, lib_fwd_min = time_fresh_ms(
@@ -575,37 +628,44 @@ def flash_kernel_phase(gen, rates, regs, D, B_main, H_main, T_main, T_more, view
               f"forward {lib_fwd:.4f} ms (min {lib_fwd_min:.4f}), backward {lib_bwd:.4f} ms "
               f"(min {lib_bwd_min:.4f}; a fresh graph per call), forward + backward "
               f"{lib_both:.4f} ms", flush=True)
-        tiles = fa.bwd_tiles(D)
-        shape = {"flash_attention_bwd_dkv": f"{tiles['dkv_keys']} keys a block, query tiles of "
-                                           f"{tiles['dkv_queries']}",
+        tiles = fa.tiles(D)
+        grid = "tile-major" if tiles["tile_major"] else "head-major"
+        shape = {"flash_attention_fwd": f"{tiles['fwd_queries']} queries a block, key tiles of "
+                                       f"{tiles['fwd_keys']}, K and V each in a ring of "
+                                       f"{tiles['fwd_stages']} stages, blocks in groups of up to "
+                                       f"{tiles['fwd_head_group']} heads, longest tiles first",
+                 "flash_attention_bwd_dkv": f"{tiles['dkv_keys']} keys a block, query tiles of "
+                                           f"{tiles['dkv_queries']}, {grid} grid",
                  "flash_attention_bwd_dq": f"{tiles['dq_queries']} queries a block, key tiles of "
-                                          f"{tiles['dq_keys']}"}
+                                          f"{tiles['dq_keys']}, {grid} grid"}
         for name, (kern_fn, plain_fn, nbytes, flops) in cases.items():
             ms, plain_ms = time_ms(kern_fn), time_ms(plain_fn)
-            bms, by = bound(nbytes, flops, rates)
-            library = lib_fwd if name.startswith("flash_attention_fwd") else lib_bwd
             base = name.removesuffix(suffix)
-            extra = ""
+            bms, by = bound(nbytes, flops, rates, tensor=base != "flash_attention_di")
+            library = {"flash_attention_fwd": lib_fwd,
+                       "flash_attention_di": None}.get(base, lib_bwd)
+            extra = f"library {library:.4f} ms" if library is not None else "no library call"
             if base in shape:
                 used, sets = regs[f"flash_{base.removeprefix('flash_attention_')}_kernelILi{D}E"]
-                extra = (f"; {shape[base]}; registers: {used} used, setmaxnreg {sets} "
-                         "(consumers, producer)")
+                extra += (f"; {shape[base]}; registers: {used} used, setmaxnreg {sets} "
+                          "(consumers, producer)")
             print(f"[kernel] {name} B{B} H{H} T{T} hd{D}: {ms:.4f} ms, "
-                  f"{flops / ms / 1e9:.1f} TFLOP/s (bound {bms:.4f} ms by {by}: "
-                  f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; plain {plain_ms:.4f} ms; "
-                  f"library {library:.4f} ms{extra})", flush=True)
+                  f"{flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.0f} GB/s (bound "
+                  f"{bms:.4f} ms by {by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; plain "
+                  f"{plain_ms:.4f} ms; {extra})", flush=True)
             rec[name] = (ms, plain_ms, bms, by, library)
 
         def whole_backward():
-            di_w = fa.attention_di(o, do)
+            di_w = fa.flash_attention_di(o, do)
             fa.flash_attention_bwd_dkv(q, k, v, do, lse, di_w)
             fa.flash_attention_bwd_dq(q, k, v, do, lse, di_w)
 
-        whole, di_ms = time_ms(whole_backward), time_ms(lambda: fa.attention_di(o, do))
-        print(f"[library] backward B{B} H{H} T{T} hd{D}: the port's attention_di + dK/dV + dQ "
-              f"{whole:.4f} ms (attention_di alone {di_ms:.4f} ms), "
-              f"scaled_dot_product_attention's backward {lib_bwd:.4f} ms: "
-              f"{whole / lib_bwd:.3f} x", flush=True)
+        whole = time_ms(whole_backward)
+        di_ms, di_plain_ms = rec["flash_attention_di" + suffix][:2]
+        print(f"[library] backward B{B} H{H} T{T} hd{D}: the port's flash_attention_di + dK/dV + "
+              f"dQ {whole:.4f} ms (flash_attention_di alone {di_ms:.4f} ms; its plain version "
+              f"attention_di {di_plain_ms:.4f} ms), scaled_dot_product_attention's backward "
+              f"{lib_bwd:.4f} ms: {whole / lib_bwd:.3f} x", flush=True)
         del ql, kl, vl, q, k, v, do, o, lse, op, lp, di, dk, dv, dq, dkp, dvp, dqp
         torch.cuda.empty_cache()
     return rec, err
@@ -830,7 +890,8 @@ def llama_run(gen):
         "fused_ballots": STEPS * buckets, "fused_apply": STEPS * buckets, "bucket_vote_stats": 0,
         "flash_attention_fwd_hd128": LLAMA_LAYERS * (ACCUM * 2 * STEPS + eval_batches),
         "flash_attention_bwd_dkv_hd128": LLAMA_LAYERS * ACCUM * STEPS,
-        "flash_attention_bwd_dq_hd128": LLAMA_LAYERS * ACCUM * STEPS, **NO_HD64})
+        "flash_attention_bwd_dq_hd128": LLAMA_LAYERS * ACCUM * STEPS,
+        "flash_attention_di_hd128": LLAMA_LAYERS * ACCUM * STEPS, **NO_HD64})
     # the frozen base: the same codes, absmax and norm scales as a fresh init
     fresh = dict(iter_paths(llama_init(model.cfg, seed=cfg.seed, device="cuda", quant="nf4")))
     trained = dict(iter_paths(model.params))
@@ -871,7 +932,8 @@ def slice_phase(tmp, gen):
         expect("default", base_launches, {
             "fused_ballots": STEPS * buckets, "fused_apply": STEPS * buckets,
             "bucket_vote_stats": 0, "flash_attention_fwd": N_LAYER * EVAL_BATCHES,
-            "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0, **NO_HD128})
+            "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0, "flash_attention_di": 0,
+            **NO_HD128})
         del base
         torch.cuda.empty_cache()
         trainer, rows, launches = run_counted(["--dropout", "0", "--telemetry"])
@@ -880,7 +942,8 @@ def slice_phase(tmp, gen):
             "bucket_vote_stats": STEPS * buckets,
             "flash_attention_fwd": N_LAYER * ACCUM * 2 * STEPS + N_LAYER * EVAL_BATCHES,
             "flash_attention_bwd_dkv": N_LAYER * ACCUM * STEPS,
-            "flash_attention_bwd_dq": N_LAYER * ACCUM * STEPS, **NO_HD128})
+            "flash_attention_bwd_dq": N_LAYER * ACCUM * STEPS,
+            "flash_attention_di": N_LAYER * ACCUM * STEPS, **NO_HD128})
         for r in rows:
             if r["vote/hist_mass"] != 1.0 or r["vote/disagree_frac"] != 0.0:
                 raise AssertionError(
@@ -927,8 +990,8 @@ def main():
     name = torch.cuda.get_device_name(0)
     rates = card_rates(name)
     print(f"[card] {name}: {torch.__version__}, CUDA {torch.version.cuda}, data-sheet "
-          f"bandwidth {rates[0] / 1e12:.2f} TB/s, bfloat16 {rates[1] / 1e12:.0f} TFLOP/s",
-          flush=True)
+          f"bandwidth {rates[0] / 1e12:.2f} TB/s, bfloat16 {rates[1] / 1e12:.0f} TFLOP/s, "
+          f"float32 {rates[2] / 1e12:.0f} TFLOP/s", flush=True)
     t = time.perf_counter()
     regs = build_cuda_kernels()
     t = phase_time("build", t)

@@ -1,4 +1,5 @@
-// Causal flash attention for NVIDIA Hopper: forward, dK/dV and dQ.
+// Causal flash attention for NVIDIA Hopper: forward, dK/dV, dQ, and the
+// backward's di = sum(o * do).
 //
 // Replaces jax's bundled Pallas TPU kernel that the JAX package reaches
 // through distributed_lion_tpu/ops/attention.py:70 (attention_flash):
@@ -6,20 +7,23 @@
 //     forward  pallas_call :758 in _flash_attention_impl :589
 //     dK/dV    pallas_call :1121 in _flash_attention_bwd_dkv :941
 //     dQ       pallas_call :1456 in _flash_attention_bwd_dq :1287
-// and di = sum(o * do) stays outside the kernels, as jax computes it (:273).
+// jax computes di in jnp between its pallas_calls (:273); here it is a
+// kernel of its own (flash_di_kernel), the one the backward kernels read.
 //
 // Layout: q, k, v and do are [B, H, T, D] bf16 tensors taken through their
 // batch, head and time strides (head_dim contiguous), so the model's
-// transposed views of its qkv projection need no copy. o, dq, dk, dv are
-// written contiguous [B, H, T, D] bf16; lse and di are contiguous [B, H, T]
-// float32. Scores are s = scale * q.k; lse = m + log(sum exp(s - m)).
+// transposed views of its qkv projection need no copy; di reads o the same
+// way. o, dq, dk, dv are written contiguous [B, H, T, D] bf16; lse and di
+// are contiguous [B, H, T] float32. Scores are s = scale * q.k; lse = m +
+// log(sum exp(s - m)).
 //
 // Bound: at GPT-2 124M's shape (B 8, H 12, T 1024, D 64) the forward moves
 // 50.7 MB and does 12.9 GFLOP of causal products, so on an H100 SXM it is
 // bytes-bound (0.015 ms) and the backward is operations-bound; the same holds
 // at Llama-2-7B's (B 4, H 32, T 1024, D 128): 134 MB and 34.4 GFLOP forward.
+// di is bytes-bound: it reads o and do once (67 MB at Llama-2-7B's shape).
 //
-// All three kernels (Hopper design, hopper.cuh): one block of three
+// The three attention kernels (Hopper design, hopper.cuh): one block of three
 // warpgroups. Warpgroup 0 is the producer: one thread issues TMA loads of
 // the tiles (128-byte swizzle, rows past T zero-filled) into a ring of
 // buffers, each with a full and an empty mbarrier, and the warpgroup gives
@@ -32,7 +36,11 @@
 //   domain; the row max and sum are shared by the 4 threads of a row by
 //   shuffles. o = O / l, lse = m + log(l) in natural log. P is the A operand
 //   of P.V from registers (the accumulator rounded to bf16 in its own
-//   layout), V read MN-major.
+//   layout), V read MN-major. A consumer follows FlashAttention-3's
+//   intra-warpgroup order (fwd_consume_overlapped): the next tile's S =
+//   Q.K^T is issued with this tile's P.V, and its softmax runs under P.V;
+//   K and V go through rings of their own, K a tile ahead, and the blocks
+//   go out in groups of 16 heads, longest tiles first.
 // - dK/dV: a block per 128 keys holds K and V in shared memory and streams
 //   query tiles of 64 (with their lse and di) from the diagonal to T;
 //   P^T = exp(s^T - lse) and dS^T = P^T (dP^T - di), then dV += P^T.dO and
@@ -49,17 +57,21 @@
 //   a key tile wholly above its rows' diagonal. At head_dim 64 each tile runs
 //   in series; at 128 the next tile's S/dP are issued with this tile's dQ
 //   product and their exponentials run under it (dq_consume_overlapped).
+// - di: D / 8 threads a row, 16 bytes of o and of do each, summed in a fixed
+//   order (flash_di_kernel).
 //
-// At head_dim 128 the backward kernels' loops are shaped for ptxas (CUDA
-// 12.9), which serializes every wgmma of a kernel (a wait after each) when
-// it cannot prove a register operand untouched while a group is in flight:
+// The forward's consumer, and the backward's at head_dim 128, are shaped for
+// ptxas (CUDA 12.9), which serializes every wgmma of a kernel (a wait after
+// each) when it cannot prove a register operand untouched while a group is
+// in flight:
 // the loops are peeled so each pass issues and waits for the same groups,
 // the warpgroup index comes through a shuffle so descriptors are uniform,
 // fragments are written only while nothing is in flight, and the consumers
 // wait on mbarriers without the trap path (hopper::mbar_wait_spin), whose
-// presence held these kernels to the launch bound's 168 registers. Their
-// grid is tile-major (bwd_grid): at this width a head's Q/dO (or K/V) tiles
-// no longer fit L2 across the heads a head-major grid keeps resident.
+// presence held the backward kernels to the launch bound's 168 registers
+// (and made the forward's spill). The hd 128 backward's grid is tile-major:
+// at this width a head's Q/dO (or K/V) tiles no longer fit L2 across the
+// heads a head-major grid keeps resident.
 //
 // Every output element is summed by one block in a fixed order: no atomics,
 // and the results are the same bits from run to run. P and dS are rounded to
@@ -68,9 +80,11 @@
 // are never written. head_dim is a template parameter, instantiated at 64
 // (GPT-2) and 128 (Llama). At 128 a tile row is two 128-byte swizzle rows:
 // each tile is loaded as two TMA boxes of 64 columns into two column blocks
-// (hopper.cuh), and the products step across both. The head_dim 128
-// backward computes exp2 by ex2.approx.ftz: an exponent below -126 gives 0
-// where exp2f keeps a denormal, a change to P of less than 2^-126.
+// (hopper.cuh), and the products step across both. The forward and the
+// head_dim 128 backward compute exp2 by ex2.approx.ftz, with the diagonal
+// mask as a select (in the forward, under a branch on the diagonal tile):
+// an exponent below -126 gives 0 where exp2f keeps a denormal, a change to
+// P (and to the forward's running sum) of less than 2^-126.
 
 #include "hopper.cuh"
 
@@ -92,7 +106,6 @@ constexpr int WG_THREADS = 128;
 constexpr int HOPPER_THREADS = 3 * WG_THREADS;  // a producer and two consumer warpgroups
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;  // 128 x 40 + 256 x 232 = 64,512 of the SM's 65,536
-constexpr int FWD_STAGES = 2;  // the forward's ring
 
 // Forward tiles: 128 queries per block (64 per consumer warpgroup), key
 // tiles of 128, so the diagonal is one tile.
@@ -111,14 +124,20 @@ __host__ __device__ constexpr uint32_t mn_lbo(int rows) {
   return D == 64 ? hopper::MN_LBO : block_bytes(rows);
 }
 
+// Two rings of two stages, one of K tiles and one of V tiles, each stage
+// behind a full and an empty barrier: the consumers hold a K tile from its
+// S to the next tile's S, and a V tile one tile longer, to its P.V
+// (fwd_consume_overlapped), so K's stage is released first and the
+// producer loads K tile j + 1 ahead of V tile j.
 template <int D>
 struct FwdSmem {  // byte offsets from a 1024-byte boundary
+  static constexpr int STAGES = 2;
   static constexpr int TILE = FWD_BN * D * 2;
   static constexpr int Q = 0;
   static constexpr int K = Q + FWD_BM * D * 2;
-  static constexpr int V = K + FWD_STAGES * TILE;
-  static constexpr int BARS = V + FWD_STAGES * TILE;  // q_full, full[], empty[]
-  static constexpr int BYTES = BARS + (1 + 2 * FWD_STAGES) * 8 + hopper::SW128_ATOM_BYTES;
+  static constexpr int V = K + STAGES * TILE;
+  static constexpr int BARS = V + STAGES * TILE;  // q_full, full[K, V][], empty[K, V][]
+  static constexpr int BYTES = BARS + (1 + 4 * STAGES) * 8 + hopper::SW128_ATOM_BYTES;
 };
 
 // dK/dV tiles: 128 keys per block (64 per consumer warpgroup), query tiles
@@ -144,16 +163,20 @@ struct DkvSmem {
   static constexpr int BYTES = BARS + (1 + 2 * STAGES) * 8 + hopper::SW128_ATOM_BYTES;
 };
 
-// The backward kernels' grid: a block per (b*h, tile). At head_dim 64 b*h
-// is blockIdx.x, so the resident blocks span many heads, and a head's Q/dO
-// (or K/V) tiles, which every block of that head re-reads, fit L2 at GPT-2's
-// shape all the same. At 128 (Llama-2-7B: 67 MB of Q and dO) they do not,
-// so the tile is blockIdx.x: the blocks of one head run side by side and
-// read its tiles from L2, and the few heads resident at once fit it.
+// The attention kernels' grid: a block per (b*h, tile). At head_dim 64 b*h
+// is blockIdx.x, so the resident blocks span many heads, and a head's K/V
+// (or Q/dO) tiles, which every block of that head re-reads, fit L2 at
+// GPT-2's shape all the same. At 128 (Llama-2-7B: 67 MB of K and V, or of Q
+// and dO) they do not, so the tile is blockIdx.x: the blocks of one head
+// run side by side and read its tiles from L2, and the few heads resident
+// at once fit it. The forward goes one step further (fwd_head_group):
+// groups of FWD_HEAD_GROUP heads, and within a group every head's longest
+// tile first, then the next longest, so the last blocks to start are short
+// ones while a group's K/V (8 MB at head_dim 128) stays in L2.
 template <int D>
 __host__ __device__ constexpr bool tile_major() { return D == 128; }
 template <int D>
-dim3 bwd_grid(int bh, int tiles) {
+dim3 block_grid(int bh, int tiles) {
   return tile_major<D>() ? dim3(tiles, bh) : dim3(bh, tiles);
 }
 // (unsigned, as blockIdx is, so that the arithmetic on them stays unsigned)
@@ -168,6 +191,16 @@ __device__ __forceinline__ unsigned grid_tile() {
 template <int D>
 __device__ __forceinline__ unsigned grid_tiles() {
   return tile_major<D>() ? gridDim.x : gridDim.y;
+}
+
+constexpr int FWD_HEAD_GROUP = 16;
+
+// The forward's heads a group: the largest power of two up to
+// FWD_HEAD_GROUP that divides b*h.
+inline int fwd_head_group(int bh) {
+  int group = 1;
+  while (group * 2 <= FWD_HEAD_GROUP && bh % (group * 2) == 0) group *= 2;
+  return group;
 }
 
 // Row max and row sum over the 4 threads that hold one accumulator row.
@@ -200,10 +233,167 @@ __device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[D / 2],
   }
 }
 
-// One block per (b*h, 128-query tile); blockIdx.x is b*h and blockIdx.y
-// counts tiles from the last (the longest rows) down, so the longest start
-// first. Warpgroup 0 loads Q once and K/V tiles 0..tile into the ring;
-// warpgroups 1 and 2 each own 64 query rows.
+// Tile j's P = exp2(s * scale * log2(e) - m) in place of its scores S (a
+// consumer's 64 rows x 128 keys): on the diagonal tile (`diag`, the same
+// for the whole warpgroup) the causal mask (key column c kept where c <=
+// row r of the tile, r + 8 for the thread's second row), then the running
+// max m and sum l updated, and alpha the factor for the O summed so far.
+// exp2 by ex2.approx.ftz.
+__device__ __forceinline__ void fwd_softmax_ftz(float (&S)[64], float (&m)[2], float (&l)[2],
+                                                float (&alpha)[2], bool diag, int r, int lane,
+                                                float scale_log2) {
+  if (diag) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int c = 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+      S[i] = c <= r + 8 * ((i / 2) % 2) ? S[i] : -INFINITY;
+    }
+  }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj)
+      mx = fmaxf(mx, fmaxf(S[4 * jj + 2 * hr], S[4 * jj + 2 * hr + 1]));
+    // finite: key 0 of a row's first tile is never masked
+    const float m_new = fmaxf(m[hr], quad_max(mx) * scale_log2);
+    alpha[hr] = hopper::exp2_ftz(m[hr] - m_new);
+    m[hr] = m_new;
+  }
+  float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int hr = (i / 2) % 2;
+    S[i] = hopper::exp2_ftz(S[i] * scale_log2 - m[hr]);
+    sum[hr] += S[i];
+  }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) l[hr] = l[hr] * alpha[hr] + sum[hr];
+}
+
+// o = O / l and lse = m + log(l) (natural log) of a consumer's 64 rows from
+// row0 of the tile at q0, l summed over the 4 threads of each row; rows at
+// or past T are not written. m * ln 2 is rounded before the add
+// (__fmul_rn, never fused), so lse's bits do not hang on whether the
+// compiler fuses the two.
+template <int D>
+__device__ __forceinline__ void fwd_store(bf16* o, float* lse, const float (&acc)[D / 2],
+                                          const float (&m)[2], float (&l)[2], int q0, int row0,
+                                          int r, int lane, int T) {
+  float inv[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    l[hr] = quad_sum(l[hr]);
+    inv[hr] = 1.0f / l[hr];
+  }
+  store_rows<D>(o, acc, inv, q0 + row0, T);
+  if (lane % 4 == 0) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int qi = q0 + r + 8 * hr;
+      if (qi < T) lse[qi] = __fmul_rn(m[hr], LN2) + logf(l[hr]);  // no fused multiply-add
+    }
+  }
+}
+
+// The consumer of flash_fwd_kernel: 64 query rows, O (D / 2 floats a
+// thread) in registers over key tiles 0..tile, in
+// FlashAttention-3's intra-warpgroup order: with tile j's P already bf16 A
+// fragments and no wgmma in flight, issue tile j + 1's S = Q K^T, then O +=
+// P V of tile j; wait for S alone (wgmma groups complete in order), release
+// K tile j + 1 and run its max, exponentials and sums while the P V group
+// runs; then wait for it, release V tile j, rescale O by tile j + 1's alpha
+// and repack. So the tensor cores have the next product queued while the
+// softmax runs, the fragments are written only while no group is in
+// flight, and O is rescaled in the same order as a consumer that runs each
+// tile in series would rescale it (the same bits). The first tile's scores
+// and the last tile's P V are peeled, so every pass issues and waits for
+// the same groups.
+template <int D>
+__device__ __forceinline__ void fwd_consume_overlapped(const bf16* sQ, const bf16* sK,
+                                                       const bf16* sV, uint64_t* q_full,
+                                                       uint64_t* full, uint64_t* empty, bf16* o,
+                                                       float* lse, int tile, int T,
+                                                       float scale_log2) {
+  using L = FwdSmem<D>;
+  constexpr int STAGES = L::STAGES;
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / WG_THREADS, 0);
+  const int t = threadIdx.x % WG_THREADS, lane = t % 32;
+  const int row0 = 64 * (wg - 1);                 // this warpgroup's first row in the tile
+  const int r = row0 + 16 * (t / 32) + lane / 4;  // rows r and r + 8 of the tile
+  // first k-step descriptors: this warpgroup's Q rows, and stage 0's K
+  // (K-major) and V (MN-major) tiles; a stage is L::TILE bytes further on
+  const uint64_t dQ0 = hopper::desc_k_major(sQ + row0 * hopper::SW_COLS, 0, 0);
+  const uint64_t dK0 = hopper::desc_k_major(sK, 0, 0);
+  const uint64_t dV0 = hopper::desc_mn_major(sV, 0, mn_lbo<D>(FWD_BN));
+
+  float acc[D / 2], S[64];
+  float m[2] = {-INFINITY, -INFINITY};  // running max of scale * log2(e) * s
+  float l[2] = {0.0f, 0.0f};             // this thread's part of the running sum
+  float alpha[2];
+  uint32_t pa[FWD_BN / 16][4];  // P rounded to bf16, as the A operand of P V
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  hopper::mbar_wait_spin(q_full, 0);
+
+  uint64_t* v_full = full + STAGES;  // V's barriers after K's
+  uint64_t* v_empty = empty + STAGES;
+  auto scores = [&](int j) {  // issue S = Q K^T of key tile j
+    const int s = j % STAGES;
+    const uint64_t dK = hopper::desc_advance(dK0, s * L::TILE);
+    hopper::mbar_wait_spin(&full[s], (j / STAGES) & 1);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::wgmma_m64n128k16_ss<0>(S, hopper::desc_k_step(dQ0, kk, block_bytes(FWD_BM)),
+                                     hopper::desc_k_step(dK, kk, block_bytes(FWD_BN)), kk > 0);
+    hopper::wgmma_commit();
+  };
+  auto probs = [&](int j) {  // tile j's P from its finished scores
+    hopper::fence_regs(S);
+    fwd_softmax_ftz(S, m, l, alpha, j == tile, r, lane, scale_log2);
+  };
+  auto values = [&](int j) {  // issue O += P V of key tile j
+    const uint64_t dV = hopper::desc_advance(dV0, (j % STAGES) * L::TILE);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < FWD_BN / 16; ++kk)
+      hopper::wgmma_rs_mn<D>(acc, pa[kk], hopper::desc_mn_step(dV, kk));
+    hopper::wgmma_commit();
+  };
+
+  scores(0);
+  hopper::wgmma_wait<0>();
+  hopper::mbar_arrive(&empty[0]);
+  probs(0);  // O is 0: no rescale
+  hopper::a_fragments(S, pa);
+  for (int j = 0; j < tile; ++j) {
+    hopper::mbar_wait_spin(&v_full[j % STAGES], (j / STAGES) & 1);
+    scores(j + 1);
+    values(j);
+    hopper::wgmma_wait<1>();  // tile j + 1's scores; tile j's P V runs on
+    hopper::mbar_arrive(&empty[(j + 1) % STAGES]);
+    probs(j + 1);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    hopper::mbar_arrive(&v_empty[j % STAGES]);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
+    hopper::a_fragments(S, pa);
+  }
+  hopper::mbar_wait_spin(&v_full[tile % STAGES], (tile / STAGES) & 1);
+  values(tile);
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+  hopper::mbar_arrive(&v_empty[tile % STAGES]);
+  fwd_store<D>(o, lse, acc, m, l, tile * FWD_BM, row0, r, lane, T);
+}
+
+// One block per (b*h, 128-query tile), in groups of heads
+// (fwd_head_group): blockIdx.x is a tile's rank (longest first) times the
+// group plus the head in it, blockIdx.y the group. Warpgroup 0 loads Q once,
+// and K tiles 0..tile and V tiles 0..tile each into its own ring, K a tile
+// ahead; warpgroups 1 and 2 each own 64 query rows (fwd_consume_overlapped).
 template <int D>
 __global__ void __launch_bounds__(HOPPER_THREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -211,23 +401,27 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
                  float* __restrict__ lse, int H, int T, float scale_log2) {
   static_assert(D == 64 || D == 128, "head_dim 64 or 128");
   using L = FwdSmem<D>;
+  constexpr int STAGES = L::STAGES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hopper::align_1024(smem_raw);
   bf16* sQ = reinterpret_cast<bf16*>(smem + L::Q);
   bf16* sK = reinterpret_cast<bf16*>(smem + L::K);
   bf16* sV = reinterpret_cast<bf16*>(smem + L::V);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BARS);
-  uint64_t* full = q_full + 1;
-  uint64_t* empty = full + FWD_STAGES;
+  uint64_t* full = q_full + 1;         // K's ring, then V's
+  uint64_t* empty = full + 2 * STAGES;
 
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int tile = gridDim.y - 1 - blockIdx.y;
-  const int q0 = tile * FWD_BM;
+  // ptxas (CUDA 12.9) lays this kernel out differently for edits that change
+  // nothing: passing tile * FWD_BM to the Q load in place of q0 ran it 10%
+  // slower at head_dim 128, the same bits. Time any edit (probes/).
+  const int tiles = (T + FWD_BM - 1) / FWD_BM, group = gridDim.x / tiles;
+  const int bh = blockIdx.y * group + blockIdx.x % group, b = bh / H, h = bh % H;
+  const int tile = tiles - 1 - blockIdx.x / group, q0 = tile * FWD_BM;
   const int wg = threadIdx.x / WG_THREADS;
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(q_full, 1);
-    for (int s = 0; s < FWD_STAGES; ++s) {
+    for (int s = 0; s < 2 * STAGES; ++s) {
       hopper::mbar_init(&full[s], 1);
       hopper::mbar_init(&empty[s], 2 * WG_THREADS);
     }
@@ -238,104 +432,25 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   if (wg == 0) {
     hopper::setmaxnreg_dec<PRODUCER_REGS>();
     if (threadIdx.x == 0) {
+      auto load = [&](int j, int ring) {  // K (ring 0) or V (ring 1) tile j
+        const int s = j % STAGES, n = ring * STAGES + s;
+        hopper::mbar_wait(&empty[n], ((j / STAGES) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[n], L::TILE);
+        hopper::tma_load_rows<D>((ring ? sV : sK) + s * FWD_BN * D, ring ? &tv : &tk, &full[n],
+                                 FWD_BN, j * FWD_BN, h, b);
+      };
       hopper::mbar_arrive_expect_tx(q_full, FWD_BM * D * 2);
       hopper::tma_load_rows<D>(sQ, &tq, q_full, FWD_BM, q0, h, b);
+      load(0, 0);
       for (int j = 0; j <= tile; ++j) {
-        const int s = j % FWD_STAGES;
-        hopper::mbar_wait(&empty[s], ((j / FWD_STAGES) & 1) ^ 1);
-        hopper::mbar_arrive_expect_tx(&full[s], 2 * L::TILE);
-        hopper::tma_load_rows<D>(sK + s * FWD_BN * D, &tk, &full[s], FWD_BN, j * FWD_BN, h, b);
-        hopper::tma_load_rows<D>(sV + s * FWD_BN * D, &tv, &full[s], FWD_BN, j * FWD_BN, h, b);
+        if (j < tile) load(j + 1, 0);
+        load(j, 1);
       }
     }
   } else {
     hopper::setmaxnreg_inc<CONSUMER_REGS>();
-    const int t = threadIdx.x % WG_THREADS, lane = t % 32;
-    const int row0 = 64 * (wg - 1);                 // this warpgroup's first row in the tile
-    const int r = row0 + 16 * (t / 32) + lane / 4;  // rows r and r + 8 of the tile
-    const bf16* sQw = sQ + row0 * hopper::SW_COLS;  // row0 of each column block
-
-    float acc[D / 2];
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
-    float m[2] = {-INFINITY, -INFINITY};  // running max of scale * log2(e) * s
-    float l[2] = {0.0f, 0.0f};             // this thread's part of the running sum
-    hopper::mbar_wait(q_full, 0);
-
-    for (int j = 0; j <= tile; ++j) {
-      const int s = j % FWD_STAGES;
-      const bf16* sKs = sK + s * FWD_BN * D;
-      const bf16* sVs = sV + s * FWD_BN * D;
-      hopper::mbar_wait(&full[s], (j / FWD_STAGES) & 1);
-
-      float S[64];  // S = Q K^T: 64 rows x 128 keys
-      hopper::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        hopper::wgmma_m64n128k16_ss<0>(S, hopper::desc_k_major(sQw, kk, block_bytes(FWD_BM)),
-                                       hopper::desc_k_major(sKs, kk, block_bytes(FWD_BN)),
-                                       kk > 0);
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<0>();
-      hopper::fence_regs(S);
-
-      if (j == tile) {  // the diagonal tile: key column c is masked past row r
-#pragma unroll
-        for (int i = 0; i < 64; ++i) {
-          const int c = 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
-          if (c > r + 8 * ((i / 2) % 2)) S[i] = -INFINITY;
-        }
-      }
-      float alpha[2];
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int jj = 0; jj < 16; ++jj)
-          mx = fmaxf(mx, fmaxf(S[4 * jj + 2 * hr], S[4 * jj + 2 * hr + 1]));
-        // finite: key 0 of a row's first tile is never masked
-        const float m_new = fmaxf(m[hr], quad_max(mx) * scale_log2);
-        alpha[hr] = exp2f(m[hr] - m_new);
-        m[hr] = m_new;
-      }
-      float sum[2] = {0.0f, 0.0f};
-#pragma unroll
-      for (int i = 0; i < 64; ++i) {
-        const int hr = (i / 2) % 2;
-        S[i] = exp2f(S[i] * scale_log2 - m[hr]);
-        sum[hr] += S[i];
-      }
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) l[hr] = l[hr] * alpha[hr] + sum[hr];
-#pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
-
-      uint32_t pa[8][4];  // P rounded to bf16, as the A operand of P V
-      hopper::a_fragments(S, pa);
-      hopper::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < FWD_BN / 16; ++kk)
-        hopper::wgmma_rs_mn<D>(acc, pa[kk], hopper::desc_mn_major(sVs, kk, mn_lbo<D>(FWD_BN)));
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<0>();
-      hopper::fence_regs(acc);
-      hopper::mbar_arrive(&empty[s]);
-    }
-
-    float inv[2];
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      l[hr] = quad_sum(l[hr]);
-      inv[hr] = 1.0f / l[hr];
-    }
-    store_rows<D>(o + (long long)bh * T * D, acc, inv, q0 + row0, T);
-    if (lane % 4 == 0) {
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int qi = q0 + r + 8 * hr;
-        if (qi < T) lse[(long long)bh * T + qi] = m[hr] * LN2 + logf(l[hr]);
-      }
-    }
+    fwd_consume_overlapped<D>(sQ, sK, sV, q_full, full, empty, o + (long long)bh * T * D,
+                              lse + (long long)bh * T, tile, T, scale_log2);
   }
 }
 
@@ -486,7 +601,7 @@ __device__ __forceinline__ void dkv_consume_overlapped(
   store_rows<D>(dv, dV, v_mul, key0, T);
 }
 
-// One block per (b*h, 128-key tile), laid out by bwd_grid; key tiles count
+// One block per (b*h, 128-key tile), laid out by block_grid; key tiles count
 // from the first (the most query tiles) up. Warpgroup 0 loads K and V once,
 // then its warp 0 streams the Q and dO tiles from the diagonal to T by TMA
 // while its warp 1 stages each tile's lse (times log2(e)) and di rows;
@@ -799,7 +914,7 @@ __device__ __forceinline__ void dq_consume_overlapped(
   store_rows<D>(dq, dQ, mul, qa, T);
 }
 
-// One block per (b*h, 128-query tile), laid out by bwd_grid; tiles count
+// One block per (b*h, 128-query tile), laid out by block_grid; tiles count
 // from the last (the most key tiles) down, so the longest start first.
 // Warpgroup 0 loads Q and dO once and streams the K and V tiles from 0 to
 // the diagonal into the ring; warpgroups 1 and 2 each own 64 query rows and
@@ -931,6 +1046,49 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   }
 }
 
+// ------------------------------------------------------------ di = sum(o * do)
+
+// The backward's di: for each row of [B, H, T], the float32 sum over
+// head_dim of o * do (a product of two bf16 values is exact in float32). It
+// reads o and do once and is bytes-bound. D / 8 threads hold a row, each
+// loading 16 bytes of o and of do (streaming loads, so inputs that fit L2
+// are not kept there). Each row sums in a fixed order: a thread's 8
+// products in order, then the row's threads by a butterfly of shuffles, so
+// every call gives the same bits. A block per DI_ROWS rows of one (b, h):
+// blockIdx.y is b*h.
+constexpr int DI_THREADS = 256;
+template <int D>
+constexpr int DI_ROWS = DI_THREADS / (D / 8);
+
+template <int D>
+__global__ void __launch_bounds__(DI_THREADS)
+flash_di_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout, float* __restrict__ di,
+                int H, int T, long long osb, long long osh, long long ost, long long dsb,
+                long long dsh, long long dst) {
+  static_assert(D == 64 || D == 128, "head_dim 64 or 128");
+  constexpr int LANES = D / 8;  // threads of a row
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int part = threadIdx.x % LANES;
+  const int t = blockIdx.x * DI_ROWS<D> + threadIdx.x / LANES;
+  uint4 x = make_uint4(0, 0, 0, 0), y = x;
+  if (t < T) {
+    x = __ldcs(reinterpret_cast<const uint4*>(o + b * osb + h * osh + t * ost + 8 * part));
+    y = __ldcs(reinterpret_cast<const uint4*>(dout + b * dsb + h * dsh + t * dst + 8 * part));
+  }
+  const __nv_bfloat162* xs = reinterpret_cast<const __nv_bfloat162*>(&x);
+  const __nv_bfloat162* ys = reinterpret_cast<const __nv_bfloat162*>(&y);
+  float sum = 0.0f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 a = __bfloat1622float2(xs[e]), c = __bfloat1622float2(ys[e]);
+    sum += a.x * c.x;
+    sum += a.y * c.y;
+  }
+#pragma unroll
+  for (int lanes = 1; lanes < LANES; lanes *= 2) sum += __shfl_xor_sync(0xffffffffu, sum, lanes);
+  if (part == 0 && t < T) di[(long long)bh * T + t] = sum;
+}
+
 // ------------------------------------------------------------ launches
 
 template <int D>
@@ -950,7 +1108,8 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, voi
   err = cudaFuncSetAttribute(flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (T + FWD_BM - 1) / FWD_BM);
+  const int tiles = (T + FWD_BM - 1) / FWD_BM, group = fwd_head_group(B * H);
+  const dim3 grid(tiles * group, B * H / group);
   flash_fwd_kernel<D><<<grid, HOPPER_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       maps[0], maps[1], maps[2], static_cast<bf16*>(o), static_cast<float*>(lse), H, T,
       scale * LOG2E);
@@ -975,7 +1134,7 @@ cudaError_t launch_bwd_dkv(const void* q, const void* k, const void* v, const vo
   err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid = bwd_grid<D>(B * H, (T + DKV_BN - 1) / DKV_BN);
+  const dim3 grid = block_grid<D>(B * H, (T + DKV_BN - 1) / DKV_BN);
   flash_bwd_dkv_kernel<D><<<grid, HOPPER_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
       static_cast<const float*>(di), static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, T, scale,
@@ -1000,18 +1159,30 @@ cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const voi
   err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid = bwd_grid<D>(B * H, (T + DQ_BM - 1) / DQ_BM);
+  const dim3 grid = block_grid<D>(B * H, (T + DQ_BM - 1) / DQ_BM);
   flash_bwd_dq_kernel<D><<<grid, HOPPER_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
       static_cast<const float*>(di), static_cast<bf16*>(dq), H, T, scale, scale * LOG2E);
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_di(const void* o, const void* dout, void* di, int B, int H, int T,
+                      const long long* strides, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((T + DI_ROWS<D> - 1) / DI_ROWS<D>, B * H);
+  flash_di_kernel<D><<<grid, DI_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), static_cast<float*>(di), H, T,
+      strides[0], strides[1], strides[2], strides[3], strides[4], strides[5]);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The C entries, one per kernel and head_dim: flash_attention_{fwd, bwd_dkv,
-// bwd_dq}_bf16_hd{64, 128}. strides: q, k, v (and do for the backward), each
-// (batch, head, time), in elements.
+// bwd_dq, di}_bf16_hd{64, 128}. strides: q, k, v (and do for the backward;
+// o and do for di), each (batch, head, time), in elements.
 #define FLASH_ENTRIES(D)                                                                        \
   int flash_attention_fwd_bf16_hd##D(const void* q, const void* k, const void* v, void* o,      \
                                      void* lse, int B, int H, int T, const long long* strides,  \
@@ -1033,6 +1204,11 @@ cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const voi
                                         void* stream) {                                         \
     return launch_bwd_dq<D>(q, k, v, dout, lse, di, dq, B, H, T, strides, scale, device,        \
                             stream);                                                            \
+  }                                                                                             \
+  int flash_attention_di_bf16_hd##D(const void* o, const void* dout, void* di, int B, int H,    \
+                                    int T, const long long* strides, int device,                \
+                                    void* stream) {                                             \
+    return launch_di<D>(o, dout, di, B, H, T, strides, device, stream);                         \
   }
 
 extern "C" {
@@ -1041,15 +1217,24 @@ const char* flash_attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// The backward kernels' tiles at head_dim 64 or 128, into out[4]: dK/dV's
-// keys per block and query tile, dQ's queries per block and key tile;
-// returns -1 for another head_dim.
-int flash_attention_bwd_tiles(int head_dim, int* out) {
+// The attention kernels' tiles at head_dim 64 or 128, into out[9]: the
+// forward's queries per block, key tile and stages a ring (K and V each
+// have one); dK/dV's keys per block and query tile; dQ's queries per block
+// and key tile; 1 where the backward's grid is tile-major (block_grid), 0
+// where head-major; and the forward's most heads a group (fwd_head_group).
+// Returns -1 for another head_dim.
+int flash_attention_tiles(int head_dim, int* out) {
   if (head_dim != 64 && head_dim != 128) return -1;
-  out[0] = DKV_BN;
-  out[1] = head_dim == 64 ? DkvSmem<64>::BQ : DkvSmem<128>::BQ;
-  out[2] = DQ_BM;
-  out[3] = DQ_BN;
+  const bool hd64 = head_dim == 64;
+  out[0] = FWD_BM;
+  out[1] = FWD_BN;
+  out[2] = FwdSmem<64>::STAGES;
+  out[3] = DKV_BN;
+  out[4] = hd64 ? DkvSmem<64>::BQ : DkvSmem<128>::BQ;
+  out[5] = DQ_BM;
+  out[6] = DQ_BN;
+  out[7] = hd64 ? tile_major<64>() : tile_major<128>();
+  out[8] = FWD_HEAD_GROUP;
   return 0;
 }
 

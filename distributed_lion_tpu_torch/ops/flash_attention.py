@@ -10,19 +10,24 @@ wraps ``jax.experimental.pallas.ops.tpu.flash_attention``, whose three
 - :func:`flash_attention_bwd_dkv` (``_flash_attention_bwd_dkv``):
   ``(q, k, v, do, lse, di) -> (dk, dv)``;
 - :func:`flash_attention_bwd_dq` (``_flash_attention_bwd_dq``):
-  ``(q, k, v, do, lse, di) -> dq``.
+  ``(q, k, v, do, lse, di) -> dq``;
 
-``di = Σ o·do`` (float32) is plain PyTorch between the forward and the two
-backward kernels, as jax computes it outside its kernels. Tensors are
-``[B, H, T, head_dim]``; scores are ``q·kᵀ / sqrt(head_dim)`` under a causal
-mask; ``lse`` is the float32 log-sum-exp of each row's scores, ``[B, H, T]``.
+and a fourth kernel in the same file computes what jax computes in ``jnp``
+between them (``flash_attention.py:273``, not a ``pallas_call``):
+
+- :func:`flash_attention_di`: ``(o, do) -> di = Σ o·do``, float32
+  ``[B, H, T]``; its plain version is :func:`attention_di`.
+
+Tensors are ``[B, H, T, head_dim]``; scores are ``q·kᵀ / sqrt(head_dim)``
+under a causal mask; ``lse`` is the float32 log-sum-exp of each row's
+scores, ``[B, H, T]``.
 
 Each wrapper launches its kernel for a CUDA tensor and counts the launch in
 ``.by_head_dim[head_dim]``, one count per instantiation; for a CPU tensor
 it computes its plain PyTorch version below. On CUDA the kernels take bfloat16
 with head_dim 64 (GPT-2) or 128 (Llama), one instantiation each
-(``flash_attention_{fwd,bwd_dkv,bwd_dq}_bf16_hd{64,128}``), and
-``q``, ``k``, ``v`` and ``do`` through their strides, with only head_dim
+(``flash_attention_{fwd,bwd_dkv,bwd_dq,di}_bf16_hd{64,128}``), and
+``q``, ``k``, ``v``, ``o`` and ``do`` through their strides, with only head_dim
 contiguous (the model's q/k/v are transposed views of one projection): the
 kernels load them by TMA through tensor maps over those strides, under the
 rule of :func:`strided_ok`; anything else raises. The library is built with ``nvcc`` at the first
@@ -35,7 +40,9 @@ product, and so are ``P`` and ``dS`` before the backward products, which
 sum in float32. The kernels' forward normalizes after ``P·V`` (online
 softmax) where the plain version normalizes before, and the kernels
 exponentiate in base 2 with ``log2(e)`` folded into the scale; the two
-differ by bfloat16 rounding and float32 ulps only.
+differ by bfloat16 rounding and float32 ulps only. ``di`` sums the exact
+float32 products of each row in the kernel's own fixed order, so it differs
+from the plain sum by float32 rounding only.
 """
 
 from __future__ import annotations
@@ -65,14 +72,15 @@ def _lib() -> ctypes.CDLL:
         i, f = ctypes.c_int, ctypes.c_float
         strides = ctypes.POINTER(ctypes.c_longlong)
         for hd in KERNEL_HEAD_DIMS:
-            for fn, pointers in (("fwd", 5), ("bwd_dkv", 8), ("bwd_dq", 7)):
+            for fn, pointers in (("fwd", 5), ("bwd_dkv", 8), ("bwd_dq", 7), ("di", 3)):
                 entry = getattr(lib, f"flash_attention_{fn}_bf16_hd{hd}")
-                entry.argtypes = [_P] * pointers + [i, i, i, strides, f, i, _P]
+                scale = [] if fn == "di" else [f]
+                entry.argtypes = [_P] * pointers + [i, i, i, strides, *scale, i, _P]
                 entry.restype = i
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
-        lib.flash_attention_bwd_tiles.argtypes = [i, ctypes.POINTER(i)]
-        lib.flash_attention_bwd_tiles.restype = i
+        lib.flash_attention_tiles.argtypes = [i, ctypes.POINTER(i)]
+        lib.flash_attention_tiles.restype = i
         _LIB = lib
     return _LIB
 
@@ -200,23 +208,35 @@ def _launch(fn: str, *args) -> None:
                            f"({lib.flash_attention_error_string(err).decode()})")
 
 
-def bwd_tiles(head_dim: int) -> dict:
-    """The backward kernels' tiles at ``head_dim``, from the built library:
-    dK/dV's keys per block and query tile, dQ's queries per block and key
-    tile."""
-    out = (ctypes.c_int * 4)()
-    if _lib().flash_attention_bwd_tiles(head_dim, out) != 0:
-        raise ValueError(f"no backward kernels at head_dim {head_dim}")
-    return {"dkv_keys": out[0], "dkv_queries": out[1], "dq_queries": out[2], "dq_keys": out[3]}
+TILE_KEYS = ("fwd_queries", "fwd_keys", "fwd_stages", "dkv_keys", "dkv_queries",
+             "dq_queries", "dq_keys", "tile_major", "fwd_head_group")
+
+
+def tiles(head_dim: int) -> dict:
+    """The attention kernels' tiles at ``head_dim``, from the built library
+    (names in ``TILE_KEYS``): the forward's queries per block, key tile and
+    stages of its K and V rings, dK/dV's keys per block and query tile,
+    dQ's queries per block and key tile, whether the backward's grid is
+    tile-major (1) or head-major (0), and the forward's most heads a group,
+    their longest tiles first."""
+    out = (ctypes.c_int * len(TILE_KEYS))()
+    if _lib().flash_attention_tiles(head_dim, out) != 0:
+        raise ValueError(f"no attention kernels at head_dim {head_dim}")
+    return dict(zip(TILE_KEYS, out))
+
+
+def _device(q: torch.Tensor) -> tuple:
+    return (q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
 
 
 def _tail(q: torch.Tensor) -> tuple:
-    return (_scale(q), q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+    return (_scale(q), *_device(q))
 
 
 def reset_counts() -> None:
     """Set every flash wrapper's launch counts (``.by_head_dim``) to 0."""
-    for wrapper in (flash_attention_fwd, flash_attention_bwd_dkv, flash_attention_bwd_dq):
+    for wrapper in (flash_attention_fwd, flash_attention_bwd_dkv, flash_attention_bwd_dq,
+                    flash_attention_di):
         wrapper.by_head_dim = dict.fromkeys(KERNEL_HEAD_DIMS, 0)
 
 
@@ -266,14 +286,30 @@ def flash_attention_bwd_dq(q, k, v, do, lse, di) -> torch.Tensor:
     return dq
 
 
+def flash_attention_di(o, do) -> torch.Tensor:
+    """di kernel: ``Σ o·do`` over head_dim, contiguous float32 ``[B, H, T]``;
+    ``o`` and ``do`` through their strides."""
+    _check("flash_attention_di", (do, o))
+    if do.device.type == "cpu":
+        return attention_di(o, do)
+    B, H, T, D = do.shape
+    di = torch.empty((B, H, T), dtype=torch.float32, device=do.device)
+    if di.numel():
+        _launch(f"flash_attention_di_bf16_hd{D}", o.data_ptr(), do.data_ptr(), di.data_ptr(),
+                B, H, T, _strides(o, do), *_device(do))
+        flash_attention_di.by_head_dim[D] += 1
+    return di
+
+
 reset_counts()
 
 
 class FlashAttention(torch.autograd.Function):
-    """Causal attention through the three wrappers: the forward saves
-    ``(q, k, v, o, lse)``; the backward computes ``di`` in plain PyTorch
-    and calls the dK/dV and dQ kernels. Under ``torch.utils.checkpoint``
-    the forward runs again in the backward pass."""
+    """Causal attention through the four wrappers: the forward saves
+    ``(q, k, v, o, lse)``; the backward computes ``di`` by
+    :func:`flash_attention_di` and calls the dK/dV and dQ kernels. Under
+    ``torch.utils.checkpoint`` the forward runs again in the backward
+    pass."""
 
     @staticmethod
     def forward(ctx, q, k, v):
@@ -286,7 +322,7 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         if do.device.type == "cuda" and not strided_ok(do):
             do = do.contiguous()
-        di = attention_di(o, do)
+        di = flash_attention_di(o, do)
         dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, di)
         return flash_attention_bwd_dq(q, k, v, do, lse, di), dk, dv
 

@@ -4,7 +4,8 @@
 
 Each DIR holds a ``flash_attention.cu`` (and, beside it, the ``hopper.cuh``
 it includes): the tree's ``csrc/``, a parent's unpacked with ``git
-archive``, or a copy edited to try one change. Each is built with the
+archive``, or a copy edited to try one change (``flash_variant_sources.py``
+writes the variants it names). Each is built with the
 port's ``nvcc`` flags into ``DIR/flash_attention.so``, all builds started
 together. For each it prints the ptxas notes that matter (spill bytes, and
 "wgmma serialized" notes with their reasons) and, from ``cuobjdump -sass``,
@@ -13,10 +14,12 @@ and which kernels' SASS equals the first DIR's (addresses and encodings
 aside).
 Then, at ``chip_smoke.py``'s timed shapes (hd 64: B 8, H 12, T 1024, q/k/v
 views of one projection; hd 128: B 4, H 32, T 1024, v a view), it checks
-that each variant's dk, dv and dq are the same bits as the first DIR's, and
-times the forward, dK/dV and dQ entries of every variant in turns (the DIRs
-in order, then reversed: parent, change, change, parent for two), each a
-median of 25 CUDA-event runs. A variant whose outputs differ is timed all
+that each variant's o and lse, and its dk, dv and dq, are the same bits as
+the first DIR's, and times the forward, dK/dV, dQ and di entries of every
+variant in turns (the DIRs in order, then reversed: parent, change, change,
+parent for two), each a median of 25 CUDA-event runs. A source without a
+di entry (from before the di kernel) times the plain ``attention_di`` in
+its place, marked "(plain)". A variant whose outputs differ is timed all
 the same and marked: an ablation that cuts work out is one.
 """
 
@@ -74,9 +77,13 @@ def entries(lib_path: pathlib.Path, D: int) -> dict:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     strides = ctypes.POINTER(ctypes.c_longlong)
     out = {}
-    for name, pointers in (("fwd", 5), ("bwd_dkv", 8), ("bwd_dq", 7)):
-        fn = getattr(lib, f"flash_attention_{name}_bf16_hd{D}")
-        fn.argtypes = [p] * pointers + [i, i, i, strides, f, i, p]
+    for name, pointers in (("fwd", 5), ("bwd_dkv", 8), ("bwd_dq", 7), ("di", 3)):
+        entry = f"flash_attention_{name}_bf16_hd{D}"
+        if not hasattr(lib, entry):
+            continue
+        fn = getattr(lib, entry)
+        scale = [] if name == "di" else [f]
+        fn.argtypes = [p] * pointers + [i, i, i, strides, *scale, i, p]
         fn.restype = i
         out[name] = fn
     return out
@@ -116,13 +123,14 @@ def main() -> int:
         q, k, v, do = cs.flash_inputs(gen, T, B, H, D, views)
         o, lse = fa.flash_attention_fwd(q, k, v)
         di = fa.attention_di(o, do)
-        o2, lse2 = torch.empty_like(o), torch.empty_like(lse)
+        o2, lse2, di2 = torch.empty_like(o), torch.empty_like(lse), torch.empty_like(lse)
         dk, dv, dq = (torch.empty_like(o) for _ in range(3))
-        s3, s4 = fa._strides(q, k, v), fa._strides(q, k, v, do)
+        s3, s4, s_di = fa._strides(q, k, v), fa._strides(q, k, v, do), fa._strides(o, do)
         tail = (1.0 / D ** 0.5, q.device.index, stream)
-        calls, first = {}, None
+        calls, first, first_fwd, label = {}, None, None, {}
         for name, (lib, _, _) in zip(names, built):
             e = entries(lib, D)
+            label[name] = name if "di" in e else f"{name} (plain)"
             calls[name] = {
                 "fwd": lambda e=e: checked(e["fwd"], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                            o2.data_ptr(), lse2.data_ptr(), B, H, T, s3, *tail),
@@ -132,18 +140,29 @@ def main() -> int:
                                            s4, *tail),
                 "dq": lambda e=e: checked(e["bwd_dq"], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                           do.data_ptr(), lse.data_ptr(), di.data_ptr(),
-                                          dq.data_ptr(), B, H, T, s4, *tail)}
+                                          dq.data_ptr(), B, H, T, s4, *tail),
+                "di": (lambda e=e: checked(e["di"], o.data_ptr(), do.data_ptr(), di2.data_ptr(),
+                                           B, H, T, s_di, *tail[1:]))
+                      if "di" in e else (lambda: fa.attention_di(o, do))}
+            calls[name]["fwd"]()
             calls[name]["dkv"]()
             calls[name]["dq"]()
             torch.cuda.synchronize()
+            got_fwd = (o2.clone(), lse2.clone())
             got = (dk.clone(), dv.clone(), dq.clone())
-            first = first or got
+            first, first_fwd = first or got, first_fwd or got_fwd
+            same_fwd = all(torch.equal(a, b) for a, b in zip(got_fwd, first_fwd))
             same = all(torch.equal(a, b) for a, b in zip(got, first))
-            print(f"[bits] hd{D} {name}: dk, dv, dq {'==' if same else 'DIFFER from'} "
+            d_o, d_lse = ((a.float() - b.float()).abs() for a, b in zip(got_fwd, first_fwd))
+            print(f"[bits] hd{D} {name}: o, lse {'==' if same_fwd else 'DIFFER from'} "
+                  f"{names[0]}'s (o: {int((d_o > 0).sum())} elements differ, max "
+                  f"{d_o.max().item():.3e}; lse: {int((d_lse > 0).sum())}, max "
+                  f"{d_lse.max().item():.3e}); dk, dv, dq {'==' if same else 'DIFFER from'} "
                   f"{names[0]}'s", flush=True)
-        for kernel in ("fwd", "dkv", "dq"):
+        for kernel in ("fwd", "dkv", "dq", "di"):
             order = names + names[::-1]
-            times = [(n, cs.time_ms(calls[n][kernel])) for n in order]
+            times = [(label[n] if kernel == "di" else n, cs.time_ms(calls[n][kernel]))
+                     for n in order]
             print(f"[turns] hd{D} {kernel}: " + ", ".join(f"{n} {ms:.4f}" for n, ms in times)
                   + " ms", flush=True)
     return 0

@@ -1,7 +1,7 @@
 """The port's causal flash attention vs the JAX package, on the CPU.
 
 On CPU tensors the port's ``flash`` runs the plain PyTorch versions of its
-three kernels through the same ``torch.autograd.Function`` the card uses
+four kernels through the same ``torch.autograd.Function`` the card uses
 (forward, then ``di`` and the dK/dV and dQ passes). The JAX package's flash
 kernel cannot run on the CPU (jax's ``flash_attention`` has no interpret
 mode), so the references are ``attention_splash(..., interpret=True)``, a
@@ -308,6 +308,64 @@ def test_attention_di_is_the_float32_sum_of_float32_products(dtype):
     assert torch.equal(o, o0) and torch.equal(do, do0)
 
 
+@pytest.mark.parametrize("layout", ["contiguous", "gpt2_view"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_di_matches_plain_and_jax(D, layout):
+    """The di wrapper on CPU tensors is the plain ``attention_di``, bit for
+    bit, and agrees with JAX's ``jnp.sum(o.astype(f32) * do.astype(f32), -1)``
+    (jax ``flash_attention.py:273``) row by row within the bound of a
+    float32 sum of D exact products in another order, ``D 2**-24 sum|o do|``;
+    ``do`` contiguous or as GPT-2 hands it back (a transposed view of
+    [B, T, H, D])."""
+    rng = np.random.default_rng(11 + D)
+    B, H, T = 2, 3, 40
+    o_np = rng.normal(size=(B, H, T, D)).astype(np.float32)
+    do_np = rng.normal(size=(B, T, H, D)).astype(np.float32)
+    o = torch.from_numpy(o_np).bfloat16()
+    do = torch.from_numpy(do_np).bfloat16().transpose(1, 2)
+    if layout == "contiguous":
+        do = do.contiguous()
+    assert do.is_contiguous() == (layout == "contiguous") and fa.strided_ok(do)
+    di = fa.flash_attention_di(o, do)
+    assert di.dtype == torch.float32 and di.shape == (B, H, T) and di.is_contiguous()
+    assert torch.equal(di, fa.attention_di(o, do))
+    o32, do32 = o.float().numpy(), do.float().numpy()
+    o_j, do_j = (jnp.asarray(x).astype(jnp.bfloat16) for x in (o32, do32))   # exact
+    want = np.asarray(jnp.sum(o_j.astype(jnp.float32) * do_j.astype(jnp.float32), -1),
+                      np.float64)
+    bound = D * 2.0 ** -24 * np.abs(o32.astype(np.float64) * do32).sum(-1)
+    assert (np.abs(di.numpy().astype(np.float64) - want) <= bound).all()
+
+
+def test_flash_backward_computes_di_through_the_di_wrapper(monkeypatch):
+    """``FlashAttention.backward`` takes ``di`` from ``flash_attention_di``
+    (the wrapper that launches the kernel on the card), once per backward,
+    on the forward's ``o`` and the incoming ``do``, and not from the plain
+    ``attention_di`` directly; the wrapper refuses a device with no kernel
+    rather than computing a plain version there."""
+    calls = []
+    wrapped = fa.flash_attention_di
+
+    def spy(o, do):
+        calls.append((o, do))
+        return wrapped(o, do)
+
+    monkeypatch.setattr(fa, "flash_attention_di", spy)
+    q, k, v, do = (torch.from_numpy(a).bfloat16() for a in _inputs(48, D=128, seed=6))
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    out = fa.flash_attention(qg, kg, vg)
+    out.backward(do)
+    assert len(calls) == 1
+    o, got_do = calls[0]
+    assert torch.equal(o, out.detach()) and torch.equal(got_do, do)
+    dq, dk, dv = fa.flash_attention_bwd_plain(q, k, v, *fa.flash_attention_fwd(q, k, v), do)
+    assert all(torch.equal(g, w) for g, w in ((qg.grad, dq), (kg.grad, dk), (vg.grad, dv)))
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        wrapped(o.to("meta"), do.to("meta"))
+    with pytest.raises(ValueError, match="operands"):
+        wrapped(o[..., :64], do)
+
+
 def test_gpt2_dropout0_flash_matches_jax_logits_and_grads():
     """A tiny GPT-2 at dropout 0 with ``attn_impl="flash"`` (remat on)
     against the JAX package's ``gpt2`` on carried-over weights, float32."""
@@ -337,19 +395,20 @@ def test_gpt2_dropout0_flash_matches_jax_logits_and_grads():
 
 def test_cpu_path_counts_no_launch_at_either_head_dim():
     """On CPU tensors the wrappers run their plain versions at head_dim 64
-    and 128: no count moves and no library is built."""
-    before = [dict(fn.by_head_dim) for fn in (fa.flash_attention_fwd,
-                                              fa.flash_attention_bwd_dkv,
-                                              fa.flash_attention_bwd_dq)]
+    and 128: no count moves (the di wrapper's included) and no library is
+    built."""
+    wrappers = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq,
+                fa.flash_attention_di)
+    before = [dict(fn.by_head_dim) for fn in wrappers]
     assert all(set(b) == {64, 128} for b in before)
     for D in (64, 128):
         q, k, v, do = (torch.from_numpy(a).bfloat16() for a in _inputs(20, B=1, H=1, D=D))
         o, lse = fa.flash_attention_fwd(q, k, v)
-        di = fa.attention_di(o, do)
+        di = fa.flash_attention_di(o, do)
         fa.flash_attention_bwd_dkv(q, k, v, do, lse, di)
         fa.flash_attention_bwd_dq(q, k, v, do, lse, di)
-    after = [dict(fn.by_head_dim) for fn in (fa.flash_attention_fwd,
-                                             fa.flash_attention_bwd_dkv,
-                                             fa.flash_attention_bwd_dq)]
+        q.requires_grad_()
+        fa.flash_attention(q, k, v).backward(do)
+    after = [dict(fn.by_head_dim) for fn in wrappers]
     assert after == before
     assert fa._LIB is None and "flash_attention" not in cuda_build._LIBS
