@@ -102,6 +102,29 @@ Phases (none of their failures is caught; any one fails the run):
    the CPU's, and the float32-result products (``ops/products.py``) must
    agree with float64 products of the same bfloat16 operands to 1/16 of a
    bfloat16 ulp of the largest value.
+   (e) ``--dropout 0 --max_grad_norm 1.0``: the stochastic mode at (c)'s
+   setup; (c)'s flash counts and no optimizer kernel (its ballots and
+   update are plain PyTorch, as the JAX package's XLA path). Then its
+   ballots on seeded g and m at 124,439,808 coordinates: equal to the
+   deterministic ballots where ``|u| >= r``, the same bits from the same
+   (seed, count, rank), other bits from another rank, and the mean of
+   ``ballot - (2p - 1)`` within 6 standard deviations of 0; and the
+   optimizer step's device time, stochastic against deterministic.
+5. Run (f), the vote across four ranks: four processes on cuda:0 in a
+   gloo process group the script starts itself (NCCL refuses two ranks
+   on one device) each run ``cli.run_clm.main`` on GPT-2 124M at full
+   width, B 2 x accumulation 1 x T 1024, ``--dropout 0 --telemetry``,
+   constant LR, 2 steps, on ``sign_psum``, ``sign_psum --max_grad_norm
+   1.0``, ``packed_a2a`` and ``hier:2``. After every step all four
+   ranks' flat params must be ``torch.equal``; at step 1 each
+   deterministic wire's election must equal the plain election of the
+   four gathered ballots (a strict majority, ties -1; for ``hier:2`` a
+   strict majority of the two groups' strict majorities), and on
+   ``sign_psum`` the telemetry margin histogram and disagreement must
+   equal ``bucket_vote_stats_plain`` of the gathered tally. Every
+   rank's launch counts are checked. Its step times are not a rate of
+   the card: four ranks share it and gloo stages every collective
+   through the host.
    Each phase prints its wall time.
 
 Times are medians of 25 CUDA-event runs after 3 warm-up calls, queued
@@ -130,6 +153,7 @@ import time
 
 import torch
 import torch.distributed as dist
+import torch.multiprocessing as mp
 import torch.nn.functional as F
 
 from distributed_lion_tpu_torch.cli import run_clm, run_sft
@@ -137,10 +161,12 @@ from distributed_lion_tpu_torch.data.tokenizer import ByteTokenizer
 from distributed_lion_tpu_torch.models.gpt2 import GPT2, GPT2Config
 from distributed_lion_tpu_torch.models.llama import llama_init
 from distributed_lion_tpu_torch.models.lora import iter_paths
-from distributed_lion_tpu_torch.ops import cuda_build, fused_lion, quant
+from distributed_lion_tpu_torch.ops import cuda_build, fused_lion, lion_math, quant
 from distributed_lion_tpu_torch.ops import flash_attention as fa
-from distributed_lion_tpu_torch.ops.codec import bucket_bounds
+from distributed_lion_tpu_torch.ops.codec import bucket_bounds, parse_wire, unpack_signs
 from distributed_lion_tpu_torch.ops.products import matmul_f32
+from distributed_lion_tpu_torch.optim.distributed_lion import DistributedLion
+from distributed_lion_tpu_torch.optim.lion import FlatParams
 from distributed_lion_tpu_torch.parallel import collectives
 
 N_MAIN = 124_439_808   # GPT-2 124M coordinates: the main path's window
@@ -160,6 +186,20 @@ EVAL_BATCHES = 2
 N_LAYER = 12
 LLAMA_LAYERS = 32   # Llama-2-7B at full depth in run (d)
 EVAL_TOL = 0.002    # |eval loss through flash - through attention_xla|, both runs
+STOCH_ARGS = ["--dropout", "0", "--max_grad_norm", "1.0"]   # run (e)
+STOCH_MGN, STOCH_SEED, B1 = 1.0, 42, 0.9   # run (e)'s quantizer: run_clm's seed and beta1
+STOCH_SIGMAS = 6   # the unbiasedness bound of run (e)'s ballot check
+W4 = 4             # run (f): ranks sharing cuda:0 in a gloo group
+W4_STEPS = 2
+# run (f)'s wires: (wire, extra flags); gloo runs all of them on CUDA
+# tensors (all_reduce, all_gather_into_tensor, all_to_all_single)
+W4_RUNS = (("sign_psum", []), ("sign_psum", ["--max_grad_norm", "1.0"]),
+           ("packed_a2a", []), ("hier:2", []))
+W4_ARGS = ["--model_name", "gpt2_124m", "--dataset", "synthetic", "--synthetic_blocks", "64",
+           "--lion", "--async_grad", "--per_device_train_batch_size", "2",
+           "--gradient_accumulation_steps", "1", "--block_size", "1024",
+           "--max_steps", str(W4_STEPS), "--logging_steps", "1", "--dropout", "0", "--telemetry",
+           "--lr_scheduler_type", "constant"]
 RUNS = 25
 AHEAD_CYCLES = 50_000_000   # about 30 ms of the card's clock: the host queues the timed calls
 
@@ -920,6 +960,209 @@ def llama_run(gen):
     return rows, launches, peak, wall
 
 
+def stochastic_check(gen) -> None:
+    """Run (e)'s stochastic ballots at the main path's size, on seeded g and
+    m whose update direction u spreads past ±r: where ``|u| >= r`` equal to
+    the deterministic ballots; the same bits from the same (seed, count,
+    rank); other bits from another rank; and the mean of ``ballot - (2p -
+    1)`` over all coordinates within STOCH_SIGMAS standard deviations of 0
+    (sigma^2 = sum 4p(1 - p) / n^2)."""
+    n = N_MAIN
+    g = torch.randn(n, generator=gen, device="cuda") * 2.5
+    m = torch.randn(n, generator=gen, device="cuda") * 2.5
+    r = (1.0 + 1.0 / B1) * STOCH_MGN
+
+    def draw(rank):
+        return lion_math.stochastic_vote_bool(
+            g, m, B1, STOCH_MGN, lion_math.stochastic_generator(STOCH_SEED, 0, rank, g.device))
+
+    ballots = draw(0)
+    sat = lion_math.interp(g, m, B1).abs() >= r
+    det = lion_math.sign_vote_bool(g, m, B1)
+    same_saturated = torch.equal(ballots[sat], det[sat])
+    replayed = torch.equal(ballots, draw(0))
+    other_rank = int((ballots != draw(1)).sum())
+    p = lion_math.stochastic_p_up(g, m, B1, STOCH_MGN).double()
+    drift = ((2.0 * ballots.double() - 1.0) - (2.0 * p - 1.0)).mean().item()
+    sigma = math.sqrt((4.0 * p * (1.0 - p)).sum().item()) / n
+    n_sat = int(sat.sum())
+    print(f"[stochastic] n={n}, r={r:.4f}: {n_sat} saturated coordinates (|u| >= r) "
+          f"{'==' if same_saturated else '!='} the deterministic ballots; the same "
+          f"(seed, count, rank) {'gives the same bits' if replayed else 'DIFFERS'}; rank 1 "
+          f"differs in {other_rank} coordinates; mean(ballot - (2p - 1)) = {drift:.3e}, "
+          f"bound {STOCH_SIGMAS} sigma = {STOCH_SIGMAS * sigma:.3e}", flush=True)
+    if not (same_saturated and replayed and other_rank > 0 and 0 < n_sat < n
+            and abs(drift) <= STOCH_SIGMAS * sigma):
+        raise AssertionError("run (e): the stochastic ballots fail a check (line above)")
+
+
+def stochastic_step_time(gen) -> float:
+    """Device time of one optimizer step at the main path's size in a world
+    of one (no collective), stochastic against deterministic, on the same
+    inputs; returns the stochastic step's extra ms."""
+    times = {}
+    g = torch.randn(N_MAIN, generator=gen, device="cuda")
+    for label, kw in (("deterministic", {}), ("stochastic", dict(max_grad_norm=STOCH_MGN,
+                                                                  seed=STOCH_SEED))):
+        flat = FlatParams([("p", torch.nn.Parameter(
+            torch.randn(N_MAIN, generator=gen, device="cuda")))])
+        flat.grads.copy_(g)
+        opt = DistributedLion(3e-4, weight_decay=0.1, group=None, **kw)
+        state = opt.init(flat)
+        times[label] = time_ms(lambda: opt.step(flat, state))
+        del flat, opt, state
+        torch.cuda.empty_cache()
+    extra = times["stochastic"] - times["deterministic"]
+    print(f"[stochastic] optimizer step at n={N_MAIN}, one bucket, no collective: stochastic "
+          f"{times['stochastic']:.4f} ms (plain PyTorch), deterministic "
+          f"{times['deterministic']:.4f} ms (fused_ballots + fused_apply): {extra:.4f} ms "
+          "extra", flush=True)
+    return extra
+
+
+def plain_election(gathered, wire: str):
+    """The election of ``wire`` from every rank's int8 ballots, in plain
+    PyTorch: a strict majority (ties -1), or for ``hier:<g>`` a strict
+    majority of the groups' strict majorities; and the flat tally."""
+    tally = sum(b.to(torch.int32) for b in gathered)
+    kind, size = parse_wire(wire)
+    if kind != "hier":
+        return tally > 0, tally
+    groups = len(gathered) // size
+    verdicts = sum((sum(b.to(torch.int32) for b in gathered[k * size:(k + 1) * size]) > 0
+                    ).to(torch.int32) for k in range(groups))
+    return verdicts * 2 > groups, tally
+
+
+class StepWatch:
+    """Run (f)'s checks, in every rank, around ``DistributedLion.step``
+    while installed: after every step all ranks' flat params must be
+    ``torch.equal`` (rank 0's broadcast); at the first step of a
+    deterministic wire the election (the telemetry frame's) must equal
+    :func:`plain_election` of the gathered ballots and, on a tally wire, the
+    frame's margin histogram and disagreement must equal
+    ``bucket_vote_stats_plain`` of the gathered tally."""
+
+    def __init__(self):
+        self.params_equal: list = []
+        self.election_equal = None
+        self.hist = None
+        self._orig = DistributedLion.step
+        watch = self
+
+        def step(opt, flat, state):
+            return watch._observe(opt, flat, state)
+
+        DistributedLion.step = step
+
+    def close(self) -> None:
+        DistributedLion.step = self._orig
+
+    def _observe(self, opt, flat, state):
+        first = state.steps == 0 and opt.max_grad_norm is None
+        ballots = (fused_lion.fused_ballots_plain(flat.grads, state.exp_avg, opt.b1)
+                   if first else None)
+        new_state, frame = self._orig(opt, flat, state)
+        ref = flat.params.clone()
+        dist.broadcast(ref, 0, group=opt.group)
+        differ = torch.tensor([0 if torch.equal(ref, flat.params) else 1])
+        dist.all_reduce(differ, group=opt.group)
+        self.params_equal.append(int(differ) == 0)
+        del ref
+        if first:
+            gathered = [torch.empty_like(ballots) for _ in range(opt.world)]
+            dist.all_gather(gathered, ballots, group=opt.group)
+            want, tally = plain_election(gathered, opt.wire)
+            self.election_equal = torch.equal(unpack_signs(frame["elected"], (flat.numel,)),
+                                              want)
+            if collectives.world_of(opt.group) == W4 and opt.wire == "sign_psum":
+                hist, dis = fused_lion.bucket_vote_stats_plain(ballots, tally, opt.world, 8)
+                self.hist = (frame["margin_hist"].tolist(), hist.tolist(),
+                             int(frame["disagree"]), int(dis))
+            del gathered, want, tally
+        return new_state, frame
+
+
+def w4_rank(rank: int, tmp: str) -> None:
+    """One of run (f)'s ranks: every W4_RUNS entry through ``run_clm.main``
+    on cuda:0 in the gloo group, under a :class:`StepWatch`; raises on a
+    failed check; rank 0 writes the runs' records to ``tmp/w4.json``."""
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/pg4", rank=rank, world_size=W4)
+    try:
+        records = []
+        for wire, extra in W4_RUNS:
+            label = wire + (" " + " ".join(extra) if extra else "")
+            watch = StepWatch()
+            reset_counts()
+            t0 = time.perf_counter()
+            try:
+                trainer = run_clm.main(W4_ARGS + ["--wire", wire] + extra)
+            finally:
+                watch.close()
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+            rows = [r for r in trainer.history if "loss" in r]
+            cfg = trainer.cfg
+            buckets = len(bucket_bounds(trainer.n_params, cfg.vote_buckets, W4, cfg.wire))
+            stochastic = cfg.max_grad_norm is not None
+            fused = 0 if stochastic else W4_STEPS * buckets
+            expect(f"(f) {label} rank {rank}", launches, {
+                "fused_ballots": fused, "fused_apply": fused,
+                "bucket_vote_stats": W4_STEPS * buckets,
+                "flash_attention_fwd": N_LAYER * 2 * W4_STEPS,
+                "flash_attention_bwd_dkv": N_LAYER * W4_STEPS,
+                "flash_attention_bwd_dq": N_LAYER * W4_STEPS,
+                "flash_attention_di": N_LAYER * W4_STEPS, **NO_HD128})
+            if (trainer.world != W4 or cfg.wire != wire or len(rows) != W4_STEPS
+                    or not all(math.isfinite(r["loss"]) for r in rows)
+                    or watch.params_equal != [True] * W4_STEPS
+                    or (not stochastic and not watch.election_equal)
+                    or (watch.hist is not None
+                        and (watch.hist[0] != watch.hist[1] or watch.hist[2] != watch.hist[3]))
+                    or (stochastic and not rows[0]["vote/stoch_flip_frac"] > 0)):
+                raise AssertionError(
+                    f"run (f) {label} rank {rank}: world {trainer.world}, wire {cfg.wire}, "
+                    f"rows {rows}, params equal after each step {watch.params_equal}, "
+                    f"election == plain {watch.election_equal}, histogram and disagreement "
+                    f"(frame, plain) {watch.hist}")
+            records.append({"run": label, "buckets": buckets, "wall_s": wall,
+                            "losses": [r["loss"] for r in rows],
+                            "step_ms": [r["step_ms"] for r in rows],
+                            "params_equal": watch.params_equal,
+                            "election_equal": watch.election_equal, "hist": watch.hist,
+                            "stoch_flip_frac": [r["vote/stoch_flip_frac"] for r in rows],
+                            "launches": launches})
+            del trainer
+            torch.cuda.empty_cache()
+        if rank == 0:
+            with open(f"{tmp}/w4.json", "w") as f:
+                json.dump(records, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def w4_phase(tmp: str, card: str) -> None:
+    """Run (f): W4 processes on cuda:0 in a gloo group (NCCL refuses two
+    ranks on one device); prints rank 0's record of each run."""
+    mp.spawn(w4_rank, args=(tmp,), nprocs=W4, join=True)
+    with open(f"{tmp}/w4.json") as f:
+        records = json.load(f)
+    for rec in records:
+        hist = ("" if rec["hist"] is None else
+                f"; margin histogram {rec['hist'][0]} == bucket_vote_stats_plain of the gathered "
+                f"tally, disagreement {rec['hist'][2]} == {rec['hist'][3]}")
+        election = ("step-1 election == the plain election of the 4 gathered ballots"
+                    if rec["election_equal"] else
+                    f"stochastic: stoch_flip_frac {rec['stoch_flip_frac']}")
+        print(f"[w4] (f) {rec['run']}: GPT-2 124M, {W4} ranks on one card (gloo), B 2 x accum 1 "
+              f"x T 1024, {rec['buckets']} bucket(s): losses "
+              f"{[round(x, 4) for x in rec['losses']]}; params equal on all ranks after each "
+              f"step {rec['params_equal']}; {election}{hist}; step ms {rec['step_ms']} (4 ranks "
+              f"share the card and gloo stages every collective through the host); run_clm.main "
+              f"{rec['wall_s']:.1f} s on {card}; rank 0 launches {rec['launches']}", flush=True)
+
+
 def slice_phase(tmp, gen):
     t = time.perf_counter()
     torch.cuda.set_device(0)
@@ -961,14 +1204,31 @@ def slice_phase(tmp, gen):
         del plain
         torch.cuda.empty_cache()
         t = phase_time("slice (a)-(c), GPT-2 124M", t)
+        stoch, stoch_rows, stoch_launches = run_counted(STOCH_ARGS)
+        # the stochastic ballots and update are plain PyTorch, as the JAX
+        # package's XLA path; the flash kernels run as in (c)
+        expect("(e) dropout 0 + max_grad_norm", stoch_launches,
+               dict(plain_launches, fused_ballots=0, fused_apply=0))
+        if stoch.cfg.max_grad_norm != STOCH_MGN:
+            raise AssertionError(f"run (e): max_grad_norm {stoch.cfg.max_grad_norm}")
+        del stoch
+        torch.cuda.empty_cache()
+        stochastic_check(gen)
+        stoch_extra = stochastic_step_time(gen)
+        t = phase_time("slice (e), GPT-2 124M stochastic", t)
         llama = llama_run(gen)
         phase_time("slice (d), Llama-2-7B", t)
     finally:
         dist.destroy_process_group()
+    print(f"[stochastic] run (e) - run (c), median step: "
+          f"{statistics.median(r['step_ms'] for r in stoch_rows[1:]) - statistics.median(r['step_ms'] for r in plain_rows[1:]):.1f} "
+          f"ms on the host clock (the optimizer step alone: {stoch_extra:.4f} ms of device time)",
+          flush=True)
     return (world, wire, buckets_cfg), [
         ("(a) default (dropout 0.1)", base_rows, base_launches),
         ("(b) dropout 0 + telemetry", rows, launches),
-        ("(c) dropout 0", plain_rows, plain_launches)], llama
+        ("(c) dropout 0", plain_rows, plain_launches),
+        ("(e) dropout 0 + max_grad_norm 1.0 (stochastic)", stoch_rows, stoch_launches)], llama
 
 
 def phase_time(name: str, since: float) -> float:
@@ -1011,6 +1271,9 @@ def main():
     phase_time("model, products, NF4", t)
     with tempfile.TemporaryDirectory() as tmp:
         (world, wire, buckets), runs, llama = slice_phase(tmp, gen)
+        t = time.perf_counter()
+        w4_phase(tmp, card)
+        phase_time(f"slice (f), GPT-2 124M at W = {W4} on one card", t)
     for label, rs, counts in runs:
         step_ms = statistics.median(r["step_ms"] for r in rs[1:])
         tok_s = statistics.median(r["tokens_per_sec"] for r in rs[1:])

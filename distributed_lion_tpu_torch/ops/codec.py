@@ -1,15 +1,17 @@
 """1-bit sign codec and wire byte accounting.
 
 Port of ``distributed_lion_tpu/ops/codec.py`` for the three flat wires
-(``sign_psum``, ``packed_allgather``, ``packed_a2a``). Packed bytes, bucket
-boundaries and byte counts equal the JAX package's exactly. The
-hierarchical ``hier:<g>`` wire is not ported yet (ROADMAP Queue 1 item 3)
-and raises ``NotImplementedError``.
+(``sign_psum``, ``packed_allgather``, ``packed_a2a``) and the synchronous
+hierarchical wire ``hier:<g>``. Packed bytes, bucket boundaries and byte
+counts equal the JAX package's exactly, with the hier wire's cross-group
+(``dcn``) leg reported apart. The DCN pipeline's ring-slot sizes
+(``hier_chunk_slot_bytes``) wait for the pipeline (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -21,13 +23,18 @@ def packed_size(n: int) -> int:
     return (n + 7) // 8
 
 
-def parse_wire(wire: str) -> tuple[str, None]:
-    """Validate a wire-format string into ``(kind, None)``."""
+def parse_wire(wire: str) -> tuple[str, Optional[int]]:
+    """Validate a wire-format string into ``(kind, group_size)``: the flat
+    wires parse to ``(wire, None)``, ``"hier:<g>"`` to ``("hier", g)`` (g
+    consecutive ranks form a group)."""
     if wire.startswith("hier:"):
-        raise NotImplementedError(
-            f"wire {wire!r}: the hierarchical vote is not ported yet "
-            "(ROADMAP Queue 1 item 3); use sign_psum, packed_allgather or "
-            "packed_a2a")
+        try:
+            g = int(wire.split(":", 1)[1])
+        except ValueError:
+            raise ValueError(f"bad hier wire spec {wire!r}: expected 'hier:<int>'")
+        if g < 1:
+            raise ValueError(f"hier group size must be >= 1, got {g}")
+        return "hier", g
     if wire in FLAT_WIRES:
         return wire, None
     raise ValueError(f"unknown wire format: {wire!r}")
@@ -40,9 +47,14 @@ def vote_chunk_elems(n: int, vote_every: int) -> int:
 
 def bucket_alignment(world_size: int, wire: str) -> int:
     """Element alignment of bucket boundaries: whole bytes (8) for the tally
-    wires, whole per-worker a2a chunks (8·W) for ``packed_a2a``."""
-    kind, _ = parse_wire(wire)
-    return 8 * world_size if kind == "packed_a2a" else 8
+    wires, whole per-worker a2a chunks (8·W) for ``packed_a2a``, whole
+    per-member chunks (8·g) for ``hier:<g>``."""
+    kind, group = parse_wire(wire)
+    if kind == "packed_a2a":
+        return 8 * world_size
+    if kind == "hier":
+        return 8 * group
+    return 8
 
 
 def bucket_bounds(n: int, vote_buckets: int, world_size: int,
@@ -90,29 +102,62 @@ def unpack_signs(packed: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     return bits.reshape(-1)[:n].reshape(shape).to(torch.bool)
 
 
-def _recv_bytes(n: int, world_size: int, kind: str) -> int:
-    """Bytes received per worker for one contiguous ``n``-coordinate ballot."""
+def hier_legs(n: int, world_size: int, group: int) -> dict:
+    """Bytes RECEIVED per rank by each leg of the ``hier:<g>`` election of
+    one ``n``-coordinate ballot: ``chunk`` coordinates owned per member
+    (whole bytes), leg 1 the in-group exchange of ballot chunks at the
+    accumulator width (int8, int32 past g = 127), leg 2 the cross-group
+    exchange of packed verdict chunks (the only ``dcn`` leg), leg 3 the
+    in-group gather of packed elected chunks."""
+    n_groups = world_size // group
+    acc_bytes = 1 if group <= 127 else 4
+    chunk = 8 * a2a_chunk_bytes(n, group)
+    return {"chunk": chunk,
+            "leg1": (group - 1) * chunk * acc_bytes,
+            "leg2": (n_groups - 1) * (chunk // 8),
+            "leg3": (group - 1) * (chunk // 8)}
+
+
+def _recv_bytes(n: int, world_size: int, kind: str,
+                group: Optional[int]) -> tuple[int, int]:
+    """``(bytes, dcn bytes)`` received per worker for one contiguous
+    ``n``-coordinate ballot."""
+    if kind == "hier":
+        legs = hier_legs(n, world_size, group)
+        return legs["leg1"] + legs["leg2"] + legs["leg3"], legs["leg2"]
     if kind == "sign_psum":
-        return n * (1 if world_size <= 127 else 4)
+        return n * (1 if world_size <= 127 else 4), 0
     if kind == "packed_allgather":
-        return world_size * packed_size(n)
-    return 2 * (world_size - 1) * a2a_chunk_bytes(n, world_size)
+        return world_size * packed_size(n), 0
+    return 2 * (world_size - 1) * a2a_chunk_bytes(n, world_size), 0
 
 
 def wire_bytes_per_param(num_params: int, world_size: int, wire: str,
                          vote_every: int = 1, accum_steps: int = 1,
                          vote_buckets: int = 1) -> dict:
     """Bytes RECEIVED per worker per optimizer step, with the same keys and
-    values as the JAX package's accounting for the flat wires."""
-    kind, _ = parse_wire(wire)
+    values as the JAX package's accounting (at ``dcn_pipeline_depth`` 0);
+    the hier wire adds its group count and its cross-group leg alone."""
+    kind, group = parse_wire(wire)
     n_voted = (num_params if vote_every <= 1
                else min(num_params, vote_chunk_elems(num_params, vote_every)))
-    per_bucket = [_recv_bytes(size, world_size, kind)
+    if kind == "hier" and world_size % group:
+        raise ValueError(
+            f"hier group size {group} does not divide world {world_size}")
+    per_bucket = [_recv_bytes(size, world_size, kind, group)
                   for _, size in bucket_bounds(n_voted, max(vote_buckets, 1),
                                                world_size, wire)]
-    ours = sum(per_bucket)
-    overlappable = (sum(per_bucket[1:]) / ours
+    ours = sum(b for b, _ in per_bucket)
+    overlappable = (sum(b for b, _ in per_bucket[1:]) / ours
                     if ours and world_size > 1 else 0.0)
+    extras: dict = {}
+    if kind == "hier":
+        dcn = sum(d for _, d in per_bucket)
+        extras = {"hier_groups": world_size // group,
+                  "dcn_bytes_per_step": dcn,
+                  "dcn_bits_per_param": 8.0 * dcn / max(num_params, 1),
+                  "dcn_pipeline_depth": 0,
+                  "dcn_overlap_frac": 0.0}
     if world_size <= 1:
         ours = 0  # a one-voter wire moves nothing
     reference = world_size * packed_size(num_params) * 8
@@ -120,7 +165,7 @@ def wire_bytes_per_param(num_params: int, world_size: int, wire: str,
     if world_size <= 1:
         reference = bf16_allreduce = 0
     bits = 8.0 * ours / max(num_params, 1)
-    return {
+    return extras | {
         "wire": wire,
         "vote_every": vote_every,
         "vote_buckets": max(vote_buckets, 1),

@@ -10,6 +10,7 @@ constant and round once at the end.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -37,6 +38,37 @@ def decay_params(params: torch.Tensor, lr: torch.Tensor, wd: float) -> torch.Ten
 def sign_vote_bool(grad: torch.Tensor, exp_avg: torch.Tensor, b1: float) -> torch.Tensor:
     """Deterministic binarization: True where the update is > 0 (zero votes −1)."""
     return interp(grad, exp_avg, b1) > 0
+
+
+def stochastic_generator(seed: int, count: int, rank: int,
+                         device: torch.device) -> torch.Generator:
+    """The random stream of one rank's stochastic ballots at one step, on
+    ``device``: seeded from ``(seed, count, rank)`` alone, so a run
+    replays its draws, a resume needs only the seed and the step count, and
+    ranks draw apart (the JAX package folds the count, then the worker
+    index, into its key)."""
+    words = np.random.SeedSequence([seed, count, rank]).generate_state(1, np.uint64)
+    return torch.Generator(device=device).manual_seed(int(words[0]))
+
+
+def stochastic_p_up(grad: torch.Tensor, exp_avg: torch.Tensor, b1: float,
+                    max_grad_norm: float) -> torch.Tensor:
+    """``clip((u + r) / 2r, 0, 1)`` in float32, with ``u`` the Lion update
+    direction and ``r = (1 + 1/b1)·max_grad_norm``: the probability of a +1
+    ballot."""
+    r = (1.0 + 1.0 / b1) * max_grad_norm
+    u = interp(grad, exp_avg, b1).to(torch.float32)
+    return torch.clamp((u + _like(r, u)) / _like(2.0 * r, u), 0.0, 1.0)
+
+
+def stochastic_vote_bool(grad: torch.Tensor, exp_avg: torch.Tensor, b1: float,
+                         max_grad_norm: float, generator: torch.Generator) -> torch.Tensor:
+    """Stochastic binarization (the reference's unbiased 1-bit quantizer):
+    True with probability :func:`stochastic_p_up`, a uniform draw in [0, 1)
+    from ``generator`` below it. Where ``|u| >= r`` the probability is 0 or
+    1 and the ballot is the deterministic one."""
+    p_up = stochastic_p_up(grad, exp_avg, b1, max_grad_norm)
+    return torch.rand(p_up.shape, generator=generator, device=p_up.device) < p_up
 
 
 def apply_signed_update(params: torch.Tensor, vote_pos: torch.Tensor,

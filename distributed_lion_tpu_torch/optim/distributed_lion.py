@@ -1,12 +1,13 @@
 """Distributed Lion: 1-bit majority-vote Lion over ``torch.distributed``.
 
-Port of ``distributed_lion_tpu/optim/distributed_lion.py``, deterministic
-fused path (``_step_pallas``, :370-519). Each step, every rank:
+Port of ``distributed_lion_tpu/optim/distributed_lion.py``. The
+deterministic mode follows the fused path (``_step_pallas``, :370-519).
+Each step, every rank:
 
 1. forms int8 ±1 ballots from its own momentum and gradient
    (:func:`fused_lion.fused_ballots`, one launch per vote bucket);
 2. votes each bucket over the wire (``parallel.collectives``), bucket k's
-   collective issued ``async_op=True`` while bucket k−1 applies;
+   first collective issued ``async_op=True`` while bucket k−1 applies;
 3. applies the elected ±lr step with decoupled weight decay and updates its
    momentum from its local gradient (:func:`fused_lion.fused_apply`, one
    launch per bucket, in place on the flat buffers).
@@ -16,19 +17,29 @@ boundaries as the JAX package), so a bucket is one window and one launch,
 where the JAX package launches once per leaf window. Momentum is rank-local:
 the JAX package's ``[world, ...]`` stacked momentum is that, stacked.
 
+The stochastic mode (``max_grad_norm`` set) follows the JAX package's XLA
+path (:703-800) in plain PyTorch ops, in the same bucket pipeline: the
+ballot is +1 with probability ``clip((u + r)/2r, 0, 1)``
+(``lion_math.stochastic_vote_bool``), drawn from a generator seeded by
+``(seed, step count, rank)`` (``lion_math.stochastic_generator``, the step
+count read from the host's ``LionState.steps``); the update decays, then
+applies the elected sign, each rounded to the param dtype as the XLA path
+rounds them.
+
 With ``telemetry=True`` each bucket also runs
 :func:`fused_lion.bucket_vote_stats` on its ballots and its tally, and
 packs its election (``codec.pack_signs``), after the tally arrives and
 before the bucket applies; ``step`` then returns ``(state, frame)``, the
-JAX package's vote-health frame (:437-463, :504-518) for
-``train.telemetry.fold``. Telemetry only observes: the elections and the
-update are the same with it on or off.
+JAX package's vote-health frame (:437-463, :504-518, with the stochastic
+flip fraction of :854-862) for ``train.telemetry.fold``. Telemetry only
+observes: the elections and the update are the same with it on or off.
 
-Ported: the deterministic mode with ``vote_every == 1`` and uniform dtypes,
-on the three flat wires, momentum in the param dtype, and vote-health
-telemetry. Refused, naming their ROADMAP items: stochastic binarization
-(``max_grad_norm``), lazy refresh (``vote_every > 1``), the DCN pipeline
-(``dcn_pipeline_depth``) and the vote guard (``guard``).
+Ported: the deterministic and the stochastic modes with ``vote_every ==
+1`` and uniform dtypes, on the three flat wires and the synchronous
+``hier:<g>`` wire, momentum in the param dtype, and vote-health
+telemetry. Refused, naming their ROADMAP items: lazy refresh (``vote_every
+> 1``), the DCN pipeline (``dcn_pipeline_depth``) and the vote guard
+(``guard``).
 """
 
 from __future__ import annotations
@@ -38,7 +49,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from distributed_lion_tpu_torch.ops import fused_lion
+from distributed_lion_tpu_torch.ops import fused_lion, lion_math
 from distributed_lion_tpu_torch.ops.codec import bucket_bounds, pack_signs, parse_wire
 from distributed_lion_tpu_torch.optim.lion import (
     FlatParams,
@@ -50,7 +61,7 @@ from distributed_lion_tpu_torch.optim.lion import (
     resolve_lr,
 )
 from distributed_lion_tpu_torch.parallel import collectives
-from distributed_lion_tpu_torch.parallel.mesh import DATA_AXIS
+from distributed_lion_tpu_torch.parallel.mesh import DATA_AXIS, rank_of
 from distributed_lion_tpu_torch.train import telemetry as _vt
 
 
@@ -61,25 +72,36 @@ def _refuse(what: str, item: str) -> None:
 class DistributedLion:
     """The majority-vote optimizer over a :class:`FlatParams`. ``group`` is
     the vote's process group (None: a world of one, no collective).
-    ``tally`` optionally records the bytes each collective hands the
-    backend (:class:`collectives.WireTally`); ``telemetry`` makes ``step``
-    return the vote-health frame too."""
+    ``max_grad_norm`` selects stochastic binarization, whose draws
+    ``seed`` seeds. ``tally`` optionally records the bytes each collective
+    hands the backend (:class:`collectives.WireTally`); ``telemetry`` makes
+    ``step`` return the vote-health frame too. A ``hier:<g>`` wire builds
+    its process groups here, so every rank builds the optimizer."""
 
     def __init__(self, learning_rate: Schedule = 1e-4, b1: float = 0.9,
                  b2: float = 0.99, weight_decay: float = 0.0, *, group=None,
                  wire: str = "sign_psum", vote_buckets: int = 1,
+                 max_grad_norm: Optional[float] = None, seed: Optional[int] = None,
                  tally: Optional[collectives.WireTally] = None,
                  telemetry: bool = False):
-        parse_wire(wire)
+        kind, size = parse_wire(wire)
         _validate(learning_rate, b1, b2)
         if vote_buckets < 1:
             raise ValueError(f"vote_buckets must be >= 1, got {vote_buckets}")
+        if max_grad_norm is not None and seed is None:
+            raise ValueError("stochastic binarization (max_grad_norm) draws its ballots "
+                             "from a seed; pass seed")
+        if max_grad_norm is not None and not max_grad_norm > 0:
+            raise ValueError(f"max_grad_norm must be > 0, got {max_grad_norm}")
         self.learning_rate, self.b1, self.b2 = learning_rate, b1, b2
         self.weight_decay = weight_decay
         self.group, self.wire, self.vote_buckets = group, wire, vote_buckets
+        self.max_grad_norm, self.seed = max_grad_norm, seed
         self.tally = tally
         self.telemetry = telemetry
-        self.world = collectives.world_of(group)
+        self.world, self.rank = collectives.world_of(group), rank_of(group)
+        self.hier = (collectives.HierGroups(group, size)
+                     if kind == "hier" and group is not None else None)
 
     def init(self, flat: FlatParams) -> LionState:
         return init_state(flat)
@@ -92,20 +114,32 @@ class DistributedLion:
         lr = resolve_lr(self.learning_rate, state.count)
         p, g, m = flat.params, flat.grads, state.exp_avg
         frame = _vt.empty_frame(0, flat.device) if self.telemetry else None
+        stochastic = self.max_grad_norm is not None
+        if stochastic:
+            gen = lion_math.stochastic_generator(self.seed, state.steps, self.rank, flat.device)
+            if frame is not None:  # ballots that differ from the deterministic ones
+                flips = torch.zeros((), dtype=torch.int64, device=flat.device)
         packed: list = []
         pending = None
         for start, size in bucket_bounds(flat.numel, self.vote_buckets,
                                          self.world, self.wire):
             w = slice(start, start + size)
-            ballots = fused_lion.fused_ballots(g[w], m[w], self.b1)
-            vote = collectives.vote_total_async(ballots, self.wire, self.group,
-                                                self.tally, keep_ballots=self.telemetry)
+            if stochastic:
+                vote_pos = lion_math.stochastic_vote_bool(g[w], m[w], self.b1,
+                                                          self.max_grad_norm, gen)
+                ballots = torch.where(vote_pos, 1, -1).to(torch.int8)
+                if frame is not None:
+                    flips += (vote_pos != lion_math.sign_vote_bool(g[w], m[w], self.b1)).sum()
+            else:
+                ballots = fused_lion.fused_ballots(g[w], m[w], self.b1)
+            vote = collectives.vote_total_async(ballots, self.wire, self.group, self.tally,
+                                                keep_ballots=self.telemetry, hier=self.hier)
             if pending is not None:  # apply k−1 while bucket k is on the wire
                 self._apply(p, g, m, lr, frame, packed, *pending)
             pending = (w, ballots, vote)
         if pending is not None:
             self._apply(p, g, m, lr, frame, packed, *pending)
-        state = LionState(state.count + 1, m)
+        state = LionState(state.count + 1, m, state.steps + 1)
         if frame is None:
             return state
         n = torch.tensor(flat.numel, dtype=torch.int32, device=flat.device)
@@ -116,6 +150,8 @@ class DistributedLion:
         frame.update(elected=torch.cat(packed) if packed else frame["elected"],
                      voted=n, valid=n,
                      flip_valid=torch.ones_like(frame["flip_valid"]))
+        if stochastic:
+            frame["stoch_flip_frac"] = flips.to(torch.float32) / flat.numel
         return state, frame
 
     def _apply(self, p, g, m, lr, frame, packed, w: slice, ballots, vote):
@@ -125,7 +161,12 @@ class DistributedLion:
             frame["margin_hist"] += hist
             frame["disagree"] += dis
             packed.append(pack_signs(total > 0))
-        fused_lion.fused_apply(p[w], g[w], m[w], total, lr, self.weight_decay, self.b2)
+        if self.max_grad_norm is None:
+            fused_lion.fused_apply(p[w], g[w], m[w], total, lr, self.weight_decay, self.b2)
+            return
+        decayed = lion_math.decay_params(p[w], lr, self.weight_decay)
+        p[w] = lion_math.apply_signed_update(decayed, total > 0, lr)
+        m[w] = lion_math.momentum_update(g[w], m[w], self.b2)
 
 
 def distributed_lion(
@@ -144,11 +185,14 @@ def distributed_lion(
     telemetry: bool = False,
     guard: str = "off",
     tally: Optional[collectives.WireTally] = None,
+    seed: Optional[int] = None,
 ):
     """Build the majority-vote Lion optimizer, as the JAX package's
     ``distributed_lion``. ``axis_name=None`` is the local-Lion fallback;
     otherwise the vote runs over ``group``, defaulting to the started
-    default process group, or to a world of one when there is none."""
+    default process group, or to a world of one when there is none.
+    ``seed`` seeds the stochastic mode (the JAX package's init rng); a
+    stochastic optimizer without one is refused."""
     parse_wire(wire)
     if dcn_pipeline_depth < 0:
         raise ValueError(f"dcn_pipeline_depth must be >= 0, got {dcn_pipeline_depth}")
@@ -164,8 +208,6 @@ def distributed_lion(
         return lion(learning_rate, b1, b2, weight_decay)
     if vote_every < 1:
         raise ValueError(f"vote_every must be >= 1, got {vote_every}")
-    if max_grad_norm is not None:
-        _refuse("stochastic binarization (max_grad_norm)", "ROADMAP Queue 1 item 4")
     if vote_every > 1:
         _refuse("lazy sign refresh (vote_every > 1)", "ROADMAP Queue 1 item 4")
     if dcn_pipeline_depth > 0:
@@ -176,6 +218,7 @@ def distributed_lion(
     if group is None and dist.is_initialized():
         group = dist.group.WORLD
     return DistributedLion(learning_rate, b1, b2, weight_decay, group=group,
-                           wire=wire, vote_buckets=vote_buckets, tally=tally,
+                           wire=wire, vote_buckets=vote_buckets,
+                           max_grad_norm=max_grad_norm, seed=seed, tally=tally,
                            telemetry=telemetry)
 

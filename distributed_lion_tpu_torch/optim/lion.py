@@ -26,6 +26,7 @@ Schedule = Union[float, Callable[[torch.Tensor], torch.Tensor]]
 class LionState(NamedTuple):
     count: torch.Tensor    # int32 step counter on the params' device
     exp_avg: torch.Tensor  # flat momentum buffer, rank-local
+    steps: int = 0         # the same count on the host: seeds stochastic ballots
 
 
 class FlatParams:
@@ -131,7 +132,7 @@ class Lion:
             self.b1, self.b2)
         flat.params.copy_(p_new)
         m.copy_(m_new)
-        return LionState(state.count + 1, m)
+        return LionState(state.count + 1, m, state.steps + 1)
 
 
 def lion(learning_rate: Schedule = 1e-4, b1: float = 0.9, b2: float = 0.99,

@@ -1,7 +1,8 @@
 """Vote collectives over ``torch.distributed``: the wire layer.
 
 Port of ``distributed_lion_tpu/parallel/collectives.py`` (``vote_total``,
-:241-306, and the packed_a2a election, :359-386) for the three flat wires:
+:241-306, the packed_a2a election, :359-386, and the synchronous hier
+election, ``hier_launch`` + ``hier_consume`` at depth 0, :394-606):
 
 - ``sign_psum``: the int8 ±1 ballots are summed by one ``all_reduce``
   (int32 when W > 127, where int8 partial sums could overflow). Returns
@@ -11,9 +12,17 @@ Port of ``distributed_lion_tpu/parallel/collectives.py`` (``vote_total``,
 - ``packed_a2a``: ``all_to_all_single`` of packed ballot chunks (each rank
   tallies one chunk), then an all-gather of the packed verdicts.
   Returns a ±1 proxy of the elected sign (int8), never the magnitude.
+- ``hier:<g>``: a majority of group majorities over groups of g
+  consecutive ranks (:class:`HierGroups`). Leg 1, an ``all_to_all_single``
+  of ballot chunks inside the group, gives each member the tally of the
+  chunk it owns (int8, int32 when g > 127); leg 2 gathers the packed
+  per-group verdicts of that chunk from the members at the same position
+  in the other groups (the only cross-group, ``dcn``, leg); leg 3 gathers
+  the packed elected chunks inside the group. Returns a ±1 proxy (int8).
+  It equals the flat vote at g = 1 and g = W.
 
 Every wire elects +1 exactly where the returned total is > 0; ties elect
-−1. With no process group (a world of one) the total is the rank's own ±1
+−1 (at both levels of the hier wire). With no process group (a world of one) the total is the rank's own ±1
 ballots, as a ``psum`` over a size-1 mesh axis is. :func:`vote_total_async`
 issues the first collective with ``async_op=True`` and returns a
 :class:`PendingVote`, so the optimizer can apply the previous bucket while
@@ -29,6 +38,7 @@ import torch.distributed as dist
 
 from distributed_lion_tpu_torch.ops.codec import (
     a2a_chunk_bytes,
+    hier_legs,
     pack_signs,
     parse_wire,
     unpack_signs,
@@ -72,15 +82,84 @@ def world_of(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
+class HierGroups:
+    """The process groups of the ``hier:<g>`` wire over ``group``: each
+    rank's own group of g consecutive ranks (``intra``) and the ranks at its
+    position in every group (``cross``); None where a group would hold one
+    rank. ``dist.new_group`` is collective over the default group, so every
+    rank of it builds this, in the same order, once (the optimizer does so
+    at init)."""
+
+    def __init__(self, group, size: int):
+        ranks = dist.get_process_group_ranks(group)
+        w = len(ranks)
+        if w % size:
+            raise ValueError(f"hier wire: group size {size} does not divide world {w}")
+        me = dist.get_rank(group)
+        self.size, self.n_groups = size, w // size
+        self.intra = self.cross = None
+        for k in range(self.n_groups if size > 1 else 0):
+            sub = dist.new_group(ranks[k * size:(k + 1) * size])
+            if k == me // size:
+                self.intra = sub
+        for i in range(size if self.n_groups > 1 else 0):
+            sub = dist.new_group(ranks[i::size])
+            if i == me % size:
+                self.cross = sub
+
+
+def _hier_vote(ballots: torch.Tensor, w: int, hier: HierGroups,
+               tally: WireTally) -> PendingVote:
+    """The hier election of the module doc; member ``index`` owns chunk
+    ``index``. Each leg records the bytes ``codec.hier_legs`` counts."""
+    n, g, n_groups = ballots.numel(), hier.size, hier.n_groups
+    legs = hier_legs(n, w, g)
+    chunk = legs["chunk"]
+    acc = torch.int8 if g <= 127 else torch.int32
+    buf = ballots.to(acc)
+    if g * chunk > n:  # padding votes −1; its elections are cut off below
+        buf = torch.cat([buf, buf.new_full((g * chunk - n,), -1)])
+    if g > 1:  # leg 1: every member's ballots for the chunk I own
+        arrived = torch.empty_like(buf)
+        tally.record("ici", legs["leg1"])
+        work = dist.all_to_all_single(arrived, buf, group=hier.intra, async_op=True)
+    else:
+        arrived, work = buf, None
+
+    def finish():
+        if work is not None:
+            work.wait()
+        verdict = arrived.view(g, chunk).sum(0, dtype=torch.int32) > 0  # tie → −1
+        mine = pack_signs(verdict)
+        if n_groups > 1:  # leg 2: every group's verdict on my chunk
+            stack = mine.new_empty(n_groups * mine.numel())
+            tally.record("dcn", legs["leg2"])
+            _all_gather(stack, mine, group=hier.cross)
+            count = unpack_signs(stack, (n_groups, chunk)).sum(0, dtype=torch.int32)
+            mine = pack_signs(count * 2 > n_groups)  # tie → −1
+        if g > 1:  # leg 3: the elected chunks of my group's members
+            elected = mine.new_empty(g * mine.numel())
+            tally.record("ici", legs["leg3"])
+            _all_gather(elected, mine, group=hier.intra)
+        else:
+            elected = mine
+        return torch.where(unpack_signs(elected, (n,)), 1, -1).to(torch.int8)
+
+    return PendingVote(finish)
+
+
 def vote_total_async(ballots: torch.Tensor, wire: str, group=None,
                      tally: Optional[WireTally] = None,
-                     keep_ballots: bool = False) -> PendingVote:
+                     keep_ballots: bool = False,
+                     hier: Optional[HierGroups] = None) -> PendingVote:
     """Start the vote over int8 ±1 ``ballots`` ([n]); see the module doc.
     ``group`` is a process group, or None for a world of one without one.
     ``sign_psum`` at W <= 127 sums in place into ``ballots`` unless
     ``keep_ballots`` asks for a copy (telemetry compares the ballots with
-    the tally); the other wires never write them."""
-    kind, _ = parse_wire(wire)
+    the tally); the other wires never write them. ``hier`` is the
+    :class:`HierGroups` of a ``hier:<g>`` wire over ``group``, built here
+    when not given."""
+    kind, size = parse_wire(wire)
     if group is None:
         return PendingVote(lambda: ballots)
     w = dist.get_world_size(group)
@@ -89,6 +168,9 @@ def vote_total_async(ballots: torch.Tensor, wire: str, group=None,
     def record(nbytes):
         if w > 1:
             tally.record("ici", nbytes)
+
+    if kind == "hier":
+        return _hier_vote(ballots, w, hier or HierGroups(group, size), tally)
 
     if kind == "sign_psum":
         buf = ballots.to(torch.int8 if w <= 127 else torch.int32, copy=keep_ballots)
@@ -144,6 +226,7 @@ def vote_total_async(ballots: torch.Tensor, wire: str, group=None,
 
 def vote_total(ballots: torch.Tensor, wire: str, group=None,
                tally: Optional[WireTally] = None,
-               keep_ballots: bool = False) -> torch.Tensor:
+               keep_ballots: bool = False,
+               hier: Optional[HierGroups] = None) -> torch.Tensor:
     """Synchronous form of :func:`vote_total_async`."""
-    return vote_total_async(ballots, wire, group, tally, keep_ballots).wait()
+    return vote_total_async(ballots, wire, group, tally, keep_ballots, hier).wait()

@@ -16,7 +16,9 @@ microbatches into the flat grad buffer and averaging them. With
 ``async_grad`` (the reference's ``AsyncTrainer``) there is no gradient
 collective at all: the optimizer's vote is the only cross-rank traffic.
 With ``async_grad=False`` one ``all_reduce`` averages the flat grad buffer
-(DDP's all-reduce). ``grad_clip_norm`` clips by the rank's global norm.
+(DDP's all-reduce). ``grad_clip_norm`` clips by the rank's global norm;
+unset, ``max_grad_norm`` (which selects stochastic binarization) clips,
+since the stochastic quantizer is unbiased only where ``|u| <= r``.
 The LR lives on the card and the loop reads no device value except at
 ``logging_steps`` and in ``evaluate``. With ``telemetry`` the optimizer's
 vote-health frame is folded into ``train.telemetry.VoteHealth`` on the
@@ -65,7 +67,8 @@ class TrainConfig:
     wire: str = "auto"  # 'auto' → resolve_auto_comm
     vote_every: int = 0  # 0 = auto (1); > 1 is not ported
     vote_buckets: int = 0  # 0 = auto (resolve_auto_comm)
-    grad_clip_norm: Optional[float] = None
+    max_grad_norm: Optional[float] = None  # set → stochastic binarization
+    grad_clip_norm: Optional[float] = None  # unset → clip at max_grad_norm
     telemetry: bool = False  # vote-health telemetry (train/telemetry.py)
     learning_rate: float = 1e-4
     weight_decay: float = 0.1
@@ -154,6 +157,7 @@ def make_optimizer(cfg: TrainConfig, group=None):
     return distributed_lion(
         cfg.schedule(), b1=cfg.beta1, b2=cfg.beta2,
         weight_decay=cfg.weight_decay, group=group,
+        max_grad_norm=cfg.max_grad_norm, seed=cfg.seed,
         wire="sign_psum" if cfg.wire == "auto" else cfg.wire,
         vote_every=cfg.vote_every or 1, vote_buckets=cfg.vote_buckets or 1,
         telemetry=cfg.telemetry,
@@ -265,10 +269,11 @@ class Trainer:
                 if self.group is not None:
                     dist.all_reduce(self.flat.grads, group=self.group)
                 self.flat.grads.div_(self.world)
-            if cfg.grad_clip_norm is not None:
+            clip = (cfg.grad_clip_norm if cfg.grad_clip_norm is not None
+                    else cfg.max_grad_norm)
+            if clip:
                 sq = torch.sum(torch.square(self.flat.grads.to(torch.float32)))
-                scale = torch.clamp_max(
-                    cfg.grad_clip_norm / torch.clamp_min(torch.sqrt(sq), 1e-12), 1.0)
+                scale = torch.clamp_max(clip / torch.clamp_min(torch.sqrt(sq), 1e-12), 1.0)
                 self.flat.grads.mul_(scale.to(self.flat.grads.dtype))
         if self.vote_health is None:
             self.state = self.opt.step(self.flat, self.state)

@@ -20,11 +20,11 @@ read, at ``logging_steps``. The signals:
 Counters are folded as per-step fractions in float32 on the device, as the
 JAX package does (a 124M-coordinate count over a long window overflows
 int32). ``fold``'s two per-worker scalars (disagreement and the stochastic
-flip fraction, always 0 here) go into one ``all_reduce`` of a two-element
+flip fraction, 0 in the deterministic mode) go into one ``all_reduce`` of a two-element
 float32 tensor over the vote group; nothing in ``fold`` reads the device.
 Not ported yet (ROADMAP Queue 1 item 10): crash bundles, the measured-wire
 ledger (``measure_step_wire``), the host step-skew heartbeat, and frames
-under lazy refresh or stochastic binarization.
+under lazy refresh.
 
 This module may import ``ops``; ``optim`` and ``train.loop`` import it.
 """

@@ -104,13 +104,13 @@ def test_one_rank_group_runs_the_wire(tmp_path, wire):
 
 
 def test_refused_options_name_their_roadmap_item():
-    for kw, item in ((dict(max_grad_norm=1.0), "Queue 1 item 4"),
-                     (dict(vote_every=4), "Queue 1 item 4"),
+    for kw, item in ((dict(vote_every=4), "Queue 1 item 4"),
                      (dict(dcn_pipeline_depth=1), "Queue 1 item 11"),
                      (dict(guard="enforce"), "Queue 1 item 10")):
         with pytest.raises(NotImplementedError, match=item):
             distributed_lion(0.01, **kw)
     assert distributed_lion(0.01, telemetry=True).telemetry  # ported: no longer refused
+    assert distributed_lion(0.01, max_grad_norm=1.0, seed=0).max_grad_norm == 1.0  # ported
     assert isinstance(distributed_lion(0.01, axis_name=None), Lion)
     with pytest.raises(ValueError, match="requires a vote axis"):
         distributed_lion(0.01, axis_name=None, max_grad_norm=1.0)
@@ -148,6 +148,5 @@ def test_resolve_auto_comm_matches_jax_decision_table():
                 assert (got.wire, got.vote_every, got.vote_buckets) == \
                     (want.wire, want.vote_every, want.vote_buckets), (world, n, kw)
     multi = resolve_auto_comm(TrainConfig(), 16, 124_439_808, nodes=2, local_world=8)
-    assert multi.wire == "hier:8"  # the JAX table's pick, refused until ported
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        distributed_lion(0.01, wire=multi.wire)
+    assert multi.wire == "hier:8"  # the JAX table's pick, which builds
+    assert distributed_lion(0.01, wire=multi.wire).wire == "hier:8"

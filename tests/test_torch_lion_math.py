@@ -142,10 +142,13 @@ def test_pack_signs_bytes_equal_jax(n):
 
 
 def test_hier_wire_refused():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tcodec.parse_wire("hier:2")
-    with pytest.raises(ValueError):
-        tcodec.parse_wire("carrier_pigeon")
+    """``hier:<g>`` parses as in the JAX package; bad specs are refused by both."""
+    for wire in ("hier:1", "hier:2", "hier:8", "sign_psum"):
+        assert tcodec.parse_wire(wire) == jcodec.parse_wire(wire)
+    for bad in ("hier:0", "hier:two", "carrier_pigeon"):
+        for parse in (tcodec.parse_wire, jcodec.parse_wire):
+            with pytest.raises(ValueError):
+                parse(bad)
 
 
 def test_entry_points_refuse_without_cuda(monkeypatch):
