@@ -125,6 +125,23 @@ Phases (none of their failures is caught; any one fails the run):
    rank's launch counts are checked. Its step times are not a rate of
    the card: four ranks share it and gloo stages every collective
    through the host.
+6. Run (g), resume on the card, in the 1-rank NCCL group: the repo's
+   ``*.md`` files go through the port's GPT-2 BPE (``runs/parity/tok``,
+   its C++ merge core, which must build) into a uint16 ``bin:`` shard, read
+   by the C++ native loader (each row's ``skipped_shards`` counter, 0,
+   shows it served the batches). ``cli.run_clm.main`` trains GPT-2 124M at
+   full width, B 8 x accumulation 2 x T 1024, ``--dropout 0 --telemetry
+   --save_steps 2``, 4 steps twice, with async and with synchronous saves:
+   losses, params, momentum and every vote-health counter ``torch.equal``.
+   Then 2 steps into a fresh directory, and a fresh process (this script
+   with ``--resume-child``) resumes from step 2 to 4: ``torch.equal`` to
+   the uninterrupted run in the same four, its launches those of 2 steps;
+   the same once more with ``--max_grad_norm 1.0`` (the stochastic draws).
+   The resumed step verifies (``train.resilience.verify_step_dir``); torn
+   by ``tear_leaf_file`` it does not, and autodetect falls back to step 2.
+   It prints the checkpoint's bytes, ``ckpt_stall_s`` async against
+   synchronous, the commit time, the resume time, the native BPE's host
+   tokens/s and the data wait per step.
    Each phase prints its wall time.
 
 Times are medians of 25 CUDA-event runs after 3 warm-up calls, queued
@@ -145,18 +162,22 @@ import concurrent.futures
 import dataclasses
 import json
 import math
+import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 import torch.nn.functional as F
 
 from distributed_lion_tpu_torch.cli import run_clm, run_sft
+from distributed_lion_tpu_torch.data.bpe import BPETokenizer
 from distributed_lion_tpu_torch.data.tokenizer import ByteTokenizer
 from distributed_lion_tpu_torch.models.gpt2 import GPT2, GPT2Config
 from distributed_lion_tpu_torch.models.llama import llama_init
@@ -168,6 +189,8 @@ from distributed_lion_tpu_torch.ops.products import matmul_f32
 from distributed_lion_tpu_torch.optim.distributed_lion import DistributedLion
 from distributed_lion_tpu_torch.optim.lion import FlatParams
 from distributed_lion_tpu_torch.parallel import collectives
+from distributed_lion_tpu_torch.train import resilience
+from distributed_lion_tpu_torch.train.checkpoint import Checkpointer
 
 N_MAIN = 124_439_808   # GPT-2 124M coordinates: the main path's window
 # run (d)'s window: Llama-2-7B's LoRA adapters, r 8 on wq and wv of 32
@@ -1163,7 +1186,210 @@ def w4_phase(tmp: str, card: str) -> None:
               f"{rec['wall_s']:.1f} s on {card}; rank 0 launches {rec['launches']}", flush=True)
 
 
-def slice_phase(tmp, gen):
+# run (g), resume on the card: GPT-2 124M at full width on a bin: shard the
+# port's GPT-2 BPE makes from the repo's own text, through the native loader
+G_STEPS = 4
+G_SPLIT = 2   # the interrupted run saves here; a fresh process resumes to G_STEPS
+G_EVAL = 1    # eval batches: --eval_iters 1
+G_ARGS = ["--model_name", "gpt2_124m", "--lion", "--async_grad", "--wire", "auto",
+          "--per_device_train_batch_size", "8", "--gradient_accumulation_steps", str(ACCUM),
+          "--block_size", "1024", "--logging_steps", "1", "--dropout", "0", "--telemetry",
+          "--save_steps", str(G_SPLIT), "--per_device_eval_batch_size", "4",
+          "--eval_iters", str(G_EVAL)]
+G_STOCH = ["--max_grad_norm", "1.0"]
+ROOT = pathlib.Path(__file__).resolve().parent
+
+
+def make_shard(tmp: str, card: str) -> tuple[str, int, float]:
+    """The repo's ``*.md`` files, each a document ending in EOS, through the
+    port's GPT-2 BPE (``runs/parity/tok``) with its C++ merge core, written
+    as a uint16 ``bin:`` shard; returns (path, tokens, host tokens/s of the
+    encode)."""
+    tok = BPETokenizer.load(str(ROOT / "runs" / "parity" / "tok"))
+    if not tok.native:
+        raise AssertionError("run (g): the BPE tokenizer did not build its C++ merge core")
+    texts = [p.read_text(encoding="utf-8", errors="replace") for p in sorted(ROOT.glob("*.md"))]
+    t0 = time.perf_counter()
+    ids = [i for text in texts for i in tok.encode(text, add_eos=True)]
+    dt = time.perf_counter() - t0
+    path = f"{tmp}/g_shard.bin"
+    np.asarray(ids, np.uint16).tofile(path)
+    print(f"[resume] shard: {len(texts)} *.md files, {sum(map(len, texts))} characters -> "
+          f"{len(ids)} GPT-2 BPE tokens (vocabulary {tok.vocab_size}), native core "
+          f"{len(ids) / dt:.0f} tokens/s on the host of {card}", flush=True)
+    return path, len(ids), len(ids) / dt
+
+
+def g_expect(steps: int, stochastic: bool) -> dict:
+    """Run (g)'s launches for ``steps`` steps and its one eval batch."""
+    fused = 0 if stochastic else steps
+    return {"fused_ballots": fused, "fused_apply": fused, "bucket_vote_stats": steps,
+            "flash_attention_fwd": N_LAYER * (ACCUM * 2 * steps + G_EVAL),
+            "flash_attention_bwd_dkv": N_LAYER * ACCUM * steps,
+            "flash_attention_bwd_dq": N_LAYER * ACCUM * steps,
+            "flash_attention_di": N_LAYER * ACCUM * steps, **NO_HD128}
+
+
+def g_rows(rows: list, steps: int, label: str) -> list:
+    """The loss rows of a run (g) leg: ``steps`` finite losses, each batch
+    served by the native loader (its ``skipped_shards`` counter rides the
+    row, 0)."""
+    rows = [r for r in rows if "loss" in r]
+    if (len(rows) != steps or not all(math.isfinite(r["loss"]) for r in rows)
+            or any(r.get("skipped_shards") != 0 for r in rows)):
+        raise AssertionError(f"run (g) {label}: expected {steps} finite losses from the native "
+                             f"loader, got {rows}")
+    return rows
+
+
+def g_run(shard: str, out: str, steps: int, extra: list, label: str):
+    """One in-process ``run_clm.main`` of run (g), counted; returns (final
+    state on the host, rows, launches, checkpointer)."""
+    reset_counts()
+    trainer = run_clm.main(G_ARGS + ["--dataset", f"bin:{shard}", "--max_steps", str(steps),
+                                     "--output_dir", out] + extra)
+    launches = read_counts()
+    expect(f"(g) {label}", launches, g_expect(steps, bool(extra and G_STOCH[0] in extra)))
+    state = {"params": trainer.flat.params.cpu(), "exp_avg": trainer.state.exp_avg.cpu(),
+             "vote_health": {f.name: getattr(trainer.vote_health, f.name).cpu()
+                             for f in dataclasses.fields(trainer.vote_health)}}
+    rows = g_rows(trainer.history, steps, label)
+    ck = trainer.checkpointer
+    del trainer
+    torch.cuda.empty_cache()
+    return state, rows, launches, ck
+
+
+def resume_child(tmp: str, out_json: str, argv: list) -> int:
+    """The resumed leg of run (g), in a fresh process: ``run_clm.main(argv)``
+    in a 1-rank NCCL group, every counter at 0 before it; writes the
+    launches, the rows, the resume time and the process wall to
+    ``out_json``."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/pg_child", rank=0, world_size=1)
+    try:
+        reset_counts()
+        trainer = run_clm.main(argv)
+        launches = read_counts()
+        with open(out_json, "w") as f:
+            json.dump({"launches": launches, "rows": trainer.history,
+                       "resume_s": trainer.resume_s, "start_step": trainer.history[0]["step"] - 1,
+                       "wall_s": time.perf_counter() - t0}, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def g_resumed(tmp: str, shard: str, out: str, extra: list, label: str) -> dict:
+    """Run (g)'s interrupted leg: G_SPLIT steps in this process, then a
+    fresh process resumes from ``out`` to G_STEPS; returns its record with
+    the loss rows of both legs and the resumed step's files."""
+    _, first, _, _ = g_run(shard, out, G_SPLIT, extra, f"{label}, steps 1-{G_SPLIT}")
+    out_json = f"{tmp}/g_child.json"
+    argv = G_ARGS + ["--dataset", f"bin:{shard}", "--max_steps", str(G_STEPS),
+                     "--output_dir", out] + extra
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, __file__, "--resume-child", tmp, out_json, *argv],
+                          capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"run (g) {label}: the resumed process exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    with open(out_json) as f:
+        child = json.load(f)
+    if child["start_step"] != G_SPLIT or "resumed from checkpoint step 2" not in proc.stdout:
+        raise AssertionError(f"run (g) {label}: the fresh process did not resume from step "
+                             f"{G_SPLIT}:\n{proc.stdout[-3000:]}")
+    expect(f"(g) {label}, resumed", child["launches"],
+           g_expect(G_STEPS - G_SPLIT, G_STOCH[0] in extra))
+    rows = first + g_rows(child["rows"], G_STEPS - G_SPLIT, f"{label}, resumed")
+    ck = f"{out}/checkpoints"
+    vh = torch.load(f"{ck}/{G_STEPS}/vote_health.pt", weights_only=True)
+    return {"rows": rows, "child": child, "process_wall_s": wall,
+            "params": torch.load(f"{ck}/{G_STEPS}/params.pt", weights_only=True)["flat"],
+            "exp_avg": torch.load(f"{ck}/{G_STEPS}/exp_avg/rank00000.pt", weights_only=True),
+            "vote_health": vh}
+
+
+def g_equal(label: str, want: dict, want_rows: list, got: dict, got_rows: list) -> None:
+    """``torch.equal`` of losses, params, momentum and every vote-health
+    counter."""
+    losses = [r["loss"] for r in want_rows], [r["loss"] for r in got_rows]
+    differ = [k for k in ("params", "exp_avg") if not torch.equal(want[k], got[k])]
+    differ += [f"vote_health.{k}" for k, v in want["vote_health"].items()
+               if not torch.equal(v, got["vote_health"][k])]
+    if losses[0] != losses[1]:
+        differ.append(f"losses {losses}")
+    if differ:
+        raise AssertionError(f"run (g) {label}: not torch.equal in {differ}")
+    print(f"[resume] {label}: torch.equal in the losses {[round(x, 6) for x in losses[0]]}, "
+          f"params, momentum and every vote-health counter", flush=True)
+
+
+def resume_phase(tmp: str, card: str) -> None:
+    """Run (g): two uninterrupted 4-step runs (async and synchronous
+    saves) equal; then 2 steps, a fresh process resuming to 4, equal to
+    them; the same for the stochastic mode; then the committed step
+    verified, torn, and autodetect falling back to the step before."""
+    t = time.perf_counter()
+    shard, n_tokens, tok_s = make_shard(tmp, card)
+    a, a_rows, a_launches, a_ck = g_run(shard, f"{tmp}/g_a", G_STEPS, [], "async saves")
+    b, b_rows, _, b_ck = g_run(shard, f"{tmp}/g_b", G_STEPS, ["--async_ckpt", "false"],
+                               "synchronous saves")
+    g_equal("uninterrupted twice (async saves against synchronous)", a, a_rows, b, b_rows)
+    step_dir = pathlib.Path(f"{tmp}/g_a/checkpoints/{G_STEPS}")
+    ckpt_bytes = sum(p.stat().st_size for p in step_dir.rglob("*") if p.is_file())
+    if not resilience.verify_step_dir(step_dir):
+        raise AssertionError(f"run (g): {step_dir} does not verify")
+    stall = {k: ([r["ckpt_stall_s"] for r in rows], ck.total_stall_s)
+             for k, rows, ck in (("async", a_rows, a_ck), ("sync", b_rows, b_ck))}
+    print(f"[resume] checkpoint of step {G_STEPS}: {ckpt_bytes} bytes in "
+          f"{len([p for p in step_dir.rglob('*') if p.is_file()])} files; commit (manifest "
+          f"digest + marker) {a_ck.last_commit_s:.3f} s; ckpt_stall_s by row, async "
+          f"{stall['async'][0]} (total with the close's drain {stall['async'][1]:.3f} s), "
+          f"synchronous {stall['sync'][0]} (total {stall['sync'][1]:.3f} s); data wait "
+          f"{[round(r['data_wait_ms'], 3) for r in a_rows]} ms a step (native loader); "
+          f"on {card}", flush=True)
+    shutil.rmtree(f"{tmp}/g_b")
+    r = g_resumed(tmp, shard, f"{tmp}/g_c", [], "deterministic")
+    g_equal("2 steps + a fresh process resuming to 4, against uninterrupted", a, a_rows, r,
+            r["rows"])
+    print(f"[resume] resumed process: verify + restore {r['child']['resume_s']:.3f} s, process "
+          f"{r['process_wall_s']:.1f} s (its own clock {r['child']['wall_s']:.1f} s); launches "
+          f"{r['child']['launches']}; on {card}", flush=True)
+    ck_c = f"{tmp}/g_c/checkpoints"
+    if not (resilience.verify_step_dir(f"{ck_c}/{G_STEPS}")
+            and resilience.latest_valid_step_in(ck_c) == G_STEPS):
+        raise AssertionError(f"run (g): the resumed run's step {G_STEPS} does not verify")
+    torn = resilience.tear_leaf_file(ck_c, G_STEPS)
+    fallback = Checkpointer(ck_c).latest_valid_step()
+    if (resilience.verify_step_dir(f"{ck_c}/{G_STEPS}") or fallback != G_SPLIT
+            or resilience.latest_valid_step_in(ck_c) != G_SPLIT):
+        raise AssertionError(f"run (g): after tearing {torn} autodetect found {fallback}, "
+                             f"expected {G_SPLIT}")
+    print(f"[resume] tore {torn.relative_to(ck_c)} of step {G_STEPS}: it no longer verifies, "
+          f"autodetect falls back to step {fallback}", flush=True)
+    for d in ("g_a", "g_c"):
+        shutil.rmtree(f"{tmp}/{d}")
+    del a, b, r
+    s, s_rows, _, _ = g_run(shard, f"{tmp}/g_d", G_STEPS, G_STOCH, "stochastic")
+    rs = g_resumed(tmp, shard, f"{tmp}/g_e", G_STOCH, "stochastic")
+    g_equal("stochastic (--max_grad_norm 1.0): 2 steps + a fresh process resuming to 4, "
+            "against uninterrupted", s, s_rows, rs, rs["rows"])
+    for d in ("g_d", "g_e"):
+        shutil.rmtree(f"{tmp}/{d}")
+    print(f"[slice] (g) resume: GPT-2 124M, 1 rank, B 8 x accum {ACCUM} x T 1024 on "
+          f"{n_tokens} tokens of the repo's text (bin:, native loader), losses "
+          f"{[round(x['loss'], 4) for x in a_rows]}; steps 2-{G_STEPS} "
+          f"{[x['step_ms'] for x in a_rows[1:]]} ms; native BPE {tok_s:.0f} tokens/s; "
+          f"launches of the uninterrupted run {a_launches}; on {card}", flush=True)
+    phase_time("slice (g), resume on the card", t)
+
+
+def slice_phase(tmp, gen, card):
     t = time.perf_counter()
     torch.cuda.set_device(0)
     dist.init_process_group("nccl", init_method=f"file://{tmp}/pg", rank=0, world_size=1)
@@ -1218,6 +1444,7 @@ def slice_phase(tmp, gen):
         t = phase_time("slice (e), GPT-2 124M stochastic", t)
         llama = llama_run(gen)
         phase_time("slice (d), Llama-2-7B", t)
+        resume_phase(tmp, card)
     finally:
         dist.destroy_process_group()
     print(f"[stochastic] run (e) - run (c), median step: "
@@ -1239,6 +1466,8 @@ def phase_time(name: str, since: float) -> float:
 
 
 def main():
+    if sys.argv[1:2] == ["--resume-child"]:
+        return resume_child(sys.argv[2], sys.argv[3], sys.argv[4:])
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1270,7 +1499,7 @@ def main():
     nf4_check(gen)
     phase_time("model, products, NF4", t)
     with tempfile.TemporaryDirectory() as tmp:
-        (world, wire, buckets), runs, llama = slice_phase(tmp, gen)
+        (world, wire, buckets), runs, llama = slice_phase(tmp, gen, card)
         t = time.perf_counter()
         w4_phase(tmp, card)
         phase_time(f"slice (f), GPT-2 124M at W = {W4} on one card", t)

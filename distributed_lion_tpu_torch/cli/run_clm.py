@@ -10,10 +10,16 @@ The reference's canonical launch, one process per GPU:
 
 Without torchrun it trains a world of one. It runs on the GPU;
 ``DLION_PLATFORM=cpu`` asks for the CPU (gloo under torchrun). Datasets:
-``synthetic`` and ``bin:<glob>`` (pre-tokenized uint16/uint32 shards).
-``output_dir/model.npz`` is written in the JAX package's format. Periodic
-checkpoints and resume, ``text:`` datasets and the Llama family are not
-ported yet (ROADMAP Queue 1 items 7 and 9).
+``synthetic``, ``text:<glob>`` (local text through ``--tokenizer_name``:
+bytes, or GPT-2 BPE with ``bpe:<dir>``; the embedding grows to the
+tokenizer's vocabulary unless ``--vocab_size`` is set) and ``bin:<glob>``
+(pre-tokenized uint16/uint32 shards, read by the C++ mmap and prefetch
+loader, ``data/native_loader.py``, unless ``--native_loader false`` or no
+C++ compiler is found). With ``--output_dir`` the trainer checkpoints every
+``--save_steps`` into ``output_dir/checkpoints`` and resumes from there
+(``train/loop.py``); a run that ends saves its last step, and rank 0 writes
+``output_dir/model.npz`` in the JAX package's format. The Llama family is
+not ported yet (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -29,7 +35,9 @@ from distributed_lion_tpu_torch.data.sources import (
     TokenDataset,
     batch_iterator,
     synthetic_lm_dataset,
+    tokens_from_text_files,
 )
+from distributed_lion_tpu_torch.data.tokenizer import load_tokenizer
 from distributed_lion_tpu_torch.models.gpt2 import GPT2Config
 from distributed_lion_tpu_torch.parallel.mesh import (
     init_distributed,
@@ -63,15 +71,32 @@ def resolve_dropout(dropout: Optional[float], family: str) -> float:
 
 @dataclasses.dataclass
 class DataArguments:
-    dataset: str = "synthetic"  # synthetic | bin:<glob>
+    dataset: str = "synthetic"  # synthetic | text:<glob> | bin:<glob>
+    tokenizer_name: Optional[str] = None  # text: only; see data/tokenizer.load_tokenizer
     validation_split_percentage: int = 5
     max_train_samples: Optional[int] = None
     max_eval_samples: Optional[int] = None
     synthetic_blocks: int = 4096
+    native_loader: bool = True  # the C++ mmap + prefetch loader for bin: datasets
     bin_dtype: str = "uint16"
 
 
 VOCAB_PROBE_TOKENS = 4_000_000  # sample budget for the token-id range check
+
+
+def _check_vocab(max_token_id: int, vocab_size: int) -> None:
+    # an id past the embedding table would index out of range
+    if max_token_id >= vocab_size:
+        raise ValueError(
+            f"dataset contains token id {max_token_id} >= model vocab_size {vocab_size}; "
+            "set --vocab_size (or use a matching tokenizer)")
+
+
+def _bin_paths(spec: str) -> list:
+    paths = sorted(glob.glob(spec[len("bin:"):]))
+    if not paths:
+        raise FileNotFoundError(f"no files match {spec!r}")
+    return paths
 
 
 def load_blocks(data_args: DataArguments, block_size: int, vocab_size: int):
@@ -79,25 +104,22 @@ def load_blocks(data_args: DataArguments, block_size: int, vocab_size: int):
     package's ``load_blocks``."""
     if data_args.dataset == "synthetic":
         blocks = synthetic_lm_dataset(data_args.synthetic_blocks, block_size, vocab_size)
-    elif data_args.dataset.startswith("bin:"):
-        paths = sorted(glob.glob(data_args.dataset[len("bin:"):]))
+    elif data_args.dataset.startswith("text:"):
+        paths = sorted(glob.glob(data_args.dataset[len("text:"):]))
         if not paths:
             raise FileNotFoundError(f"no files match {data_args.dataset!r}")
+        blocks = tokens_from_text_files(paths, block_size, data_args.tokenizer_name)
+    elif data_args.dataset.startswith("bin:"):
+        # each shard cut on its own (its tail below one block dropped), the
+        # native loader's layout
         shards = [TokenDataset.from_bin(p, block_size, np.dtype(data_args.bin_dtype)).blocks
-                  for p in paths]
+                  for p in _bin_paths(data_args.dataset)]
         blocks = np.concatenate([s for s in shards if len(s)])
-    elif data_args.dataset.startswith("text:"):
-        raise NotImplementedError(
-            "text: datasets need the tokenizer stack, not ported yet "
-            "(ROADMAP Queue 1 item 7); pre-tokenize to bin: shards")
     else:
         raise ValueError(f"unknown dataset spec {data_args.dataset!r}")
     if len(blocks):
         sample = np.asarray(blocks[: max(1, VOCAB_PROBE_TOKENS // blocks.shape[1])])
-        if int(sample.max()) >= vocab_size:
-            raise ValueError(
-                f"dataset contains token id {int(sample.max())} >= model "
-                f"vocab_size {vocab_size}; set --vocab_size")
+        _check_vocab(int(sample.max()), vocab_size)
     n_val = max(1, len(blocks) * data_args.validation_split_percentage // 100)
     train, val = blocks[n_val:], blocks[:n_val]
     if data_args.max_train_samples:
@@ -105,6 +127,72 @@ def load_blocks(data_args: DataArguments, block_size: int, vocab_size: int):
     if data_args.max_eval_samples:
         val = val[: data_args.max_eval_samples]
     return np.asarray(train), np.asarray(val)
+
+
+def make_native_pipeline(data_args: DataArguments, block_size: int, vocab_size: int,
+                         global_batch: int, seed: int):
+    """The C++ mmap + prefetch pipeline of a ``bin:<glob>`` dataset:
+    ``(train_iter, eval_blocks, loader)``, or None for the Python path
+    (another dataset, ``--native_loader false``, or no C++ compiler). The
+    hold-out is always the full split percentage, so the training blocks
+    are those of :func:`load_blocks`."""
+    if not (data_args.dataset.startswith("bin:") and data_args.native_loader):
+        return None
+    from distributed_lion_tpu_torch.data.native_loader import NativeTokenLoader, native_available
+
+    if not native_available():
+        print("[run_clm] no C++ toolchain; falling back to Python loader")
+        return None
+    paths = _bin_paths(data_args.dataset)
+    loader = NativeTokenLoader(paths, block_size, dtype=np.dtype(data_args.bin_dtype))
+    n = len(loader)
+    n_val = max(1, n * data_args.validation_split_percentage // 100)
+    hi = n
+    if data_args.max_train_samples:
+        hi = min(n, n_val + data_args.max_train_samples)
+    if data_args.max_eval_samples:
+        n_eval_read = min(n_val, data_args.max_eval_samples)
+    else:
+        n_eval_read = min(n_val, 4096)
+        if n_eval_read < n_val:
+            print(f"[run_clm] eval uses the first {n_eval_read} of {n_val} held-out blocks "
+                  "(set --max_eval_samples to override)")
+    eval_blocks = loader.read_blocks(0, n_eval_read)
+    # the vocabulary probe samples the train range too
+    n_probe = max(1, min(hi - n_val, VOCAB_PROBE_TOKENS // block_size))
+    probe_idx = np.linspace(n_val, hi - 1, n_probe, dtype=np.int64)
+    mx = max(int(eval_blocks.max()) if n_eval_read else 0,
+             max(int(loader.read_block(int(i)).max()) for i in probe_idx))
+    _check_vocab(mx, vocab_size)
+    it = loader.batches(global_batch, seed=seed, block_range=(n_val, hi))
+    print(f"[run_clm] native loader: {len(paths)} shard(s), {n} blocks ({n_val} held out for "
+          "eval)")
+    return it, eval_blocks, loader
+
+
+def check_shard_fleet(trainer: Trainer, loader) -> None:
+    """Stamp the served shards into the checkpoints' meta, and refuse a
+    resume whose fleet differs from the checkpoint's: block indices are a
+    function of the fleet, so the resumed data would not be the run's."""
+    trainer.data_meta["data_shards"] = loader.shards
+    if trainer.step_count == 0:
+        return
+    ck = trainer.checkpointer
+    meta = (ck.manifest_meta(trainer.step_count) if ck and trainer.cfg.ckpt_integrity
+            else None) or {}
+    old = meta.get("data_shards")
+    if old is not None and list(old) != list(loader.shards):
+        raise RuntimeError(
+            f"resuming from step {trainer.step_count} but the served shard fleet changed: the "
+            f"checkpoint recorded {old}, this run would serve {loader.shards} (skipped: "
+            f"{loader.skipped_shards}). Restore the original shards, or start fresh with "
+            "--resume_from_checkpoint false or another --output_dir")
+    if old is None and loader.skipped_shards:
+        raise RuntimeError(
+            f"resuming from step {trainer.step_count} but {len(loader.skipped_shards)} "
+            f"shard(s) failed to load ({loader.skipped_shards}) and the checkpoint records no "
+            "shard fleet. Restore the shard(s), or start fresh with "
+            "--resume_from_checkpoint false or another --output_dir")
 
 
 def model_config(model_args: ModelArguments) -> GPT2Config:
@@ -131,13 +219,21 @@ def model_config(model_args: ModelArguments) -> GPT2Config:
 
 
 def main(argv=None) -> Trainer:
-    """Train, evaluate, and write ``output_dir/model.npz``; returns the
-    (closed) trainer, whose ``history`` holds the logged rows."""
+    """Train, evaluate, save the last step and write
+    ``output_dir/model.npz``; returns the (closed) trainer, whose
+    ``history`` holds the logged rows (with the native loader's
+    ``skipped_shards`` and ``shard_read_retries`` where it served the
+    batches)."""
     model_args, data_args, train_cfg = parse_dataclasses(
         (ModelArguments, DataArguments, TrainConfig), argv)
     device = platform_device()
     group = init_distributed(device)
     model_cfg = model_config(model_args)
+    if not model_args.vocab_size and data_args.dataset.startswith("text:"):
+        tok_vocab = load_tokenizer(data_args.tokenizer_name).vocab_size
+        if tok_vocab > model_cfg.vocab_size:
+            print(f"[run_clm] growing vocab_size {model_cfg.vocab_size} -> tokenizer {tok_vocab}")
+            model_cfg = dataclasses.replace(model_cfg, vocab_size=tok_vocab)
     if train_cfg.block_size > model_cfg.n_ctx:
         print(f"[run_clm] capping block_size {train_cfg.block_size} -> n_ctx {model_cfg.n_ctx}")
         train_cfg.block_size = model_cfg.n_ctx
@@ -148,17 +244,29 @@ def main(argv=None) -> Trainer:
         print("[run_clm] vote-health telemetry on: margin histogram "
               + ("EXACT (tally wire " if trainer.margin_exact else "UNAVAILABLE (proxy wire ")
               + f"{trainer.cfg.wire}); drained every {train_cfg.logging_steps} steps")
-    train_blocks, eval_blocks = load_blocks(data_args, train_cfg.block_size,
-                                            model_cfg.vocab_size)
-    it = batch_iterator(train_blocks, trainer.global_train_batch(), seed=train_cfg.seed)
+    loader = None
     try:
+        native = make_native_pipeline(data_args, train_cfg.block_size, model_cfg.vocab_size,
+                                      trainer.global_train_batch(), train_cfg.seed)
+        if native is not None:
+            it, eval_blocks, loader = native
+            check_shard_fleet(trainer, loader)
+        else:
+            train_blocks, eval_blocks = load_blocks(data_args, train_cfg.block_size,
+                                                    model_cfg.vocab_size)
+            it = batch_iterator(train_blocks, trainer.global_train_batch(),
+                                seed=train_cfg.seed)
         trainer.train(it, eval_blocks=eval_blocks)
         if len(eval_blocks):
             trainer.evaluate(eval_blocks)
+        if trainer.checkpointer:
+            trainer.save()
         if train_cfg.output_dir and rank_of(group) == 0:
             save_pytree(f"{train_cfg.output_dir}/model.npz", params_to_jax(trainer.model))
     finally:
         trainer.close()
+        if loader is not None:
+            loader.close()
     return trainer
 
 

@@ -12,7 +12,10 @@ only. Without torchrun it trains a world of one; it runs on the GPU unless
 ``group_by_length``; ``gradient_checkpointing`` is refused, every block is
 rematerialized anyway). The chars/token ratio is logged before training.
 ``--merged_output <path>.npz`` saves the LoRA-merged, dequantized model in
-the JAX package's flat format.
+the JAX package's flat format. With ``--output_dir`` the trainer
+checkpoints the adapters and their momenta every ``--save_steps``, resumes
+from them (``train/loop.py``) and saves the last step; the frozen base is
+not saved: a resume rebuilds it from the seed, as the JAX package does.
 
 The synthetic path takes its vocabulary from the byte tokenizer,
 ``max(tokenizer vocab, 259)``, as the JAX package does without a Llama
@@ -195,6 +198,8 @@ def main(argv=None) -> tuple[Trainer, Llama, dict]:
         trainer.train(train_iter, eval_blocks=eval_blocks)
         if eval_blocks is not None:
             trainer.evaluate(eval_blocks)
+        if trainer.checkpointer:
+            trainer.save()
         if args.merged_output and rank0:
             merged = dequantize_tree(merge_lora(base, adapters, lora_cfg))
             save_pytree(args.merged_output, merged)

@@ -37,7 +37,9 @@ observes: the elections and the update are the same with it on or off.
 Ported: the deterministic and the stochastic modes with ``vote_every ==
 1`` and uniform dtypes, on the three flat wires and the synchronous
 ``hier:<g>`` wire, momentum in the param dtype, and vote-health
-telemetry. Refused, naming their ROADMAP items: lazy refresh (``vote_every
+telemetry; and :func:`remap_worker_momentum`, the elastic resume's remap of
+the per-rank momenta to another world size. Refused, naming their ROADMAP
+items: lazy refresh (``vote_every
 > 1``), the DCN pipeline (``dcn_pipeline_depth``) and the vote guard
 (``guard``).
 """
@@ -222,3 +224,44 @@ def distributed_lion(
                            max_grad_norm=max_grad_norm, seed=seed, tally=tally,
                            telemetry=telemetry)
 
+
+
+def remap_worker_momentum(exp_avg: torch.Tensor, old_world: int, new_world: int) -> torch.Tensor:
+    """Remap per-rank Lion momenta stacked ``[W, ...]`` (one row per rank's
+    momentum file) to ``[W', ...]`` for an elastic resume, as the JAX
+    package's ``remap_worker_momentum``; every policy keeps the
+    cross-worker mean, the center of the vote:
+
+    - ``W' == W``: the input itself;
+    - ``W' < W`` with ``W % W' == 0``: new rank i takes the mean of old
+      ranks ``[i*g, (i+1)*g)``, ``g = W/W'``;
+    - ``W' > W`` with ``W' % W == 0``: each old rank's momentum is repeated
+      ``W'/W`` times;
+    - otherwise every new rank takes the mean of all old ranks.
+
+    Means are taken in float32 and cast back to the momentum's dtype: the
+    terms summed in rank order, then times the float32 reciprocal of their
+    count, which is how XLA on the CPU reduces up to 32 terms, so the
+    result equals the JAX package's bit for bit at those worlds."""
+    if new_world == old_world:
+        return exp_avg
+    if new_world < 1 or old_world < 1:
+        raise ValueError(f"invalid world sizes {old_world}->{new_world}")
+    if exp_avg.shape[0] != old_world:
+        raise ValueError(f"momentum has leading dim {exp_avg.shape[0]}, expected old world "
+                         f"{old_world}")
+    f32 = exp_avg.to(torch.float32)
+
+    def mean(rows: torch.Tensor) -> torch.Tensor:  # over dim 1, in order
+        total = rows[:, 0]
+        for i in range(1, rows.shape[1]):
+            total = total + rows[:, i]
+        return total * torch.tensor(1.0 / rows.shape[1], dtype=torch.float32)
+
+    if old_world % new_world == 0:
+        out = mean(f32.reshape((new_world, old_world // new_world) + f32.shape[1:]))
+    elif new_world % old_world == 0:
+        out = f32.repeat_interleave(new_world // old_world, dim=0)
+    else:
+        out = mean(f32[None]).expand((new_world,) + f32.shape[1:])
+    return out.to(exp_avg.dtype).contiguous()

@@ -20,12 +20,31 @@ With ``async_grad=False`` one ``all_reduce`` averages the flat grad buffer
 unset, ``max_grad_norm`` (which selects stochastic binarization) clips,
 since the stochastic quantizer is unbiased only where ``|u| <= r``.
 The LR lives on the card and the loop reads no device value except at
-``logging_steps`` and in ``evaluate``. With ``telemetry`` the optimizer's
-vote-health frame is folded into ``train.telemetry.VoteHealth`` on the
-card every step and drained into ``vote/*`` metrics at ``logging_steps``.
+``logging_steps``, in ``evaluate`` and at a checkpoint. With ``telemetry``
+the optimizer's vote-health frame is folded into
+``train.telemetry.VoteHealth`` on the card every step and drained into
+``vote/*`` metrics at ``logging_steps``. Each logged row also carries
+``data_wait_ms``, the mean time per step spent in ``next()`` of the data
+iterator since the last row.
 
-``TrainConfig`` holds only the fields this slice runs, with their JAX
-defaults; the others (checkpoints, the vote guard, the parallel axes, …)
+**Checkpoints.** With ``output_dir`` the trainer saves every
+``save_steps`` steps into ``output_dir/checkpoints`` (``train/checkpoint.py``,
+the JAX package's manifest and commit marker): every rank its own momentum
+(``exp_avg/rank<r>.pt``: with ``async_grad`` each rank's momentum is its
+own, the reference's resume keeps rank 0's only), rank 0 the params, the
+step and data counters, the world, the optimizer's count (device and host
+copies) and seed, and with ``telemetry`` the vote-health accumulator. At
+construction it resumes from the newest step that verifies
+(``resume_from_checkpoint``), falling back past torn or uncommitted ones,
+and fails loudly when every candidate fails to restore. A checkpoint of
+another world size is refused unless ``elastic_resume``, which remaps the
+momenta (``optim.distributed_lion.remap_worker_momentum``). The data
+iterator then skips the consumed batches (``skip``, else replay), and the
+restored count, host step count and seed make the dropout masks, the LR and
+the stochastic draws those of an uninterrupted run.
+
+``TrainConfig`` holds only the fields the port runs, with their JAX
+defaults; the others (the vote guard, preemption, the parallel axes, …)
 are not flags here, so argparse refuses them.
 """
 
@@ -44,11 +63,15 @@ import torch.distributed as dist
 from distributed_lion_tpu_torch.models.gpt2 import GPT2, GPT2Config, count_params, fold_seed
 from distributed_lion_tpu_torch.models.loss import clm_loss_and_metrics
 from distributed_lion_tpu_torch.ops.codec import vote_chunk_elems, wire_bytes_per_param
-from distributed_lion_tpu_torch.optim.distributed_lion import distributed_lion
-from distributed_lion_tpu_torch.optim.lion import FlatParams
+from distributed_lion_tpu_torch.optim.distributed_lion import (
+    distributed_lion,
+    remap_worker_momentum,
+)
+from distributed_lion_tpu_torch.optim.lion import FlatParams, LionState
 from distributed_lion_tpu_torch.parallel import collectives
 from distributed_lion_tpu_torch.parallel.mesh import rank_of, resolve_device
 from distributed_lion_tpu_torch.train import telemetry
+from distributed_lion_tpu_torch.train.checkpoint import Checkpointer
 from distributed_lion_tpu_torch.train.metrics import MetricsLogger
 from distributed_lion_tpu_torch.train.schedule import (
     constant_schedule,
@@ -85,7 +108,13 @@ class TrainConfig:
     logging_steps: int = 50
     eval_steps: int = 1000
     eval_iters: int = 20
+    save_steps: int = 1000
+    save_total_limit: Optional[int] = 2
     output_dir: Optional[str] = None
+    resume_from_checkpoint: bool = True
+    async_ckpt: bool = True  # the write and commit run behind the next steps
+    ckpt_integrity: bool = True  # sha256 manifest + COMMITTED marker, verified resume
+    elastic_resume: bool = False  # resume another world size, momenta remapped
 
     def schedule(self) -> Callable:
         if self.lr_scheduler_type == "cosine":
@@ -166,6 +195,15 @@ def make_optimizer(cfg: TrainConfig, group=None):
 
 LossFn = Callable[[object, Optional[int]], tuple]
 
+# a checkpoint step's files (train/checkpoint.py): rank 0's, and each rank's
+PARAMS_FILE = "params.pt"
+STATE_FILE = "state.pt"
+VOTE_HEALTH_FILE = "vote_health.pt"
+
+
+def momentum_file(rank: int) -> str:
+    return f"exp_avg/rank{rank:05d}.pt"
+
 
 def _rows(batch, lo: int, hi: int):
     """Rows ``lo:hi`` of a batch: an array, or a dict of arrays."""
@@ -217,8 +255,19 @@ class Trainer:
                             if cfg.telemetry else None)
         self._schedule = cfg.schedule()
         self.step_count = 0
+        self._resume_skip_batches = 0
+        # provenance stamps merged into every checkpoint's manifest meta
+        # (run_clm: the native loader's served shards)
+        self.data_meta: dict = {}
         self.history: list[dict] = []
         self.logger = MetricsLogger(cfg.output_dir if self.rank == 0 else None)
+        self.checkpointer = (
+            Checkpointer(f"{cfg.output_dir}/checkpoints", cfg.save_total_limit,
+                         async_save=cfg.async_ckpt, integrity=cfg.ckpt_integrity, group=group)
+            if cfg.output_dir else None)
+        t0 = time.perf_counter()
+        self._maybe_resume()
+        self.resume_s = time.perf_counter() - t0  # verify + restore, host clock
 
     @staticmethod
     def for_gpt2(cfg: TrainConfig, model_cfg: GPT2Config, *, device="cuda",
@@ -297,9 +346,22 @@ class Trainer:
         cfg = self.cfg
         total = cfg.max_steps
         tokens_per_step = self.global_train_batch() * cfg.block_size
+        if self._resume_skip_batches:
+            # past the batches the checkpointed run consumed: by index
+            # arithmetic where the iterator can seek, else by replay
+            if hasattr(train_iter, "skip"):
+                train_iter.skip(self._resume_skip_batches)
+            else:
+                for _ in range(self._resume_skip_batches):
+                    next(train_iter)
+            self._resume_skip_batches = 0
         t_last, s_last = time.perf_counter(), self.step_count
+        data_wait = 0.0
         while self.step_count < total:
-            metrics = self._train_step(next(train_iter))
+            t_data = time.perf_counter()
+            batch = next(train_iter)
+            data_wait += time.perf_counter() - t_data
+            metrics = self._train_step(batch)
             self.step_count += 1
             if self.step_count % cfg.logging_steps == 0 or self.step_count == total:
                 m = self._mean_over_ranks(metrics)
@@ -310,6 +372,14 @@ class Trainer:
                 m["step_ms"] = 1e3 * (now - t_last) / steps
                 m["tokens_per_sec"] = tokens_per_step * steps / max(now - t_last, 1e-9)
                 m["lr"] = float(self._schedule(torch.tensor(self.step_count - 1)))
+                m["data_wait_ms"] = 1e3 * data_wait / steps
+                data_wait = 0.0
+                if self.checkpointer:
+                    # seconds the loop was blocked on checkpointing since
+                    # the last row
+                    m["ckpt_stall_s"] = self.checkpointer.pop_stall_s()
+                if hasattr(train_iter, "health_metrics"):
+                    m.update(train_iter.health_metrics())
                 t_last, s_last = now, self.step_count
                 if self.vote_health is not None:
                     # the interval's one telemetry host read; the previous
@@ -323,6 +393,8 @@ class Trainer:
             if eval_blocks is not None and self.step_count % cfg.eval_steps == 0:
                 self.history.append({"step": self.step_count,
                                      **self.evaluate(eval_blocks)})
+            if self.checkpointer and self.step_count % cfg.save_steps == 0:
+                self.save()
         return self.history
 
     @torch.no_grad()
@@ -352,5 +424,141 @@ class Trainer:
             self.logger.log(self.step_count, out, prefix="")
         return out
 
+    # ------------------------------------------------------------ checkpoints
+    def _payload(self) -> dict:
+        """This rank's files of a checkpoint: its momentum, and on rank 0 the
+        params, the counters and the vote-health accumulator."""
+        files = {momentum_file(self.rank): self.state.exp_avg}
+        if self.rank == 0:
+            files[PARAMS_FILE] = {"names": list(self.flat.names),
+                                  "shapes": [list(s) for s in self.flat.shapes],
+                                  "flat": self.flat.params}
+            files[STATE_FILE] = {"step": self.step_count, "batches_consumed": self.step_count,
+                                 "world": self.world, "count": self.state.count,
+                                 "steps": int(self.state.steps), "seed": self.opt.seed}
+            if self.vote_health is not None:
+                files[VOTE_HEALTH_FILE] = {f.name: getattr(self.vote_health, f.name)
+                                           for f in dataclasses.fields(self.vote_health)}
+        return files
+
+    def save(self, tag: str = "periodic") -> None:
+        """Checkpoint the current step on every rank (all ranks call it)."""
+        assert self.checkpointer is not None
+        if self.checkpointer.latest_step() == self.step_count:
+            return  # already saved at this step (a final save on a save_steps boundary)
+        cfg = self.cfg
+        meta = {"world": self.world, "tag": tag, "step": self.step_count,
+                "batches_consumed": self.step_count,
+                "has_vote_health": self.vote_health is not None, "has_guard": False,
+                "wire": cfg.wire, "vote_every": cfg.vote_every, "dcn_pipeline_depth": 0,
+                "ep_dcn_pipeline": 0, "control_plane": False, **self.data_meta}
+        self.checkpointer.save(self.step_count, self._payload(), meta=meta)
+
+    def _restore_step(self, step: int, meta: dict, ckpt_world: int) -> None:
+        """Load step ``step`` into this rank's buffers; every file is read
+        and checked before anything is overwritten."""
+        ck, cfg = self.checkpointer, self.cfg
+        state = ck.restore(step, STATE_FILE)
+        params = ck.restore(step, PARAMS_FILE)
+        flat = params["flat"]
+        if (list(params["names"]) != self.flat.names
+                or [tuple(s) for s in params["shapes"]] != self.flat.shapes
+                or flat.dtype != self.flat.params.dtype):
+            raise ValueError(f"checkpoint step {step} holds other parameters than this run "
+                             "(names, shapes or dtype)")
+        if ckpt_world == self.world:
+            mom = ck.restore(step, momentum_file(self.rank))
+        else:
+            rows = torch.stack([ck.restore(step, momentum_file(r)) for r in range(ckpt_world)])
+            mom = remap_worker_momentum(rows, ckpt_world, self.world)[self.rank]
+        if mom.shape != self.state.exp_avg.shape or mom.dtype != self.state.exp_avg.dtype:
+            raise ValueError(f"checkpoint step {step}: momentum {tuple(mom.shape)} {mom.dtype}, "
+                             f"expected {tuple(self.state.exp_avg.shape)} "
+                             f"{self.state.exp_avg.dtype}")
+        vh = None
+        ckpt_ve = int(meta.get("vote_every", cfg.vote_every or 1) or 1)
+        if (ckpt_world == self.world and self.vote_health is not None
+                and ckpt_ve == (cfg.vote_every or 1) and ck.exists(step, VOTE_HEALTH_FILE)):
+            # adopted only while its packing matches this run; otherwise
+            # the telemetry window restarts fresh
+            vh = telemetry.VoteHealth(**ck.restore(step, VOTE_HEALTH_FILE,
+                                                   map_location=self.device))
+        with torch.no_grad():
+            self.flat.params.copy_(flat)
+            self.state.exp_avg.copy_(mom)
+        self.state = LionState(state["count"].to(self.device), self.state.exp_avg,
+                               int(state["steps"]))
+        self.opt.seed = state["seed"]  # the stochastic draws', as JAX restores its key
+        if vh is not None:
+            self.vote_health = vh
+        if ckpt_world != self.world and self.rank == 0:
+            print(f"[trainer] elastic resume: remapped the momenta of {ckpt_world} ranks to "
+                  f"{self.world} ({'group mean' if ckpt_world > self.world else 'replicate'} "
+                  "policy, cross-rank mean kept)", flush=True)
+        self.step_count = int(state["step"])
+        self._resume_skip_batches = int(state.get("batches_consumed", state["step"]))
+
+    def _maybe_resume(self) -> None:
+        """Resume from the newest checkpoint that verifies and restores on
+        every rank; rank 0 verifies and tells the others."""
+        ck, cfg = self.checkpointer, self.cfg
+        if not (ck and cfg.resume_from_checkpoint):
+            return
+        found = [None, None]
+        if self.rank == 0:
+            cands = (ck.valid_steps() if cfg.ckpt_integrity
+                     else [s for s in [ck.latest_step()] if s is not None])
+            found = [cands, {s: (ck.manifest_meta(s) if cfg.ckpt_integrity else None) or {}
+                             for s in cands}]
+        if self.world > 1:
+            dist.broadcast_object_list(found, src=dist.get_global_rank(self.group, 0),
+                                       group=self.group)
+        candidates, metas = found
+        for step in candidates:
+            meta = metas[step]
+            ckpt_world = int(meta.get("world", self.world))
+            for key in ("dcn_pipeline_depth", "ep_dcn_pipeline"):
+                if int(meta.get(key, 0) or 0):
+                    raise ValueError(f"checkpoint step {step} was written at --{key} "
+                                     f"{meta[key]}; the port runs 0 (ROADMAP Queue 1 item 11)")
+            if ckpt_world != self.world and not cfg.elastic_resume:
+                raise ValueError(
+                    f"checkpoint step {step} holds momenta for world={ckpt_world} but this run "
+                    f"has world={self.world}; pass --elastic_resume to remap them (or match "
+                    "the rank count)")
+            error = None
+            try:
+                self._restore_step(step, meta, ckpt_world)
+            except Exception as e:
+                error = e
+            ok = torch.tensor([0 if error else 1], dtype=torch.int32, device=self.device)
+            if self.world > 1:
+                dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=self.group)
+            if not int(ok):
+                if self.rank == 0:
+                    print(f"[trainer] checkpoint step {step} failed to restore "
+                          f"({error or 'on another rank'}); falling back to the previous good "
+                          "checkpoint", flush=True)
+                continue
+            purged = ck.purge_steps_after(step)
+            if self.rank == 0:
+                if purged:
+                    print(f"[trainer] purged stale newer checkpoints {purged}", flush=True)
+                print(f"[trainer] resumed from checkpoint step {step}", flush=True)
+            return
+        if candidates:
+            raise RuntimeError(
+                f"resume_from_checkpoint: all {len(candidates)} verified checkpoint(s) (steps "
+                f"{candidates}) failed to restore into this run's state: likely a model or "
+                "optimizer config change since they were written. Refusing to silently "
+                "restart from step 0; pass --resume_from_checkpoint false (or point "
+                "--output_dir elsewhere) to start fresh")
+
     def close(self) -> None:
-        self.logger.close()
+        try:
+            if self.checkpointer:
+                # may raise a failure of the commit thread; the metrics log
+                # still closes
+                self.checkpointer.close()
+        finally:
+            self.logger.close()

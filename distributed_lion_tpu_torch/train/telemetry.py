@@ -22,7 +22,9 @@ JAX package does (a 124M-coordinate count over a long window overflows
 int32). ``fold``'s two per-worker scalars (disagreement and the stochastic
 flip fraction, 0 in the deterministic mode) go into one ``all_reduce`` of a two-element
 float32 tensor over the vote group; nothing in ``fold`` reads the device.
-Not ported yet (ROADMAP Queue 1 item 10): crash bundles, the measured-wire
+The trainer's checkpoints carry the accumulator (``train/loop.py``), so
+flip rates and histograms continue across a restart. Not ported yet
+(ROADMAP Queue 1 item 10): crash bundles, the measured-wire
 ledger (``measure_step_wire``), the host step-skew heartbeat, and frames
 under lazy refresh.
 

@@ -59,3 +59,12 @@ def test_the_sft_slice_modules_are_among_the_checked_files():
     files = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
     assert {"ops/quant.py", "models/lora.py", "models/llama.py", "data/tokenizer.py",
             "data/packing.py", "data/sft.py", "cli/run_sft.py"} <= files
+
+
+def test_the_checkpoint_and_data_modules_are_among_the_checked_files():
+    """The checkpoint and data-path modules (resilience, the checkpointer,
+    GPT-2 BPE, the native build and loader) are in the file list both
+    checks above walk."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
+    assert {"train/resilience.py", "train/checkpoint.py", "data/bpe.py",
+            "data/native_loader.py", "data/sources.py", "native/__init__.py"} <= files

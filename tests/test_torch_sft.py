@@ -206,6 +206,6 @@ def test_reference_guards():
         run_sft.main(["--group_by_length"])
     with pytest.raises(ValueError, match="gradient_checkpointing"):
         run_sft.main(["--gradient_checkpointing"])
-    with pytest.raises(NotImplementedError, match="byte tokenizer"):
-        load_tokenizer("bpe:gpt2")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        load_tokenizer("sp:tokenizer.model")
     assert load_tokenizer(None).vocab_size == 259
