@@ -24,7 +24,8 @@ Phases (none of their failures is caught; any one fails the run):
    124,439,808 coordinates), at run (d)'s (Llama-2-7B's LoRA adapters,
    4,194,304) and at a ragged 1,000,003: ``fused_ballots``
    and ``fused_apply`` for float32 and bfloat16 params and int8 and int32
-   tallies, ``bucket_vote_stats`` for a vote of 1 (int8 tally), of 4 (int8
+   tallies, and at 124,439,808 and 1,000,003 with bfloat16 grads and
+   momentum under float32 params (``--mom_dtype bfloat16``, run (h2)), ``bucket_vote_stats`` for a vote of 1 (int8 tally), of 4 (int8
    and int32), of 3 (both) and of 300 (int32), and on windows that start
    at an odd byte offset of a larger buffer, with the tally lined up with
    the ballots and not. Outputs must be ``torch.equal``.
@@ -108,8 +109,8 @@ Phases (none of their failures is caught; any one fails the run):
    ballots on seeded g and m at 124,439,808 coordinates: equal to the
    deterministic ballots where ``|u| >= r``, the same bits from the same
    (seed, count, rank), other bits from another rank, and the mean of
-   ``ballot - (2p - 1)`` within 6 standard deviations of 0; and the
-   optimizer step's device time, stochastic against deterministic.
+   ``ballot - (2p - 1)`` within 6 standard deviations of 0 (its step's
+   device time: phase 7).
 5. Run (f), the vote across four ranks: four processes on cuda:0 in a
    gloo process group the script starts itself (NCCL refuses two ranks
    on one device) each run ``cli.run_clm.main`` on GPT-2 124M at full
@@ -143,6 +144,23 @@ Phases (none of their failures is caught; any one fails the run):
    synchronous, the commit time, the resume time, the native BPE's host
    tokens/s and the data wait per step.
    Each phase prints its wall time.
+7. Runs (h) and (i), the optimizer's other modes, in the 1-rank NCCL
+   group at (b)'s setup: (h1) ``--vote_every 4 --lr_scheduler_type
+   constant``, 5 steps (a rotation and one slot more), under a
+   ``StepWatch``: every step's slice election equal to the plain election
+   of the slice's ballots, the cache after step 5 equal to a plain
+   re-election of every slot, at step 1 the coordinates of slots 1-3 equal
+   to their decayed values (no sign step) and every coordinate of slot 0
+   moved, the wire's recorded bytes equal to ``wire_bytes_per_param``, the
+   launches by their formula (``optimizer_launches``); (h2) ``--mom_dtype
+   bfloat16``, 3 steps: bfloat16 momentum under float32 params, its bytes
+   printed; (i) ``--lion false --async_grad false`` (AdamW), 3 steps: no
+   optimizer kernel, (c)'s flash launches. Then the device time of one
+   optimizer step at 124,439,808 coordinates in a world of one: fused,
+   stochastic, lazy (every slot voted, and its first step), fused at
+   bfloat16 momentum, AdamW. Run (f) gains ``packed_a2a --vote_every 4``,
+   5 steps, under the same checks on every rank, with the bits per param
+   per step printed.
 
 Times are medians of 25 CUDA-event runs after 3 warm-up calls, queued
 while the card sleeps (``torch.cuda._sleep``) so that they time the card's
@@ -153,8 +171,10 @@ products counted over the pairs k <= q only) over its data-sheet bfloat16
 tensor rate (for ``di``, its float32 multiply-adds over the float32 rate
 outside the tensor cores). The line before the last is the per-kernel JSON record (one
 entry per kernel instantiation: the head_dim 128 flash kernels carry the
-suffix ``_hd128``; launches of the optimizer and head_dim 64 kernels are
-run (b)'s, of the head_dim 128 kernels run (d)'s); the last line is
+suffix ``_hd128``, the bfloat16-momentum optimizer kernels ``_mom_bf16``;
+launches of the optimizer and head_dim 64 kernels are run (b)'s, of the
+head_dim 128 kernels run (d)'s, of the ``_mom_bf16`` ones run (h2)'s); the
+last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -184,10 +204,18 @@ from distributed_lion_tpu_torch.models.llama import llama_init
 from distributed_lion_tpu_torch.models.lora import iter_paths
 from distributed_lion_tpu_torch.ops import cuda_build, fused_lion, lion_math, quant
 from distributed_lion_tpu_torch.ops import flash_attention as fa
-from distributed_lion_tpu_torch.ops.codec import bucket_bounds, parse_wire, unpack_signs
+from distributed_lion_tpu_torch.ops.codec import (
+    bucket_bounds,
+    pack_signs,
+    parse_wire,
+    unpack_signs,
+    vote_chunk_elems,
+    wire_bytes_per_param,
+)
 from distributed_lion_tpu_torch.ops.products import matmul_f32
 from distributed_lion_tpu_torch.optim.distributed_lion import DistributedLion
-from distributed_lion_tpu_torch.optim.lion import FlatParams
+from distributed_lion_tpu_torch.optim.lion import FlatParams, LionState, resolve_lr
+from distributed_lion_tpu_torch.optim.optax_adapter import adamw
 from distributed_lion_tpu_torch.parallel import collectives
 from distributed_lion_tpu_torch.train import resilience
 from distributed_lion_tpu_torch.train.checkpoint import Checkpointer
@@ -214,10 +242,12 @@ STOCH_MGN, STOCH_SEED, B1 = 1.0, 42, 0.9   # run (e)'s quantizer: run_clm's seed
 STOCH_SIGMAS = 6   # the unbiasedness bound of run (e)'s ballot check
 W4 = 4             # run (f): ranks sharing cuda:0 in a gloo group
 W4_STEPS = 2
-# run (f)'s wires: (wire, extra flags); gloo runs all of them on CUDA
+LAZY_K, LAZY_STEPS = 4, 5   # runs (h1) and (f)'s lazy entry: a rotation and one slot more
+# run (f)'s wires: (wire, extra flags, steps); gloo runs all of them on CUDA
 # tensors (all_reduce, all_gather_into_tensor, all_to_all_single)
-W4_RUNS = (("sign_psum", []), ("sign_psum", ["--max_grad_norm", "1.0"]),
-           ("packed_a2a", []), ("hier:2", []))
+W4_RUNS = (("sign_psum", [], W4_STEPS), ("sign_psum", ["--max_grad_norm", "1.0"], W4_STEPS),
+           ("packed_a2a", [], W4_STEPS), ("hier:2", [], W4_STEPS),
+           ("packed_a2a", ["--vote_every", str(LAZY_K)], LAZY_STEPS))
 W4_ARGS = ["--model_name", "gpt2_124m", "--dataset", "synthetic", "--synthetic_blocks", "64",
            "--lion", "--async_grad", "--per_device_train_batch_size", "2",
            "--gradient_accumulation_steps", "1", "--block_size", "1024",
@@ -245,8 +275,14 @@ FLASH = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_
          "flash_attention_di")
 # one entry per kernel instantiation: the hd64 flash kernels keep their
 # names, the hd128 ones carry the suffix
-KERNELS = ("fused_ballots", "fused_apply", "bucket_vote_stats", *FLASH,
-           *(f"{k}_hd128" for k in FLASH))
+# the optimizer kernels' entries: the bf16-momentum instantiations under
+# float32 params carry the suffix
+OPT_KERNELS = ("fused_ballots", "fused_apply", "bucket_vote_stats", "fused_ballots_mom_bf16",
+               "fused_apply_mom_bf16")
+KERNELS = (*OPT_KERNELS, *FLASH, *(f"{k}_hd128" for k in FLASH))
+# (params, momentum) dtypes the kernel phase holds the optimizer kernels at
+MOM_BF16 = (torch.float32, torch.bfloat16)
+DTYPE_PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16), MOM_BF16)
 # the optimizer kernels' wrappers count in ``.launches``; the flash
 # wrappers per head_dim in ``.by_head_dim``
 WRAPPERS = {"fused_ballots": fused_lion.fused_ballots, "fused_apply": fused_lion.fused_apply,
@@ -273,6 +309,7 @@ ROUTES = {
                            "(di in jnp between the pallas_calls, not a pallas_call)"),
 }
 ROUTES.update({f"{k}_hd128": ROUTES[k] for k in FLASH})
+ROUTES.update({f"{k}_mom_bf16": ROUTES[k] for k in ("fused_ballots", "fused_apply")})
 
 
 def reset_counts() -> None:
@@ -393,10 +430,12 @@ def optimizer_kernel_phase(gen, rates):
     returns per-kernel records at the main path's shape (float32, int8
     tally) and the max error over all cases."""
     rec = {}
-    err = {"fused_ballots": 0.0, "fused_apply": 0.0, "bucket_vote_stats": 0.0}
+    err = dict.fromkeys(OPT_KERNELS, 0.0)
     for n in (N_MAIN, N_SFT, N_RAGGED):
-        for pdt in (torch.float32, torch.bfloat16):
-            mdt = pdt
+        for pdt, mdt in DTYPE_PAIRS:
+            if (pdt, mdt) == MOM_BF16 and n == N_SFT:
+                continue   # bf16 momentum under float32 params: GPT-2's run (h2)
+            suffix = "_mom_bf16" if (pdt, mdt) == MOM_BF16 else ""
             g = torch.randn(n, generator=gen, device="cuda").to(mdt)
             m = torch.randn(n, generator=gen, device="cuda").to(mdt)
             p = torch.randn(n, generator=gen, device="cuda").to(pdt)
@@ -409,15 +448,17 @@ def optimizer_kernel_phase(gen, rates):
             if not torch.equal(ballots, plain):
                 raise AssertionError(f"fused_ballots != plain at n={n} {mdt}: "
                                      f"{(ballots != plain).sum().item()} differ")
-            err["fused_ballots"] = max(err["fused_ballots"],
-                                       (ballots.int() - plain.int()).abs().max().item())
+            err["fused_ballots" + suffix] = max(err["fused_ballots" + suffix],
+                                                (ballots.int() - plain.int()).abs().max().item())
             ms = time_ms(lambda: fused_lion.fused_ballots(g, m, 0.9))
             plain_ms = time_ms(lambda: fused_lion.fused_ballots_plain(g, m, 0.9))
             bms, by = bound(n * (2 * mb + 1), 0, rates)
             print(f"[kernel] fused_ballots n={n} {str(mdt)[6:]}: {ms:.4f} ms "
                   f"(bound {bms:.4f} ms, plain {plain_ms:.4f} ms)", flush=True)
-            if n == N_MAIN and pdt == torch.float32:
+            if n == N_MAIN and mdt == pdt == torch.float32:
                 rec["fused_ballots"] = (ms, plain_ms, bms, by, None)
+            if n == N_MAIN and (pdt, mdt) == MOM_BF16:
+                rec["fused_ballots_mom_bf16"] = (ms, plain_ms, bms, by, None)
 
             for tdt in (torch.int8, torch.int32):
                 tot = torch.randint(-3, 4, (n,), generator=gen, device="cuda",
@@ -428,11 +469,11 @@ def optimizer_kernel_phase(gen, rates):
                 torch.cuda.synchronize()
                 if not (torch.equal(pk, pp) and torch.equal(mk, mp)):
                     raise AssertionError(
-                        f"fused_apply != plain at n={n} {pdt} tally {tdt}: "
-                        f"{(pk != pp).sum().item()} params, "
+                        f"fused_apply != plain at n={n} params {pdt} momentum {mdt} tally "
+                        f"{tdt}: {(pk != pp).sum().item()} params, "
                         f"{(mk != mp).sum().item()} momenta differ")
-                err["fused_apply"] = max(
-                    err["fused_apply"],
+                err["fused_apply" + suffix] = max(
+                    err["fused_apply" + suffix],
                     (pk.float() - pp.float()).abs().max().item(),
                     (mk.float() - mp.float()).abs().max().item())
                 del pp, mp
@@ -441,11 +482,13 @@ def optimizer_kernel_phase(gen, rates):
                     lambda: fused_lion.fused_apply_plain(p, g, m, tot, lr, 0.1, 0.99))
                 bms, by = bound(n * (2 * p.element_size() + 2 * mb + mb
                                      + tot.element_size()), 0, rates)
-                print(f"[kernel] fused_apply n={n} {str(pdt)[6:]} tally "
-                      f"{str(tdt)[6:]}: {ms:.4f} ms (bound {bms:.4f} ms, "
+                print(f"[kernel] fused_apply n={n} params {str(pdt)[6:]} momentum "
+                      f"{str(mdt)[6:]} tally {str(tdt)[6:]}: {ms:.4f} ms (bound {bms:.4f} ms, "
                       f"plain {plain_ms:.4f} ms)", flush=True)
-                if n == N_MAIN and pdt == torch.float32 and tdt == torch.int8:
+                if n == N_MAIN and tdt == torch.int8 and mdt == pdt == torch.float32:
                     rec["fused_apply"] = (ms, plain_ms, bms, by, None)
+                if n == N_MAIN and tdt == torch.int8 and (pdt, mdt) == MOM_BF16:
+                    rec["fused_apply_mom_bf16"] = (ms, plain_ms, bms, by, None)
                 del tot, pk, mk
             del g, m, p
             torch.cuda.empty_cache()
@@ -858,16 +901,70 @@ SLICE_ARGS = ["--model_name", "gpt2_124m", "--dataset", "synthetic",
               "--eval_iters", str(EVAL_BATCHES)]
 
 
-def run_counted(extra):
-    """One ``run_clm.main`` with every kernel counter at 0 before and read
-    after; checks the losses and returns (trainer, rows, launches)."""
+def run_counted(extra, steps=STEPS):
+    """One ``run_clm.main`` of ``steps`` steps with every kernel counter at
+    0 before and read after; checks the losses and returns (trainer, rows,
+    launches)."""
     reset_counts()
-    trainer = run_clm.main(SLICE_ARGS + extra)
+    trainer = run_clm.main(SLICE_ARGS + extra + ["--max_steps", str(steps)])
     launches = read_counts()
     rows = [r for r in trainer.history if "loss" in r]
-    if len(rows) != STEPS or not all(math.isfinite(r["loss"]) for r in rows):
-        raise AssertionError(f"expected {STEPS} finite losses, got {rows}")
+    if len(rows) != steps or not all(math.isfinite(r["loss"]) for r in rows):
+        raise AssertionError(f"expected {steps} finite losses, got {rows}")
     return trainer, rows, launches
+
+
+def optimizer_launches(trainer, steps: int) -> dict:
+    """The optimizer kernels' launches in ``steps`` steps of ``trainer``'s
+    optimizer: per vote bucket, or under ``vote_every`` K > 1 per bucket of
+    the slot's slice that holds real coordinates (the ballot kernel at
+    float32 momentum only), and one apply a step over the voted slots
+    (float32 params and momentum only); the stats kernel with telemetry."""
+    cfg, n, world = trainer.cfg, trainer.n_params, trainer.world
+    if not cfg.lion:
+        return {"fused_ballots": 0, "fused_apply": 0, "bucket_vote_stats": 0}
+    m_dtype, p_dtype = trainer.state.exp_avg.dtype, trainer.flat.params.dtype
+    if cfg.vote_every > 1:
+        chunk = vote_chunk_elems(n, cfg.vote_every)
+        voted = sum(sum(1 for start, _ in bucket_bounds(chunk, cfg.vote_buckets, world, cfg.wire)
+                        if start < n - (t % cfg.vote_every) * chunk) for t in range(steps))
+        f32 = m_dtype == torch.float32
+        return {"fused_ballots": voted if f32 else 0,
+                "fused_apply": steps if f32 and p_dtype == torch.float32 else 0,
+                "bucket_vote_stats": voted if cfg.telemetry else 0}
+    buckets = len(bucket_bounds(n, cfg.vote_buckets, world, cfg.wire))
+    fused = 0 if cfg.max_grad_norm is not None else steps * buckets
+    return {"fused_ballots": fused, "fused_apply": fused,
+            "bucket_vote_stats": steps * buckets if cfg.telemetry else 0}
+
+
+def flash_launches(steps: int, accum: int = ACCUM, eval_batches: int = EVAL_BATCHES) -> dict:
+    """The hd 64 flash kernels' launches of a GPT-2 run at dropout 0:
+    forward twice per microbatch (remat) and once per eval batch."""
+    return {"flash_attention_fwd": N_LAYER * (accum * 2 * steps + eval_batches),
+            "flash_attention_bwd_dkv": N_LAYER * accum * steps,
+            "flash_attention_bwd_dq": N_LAYER * accum * steps,
+            "flash_attention_di": N_LAYER * accum * steps, **NO_HD128}
+
+
+def lazy_checks(label: str, trainer, watch, steps: int) -> float:
+    """A lazy run's :class:`StepWatch` record: every step's slice election
+    equal to the plain election, the cold start, after a rotation the cache
+    equal to a plain re-election of every slot, and the bytes the wire
+    recorded each step equal to ``codec.wire_bytes_per_param``; returns the
+    run's bits per param per step."""
+    cfg = trainer.cfg
+    want = wire_bytes_per_param(trainer.n_params, trainer.world, cfg.wire,
+                                vote_every=cfg.vote_every,
+                                vote_buckets=cfg.vote_buckets)["bytes_per_step"]
+    cache_equal = steps < cfg.vote_every or torch.equal(watch.cache, trainer.state.elected)
+    if (watch.slices_equal != [True] * steps or not watch.cold_start or not cache_equal
+            or watch.wire_bytes != [want] * steps):
+        raise AssertionError(
+            f"{label}: slice elections == plain {watch.slices_equal}, cold start (slots 1-"
+            f"{cfg.vote_every - 1} decayed only, slot 0 moved) {watch.cold_start}, cache == plain "
+            f"re-election {cache_equal}, wire bytes {watch.wire_bytes} (accounting {want})")
+    return 8.0 * want / trainer.n_params
 
 
 def expect(run: str, launches: dict, want: dict) -> None:
@@ -1019,28 +1116,41 @@ def stochastic_check(gen) -> None:
         raise AssertionError("run (e): the stochastic ballots fail a check (line above)")
 
 
-def stochastic_step_time(gen) -> float:
+def mode_step_times(gen) -> dict:
     """Device time of one optimizer step at the main path's size in a world
-    of one (no collective), stochastic against deterministic, on the same
-    inputs; returns the stochastic step's extra ms."""
+    of one (no collective), on the same grads: the fused deterministic step
+    (float32), the stochastic one, lazy refresh at K 4 with every slot
+    voted and at its first step, the fused step at bfloat16 momentum under
+    float32 params, and AdamW; returns them by label (ms)."""
     times = {}
     g = torch.randn(N_MAIN, generator=gen, device="cuda")
-    for label, kw in (("deterministic", {}), ("stochastic", dict(max_grad_norm=STOCH_MGN,
-                                                                  seed=STOCH_SEED))):
+    cases = (("fused", lambda: DistributedLion(3e-4, weight_decay=0.1), 0),
+             ("stochastic", lambda: DistributedLion(3e-4, weight_decay=0.1,
+                                                    max_grad_norm=STOCH_MGN, seed=STOCH_SEED), 0),
+             (f"lazy K {LAZY_K}, all slots voted",
+              lambda: DistributedLion(3e-4, weight_decay=0.1, vote_every=LAZY_K), LAZY_K - 1),
+             (f"lazy K {LAZY_K}, first step",
+              lambda: DistributedLion(3e-4, weight_decay=0.1, vote_every=LAZY_K), 0),
+             ("fused, bf16 momentum",
+              lambda: DistributedLion(3e-4, weight_decay=0.1, mom_dtype="bfloat16"), 0),
+             ("AdamW", lambda: adamw(3e-4), 0))
+    for label, make, count in cases:
         flat = FlatParams([("p", torch.nn.Parameter(
             torch.randn(N_MAIN, generator=gen, device="cuda")))])
         flat.grads.copy_(g)
-        opt = DistributedLion(3e-4, weight_decay=0.1, group=None, **kw)
+        opt = make()
         state = opt.init(flat)
+        if count:
+            state = LionState(torch.full((), count, dtype=torch.int32, device="cuda"),
+                              state.exp_avg, count, state.elected)
         times[label] = time_ms(lambda: opt.step(flat, state))
+        state_bytes = sum(t.numel() * t.element_size() for t in state
+                          if isinstance(t, torch.Tensor) and t.dim())
+        print(f"[modes] optimizer step at n={N_MAIN}, one bucket, no collective, {label}: "
+              f"{times[label]:.4f} ms; optimizer state {state_bytes} bytes a rank", flush=True)
         del flat, opt, state
         torch.cuda.empty_cache()
-    extra = times["stochastic"] - times["deterministic"]
-    print(f"[stochastic] optimizer step at n={N_MAIN}, one bucket, no collective: stochastic "
-          f"{times['stochastic']:.4f} ms (plain PyTorch), deterministic "
-          f"{times['deterministic']:.4f} ms (fused_ballots + fused_apply): {extra:.4f} ms "
-          "extra", flush=True)
-    return extra
+    return times
 
 
 def plain_election(gathered, wire: str):
@@ -1058,18 +1168,30 @@ def plain_election(gathered, wire: str):
 
 
 class StepWatch:
-    """Run (f)'s checks, in every rank, around ``DistributedLion.step``
-    while installed: after every step all ranks' flat params must be
-    ``torch.equal`` (rank 0's broadcast); at the first step of a
-    deterministic wire the election (the telemetry frame's) must equal
-    :func:`plain_election` of the gathered ballots and, on a tally wire, the
-    frame's margin histogram and disagreement must equal
-    ``bucket_vote_stats_plain`` of the gathered tally."""
+    """Checks, in every rank, around ``DistributedLion.step`` while
+    installed: after every step all ranks' flat params must be
+    ``torch.equal`` (rank 0's broadcast; nothing to compare in a world of
+    one); at the first step of a deterministic wire the election (the
+    telemetry frame's) must equal :func:`plain_election` of the gathered
+    ballots and, on a tally wire at W4, the frame's margin histogram and
+    disagreement must equal ``bucket_vote_stats_plain`` of the gathered
+    tally. Under ``vote_every`` K > 1, at every step: the slot's slice of
+    the refreshed cache must equal the plain election of the gathered
+    slice ballots (``slices_equal``; ``cache`` accumulates those plain
+    elections, so after K steps it is a plain re-election of every slot);
+    the bytes the wire records per step (``wire_bytes``); and at the first
+    step, the coordinates outside slot 0 must equal their decayed values
+    (no sign step) and those of slot 0 must all have moved."""
 
     def __init__(self):
         self.params_equal: list = []
         self.election_equal = None
         self.hist = None
+        self.slices_equal: list = []
+        self.wire_bytes: list = []
+        self.cold_start = None
+        self.cache = None
+        self.tally = collectives.WireTally()
         self._orig = DistributedLion.step
         watch = self
 
@@ -1081,20 +1203,24 @@ class StepWatch:
     def close(self) -> None:
         DistributedLion.step = self._orig
 
+    def _gather(self, opt, ballots):
+        if opt.world == 1:
+            return [ballots]
+        gathered = [torch.empty_like(ballots) for _ in range(opt.world)]
+        dist.all_gather(gathered, ballots, group=opt.group)
+        return gathered
+
     def _observe(self, opt, flat, state):
+        lazy = opt.vote_every > 1
         first = state.steps == 0 and opt.max_grad_norm is None
+        if lazy:
+            return self._observe_lazy(opt, flat, state)
         ballots = (fused_lion.fused_ballots_plain(flat.grads, state.exp_avg, opt.b1)
                    if first else None)
         new_state, frame = self._orig(opt, flat, state)
-        ref = flat.params.clone()
-        dist.broadcast(ref, 0, group=opt.group)
-        differ = torch.tensor([0 if torch.equal(ref, flat.params) else 1])
-        dist.all_reduce(differ, group=opt.group)
-        self.params_equal.append(int(differ) == 0)
-        del ref
+        self._params_equal(opt, flat)
         if first:
-            gathered = [torch.empty_like(ballots) for _ in range(opt.world)]
-            dist.all_gather(gathered, ballots, group=opt.group)
+            gathered = self._gather(opt, ballots)
             want, tally = plain_election(gathered, opt.wire)
             self.election_equal = torch.equal(unpack_signs(frame["elected"], (flat.numel,)),
                                               want)
@@ -1103,6 +1229,47 @@ class StepWatch:
                 self.hist = (frame["margin_hist"].tolist(), hist.tolist(),
                              int(frame["disagree"]), int(dis))
             del gathered, want, tally
+        return new_state, frame
+
+    def _params_equal(self, opt, flat) -> None:
+        if opt.world == 1:
+            self.params_equal.append(True)
+            return
+        ref = flat.params.clone()
+        dist.broadcast(ref, 0, group=opt.group)
+        differ = torch.tensor([0 if torch.equal(ref, flat.params) else 1])
+        dist.all_reduce(differ, group=opt.group)
+        self.params_equal.append(int(differ) == 0)
+
+    def _observe_lazy(self, opt, flat, state):
+        if state.exp_avg.dtype != torch.float32:
+            raise AssertionError("StepWatch re-elects float32-momentum lazy steps only")
+        n, k = flat.numel, opt.vote_every
+        chunk = vote_chunk_elems(n, k)
+        lo = (state.steps % k) * chunk
+        real = max(0, min(chunk, n - lo))
+        ballots = torch.full((chunk,), -1, dtype=torch.int8, device=flat.device)
+        ballots[:real] = fused_lion.fused_ballots_plain(flat.grads[lo:lo + real],
+                                                        state.exp_avg[lo:lo + real], opt.b1)
+        first = state.steps == 0
+        if first:
+            p_before = flat.params.clone()
+            lr = resolve_lr(opt.learning_rate, state.count)
+            self.cache = torch.zeros_like(state.elected)
+        opt.tally = self.tally
+        before = self.tally.total()
+        new_state, frame = self._orig(opt, flat, state)
+        self.wire_bytes.append(self.tally.total() - before)
+        self._params_equal(opt, flat)
+        want, _ = plain_election(self._gather(opt, ballots), opt.wire)
+        got = new_state.elected[lo // 8:(lo + chunk) // 8]
+        self.slices_equal.append(torch.equal(unpack_signs(got, (chunk,)), want))
+        self.cache[lo // 8:(lo + chunk) // 8] = pack_signs(want)
+        if first:
+            decayed = lion_math.decay_params(p_before, lr, opt.weight_decay)
+            self.cold_start = (torch.equal(flat.params[chunk:], decayed[chunk:])
+                               and bool((flat.params[:chunk] != decayed[:chunk]).all()))
+            del p_before, decayed
         return new_state, frame
 
 
@@ -1114,33 +1281,34 @@ def w4_rank(rank: int, tmp: str) -> None:
     dist.init_process_group("gloo", init_method=f"file://{tmp}/pg4", rank=rank, world_size=W4)
     try:
         records = []
-        for wire, extra in W4_RUNS:
+        for wire, extra, steps in W4_RUNS:
             label = wire + (" " + " ".join(extra) if extra else "")
             watch = StepWatch()
             reset_counts()
             t0 = time.perf_counter()
             try:
-                trainer = run_clm.main(W4_ARGS + ["--wire", wire] + extra)
+                trainer = run_clm.main(W4_ARGS + ["--wire", wire, "--max_steps", str(steps)]
+                                       + extra)
             finally:
                 watch.close()
             wall = time.perf_counter() - t0
             launches = read_counts()
             rows = [r for r in trainer.history if "loss" in r]
             cfg = trainer.cfg
-            buckets = len(bucket_bounds(trainer.n_params, cfg.vote_buckets, W4, cfg.wire))
+            lazy = cfg.vote_every > 1
+            buckets = len(bucket_bounds(vote_chunk_elems(trainer.n_params, cfg.vote_every)
+                                        if lazy else trainer.n_params,
+                                        cfg.vote_buckets, W4, cfg.wire))
             stochastic = cfg.max_grad_norm is not None
-            fused = 0 if stochastic else W4_STEPS * buckets
-            expect(f"(f) {label} rank {rank}", launches, {
-                "fused_ballots": fused, "fused_apply": fused,
-                "bucket_vote_stats": W4_STEPS * buckets,
-                "flash_attention_fwd": N_LAYER * 2 * W4_STEPS,
-                "flash_attention_bwd_dkv": N_LAYER * W4_STEPS,
-                "flash_attention_bwd_dq": N_LAYER * W4_STEPS,
-                "flash_attention_di": N_LAYER * W4_STEPS, **NO_HD128})
-            if (trainer.world != W4 or cfg.wire != wire or len(rows) != W4_STEPS
+            expect(f"(f) {label} rank {rank}", launches,
+                   dict(optimizer_launches(trainer, steps),
+                        **flash_launches(steps, accum=1, eval_batches=0)))
+            bits = lazy_checks(f"run (f) {label} rank {rank}", trainer, watch, steps) \
+                if lazy else None
+            if (trainer.world != W4 or cfg.wire != wire or len(rows) != steps
                     or not all(math.isfinite(r["loss"]) for r in rows)
-                    or watch.params_equal != [True] * W4_STEPS
-                    or (not stochastic and not watch.election_equal)
+                    or watch.params_equal != [True] * steps
+                    or (not stochastic and not lazy and not watch.election_equal)
                     or (watch.hist is not None
                         and (watch.hist[0] != watch.hist[1] or watch.hist[2] != watch.hist[3]))
                     or (stochastic and not rows[0]["vote/stoch_flip_frac"] > 0)):
@@ -1154,6 +1322,8 @@ def w4_rank(rank: int, tmp: str) -> None:
                             "step_ms": [r["step_ms"] for r in rows],
                             "params_equal": watch.params_equal,
                             "election_equal": watch.election_equal, "hist": watch.hist,
+                            "slices_equal": watch.slices_equal, "bits_per_param": bits,
+                            "comm_stats": trainer.comm_stats(),
                             "stoch_flip_frac": [r["vote/stoch_flip_frac"] for r in rows],
                             "launches": launches})
             del trainer
@@ -1175,9 +1345,17 @@ def w4_phase(tmp: str, card: str) -> None:
         hist = ("" if rec["hist"] is None else
                 f"; margin histogram {rec['hist'][0]} == bucket_vote_stats_plain of the gathered "
                 f"tally, disagreement {rec['hist'][2]} == {rec['hist'][3]}")
-        election = ("step-1 election == the plain election of the 4 gathered ballots"
-                    if rec["election_equal"] else
-                    f"stochastic: stoch_flip_frac {rec['stoch_flip_frac']}")
+        if rec["bits_per_param"] is not None:
+            election = (f"every step's slice election == the plain election of the 4 gathered "
+                        f"slice ballots {rec['slices_equal']}, the cache after step "
+                        f"{LAZY_STEPS} == a plain re-election of every slot, slots 1-3 decayed "
+                        f"only at step 1; WireTally == wire_bytes_per_param every step: "
+                        f"{rec['bits_per_param']:.4f} bits/param/step (comm_stats "
+                        f"{rec['comm_stats']['comm_bits_per_param']:.4f})")
+        elif rec["election_equal"]:
+            election = "step-1 election == the plain election of the 4 gathered ballots"
+        else:
+            election = f"stochastic: stoch_flip_frac {rec['stoch_flip_frac']}"
         print(f"[w4] (f) {rec['run']}: GPT-2 124M, {W4} ranks on one card (gloo), B 2 x accum 1 "
               f"x T 1024, {rec['buckets']} bucket(s): losses "
               f"{[round(x, 4) for x in rec['losses']]}; params equal on all ranks after each "
@@ -1389,6 +1567,64 @@ def resume_phase(tmp: str, card: str) -> None:
     phase_time("slice (g), resume on the card", t)
 
 
+LAZY_ARGS = ["--dropout", "0", "--telemetry", "--vote_every", str(LAZY_K),
+             "--lr_scheduler_type", "constant"]   # run (h1): the sign steps are real from step 1
+BF16_ARGS = ["--dropout", "0", "--telemetry", "--mom_dtype", "bfloat16"]   # run (h2)
+ADAMW_ARGS = ["--dropout", "0", "--lion", "false", "--async_grad", "false"]   # run (i)
+
+
+def modes_phase(gen, card) -> tuple[list, dict]:
+    """Runs (h1), (h2) and (i) in the 1-rank NCCL group, then the
+    optimizer steps' device times; returns the runs' (label, rows,
+    launches) and the times."""
+    t = time.perf_counter()
+    watch = StepWatch()
+    try:
+        lazy, lazy_rows, lazy_launches = run_counted(LAZY_ARGS, LAZY_STEPS)
+    finally:
+        watch.close()
+    expect("(h1) vote_every 4", lazy_launches,
+           dict(optimizer_launches(lazy, LAZY_STEPS), **flash_launches(LAZY_STEPS)))
+    lazy_checks("run (h1)", lazy, watch, LAZY_STEPS)
+    print(f"[modes] (h1) --vote_every {LAZY_K}: GPT-2 124M, 1 rank, B 8 x accum {ACCUM}, "
+          f"{LAZY_STEPS} steps: losses {[round(r['loss'], 4) for r in lazy_rows]}; every step's "
+          f"slice election == the plain election {watch.slices_equal}; the cache after step "
+          f"{LAZY_STEPS} == a plain re-election of every slot ({lazy.state.elected.numel()} "
+          f"bytes); at step 1 slots 1-3 decayed only, slot 0 all moved; valid_frac by step "
+          f"{[r['vote/valid_frac'] for r in lazy_rows]}; step ms "
+          f"{[r['step_ms'] for r in lazy_rows]}; launches {lazy_launches}", flush=True)
+    del lazy
+    torch.cuda.empty_cache()
+    t = phase_time("slice (h1), GPT-2 124M vote_every 4", t)
+    bf16, bf16_rows, bf16_launches = run_counted(BF16_ARGS)
+    expect("(h2) mom_dtype bfloat16", bf16_launches,
+           dict(optimizer_launches(bf16, STEPS), **flash_launches(STEPS)))
+    m = bf16.state.exp_avg
+    if m.dtype != torch.bfloat16 or bf16.flat.params.dtype != torch.float32:
+        raise AssertionError(f"run (h2): momentum {m.dtype}, params {bf16.flat.params.dtype}")
+    print(f"[modes] (h2) --mom_dtype bfloat16: losses {[round(r['loss'], 4) for r in bf16_rows]}; "
+          f"momentum {m.dtype}, {m.numel() * m.element_size()} bytes a rank (float32: "
+          f"{m.numel() * 4}); step ms {[r['step_ms'] for r in bf16_rows]}; launches "
+          f"{bf16_launches}", flush=True)
+    del bf16, m
+    torch.cuda.empty_cache()
+    t = phase_time("slice (h2), GPT-2 124M mom_dtype bfloat16", t)
+    adam, adam_rows, adam_launches = run_counted(ADAMW_ARGS)
+    expect("(i) AdamW", adam_launches,
+           dict(optimizer_launches(adam, STEPS), **flash_launches(STEPS)))
+    print(f"[modes] (i) --lion false --async_grad false (AdamW): losses "
+          f"{[round(r['loss'], 4) for r in adam_rows]}; step ms "
+          f"{[r['step_ms'] for r in adam_rows]}; launches {adam_launches}", flush=True)
+    del adam
+    torch.cuda.empty_cache()
+    t = phase_time("slice (i), GPT-2 124M AdamW", t)
+    times = mode_step_times(gen)
+    phase_time("optimizer modes' step times", t)
+    return [("(h1) dropout 0 + telemetry + vote_every 4", lazy_rows, lazy_launches),
+            ("(h2) dropout 0 + telemetry + mom_dtype bfloat16", bf16_rows, bf16_launches),
+            ("(i) dropout 0, AdamW", adam_rows, adam_launches)], times
+
+
 def slice_phase(tmp, gen, card):
     t = time.perf_counter()
     torch.cuda.set_device(0)
@@ -1440,8 +1676,9 @@ def slice_phase(tmp, gen, card):
         del stoch
         torch.cuda.empty_cache()
         stochastic_check(gen)
-        stoch_extra = stochastic_step_time(gen)
         t = phase_time("slice (e), GPT-2 124M stochastic", t)
+        mode_runs, mode_times = modes_phase(gen, card)
+        t = time.perf_counter()
         llama = llama_run(gen)
         phase_time("slice (d), Llama-2-7B", t)
         resume_phase(tmp, card)
@@ -1449,13 +1686,15 @@ def slice_phase(tmp, gen, card):
         dist.destroy_process_group()
     print(f"[stochastic] run (e) - run (c), median step: "
           f"{statistics.median(r['step_ms'] for r in stoch_rows[1:]) - statistics.median(r['step_ms'] for r in plain_rows[1:]):.1f} "
-          f"ms on the host clock (the optimizer step alone: {stoch_extra:.4f} ms of device time)",
+          f"ms on the host clock (the optimizer step alone: "
+          f"{mode_times['stochastic'] - mode_times['fused']:.4f} ms more device time)",
           flush=True)
     return (world, wire, buckets_cfg), [
         ("(a) default (dropout 0.1)", base_rows, base_launches),
         ("(b) dropout 0 + telemetry", rows, launches),
         ("(c) dropout 0", plain_rows, plain_launches),
-        ("(e) dropout 0 + max_grad_norm 1.0 (stochastic)", stoch_rows, stoch_launches)], llama
+        ("(e) dropout 0 + max_grad_norm 1.0 (stochastic)", stoch_rows, stoch_launches),
+        *mode_runs], llama, mode_times
 
 
 def phase_time(name: str, since: float) -> float:
@@ -1499,7 +1738,7 @@ def main():
     nf4_check(gen)
     phase_time("model, products, NF4", t)
     with tempfile.TemporaryDirectory() as tmp:
-        (world, wire, buckets), runs, llama = slice_phase(tmp, gen, card)
+        (world, wire, buckets), runs, llama, mode_times = slice_phase(tmp, gen, card)
         t = time.perf_counter()
         w4_phase(tmp, card)
         phase_time(f"slice (f), GPT-2 124M at W = {W4} on one card", t)
@@ -1507,7 +1746,7 @@ def main():
         step_ms = statistics.median(r["step_ms"] for r in rs[1:])
         tok_s = statistics.median(r["tokens_per_sec"] for r in rs[1:])
         print(f"[slice] {label}: GPT-2 124M, {world} rank, wire {wire}, {buckets} "
-              f"bucket(s), losses {[round(r['loss'], 4) for r in rs]}: steps 2-{STEPS} "
+              f"bucket(s), losses {[round(r['loss'], 4) for r in rs]}: steps 2-{len(rs)} "
               f"{[r['step_ms'] for r in rs[1:]]} ms, median {step_ms:.1f} ms/step, "
               f"{tok_s:.0f} tokens/s on {card}; launches {counts}", flush=True)
     rows, llama_launches, peak, wall = llama
@@ -1518,9 +1757,14 @@ def main():
           f"{statistics.median(r['tokens_per_sec'] for r in rows[1:]):.0f} tokens/s; peak "
           f"device memory {peak / 2**30:.2f} GiB; run_sft.main {wall:.1f} s on {card}; "
           f"launches {llama_launches}", flush=True)
+    print("[modes] optimizer step device time at n=124,439,808 on " + card + ": "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in mode_times.items()), flush=True)
     # each main path's counts: GPT-2's (b) for the optimizer and hd64 flash
-    # kernels, Llama's (d) for the hd128 ones
-    launches = dict(runs[1][2], **{k: llama_launches[k] for k in NO_HD128})
+    # kernels, (h2)'s for the bf16-momentum instantiations, Llama's (d) for
+    # the hd128 ones
+    h2 = next(counts for label, _, counts in runs if label.startswith("(h2)"))
+    launches = dict(runs[1][2], **{k: llama_launches[k] for k in NO_HD128},
+                    **{f"{k}_mom_bf16": h2[k] for k in ("fused_ballots", "fused_apply")})
 
     kernels = []
     for k in KERNELS:

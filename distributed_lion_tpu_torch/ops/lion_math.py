@@ -78,6 +78,27 @@ def apply_signed_update(params: torch.Tensor, vote_pos: torch.Tensor,
     return params - lr.to(params.dtype) * s
 
 
+def cache_tally(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """The first ``n`` bits of a packed elected-sign cache (LSB first, as
+    ``codec.pack_signs`` packs) as an int8 tally: 1 where +1 was elected, 0
+    where −1, so an apply that elects ``tally > 0`` reads the cached signs,
+    with no bool or float copy of the vector."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
+    return ((packed[:, None] >> shifts) & 1).reshape(-1)[:n].view(torch.int8)
+
+
+def lazy_update(params, grad, exp_avg, tally, valid: int, lr, wd, b2):
+    """The JAX package's lazy-refresh update (XLA path,
+    distributed_lion.py:806-815, 863-868) over a flat vector: every
+    coordinate decays; the first ``valid`` coordinates (the slots that have
+    voted) then move by ``-lr * (tally > 0 ? +1 : -1)``, the rest by
+    ``-lr * 0``, which leaves them as decayed; momentum updates from the
+    local gradient everywhere. Returns new ``(params, exp_avg)``."""
+    p = decay_params(params, lr, wd)
+    p[:valid] = apply_signed_update(p[:valid], tally[:valid] > 0, lr)
+    return p, momentum_update(grad, exp_avg, b2)
+
+
 def local_lion_leaf(params, grad, exp_avg, lr, wd, b1, b2):
     """One local-Lion step on one leaf: decay, true ``sign`` step (0 → no
     move), momentum. Returns ``(params, exp_avg)``."""

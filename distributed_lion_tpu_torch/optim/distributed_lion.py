@@ -34,14 +34,51 @@ JAX package's vote-health frame (:437-463, :504-518, with the stochastic
 flip fraction of :854-862) for ``train.telemetry.fold``. Telemetry only
 observes: the elections and the update are the same with it on or off.
 
-Ported: the deterministic and the stochastic modes with ``vote_every ==
-1`` and uniform dtypes, on the three flat wires and the synchronous
-``hier:<g>`` wire, momentum in the param dtype, and vote-health
-telemetry; and :func:`remap_worker_momentum`, the elastic resume's remap of
-the per-rank momenta to another world size. Refused, naming their ROADMAP
-items: lazy refresh (``vote_every
-> 1``), the DCN pipeline (``dcn_pipeline_depth``) and the vote guard
-(``guard``).
+**Momentum dtype.** ``mom_dtype`` (``bfloat16`` halves the per-rank
+state) stores the momentum apart from the param dtype. Each step first
+casts the flat grads into a buffer the optimizer owns, in the momentum
+dtype (JAX ``step``, :681); every ballot and update reads that cast. The
+deterministic step at ``vote_every == 1`` runs the fused kernels at any
+(param, momentum) dtype pair, float32 params with bfloat16 grads and
+momentum among them, as the JAX fused path's gate (:696-701) admits it.
+
+**Lazy sign refresh** (``vote_every`` K > 1; JAX ``_elect_lazy``,
+:573-650, and the lazy branch of ``step``, :806-852). ``LionState.elected``
+caches the packed elected signs of ``K * chunk`` coordinates, ``chunk =
+codec.vote_chunk_elems(n, K)``, replicated across ranks. At step ``count``
+slot ``s = count mod K`` votes the slice ``[s*chunk, (s+1)*chunk)`` of the
+ballot vector, padded past n with −1 ballots (the JAX package pads with
+False votes), through the same bucketed wire (``bucket_bounds`` over the
+slice); the slice's packed election lands in the cache at byte
+``s*chunk/8``. The update then follows the XLA path: every coordinate
+decays; a coordinate whose slot has voted (slot <= count: after the first
+K − 1 steps, all) moves by ``-lr`` times its cached sign, the others do not
+move; momentum updates from the local gradient everywhere. The slice's
+ballots come from :func:`fused_lion.fused_ballots` on the slot's window at
+float32 momentum, whose rounding (per op, float32) is the XLA path's there;
+at bfloat16 momentum XLA:CPU rounds every op to bfloat16 with bfloat16
+constants, which the kernel (float32 math, float32 constants) does not, so
+the ballots are plain ops in the momentum dtype
+(``lion_math.sign_vote_bool``). The update runs :func:`fused_lion.fused_apply`
+over the voted slots' window, with the cache's bits as its tally
+(``lion_math.cache_tally``), where params and momentum are float32: there
+the kernel's per-op rounding is the XLA path's, bit for bit; the window
+past them (cold start only) decays and updates momentum in plain ops, and
+every other dtype pair runs ``lion_math.lazy_update``. With telemetry the
+frame covers the slice: its histogram and disagreement the slice's real
+coordinates (:func:`fused_lion.bucket_vote_stats` per bucket), ``elected``
+the refreshed cache, ``voted`` the slice's real coordinates, ``valid`` the
+coordinates that moved, ``flip_valid`` from step K on (the slot's previous
+bytes are a real election only after one rotation).
+
+Ported: the deterministic and the stochastic modes on the three flat wires
+and the synchronous ``hier:<g>`` wire, lazy refresh in the deterministic
+mode, ``mom_dtype``, and vote-health telemetry; and
+:func:`remap_worker_momentum`, the elastic resume's remap of the per-rank
+momenta to another world size. Refused, naming their ROADMAP items: lazy
+refresh with stochastic binarization (Queue 1 item 4), the DCN pipeline
+(``dcn_pipeline_depth``) and the vote guard (``guard``). Mixed param
+dtypes are refused by ``FlatParams``.
 """
 
 from __future__ import annotations
@@ -52,7 +89,12 @@ import torch
 import torch.distributed as dist
 
 from distributed_lion_tpu_torch.ops import fused_lion, lion_math
-from distributed_lion_tpu_torch.ops.codec import bucket_bounds, pack_signs, parse_wire
+from distributed_lion_tpu_torch.ops.codec import (
+    bucket_bounds,
+    pack_signs,
+    parse_wire,
+    vote_chunk_elems,
+)
 from distributed_lion_tpu_torch.optim.lion import (
     FlatParams,
     LionState,
@@ -61,6 +103,7 @@ from distributed_lion_tpu_torch.optim.lion import (
     init_state,
     lion,
     resolve_lr,
+    resolve_mom_dtype,
 )
 from distributed_lion_tpu_torch.parallel import collectives
 from distributed_lion_tpu_torch.parallel.mesh import DATA_AXIS, rank_of
@@ -75,38 +118,58 @@ class DistributedLion:
     """The majority-vote optimizer over a :class:`FlatParams`. ``group`` is
     the vote's process group (None: a world of one, no collective).
     ``max_grad_norm`` selects stochastic binarization, whose draws
-    ``seed`` seeds. ``tally`` optionally records the bytes each collective
-    hands the backend (:class:`collectives.WireTally`); ``telemetry`` makes
-    ``step`` return the vote-health frame too. A ``hier:<g>`` wire builds
-    its process groups here, so every rank builds the optimizer."""
+    ``seed`` seeds. ``vote_every`` K > 1 votes a rotating 1/K slice a step;
+    ``mom_dtype`` stores the momentum in that dtype. ``tally`` optionally
+    records the bytes each collective hands the backend
+    (:class:`collectives.WireTally`); ``telemetry`` makes ``step`` return
+    the vote-health frame too. A ``hier:<g>`` wire builds its process groups
+    here, so every rank builds the optimizer."""
 
     def __init__(self, learning_rate: Schedule = 1e-4, b1: float = 0.9,
                  b2: float = 0.99, weight_decay: float = 0.0, *, group=None,
-                 wire: str = "sign_psum", vote_buckets: int = 1,
-                 max_grad_norm: Optional[float] = None, seed: Optional[int] = None,
+                 wire: str = "sign_psum", vote_buckets: int = 1, vote_every: int = 1,
+                 mom_dtype=None, max_grad_norm: Optional[float] = None,
+                 seed: Optional[int] = None,
                  tally: Optional[collectives.WireTally] = None,
                  telemetry: bool = False):
         kind, size = parse_wire(wire)
         _validate(learning_rate, b1, b2)
         if vote_buckets < 1:
             raise ValueError(f"vote_buckets must be >= 1, got {vote_buckets}")
+        if vote_every < 1:
+            raise ValueError(f"vote_every must be >= 1, got {vote_every}")
         if max_grad_norm is not None and seed is None:
             raise ValueError("stochastic binarization (max_grad_norm) draws its ballots "
                              "from a seed; pass seed")
         if max_grad_norm is not None and not max_grad_norm > 0:
             raise ValueError(f"max_grad_norm must be > 0, got {max_grad_norm}")
+        if max_grad_norm is not None and vote_every > 1:
+            _refuse("lazy sign refresh (vote_every > 1) with stochastic binarization "
+                    "(max_grad_norm)", "ROADMAP Queue 1 item 4")
         self.learning_rate, self.b1, self.b2 = learning_rate, b1, b2
         self.weight_decay = weight_decay
         self.group, self.wire, self.vote_buckets = group, wire, vote_buckets
+        self.vote_every, self.mom_dtype = vote_every, resolve_mom_dtype(mom_dtype)
         self.max_grad_norm, self.seed = max_grad_norm, seed
         self.tally = tally
         self.telemetry = telemetry
         self.world, self.rank = collectives.world_of(group), rank_of(group)
         self.hier = (collectives.HierGroups(group, size)
                      if kind == "hier" and group is not None else None)
+        self._g_cast: Optional[torch.Tensor] = None
 
     def init(self, flat: FlatParams) -> LionState:
-        return init_state(flat)
+        return init_state(flat, self.mom_dtype, self.vote_every)
+
+    def _grads(self, flat: FlatParams, m: torch.Tensor) -> torch.Tensor:
+        """The flat grads in the momentum dtype: the buffer itself, or one
+        cast into a buffer this optimizer owns."""
+        g = flat.grads
+        if g.dtype == m.dtype:
+            return g
+        if self._g_cast is None or self._g_cast.shape != m.shape:
+            self._g_cast = torch.empty_like(m)
+        return self._g_cast.copy_(g)
 
     @torch.no_grad()
     def step(self, flat: FlatParams, state: LionState):
@@ -114,8 +177,11 @@ class DistributedLion:
         and ``state.exp_avg`` in place. Returns the new state, or
         ``(state, frame)`` with telemetry on."""
         lr = resolve_lr(self.learning_rate, state.count)
-        p, g, m = flat.params, flat.grads, state.exp_avg
+        p, m = flat.params, state.exp_avg
+        g = self._grads(flat, m)
         frame = _vt.empty_frame(0, flat.device) if self.telemetry else None
+        if self.vote_every > 1:
+            return self._step_lazy(flat, state, p, g, m, lr, frame)
         stochastic = self.max_grad_norm is not None
         if stochastic:
             gen = lion_math.stochastic_generator(self.seed, state.steps, self.rank, flat.device)
@@ -170,6 +236,63 @@ class DistributedLion:
         p[w] = lion_math.apply_signed_update(decayed, total > 0, lr)
         m[w] = lion_math.momentum_update(g[w], m[w], self.b2)
 
+    def _step_lazy(self, flat: FlatParams, state: LionState, p, g, m, lr, frame):
+        """The lazy refresh of the module doc: vote slot ``count mod K``'s
+        slice bucket by bucket, write its election into a copy of the
+        cache, apply the cached signs."""
+        n, k, count = flat.numel, self.vote_every, state.steps
+        chunk = vote_chunk_elems(n, k)
+        lo = (count % k) * chunk           # the slot's first coordinate
+        real = max(0, min(chunk, n - lo))  # its coordinates below n
+        cache = state.elected.clone()      # the frame keeps the old one as its flip base
+        pending = []
+        for start, size in bucket_bounds(chunk, self.vote_buckets, self.world, self.wire):
+            r = max(0, min(size, real - start))  # the bucket's coordinates below n
+            w = slice(lo + start, lo + start + r)
+            if m.dtype == torch.float32:
+                ballots = fused_lion.fused_ballots(g[w], m[w], self.b1)
+            else:
+                ballots = lion_math.sign_vote_bool(g[w], m[w], self.b1).to(torch.int8) * 2 - 1
+            if r < size:  # the slice past n votes −1
+                ballots = torch.cat([ballots, ballots.new_full((size - r,), -1)])
+            pending.append((start, size, r, ballots, collectives.vote_total_async(
+                ballots, self.wire, self.group, self.tally, keep_ballots=self.telemetry,
+                hier=self.hier)))
+        for start, size, r, ballots, vote in pending:
+            total = vote.wait()
+            if frame is not None and r:
+                hist, dis = fused_lion.bucket_vote_stats(ballots[:r], total[:r], self.world,
+                                                         _vt.NBINS)
+                frame["margin_hist"] += hist
+                frame["disagree"] += dis
+            # bucket bounds and chunk are multiples of 8: whole bytes
+            cache[(lo + start) // 8:(lo + start + size) // 8] = pack_signs(total > 0)
+        valid = min((count + 1) * chunk, n)  # slots 0..count have voted
+        tally = lion_math.cache_tally(cache, n)
+        if p.dtype == m.dtype == torch.float32:
+            fused_lion.fused_apply(p[:valid], g[:valid], m[:valid], tally[:valid], lr,
+                                   self.weight_decay, self.b2)
+            if valid < n:
+                p[valid:] = lion_math.decay_params(p[valid:], lr, self.weight_decay)
+                m[valid:] = lion_math.momentum_update(g[valid:], m[valid:], self.b2)
+        else:
+            p_new, m_new = lion_math.lazy_update(p, g, m, tally, valid, lr,
+                                                 self.weight_decay, self.b2)
+            p.copy_(p_new)
+            m.copy_(m_new)
+        state = LionState(state.count + 1, m, count + 1, cache)
+        if frame is None:
+            return state
+        if not _vt.tally_wire(self.wire):
+            frame["margin_hist"].zero_()
+
+        def i32(x):
+            return torch.tensor(x, dtype=torch.int32, device=flat.device)
+
+        frame.update(elected=cache, voted=i32(real), valid=i32(valid),
+                     flip_valid=torch.tensor(count >= k, device=flat.device))
+        return state, frame
+
 
 def distributed_lion(
     learning_rate: Schedule = 1e-4,
@@ -184,6 +307,7 @@ def distributed_lion(
     vote_every: int = 1,
     vote_buckets: int = 1,
     dcn_pipeline_depth: int = 0,
+    mom_dtype=None,
     telemetry: bool = False,
     guard: str = "off",
     tally: Optional[collectives.WireTally] = None,
@@ -207,11 +331,9 @@ def distributed_lion(
             raise ValueError(
                 "telemetry, the vote guard and the DCN pipeline act on the "
                 "vote; with axis_name=None there is none — use lion()")
-        return lion(learning_rate, b1, b2, weight_decay)
+        return lion(learning_rate, b1, b2, weight_decay, mom_dtype)
     if vote_every < 1:
         raise ValueError(f"vote_every must be >= 1, got {vote_every}")
-    if vote_every > 1:
-        _refuse("lazy sign refresh (vote_every > 1)", "ROADMAP Queue 1 item 4")
     if dcn_pipeline_depth > 0:
         _refuse("the cross-step DCN pipeline (dcn_pipeline_depth)",
                 "ROADMAP Queue 1 item 11")
@@ -220,9 +342,9 @@ def distributed_lion(
     if group is None and dist.is_initialized():
         group = dist.group.WORLD
     return DistributedLion(learning_rate, b1, b2, weight_decay, group=group,
-                           wire=wire, vote_buckets=vote_buckets,
-                           max_grad_norm=max_grad_norm, seed=seed, tally=tally,
-                           telemetry=telemetry)
+                           wire=wire, vote_buckets=vote_buckets, vote_every=vote_every,
+                           mom_dtype=mom_dtype, max_grad_norm=max_grad_norm, seed=seed,
+                           tally=tally, telemetry=telemetry)
 
 
 

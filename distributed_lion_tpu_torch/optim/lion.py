@@ -9,24 +9,31 @@ buffers, so autograd accumulates into the flat grad buffer in place and an
 optimizer pass over a bucket is one kernel launch over one window.
 
 Hyperparameter defaults and validation follow the reference's ``Lion``
-(lr 1e-4, betas (0.9, 0.99), weight decay 0).
+(lr 1e-4, betas (0.9, 0.99), weight decay 0). ``mom_dtype`` stores the
+momentum in another dtype than the params (``bfloat16`` halves the
+optimizer state), as the JAX package's ``mom_dtype``; the grads are cast to
+it once per step, before any math.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Sequence, Union
+from typing import Callable, NamedTuple, Optional, Sequence, Union
 
 import torch
 
 from distributed_lion_tpu_torch.ops import lion_math
+from distributed_lion_tpu_torch.ops.codec import vote_chunk_elems
 
 Schedule = Union[float, Callable[[torch.Tensor], torch.Tensor]]
 
 
 class LionState(NamedTuple):
     count: torch.Tensor    # int32 step counter on the params' device
-    exp_avg: torch.Tensor  # flat momentum buffer, rank-local
+    exp_avg: torch.Tensor  # flat momentum buffer, rank-local, in the momentum dtype
     steps: int = 0         # the same count on the host: seeds stochastic ballots
+    # and picks the lazy slot
+    elected: Optional[torch.Tensor] = None  # packed uint8 elected-sign cache,
+    # replicated; present only under vote_every > 1 (K * chunk / 8 bytes)
 
 
 class FlatParams:
@@ -101,12 +108,32 @@ def resolve_lr(learning_rate: Schedule, count: torch.Tensor) -> torch.Tensor:
     return torch.full((), learning_rate, dtype=torch.float32, device=count.device)
 
 
-def init_state(flat: FlatParams) -> LionState:
-    """Step 0 and zero momentum in the param dtype (the reference's
-    ``exp_avg = zeros_like(p)``)."""
+MOM_DTYPES = {"": None, "float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def resolve_mom_dtype(mom_dtype) -> Optional[torch.dtype]:
+    """A momentum dtype given as a torch dtype, None, or the CLI's string
+    (``''`` = the param dtype, ``'float32'``, ``'bfloat16'``)."""
+    if mom_dtype is None or isinstance(mom_dtype, torch.dtype):
+        return mom_dtype
+    if mom_dtype not in MOM_DTYPES:
+        raise ValueError(f"mom_dtype must be one of {sorted(MOM_DTYPES)}, got {mom_dtype!r}")
+    return MOM_DTYPES[mom_dtype]
+
+
+def init_state(flat: FlatParams, mom_dtype: Optional[torch.dtype] = None,
+               vote_every: int = 1) -> LionState:
+    """Step 0 and zero momentum in ``mom_dtype``, else the param dtype (the
+    reference's ``exp_avg = zeros_like(p)``); under ``vote_every`` K > 1 a
+    zeroed elected cache of ``K * vote_chunk_elems(n, K) / 8`` bytes."""
+    elected = None
+    if vote_every > 1:
+        chunk = vote_chunk_elems(flat.numel, vote_every)
+        elected = torch.zeros(vote_every * chunk // 8, dtype=torch.uint8, device=flat.device)
     return LionState(
         count=torch.zeros((), dtype=torch.int32, device=flat.device),
-        exp_avg=torch.zeros_like(flat.params))
+        exp_avg=torch.zeros_like(flat.params, dtype=mom_dtype or flat.params.dtype),
+        elected=elected)
 
 
 class Lion:
@@ -115,20 +142,21 @@ class Lion:
     updates ``flat.params`` and the momentum in place."""
 
     def __init__(self, learning_rate: Schedule = 1e-4, b1: float = 0.9,
-                 b2: float = 0.99, weight_decay: float = 0.0):
+                 b2: float = 0.99, weight_decay: float = 0.0, mom_dtype=None):
         _validate(learning_rate, b1, b2)
         self.learning_rate, self.b1, self.b2 = learning_rate, b1, b2
         self.weight_decay = weight_decay
+        self.mom_dtype = resolve_mom_dtype(mom_dtype)
 
     def init(self, flat: FlatParams) -> LionState:
-        return init_state(flat)
+        return init_state(flat, self.mom_dtype)
 
     @torch.no_grad()
     def step(self, flat: FlatParams, state: LionState) -> LionState:
         lr = resolve_lr(self.learning_rate, state.count)
         m = state.exp_avg
         p_new, m_new = lion_math.local_lion_leaf(
-            flat.params, flat.grads, m, lr, self.weight_decay,
+            flat.params, flat.grads.to(m.dtype), m, lr, self.weight_decay,
             self.b1, self.b2)
         flat.params.copy_(p_new)
         m.copy_(m_new)
@@ -136,6 +164,6 @@ class Lion:
 
 
 def lion(learning_rate: Schedule = 1e-4, b1: float = 0.9, b2: float = 0.99,
-         weight_decay: float = 0.0) -> Lion:
+         weight_decay: float = 0.0, mom_dtype=None) -> Lion:
     """Single-worker Lion, as the JAX package's ``lion()``."""
-    return Lion(learning_rate, b1, b2, weight_decay)
+    return Lion(learning_rate, b1, b2, weight_decay, mom_dtype)

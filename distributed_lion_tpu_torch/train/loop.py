@@ -16,7 +16,9 @@ microbatches into the flat grad buffer and averaging them. With
 ``async_grad`` (the reference's ``AsyncTrainer``) there is no gradient
 collective at all: the optimizer's vote is the only cross-rank traffic.
 With ``async_grad=False`` one ``all_reduce`` averages the flat grad buffer
-(DDP's all-reduce). ``grad_clip_norm`` clips by the rank's global norm;
+(DDP's all-reduce): the AdamW baseline (``lion=False``,
+``optim/optax_adapter.py``) runs so, as the reference's non-Lion branch.
+``grad_clip_norm`` clips by the rank's global norm;
 unset, ``max_grad_norm`` (which selects stochastic binarization) clips,
 since the stochastic quantizer is unbiased only where ``|u| <= r``.
 The LR lives on the card and the loop reads no device value except at
@@ -33,12 +35,16 @@ the JAX package's manifest and commit marker): every rank its own momentum
 (``exp_avg/rank<r>.pt``: with ``async_grad`` each rank's momentum is its
 own, the reference's resume keeps rank 0's only), rank 0 the params, the
 step and data counters, the world, the optimizer's count (device and host
-copies) and seed, and with ``telemetry`` the vote-health accumulator. At
+copies) and seed, under ``vote_every`` > 1 the replicated elected-sign
+cache, and with ``telemetry`` the vote-health accumulator. Under AdamW
+rank 0 writes the replicated count and moments instead of the momenta. At
 construction it resumes from the newest step that verifies
 (``resume_from_checkpoint``), falling back past torn or uncommitted ones,
 and fails loudly when every candidate fails to restore. A checkpoint of
 another world size is refused unless ``elastic_resume``, which remaps the
-momenta (``optim.distributed_lion.remap_worker_momentum``). The data
+momenta (``optim.distributed_lion.remap_worker_momentum``; the elected
+cache and AdamW's state are replicated and pass through). A checkpoint of
+another ``vote_every`` is refused: its cache has another layout. The data
 iterator then skips the consumed batches (``skip``, else replay), and the
 restored count, host step count and seed make the dropout masks, the LR and
 the stochastic draws those of an uninterrupted run.
@@ -68,6 +74,7 @@ from distributed_lion_tpu_torch.optim.distributed_lion import (
     remap_worker_momentum,
 )
 from distributed_lion_tpu_torch.optim.lion import FlatParams, LionState
+from distributed_lion_tpu_torch.optim.optax_adapter import AdamWState, adamw
 from distributed_lion_tpu_torch.parallel import collectives
 from distributed_lion_tpu_torch.parallel.mesh import rank_of, resolve_device
 from distributed_lion_tpu_torch.train import telemetry
@@ -88,8 +95,9 @@ class TrainConfig:
     lion: bool = True
     async_grad: bool = True
     wire: str = "auto"  # 'auto' → resolve_auto_comm
-    vote_every: int = 0  # 0 = auto (1); > 1 is not ported
+    vote_every: int = 0  # 0 = auto (1); K > 1: lazy sign refresh, a 1/K slice a step
     vote_buckets: int = 0  # 0 = auto (resolve_auto_comm)
+    mom_dtype: str = ""  # Lion momentum dtype: '' = the param dtype, 'bfloat16'
     max_grad_norm: Optional[float] = None  # set → stochastic binarization
     grad_clip_norm: Optional[float] = None  # unset → clip at max_grad_norm
     telemetry: bool = False  # vote-health telemetry (train/telemetry.py)
@@ -131,16 +139,23 @@ class TrainConfig:
 # Auto bucket trigger, kept at the JAX package's value, which was measured
 # for a TPU; not measured on the H100 yet (ROADMAP Queue 1 item 4).
 AUTO_BUCKET_MIN_COORDS = 16_000_000
+# the ballot size from which auto names lazy refresh's saving (the JAX
+# package's value); auto itself keeps vote_every at 1, as the JAX package's
+AUTO_LAZY_MIN_PARAMS = 10_000_000
 
 
 def resolve_auto_comm(cfg: TrainConfig, world: int, n_params: int,
-                      nodes: int = 1, local_world: int = 1) -> TrainConfig:
+                      nodes: int = 1, local_world: int = 1,
+                      announce: bool = False) -> TrainConfig:
     """Resolve ``wire='auto'``, ``vote_every=0`` and ``vote_buckets=0``, the
     JAX package's decision table (loop.py:436-532) with the torchrun world
     in place of the mesh: W=1 → sign_psum; several nodes whose local ranks
     form whole groups → hier:<local ranks>; else packed_a2a. vote_every →
-    1. vote_buckets → 4 when there is a wire and the ballot has at least
-    ``AUTO_BUCKET_MIN_COORDS`` coordinates, else 1."""
+    1; with ``announce``, a Lion run at W > 1 of at least
+    ``AUTO_LAZY_MIN_PARAMS`` coordinates prints what ``--vote_every 4``
+    would cut the wire to (JAX loop.py:489-500). vote_buckets → 4 when
+    there is a wire and the ballot has at least ``AUTO_BUCKET_MIN_COORDS``
+    coordinates, else 1."""
     if cfg.wire != "auto" and cfg.vote_every != 0 and cfg.vote_buckets != 0:
         return cfg
     wire, ve, vb = cfg.wire, cfg.vote_every, cfg.vote_buckets
@@ -152,7 +167,13 @@ def resolve_auto_comm(cfg: TrainConfig, world: int, n_params: int,
         else:
             wire = "packed_a2a"
     if ve == 0:
-        ve = 1  # lazy voting is not ported (ROADMAP Queue 1 item 4)
+        ve = 1  # lazy refresh is opt-in, as in the JAX package
+        if announce and cfg.lion and world > 1 and n_params >= AUTO_LAZY_MIN_PARAMS:
+            bits = wire_bytes_per_param(n_params, world, wire, vote_every=4)["bits_per_param"]
+            print(f"[trainer] auto comm: wire={wire} vote_every=1 (strict every-step voting). "
+                  f"Lazy --vote_every 4 would cut the {n_params / 1e6:.0f}M-coordinate ballot "
+                  f"to {bits:.2f} bits/param/step, but it stays opt-in until a full-scale "
+                  "lazy run matches strict voting's loss", flush=True)
     if vb == 0:
         n_voted = (n_params if ve <= 1
                    else min(n_params, vote_chunk_elems(n_params, ve)))
@@ -160,17 +181,20 @@ def resolve_auto_comm(cfg: TrainConfig, world: int, n_params: int,
     return dataclasses.replace(cfg, wire=wire, vote_every=ve, vote_buckets=vb)
 
 
-def _resolve_for_world(cfg: TrainConfig, world: int, n_params: int) -> TrainConfig:
+def _resolve_for_world(cfg: TrainConfig, world: int, n_params: int,
+                       announce: bool = False) -> TrainConfig:
     """resolve_auto_comm with torchrun's host layout: ``LOCAL_WORLD_SIZE``
     ranks share a node."""
     local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
     return resolve_auto_comm(cfg, world, n_params, nodes=max(1, world // max(local, 1)),
-                             local_world=local)
+                             local_world=local, announce=announce)
 
 
 def make_optimizer(cfg: TrainConfig, group=None):
-    """``--lion`` → majority-vote Lion under the configured schedule. The
-    AdamW path is not ported (ROADMAP Queue 1 item 7)."""
+    """The reference's optimizer wiring (run_clm.py:580-585): ``--lion`` →
+    majority-vote Lion under the configured schedule; otherwise AdamW
+    (``optim/optax_adapter.py``, weight decay ``cfg.weight_decay``) over
+    synchronized grads."""
     if cfg.telemetry and not cfg.lion:
         raise ValueError(
             "--telemetry instruments the majority-vote election; the AdamW "
@@ -181,15 +205,14 @@ def make_optimizer(cfg: TrainConfig, group=None):
                 "--async_grad without --lion would let replicas diverge (no "
                 "grad sync and no vote); the reference silently permits this "
                 "broken combination — we refuse it")
-        raise NotImplementedError(
-            "the AdamW path (--lion false) is not ported yet (ROADMAP Queue 1 item 7)")
+        return adamw(cfg.schedule(), weight_decay=cfg.weight_decay)
     return distributed_lion(
         cfg.schedule(), b1=cfg.beta1, b2=cfg.beta2,
         weight_decay=cfg.weight_decay, group=group,
         max_grad_norm=cfg.max_grad_norm, seed=cfg.seed,
         wire="sign_psum" if cfg.wire == "auto" else cfg.wire,
         vote_every=cfg.vote_every or 1, vote_buckets=cfg.vote_buckets or 1,
-        telemetry=cfg.telemetry,
+        mom_dtype=cfg.mom_dtype or None, telemetry=cfg.telemetry,
     )
 
 
@@ -199,6 +222,7 @@ LossFn = Callable[[object, Optional[int]], tuple]
 PARAMS_FILE = "params.pt"
 STATE_FILE = "state.pt"
 VOTE_HEALTH_FILE = "vote_health.pt"
+ADAMW_FILE = "adamw.pt"  # AdamW's replicated moments
 
 
 def momentum_file(rank: int) -> str:
@@ -241,7 +265,8 @@ class Trainer:
         self.world = collectives.world_of(group)
         self.rank = rank_of(group)
         self.group = group
-        cfg = _resolve_for_world(cfg, self.world, sum(p.numel() for _, p in named_params))
+        cfg = _resolve_for_world(cfg, self.world, sum(p.numel() for _, p in named_params),
+                                 announce=self.rank == 0)
         self.cfg = cfg
         self.model = model
         self.loss_fn = loss_fn
@@ -251,7 +276,8 @@ class Trainer:
         self.opt = make_optimizer(cfg, group)
         self.state = self.opt.init(self.flat)
         self.margin_exact = telemetry.tally_wire(cfg.wire)
-        self.vote_health = (telemetry.init_vote_health(self.n_params, self.device)
+        self.vote_health = (telemetry.init_vote_health(self.n_params, cfg.vote_every,
+                                                       self.device)
                             if cfg.telemetry else None)
         self._schedule = cfg.schedule()
         self.step_count = 0
@@ -283,17 +309,47 @@ class Trainer:
                     p.copy_(initial_params[name])
         n = count_params(model)
         world = collectives.world_of(group)
-        cfg = _resolve_for_world(cfg, world, n)
+        cfg = _resolve_for_world(cfg, world, n, announce=rank_of(group) == 0)
         acct = wire_bytes_per_param(n, world, cfg.wire, vote_every=cfg.vote_every,
                                     accum_steps=cfg.gradient_accumulation_steps,
                                     vote_buckets=cfg.vote_buckets)
-        if rank_of(group) == 0:
+        if rank_of(group) == 0 and not cfg.lion:
+            print(f"[trainer] GPT-2 {n/1e6:.1f}M params | world={world} | AdamW, gradient "
+                  f"all_reduce | device={device}")
+        elif rank_of(group) == 0:
             print(f"[trainer] GPT-2 {n/1e6:.1f}M params | world={world} | vote "
                   f"wire={cfg.wire}"
                   + (f" (vote_buckets={cfg.vote_buckets})" if cfg.vote_buckets > 1 else "")
+                  + (f" (vote_every={cfg.vote_every})" if cfg.vote_every > 1 else "")
                   + f": {acct['bits_per_param']:.2f} bits/param/step | device={device}")
         return Trainer(cfg, model.jax_named_parameters(), clm_loss_fn(model), group=group,
                        model=model)
+
+    def comm_stats(self) -> dict:
+        """The vote's analytic wire bytes (JAX ``Trainer.comm_stats``, its
+        keys): empty for AdamW and for a world of one, where no vote
+        collective runs."""
+        cfg = self.cfg
+        if not cfg.lion or self.world <= 1:
+            return {}
+        acct = wire_bytes_per_param(self.n_params, self.world, cfg.wire,
+                                    vote_every=cfg.vote_every,
+                                    accum_steps=cfg.gradient_accumulation_steps,
+                                    vote_buckets=cfg.vote_buckets or 1)
+        out = {"wire": acct["wire"], "comm_bytes_per_step": acct["bytes_per_step"],
+               "comm_bits_per_param": acct["bits_per_param"],
+               "comm_bits_per_param_per_microbatch": acct["bits_per_param_per_microbatch"],
+               "vote_buckets": acct["vote_buckets"],
+               "comm_overlap_frac": acct["overlappable_wire_frac"],
+               "vs_bf16_allreduce": acct["vs_bf16_allreduce"],
+               "vs_reference_wire": acct["bytes_per_step"]
+               / max(acct["reference_bytes_per_step"], 1)}
+        if "dcn_bytes_per_step" in acct:
+            out.update(comm_dcn_bytes_per_step=acct["dcn_bytes_per_step"],
+                       comm_dcn_bits_per_param=acct["dcn_bits_per_param"],
+                       dcn_pipeline_depth=acct["dcn_pipeline_depth"],
+                       dcn_overlap_frac=acct["dcn_overlap_frac"])
+        return out
 
     def global_train_batch(self) -> int:
         return (self.world * self.cfg.per_device_train_batch_size
@@ -428,14 +484,21 @@ class Trainer:
     def _payload(self) -> dict:
         """This rank's files of a checkpoint: its momentum, and on rank 0 the
         params, the counters and the vote-health accumulator."""
-        files = {momentum_file(self.rank): self.state.exp_avg}
+        st = self.state
+        adam = isinstance(st, AdamWState)
+        files = {} if adam else {momentum_file(self.rank): st.exp_avg}
         if self.rank == 0:
             files[PARAMS_FILE] = {"names": list(self.flat.names),
                                   "shapes": [list(s) for s in self.flat.shapes],
                                   "flat": self.flat.params}
             files[STATE_FILE] = {"step": self.step_count, "batches_consumed": self.step_count,
-                                 "world": self.world, "count": self.state.count,
-                                 "steps": int(self.state.steps), "seed": self.opt.seed}
+                                 "world": self.world, "count": st.count}
+            if adam:
+                files[ADAMW_FILE] = {"mu": st.mu, "nu": st.nu}
+            else:
+                files[STATE_FILE].update(steps=int(st.steps), seed=self.opt.seed)
+                if st.elected is not None:
+                    files[STATE_FILE]["elected"] = st.elected
             if self.vote_health is not None:
                 files[VOTE_HEALTH_FILE] = {f.name: getattr(self.vote_health, f.name)
                                            for f in dataclasses.fields(self.vote_health)}
@@ -466,15 +529,30 @@ class Trainer:
                 or flat.dtype != self.flat.params.dtype):
             raise ValueError(f"checkpoint step {step} holds other parameters than this run "
                              "(names, shapes or dtype)")
+        if isinstance(self.state, AdamWState):
+            moments = ck.restore(step, ADAMW_FILE)
+            self._check_like(step, "AdamW moments", [moments["mu"], moments["nu"]],
+                             [self.state.mu, self.state.nu])
+            with torch.no_grad():
+                self.flat.params.copy_(flat)
+                self.state.mu.copy_(moments["mu"])
+                self.state.nu.copy_(moments["nu"])
+            self.state = AdamWState(state["count"].to(self.device), self.state.mu,
+                                    self.state.nu)
+            self._restored_counters(state)
+            return
         if ckpt_world == self.world:
             mom = ck.restore(step, momentum_file(self.rank))
         else:
             rows = torch.stack([ck.restore(step, momentum_file(r)) for r in range(ckpt_world)])
             mom = remap_worker_momentum(rows, ckpt_world, self.world)[self.rank]
-        if mom.shape != self.state.exp_avg.shape or mom.dtype != self.state.exp_avg.dtype:
-            raise ValueError(f"checkpoint step {step}: momentum {tuple(mom.shape)} {mom.dtype}, "
-                             f"expected {tuple(self.state.exp_avg.shape)} "
-                             f"{self.state.exp_avg.dtype}")
+        self._check_like(step, "momentum", [mom], [self.state.exp_avg])
+        elected = None
+        if self.state.elected is not None:
+            elected = state.get("elected")
+            if elected is None:
+                raise ValueError(f"checkpoint step {step} holds no elected-sign cache")
+            self._check_like(step, "elected-sign cache", [elected], [self.state.elected])
         vh = None
         ckpt_ve = int(meta.get("vote_every", cfg.vote_every or 1) or 1)
         if (ckpt_world == self.world and self.vote_health is not None
@@ -487,7 +565,8 @@ class Trainer:
             self.flat.params.copy_(flat)
             self.state.exp_avg.copy_(mom)
         self.state = LionState(state["count"].to(self.device), self.state.exp_avg,
-                               int(state["steps"]))
+                               int(state["steps"]),
+                               None if elected is None else elected.to(self.device))
         self.opt.seed = state["seed"]  # the stochastic draws', as JAX restores its key
         if vh is not None:
             self.vote_health = vh
@@ -495,6 +574,16 @@ class Trainer:
             print(f"[trainer] elastic resume: remapped the momenta of {ckpt_world} ranks to "
                   f"{self.world} ({'group mean' if ckpt_world > self.world else 'replicate'} "
                   "policy, cross-rank mean kept)", flush=True)
+        self._restored_counters(state)
+
+    @staticmethod
+    def _check_like(step: int, what: str, got: list, want: list) -> None:
+        for g, w in zip(got, want):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                raise ValueError(f"checkpoint step {step}: {what} {tuple(g.shape)} {g.dtype}, "
+                                 f"expected {tuple(w.shape)} {w.dtype}")
+
+    def _restored_counters(self, state: dict) -> None:
         self.step_count = int(state["step"])
         self._resume_skip_batches = int(state.get("batches_consumed", state["step"]))
 
@@ -521,6 +610,13 @@ class Trainer:
                 if int(meta.get(key, 0) or 0):
                     raise ValueError(f"checkpoint step {step} was written at --{key} "
                                      f"{meta[key]}; the port runs 0 (ROADMAP Queue 1 item 11)")
+            ckpt_ve = int(meta.get("vote_every", 0) or 0)  # 0: not recorded
+            if cfg.lion and ckpt_ve and ckpt_ve != (cfg.vote_every or 1):
+                raise ValueError(
+                    f"checkpoint step {step} was written at --vote_every {ckpt_ve}, this run "
+                    f"has --vote_every {cfg.vote_every or 1}: the elected-sign cache's layout "
+                    "does not survive a change of vote_every (resume with the same value, or "
+                    "start fresh)")
             if ckpt_world != self.world and not cfg.elastic_resume:
                 raise ValueError(
                     f"checkpoint step {step} holds momenta for world={ckpt_world} but this run "

@@ -1,6 +1,6 @@
 """Vote-health telemetry: port of ``distributed_lion_tpu/train/telemetry.py``.
 
-What ``--telemetry`` needs at ``vote_every == 1``: the per-step *frame*
+What ``--telemetry`` needs: the per-step *frame*
 the optimizer emits (margin histogram, packed elected signs, local
 disagreement count), the on-device running accumulator :class:`VoteHealth`
 that :func:`fold` adds each frame into, and :func:`drain`, the one host
@@ -23,10 +23,12 @@ int32). ``fold``'s two per-worker scalars (disagreement and the stochastic
 flip fraction, 0 in the deterministic mode) go into one ``all_reduce`` of a two-element
 float32 tensor over the vote group; nothing in ``fold`` reads the device.
 The trainer's checkpoints carry the accumulator (``train/loop.py``), so
-flip rates and histograms continue across a restart. Not ported yet
-(ROADMAP Queue 1 item 10): crash bundles, the measured-wire
-ledger (``measure_step_wire``), the host step-skew heartbeat, and frames
-under lazy refresh.
+flip rates and histograms continue across a restart. Under lazy refresh
+(``vote_every`` K > 1) a frame's ``elected`` is the optimizer's K-slot
+cache (:func:`elected_packed_len`), so the flip rate compares the
+refreshed slot with its election one rotation earlier. Not ported yet
+(ROADMAP Queue 1 item 10): crash bundles, the measured-wire ledger
+(``measure_step_wire``) and the host step-skew heartbeat.
 
 This module may import ``ops``; ``optim`` and ``train.loop`` import it.
 """
@@ -39,7 +41,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from distributed_lion_tpu_torch.ops.codec import packed_size, parse_wire
+from distributed_lion_tpu_torch.ops.codec import packed_size, parse_wire, vote_chunk_elems
 from distributed_lion_tpu_torch.ops.fused_lion import margin_bins
 
 # bin k covers margin fractions [k/NBINS, (k+1)/NBINS); unanimity (margin 1)
@@ -64,8 +66,12 @@ def margin_hist(totals: torch.Tensor, world: int,
     return torch.bincount(idx, minlength=nbins + 1)[:nbins].to(torch.int32)
 
 
-def elected_packed_len(n_params: int) -> int:
-    """Bytes of the packed elected-sign vector a strict-voting frame carries."""
+def elected_packed_len(n_params: int, vote_every: int = 1) -> int:
+    """Bytes of the packed elected-sign vector a frame carries: the full
+    ballot for strict voting, the K-slot byte-aligned cache
+    (``codec.vote_chunk_elems``) under lazy refresh."""
+    if vote_every > 1:
+        return vote_every * vote_chunk_elems(n_params, vote_every) // 8
     return packed_size(n_params)
 
 
@@ -102,7 +108,7 @@ class VoteHealth:
     has_prev: torch.Tensor       # int32 0/1: prev_elected is a real election
 
 
-def init_vote_health(n_params: int, device=None) -> VoteHealth:
+def init_vote_health(n_params: int, vote_every: int = 1, device=None) -> VoteHealth:
     def z(dt):
         return torch.zeros((), dtype=dt, device=device)
 
@@ -112,7 +118,7 @@ def init_vote_health(n_params: int, device=None) -> VoteHealth:
         flip_sum=z(torch.float32), flip_steps=z(torch.int32),
         disagree_sum=z(torch.float32), stoch_flip_sum=z(torch.float32),
         valid_sum=z(torch.float32),
-        prev_elected=torch.zeros(elected_packed_len(n_params), dtype=torch.uint8,
+        prev_elected=torch.zeros(elected_packed_len(n_params, vote_every), dtype=torch.uint8,
                                  device=device),
         has_prev=z(torch.int32))
 

@@ -238,6 +238,6 @@ def test_unported_options_refused():
         run_clm.model_config(run_clm.ModelArguments(model_family="llama"))
     with pytest.raises(NotImplementedError, match="Queue 2 item 4"):  # float32 flash on the card
         resolve_impl("flash", "cuda", 1024, 64, torch.float32)
-    with pytest.raises(NotImplementedError, match="AdamW"):
-        Trainer.for_gpt2(TrainConfig(lion=False, async_grad=False), GPT2Config.tiny(),
+    with pytest.raises(ValueError, match="--async_grad without --lion"):  # AdamW is ported
+        Trainer.for_gpt2(TrainConfig(lion=False, async_grad=True), GPT2Config.tiny(),
                          device="cpu")

@@ -68,3 +68,12 @@ def test_the_checkpoint_and_data_modules_are_among_the_checked_files():
     files = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
     assert {"train/resilience.py", "train/checkpoint.py", "data/bpe.py",
             "data/native_loader.py", "data/sources.py", "native/__init__.py"} <= files
+
+
+def test_the_optimizer_modes_modules_are_among_the_checked_files():
+    """The AdamW baseline's module, beside the optimizer modules lazy
+    refresh and ``mom_dtype`` changed, is in the file list both checks
+    above walk."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
+    assert {"optim/optax_adapter.py", "optim/distributed_lion.py", "optim/lion.py",
+            "ops/lion_math.py", "train/telemetry.py", "train/loop.py"} <= files
