@@ -22,7 +22,8 @@ Phases (none of their failures is caught; any one fails the run):
    and the CUDA stats kernel (``csrc/vote_stats.cu``) against their plain
    PyTorch versions on the card, at the main path's size (GPT-2 124M,
    124,439,808 coordinates), at run (d)'s (Llama-2-7B's LoRA adapters,
-   4,194,304) and at a ragged 1,000,003: ``fused_ballots``
+   4,194,304), at run (j)'s (the DPO adapters, 20,023,320) and at a ragged
+   1,000,003: ``fused_ballots``
    and ``fused_apply`` for float32 and bfloat16 params and int8 and int32
    tallies, and at 124,439,808 and 1,000,003 with bfloat16 grads and
    momentum under float32 params (``--mom_dtype bfloat16``, run (h2)), ``bucket_vote_stats`` for a vote of 1 (int8 tally), of 4 (int8
@@ -34,7 +35,8 @@ Phases (none of their failures is caught; any one fails the run):
    head_dim 64, bfloat16, q/k/v transposed views of one projection) and at
    a ragged T = 1000; at Llama-2-7B's (B 4, H 32, T 1024, head_dim 128, q
    and k contiguous as rope makes them, v a transposed view of its own
-   projection) and at T 2048 and a ragged 1000; do always a transposed
+   projection) and at T 2048 and a ragged 1000, and at run (j)'s B 2, H 32,
+   T 1024; do always a transposed
    view, as autograd hands it back; and at
    B 2, H 3 with T 40 (shorter than one tile) and 130 at both head dims;
    against the plain versions and against a float64
@@ -123,9 +125,11 @@ Phases (none of their failures is caught; any one fails the run):
    strict majority of the two groups' strict majorities), and on
    ``sign_psum`` the telemetry margin histogram and disagreement must
    equal ``bucket_vote_stats_plain`` of the gathered tally. Every
-   rank's launch counts are checked. Its step times are not a rate of
-   the card: four ranks share it and gloo stages every collective
-   through the host.
+   rank's launch counts are checked. Then each rank saves a CUDA tensor
+   as an async checkpoint step: the commit thread (a gloo group of its
+   own) must commit it with no later save and no ``close()``. Its step
+   times are not a rate of the card: four ranks share it and gloo stages
+   every collective through the host.
 6. Run (g), resume on the card, in the 1-rank NCCL group: the repo's
    ``*.md`` files go through the port's GPT-2 BPE (``runs/parity/tok``,
    its C++ merge core, which must build) into a uint16 ``bin:`` shard, read
@@ -157,10 +161,33 @@ Phases (none of their failures is caught; any one fails the run):
    printed; (i) ``--lion false --async_grad false`` (AdamW), 3 steps: no
    optimizer kernel, (c)'s flash launches. Then the device time of one
    optimizer step at 124,439,808 coordinates in a world of one: fused,
-   stochastic, lazy (every slot voted, and its first step), fused at
-   bfloat16 momentum, AdamW. Run (f) gains ``packed_a2a --vote_every 4``,
-   5 steps, under the same checks on every rank, with the bits per param
-   per step printed.
+   stochastic, lazy (every slot voted, and its first step), lazy under
+   stochastic binarization (every slot voted), fused at bfloat16 momentum,
+   AdamW. Run (f) gains ``packed_a2a --vote_every 4``, 5 steps, under the
+   same checks on every rank, with the bits per param per step printed.
+   (h3) ``--vote_every 4 --max_grad_norm 1.0`` at (h1)'s setup, 5 steps,
+   under the ``StepWatch``, whose plain elections take the slice ballots
+   replayed from (seed, count, rank) (``replay_slice_ballots``): (h1)'s
+   checks, no ballot kernel (the stochastic ballots are plain ops), and
+   ``vote/stoch_flip_frac`` in (0, 1) at every step.
+8. Run (j), DPO, in the 1-rank NCCL group: ``cli.run_dpo.main`` on
+   Llama-2-7B at full width and depth (the byte vocabulary, 259) with a
+   dense float32 policy base, an NF4 reference (``--quant_ref nf4``), LoRA r
+   8 over the DPO target set (wq, wk, wv, wo, w_gate, w_up, w_down and wte:
+   20,023,320 trainable coordinates), ``--attn_impl flash --telemetry``,
+   B 2 pairs x accumulation 2 x T 1024, 3 steps and 2 eval batches of 2
+   pairs: finite losses; the trainable coordinates; flash forward at
+   head_dim 128 32 x (6 x accum x steps + 4 x eval batches) (two policy
+   passes each run twice under remat, two reference passes under no_grad;
+   four passes an eval batch), ``di``, dK/dV and dQ 32 x 2 x accum x steps,
+   the optimizer and stats kernels steps x buckets; eval metrics
+   ``eval/loss``, ``eval/reward_accuracy`` and ``eval/reward_margin``
+   only; the dense base and the NF4 reference ``torch.equal`` to a fresh
+   init from the same seed and its quantization; and, exactly, at fresh
+   adapters (B = 0) against the dense base, one eval batch's loss
+   ``torch.equal`` to ``-logsigmoid(0)`` and reward_margin 0. It prints
+   step ms, tokens/s (pairs x T), peak device memory and a profiled
+   microbatch.
 
 Times are medians of 25 CUDA-event runs after 3 warm-up calls, queued
 while the card sleeps (``torch.cuda._sleep``) so that they time the card's
@@ -196,12 +223,18 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 import torch.nn.functional as F
 
-from distributed_lion_tpu_torch.cli import run_clm, run_sft
+from distributed_lion_tpu_torch.cli import run_clm, run_dpo, run_sft
 from distributed_lion_tpu_torch.data.bpe import BPETokenizer
+from distributed_lion_tpu_torch.data.dpo import prepare_dpo_batch
 from distributed_lion_tpu_torch.data.tokenizer import ByteTokenizer
 from distributed_lion_tpu_torch.models.gpt2 import GPT2, GPT2Config
 from distributed_lion_tpu_torch.models.llama import llama_init
-from distributed_lion_tpu_torch.models.lora import iter_paths
+from distributed_lion_tpu_torch.models.lora import (
+    DPO_TARGET_PATTERNS,
+    LoraConfig,
+    iter_paths,
+    lora_init,
+)
 from distributed_lion_tpu_torch.ops import cuda_build, fused_lion, lion_math, quant
 from distributed_lion_tpu_torch.ops import flash_attention as fa
 from distributed_lion_tpu_torch.ops.codec import (
@@ -224,13 +257,20 @@ N_MAIN = 124_439_808   # GPT-2 124M coordinates: the main path's window
 # run (d)'s window: Llama-2-7B's LoRA adapters, r 8 on wq and wv of 32
 # blocks, each A [4096, 8] and B [8, 4096]
 N_SFT = 32 * 2 * (4096 * 8 + 8 * 4096)
+# run (j)'s window: the DPO adapters of Llama-2-7B, r 8 on wq, wk, wv, wo
+# ([4096, 8] + [8, 4096] each), w_gate, w_up ([4096, 8] + [8, 11008]) and
+# w_down ([11008, 8] + [8, 4096]) of 32 blocks, and on wte ([259, 8] +
+# [8, 4096])
+N_DPO = 32 * (4 * 2 * 4096 * 8 + 3 * (4096 * 8 + 8 * 11008)) + 259 * 8 + 8 * 4096
 N_RAGGED = 1_000_003
 FLASH_SMALL = ((2, 3, 40), (2, 3, 130))  # (B, H, T): shorter than one tile, one tile and a bit
 # (head_dim, B, H, timed T, the other T at B x H, the operands that are
 # transposed views of one projection): GPT-2 124M's microbatch, q/k/v all
 # three from c_attn; Llama-2-7B's, v from wv and q, k contiguous (rope makes
 # new tensors), with T 2048 where auto takes flash for it
-FLASH_CASES = ((64, 8, 12, 1024, (1000,), "qkv"), (128, 4, 32, 1024, (2048, 1000), "v"))
+# run (j)'s DPO microbatch is B 2 at head_dim 128: one more shape there
+FLASH_CASES = ((64, 8, 12, 1024, (1000,), "qkv", ()),
+               (128, 4, 32, 1024, (2048, 1000), "v", ((2, 32, 1024),)))
 STEPS = 3
 ACCUM = 2
 EVAL_BATCHES = 2
@@ -242,6 +282,7 @@ STOCH_MGN, STOCH_SEED, B1 = 1.0, 42, 0.9   # run (e)'s quantizer: run_clm's seed
 STOCH_SIGMAS = 6   # the unbiasedness bound of run (e)'s ballot check
 W4 = 4             # run (f): ranks sharing cuda:0 in a gloo group
 W4_STEPS = 2
+COMMIT_POLL_S = 60.0   # run (f)'s async commit at W4: the bounded wait for COMMITTED
 LAZY_K, LAZY_STEPS = 4, 5   # runs (h1) and (f)'s lazy entry: a rotation and one slot more
 # run (f)'s wires: (wire, extra flags, steps); gloo runs all of them on CUDA
 # tensors (all_reduce, all_gather_into_tensor, all_to_all_single)
@@ -431,9 +472,9 @@ def optimizer_kernel_phase(gen, rates):
     tally) and the max error over all cases."""
     rec = {}
     err = dict.fromkeys(OPT_KERNELS, 0.0)
-    for n in (N_MAIN, N_SFT, N_RAGGED):
+    for n in (N_MAIN, N_SFT, N_DPO, N_RAGGED):
         for pdt, mdt in DTYPE_PAIRS:
-            if (pdt, mdt) == MOM_BF16 and n == N_SFT:
+            if (pdt, mdt) == MOM_BF16 and n in (N_SFT, N_DPO):
                 continue   # bf16 momentum under float32 params: GPT-2's run (h2)
             suffix = "_mom_bf16" if (pdt, mdt) == MOM_BF16 else ""
             g = torch.randn(n, generator=gen, device="cuda").to(mdt)
@@ -641,10 +682,11 @@ def di_check(tag, got, plain, o, do) -> float:
     return vs_plain
 
 
-def flash_kernel_phase(gen, rates, regs, D, B_main, H_main, T_main, T_more, views):
+def flash_kernel_phase(gen, rates, regs, D, B_main, H_main, T_main, T_more, views, more):
     """Check the flash kernels of head_dim D (forward, di, dK/dV, dQ) at
     every shape, with q, k, v in the model's layout (``views``: see
-    flash_inputs); time them at the main one, and the port's whole backward
+    flash_inputs) and at the (B, H, T) of ``more``; time them at the main
+    one, and the port's whole backward
     (``flash_attention_di``, dK/dV and dQ) beside SDPA's. ``regs``:
     :func:`cuda_build.sass_registers` of the Hopper kernels. Records are
     named as in KERNELS."""
@@ -655,7 +697,7 @@ def flash_kernel_phase(gen, rates, regs, D, B_main, H_main, T_main, T_more, view
              "dk": "flash_attention_bwd_dkv", "dv": "flash_attention_bwd_dkv",
              "dq": "flash_attention_bwd_dq", "di": "flash_attention_di"}
     owner = {name: k + suffix for name, k in owner.items()}
-    shapes = [(B_main, H_main, T) for T in (T_main, *T_more)] + list(FLASH_SMALL)
+    shapes = [(B_main, H_main, T) for T in (T_main, *T_more)] + list(more) + list(FLASH_SMALL)
     for B, H, T in shapes:
         tag = f"hd{D} B{B} H{H} T{T}"
         q, k, v, do = flash_inputs(gen, T, B, H, D, views)
@@ -838,14 +880,15 @@ def wire_check(gen):
                   f"{in_place:.4f} ms in place", flush=True)
 
 
-def profile_step(trainer, model, gen, batch: int, label: str) -> None:
+def profile_step(trainer, model, gen, batch: int, label: str, rows=None) -> None:
     """``torch.profiler`` over one forward + backward microbatch of the
     trainer's loss (``batch`` x T 1024 random tokens of the model's
-    vocabulary, dropout seed 0); prints the top device kernels and the idle
-    share."""
+    vocabulary, or ``rows``, a batch the loss takes; dropout seed 0);
+    prints the top device kernels and the idle share."""
     from torch.profiler import ProfilerActivity, profile
     vocab = model.cfg.vocab_size
-    tokens = torch.randint(0, vocab, (batch, 1024), generator=gen, device="cuda")
+    tokens = (torch.randint(0, vocab, (batch, 1024), generator=gen, device="cuda")
+              if rows is None else rows)
 
     def microbatch():
         loss, _ = trainer.loss_fn(tokens, 0)
@@ -918,8 +961,9 @@ def optimizer_launches(trainer, steps: int) -> dict:
     """The optimizer kernels' launches in ``steps`` steps of ``trainer``'s
     optimizer: per vote bucket, or under ``vote_every`` K > 1 per bucket of
     the slot's slice that holds real coordinates (the ballot kernel at
-    float32 momentum only), and one apply a step over the voted slots
-    (float32 params and momentum only); the stats kernel with telemetry."""
+    float32 momentum and deterministic ballots only), and one apply a step
+    over the voted slots (float32 params and momentum only); the stats
+    kernel with telemetry."""
     cfg, n, world = trainer.cfg, trainer.n_params, trainer.world
     if not cfg.lion:
         return {"fused_ballots": 0, "fused_apply": 0, "bucket_vote_stats": 0}
@@ -929,7 +973,7 @@ def optimizer_launches(trainer, steps: int) -> dict:
         voted = sum(sum(1 for start, _ in bucket_bounds(chunk, cfg.vote_buckets, world, cfg.wire)
                         if start < n - (t % cfg.vote_every) * chunk) for t in range(steps))
         f32 = m_dtype == torch.float32
-        return {"fused_ballots": voted if f32 else 0,
+        return {"fused_ballots": voted if f32 and cfg.max_grad_norm is None else 0,
                 "fused_apply": steps if f32 and p_dtype == torch.float32 else 0,
                 "bucket_vote_stats": voted if cfg.telemetry else 0}
     buckets = len(bucket_bounds(n, cfg.vote_buckets, world, cfg.wire))
@@ -1053,23 +1097,10 @@ def llama_run(gen):
         "flash_attention_bwd_dq_hd128": LLAMA_LAYERS * ACCUM * STEPS,
         "flash_attention_di_hd128": LLAMA_LAYERS * ACCUM * STEPS, **NO_HD64})
     # the frozen base: the same codes, absmax and norm scales as a fresh init
-    fresh = dict(iter_paths(llama_init(model.cfg, seed=cfg.seed, device="cuda", quant="nf4")))
-    trained = dict(iter_paths(model.params))
-    if trained.keys() != fresh.keys():
-        raise AssertionError(f"run (d): the base's leaves {sorted(trained.keys() ^ fresh.keys())} "
-                             "differ from a fresh init's")
-    changed = []
-    for path, got in trained.items():
-        want = fresh[path]
-        if isinstance(got, quant.QuantizedTensor):
-            same = torch.equal(got.codes, want.codes) and torch.equal(got.absmax, want.absmax)
-        else:
-            same = torch.equal(got, want)
-        if not same:
-            changed.append("/".join(path))
+    changed = changed_leaves(model.params, llama_init(model.cfg, seed=cfg.seed, device="cuda",
+                                                   quant="nf4"))
     if changed:
         raise AssertionError(f"run (d): the frozen base changed in training: {changed[:8]}")
-    del fresh, trained
     print(f"[slice] (d): the frozen NF4 base is unchanged after training; {trainer.n_params} "
           f"trainable coordinates in {buckets} bucket(s); eval rows {len(eval_rows)}, "
           f"{eval_batches} eval batch(es)", flush=True)
@@ -1078,6 +1109,107 @@ def llama_run(gen):
     del trainer, model
     torch.cuda.empty_cache()
     return rows, launches, peak, wall
+
+
+DPO_PAIRS = 2   # run (j): pairs a microbatch, in training and in eval
+DPO_ARGS = ["--model_name", "llama2_7b", "--attn_impl", "flash", "--quant_ref", "nf4",
+            "--lion", "--async_grad", "--telemetry", "--wire", "auto",
+            "--max_length", "1024", "--max_prompt_length", "512",
+            "--per_device_train_batch_size", str(DPO_PAIRS),
+            "--gradient_accumulation_steps", str(ACCUM), "--per_device_eval_batch_size",
+            str(DPO_PAIRS), "--eval_iters", str(EVAL_BATCHES), "--max_steps", str(STEPS),
+            "--logging_steps", "1"]
+DPO_EVAL_KEYS = {"eval/loss", "eval/reward_accuracy", "eval/reward_margin"}
+
+
+def changed_leaves(got_tree, want_tree) -> list:
+    """The paths where two weight trees differ (dense leaves, or a quantized
+    leaf's codes and absmax), or the paths only one of them has."""
+    got, want = dict(iter_paths(got_tree)), dict(iter_paths(want_tree))
+    if got.keys() != want.keys():
+        return sorted("/".join(p) for p in got.keys() ^ want.keys())
+    changed = []
+    for path, g in got.items():
+        w = want[path]
+        if isinstance(g, quant.QuantizedTensor):
+            same = (isinstance(w, quant.QuantizedTensor) and torch.equal(g.codes, w.codes)
+                    and torch.equal(g.absmax, w.absmax))
+        else:
+            same = torch.equal(g, w)
+        if not same:
+            changed.append("/".join(path))
+    return changed
+
+
+def dpo_run(gen):
+    """Run (j): ``cli.run_dpo.main`` on Llama-2-7B at full width and depth,
+    a dense float32 policy base, an NF4 reference, LoRA over the DPO target
+    set, flash at head_dim 128, telemetry; returns (rows, launches, peak
+    device bytes, wall s, eval metrics)."""
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer, model, adapters, ref = run_dpo.main(DPO_ARGS)
+    wall = time.perf_counter() - t0
+    launches, peak = read_counts(), torch.cuda.max_memory_allocated()
+    rows = [r for r in trainer.history if "loss" in r]
+    if len(rows) != STEPS or not all(math.isfinite(r["loss"]) for r in rows):
+        raise AssertionError(f"run (j): expected {STEPS} finite losses, got {rows}")
+    cfg = trainer.cfg
+    if trainer.n_params != N_DPO:
+        raise AssertionError(f"run (j): {trainer.n_params} trainable coordinates, expected "
+                             f"{N_DPO}")
+    buckets = len(bucket_bounds(trainer.n_params, cfg.vote_buckets, trainer.world, cfg.wire))
+    # per microbatch: two policy passes, each forward twice (remat), and two
+    # reference passes under no_grad; four passes per eval batch
+    expect("(j)", launches, {
+        "fused_ballots": STEPS * buckets, "fused_apply": STEPS * buckets,
+        "bucket_vote_stats": STEPS * buckets,
+        "flash_attention_fwd_hd128": LLAMA_LAYERS * (6 * ACCUM * STEPS + 4 * EVAL_BATCHES),
+        "flash_attention_bwd_dkv_hd128": LLAMA_LAYERS * 2 * ACCUM * STEPS,
+        "flash_attention_bwd_dq_hd128": LLAMA_LAYERS * 2 * ACCUM * STEPS,
+        "flash_attention_di_hd128": LLAMA_LAYERS * 2 * ACCUM * STEPS, **NO_HD64})
+    args = run_dpo.DPOArguments(max_length=1024, max_prompt_length=512)
+    data = prepare_dpo_batch(run_dpo.dpo_records(args), ByteTokenizer(), max_length=1024,
+                             max_prompt_length=512)
+    n_valid = min(args.size_valid_set, len(data["chosen"]) // 4)   # run_dpo's eval split
+    eval_rows = {k: v[:n_valid] for k, v in data.items()}
+    ev = trainer.evaluate(eval_rows)
+    if set(ev) != DPO_EVAL_KEYS or not all(math.isfinite(v) for v in ev.values()):
+        raise AssertionError(f"run (j): eval metrics {ev}, expected finite {DPO_EVAL_KEYS}")
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v[:DPO_PAIRS])).cuda()
+             for k, v in eval_rows.items()}
+    profile_step(trainer, model, gen, DPO_PAIRS, "Llama-2-7B DPO (j)", rows=batch)
+    del trainer, adapters
+    torch.cuda.empty_cache()
+    # the dense base and the NF4 reference, unchanged: a fresh init from the
+    # same seed, and its quantization
+    fresh = llama_init(model.cfg, seed=cfg.seed, device="cuda")
+    changed = changed_leaves(model.params, fresh)
+    fresh_ref = quant.quantize_tree(fresh, "nf4")
+    changed += changed_leaves(ref, fresh_ref)
+    if changed:
+        raise AssertionError(f"run (j): the frozen base or reference changed: {changed[:8]}")
+    n_quant = sum(isinstance(w, quant.QuantizedTensor) for _, w in iter_paths(ref))
+    del fresh, fresh_ref
+    torch.cuda.empty_cache()
+    # exact: fresh adapters (B = 0) against the dense base as reference
+    lcfg = LoraConfig(r=8, alpha=16, dropout=0.05, target_patterns=DPO_TARGET_PATTERNS)
+    zero_b = lora_init(model.params, lcfg, seed=cfg.seed + 1)
+    loss_fn = run_dpo.dpo_loss_fn(model, model.params, model.params, zero_b, lcfg, 0.1)
+    with torch.no_grad():
+        loss, m = loss_fn(batch, None)
+    want = -F.logsigmoid(torch.zeros((), device="cuda"))
+    if not (torch.equal(loss, want) and float(m["reward_margin"]) == 0.0):
+        raise AssertionError(f"run (j): at B = 0 against the dense base, loss {loss.item()!r} "
+                             f"(want {want.item()!r}), reward_margin {m['reward_margin'].item()}")
+    print(f"[slice] (j): {N_DPO:,} trainable coordinates in {buckets} bucket(s); "
+          f"the dense base and the NF4 reference ({n_quant} quantized leaves) unchanged after "
+          f"training; eval {ev}; at B = 0 against the dense base the loss is -logsigmoid(0) = "
+          f"{loss.item()!r} bit for bit and reward_margin 0", flush=True)
+    del model, ref, zero_b, batch, loss, m
+    torch.cuda.empty_cache()
+    return rows, launches, peak, wall, ev
 
 
 def stochastic_check(gen) -> None:
@@ -1120,7 +1252,8 @@ def mode_step_times(gen) -> dict:
     """Device time of one optimizer step at the main path's size in a world
     of one (no collective), on the same grads: the fused deterministic step
     (float32), the stochastic one, lazy refresh at K 4 with every slot
-    voted and at its first step, the fused step at bfloat16 momentum under
+    voted and at its first step, lazy refresh under stochastic binarization
+    with every slot voted, the fused step at bfloat16 momentum under
     float32 params, and AdamW; returns them by label (ms)."""
     times = {}
     g = torch.randn(N_MAIN, generator=gen, device="cuda")
@@ -1131,6 +1264,9 @@ def mode_step_times(gen) -> dict:
               lambda: DistributedLion(3e-4, weight_decay=0.1, vote_every=LAZY_K), LAZY_K - 1),
              (f"lazy K {LAZY_K}, first step",
               lambda: DistributedLion(3e-4, weight_decay=0.1, vote_every=LAZY_K), 0),
+             (f"lazy stochastic K {LAZY_K}, all slots voted",
+              lambda: DistributedLion(3e-4, weight_decay=0.1, vote_every=LAZY_K,
+                                      max_grad_norm=STOCH_MGN, seed=STOCH_SEED), LAZY_K - 1),
              ("fused, bf16 momentum",
               lambda: DistributedLion(3e-4, weight_decay=0.1, mom_dtype="bfloat16"), 0),
              ("AdamW", lambda: adamw(3e-4), 0))
@@ -1177,7 +1313,9 @@ class StepWatch:
     disagreement must equal ``bucket_vote_stats_plain`` of the gathered
     tally. Under ``vote_every`` K > 1, at every step: the slot's slice of
     the refreshed cache must equal the plain election of the gathered
-    slice ballots (``slices_equal``; ``cache`` accumulates those plain
+    slice ballots (under ``max_grad_norm`` the ballots replayed from
+    (seed, count, rank), ``replay_slice_ballots``; ``slices_equal``;
+    ``cache`` accumulates those plain
     elections, so after K steps it is a plain re-election of every slot);
     the bytes the wire records per step (``wire_bytes``); and at the first
     step, the coordinates outside slot 0 must equal their decayed values
@@ -1249,8 +1387,12 @@ class StepWatch:
         lo = (state.steps % k) * chunk
         real = max(0, min(chunk, n - lo))
         ballots = torch.full((chunk,), -1, dtype=torch.int8, device=flat.device)
-        ballots[:real] = fused_lion.fused_ballots_plain(flat.grads[lo:lo + real],
-                                                        state.exp_avg[lo:lo + real], opt.b1)
+        if opt.max_grad_norm is None:
+            ballots[:real] = fused_lion.fused_ballots_plain(flat.grads[lo:lo + real],
+                                                            state.exp_avg[lo:lo + real], opt.b1)
+        else:   # the stochastic ballots, replayed from (seed, count, rank)
+            ballots[:real] = torch.where(opt.replay_slice_ballots(
+                flat.grads, state.exp_avg, state.steps), 1, -1).to(torch.int8)
         first = state.steps == 0
         if first:
             p_before = flat.params.clone()
@@ -1328,11 +1470,34 @@ def w4_rank(rank: int, tmp: str) -> None:
                             "launches": launches})
             del trainer
             torch.cuda.empty_cache()
+        records.append(w4_async_commit(rank, tmp))
         if rank == 0:
             with open(f"{tmp}/w4.json", "w") as f:
                 json.dump(records, f)
     finally:
         dist.destroy_process_group()
+
+
+def w4_async_commit(rank: int, tmp: str) -> dict:
+    """An async checkpoint at W4 on the card: every rank saves its CUDA
+    tensor as step 1, and the commit thread (its own gloo group) commits
+    it with no later save and no ``close()``: ``COMMITTED`` appears within
+    COMMIT_POLL_S and the step verifies."""
+    ck = Checkpointer(f"{tmp}/ck4", async_save=True, group=dist.group.WORLD)
+    t0 = time.monotonic()
+    ck.save(1, {f"exp_avg/rank{rank:05d}.pt": torch.full((1 << 20,), float(rank),
+                                                         device="cuda")})
+    marker = ck.directory / "1" / resilience.MARKER
+    while not marker.exists() and time.monotonic() - t0 < COMMIT_POLL_S:
+        time.sleep(0.01)
+    seconds = time.monotonic() - t0
+    dist.barrier()   # every rank has looked before any closes
+    committed, valid = marker.exists(), ck.latest_valid_step()
+    ck.close()
+    if not committed or valid != 1:
+        raise AssertionError(f"run (f) rank {rank}: an async save at W = {W4} left COMMITTED "
+                             f"{committed}, latest_valid_step {valid} after {seconds:.2f} s")
+    return {"run": "async commit", "seconds": seconds}
 
 
 def w4_phase(tmp: str, card: str) -> None:
@@ -1341,6 +1506,10 @@ def w4_phase(tmp: str, card: str) -> None:
     mp.spawn(w4_rank, args=(tmp,), nprocs=W4, join=True)
     with open(f"{tmp}/w4.json") as f:
         records = json.load(f)
+    commit = records.pop()
+    print(f"[w4] (f) async checkpoint at W = {W4}: step 1 COMMITTED by the commit thread "
+          f"{commit['seconds']:.3f} s after save() on rank 0, with no later save and no close(); "
+          f"latest_valid_step() == 1 on every rank; on {card}", flush=True)
     for rec in records:
         hist = ("" if rec["hist"] is None else
                 f"; margin histogram {rec['hist'][0]} == bucket_vote_stats_plain of the gathered "
@@ -1569,12 +1738,13 @@ def resume_phase(tmp: str, card: str) -> None:
 
 LAZY_ARGS = ["--dropout", "0", "--telemetry", "--vote_every", str(LAZY_K),
              "--lr_scheduler_type", "constant"]   # run (h1): the sign steps are real from step 1
+LAZY_STOCH_ARGS = LAZY_ARGS + ["--max_grad_norm", str(STOCH_MGN)]   # run (h3)
 BF16_ARGS = ["--dropout", "0", "--telemetry", "--mom_dtype", "bfloat16"]   # run (h2)
 ADAMW_ARGS = ["--dropout", "0", "--lion", "false", "--async_grad", "false"]   # run (i)
 
 
 def modes_phase(gen, card) -> tuple[list, dict]:
-    """Runs (h1), (h2) and (i) in the 1-rank NCCL group, then the
+    """Runs (h1), (h3), (h2) and (i) in the 1-rank NCCL group, then the
     optimizer steps' device times; returns the runs' (label, rows,
     launches) and the times."""
     t = time.perf_counter()
@@ -1596,6 +1766,27 @@ def modes_phase(gen, card) -> tuple[list, dict]:
     del lazy
     torch.cuda.empty_cache()
     t = phase_time("slice (h1), GPT-2 124M vote_every 4", t)
+    watch = StepWatch()
+    try:
+        lzs, lzs_rows, lzs_launches = run_counted(LAZY_STOCH_ARGS, LAZY_STEPS)
+    finally:
+        watch.close()
+    expect("(h3) vote_every 4 + max_grad_norm", lzs_launches,
+           dict(optimizer_launches(lzs, LAZY_STEPS), **flash_launches(LAZY_STEPS)))
+    lazy_checks("run (h3)", lzs, watch, LAZY_STEPS)
+    flips = [r["vote/stoch_flip_frac"] for r in lzs_rows]
+    if not all(0.0 < f < 1.0 for f in flips):
+        raise AssertionError(f"run (h3): vote/stoch_flip_frac {flips}, expected each in (0, 1)")
+    print(f"[modes] (h3) --vote_every {LAZY_K} --max_grad_norm {STOCH_MGN}: GPT-2 124M, 1 rank, "
+          f"B 8 x accum {ACCUM}, {LAZY_STEPS} steps: losses "
+          f"{[round(r['loss'], 4) for r in lzs_rows]}; every step's slice election == the plain "
+          f"election of the ballots replayed from (seed, count, rank) {watch.slices_equal}; the "
+          f"cache after step {LAZY_STEPS} == a plain re-election of every slot's replayed "
+          f"ballots; stoch_flip_frac by step {flips}; step ms {[r['step_ms'] for r in lzs_rows]}; "
+          f"launches {lzs_launches}", flush=True)
+    del lzs
+    torch.cuda.empty_cache()
+    t = phase_time("slice (h3), GPT-2 124M vote_every 4 + max_grad_norm", t)
     bf16, bf16_rows, bf16_launches = run_counted(BF16_ARGS)
     expect("(h2) mom_dtype bfloat16", bf16_launches,
            dict(optimizer_launches(bf16, STEPS), **flash_launches(STEPS)))
@@ -1621,6 +1812,8 @@ def modes_phase(gen, card) -> tuple[list, dict]:
     times = mode_step_times(gen)
     phase_time("optimizer modes' step times", t)
     return [("(h1) dropout 0 + telemetry + vote_every 4", lazy_rows, lazy_launches),
+            ("(h3) dropout 0 + telemetry + vote_every 4 + max_grad_norm 1.0", lzs_rows,
+             lzs_launches),
             ("(h2) dropout 0 + telemetry + mom_dtype bfloat16", bf16_rows, bf16_launches),
             ("(i) dropout 0, AdamW", adam_rows, adam_launches)], times
 
@@ -1680,7 +1873,9 @@ def slice_phase(tmp, gen, card):
         mode_runs, mode_times = modes_phase(gen, card)
         t = time.perf_counter()
         llama = llama_run(gen)
-        phase_time("slice (d), Llama-2-7B", t)
+        t = phase_time("slice (d), Llama-2-7B", t)
+        dpo = dpo_run(gen)
+        phase_time("slice (j), Llama-2-7B DPO", t)
         resume_phase(tmp, card)
     finally:
         dist.destroy_process_group()
@@ -1694,7 +1889,7 @@ def slice_phase(tmp, gen, card):
         ("(b) dropout 0 + telemetry", rows, launches),
         ("(c) dropout 0", plain_rows, plain_launches),
         ("(e) dropout 0 + max_grad_norm 1.0 (stochastic)", stoch_rows, stoch_launches),
-        *mode_runs], llama, mode_times
+        *mode_runs], llama, dpo, mode_times
 
 
 def phase_time(name: str, since: float) -> float:
@@ -1738,7 +1933,7 @@ def main():
     nf4_check(gen)
     phase_time("model, products, NF4", t)
     with tempfile.TemporaryDirectory() as tmp:
-        (world, wire, buckets), runs, llama, mode_times = slice_phase(tmp, gen, card)
+        (world, wire, buckets), runs, llama, dpo, mode_times = slice_phase(tmp, gen, card)
         t = time.perf_counter()
         w4_phase(tmp, card)
         phase_time(f"slice (f), GPT-2 124M at W = {W4} on one card", t)
@@ -1757,6 +1952,17 @@ def main():
           f"{statistics.median(r['tokens_per_sec'] for r in rows[1:]):.0f} tokens/s; peak "
           f"device memory {peak / 2**30:.2f} GiB; run_sft.main {wall:.1f} s on {card}; "
           f"launches {llama_launches}", flush=True)
+    rows, dpo_launches, peak, wall, ev = dpo
+    print(f"[slice] (j) run_dpo Llama-2-7B, dense float32 policy base, NF4 reference, LoRA on "
+          f"the DPO targets ({N_DPO:,} coordinates), flash hd128, telemetry, B {DPO_PAIRS} pairs "
+          f"x accum {ACCUM} x T 1024, 1 rank: losses {[round(r['loss'], 4) for r in rows]}: "
+          f"steps 2-{STEPS} {[r['step_ms'] for r in rows[1:]]} ms, median "
+          f"{statistics.median(r['step_ms'] for r in rows[1:]):.1f} ms/step, "
+          f"{statistics.median(r['tokens_per_sec'] for r in rows[1:]):.0f} tokens/s (pairs x T, "
+          f"as the JAX trainer counts); reward_margin by step "
+          f"{[round(r['reward_margin'], 5) for r in rows]}; eval {ev}; peak device memory "
+          f"{peak / 2**30:.2f} GiB; run_dpo.main {wall:.1f} s on {card}; launches {dpo_launches}",
+          flush=True)
     print("[modes] optimizer step device time at n=124,439,808 on " + card + ": "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in mode_times.items()), flush=True)
     # each main path's counts: GPT-2's (b) for the optimizer and hd64 flash

@@ -1,0 +1,215 @@
+"""DPO entry point: port of ``distributed_lion_tpu/cli/run_dpo.py``, the intended workload of the reference's ``dpo_llama2.py``.
+
+    python -m distributed_lion_tpu_torch.cli.run_dpo --lion --async_grad \\
+        --model_name llama2_7b --quant_ref nf4 --attn_impl flash \\
+        --per_device_train_batch_size 2 --gradient_accumulation_steps 2 \\
+        --max_steps 100 --output_dir ./dpo
+
+The reference's file does not parse (a syntax error at :81, ``base_model``
+undefined at :210-213); the JAX package implements what it meant, and so
+does this port:
+
+- a policy and a frozen reference, both starting from the SFT model
+  (``--sft_checkpoint``, a merged ``.npz`` that ``run_sft
+  --merged_output`` writes, float leaves cast to the param dtype) or, with
+  none, from a fresh init of ``--seed``. The policy's base stays dense; the
+  reference is the same tensors at ``--quant_ref none`` and a quantized copy
+  at ``int8`` or ``nf4`` (the reference repo's 4-bit reference model);
+- the β 0.1 pairwise loss (``train/dpo.py``) over prompt/chosen/rejected
+  rows, length-filtered and masked to the completion (``data/dpo.py``);
+  ``--max_length`` is clamped to the model's context, and the eval split
+  is ``min(size_valid_set, n // 4)`` pairs;
+- LoRA on the policy over the reference's wider target set
+  (``models.lora.DPO_TARGET_PATTERNS``: the four attention projections,
+  the SwiGLU MLP and the token embedding), trained by Distributed Lion.
+
+``--merged_output <path>.npz`` saves the LoRA-merged, dequantized policy in
+the JAX package's flat format. It runs on the GPU unless
+``DLION_PLATFORM=cpu``; without torchrun it trains a world of one. The
+trainer's ``tokens_per_sec`` counts pairs x T, as the JAX trainer does.
+Not ported, and refused by name: a pretrained base (``--model_path``), PEFT
+adapters in and out (``--adapter_path``, ``--adapter_output``) and an
+HF-directory ``--merged_output`` (ROADMAP Queue 1 item 9), the
+chunked-vocabulary logprobs (``--vocab_chunks``, item 5), and sequence and
+tensor parallelism (``--seq_parallel``, ``--tensor_parallel``,
+``--seq_impl``, item 11).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from distributed_lion_tpu_torch.cli.run_sft import UnportedArguments
+from distributed_lion_tpu_torch.data.dpo import dpo_batch_iterator, prepare_dpo_batch
+from distributed_lion_tpu_torch.data.sft import load_pairs_jsonl, synthetic_qa_pairs
+from distributed_lion_tpu_torch.data.tokenizer import load_tokenizer
+from distributed_lion_tpu_torch.models.llama import Llama, LlamaConfig, llama_init, tree_nbytes
+from distributed_lion_tpu_torch.models.lora import (
+    DPO_TARGET_PATTERNS,
+    LoraConfig,
+    adapter_named_parameters,
+    lora_apply_fn,
+    lora_init,
+    merge_lora,
+)
+from distributed_lion_tpu_torch.ops.quant import dequantize_tree, map_tree, quantize_tree
+from distributed_lion_tpu_torch.parallel.mesh import init_distributed, platform_device, rank_of
+from distributed_lion_tpu_torch.train.dpo import make_dpo_loss_fn
+from distributed_lion_tpu_torch.train.loop import TrainConfig, Trainer
+from distributed_lion_tpu_torch.utils.argparsing import parse_dataclasses
+from distributed_lion_tpu_torch.utils.serialization import load_pytree, save_pytree
+
+
+@dataclasses.dataclass
+class DPOArguments:
+    """The JAX package's ``DPOArguments``: same names and defaults."""
+
+    model_name: str = "llama2_7b"  # llama2_7b | llama3_8b | small | tiny
+    model_path: Optional[str] = None  # a pretrained HF base: not ported
+    dataset: str = "synthetic"     # synthetic | jsonl:<path>
+    sft_checkpoint: Optional[str] = None  # merged .npz from run_sft
+    beta: float = 0.1
+    max_length: int = 1024
+    max_prompt_length: int = 512
+    num_train_samples: int = 512
+    size_valid_set: int = 64
+    sanity_check: bool = False
+    attn_impl: str = "auto"        # ops.attention: auto | xla | flash | splash
+    seq_impl: str = "ring"         # read only under --seq_parallel (not ported)
+    quant_ref: str = "none"        # none | int8 | nf4: the frozen reference
+    quant_block: Optional[int] = None  # default: nf4 64, int8 256
+    lora_r: int = 8
+    lora_alpha: int = 16
+    lora_dropout: float = 0.05     # adapter-branch dropout
+    tokenizer_name: Optional[str] = None
+    adapter_path: Optional[str] = None    # PEFT adapters in: not ported
+    adapter_output: Optional[str] = None  # PEFT adapters out: not ported
+    merged_output: Optional[str] = None   # *.npz: the merged policy (an HF directory: not ported)
+
+
+def _refused(flag: str, item: int) -> NotImplementedError:
+    return NotImplementedError(f"--{flag} is not ported (ROADMAP Queue 1 item {item})")
+
+
+def refuse_unported(args: DPOArguments, unported: UnportedArguments) -> None:
+    """Refuse, by name and ROADMAP item, what the port does not run."""
+    for flag in ("model_path", "adapter_path", "adapter_output"):
+        if getattr(args, flag):
+            raise _refused(flag, 9)
+    if args.merged_output and not args.merged_output.endswith(".npz"):
+        raise NotImplementedError(
+            f"--merged_output {args.merged_output!r}: the HF save_pretrained export is not "
+            "ported (ROADMAP Queue 1 item 9); give a *.npz path")
+    if unported.vocab_chunks:
+        raise _refused("vocab_chunks", 5)
+    for flag in ("seq_parallel", "tensor_parallel"):
+        if getattr(unported, flag) != 1:
+            raise _refused(flag, 11)
+    if args.seq_impl != "ring":
+        raise _refused("seq_impl", 11)
+
+
+def dpo_records(args: DPOArguments) -> list:
+    """The records of ``--dataset``, all of them (the eval split is cut
+    after length filtering)."""
+    if args.dataset == "synthetic":
+        return synthetic_qa_pairs(args.num_train_samples + args.size_valid_set)
+    if args.dataset.startswith("jsonl:"):
+        return load_pairs_jsonl(args.dataset[len("jsonl:"):])[0]
+    raise ValueError(f"unknown dataset spec {args.dataset!r}")
+
+
+def load_sft_checkpoint(path: str, dtype: torch.dtype, device) -> Any:
+    """A merged ``.npz`` weight tree on ``device``, float leaves cast to
+    ``dtype`` (the JAX package's ``param_dtype`` normalization)."""
+    def leaf(x):
+        t = torch.from_numpy(np.asarray(x)).to(device)
+        return t.to(dtype) if t.is_floating_point() else t
+    return map_tree(leaf, load_pytree(path))
+
+
+def dpo_loss_fn(model: Llama, base: Any, ref: Any, adapters: dict, lora_cfg: LoraConfig,
+                beta: float):
+    """The trainer's loss: the policy is ``model`` over ``base`` with
+    ``adapters`` swapped in, the reference ``model`` over ``ref``."""
+    policy = lora_apply_fn(lambda params, tokens: model(tokens, params), base, lora_cfg)
+    return make_dpo_loss_fn(lambda tokens, seed: policy(adapters, tokens, dropout_seed=seed),
+                            lambda tokens: model(tokens, ref), beta=beta)
+
+
+def main(argv=None) -> tuple[Trainer, Llama, dict, Any]:
+    """Train, evaluate, and write ``--merged_output``; returns the (closed)
+    trainer, the :class:`Llama` over the policy's dense base, the trained
+    adapters (``{path: {"A", "B"}}``) and the frozen reference's tree."""
+    args, unported, train_cfg = parse_dataclasses((DPOArguments, UnportedArguments, TrainConfig),
+                                                  argv)
+    refuse_unported(args, unported)
+    device = platform_device()
+    group = init_distributed(device)
+    rank0 = rank_of(group) == 0
+    tok = load_tokenizer(args.tokenizer_name)
+    model_cfg = LlamaConfig.named(args.model_name, vocab_size=max(tok.vocab_size, 259),
+                                  attn_impl=args.attn_impl)
+    args.max_length = min(args.max_length, model_cfg.n_ctx)
+    train_cfg.block_size = args.max_length
+
+    # policy and reference both start from the SFT model (dpo_llama2.py:133-152)
+    if args.sft_checkpoint:
+        base = load_sft_checkpoint(args.sft_checkpoint, model_cfg.param_dtype, device)
+        if rank0:
+            print(f"[run_dpo] loaded SFT model from {args.sft_checkpoint}")
+    else:
+        if rank0:
+            print("[run_dpo] no --sft_checkpoint/--model_path given; starting from fresh init")
+        base = llama_init(model_cfg, seed=train_cfg.seed, device=device)
+    ref = base
+    if args.quant_ref != "none":
+        ref = quantize_tree(base, args.quant_ref, block=args.quant_block)
+    lora_cfg = LoraConfig(r=args.lora_r, alpha=args.lora_alpha, dropout=args.lora_dropout,
+                          target_patterns=DPO_TARGET_PATTERNS)
+    adapters = {path: {k: nn.Parameter(t) for k, t in ab.items()}
+                for path, ab in lora_init(base, lora_cfg, seed=train_cfg.seed + 1).items()}
+    model = Llama(model_cfg, base)
+    named = adapter_named_parameters(adapters)
+    if rank0:
+        print(f"[run_dpo] LoRA adapters: {len(adapters)} sites, "
+              f"{sum(p.numel() for _, p in named) / 1e3:.1f}k trainable params; policy base "
+              f"{tree_nbytes(base) / 2**30:.2f} GiB, reference "
+              f"{'the same tensors' if ref is base else f'{args.quant_ref}, {tree_nbytes(ref) / 2**30:.2f} GiB'}"
+              f" on {device}")
+
+    data = prepare_dpo_batch(dpo_records(args), tok, max_length=args.max_length,
+                             max_prompt_length=args.max_prompt_length,
+                             sanity_check=args.sanity_check)
+    n = len(data["chosen"])
+    n_valid = min(args.size_valid_set, n // 4)
+    eval_data = {k: v[:n_valid] for k, v in data.items()} if n_valid else None
+    train_data = {k: v[n_valid:] for k, v in data.items()}
+    if rank0:
+        print(f"[run_dpo] {n - n_valid} train / {n_valid} eval pairs (after length filtering)")
+
+    trainer = Trainer(train_cfg, named,
+                      dpo_loss_fn(model, base, ref, adapters, lora_cfg, args.beta),
+                      group=group, model=model)
+    try:
+        trainer.train(dpo_batch_iterator(train_data, trainer.global_train_batch(),
+                                         seed=train_cfg.seed), eval_blocks=eval_data)
+        if eval_data is not None:
+            trainer.evaluate(eval_data)
+        if trainer.checkpointer:
+            trainer.save()
+        if args.merged_output and rank0:
+            save_pytree(args.merged_output, dequantize_tree(merge_lora(base, adapters, lora_cfg)))
+            print(f"[run_dpo] merged policy saved to {args.merged_output}")
+    finally:
+        trainer.close()
+    return trainer, model, adapters, ref
+
+
+if __name__ == "__main__":
+    main()

@@ -87,8 +87,8 @@ class SFTArguments:
 
 @dataclasses.dataclass
 class UnportedArguments:
-    """The JAX ``TrainConfig`` fields ``run_sft`` reads that the port does
-    not have; any value but the default is refused."""
+    """The JAX ``TrainConfig`` fields ``run_sft`` and ``run_dpo`` read that
+    the port does not have; any value but the default is refused."""
 
     seq_parallel: int = 1
     tensor_parallel: int = 1

@@ -16,8 +16,11 @@ paths; here site ``i`` of the sorted paths draws from a ``torch.Generator``
 seeded ``fold_seed(seed, i)``, so a rematerialized block draws the same mask
 again. The two frameworks' masks differ; their statistics agree.
 
-Tensor parallelism (``copy_to_tp_region``, ``lora_adapter_specs``) is not
-ported (ROADMAP Queue 1 item 9).
+:data:`DPO_TARGET_PATTERNS` is the reference's wider DPO target set, and
+:func:`lora_apply_fn` wraps a model over a closed-over frozen base into a
+function of the adapters (the DPO policy). Tensor parallelism
+(``copy_to_tp_region``, ``lora_adapter_specs``) is not ported (ROADMAP
+Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import re
-from typing import Any, Optional, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import torch
 
@@ -95,6 +98,15 @@ class LoraConfig:
     @property
     def scaling(self) -> float:
         return self.alpha / self.r
+
+
+# the reference's DPO target set (dpo_llama2.py:192-207: q/v/k/out_proj +
+# fc_in/fc_out/wte) in this repo's Llama leaf names: all four attention
+# projections, the whole SwiGLU MLP and the token embedding (a gather-side
+# adapter, :func:`lora_embed`). Patterns match a leaf's last path component
+# whole, so "wo" does not match "w_down".
+DPO_TARGET_PATTERNS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                       "wte", "q_proj", "k_proj", "v_proj", "out_proj")
 
 
 def _is_weight_leaf(x) -> bool:
@@ -196,3 +208,16 @@ def apply_adapters(base_params: Any, adapters: dict, cfg: LoraConfig,
         _tree_set(effective, path, LoraTensor(_tree_get(base_params, path), ab["A"], ab["B"],
                                               cfg.scaling, rate, seed))
     return effective
+
+
+def lora_apply_fn(base_apply: Callable, base_params: Any, cfg: LoraConfig) -> Callable:
+    """Wrap ``base_apply(params, tokens, *args, **kw)`` into ``apply(adapters,
+    tokens, *args, dropout_seed=None, **kw)`` over the closed-over frozen
+    ``base_params``: the adapted leaves are swapped in per call
+    (:func:`apply_adapters`), so only the adapters take gradients."""
+
+    def apply(adapters, tokens, *args, dropout_seed: Optional[int] = None, **kwargs):
+        return base_apply(apply_adapters(base_params, adapters, cfg, dropout_seed=dropout_seed),
+                          tokens, *args, **kwargs)
+
+    return apply

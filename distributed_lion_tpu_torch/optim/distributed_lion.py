@@ -71,14 +71,27 @@ the refreshed cache, ``voted`` the slice's real coordinates, ``valid`` the
 coordinates that moved, ``flip_valid`` from step K on (the slot's previous
 bytes are a real election only after one rotation).
 
+**Lazy refresh under stochastic binarization** (``vote_every`` K > 1 with
+``max_grad_norm``; JAX ``_elect_lazy`` over the stochastic ballots). The
+JAX package draws the whole ballot vector and votes the slot's slice of it;
+the port draws only the slice, bucket by bucket from
+``stochastic_generator(seed, count, rank)`` in plain ops (as the
+every-step stochastic mode), which has the same law since the other draws
+are discarded. :meth:`DistributedLion.replay_slice_ballots` draws them
+again from the same three numbers. The vote, the cache and the apply are
+the deterministic lazy path's. With telemetry ``stoch_flip_frac`` is the
+JAX package's full-vector mean: the coordinates outside the slice draw
+after it from the same stream, for the fraction only, so the voted ballots
+are the same with telemetry on or off.
+
 Ported: the deterministic and the stochastic modes on the three flat wires
-and the synchronous ``hier:<g>`` wire, lazy refresh in the deterministic
-mode, ``mom_dtype``, and vote-health telemetry; and
+and the synchronous ``hier:<g>`` wire, lazy refresh in both modes,
+``mom_dtype``, and vote-health telemetry; and
 :func:`remap_worker_momentum`, the elastic resume's remap of the per-rank
-momenta to another world size. Refused, naming their ROADMAP items: lazy
-refresh with stochastic binarization (Queue 1 item 4), the DCN pipeline
-(``dcn_pipeline_depth``) and the vote guard (``guard``). Mixed param
-dtypes are refused by ``FlatParams``.
+momenta to another world size. Refused, naming their ROADMAP items: the
+DCN pipeline (``dcn_pipeline_depth``, Queue 1 item 11) and the vote guard
+(``guard``, Queue 1 item 10). Mixed param dtypes are refused by
+``FlatParams``.
 """
 
 from __future__ import annotations
@@ -143,9 +156,6 @@ class DistributedLion:
                              "from a seed; pass seed")
         if max_grad_norm is not None and not max_grad_norm > 0:
             raise ValueError(f"max_grad_norm must be > 0, got {max_grad_norm}")
-        if max_grad_norm is not None and vote_every > 1:
-            _refuse("lazy sign refresh (vote_every > 1) with stochastic binarization "
-                    "(max_grad_norm)", "ROADMAP Queue 1 item 4")
         self.learning_rate, self.b1, self.b2 = learning_rate, b1, b2
         self.weight_decay = weight_decay
         self.group, self.wire, self.vote_buckets = group, wire, vote_buckets
@@ -236,20 +246,52 @@ class DistributedLion:
         p[w] = lion_math.apply_signed_update(decayed, total > 0, lr)
         m[w] = lion_math.momentum_update(g[w], m[w], self.b2)
 
+    def _slice_buckets(self, n: int, count: int) -> tuple:
+        """``(lo, real, [(start, size, r)])`` of slot ``count mod K``'s slice:
+        its first coordinate, its coordinates below n, and each vote bucket's
+        offset in the slice, size and coordinates below n."""
+        chunk = vote_chunk_elems(n, self.vote_every)
+        lo = (count % self.vote_every) * chunk
+        real = max(0, min(chunk, n - lo))
+        return lo, real, [(start, size, max(0, min(size, real - start)))
+                          for start, size in bucket_bounds(chunk, self.vote_buckets,
+                                                           self.world, self.wire)]
+
+    def replay_slice_ballots(self, g: torch.Tensor, m: torch.Tensor,
+                             count: int) -> torch.Tensor:
+        """The bool ballots (True: +1) of slot ``count mod K``'s real
+        coordinates under stochastic binarization, drawn as the lazy step
+        at host step count ``count`` draws them: from
+        ``stochastic_generator(seed, count, rank)``, bucket by bucket. From
+        the same g and m they are the ballots that step voted."""
+        gen = lion_math.stochastic_generator(self.seed, count, self.rank, g.device)
+        lo, _, buckets = self._slice_buckets(g.numel(), count)
+        return torch.cat([lion_math.stochastic_vote_bool(
+            g[lo + start:lo + start + r], m[lo + start:lo + start + r], self.b1,
+            self.max_grad_norm, gen) for start, _, r in buckets])
+
     def _step_lazy(self, flat: FlatParams, state: LionState, p, g, m, lr, frame):
         """The lazy refresh of the module doc: vote slot ``count mod K``'s
         slice bucket by bucket, write its election into a copy of the
         cache, apply the cached signs."""
         n, k, count = flat.numel, self.vote_every, state.steps
         chunk = vote_chunk_elems(n, k)
-        lo = (count % k) * chunk           # the slot's first coordinate
-        real = max(0, min(chunk, n - lo))  # its coordinates below n
+        lo, real, buckets = self._slice_buckets(n, count)
+        stochastic = self.max_grad_norm is not None
+        if stochastic:
+            gen = lion_math.stochastic_generator(self.seed, count, self.rank, flat.device)
+            flips = torch.zeros((), dtype=torch.int64, device=flat.device)
         cache = state.elected.clone()      # the frame keeps the old one as its flip base
         pending = []
-        for start, size in bucket_bounds(chunk, self.vote_buckets, self.world, self.wire):
-            r = max(0, min(size, real - start))  # the bucket's coordinates below n
+        for start, size, r in buckets:
             w = slice(lo + start, lo + start + r)
-            if m.dtype == torch.float32:
+            if stochastic:
+                vote_pos = lion_math.stochastic_vote_bool(g[w], m[w], self.b1,
+                                                          self.max_grad_norm, gen)
+                ballots = torch.where(vote_pos, 1, -1).to(torch.int8)
+                if frame is not None:
+                    flips += (vote_pos != lion_math.sign_vote_bool(g[w], m[w], self.b1)).sum()
+            elif m.dtype == torch.float32:
                 ballots = fused_lion.fused_ballots(g[w], m[w], self.b1)
             else:
                 ballots = lion_math.sign_vote_bool(g[w], m[w], self.b1).to(torch.int8) * 2 - 1
@@ -291,6 +333,15 @@ class DistributedLion:
 
         frame.update(elected=cache, voted=i32(real), valid=i32(valid),
                      flip_valid=torch.tensor(count >= k, device=flat.device))
+        if stochastic:
+            # the full vector's flip share, as the JAX package's: the
+            # coordinates outside the slice draw after it from the same
+            # stream, so the voted ballots do not depend on telemetry
+            for w in (slice(0, lo), slice(lo + real, n)):
+                flips += (lion_math.stochastic_vote_bool(g[w], m[w], self.b1,
+                                                         self.max_grad_norm, gen)
+                          != lion_math.sign_vote_bool(g[w], m[w], self.b1)).sum()
+            frame["stoch_flip_frac"] = flips.to(torch.float32) / n
         return state, frame
 
 

@@ -15,18 +15,29 @@ rename.
   into this checkpointer's own host buffers (pinned for CUDA tensors; the
   copy's stream is synchronised) before it returns, so the next step may
   update the live buffers in place; one commit thread
-  (``ThreadPoolExecutor(max_workers=1)``) writes the files and commits.
-  The blocking drain of that thread moves to the next save boundary and
-  to :meth:`finalize` and :meth:`close`. :meth:`pop_stall_s` reports the
-  seconds the calling thread was blocked (the ``ckpt_stall_s`` metric).
+  (``ThreadPoolExecutor(max_workers=1)``) writes the files and commits,
+  behind the following steps, with no later save needed. The next save
+  boundary, :meth:`finalize` and :meth:`close` drain it and raise what it
+  raised. :meth:`pop_stall_s` reports the seconds the calling thread was
+  blocked (the ``ckpt_stall_s`` metric).
 - **Across ranks**: a step commits only after every rank's files are
   final. At a world of one the commit thread commits right after its own
-  write. At W > 1 each rank drains its write at the next save boundary
-  (or in :meth:`finalize`), then one ``dist.barrier()`` on the main thread,
-  then rank 0 commits; no collective runs on the commit thread, so at
-  W > 1 a step commits one save boundary late. Every rank's files must
-  land in one directory tree: on more than one node the root must be a
-  shared filesystem, as the JAX package assumes.
+  write. At W > 1 with async saves, every rank builds one more process
+  group at construction, a gloo group of the same ranks that only the
+  commit thread uses (``dist.new_group``, in the same order on every
+  rank). After its own write each rank's commit thread joins a MIN
+  ``all_reduce`` of "my files are final" on that group, and rank 0 then
+  commits, or raises if a peer's write failed. No collective runs on the
+  main thread's group from the commit thread, and a gloo collective
+  touches no device stream, so it cannot interleave with the main thread's
+  NCCL work. The group's timeout (``commit_timeout_s``) bounds the wait
+  for a peer that never arrives: the collective raises on the commit
+  thread and the drain reports it. This design was taken over per-rank
+  marker files polled on the shared root because a collective needs no
+  polling interval and cleans nothing up. Synchronous saves at W > 1 join
+  one ``dist.barrier()`` on the main thread before rank 0 commits. Every
+  rank's files must land in one directory tree: on more than one node the
+  root must be a shared filesystem, as the JAX package assumes.
 - **Verified autodetect**: :meth:`valid_steps` re-hashes the candidates
   newest first; a step without its marker is rejected once the root holds
   the ``MANIFESTS_ENABLED`` stamp, and grandfathered before it.
@@ -43,6 +54,7 @@ import pathlib
 import shutil
 import sys
 import time
+from datetime import timedelta
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Optional
 
@@ -88,11 +100,13 @@ def write_manifest(sdir: pathlib.Path, step: int, meta: Optional[dict] = None) -
 
 class Checkpointer:
     """Save, commit, verify and restore step directories under
-    ``directory``; ``group`` is the ranks that save together (None: one)."""
+    ``directory``; ``group`` is the ranks that save together (None: one).
+    Every rank of the default group constructs it at W > 1 with
+    ``async_save``: the commit thread's group is made here."""
 
     def __init__(self, directory: str | pathlib.Path, save_total_limit: Optional[int] = None, *,
                  async_save: bool = False, integrity: bool = True, max_retries: int = 3,
-                 retry_backoff_s: float = 0.1, group=None):
+                 retry_backoff_s: float = 0.1, group=None, commit_timeout_s: float = 1800.0):
         self.directory = pathlib.Path(directory).absolute()
         self.directory.mkdir(parents=True, exist_ok=True)
         self.save_total_limit = save_total_limit
@@ -113,7 +127,12 @@ class Checkpointer:
         self._executor = (ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt-commit")
                           if async_save else None)
         self._inflight: list[tuple[int, Future]] = []
-        self._uncommitted: Optional[tuple[int, Optional[dict]]] = None
+        # the commit thread's own group: a gloo collective off the main
+        # thread's group, bounded by the timeout (module doc)
+        self._commit_group = (
+            dist.new_group(ranks=dist.get_process_group_ranks(group or dist.group.WORLD),
+                           backend="gloo", timeout=timedelta(seconds=commit_timeout_s))
+            if async_save and self.world > 1 else None)
         self._host: dict[str, torch.Tensor] = {}
         steps = step_numbers(self.directory)
         self._latest: Optional[int] = steps[0] if steps else None
@@ -132,24 +151,20 @@ class Checkpointer:
         drained = 0.0
         try:
             try:
-                drained = self._drain(commit_inline=not self.async_save)
+                drained = self._drain()
             except Exception:
                 drained = time.monotonic() - t0
                 raise
             host = self._snapshot(files)
             self._latest = int(step)
-            solo = self.world == 1
             if self._executor is not None:
-                fut = self._executor.submit(self._write_and_commit, step, host, meta, solo)
-                self._inflight.append((step, fut))
-                if not solo:
-                    self._uncommitted = (step, meta)
+                self._inflight.append(
+                    (step, self._executor.submit(self._write_and_commit, step, host, meta)))
             else:
-                self._write_and_commit(step, host, meta, solo)
-                if not solo:
-                    dist.barrier(group=self.group)
-                    if self.rank == 0:
-                        self._commit(step, meta)
+                self._write(step, host)
+                if self.world > 1:
+                    dist.barrier(group=self.group)  # every rank's files are final
+                self._commit(step, meta)
         finally:
             self._add_stall(max(time.monotonic() - t0 - drained, 0.0))
 
@@ -184,9 +199,25 @@ class Checkpointer:
             stream.synchronize()
         return out
 
-    def _write_and_commit(self, step: int, host: dict[str, Any], meta, commit: bool):
-        self._write(step, host)
-        return self._commit(step, meta) if commit else step
+    def _write_and_commit(self, step: int, host: dict[str, Any], meta) -> Optional[int]:
+        """The commit thread's work: this rank's files, then, at W > 1, the
+        MIN ``all_reduce`` of every rank's success on the commit group, then
+        rank 0's commit."""
+        if self._commit_group is None:
+            self._write(step, host)
+            return self._commit(step, meta)
+        ok = torch.ones(1, dtype=torch.int32)
+        try:
+            self._write(step, host)
+        except Exception:
+            ok.zero_()  # tell the peers, then raise this rank's own error
+            dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=self._commit_group)
+            raise
+        dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=self._commit_group)
+        if not int(ok):
+            raise RuntimeError(f"checkpoint step {step}: another rank's write failed; the step "
+                               "is not committed")
+        return self._commit(step, meta)
 
     def _write(self, step: int, host: dict[str, Any]) -> None:
         """Write each file by a temporary file and a rename, with the retry
@@ -254,11 +285,10 @@ class Checkpointer:
             if s < keep[-1]:
                 shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
-    def _drain(self, commit_inline: bool) -> float:
-        """Wait for this rank's in-flight writes; at W > 1 then the barrier
-        and rank 0's commit of the step they completed (inline, or on the
-        commit thread). Returns the seconds this blocked."""
-        if not self._inflight and self._uncommitted is None:
+    def _drain(self) -> float:
+        """Wait for this rank's in-flight writes and commits; raises a
+        failure of the commit thread. Returns the seconds this blocked."""
+        if not self._inflight:
             return 0.0
         t0 = time.monotonic()
         try:
@@ -267,21 +297,10 @@ class Checkpointer:
                 try:
                     fut.result()
                 except Exception as e:
-                    self._uncommitted = None
                     raise RuntimeError(
                         f"checkpoint write or commit for step {step} under "
                         f"{self._step_dir(step)} failed on the commit thread; that checkpoint "
                         "was never committed and will not be resumed from") from e
-            if self._uncommitted is not None:
-                step, meta = self._uncommitted
-                self._uncommitted = None
-                dist.barrier(group=self.group)  # every rank's files are final
-                if self.rank == 0:
-                    if commit_inline or self._executor is None:
-                        self._commit(step, meta)
-                    else:
-                        self._inflight.append(
-                            (step, self._executor.submit(self._commit, step, meta)))
         finally:
             dt = time.monotonic() - t0
             self._add_stall(dt)
@@ -290,7 +309,7 @@ class Checkpointer:
     def finalize(self) -> float:
         """Drain every in-flight save and commit it; returns the seconds this
         blocked. A failure on the commit thread is raised here."""
-        return self._drain(commit_inline=True)
+        return self._drain()
 
     def _add_stall(self, dt: float) -> None:
         self.total_stall_s += dt

@@ -1,0 +1,81 @@
+"""The DPO loss over a trained policy and a frozen reference: port of ``distributed_lion_tpu/train/dpo.py``.
+
+The reference's ``dpo_llama2.py`` does not parse as shipped; this is its
+intended workload, as the JAX package implements it. Policy and reference
+score (prompt, chosen) and (prompt, rejected); with β 0.1 the loss is
+
+    −log σ(β · [(logπ_c − logπ_r) − (logref_c − logref_r)])
+
+over a batch ``{"chosen", "rejected", "chosen_mask", "rejected_mask"}`` of
+``[B, T]`` rows (``data/dpo.py``), the masks selecting completion tokens.
+
+:func:`make_dpo_loss_fn` builds the trainer's ``loss_fn(batch, seed) ->
+(loss, metrics)`` (``train/loop.py``): two policy passes, chosen then
+rejected, each with its own adapter-dropout seed folded from the
+microbatch's (the JAX package splits its dropout key; in eval, ``seed``
+None, there is no dropout), and two reference passes under
+``torch.no_grad()`` (the JAX package's ``stop_gradient``). Metrics are the
+JAX package's: ``loss``, ``reward_accuracy`` and ``reward_margin``.
+
+Not ported, and refused by name: the chunked-vocabulary logprobs
+(``vocab_chunks > 0``, ``sequence_logprob_chunked``; ROADMAP Queue 1 item
+5), the sequence-parallel logprobs (``seq_axis``) and the
+frozen-as-argument variant that tensor parallelism uses
+(``make_dpo_loss_fn_frozen``), both Queue 1 item 11.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+
+from distributed_lion_tpu_torch.models.gpt2 import fold_seed
+
+
+def sequence_logprob(logits: torch.Tensor, tokens: torch.Tensor,
+                     mask: torch.Tensor) -> torch.Tensor:
+    """Sum of the label log-probs over the masked (completion) positions,
+    ``[B]``: float32 ``log_softmax`` of ``logits[:, :-1]``, labels
+    ``tokens[:, 1:]``, weights ``mask[:, 1:]``."""
+    logp = torch.log_softmax(logits[:, :-1].to(torch.float32), dim=-1)
+    ll = torch.gather(logp, -1, tokens[:, 1:, None].long())[..., 0]
+    return (ll * mask[:, 1:].to(torch.float32)).sum(-1)
+
+
+def make_dpo_loss_fn(policy_apply: Callable, ref_apply: Callable, beta: float = 0.1, *,
+                     seq_axis: Optional[str] = None, vocab_chunks: int = 0) -> Callable:
+    """``loss_fn(batch, seed) -> (loss, metrics)`` from
+    ``policy_apply(tokens, dropout_seed) -> logits`` (the adapters in its
+    closure) and ``ref_apply(tokens) -> logits`` (the frozen reference)."""
+    if vocab_chunks > 0:
+        raise NotImplementedError(
+            "vocab_chunks > 0 (sequence_logprob_chunked, ops/xent.py) is not ported "
+            "(ROADMAP Queue 1 item 5)")
+    if seq_axis is not None:
+        raise NotImplementedError(
+            "seq_axis (the sequence-parallel DPO logprobs) is not ported "
+            "(ROADMAP Queue 1 item 11)")
+
+    def loss_fn(batch: dict, seed: Optional[int]):
+        seed_c = seed_r = None
+        if seed is not None:  # one adapter-dropout seed per policy pass
+            seed_c, seed_r = fold_seed(seed, 0), fold_seed(seed, 1)
+        chosen, rejected = batch["chosen"], batch["rejected"]
+        pol_c = sequence_logprob(policy_apply(chosen, seed_c), chosen, batch["chosen_mask"])
+        pol_r = sequence_logprob(policy_apply(rejected, seed_r), rejected,
+                                 batch["rejected_mask"])
+        with torch.no_grad():
+            ref_c = sequence_logprob(ref_apply(chosen), chosen, batch["chosen_mask"])
+            ref_r = sequence_logprob(ref_apply(rejected), rejected, batch["rejected_mask"])
+        logits = beta * ((pol_c - pol_r) - (ref_c - ref_r))
+        loss = -F.logsigmoid(logits).mean()
+        with torch.no_grad():
+            reward_c, reward_r = beta * (pol_c - ref_c), beta * (pol_r - ref_r)
+            metrics = {"loss": loss.detach(),
+                       "reward_accuracy": (reward_c > reward_r).to(torch.float32).mean(),
+                       "reward_margin": (reward_c - reward_r).mean()}
+        return loss, metrics
+
+    return loss_fn

@@ -5,7 +5,10 @@ A :class:`Trainer` trains a list of named parameters under a loss function
 ``loss_fn(batch, seed) -> (loss, metrics)``, the JAX package's
 ``Trainer(params=..., loss_fn=...)`` form: ``seed`` is the microbatch's
 dropout seed, None in eval, and ``batch`` a token tensor ``[B, T]`` or a
-dict of ``"tokens"`` and ``"mask"`` (padded SFT rows). Only the named
+dict of ``[B, T]`` arrays, all split by rows: ``"tokens"`` and ``"mask"``
+(padded SFT rows), or DPO's ``"chosen"``, ``"rejected"`` and their masks.
+Eval reports every metric the loss function returns, and perplexity only
+when it reports ``n_tokens`` (a token-level loss). Only the named
 parameters train and have the flat buffers; a frozen base (LoRA) lives in
 the loss function's closure. :meth:`Trainer.for_gpt2` builds the GPT-2
 pretraining trainer.
@@ -398,7 +401,7 @@ class Trainer:
     def train(self, train_iter: Iterator, eval_blocks=None) -> list[dict]:
         """Step-based training to ``max_steps``; ``train_iter`` yields global
         batches of ``world*accum*per_device_bs`` rows (an array, or a dict
-        of ``"tokens"`` and ``"mask"``), each rank taking its shard."""
+        of arrays), each rank taking its shard."""
         cfg = self.cfg
         total = cfg.max_steps
         tokens_per_step = self.global_train_batch() * cfg.block_size
@@ -455,11 +458,13 @@ class Trainer:
 
     @torch.no_grad()
     def evaluate(self, eval_blocks) -> dict:
-        """Eval loss, token accuracy and perplexity = exp(loss) over rows of
-        an array, or of a dict of ``"tokens"`` and ``"mask"``."""
+        """The mean of every metric the loss function reports over rows of an
+        array or of a dict of arrays (``n_tokens`` aside), and perplexity =
+        exp(loss) where it reports ``n_tokens``."""
         cfg = self.cfg
         per_dev = cfg.per_device_eval_batch_size
-        n = len(eval_blocks["tokens"] if isinstance(eval_blocks, dict) else eval_blocks)
+        n = len(next(iter(eval_blocks.values())) if isinstance(eval_blocks, dict)
+                else eval_blocks)
         if n < self.world * per_dev:
             per_dev = n // self.world  # shrink rather than skip a small split
         bs = self.world * per_dev
@@ -475,7 +480,8 @@ class Trainer:
             for k, v in self._mean_over_ranks(metrics).items():
                 per_key.setdefault(k, []).append(v)
         out = {f"eval/{k}": float(np.mean(v)) for k, v in per_key.items() if k != "n_tokens"}
-        out["eval/perplexity"] = float(np.exp(min(out["eval/loss"], 80.0)))
+        if "n_tokens" in per_key:  # a token-level loss: perplexity applies
+            out["eval/perplexity"] = float(np.exp(min(out["eval/loss"], 80.0)))
         if self.rank == 0:
             self.logger.log(self.step_count, out, prefix="")
         return out

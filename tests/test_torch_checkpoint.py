@@ -8,13 +8,20 @@ drop the commit marker; autodetect then falls back to the newest good step
 in both packages. The fault registry drives the retry budget and the
 crashes before the manifest and the marker. That an async save returns
 before its commit is held by the ``ckpt_slow_commit`` fault and the
-commit future's state, not by a wall-clock bound.
+commit future's state, not by a wall-clock bound. At W = 2 over gloo an
+async save commits on the commit thread with no later save and no
+``close()``, and a peer that never saves makes the drain raise within the
+commit group's timeout.
 """
 
+import json
 import shutil
+import time
 
 import pytest
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from distributed_lion_tpu.train import resilience as j_resilience
 from distributed_lion_tpu_torch.train import resilience
@@ -185,3 +192,58 @@ def test_counted_faults_spend_their_charges():
     resilience.inject_fault("ckpt_crash_before_marker")
     assert resilience.consume_fault_count("ckpt_crash_before_marker") is True
     assert resilience.fault("missing", 5) == 5
+
+
+COMMIT_POLL_S = 30.0   # the bounded wait for the commit thread's marker
+
+
+def _w2_commit_rank(rank, pg, root, out):
+    dist.init_process_group("gloo", init_method=f"file://{pg}", rank=rank, world_size=2)
+    torch.set_num_threads(1)
+    result = {}
+    try:
+        ck = Checkpointer(f"{root}/a", async_save=True, group=dist.group.WORLD)
+        ck.save(2, {f"exp_avg/rank{rank:05d}.pt": torch.full((16,), float(rank))})
+        marker = ck.directory / "2" / "COMMITTED"
+        deadline = time.monotonic() + COMMIT_POLL_S
+        while not marker.exists() and time.monotonic() < deadline:
+            time.sleep(0.05)
+        dist.barrier()  # both ranks looked before either goes on
+        result["committed"] = marker.exists()
+        result["latest_valid"] = ck.latest_valid_step()
+        # a peer that never saves: rank 0's commit waits out the group's
+        # timeout and its drain raises
+        lone = Checkpointer(f"{root}/b", async_save=True, group=dist.group.WORLD,
+                            commit_timeout_s=1.0)
+        if rank == 0:
+            lone.save(4, {"exp_avg/rank00000.pt": torch.zeros(16)})
+            try:
+                lone.finalize()
+                result["lone"] = "no error"
+            except RuntimeError as e:
+                result["lone"] = str(e)
+        dist.barrier()
+        with open(f"{out}/rank{rank}.json", "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_async_save_commits_at_two_ranks_without_a_later_save(tmp_path):
+    """W = 2 over gloo: an async ``save(2, ...)`` shows ``2/COMMITTED`` and
+    ``latest_valid_step() == 2`` on both ranks with no later save and no
+    ``close()`` (the JAX package commits on its committer thread); a save
+    whose peer never saves fails loudly, naming its step."""
+    root, out = tmp_path / "ck", tmp_path / "out"
+    out.mkdir()
+    mp.spawn(_w2_commit_rank, args=(str(tmp_path / "pg"), str(root), str(out)), nprocs=2,
+             join=True)
+    for rank in range(2):
+        got = json.loads((out / f"rank{rank}.json").read_text())
+        assert got["committed"] and got["latest_valid"] == 2, (rank, got)
+    assert j_resilience.latest_valid_step_in(root / "a") == 2
+    assert sorted(j_resilience.read_manifest(root / "a" / "2")["files"]) == [
+        "exp_avg/rank00000.pt", "exp_avg/rank00001.pt"]
+    lone = json.loads((out / "rank0.json").read_text())["lone"]
+    assert "step 4" in lone and "failed on the commit thread" in lone
+    assert j_resilience.latest_valid_step_in(root / "b") is None

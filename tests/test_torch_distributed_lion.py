@@ -109,14 +109,15 @@ def test_one_rank_group_runs_the_wire(tmp_path, wire):
 
 
 def test_refused_options_name_their_roadmap_item():
-    for kw, item in ((dict(vote_every=4, max_grad_norm=1.0, seed=0), "Queue 1 item 4"),
-                     (dict(dcn_pipeline_depth=1), "Queue 1 item 11"),
+    for kw, item in ((dict(dcn_pipeline_depth=1), "Queue 1 item 11"),
                      (dict(guard="enforce"), "Queue 1 item 10")):
         with pytest.raises(NotImplementedError, match=item):
             distributed_lion(0.01, **kw)
     assert distributed_lion(0.01, vote_every=4).vote_every == 4  # ported: it builds
     assert distributed_lion(0.01, telemetry=True).telemetry  # ported: no longer refused
     assert distributed_lion(0.01, max_grad_norm=1.0, seed=0).max_grad_norm == 1.0  # ported
+    lazy_stoch = distributed_lion(0.01, vote_every=4, max_grad_norm=1.0, seed=0)  # ported: builds
+    assert (lazy_stoch.vote_every, lazy_stoch.max_grad_norm) == (4, 1.0)
     assert isinstance(distributed_lion(0.01, axis_name=None), Lion)
     with pytest.raises(ValueError, match="requires a vote axis"):
         distributed_lion(0.01, axis_name=None, max_grad_norm=1.0)

@@ -77,3 +77,10 @@ def test_the_optimizer_modes_modules_are_among_the_checked_files():
     files = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
     assert {"optim/optax_adapter.py", "optim/distributed_lion.py", "optim/lion.py",
             "ops/lion_math.py", "train/telemetry.py", "train/loop.py"} <= files
+
+
+def test_the_dpo_modules_are_among_the_checked_files():
+    """The DPO slice's modules (its data, its loss and its CLI) are in the
+    file list both checks above walk."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
+    assert {"data/dpo.py", "train/dpo.py", "cli/run_dpo.py"} <= files

@@ -30,6 +30,22 @@ gate's bounds (tests/test_torch_vote_w4.py), and at least 99.9% of the
 elected cache's signs equal JAX's. The resume and the K = 1,
 cold-start and accounting cases run in this process at W = 1.
 
+Lazy refresh under stochastic binarization (``max_grad_norm``) runs in the
+same spawn on ``sign_psum`` at weight decay 0, K = 4, 3 buckets, 6 steps,
+with telemetry, on two inputs whose update direction u is built step by
+step from the momentum's trajectory: saturated (``|u|`` in [2r, 4r]
+everywhere), where the quantizer is deterministic and the cache bytes,
+elections, params and telemetry frames (``stoch_flip_frac`` 0) must equal
+the JAX package's XLA path at data = 4 under the bounds above; and spread
+(u over [-1.5r, 1.5r]), where each rank replays its slice ballots from
+``(seed, count, rank)`` (``replay_slice_ballots``) before the step and the
+plain election of the four replays must equal the refreshed cache's slice,
+with the frame's histogram and disagreement equal to
+``bucket_vote_stats_plain`` of them. At W = 1 the replayed slice ballots
+are unbiased over 2000 counts within 6 binomial standard deviations per
+coordinate, ``6·2·sqrt(p(1-p)/2000)`` (the bound of
+tests/test_torch_stochastic.py).
+
 jax is imported inside the tests and the fixture only, so the spawned
 ranks import torch alone.
 """
@@ -44,6 +60,7 @@ import torch.multiprocessing as mp
 
 from distributed_lion_tpu_torch.data.sources import batch_iterator, synthetic_lm_dataset
 from distributed_lion_tpu_torch.models.gpt2 import GPT2Config
+from distributed_lion_tpu_torch.ops import fused_lion, lion_math
 from distributed_lion_tpu_torch.ops.codec import vote_chunk_elems, wire_bytes_per_param
 from distributed_lion_tpu_torch.optim.distributed_lion import distributed_lion
 from distributed_lion_tpu_torch.optim.lion import FlatParams
@@ -62,6 +79,11 @@ CASES = (("sign_psum", "sign_psum", 0.0, "float32"),
          ("sign_psum_bf16", "sign_psum", 0.0, "bfloat16"))
 FRAME_KEYS = ("margin_hist", "elected", "disagree", "voted", "valid", "flip_valid")
 GPT_LR, GPT_STEPS = 3e-3, 5
+# lazy refresh under stochastic binarization: the quantizer's clip, seed and
+# the two kinds of input (label, kind)
+B1, MGN, STOCH_SEED = 0.9, 0.5, 7
+R = (1.0 + 1.0 / B1) * MGN
+STOCH_CASES = (("stoch_sat", "saturated"), ("stoch_spread", "spread"))
 GPT_CFG = dict(lion=True, async_grad=True, wire="packed_a2a", vote_every=K,
                learning_rate=GPT_LR, weight_decay=0.0, lr_scheduler_type="constant",
                max_steps=GPT_STEPS, per_device_train_batch_size=2,
@@ -82,29 +104,65 @@ def _as_np(t):
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
+def stochastic_inputs(kind):
+    """(momenta [W, N], grads [steps, W, N], params [N]) float32 whose update
+    direction ``u = b1·m + (1-b1)·g`` is drawn per step from the momentum's
+    trajectory (``m ← b2·m + (1-b2)·g``, in float64): ``|u|`` in [2r, 4r]
+    with mixed signs (saturated) or u over [-1.5r, 1.5r] (spread)."""
+    rng = np.random.default_rng(13 if kind == "saturated" else 17)
+    m = rng.uniform(-R, R, (WORLD, N))
+    m0, grads = m.astype(np.float32), []
+    for _ in range(OPT_STEPS):
+        if kind == "saturated":
+            u = rng.uniform(2 * R, 4 * R, (WORLD, N)) * rng.choice([-1.0, 1.0], (WORLD, N))
+        else:
+            u = rng.uniform(-1.5 * R, 1.5 * R, (WORLD, N))
+        g = (u - B1 * m) / (1.0 - B1)
+        grads.append(g.astype(np.float32))
+        m = 0.99 * m + 0.01 * g
+    return m0, np.stack(grads), rng.normal(size=N).astype(np.float32)
+
+
+def _record_run(rank, out, label, opt, m, g, p, replay=False):
+    """``OPT_STEPS`` steps of ``opt`` from rank ``rank``'s rows of the
+    inputs; saves every step's params, momentum, cache, frame, wire bytes
+    and, with ``replay``, the slice ballots replayed before the step."""
+    flat = FlatParams([("p", torch.nn.Parameter(torch.from_numpy(p.copy())))])
+    state = opt.init(flat)
+    state.exp_avg.copy_(torch.from_numpy(m[rank]))
+    rec: dict = {}
+    replayed = {}  # the slices differ in length: one key a step
+    for t in range(OPT_STEPS):
+        flat.grads.copy_(torch.from_numpy(g[t, rank]))
+        if replay:
+            replayed[f"replayed_{t}"] = opt.replay_slice_ballots(flat.grads, state.exp_avg,
+                                                                 state.steps).numpy()
+        before = opt.tally.total()
+        state, frame = opt.step(flat, state)
+        step = {"wire_bytes": np.array(opt.tally.total() - before),
+                "params": flat.params.numpy().copy(),
+                "momentum": _as_np(state.exp_avg).copy(),
+                "elected": state.elected.numpy().copy(),
+                **{("frame_" if k == "elected" else "") + k: frame[k].numpy().copy()
+                   for k in FRAME_KEYS + (("stoch_flip_frac",) if opt.max_grad_norm else ())}}
+        for k, v in step.items():
+            rec.setdefault(k, []).append(v)
+    np.savez(f"{out}/opt_{label}_{rank}.npz", **{k: np.stack(v) for k, v in rec.items()},
+             **replayed)
+
+
 def _optimizer_runs(rank, out):
     m, g, p = optimizer_inputs()
     for label, wire, wd, mdt in CASES:
-        flat = FlatParams([("p", torch.nn.Parameter(torch.from_numpy(p.copy())))])
-        tally = collectives.WireTally()
         opt = distributed_lion(LR, weight_decay=wd, wire=wire, vote_every=K,
-                               vote_buckets=BUCKETS, mom_dtype=mdt, telemetry=True, tally=tally)
-        state = opt.init(flat)
-        state.exp_avg.copy_(torch.from_numpy(m[rank]))
-        rec: dict = {}
-        for t in range(OPT_STEPS):
-            flat.grads.copy_(torch.from_numpy(g[t, rank]))
-            before = tally.total()
-            state, frame = opt.step(flat, state)
-            step = {"wire_bytes": np.array(tally.total() - before),
-                    "params": flat.params.numpy().copy(),
-                    "momentum": _as_np(state.exp_avg).copy(),
-                    "elected": state.elected.numpy().copy(),
-                    **{("frame_" if k == "elected" else "") + k: frame[k].numpy().copy()
-                       for k in FRAME_KEYS}}
-            for k, v in step.items():
-                rec.setdefault(k, []).append(v)
-        np.savez(f"{out}/opt_{label}_{rank}.npz", **{k: np.stack(v) for k, v in rec.items()})
+                               vote_buckets=BUCKETS, mom_dtype=mdt, telemetry=True,
+                               tally=collectives.WireTally())
+        _record_run(rank, out, label, opt, m, g, p)
+    for label, kind in STOCH_CASES:
+        opt = distributed_lion(LR, wire="sign_psum", vote_every=K, vote_buckets=BUCKETS,
+                               max_grad_norm=MGN, seed=STOCH_SEED, telemetry=True,
+                               tally=collectives.WireTally())
+        _record_run(rank, out, label, opt, *stochastic_inputs(kind), replay=kind == "spread")
 
 
 def _four_rank_work(rank, out):
@@ -149,10 +207,10 @@ def four_ranks(tmp_path_factory):
     return out
 
 
-def _jax_lazy_run(wire, wd, mdt):
-    """The JAX package's optimizer at data = 4 on ``optimizer_inputs``:
-    per step the params, the stacked momenta, the cache and the stacked
-    telemetry frames."""
+def _jax_lazy_run(wire, wd, mdt, inputs=None, max_grad_norm=None):
+    """The JAX package's optimizer at data = 4 on ``inputs`` (default
+    ``optimizer_inputs()``): per step the params, the stacked momenta, the
+    cache and the stacked telemetry frames."""
     from functools import partial
 
     import jax
@@ -169,12 +227,13 @@ def _jax_lazy_run(wire, wd, mdt):
     from distributed_lion_tpu.parallel import make_mesh
 
     mesh = make_mesh(data=WORLD, devices=jax.devices()[:WORLD])
-    m, g, p = optimizer_inputs()
+    m, g, p = optimizer_inputs() if inputs is None else inputs
     opt = j_distributed_lion(learning_rate=LR, weight_decay=wd, wire=wire, vote_every=K,
                              vote_buckets=BUCKETS, telemetry=True,
-                             mom_dtype=getattr(jnp, mdt))
+                             mom_dtype=getattr(jnp, mdt), max_grad_norm=max_grad_norm)
     params = {"p": jnp.asarray(p)}
-    state = init_global_state(opt, params, WORLD)
+    state = init_global_state(opt, params, WORLD, rng=None if max_grad_norm is None
+                              else jax.random.key(STOCH_SEED))
     state = shard_state(state._replace(exp_avg={"p": jnp.asarray(m).astype(getattr(jnp, mdt))}),
                         mesh)
 
@@ -224,6 +283,83 @@ def test_lazy_optimizer_matches_jax_at_data_4(four_ranks, label, wire, wd, mdt):
         assert int(ranks[0]["valid"][t]) == min((t + 1) * chunk, N)
 
 
+def test_lazy_stochastic_saturated_matches_jax_at_data_4(four_ranks):
+    """Saturated ballots: the quantizer is deterministic, so the cache bytes,
+    the elections, the params (weight decay 0) and the telemetry frames
+    equal the JAX package's XLA path at data = 4; momentum within one ulp
+    of the larger addend per step; no ballot flipped."""
+    inputs = stochastic_inputs("saturated")
+    want = _jax_lazy_run("sign_psum", 0.0, "float32", inputs, max_grad_norm=MGN)
+    ranks = [np.load(four_ranks / f"opt_stoch_sat_{r}.npz") for r in range(WORLD)]
+    for t, w in enumerate(want):
+        for r, got in enumerate(ranks):
+            np.testing.assert_array_equal(got["elected"][t], w["cache"], err_msg=f"step {t}")
+            np.testing.assert_array_equal(got["frame_elected"][t], w["elected"][r])
+            np.testing.assert_array_equal(got["params"][t], w["params"], err_msg=f"step {t}")
+            m_want = w["momentum"][r]
+            np.testing.assert_allclose(got["momentum"][t], m_want, rtol=0,
+                                       atol=(t + 1) * np.spacing(np.abs(m_want).max()))
+            for k in ("margin_hist", "disagree", "voted", "valid", "flip_valid",
+                      "stoch_flip_frac"):
+                np.testing.assert_array_equal(got[k][t], w[k][r], err_msg=f"{k} step {t}")
+            assert float(got["stoch_flip_frac"][t]) == 0.0
+
+
+def test_lazy_stochastic_ballots_replay_from_seed_count_rank(four_ranks):
+    """Spread inputs at W = 4: the plain election of the four ranks' slice
+    ballots, replayed from (seed, count, rank), equals the refreshed
+    cache's slice at every step, and the frame's histogram and
+    disagreement equal ``bucket_vote_stats_plain`` of them; the flip
+    fraction is a real share of the full vector."""
+    from distributed_lion_tpu_torch.ops.codec import unpack_signs
+
+    ranks = [np.load(four_ranks / f"opt_stoch_spread_{r}.npz") for r in range(WORLD)]
+    chunk = vote_chunk_elems(N, K)
+    for t in range(OPT_STEPS):
+        lo = (t % K) * chunk
+        real = max(0, min(chunk, N - lo))
+        ballots = [torch.from_numpy(np.where(rk[f"replayed_{t}"], 1, -1).astype(np.int8))
+                   for rk in ranks]
+        assert all(b.numel() == real for b in ballots)
+        tally = sum(b.to(torch.int32) for b in ballots)
+        cache = torch.from_numpy(ranks[0]["elected"][t])
+        got = unpack_signs(cache[lo // 8:(lo + chunk) // 8], (chunk,))[:real]
+        assert torch.equal(got, tally > 0), f"step {t}"
+        for r, rk in enumerate(ranks):
+            hist, dis = fused_lion.bucket_vote_stats_plain(ballots[r], tally, WORLD, 8)
+            np.testing.assert_array_equal(rk["margin_hist"][t], hist.numpy())
+            assert int(rk["disagree"][t]) == int(dis)
+            assert 0.0 < float(rk["stoch_flip_frac"][t]) < 1.0
+        assert not all(np.array_equal(ranks[0][f"replayed_{t}"], rk[f"replayed_{t}"])
+                       for rk in ranks[1:])  # the ranks draw apart
+
+
+def test_lazy_stochastic_slice_ballots_unbiased_and_voted_at_one_rank():
+    """W = 1: a lazy stochastic step's cache slice is exactly its replayed
+    ballots, and the replays over 2000 counts of slot 0 are unbiased per
+    coordinate within 6 binomial standard deviations."""
+    m0, g, p = stochastic_inputs("spread")
+    opt = distributed_lion(LR, vote_every=K, vote_buckets=BUCKETS, max_grad_norm=MGN,
+                           seed=STOCH_SEED)
+    flat = FlatParams([("p", torch.nn.Parameter(torch.from_numpy(p.copy())))])
+    state = opt.init(flat)
+    gt, mt = torch.from_numpy(g[0, 0]), torch.from_numpy(m0[0])
+    state.exp_avg.copy_(mt)
+    flat.grads.copy_(gt)
+    want = opt.replay_slice_ballots(gt, mt, 0)
+    state = opt.step(flat, state)
+    chunk = vote_chunk_elems(N, K)
+    from distributed_lion_tpu_torch.ops.codec import unpack_signs
+
+    assert torch.equal(unpack_signs(state.elected[:chunk // 8], (chunk,)), want)
+    draws = torch.stack([opt.replay_slice_ballots(gt, mt, K * j) for j in range(2000)]).numpy()
+    prob = lion_math.stochastic_p_up(gt[:chunk], mt[:chunk], B1, MGN).double().numpy()
+    mean = (2.0 * draws - 1.0).mean(0)
+    bound = 6 * 2 * np.sqrt(prob * (1 - prob) / draws.shape[0]) + 1e-6
+    assert np.max(np.abs(mean - (2 * prob - 1)) / bound) <= 1.0
+    assert 0.05 < np.mean((prob > 0) & (prob < 1))  # the check sees unsaturated coordinates
+
+
 def test_lazy_cold_start_moves_only_voted_slots(four_ranks):
     """Step 1 at weight decay 0: only slot 0's coordinates move, on every
     rank and wire (JAX test_vote_every_cold_start_mask)."""
@@ -232,6 +368,11 @@ def test_lazy_cold_start_moves_only_voted_slots(four_ranks):
     for label, _, wd, _ in CASES:
         if wd:
             continue
+        for r in range(WORLD):
+            moved = np.load(four_ranks / f"opt_{label}_{r}.npz")["params"][0] != p
+            assert moved[:chunk].all() and not moved[chunk:].any(), label
+    for label, kind in STOCH_CASES:  # weight decay 0 under stochastic binarization too
+        p = stochastic_inputs(kind)[2]
         for r in range(WORLD):
             moved = np.load(four_ranks / f"opt_{label}_{r}.npz")["params"][0] != p
             assert moved[:chunk].all() and not moved[chunk:].any(), label
@@ -397,6 +538,22 @@ def test_lazy_resume_equals_uninterrupted_and_refuses_another_k(tmp_path):
                  (t2.state.elected, ref.state.elected)):
         assert torch.equal(a, b)
     for f in ("prev_elected", "flip_sum", "valid_sum", "voted", "margin_hist"):
+        assert torch.equal(getattr(t2.vote_health, f), getattr(ref.vote_health, f)), f
+
+
+def test_lazy_stochastic_resume_equals_uninterrupted(tmp_path):
+    """Under ``--max_grad_norm`` too, 2 steps + a resume + 2 steps is
+    ``torch.equal`` to 4 steps (the draws replay from the restored seed and
+    step count)."""
+    ref, ref_losses = _train(_resume_cfg(None, 4, max_grad_norm=1.0))
+    out = str(tmp_path / "run")
+    _, first = _train(_resume_cfg(out, 2, max_grad_norm=1.0))
+    t2, rest = _train(_resume_cfg(out, 4, max_grad_norm=1.0))
+    assert first + rest == ref_losses
+    for a, b in ((t2.flat.params, ref.flat.params), (t2.state.exp_avg, ref.state.exp_avg),
+                 (t2.state.elected, ref.state.elected)):
+        assert torch.equal(a, b)
+    for f in ("prev_elected", "flip_sum", "valid_sum", "voted", "margin_hist", "stoch_flip_sum"):
         assert torch.equal(getattr(t2.vote_health, f), getattr(ref.vote_health, f)), f
     for k in (2, 1):
         with pytest.raises(ValueError, match=f"--vote_every 4, this run has --vote_every {k}"):
