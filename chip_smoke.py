@@ -25,8 +25,12 @@ Phases (none of their failures is caught; any one fails the run):
    4,194,304), at run (j)'s (the DPO adapters, 20,023,320) and at a ragged
    1,000,003: ``fused_ballots``
    and ``fused_apply`` for float32 and bfloat16 params and int8 and int32
-   tallies, and at 124,439,808 and 1,000,003 with bfloat16 grads and
-   momentum under float32 params (``--mom_dtype bfloat16``, run (h2)), ``bucket_vote_stats`` for a vote of 1 (int8 tally), of 4 (int8
+   tallies (p, g and m all bfloat16: run (k)'s instantiation, timed at
+   124,439,808 against 5 and 11 bytes a coordinate), and at 124,439,808 and 1,000,003 with bfloat16 grads and
+   momentum under float32 params (``--mom_dtype bfloat16``, run (h2)); both
+   bfloat16 kernels over one window of 2**31 + 4097 coordinates, where a
+   1,048,576-coordinate slice straddling 2**31 and the window's tail are
+   held to the plain version of the same slices (the int64 offsets), ``bucket_vote_stats`` for a vote of 1 (int8 tally), of 4 (int8
    and int32), of 3 (both) and of 300 (int32), and on windows that start
    at an odd byte offset of a larger buffer, with the tally lined up with
    the ballots and not. Outputs must be ``torch.equal``.
@@ -35,8 +39,9 @@ Phases (none of their failures is caught; any one fails the run):
    head_dim 64, bfloat16, q/k/v transposed views of one projection) and at
    a ragged T = 1000; at Llama-2-7B's (B 4, H 32, T 1024, head_dim 128, q
    and k contiguous as rope makes them, v a transposed view of its own
-   projection) and at T 2048 and a ragged 1000, and at run (j)'s B 2, H 32,
-   T 1024; do always a transposed
+   projection) and at T 2048 and a ragged 1000, at run (j)'s B 2, H 32,
+   T 1024, and at run (k)'s B 1, H 32, T 2048 with q, k and v contiguous
+   (GQA's repeated kv heads); do always a transposed
    view, as autograd hands it back; and at
    B 2, H 3 with T 40 (shorter than one tile) and 130 at both head dims;
    against the plain versions and against a float64
@@ -188,6 +193,31 @@ Phases (none of their failures is caught; any one fails the run):
    ``torch.equal`` to ``-logsigmoid(0)`` and reward_margin 0. It prints
    step ms, tokens/s (pairs x T), peak device memory and a profiled
    microbatch.
+9. Run (k), full-parameter Llama pretraining, in the 1-rank NCCL group:
+   ``cli.run_clm.main --model_family llama --model_name llama3_8b``
+   (Llama-3-8B at full width and depth: 32 layers, d 4096, 32 heads of 128
+   over 8 kv heads, d_ff 14336, vocabulary 128,256; 8,030,261,248 bfloat16
+   params, grads and momentum) ``--param_dtype bfloat16 --compute_dtype
+   bfloat16 --dropout 0 --block_size 2048 --vocab_chunks 8``, B 1 x
+   accumulation 2, 3 steps, 2 eval batches of synthetic tokens, on
+   ``sign_psum``: finite losses; the optimizer kernels once a step each
+   (their bfloat16-param instantiation past 2**31 coordinates), the flash
+   kernels at head_dim 128 (``auto`` at T 2048; q, k and v contiguous, the
+   kv heads repeated) 32 x (accum x 2 x steps + eval batches) forward and
+   32 x accum x steps each backward kernel; the params' count; step ms,
+   tokens/s, peak device memory, a profiled microbatch and the device time
+   of one optimizer step over the 8.03B coordinates beside its byte bound.
+   Then the ``[xent]`` check at that run's head (N 2047, d 4096, V 128,256,
+   bfloat16 hidden states and ``lm_head`` ``[d, V]``): the chunked loss of
+   ``ops/xent.py`` at 8 chunks against the dense ``matmul_f32`` head +
+   ``clm_loss_and_metrics``, forward and backward: losses within 1e-4, equal
+   ``correct`` counts (half the labels are the float64 argmax), and each
+   gradient's max error against a float64 reference within 2 x the dense
+   one's plus half a bfloat16 ulp of its largest value. Each path's peak
+   device memory above its inputs is printed, and so is its working memory,
+   that peak less the two gradients every backward returns (``d hidden``
+   and ``d lm_head``, 1.07 GB); the chunked working memory must be at most
+   a quarter of the dense one's.
 
 Times are medians of 25 CUDA-event runs after 3 warm-up calls, queued
 while the card sleeps (``torch.cuda._sleep``) so that they time the card's
@@ -200,8 +230,8 @@ outside the tensor cores). The line before the last is the per-kernel JSON recor
 entry per kernel instantiation: the head_dim 128 flash kernels carry the
 suffix ``_hd128``, the bfloat16-momentum optimizer kernels ``_mom_bf16``;
 launches of the optimizer and head_dim 64 kernels are run (b)'s, of the
-head_dim 128 kernels run (d)'s, of the ``_mom_bf16`` ones run (h2)'s); the
-last line is
+head_dim 128 kernels run (d)'s, of the ``_mom_bf16`` ones run (h2)'s, of
+the ``_p_bf16`` ones, p, g and m bfloat16, run (k)'s); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -229,6 +259,7 @@ from distributed_lion_tpu_torch.data.dpo import prepare_dpo_batch
 from distributed_lion_tpu_torch.data.tokenizer import ByteTokenizer
 from distributed_lion_tpu_torch.models.gpt2 import GPT2, GPT2Config
 from distributed_lion_tpu_torch.models.llama import llama_init
+from distributed_lion_tpu_torch.models.loss import clm_loss_and_metrics
 from distributed_lion_tpu_torch.models.lora import (
     DPO_TARGET_PATTERNS,
     LoraConfig,
@@ -246,6 +277,7 @@ from distributed_lion_tpu_torch.ops.codec import (
     wire_bytes_per_param,
 )
 from distributed_lion_tpu_torch.ops.products import matmul_f32
+from distributed_lion_tpu_torch.ops.xent import chunked_clm_loss_and_metrics
 from distributed_lion_tpu_torch.optim.distributed_lion import DistributedLion
 from distributed_lion_tpu_torch.optim.lion import FlatParams, LionState, resolve_lr
 from distributed_lion_tpu_torch.optim.optax_adapter import adamw
@@ -263,14 +295,22 @@ N_SFT = 32 * 2 * (4096 * 8 + 8 * 4096)
 # [8, 4096])
 N_DPO = 32 * (4 * 2 * 4096 * 8 + 3 * (4096 * 8 + 8 * 11008)) + 259 * 8 + 8 * 4096
 N_RAGGED = 1_000_003
+# run (k)'s window: Llama-3-8B, 32 blocks of 218,112,000 (wq, wo 4096^2;
+# wk, wv 4096 x 1024; w_gate, w_up, w_down 4096 x 14336; two norms), wte
+# and lm_head 128,256 x 4096 each, ln_f 4096
+N_LLAMA3 = 32 * 218_112_000 + 2 * 525_336_576 + 4096
+N_BIG = 2**31 + 4097   # one window past int32 offsets: the bfloat16 kernels' int64 check
+BIG_SLICE = 1 << 20    # the slices of N_BIG held to the plain version
 FLASH_SMALL = ((2, 3, 40), (2, 3, 130))  # (B, H, T): shorter than one tile, one tile and a bit
 # (head_dim, B, H, timed T, the other T at B x H, the operands that are
 # transposed views of one projection): GPT-2 124M's microbatch, q/k/v all
 # three from c_attn; Llama-2-7B's, v from wv and q, k contiguous (rope makes
 # new tensors), with T 2048 where auto takes flash for it
 # run (j)'s DPO microbatch is B 2 at head_dim 128: one more shape there
+# run (k)'s (Llama-3-8B, GQA): B 1 at T 2048, q, k and v all contiguous
+# (repeat_interleave makes k and v new tensors)
 FLASH_CASES = ((64, 8, 12, 1024, (1000,), "qkv", ()),
-               (128, 4, 32, 1024, (2048, 1000), "v", ((2, 32, 1024),)))
+               (128, 4, 32, 1024, (2048, 1000), "v", ((2, 32, 1024), (1, 32, 2048, ""))))
 STEPS = 3
 ACCUM = 2
 EVAL_BATCHES = 2
@@ -319,7 +359,7 @@ FLASH = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_
 # the optimizer kernels' entries: the bf16-momentum instantiations under
 # float32 params carry the suffix
 OPT_KERNELS = ("fused_ballots", "fused_apply", "bucket_vote_stats", "fused_ballots_mom_bf16",
-               "fused_apply_mom_bf16")
+               "fused_apply_mom_bf16", "fused_ballots_p_bf16", "fused_apply_p_bf16")
 KERNELS = (*OPT_KERNELS, *FLASH, *(f"{k}_hd128" for k in FLASH))
 # (params, momentum) dtypes the kernel phase holds the optimizer kernels at
 MOM_BF16 = (torch.float32, torch.bfloat16)
@@ -350,7 +390,8 @@ ROUTES = {
                            "(di in jnp between the pallas_calls, not a pallas_call)"),
 }
 ROUTES.update({f"{k}_hd128": ROUTES[k] for k in FLASH})
-ROUTES.update({f"{k}_mom_bf16": ROUTES[k] for k in ("fused_ballots", "fused_apply")})
+ROUTES.update({f"{k}_{sfx}": ROUTES[k] for k in ("fused_ballots", "fused_apply")
+               for sfx in ("mom_bf16", "p_bf16")})
 
 
 def reset_counts() -> None:
@@ -476,7 +517,8 @@ def optimizer_kernel_phase(gen, rates):
         for pdt, mdt in DTYPE_PAIRS:
             if (pdt, mdt) == MOM_BF16 and n in (N_SFT, N_DPO):
                 continue   # bf16 momentum under float32 params: GPT-2's run (h2)
-            suffix = "_mom_bf16" if (pdt, mdt) == MOM_BF16 else ""
+            suffix = {MOM_BF16: "_mom_bf16", (torch.bfloat16, torch.bfloat16): "_p_bf16"}.get(
+                (pdt, mdt), "")
             g = torch.randn(n, generator=gen, device="cuda").to(mdt)
             m = torch.randn(n, generator=gen, device="cuda").to(mdt)
             p = torch.randn(n, generator=gen, device="cuda").to(pdt)
@@ -498,8 +540,8 @@ def optimizer_kernel_phase(gen, rates):
                   f"(bound {bms:.4f} ms, plain {plain_ms:.4f} ms)", flush=True)
             if n == N_MAIN and mdt == pdt == torch.float32:
                 rec["fused_ballots"] = (ms, plain_ms, bms, by, None)
-            if n == N_MAIN and (pdt, mdt) == MOM_BF16:
-                rec["fused_ballots_mom_bf16"] = (ms, plain_ms, bms, by, None)
+            if n == N_MAIN and suffix:
+                rec["fused_ballots" + suffix] = (ms, plain_ms, bms, by, None)
 
             for tdt in (torch.int8, torch.int32):
                 tot = torch.randint(-3, 4, (n,), generator=gen, device="cuda",
@@ -528,15 +570,55 @@ def optimizer_kernel_phase(gen, rates):
                       f"plain {plain_ms:.4f} ms)", flush=True)
                 if n == N_MAIN and tdt == torch.int8 and mdt == pdt == torch.float32:
                     rec["fused_apply"] = (ms, plain_ms, bms, by, None)
-                if n == N_MAIN and tdt == torch.int8 and (pdt, mdt) == MOM_BF16:
-                    rec["fused_apply_mom_bf16"] = (ms, plain_ms, bms, by, None)
+                if n == N_MAIN and tdt == torch.int8 and suffix:
+                    rec["fused_apply" + suffix] = (ms, plain_ms, bms, by, None)
                 del tot, pk, mk
             del g, m, p
             torch.cuda.empty_cache()
 
         stats_cases(gen, rates, n, rec, err)
         torch.cuda.empty_cache()
+    big_window_check(gen, err)
     return rec, err
+
+
+def big_window_check(gen, err) -> None:
+    """``fused_ballots`` and ``fused_apply`` with p, g and m bfloat16 over one
+    window of N_BIG = 2**31 + 4097 coordinates (run (k)'s 8.03B run them
+    past int32 offsets): a slice straddling 2**31 and the window's tail
+    held ``torch.equal`` to the plain version of the same slices (the plain
+    pass over the whole window would need tens of GB of float32
+    temporaries)."""
+    n, bf = N_BIG, torch.bfloat16
+    g = torch.randn(n, generator=gen, device="cuda", dtype=bf)
+    m = torch.randn(n, generator=gen, device="cuda", dtype=bf)
+    p = torch.randn(n, generator=gen, device="cuda", dtype=bf)
+    tot = torch.randint(-1, 2, (n,), generator=gen, device="cuda", dtype=torch.int8)
+    lr = torch.tensor(3e-4, device="cuda")
+    ballots = fused_lion.fused_ballots(g, m, 0.9)
+    pk, mk = p.clone(), m.clone()
+    fused_lion.fused_apply(pk, g, mk, tot, lr, 0.1, 0.99)
+    torch.cuda.synchronize()
+    for lo in (2**31 - BIG_SLICE // 2, n - BIG_SLICE):
+        w = slice(lo, lo + BIG_SLICE)
+        plain = fused_lion.fused_ballots_plain(g[w], m[w], 0.9)
+        pp, mp = fused_lion.fused_apply_plain(p[w], g[w], m[w], tot[w], lr, 0.1, 0.99)
+        torch.cuda.synchronize()
+        if not (torch.equal(ballots[w], plain) and torch.equal(pk[w], pp)
+                and torch.equal(mk[w], mp)):
+            raise AssertionError(
+                f"bfloat16 kernels != plain on [{lo}, {lo + BIG_SLICE}) of a {n}-coordinate "
+                f"window: {(ballots[w] != plain).sum().item()} ballots, "
+                f"{(pk[w] != pp).sum().item()} params, {(mk[w] != mp).sum().item()} momenta")
+        err["fused_ballots_p_bf16"] = max(err["fused_ballots_p_bf16"],
+                                          (ballots[w].int() - plain.int()).abs().max().item())
+        err["fused_apply_p_bf16"] = max(err["fused_apply_p_bf16"],
+                                        (pk[w].float() - pp.float()).abs().max().item(),
+                                        (mk[w].float() - mp.float()).abs().max().item())
+        print(f"[kernel] fused_ballots, fused_apply n={n} params bfloat16 momentum bfloat16 "
+              f"tally int8: [{lo}, {lo + BIG_SLICE}) == plain", flush=True)
+    del g, m, p, tot, ballots, pk, mk
+    torch.cuda.empty_cache()
 
 
 def stats_check(label, ballots, tot, world, err) -> None:
@@ -685,7 +767,8 @@ def di_check(tag, got, plain, o, do) -> float:
 def flash_kernel_phase(gen, rates, regs, D, B_main, H_main, T_main, T_more, views, more):
     """Check the flash kernels of head_dim D (forward, di, dK/dV, dQ) at
     every shape, with q, k, v in the model's layout (``views``: see
-    flash_inputs) and at the (B, H, T) of ``more``; time them at the main
+    flash_inputs) and at the (B, H, T) of ``more`` (a fourth entry: that
+    shape's own ``views``); time them at the main
     one, and the port's whole backward
     (``flash_attention_di``, dK/dV and dQ) beside SDPA's. ``regs``:
     :func:`cuda_build.sass_registers` of the Hopper kernels. Records are
@@ -698,9 +781,9 @@ def flash_kernel_phase(gen, rates, regs, D, B_main, H_main, T_main, T_more, view
              "dq": "flash_attention_bwd_dq", "di": "flash_attention_di"}
     owner = {name: k + suffix for name, k in owner.items()}
     shapes = [(B_main, H_main, T) for T in (T_main, *T_more)] + list(more) + list(FLASH_SMALL)
-    for B, H, T in shapes:
-        tag = f"hd{D} B{B} H{H} T{T}"
-        q, k, v, do = flash_inputs(gen, T, B, H, D, views)
+    for B, H, T, *layout in shapes:
+        tag = f"hd{D} B{B} H{H} T{T}" + (f" views {layout[0] or 'none'}" if layout else "")
+        q, k, v, do = flash_inputs(gen, T, B, H, D, layout[0] if layout else views)
         o, lse = fa.flash_attention_fwd(q, k, v)
         op, lp = fa.flash_attention_fwd_plain(q, k, v)
         di = fa.attention_di(op, do)
@@ -739,7 +822,7 @@ def flash_kernel_phase(gen, rates, regs, D, B_main, H_main, T_main, T_more, view
             raise AssertionError(f"flash at {tag}: a second call differs in {differ}")
         print(f"[flash] {tag}: a second call gives the same bits in {list(again)}", flush=True)
         del ref, kern, plain, di_kern, di_k, dk_k, dv_k, dq_k, again, o2, lse2, di2, dk2, dv2, dq2
-        if (B, H, T) != shapes[0]:
+        if (B, H, T, *layout) != shapes[0]:
             del q, k, v, do, o, lse, op, lp, di, dk, dv, dq, dkp, dvp, dqp
             torch.cuda.empty_cache()
             continue
@@ -880,14 +963,14 @@ def wire_check(gen):
                   f"{in_place:.4f} ms in place", flush=True)
 
 
-def profile_step(trainer, model, gen, batch: int, label: str, rows=None) -> None:
+def profile_step(trainer, model, gen, batch: int, label: str, rows=None, T: int = 1024) -> None:
     """``torch.profiler`` over one forward + backward microbatch of the
-    trainer's loss (``batch`` x T 1024 random tokens of the model's
+    trainer's loss (``batch`` x ``T`` random tokens of the model's
     vocabulary, or ``rows``, a batch the loss takes; dropout seed 0);
     prints the top device kernels and the idle share."""
     from torch.profiler import ProfilerActivity, profile
     vocab = model.cfg.vocab_size
-    tokens = (torch.randint(0, vocab, (batch, 1024), generator=gen, device="cuda")
+    tokens = (torch.randint(0, vocab, (batch, T), generator=gen, device="cuda")
               if rows is None else rows)
 
     def microbatch():
@@ -924,7 +1007,7 @@ def profile_step(trainer, model, gen, batch: int, label: str, rows=None) -> None
             busy += hi - lo
             reach = hi
     window = end - start
-    print(f"[profile] {label}: one forward + backward microbatch, B {batch} T 1024, loss "
+    print(f"[profile] {label}: one forward + backward microbatch, B {batch} T {T}, loss "
           f"{loss.item():.4f}: window {window / 1e3:.3f} ms (first to last device event; "
           f"unprofiled microbatches {', '.join(f'{w:.3f}' for w in walls)} ms on the host "
           f"clock), device busy {busy / 1e3:.3f} ms, idle share {1 - busy / window:.4f}, "
@@ -1139,6 +1222,142 @@ def changed_leaves(got_tree, want_tree) -> list:
         if not same:
             changed.append("/".join(path))
     return changed
+
+
+K_STEPS, K_ACCUM, K_EVAL, K_T = 3, 2, 2, 2048   # run (k)
+K_ARGS = ["--model_family", "llama", "--model_name", "llama3_8b", "--param_dtype", "bfloat16",
+          "--compute_dtype", "bfloat16", "--dropout", "0", "--block_size", str(K_T),
+          "--vocab_chunks", "8", "--per_device_train_batch_size", "1",
+          "--gradient_accumulation_steps", str(K_ACCUM), "--max_steps", str(K_STEPS),
+          "--logging_steps", "1", "--dataset", "synthetic", "--synthetic_blocks", "64",
+          "--per_device_eval_batch_size", "1", "--eval_iters", str(K_EVAL), "--lion",
+          "--async_grad", "--wire", "auto"]
+XENT_CHUNKS = 8
+
+
+def llama3_run(gen, rates):
+    """Run (k): ``cli.run_clm.main`` trains every parameter of Llama-3-8B at
+    full width and depth, bfloat16 params, 8 vocabulary chunks; returns
+    (rows, launches, peak device bytes, wall s, optimizer step ms, its
+    bound ms)."""
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = run_clm.main(K_ARGS)
+    wall = time.perf_counter() - t0
+    launches, peak = read_counts(), torch.cuda.max_memory_allocated()
+    rows = [r for r in trainer.history if "loss" in r]
+    if len(rows) != K_STEPS or not all(math.isfinite(r["loss"]) for r in rows):
+        raise AssertionError(f"run (k): expected {K_STEPS} finite losses, got {rows}")
+    cfg, model = trainer.cfg, trainer.model
+    if trainer.n_params != N_LLAMA3 or trainer.flat.params.dtype != torch.bfloat16:
+        raise AssertionError(f"run (k): {trainer.n_params} {trainer.flat.params.dtype} params, "
+                             f"expected {N_LLAMA3} bfloat16")
+    if cfg.vocab_chunks != XENT_CHUNKS or model.cfg.attn_impl != "auto":
+        raise AssertionError(f"run (k): vocab_chunks {cfg.vocab_chunks}, attn "
+                             f"{model.cfg.attn_impl}")
+    buckets = len(bucket_bounds(trainer.n_params, cfg.vote_buckets, trainer.world, cfg.wire))
+    expect("(k)", launches, {
+        "fused_ballots": K_STEPS * buckets, "fused_apply": K_STEPS * buckets,
+        "bucket_vote_stats": 0,
+        "flash_attention_fwd_hd128": LLAMA_LAYERS * (K_ACCUM * 2 * K_STEPS + K_EVAL),
+        "flash_attention_bwd_dkv_hd128": LLAMA_LAYERS * K_ACCUM * K_STEPS,
+        "flash_attention_bwd_dq_hd128": LLAMA_LAYERS * K_ACCUM * K_STEPS,
+        "flash_attention_di_hd128": LLAMA_LAYERS * K_ACCUM * K_STEPS, **NO_HD64})
+    print(f"[slice] (k): {trainer.n_params:,} bfloat16 params in {buckets} bucket(s), wire "
+          f"{cfg.wire}; launches {launches}", flush=True)
+    profile_step(trainer, model, gen, 1, "Llama-3-8B (k)", T=K_T)
+    # one optimizer step over the 8.03B coordinates: ballots, the vote and
+    # the apply; bound: g, m read and the int8 ballot written (5 B), then
+    # p, g, m and the tally read and p, m written (11 B)
+    opt_ms = time_ms(lambda: trainer.opt.step(trainer.flat, trainer.state))
+    opt_bound, _ = bound(trainer.n_params * 16, 0, rates)
+    print(f"[slice] (k) one optimizer step at n={trainer.n_params:,} (bfloat16 p, g, m): "
+          f"{opt_ms:.4f} ms device time, bound {opt_bound:.4f} ms (16 B a coordinate)",
+          flush=True)
+    trainer.model = None
+    del trainer, model
+    torch.cuda.empty_cache()
+    return rows, launches, peak, wall, opt_ms, opt_bound
+
+
+def xent_check(gen) -> dict:
+    """The ``[xent]`` check at run (k)'s head: the chunked cross entropy
+    against the dense head + ``clm_loss_and_metrics``, forward and
+    backward, each held to a float64 reference; peak memory above the
+    inputs. Returns the printed numbers."""
+    d, V, T = 4096, 128_256, K_T
+    hidden0 = torch.randn(1, T, d, generator=gen, device="cuda").bfloat16()
+    head0 = (torch.randn(d, V, generator=gen, device="cuda") * 0.02).bfloat16()
+    h64, w64 = hidden0[0, :-1].double(), head0.double()
+    logits64 = h64 @ w64
+    # half the labels the float64 argmax, so `correct` counts something
+    tokens = torch.randint(0, V, (1, T), generator=gen, device="cuda")
+    tokens[0, 1::2] = logits64.argmax(-1)[0::2]
+    labels = tokens[0, 1:]
+    n = T - 1
+    p = torch.softmax(logits64, -1)
+    lse = torch.logsumexp(logits64, -1)
+    loss64 = (lse - logits64.gather(1, labels[:, None])[:, 0]).mean().item()
+    p[torch.arange(n, device="cuda"), labels] -= 1.0
+    p /= n
+    ref = {"hidden": p @ w64.t(), "lm_head": h64.t() @ p}
+    del p, logits64, lse, h64, w64
+    torch.cuda.empty_cache()
+
+    def dense(h, w):
+        return clm_loss_and_metrics(matmul_f32(h, w), tokens)
+
+    def chunked(h, w):
+        return chunked_clm_loss_and_metrics(h, w, tokens, XENT_CHUNKS, emb_layout="dv")
+
+    out = {"loss_f64": loss64}
+    grad_bytes = hidden0.numel() * 2 + head0.numel() * 2
+    for name, fn in (("dense", dense), ("chunked", chunked)):
+        h = hidden0.clone().requires_grad_()
+        w = head0.clone().requires_grad_()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss, metrics = fn(h, w)
+        loss.backward()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        grads = {"hidden": h.grad[0, :-1], "lm_head": w.grad}
+        errs = {k: (grads[k].double() - ref[k]).abs().max().item() for k in ref}
+        if h.grad[0, -1].abs().max().item() != 0.0:
+            raise AssertionError(f"[xent] {name}: the last position took a gradient")
+
+        def step():
+            h.grad = w.grad = None
+            fn(h, w)[0].backward()
+
+        ms = time_ms(step, runs=5)
+        out[name] = dict(loss=loss.item(), correct=round(metrics["accuracy"].item() * n),
+                         peak=peak, work=peak - grad_bytes, ms=ms, **errs)
+        print(f"[xent] {name}: N {n} d {d} V {V} bfloat16 'dv': loss {loss.item():.6f} "
+              f"(float64 {loss64:.6f}), correct {out[name]['correct']}, max |d hidden - f64| "
+              f"{errs['hidden']:.3e}, max |d lm_head - f64| {errs['lm_head']:.3e}; peak above "
+              f"the inputs {peak / 1e9:.3f} GB, less the two gradients (d hidden, d lm_head "
+              f"{grad_bytes / 1e9:.3f} GB) {(peak - grad_bytes) / 1e9:.3f} GB; forward + "
+              f"backward {ms:.3f} ms", flush=True)
+        del h, w, loss, metrics, grads
+        torch.cuda.empty_cache()
+    dn, ch = out["dense"], out["chunked"]
+    if abs(ch["loss"] - dn["loss"]) > 1e-4 or ch["correct"] != dn["correct"]:
+        raise AssertionError(f"[xent] chunked {ch} vs dense {dn}")
+    for k in ref:
+        slack = half_ulp_bf16(ref[k].abs().max().item())
+        if ch[k] > 2 * dn[k] + slack:
+            raise AssertionError(f"[xent] d {k}: chunked error {ch[k]} > 2 x dense {dn[k]} + "
+                                 f"{slack}")
+    if ch["work"] > dn["work"] / 4:
+        raise AssertionError(f"[xent] chunked working memory {ch['work']} B > a quarter of the "
+                             f"dense path's {dn['work']} B")
+    print(f"[xent] chunked / dense: peak {ch['peak'] / dn['peak']:.3f}, working memory "
+          f"{ch['work'] / dn['work']:.3f} (bound 0.25), time {ch['ms'] / dn['ms']:.3f}",
+          flush=True)
+    return out
 
 
 def dpo_run(gen):
@@ -1818,7 +2037,7 @@ def modes_phase(gen, card) -> tuple[list, dict]:
             ("(i) dropout 0, AdamW", adam_rows, adam_launches)], times
 
 
-def slice_phase(tmp, gen, card):
+def slice_phase(tmp, gen, card, rates):
     t = time.perf_counter()
     torch.cuda.set_device(0)
     dist.init_process_group("nccl", init_method=f"file://{tmp}/pg", rank=0, world_size=1)
@@ -1875,7 +2094,10 @@ def slice_phase(tmp, gen, card):
         llama = llama_run(gen)
         t = phase_time("slice (d), Llama-2-7B", t)
         dpo = dpo_run(gen)
-        phase_time("slice (j), Llama-2-7B DPO", t)
+        t = phase_time("slice (j), Llama-2-7B DPO", t)
+        llama3 = llama3_run(gen, rates)
+        xent = xent_check(gen)
+        phase_time("slice (k), Llama-3-8B full-parameter, and [xent]", t)
         resume_phase(tmp, card)
     finally:
         dist.destroy_process_group()
@@ -1889,7 +2111,7 @@ def slice_phase(tmp, gen, card):
         ("(b) dropout 0 + telemetry", rows, launches),
         ("(c) dropout 0", plain_rows, plain_launches),
         ("(e) dropout 0 + max_grad_norm 1.0 (stochastic)", stoch_rows, stoch_launches),
-        *mode_runs], llama, dpo, mode_times
+        *mode_runs], llama, dpo, mode_times, llama3, xent
 
 
 def phase_time(name: str, since: float) -> float:
@@ -1933,7 +2155,8 @@ def main():
     nf4_check(gen)
     phase_time("model, products, NF4", t)
     with tempfile.TemporaryDirectory() as tmp:
-        (world, wire, buckets), runs, llama, dpo, mode_times = slice_phase(tmp, gen, card)
+        (world, wire, buckets), runs, llama, dpo, mode_times, llama3, xent = slice_phase(
+            tmp, gen, card, rates)
         t = time.perf_counter()
         w4_phase(tmp, card)
         phase_time(f"slice (f), GPT-2 124M at W = {W4} on one card", t)
@@ -1963,14 +2186,26 @@ def main():
           f"{[round(r['reward_margin'], 5) for r in rows]}; eval {ev}; peak device memory "
           f"{peak / 2**30:.2f} GiB; run_dpo.main {wall:.1f} s on {card}; launches {dpo_launches}",
           flush=True)
+    rows, k_launches, peak, wall, opt_ms, opt_bound = llama3
+    print(f"[slice] (k) run_clm Llama-3-8B full-parameter, {N_LLAMA3:,} bfloat16 params, "
+          f"--vocab_chunks {XENT_CHUNKS}, flash hd128 by auto, B 1 x accum {K_ACCUM} x T {K_T}, "
+          f"1 rank: losses {[round(r['loss'], 4) for r in rows]}: steps 2-{K_STEPS} "
+          f"{[r['step_ms'] for r in rows[1:]]} ms, median "
+          f"{statistics.median(r['step_ms'] for r in rows[1:]):.1f} ms/step, "
+          f"{statistics.median(r['tokens_per_sec'] for r in rows[1:]):.0f} tokens/s; peak "
+          f"device memory {peak / 2**30:.2f} GiB; optimizer step {opt_ms:.4f} ms (bound "
+          f"{opt_bound:.4f}); run_clm.main {wall:.1f} s on {card}; launches {k_launches}",
+          flush=True)
+    print(f"[xent] on {card}: " + json.dumps(xent), flush=True)
     print("[modes] optimizer step device time at n=124,439,808 on " + card + ": "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in mode_times.items()), flush=True)
     # each main path's counts: GPT-2's (b) for the optimizer and hd64 flash
-    # kernels, (h2)'s for the bf16-momentum instantiations, Llama's (d) for
-    # the hd128 ones
+    # kernels, (h2)'s for the bf16-momentum instantiations, (k)'s for the
+    # all-bfloat16 ones, Llama's (d) for the hd128 ones
     h2 = next(counts for label, _, counts in runs if label.startswith("(h2)"))
     launches = dict(runs[1][2], **{k: llama_launches[k] for k in NO_HD128},
-                    **{f"{k}_mom_bf16": h2[k] for k in ("fused_ballots", "fused_apply")})
+                    **{f"{k}_mom_bf16": h2[k] for k in ("fused_ballots", "fused_apply")},
+                    **{f"{k}_p_bf16": k_launches[k] for k in ("fused_ballots", "fused_apply")})
 
     kernels = []
     for k in KERNELS:

@@ -18,8 +18,14 @@ loader, ``data/native_loader.py``, unless ``--native_loader false`` or no
 C++ compiler is found). With ``--output_dir`` the trainer checkpoints every
 ``--save_steps`` into ``output_dir/checkpoints`` and resumes from there
 (``train/loop.py``); a run that ends saves its last step, and rank 0 writes
-``output_dir/model.npz`` in the JAX package's format. The Llama family is
-not ported yet (ROADMAP Queue 1 item 9).
+``output_dir/model.npz`` in the JAX package's format (the GPT-2 params or
+the Llama weight tree). ``--model_family llama`` trains every parameter of
+a Llama from a seeded init (``--model_name tiny | small | llama2_7b |
+llama3_8b``; no dropout, so ``--dropout`` > 0 is refused, and
+``--vocab_pad_multiple`` is GPT-2's). ``--vocab_chunks N`` streams either
+family's head through the chunked-vocabulary cross entropy
+(``ops/xent.py``). A pretrained base (``--model_path``) and the HF export
+(``--hf_export``) are not ported (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from distributed_lion_tpu_torch.data.sources import (
 )
 from distributed_lion_tpu_torch.data.tokenizer import load_tokenizer
 from distributed_lion_tpu_torch.models.gpt2 import GPT2Config
+from distributed_lion_tpu_torch.models.llama import LlamaConfig
 from distributed_lion_tpu_torch.parallel.mesh import (
     init_distributed,
     platform_device,
@@ -46,16 +53,23 @@ from distributed_lion_tpu_torch.parallel.mesh import (
 )
 from distributed_lion_tpu_torch.train.loop import TrainConfig, Trainer
 from distributed_lion_tpu_torch.utils.argparsing import parse_dataclasses
-from distributed_lion_tpu_torch.utils.serialization import params_to_jax, save_pytree
+from distributed_lion_tpu_torch.utils.serialization import (
+    llama_params_to_jax,
+    params_to_jax,
+    save_pytree,
+)
 
 
 @dataclasses.dataclass
 class ModelArguments:
-    model_family: str = "gpt2"  # gpt2 (llama is not ported yet)
-    model_name: str = "gpt2_124m"  # gpt2_124m | gpt2_small | tiny
+    model_family: str = "gpt2"  # gpt2 | llama
+    model_name: str = "gpt2_124m"  # gpt2: gpt2_124m | gpt2_small | tiny;
+    # llama: tiny | small | llama2_7b | llama3_8b
+    model_path: Optional[str] = None  # a pretrained HF base: not ported
+    hf_export: Optional[str] = None   # an HF save_pretrained directory: not ported
     vocab_size: Optional[int] = None
     n_ctx: Optional[int] = None
-    dropout: Optional[float] = None  # None = family default: 0.1 for GPT-2
+    dropout: Optional[float] = None  # None = family default: 0.1 for GPT-2, 0 for Llama
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     remat: bool = True
@@ -195,22 +209,34 @@ def check_shard_fleet(trainer: Trainer, loader) -> None:
             "--resume_from_checkpoint false or another --output_dir")
 
 
-def model_config(model_args: ModelArguments) -> GPT2Config:
-    if model_args.model_family != "gpt2":
-        raise NotImplementedError(
-            f"--model_family {model_args.model_family}: only gpt2 is ported "
-            "(Llama is ROADMAP Queue 1 item 9)")
+def model_config(model_args: ModelArguments):
+    """The ``GPT2Config`` or ``LlamaConfig`` of the arguments, with the JAX
+    CLI's family guards (run_clm.py:355-370)."""
+    family = model_args.model_family
+    if family not in ("gpt2", "llama"):
+        raise ValueError(f"unknown model family {family!r}")
+    for flag in ("model_path", "hf_export"):
+        if getattr(model_args, flag):
+            raise NotImplementedError(f"--{flag} is not ported (ROADMAP Queue 1 item 9)")
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-    common = dict(dropout=resolve_dropout(model_args.dropout, model_args.model_family),
-                  param_dtype=dtypes[model_args.param_dtype],
+    common = dict(param_dtype=dtypes[model_args.param_dtype],
                   compute_dtype=dtypes[model_args.compute_dtype],
-                  remat=model_args.remat,
-                  vocab_pad_multiple=model_args.vocab_pad_multiple)
-    presets = {"tiny": GPT2Config.tiny, "gpt2_small": GPT2Config.small,
-               "gpt2_124m": GPT2Config.gpt2_124m}
-    if model_args.model_name not in presets:
-        raise ValueError(f"unknown gpt2 model_name {model_args.model_name!r}")
-    cfg = presets[model_args.model_name](**common)
+                  remat=model_args.remat)
+    if family == "llama":
+        if (model_args.dropout or 0.0) > 0.0:
+            raise ValueError("our Llama (like HF's) has no dropout; set --dropout 0")
+        if model_args.vocab_pad_multiple:
+            raise ValueError("--vocab_pad_multiple is a GPT-2 layout option; Llama vocabs "
+                             "(32000/128256) are already 128-multiples")
+        cfg = LlamaConfig.named(model_args.model_name, **common)
+    else:
+        presets = {"tiny": GPT2Config.tiny, "gpt2_small": GPT2Config.small,
+                   "gpt2_124m": GPT2Config.gpt2_124m}
+        if model_args.model_name not in presets:
+            raise ValueError(f"unknown gpt2 model_name {model_args.model_name!r}")
+        cfg = presets[model_args.model_name](
+            dropout=resolve_dropout(model_args.dropout, family),
+            vocab_pad_multiple=model_args.vocab_pad_multiple, **common)
     if model_args.vocab_size:
         cfg = dataclasses.replace(cfg, vocab_size=model_args.vocab_size)
     if model_args.n_ctx:
@@ -237,7 +263,9 @@ def main(argv=None) -> Trainer:
     if train_cfg.block_size > model_cfg.n_ctx:
         print(f"[run_clm] capping block_size {train_cfg.block_size} -> n_ctx {model_cfg.n_ctx}")
         train_cfg.block_size = model_cfg.n_ctx
-    trainer = Trainer.for_gpt2(train_cfg, model_cfg, device=device, group=group)
+    llama = isinstance(model_cfg, LlamaConfig)
+    factory = Trainer.for_llama if llama else Trainer.for_gpt2
+    trainer = factory(train_cfg, model_cfg, device=device, group=group)
     if train_cfg.telemetry and rank_of(group) == 0:
         # only the tally wires carry exact margins; the ±1-proxy wire zeroes
         # the histogram by design (train/telemetry.tally_wire)
@@ -262,7 +290,9 @@ def main(argv=None) -> Trainer:
         if trainer.checkpointer:
             trainer.save()
         if train_cfg.output_dir and rank_of(group) == 0:
-            save_pytree(f"{train_cfg.output_dir}/model.npz", params_to_jax(trainer.model))
+            save_pytree(f"{train_cfg.output_dir}/model.npz",
+                        llama_params_to_jax(trainer.model.params) if llama
+                        else params_to_jax(trainer.model))
     finally:
         trainer.close()
         if loader is not None:

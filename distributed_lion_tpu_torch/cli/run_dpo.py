@@ -27,12 +27,14 @@ does this port:
 the JAX package's flat format. It runs on the GPU unless
 ``DLION_PLATFORM=cpu``; without torchrun it trains a world of one. The
 trainer's ``tokens_per_sec`` counts pairs x T, as the JAX trainer does.
-Not ported, and refused by name: a pretrained base (``--model_path``), PEFT
-adapters in and out (``--adapter_path``, ``--adapter_output``) and an
-HF-directory ``--merged_output`` (ROADMAP Queue 1 item 9), the
-chunked-vocabulary logprobs (``--vocab_chunks``, item 5), and sequence and
-tensor parallelism (``--seq_parallel``, ``--tensor_parallel``,
-``--seq_impl``, item 11).
+``--vocab_chunks N`` scores all four passes from final hidden states and
+the ``lm_head`` through the chunked-vocabulary cross entropy
+(``train.dpo.sequence_logprob_chunked``). Not ported, and refused by name:
+a pretrained base (``--model_path``), PEFT adapters in and out
+(``--adapter_path``, ``--adapter_output``) and an HF-directory
+``--merged_output`` (ROADMAP Queue 1 item 9), and sequence and tensor
+parallelism (``--seq_parallel``, ``--tensor_parallel``, ``--seq_impl``,
+item 11).
 """
 
 from __future__ import annotations
@@ -57,7 +59,12 @@ from distributed_lion_tpu_torch.models.lora import (
     lora_init,
     merge_lora,
 )
-from distributed_lion_tpu_torch.ops.quant import dequantize_tree, map_tree, quantize_tree
+from distributed_lion_tpu_torch.ops.quant import (
+    dequantize_tree,
+    map_tree,
+    maybe_dequant,
+    quantize_tree,
+)
 from distributed_lion_tpu_torch.parallel.mesh import init_distributed, platform_device, rank_of
 from distributed_lion_tpu_torch.train.dpo import make_dpo_loss_fn
 from distributed_lion_tpu_torch.train.loop import TrainConfig, Trainer
@@ -105,8 +112,6 @@ def refuse_unported(args: DPOArguments, unported: UnportedArguments) -> None:
         raise NotImplementedError(
             f"--merged_output {args.merged_output!r}: the HF save_pretrained export is not "
             "ported (ROADMAP Queue 1 item 9); give a *.npz path")
-    if unported.vocab_chunks:
-        raise _refused("vocab_chunks", 5)
     for flag in ("seq_parallel", "tensor_parallel"):
         if getattr(unported, flag) != 1:
             raise _refused(flag, 11)
@@ -134,12 +139,23 @@ def load_sft_checkpoint(path: str, dtype: torch.dtype, device) -> Any:
 
 
 def dpo_loss_fn(model: Llama, base: Any, ref: Any, adapters: dict, lora_cfg: LoraConfig,
-                beta: float):
+                beta: float, vocab_chunks: int = 0):
     """The trainer's loss: the policy is ``model`` over ``base`` with
-    ``adapters`` swapped in, the reference ``model`` over ``ref``."""
-    policy = lora_apply_fn(lambda params, tokens: model(tokens, params), base, lora_cfg)
+    ``adapters`` swapped in, the reference ``model`` over ``ref``; with
+    ``vocab_chunks`` each pass gives ``(hidden, lm_head)`` (JAX
+    run_dpo._hidden_and_head) and the logprobs stream through
+    ``ops/xent.py``."""
+    if vocab_chunks > 0:
+        def forward(params, tokens):
+            return (model.hidden(tokens, params),
+                    maybe_dequant(params["lm_head"], model.cfg.compute_dtype))
+    else:
+        def forward(params, tokens):
+            return model(tokens, params)
+    policy = lora_apply_fn(forward, base, lora_cfg)
     return make_dpo_loss_fn(lambda tokens, seed: policy(adapters, tokens, dropout_seed=seed),
-                            lambda tokens: model(tokens, ref), beta=beta)
+                            lambda tokens: forward(ref, tokens), beta=beta,
+                            vocab_chunks=vocab_chunks)
 
 
 def main(argv=None) -> tuple[Trainer, Llama, dict, Any]:
@@ -194,7 +210,8 @@ def main(argv=None) -> tuple[Trainer, Llama, dict, Any]:
         print(f"[run_dpo] {n - n_valid} train / {n_valid} eval pairs (after length filtering)")
 
     trainer = Trainer(train_cfg, named,
-                      dpo_loss_fn(model, base, ref, adapters, lora_cfg, args.beta),
+                      dpo_loss_fn(model, base, ref, adapters, lora_cfg, args.beta,
+                                  train_cfg.vocab_chunks),
                       group=group, model=model)
     try:
         trainer.train(dpo_batch_iterator(train_data, trainer.global_train_batch(),

@@ -19,10 +19,13 @@ not saved: a resume rebuilds it from the seed, as the JAX package does.
 
 The synthetic path takes its vocabulary from the byte tokenizer,
 ``max(tokenizer vocab, 259)``, as the JAX package does without a Llama
-tokenizer. Not ported, and refused by name: a pretrained base
-(``--model_path``), PEFT adapters in and out (``--adapter_path``,
-``--adapter_output``), an HF-directory ``--merged_output``, sequence and
-tensor parallelism and the chunked-vocabulary loss (ROADMAP Queue 1 item 9).
+tokenizer. ``--vocab_chunks N`` streams the (dequantized) ``lm_head``, in
+its ``[d, V]`` layout, through the chunked-vocabulary cross entropy
+(``ops/xent.py``), as the JAX package's ``_head_loss`` does. Not ported,
+and refused by name: a pretrained base (``--model_path``), PEFT adapters
+in and out (``--adapter_path``, ``--adapter_output``), an HF-directory
+``--merged_output``, and sequence and tensor parallelism (ROADMAP Queue 1
+item 9).
 """
 
 from __future__ import annotations
@@ -50,9 +53,14 @@ from distributed_lion_tpu_torch.models.lora import (
     lora_init,
     merge_lora,
 )
-from distributed_lion_tpu_torch.ops.quant import dequantize_tree
+from distributed_lion_tpu_torch.ops.quant import dequantize_tree, maybe_dequant
 from distributed_lion_tpu_torch.parallel.mesh import init_distributed, platform_device, rank_of
-from distributed_lion_tpu_torch.train.loop import TrainConfig, Trainer, clm_loss_fn
+from distributed_lion_tpu_torch.train.loop import (
+    TrainConfig,
+    Trainer,
+    chunked_clm_loss_fn,
+    clm_loss_fn,
+)
 from distributed_lion_tpu_torch.utils.argparsing import parse_dataclasses
 from distributed_lion_tpu_torch.utils.serialization import save_pytree
 
@@ -92,7 +100,6 @@ class UnportedArguments:
 
     seq_parallel: int = 1
     tensor_parallel: int = 1
-    vocab_chunks: int = 0
 
 
 def refuse_unported(args: SFTArguments, unported: UnportedArguments) -> None:
@@ -188,10 +195,19 @@ def main(argv=None) -> tuple[Trainer, Llama, dict]:
               f"{sum(p.numel() for _, p in named) / 1e3:.1f}k trainable params; frozen base "
               f"{tree_nbytes(base) / 2**30:.2f} GiB on {device}")
 
-    def forward(tokens, seed):
-        return model(tokens, apply_adapters(base, adapters, lora_cfg, dropout_seed=seed))
+    def effective(seed):
+        return apply_adapters(base, adapters, lora_cfg, dropout_seed=seed)
 
-    trainer = Trainer(train_cfg, named, clm_loss_fn(forward), group=group)
+    if train_cfg.vocab_chunks > 0:  # JAX run_sft._head_loss's chunked branch
+        def hidden_and_head(tokens, seed):
+            eff = effective(seed)
+            return (model.hidden(tokens, eff),
+                    maybe_dequant(eff["lm_head"], model_cfg.compute_dtype))
+
+        loss_fn = chunked_clm_loss_fn(hidden_and_head, train_cfg.vocab_chunks, emb_layout="dv")
+    else:
+        loss_fn = clm_loss_fn(lambda tokens, seed: model(tokens, effective(seed)))
+    trainer = Trainer(train_cfg, named, loss_fn, group=group)
     train_iter, eval_blocks = sft_batches(args, tok, train, valid, trainer.global_train_batch(),
                                           train_cfg.seed, ratio)
     try:

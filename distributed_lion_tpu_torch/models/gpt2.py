@@ -240,13 +240,19 @@ class GPT2(nn.Module):
         return logits[..., : self.cfg.vocab_size]
 
     def jax_named_parameters(self) -> list[tuple[str, nn.Parameter]]:
-        """Named parameters in ``jax.tree.leaves`` order of the JAX pytree
-        (dict keys sorted, list entries by index): the flat layout."""
-        def key(name):
-            return [(0, int(p), "") if p.isdigit() else (1, 0, p)
-                    for p in name.split(".")]
+        """Named parameters in ``jax.tree.leaves`` order of the JAX pytree:
+        the flat layout."""
+        return jax_leaf_order(self.named_parameters())
 
-        return sorted(self.named_parameters(), key=lambda kv: key(kv[0]))
+
+def jax_leaf_order(named) -> list:
+    """``(dotted name, value)`` pairs sorted as ``jax.tree.leaves`` orders
+    the leaves of the nested tree the names spell: dict keys sorted, list
+    entries (the numeric parts) by index."""
+    def key(name):
+        return [(0, int(p), "") if p.isdigit() else (1, 0, p) for p in name.split(".")]
+
+    return sorted(named, key=lambda kv: key(kv[0]))
 
 
 def count_params(model: nn.Module) -> int:

@@ -4,7 +4,11 @@ RMSNorm, rotary position embeddings (the interleaved form, pairing even and
 odd columns), a SwiGLU MLP, grouped-query attention, no biases and an
 untied head. The weights are a nested dict and list tree with the JAX
 package's paths and layouts (``blocks/0/attn/wq`` is ``[d, n_head·hd]``),
-so they carry over one to one (``utils.serialization.llama_params_from_jax``).
+so they carry over one to one (``utils.serialization.llama_params_from_jax``
+and ``llama_params_to_jax``). The tree is frozen for LoRA (its leaves plain
+tensors) or trainable (:func:`as_parameters`: every leaf an
+``nn.Parameter``, which :meth:`Llama.jax_named_parameters` lists in the
+JAX package's leaf order, the flat buffers' layout).
 Any weight leaf may be a :class:`~distributed_lion_tpu_torch.ops.quant.QuantizedTensor`
 (the QLoRA base) or a :class:`~distributed_lion_tpu_torch.models.lora.LoraTensor`;
 every projection goes through ``models.lora.lora_matmul``.
@@ -29,11 +33,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from distributed_lion_tpu_torch.models.gpt2 import fold_seed
-from distributed_lion_tpu_torch.models.lora import lora_embed, lora_matmul
+from distributed_lion_tpu_torch.models.gpt2 import fold_seed, jax_leaf_order
+from distributed_lion_tpu_torch.models.lora import iter_paths, lora_embed, lora_matmul
 from distributed_lion_tpu_torch.ops.attention import attention
 from distributed_lion_tpu_torch.ops.products import matmul_f32
-from distributed_lion_tpu_torch.ops.quant import maybe_dequant, quantize_leaf
+from distributed_lion_tpu_torch.ops.quant import map_tree, maybe_dequant, quantize_leaf
 from distributed_lion_tpu_torch.parallel.mesh import resolve_device
 
 
@@ -173,12 +177,20 @@ def _block(x, p, cfg: LlamaConfig, cos, sin):
     return x + _mlp(rms_norm(x, p["ln_mlp"], cfg.rms_eps), p["mlp"])
 
 
+def as_parameters(params: Any) -> Any:
+    """The same tree with every tensor leaf an ``nn.Parameter`` (full-parameter
+    training, ``train.loop.Trainer.for_llama``)."""
+    return map_tree(nn.Parameter, params)
+
+
 class Llama(nn.Module):
     """The model over a weight tree; ``forward(tokens, params)`` returns
     float32 logits ``[B, T, vocab_size]``. ``params`` defaults to the tree
     the model was built with; the trainer passes the tree with the adapters
     swapped in (``models.lora.apply_adapters``). The tree's tensors are not
-    registered as parameters: the base is frozen."""
+    registered as module parameters: a frozen base stays out of autograd,
+    and a trainable tree (:func:`as_parameters`) is listed by
+    :meth:`jax_named_parameters`."""
 
     def __init__(self, cfg: LlamaConfig, params: dict):
         super().__init__()
@@ -209,6 +221,19 @@ class Llama(nn.Module):
 
     def forward(self, tokens: torch.Tensor, params: Optional[dict] = None) -> torch.Tensor:
         return self.head(self.hidden(tokens, params), params)
+
+    def jax_named_parameters(self) -> list[tuple[str, nn.Parameter]]:
+        """The tree's leaves in ``jax.tree.leaves`` order (``blocks.<i>.attn.
+        {wk,wo,wq,wv}``, ``blocks.<i>.ln_attn.scale``, ``blocks.<i>.ln_mlp.
+        scale``, ``blocks.<i>.mlp.{w_down,w_gate,w_up}``, then ``lm_head``,
+        ``ln_f.scale``, ``wte``): the flat layout. Every leaf must be an
+        ``nn.Parameter``."""
+        named = jax_leaf_order((".".join(path), t) for path, t in iter_paths(self.params))
+        frozen = [name for name, t in named if not isinstance(t, nn.Parameter)]
+        if frozen:
+            raise TypeError(f"leaves {frozen[:3]} are not parameters; build the tree with "
+                            "models.llama.as_parameters")
+        return named
 
 
 def tree_nbytes(params: Any) -> int:

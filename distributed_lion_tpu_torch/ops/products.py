@@ -33,7 +33,8 @@ from __future__ import annotations
 import torch
 
 
-def _forward(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The forward product of :func:`matmul_f32` alone, outside autograd."""
     if a.dtype == torch.float32:
         return torch.matmul(a, b)
     if a.device.type != "cuda":
@@ -50,7 +51,7 @@ class _MatmulF32(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, b):
         ctx.save_for_backward(a, b)
-        return _forward(a, b)
+        return product_f32(a, b)
 
     @staticmethod
     def backward(ctx, g):

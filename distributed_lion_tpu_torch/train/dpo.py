@@ -17,11 +17,14 @@ None, there is no dropout), and two reference passes under
 ``torch.no_grad()`` (the JAX package's ``stop_gradient``). Metrics are the
 JAX package's: ``loss``, ``reward_accuracy`` and ``reward_margin``.
 
-Not ported, and refused by name: the chunked-vocabulary logprobs
-(``vocab_chunks > 0``, ``sequence_logprob_chunked``; ROADMAP Queue 1 item
-5), the sequence-parallel logprobs (``seq_axis``) and the
-frozen-as-argument variant that tensor parallelism uses
-(``make_dpo_loss_fn_frozen``), both Queue 1 item 11.
+With ``vocab_chunks`` > 0 the apply functions return ``(hidden, head)``
+in place of logits and the label logprobs stream through the
+chunked-vocabulary cross entropy (:func:`sequence_logprob_chunked`,
+``ops/xent.py``): none of the four passes writes a ``[B, T, V]`` float32
+``log_softmax``. Not ported, and refused by name: the sequence-parallel
+logprobs (``seq_axis``) and the frozen-as-argument variant that tensor
+parallelism uses (``make_dpo_loss_fn_frozen``), both ROADMAP Queue 1 item
+11.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from distributed_lion_tpu_torch.models.gpt2 import fold_seed
+from distributed_lion_tpu_torch.ops.xent import chunked_softmax_xent
 
 
 def sequence_logprob(logits: torch.Tensor, tokens: torch.Tensor,
@@ -44,31 +48,49 @@ def sequence_logprob(logits: torch.Tensor, tokens: torch.Tensor,
     return (ll * mask[:, 1:].to(torch.float32)).sum(-1)
 
 
+def sequence_logprob_chunked(hidden: torch.Tensor, head: torch.Tensor, tokens: torch.Tensor,
+                             mask: torch.Tensor, n_chunks: int,
+                             emb_layout: str = "dv") -> torch.Tensor:
+    """:func:`sequence_logprob` from final hidden states ``[B, T, d]`` and
+    the head (dpo.py:66-83): each label's logprob is −nll of
+    ``ops.xent.chunked_softmax_xent``, so no ``[B, T, V]`` tensor exists."""
+    b, t, d = hidden.shape
+    h = hidden[:, :-1].reshape(b * (t - 1), d)
+    nll, _ = chunked_softmax_xent(h, head, tokens[:, 1:].reshape(-1), n_chunks, emb_layout)
+    return (-nll.reshape(b, t - 1) * mask[:, 1:].to(torch.float32)).sum(-1)
+
+
 def make_dpo_loss_fn(policy_apply: Callable, ref_apply: Callable, beta: float = 0.1, *,
                      seq_axis: Optional[str] = None, vocab_chunks: int = 0) -> Callable:
     """``loss_fn(batch, seed) -> (loss, metrics)`` from
-    ``policy_apply(tokens, dropout_seed) -> logits`` (the adapters in its
-    closure) and ``ref_apply(tokens) -> logits`` (the frozen reference)."""
-    if vocab_chunks > 0:
-        raise NotImplementedError(
-            "vocab_chunks > 0 (sequence_logprob_chunked, ops/xent.py) is not ported "
-            "(ROADMAP Queue 1 item 5)")
+    ``policy_apply(tokens, dropout_seed)`` (the adapters in its closure) and
+    ``ref_apply(tokens)`` (the frozen reference), each returning logits, or
+    with ``vocab_chunks`` > 0 ``(hidden, head)`` with the head ``[d, V]``
+    (dpo.py:132-160; the loss is then marked ``_vocab_chunked``)."""
     if seq_axis is not None:
         raise NotImplementedError(
             "seq_axis (the sequence-parallel DPO logprobs) is not ported "
             "(ROADMAP Queue 1 item 11)")
+
+    def seqlp(out, tokens, mask):
+        if vocab_chunks <= 0:
+            return sequence_logprob(out, tokens, mask)
+        if not (isinstance(out, tuple) and len(out) == 2):
+            raise TypeError(
+                "vocab_chunks > 0 requires apply functions returning (hidden, head); got "
+                f"{type(out).__name__}")
+        return sequence_logprob_chunked(*out, tokens, mask, vocab_chunks)
 
     def loss_fn(batch: dict, seed: Optional[int]):
         seed_c = seed_r = None
         if seed is not None:  # one adapter-dropout seed per policy pass
             seed_c, seed_r = fold_seed(seed, 0), fold_seed(seed, 1)
         chosen, rejected = batch["chosen"], batch["rejected"]
-        pol_c = sequence_logprob(policy_apply(chosen, seed_c), chosen, batch["chosen_mask"])
-        pol_r = sequence_logprob(policy_apply(rejected, seed_r), rejected,
-                                 batch["rejected_mask"])
+        pol_c = seqlp(policy_apply(chosen, seed_c), chosen, batch["chosen_mask"])
+        pol_r = seqlp(policy_apply(rejected, seed_r), rejected, batch["rejected_mask"])
         with torch.no_grad():
-            ref_c = sequence_logprob(ref_apply(chosen), chosen, batch["chosen_mask"])
-            ref_r = sequence_logprob(ref_apply(rejected), rejected, batch["rejected_mask"])
+            ref_c = seqlp(ref_apply(chosen), chosen, batch["chosen_mask"])
+            ref_r = seqlp(ref_apply(rejected), rejected, batch["rejected_mask"])
         logits = beta * ((pol_c - pol_r) - (ref_c - ref_r))
         loss = -F.logsigmoid(logits).mean()
         with torch.no_grad():
@@ -78,4 +100,6 @@ def make_dpo_loss_fn(policy_apply: Callable, ref_apply: Callable, beta: float = 
                        "reward_margin": (reward_c - reward_r).mean()}
         return loss, metrics
 
+    if vocab_chunks > 0:
+        loss_fn._vocab_chunked = True
     return loss_fn

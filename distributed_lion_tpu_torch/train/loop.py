@@ -10,8 +10,17 @@ dict of ``[B, T]`` arrays, all split by rows: ``"tokens"`` and ``"mask"``
 Eval reports every metric the loss function returns, and perplexity only
 when it reports ``n_tokens`` (a token-level loss). Only the named
 parameters train and have the flat buffers; a frozen base (LoRA) lives in
-the loss function's closure. :meth:`Trainer.for_gpt2` builds the GPT-2
-pretraining trainer.
+the loss function's closure. :meth:`Trainer.for_gpt2` and
+:meth:`Trainer.for_llama` build the pretraining trainers; with
+``vocab_chunks`` > 0 their loss streams the head through
+``ops/xent.py`` (no ``[B, T, V]`` logits). A caller's own loss function
+must say it consumes ``vocab_chunks`` (``_vocab_chunked``), else the
+trainer refuses the flag rather than ignore it (JAX loop.py:791-800).
+Lion over bfloat16 params at a learning rate below 1e-3 is warned about,
+as the JAX trainer does (loop.py:774-790): the ±lr step is below a
+bfloat16 ulp of the larger coordinates. ``telemetry`` counts a step's
+voted coordinates in int32, as the JAX package does, and is refused
+before any step where they reach 2³¹ (:func:`check_telemetry_size`).
 
 One process per GPU. Each rank runs forward and backward on its shard of
 the global batch, accumulating ``gradient_accumulation_steps``
@@ -70,8 +79,11 @@ import torch
 import torch.distributed as dist
 
 from distributed_lion_tpu_torch.models.gpt2 import GPT2, GPT2Config, count_params, fold_seed
+from distributed_lion_tpu_torch.models.llama import Llama, LlamaConfig, as_parameters, llama_init
 from distributed_lion_tpu_torch.models.loss import clm_loss_and_metrics
 from distributed_lion_tpu_torch.ops.codec import vote_chunk_elems, wire_bytes_per_param
+from distributed_lion_tpu_torch.ops.quant import map_tree
+from distributed_lion_tpu_torch.ops.xent import chunked_clm_loss_and_metrics
 from distributed_lion_tpu_torch.optim.distributed_lion import (
     distributed_lion,
     remap_worker_momentum,
@@ -126,6 +138,7 @@ class TrainConfig:
     async_ckpt: bool = True  # the write and commit run behind the next steps
     ckpt_integrity: bool = True  # sha256 manifest + COMMITTED marker, verified resume
     elastic_resume: bool = False  # resume another world size, momenta remapped
+    vocab_chunks: int = 0  # > 0: the chunked-vocabulary cross entropy (ops/xent.py)
 
     def schedule(self) -> Callable:
         if self.lr_scheduler_type == "cosine":
@@ -219,6 +232,24 @@ def make_optimizer(cfg: TrainConfig, group=None):
     )
 
 
+# telemetry's per-step counters (voted, valid, the margin histogram) are
+# int32, as the JAX package's (train/telemetry.py:112-116)
+TELEMETRY_MAX_VOTED = 2**31 - 1
+
+
+def check_telemetry_size(n_params: int, vote_every: int, telemetry: bool) -> None:
+    """Refuse ``telemetry`` where a step votes 2³¹ coordinates or more: its
+    int32 counters would overflow, in the JAX package as here."""
+    n_voted = (n_params if vote_every <= 1
+               else min(n_params, vote_chunk_elems(n_params, vote_every)))
+    if telemetry and n_voted > TELEMETRY_MAX_VOTED:
+        raise ValueError(
+            f"--telemetry counts a step's voted coordinates in int32, as the JAX package "
+            f"does; this run votes {n_voted:,} coordinates a step, past 2**31 - 1. Drop "
+            "--telemetry (wider counters: ROADMAP Queue 1 item 10; the limit is a "
+            "reference-side fact of Queue 3)")
+
+
 LossFn = Callable[[object, Optional[int]], tuple]
 
 # a checkpoint step's files (train/checkpoint.py): rank 0's, and each rank's
@@ -246,14 +277,47 @@ def _to_device(batch, device):
     return torch.from_numpy(np.ascontiguousarray(batch).astype(np.int64)).to(device)
 
 
+def _tokens_and_mask(batch):
+    return (batch["tokens"], batch["mask"]) if isinstance(batch, dict) else (batch, None)
+
+
 def clm_loss_fn(model) -> LossFn:
     """``loss_fn(batch, seed)`` of a causal LM ``model(tokens, seed)``; a dict
     batch carries its loss mask to ``clm_loss_and_metrics``."""
     def loss_fn(batch, seed):
-        tokens, mask = ((batch["tokens"], batch["mask"]) if isinstance(batch, dict)
-                        else (batch, None))
+        tokens, mask = _tokens_and_mask(batch)
         return clm_loss_and_metrics(model(tokens, seed), tokens, mask)
     return loss_fn
+
+
+def chunked_clm_loss_fn(hidden_and_head: Callable, n_chunks: int, emb_layout: str = "vd",
+                        valid_v: int = 0) -> LossFn:
+    """``loss_fn(batch, seed)`` of ``hidden_and_head(tokens, seed) ->
+    (hidden [B, T, d], head)`` through the chunked-vocabulary cross entropy
+    (``ops.xent.chunked_clm_loss_and_metrics``), marked ``_vocab_chunked``."""
+    def loss_fn(batch, seed):
+        tokens, mask = _tokens_and_mask(batch)
+        hidden, head = hidden_and_head(tokens, seed)
+        return chunked_clm_loss_and_metrics(hidden, head, tokens, n_chunks, mask,
+                                            emb_layout, valid_v)
+    loss_fn._vocab_chunked = True
+    return loss_fn
+
+
+def _announce(family: str, n: int, world: int, cfg: TrainConfig, device) -> None:
+    """The trainer's banner (JAX loop.py:2722-2731): params, world, and the
+    vote wire with its bits per param per step."""
+    if not cfg.lion:
+        print(f"[trainer] {family} {n/1e6:.1f}M params | world={world} | AdamW, gradient "
+              f"all_reduce | device={device}")
+        return
+    acct = wire_bytes_per_param(n, world, cfg.wire, vote_every=cfg.vote_every,
+                                accum_steps=cfg.gradient_accumulation_steps,
+                                vote_buckets=cfg.vote_buckets)
+    print(f"[trainer] {family} {n/1e6:.1f}M params | world={world} | vote wire={cfg.wire}"
+          + (f" (vote_buckets={cfg.vote_buckets})" if cfg.vote_buckets > 1 else "")
+          + (f" (vote_every={cfg.vote_every})" if cfg.vote_every > 1 else "")
+          + f": {acct['bits_per_param']:.2f} bits/param/step | device={device}")
 
 
 class Trainer:
@@ -268,12 +332,23 @@ class Trainer:
         self.world = collectives.world_of(group)
         self.rank = rank_of(group)
         self.group = group
-        cfg = _resolve_for_world(cfg, self.world, sum(p.numel() for _, p in named_params),
-                                 announce=self.rank == 0)
+        if cfg.vocab_chunks > 0 and not getattr(loss_fn, "_vocab_chunked", False):
+            raise NotImplementedError(
+                "--vocab_chunks is not wired into this entry point's loss function "
+                "(supported: run_clm, run_sft, run_dpo)")
+        n = sum(p.numel() for _, p in named_params)
+        cfg = _resolve_for_world(cfg, self.world, n, announce=self.rank == 0)
+        check_telemetry_size(n, cfg.vote_every, cfg.telemetry)
         self.cfg = cfg
         self.model = model
         self.loss_fn = loss_fn
         self.flat = FlatParams(named_params)
+        if (cfg.lion and cfg.learning_rate < 1e-3 and self.flat.params.dtype == torch.bfloat16
+                and self.rank == 0):
+            print(f"[trainer] WARNING: bf16 param storage with Lion lr {cfg.learning_rate:g} "
+                  "< 1e-3 — the fixed ±lr update is below bf16 ULP for |p| > ~lr*256, so "
+                  "those coordinates will NOT move. Use f32 param_dtype (bf16 compute_dtype "
+                  "keeps the matmul speed) unless this is a throughput bench.", flush=True)
         self.device = self.flat.device
         self.n_params = self.flat.numel
         self.opt = make_optimizer(cfg, group)
@@ -303,7 +378,9 @@ class Trainer:
                  initial_params: Optional[dict] = None, group=None) -> "Trainer":
         """A trainer for a fresh GPT-2 (init seeded by ``cfg.seed``) or for
         ``initial_params``, a state dict such as
-        ``utils.serialization.params_from_jax`` returns."""
+        ``utils.serialization.params_from_jax`` returns. With
+        ``vocab_chunks`` the loss streams the tied ``wte`` (``"vd"``, the
+        padded rows masked by ``valid_v``; JAX loop.py:2685-2697)."""
         device = resolve_device(device)
         model = GPT2(model_cfg, device=device, seed=cfg.seed)
         if initial_params is not None:
@@ -313,20 +390,48 @@ class Trainer:
         n = count_params(model)
         world = collectives.world_of(group)
         cfg = _resolve_for_world(cfg, world, n, announce=rank_of(group) == 0)
-        acct = wire_bytes_per_param(n, world, cfg.wire, vote_every=cfg.vote_every,
-                                    accum_steps=cfg.gradient_accumulation_steps,
-                                    vote_buckets=cfg.vote_buckets)
-        if rank_of(group) == 0 and not cfg.lion:
-            print(f"[trainer] GPT-2 {n/1e6:.1f}M params | world={world} | AdamW, gradient "
-                  f"all_reduce | device={device}")
-        elif rank_of(group) == 0:
-            print(f"[trainer] GPT-2 {n/1e6:.1f}M params | world={world} | vote "
-                  f"wire={cfg.wire}"
-                  + (f" (vote_buckets={cfg.vote_buckets})" if cfg.vote_buckets > 1 else "")
-                  + (f" (vote_every={cfg.vote_every})" if cfg.vote_every > 1 else "")
-                  + f": {acct['bits_per_param']:.2f} bits/param/step | device={device}")
-        return Trainer(cfg, model.jax_named_parameters(), clm_loss_fn(model), group=group,
-                       model=model)
+        if rank_of(group) == 0:
+            _announce("GPT-2", n, world, cfg, device)
+        if cfg.vocab_chunks > 0:
+            loss_fn = chunked_clm_loss_fn(lambda tokens, seed: (model.hidden(tokens, seed),
+                                                                model.wte),
+                                          cfg.vocab_chunks, valid_v=model_cfg.vocab_size)
+        else:
+            loss_fn = clm_loss_fn(model)
+        return Trainer(cfg, model.jax_named_parameters(), loss_fn, group=group, model=model)
+
+    @staticmethod
+    def for_llama(cfg: TrainConfig, model_cfg: LlamaConfig, *, device="cuda",
+                  initial_params=None, group=None) -> "Trainer":
+        """Full-parameter causal-LM training of a Llama (the data-parallel
+        branch of JAX loop.py:2701-2871): a fresh init seeded by
+        ``cfg.seed`` or ``initial_params`` (a weight tree such as
+        ``utils.serialization.llama_params_from_jax`` returns, cast to the
+        param dtype), every leaf a parameter in the JAX leaf order. The loss
+        is the dense ``llama_apply`` one, or with ``vocab_chunks`` the final
+        hidden states against the untied ``lm_head`` in its ``[d, V]``
+        layout (``"dv"``). The model has no dropout. The tensor, sequence,
+        pipeline and expert axes are not ported (ROADMAP Queue 1 item 11)."""
+        device = resolve_device(device)
+        # no reference to the initial tensors outlives the parameters: the
+        # flat buffers take their place (at Llama-3-8B, 16 GB)
+        params = as_parameters(
+            llama_init(model_cfg, seed=cfg.seed, device=device) if initial_params is None
+            else map_tree(lambda t: t.to(device, model_cfg.param_dtype), initial_params))
+        model = Llama(model_cfg, params)
+        named = model.jax_named_parameters()
+        n = sum(p.numel() for _, p in named)
+        world = collectives.world_of(group)
+        cfg = _resolve_for_world(cfg, world, n, announce=rank_of(group) == 0)
+        if rank_of(group) == 0:
+            _announce("Llama", n, world, cfg, device)
+        if cfg.vocab_chunks > 0:
+            loss_fn = chunked_clm_loss_fn(lambda tokens, seed: (model.hidden(tokens),
+                                                                params["lm_head"]),
+                                          cfg.vocab_chunks, emb_layout="dv")
+        else:
+            loss_fn = clm_loss_fn(lambda tokens, seed: model(tokens))
+        return Trainer(cfg, named, loss_fn, group=group, model=model)
 
     def comm_stats(self) -> dict:
         """The vote's analytic wire bytes (JAX ``Trainer.comm_stats``, its

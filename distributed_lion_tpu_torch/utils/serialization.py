@@ -13,7 +13,8 @@ the JAX package's ``model.npz``. On top of it:
 - :func:`llama_params_from_jax` turns the JAX package's Llama params (a
   numpy pytree whose quantized leaves carry numpy ``codes`` and ``absmax``)
   into the port's weight tree, :class:`ops.quant.QuantizedTensor` leaves
-  included; :func:`adapters_from_jax` does the same for LoRA adapters, and
+  included, and :func:`llama_params_to_jax` writes a dense tree back (the
+  tree ``run_clm --model_family llama`` saves); :func:`adapters_from_jax` does the same for LoRA adapters, and
   :func:`adapter_momentum_from_jax` takes one rank's row of the adapters'
   stacked momentum.
 
@@ -124,6 +125,13 @@ def llama_params_from_jax(tree: Any, device="cpu") -> Any:
     """The JAX package's Llama params (nested dicts and lists of numpy
     arrays and quantized leaves) as the port's weight tree on ``device``."""
     return map_tree(lambda leaf: _leaf_from_jax(leaf, device), tree)
+
+
+def llama_params_to_jax(tree: Any) -> Any:
+    """The port's dense Llama weight tree (tensors or parameters) as the
+    JAX package's nested numpy tree: ``model.npz`` of ``run_clm
+    --model_family llama`` through :func:`save_pytree`."""
+    return map_tree(_to_numpy, tree)
 
 
 def adapters_from_jax(adapters: dict, device="cpu") -> dict:

@@ -146,8 +146,8 @@ def test_dpo_loss_is_ln2_at_the_reference_and_falls_as_the_policy_prefers_chosen
     loss1, m1 = make_dpo_loss_fn(lambda t, s: pol(t), ref)(batch, 7)
     assert float(loss1) < float(loss0)
     assert float(m1["reward_margin"]) > 0 and float(m1["reward_accuracy"]) == 1.0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        make_dpo_loss_fn(pol, ref, vocab_chunks=4)
+    with pytest.raises(TypeError, match=r"\(hidden, head\)"):  # chunked scoring takes hidden states
+        make_dpo_loss_fn(lambda t, s: pol(t), ref, vocab_chunks=4)(batch, None)
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         make_dpo_loss_fn(pol, ref, seq_axis="seq")
 
@@ -374,7 +374,7 @@ def test_sft_merged_output_feeds_run_dpo_and_dpo_merged_output_round_trips(tmp_p
 @pytest.mark.parametrize("flag,item", [
     (["--model_path", "/nonexistent"], 9), (["--adapter_path", "x"], 9),
     (["--adapter_output", "x"], 9), (["--merged_output", "hf_dir"], 9),
-    (["--vocab_chunks", "4"], 5), (["--seq_parallel", "2"], 11),
+    (["--tensor_parallel", "2", "--vocab_chunks", "4"], 11), (["--seq_parallel", "2"], 11),
     (["--tensor_parallel", "2"], 11), (["--seq_impl", "ulysses"], 11)])
 def test_unported_flags_are_refused_by_name(flag, item, monkeypatch):
     monkeypatch.setenv("DLION_PLATFORM", "cpu")

@@ -84,3 +84,13 @@ def test_the_dpo_modules_are_among_the_checked_files():
     file list both checks above walk."""
     files = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
     assert {"data/dpo.py", "train/dpo.py", "cli/run_dpo.py"} <= files
+
+
+def test_the_chunked_vocabulary_modules_are_among_the_checked_files():
+    """The chunked-vocabulary cross entropy and the modules that call it
+    (the trainer, DPO's scoring, the trainable Llama, the three CLIs) are in
+    the file list both checks above walk."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
+    assert {"ops/xent.py", "ops/products.py", "train/loop.py", "train/dpo.py",
+            "models/llama.py", "cli/run_clm.py", "cli/run_sft.py", "cli/run_dpo.py",
+            "utils/serialization.py"} <= files

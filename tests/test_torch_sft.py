@@ -194,7 +194,7 @@ def test_run_sft_cli_writes_a_merged_model_the_jax_package_reproduces(tmp_path, 
 @pytest.mark.parametrize("flag", [
     ["--model_path", "/nonexistent"], ["--adapter_path", "x"], ["--adapter_output", "x"],
     ["--merged_output", "hf_dir"], ["--seq_parallel", "2"], ["--tensor_parallel", "2"],
-    ["--vocab_chunks", "4"], ["--tokenizer_name", "sp:tokenizer.model"]])
+    ["--seq_impl", "ulysses"], ["--tokenizer_name", "sp:tokenizer.model"]])
 def test_unported_flags_are_refused_by_name(flag, monkeypatch):
     monkeypatch.setenv("DLION_PLATFORM", "cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
