@@ -218,6 +218,39 @@ Phases (none of their failures is caught; any one fails the run):
    that peak less the two gradients every backward returns (``d hidden``
    and ``d lm_head``, 1.07 GB); the chunked working memory must be at most
    a quarter of the dense one's.
+10. Run (l), Hugging Face checkpoints in and out, in the 1-rank NCCL group.
+   First ``[tok]``: a ``tokenizer.json`` built from ``runs/parity/tok``
+   (``data.hf_tokenizer_json.bpe_tokenizer_json``) must encode the repo's
+   ``*.md`` to the GPT-2 BPE's ids; the host tokens/s of ``TokenizerJSON``
+   and of ``SentencePieceTokenizer`` (on a Llama-shaped model written by
+   ``write_model_proto`` from the same vocabulary) are printed. (l1): a
+   seeded bfloat16 Llama-2-7B (``llama_init``, vocabulary 32,000) written
+   by ``models.hf_export.llama_to_hf`` as HF publishes ``Llama-2-7b-hf``
+   (two safetensors shards under ``model.safetensors.index.json``, 13.5 GB,
+   the page cache dropped after the write) with that ``tokenizer.json``;
+   ``cli.run_sft.main --model_path <dir> --tokenizer_name <dir> --quant
+   nf4 --attn_impl flash --adapter_output <dir>`` at run (d)'s B 4 x
+   accumulation 2 x T 1024, 3 steps: finite losses; the first and last
+   blocks' and the head's imported leaves ``torch.equal`` to the written
+   ones through float32 and ``quantize_leaf`` (NF4 codes and absmax);
+   run (d)'s kernel launches (the eval batches of this tokenizer);
+   ``peft_to_lora`` of the written adapters ``torch.equal`` to the
+   trainer's. (l2): Llama-2-7B's width at 2 layers, ``run_sft
+   --adapter_output --merged_output <HF dir>`` 1 step: the merged
+   directory read back by ``llama_from_hf`` ``torch.equal`` to
+   ``dequantize_tree(merge_lora(base, adapters))``; then ``run_sft
+   --adapter_path`` starts from those adapters (``torch.equal``) and
+   trains 1 step. (l3): a seeded GPT-2 124M written by ``gpt2_to_hf``
+   (Conv1D layout, vocabulary 50,257), ``cli.run_clm.main --model_path
+   <dir> --vocab_pad_multiple 64 --hf_export <dir>`` at run (c)'s setup, 3
+   steps: the imported tree ``torch.equal`` to the written one with 47
+   zero alignment rows; the export read back ``torch.equal`` to the final
+   weights with those rows sliced off; (c)'s launches. Each ``[hf]`` line
+   gives the bytes written and read, the seconds to write, to import (disk
+   to device-resident tree) and to quantize, the import's GB/s, the host
+   RSS before and during the import and the run (sampled every 5 ms) and
+   the process's peak (``getrusage``), and the steps beside (d)'s and
+   (c)'s.
 
 Times are medians of 25 CUDA-event runs after 3 warm-up calls, queued
 while the card sleeps (``torch.cuda._sleep``) so that they time the card's
@@ -239,13 +272,17 @@ import concurrent.futures
 import dataclasses
 import json
 import math
+import os
 import pathlib
+import resource
 import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -254,17 +291,21 @@ import torch.multiprocessing as mp
 import torch.nn.functional as F
 
 from distributed_lion_tpu_torch.cli import run_clm, run_dpo, run_sft
-from distributed_lion_tpu_torch.data.bpe import BPETokenizer
+from distributed_lion_tpu_torch.data import spm
+from distributed_lion_tpu_torch.data.bpe import BPETokenizer, unicode_to_bytes
 from distributed_lion_tpu_torch.data.dpo import prepare_dpo_batch
+from distributed_lion_tpu_torch.data.hf_tokenizer_json import TokenizerJSON, bpe_tokenizer_json
 from distributed_lion_tpu_torch.data.tokenizer import ByteTokenizer
+from distributed_lion_tpu_torch.models import hf_export, hf_import
 from distributed_lion_tpu_torch.models.gpt2 import GPT2, GPT2Config
-from distributed_lion_tpu_torch.models.llama import llama_init
+from distributed_lion_tpu_torch.models.llama import LlamaConfig, llama_init
 from distributed_lion_tpu_torch.models.loss import clm_loss_and_metrics
 from distributed_lion_tpu_torch.models.lora import (
     DPO_TARGET_PATTERNS,
     LoraConfig,
     iter_paths,
     lora_init,
+    merge_lora,
 )
 from distributed_lion_tpu_torch.ops import cuda_build, fused_lion, lion_math, quant
 from distributed_lion_tpu_torch.ops import flash_attention as fa
@@ -284,6 +325,7 @@ from distributed_lion_tpu_torch.optim.optax_adapter import adamw
 from distributed_lion_tpu_torch.parallel import collectives
 from distributed_lion_tpu_torch.train import resilience
 from distributed_lion_tpu_torch.train.checkpoint import Checkpointer
+from distributed_lion_tpu_torch.utils.serialization import tree_from_state_dict
 
 N_MAIN = 124_439_808   # GPT-2 124M coordinates: the main path's window
 # run (d)'s window: Llama-2-7B's LoRA adapters, r 8 on wq and wv of 32
@@ -2037,6 +2079,380 @@ def modes_phase(gen, card) -> tuple[list, dict]:
             ("(i) dropout 0, AdamW", adam_rows, adam_launches)], times
 
 
+L2_LAYERS = 2   # run (l2): Llama-2-7B's width at 2 layers, a float32 merged write of 2.7 GB
+L_VOCAB = 32_000   # Llama-2's vocabulary: the checkpoints' embedding rows
+GPT2_VOCAB = 50_257
+
+
+def peak_rss_bytes() -> int:
+    """The process's peak resident host memory since it started
+    (``getrusage``; Linux counts kilobytes)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+class RssWatch:
+    """Samples this process's resident host memory (``VmRSS`` in
+    ``/proc/self/status``) every 5 ms on a thread while it is entered;
+    ``base`` holds it at entry and ``peak`` its maximum, in bytes."""
+
+    def __init__(self):
+        self.base = self.peak = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    @staticmethod
+    def sample() -> int:
+        for line in pathlib.Path("/proc/self/status").read_text().splitlines():
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+        raise AssertionError("/proc/self/status has no VmRSS line")
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, self.sample())
+
+    def __enter__(self) -> "RssWatch":
+        self.base = self.peak = self.sample()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self.sample())
+
+    def text(self, what: str) -> str:
+        return (f"host RSS {self.base / 2**30:.2f} GiB before {what}, peak "
+                f"{self.peak / 2**30:.2f} during it (VmRSS sampled every 5 ms)")
+
+
+def rss_text() -> str:
+    return f"process peak host RSS {peak_rss_bytes() / 2**30:.2f} GiB (getrusage)"
+
+
+def drop_cached(path: str) -> None:
+    """Write ``path``'s files through and ask the kernel to drop them from
+    its page cache, so that the import reads them from the disk."""
+    for name in os.listdir(path):
+        fd = os.open(os.path.join(path, name), os.O_RDONLY)
+        try:
+            os.fsync(fd)
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+
+
+def dir_bytes(path: str) -> int:
+    """The bytes of the safetensors files under ``path``."""
+    return sum(os.path.getsize(os.path.join(path, n)) for n in os.listdir(path)
+               if n.endswith(".safetensors"))
+
+
+def write_llama_checkpoint(path: str, cfg: LlamaConfig, seed: int, tokenizer: dict,
+                           keep=()) -> tuple:
+    """A seeded bfloat16 Llama (``llama_init``) written as Hugging Face
+    publishes ``Llama-2-7b-hf`` (``config.json``, safetensors shards of at
+    most 10 GB under ``model.safetensors.index.json``) with a
+    ``tokenizer.json``, by the port's writer and name mapping; returns (the
+    kept leaves ``{path: tensor}``, seconds to write)."""
+    params = llama_init(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hf_export.llama_to_hf(params, cfg, path)
+    pathlib.Path(path, "tokenizer.json").write_text(json.dumps(tokenizer), encoding="utf-8")
+    drop_cached(path)
+    seconds = time.perf_counter() - t0
+    kept = {p: t for p, t in iter_paths(params) if p[0] in keep or p[:2] in keep}
+    del params
+    torch.cuda.empty_cache()
+    return kept, seconds
+
+
+class ImportTimer:
+    """Wraps ``hf_import``'s importer ``name`` (and ``quantize_leaf``)
+    while a CLI runs: the import's wall seconds, device synchronized, the
+    seconds spent quantizing, and what it returned."""
+
+    def __init__(self, name: str):
+        self.name, self.seconds, self.quant_s, self.result = name, 0.0, 0.0, None
+        self.rss = RssWatch()
+        self._orig = getattr(hf_import, name)
+        self._quant = hf_import.quantize_leaf
+
+    def __enter__(self):
+        def timed_import(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with self.rss:
+                self.result = self._orig(*a, **k)
+                torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            return self.result
+
+        def timed_quant(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self._quant(*a, **k)
+            torch.cuda.synchronize()
+            self.quant_s += time.perf_counter() - t0
+            return out
+
+        setattr(hf_import, self.name, timed_import)
+        hf_import.quantize_leaf = timed_quant
+        return self
+
+    def __exit__(self, *exc):
+        setattr(hf_import, self.name, self._orig)
+        hf_import.quantize_leaf = self._quant
+
+
+def sp_model_from_bpe(bpe: BPETokenizer) -> bytes:
+    """A Llama-shaped SentencePiece BPE model from GPT-2 BPE's vocabulary:
+    ``<unk>``/``<s>``/``</s>``, the 256 byte-fallback pieces, every single
+    character, then each merge whose text decodes, scored by its rank (``▁``
+    for the space)."""
+    u2b = unicode_to_bytes()
+
+    def text(tok: str) -> Optional[str]:
+        try:
+            return bytes(u2b[c] for c in tok).decode("utf-8").replace(" ", "▁")
+        except (KeyError, UnicodeDecodeError):
+            return None
+
+    pieces = [("<unk>", 0.0, spm._UNKNOWN), ("<s>", 0.0, spm._CONTROL),
+              ("</s>", 0.0, spm._CONTROL)]
+    pieces += [(f"<0x{b:02X}>", 0.0, spm._BYTE) for b in range(256)]
+    seen = {p for p, _, _ in pieces}
+    for c in sorted({c for tok in bpe.vocab for c in (text(tok) or "")} - seen):
+        pieces.append((c, -1e6, spm._NORMAL))
+        seen.add(c)
+    for (a, b), rank in sorted(bpe.ranks.items(), key=lambda kv: kv[1]):
+        t = text(a + b)
+        if t and t not in seen:
+            pieces.append((t, -float(rank), spm._NORMAL))
+            seen.add(t)
+    return spm.write_model_proto(pieces)
+
+
+def tokenizer_check(card: str) -> dict:
+    """``[tok]``: the ``tokenizer.json`` of ``runs/parity/tok`` encodes the
+    repo's ``*.md`` to ``BPETokenizer``'s ids; host tokens/s of
+    ``TokenizerJSON`` and of ``SentencePieceTokenizer`` on a model written
+    by ``write_model_proto``. Returns the tokenizer.json spec."""
+    bpe = BPETokenizer.load(str(ROOT / "runs" / "parity" / "tok"))
+    spec = bpe_tokenizer_json(bpe)
+    texts = [p.read_text(encoding="utf-8", errors="replace") for p in sorted(ROOT.glob("*.md"))]
+    tj = TokenizerJSON(spec)
+    rates = {}
+    for name, tok in (("TokenizerJSON", tj),
+                      ("SentencePieceTokenizer", spm.SentencePieceTokenizer(
+                          spm.parse_model_proto(sp_model_from_bpe(bpe))))):
+        t0 = time.perf_counter()
+        ids = [tok.encode(t) for t in texts]
+        dt = time.perf_counter() - t0
+        n = sum(map(len, ids))
+        rates[name] = (n, dt, tok.vocab_size)
+        if name == "TokenizerJSON" and ids != [bpe.encode(t) for t in texts]:
+            raise AssertionError("run (l): the tokenizer.json of runs/parity/tok and the "
+                                 "GPT-2 BPE give other ids over the repo's *.md")
+    print(f"[tok] {len(texts)} *.md files, {sum(map(len, texts))} characters on the host of "
+          f"{card}: " + "; ".join(
+              f"{name} (vocabulary {v}) {n} tokens in {dt:.3f} s, {n / dt:.0f} tokens/s"
+              for name, (n, dt, v) in rates.items())
+          + "; TokenizerJSON ids == BPETokenizer ids", flush=True)
+    return spec
+
+
+L1_ARGS = [a for a in SFT_ARGS if a not in ("--model_name", "llama2_7b")]
+
+
+def hf_leg1(tmp: str, gen, card: str, spec: dict, d_rows: list) -> None:
+    """Run (l1): ``run_sft --model_path`` at Llama-2-7B's full width and
+    depth from a written HF directory, NF4, its tokenizer.json, PEFT out."""
+    cfg = LlamaConfig.llama2_7b(vocab_size=L_VOCAB, param_dtype=torch.bfloat16)
+    ckpt, adapters_dir = f"{tmp}/l1_llama2_7b_hf", f"{tmp}/l1_adapters"
+    with RssWatch() as wrote:
+        kept, write_s = write_llama_checkpoint(
+            ckpt, cfg, seed=11, tokenizer=spec,
+            keep=("lm_head", ("blocks", "0"), ("blocks", str(cfg.n_layer - 1))))
+    nbytes = dir_bytes(ckpt)
+    shards = sorted(n for n in os.listdir(ckpt) if n.endswith(".safetensors"))
+    index = " + model.safetensors.index.json" if len(shards) > 1 else ""
+    print(f"[hf] (l1) wrote {ckpt.rsplit('/', 1)[1]}: {shards}{index}, {nbytes:,} bytes in "
+          f"{write_s:.1f} s ({nbytes / write_s / 1e9:.2f} GB/s, page cache dropped after); "
+          f"{wrote.text('the init and write')}", flush=True)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with ImportTimer("llama_from_hf") as timer, RssWatch() as leg:
+        trainer, model, adapters = run_sft.main(L1_ARGS + [
+            "--model_path", ckpt, "--tokenizer_name", ckpt, "--adapter_output", adapters_dir])
+    wall = time.perf_counter() - t0
+    launches, peak = read_counts(), torch.cuda.max_memory_allocated()
+    rows = [r for r in trainer.history if "loss" in r]
+    if len(rows) != STEPS or not all(math.isfinite(r["loss"]) for r in rows):
+        raise AssertionError(f"run (l1): expected {STEPS} finite losses, got {rows}")
+    # the imported leaves: the written bfloat16 ones through float32 and NF4
+    base = dict(iter_paths(model.params))
+    for path, want in kept.items():
+        got = base[path]
+        if isinstance(got, quant.QuantizedTensor):  # through float32, then NF4
+            ref = quant.quantize_leaf(want.float())
+            same = torch.equal(got.codes, ref.codes) and torch.equal(got.absmax, ref.absmax)
+        else:
+            same = torch.equal(got, want.float())
+        if not same:
+            raise AssertionError(f"run (l1): imported leaf {'/'.join(path)} differs from the "
+                                 "written one through the JAX dtype rule")
+    # the kernels launch as in run (d): the eval rows of this tokenizer
+    tok = TokenizerJSON(spec)
+    args = run_sft.SFTArguments()
+    train, valid = run_sft.sft_records(args)
+    _, eval_rows = run_sft.sft_batches(args, tok, train, valid, trainer.global_train_batch(),
+                                       trainer.cfg.seed, run_sft.chars_token_ratio(train, tok))
+    n_eval = 0 if eval_rows is None else len(eval_rows)
+    per_dev = min(trainer.cfg.per_device_eval_batch_size, max(n_eval, 1))
+    eval_batches = min(trainer.cfg.eval_iters, n_eval // per_dev)
+    expect("(l1)", launches, {
+        **optimizer_launches(trainer, STEPS),
+        "flash_attention_fwd_hd128": LLAMA_LAYERS * (ACCUM * 2 * STEPS + eval_batches),
+        "flash_attention_bwd_dkv_hd128": LLAMA_LAYERS * ACCUM * STEPS,
+        "flash_attention_bwd_dq_hd128": LLAMA_LAYERS * ACCUM * STEPS,
+        "flash_attention_di_hd128": LLAMA_LAYERS * ACCUM * STEPS, **NO_HD64})
+    back, _ = hf_import.peft_to_lora(adapters_dir, model.cfg, device="cuda")
+    if back.keys() != adapters.keys() or not all(
+            torch.equal(back[p][k], adapters[p][k].detach()) for p in adapters for k in "AB"):
+        raise AssertionError("run (l1): peft_to_lora(--adapter_output) differs from the "
+                             "trainer's adapters")
+    step = statistics.median(r["step_ms"] for r in rows[1:])
+    d_step = statistics.median(r["step_ms"] for r in d_rows[1:])
+    print(f"[hf] (l1) run_sft --model_path (Llama-2-7B, {model.cfg.n_layer} layers, vocabulary "
+          f"{model.cfg.vocab_size}, "
+          f"tokenizer.json {tok.vocab_size} ids, NF4) on {card}: import {nbytes:,} bytes "
+          f"(disk to device-resident tree) {timer.seconds:.1f} s, "
+          f"{nbytes / timer.seconds / 1e9:.2f} GB/s, of which quantizing {timer.quant_s:.1f} s; "
+          f"losses {[round(r['loss'], 4) for r in rows]}; steps 2-{STEPS} "
+          f"{[r['step_ms'] for r in rows[1:]]} ms, median {step:.1f} ms/step beside run (d)'s "
+          f"{d_step:.1f}; peak device memory {peak / 2**30:.2f} GiB; run_sft.main {wall:.1f} s; "
+          f"{eval_batches} eval batch(es); launches {launches}; {timer.rss.text('the import')}; "
+          f"{leg.text('run_sft.main')}; {rss_text()}; the first and "
+          "last blocks and the head == the written leaves through float32 and quantize_leaf; "
+          "peft_to_lora(--adapter_output) == the trainer's adapters", flush=True)
+    del trainer, model, adapters, back, kept
+    shutil.rmtree(ckpt)
+    torch.cuda.empty_cache()
+
+
+def hf_leg2(tmp: str, card: str, spec: dict) -> None:
+    """Run (l2): an HF ``--merged_output`` and ``--adapter_output`` at
+    Llama-2-7B's width and 2 layers, read back; then ``--adapter_path``."""
+    cfg = LlamaConfig.llama2_7b(vocab_size=L_VOCAB, n_layer=L2_LAYERS,
+                                param_dtype=torch.bfloat16)
+    ckpt, adapters_dir, merged_dir = (f"{tmp}/l2_hf", f"{tmp}/l2_adapters", f"{tmp}/l2_merged")
+    write_llama_checkpoint(ckpt, cfg, seed=12, tokenizer=spec)
+    one = L1_ARGS + ["--max_steps", "1", "--model_path", ckpt, "--tokenizer_name", ckpt]
+    trainer, model, adapters = run_sft.main(one + ["--adapter_output", adapters_dir,
+                                                   "--merged_output", merged_dir])
+    lora_cfg = LoraConfig(r=8, alpha=16, dropout=0.05)
+    want = quant.dequantize_tree(merge_lora(model.params, adapters, lora_cfg))
+    t0 = time.perf_counter()
+    back, _ = hf_import.llama_from_hf(merged_dir, device="cuda")
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    changed = changed_leaves(back, want)
+    if changed:
+        raise AssertionError(f"run (l2): the HF --merged_output read back differs from "
+                             f"dequantize_tree(merge_lora(base, adapters)) at {changed[:8]}")
+    merged_bytes = dir_bytes(merged_dir)
+    del back, want, model, trainer
+    torch.cuda.empty_cache()
+    with ImportTimer("peft_to_lora") as timer:
+        trainer2, _, adapters2 = run_sft.main(one + ["--adapter_path", adapters_dir])
+    start = timer.result[0]
+    rows = [r for r in trainer2.history if "loss" in r]
+    if (start.keys() != adapters.keys()
+            or not all(torch.equal(start[p][k], adapters[p][k].detach())
+                       for p in adapters for k in "AB")
+            or len(rows) != 1 or not math.isfinite(rows[0]["loss"])):
+        raise AssertionError(f"run (l2): --adapter_path did not start from the written "
+                             f"adapters, or its step failed: {rows}")
+    print(f"[hf] (l2) Llama-2-7B width, {L2_LAYERS} layers, on {card}: HF --merged_output "
+          f"float32 {merged_bytes:,} bytes, read back in {read_s:.1f} s == "
+          f"dequantize_tree(merge_lora(base, adapters)); --adapter_path started from the "
+          f"--adapter_output adapters (torch.equal) and trained 1 step, loss "
+          f"{rows[0]['loss']:.4f}, {rows[0]['step_ms']} ms; {rss_text()}", flush=True)
+    del trainer2, adapters2, start, adapters
+    for d in (ckpt, merged_dir):
+        shutil.rmtree(d)
+    torch.cuda.empty_cache()
+
+
+def hf_leg3(tmp: str, card: str, c_rows: list) -> None:
+    """Run (l3): ``run_clm --model_path`` for GPT-2 124M from a written HF
+    GPT-2 directory, ``--vocab_pad_multiple 64 --hf_export``."""
+    ckpt, export = f"{tmp}/l3_gpt2_hf", f"{tmp}/l3_export"
+    cfg = GPT2Config.gpt2_124m()
+    written = tree_from_state_dict(GPT2(cfg, device="cuda", seed=13))
+    t0 = time.perf_counter()
+    hf_export.gpt2_to_hf(written, cfg, ckpt)
+    drop_cached(ckpt)
+    write_s = time.perf_counter() - t0
+    reset_counts()
+    with ImportTimer("gpt2_from_hf") as timer:
+        trainer = run_clm.main(SLICE_ARGS + ["--dropout", "0", "--model_path", ckpt,
+                                             "--vocab_pad_multiple", "64", "--hf_export", export,
+                                             "--max_steps", str(STEPS)])
+    launches = read_counts()
+    rows = [r for r in trainer.history if "loss" in r]
+    if len(rows) != STEPS or not all(math.isfinite(r["loss"]) for r in rows):
+        raise AssertionError(f"run (l3): expected {STEPS} finite losses, got {rows}")
+    expect("(l3)", launches, {**optimizer_launches(trainer, STEPS), **flash_launches(STEPS)})
+    imported = dict(iter_paths(timer.result[0]))  # run_clm padded its wte in place
+    wte = imported[("wte",)]
+    if (wte.shape[0] != 50_304 or not torch.equal(wte[:GPT2_VOCAB], written["wte"].detach())
+            or wte[GPT2_VOCAB:].any()):
+        raise AssertionError(f"run (l3): the imported wte {tuple(wte.shape)} is not the written "
+                             "one with zero alignment rows")
+    changed = [p for p, t in iter_paths(written) if p != ("wte",)
+               and not torch.equal(imported[p], t.detach())]
+    exported, _ = hf_import.gpt2_from_hf(export, device="cuda")
+    final = tree_from_state_dict(trainer.model)
+    final["wte"] = final["wte"][:GPT2_VOCAB]
+    final = dict(iter_paths(final))
+    changed += [("export",) + p for p, t in iter_paths(exported)
+                if not torch.equal(t, final[p].detach())]
+    if changed:
+        raise AssertionError(f"run (l3): leaves differ: {changed[:8]}")
+    nbytes = dir_bytes(ckpt)
+    step = statistics.median(r["step_ms"] for r in rows[1:])
+    c_step = statistics.median(r["step_ms"] for r in c_rows[1:])
+    print(f"[hf] (l3) run_clm --model_path GPT-2 124M (vocabulary {GPT2_VOCAB} padded to "
+          f"{wte.shape[0]}) on {card}: wrote {nbytes:,} bytes in {write_s:.1f} s; import "
+          f"{timer.seconds:.2f} s, {nbytes / timer.seconds / 1e9:.2f} GB/s; --hf_export "
+          f"{dir_bytes(export):,} bytes; losses {[round(r['loss'], 4) for r in rows]}; steps "
+          f"2-{STEPS} {[r['step_ms'] for r in rows[1:]]} ms, median {step:.1f} ms/step beside "
+          f"run (c)'s {c_step:.1f}; launches {launches}; {rss_text()}; imported == written "
+          "with zero pad rows, the export read back == the final weights", flush=True)
+    del trainer, exported, final, timer, imported, wte, written
+    for d in (ckpt, export):
+        shutil.rmtree(d)
+    torch.cuda.empty_cache()
+
+
+def hf_phase(tmp: str, gen, card: str, d_rows: list, c_rows: list) -> None:
+    """Run (l): start from and end in Hugging Face checkpoints."""
+    free = shutil.disk_usage(tmp).free
+    print(f"[hf] scratch {tmp}: {free / 1e9:.1f} GB free", flush=True)
+    spec = tokenizer_check(card)
+    t = time.perf_counter()
+    hf_leg1(tmp, gen, card, spec, d_rows)
+    t = phase_time("slice (l1), run_sft from an HF Llama-2-7B", t)
+    hf_leg2(tmp, card, spec)
+    t = phase_time("slice (l2), HF --merged_output and --adapter_path", t)
+    hf_leg3(tmp, card, c_rows)
+    phase_time("slice (l3), run_clm from an HF GPT-2 124M", t)
+
+
 def slice_phase(tmp, gen, card, rates):
     t = time.perf_counter()
     torch.cuda.set_device(0)
@@ -2099,6 +2515,7 @@ def slice_phase(tmp, gen, card, rates):
         xent = xent_check(gen)
         phase_time("slice (k), Llama-3-8B full-parameter, and [xent]", t)
         resume_phase(tmp, card)
+        hf_phase(tmp, gen, card, llama[0], plain_rows)
     finally:
         dist.destroy_process_group()
     print(f"[stochastic] run (e) - run (c), median step: "

@@ -24,8 +24,13 @@ a Llama from a seeded init (``--model_name tiny | small | llama2_7b |
 llama3_8b``; no dropout, so ``--dropout`` > 0 is refused, and
 ``--vocab_pad_multiple`` is GPT-2's). ``--vocab_chunks N`` streams either
 family's head through the chunked-vocabulary cross entropy
-(``ops/xent.py``). A pretrained base (``--model_path``) and the HF export
-(``--hf_export``) are not ported (ROADMAP Queue 1 item 9).
+(``ops/xent.py``). ``--model_path`` starts from a local Hugging Face
+checkpoint (``models/hf_import.py``): the family is the checkpoint's, its
+architecture cannot be overridden (``--vocab_size``, ``--n_ctx``), the
+embedding does not grow to a ``text:`` tokenizer, and GPT-2's table is
+padded to ``--vocab_pad_multiple`` with zero rows. ``--hf_export <dir>``
+writes the final weights as an HF ``save_pretrained`` directory with the
+tokenizer's files and a model card (``models/hf_export.py``, rank 0).
 """
 
 from __future__ import annotations
@@ -44,7 +49,8 @@ from distributed_lion_tpu_torch.data.sources import (
     tokens_from_text_files,
 )
 from distributed_lion_tpu_torch.data.tokenizer import load_tokenizer
-from distributed_lion_tpu_torch.models.gpt2 import GPT2Config
+from distributed_lion_tpu_torch.models import hf_export, hf_import
+from distributed_lion_tpu_torch.models.gpt2 import GPT2Config, pad_wte
 from distributed_lion_tpu_torch.models.llama import LlamaConfig
 from distributed_lion_tpu_torch.parallel.mesh import (
     init_distributed,
@@ -57,6 +63,8 @@ from distributed_lion_tpu_torch.utils.serialization import (
     llama_params_to_jax,
     params_to_jax,
     save_pytree,
+    state_dict_from_tree,
+    tree_from_state_dict,
 )
 
 
@@ -65,8 +73,8 @@ class ModelArguments:
     model_family: str = "gpt2"  # gpt2 | llama
     model_name: str = "gpt2_124m"  # gpt2: gpt2_124m | gpt2_small | tiny;
     # llama: tiny | small | llama2_7b | llama3_8b
-    model_path: Optional[str] = None  # a pretrained HF base: not ported
-    hf_export: Optional[str] = None   # an HF save_pretrained directory: not ported
+    model_path: Optional[str] = None  # a local HF checkpoint to start from
+    hf_export: Optional[str] = None   # write an HF save_pretrained directory here
     vocab_size: Optional[int] = None
     n_ctx: Optional[int] = None
     dropout: Optional[float] = None  # None = family default: 0.1 for GPT-2, 0 for Llama
@@ -209,25 +217,34 @@ def check_shard_fleet(trainer: Trainer, loader) -> None:
             "--resume_from_checkpoint false or another --output_dir")
 
 
-def model_config(model_args: ModelArguments):
-    """The ``GPT2Config`` or ``LlamaConfig`` of the arguments, with the JAX
-    CLI's family guards (run_clm.py:355-370)."""
-    family = model_args.model_family
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def dtype_args(model_args: ModelArguments) -> dict:
+    """``param_dtype``, ``compute_dtype`` and ``remat``, either family's."""
+    return dict(param_dtype=DTYPES[model_args.param_dtype],
+                compute_dtype=DTYPES[model_args.compute_dtype], remat=model_args.remat)
+
+
+def check_family(model_args: ModelArguments, family: str) -> None:
+    """The JAX CLI's family guards (run_clm.py:355-370), judged on the
+    family that will run."""
     if family not in ("gpt2", "llama"):
         raise ValueError(f"unknown model family {family!r}")
-    for flag in ("model_path", "hf_export"):
-        if getattr(model_args, flag):
-            raise NotImplementedError(f"--{flag} is not ported (ROADMAP Queue 1 item 9)")
-    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-    common = dict(param_dtype=dtypes[model_args.param_dtype],
-                  compute_dtype=dtypes[model_args.compute_dtype],
-                  remat=model_args.remat)
+    if family == "llama" and (model_args.dropout or 0.0) > 0.0:
+        raise ValueError("our Llama (like HF's) has no dropout; set --dropout 0")
+    if family == "llama" and model_args.vocab_pad_multiple:
+        raise ValueError("--vocab_pad_multiple is a GPT-2 layout option; Llama vocabs "
+                         "(32000/128256) are already 128-multiples")
+
+
+def model_config(model_args: ModelArguments):
+    """The ``GPT2Config`` or ``LlamaConfig`` of a seeded init, with the JAX
+    CLI's family guards."""
+    family = model_args.model_family
+    check_family(model_args, family)
+    common = dtype_args(model_args)
     if family == "llama":
-        if (model_args.dropout or 0.0) > 0.0:
-            raise ValueError("our Llama (like HF's) has no dropout; set --dropout 0")
-        if model_args.vocab_pad_multiple:
-            raise ValueError("--vocab_pad_multiple is a GPT-2 layout option; Llama vocabs "
-                             "(32000/128256) are already 128-multiples")
         cfg = LlamaConfig.named(model_args.model_name, **common)
     else:
         presets = {"tiny": GPT2Config.tiny, "gpt2_small": GPT2Config.small,
@@ -244,9 +261,67 @@ def model_config(model_args: ModelArguments):
     return cfg
 
 
+def load_pretrained(model_args: ModelArguments, device, announce: bool = True) -> tuple:
+    """``--model_path``: ``(initial weight tree on device, config)`` of the
+    checkpoint, its family detected first (JAX run_clm.py:331-339,
+    372-398, 415); GPT-2's table padded to ``--vocab_pad_multiple``."""
+    path = model_args.model_path
+    family = hf_import.detect_family(path)
+    if family != model_args.model_family and announce:
+        print(f"[run_clm] --model_family {model_args.model_family} -> {family} "
+              "(detected from --model_path)")
+    check_family(model_args, family)
+    if family == "llama":
+        params, cfg = hf_import.llama_from_hf(path, device=device, **dtype_args(model_args))
+    else:
+        params, cfg = hf_import.gpt2_from_hf(
+            path, device=device, dropout=resolve_dropout(model_args.dropout, family),
+            **dtype_args(model_args))
+    if announce:
+        print(f"[run_clm] loaded pretrained {family} from {path}: {cfg.n_layer}L "
+              f"d={cfg.d_model} vocab={cfg.vocab_size}")
+    if model_args.vocab_pad_multiple:
+        # zero alignment rows; the HF export slices them back off
+        cfg = dataclasses.replace(cfg, vocab_pad_multiple=model_args.vocab_pad_multiple)
+        params["wte"] = pad_wte(params["wte"], cfg)
+    if model_args.vocab_size or model_args.n_ctx:
+        raise ValueError("--vocab_size/--n_ctx cannot override a loaded checkpoint's "
+                         "architecture")
+    return params, cfg
+
+
+def export_hf(trainer: Trainer, model_args: ModelArguments, data_args: DataArguments,
+              train_cfg: TrainConfig) -> None:
+    """``--hf_export``: the final weights as an HF directory, the tokenizer's
+    files beside them and a model card with the JAX CLI's summary keys
+    (run_clm.py:544-577)."""
+    model_cfg = trainer.model.cfg
+    llama = isinstance(model_cfg, LlamaConfig)
+    family = "llama" if llama else "gpt2"
+    path = model_args.hf_export
+    if llama:
+        hf_export.llama_to_hf(trainer.model.params, model_cfg, path)
+    else:
+        hf_export.gpt2_to_hf(tree_from_state_dict(trainer.model), model_cfg, path)
+    hf_export.copy_tokenizer_files(data_args.tokenizer_name, path)
+    hf_export.write_model_card(path, model_type=family, train_summary={
+        "optimizer": "distributed-lion" if train_cfg.lion else "adamw",
+        "async_grad": train_cfg.async_grad,
+        "wire": trainer.cfg.wire,   # what ran, not the 'auto' sentinel
+        "vote_every": trainer.cfg.vote_every,
+        "steps": train_cfg.max_steps,
+        "learning_rate": train_cfg.learning_rate,
+        "weight_decay": train_cfg.weight_decay,
+        "global_batch": trainer.global_train_batch(),
+        "block_size": train_cfg.block_size,
+        "n_params": trainer.n_params,
+    })
+    print(f"[run_clm] HF-format checkpoint at {path}")
+
+
 def main(argv=None) -> Trainer:
     """Train, evaluate, save the last step and write
-    ``output_dir/model.npz``; returns the (closed) trainer, whose
+    ``output_dir/model.npz`` (and ``--hf_export``); returns the (closed) trainer, whose
     ``history`` holds the logged rows (with the native loader's
     ``skipped_shards`` and ``shard_read_retries`` where it served the
     batches)."""
@@ -254,8 +329,16 @@ def main(argv=None) -> Trainer:
         (ModelArguments, DataArguments, TrainConfig), argv)
     device = platform_device()
     group = init_distributed(device)
-    model_cfg = model_config(model_args)
-    if not model_args.vocab_size and data_args.dataset.startswith("text:"):
+    rank0 = rank_of(group) == 0
+    initial_params = None
+    if model_args.model_path:
+        initial_params, model_cfg = load_pretrained(model_args, device, announce=rank0)
+    else:
+        model_cfg = model_config(model_args)
+    if (initial_params is None and not model_args.vocab_size
+            and data_args.dataset.startswith("text:")):
+        # (a loaded checkpoint's embedding is fixed: out-of-range tokenizer
+        # ids are caught by the vocabulary probe instead)
         tok_vocab = load_tokenizer(data_args.tokenizer_name).vocab_size
         if tok_vocab > model_cfg.vocab_size:
             print(f"[run_clm] growing vocab_size {model_cfg.vocab_size} -> tokenizer {tok_vocab}")
@@ -264,9 +347,16 @@ def main(argv=None) -> Trainer:
         print(f"[run_clm] capping block_size {train_cfg.block_size} -> n_ctx {model_cfg.n_ctx}")
         train_cfg.block_size = model_cfg.n_ctx
     llama = isinstance(model_cfg, LlamaConfig)
-    factory = Trainer.for_llama if llama else Trainer.for_gpt2
-    trainer = factory(train_cfg, model_cfg, device=device, group=group)
-    if train_cfg.telemetry and rank_of(group) == 0:
+    if llama:
+        trainer = Trainer.for_llama(train_cfg, model_cfg, device=device,
+                                    initial_params=initial_params, group=group)
+    else:
+        trainer = Trainer.for_gpt2(
+            train_cfg, model_cfg, device=device, group=group,
+            initial_params=None if initial_params is None else state_dict_from_tree(
+                initial_params))
+    del initial_params
+    if train_cfg.telemetry and rank0:
         # only the tally wires carry exact margins; the ±1-proxy wire zeroes
         # the histogram by design (train/telemetry.tally_wire)
         print("[run_clm] vote-health telemetry on: margin histogram "
@@ -289,10 +379,12 @@ def main(argv=None) -> Trainer:
             trainer.evaluate(eval_blocks)
         if trainer.checkpointer:
             trainer.save()
-        if train_cfg.output_dir and rank_of(group) == 0:
+        if train_cfg.output_dir and rank0:
             save_pytree(f"{train_cfg.output_dir}/model.npz",
                         llama_params_to_jax(trainer.model.params) if llama
                         else params_to_jax(trainer.model))
+        if model_args.hf_export and rank0:
+            export_hf(trainer, model_args, data_args, train_cfg)
     finally:
         trainer.close()
         if loader is not None:

@@ -11,8 +11,10 @@ does this port:
 
 - a policy and a frozen reference, both starting from the SFT model
   (``--sft_checkpoint``, a merged ``.npz`` that ``run_sft
-  --merged_output`` writes, float leaves cast to the param dtype) or, with
-  none, from a fresh init of ``--seed``. The policy's base stays dense; the
+  --merged_output`` writes, float leaves cast to the param dtype), else
+  from a local Hugging Face Llama checkpoint (``--model_path``,
+  ``models/hf_import.py``, which also gives the architecture), else from a
+  fresh init of ``--seed``. The policy's base stays dense; the
   reference is the same tensors at ``--quant_ref none`` and a quantized copy
   at ``int8`` or ``nf4`` (the reference repo's 4-bit reference model);
 - the β 0.1 pairwise loss (``train/dpo.py``) over prompt/chosen/rejected
@@ -23,18 +25,19 @@ does this port:
   (``models.lora.DPO_TARGET_PATTERNS``: the four attention projections,
   the SwiGLU MLP and the token embedding), trained by Distributed Lion.
 
-``--merged_output <path>.npz`` saves the LoRA-merged, dequantized policy in
-the JAX package's flat format. It runs on the GPU unless
+``--adapter_path`` starts the policy from a PEFT adapter (r, alpha and the
+targets from its ``adapter_config.json``) and ``--adapter_output`` writes
+the trained one as a PEFT directory. ``--merged_output <path>.npz`` saves
+the LoRA-merged, dequantized policy in the JAX package's flat format, any
+other path as an HF ``save_pretrained`` directory with the tokenizer's
+files (``models/hf_export.py``). It runs on the GPU unless
 ``DLION_PLATFORM=cpu``; without torchrun it trains a world of one. The
 trainer's ``tokens_per_sec`` counts pairs x T, as the JAX trainer does.
 ``--vocab_chunks N`` scores all four passes from final hidden states and
 the ``lm_head`` through the chunked-vocabulary cross entropy
 (``train.dpo.sequence_logprob_chunked``). Not ported, and refused by name:
-a pretrained base (``--model_path``), PEFT adapters in and out
-(``--adapter_path``, ``--adapter_output``) and an HF-directory
-``--merged_output`` (ROADMAP Queue 1 item 9), and sequence and tensor
-parallelism (``--seq_parallel``, ``--tensor_parallel``, ``--seq_impl``,
-item 11).
+sequence and tensor parallelism (``--seq_parallel``, ``--tensor_parallel``,
+``--seq_impl``, ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -46,10 +49,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from distributed_lion_tpu_torch.cli.run_sft import UnportedArguments
+from distributed_lion_tpu_torch.cli.run_sft import UnportedArguments, write_outputs
 from distributed_lion_tpu_torch.data.dpo import dpo_batch_iterator, prepare_dpo_batch
 from distributed_lion_tpu_torch.data.sft import load_pairs_jsonl, synthetic_qa_pairs
 from distributed_lion_tpu_torch.data.tokenizer import load_tokenizer
+from distributed_lion_tpu_torch.models import hf_import
 from distributed_lion_tpu_torch.models.llama import Llama, LlamaConfig, llama_init, tree_nbytes
 from distributed_lion_tpu_torch.models.lora import (
     DPO_TARGET_PATTERNS,
@@ -57,19 +61,13 @@ from distributed_lion_tpu_torch.models.lora import (
     adapter_named_parameters,
     lora_apply_fn,
     lora_init,
-    merge_lora,
 )
-from distributed_lion_tpu_torch.ops.quant import (
-    dequantize_tree,
-    map_tree,
-    maybe_dequant,
-    quantize_tree,
-)
+from distributed_lion_tpu_torch.ops.quant import map_tree, maybe_dequant, quantize_tree
 from distributed_lion_tpu_torch.parallel.mesh import init_distributed, platform_device, rank_of
 from distributed_lion_tpu_torch.train.dpo import make_dpo_loss_fn
 from distributed_lion_tpu_torch.train.loop import TrainConfig, Trainer
 from distributed_lion_tpu_torch.utils.argparsing import parse_dataclasses
-from distributed_lion_tpu_torch.utils.serialization import load_pytree, save_pytree
+from distributed_lion_tpu_torch.utils.serialization import load_pytree
 
 
 @dataclasses.dataclass
@@ -77,7 +75,7 @@ class DPOArguments:
     """The JAX package's ``DPOArguments``: same names and defaults."""
 
     model_name: str = "llama2_7b"  # llama2_7b | llama3_8b | small | tiny
-    model_path: Optional[str] = None  # a pretrained HF base: not ported
+    model_path: Optional[str] = None  # a local HF Llama checkpoint: policy and reference
     dataset: str = "synthetic"     # synthetic | jsonl:<path>
     sft_checkpoint: Optional[str] = None  # merged .npz from run_sft
     beta: float = 0.1
@@ -94,9 +92,9 @@ class DPOArguments:
     lora_alpha: int = 16
     lora_dropout: float = 0.05     # adapter-branch dropout
     tokenizer_name: Optional[str] = None
-    adapter_path: Optional[str] = None    # PEFT adapters in: not ported
-    adapter_output: Optional[str] = None  # PEFT adapters out: not ported
-    merged_output: Optional[str] = None   # *.npz: the merged policy (an HF directory: not ported)
+    adapter_path: Optional[str] = None    # a PEFT adapter directory to start the policy from
+    adapter_output: Optional[str] = None  # write the trained adapters as a PEFT directory
+    merged_output: Optional[str] = None   # *.npz, or an HF save_pretrained directory
 
 
 def _refused(flag: str, item: int) -> NotImplementedError:
@@ -105,13 +103,6 @@ def _refused(flag: str, item: int) -> NotImplementedError:
 
 def refuse_unported(args: DPOArguments, unported: UnportedArguments) -> None:
     """Refuse, by name and ROADMAP item, what the port does not run."""
-    for flag in ("model_path", "adapter_path", "adapter_output"):
-        if getattr(args, flag):
-            raise _refused(flag, 9)
-    if args.merged_output and not args.merged_output.endswith(".npz"):
-        raise NotImplementedError(
-            f"--merged_output {args.merged_output!r}: the HF save_pretrained export is not "
-            "ported (ROADMAP Queue 1 item 9); give a *.npz path")
     for flag in ("seq_parallel", "tensor_parallel"):
         if getattr(unported, flag) != 1:
             raise _refused(flag, 11)
@@ -169,8 +160,16 @@ def main(argv=None) -> tuple[Trainer, Llama, dict, Any]:
     group = init_distributed(device)
     rank0 = rank_of(group) == 0
     tok = load_tokenizer(args.tokenizer_name)
-    model_cfg = LlamaConfig.named(args.model_name, vocab_size=max(tok.vocab_size, 259),
-                                  attn_impl=args.attn_impl)
+    pretrained = None
+    if args.model_path:
+        pretrained, model_cfg = hf_import.llama_from_hf(args.model_path, device=device)
+        if rank0:
+            print(f"[run_dpo] loaded pretrained Llama from {args.model_path}: "
+                  f"{model_cfg.n_layer}L d={model_cfg.d_model} vocab={model_cfg.vocab_size}")
+        model_cfg = dataclasses.replace(model_cfg, attn_impl=args.attn_impl)
+    else:
+        model_cfg = LlamaConfig.named(args.model_name, vocab_size=max(tok.vocab_size, 259),
+                                      attn_impl=args.attn_impl)
     args.max_length = min(args.max_length, model_cfg.n_ctx)
     train_cfg.block_size = args.max_length
 
@@ -179,17 +178,28 @@ def main(argv=None) -> tuple[Trainer, Llama, dict, Any]:
         base = load_sft_checkpoint(args.sft_checkpoint, model_cfg.param_dtype, device)
         if rank0:
             print(f"[run_dpo] loaded SFT model from {args.sft_checkpoint}")
+    elif pretrained is not None:
+        base = pretrained
     else:
         if rank0:
             print("[run_dpo] no --sft_checkpoint/--model_path given; starting from fresh init")
         base = llama_init(model_cfg, seed=train_cfg.seed, device=device)
+    del pretrained
     ref = base
     if args.quant_ref != "none":
         ref = quantize_tree(base, args.quant_ref, block=args.quant_block)
-    lora_cfg = LoraConfig(r=args.lora_r, alpha=args.lora_alpha, dropout=args.lora_dropout,
-                          target_patterns=DPO_TARGET_PATTERNS)
+    if args.adapter_path:
+        # r, alpha and the targets are the checkpoint's, not --lora_r/--lora_alpha
+        adapters, lora_cfg = hf_import.peft_to_lora(args.adapter_path, model_cfg, device=device)
+        if rank0:
+            print(f"[run_dpo] resumed PEFT adapter from {args.adapter_path} "
+                  f"(r={lora_cfg.r} alpha={lora_cfg.alpha})")
+    else:
+        lora_cfg = LoraConfig(r=args.lora_r, alpha=args.lora_alpha, dropout=args.lora_dropout,
+                              target_patterns=DPO_TARGET_PATTERNS)
+        adapters = lora_init(base, lora_cfg, seed=train_cfg.seed + 1)
     adapters = {path: {k: nn.Parameter(t) for k, t in ab.items()}
-                for path, ab in lora_init(base, lora_cfg, seed=train_cfg.seed + 1).items()}
+                for path, ab in adapters.items()}
     model = Llama(model_cfg, base)
     named = adapter_named_parameters(adapters)
     if rank0:
@@ -220,9 +230,8 @@ def main(argv=None) -> tuple[Trainer, Llama, dict, Any]:
             trainer.evaluate(eval_data)
         if trainer.checkpointer:
             trainer.save()
-        if args.merged_output and rank0:
-            save_pytree(args.merged_output, dequantize_tree(merge_lora(base, adapters, lora_cfg)))
-            print(f"[run_dpo] merged policy saved to {args.merged_output}")
+        if rank0:
+            write_outputs(args, base, adapters, lora_cfg, model_cfg, "run_dpo", "merged policy")
     finally:
         trainer.close()
     return trainer, model, adapters, ref

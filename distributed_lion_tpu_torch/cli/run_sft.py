@@ -11,8 +11,15 @@ only. Without torchrun it trains a world of one; it runs on the GPU unless
 ``DLION_PLATFORM=cpu``. The reference's two guards hold (packing excludes
 ``group_by_length``; ``gradient_checkpointing`` is refused, every block is
 rematerialized anyway). The chars/token ratio is logged before training.
+``--model_path`` finetunes a local Hugging Face Llama checkpoint instead
+(``models/hf_import.py``: read tensor by tensor onto the device, and with
+``--quant`` quantized leaf by leaf); ``--adapter_path`` starts from a PEFT
+adapter (r, alpha and the targets from its ``adapter_config.json``);
+``--adapter_output`` writes the trained adapters as a PEFT directory.
 ``--merged_output <path>.npz`` saves the LoRA-merged, dequantized model in
-the JAX package's flat format. With ``--output_dir`` the trainer
+the JAX package's flat format, and any other path as an HF
+``save_pretrained`` directory with the tokenizer's files
+(``models/hf_export.py``). With ``--output_dir`` the trainer
 checkpoints the adapters and their momenta every ``--save_steps``, resumes
 from them (``train/loop.py``) and saves the last step; the frozen base is
 not saved: a resume rebuilds it from the seed, as the JAX package does.
@@ -22,9 +29,7 @@ The synthetic path takes its vocabulary from the byte tokenizer,
 tokenizer. ``--vocab_chunks N`` streams the (dequantized) ``lm_head``, in
 its ``[d, V]`` layout, through the chunked-vocabulary cross entropy
 (``ops/xent.py``), as the JAX package's ``_head_loss`` does. Not ported,
-and refused by name: a pretrained base (``--model_path``), PEFT adapters
-in and out (``--adapter_path``, ``--adapter_output``), an HF-directory
-``--merged_output``, and sequence and tensor parallelism (ROADMAP Queue 1
+and refused by name: sequence and tensor parallelism (ROADMAP Queue 1
 item 9).
 """
 
@@ -45,6 +50,7 @@ from distributed_lion_tpu_torch.data.sft import (
     synthetic_qa_pairs,
 )
 from distributed_lion_tpu_torch.data.tokenizer import load_tokenizer
+from distributed_lion_tpu_torch.models import hf_export, hf_import
 from distributed_lion_tpu_torch.models.llama import Llama, LlamaConfig, llama_init, tree_nbytes
 from distributed_lion_tpu_torch.models.lora import (
     LoraConfig,
@@ -72,7 +78,7 @@ class SFTArguments:
     """The JAX package's ``SFTArguments``: same names and defaults."""
 
     model_name: str = "llama2_7b"  # llama2_7b | llama3_8b | small | tiny
-    model_path: Optional[str] = None  # a pretrained HF base: not ported
+    model_path: Optional[str] = None  # a local HF Llama checkpoint: the pretrained base
     dataset: str = "synthetic"     # synthetic | jsonl:<path>
     seq_length: int = 1024
     size_valid_set: int = 64
@@ -88,9 +94,9 @@ class SFTArguments:
     attn_impl: str = "auto"        # ops.attention: auto | xla | flash | splash
     seq_impl: str = "ring"         # read only under --seq_parallel (not ported)
     tokenizer_name: Optional[str] = None
-    adapter_path: Optional[str] = None    # PEFT adapters in: not ported
-    adapter_output: Optional[str] = None  # PEFT adapters out: not ported
-    merged_output: Optional[str] = None   # *.npz: the merged model (an HF directory: not ported)
+    adapter_path: Optional[str] = None    # a PEFT adapter directory to start from
+    adapter_output: Optional[str] = None  # write the trained adapters as a PEFT directory
+    merged_output: Optional[str] = None   # *.npz, or an HF save_pretrained directory
 
 
 @dataclasses.dataclass
@@ -104,13 +110,6 @@ class UnportedArguments:
 
 def refuse_unported(args: SFTArguments, unported: UnportedArguments) -> None:
     """Refuse, by name, what the port does not run."""
-    for flag in ("model_path", "adapter_path", "adapter_output"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} {NOT_PORTED}")
-    if args.merged_output and not args.merged_output.endswith(".npz"):
-        raise NotImplementedError(
-            f"--merged_output {args.merged_output!r}: the HF save_pretrained export {NOT_PORTED}; "
-            "give a *.npz path")
     for f in dataclasses.fields(unported):
         if getattr(unported, f.name) != f.default:
             raise NotImplementedError(f"--{f.name} {NOT_PORTED}")
@@ -153,6 +152,26 @@ def sft_batches(args: SFTArguments, tok, train, valid, global_batch: int, seed: 
     return it, {"tokens": ev_tokens, "mask": ev_mask}
 
 
+def write_outputs(args, base, adapters: dict, lora_cfg: LoraConfig, model_cfg: LlamaConfig,
+                  cli: str, what: str) -> None:
+    """``--adapter_output`` (a PEFT directory) and ``--merged_output`` (the
+    LoRA-merged, dequantized model: ``*.npz``, else an HF directory with the
+    tokenizer's files), as the JAX ``run_sft`` and ``run_dpo`` write them."""
+    if args.adapter_output:
+        hf_export.lora_to_peft(adapters, model_cfg, lora_cfg, args.adapter_output,
+                               base_model_name=args.model_path or "")
+        print(f"[{cli}] PEFT adapter saved to {args.adapter_output}")
+    if args.merged_output:
+        merged = dequantize_tree(merge_lora(base, adapters, lora_cfg))
+        if args.merged_output.endswith(".npz"):
+            save_pytree(args.merged_output, merged)
+        else:
+            hf_export.llama_to_hf(merged, model_cfg, args.merged_output)
+            hf_export.copy_tokenizer_files(args.tokenizer_name or args.model_path,
+                                           args.merged_output)
+        print(f"[{cli}] {what} saved to {args.merged_output}")
+
+
 def main(argv=None) -> tuple[Trainer, Llama, dict]:
     """Train, evaluate, and write ``--merged_output``; returns the (closed)
     trainer, the :class:`Llama` over the frozen base and the trained
@@ -176,18 +195,39 @@ def main(argv=None) -> tuple[Trainer, Llama, dict]:
     if rank0:
         print(f"[run_sft] chars/token ratio: {ratio:.2f} over {min(len(train), 400)} samples")
 
-    model_cfg = LlamaConfig.named(args.model_name, vocab_size=max(tok.vocab_size, 259),
-                                  attn_impl=args.attn_impl)
+    quant = None if args.quant == "none" else args.quant
+    if args.model_path:
+        base, model_cfg = hf_import.llama_from_hf(args.model_path, device=device, quant=quant,
+                                                  quant_block=args.quant_block)
+        if rank0:
+            print(f"[run_sft] loaded pretrained Llama from {args.model_path}: "
+                  f"{model_cfg.n_layer}L d={model_cfg.d_model} vocab={model_cfg.vocab_size}")
+        if tok.vocab_size > model_cfg.vocab_size:
+            raise ValueError(
+                f"tokenizer vocab {tok.vocab_size} exceeds the checkpoint's "
+                f"{model_cfg.vocab_size}; pass the checkpoint's own tokenizer")
+        model_cfg = dataclasses.replace(model_cfg, attn_impl=args.attn_impl)
+    else:
+        model_cfg = LlamaConfig.named(args.model_name, vocab_size=max(tok.vocab_size, 259),
+                                      attn_impl=args.attn_impl)
     args.seq_length = min(args.seq_length, model_cfg.n_ctx)
     train_cfg.block_size = args.seq_length
-    quant = None if args.quant == "none" else args.quant
     if quant and rank0:
         print(f"[run_sft] quantizing frozen base to {quant}")
-    base = llama_init(model_cfg, seed=train_cfg.seed, device=device, quant=quant,
-                      quant_block=args.quant_block)
-    lora_cfg = LoraConfig(r=args.lora_r, alpha=args.lora_alpha, dropout=args.lora_dropout)
+    if not args.model_path:
+        base = llama_init(model_cfg, seed=train_cfg.seed, device=device, quant=quant,
+                          quant_block=args.quant_block)
+    if args.adapter_path:
+        # r, alpha and the targets are the checkpoint's, not --lora_r/--lora_alpha
+        adapters, lora_cfg = hf_import.peft_to_lora(args.adapter_path, model_cfg, device=device)
+        if rank0:
+            print(f"[run_sft] resumed PEFT adapter from {args.adapter_path} "
+                  f"(r={lora_cfg.r} alpha={lora_cfg.alpha})")
+    else:
+        lora_cfg = LoraConfig(r=args.lora_r, alpha=args.lora_alpha, dropout=args.lora_dropout)
+        adapters = lora_init(base, lora_cfg, seed=train_cfg.seed + 1)
     adapters = {path: {k: nn.Parameter(t) for k, t in ab.items()}
-                for path, ab in lora_init(base, lora_cfg, seed=train_cfg.seed + 1).items()}
+                for path, ab in adapters.items()}
     model = Llama(model_cfg, base)
     named = adapter_named_parameters(adapters)
     if rank0:
@@ -216,10 +256,8 @@ def main(argv=None) -> tuple[Trainer, Llama, dict]:
             trainer.evaluate(eval_blocks)
         if trainer.checkpointer:
             trainer.save()
-        if args.merged_output and rank0:
-            merged = dequantize_tree(merge_lora(base, adapters, lora_cfg))
-            save_pytree(args.merged_output, merged)
-            print(f"[run_sft] merged model saved to {args.merged_output}")
+        if rank0:
+            write_outputs(args, base, adapters, lora_cfg, model_cfg, "run_sft", "merged model")
     finally:
         trainer.close()
     return trainer, model, adapters

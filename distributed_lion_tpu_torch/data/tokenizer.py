@@ -1,17 +1,23 @@
 """Tokenizers: port of ``distributed_lion_tpu/data/tokenizer.py``.
 
-:func:`load_tokenizer` resolves a name as the JAX package does:
+:func:`load_tokenizer` resolves a name in the JAX package's order:
 
 - no name → :class:`ByteTokenizer`, the dependency-free tokenizer: 256
   byte ids, then BOS, EOS and PAD (a vocabulary of 259);
-- ``bpe:<dir>``, or a directory holding ``vocab.json`` and ``merges.txt``
-  → the GPT-2 byte-level BPE (``data/bpe.py``);
-- ``sp:<path>``, a ``*.model`` file or a directory holding
-  ``tokenizer.model`` (SentencePiece), a ``tokenizer.json`` (an HF fast
-  tokenizer), and what the JAX package hands to ``transformers`` (a
-  directory holding ``tokenizer_config.json``, a name in the local HF hub
-  cache) are not ported and raise, naming ROADMAP Queue 1 item 9: a
-  silently different vocabulary would be worse than a refusal;
+- ``bpe:<dir>`` → the GPT-2 byte-level BPE (``data/bpe.py``);
+- ``sp:<path>`` → the SentencePiece BPE reader (``data/spm.py``);
+- a directory holding ``vocab.json`` and ``merges.txt`` → GPT-2 BPE;
+- a ``*.model`` file, or a directory holding ``tokenizer.model`` →
+  SentencePiece (a local Llama-2 or Mistral checkpoint's 32,000 pieces);
+- a ``tokenizer.json`` file, or a directory holding one → the HF
+  fast-tokenizer BPE reader (``data/hf_tokenizer_json.py``: Llama-3's
+  128,256 ids, GPT-2's 50,257);
+- what the JAX package hands to ``transformers.AutoTokenizer`` (a
+  directory holding only ``tokenizer_config.json``, a name in the local HF
+  hub cache) raises, naming ROADMAP Queue 1 item 9: those tokenizers load
+  only through ``transformers``, which the port does not use (the GPU
+  machine has none), and a silently different vocabulary would be worse
+  than a refusal;
 - any other name falls back to :class:`ByteTokenizer` with the JAX
   package's loud warning.
 """
@@ -23,9 +29,9 @@ import sys
 from dataclasses import dataclass
 from typing import Iterable, List, Optional
 
-UNPORTED_TOKENIZER = ("the byte and GPT-2 BPE (bpe:) tokenizers are ported; SentencePiece "
-                      "(sp:, *.model, tokenizer.model), tokenizer.json and HF-cache "
-                      "tokenizers are not (ROADMAP Queue 1 item 9)")
+TRANSFORMERS_ONLY = ("this tokenizer loads only through transformers.AutoTokenizer, which the "
+                     "port does not use; give a tokenizer.model, a tokenizer.json or a "
+                     "vocab.json + merges.txt directory (ROADMAP Queue 1 item 9)")
 
 
 @dataclass(frozen=True)
@@ -57,23 +63,26 @@ def load_tokenizer(name_or_path: Optional[str]):
     if not name_or_path:
         return ByteTokenizer()
     from distributed_lion_tpu_torch.data.bpe import BPETokenizer
+    from distributed_lion_tpu_torch.data.hf_tokenizer_json import TokenizerJSON
+    from distributed_lion_tpu_torch.data.spm import SentencePieceTokenizer
 
     def has(name: str) -> bool:
         return os.path.isdir(name_or_path) and os.path.exists(os.path.join(name_or_path, name))
 
     if name_or_path.startswith("bpe:"):
         return BPETokenizer.load(name_or_path[len("bpe:"):])
+    if name_or_path.startswith("sp:"):
+        return SentencePieceTokenizer.load(name_or_path[len("sp:"):])
     if has("vocab.json") and has("merges.txt"):
         return BPETokenizer.load(name_or_path)
-    if (name_or_path.startswith("sp:")
-            or (name_or_path.endswith(".model") and os.path.isfile(name_or_path))
-            or has("tokenizer.model")
-            or (name_or_path.endswith("tokenizer.json") and os.path.isfile(name_or_path))
+    if ((name_or_path.endswith(".model") and os.path.isfile(name_or_path))
+            or has("tokenizer.model")):
+        return SentencePieceTokenizer.load(name_or_path)
+    if ((name_or_path.endswith("tokenizer.json") and os.path.isfile(name_or_path))
             or has("tokenizer.json")):
-        raise NotImplementedError(f"tokenizer {name_or_path!r}: {UNPORTED_TOKENIZER}")
+        return TokenizerJSON.load(name_or_path)
     if has("tokenizer_config.json") or _in_hf_cache(name_or_path):
-        raise NotImplementedError(f"tokenizer {name_or_path!r} through transformers: "
-                                  f"{UNPORTED_TOKENIZER}")
+        raise NotImplementedError(f"tokenizer {name_or_path!r}: {TRANSFORMERS_ONLY}")
     print(f"[tokenizer] WARNING: could not resolve {name_or_path!r} to a real tokenizer "
           "(no vocab.json+merges.txt, tokenizer.model, tokenizer.json, or local HF cache) "
           "— falling back to the 259-id ByteTokenizer. A Llama/GPT-2 run with this vocab "

@@ -7,7 +7,9 @@ the JAX package's ``model.npz``. On top of it:
 - :func:`params_from_jax` turns the JAX package's GPT-2 params (a numpy
   pytree or a ``model.npz``) into the port's state dict
   (``blocks/#0/attn/qkv`` → ``blocks.0.attn.qkv``), and
-  :func:`params_to_jax` goes back;
+  :func:`params_to_jax` goes back; :func:`state_dict_from_tree` and
+  :func:`tree_from_state_dict` do the same between tensor trees (the HF
+  import and export's weight trees) and state dicts;
 - :func:`momentum_from_jax` takes rank ``rank``'s row of the JAX package's
   stacked ``[world, ...]`` momentum;
 - :func:`llama_params_from_jax` turns the JAX package's Llama params (a
@@ -79,18 +81,16 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
-def params_from_jax(tree_or_npz: Union[dict, str, pathlib.Path]) -> dict[str, torch.Tensor]:
-    """The JAX package's params (numpy pytree or ``model.npz`` path) as the
-    port's state dict of CPU tensors."""
-    tree = (load_pytree(tree_or_npz) if isinstance(tree_or_npz, (str, pathlib.Path))
-            else tree_or_npz)
-    return {key.replace("/#", ".").replace("/", "."): torch.from_numpy(np.array(v))
-            for key, v in _flatten(tree)}
+def state_dict_from_tree(tree: Any) -> dict:
+    """A nested dict/list tree as a state dict of the same leaves, keyed like
+    the port's modules (``blocks/#0/attn/qkv`` → ``blocks.0.attn.qkv``)."""
+    return {key.replace("/#", ".").replace("/", "."): v for key, v in _flatten(tree)}
 
 
-def params_to_jax(state: Union[dict, torch.nn.Module]) -> dict:
-    """The port's state dict (or module) as the JAX package's nested numpy
-    pytree, list indices restored."""
+def tree_from_state_dict(state: Union[dict, torch.nn.Module]) -> Any:
+    """The inverse of :func:`state_dict_from_tree`: a state dict (or a
+    module's parameters) as the nested tree of the same tensors, list
+    indices restored."""
     if isinstance(state, torch.nn.Module):
         state = dict(state.named_parameters())
     root: dict = {}
@@ -99,8 +99,22 @@ def params_to_jax(state: Union[dict, torch.nn.Module]) -> dict:
         node = root
         for p in parts[:-1]:
             node = node.setdefault(f"#{p}" if p.isdigit() else p, {})
-        node[parts[-1]] = _to_numpy(t)
+        node[parts[-1]] = t
     return _listify(root)
+
+
+def params_from_jax(tree_or_npz: Union[dict, str, pathlib.Path]) -> dict[str, torch.Tensor]:
+    """The JAX package's params (numpy pytree or ``model.npz`` path) as the
+    port's state dict of CPU tensors."""
+    tree = (load_pytree(tree_or_npz) if isinstance(tree_or_npz, (str, pathlib.Path))
+            else tree_or_npz)
+    return {k: torch.from_numpy(np.array(v)) for k, v in state_dict_from_tree(tree).items()}
+
+
+def params_to_jax(state: Union[dict, torch.nn.Module]) -> dict:
+    """The port's state dict (or module) as the JAX package's nested numpy
+    pytree, list indices restored."""
+    return map_tree(_to_numpy, tree_from_state_dict(state))
 
 
 def momentum_from_jax(exp_avg: dict, rank: int) -> dict[str, torch.Tensor]:

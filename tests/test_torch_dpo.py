@@ -376,10 +376,34 @@ def test_sft_merged_output_feeds_run_dpo_and_dpo_merged_output_round_trips(tmp_p
     (["--adapter_output", "x"], 9), (["--merged_output", "hf_dir"], 9),
     (["--tensor_parallel", "2", "--vocab_chunks", "4"], 11), (["--seq_parallel", "2"], 11),
     (["--tensor_parallel", "2"], 11), (["--seq_impl", "ulysses"], 11)])
-def test_unported_flags_are_refused_by_name(flag, item, monkeypatch):
+def test_unported_flags_are_refused_by_name(flag, item, monkeypatch, tmp_path):
+    """Item 9's flags run since the HF slice: each gets the JAX package's own
+    outcome for the same argument (an error from its importer, or the
+    written directory). Item 11's stay refused by name."""
+    from distributed_lion_tpu.models import hf_import as j_hf_import
+
     monkeypatch.setenv("DLION_PLATFORM", "cpu")
-    with pytest.raises(NotImplementedError, match=f"{flag[0]}.*Queue 1 item {item}\\b"):
-        run_dpo.main(["--model_name", "tiny", *flag])
+    monkeypatch.chdir(tmp_path)
+    if item == 11:
+        with pytest.raises(NotImplementedError, match=f"{flag[0]}.*Queue 1 item {item}\\b"):
+            run_dpo.main(["--model_name", "tiny", *flag])
+        return
+    name, value = flag
+    run = ["--model_name", "tiny", *flag, "--max_length", "96", "--max_prompt_length", "48",
+           "--num_train_samples", "32", "--size_valid_set", "0", "--max_steps", "1",
+           "--per_device_train_batch_size", "1", "--gradient_accumulation_steps", "1"]
+    if name in ("--adapter_output", "--merged_output"):
+        run_dpo.main(run)
+        want = "adapter_config.json" if name == "--adapter_output" else "config.json"
+        assert (tmp_path / value / want).exists()
+        return
+    jax_side = (lambda: j_hf_import.llama_from_hf(value)) if name == "--model_path" else (
+        lambda: j_hf_import.peft_to_lora(value, JConfig.tiny()))
+    with pytest.raises(Exception) as want:
+        jax_side()
+    with pytest.raises(type(want.value)) as got:
+        run_dpo.main(run)
+    assert str(got.value) == str(want.value)
 
 
 def test_quantized_reference_is_a_copy_and_the_base_stays_dense():

@@ -234,8 +234,9 @@ def test_run_clm_writes_a_model_the_jax_package_reproduces(tmp_path, monkeypatch
 def test_unported_options_refused():
     with pytest.raises(SystemExit):  # not a flag of the port: argparse refuses it
         run_clm.main(["--vote_guard", "enforce"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):  # Llama trains; HF import not
-        run_clm.model_config(run_clm.ModelArguments(model_family="llama", model_path="x"))
+    with pytest.raises(ValueError, match="unrecognized checkpoint format"):  # HF import runs
+        run_clm.load_pretrained(run_clm.ModelArguments(model_family="llama", model_path="x"),
+                                "cpu")
     with pytest.raises(NotImplementedError, match="Queue 2 item 4"):  # float32 flash on the card
         resolve_impl("flash", "cuda", 1024, 64, torch.float32)
     with pytest.raises(ValueError, match="--async_grad without --lion"):  # AdamW is ported

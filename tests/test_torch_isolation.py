@@ -94,3 +94,48 @@ def test_the_chunked_vocabulary_modules_are_among_the_checked_files():
     assert {"ops/xent.py", "ops/products.py", "train/loop.py", "train/dpo.py",
             "models/llama.py", "cli/run_clm.py", "cli/run_sft.py", "cli/run_dpo.py",
             "utils/serialization.py"} <= files
+
+
+CARD_LACKS = ("safetensors", "transformers", "tokenizers", "sentencepiece")
+
+
+def test_no_port_file_imports_what_the_gpu_machine_lacks():
+    """The HF import and export read and write safetensors themselves and
+    the tokenizers read their files themselves: no port file imports
+    ``safetensors``, ``transformers``, ``tokenizers`` or ``sentencepiece``
+    (the GPU machine has none of them), and importing every port module
+    loads none of them."""
+    offenders = []
+    for path in _port_files():
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [f"{path.relative_to(ROOT)}:{node.lineno} {n}" for n in names
+                          if n.split(".")[0] in CARD_LACKS]
+    assert not offenders, offenders
+    modules = ["distributed_lion_tpu_torch." + ".".join(
+        p.relative_to(PORT).with_suffix("").parts).removesuffix(".__init__")
+        for p in sorted(PORT.rglob("*.py"))]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {CARD_LACKS!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_the_hf_checkpoint_modules_are_among_the_checked_files():
+    """The HF import and export, the SentencePiece and tokenizer.json
+    readers and the tokenizer dispatch are in the file list the checks
+    above walk."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
+    assert {"models/hf_import.py", "models/hf_export.py", "data/spm.py",
+            "data/hf_tokenizer_json.py", "data/tokenizer.py"} <= files

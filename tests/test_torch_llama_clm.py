@@ -178,13 +178,24 @@ def test_run_clm_llama_model_npz_reproduces_in_jax(tmp_path, monkeypatch):
 @pytest.mark.parametrize("flags,error,match", [
     (["--dropout", "0.1"], ValueError, "no dropout"),
     (["--vocab_pad_multiple", "64"], ValueError, "GPT-2 layout option"),
-    (["--model_path", "/nonexistent"], NotImplementedError, "--model_path.*Queue 1 item 9"),
-    (["--hf_export", "hf_dir"], NotImplementedError, "--hf_export.*Queue 1 item 9"),
+    (["--model_path", "/nonexistent"], ValueError, "unrecognized checkpoint format"),
+    (["--hf_export", "hf_dir"], None, "config.json"),
     (["--model_name", "gpt2_124m"], ValueError, "unknown llama model_name")])
-def test_cli_guards_raise_by_name(flags, error, match, monkeypatch):
+def test_cli_guards_raise_by_name(flags, error, match, monkeypatch, tmp_path):
+    """The JAX CLI's guards; since the HF slice ``--model_path`` meets the
+    JAX importer's own error for the same path and ``--hf_export`` writes
+    the HF directory, as the JAX CLI does."""
     monkeypatch.setenv("DLION_PLATFORM", "cpu")
+    monkeypatch.chdir(tmp_path)
+    argv = ["--model_family", "llama", "--model_name", "tiny", *flags]
+    if error is None:
+        run_clm.main(argv + ["--dataset", "synthetic", "--synthetic_blocks", "16",
+                             "--block_size", "32", "--per_device_train_batch_size", "2",
+                             "--gradient_accumulation_steps", "1", "--max_steps", "1"])
+        assert (tmp_path / flags[1] / match).exists()
+        return
     with pytest.raises(error, match=match):
-        run_clm.main(["--model_family", "llama", "--model_name", "tiny", *flags])
+        run_clm.main(argv)
 
 
 def test_telemetry_refused_at_2_31_voted_coordinates():

@@ -191,14 +191,49 @@ def test_run_sft_cli_writes_a_merged_model_the_jax_package_reproduces(tmp_path, 
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-4)
 
 
+TINY_RUN = ["--seq_length", "64", "--num_train_samples", "16", "--size_valid_set", "0",
+            "--max_steps", "1", "--per_device_train_batch_size", "1",
+            "--gradient_accumulation_steps", "1"]
+
+
+def _jax_outcome(fn):
+    """``(type name, message)`` of what ``fn`` raises."""
+    with pytest.raises(Exception) as e:
+        fn()
+    return type(e.value).__name__, str(e.value)
+
+
 @pytest.mark.parametrize("flag", [
     ["--model_path", "/nonexistent"], ["--adapter_path", "x"], ["--adapter_output", "x"],
     ["--merged_output", "hf_dir"], ["--seq_parallel", "2"], ["--tensor_parallel", "2"],
     ["--seq_impl", "ulysses"], ["--tokenizer_name", "sp:tokenizer.model"]])
-def test_unported_flags_are_refused_by_name(flag, monkeypatch):
+def test_unported_flags_are_refused_by_name(flag, monkeypatch, tmp_path):
+    """Since the HF slice the first four flags and SentencePiece run; each
+    gets the JAX package's own outcome for the same argument. Sequence and
+    tensor parallelism stay refused by name."""
+    from distributed_lion_tpu.data.tokenizer import load_tokenizer as j_load_tokenizer
+    from distributed_lion_tpu.models import hf_import as j_hf_import
+
     monkeypatch.setenv("DLION_PLATFORM", "cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        run_sft.main(["--model_name", "tiny", *flag])
+    monkeypatch.chdir(tmp_path)
+    name, value = flag
+    if name in ("--adapter_output", "--merged_output"):  # JAX writes the HF directory
+        run_sft.main(["--model_name", "tiny", *flag, *TINY_RUN])
+        want = "adapter_config.json" if name == "--adapter_output" else "config.json"
+        assert (tmp_path / value / want).exists()
+        return
+    jax_side = {
+        "--model_path": lambda: j_hf_import.llama_from_hf(value),
+        "--adapter_path": lambda: j_hf_import.peft_to_lora(value, JConfig.tiny()),
+        "--tokenizer_name": lambda: j_load_tokenizer(value)}
+    if name not in jax_side:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+            run_sft.main(["--model_name", "tiny", *flag])
+        return
+    kind, msg = _jax_outcome(jax_side[name])
+    with pytest.raises(Exception) as got:
+        run_sft.main(["--model_name", "tiny", *flag, *TINY_RUN])
+    assert (type(got.value).__name__, str(got.value)) == (kind, msg)
 
 
 def test_reference_guards():
@@ -206,6 +241,10 @@ def test_reference_guards():
         run_sft.main(["--group_by_length"])
     with pytest.raises(ValueError, match="gradient_checkpointing"):
         run_sft.main(["--gradient_checkpointing"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    from distributed_lion_tpu.data.tokenizer import load_tokenizer as j_load_tokenizer
+
+    with pytest.raises(FileNotFoundError) as got:  # SentencePiece is ported: JAX's outcome
         load_tokenizer("sp:tokenizer.model")
+    assert ("FileNotFoundError", str(got.value)) == _jax_outcome(
+        lambda: j_load_tokenizer("sp:tokenizer.model"))
     assert load_tokenizer(None).vocab_size == 259

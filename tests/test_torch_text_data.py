@@ -139,6 +139,11 @@ def test_bpe_tables_and_save_load(toks, tmp_path):
 
 
 def test_load_tokenizer_dispatch_and_refusals(tmp_path, capsys, monkeypatch):
+    """SentencePiece and tokenizer.json load since the HF slice: a broken
+    file meets the JAX package's own error. What only ``transformers`` loads
+    (a ``tokenizer_config.json`` directory, an HF-cache name) stays refused."""
+    from distributed_lion_tpu.data.tokenizer import load_tokenizer as j_load_tokenizer
+
     assert isinstance(load_tokenizer(None), ByteTokenizer)
     assert load_tokenizer(f"bpe:{TOK}").vocab_size == 16384
     assert load_tokenizer(str(TOK)).vocab_size == 16384
@@ -150,8 +155,13 @@ def test_load_tokenizer_dispatch_and_refusals(tmp_path, capsys, monkeypatch):
     (tmp_path / "hub" / "models--org--name").mkdir(parents=True)
     monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path / "hub"))
     for name in ("sp:x.model", str(tmp_path / "sp"), str(tmp_path / "sp" / "tokenizer.model"),
-                 str(tmp_path / "tokenizer.json"), str(tmp_path), str(tmp_path / "hf"),
-                 "org/name"):
+                 str(tmp_path / "tokenizer.json"), str(tmp_path)):
+        with pytest.raises(Exception) as want:
+            j_load_tokenizer(name)
+        with pytest.raises(type(want.value)) as got:
+            load_tokenizer(name)
+        assert str(got.value) == str(want.value), name
+    for name in (str(tmp_path / "hf"), "org/name"):
         with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
             load_tokenizer(name)
     assert isinstance(load_tokenizer("no-such-tokenizer-name"), ByteTokenizer)
