@@ -117,7 +117,17 @@ Phases (none of their failures is caught; any one fails the run):
    deterministic ballots where ``|u| >= r``, the same bits from the same
    (seed, count, rank), other bits from another rank, and the mean of
    ``ballot - (2p - 1)`` within 6 standard deviations of 0 (its step's
-   device time: phase 7).
+   device time: phase 7). (n) The NaN sentinel at (c)'s setup:
+   ``--nan_sentinel --trace_on_anomaly --profile_dir <d>
+   --profile_start_step 1 --profile_num_steps 1 --inject_poison
+   nan_grads:0:2 --output_dir <o>``, 8 steps asked: it must raise exactly
+   ``FloatingPointError("non-finite grad_norm=nan at step 3")`` after step
+   6 (the check of step 3 runs after step 4 is issued, then one step is
+   traced and one more run); ``<o>/crash/step_00000003/bundle.json``
+   (strict JSON) lists momentum leaves holding all 124,439,808 coordinates
+   and no param (a NaN ballot votes -1); the ``<d>`` trace of step 1 and
+   the anomaly trace of step 4 under the bundle both name the Triton
+   kernels; the launches are 6 steps' and no eval batch.
 5. Run (f), the vote across four ranks: four processes on cuda:0 in a
    gloo process group the script starts itself (NCCL refuses two ranks
    on one device) each run ``cli.run_clm.main`` on GPT-2 124M at full
@@ -134,7 +144,23 @@ Phases (none of their failures is caught; any one fails the run):
    as an async checkpoint step: the commit thread (a gloo group of its
    own) must commit it with no later save and no ``close()``. Its step
    times are not a rate of the card: four ranks share it and gloo stages
-   every collective through the host.
+   every collective through the host. Run (m), the vote guard, rides the
+   same spawn with (f)'s checks: (m1) ``packed_a2a --vote_guard
+   enforce``, 2 steps: no transition, and the final params' sha256 equal
+   to (f) ``packed_a2a``'s; (m2) ``packed_a2a --vote_guard enforce
+   --nan_sentinel --inject_poison nan_grads:1:1 --guard_strikes 2
+   --guard_cooldown 3``, 8 steps: rank 1 quarantined at step 3, readmitted
+   at 6 and quarantined again at 8 (``M2_EVENTS``, as
+   tests/test_torch_vote_guard.py pins them against the JAX trainer),
+   every loss finite, the sentinel silent, every rank's momentum finite,
+   the mask and the strikes in every logged row; (m3) ``sign_psum
+   --vote_guard enforce --inject_poison flipped_ballot:2 --guard_strikes
+   1``, 3 steps: rank 2 quarantined as an outlier, and at every step the
+   election and the stats kernel's histogram and disagreement equal to
+   their plain versions on the gathered tally masked by the step's health
+   mask, with at least one step masked. Under the guard the
+   ``StepWatch`` checks the election at every step, the ballots those of
+   the sanitized grads.
 6. Run (g), resume on the card, in the 1-rank NCCL group: the repo's
    ``*.md`` files go through the port's GPT-2 BPE (``runs/parity/tok``,
    its C++ merge core, which must build) into a uint16 ``bin:`` shard, read
@@ -146,7 +172,12 @@ Phases (none of their failures is caught; any one fails the run):
    Then 2 steps into a fresh directory, and a fresh process (this script
    with ``--resume-child``) resumes from step 2 to 4: ``torch.equal`` to
    the uninterrupted run in the same four, its launches those of 2 steps;
-   the same once more with ``--max_grad_norm 1.0`` (the stochastic draws).
+   the same once more with ``--max_grad_norm 1.0`` (the stochastic draws),
+   where (o) the resumed process gets SIGTERM from its data iterator at
+   batch 3 (``--on_preempt save_exit``, the default): it must exit 0 at
+   step 3 with a committed checkpoint tagged ``preempt`` and no eval, and a
+   third process resumes from it to step 4, the whole still ``torch.equal``
+   to the uninterrupted run.
    The resumed step verifies (``train.resilience.verify_step_dir``); torn
    by ``tear_leaf_file`` it does not, and autodetect falls back to step 2.
    It prints the checkpoint's bytes, ``ckpt_stall_s`` async against
@@ -168,7 +199,9 @@ Phases (none of their failures is caught; any one fails the run):
    optimizer step at 124,439,808 coordinates in a world of one: fused,
    stochastic, lazy (every slot voted, and its first step), lazy under
    stochastic binarization (every slot voted), fused at bfloat16 momentum,
-   AdamW. Run (f) gains ``packed_a2a --vote_every 4``, 5 steps, under the
+   the fused step under ``guard enforce`` and ``guard observe`` (with the
+   bytes the guard adds, and for them and fused one profiled step's
+   kernels), AdamW. Run (f) gains ``packed_a2a --vote_every 4``, 5 steps, under the
    same checks on every rank, with the bits per param per step printed.
    (h3) ``--vote_every 4 --max_grad_norm 1.0`` at (h1)'s setup, 5 steps,
    under the ``StepWatch``, whose plain elections take the slice ballots
@@ -270,12 +303,14 @@ the ``_p_bf16`` ones, p, g and m bfloat16, run (k)'s); the last line is
 
 import concurrent.futures
 import dataclasses
+import hashlib
 import json
 import math
 import os
 import pathlib
 import resource
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -320,10 +355,10 @@ from distributed_lion_tpu_torch.ops.codec import (
 from distributed_lion_tpu_torch.ops.products import matmul_f32
 from distributed_lion_tpu_torch.ops.xent import chunked_clm_loss_and_metrics
 from distributed_lion_tpu_torch.optim.distributed_lion import DistributedLion
-from distributed_lion_tpu_torch.optim.lion import FlatParams, LionState, resolve_lr
+from distributed_lion_tpu_torch.optim.lion import FlatParams, resolve_lr
 from distributed_lion_tpu_torch.optim.optax_adapter import adamw
 from distributed_lion_tpu_torch.parallel import collectives
-from distributed_lion_tpu_torch.train import resilience
+from distributed_lion_tpu_torch.train import resilience, vote_guard
 from distributed_lion_tpu_torch.train.checkpoint import Checkpointer
 from distributed_lion_tpu_torch.utils.serialization import tree_from_state_dict
 
@@ -368,9 +403,23 @@ COMMIT_POLL_S = 60.0   # run (f)'s async commit at W4: the bounded wait for COMM
 LAZY_K, LAZY_STEPS = 4, 5   # runs (h1) and (f)'s lazy entry: a rotation and one slot more
 # run (f)'s wires: (wire, extra flags, steps); gloo runs all of them on CUDA
 # tensors (all_reduce, all_gather_into_tensor, all_to_all_single)
+# run (m), the vote guard, rides the same spawn: (m1) enforce with every rank
+# healthy, (m2) rank 1's grads NaN from step 1 (quarantined, readmitted,
+# quarantined again), (m3) rank 2 an inverted voter, quarantined after one
+# strike, so step 3 votes on the masked tally
+M2_POISON, M2_STEPS = "nan_grads:1:1", 8
+M2_ARGS = ["--vote_guard", "enforce", "--nan_sentinel", "--inject_poison", M2_POISON,
+           "--guard_strikes", "2", "--guard_cooldown", "3"]
+# (step, quarantined, readmitted) of (m2), as tests/test_torch_vote_guard.py
+# pins them against the JAX trainer
+M2_EVENTS = [[3, [1], []], [6, [], [1]], [8, [1], []]]
+M3_ARGS = ["--vote_guard", "enforce", "--inject_poison", "flipped_ballot:2",
+           "--guard_strikes", "1"]
 W4_RUNS = (("sign_psum", [], W4_STEPS), ("sign_psum", ["--max_grad_norm", "1.0"], W4_STEPS),
            ("packed_a2a", [], W4_STEPS), ("hier:2", [], W4_STEPS),
-           ("packed_a2a", ["--vote_every", str(LAZY_K)], LAZY_STEPS))
+           ("packed_a2a", ["--vote_every", str(LAZY_K)], LAZY_STEPS),
+           ("packed_a2a", ["--vote_guard", "enforce"], W4_STEPS),
+           ("packed_a2a", M2_ARGS, M2_STEPS), ("sign_psum", M3_ARGS, 3))
 W4_ARGS = ["--model_name", "gpt2_124m", "--dataset", "synthetic", "--synthetic_blocks", "64",
            "--lion", "--async_grad", "--per_device_train_batch_size", "2",
            "--gradient_accumulation_steps", "1", "--block_size", "1024",
@@ -393,6 +442,7 @@ HOPPER_KERNELS = tuple(f"flash_{k}_kernelILi{d}E" for d in (64, 128)
 DI_KERNELS = tuple(f"flash_di_kernelILi{d}E" for d in (64, 128))   # no wgmma, no TMA
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
 PROFILE_TOP = 10
+GUARD_TOP = 8      # the kernels printed for each profiled [modes] step
 
 FLASH = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
          "flash_attention_di")
@@ -1005,12 +1055,32 @@ def wire_check(gen):
                   f"{in_place:.4f} ms in place", flush=True)
 
 
+def device_events(fn):
+    """``torch.profiler`` over one call of ``fn``, device activity only
+    (tracing the host's ops would slow the host): ``fn``'s result and the
+    device events, [] where the profiler recorded none."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def kernel_table(device) -> list:
+    """``[(name, (total us, calls))]`` of the device events, the largest
+    total first."""
+    per_name: dict = {}
+    for e in device:
+        total, calls = per_name.get(e.name, (0.0, 0))
+        per_name[e.name] = (total + e.time_range.elapsed_us(), calls + 1)
+    return sorted(per_name.items(), key=lambda kv: -kv[1][0])
+
+
 def profile_step(trainer, model, gen, batch: int, label: str, rows=None, T: int = 1024) -> None:
     """``torch.profiler`` over one forward + backward microbatch of the
     trainer's loss (``batch`` x ``T`` random tokens of the model's
     vocabulary, or ``rows``, a batch the loss takes; dropout seed 0);
     prints the top device kernels and the idle share."""
-    from torch.profiler import ProfilerActivity, profile
     vocab = model.cfg.vocab_size
     tokens = (torch.randint(0, vocab, (batch, T), generator=gen, device="cuda")
               if rows is None else rows)
@@ -1027,19 +1097,11 @@ def profile_step(trainer, model, gen, batch: int, label: str, rows=None, T: int 
         microbatch()
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0))
-    # device activity only: tracing the host's ops would slow the host
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        loss = microbatch()
-        torch.cuda.synchronize()
-    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    loss, device = device_events(microbatch)
     if not device:
         print(f"[profile] {label}: torch.profiler recorded no device activity: kernel times and "
               "the idle share not measured", flush=True)
         return
-    per_name: dict = {}
-    for e in device:
-        total, calls = per_name.get(e.name, (0.0, 0))
-        per_name[e.name] = (total + e.time_range.elapsed_us(), calls + 1)
     start = min(e.time_range.start for e in device)
     end = max(e.time_range.end for e in device)
     busy, reach = 0.0, start
@@ -1054,8 +1116,7 @@ def profile_step(trainer, model, gen, batch: int, label: str, rows=None, T: int 
           f"unprofiled microbatches {', '.join(f'{w:.3f}' for w in walls)} ms on the host "
           f"clock), device busy {busy / 1e3:.3f} ms, idle share {1 - busy / window:.4f}, "
           f"{len(device)} device events", flush=True)
-    ranked = sorted(per_name.items(), key=lambda kv: -kv[1][0])
-    for rank, (name, (total, calls)) in enumerate(ranked, 1):
+    for rank, (name, (total, calls)) in enumerate(kernel_table(device), 1):
         if rank <= PROFILE_TOP or "flash_" in name:   # the top, and the port's flash kernels
             print(f"[profile] {label} #{rank:<3d} {total / 1e3:9.3f} ms {calls:5d} calls  "
                   f"{name[:110]}", flush=True)
@@ -1509,6 +1570,70 @@ def stochastic_check(gen) -> None:
         raise AssertionError("run (e): the stochastic ballots fail a check (line above)")
 
 
+# run (n), the NaN sentinel at W = 1: step 3's grads NaN (count 2); the check
+# of step 3 runs after step 4 is issued, arms a 1-step trace window, and the
+# run raises after step 6
+N_POISON, N_TRIP, N_STEPS = "nan_grads:0:2", 3, 8
+N_ARGS = ["--dropout", "0", "--nan_sentinel", "--trace_on_anomaly", "--profile_start_step", "1",
+          "--profile_num_steps", "1", "--inject_poison", N_POISON]
+TRITON_NAMES = ("_ballot_kernel", "_apply_kernel")   # the Triton kernels, as traces name them
+
+
+def sentinel_run(tmp: str, card: str) -> dict:
+    """Run (n): ``run_clm.main`` at (c)'s setup with the sentinel, a trace
+    window at step 1, ``--trace_on_anomaly`` and rank 0's grads NaN from
+    count 2. It must raise exactly ``FloatingPointError("non-finite
+    grad_norm=nan at step 3")``; the bundle lists every momentum
+    coordinate's leaf (all NaN) and no param (a NaN ballot votes -1: the
+    params move by a finite step); the ``--profile_dir`` trace and the
+    anomaly trace under the bundle exist and name the Triton kernels; the
+    launches are 6 steps' (the run stops before its eval). Returns the
+    launches."""
+    t = time.perf_counter()
+    prof, out = f"{tmp}/n_prof", f"{tmp}/n_out"
+    reset_counts()
+    try:
+        run_clm.main(SLICE_ARGS + N_ARGS + ["--profile_dir", prof, "--output_dir", out,
+                                            "--max_steps", str(N_STEPS)])
+    except FloatingPointError as e:
+        reason = str(e)
+    else:
+        raise AssertionError("run (n): the sentinel did not raise FloatingPointError")
+    launches = read_counts()
+    want = f"non-finite grad_norm=nan at step {N_TRIP}"
+    if reason != want:
+        raise AssertionError(f"run (n): FloatingPointError({reason!r}), expected {want!r}")
+    steps = N_TRIP + 3   # the check after step 4, one traced step, then one more
+    expect("(n) nan_sentinel + trace_on_anomaly", launches,
+           dict(fused_ballots=steps, fused_apply=steps, bucket_vote_stats=0,
+                **flash_launches(steps, eval_batches=0)))
+    crash = pathlib.Path(out) / "crash" / f"step_{N_TRIP:08d}"
+    text = (crash / "bundle.json").read_text()
+    bundle = json.loads(text)
+    opt = bundle["nonfinite_opt_state"]
+    traces = {"profile_dir": sorted(pathlib.Path(prof).glob("*.json")),
+              "anomaly": sorted((crash / "trace").glob("*.json"))}
+    named = {k: [all(n in p.read_text() for n in TRITON_NAMES) for p in v]
+             for k, v in traces.items()}
+    if (bundle["step"] != N_TRIP or bundle["reason"] != want or bundle["nonfinite_params"]
+            or sum(opt.values()) != N_MAIN or not all(k.startswith(".exp_avg[") for k in opt)
+            or "NaN" in text or named != {"profile_dir": [True], "anomaly": [True]}):
+        raise AssertionError(f"run (n): bundle step {bundle['step']}, reason "
+                             f"{bundle['reason']!r}, nonfinite params "
+                             f"{bundle['nonfinite_params']}, {len(opt)} momentum leaves with "
+                             f"{sum(opt.values())} nonfinite coordinates; traces {traces} naming "
+                             f"{TRITON_NAMES}: {named}")
+    sizes = {k: [p.stat().st_size for p in v] for k, v in traces.items()}
+    print(f"[sentinel] (n) GPT-2 124M, 1 rank, {N_POISON}: FloatingPointError({reason!r}) after "
+          f"step {steps}; bundle {crash.relative_to(out)}/bundle.json names {len(opt)} momentum "
+          f"leaves ({sum(opt.values())} coordinates) and no param; traces (bytes) {sizes}, both "
+          f"naming {TRITON_NAMES}; launches {launches}; {time.perf_counter() - t:.1f} s on {card}",
+          flush=True)
+    shutil.rmtree(out)
+    shutil.rmtree(prof)
+    return launches
+
+
 def mode_step_times(gen) -> dict:
     """Device time of one optimizer step at the main path's size in a world
     of one (no collective), on the same grads: the fused deterministic step
@@ -1530,6 +1655,10 @@ def mode_step_times(gen) -> dict:
                                       max_grad_norm=STOCH_MGN, seed=STOCH_SEED), LAZY_K - 1),
              ("fused, bf16 momentum",
               lambda: DistributedLion(3e-4, weight_decay=0.1, mom_dtype="bfloat16"), 0),
+             ("guard enforce", lambda: DistributedLion(3e-4, weight_decay=0.1,
+                                                       guard="enforce"), 0),
+             ("guard observe", lambda: DistributedLion(3e-4, weight_decay=0.1,
+                                                       guard="observe"), 0),
              ("AdamW", lambda: adamw(3e-4), 0))
     for label, make, count in cases:
         flat = FlatParams([("p", torch.nn.Parameter(
@@ -1538,41 +1667,68 @@ def mode_step_times(gen) -> dict:
         opt = make()
         state = opt.init(flat)
         if count:
-            state = LionState(torch.full((), count, dtype=torch.int32, device="cuda"),
-                              state.exp_avg, count, state.elected)
+            state = state._replace(count=torch.full((), count, dtype=torch.int32, device="cuda"),
+                                   steps=count)
         times[label] = time_ms(lambda: opt.step(flat, state))
         state_bytes = sum(t.numel() * t.element_size() for t in state
                           if isinstance(t, torch.Tensor) and t.dim())
+        added = ""
+        if label.startswith("guard"):
+            # a pass over g and m (the nonfinite count), the sanitize's write
+            # of g under enforce, the packed ballot written and XORed with the
+            # previous one
+            nbytes = (8 + (4 if "enforce" in label else 0)) * N_MAIN + 3 * N_MAIN // 8
+            ms = nbytes / card_rates(torch.cuda.get_device_name(0))[0] * 1e3
+            added = f"; added bytes {nbytes} ({ms:.4f} ms at the data-sheet bandwidth)"
         print(f"[modes] optimizer step at n={N_MAIN}, one bucket, no collective, {label}: "
-              f"{times[label]:.4f} ms; optimizer state {state_bytes} bytes a rank", flush=True)
+              f"{times[label]:.4f} ms; optimizer state {state_bytes} bytes a rank{added}",
+              flush=True)
+        if label == "fused" or label.startswith("guard"):
+            # where the guard's time goes: one profiled step, kernel by kernel
+            _, device = device_events(lambda: opt.step(flat, state))
+            ranked = kernel_table(device)
+            print(f"[modes] {label}, one profiled step: {len(device)} device kernels, "
+                  f"{sum(t for _, (t, _) in ranked) / 1e3:.4f} ms of kernel time; "
+                  + "; ".join(f"{t / 1e3:.4f} ms {c}x {name[:90]}"
+                              for name, (t, c) in ranked[:GUARD_TOP]), flush=True)
         del flat, opt, state
         torch.cuda.empty_cache()
     return times
 
 
-def plain_election(gathered, wire: str):
+def plain_election(gathered, wire: str, alive=None):
     """The election of ``wire`` from every rank's int8 ballots, in plain
     PyTorch: a strict majority (ties -1), or for ``hier:<g>`` a strict
-    majority of the groups' strict majorities; and the flat tally."""
-    tally = sum(b.to(torch.int32) for b in gathered)
+    majority of the groups' strict majorities; and the flat tally. With
+    ``alive`` (the guard's health mask) only the healthy ranks' ballots
+    count, and a group with none abstains."""
+    live = [True] * len(gathered) if alive is None else [bool(a) for a in alive.tolist()]
+
+    def tally_of(ranks):
+        return sum(gathered[r].to(torch.int32) for r in ranks if live[r])
+
+    tally = tally_of(range(len(gathered)))
     kind, size = parse_wire(wire)
     if kind != "hier":
         return tally > 0, tally
-    groups = len(gathered) // size
-    verdicts = sum((sum(b.to(torch.int32) for b in gathered[k * size:(k + 1) * size]) > 0
-                    ).to(torch.int32) for k in range(groups))
-    return verdicts * 2 > groups, tally
+    groups = [range(k * size, (k + 1) * size) for k in range(len(gathered) // size)]
+    voting = [g for g in groups if any(live[r] for r in g)]
+    verdicts = sum((tally_of(g) > 0).to(torch.int32) for g in voting)
+    return verdicts * 2 > len(voting), tally
 
 
 class StepWatch:
     """Checks, in every rank, around ``DistributedLion.step`` while
     installed: after every step all ranks' flat params must be
     ``torch.equal`` (rank 0's broadcast; nothing to compare in a world of
-    one); at the first step of a deterministic wire the election (the
-    telemetry frame's) must equal :func:`plain_election` of the gathered
-    ballots and, on a tally wire at W4, the frame's margin histogram and
-    disagreement must equal ``bucket_vote_stats_plain`` of the gathered
-    tally. Under ``vote_every`` K > 1, at every step: the slot's slice of
+    one); at the first step of a deterministic wire, and under ``--vote_guard
+    enforce`` at every step (the ballots of the grads with their nonfinite
+    coordinates zeroed, the election masked by the step's health mask), the
+    election (the telemetry frame's) must equal :func:`plain_election` of
+    the gathered ballots and, on a tally wire at W4, the frame's margin
+    histogram and disagreement must equal ``bucket_vote_stats_plain`` of
+    the gathered (masked) tally; ``masked`` records, step by step, whether
+    the mask held a quarantined rank. Under ``vote_every`` K > 1, at every step: the slot's slice of
     the refreshed cache must equal the plain election of the gathered
     slice ballots (under ``max_grad_norm`` the ballots replayed from
     (seed, count, rank), ``replay_slice_ballots``; ``slices_equal``;
@@ -1584,8 +1740,9 @@ class StepWatch:
 
     def __init__(self):
         self.params_equal: list = []
-        self.election_equal = None
-        self.hist = None
+        self.election_equal: list = []
+        self.hist: list = []
+        self.masked: list = []
         self.slices_equal: list = []
         self.wire_bytes: list = []
         self.cold_start = None
@@ -1611,24 +1768,33 @@ class StepWatch:
 
     def _observe(self, opt, flat, state):
         lazy = opt.vote_every > 1
-        first = state.steps == 0 and opt.max_grad_norm is None
+        guarded = opt.guard == "enforce"
+        check = (state.steps == 0 or guarded) and opt.max_grad_norm is None
         if lazy:
             return self._observe_lazy(opt, flat, state)
-        ballots = (fused_lion.fused_ballots_plain(flat.grads, state.exp_avg, opt.b1)
-                   if first else None)
-        new_state, frame = self._orig(opt, flat, state)
+        ballots = alive = None
+        if check:
+            g = flat.grads.to(state.exp_avg.dtype)
+            if guarded:
+                g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+                alive = state.health.clone()
+            ballots = fused_lion.fused_ballots_plain(g, state.exp_avg, opt.b1)
+            del g
+        out = self._orig(opt, flat, state)
+        frame = out[1]
         self._params_equal(opt, flat)
-        if first:
+        if check:
             gathered = self._gather(opt, ballots)
-            want, tally = plain_election(gathered, opt.wire)
-            self.election_equal = torch.equal(unpack_signs(frame["elected"], (flat.numel,)),
-                                              want)
+            want, tally = plain_election(gathered, opt.wire, alive)
+            self.election_equal.append(
+                torch.equal(unpack_signs(frame["elected"], (flat.numel,)), want))
+            self.masked.append(alive is not None and not bool(alive.all()))
             if collectives.world_of(opt.group) == W4 and opt.wire == "sign_psum":
                 hist, dis = fused_lion.bucket_vote_stats_plain(ballots, tally, opt.world, 8)
-                self.hist = (frame["margin_hist"].tolist(), hist.tolist(),
-                             int(frame["disagree"]), int(dis))
+                self.hist.append((frame["margin_hist"].tolist(), hist.tolist(),
+                                  int(frame["disagree"]), int(dis)))
             del gathered, want, tally
-        return new_state, frame
+        return out
 
     def _params_equal(self, opt, flat) -> None:
         if opt.world == 1:
@@ -1686,7 +1852,7 @@ def w4_rank(rank: int, tmp: str) -> None:
         records = []
         for wire, extra, steps in W4_RUNS:
             label = wire + (" " + " ".join(extra) if extra else "")
-            watch = StepWatch()
+            watch, events = StepWatch(), GuardEvents()
             reset_counts()
             t0 = time.perf_counter()
             try:
@@ -1694,6 +1860,7 @@ def w4_rank(rank: int, tmp: str) -> None:
                                        + extra)
             finally:
                 watch.close()
+                events.close()
             wall = time.perf_counter() - t0
             launches = read_counts()
             rows = [r for r in trainer.history if "loss" in r]
@@ -1712,15 +1879,18 @@ def w4_rank(rank: int, tmp: str) -> None:
                     or not all(math.isfinite(r["loss"]) for r in rows)
                     or watch.params_equal != [True] * steps
                     or (not stochastic and not lazy and not watch.election_equal)
-                    or (watch.hist is not None
-                        and (watch.hist[0] != watch.hist[1] or watch.hist[2] != watch.hist[3]))
+                    or not all(watch.election_equal)
+                    or any(h[0] != h[1] or h[2] != h[3] for h in watch.hist)
                     or (stochastic and not rows[0]["vote/stoch_flip_frac"] > 0)):
                 raise AssertionError(
                     f"run (f) {label} rank {rank}: world {trainer.world}, wire {cfg.wire}, "
                     f"rows {rows}, params equal after each step {watch.params_equal}, "
                     f"election == plain {watch.election_equal}, histogram and disagreement "
                     f"(frame, plain) {watch.hist}")
-            records.append({"run": label, "buckets": buckets, "wall_s": wall,
+            guard = guard_checks(label, rank, trainer, watch, events.events, rows, extra)
+            records.append({"run": label, "buckets": buckets, "wall_s": wall, "guard": guard,
+                            "params_sha256": hashlib.sha256(
+                                trainer.flat.params.cpu().numpy().tobytes()).hexdigest(),
                             "losses": [r["loss"] for r in rows],
                             "step_ms": [r["step_ms"] for r in rows],
                             "params_equal": watch.params_equal,
@@ -1737,6 +1907,55 @@ def w4_rank(rank: int, tmp: str) -> None:
                 json.dump(records, f)
     finally:
         dist.destroy_process_group()
+
+
+class GuardEvents:
+    """Records the vote guard's transitions, ``[step, quarantined,
+    readmitted]``, while installed (``VoteGuard.update`` wrapped)."""
+
+    def __init__(self):
+        self.events: list = []
+        self._orig = vote_guard.VoteGuard.update
+        watch = self
+
+        def update(guard, step, obs, advanced):
+            ev = watch._orig(guard, step, obs, advanced)
+            if ev.quarantined or ev.readmitted:
+                watch.events.append([int(step), [int(w) for w in ev.quarantined],
+                                     [int(w) for w in ev.readmitted]])
+            return ev
+
+        vote_guard.VoteGuard.update = update
+
+    def close(self) -> None:
+        vote_guard.VoteGuard.update = self._orig
+
+
+def guard_checks(label: str, rank: int, trainer, watch, events: list, rows: list,
+                 extra: list) -> Optional[dict]:
+    """Run (m)'s checks on one W4 run with ``--vote_guard enforce``; None for
+    the other runs. (m1), every rank healthy: no transition, the mask all
+    healthy. (m2), rank 1's grads NaN: the transitions ``M2_EVENTS``,
+    momentum finite on every rank (enforce zeroes the NaN grads before the
+    momentum update), the sentinel silent (it would have raised), the mask
+    and the strikes in every logged row. (m3), rank 2 inverted: quarantined,
+    and at least one step voted, and was held to the plain election and
+    ``bucket_vote_stats_plain``, on the masked tally."""
+    if trainer.cfg.vote_guard != "enforce":
+        return None
+    health = trainer.state.health.tolist()
+    out = {"events": events, "health": health, "masked": watch.masked,
+           "rows": [[r["guard_healthy_mask"], r["guard_strikes"]] for r in rows],
+           "momentum_finite": bool(torch.isfinite(trainer.state.exp_avg).all())}
+    if M2_POISON in extra:
+        ok = events == M2_EVENTS and out["momentum_finite"] and health == [1, 0, 1, 1]
+    elif "flipped_ballot:2" in extra:
+        ok = health == [1, 1, 0, 1] and any(watch.masked) and len(watch.hist) == len(rows)
+    else:
+        ok = not events and all(health)
+    if not ok:
+        raise AssertionError(f"run (m) {label} rank {rank}: guard record {out}")
+    return out
 
 
 def w4_async_commit(rank: int, tmp: str) -> dict:
@@ -1771,10 +1990,27 @@ def w4_phase(tmp: str, card: str) -> None:
     print(f"[w4] (f) async checkpoint at W = {W4}: step 1 COMMITTED by the commit thread "
           f"{commit['seconds']:.3f} s after save() on rank 0, with no later save and no close(); "
           f"latest_valid_step() == 1 on every rank; on {card}", flush=True)
+    by_run = {rec["run"]: rec for rec in records}
+    m1 = by_run["packed_a2a --vote_guard enforce"]
+    if m1["params_sha256"] != by_run["packed_a2a"]["params_sha256"]:
+        raise AssertionError(f"run (m1): the final params' sha256 {m1['params_sha256']} differs "
+                             f"from (f) packed_a2a's {by_run['packed_a2a']['params_sha256']}")
     for rec in records:
-        hist = ("" if rec["hist"] is None else
-                f"; margin histogram {rec['hist'][0]} == bucket_vote_stats_plain of the gathered "
-                f"tally, disagreement {rec['hist'][2]} == {rec['hist'][3]}")
+        hist = ("" if not rec["hist"] else
+                f"; margin histogram {rec['hist'][0][0]} == bucket_vote_stats_plain of the "
+                f"gathered tally, disagreement {rec['hist'][0][2]} == {rec['hist'][0][3]}"
+                + (f" (and at each of the {len(rec['hist'])} steps, the tally masked at steps "
+                   f"{[i + 1 for i, m in enumerate(rec['guard']['masked']) if m]})"
+                   if rec["guard"] else ""))
+        guard = ""
+        if rec["guard"]:
+            g = rec["guard"]
+            guard = (f"; guard: params sha256 {rec['params_sha256'][:16]}..., transitions "
+                     f"[step, quarantined, readmitted] {g['events']}, final mask {g['health']}, "
+                     f"momentum finite on every rank {g['momentum_finite']}, logged masks "
+                     f"{[r[0] for r in g['rows']]}, strikes {[r[1] for r in g['rows']]}")
+            if rec is m1:
+                guard += " == (f) packed_a2a's sha256 (enforce with every rank healthy)"
         if rec["bits_per_param"] is not None:
             election = (f"every step's slice election == the plain election of the 4 gathered "
                         f"slice ballots {rec['slices_equal']}, the cache after step "
@@ -1782,14 +2018,18 @@ def w4_phase(tmp: str, card: str) -> None:
                         f"only at step 1; WireTally == wire_bytes_per_param every step: "
                         f"{rec['bits_per_param']:.4f} bits/param/step (comm_stats "
                         f"{rec['comm_stats']['comm_bits_per_param']:.4f})")
+        elif rec["guard"]:
+            election = (f"every step's election == the plain election of the 4 gathered "
+                        f"ballots under the step's health mask {rec['election_equal']}")
         elif rec["election_equal"]:
             election = "step-1 election == the plain election of the 4 gathered ballots"
         else:
             election = f"stochastic: stoch_flip_frac {rec['stoch_flip_frac']}"
-        print(f"[w4] (f) {rec['run']}: GPT-2 124M, {W4} ranks on one card (gloo), B 2 x accum 1 "
-              f"x T 1024, {rec['buckets']} bucket(s): losses "
+        print(f"[w4] {'(m)' if rec['guard'] else '(f)'} {rec['run']}: GPT-2 124M, {W4} ranks on "
+              f"one card (gloo), B 2 x accum 1 x T 1024, {rec['buckets']} bucket(s): losses "
               f"{[round(x, 4) for x in rec['losses']]}; params equal on all ranks after each "
-              f"step {rec['params_equal']}; {election}{hist}; step ms {rec['step_ms']} (4 ranks "
+              f"step {rec['params_equal']}; {election}{hist}{guard}; step ms {rec['step_ms']} "
+              f"(4 ranks "
               f"share the card and gloo stages every collective through the host); run_clm.main "
               f"{rec['wall_s']:.1f} s on {card}; rank 0 launches {rec['launches']}", flush=True)
 
@@ -1805,6 +2045,7 @@ G_ARGS = ["--model_name", "gpt2_124m", "--lion", "--async_grad", "--wire", "auto
           "--save_steps", str(G_SPLIT), "--per_device_eval_batch_size", "4",
           "--eval_iters", str(G_EVAL)]
 G_STOCH = ["--max_grad_norm", "1.0"]
+O_SIGTERM_AT = 3   # run (o): the stochastic resume's process gets SIGTERM at this batch
 ROOT = pathlib.Path(__file__).resolve().parent
 
 
@@ -1828,11 +2069,11 @@ def make_shard(tmp: str, card: str) -> tuple[str, int, float]:
     return path, len(ids), len(ids) / dt
 
 
-def g_expect(steps: int, stochastic: bool) -> dict:
-    """Run (g)'s launches for ``steps`` steps and its one eval batch."""
+def g_expect(steps: int, stochastic: bool, evals: int = G_EVAL) -> dict:
+    """Run (g)'s launches for ``steps`` steps and ``evals`` eval batches."""
     fused = 0 if stochastic else steps
     return {"fused_ballots": fused, "fused_apply": fused, "bucket_vote_stats": steps,
-            "flash_attention_fwd": N_LAYER * (ACCUM * 2 * steps + G_EVAL),
+            "flash_attention_fwd": N_LAYER * (ACCUM * 2 * steps + evals),
             "flash_attention_bwd_dkv": N_LAYER * ACCUM * steps,
             "flash_attention_bwd_dq": N_LAYER * ACCUM * steps,
             "flash_attention_di": N_LAYER * ACCUM * steps, **NO_HD128}
@@ -1868,11 +2109,46 @@ def g_run(shard: str, out: str, steps: int, extra: list, label: str):
     return state, rows, launches, ck
 
 
-def resume_child(tmp: str, out_json: str, argv: list) -> int:
+class SigtermAt:
+    """Run (o): forwards the native loader's iterator and sends this
+    process SIGTERM while it fetches global batch ``at`` (1-based, the
+    batches a resume skips counted)."""
+
+    def __init__(self, inner, at: int):
+        self.inner, self.at, self.n = inner, at, 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        self.n += 1
+        if self.n == self.at:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return next(self.inner)
+
+    def skip(self, k: int) -> None:
+        self.n += k
+        self.inner.skip(k)
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def resume_child(tmp: str, out_json: str, sigterm_at: int, argv: list) -> int:
     """The resumed leg of run (g), in a fresh process: ``run_clm.main(argv)``
-    in a 1-rank NCCL group, every counter at 0 before it; writes the
-    launches, the rows, the resume time and the process wall to
-    ``out_json``."""
+    in a 1-rank NCCL group, every counter at 0 before it, with a SIGTERM at
+    global batch ``sigterm_at`` when it is not 0 (run (o)); writes the
+    launches, the rows, the resume time, the step it stopped at, whether a
+    preemption stopped it and the process wall to ``out_json``."""
+    if sigterm_at:
+        pipeline = run_clm.make_native_pipeline
+
+        def signalling(*args, **kw):
+            native = pipeline(*args, **kw)
+            return native if native is None else (SigtermAt(native[0], sigterm_at),
+                                                  *native[1:])
+
+        run_clm.make_native_pipeline = signalling
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1885,38 +2161,71 @@ def resume_child(tmp: str, out_json: str, argv: list) -> int:
         with open(out_json, "w") as f:
             json.dump({"launches": launches, "rows": trainer.history,
                        "resume_s": trainer.resume_s, "start_step": trainer.history[0]["step"] - 1,
+                       "step": trainer.step_count, "preempted": trainer.preempted,
                        "wall_s": time.perf_counter() - t0}, f)
     finally:
         dist.destroy_process_group()
     return 0
 
 
-def g_resumed(tmp: str, shard: str, out: str, extra: list, label: str) -> dict:
-    """Run (g)'s interrupted leg: G_SPLIT steps in this process, then a
-    fresh process resumes from ``out`` to G_STEPS; returns its record with
-    the loss rows of both legs and the resumed step's files."""
-    _, first, _, _ = g_run(shard, out, G_SPLIT, extra, f"{label}, steps 1-{G_SPLIT}")
+def g_child(tmp: str, shard: str, out: str, extra: list, label: str, start: int,
+            sigterm_at: int = 0) -> tuple:
+    """A fresh process resuming run (g) from step ``start`` in ``out`` to
+    G_STEPS, or with ``sigterm_at`` (run (o)) until the preemption the
+    SIGTERM at that batch triggers: it must exit 0, stopped at that step
+    with a committed checkpoint tagged ``preempt`` and no eval. Returns the
+    child's record, its stdout and the process wall."""
     out_json = f"{tmp}/g_child.json"
     argv = G_ARGS + ["--dataset", f"bin:{shard}", "--max_steps", str(G_STEPS),
                      "--output_dir", out] + extra
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, __file__, "--resume-child", tmp, out_json, *argv],
-                          capture_output=True, text=True, timeout=900)
+    proc = subprocess.run([sys.executable, __file__, "--resume-child", tmp, out_json,
+                           str(sigterm_at), *argv], capture_output=True, text=True, timeout=900)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
         raise AssertionError(f"run (g) {label}: the resumed process exited {proc.returncode}:\n"
                              f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
     with open(out_json) as f:
         child = json.load(f)
-    if child["start_step"] != G_SPLIT or "resumed from checkpoint step 2" not in proc.stdout:
+    if child["start_step"] != start or f"resumed from checkpoint step {start}" not in proc.stdout:
         raise AssertionError(f"run (g) {label}: the fresh process did not resume from step "
-                             f"{G_SPLIT}:\n{proc.stdout[-3000:]}")
-    expect(f"(g) {label}, resumed", child["launches"],
-           g_expect(G_STEPS - G_SPLIT, G_STOCH[0] in extra))
-    rows = first + g_rows(child["rows"], G_STEPS - G_SPLIT, f"{label}, resumed")
+                             f"{start}:\n{proc.stdout[-3000:]}")
+    stop = sigterm_at or G_STEPS
+    if child["step"] != stop or child["preempted"] != bool(sigterm_at):
+        raise AssertionError(f"run (g) {label}: stopped at step {child['step']} (preempted "
+                             f"{child['preempted']}), expected {stop}:\n{proc.stdout[-3000:]}")
+    if sigterm_at:
+        sdir = f"{out}/checkpoints/{stop}"
+        manifest = resilience.read_manifest(sdir) or {}
+        if (not resilience.verify_step_dir(sdir) or manifest.get("meta", {}).get("tag") != "preempt"
+                or "[run_clm] preempted: checkpoint durable, exiting cleanly" not in proc.stdout):
+            raise AssertionError(f"run (o) {label}: step {stop} is not a committed 'preempt' "
+                                 f"checkpoint (meta {manifest.get('meta')}):\n"
+                                 f"{proc.stdout[-3000:]}")
+    expect(f"(g) {label}, resumed from {start}", child["launches"],
+           g_expect(stop - start, G_STOCH[0] in extra, evals=0 if sigterm_at else G_EVAL))
+    return child, proc.stdout, wall
+
+
+def g_resumed(tmp: str, shard: str, out: str, extra: list, label: str,
+              preempt_at: int = 0) -> dict:
+    """Run (g)'s interrupted leg: G_SPLIT steps in this process, then a
+    fresh process resumes from ``out`` to G_STEPS; with ``preempt_at``
+    (run (o)) that process is preempted at that step and a second one
+    resumes from its checkpoint. Returns the record with the loss rows of
+    every leg and the resumed step's files."""
+    _, rows, _, _ = g_run(shard, out, G_SPLIT, extra, f"{label}, steps 1-{G_SPLIT}")
+    start, preempted = G_SPLIT, None
+    if preempt_at:
+        child, _, wall = g_child(tmp, shard, out, extra, f"{label}, preempted", start,
+                                 sigterm_at=preempt_at)
+        rows = rows + g_rows(child["rows"], preempt_at - start, f"{label}, preempted")
+        preempted, start = {"child": child, "process_wall_s": wall}, preempt_at
+    child, _, wall = g_child(tmp, shard, out, extra, label, start)
+    rows = rows + g_rows(child["rows"], G_STEPS - start, f"{label}, resumed")
     ck = f"{out}/checkpoints"
     vh = torch.load(f"{ck}/{G_STEPS}/vote_health.pt", weights_only=True)
-    return {"rows": rows, "child": child, "process_wall_s": wall,
+    return {"rows": rows, "child": child, "process_wall_s": wall, "preempted": preempted,
             "params": torch.load(f"{ck}/{G_STEPS}/params.pt", weights_only=True)["flat"],
             "exp_avg": torch.load(f"{ck}/{G_STEPS}/exp_avg/rank00000.pt", weights_only=True),
             "vote_health": vh}
@@ -1984,9 +2293,18 @@ def resume_phase(tmp: str, card: str) -> None:
         shutil.rmtree(f"{tmp}/{d}")
     del a, b, r
     s, s_rows, _, _ = g_run(shard, f"{tmp}/g_d", G_STEPS, G_STOCH, "stochastic")
-    rs = g_resumed(tmp, shard, f"{tmp}/g_e", G_STOCH, "stochastic")
-    g_equal("stochastic (--max_grad_norm 1.0): 2 steps + a fresh process resuming to 4, "
-            "against uninterrupted", s, s_rows, rs, rs["rows"])
+    t_o = time.perf_counter()
+    rs = g_resumed(tmp, shard, f"{tmp}/g_e", G_STOCH, "stochastic", preempt_at=O_SIGTERM_AT)
+    g_equal(f"stochastic (--max_grad_norm 1.0): 2 steps + a fresh process preempted at step "
+            f"{O_SIGTERM_AT} (run (o)) + a fresh process resuming to 4, against uninterrupted",
+            s, s_rows, rs, rs["rows"])
+    pre = rs["preempted"]
+    print(f"[resume] (o) --on_preempt save_exit (the default): SIGTERM at batch "
+          f"{O_SIGTERM_AT} of the resumed process; it exited 0 at step {O_SIGTERM_AT} with a "
+          f"committed 'preempt' checkpoint (no eval, no final save), process "
+          f"{pre['process_wall_s']:.1f} s, launches {pre['child']['launches']}; the next process "
+          f"resumed from it to step {G_STEPS}; the three legs "
+          f"{time.perf_counter() - t_o:.1f} s on {card}", flush=True)
     for d in ("g_d", "g_e"):
         shutil.rmtree(f"{tmp}/{d}")
     print(f"[slice] (g) resume: GPT-2 124M, 1 rank, B 8 x accum {ACCUM} x T 1024 on "
@@ -2505,6 +2823,8 @@ def slice_phase(tmp, gen, card, rates):
         torch.cuda.empty_cache()
         stochastic_check(gen)
         t = phase_time("slice (e), GPT-2 124M stochastic", t)
+        sentinel_run(tmp, card)
+        t = phase_time("slice (n), the NaN sentinel", t)
         mode_runs, mode_times = modes_phase(gen, card)
         t = time.perf_counter()
         llama = llama_run(gen)
@@ -2540,7 +2860,7 @@ def phase_time(name: str, since: float) -> float:
 
 def main():
     if sys.argv[1:2] == ["--resume-child"]:
-        return resume_child(sys.argv[2], sys.argv[3], sys.argv[4:])
+        return resume_child(sys.argv[2], sys.argv[3], int(sys.argv[4]), sys.argv[5:])
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
     torch.backends.cuda.matmul.allow_tf32 = False

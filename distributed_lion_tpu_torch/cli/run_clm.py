@@ -57,7 +57,12 @@ from distributed_lion_tpu_torch.parallel.mesh import (
     platform_device,
     rank_of,
 )
-from distributed_lion_tpu_torch.train.loop import TrainConfig, Trainer
+from distributed_lion_tpu_torch.train.loop import (
+    TrainConfig,
+    Trainer,
+    announce_guards,
+    report_preempted,
+)
 from distributed_lion_tpu_torch.utils.argparsing import parse_dataclasses
 from distributed_lion_tpu_torch.utils.serialization import (
     llama_params_to_jax,
@@ -362,6 +367,7 @@ def main(argv=None) -> Trainer:
         print("[run_clm] vote-health telemetry on: margin histogram "
               + ("EXACT (tally wire " if trainer.margin_exact else "UNAVAILABLE (proxy wire ")
               + f"{trainer.cfg.wire}); drained every {train_cfg.logging_steps} steps")
+    announce_guards(trainer, "run_clm")
     loader = None
     try:
         native = make_native_pipeline(data_args, train_cfg.block_size, model_cfg.vocab_size,
@@ -375,6 +381,8 @@ def main(argv=None) -> Trainer:
             it = batch_iterator(train_blocks, trainer.global_train_batch(),
                                 seed=train_cfg.seed)
         trainer.train(it, eval_blocks=eval_blocks)
+        if report_preempted(trainer, "run_clm"):
+            return trainer
         if len(eval_blocks):
             trainer.evaluate(eval_blocks)
         if trainer.checkpointer:

@@ -65,7 +65,12 @@ from distributed_lion_tpu_torch.models.lora import (
 from distributed_lion_tpu_torch.ops.quant import map_tree, maybe_dequant, quantize_tree
 from distributed_lion_tpu_torch.parallel.mesh import init_distributed, platform_device, rank_of
 from distributed_lion_tpu_torch.train.dpo import make_dpo_loss_fn
-from distributed_lion_tpu_torch.train.loop import TrainConfig, Trainer
+from distributed_lion_tpu_torch.train.loop import (
+    TrainConfig,
+    Trainer,
+    announce_guards,
+    report_preempted,
+)
 from distributed_lion_tpu_torch.utils.argparsing import parse_dataclasses
 from distributed_lion_tpu_torch.utils.serialization import load_pytree
 
@@ -223,9 +228,12 @@ def main(argv=None) -> tuple[Trainer, Llama, dict, Any]:
                       dpo_loss_fn(model, base, ref, adapters, lora_cfg, args.beta,
                                   train_cfg.vocab_chunks),
                       group=group, model=model)
+    announce_guards(trainer, "run_dpo")
     try:
         trainer.train(dpo_batch_iterator(train_data, trainer.global_train_batch(),
                                          seed=train_cfg.seed), eval_blocks=eval_data)
+        if report_preempted(trainer, "run_dpo"):
+            return trainer, model, adapters, ref
         if eval_data is not None:
             trainer.evaluate(eval_data)
         if trainer.checkpointer:

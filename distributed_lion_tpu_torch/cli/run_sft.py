@@ -64,8 +64,10 @@ from distributed_lion_tpu_torch.parallel.mesh import init_distributed, platform_
 from distributed_lion_tpu_torch.train.loop import (
     TrainConfig,
     Trainer,
+    announce_guards,
     chunked_clm_loss_fn,
     clm_loss_fn,
+    report_preempted,
 )
 from distributed_lion_tpu_torch.utils.argparsing import parse_dataclasses
 from distributed_lion_tpu_torch.utils.serialization import save_pytree
@@ -250,8 +252,11 @@ def main(argv=None) -> tuple[Trainer, Llama, dict]:
     trainer = Trainer(train_cfg, named, loss_fn, group=group)
     train_iter, eval_blocks = sft_batches(args, tok, train, valid, trainer.global_train_batch(),
                                           train_cfg.seed, ratio)
+    announce_guards(trainer, "run_sft")
     try:
         trainer.train(train_iter, eval_blocks=eval_blocks)
+        if report_preempted(trainer, "run_sft"):
+            return trainer, model, adapters
         if eval_blocks is not None:
             trainer.evaluate(eval_blocks)
         if trainer.checkpointer:

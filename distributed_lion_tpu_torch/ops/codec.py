@@ -102,6 +102,16 @@ def unpack_signs(packed: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     return bits.reshape(-1)[:n].reshape(shape).to(torch.bool)
 
 
+def popcount(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of a uint8 tensor, counted exactly as an int64 scalar: each
+    byte's bits summed in place (SWAR), so no per-bit copy of the tensor is
+    made and nothing is read back to the host (``torch.bincount`` on a card
+    reads its input's maximum back)."""
+    x = x - ((x >> 1) & 0x55)
+    x = (x & 0x33) + ((x >> 2) & 0x33)
+    return ((x + (x >> 4)) & 0x0F).sum(dtype=torch.int64)
+
+
 def hier_legs(n: int, world_size: int, group: int) -> dict:
     """Bytes RECEIVED per rank by each leg of the ``hier:<g>`` election of
     one ``n``-coordinate ballot: ``chunk`` coordinates owned per member

@@ -84,14 +84,41 @@ JAX package's full-vector mean: the coordinates outside the slice draw
 after it from the same stream, for the fraction only, so the voted ballots
 are the same with telemetry on or off.
 
+**The vote guard** (``guard='observe'|'enforce'``; JAX ``guard``, :152,
+:235-255, :286-310, :338-347, :350-368, :410-416, :446-492, :573-650,
+:676-800), in all three modes. ``LionState`` then carries the ``[W]``
+health mask and this rank's packed previous ballot
+(:func:`optim.lion.guard_ballot_len` bytes). Each step first counts the
+nonfinite coordinates of the local grads (cast to the momentum dtype) and
+momentum, before anything else reads them; under ``enforce`` it then zeroes
+the nonfinite grad coordinates in place (``isfinite`` where, as JAX's
+``jnp.where``; ``nan_to_num`` would map inf elsewhere), so neither the
+ballot nor the momentum update sees them, and elects with ``alive =
+state.health`` (``parallel.collectives``' masked election). The guard reads
+this rank's UNMASKED ballots (the wire zeroes its own buffer), packs them
+into ``prev_ballot`` in place, window by window (:func:`guard_vote`), and emits the guard frame: ``nonfinite``,
+``flips`` (popcount of the XOR with the previous packed ballot),
+``disagree`` (the int count of ballots that lost, cast to float32, over
+the voted coordinates), replicated ``[W]`` vectors from one
+``all_reduce`` of a stacked ``[3, W]`` float64 tensor (exact for every
+count below 2**53), and ``flip_valid`` and ``voted``. The counts are int64,
+where JAX's are int32; only ``> 0`` and ``== 0`` of them are read. Under
+lazy refresh ``prev_ballot`` has the elected cache's slot layout and the
+slot's bytes are refreshed, ``flip_valid`` from step K on, and
+``disagree`` is over the slot's real coordinates. ``observe`` computes the
+same frame and never touches the election or the grads; with an
+all-healthy mask and finite inputs ``enforce`` is bit-identical to
+``off``. :func:`heal_worker_momentum` (stacked rows) and
+:func:`heal_rank_momentum` (rank-local rows over the group) re-average a
+quarantined rank's momentum from the healthy mean.
+
 Ported: the deterministic and the stochastic modes on the three flat wires
 and the synchronous ``hier:<g>`` wire, lazy refresh in both modes,
-``mom_dtype``, and vote-health telemetry; and
+``mom_dtype``, vote-health telemetry and the vote guard; and
 :func:`remap_worker_momentum`, the elastic resume's remap of the per-rank
-momenta to another world size. Refused, naming their ROADMAP items: the
-DCN pipeline (``dcn_pipeline_depth``, Queue 1 item 11) and the vote guard
-(``guard``, Queue 1 item 10). Mixed param dtypes are refused by
-``FlatParams``.
+momenta to another world size. Refused, naming its ROADMAP item: the DCN
+pipeline (``dcn_pipeline_depth``, Queue 1 item 11). Mixed param dtypes are
+refused by ``FlatParams``.
 """
 
 from __future__ import annotations
@@ -106,6 +133,7 @@ from distributed_lion_tpu_torch.ops.codec import (
     bucket_bounds,
     pack_signs,
     parse_wire,
+    popcount,
     vote_chunk_elems,
 )
 from distributed_lion_tpu_torch.optim.lion import (
@@ -127,6 +155,51 @@ def _refuse(what: str, item: str) -> None:
     raise NotImplementedError(f"{what} is not ported yet ({item})")
 
 
+GUARD_MODES = ("off", "observe", "enforce")
+# coordinates a pass of the guard's input check, its reads of the vote and
+# the momentum heal covers at once: bounds their temporaries (a bool mask,
+# packed bytes, W float32 rows). A multiple of 8, so windows pack to whole
+# bytes; read at call time.
+GUARD_WINDOW = 1 << 26
+
+
+def ballot_flips(packed_now: torch.Tensor, packed_prev: torch.Tensor) -> torch.Tensor:
+    """Bit flips between two packed ballots (JAX ``_ballot_flips``): ≈ 0
+    across consecutive votes is the frozen voter's signature."""
+    return popcount(torch.bitwise_xor(packed_now, packed_prev))
+
+
+def guard_inputs(g: torch.Tensor, m: torch.Tensor, sanitize: bool) -> torch.Tensor:
+    """The int64 count of nonfinite coordinates in ``g`` and ``m`` (JAX
+    ``_nonfinite_count``, measured before anything else reads them); with
+    ``sanitize`` the nonfinite coordinates of ``g`` are then zeroed in
+    place. Window by window, so the mask never spans the whole buffer."""
+    nf = torch.zeros((), dtype=torch.int64, device=g.device)
+    for lo in range(0, g.numel(), GUARD_WINDOW):
+        gw = g[lo:lo + GUARD_WINDOW]
+        bad = ~torch.isfinite(gw)
+        nf += bad.sum() + (~torch.isfinite(m[lo:lo + GUARD_WINDOW])).sum()
+        if sanitize:
+            gw.masked_fill_(bad, 0)
+    return nf
+
+
+def guard_vote(guard: dict, prev: torch.Tensor, byte0: int, ballots: torch.Tensor,
+               total: torch.Tensor, real: int) -> None:
+    """The guard's reads of one bucket's vote, window by window: into
+    ``guard['dis']`` the count of this rank's unmasked ballots that lost
+    the election, over the first ``real`` coordinates; into
+    ``guard['flips']`` the bit flips of the packed ballots against
+    ``prev`` from byte ``byte0``, which they then overwrite in place."""
+    for lo in range(0, ballots.numel(), GUARD_WINDOW):
+        mine = ballots[lo:lo + GUARD_WINDOW] > 0
+        r = max(0, min(mine.numel(), real - lo))
+        guard["dis"] += (mine[:r] != (total[lo:lo + r] > 0)).sum()
+        now = pack_signs(mine)
+        old = prev[byte0 + lo // 8:byte0 + lo // 8 + now.numel()]
+        guard["flips"] += ballot_flips(now, old)
+        old.copy_(now)
+
 class DistributedLion:
     """The majority-vote optimizer over a :class:`FlatParams`. ``group`` is
     the vote's process group (None: a world of one, no collective).
@@ -135,8 +208,9 @@ class DistributedLion:
     ``mom_dtype`` stores the momentum in that dtype. ``tally`` optionally
     records the bytes each collective hands the backend
     (:class:`collectives.WireTally`); ``telemetry`` makes ``step`` return
-    the vote-health frame too. A ``hier:<g>`` wire builds its process groups
-    here, so every rank builds the optimizer."""
+    the vote-health frame too, and ``guard`` (``'observe'``,
+    ``'enforce'``) the guard frame after it. A ``hier:<g>`` wire builds its
+    process groups here, so every rank builds the optimizer."""
 
     def __init__(self, learning_rate: Schedule = 1e-4, b1: float = 0.9,
                  b2: float = 0.99, weight_decay: float = 0.0, *, group=None,
@@ -144,8 +218,10 @@ class DistributedLion:
                  mom_dtype=None, max_grad_norm: Optional[float] = None,
                  seed: Optional[int] = None,
                  tally: Optional[collectives.WireTally] = None,
-                 telemetry: bool = False):
+                 telemetry: bool = False, guard: str = "off"):
         kind, size = parse_wire(wire)
+        if guard not in GUARD_MODES:
+            raise ValueError(f"guard must be 'off', 'observe' or 'enforce', got {guard!r}")
         _validate(learning_rate, b1, b2)
         if vote_buckets < 1:
             raise ValueError(f"vote_buckets must be >= 1, got {vote_buckets}")
@@ -163,13 +239,15 @@ class DistributedLion:
         self.max_grad_norm, self.seed = max_grad_norm, seed
         self.tally = tally
         self.telemetry = telemetry
+        self.guard = guard
         self.world, self.rank = collectives.world_of(group), rank_of(group)
         self.hier = (collectives.HierGroups(group, size)
                      if kind == "hier" and group is not None else None)
         self._g_cast: Optional[torch.Tensor] = None
 
     def init(self, flat: FlatParams) -> LionState:
-        return init_state(flat, self.mom_dtype, self.vote_every)
+        return init_state(flat, self.mom_dtype, self.vote_every,
+                          self.world if self.guard != "off" else 0)
 
     def _grads(self, flat: FlatParams, m: torch.Tensor) -> torch.Tensor:
         """The flat grads in the momentum dtype: the buffer itself, or one
@@ -190,8 +268,15 @@ class DistributedLion:
         p, m = flat.params, state.exp_avg
         g = self._grads(flat, m)
         frame = _vt.empty_frame(0, flat.device) if self.telemetry else None
+        guard = None
+        if self.guard != "off":
+            # nonfinite ballot inputs, counted before the sanitize and
+            # before the sign hides them (a NaN u-term votes −1)
+            zero = torch.zeros((), dtype=torch.int64, device=flat.device)
+            guard = {"nf": guard_inputs(g, m, self.guard == "enforce"),
+                     "dis": zero, "flips": zero.clone(), "prev": state.prev_ballot}
         if self.vote_every > 1:
-            return self._step_lazy(flat, state, p, g, m, lr, frame)
+            return self._step_lazy(flat, state, p, g, m, lr, frame, guard)
         stochastic = self.max_grad_norm is not None
         if stochastic:
             gen = lion_math.stochastic_generator(self.seed, state.steps, self.rank, flat.device)
@@ -210,16 +295,19 @@ class DistributedLion:
                     flips += (vote_pos != lion_math.sign_vote_bool(g[w], m[w], self.b1)).sum()
             else:
                 ballots = fused_lion.fused_ballots(g[w], m[w], self.b1)
-            vote = collectives.vote_total_async(ballots, self.wire, self.group, self.tally,
-                                                keep_ballots=self.telemetry, hier=self.hier)
+            vote = self._vote(ballots, state, guard)
             if pending is not None:  # apply k−1 while bucket k is on the wire
-                self._apply(p, g, m, lr, frame, packed, *pending)
+                self._apply(p, g, m, lr, frame, packed, guard, *pending)
             pending = (w, ballots, vote)
         if pending is not None:
-            self._apply(p, g, m, lr, frame, packed, *pending)
-        state = LionState(state.count + 1, m, state.steps + 1)
+            self._apply(p, g, m, lr, frame, packed, guard, *pending)
+        gframe = None
+        if guard is not None:  # prev_ballot now holds this step's ballots
+            gframe = self._guard_frame(guard["nf"], guard["flips"], state.steps >= 1,
+                                       guard["dis"], flat.numel)
+        state = state._replace(count=state.count + 1, steps=state.steps + 1)
         if frame is None:
-            return state
+            return state if gframe is None else (state, gframe)
         n = torch.tensor(flat.numel, dtype=torch.int32, device=flat.device)
         if not _vt.tally_wire(self.wire):  # a ±1 proxy carries no margin
             frame["margin_hist"].zero_()
@@ -230,10 +318,42 @@ class DistributedLion:
                      flip_valid=torch.ones_like(frame["flip_valid"]))
         if stochastic:
             frame["stoch_flip_frac"] = flips.to(torch.float32) / flat.numel
-        return state, frame
+        return (state, frame) if gframe is None else (state, frame, gframe)
 
-    def _apply(self, p, g, m, lr, frame, packed, w: slice, ballots, vote):
+    def _vote(self, ballots, state: LionState, guard):
+        """Start one bucket's vote: masked by the health mask under
+        ``enforce``; the ballots kept intact where telemetry or the guard
+        reads them after the tally."""
+        return collectives.vote_total_async(
+            ballots, self.wire, self.group, self.tally,
+            keep_ballots=self.telemetry or guard is not None, hier=self.hier,
+            alive=state.health if self.guard == "enforce" else None)
+
+    def _guard_frame(self, nf, flips, flip_valid: bool, dis, voted: int) -> dict:
+        """The guard frame (JAX ``_guard_frame``): the three per-rank
+        scalars become replicated ``[W]`` vectors through one
+        ``all_reduce`` of a one-hot ``[3, W]`` float64 tensor; ``disagree``
+        is the count cast to float32 over ``voted`` (1 when nothing was
+        voted), as JAX divides it."""
+        dev = nf.device
+        vec = torch.zeros(3, self.world, dtype=torch.float64, device=dev)
+        vec[0, self.rank] = nf
+        vec[1, self.rank] = flips
+        vec[2, self.rank] = dis.to(torch.float32) / max(voted, 1)
+        if self.group is not None:
+            dist.all_reduce(vec, group=self.group)
+        # filled on the device: a tensor made from a host value would wait
+        # for the card
+        return {"nonfinite": vec[0].to(torch.int64), "flips": vec[1].to(torch.int64),
+                "flip_valid": torch.full((), bool(flip_valid), device=dev),
+                "disagree": vec[2].to(torch.float32),
+                "voted": torch.full((), voted, dtype=torch.int64, device=dev)}
+
+    def _apply(self, p, g, m, lr, frame, packed, guard, w: slice, ballots, vote):
         total = vote.wait()
+        if guard is not None:  # this rank's unmasked ballots against the election;
+            # bucket boundaries are byte-aligned
+            guard_vote(guard, guard["prev"], w.start // 8, ballots, total, ballots.numel())
         if frame is not None:
             hist, dis = fused_lion.bucket_vote_stats(ballots, total, self.world, _vt.NBINS)
             frame["margin_hist"] += hist
@@ -270,7 +390,7 @@ class DistributedLion:
             g[lo + start:lo + start + r], m[lo + start:lo + start + r], self.b1,
             self.max_grad_norm, gen) for start, _, r in buckets])
 
-    def _step_lazy(self, flat: FlatParams, state: LionState, p, g, m, lr, frame):
+    def _step_lazy(self, flat: FlatParams, state: LionState, p, g, m, lr, frame, guard):
         """The lazy refresh of the module doc: vote slot ``count mod K``'s
         slice bucket by bucket, write its election into a copy of the
         cache, apply the cached signs."""
@@ -297,11 +417,12 @@ class DistributedLion:
                 ballots = lion_math.sign_vote_bool(g[w], m[w], self.b1).to(torch.int8) * 2 - 1
             if r < size:  # the slice past n votes −1
                 ballots = torch.cat([ballots, ballots.new_full((size - r,), -1)])
-            pending.append((start, size, r, ballots, collectives.vote_total_async(
-                ballots, self.wire, self.group, self.tally, keep_ballots=self.telemetry,
-                hier=self.hier)))
+            pending.append((start, size, r, ballots, self._vote(ballots, state, guard)))
         for start, size, r, ballots, vote in pending:
             total = vote.wait()
+            if guard is not None:  # the slice's ballots, padding included, into
+                # the slot's bytes, which last held them one rotation (K steps) ago
+                guard_vote(guard, guard["prev"], (lo + start) // 8, ballots, total, r)
             if frame is not None and r:
                 hist, dis = fused_lion.bucket_vote_stats(ballots[:r], total[:r], self.world,
                                                          _vt.NBINS)
@@ -322,9 +443,13 @@ class DistributedLion:
                                                  self.weight_decay, self.b2)
             p.copy_(p_new)
             m.copy_(m_new)
-        state = LionState(state.count + 1, m, count + 1, cache)
+        gframe = None
+        if guard is not None:
+            gframe = self._guard_frame(guard["nf"], guard["flips"], count >= k,
+                                       guard["dis"], real)
+        state = state._replace(count=state.count + 1, steps=count + 1, elected=cache)
         if frame is None:
-            return state
+            return state if gframe is None else (state, gframe)
         if not _vt.tally_wire(self.wire):
             frame["margin_hist"].zero_()
 
@@ -342,7 +467,7 @@ class DistributedLion:
                                                          self.max_grad_norm, gen)
                           != lion_math.sign_vote_bool(g[w], m[w], self.b1)).sum()
             frame["stoch_flip_frac"] = flips.to(torch.float32) / n
-        return state, frame
+        return (state, frame) if gframe is None else (state, frame, gframe)
 
 
 def distributed_lion(
@@ -371,6 +496,8 @@ def distributed_lion(
     ``seed`` seeds the stochastic mode (the JAX package's init rng); a
     stochastic optimizer without one is refused."""
     parse_wire(wire)
+    if guard not in GUARD_MODES:
+        raise ValueError(f"guard must be 'off', 'observe' or 'enforce', got {guard!r}")
     if dcn_pipeline_depth < 0:
         raise ValueError(f"dcn_pipeline_depth must be >= 0, got {dcn_pipeline_depth}")
     if axis_name is None:
@@ -388,14 +515,12 @@ def distributed_lion(
     if dcn_pipeline_depth > 0:
         _refuse("the cross-step DCN pipeline (dcn_pipeline_depth)",
                 "ROADMAP Queue 1 item 11")
-    if guard != "off":
-        _refuse(f"the vote guard (guard={guard!r})", "ROADMAP Queue 1 item 10")
     if group is None and dist.is_initialized():
         group = dist.group.WORLD
     return DistributedLion(learning_rate, b1, b2, weight_decay, group=group,
                            wire=wire, vote_buckets=vote_buckets, vote_every=vote_every,
                            mom_dtype=mom_dtype, max_grad_norm=max_grad_norm, seed=seed,
-                           tally=tally, telemetry=telemetry)
+                           tally=tally, telemetry=telemetry, guard=guard)
 
 
 
@@ -438,3 +563,51 @@ def remap_worker_momentum(exp_avg: torch.Tensor, old_world: int, new_world: int)
     else:
         out = mean(f32[None]).expand((new_world,) + f32.shape[1:])
     return out.to(exp_avg.dtype).contiguous()
+
+
+def _masked_mean(rows: torch.Tensor, healthy: torch.Tensor) -> torch.Tensor:
+    """The float32 mean of the ``healthy`` rows of ``rows`` ([W, k]): every
+    row times its 0/1 weight, summed in rank order, over the healthy count
+    (at least 1), as JAX's ``jnp.sum(f32 * mask, axis=0) / denom``."""
+    wts = healthy.to(torch.float32)
+    f32 = rows.to(torch.float32)
+    total = f32[0] * wts[0]
+    for i in range(1, f32.shape[0]):
+        total = total + f32[i] * wts[i]
+    return total / torch.clamp_min(wts.sum(), 1.0)
+
+
+def heal_worker_momentum(exp_avg: torch.Tensor, healthy, workers) -> torch.Tensor:
+    """Reset the rows ``workers`` of per-rank momenta stacked ``[W, ...]``
+    to the mean of the ``healthy`` rows, in float32 and cast back (JAX
+    ``heal_worker_momentum``, bit for bit: the vote guard's readmission and
+    the elastic resume over a checkpoint with quarantined ranks)."""
+    healthy = torch.as_tensor(healthy, dtype=torch.bool, device=exp_avg.device)
+    out = exp_avg.clone()
+    mean = _masked_mean(exp_avg.reshape(exp_avg.shape[0], -1), healthy).to(exp_avg.dtype)
+    for w in workers:
+        out[int(w)] = mean.view(exp_avg.shape[1:])
+    return out
+
+
+@torch.no_grad()
+def heal_rank_momentum(m: torch.Tensor, healthy, workers, group) -> None:
+    """:func:`heal_worker_momentum` over rank-local momenta: every rank of
+    ``group`` calls it; the ranks in ``workers`` overwrite their ``m`` in
+    place with the mean of the ``healthy`` ranks'. Window by window, each
+    window gathered from every rank and reduced in rank order, so the result
+    is the stacked form's bit for bit and no rank holds more than ``W``
+    windows."""
+    rank = rank_of(group)
+    workers = {int(w) for w in workers}
+    healthy = torch.as_tensor(healthy, dtype=torch.bool, device=m.device)
+    world = collectives.world_of(group)
+    for lo in range(0, m.numel(), GUARD_WINDOW):
+        mine = m[lo:lo + GUARD_WINDOW]
+        rows = torch.empty((world, mine.numel()), dtype=m.dtype, device=m.device)
+        if group is None:
+            rows[0] = mine
+        else:
+            collectives._all_gather(rows.view(-1), mine.contiguous(), group=group)
+        if rank in workers:
+            mine.copy_(_masked_mean(rows, healthy).to(m.dtype))

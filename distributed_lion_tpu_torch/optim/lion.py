@@ -22,7 +22,7 @@ from typing import Callable, NamedTuple, Optional, Sequence, Union
 import torch
 
 from distributed_lion_tpu_torch.ops import lion_math
-from distributed_lion_tpu_torch.ops.codec import vote_chunk_elems
+from distributed_lion_tpu_torch.ops.codec import packed_size, vote_chunk_elems
 
 Schedule = Union[float, Callable[[torch.Tensor], torch.Tensor]]
 
@@ -34,6 +34,10 @@ class LionState(NamedTuple):
     # and picks the lazy slot
     elected: Optional[torch.Tensor] = None  # packed uint8 elected-sign cache,
     # replicated; present only under vote_every > 1 (K * chunk / 8 bytes)
+    health: Optional[torch.Tensor] = None  # the vote guard's [W] bool health
+    # mask, replicated; present only with the guard on
+    prev_ballot: Optional[torch.Tensor] = None  # the guard's packed uint8
+    # previous ballot of this rank (guard_ballot_len bytes); guard only
 
 
 class FlatParams:
@@ -121,19 +125,40 @@ def resolve_mom_dtype(mom_dtype) -> Optional[torch.dtype]:
     return MOM_DTYPES[mom_dtype]
 
 
+def guard_ballot_len(n: int, vote_every: int) -> int:
+    """Bytes of the vote guard's previous-ballot state (JAX
+    ``_guard_ballot_len``): the elected cache's per-slot layout under lazy
+    refresh, so the refreshed slot's bytes line up across steps; plain
+    bit-packing otherwise."""
+    if vote_every > 1:
+        return vote_every * vote_chunk_elems(n, vote_every) // 8
+    return packed_size(n)
+
+
+def fresh_guard_state(n: int, vote_every: int, world: int, device) -> dict:
+    """The guard's fields of a fresh :class:`LionState`: every rank healthy
+    and a zero previous ballot (no real previous vote)."""
+    return {"health": torch.ones(world, dtype=torch.bool, device=device),
+            "prev_ballot": torch.zeros(guard_ballot_len(n, vote_every), dtype=torch.uint8,
+                                       device=device)}
+
+
 def init_state(flat: FlatParams, mom_dtype: Optional[torch.dtype] = None,
-               vote_every: int = 1) -> LionState:
+               vote_every: int = 1, guard_world: int = 0) -> LionState:
     """Step 0 and zero momentum in ``mom_dtype``, else the param dtype (the
     reference's ``exp_avg = zeros_like(p)``); under ``vote_every`` K > 1 a
-    zeroed elected cache of ``K * vote_chunk_elems(n, K) / 8`` bytes."""
+    zeroed elected cache of ``K * vote_chunk_elems(n, K) / 8`` bytes; with
+    ``guard_world`` W > 0 the vote guard's fresh state for W ranks."""
     elected = None
     if vote_every > 1:
         chunk = vote_chunk_elems(flat.numel, vote_every)
         elected = torch.zeros(vote_every * chunk // 8, dtype=torch.uint8, device=flat.device)
+    guard = (fresh_guard_state(flat.numel, vote_every, guard_world, flat.device)
+             if guard_world else {})
     return LionState(
         count=torch.zeros((), dtype=torch.int32, device=flat.device),
         exp_avg=torch.zeros_like(flat.params, dtype=mom_dtype or flat.params.dtype),
-        elected=elected)
+        elected=elected, **guard)
 
 
 class Lion:

@@ -22,15 +22,29 @@ election, ``hier_launch`` + ``hier_consume`` at depth 0, :394-606):
   It equals the flat vote at g = 1 and g = W.
 
 Every wire elects +1 exactly where the returned total is > 0; ties elect
-−1 (at both levels of the hier wire). With no process group (a world of one) the total is the rank's own ±1
-ballots, as a ``psum`` over a size-1 mesh axis is. :func:`vote_total_async`
-issues the first collective with ``async_op=True`` and returns a
-:class:`PendingVote`, so the optimizer can apply the previous bucket while
-this one is on the wire.
+−1 (at both levels of the hier wire). With no process group (a world of
+one) the total is the rank's own ±1 ballots, as a ``psum`` over a size-1
+mesh axis is. :func:`vote_total_async` issues the first collective with
+``async_op=True`` and returns a :class:`PendingVote`, so the optimizer can
+apply the previous bucket while this one is on the wire.
+
+``alive`` (a ``[W]`` bool tensor, the same on every rank: the vote guard's
+health mask) makes every wire a **masked election**, as the JAX package's
+``vote_total(alive=...)``: a rank whose bit is off abstains and the
+majority threshold shrinks to the healthy quorum ``Σ alive``. On
+``sign_psum`` it sends zero ballots; ``packed_allgather`` and
+``packed_a2a`` count the healthy rows only and elect where ``count * 2 >
+Σ alive``; on ``hier:<g>`` its int8 ballots become 0 in leg 1 (it still
+sends its share of the all-to-all), and at level 2 a group with no healthy
+member abstains, the threshold being the number of groups that still hold
+one. The zeroing goes into the wire's own buffer, never into ``ballots``.
+With ``alive`` all true the tally is bit-identical to ``alive=None``, and
+the bytes recorded in a :class:`WireTally` do not depend on the mask.
 """
 
 from __future__ import annotations
 
+from datetime import timedelta
 from typing import Callable, Optional
 
 import torch
@@ -82,6 +96,27 @@ def world_of(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
+_SIDE_COUNT: dict[tuple[int, ...], int] = {}
+
+
+def side_group(group, timeout: timedelta):
+    """A gloo group over ``group``'s ranks for host-side agreement off the
+    main group (the checkpoint commit, the preemption flag). Only the
+    members of ``group`` build it, in the same order on each: it is a
+    gloo backend on a prefix of the default store, named by the member
+    ranks and a per-process count, where ``dist.new_group`` would be
+    collective over the whole default group (and its local form names the
+    group by how many groups each process holds, which differs between
+    members of different subgroups). ``dist`` collectives take it as a
+    group."""
+    ranks = tuple(dist.get_process_group_ranks(group))
+    k = _SIDE_COUNT.get(ranks, 0)
+    _SIDE_COUNT[ranks] = k + 1
+    store = dist.PrefixStore(f"dlion_side/{'_'.join(map(str, ranks))}/{k}/",
+                             dist.distributed_c10d._get_default_store())
+    return dist.ProcessGroupGloo(store, ranks.index(dist.get_rank()), len(ranks), timeout)
+
+
 class HierGroups:
     """The process groups of the ``hier:<g>`` wire over ``group``: each
     rank's own group of g consecutive ranks (``intra``) and the ranks at its
@@ -108,8 +143,12 @@ class HierGroups:
                 self.cross = sub
 
 
+def _own_bit(alive: torch.Tensor, group) -> torch.Tensor:
+    return alive[dist.get_rank(group)]
+
+
 def _hier_vote(ballots: torch.Tensor, w: int, hier: HierGroups,
-               tally: WireTally) -> PendingVote:
+               tally: WireTally, alive: Optional[torch.Tensor], group) -> PendingVote:
     """The hier election of the module doc; member ``index`` owns chunk
     ``index``. Each leg records the bytes ``codec.hier_legs`` counts."""
     n, g, n_groups = ballots.numel(), hier.size, hier.n_groups
@@ -119,6 +158,10 @@ def _hier_vote(ballots: torch.Tensor, w: int, hier: HierGroups,
     buf = ballots.to(acc)
     if g * chunk > n:  # padding votes −1; its elections are cut off below
         buf = torch.cat([buf, buf.new_full((g * chunk - n,), -1)])
+    group_alive = None
+    if alive is not None:  # a quarantined member's ballots are 0 in leg 1
+        buf = torch.where(_own_bit(alive, group), buf, torch.zeros_like(buf))
+        group_alive = alive.view(n_groups, g).any(1)
     if g > 1:  # leg 1: every member's ballots for the chunk I own
         arrived = torch.empty_like(buf)
         tally.record("ici", legs["leg1"])
@@ -130,13 +173,20 @@ def _hier_vote(ballots: torch.Tensor, w: int, hier: HierGroups,
         if work is not None:
             work.wait()
         verdict = arrived.view(g, chunk).sum(0, dtype=torch.int32) > 0  # tie → −1
+        if n_groups == 1 and group_alive is not None:
+            verdict = verdict & group_alive[0]  # a group with no healthy member abstains
         mine = pack_signs(verdict)
         if n_groups > 1:  # leg 2: every group's verdict on my chunk
             stack = mine.new_empty(n_groups * mine.numel())
             tally.record("dcn", legs["leg2"])
             _all_gather(stack, mine, group=hier.cross)
-            count = unpack_signs(stack, (n_groups, chunk)).sum(0, dtype=torch.int32)
-            mine = pack_signs(count * 2 > n_groups)  # tie → −1
+            bits = unpack_signs(stack, (n_groups, chunk))
+            if group_alive is None:
+                quorum = n_groups
+            else:  # a group with no healthy member abstains
+                bits = bits & group_alive[:, None]
+                quorum = group_alive.sum(dtype=torch.int32)
+            mine = pack_signs(bits.sum(0, dtype=torch.int32) * 2 > quorum)  # tie → −1
         if g > 1:  # leg 3: the elected chunks of my group's members
             elected = mine.new_empty(g * mine.numel())
             tally.record("ici", legs["leg3"])
@@ -148,19 +198,32 @@ def _hier_vote(ballots: torch.Tensor, w: int, hier: HierGroups,
     return PendingVote(finish)
 
 
+def _healthy_count(bits: torch.Tensor, alive: Optional[torch.Tensor], w: int):
+    """Per coordinate, the rows of ``bits`` ([W, k] bool) that vote +1,
+    over the healthy rows under ``alive``; and the quorum."""
+    if alive is None:
+        return bits.sum(0, dtype=torch.int32), w
+    return (bits & alive[:, None]).sum(0, dtype=torch.int32), alive.sum(dtype=torch.int32)
+
+
 def vote_total_async(ballots: torch.Tensor, wire: str, group=None,
                      tally: Optional[WireTally] = None,
                      keep_ballots: bool = False,
-                     hier: Optional[HierGroups] = None) -> PendingVote:
+                     hier: Optional[HierGroups] = None,
+                     alive: Optional[torch.Tensor] = None) -> PendingVote:
     """Start the vote over int8 ±1 ``ballots`` ([n]); see the module doc.
     ``group`` is a process group, or None for a world of one without one.
     ``sign_psum`` at W <= 127 sums in place into ``ballots`` unless
-    ``keep_ballots`` asks for a copy (telemetry compares the ballots with
-    the tally); the other wires never write them. ``hier`` is the
-    :class:`HierGroups` of a ``hier:<g>`` wire over ``group``, built here
-    when not given."""
+    ``keep_ballots`` asks for a copy (telemetry and the vote guard compare
+    the ballots with the tally) or ``alive`` masks them; the other wires
+    never write them. ``hier`` is the :class:`HierGroups` of a
+    ``hier:<g>`` wire over ``group``, built here when not given. ``alive``
+    masks the election (module doc); in a world of one an abstaining rank's
+    total is 0 everywhere (−1 elected), as on a one-device mesh."""
     kind, size = parse_wire(wire)
     if group is None:
+        if alive is not None:
+            return PendingVote(lambda: torch.where(alive[0], ballots, torch.zeros_like(ballots)))
         return PendingVote(lambda: ballots)
     w = dist.get_world_size(group)
     tally = tally if tally is not None else WireTally()
@@ -170,10 +233,13 @@ def vote_total_async(ballots: torch.Tensor, wire: str, group=None,
             tally.record("ici", nbytes)
 
     if kind == "hier":
-        return _hier_vote(ballots, w, hier or HierGroups(group, size), tally)
+        return _hier_vote(ballots, w, hier or HierGroups(group, size), tally, alive, group)
 
     if kind == "sign_psum":
-        buf = ballots.to(torch.int8 if w <= 127 else torch.int32, copy=keep_ballots)
+        buf = ballots.to(torch.int8 if w <= 127 else torch.int32,
+                         copy=keep_ballots and alive is None)
+        if alive is not None:  # an abstainer sends zero ballots
+            buf = torch.where(_own_bit(alive, group), buf, torch.zeros_like(buf))
         record(buf.numel() * buf.element_size())
         work = dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group,
                                async_op=True)
@@ -194,8 +260,8 @@ def vote_total_async(ballots: torch.Tensor, wire: str, group=None,
         def finish():
             work.wait()
             bits = unpack_signs(gathered, (w, packed.numel() * 8))
-            count = bits.sum(0, dtype=torch.int32)[:n]
-            return count * 2 - w
+            count, quorum = _healthy_count(bits, alive, w)
+            return count[:n] * 2 - quorum
 
         return PendingVote(finish)
 
@@ -212,8 +278,8 @@ def vote_total_async(ballots: torch.Tensor, wire: str, group=None,
 
     def finish():
         work.wait()
-        bits = unpack_signs(arrived, (w, chunk * 8))
-        verdict = bits.sum(0, dtype=torch.int32) * 2 > w  # tie → False (−1)
+        count, quorum = _healthy_count(unpack_signs(arrived, (w, chunk * 8)), alive, w)
+        verdict = count * 2 > quorum  # tie → False (−1)
         mine = pack_signs(verdict)
         gathered = mine.new_empty(w * chunk)
         record((w - 1) * chunk)
@@ -227,6 +293,7 @@ def vote_total_async(ballots: torch.Tensor, wire: str, group=None,
 def vote_total(ballots: torch.Tensor, wire: str, group=None,
                tally: Optional[WireTally] = None,
                keep_ballots: bool = False,
-               hier: Optional[HierGroups] = None) -> torch.Tensor:
+               hier: Optional[HierGroups] = None,
+               alive: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Synchronous form of :func:`vote_total_async`."""
-    return vote_total_async(ballots, wire, group, tally, keep_ballots, hier).wait()
+    return vote_total_async(ballots, wire, group, tally, keep_ballots, hier, alive).wait()

@@ -24,8 +24,8 @@ rename.
   final. At a world of one the commit thread commits right after its own
   write. At W > 1 with async saves, every rank builds one more process
   group at construction, a gloo group of the same ranks that only the
-  commit thread uses (``dist.new_group``, in the same order on every
-  rank). After its own write each rank's commit thread joins a MIN
+  commit thread uses (``collectives.side_group``, which only the members
+  build, in the same order on each). After its own write each rank's commit thread joins a MIN
   ``all_reduce`` of "my files are final" on that group, and rank 0 then
   commits, or raises if a peer's write failed. No collective runs on the
   main thread's group from the commit thread, and a gloo collective
@@ -61,7 +61,7 @@ from typing import Any, Optional
 import torch
 import torch.distributed as dist
 
-from distributed_lion_tpu_torch.parallel.collectives import world_of
+from distributed_lion_tpu_torch.parallel.collectives import side_group, world_of
 from distributed_lion_tpu_torch.parallel.mesh import rank_of
 from distributed_lion_tpu_torch.train import resilience
 from distributed_lion_tpu_torch.train.resilience import (  # noqa: F401  (the API surface)
@@ -130,8 +130,7 @@ class Checkpointer:
         # the commit thread's own group: a gloo collective off the main
         # thread's group, bounded by the timeout (module doc)
         self._commit_group = (
-            dist.new_group(ranks=dist.get_process_group_ranks(group or dist.group.WORLD),
-                           backend="gloo", timeout=timedelta(seconds=commit_timeout_s))
+            side_group(group or dist.group.WORLD, timedelta(seconds=commit_timeout_s))
             if async_save and self.world > 1 else None)
         self._host: dict[str, torch.Tensor] = {}
         steps = step_numbers(self.directory)

@@ -61,17 +61,49 @@ iterator then skips the consumed batches (``skip``, else replay), and the
 restored count, host step count and seed make the dropout masks, the LR and
 the stochastic draws those of an uninterrupted run.
 
+**The vote guard, the NaN sentinel, the profiler and preemption** (JAX
+loop.py:1160-1320, :1430-1471, :1665-1690, :1830-1863). ``vote_guard``
+(``observe``/``enforce``, Lion only) builds the optimizer's guard and the
+host quarantine machine (``train/vote_guard.py``); ``inject_poison``
+(``train/resilience.parse_poison``) makes rank ``w`` a sick voter from
+step ``s`` on, before clipping: NaN grads, zero grads (a frozen ballot) or
+negated grads (a flipped one). ``nan_sentinel`` watches the loss and the
+pre-clip grad norm (meaned over the ranks; under ``enforce`` over the
+ranks whose norm is finite), and on a nonfinite value writes a crash
+bundle (``train.telemetry.write_crash_bundle``, the guard's sick ranks in
+it and in the reason) and raises ``FloatingPointError``; with
+``trace_on_anomaly`` it first traces ``profile_num_steps`` more steps into
+``<bundle>/trace``. The guard's observations and the sentinel's values are
+copied to the host without waiting and read one step behind, after the
+next step has been issued, as the JAX trainer reads them one dispatch
+behind: a quarantine lands on the same step as there. ``profile_dir``
+traces ``[profile_start_step, + profile_num_steps)``
+(``train/profiling.py``). ``on_preempt="save_exit"`` (the default)
+installs a SIGTERM flag (``resilience.PreemptionGuard``) read at every
+step boundary: the run writes a checkpoint tagged ``preempt``, commits it
+and returns with ``preempted`` set. Each rank sees its signal at its own
+time, so at W > 1 the ranks agree: each boundary starts an ``all_reduce``
+(MAX) of the flag on a gloo group of its own and the next boundary reads
+it, so every rank stops at the same step and no step waits for it. With a
+guard, checkpoints carry the health mask (replicated) and each rank's
+previous ballot, restored exactly (the mask through ``adopt_mask``); a
+guard toggle across a resume attaches fresh guard state or strips it; an
+elastic resume re-averages quarantined ranks' momenta from the healthy
+mean before the remap.
+
 ``TrainConfig`` holds only the fields the port runs, with their JAX
-defaults; the others (the vote guard, preemption, the parallel axes, …)
-are not flags here, so argparse refuses them.
+defaults; the others (the control plane, the parallel axes, …) are not
+flags here, so argparse refuses them.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 import os
 import time
+from datetime import timedelta
 from typing import Callable, Iterator, Optional
 
 import numpy as np
@@ -86,15 +118,23 @@ from distributed_lion_tpu_torch.ops.quant import map_tree
 from distributed_lion_tpu_torch.ops.xent import chunked_clm_loss_and_metrics
 from distributed_lion_tpu_torch.optim.distributed_lion import (
     distributed_lion,
+    heal_rank_momentum,
+    heal_worker_momentum,
     remap_worker_momentum,
 )
-from distributed_lion_tpu_torch.optim.lion import FlatParams, LionState
+from distributed_lion_tpu_torch.optim.lion import FlatParams, LionState, fresh_guard_state
 from distributed_lion_tpu_torch.optim.optax_adapter import AdamWState, adamw
 from distributed_lion_tpu_torch.parallel import collectives
 from distributed_lion_tpu_torch.parallel.mesh import rank_of, resolve_device
-from distributed_lion_tpu_torch.train import telemetry
+from distributed_lion_tpu_torch.train import resilience, telemetry, vote_guard
 from distributed_lion_tpu_torch.train.checkpoint import Checkpointer
 from distributed_lion_tpu_torch.train.metrics import MetricsLogger
+from distributed_lion_tpu_torch.train.profiling import (
+    StepProfiler,
+    StepTimer,
+    comm_report,
+    peak_hbm_gb,
+)
 from distributed_lion_tpu_torch.train.schedule import (
     constant_schedule,
     cosine_schedule_with_warmup,
@@ -139,6 +179,17 @@ class TrainConfig:
     ckpt_integrity: bool = True  # sha256 manifest + COMMITTED marker, verified resume
     elastic_resume: bool = False  # resume another world size, momenta remapped
     vocab_chunks: int = 0  # > 0: the chunked-vocabulary cross entropy (ops/xent.py)
+    on_preempt: str = "save_exit"  # save_exit | off: SIGTERM saves a 'preempt' step, returns
+    profile_dir: Optional[str] = None  # trace a window of steps (train/profiling.py)
+    profile_start_step: int = 10
+    profile_num_steps: int = 3
+    nan_sentinel: bool = False  # loss / pre-clip grad norm watch: crash bundle + raise
+    trace_on_anomaly: bool = False  # with nan_sentinel: trace profile_num_steps first
+    vote_guard: str = "off"  # off | observe | enforce (train/vote_guard.py)
+    min_quorum: int = 0  # enforce: refuse below this many healthy ranks; 0 = W//2 + 1
+    guard_strikes: int = 3  # bad observed steps before a quarantine
+    guard_cooldown: int = 50  # steps in quarantine before a readmission probe
+    inject_poison: str = ""  # '<kind>:<worker>[:<start_step>]' (resilience.parse_poison)
 
     def schedule(self) -> Callable:
         if self.lr_scheduler_type == "cosine":
@@ -215,6 +266,10 @@ def make_optimizer(cfg: TrainConfig, group=None):
         raise ValueError(
             "--telemetry instruments the majority-vote election; the AdamW "
             "path has no vote to observe — drop one of the two flags")
+    if vote_guard.parse_guard_mode(cfg.vote_guard) != "off" and not cfg.lion:
+        raise ValueError(
+            "--vote_guard protects the majority-vote election; the AdamW "
+            "path has no vote to guard — drop one of the two flags")
     if not cfg.lion:
         if cfg.async_grad:
             raise ValueError(
@@ -228,7 +283,7 @@ def make_optimizer(cfg: TrainConfig, group=None):
         max_grad_norm=cfg.max_grad_norm, seed=cfg.seed,
         wire="sign_psum" if cfg.wire == "auto" else cfg.wire,
         vote_every=cfg.vote_every or 1, vote_buckets=cfg.vote_buckets or 1,
-        mom_dtype=cfg.mom_dtype or None, telemetry=cfg.telemetry,
+        mom_dtype=cfg.mom_dtype or None, telemetry=cfg.telemetry, guard=cfg.vote_guard,
     )
 
 
@@ -261,6 +316,33 @@ ADAMW_FILE = "adamw.pt"  # AdamW's replicated moments
 
 def momentum_file(rank: int) -> str:
     return f"exp_avg/rank{rank:05d}.pt"
+
+
+def prev_ballot_file(rank: int) -> str:
+    """The vote guard's previous ballot of ``rank`` (the mask is in
+    ``STATE_FILE``)."""
+    return f"prev_ballot/rank{rank:05d}.pt"
+
+
+class HostCopy:
+    """A small device tensor copied to pinned host memory behind the work
+    already queued, so reading it later waits for that work only and not
+    for steps issued since (the JAX trainer's one-dispatch-behind read)."""
+
+    def __init__(self, t: torch.Tensor):
+        self._event = None
+        if t.device.type == "cuda":
+            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = t
+
+    def get(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
 
 
 def _rows(batch, lo: int, hi: int):
@@ -320,6 +402,39 @@ def _announce(family: str, n: int, world: int, cfg: TrainConfig, device) -> None
           + f": {acct['bits_per_param']:.2f} bits/param/step | device={device}")
 
 
+def announce_guards(trainer: "Trainer", prog: str) -> None:
+    """The CLIs' banner lines for the NaN sentinel and the vote guard (JAX
+    run_clm.py:454-466), on rank 0."""
+    cfg = trainer.cfg
+    if trainer.rank != 0:
+        return
+    if cfg.nan_sentinel:
+        print(f"[{prog}] NaN sentinel armed: a non-finite loss or pre-clip grad norm "
+              + (f"writes a crash bundle to {cfg.output_dir}/crash/step_<n>/bundle.json and "
+                 if cfg.output_dir else "")
+              + ("traces " + str(cfg.profile_num_steps) + " more steps, then "
+                 if cfg.trace_on_anomaly else "")
+              + "raises FloatingPointError", flush=True)
+    if cfg.vote_guard != "off":
+        print(f"[{prog}] vote guard {cfg.vote_guard.upper()}: per-worker ballot health inside "
+              "the step (nonfinite / frozen / outlier), quarantine after "
+              f"{cfg.guard_strikes} strikes, readmission probe after {cfg.guard_cooldown} steps, "
+              f"refusing below quorum {trainer._guard.min_quorum}/{trainer.world}"
+              + ("" if cfg.vote_guard == "enforce" else " (observe: elections untouched)"),
+              flush=True)
+
+
+def report_preempted(trainer: "Trainer", prog: str) -> bool:
+    """After ``train``: True when a preemption stopped it, with the CLIs'
+    exit line (JAX run_clm.py:512-515); the CLI then returns, exit code 0."""
+    if trainer.preempted and trainer.rank == 0:
+        print(f"[{prog}] preempted: "
+              + ("checkpoint durable, " if trainer.checkpointer
+                 else "NO checkpointer (no --output_dir) — nothing saved, ")
+              + "exiting cleanly", flush=True)
+    return trainer.preempted
+
+
 class Trainer:
     """Train/eval loop on one rank over ``named_params`` (in the JAX
     package's leaf order: the flat buffers' layout) and ``loss_fn``.
@@ -351,8 +466,38 @@ class Trainer:
                   "keeps the matmul speed) unless this is a throughput bench.", flush=True)
         self.device = self.flat.device
         self.n_params = self.flat.numel
+        if cfg.on_preempt not in ("save_exit", "off"):
+            raise ValueError(f"--on_preempt {cfg.on_preempt!r}: expected 'save_exit' (drain + "
+                             "emergency checkpoint + clean return) or 'off'")
         self.opt = make_optimizer(cfg, group)
         self.state = self.opt.init(self.flat)
+        self._guard = (vote_guard.make_guard(self.world, cfg.vote_guard, cfg.guard_strikes,
+                                             cfg.guard_cooldown, cfg.min_quorum)
+                       if cfg.lion else None)
+        self._guard_pending = None  # (step, HostCopy of the observations, steps)
+        if cfg.inject_poison:
+            resilience.inject_fault("ballot_poison", resilience.parse_poison(cfg.inject_poison))
+            if self.rank == 0:
+                print(f"[trainer] FAULT INJECTION armed: ballot poison {cfg.inject_poison!r}",
+                      flush=True)
+        self._metrics_window: collections.deque = collections.deque(maxlen=16)
+        self._sentinel_pending = None  # (step, keys, HostCopy) awaiting the check
+        self._sentinel_now = None  # this step's (keys, HostCopy): the logged grad_norm
+        self._anomaly_deadline: Optional[int] = None  # the step the anomaly trace ends at
+        self._anomaly_reason = ""
+        self.preempted = False
+        self._preempt = (resilience.PreemptionGuard() if cfg.on_preempt == "save_exit"
+                         else None)
+        # the ranks' agreement on the flag rides a gloo group of its own, on
+        # the host: reading it never waits for the card
+        self._preempt_group = (
+            collectives.side_group(group, timedelta(seconds=1800))
+            if self._preempt is not None and self.world > 1 else None)
+        self._preempt_pending = None  # (work, flag) started at the last boundary
+        self.profiler = StepProfiler(cfg.profile_dir, cfg.profile_start_step,
+                                     cfg.profile_num_steps, cuda=self.device.type == "cuda",
+                                     rank=self.rank)
+        self.timer = StepTimer()
         self.margin_exact = telemetry.tally_wire(cfg.wire)
         self.vote_health = (telemetry.init_vote_health(self.n_params, cfg.vote_every,
                                                        self.device)
@@ -433,37 +578,26 @@ class Trainer:
             loss_fn = clm_loss_fn(lambda tokens, seed: model(tokens))
         return Trainer(cfg, named, loss_fn, group=group, model=model)
 
-    def comm_stats(self) -> dict:
-        """The vote's analytic wire bytes (JAX ``Trainer.comm_stats``, its
-        keys): empty for AdamW and for a world of one, where no vote
-        collective runs."""
+    def comm_stats(self, steps_per_sec: Optional[float] = None) -> dict:
+        """The vote's analytic wire bytes (JAX ``Trainer.comm_stats``,
+        ``profiling.comm_report``'s keys): empty for AdamW and for a world
+        of one, where no vote collective runs."""
         cfg = self.cfg
         if not cfg.lion or self.world <= 1:
             return {}
-        acct = wire_bytes_per_param(self.n_params, self.world, cfg.wire,
-                                    vote_every=cfg.vote_every,
-                                    accum_steps=cfg.gradient_accumulation_steps,
-                                    vote_buckets=cfg.vote_buckets or 1)
-        out = {"wire": acct["wire"], "comm_bytes_per_step": acct["bytes_per_step"],
-               "comm_bits_per_param": acct["bits_per_param"],
-               "comm_bits_per_param_per_microbatch": acct["bits_per_param_per_microbatch"],
-               "vote_buckets": acct["vote_buckets"],
-               "comm_overlap_frac": acct["overlappable_wire_frac"],
-               "vs_bf16_allreduce": acct["vs_bf16_allreduce"],
-               "vs_reference_wire": acct["bytes_per_step"]
-               / max(acct["reference_bytes_per_step"], 1)}
-        if "dcn_bytes_per_step" in acct:
-            out.update(comm_dcn_bytes_per_step=acct["dcn_bytes_per_step"],
-                       comm_dcn_bits_per_param=acct["dcn_bits_per_param"],
-                       dcn_pipeline_depth=acct["dcn_pipeline_depth"],
-                       dcn_overlap_frac=acct["dcn_overlap_frac"])
-        return out
+        return comm_report(self.n_params, self.world, cfg.wire, steps_per_sec,
+                           vote_every=cfg.vote_every,
+                           accum_steps=cfg.gradient_accumulation_steps,
+                           vote_buckets=cfg.vote_buckets or 1)
 
     def global_train_batch(self) -> int:
         return (self.world * self.cfg.per_device_train_batch_size
                 * self.cfg.gradient_accumulation_steps)
 
-    def _train_step(self, batch) -> dict:
+    def _train_step(self, batch) -> tuple:
+        """One optimizer step on this rank's shard of ``batch``; returns the
+        microbatch-meaned local metrics, and the sentinel's values and the
+        guard's observations (:class:`HostCopy` each, or None)."""
         cfg = self.cfg
         accum, bs = cfg.gradient_accumulation_steps, cfg.per_device_train_batch_size
         local = _to_device(_rows(batch, self.rank * accum * bs, (self.rank + 1) * accum * bs),
@@ -476,25 +610,83 @@ class Trainer:
             loss.backward()
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + v.detach()
+        metrics = {k: v / accum for k, v in sums.items()}
+        grads = self.flat.grads
         with torch.no_grad():
-            self.flat.grads.div_(accum)
+            grads.div_(accum)
             if not cfg.async_grad:
                 if self.group is not None:
-                    dist.all_reduce(self.flat.grads, group=self.group)
-                self.flat.grads.div_(self.world)
+                    dist.all_reduce(grads, group=self.group)
+                grads.div_(self.world)
+            self._inject_poison(grads)
+            # pre-clip: clipping would hide the explosion the sentinel watches for
+            gsq = (torch.sum(torch.square(grads.to(torch.float32))) if cfg.nan_sentinel
+                   else None)
             clip = (cfg.grad_clip_norm if cfg.grad_clip_norm is not None
                     else cfg.max_grad_norm)
             if clip:
-                sq = torch.sum(torch.square(self.flat.grads.to(torch.float32)))
+                sq = gsq if gsq is not None else torch.sum(torch.square(grads.to(torch.float32)))
                 scale = torch.clamp_max(clip / torch.clamp_min(torch.sqrt(sq), 1e-12), 1.0)
-                self.flat.grads.mul_(scale.to(self.flat.grads.dtype))
-        if self.vote_health is None:
-            self.state = self.opt.step(self.flat, self.state)
+                grads.mul_(scale.to(grads.dtype))
+        out = self.opt.step(self.flat, self.state)
+        if type(out) is tuple:  # (state, *frames); a state is a NamedTuple
+            self.state, *frames = out
         else:
-            self.state, frame = self.opt.step(self.flat, self.state)
-            self.vote_health = telemetry.fold(self.vote_health, frame, self.group,
+            self.state, frames = out, []
+        if self.vote_health is not None:
+            self.vote_health = telemetry.fold(self.vote_health, frames.pop(0), self.group,
                                               self.world, self.n_params)
-        return {k: v / accum for k, v in sums.items()}
+        obs = self._guard_observations(frames.pop(0)) if self._guard is not None else None
+        sentinel = self._sentinel_values(metrics, gsq) if gsq is not None else None
+        return metrics, sentinel, obs
+
+    def _inject_poison(self, grads: torch.Tensor) -> None:
+        """``--inject_poison`` (JAX loop.py:1428-1448): this rank becomes a
+        sick voter from the poison's start step on, before clipping: NaN
+        grads (they poison the momentum; a NaN ballot votes −1), zero grads
+        (the ballot freezes at sign(m)) or negated grads (an inverted voter)."""
+        poison = resilience.fault("ballot_poison")
+        if poison is None:
+            return
+        kind, worker, start = poison
+        if self.rank != worker or self.step_count < start:
+            return
+        if kind == "nan_grads":
+            grads.fill_(math.nan)
+        elif kind == "frozen_ballot":
+            grads.zero_()
+        else:  # flipped_ballot
+            grads.neg_()
+
+    def _guard_observations(self, gframe: dict) -> HostCopy:
+        """The guard frame as the ``vote_guard.OBS_KEYS`` rows of one
+        ``[4, W]`` float64 tensor, on its way to the host: nonfinite inputs,
+        a frozen ballot (no bit flipped against a real previous vote), the
+        disagreement fraction, and whether anything was voted."""
+        voted = (gframe["voted"] > 0).expand(self.world)
+        frozen = (gframe["flips"] == 0) & gframe["flip_valid"] & voted
+        return HostCopy(torch.stack([(gframe["nonfinite"] > 0).double(), frozen.double(),
+                                     gframe["disagree"].double(), voted.double()]))
+
+    def _sentinel_values(self, metrics: dict, gsq: torch.Tensor) -> tuple:
+        """The step's metrics meaned over the ranks and the pre-clip global
+        grad norm, from one ``all_reduce``, on their way to the host: the
+        norm is the root of the ranks' mean squared norm, or under
+        ``enforce`` of the mean over the ranks where it is finite (a
+        quarantined rank's NaN must not trip the sentinel on a run the
+        guard keeps healthy; JAX loop.py:1452-1471)."""
+        keys = list(metrics)
+        enforce = self.cfg.vote_guard == "enforce"
+        finite = torch.isfinite(gsq)
+        parts = ([torch.where(finite, gsq, 0.0), finite.to(torch.float32)] if enforce
+                 else [gsq])
+        vec = torch.stack([metrics[k].to(torch.float32) for k in keys] + parts)
+        if self.group is not None:
+            dist.all_reduce(vec, group=self.group)
+        n = len(keys)
+        norm = (torch.sqrt(vec[n] / torch.clamp_min(vec[n + 1], 1.0)) if enforce
+                else torch.sqrt(vec[n] / self.world))
+        return keys + ["grad_norm"], HostCopy(torch.cat([vec[:n] / self.world, norm[None]]))
 
     def _mean_over_ranks(self, metrics: dict) -> dict:
         vals = torch.stack([v.to(torch.float32) for v in metrics.values()])
@@ -506,7 +698,8 @@ class Trainer:
     def train(self, train_iter: Iterator, eval_blocks=None) -> list[dict]:
         """Step-based training to ``max_steps``; ``train_iter`` yields global
         batches of ``world*accum*per_device_bs`` rows (an array, or a dict
-        of arrays), each rank taking its shard."""
+        of arrays), each rank taking its shard. Returns early, with
+        ``preempted`` set, after a preemption's checkpoint."""
         cfg = self.cfg
         total = cfg.max_steps
         tokens_per_step = self.global_train_batch() * cfg.block_size
@@ -522,11 +715,31 @@ class Trainer:
         t_last, s_last = time.perf_counter(), self.step_count
         data_wait = 0.0
         while self.step_count < total:
+            self.profiler.maybe_start(self.step_count)
             t_data = time.perf_counter()
             batch = next(train_iter)
             data_wait += time.perf_counter() - t_data
-            metrics = self._train_step(batch)
+            with self.profiler.annotate(self.step_count):
+                metrics, sentinel, obs = self._train_step(batch)
             self.step_count += 1
+            self.timer.tick()
+            self.profiler.maybe_stop(self.step_count)
+            if obs is not None:
+                # the previous step's observations, read now that this one
+                # is issued: the JAX trainer's one-dispatch-behind read
+                if self._guard_pending is not None:
+                    self._apply_guard(*self._guard_pending)
+                self._guard_pending = (self.step_count, obs, 1)
+            if sentinel is not None:
+                if self._sentinel_pending is not None:
+                    self._check_sentinel(*self._sentinel_pending)
+                self._sentinel_pending = self._sentinel_now = (self.step_count, *sentinel)
+            if self._anomaly_deadline is not None and self.step_count >= self._anomaly_deadline:
+                # trace_on_anomaly: the armed window has captured its steps
+                self.profiler.maybe_stop(self.step_count)
+                if self.checkpointer:
+                    self.checkpointer.finalize()
+                raise FloatingPointError(self._anomaly_reason)
             if self.step_count % cfg.logging_steps == 0 or self.step_count == total:
                 m = self._mean_over_ranks(metrics)
                 if self.device.type == "cuda":
@@ -537,6 +750,13 @@ class Trainer:
                 m["tokens_per_sec"] = tokens_per_step * steps / max(now - t_last, 1e-9)
                 m["lr"] = float(self._schedule(torch.tensor(self.step_count - 1)))
                 m["data_wait_ms"] = 1e3 * data_wait / steps
+                m.update(self.timer.stats())
+                if self._sentinel_now is not None:
+                    _, keys, vals = self._sentinel_now
+                    m["grad_norm"] = float(vals.get()[keys.index("grad_norm")])
+                hbm = peak_hbm_gb() if self.device.type == "cuda" else None
+                if hbm is not None:
+                    m["peak_hbm_gb"] = hbm
                 data_wait = 0.0
                 if self.checkpointer:
                     # seconds the loop was blocked on checkpointing since
@@ -551,7 +771,13 @@ class Trainer:
                     vote = telemetry.drain(self.vote_health, self.margin_exact)
                     self.vote_health = telemetry.reset_counters(self.vote_health)
                     m.update({f"vote/{k}": v for k, v in vote.items()})
+                if self._guard is not None:
+                    # the machine's state as of the last folded step
+                    m.update(self._guard.summary(),
+                             guard_healthy_mask=[bool(h) for h in self._guard.healthy],
+                             guard_strikes=[int(x) for x in self._guard.strikes])
                 self.history.append({"step": self.step_count, **m})
+                self._metrics_window.append({"step": self.step_count, **m})
                 if self.rank == 0:
                     self.logger.log(self.step_count, m, prefix="train")
             if eval_blocks is not None and self.step_count % cfg.eval_steps == 0:
@@ -559,7 +785,172 @@ class Trainer:
                                      **self.evaluate(eval_blocks)})
             if self.checkpointer and self.step_count % cfg.save_steps == 0:
                 self.save()
+            if self._preempt_due():
+                self._preempt_exit()
+                break
+        self._drain_pending()
         return self.history
+
+    def _drain_pending(self) -> None:
+        """The last step's observations and sentinel values were still
+        pending: fold and check them, so the machine's counters (and a
+        quorum refusal) cover the whole run and a bundle names the sick
+        ranks from the complete evidence (JAX loop.py:1853-1863)."""
+        if self._guard_pending is not None:
+            pending, self._guard_pending = self._guard_pending, None
+            self._apply_guard(*pending)
+        if self._sentinel_pending is not None:
+            pending, self._sentinel_pending = self._sentinel_pending, None
+            self._check_sentinel(*pending, force_raise=True)
+        if self._preempt_pending is not None:
+            work, _ = self._preempt_pending
+            self._preempt_pending = None
+            work.wait()
+
+    def _preempt_due(self) -> bool:
+        """Whether to stop at this step boundary. In a world of one, the
+        flag itself; at W > 1 the MAX over the ranks of the flags each rank
+        sent at the previous boundary, so every rank stops at the same
+        step; this boundary's flags go out for the next one."""
+        if self._preempt is None:
+            return False
+        local = self._preempt.should_stop()
+        if self._preempt_group is None:
+            return local
+        due = False
+        if self._preempt_pending is not None:
+            work, flag = self._preempt_pending
+            self._preempt_pending = None
+            work.wait()
+            due = bool(flag.item())
+        if not due:
+            flag = torch.tensor([int(local)], dtype=torch.int32)
+            self._preempt_pending = (dist.all_reduce(flag, op=dist.ReduceOp.MAX,
+                                                     group=self._preempt_group,
+                                                     async_op=True), flag)
+        return due
+
+    def _preempt_exit(self) -> None:
+        """Preemption at a step boundary: drain the in-flight save, commit
+        a checkpoint tagged ``preempt`` and mark the run preempted."""
+        if self.checkpointer:
+            if self.rank == 0:
+                print(f"[trainer] preemption at step {self.step_count}: draining in-flight "
+                      "save, writing emergency checkpoint", flush=True)
+            self.save(tag="preempt")
+            self.checkpointer.finalize()
+        elif self.rank == 0:
+            print(f"[trainer] preemption at step {self.step_count}: no output_dir — NOTHING "
+                  "SAVED; a restart begins from step 0", flush=True)
+        self.preempted = True
+
+    # ------------------------------------------------------ guard, sentinel
+    def _apply_guard(self, step: int, obs: HostCopy, advanced: int) -> None:
+        """Fold one step's observations into the quarantine machine, then
+        act on its transitions under ``enforce`` (JAX loop.py:1207-1241)."""
+        rows = obs.get()
+        host = {"guard_nonfinite": rows[0].astype(np.int32),
+                "guard_frozen": rows[1].astype(np.int32),
+                "guard_disagree": rows[2].astype(np.float32),
+                "guard_voted_steps": np.asarray(int(rows[3][0]), np.int32)}
+        events = self._guard.update(step, host, advanced)
+        if self.rank == 0:
+            for line in events.logs:
+                print(f"[trainer] vote guard: {line}", flush=True)
+        if self.cfg.vote_guard == "enforce":
+            self._enforce_events(step, events.readmitted, events.mask_changed)
+
+    def _enforce_events(self, step: int, heal: list, mask_changed: bool) -> None:
+        """Act on the guard's transitions (JAX loop.py:1160-1205): a
+        readmitted rank's momentum restarts at the healthy mean, the new
+        mask goes to the optimizer state, and below the quorum the run
+        refuses to continue, after the last checkpoint is committed."""
+        if heal:
+            source = np.array(self._guard.healthy, dtype=bool)
+            source[heal] = False  # a healed rank is not its own source
+            heal_rank_momentum(self.state.exp_avg, source, heal, self.group)
+        if mask_changed:
+            self.state = self.state._replace(
+                health=torch.as_tensor(self._guard.healthy, device=self.device))
+        if not self._guard.quorum_ok():
+            if self.checkpointer:
+                self.checkpointer.finalize()
+            raise RuntimeError(
+                f"vote guard: healthy quorum {self._guard.healthy_count()}/{self.world} fell "
+                f"below --min_quorum {self._guard.min_quorum} at step {step} — a majority "
+                "election with a sick majority is noise, refusing to continue. Sick workers: "
+                f"{self._guard.sick_workers()} (counters: "
+                f"{self._guard.sick_report()['sick_workers']})")
+
+    def _check_sentinel(self, step: int, keys: list, vals: HostCopy,
+                        force_raise: bool = False) -> None:
+        """The NaN sentinel's host half (JAX loop.py:1243-1320): on a
+        nonfinite loss or pre-clip grad norm, write the crash bundle and
+        raise ``FloatingPointError``; under ``trace_on_anomaly`` first arm
+        a trace window of ``profile_num_steps`` steps into the bundle."""
+        if self._anomaly_deadline is not None and not force_raise:
+            return  # already tripped; the armed trace window is draining
+        values = dict(zip(keys, (float(v) for v in vals.get())))
+        bad = {k: values[k] for k in ("loss", "grad_norm")
+               if k in values and not math.isfinite(values[k])}
+        if not bad:
+            return
+        reason = ("non-finite " + ", ".join(f"{k}={v!r}" for k, v in bad.items())
+                  + f" at step {step}")
+        if self._guard is not None and self._guard.sick_workers():
+            # a rank's NaN grads that lose every vote never reach the loss;
+            # the guard's counters name it
+            reason += f" (vote guard sick workers: {self._guard.sick_workers()})"
+        if self.rank == 0:
+            print(f"[trainer] ANOMALY: {reason}", flush=True)
+        crash_dir = None
+        if self.cfg.output_dir:
+            crash_dir = self._write_crash_bundle(step, reason, values)
+        if self.cfg.trace_on_anomaly and not force_raise:
+            trace_base = crash_dir or self.cfg.profile_dir
+            if trace_base:
+                # an open --profile_dir window closes before the anomaly's
+                self.profiler.close()
+                self.profiler = StepProfiler(os.path.join(trace_base, "trace"), self.step_count,
+                                             self.cfg.profile_num_steps,
+                                             cuda=self.device.type == "cuda", rank=self.rank)
+                self._anomaly_deadline = self.step_count + self.cfg.profile_num_steps + 1
+                self._anomaly_reason = reason
+                if self.rank == 0:
+                    print(f"[trainer] armed anomaly trace window for steps "
+                          f"[{self.step_count}, {self._anomaly_deadline - 1})", flush=True)
+                return
+        if self.checkpointer:
+            # the last good checkpoint is committed before the anomaly unwinds
+            self.checkpointer.finalize()
+        raise FloatingPointError(reason)
+
+    def _write_crash_bundle(self, step: int, reason: str, values: dict) -> str:
+        """Every rank counts its nonfinite momentum per leaf (summed over the
+        ranks, as the JAX package counts its stacked momenta); rank 0 writes
+        the bundle. Returns its directory."""
+        counts = {"params": telemetry.nonfinite_leaf_counts(self.flat, self.flat.params)}
+        if isinstance(self.state, LionState):
+            counts["exp_avg"] = telemetry.nonfinite_leaf_counts(self.flat, self.state.exp_avg)
+            if self.group is not None:
+                dist.all_reduce(counts["exp_avg"], group=self.group)
+        else:  # AdamW: the replicated moments
+            counts["mu"] = telemetry.nonfinite_leaf_counts(self.flat, self.state.mu)
+            counts["nu"] = telemetry.nonfinite_leaf_counts(self.flat, self.state.nu)
+        crash_dir = os.path.join(self.cfg.output_dir, "crash", f"step_{step:08d}")
+        if self.rank == 0:
+            opt = {}
+            for key in ("exp_avg", "mu", "nu"):
+                if key in counts:
+                    opt.update(telemetry.nonfinite_leaf_report(self.flat.names, counts[key],
+                                                               prefix=f".{key}"))
+            window = list(self._metrics_window) + [{"step": step, "tripped": True, **values}]
+            telemetry.write_crash_bundle(
+                self.cfg.output_dir, step, reason, dataclasses.asdict(self.cfg),
+                telemetry.nonfinite_leaf_report(self.flat.names, counts["params"]), opt,
+                window, guard=None if self._guard is None else self._guard.sick_report())
+            print(f"[trainer] crash bundle written to {crash_dir}", flush=True)
+        return crash_dir
 
     @torch.no_grad()
     def evaluate(self, eval_blocks) -> dict:
@@ -598,6 +989,8 @@ class Trainer:
         st = self.state
         adam = isinstance(st, AdamWState)
         files = {} if adam else {momentum_file(self.rank): st.exp_avg}
+        if not adam and st.prev_ballot is not None:
+            files[prev_ballot_file(self.rank)] = st.prev_ballot
         if self.rank == 0:
             files[PARAMS_FILE] = {"names": list(self.flat.names),
                                   "shapes": [list(s) for s in self.flat.shapes],
@@ -610,6 +1003,8 @@ class Trainer:
                 files[STATE_FILE].update(steps=int(st.steps), seed=self.opt.seed)
                 if st.elected is not None:
                     files[STATE_FILE]["elected"] = st.elected
+                if st.health is not None:
+                    files[STATE_FILE]["health"] = st.health
             if self.vote_health is not None:
                 files[VOTE_HEALTH_FILE] = {f.name: getattr(self.vote_health, f.name)
                                            for f in dataclasses.fields(self.vote_health)}
@@ -623,7 +1018,8 @@ class Trainer:
         cfg = self.cfg
         meta = {"world": self.world, "tag": tag, "step": self.step_count,
                 "batches_consumed": self.step_count,
-                "has_vote_health": self.vote_health is not None, "has_guard": False,
+                "has_vote_health": self.vote_health is not None,
+                "has_guard": self._guard is not None,
                 "wire": cfg.wire, "vote_every": cfg.vote_every, "dcn_pipeline_depth": 0,
                 "ep_dcn_pipeline": 0, "control_plane": False, **self.data_meta}
         self.checkpointer.save(self.step_count, self._payload(), meta=meta)
@@ -652,12 +1048,33 @@ class Trainer:
                                     self.state.nu)
             self._restored_counters(state)
             return
+        # the checkpoint's health mask (a guard on when it was written)
+        health = state.get("health") if meta.get("has_guard", "health" in state) else None
         if ckpt_world == self.world:
             mom = ck.restore(step, momentum_file(self.rank))
         else:
             rows = torch.stack([ck.restore(step, momentum_file(r)) for r in range(ckpt_world)])
+            sick = [] if health is None else torch.nonzero(~health).flatten().tolist()
+            if sick:
+                # only healthy momenta enter the remap: the quarantined rows
+                # restart at the healthy mean first (JAX loop.py:2185-2198)
+                rows = heal_worker_momentum(rows, health, sick)
+                if self.rank == 0:
+                    print(f"[trainer] elastic resume: healed quarantined worker momenta {sick} "
+                          "from the healthy mean before the world remap", flush=True)
             mom = remap_worker_momentum(rows, ckpt_world, self.world)[self.rank]
         self._check_like(step, "momentum", [mom], [self.state.exp_avg])
+        guard = {"health": None, "prev_ballot": None}
+        if self._guard is not None:
+            # worker identity does not survive a world change, and a
+            # checkpoint without guard state gets a fresh one
+            guard = fresh_guard_state(self.n_params, cfg.vote_every or 1, self.world,
+                                      self.device)
+            if ckpt_world == self.world and health is not None:
+                prev = ck.restore(step, prev_ballot_file(self.rank))
+                self._check_like(step, "guard health mask and previous ballot",
+                                 [health, prev], list(guard.values()))
+                guard = {"health": health.to(self.device), "prev_ballot": prev.to(self.device)}
         elected = None
         if self.state.elected is not None:
             elected = state.get("elected")
@@ -677,8 +1094,15 @@ class Trainer:
             self.state.exp_avg.copy_(mom)
         self.state = LionState(state["count"].to(self.device), self.state.exp_avg,
                                int(state["steps"]),
-                               None if elected is None else elected.to(self.device))
+                               None if elected is None else elected.to(self.device), **guard)
         self.opt.seed = state["seed"]  # the stochastic draws', as JAX restores its key
+        if self._guard is not None:
+            mask = guard["health"].cpu().numpy()
+            self._guard.adopt_mask(mask, step)  # quarantined ranks restart their cooldown
+            if not mask.all() and self.rank == 0:
+                print(f"[trainer] vote guard: resumed with quarantined workers "
+                      f"{np.nonzero(~mask)[0].tolist()} (cooldown restarts at step {step})",
+                      flush=True)
         if vh is not None:
             self.vote_health = vh
         if ckpt_world != self.world and self.rank == 0:
@@ -762,6 +1186,12 @@ class Trainer:
                 "--output_dir elsewhere) to start fresh")
 
     def close(self) -> None:
+        self.profiler.close()
+        if self._preempt is not None:
+            self._preempt.close()
+        if self.cfg.inject_poison:
+            # a later trainer in this process does not inherit the sick rank
+            resilience.inject_fault("ballot_poison", None)
         try:
             if self.checkpointer:
                 # may raise a failure of the commit thread; the metrics log

@@ -1,7 +1,8 @@
-"""Checkpoint integrity and fault injection: port of ``distributed_lion_tpu/train/resilience.py``, the checkpoint half.
+"""Checkpoint integrity, fault injection and preemption: port of
+``distributed_lion_tpu/train/resilience.py``.
 
 Framework-free (stdlib only), copied so the port needs nothing of the JAX
-package. Three parts:
+package. Four parts:
 
 - the **on-disk contract** of a committed step: every data file under
   ``<root>/<step>/`` digested into ``manifest.json`` (sha256 and size per
@@ -16,12 +17,17 @@ package. Three parts:
   where real failures strike: ``ckpt_save_raise`` (int: the first N
   writes fail), ``ckpt_crash_before_manifest`` and
   ``ckpt_crash_before_marker`` (bool: the commit dies before that file
-  lands), ``ckpt_slow_commit`` (float: seconds the commit stalls);
+  lands), ``ckpt_slow_commit`` (float: seconds the commit stalls); and
+  ``ballot_poison`` (the ``(kind, worker, start_step)`` of
+  :func:`parse_poison`, the ``--inject_poison`` flag, read by the trainer's
+  step); :func:`consume_due` pops a list-valued schedule's due entries;
 - **corruption helpers** that damage a committed step as real incidents
-  do (a torn write, a bit-flipped manifest, a lost marker).
+  do (a torn write, a bit-flipped manifest, a lost marker);
+- :class:`PreemptionGuard`, the SIGTERM flag the trainer checks at every
+  step boundary (``--on_preempt save_exit``).
 
-Not ported yet (ROADMAP Queue 1 item 10): ``PreemptionGuard``, the
-poison, membership and serve-fault parsers, and ``dcn_delay``.
+Not ported yet (ROADMAP Queue 1 item 10): the membership and serve-fault
+parsers, and ``dcn_delay``.
 """
 
 from __future__ import annotations
@@ -30,8 +36,10 @@ import hashlib
 import json
 import os
 import pathlib
+import signal
 import threading
-from typing import Any, Optional
+import time
+from typing import Any, Iterable, Optional
 
 _FAULTS: dict[str, Any] = {}
 _FAULTS_LOCK = threading.Lock()
@@ -63,6 +71,47 @@ def consume_fault_count(name: str) -> bool:
             _FAULTS[name] = n - 1
             return True
         return False
+
+
+def consume_due(name: str, through: int, step_of=None) -> list:
+    """Atomically pop the due entries of a list-valued schedule fault: the
+    entries whose step (``step_of``, default ``entry[2]``) is ``<=
+    through``, in schedule order; later entries stay armed."""
+    if step_of is None:
+        def step_of(e):
+            return int(e[2])
+    with _FAULTS_LOCK:
+        pending = _FAULTS.get(name)
+        if not pending:
+            return []
+        due = [e for e in pending if step_of(e) <= through]
+        if due:
+            _FAULTS[name] = [e for e in pending if step_of(e) > through]
+        return due
+
+
+POISON_KINDS = ("nan_grads", "frozen_ballot", "flipped_ballot")
+
+
+def parse_poison(spec: str) -> tuple[str, int, int]:
+    """Parse a ballot-poisoning spec ``<kind>:<worker>[:<start_step>]``
+    (e.g. ``nan_grads:2`` or ``flipped_ballot:0:100``) into the ``(kind,
+    worker, start_step)`` tuple the ``ballot_poison`` fault carries."""
+    parts = spec.split(":")
+    if len(parts) not in (2, 3) or parts[0] not in POISON_KINDS:
+        raise ValueError(
+            f"bad poison spec {spec!r}: expected '<kind>:<worker>"
+            f"[:<start_step>]' with kind in {POISON_KINDS}")
+    try:
+        worker = int(parts[1])
+        start = int(parts[2]) if len(parts) == 3 else 0
+    except ValueError:
+        raise ValueError(f"bad poison spec {spec!r}: worker/start_step "
+                         "must be integers")
+    if worker < 0 or start < 0:
+        raise ValueError(f"bad poison spec {spec!r}: worker/start_step "
+                         "must be >= 0")
+    return parts[0], worker, start
 
 
 MANIFEST = "manifest.json"
@@ -190,3 +239,57 @@ def delete_commit_marker(directory: str | os.PathLike, step: int) -> None:
     """A crash between the manifest and the marker: the step's bytes are
     all present, but it was never committed."""
     (step_dir(directory, step) / MARKER).unlink()
+
+
+class PreemptionGuard:
+    """Signal-driven preemption flag, checked at every step boundary.
+
+    Installs handlers for ``signals`` (default SIGTERM: what a scheduler's
+    preemption and ``timeout`` deliver) that only set a
+    :class:`threading.Event`; draining the in-flight save and writing the
+    ``preempt``-tagged checkpoint happen on the train loop's thread at the
+    next step boundary, where the state is consistent. A second signal
+    before that boundary (a hung collective) restores the previous handler
+    and delivers the signal again, so the process can still be killed. Off
+    the main thread no handler can be installed; the guard is then a flag
+    set by :meth:`trigger`."""
+
+    def __init__(self, signals: Iterable[int] = (signal.SIGTERM,)):
+        self._flag = threading.Event()
+        self._prev: dict[int, Any] = {}
+        self.tripped_mono: Optional[float] = None
+        for sig in signals:
+            try:
+                self._prev[sig] = signal.signal(sig, self._on_signal)
+            except ValueError:  # not the main thread
+                pass
+
+    def _on_signal(self, signum, frame) -> None:
+        if self._flag.is_set():
+            prev = self._prev.get(signum, signal.SIG_DFL)
+            signal.signal(signum, prev if prev is not None else signal.SIG_DFL)
+            signal.raise_signal(signum)
+            return
+        # async-signal-safe: a clock read and the flag, nothing else
+        self.tripped_mono = time.monotonic()
+        self._flag.set()
+
+    def trigger(self) -> None:
+        """Preempt without a signal (tests; an agent told of maintenance
+        through an API)."""
+        if self.tripped_mono is None:
+            self.tripped_mono = time.monotonic()
+        self._flag.set()
+
+    def should_stop(self) -> bool:
+        return self._flag.is_set()
+
+    def close(self) -> None:
+        """Restore the previous handlers."""
+        for sig, prev in self._prev.items():
+            try:
+                if signal.getsignal(sig) == self._on_signal:
+                    signal.signal(sig, prev)
+            except ValueError:
+                pass
+        self._prev.clear()

@@ -26,9 +26,18 @@ The trainer's checkpoints carry the accumulator (``train/loop.py``), so
 flip rates and histograms continue across a restart. Under lazy refresh
 (``vote_every`` K > 1) a frame's ``elected`` is the optimizer's K-slot
 cache (:func:`elected_packed_len`), so the flip rate compares the
-refreshed slot with its election one rotation earlier. Not ported yet
-(ROADMAP Queue 1 item 10): crash bundles, the measured-wire ledger
-(``measure_step_wire``) and the host step-skew heartbeat.
+refreshed slot with its election one rotation earlier.
+
+**Crash bundles** (JAX :295-362): :func:`write_crash_bundle` writes
+``<output_dir>/crash/step_<n:08d>/bundle.json``, strict JSON (nonfinite
+floats become their repr strings), for the NaN sentinel. The port's params
+and momentum are flat buffers; :func:`nonfinite_leaf_counts` counts them
+per leaf through ``FlatParams``' windows and :func:`nonfinite_leaf_report`
+names the leaves with the JAX package's ``keystr`` (``['blocks'][0]...``;
+``.exp_avg`` first for the optimizer state), so a bundle names the leaves
+the JAX package's names. Not ported yet (ROADMAP Queue 1 item 10): the
+bundle's ``journal_tail``, the measured-wire ledger (``measure_step_wire``)
+and the host step-skew heartbeat.
 
 This module may import ``ops``; ``optim`` and ``train.loop`` import it.
 """
@@ -36,12 +45,21 @@ This module may import ``ops``; ``optim`` and ``train.loop`` import it.
 from __future__ import annotations
 
 import dataclasses
+import json
+import math
+import os
+import time
 from typing import Optional
 
 import torch
 import torch.distributed as dist
 
-from distributed_lion_tpu_torch.ops.codec import packed_size, parse_wire, vote_chunk_elems
+from distributed_lion_tpu_torch.ops.codec import (
+    packed_size,
+    parse_wire,
+    popcount,
+    vote_chunk_elems,
+)
 from distributed_lion_tpu_torch.ops.fused_lion import margin_bins
 
 # bin k covers margin fractions [k/NBINS, (k+1)/NBINS); unanimity (margin 1)
@@ -124,12 +142,8 @@ def init_vote_health(n_params: int, vote_every: int = 1, device=None) -> VoteHea
 
 
 def _popcount(x: torch.Tensor) -> torch.Tensor:
-    """Set bits of a uint8 vector, counted exactly, as a float32 scalar:
-    a 256-bin count of the byte values, weighted by each value's bits, so
-    no per-bit copy of the vector is made."""
-    values = torch.arange(256, device=x.device)
-    bits = ((values[:, None] >> torch.arange(8, device=x.device)) & 1).sum(1)
-    return (torch.bincount(x, minlength=256) * bits).sum().to(torch.float32)
+    """Set bits of a uint8 vector as a float32 scalar (``codec.popcount``)."""
+    return popcount(x).to(torch.float32)
 
 
 def fold(vh: VoteHealth, frame: dict, group, world: int, n_params: int) -> VoteHealth:
@@ -199,3 +213,67 @@ def reset_counters(vh: VoteHealth) -> VoteHealth:
         margin_hist=z(vh.margin_hist), flip_sum=z(vh.flip_sum), flip_steps=z(vh.flip_steps),
         disagree_sum=z(vh.disagree_sum), stoch_flip_sum=z(vh.stoch_flip_sum),
         valid_sum=z(vh.valid_sum))
+
+
+# -------------------------------------------------------------- crash bundles
+def leaf_key(name: str) -> str:
+    """The JAX package's ``keystr`` of the leaf a dotted parameter name
+    spells: ``blocks.0.attn.proj`` → ``['blocks'][0]['attn']['proj']``."""
+    return "".join(f"[{p}]" if p.isdigit() else f"['{p}']" for p in name.split("."))
+
+
+def nonfinite_leaf_counts(flat, buf: torch.Tensor) -> torch.Tensor:
+    """int64 ``[leaves]``: the nonfinite elements of each leaf's window of
+    a flat buffer (params or momentum) of ``flat`` (a ``FlatParams``), in
+    the flat layout's order."""
+    return torch.stack([(~torch.isfinite(v)).sum() for v in flat.views(buf).values()])
+
+
+def nonfinite_leaf_report(names, counts, prefix: str = "") -> dict:
+    """{leaf keystr: nonfinite count} of the leaves with any: the crash
+    bundle's "which leaf is poisoned" answer."""
+    return {prefix + leaf_key(name): int(c)
+            for name, c in zip(names, counts.tolist()) if c}
+
+
+def _json_safe(obj):
+    """Recursive JSON sanitizer for bundle payloads: nonfinite floats
+    become their repr strings ('nan', 'inf'), so a bundle shows the poison
+    and stays strict JSON."""
+    if isinstance(obj, float) and not math.isfinite(obj):
+        return repr(obj)
+    if isinstance(obj, dict):
+        return {str(k): _json_safe(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_json_safe(v) for v in obj]
+    if isinstance(obj, (str, int, float, bool)) or obj is None:
+        return obj
+    return repr(obj)
+
+
+def write_crash_bundle(output_dir: str, step: int, reason: str, cfg_dict: dict,
+                       nonfinite_params: dict, nonfinite_opt_state: dict, metrics_window,
+                       guard: Optional[dict] = None) -> str:
+    """Write ``<output_dir>/crash/step_<n:08d>/bundle.json``: the step, the
+    trip reason, the train config, the per-leaf nonfinite counts of the
+    params and of the optimizer state (:func:`nonfinite_leaf_report`), the
+    recent metrics window and (``guard``) the vote guard's per-rank health
+    report, so the bundle names the sick rank as well as the poisoned
+    leaves. Returns the bundle's directory."""
+    crash_dir = os.path.join(output_dir, "crash", f"step_{step:08d}")
+    os.makedirs(crash_dir, exist_ok=True)
+    bundle = {
+        "step": step,
+        "reason": reason,
+        "written": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
+        "config": cfg_dict,
+        "nonfinite_params": nonfinite_params,
+        "nonfinite_opt_state": nonfinite_opt_state,
+        "metrics_window": list(metrics_window),
+    }
+    if guard is not None:
+        bundle["guard"] = guard
+    with open(os.path.join(crash_dir, "bundle.json"), "w") as f:
+        json.dump(_json_safe(bundle), f, indent=1, allow_nan=False)
+        f.write("\n")
+    return crash_dir

@@ -139,3 +139,14 @@ def test_the_hf_checkpoint_modules_are_among_the_checked_files():
     files = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
     assert {"models/hf_import.py", "models/hf_export.py", "data/spm.py",
             "data/hf_tokenizer_json.py", "data/tokenizer.py"} <= files
+
+
+def test_the_guard_sentinel_and_profiler_modules_are_among_the_checked_files():
+    """The vote guard's machine, the profiler and the modules the guard,
+    the sentinel and preemption changed (the wire, the optimizer, the
+    crash bundle, the poison parser and the preemption flag, the trainer)
+    are in the file list the checks above walk."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
+    assert {"train/vote_guard.py", "train/profiling.py", "train/resilience.py",
+            "train/telemetry.py", "parallel/collectives.py", "optim/distributed_lion.py",
+            "optim/lion.py", "train/loop.py"} <= files
