@@ -87,7 +87,14 @@ Phases (none of their failures is caught; any one fails the run):
    model's eval loss through flash must be finite and within 0.002 of its
    eval loss through ``attention_xla``. (c) ``--dropout 0`` alone: (b)'s
    flash counts and no ``bucket_vote_stats``, so (b) - (c) is the cost of
-   telemetry. (d) ``cli.run_sft.main``: Llama-2-7B at full width and depth
+   telemetry. (c-journal) ``--dropout 0 --journal``: (c)'s losses, final
+   params' sha256 and launches; then one more step of each of the two
+   trainers under ``torch.profiler`` (host and device activity): the counts
+   of synchronizing CUDA runtime calls (``cudaStreamSynchronize``,
+   ``cudaDeviceSynchronize``, ``cudaEventSynchronize``, ``cudaMemcpy``)
+   and of device-to-host copies must be equal (the journal adds no sync);
+   both runs' step times and the journal's attribution
+   (``cli/run_analyze.py``) are printed. (d) ``cli.run_sft.main``: Llama-2-7B at full width and depth
    (32 layers, d 4096, 32 heads of 128, d_ff 11008; the byte vocabulary,
    259), an NF4 base, LoRA r 8 on wq/wv (4,194,304 trainable coordinates),
    ``--attn_impl flash``, B 4 x accumulation 2 x T 1024, 3 steps and the
@@ -127,7 +134,9 @@ Phases (none of their failures is caught; any one fails the run):
    (strict JSON) lists momentum leaves holding all 124,439,808 coordinates
    and no param (a NaN ballot votes -1); the ``<d>`` trace of step 1 and
    the anomaly trace of step 4 under the bundle both name the Triton
-   kernels; the launches are 6 steps' and no eval batch.
+   kernels; the launches are 6 steps' and no eval batch; with
+   ``--journal`` the bundle holds ``journal_tail.jsonl`` (strict JSON)
+   whose last record is the trip's ``[trainer] ANOMALY`` message.
 5. Run (f), the vote across four ranks: four processes on cuda:0 in a
    gloo process group the script starts itself (NCCL refuses two ranks
    on one device) each run ``cli.run_clm.main`` on GPT-2 124M at full
@@ -160,7 +169,22 @@ Phases (none of their failures is caught; any one fails the run):
    their plain versions on the gathered tally masked by the step's health
    mask, with at least one step masked. Under the guard the
    ``StepWatch`` checks the election at every step, the ballots those of
-   the sanitized grads.
+   the sanitized grads. Run (p), the control plane and the run journal,
+   rides it too: ``sign_psum --telemetry --journal --control_plane
+   --rejoin_probe_steps 2 --inject_membership
+   worker_drop:1:2,worker_rejoin:1:5``, 8 steps: every step's election
+   equal to the plain election under that step's mask (3 voters at steps
+   3-5, ``P_VOTERS``), the stats kernel's histogram and disagreement equal
+   to ``bucket_vote_stats_plain`` of the gathered masked tally at every
+   step; rank 1's lifecycle at every boundary ``P_LIFECYCLE`` (departed at
+   boundary 2, rejoining at 5, healthy at 7), the four ranks' equal; after
+   the rejoin rank 1's momentum ``torch.equal`` to the mean of ranks 0, 2
+   and 3 summed in rank order; finite losses and momentum;
+   ``comm_drift_bytes`` and ``host_step_skew`` 0 in every row; then the
+   four journals (strict JSON) through ``cli/run_analyze.analyze_dir``: no
+   schema error, every rank's attribution closing with coverage >= 0.95,
+   and the membership timeline exactly the drop, the rejoin and the
+   probation's end. It prints the step times and each rank's buckets.
 6. Run (g), resume on the card, in the 1-rank NCCL group: the repo's
    ``*.md`` files go through the port's GPT-2 BPE (``runs/parity/tok``,
    its C++ merge core, which must build) into a uint16 ``bin:`` shard, read
@@ -325,9 +349,10 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 import torch.nn.functional as F
 
-from distributed_lion_tpu_torch.cli import run_clm, run_dpo, run_sft
+from distributed_lion_tpu_torch.cli import run_analyze, run_clm, run_dpo, run_sft
 from distributed_lion_tpu_torch.data import spm
 from distributed_lion_tpu_torch.data.bpe import BPETokenizer, unicode_to_bytes
+from distributed_lion_tpu_torch.data.sources import batch_iterator
 from distributed_lion_tpu_torch.data.dpo import prepare_dpo_batch
 from distributed_lion_tpu_torch.data.hf_tokenizer_json import TokenizerJSON, bpe_tokenizer_json
 from distributed_lion_tpu_torch.data.tokenizer import ByteTokenizer
@@ -358,7 +383,8 @@ from distributed_lion_tpu_torch.optim.distributed_lion import DistributedLion
 from distributed_lion_tpu_torch.optim.lion import FlatParams, resolve_lr
 from distributed_lion_tpu_torch.optim.optax_adapter import adamw
 from distributed_lion_tpu_torch.parallel import collectives
-from distributed_lion_tpu_torch.train import resilience, vote_guard
+from distributed_lion_tpu_torch.train import journal, resilience, vote_guard
+from distributed_lion_tpu_torch.train import loop as train_loop
 from distributed_lion_tpu_torch.train.checkpoint import Checkpointer
 from distributed_lion_tpu_torch.utils.serialization import tree_from_state_dict
 
@@ -420,6 +446,30 @@ W4_RUNS = (("sign_psum", [], W4_STEPS), ("sign_psum", ["--max_grad_norm", "1.0"]
            ("packed_a2a", ["--vote_every", str(LAZY_K)], LAZY_STEPS),
            ("packed_a2a", ["--vote_guard", "enforce"], W4_STEPS),
            ("packed_a2a", M2_ARGS, M2_STEPS), ("sign_psum", M3_ARGS, 3))
+# run (p), the control plane and the run journal, rides the same spawn:
+# sign_psum, rank 1 dropped at boundary 2 and rejoined at 5, on probation
+# for 2 steps, every rank journaling into P_JOURNAL under the script's tmp
+P_STEPS = 8
+P_SPEC = "worker_drop:1:2,worker_rejoin:1:5"
+P_ARGS = ["--wire", "sign_psum", "--control_plane", "--rejoin_probe_steps", "2",
+          "--inject_membership", P_SPEC, "--journal", "--max_steps", str(P_STEPS)]
+P_JOURNAL = "p_journal"
+# rank 1's lifecycle after each boundary of (p) (the membership boundary
+# before step s + 1, s = 0..7; the guard's fold of step s, s = 1..8), as
+# tests/test_torch_control_plane.py pins the plane on this schedule against
+# the JAX package's; and the voters of each step's election
+P_LIFECYCLE = {"_apply_membership": ["healthy", "healthy", "departed", "departed", "departed",
+                                     "rejoining", "rejoining", "rejoining"],
+               "_apply_guard": ["healthy", "departed", "departed", "departed", "rejoining",
+                                "rejoining", "healthy", "healthy"]}
+P_VOTERS = [4, 4, 3, 3, 3, 4, 4, 4]
+# the deduplicated membership timeline of the four journals
+P_TIMELINE = [("worker_left", 2, 1), ("worker_rejoined", 5, 1), ("healthy", 7, 1)]
+P_COVERAGE = 0.95
+# the synchronizing CUDA runtime calls counted in run (c-journal)'s profiled
+# steps, and the device-to-host copies
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cudaMemcpy")
 W4_ARGS = ["--model_name", "gpt2_124m", "--dataset", "synthetic", "--synthetic_blocks", "64",
            "--lion", "--async_grad", "--per_device_train_batch_size", "2",
            "--gradient_accumulation_steps", "1", "--block_size", "1024",
@@ -1575,7 +1625,7 @@ def stochastic_check(gen) -> None:
 # run raises after step 6
 N_POISON, N_TRIP, N_STEPS = "nan_grads:0:2", 3, 8
 N_ARGS = ["--dropout", "0", "--nan_sentinel", "--trace_on_anomaly", "--profile_start_step", "1",
-          "--profile_num_steps", "1", "--inject_poison", N_POISON]
+          "--profile_num_steps", "1", "--inject_poison", N_POISON, "--journal"]
 TRITON_NAMES = ("_ballot_kernel", "_apply_kernel")   # the Triton kernels, as traces name them
 
 
@@ -1587,8 +1637,10 @@ def sentinel_run(tmp: str, card: str) -> dict:
     coordinate's leaf (all NaN) and no param (a NaN ballot votes -1: the
     params move by a finite step); the ``--profile_dir`` trace and the
     anomaly trace under the bundle exist and name the Triton kernels; the
-    launches are 6 steps' (the run stops before its eval). Returns the
-    launches."""
+    launches are 6 steps' (the run stops before its eval). With
+    ``--journal`` the bundle holds ``journal_tail.jsonl``, strict JSON,
+    whose last record is the trip's ``[trainer] ANOMALY`` message. Returns
+    the launches."""
     t = time.perf_counter()
     prof, out = f"{tmp}/n_prof", f"{tmp}/n_out"
     reset_counts()
@@ -1623,12 +1675,19 @@ def sentinel_run(tmp: str, card: str) -> dict:
                              f"{bundle['nonfinite_params']}, {len(opt)} momentum leaves with "
                              f"{sum(opt.values())} nonfinite coordinates; traces {traces} naming "
                              f"{TRITON_NAMES}: {named}")
+    tail = [strict_json(line) for line in (crash / "journal_tail.jsonl").read_text().splitlines()]
+    if (not tail or not all({"kind", "name", "t", "rank"} <= set(r) for r in tail)
+            or tail[-1]["kind"] != "log" or not tail[-1]["msg"].startswith("[trainer] ANOMALY: "
+                                                                            + want)):
+        raise AssertionError(f"run (n): the bundle's journal_tail.jsonl ends in "
+                             f"{tail[-3:] if tail else tail}, not the trip")
     sizes = {k: [p.stat().st_size for p in v] for k, v in traces.items()}
-    print(f"[sentinel] (n) GPT-2 124M, 1 rank, {N_POISON}: FloatingPointError({reason!r}) after "
-          f"step {steps}; bundle {crash.relative_to(out)}/bundle.json names {len(opt)} momentum "
-          f"leaves ({sum(opt.values())} coordinates) and no param; traces (bytes) {sizes}, both "
-          f"naming {TRITON_NAMES}; launches {launches}; {time.perf_counter() - t:.1f} s on {card}",
-          flush=True)
+    print(f"[sentinel] (n) GPT-2 124M, 1 rank, {N_POISON}, --journal: FloatingPointError("
+          f"{reason!r}) after step {steps}; bundle {crash.relative_to(out)}/bundle.json names "
+          f"{len(opt)} momentum leaves ({sum(opt.values())} coordinates) and no param; "
+          f"journal_tail.jsonl {len(tail)} records ({sorted({r['kind'] for r in tail})}), the last "
+          f"{tail[-1]['msg']!r}; traces (bytes) {sizes}, both naming {TRITON_NAMES}; launches "
+          f"{launches}; {time.perf_counter() - t:.1f} s on {card}", flush=True)
     shutil.rmtree(out)
     shutil.rmtree(prof)
     return launches
@@ -1728,7 +1787,7 @@ class StepWatch:
     the gathered ballots and, on a tally wire at W4, the frame's margin
     histogram and disagreement must equal ``bucket_vote_stats_plain`` of
     the gathered (masked) tally; ``masked`` records, step by step, whether
-    the mask held a quarantined rank. Under ``vote_every`` K > 1, at every step: the slot's slice of
+    the mask held a quarantined rank, and ``voters`` its healthy count. Under ``vote_every`` K > 1, at every step: the slot's slice of
     the refreshed cache must equal the plain election of the gathered
     slice ballots (under ``max_grad_norm`` the ballots replayed from
     (seed, count, rank), ``replay_slice_ballots``; ``slices_equal``;
@@ -1743,6 +1802,7 @@ class StepWatch:
         self.election_equal: list = []
         self.hist: list = []
         self.masked: list = []
+        self.voters: list = []
         self.slices_equal: list = []
         self.wire_bytes: list = []
         self.cold_start = None
@@ -1789,6 +1849,8 @@ class StepWatch:
             self.election_equal.append(
                 torch.equal(unpack_signs(frame["elected"], (flat.numel,)), want))
             self.masked.append(alive is not None and not bool(alive.all()))
+            if alive is not None:
+                self.voters.append(int(alive.sum()))
             if collectives.world_of(opt.group) == W4 and opt.wire == "sign_psum":
                 hist, dis = fused_lion.bucket_vote_stats_plain(ballots, tally, opt.world, 8)
                 self.hist.append((frame["margin_hist"].tolist(), hist.tolist(),
@@ -1842,6 +1904,256 @@ class StepWatch:
         return new_state, frame
 
 
+def strict_json(line: str):
+    """One JSONL record, refusing the non-JSON NaN and Infinity tokens."""
+    def refuse(token):
+        raise ValueError(f"non-JSON token {token}")
+    return json.loads(line, parse_constant=refuse)
+
+
+def params_sha(trainer) -> str:
+    return hashlib.sha256(trainer.flat.params.cpu().numpy().tobytes()).hexdigest()
+
+
+class BoundaryWatch:
+    """Records ``[kind, step, lifecycle, mask]`` of the trainer's control
+    plane after each of its ``_apply_membership`` and ``_apply_guard``
+    calls while installed."""
+
+    def __init__(self):
+        self.rows: list = []
+        self._orig = {k: getattr(train_loop.Trainer, k)
+                      for k in ("_apply_membership", "_apply_guard")}
+        watch = self
+
+        def wrap(kind, fn):
+            def call(trainer, step, *args):
+                fn(trainer, step, *args)
+                plane = trainer._cplane
+                watch.rows.append([kind, int(step), plane.lifecycle(),
+                                   [bool(b) for b in plane.alive_mask()]])
+            return call
+
+        for k, fn in self._orig.items():
+            setattr(train_loop.Trainer, k, wrap(k, fn))
+
+    def close(self) -> None:
+        for k, fn in self._orig.items():
+            setattr(train_loop.Trainer, k, fn)
+
+
+class HealWatch:
+    """Wraps the trainer's ``heal_rank_momentum`` while installed: before a
+    heal every rank's momentum is gathered and their healthy mean formed in
+    plain float32, summed in rank order; after it each healed rank records
+    whether its momentum is ``torch.equal`` to that mean, and every rank the
+    heal's own seconds (the check's gather not counted)."""
+
+    def __init__(self):
+        self.equal: list = []
+        self.seconds: list = []
+        self._orig = train_loop.heal_rank_momentum
+        watch = self
+
+        def heal(m, healthy, workers, group):
+            rows = [torch.empty_like(m) for _ in range(W4)]
+            dist.all_gather(rows, m.contiguous(), group=group)
+            src = [r for r in range(W4) if healthy[r]]
+            total = rows[src[0]].clone()
+            for r in src[1:]:
+                total = total + rows[r]
+            # a true division, as the heal's (a CUDA tensor over a host
+            # float multiplies by its reciprocal, an ulp away)
+            want = total / torch.tensor(float(len(src)), device=m.device)
+            del rows, total
+            t0 = time.perf_counter()
+            watch._orig(m, healthy, workers, group)
+            watch.seconds.append(time.perf_counter() - t0)
+            if dist.get_rank(group) in [int(w) for w in workers]:
+                watch.equal.append(bool(torch.equal(m, want)))
+
+        train_loop.heal_rank_momentum = heal
+
+    def close(self) -> None:
+        train_loop.heal_rank_momentum = self._orig
+
+
+def plane_run(rank: int, tmp: str) -> dict:
+    """Run (p) on one rank of the W4 spawn: ``run_clm.main`` with the
+    control plane (``P_ARGS``) and the journal, under a :class:`StepWatch`,
+    a :class:`HealWatch` and a :class:`BoundaryWatch`. Every step's election
+    equal to the plain election under that step's mask (``P_VOTERS``
+    voters), the stats kernel's histogram and disagreement equal to
+    ``bucket_vote_stats_plain`` of the gathered masked tally; rank 1's
+    lifecycle ``P_LIFECYCLE`` at every boundary, the four ranks' boundaries
+    equal; rank 1's healed momentum ``torch.equal`` to the healthy mean;
+    every row's ``comm_drift_bytes`` and ``host_step_skew`` 0; finite
+    losses and momentum; the launches by their formula."""
+    watch, heal, bounds = StepWatch(), HealWatch(), BoundaryWatch()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        trainer = run_clm.main(W4_ARGS + P_ARGS + ["--journal_dir", f"{tmp}/{P_JOURNAL}"])
+    finally:
+        watch.close()
+        heal.close()
+        bounds.close()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    expect(f"(p) rank {rank}", launches,
+           dict(optimizer_launches(trainer, P_STEPS),
+                **flash_launches(P_STEPS, accum=1, eval_batches=0)))
+    rows = [r for r in trainer.history if "loss" in r]
+    everyone = [None] * W4
+    dist.all_gather_object(everyone, bounds.rows)
+    lifecycle = {k: [b[2][1] for b in bounds.rows if b[0] == k] for k in P_LIFECYCLE}
+    record = {"run": "control plane", "losses": [r["loss"] for r in rows],
+              "step_ms": [r["step_ms"] for r in rows], "voters": watch.voters,
+              "hist": watch.hist, "heal_equal": heal.equal, "heal_s": heal.seconds,
+              "lifecycle": lifecycle, "final": trainer._cplane.lifecycle(),
+              "drift": [r.get("comm_drift_bytes") for r in rows],
+              "skew": [r.get("host_step_skew") for r in rows],
+              "measured": [r.get("comm_measured_bytes_per_step") for r in rows][:1],
+              "launches": launches, "wall_s": wall, "params_equal": watch.params_equal,
+              "election_equal": watch.election_equal}
+    ok = (len(rows) == P_STEPS and all(math.isfinite(r["loss"]) for r in rows)
+          and watch.params_equal == [True] * P_STEPS
+          and watch.election_equal == [True] * P_STEPS and watch.voters == P_VOTERS
+          and len(watch.hist) == P_STEPS
+          and all(h[0] == h[1] and h[2] == h[3] for h in watch.hist)
+          and record["drift"] == [0] * P_STEPS and record["skew"] == [0] * P_STEPS
+          and all(b == everyone[0] for b in everyone) and lifecycle == P_LIFECYCLE
+          and heal.equal == ([True] if rank == 1 else []) and len(heal.seconds) == 1
+          and record["final"] == ["healthy"] * W4
+          and bool(torch.isfinite(trainer.state.exp_avg).all()))
+    if not ok:
+        raise AssertionError(f"run (p) rank {rank}: {record}; boundaries equal on every rank "
+                             f"{[b == everyone[0] for b in everyone]}")
+    del trainer
+    torch.cuda.empty_cache()
+    return record
+
+
+def plane_report(tmp: str, rec: dict, card: str) -> None:
+    """Run (p)'s journals, after the spawn: every file strict JSON with the
+    record keys; ``run_analyze.analyze_dir`` with no schema error, each
+    rank's attribution closing with coverage >= ``P_COVERAGE`` over the 8
+    steps, and the membership timeline of the four journals exactly
+    ``P_TIMELINE``; prints rank 0's record, the step times and each rank's
+    buckets."""
+    jdir = pathlib.Path(tmp) / P_JOURNAL
+    files = sorted(jdir.glob("journal_rank*.jsonl"))
+    for f in files:
+        for line in f.read_text().splitlines():
+            if not {"kind", "name", "t", "rank"} <= set(strict_json(line)):
+                raise AssertionError(f"run (p): {f.name} holds a record without its keys: {line}")
+    report = run_analyze.analyze_dir(str(jdir))
+    timeline = [(r.get("transition") or r["event"], r["step"], r.get("worker"))
+                for r in report["membership"]]
+    atts = [run_analyze.analyze_dir(str(jdir), rank=r)["attribution"] for r in range(W4)]
+    if (len(files) != W4 or report["schema_errors"] or report["ranks"] != list(range(W4))
+            or timeline != P_TIMELINE
+            or not all(a["closes"] and a["coverage"] >= P_COVERAGE and a["steps"] == P_STEPS
+                       for a in atts)):
+        raise AssertionError(f"run (p): journals {[f.name for f in files]}, schema errors "
+                             f"{report['schema_errors']}, timeline {timeline}, attribution "
+                             f"{atts}")
+    print(f"[w4] (p) control plane + journal: GPT-2 124M, {W4} ranks on one card (gloo), "
+          f"sign_psum, --telemetry, {P_SPEC}, --rejoin_probe_steps 2: losses "
+          f"{[round(x, 4) for x in rec['losses']]}; every step's election == the plain election "
+          f"of the gathered ballots under its mask {rec['election_equal']}, voters "
+          f"{rec['voters']}; margin histogram and disagreement == bucket_vote_stats_plain at "
+          f"every step (e.g. step 3 {rec['hist'][2][0]} dis {rec['hist'][2][2]}); rank 1's "
+          f"lifecycle at the membership boundaries {rec['lifecycle']['_apply_membership']}, at "
+          f"the guard folds {rec['lifecycle']['_apply_guard']}, the four ranks' equal; rank 1's "
+          f"healed momentum == the healthy mean of ranks 0, 2, 3 (rank order); heal "
+          f"{rec['heal_s'][0]:.3f} s; comm_drift_bytes {rec['drift']}, host_step_skew "
+          f"{rec['skew']}, measured bytes a step {rec['measured'][0]}; step ms {rec['step_ms']} "
+          f"(the heal lands in step 6; the check's gather of the four momenta is in it too); "
+          f"run_clm.main {rec['wall_s']:.1f} s on {card}; rank 0 launches {rec['launches']}",
+          flush=True)
+    print(f"[journal] (p) membership timeline {timeline}; cross-rank step skew "
+          f"{report['step_skew']}", flush=True)
+    for r, a in enumerate(atts):
+        print(f"[journal] (p) rank {r}: wall {a['wall_s']:.3f} s over {a['steps']} steps, "
+              f"coverage {a['coverage']:.4f} ({'closes' if a['closes'] else 'DOES NOT CLOSE'}); "
+              + ", ".join(f"{b} {v['s']:.3f} s ({v['frac']:.4f})" for b, v in a["buckets"].items())
+              + f", other {a['other_s']:.3f} s, unattributed {a['unattributed_s']:.3f} s",
+              flush=True)
+    stalls = run_analyze.analyze_dir(str(jdir), rank=1)["top_stalls"]
+    print("[journal] (p) rank 1 top spans: " + "; ".join(
+        f"{s['name']} {s['s']:.3f} s x{s['count']}" for s in stalls), flush=True)
+
+
+def sync_calls(trainer, blocks) -> tuple[dict, float]:
+    """One more training step of ``trainer`` under ``torch.profiler`` (host
+    and device activity): the counts of synchronizing CUDA runtime calls
+    (``SYNC_CALLS``) and of device-to-host copies, and the step's wall ms
+    (profiled)."""
+    from torch.profiler import ProfilerActivity, profile
+    trainer.cfg.max_steps = trainer.step_count + 1
+    it = batch_iterator(blocks, trainer.global_train_batch(), seed=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train(it)
+        ms = 1e3 * (time.perf_counter() - t0)
+    counts = dict.fromkeys(SYNC_CALLS + ("Memcpy DtoH",), 0)
+    for e in prof.events():
+        if e.name in SYNC_CALLS:
+            counts[e.name] += 1
+        elif e.device_type == torch.autograd.DeviceType.CUDA and "DtoH" in e.name:
+            counts["Memcpy DtoH"] += 1
+    return counts, ms
+
+
+def journal_run(tmp: str, plain, plain_rows: list, plain_launches: dict, card: str) -> None:
+    """Run (c-journal): (c)'s setup with ``--journal``. Its losses and final
+    params' sha256 must equal (c)'s and its launches too; then one more
+    profiled step of each (c)'s trainer and this one (its journal reopened
+    on the same directory): the counts of synchronizing CUDA runtime calls
+    and device-to-host copies must be equal (the journal adds no sync).
+    Prints both runs' step times and the journal's attribution."""
+    jdir = f"{tmp}/c_journal"
+    jtr, rows, launches = run_counted(["--dropout", "0", "--journal", "--journal_dir", jdir])
+    expect("(c-journal)", launches, plain_launches)
+    same = ([r["loss"] for r in rows] == [r["loss"] for r in plain_rows]
+            and params_sha(jtr) == params_sha(plain))
+    report = run_analyze.analyze_dir(jdir)
+    blocks, _ = run_clm.load_blocks(run_clm.DataArguments(synthetic_blocks=400),
+                                    plain.cfg.block_size, plain.model.cfg.vocab_size)
+    counts = {"off": sync_calls(plain, blocks)}
+    jtr.journal = journal.Journal(jdir, rank=0)
+    journal.install(jtr.journal)
+    try:
+        counts["on"] = sync_calls(jtr, blocks)
+    finally:
+        journal.uninstall(jtr.journal)
+        jtr.journal.close()
+    att = report["attribution"]
+    if (not same or counts["on"][0] != counts["off"][0] or report["schema_errors"]
+            or not att["closes"]):
+        raise AssertionError(f"run (c-journal): losses and params equal to (c) {same}, sync "
+                             f"calls on {counts['on'][0]} off {counts['off'][0]}, report {report}")
+    recorded = sum(counts["off"][0].values()) > 0
+    print(f"[journal] (c-journal) GPT-2 124M, 1 rank, --dropout 0 --journal: losses "
+          f"{[round(r['loss'], 4) for r in rows]} and final params' sha256 {params_sha(jtr)[:16]}"
+          f"... == (c)'s; launches == (c)'s; steps 2-{STEPS} "
+          f"{[r['step_ms'] for r in rows[1:]]} ms against (c)'s "
+          f"{[r['step_ms'] for r in plain_rows[1:]]} ms; one more profiled step: journal on "
+          f"{counts['on'][1]:.1f} ms, off {counts['off'][1]:.1f} ms; synchronizing calls and "
+          f"device-to-host copies on {counts['on'][0]} == off {counts['off'][0]}"
+          + ("" if recorded else " (the profiler recorded no runtime call: not measured)")
+          + f"; on {card}", flush=True)
+    print(f"[journal] (c-journal) attribution over {att['steps']} steps: wall {att['wall_s']:.3f} "
+          f"s, coverage {att['coverage']:.4f} ({'closes' if att['closes'] else 'DOES NOT CLOSE'}); "
+          + ", ".join(f"{b} {v['s']:.3f} s ({v['frac']:.4f})" for b, v in att["buckets"].items())
+          + f"; top spans: " + "; ".join(f"{s['name']} {s['s']:.3f} s x{s['count']}"
+                                        for s in report["top_stalls"][:5]), flush=True)
+    del jtr
+    torch.cuda.empty_cache()
+
+
 def w4_rank(rank: int, tmp: str) -> None:
     """One of run (f)'s ranks: every W4_RUNS entry through ``run_clm.main``
     on cuda:0 in the gloo group, under a :class:`StepWatch`; raises on a
@@ -1889,8 +2201,7 @@ def w4_rank(rank: int, tmp: str) -> None:
                     f"(frame, plain) {watch.hist}")
             guard = guard_checks(label, rank, trainer, watch, events.events, rows, extra)
             records.append({"run": label, "buckets": buckets, "wall_s": wall, "guard": guard,
-                            "params_sha256": hashlib.sha256(
-                                trainer.flat.params.cpu().numpy().tobytes()).hexdigest(),
+                            "params_sha256": params_sha(trainer),
                             "losses": [r["loss"] for r in rows],
                             "step_ms": [r["step_ms"] for r in rows],
                             "params_equal": watch.params_equal,
@@ -1901,6 +2212,7 @@ def w4_rank(rank: int, tmp: str) -> None:
                             "launches": launches})
             del trainer
             torch.cuda.empty_cache()
+        records.append(plane_run(rank, tmp))
         records.append(w4_async_commit(rank, tmp))
         if rank == 0:
             with open(f"{tmp}/w4.json", "w") as f:
@@ -1987,6 +2299,7 @@ def w4_phase(tmp: str, card: str) -> None:
     with open(f"{tmp}/w4.json") as f:
         records = json.load(f)
     commit = records.pop()
+    plane_report(tmp, records.pop(), card)
     print(f"[w4] (f) async checkpoint at W = {W4}: step 1 COMMITTED by the commit thread "
           f"{commit['seconds']:.3f} s after save() on rank 0, with no later save and no close(); "
           f"latest_valid_step() == 1 on every rank; on {card}", flush=True)
@@ -2809,6 +3122,7 @@ def slice_phase(tmp, gen, card, rates):
         plain, plain_rows, plain_launches = run_counted(["--dropout", "0"])
         expect("dropout 0", plain_launches, dict(launches, bucket_vote_stats=0))
         profile_step(plain, plain.model, gen, 8, "GPT-2 (c)")
+        journal_run(tmp, plain, plain_rows, plain_launches, card)
         del plain
         torch.cuda.empty_cache()
         t = phase_time("slice (a)-(c), GPT-2 124M", t)

@@ -1,0 +1,747 @@
+"""Offline run-journal analyzer: port of
+``distributed_lion_tpu/cli/run_analyze.py`` (stdlib only, copied so the
+port needs nothing of the JAX package; its output is the JAX analyzer's on
+the same files).
+
+    python -m distributed_lion_tpu_torch.cli.run_analyze <output_dir>
+    python -m distributed_lion_tpu_torch.cli.run_analyze <dir> --json-out r.json
+    python -m distributed_lion_tpu_torch.cli.run_analyze <dir> --serve
+
+Reads the JSONL journals ``train/journal.py`` writes (one file per rank,
+and their rotations), merges them onto one wall timeline (each file's meta
+record anchors its monotonic clock to ``time.time()``), and attributes the
+latest training leg's wall time on one rank to the buckets:
+
+    device   - the log-cadence device sync (``device_wait`` spans)
+    dispatch - host time issuing the step (``dispatch``): in eager
+               PyTorch the kernel launches, and every collective the host
+               blocks on
+    data     - batch fetch and host-to-device copy (``data_wait``)
+    ckpt     - checkpoint snapshot and drain on the step thread (``ckpt/*``;
+               the commit thread's spans are left out: they overlap steps)
+    logging  - metric assembly and the metrics write (``logging_drain``)
+
+plus ``other`` (named spans outside these, e.g. ``eval``) and
+``unattributed`` (loop bookkeeping no span covers). ``coverage`` is the
+named share of the wall; ``closes`` says the spans did not overlap
+(``unattributed`` not below −1% of the wall). The report also ranks the
+stall sources by full span name, the cross-rank step skew from the ranks'
+``step_log`` events, the membership timeline (the control plane's
+``worker_left``/``worker_rejoined``/``membership_transition`` events, one
+row per transition however many ranks journaled it), the replica timeline
+of a serving journal, and, with ``--baseline``, the bucket shares against a
+bench row's ``journal_attribution``. ``--serve`` is the serving view
+(per-request waterfalls and the metrics timeline), which reads the records
+the serving plane writes.
+
+Exit code: 0 when the attribution closes (``--serve``: when a request
+finished), else 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import sys
+from typing import Optional
+
+# span-name head (before any '/') → attribution bucket. Mirrors the span
+# taxonomy documented in train/journal.py.
+BUCKET_OF = {
+    "device_wait": "device",
+    "dispatch": "dispatch",
+    "data_wait": "data",
+    "ckpt": "ckpt",
+    "logging_drain": "logging",
+}
+NAMED_BUCKETS = ("device", "dispatch", "data", "ckpt", "logging")
+# |named + other + unattributed − wall| must stay within this fraction of
+# wall (floating accumulation over thousands of spans, nothing more)
+CLOSE_TOL_FRAC = 0.01
+_JOURNAL_RE = re.compile(r"^journal_rank\d+(\.\d+)?\.jsonl$")
+
+
+# ------------------------------------------------------------------- loading
+def _parse_file(path: str) -> tuple[list, int]:
+    """(records, parse_errors) from one journal file. A torn final line
+    (crash mid-write) is tolerated silently — that is the journal's
+    documented durability unit; any other unparseable line counts as a
+    schema error."""
+    records: list = []
+    errors = 0
+    try:
+        with open(path) as f:
+            lines = f.readlines()
+    except OSError:
+        return [], 1
+    for i, line in enumerate(lines, 1):
+        line = line.strip()
+        if not line:
+            continue
+        try:
+            rec = json.loads(line)
+        except json.JSONDecodeError:
+            if i == len(lines):
+                continue  # torn tail: never committed
+            errors += 1
+            continue
+        if not isinstance(rec, dict) or not isinstance(rec.get("t"),
+                                                       (int, float)):
+            errors += 1
+            continue
+        records.append(rec)
+    return records, errors
+
+
+def journal_files(directory: str) -> list:
+    """Every journal file under ``directory`` (the trainer's
+    ``<output_dir>/journal`` layout, or the directory itself when it holds
+    the files), rotations included, in (rank, sequence) order."""
+    out = []
+    for base in (directory, os.path.join(directory, "journal")):
+        try:
+            names = sorted(os.listdir(base))
+        except OSError:
+            continue
+        out.extend(os.path.join(base, n) for n in names
+                   if _JOURNAL_RE.match(n))
+        if out:
+            break
+    return out
+
+
+def load_journals(directory: str) -> Optional[dict]:
+    """Merge a run's journals onto one wall timeline.
+
+    Returns ``{"events": [...], "ranks": [...], "schema_errors": int}`` or
+    None when no journal files exist. Every record gains ``tw`` — its wall
+    timestamp, ``meta.wall + (t − meta.t)`` per file — which is what makes
+    records from hosts with different monotonic epochs comparable (each
+    host's monotonic zero is its boot, not an epoch; only the wall anchor
+    relates them)."""
+    files = journal_files(directory)
+    if not files:
+        return None
+    events: list = []
+    errors = 0
+    ranks = set()
+    for path in files:
+        records, errs = _parse_file(path)
+        errors += errs
+        anchor = next((r for r in records if r.get("kind") == "meta"
+                       and isinstance(r.get("wall"), (int, float))), None)
+        if anchor is None:
+            # a journal file with no clock anchor cannot join the merged
+            # timeline — count it against the schema, keep the rest
+            errors += 1
+            continue
+        offset = anchor["wall"] - anchor["t"]
+        for r in records:
+            r["tw"] = r["t"] + offset
+            ranks.add(int(r.get("rank", 0)))
+        events.extend(records)
+    events.sort(key=lambda r: r["tw"])
+    return {"events": events, "ranks": sorted(ranks),
+            "schema_errors": errors}
+
+
+# --------------------------------------------------------------- attribution
+def _bucket(name: str) -> Optional[str]:
+    return BUCKET_OF.get(name.split("/", 1)[0])
+
+
+def _step_spans(events: list, rank: int) -> list:
+    """This rank's step-thread spans. Any span stamped with a ``thread``
+    field ran OFF the step thread (the checkpoint committer, the emulated
+    DCN link's ``dcn_wait``) and is excluded: such spans overlap the step
+    wall by design and must not count against it."""
+    return [r for r in events
+            if r.get("kind") == "span" and int(r.get("rank", 0)) == rank
+            and isinstance(r.get("dur"), (int, float))
+            and not r.get("thread")]
+
+
+def _leg_window(mine: list, key: str) -> tuple:
+    """[start, end] of the MOST RECENT training leg in this rank's
+    records. Journals append across process restarts (the sink reopens in
+    append mode — a watcher re-fire into the same output_dir is normal
+    operation), so taking the first train_start with the last train_end
+    would fold the dead inter-run gap into the wall and sink coverage; the
+    analyzer reports the latest leg instead. Falls back to the full record
+    range when no train_start/train_end markers exist (ring-only bench
+    journals always carry them)."""
+    starts = [r[key] for r in mine if r.get("name") == "train_start"]
+    start = starts[-1] if starts else mine[0][key]
+    ends = [r[key] for r in mine
+            if r.get("name") == "train_end" and r[key] >= start]
+    end = ends[-1] if ends else mine[-1][key]
+    return start, end
+
+
+def attribute(events: list, rank: Optional[int] = None) -> Optional[dict]:
+    """Step-wall attribution for one rank (default: the lowest present).
+
+    The window is the MOST RECENT [``train_start``, ``train_end``] leg
+    (``_leg_window`` — appended journals from watcher re-fires analyze
+    their latest leg, not the union plus the dead gap); every step-thread
+    span ending inside it is summed into its bucket. ``unattributed`` is
+    the wall the spans do not tile — loop bookkeeping, guard/sentinel host
+    reads. ``closes`` is the overlap check: spans that double-count (two
+    buckets claiming the same wall) drive ``unattributed`` NEGATIVE, which
+    is the one direction the residual arithmetic can actually catch."""
+    if not events:
+        return None
+    ranks = sorted({int(r.get("rank", 0)) for r in events})
+    if rank is None:
+        rank = ranks[0]
+    mine = [r for r in events if int(r.get("rank", 0)) == rank]
+    if not mine:
+        return None
+    key = "tw" if all("tw" in r for r in mine) else "t"
+    start, end = _leg_window(mine, key)
+    wall = max(end - start, 0.0)
+    buckets = {b: 0.0 for b in NAMED_BUCKETS}
+    other = 0.0
+    for r in _step_spans(mine, rank):
+        if not (start <= r[key] <= end + 1e-9):
+            continue
+        b = _bucket(str(r.get("name", "")))
+        if b is None:
+            other += r["dur"]
+        else:
+            buckets[b] += r["dur"]
+    named = sum(buckets.values())
+    unattributed = wall - named - other
+    steps = [r.get("step") for r in mine
+             if r.get("name") in ("step_log", "train_start", "train_end")
+             and isinstance(r.get("step"), int)
+             and start <= r[key] <= end + 1e-9]
+    n_steps = (max(steps) - min(steps)) if len(steps) >= 2 else 0
+    out = {
+        "rank": rank,
+        "wall_s": round(wall, 6),
+        "steps": n_steps,
+        "ms_per_step": (round(wall / n_steps * 1e3, 3) if n_steps else None),
+        "buckets": {
+            b: {"s": round(s, 6),
+                "frac": round(s / wall, 6) if wall else 0.0}
+            for b, s in buckets.items()},
+        "other_s": round(other, 6),
+        "unattributed_s": round(unattributed, 6),
+        "coverage": round(named / wall, 6) if wall else 0.0,
+    }
+    # named + other + unattributed == wall holds by construction (the
+    # residual definition), so the IDENTITY cannot fail — what CAN fail is
+    # the tiling assumption: overlapping/double-counted spans push the sum
+    # of spans past the wall, i.e. unattributed goes negative. That is the
+    # direction 'closes' checks (a small negative within tolerance is
+    # clock-granularity noise).
+    out["closes"] = bool(wall == 0.0
+                         or unattributed >= -CLOSE_TOL_FRAC * wall)
+    return out
+
+
+def top_stalls(events: list, rank: Optional[int] = None, k: int = 8) -> list:
+    """The top stall sources by full span name (not bucket): total seconds,
+    call count, mean ms. Restricted to the same window the attribution
+    table covers (the latest training leg), so the two views of the report
+    can never disagree about which spans count. ``device_wait`` ranking
+    first just means the run is device-bound, which is the healthy case."""
+    if not events:
+        return []
+    ranks = sorted({int(r.get("rank", 0)) for r in events})
+    if rank is None:
+        rank = ranks[0]
+    mine = [r for r in events if int(r.get("rank", 0)) == rank]
+    if not mine:
+        return []
+    key = "tw" if all("tw" in r for r in mine) else "t"
+    start, end = _leg_window(mine, key)
+    agg: dict = {}
+    for r in _step_spans(mine, rank):
+        if not (start <= r[key] <= end + 1e-9):
+            continue
+        name = str(r.get("name", ""))
+        s, n = agg.get(name, (0.0, 0))
+        agg[name] = (s + r["dur"], n + 1)
+    rows = [{"name": name, "s": round(s, 6), "count": n,
+             "mean_ms": round(s / n * 1e3, 3)}
+            for name, (s, n) in agg.items()]
+    rows.sort(key=lambda r: -r["s"])
+    return rows[:k]
+
+
+# membership events the control plane (train/control_plane.py) records:
+# the specific worker_left/worker_rejoined pair plus the generic
+# membership_transition stream (quarantine/readmit/probation transitions,
+# preemption). worker_left/worker_rejoined each ALSO emit a generic twin
+# (transition == their own name) so timeline consumers can subscribe to
+# one event name; the timeline below keeps the specific record and drops
+# the twin.
+MEMBERSHIP_EVENTS = ("worker_left", "worker_rejoined",
+                     "membership_transition")
+
+
+def membership_timeline(events: list,
+                        rank: Optional[int] = None) -> list:
+    """Chronological worker leave/join/quarantine timeline from the
+    control plane's journal events — surfaced alongside step attribution
+    so a step-time regression and the membership change that caused it
+    (a W−1 degraded phase votes on a smaller quorum; a rejoin heals
+    momentum at the boundary) read off one report. Every rank's trainer
+    runs its own plane and journals the same global transition, so with
+    ``rank=None`` identical rows from different ranks collapse to one
+    (like step_skew, membership is cross-rank-redundant by design)."""
+    rows, seen = [], set()
+    for r in events:
+        if r.get("kind") != "event" or r.get("name") not in MEMBERSHIP_EVENTS:
+            continue
+        if rank is not None and r.get("rank") != rank:
+            continue
+        if (r.get("name") == "membership_transition"
+                and r.get("transition") in ("worker_left",
+                                            "worker_rejoined")):
+            continue  # the specific record carries this transition
+        row = {"event": r["name"]}
+        for k in ("step", "worker", "cause", "transition", "alive",
+                  "world"):
+            if k in r:
+                row[k] = r[k]
+        key = tuple(sorted(row.items()))
+        if key in seen:
+            continue  # the same transition journaled by another rank
+        seen.add(key)
+        rows.append(row)
+    rows.sort(key=lambda r: (r.get("step", 0),
+                             0 if r["event"] == "worker_left" else 1))
+    return rows
+
+
+# serve-side replica lifecycle events (the serving plane, ROADMAP Queue 1 item 12): the
+# fleet's replica leave/drain/slow/rejoin transitions plus per-request
+# migration records — the serving twin of MEMBERSHIP_EVENTS, surfaced as
+# its own timeline beside the membership one (a serve journal and a train
+# journal never mix ranks, but one analyzer reads both).
+REPLICA_EVENTS = ("replica_left", "replica_rejoined", "replica_draining",
+                  "replica_slow", "request_migrated", "request_failed",
+                  "request_timeout")
+
+
+def replica_timeline(events: list, rank: Optional[int] = None) -> list:
+    """Chronological replica lifecycle + request-migration timeline from
+    the fleet's journal events — a crash, the migrations it caused, and
+    the rejoin that restored capacity read off one report, the way the
+    membership timeline reads for training workers."""
+    rows, seen = [], set()
+    for r in events:
+        if r.get("kind") != "event" or r.get("name") not in REPLICA_EVENTS:
+            continue
+        if rank is not None and r.get("rank") != rank:
+            continue
+        row = {"event": r["name"]}
+        for k in ("tick", "replica", "req_id", "from_replica", "to_replica",
+                  "cause", "attempt", "attempts", "committed", "residents",
+                  "latency_ticks", "alive", "world"):
+            if k in r:
+                row[k] = r[k]
+        key = tuple(sorted(row.items()))
+        if key in seen:
+            continue
+        seen.add(key)
+        rows.append(row)
+    rows.sort(key=lambda r: (r.get("tick", 0),
+                             0 if r["event"].startswith("replica") else 1))
+    return rows
+
+
+def step_skew(events: list) -> Optional[dict]:
+    """Cross-host step-skew percentiles from the per-rank ``step_log``
+    events on the merged wall timeline: for every step logged by more than
+    one rank, the spread max(tw) − min(tw) is how far apart the hosts
+    reached the same step. None on single-rank journals (nothing to
+    compare)."""
+    by_step: dict = {}
+    for r in events:
+        if r.get("name") == "step_log" and isinstance(r.get("step"), int) \
+                and "tw" in r:
+            # latest occurrence per (step, rank) wins: appended journals
+            # from watcher re-fires re-log the same steps, and only the
+            # latest leg's arrival times describe one coherent run
+            by_step.setdefault(r["step"], {})[int(r.get("rank", 0))] = r["tw"]
+    spreads = sorted(max(ts.values()) - min(ts.values())
+                     for ts in by_step.values() if len(ts) > 1)
+    if not spreads:
+        return None
+
+    def pct(p: float) -> float:
+        return spreads[min(int(p * len(spreads)), len(spreads) - 1)]
+
+    return {"steps_compared": len(spreads),
+            "p50_s": round(pct(0.50), 6),
+            "p95_s": round(pct(0.95), 6),
+            "max_s": round(spreads[-1], 6)}
+
+
+# ------------------------------------------------------------- baseline diff
+def load_baseline_attribution(path: str) -> Optional[dict]:
+    """The ``journal_attribution`` summary from a bench artifact — a
+    ``BENCH_*.json`` capture (summary under ``parsed``) or a bare bench row
+    (``last_tpu_measurement.json``). None when the artifact predates the
+    journal."""
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+    except (OSError, json.JSONDecodeError):
+        return None
+    if not isinstance(doc, dict):
+        return None
+    for node in (doc, doc.get("parsed") or {}):
+        att = node.get("journal_attribution")
+        if isinstance(att, dict) and isinstance(att.get("buckets"), dict):
+            return att
+    return None
+
+
+def diff_vs_baseline(att: dict, baseline: dict) -> dict:
+    """Per-bucket fraction deltas vs a baseline attribution; the bucket
+    whose share GREW the most is named as the regressing one (a perf
+    regression shows up as some tax eating a larger share of the wall)."""
+    deltas = {}
+    for b in NAMED_BUCKETS:
+        cur = (att["buckets"].get(b) or {}).get("frac", 0.0)
+        base = (baseline.get("buckets", {}).get(b) or {}).get("frac", 0.0)
+        deltas[b] = round(cur - base, 6)
+    worst = max(deltas, key=lambda b: deltas[b])
+    return {"frac_delta": deltas,
+            "regressing_bucket": worst if deltas[worst] > 0 else None}
+
+
+# -------------------------------------------------------------------- report
+def analyze_dir(directory: str, rank: Optional[int] = None,
+                baseline: Optional[str] = None) -> Optional[dict]:
+    """The full report dict for a run directory, or None when it holds no
+    journal."""
+    loaded = load_journals(directory)
+    if loaded is None:
+        return None
+    att = attribute(loaded["events"], rank)
+    report = {
+        "directory": directory,
+        "ranks": loaded["ranks"],
+        "schema_errors": loaded["schema_errors"],
+        "attribution": att,
+        "top_stalls": top_stalls(loaded["events"], rank),
+        "step_skew": step_skew(loaded["events"]),
+        "membership": membership_timeline(loaded["events"], rank),
+        "replicas": replica_timeline(loaded["events"], rank),
+    }
+    if baseline:
+        base_att = load_baseline_attribution(baseline)
+        report["baseline"] = baseline
+        report["baseline_diff"] = (diff_vs_baseline(att, base_att)
+                                   if att and base_att else None)
+    return report
+
+
+# ------------------------------------------------------------- serve mode
+def serve_waterfalls(events: list, rank: Optional[int] = None) -> list:
+    """Per-request lifecycle rows from the serve journal: one row per
+    terminal ``serve_finish`` event (every status — timeout/failed rows
+    are exactly the ones an incident report needs), joined with the
+    request's ``serve/prefill`` span when it reached one. Tick-domain
+    columns come from the engine's request clocks (serve/metrics.
+    RequestTimes); wall columns appear when the metrics plane was on."""
+    if rank is None:
+        ranks = {int(r.get("rank", 0)) for r in events}
+        rank = min(ranks) if ranks else 0
+    mine = [r for r in events if int(r.get("rank", 0)) == rank]
+    prefills: dict = {}
+    for r in mine:
+        if (r.get("kind") == "span" and r.get("name") == "serve/prefill"
+                and "req_id" in r and isinstance(r.get("dur"),
+                                                 (int, float))):
+            prefills.setdefault(str(r["req_id"]), r)
+    rows = []
+    for r in mine:
+        if r.get("kind") != "event" or r.get("name") != "serve_finish":
+            continue
+        rid = str(r.get("req_id"))
+        row = {"req_id": rid, "reason": r.get("reason", "?")}
+        for k in ("queue_ticks", "ttft_ticks", "decode_ticks", "ttft_ms"):
+            if isinstance(r.get(k), (int, float)):
+                row[k] = r[k]
+        p = prefills.get(rid)
+        if p is not None:
+            row["prefill_ms"] = float(p["dur"]) * 1e3
+            row["prompt_len"] = p.get("prompt_len")
+            row["shared"] = p.get("shared")
+        row["finish_tw"] = r.get("tw")
+        rows.append(row)
+    rows.sort(key=lambda x: (x.get("finish_tw") or 0.0, x["req_id"]))
+    return rows
+
+
+def serve_metrics_timeline(events: list,
+                           rank: Optional[int] = None) -> list:
+    """The drain-cadence fleet/engine metrics timeline: one row per
+    ``serve_metrics`` journal event (sketch summaries + gauges + SLO
+    counters, already flat strict-JSON fields) plus the matching
+    ``serve_stats``/``fleet_stats`` counter snapshots."""
+    if rank is None:
+        ranks = {int(r.get("rank", 0)) for r in events}
+        rank = min(ranks) if ranks else 0
+    out = []
+    for r in events:
+        if int(r.get("rank", 0)) != rank or r.get("kind") != "event":
+            continue
+        if r.get("name") in ("serve_metrics", "serve_stats",
+                             "fleet_stats", "serve_fleet_metrics",
+                             "serve_done", "slo_breach"):
+            row = {k: v for k, v in r.items()
+                   if k not in ("kind", "t", "rank")}
+            row["event"] = row.pop("name")
+            out.append(row)
+    return out
+
+
+def serve_report(directory: str, rank: Optional[int] = None
+                 ) -> Optional[dict]:
+    """The --serve report: waterfalls + metrics timeline, or None when
+    the directory holds no journal."""
+    loaded = load_journals(directory)
+    if loaded is None:
+        return None
+    return {
+        "directory": directory,
+        "ranks": loaded["ranks"],
+        "schema_errors": loaded["schema_errors"],
+        "requests": serve_waterfalls(loaded["events"], rank),
+        "timeline": serve_metrics_timeline(loaded["events"], rank),
+        "replicas": replica_timeline(loaded["events"], rank),
+    }
+
+
+_WATERFALL_MAX_ROWS = 40
+_WATERFALL_MAX_BAR = 48
+
+
+def _waterfall_bar(row: dict) -> str:
+    """Tick-domain lifecycle bar: '.' per queued tick, 'P' for the
+    prefill/first-token tick, '#' per decode tick — truncated with '~'
+    past the display budget (long decodes must not wrap the report)."""
+    q = int(row.get("queue_ticks", 0) or 0)
+    d = int(row.get("decode_ticks", 0) or 0)
+    bar = "." * q + ("P" if "ttft_ticks" in row else "") + "#" * d
+    if len(bar) > _WATERFALL_MAX_BAR:
+        bar = bar[:_WATERFALL_MAX_BAR - 1] + "~"
+    return bar
+
+
+def render_serve(report: dict) -> str:
+    lines = [f"serve journal: {report['directory']} "
+             f"(ranks {report['ranks']}, "
+             f"{report['schema_errors']} schema error(s))"]
+    rows = report.get("requests") or []
+    by_reason: dict = {}
+    for r in rows:
+        by_reason[r["reason"]] = by_reason.get(r["reason"], 0) + 1
+    lines.append(f"{len(rows)} request(s): " + ", ".join(
+        f"{k}={v}" for k, v in sorted(by_reason.items())) if rows
+        else "no serve_finish events (was the run journaled with "
+             "--journal_dir?)")
+    if rows:
+        lines.append("request waterfalls (queue '.' -> prefill 'P' -> "
+                     "decode '#'; ticks):")
+        for r in rows[:_WATERFALL_MAX_ROWS]:
+            cols = [f"  {r['req_id']:<8}"]
+            cols.append(f"q{r.get('queue_ticks', '?'):>4}")
+            cols.append(f"d{r.get('decode_ticks', '?'):>4}")
+            cols.append(f"ttft {r['ttft_ms']:7.1f} ms"
+                        if isinstance(r.get("ttft_ms"), (int, float))
+                        else "ttft       -")
+            cols.append(f"{r['reason']:<8}")
+            cols.append(_waterfall_bar(r))
+            lines.append(" ".join(cols))
+        if len(rows) > _WATERFALL_MAX_ROWS:
+            lines.append(f"  ... {len(rows) - _WATERFALL_MAX_ROWS} more "
+                         "(full set in --json-out)")
+    tl = report.get("timeline") or []
+    if tl:
+        lines.append("metrics timeline (drain cadence):")
+        for row in tl:
+            ev = row["event"]
+            if ev == "serve_metrics":
+                lines.append(
+                    f"  tick {row.get('tick', '?'):>6}  "
+                    f"ttft p50/p99 {row.get('ttft_ms_p50', 0):.1f}/"
+                    f"{row.get('ttft_ms_p99', 0):.1f} ms  "
+                    f"tok p99 {row.get('tok_ms_p99', 0):.1f} ms  "
+                    f"queue {row.get('gauge_queue_depth', 0):.0f}  "
+                    f"slots {row.get('gauge_active_slots', 0):.0f}  "
+                    f"pages {row.get('gauge_pages_allocated', 0):.0f}")
+            elif ev == "slo_breach":
+                lines.append(
+                    f"  tick {row.get('tick', '?'):>6}  SLO BREACH: "
+                    f"burn rate {row.get('burn_rate', 0):.2f} "
+                    f"({row.get('window_violations', '?')}/"
+                    f"{row.get('window', '?')} in window)")
+            else:
+                keep = {k: v for k, v in row.items()
+                        if k not in ("event", "tw") and
+                        isinstance(v, (int, float))}
+                short = ", ".join(f"{k}={v}" for k, v in
+                                  sorted(keep.items())[:8])
+                lines.append(f"  {ev}: {short}")
+    if report.get("replicas"):
+        lines.append("replica timeline: "
+                     f"{len(report['replicas'])} event(s) "
+                     "(full view without --serve)")
+    return "\n".join(lines)
+
+
+def _fmt_s(v: float) -> str:
+    return f"{v * 1e3:8.1f} ms" if v < 10 else f"{v:8.2f} s "
+
+
+def render(report: dict) -> str:
+    lines = [f"run journal: {report['directory']} "
+             f"(ranks {report['ranks']}, "
+             f"{report['schema_errors']} schema error(s))"]
+    att = report.get("attribution")
+    if att:
+        lines.append(
+            f"rank {att['rank']}: wall {att['wall_s']:.2f}s over "
+            f"{att['steps']} step(s)"
+            + (f" ({att['ms_per_step']:.1f} ms/step)"
+               if att.get("ms_per_step") else "")
+            + f" — coverage {att['coverage'] * 1e2:.1f}% "
+            f"({'closes' if att['closes'] else 'DOES NOT CLOSE'})")
+        for b in NAMED_BUCKETS:
+            v = att["buckets"][b]
+            lines.append(f"  {b:<10} {_fmt_s(v['s'])}  "
+                         f"{v['frac'] * 1e2:5.1f}%")
+        lines.append(f"  {'other':<10} {_fmt_s(att['other_s'])}  "
+                     f"{att['other_s'] / att['wall_s'] * 1e2:5.1f}%"
+                     if att["wall_s"] else "  other      0")
+        lines.append(
+            # negative unattributed = overlapping spans (the 'closes'
+            # failure); show it, never clamp the symptom away
+            f"  {'unattrib.':<10} {att['unattributed_s'] * 1e3:8.1f} ms")
+    if report.get("top_stalls"):
+        lines.append("top stall sources:")
+        for row in report["top_stalls"]:
+            lines.append(f"  {row['name']:<22} {_fmt_s(row['s'])}  "
+                         f"x{row['count']} (mean {row['mean_ms']:.2f} ms)")
+    if report.get("membership"):
+        lines.append("membership timeline:")
+        for r in report["membership"]:
+            what = r.get("transition") or r["event"]
+            who = (f"worker {r['worker']}" if "worker" in r else "process")
+            quorum = (f"  [alive {r['alive']}/{r['world']}]"
+                      if "alive" in r and "world" in r else "")
+            lines.append(f"  step {r.get('step', '?'):>6}  {who}: {what}"
+                         + (f" ({r['cause']})" if r.get("cause") else "")
+                         + quorum)
+    if report.get("replicas"):
+        lines.append("replica timeline:")
+        for r in report["replicas"]:
+            if "req_id" in r:
+                # request events first: engine-side timeouts carry BOTH a
+                # req_id and the replica it happened on — the incident
+                # report must say WHICH request, not just where
+                src = r.get("from_replica", r.get("replica", "?"))
+                dst = (f" -> {r['to_replica']}" if "to_replica" in r else "")
+                who = f"request {r['req_id']} (replica {src}{dst})"
+            elif "replica" in r:
+                who = f"replica {r['replica']}"
+            else:
+                who = "fleet"
+            extra = []
+            if r.get("cause"):
+                extra.append(r["cause"])
+            if "committed" in r:
+                extra.append(f"{r['committed']} committed")
+            if "residents" in r:
+                extra.append(f"{r['residents']} resident(s)")
+            quorum = (f"  [alive {r['alive']}/{r['world']}]"
+                      if "alive" in r and "world" in r else "")
+            lines.append(f"  tick {r.get('tick', '?'):>6}  {who}: "
+                         f"{r['event']}"
+                         + (f" ({', '.join(extra)})" if extra else "")
+                         + quorum)
+    skew = report.get("step_skew")
+    if skew:
+        lines.append(f"cross-host step skew over {skew['steps_compared']} "
+                     f"step(s): p50 {skew['p50_s'] * 1e3:.1f} ms, "
+                     f"p95 {skew['p95_s'] * 1e3:.1f} ms, "
+                     f"max {skew['max_s'] * 1e3:.1f} ms")
+    if "baseline" in report:
+        diff = report.get("baseline_diff")
+        if diff is None:
+            lines.append(f"baseline {report['baseline']}: no "
+                         "journal_attribution to diff against")
+        else:
+            worst = diff["regressing_bucket"]
+            lines.append(
+                f"vs baseline {report['baseline']}: "
+                + (f"regressing bucket = {worst} "
+                   f"(+{diff['frac_delta'][worst] * 1e2:.1f}% of wall)"
+                   if worst else "no bucket grew its share"))
+            lines.append("  frac deltas: " + ", ".join(
+                f"{b} {d:+.3f}" for b, d in diff["frac_delta"].items()))
+    return "\n".join(lines)
+
+
+def main(argv: Optional[list] = None) -> int:
+    ap = argparse.ArgumentParser(
+        description="offline run-journal analyzer (stdlib-only)")
+    ap.add_argument("directory", help="run directory holding "
+                    "journal_rank*.jsonl (or its parent)")
+    ap.add_argument("--rank", type=int, default=None,
+                    help="attribute this rank (default: lowest present)")
+    ap.add_argument("--baseline", default=None,
+                    help="BENCH_*.json / last_tpu_measurement.json to diff "
+                         "bucket fractions against")
+    ap.add_argument("--json-out", default=None,
+                    help="also write the full report as strict JSON")
+    ap.add_argument("--serve", action="store_true",
+                    help="serve-side view: per-request waterfalls "
+                         "(queue->prefill->decode from serve_finish + "
+                         "serve/prefill records) and the drain-cadence "
+                         "metrics timeline, instead of step attribution")
+    args = ap.parse_args(argv)
+    if args.serve:
+        report = serve_report(args.directory, rank=args.rank)
+        if report is None:
+            print(f"no journal files under {args.directory}",
+                  file=sys.stderr)
+            return 1
+        print(render_serve(report))
+        if args.json_out:
+            with open(args.json_out, "w") as f:
+                json.dump(report, f, indent=1, allow_nan=False)
+                f.write("\n")
+        # the leg closed iff at least one request reached a terminal
+        # record — a journaled serve run with zero serve_finish events
+        # means the workload silently never finished
+        return 0 if report["requests"] else 1
+    report = analyze_dir(args.directory, rank=args.rank,
+                         baseline=args.baseline)
+    if report is None:
+        print(f"no journal files under {args.directory}", file=sys.stderr)
+        return 1
+    print(render(report))
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            json.dump(report, f, indent=1, allow_nan=False)
+            f.write("\n")
+    att = report.get("attribution")
+    if att is None or not att["closes"]:
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,7 +6,9 @@ shuffle in a C++ background thread over mmap'd shards
 (``native/dataloader.cc``), so the host's input work overlaps the step.
 Every shard is validated first, with retries and backoff for transient
 I/O; a shard that stays bad is skipped loudly (a warning on stderr) and
-counted in :meth:`NativeTokenLoader.health_metrics`. Skipping a shard
+counted in :meth:`NativeTokenLoader.health_metrics`; the skip and each
+retry are also ``shard_skipped`` and ``shard_retry`` events of the active
+run journal (``train/journal.py``). Skipping a shard
 shifts every later block index, so ``cli/run_clm`` refuses to resume over
 a fleet that changed.
 """
@@ -15,13 +17,13 @@ from __future__ import annotations
 
 import ctypes
 import pathlib
-import sys
 import time
 from typing import Iterator, Sequence
 
 import numpy as np
 
 from distributed_lion_tpu_torch import native
+from distributed_lion_tpu_torch.train import journal
 
 _DTYPES = {np.dtype(np.uint16): 2, np.dtype(np.uint32): 4}
 
@@ -90,8 +92,9 @@ class NativeTokenLoader:
             except Exception as e:
                 last_err = e
                 self.skipped_shards.append(str(path))
-                print(f"[native_loader] WARNING: skipping corrupt/unreadable shard {path} after "
-                      f"{SHARD_RETRIES + 1} attempts: {e}", file=sys.stderr, flush=True)
+                journal.emit(f"[native_loader] WARNING: skipping corrupt/unreadable shard {path} "
+                             f"after {SHARD_RETRIES + 1} attempts: {e}", stderr=True)
+                journal.event("shard_skipped", shard=str(path), error=f"{type(e).__name__}: {e}")
         if not good:
             raise CorruptShardError(f"all {len(self.skipped_shards)} shard(s) failed "
                                     f"validation; last error: {last_err}")
@@ -113,6 +116,7 @@ class NativeTokenLoader:
 
     def _count_retry(self) -> None:
         self.read_retries += 1
+        journal.event("shard_retry", retries=self.read_retries)
 
     def read_block(self, idx: int) -> np.ndarray:
         out = np.empty(self.block_size, np.int32)

@@ -25,9 +25,10 @@
 from __future__ import annotations
 
 import os
-import sys
 from dataclasses import dataclass
 from typing import Iterable, List, Optional
+
+from distributed_lion_tpu_torch.train.journal import emit
 
 TRANSFORMERS_ONLY = ("this tokenizer loads only through transformers.AutoTokenizer, which the "
                      "port does not use; give a tokenizer.model, a tokenizer.json or a "
@@ -83,10 +84,10 @@ def load_tokenizer(name_or_path: Optional[str]):
         return TokenizerJSON.load(name_or_path)
     if has("tokenizer_config.json") or _in_hf_cache(name_or_path):
         raise NotImplementedError(f"tokenizer {name_or_path!r}: {TRANSFORMERS_ONLY}")
-    print(f"[tokenizer] WARNING: could not resolve {name_or_path!r} to a real tokenizer "
-          "(no vocab.json+merges.txt, tokenizer.model, tokenizer.json, or local HF cache) "
-          "— falling back to the 259-id ByteTokenizer. A Llama/GPT-2 run with this vocab "
-          "is almost certainly not what you want.", file=sys.stderr, flush=True)
+    emit(f"[tokenizer] WARNING: could not resolve {name_or_path!r} to a real tokenizer "
+         "(no vocab.json+merges.txt, tokenizer.model, tokenizer.json, or local HF cache) "
+         "— falling back to the 259-id ByteTokenizer. A Llama/GPT-2 run with this vocab "
+         "is almost certainly not what you want.", stderr=True)
     return ByteTokenizer()
 
 

@@ -40,10 +40,18 @@ member abstains, the threshold being the number of groups that still hold
 one. The zeroing goes into the wire's own buffer, never into ``ballots``.
 With ``alive`` all true the tally is bit-identical to ``alive=None``, and
 the bytes recorded in a :class:`WireTally` do not depend on the mask.
+
+``WIRE_TALLY.capture()`` collects every :class:`WireTally` record made
+inside it, one ``(leg, bytes)`` per launch, whichever tally the launch
+records into: the port's counterpart of the JAX package's
+``WIRE_TALLY.capture()`` around an abstract trace. The trainer captures its
+first optimizer step (``train.telemetry.measure_step_wire``); outside a
+capture nothing is kept.
 """
 
 from __future__ import annotations
 
+import contextlib
 from datetime import timedelta
 from typing import Callable, Optional
 
@@ -63,11 +71,37 @@ from distributed_lion_tpu_torch.ops.codec import (
 _all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 
 
+class _WireCapture:
+    """The process's capture of :class:`WireTally` records (module doc)."""
+
+    def __init__(self):
+        self._entries: Optional[list] = None
+
+    @contextlib.contextmanager
+    def capture(self):
+        """Collect every record made inside the block into the list it
+        yields."""
+        entries: list[tuple[str, int]] = []
+        outer, self._entries = self._entries, entries
+        try:
+            yield entries
+        finally:
+            self._entries = outer
+
+    def record(self, leg: str, nbytes: int) -> None:
+        if self._entries is not None:
+            self._entries.append((leg, int(nbytes)))
+
+
+WIRE_TALLY = _WireCapture()
+
+
 class WireTally:
     """Bytes handed to the collective backend, recorded per launch as
     ``(leg, received_bytes)`` with the same per-leg convention as the JAX
     package's ``WireTally`` and ``codec.wire_bytes_per_param`` (bytes
-    RECEIVED per rank). A world of one records nothing: no bytes move."""
+    RECEIVED per rank). A world of one records nothing: no bytes move.
+    Each record also goes to an open ``WIRE_TALLY.capture()``."""
 
     def __init__(self):
         self.entries: list[tuple[str, int]] = []
@@ -75,6 +109,7 @@ class WireTally:
     def record(self, leg: str, nbytes: int) -> None:
         if nbytes > 0:
             self.entries.append((leg, int(nbytes)))
+            WIRE_TALLY.record(leg, nbytes)
 
     def total(self) -> int:
         return sum(b for _, b in self.entries)

@@ -43,6 +43,13 @@ rename.
   the ``MANIFESTS_ENABLED`` stamp, and grandfathered before it.
 - **Retry and backoff** around each write; **rotation** to
   ``save_total_limit`` committed steps.
+- **Journal spans** (``journal``, ``train/journal.py``): on the calling
+  thread ``ckpt/serialize`` (the host snapshot, and a synchronous save's
+  write and commit) and ``ckpt/drain`` (waiting for an in-flight save), the
+  same blocked time ``pop_stall_s`` counts; on the commit thread
+  ``ckpt/write``, ``ckpt/peers`` (the W > 1 agreement), ``ckpt/digest`` and
+  ``ckpt/commit_marker``, stamped ``thread="committer"`` (they overlap the
+  steps, and the analyzer leaves them out of the step wall).
 """
 
 from __future__ import annotations
@@ -52,7 +59,6 @@ import json
 import os
 import pathlib
 import shutil
-import sys
 import time
 from datetime import timedelta
 from concurrent.futures import Future, ThreadPoolExecutor
@@ -63,7 +69,9 @@ import torch.distributed as dist
 
 from distributed_lion_tpu_torch.parallel.collectives import side_group, world_of
 from distributed_lion_tpu_torch.parallel.mesh import rank_of
+from distributed_lion_tpu_torch.train import journal as run_journal
 from distributed_lion_tpu_torch.train import resilience
+from distributed_lion_tpu_torch.train.journal import emit
 from distributed_lion_tpu_torch.train.resilience import (  # noqa: F401  (the API surface)
     MANIFEST,
     MANIFEST_FORMAT,
@@ -106,7 +114,9 @@ class Checkpointer:
 
     def __init__(self, directory: str | pathlib.Path, save_total_limit: Optional[int] = None, *,
                  async_save: bool = False, integrity: bool = True, max_retries: int = 3,
-                 retry_backoff_s: float = 0.1, group=None, commit_timeout_s: float = 1800.0):
+                 retry_backoff_s: float = 0.1, group=None, commit_timeout_s: float = 1800.0,
+                 journal=None):
+        self._journal = journal if journal is not None else run_journal.NULL
         self.directory = pathlib.Path(directory).absolute()
         self.directory.mkdir(parents=True, exist_ok=True)
         self.save_total_limit = save_total_limit
@@ -154,16 +164,17 @@ class Checkpointer:
             except Exception:
                 drained = time.monotonic() - t0
                 raise
-            host = self._snapshot(files)
-            self._latest = int(step)
-            if self._executor is not None:
-                self._inflight.append(
-                    (step, self._executor.submit(self._write_and_commit, step, host, meta)))
-            else:
-                self._write(step, host)
-                if self.world > 1:
-                    dist.barrier(group=self.group)  # every rank's files are final
-                self._commit(step, meta)
+            with self._journal.span("ckpt/serialize", step=int(step)):
+                host = self._snapshot(files)
+                self._latest = int(step)
+                if self._executor is not None:
+                    self._inflight.append(
+                        (step, self._executor.submit(self._write_and_commit, step, host, meta)))
+                else:
+                    self._write(step, host)
+                    if self.world > 1:
+                        dist.barrier(group=self.group)  # every rank's files are final
+                    self._commit(step, meta)
         finally:
             self._add_stall(max(time.monotonic() - t0 - drained, 0.0))
 
@@ -212,7 +223,8 @@ class Checkpointer:
             ok.zero_()  # tell the peers, then raise this rank's own error
             dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=self._commit_group)
             raise
-        dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=self._commit_group)
+        with self._journal.span("ckpt/peers", step=int(step), thread="committer"):
+            dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=self._commit_group)
         if not int(ok):
             raise RuntimeError(f"checkpoint step {step}: another rank's write failed; the step "
                                "is not committed")
@@ -227,12 +239,13 @@ class Checkpointer:
             try:
                 if resilience.consume_fault_count("ckpt_save_raise"):
                     raise OSError("injected save fault")
-                for rel, obj in host.items():
-                    path = sdir / rel
-                    path.parent.mkdir(parents=True, exist_ok=True)
-                    tmp = path.with_name(path.name + ".tmp")
-                    torch.save(obj, tmp)
-                    os.replace(tmp, path)
+                with self._journal.span("ckpt/write", step=int(step), thread="committer"):
+                    for rel, obj in host.items():
+                        path = sdir / rel
+                        path.parent.mkdir(parents=True, exist_ok=True)
+                        tmp = path.with_name(path.name + ".tmp")
+                        torch.save(obj, tmp)
+                        os.replace(tmp, path)
                 return
             except Exception as e:
                 if attempt == self.max_retries:
@@ -242,8 +255,8 @@ class Checkpointer:
                     except Exception:
                         raise e
                     raise wrapped from e
-                print(f"[ckpt] save({step}) attempt {attempt + 1} failed ({e}); retrying in "
-                      f"{delay:.2f}s", file=sys.stderr, flush=True)
+                emit(f"[ckpt] save({step}) attempt {attempt + 1} failed ({e}); retrying in "
+                     f"{delay:.2f}s", stderr=True)
                 time.sleep(delay)
                 delay *= 2
 
@@ -260,12 +273,14 @@ class Checkpointer:
             if resilience.fault("ckpt_crash_before_manifest"):
                 return None  # a death after the data files, before the commit
             sdir = self._step_dir(step)
-            digest = write_manifest(sdir, step, meta)
+            with self._journal.span("ckpt/digest", step=int(step), thread="committer"):
+                digest = write_manifest(sdir, step, meta)
             if resilience.fault("ckpt_crash_before_marker"):
                 return None
-            _atomic_write(sdir / MARKER, json.dumps(
-                {"manifest_sha256": digest, "step": int(step),
-                 "committed_at_unix": time.time()}, allow_nan=False).encode())
+            with self._journal.span("ckpt/commit_marker", step=int(step), thread="committer"):
+                _atomic_write(sdir / MARKER, json.dumps(
+                    {"manifest_sha256": digest, "step": int(step),
+                     "committed_at_unix": time.time()}, allow_nan=False).encode())
         self._rotate(step)
         self.last_commit_s = time.monotonic() - t0
         return step
@@ -294,7 +309,8 @@ class Checkpointer:
             while self._inflight:
                 step, fut = self._inflight.pop(0)
                 try:
-                    fut.result()
+                    with self._journal.span("ckpt/drain", step=int(step)):
+                        fut.result()
                 except Exception as e:
                     raise RuntimeError(
                         f"checkpoint write or commit for step {step} under "

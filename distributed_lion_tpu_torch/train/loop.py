@@ -91,9 +91,46 @@ guard toggle across a resume attaches fresh guard state or strips it; an
 elastic resume re-averages quarantined ranks' momenta from the healthy
 mean before the remap.
 
+**The run journal and the control plane** (JAX loop.py:313-358,
+:726-761, :1160-1245, :1612-1620, :1770-1815, :1960-1978, :2087-2107).
+``journal`` comes up first and closes last: a ``train/journal.Journal``
+per rank process (``journal_rank<r>.jsonl`` under ``journal_dir``, default
+``output_dir/journal``; ring-only with neither), installed as the active
+journal, so the trainer's messages (rank 0 prints them, every rank journals
+them), the vote guard's transitions, the checkpointer's spans, the
+preemption drain and the data path's shard events land in one stream that
+``cli/run_analyze.py`` reads. The loop's spans are host wall clock:
+``data_wait`` (``next()`` and the host-to-device copy), ``dispatch`` (the
+step: in eager PyTorch the host time issuing its kernels, and at W > 1
+over gloo every collective the host blocks on), ``dispatch/guard`` and
+``dispatch/membership`` (the plane's decisions and the state surgery they
+order: a heal gathers the momenta over the ranks), ``device_wait`` (the
+log-cadence sync the loop already makes: the ranks' metric mean and
+``torch.cuda.synchronize``), ``device_wait/guard`` and
+``device_wait/sentinel`` (the one-step-behind reads of the previous step's
+host copies), ``logging_drain`` and ``eval``; events ``train_start``,
+``step_log`` (with ``skew_steps``) and ``train_end``. No span reads a
+tensor or adds a sync. ``control_plane`` (Lion only) arms the vote guard's
+``enforce`` when it is off, refuses ``observe``, and runs a
+``train/control_plane.ControlPlane`` on every rank with the same inputs:
+``inject_membership`` (``worker_drop:<w>[:<step>]``,
+``worker_rejoin:<w>:<step>``) is consumed at each step boundary before the
+step, so a departed rank's ballot is masked out of the next election (the
+rank keeps its process and its place in every collective, and its momentum
+follows its own gradient), and a rejoiner's momentum is re-averaged from
+the healthy mean and its previous ballot zeroed before it votes again.
+Checkpoints carry the plane's ``cp_departed``, ``cp_sched_through``,
+``cp_rejoining_until`` and ``cp_quarantine_counts``; a resume adopts them,
+so a consumed drop or rejoin never replays. Under ``telemetry`` at W > 1
+the first step runs under ``WIRE_TALLY.capture()`` and every row carries
+``comm_measured_bytes_per_step``, ``comm_measured_calls_per_step`` and
+``comm_drift_bytes`` (measured − ``profiling.comm_report``'s analytic
+bytes) beside ``comm_bytes_per_step``, and ``host_step_skew`` (the ranks'
+step counters' spread over a gloo side group).
+
 ``TrainConfig`` holds only the fields the port runs, with their JAX
-defaults; the others (the control plane, the parallel axes, …) are not
-flags here, so argparse refuses them.
+defaults; the others (the parallel axes, ``--zero1``, …) are not flags
+here, so argparse refuses them.
 """
 
 from __future__ import annotations
@@ -126,8 +163,15 @@ from distributed_lion_tpu_torch.optim.lion import FlatParams, LionState, fresh_g
 from distributed_lion_tpu_torch.optim.optax_adapter import AdamWState, adamw
 from distributed_lion_tpu_torch.parallel import collectives
 from distributed_lion_tpu_torch.parallel.mesh import rank_of, resolve_device
-from distributed_lion_tpu_torch.train import resilience, telemetry, vote_guard
+from distributed_lion_tpu_torch.train import (
+    control_plane,
+    journal,
+    resilience,
+    telemetry,
+    vote_guard,
+)
 from distributed_lion_tpu_torch.train.checkpoint import Checkpointer
+from distributed_lion_tpu_torch.train.journal import emit
 from distributed_lion_tpu_torch.train.metrics import MetricsLogger
 from distributed_lion_tpu_torch.train.profiling import (
     StepProfiler,
@@ -190,6 +234,11 @@ class TrainConfig:
     guard_strikes: int = 3  # bad observed steps before a quarantine
     guard_cooldown: int = 50  # steps in quarantine before a readmission probe
     inject_poison: str = ""  # '<kind>:<worker>[:<start_step>]' (resilience.parse_poison)
+    journal: bool = False  # run journal (train/journal.py): spans and events, JSONL per rank
+    journal_dir: str = ""  # '' = output_dir/journal; with neither, ring-only
+    control_plane: bool = False  # membership lifecycle (train/control_plane.py); arms enforce
+    rejoin_probe_steps: int = 0  # a rejoiner's probation; 0 = guard_cooldown
+    inject_membership: str = ""  # 'worker_drop:<w>[:<s>],worker_rejoin:<w>:<s>' (needs the plane)
 
     def schedule(self) -> Callable:
         if self.lr_scheduler_type == "cosine":
@@ -237,10 +286,10 @@ def resolve_auto_comm(cfg: TrainConfig, world: int, n_params: int,
         ve = 1  # lazy refresh is opt-in, as in the JAX package
         if announce and cfg.lion and world > 1 and n_params >= AUTO_LAZY_MIN_PARAMS:
             bits = wire_bytes_per_param(n_params, world, wire, vote_every=4)["bits_per_param"]
-            print(f"[trainer] auto comm: wire={wire} vote_every=1 (strict every-step voting). "
-                  f"Lazy --vote_every 4 would cut the {n_params / 1e6:.0f}M-coordinate ballot "
-                  f"to {bits:.2f} bits/param/step, but it stays opt-in until a full-scale "
-                  "lazy run matches strict voting's loss", flush=True)
+            emit(f"[trainer] auto comm: wire={wire} vote_every=1 (strict every-step voting). "
+                 f"Lazy --vote_every 4 would cut the {n_params / 1e6:.0f}M-coordinate ballot "
+                 f"to {bits:.2f} bits/param/step, but it stays opt-in until a full-scale "
+                 "lazy run matches strict voting's loss")
     if vb == 0:
         n_voted = (n_params if ve <= 1
                    else min(n_params, vote_chunk_elems(n_params, ve)))
@@ -303,6 +352,33 @@ def check_telemetry_size(n_params: int, vote_every: int, telemetry: bool) -> Non
             f"does; this run votes {n_voted:,} coordinates a step, past 2**31 - 1. Drop "
             "--telemetry (wider counters: ROADMAP Queue 1 item 10; the limit is a "
             "reference-side fact of Queue 3)")
+
+
+def arm_control_plane(cfg: TrainConfig) -> tuple[TrainConfig, bool]:
+    """The control plane's flag rules (JAX loop.py:726-748): Lion only; it
+    refuses ``--vote_guard observe`` (which never touches the mask) and arms
+    ``enforce`` when the guard is off (every rank healthy, ``enforce`` is
+    ``torch.equal`` to ``off``); ``inject_membership`` needs the plane.
+    Returns the config and whether ``enforce`` was armed here."""
+    armed = False
+    if cfg.control_plane:
+        if not cfg.lion:
+            raise ValueError(
+                "--control_plane drives the majority-vote election's membership mask; the "
+                "AdamW path has no election — drop one of the two flags")
+        if cfg.vote_guard == "observe":
+            raise ValueError(
+                "--control_plane needs masked elections to act on its membership decisions, "
+                "but --vote_guard observe never touches the mask — use 'enforce' (or leave "
+                "the guard off: the plane auto-arms enforce)")
+        if cfg.vote_guard == "off":
+            cfg = dataclasses.replace(cfg, vote_guard="enforce")
+            armed = True
+    if cfg.inject_membership and not cfg.control_plane:
+        raise ValueError(
+            "--inject_membership schedules live worker leave/join, which only the control "
+            "plane consumes — pass --control_plane (or drop the injection)")
+    return cfg, armed
 
 
 LossFn = Callable[[object, Optional[int]], tuple]
@@ -390,48 +466,60 @@ def _announce(family: str, n: int, world: int, cfg: TrainConfig, device) -> None
     """The trainer's banner (JAX loop.py:2722-2731): params, world, and the
     vote wire with its bits per param per step."""
     if not cfg.lion:
-        print(f"[trainer] {family} {n/1e6:.1f}M params | world={world} | AdamW, gradient "
-              f"all_reduce | device={device}")
+        emit(f"[trainer] {family} {n/1e6:.1f}M params | world={world} | AdamW, gradient "
+             f"all_reduce | device={device}")
         return
     acct = wire_bytes_per_param(n, world, cfg.wire, vote_every=cfg.vote_every,
                                 accum_steps=cfg.gradient_accumulation_steps,
                                 vote_buckets=cfg.vote_buckets)
-    print(f"[trainer] {family} {n/1e6:.1f}M params | world={world} | vote wire={cfg.wire}"
-          + (f" (vote_buckets={cfg.vote_buckets})" if cfg.vote_buckets > 1 else "")
-          + (f" (vote_every={cfg.vote_every})" if cfg.vote_every > 1 else "")
-          + f": {acct['bits_per_param']:.2f} bits/param/step | device={device}")
+    emit(f"[trainer] {family} {n/1e6:.1f}M params | world={world} | vote wire={cfg.wire}"
+         + (f" (vote_buckets={cfg.vote_buckets})" if cfg.vote_buckets > 1 else "")
+         + (f" (vote_every={cfg.vote_every})" if cfg.vote_every > 1 else "")
+         + f": {acct['bits_per_param']:.2f} bits/param/step | device={device}")
 
 
 def announce_guards(trainer: "Trainer", prog: str) -> None:
-    """The CLIs' banner lines for the NaN sentinel and the vote guard (JAX
-    run_clm.py:454-466), on rank 0."""
+    """The CLIs' banner lines for the NaN sentinel, the vote guard (JAX
+    run_clm.py:454-466), the control plane and the run journal, on rank 0
+    (every rank journals them)."""
     cfg = trainer.cfg
-    if trainer.rank != 0:
-        return
+    say = trainer._emit
     if cfg.nan_sentinel:
-        print(f"[{prog}] NaN sentinel armed: a non-finite loss or pre-clip grad norm "
-              + (f"writes a crash bundle to {cfg.output_dir}/crash/step_<n>/bundle.json and "
-                 if cfg.output_dir else "")
-              + ("traces " + str(cfg.profile_num_steps) + " more steps, then "
-                 if cfg.trace_on_anomaly else "")
-              + "raises FloatingPointError", flush=True)
+        say(f"[{prog}] NaN sentinel armed: a non-finite loss or pre-clip grad norm "
+            + (f"writes a crash bundle to {cfg.output_dir}/crash/step_<n>/bundle.json and "
+               if cfg.output_dir else "")
+            + ("traces " + str(cfg.profile_num_steps) + " more steps, then "
+               if cfg.trace_on_anomaly else "")
+            + "raises FloatingPointError")
     if cfg.vote_guard != "off":
-        print(f"[{prog}] vote guard {cfg.vote_guard.upper()}: per-worker ballot health inside "
-              "the step (nonfinite / frozen / outlier), quarantine after "
-              f"{cfg.guard_strikes} strikes, readmission probe after {cfg.guard_cooldown} steps, "
-              f"refusing below quorum {trainer._guard.min_quorum}/{trainer.world}"
-              + ("" if cfg.vote_guard == "enforce" else " (observe: elections untouched)"),
-              flush=True)
+        say(f"[{prog}] vote guard {cfg.vote_guard.upper()}: per-worker ballot health inside "
+            "the step (nonfinite / frozen / outlier), quarantine after "
+            f"{cfg.guard_strikes} strikes, readmission probe after {cfg.guard_cooldown} steps, "
+            f"refusing below quorum {trainer._guard.min_quorum}/{trainer.world}"
+            + ("" if cfg.vote_guard == "enforce" else " (observe: elections untouched)"))
+    if trainer._cplane is not None:
+        say(f"[{prog}] control plane ON: one membership lifecycle per worker over "
+            f"{trainer.world} rank(s); a departed worker's ballot is masked from the next "
+            "election (no restart), a rejoiner's momentum re-averaged from the healthy mean, "
+            f"probation {trainer._cplane.rejoin_probe_steps} steps"
+            + (f"; membership schedule {cfg.inject_membership!r}" if cfg.inject_membership
+               else ""))
+    if cfg.journal:
+        where = trainer.journal.directory
+        say(f"[{prog}] run journal on: "
+            + (f"{where}/{journal.journal_filename(trainer.rank)} per rank"
+               if where else "ring-only (no --journal_dir or --output_dir)")
+            + f"; python -m distributed_lion_tpu_torch.cli.run_analyze {where or '<dir>'}")
 
 
 def report_preempted(trainer: "Trainer", prog: str) -> bool:
     """After ``train``: True when a preemption stopped it, with the CLIs'
     exit line (JAX run_clm.py:512-515); the CLI then returns, exit code 0."""
-    if trainer.preempted and trainer.rank == 0:
-        print(f"[{prog}] preempted: "
-              + ("checkpoint durable, " if trainer.checkpointer
-                 else "NO checkpointer (no --output_dir) — nothing saved, ")
-              + "exiting cleanly", flush=True)
+    if trainer.preempted:
+        trainer._emit(f"[{prog}] preempted: "
+                      + ("checkpoint durable, " if trainer.checkpointer
+                         else "NO checkpointer (no --output_dir) — nothing saved, ")
+                      + "exiting cleanly")
     return trainer.preempted
 
 
@@ -447,6 +535,14 @@ class Trainer:
         self.world = collectives.world_of(group)
         self.rank = rank_of(group)
         self.group = group
+        cfg, plane_armed = arm_control_plane(cfg)
+        # the journal comes up first, so every message below is in it
+        jdir = cfg.journal_dir or (os.path.join(cfg.output_dir, "journal")
+                                   if cfg.output_dir else "")
+        self.journal = (journal.Journal(jdir or None, rank=self.rank) if cfg.journal
+                        else journal.NULL)
+        if cfg.journal:
+            journal.install(self.journal)
         if cfg.vocab_chunks > 0 and not getattr(loss_fn, "_vocab_chunked", False):
             raise NotImplementedError(
                 "--vocab_chunks is not wired into this entry point's loss function "
@@ -458,12 +554,12 @@ class Trainer:
         self.model = model
         self.loss_fn = loss_fn
         self.flat = FlatParams(named_params)
-        if (cfg.lion and cfg.learning_rate < 1e-3 and self.flat.params.dtype == torch.bfloat16
-                and self.rank == 0):
-            print(f"[trainer] WARNING: bf16 param storage with Lion lr {cfg.learning_rate:g} "
-                  "< 1e-3 — the fixed ±lr update is below bf16 ULP for |p| > ~lr*256, so "
-                  "those coordinates will NOT move. Use f32 param_dtype (bf16 compute_dtype "
-                  "keeps the matmul speed) unless this is a throughput bench.", flush=True)
+        if cfg.lion and cfg.learning_rate < 1e-3 and self.flat.params.dtype == torch.bfloat16:
+            self._emit(f"[trainer] WARNING: bf16 param storage with Lion lr "
+                       f"{cfg.learning_rate:g} < 1e-3 — the fixed ±lr update is below bf16 ULP "
+                       "for |p| > ~lr*256, so those coordinates will NOT move. Use f32 "
+                       "param_dtype (bf16 compute_dtype keeps the matmul speed) unless this is "
+                       "a throughput bench.")
         self.device = self.flat.device
         self.n_params = self.flat.numel
         if cfg.on_preempt not in ("save_exit", "off"):
@@ -472,32 +568,50 @@ class Trainer:
         self.opt = make_optimizer(cfg, group)
         self.state = self.opt.init(self.flat)
         self._guard = (vote_guard.make_guard(self.world, cfg.vote_guard, cfg.guard_strikes,
-                                             cfg.guard_cooldown, cfg.min_quorum)
+                                             cfg.guard_cooldown, cfg.min_quorum,
+                                             journal=self.journal)
                        if cfg.lion else None)
         self._guard_pending = None  # (step, HostCopy of the observations, steps)
+        # the port runs no DCN pipeline (ROADMAP Queue 1 item 11): depth 0
+        self._cplane = (control_plane.make_control_plane(
+            self._guard, self.world, cfg.rejoin_probe_steps, 0, journal=self.journal)
+            if cfg.control_plane else None)
+        if plane_armed:
+            self._emit("[trainer] control plane: --vote_guard auto-armed to 'enforce' (the "
+                       "plane's membership mask rides the guard's masked elections; "
+                       "all-healthy enforce is bit-identical to off)")
+        if cfg.inject_membership:
+            sched = resilience.parse_membership_specs(cfg.inject_membership)
+            bad = sorted({w for _, w, _ in sched if w >= self.world})
+            if bad:
+                raise ValueError(f"--inject_membership names worker(s) {bad} outside world "
+                                 f"{self.world}: {cfg.inject_membership!r}")
+            resilience.inject_fault("membership", sched)
+            self._emit(f"[trainer] FAULT INJECTION armed: membership {cfg.inject_membership!r}")
         if cfg.inject_poison:
             resilience.inject_fault("ballot_poison", resilience.parse_poison(cfg.inject_poison))
-            if self.rank == 0:
-                print(f"[trainer] FAULT INJECTION armed: ballot poison {cfg.inject_poison!r}",
-                      flush=True)
+            self._emit(f"[trainer] FAULT INJECTION armed: ballot poison {cfg.inject_poison!r}")
         self._metrics_window: collections.deque = collections.deque(maxlen=16)
         self._sentinel_pending = None  # (step, keys, HostCopy) awaiting the check
         self._sentinel_now = None  # this step's (keys, HostCopy): the logged grad_norm
         self._anomaly_deadline: Optional[int] = None  # the step the anomaly trace ends at
         self._anomaly_reason = ""
         self.preempted = False
-        self._preempt = (resilience.PreemptionGuard() if cfg.on_preempt == "save_exit"
-                         else None)
-        # the ranks' agreement on the flag rides a gloo group of its own, on
-        # the host: reading it never waits for the card
-        self._preempt_group = (
+        self._preempt = (resilience.PreemptionGuard(journal=self.journal)
+                         if cfg.on_preempt == "save_exit" else None)
+        # the ranks' agreement on the preemption flag and the step-skew
+        # heartbeat ride a gloo group of their own, on the host: neither
+        # waits for the card
+        self._side = (
             collectives.side_group(group, timedelta(seconds=1800))
-            if self._preempt is not None and self.world > 1 else None)
+            if self.world > 1 and (self._preempt is not None or cfg.telemetry or cfg.journal)
+            else None)
         self._preempt_pending = None  # (work, flag) started at the last boundary
         self.profiler = StepProfiler(cfg.profile_dir, cfg.profile_start_step,
                                      cfg.profile_num_steps, cuda=self.device.type == "cuda",
                                      rank=self.rank)
         self.timer = StepTimer()
+        self._wire_measured: Optional[dict] = None  # the first step's captured wire ledger
         self.margin_exact = telemetry.tally_wire(cfg.wire)
         self.vote_health = (telemetry.init_vote_health(self.n_params, cfg.vote_every,
                                                        self.device)
@@ -512,11 +626,16 @@ class Trainer:
         self.logger = MetricsLogger(cfg.output_dir if self.rank == 0 else None)
         self.checkpointer = (
             Checkpointer(f"{cfg.output_dir}/checkpoints", cfg.save_total_limit,
-                         async_save=cfg.async_ckpt, integrity=cfg.ckpt_integrity, group=group)
+                         async_save=cfg.async_ckpt, integrity=cfg.ckpt_integrity, group=group,
+                         journal=self.journal)
             if cfg.output_dir else None)
         t0 = time.perf_counter()
         self._maybe_resume()
         self.resume_s = time.perf_counter() - t0  # verify + restore, host clock
+
+    def _emit(self, msg: str) -> None:
+        """A trainer message: printed on rank 0, journaled on every rank."""
+        emit(msg, echo=self.rank == 0)
 
     @staticmethod
     def for_gpt2(cfg: TrainConfig, model_cfg: GPT2Config, *, device="cuda",
@@ -594,14 +713,19 @@ class Trainer:
         return (self.world * self.cfg.per_device_train_batch_size
                 * self.cfg.gradient_accumulation_steps)
 
-    def _train_step(self, batch) -> tuple:
-        """One optimizer step on this rank's shard of ``batch``; returns the
-        microbatch-meaned local metrics, and the sentinel's values and the
-        guard's observations (:class:`HostCopy` each, or None)."""
+    def _local_batch(self, batch):
+        """This rank's shard of a global ``batch``, on the device."""
+        accum, bs = self.cfg.gradient_accumulation_steps, self.cfg.per_device_train_batch_size
+        return _to_device(_rows(batch, self.rank * accum * bs, (self.rank + 1) * accum * bs),
+                          self.device)
+
+    def _train_step(self, local) -> tuple:
+        """One optimizer step on this rank's shard ``local``
+        (:meth:`_local_batch`); returns the microbatch-meaned local metrics,
+        and the sentinel's values and the guard's observations
+        (:class:`HostCopy` each, or None)."""
         cfg = self.cfg
         accum, bs = cfg.gradient_accumulation_steps, cfg.per_device_train_batch_size
-        local = _to_device(_rows(batch, self.rank * accum * bs, (self.rank + 1) * accum * bs),
-                           self.device)
         self.flat.zero_grad()
         sums: dict = {}
         for i in range(accum):
@@ -714,13 +838,30 @@ class Trainer:
             self._resume_skip_batches = 0
         t_last, s_last = time.perf_counter(), self.step_count
         data_wait = 0.0
+        jr = self.journal  # journal.NULL when off: every span is a no-op
+        jr.event("train_start", step=self.step_count, total=int(total))
         while self.step_count < total:
+            if self._cplane is not None:
+                # membership transitions land at the step boundary, before
+                # the step: a due drop is masked out of this election, a due
+                # rejoin healed before it votes
+                with jr.span("dispatch/membership", step=self.step_count):
+                    self._apply_membership(self.step_count)
             self.profiler.maybe_start(self.step_count)
-            t_data = time.perf_counter()
-            batch = next(train_iter)
-            data_wait += time.perf_counter() - t_data
-            with self.profiler.annotate(self.step_count):
-                metrics, sentinel, obs = self._train_step(batch)
+            with jr.span("data_wait", step=self.step_count, steps=1):
+                t_data = time.perf_counter()
+                batch = next(train_iter)
+                data_wait += time.perf_counter() - t_data
+                local = self._local_batch(batch)
+            with self.profiler.annotate(self.step_count), \
+                    jr.span("dispatch", step=self.step_count, steps=1):
+                if (self._wire_measured is None and self.vote_health is not None
+                        and self.world > 1):
+                    # the measured wire ledger: this first step's launches
+                    (metrics, sentinel, obs), self._wire_measured = \
+                        telemetry.measure_step_wire(self._train_step, local)
+                else:
+                    metrics, sentinel, obs = self._train_step(local)
             self.step_count += 1
             self.timer.tick()
             self.profiler.maybe_stop(self.step_count)
@@ -741,19 +882,29 @@ class Trainer:
                     self.checkpointer.finalize()
                 raise FloatingPointError(self._anomaly_reason)
             if self.step_count % cfg.logging_steps == 0 or self.step_count == total:
-                m = self._mean_over_ranks(metrics)
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
+                with jr.span("device_wait", step=self.step_count):
+                    # the sync the loop makes at log cadence anyway (the
+                    # ranks' metric mean reads the card), made a span
+                    m = self._mean_over_ranks(metrics)
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    if self._sentinel_now is not None:
+                        _, keys, vals = self._sentinel_now
+                        m["grad_norm"] = float(vals.get()[keys.index("grad_norm")])
+                t_log = time.monotonic()
                 now = time.perf_counter()
                 steps = self.step_count - s_last
+                steps_per_sec = steps / max(now - t_last, 1e-9)
                 m["step_ms"] = 1e3 * (now - t_last) / steps
-                m["tokens_per_sec"] = tokens_per_step * steps / max(now - t_last, 1e-9)
+                m["tokens_per_sec"] = tokens_per_step * steps_per_sec
                 m["lr"] = float(self._schedule(torch.tensor(self.step_count - 1)))
                 m["data_wait_ms"] = 1e3 * data_wait / steps
                 m.update(self.timer.stats())
-                if self._sentinel_now is not None:
-                    _, keys, vals = self._sentinel_now
-                    m["grad_norm"] = float(vals.get()[keys.index("grad_norm")])
+                comm = self.comm_stats(steps_per_sec)
+                if comm:
+                    m["comm_bytes_per_step"] = comm["comm_bytes_per_step"]
+                    m["comm_mbytes_per_sec"] = comm.get("comm_mbytes_per_sec", 0.0)
+                    m["comm_overlap_frac"] = comm.get("comm_overlap_frac", 0.0)
                 hbm = peak_hbm_gb() if self.device.type == "cuda" else None
                 if hbm is not None:
                     m["peak_hbm_gb"] = hbm
@@ -765,30 +916,65 @@ class Trainer:
                 if hasattr(train_iter, "health_metrics"):
                     m.update(train_iter.health_metrics())
                 t_last, s_last = now, self.step_count
+                skew = None
                 if self.vote_health is not None:
                     # the interval's one telemetry host read; the previous
                     # election carries over so flip rates stay continuous
                     vote = telemetry.drain(self.vote_health, self.margin_exact)
                     self.vote_health = telemetry.reset_counters(self.vote_health)
                     m.update({f"vote/{k}": v for k, v in vote.items()})
+                    if self._wire_measured:
+                        mw = self._wire_measured
+                        m["comm_measured_bytes_per_step"] = mw["bytes_per_step"]
+                        m["comm_measured_calls_per_step"] = mw["calls_per_step"]
+                        if mw["dcn_bytes_per_step"]:
+                            m["comm_measured_dcn_bytes_per_step"] = mw["dcn_bytes_per_step"]
+                        if comm:
+                            # 0 unless the accounting and the collectives disagree
+                            m["comm_drift_bytes"] = (mw["bytes_per_step"]
+                                                     - comm["comm_bytes_per_step"])
+                    skew = telemetry.host_step_skew(self.step_count, self._side)
+                    if skew is not None:
+                        m["host_step_skew"] = skew
+                elif cfg.journal:
+                    skew = telemetry.host_step_skew(self.step_count, self._side)
                 if self._guard is not None:
                     # the machine's state as of the last folded step
                     m.update(self._guard.summary(),
                              guard_healthy_mask=[bool(h) for h in self._guard.healthy],
                              guard_strikes=[int(x) for x in self._guard.strikes])
+                if self._cplane is not None:
+                    m.update(self._cplane.summary())
                 self.history.append({"step": self.step_count, **m})
                 self._metrics_window.append({"step": self.step_count, **m})
                 if self.rank == 0:
                     self.logger.log(self.step_count, m, prefix="train")
+                if cfg.journal:
+                    # the step-skew heartbeat as a journal event: run_analyze
+                    # derives the cross-rank skew from these records
+                    jr.event("step_log", step=self.step_count,
+                             steps_per_sec=round(steps_per_sec, 6),
+                             **({} if skew is None else {"skew_steps": int(skew)}))
+                    # metric assembly, the telemetry drain and the write
+                    jr.record({"kind": "span", "name": "logging_drain",
+                               "dur": round(time.monotonic() - t_log, 9),
+                               "step": self.step_count})
+                    jr.flush()
             if eval_blocks is not None and self.step_count % cfg.eval_steps == 0:
-                self.history.append({"step": self.step_count,
-                                     **self.evaluate(eval_blocks)})
+                with jr.span("eval", step=self.step_count):
+                    self.history.append({"step": self.step_count,
+                                         **self.evaluate(eval_blocks)})
             if self.checkpointer and self.step_count % cfg.save_steps == 0:
                 self.save()
             if self._preempt_due():
+                if self._cplane is not None:
+                    # the one membership stream records the departure too
+                    self._cplane.note_preempt(self.step_count)
                 self._preempt_exit()
                 break
         self._drain_pending()
+        jr.event("train_end", step=self.step_count, preempted=bool(self.preempted))
+        jr.flush()
         return self.history
 
     def _drain_pending(self) -> None:
@@ -815,7 +1001,7 @@ class Trainer:
         if self._preempt is None:
             return False
         local = self._preempt.should_stop()
-        if self._preempt_group is None:
+        if self._side is None:
             return local
         due = False
         if self._preempt_pending is not None:
@@ -826,55 +1012,77 @@ class Trainer:
         if not due:
             flag = torch.tensor([int(local)], dtype=torch.int32)
             self._preempt_pending = (dist.all_reduce(flag, op=dist.ReduceOp.MAX,
-                                                     group=self._preempt_group,
-                                                     async_op=True), flag)
+                                                     group=self._side, async_op=True), flag)
         return due
 
     def _preempt_exit(self) -> None:
         """Preemption at a step boundary: drain the in-flight save, commit
         a checkpoint tagged ``preempt`` and mark the run preempted."""
         if self.checkpointer:
-            if self.rank == 0:
-                print(f"[trainer] preemption at step {self.step_count}: draining in-flight "
-                      "save, writing emergency checkpoint", flush=True)
+            self._emit(f"[trainer] preemption at step {self.step_count}: draining in-flight "
+                       "save, writing emergency checkpoint")
             self.save(tag="preempt")
             self.checkpointer.finalize()
-        elif self.rank == 0:
-            print(f"[trainer] preemption at step {self.step_count}: no output_dir — NOTHING "
-                  "SAVED; a restart begins from step 0", flush=True)
+        else:
+            self._emit(f"[trainer] preemption at step {self.step_count}: no output_dir — "
+                       "NOTHING SAVED; a restart begins from step 0")
         self.preempted = True
 
-    # ------------------------------------------------------ guard, sentinel
+    # ---------------------------------------- guard, control plane, sentinel
     def _apply_guard(self, step: int, obs: HostCopy, advanced: int) -> None:
-        """Fold one step's observations into the quarantine machine, then
-        act on its transitions under ``enforce`` (JAX loop.py:1207-1241)."""
-        rows = obs.get()
-        host = {"guard_nonfinite": rows[0].astype(np.int32),
-                "guard_frozen": rows[1].astype(np.int32),
-                "guard_disagree": rows[2].astype(np.float32),
-                "guard_voted_steps": np.asarray(int(rows[3][0]), np.int32)}
-        events = self._guard.update(step, host, advanced)
-        if self.rank == 0:
+        """Fold one step's observations into the quarantine machine, or
+        under ``control_plane`` into the plane's lifecycle, then act on the
+        transitions under ``enforce`` (JAX loop.py:1207-1228)."""
+        with self.journal.span("device_wait/guard", step=step):
+            rows = obs.get()
+        with self.journal.span("dispatch/guard", step=step):
+            host = {"guard_nonfinite": rows[0].astype(np.int32),
+                    "guard_frozen": rows[1].astype(np.int32),
+                    "guard_disagree": rows[2].astype(np.float32),
+                    "guard_voted_steps": np.asarray(int(rows[3][0]), np.int32)}
+            if self._cplane is not None:
+                events = self._cplane.observe(step, host, advanced)
+                heal, reset_ballot, tag = events.heal, events.reset_ballot, "control plane"
+            else:
+                events = self._guard.update(step, host, advanced)
+                heal, reset_ballot, tag = events.readmitted, [], "vote guard"
             for line in events.logs:
-                print(f"[trainer] vote guard: {line}", flush=True)
-        if self.cfg.vote_guard == "enforce":
-            self._enforce_events(step, events.readmitted, events.mask_changed)
+                self._emit(f"[trainer] {tag}: {line}")
+            if self.cfg.vote_guard == "enforce":
+                self._enforce_events(step, heal, reset_ballot, events.mask_changed)
 
-    def _enforce_events(self, step: int, heal: list, mask_changed: bool) -> None:
-        """Act on the guard's transitions (JAX loop.py:1160-1205): a
-        readmitted rank's momentum restarts at the healthy mean, the new
-        mask goes to the optimizer state, and below the quorum the run
-        refuses to continue, after the last checkpoint is committed."""
+    def _apply_membership(self, step: int) -> None:
+        """Consume the membership schedule's due transitions at a step
+        boundary, before the step (JAX loop.py:1230-1241)."""
+        events = self._cplane.membership_due(step)
+        for line in events.logs:
+            self._emit(f"[trainer] control plane: {line}")
+        if events.left or events.rejoined or events.mask_changed:
+            self._enforce_events(step, events.heal, events.reset_ballot, events.mask_changed)
+
+    def _enforce_events(self, step: int, heal: list, reset_ballot: list,
+                        mask_changed: bool) -> None:
+        """Act on the guard's or the plane's transitions (JAX
+        loop.py:1160-1205): a readmitted or rejoining rank's momentum
+        restarts at the healthy mean, a rejoiner's previous ballot is zeroed
+        (the frozen-ballot XOR must not compare with a vote it cast before it
+        left), the new mask goes to the optimizer state, and below the
+        quorum the run refuses to continue, after the last checkpoint is
+        committed."""
         if heal:
             source = np.array(self._guard.healthy, dtype=bool)
             source[heal] = False  # a healed rank is not its own source
             heal_rank_momentum(self.state.exp_avg, source, heal, self.group)
+        if self.rank in reset_ballot and self.state.prev_ballot is not None:
+            self.state.prev_ballot.zero_()
         if mask_changed:
             self.state = self.state._replace(
                 health=torch.as_tensor(self._guard.healthy, device=self.device))
         if not self._guard.quorum_ok():
             if self.checkpointer:
                 self.checkpointer.finalize()
+            if self._cplane is not None:
+                raise RuntimeError(self._cplane.quorum_error(step))
             raise RuntimeError(
                 f"vote guard: healthy quorum {self._guard.healthy_count()}/{self.world} fell "
                 f"below --min_quorum {self._guard.min_quorum} at step {step} — a majority "
@@ -890,7 +1098,8 @@ class Trainer:
         a trace window of ``profile_num_steps`` steps into the bundle."""
         if self._anomaly_deadline is not None and not force_raise:
             return  # already tripped; the armed trace window is draining
-        values = dict(zip(keys, (float(v) for v in vals.get())))
+        with self.journal.span("device_wait/sentinel", step=step):
+            values = dict(zip(keys, (float(v) for v in vals.get())))
         bad = {k: values[k] for k in ("loss", "grad_norm")
                if k in values and not math.isfinite(values[k])}
         if not bad:
@@ -901,8 +1110,7 @@ class Trainer:
             # a rank's NaN grads that lose every vote never reach the loss;
             # the guard's counters name it
             reason += f" (vote guard sick workers: {self._guard.sick_workers()})"
-        if self.rank == 0:
-            print(f"[trainer] ANOMALY: {reason}", flush=True)
+        self._emit(f"[trainer] ANOMALY: {reason}")
         crash_dir = None
         if self.cfg.output_dir:
             crash_dir = self._write_crash_bundle(step, reason, values)
@@ -916,9 +1124,8 @@ class Trainer:
                                              cuda=self.device.type == "cuda", rank=self.rank)
                 self._anomaly_deadline = self.step_count + self.cfg.profile_num_steps + 1
                 self._anomaly_reason = reason
-                if self.rank == 0:
-                    print(f"[trainer] armed anomaly trace window for steps "
-                          f"[{self.step_count}, {self._anomaly_deadline - 1})", flush=True)
+                self._emit(f"[trainer] armed anomaly trace window for steps "
+                           f"[{self.step_count}, {self._anomaly_deadline - 1})")
                 return
         if self.checkpointer:
             # the last good checkpoint is committed before the anomaly unwinds
@@ -948,8 +1155,11 @@ class Trainer:
             telemetry.write_crash_bundle(
                 self.cfg.output_dir, step, reason, dataclasses.asdict(self.cfg),
                 telemetry.nonfinite_leaf_report(self.flat.names, counts["params"]), opt,
-                window, guard=None if self._guard is None else self._guard.sick_report())
-            print(f"[trainer] crash bundle written to {crash_dir}", flush=True)
+                window, guard=(self._cplane.report() if self._cplane is not None
+                               else None if self._guard is None
+                               else self._guard.sick_report()),
+                journal_tail=self.journal.tail())
+            self._emit(f"[trainer] crash bundle written to {crash_dir}")
         return crash_dir
 
     @torch.no_grad()
@@ -965,7 +1175,7 @@ class Trainer:
             per_dev = n // self.world  # shrink rather than skip a small split
         bs = self.world * per_dev
         if per_dev == 0:
-            print(f"[trainer] eval skipped: {n} examples < {self.world} ranks")
+            emit(f"[trainer] eval skipped: {n} examples < {self.world} ranks")
             return {"eval/loss": math.nan, "eval/accuracy": math.nan,
                     "eval/perplexity": math.nan}
         per_key: dict = {}
@@ -1021,7 +1231,18 @@ class Trainer:
                 "has_vote_health": self.vote_health is not None,
                 "has_guard": self._guard is not None,
                 "wire": cfg.wire, "vote_every": cfg.vote_every, "dcn_pipeline_depth": 0,
-                "ep_dcn_pipeline": 0, "control_plane": False, **self.data_meta}
+                "ep_dcn_pipeline": 0, "control_plane": self._cplane is not None,
+                **self.data_meta}
+        if self._cplane is not None:
+            # departed-vs-quarantined, the consumed-schedule watermark, the
+            # probation windows and the quarantine history (the mask rides
+            # the state): a resume neither readmits a departed worker nor
+            # replays a consumed drop or rejoin
+            cp = self._cplane
+            meta.update(cp_departed=sorted(int(w) for w in cp.departed),
+                        cp_sched_through=int(cp.sched_through),
+                        cp_rejoining_until=[int(x) for x in cp.rejoining_until],
+                        cp_quarantine_counts=[int(x) for x in cp.quarantine_counts])
         self.checkpointer.save(self.step_count, self._payload(), meta=meta)
 
     def _restore_step(self, step: int, meta: dict, ckpt_world: int) -> None:
@@ -1059,9 +1280,8 @@ class Trainer:
                 # only healthy momenta enter the remap: the quarantined rows
                 # restart at the healthy mean first (JAX loop.py:2185-2198)
                 rows = heal_worker_momentum(rows, health, sick)
-                if self.rank == 0:
-                    print(f"[trainer] elastic resume: healed quarantined worker momenta {sick} "
-                          "from the healthy mean before the world remap", flush=True)
+                self._emit(f"[trainer] elastic resume: healed quarantined worker momenta "
+                           f"{sick} from the healthy mean before the world remap")
             mom = remap_worker_momentum(rows, ckpt_world, self.world)[self.rank]
         self._check_like(step, "momentum", [mom], [self.state.exp_avg])
         guard = {"health": None, "prev_ballot": None}
@@ -1098,17 +1318,30 @@ class Trainer:
         self.opt.seed = state["seed"]  # the stochastic draws', as JAX restores its key
         if self._guard is not None:
             mask = guard["health"].cpu().numpy()
-            self._guard.adopt_mask(mask, step)  # quarantined ranks restart their cooldown
-            if not mask.all() and self.rank == 0:
-                print(f"[trainer] vote guard: resumed with quarantined workers "
-                      f"{np.nonzero(~mask)[0].tolist()} (cooldown restarts at step {step})",
-                      flush=True)
+            if self._cplane is not None and ckpt_world == self.world and health is not None:
+                # the plane's meta (a plane-off checkpoint has none: its
+                # masked ranks resume quarantined, nobody departed)
+                self._cplane.adopt(mask, step, departed=meta.get("cp_departed"),
+                                   sched_through=meta.get("cp_sched_through"),
+                                   rejoining_until=meta.get("cp_rejoining_until"),
+                                   quarantine_counts=meta.get("cp_quarantine_counts"))
+                if not mask.all():
+                    lc = self._cplane.lifecycle()
+                    self._emit("[trainer] control plane: resumed with lifecycle "
+                               f"{dict((w, s) for w, s in enumerate(lc) if s != 'healthy')} "
+                               f"at step {step}")
+            else:
+                self._guard.adopt_mask(mask, step)  # quarantined ranks restart their cooldown
+                if not mask.all():
+                    self._emit(f"[trainer] vote guard: resumed with quarantined workers "
+                               f"{np.nonzero(~mask)[0].tolist()} (cooldown restarts at step "
+                               f"{step})")
         if vh is not None:
             self.vote_health = vh
-        if ckpt_world != self.world and self.rank == 0:
-            print(f"[trainer] elastic resume: remapped the momenta of {ckpt_world} ranks to "
-                  f"{self.world} ({'group mean' if ckpt_world > self.world else 'replicate'} "
-                  "policy, cross-rank mean kept)", flush=True)
+        if ckpt_world != self.world:
+            self._emit(f"[trainer] elastic resume: remapped the momenta of {ckpt_world} ranks "
+                       f"to {self.world} ({'group mean' if ckpt_world > self.world else 'replicate'}"
+                       " policy, cross-rank mean kept)")
         self._restored_counters(state)
 
     @staticmethod
@@ -1166,16 +1399,14 @@ class Trainer:
             if self.world > 1:
                 dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=self.group)
             if not int(ok):
-                if self.rank == 0:
-                    print(f"[trainer] checkpoint step {step} failed to restore "
-                          f"({error or 'on another rank'}); falling back to the previous good "
-                          "checkpoint", flush=True)
+                self._emit(f"[trainer] checkpoint step {step} failed to restore "
+                           f"({error or 'on another rank'}); falling back to the previous good "
+                           "checkpoint")
                 continue
             purged = ck.purge_steps_after(step)
-            if self.rank == 0:
-                if purged:
-                    print(f"[trainer] purged stale newer checkpoints {purged}", flush=True)
-                print(f"[trainer] resumed from checkpoint step {step}", flush=True)
+            if purged:
+                self._emit(f"[trainer] purged stale newer checkpoints {purged}")
+            self._emit(f"[trainer] resumed from checkpoint step {step}")
             return
         if candidates:
             raise RuntimeError(
@@ -1192,6 +1423,9 @@ class Trainer:
         if self.cfg.inject_poison:
             # a later trainer in this process does not inherit the sick rank
             resilience.inject_fault("ballot_poison", None)
+        if self.cfg.inject_membership:
+            # nor the unconsumed rest of the membership schedule
+            resilience.inject_fault("membership", None)
         try:
             if self.checkpointer:
                 # may raise a failure of the commit thread; the metrics log
@@ -1199,3 +1433,7 @@ class Trainer:
                 self.checkpointer.close()
         finally:
             self.logger.close()
+            # the journal closes last: the drain above still records its
+            # spans, and a failure raised here leaves a flushed journal
+            journal.uninstall(self.journal)
+            self.journal.close()

@@ -1,6 +1,8 @@
 """Metrics logging to stdout and JSONL: port of ``distributed_lion_tpu/train/metrics.py``.
 
-The run journal and wandb are not ported yet (ROADMAP Queue 1 item 10).
+The console line goes through ``train.journal.emit`` with ``record=False``:
+its durable form is ``metrics.jsonl``, so the rows are not copied into the
+run journal. wandb is not ported (the port logs locally only).
 """
 
 from __future__ import annotations
@@ -10,6 +12,8 @@ import math
 import pathlib
 import time
 from typing import Optional
+
+from distributed_lion_tpu_torch.train.journal import emit
 
 
 class MetricsLogger:
@@ -25,8 +29,8 @@ class MetricsLogger:
         record = {"step": step, "elapsed_s": round(time.time() - self._t0, 3)}
         sep = "/" if prefix else ""
         record.update({f"{prefix}{sep}{k}": _scalar(v) for k, v in metrics.items()})
-        print(" ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
-                       for k, v in record.items()), flush=True)
+        emit(" ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+                      for k, v in record.items()), record=False)
         if self.jsonl:
             # allow_nan=False: a bare NaN token is not JSON
             self.jsonl.write(json.dumps(jsonable_record(record), allow_nan=False) + "\n")

@@ -4,7 +4,8 @@
 - :class:`StepProfiler` captures a ``torch.profiler`` trace of a window of
   steps (CPU activity, and the card's kernels when the trainer runs on
   one) and exports it as a Chrome trace into ``trace_dir``; a bounded
-  window keeps the file small and the traced steps representative.
+  window keeps the file small and the traced steps representative. Its
+  notice goes through ``train.journal.emit``, so the run journal has it.
 - :class:`StepTimer`: a wall-clock EMA of the step cadence with p50/p95
   over a sliding window, always on (no device sync).
 - :func:`peak_hbm_per_device` / :func:`peak_hbm_gb`: the device memory
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from distributed_lion_tpu_torch.ops.codec import wire_bytes_per_param
+from distributed_lion_tpu_torch.train.journal import emit
 
 
 class StepProfiler:
@@ -80,8 +82,8 @@ class StepProfiler:
             self._prof.export_chrome_trace(self.trace_path)
             self._prof = None
             self._done = True
-            print(f"[profiler] trace for steps [{self.start_step}, {self.stop_step}) written "
-                  f"to {self.trace_path}", flush=True)
+            emit(f"[profiler] trace for steps [{self.start_step}, {self.stop_step}) written "
+                 f"to {self.trace_path}")
 
     def close(self) -> None:
         if self.active:

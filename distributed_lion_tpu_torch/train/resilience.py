@@ -17,17 +17,24 @@ package. Four parts:
   where real failures strike: ``ckpt_save_raise`` (int: the first N
   writes fail), ``ckpt_crash_before_manifest`` and
   ``ckpt_crash_before_marker`` (bool: the commit dies before that file
-  lands), ``ckpt_slow_commit`` (float: seconds the commit stalls); and
-  ``ballot_poison`` (the ``(kind, worker, start_step)`` of
-  :func:`parse_poison`, the ``--inject_poison`` flag, read by the trainer's
-  step); :func:`consume_due` pops a list-valued schedule's due entries;
+  lands), ``ckpt_slow_commit`` (float: seconds the commit stalls);
+  ``journal_torn_write`` (int: the next N writes of the run journal's
+  sink tear mid-line, ``train/journal.py``); ``ballot_poison`` (the
+  ``(kind, worker, start_step)`` of :func:`parse_poison`, the
+  ``--inject_poison`` flag, read by the trainer's step); ``membership``
+  (the ``(kind, worker, step)`` list of :func:`parse_membership_specs`,
+  the ``--inject_membership`` flag, consumed by the control plane at step
+  boundaries, ``train/control_plane.py``); and ``serve`` (the ``(kind,
+  replica, tick, arg)`` list of :func:`parse_serve_specs`, the JAX
+  package's ``--inject_serve``, parsed here for the serving plane);
+  :func:`consume_due` pops a list-valued schedule's due entries;
 - **corruption helpers** that damage a committed step as real incidents
   do (a torn write, a bit-flipped manifest, a lost marker);
 - :class:`PreemptionGuard`, the SIGTERM flag the trainer checks at every
-  step boundary (``--on_preempt save_exit``).
+  step boundary (``--on_preempt save_exit``), which journals the
+  ``preempt_drain`` event when the loop first sees it.
 
-Not ported yet (ROADMAP Queue 1 item 10): the membership and serve-fault
-parsers, and ``dcn_delay``.
+Not ported yet (ROADMAP Queue 1 item 11): ``dcn_delay``.
 """
 
 from __future__ import annotations
@@ -91,6 +98,84 @@ def consume_due(name: str, through: int, step_of=None) -> list:
 
 
 POISON_KINDS = ("nan_grads", "frozen_ballot", "flipped_ballot")
+
+MEMBERSHIP_KINDS = ("worker_drop", "worker_rejoin")
+
+
+def parse_membership(spec: str) -> tuple[str, int, int]:
+    """Parse one membership spec, ``worker_drop:<w>[:<step>]`` (step 0 by
+    default: departed from the first step) or ``worker_rejoin:<w>:<step>``
+    (the step is required: rejoining a worker that never left is
+    undefined), into ``(kind, worker, step)``. The control plane consumes
+    them at the first boundary at or after ``step``."""
+    parts = spec.split(":")
+    if len(parts) not in (2, 3) or parts[0] not in MEMBERSHIP_KINDS:
+        raise ValueError(
+            f"bad membership spec {spec!r}: expected '<kind>:<worker>"
+            f"[:<step>]' with kind in {MEMBERSHIP_KINDS}")
+    if parts[0] == "worker_rejoin" and len(parts) != 3:
+        raise ValueError(
+            f"bad membership spec {spec!r}: worker_rejoin requires an "
+            "explicit step ('worker_rejoin:<worker>:<step>')")
+    try:
+        worker = int(parts[1])
+        step = int(parts[2]) if len(parts) == 3 else 0
+    except ValueError:
+        raise ValueError(f"bad membership spec {spec!r}: worker/step must "
+                         "be integers")
+    if worker < 0 or step < 0:
+        raise ValueError(f"bad membership spec {spec!r}: worker/step must "
+                         "be >= 0")
+    return parts[0], worker, step
+
+
+def parse_membership_specs(specs: str) -> list:
+    """Comma-separated membership specs (``--inject_membership``) as the
+    ``membership`` fault's list of ``(kind, worker, step)``."""
+    return [parse_membership(s.strip())
+            for s in specs.split(",") if s.strip()]
+
+
+SERVE_FAULT_KINDS = ("replica_crash", "replica_kill", "replica_drain",
+                     "slow_tick", "replica_rejoin")
+
+
+def parse_serve_fault(spec: str) -> tuple[str, int, int, int]:
+    """Parse one serving-plane fault spec into ``(kind, replica, tick,
+    arg)``, the third field always the due tick: ``replica_crash:<r>:<tick>``,
+    ``replica_kill:<r>:<tick>``, ``replica_drain:<r>[:<tick>]`` (tick 0 by
+    default), ``slow_tick:<r>:<ms>`` (armed from tick 0, ``arg`` the ms)
+    and ``replica_rejoin:<r>:<tick>`` (the tick is required)."""
+    parts = spec.split(":")
+    if len(parts) not in (2, 3) or parts[0] not in SERVE_FAULT_KINDS:
+        raise ValueError(
+            f"bad serve fault spec {spec!r}: expected '<kind>:<replica>"
+            f"[:<tick|ms>]' with kind in {SERVE_FAULT_KINDS}")
+    if parts[0] in ("replica_crash", "replica_kill", "slow_tick",
+                    "replica_rejoin") and len(parts) != 3:
+        raise ValueError(
+            f"bad serve fault spec {spec!r}: {parts[0]} requires an "
+            f"explicit third field ('{parts[0]}:<replica>:"
+            f"{'<ms>' if parts[0] == 'slow_tick' else '<tick>'}')")
+    try:
+        replica = int(parts[1])
+        val = int(parts[2]) if len(parts) == 3 else 0
+    except ValueError:
+        raise ValueError(f"bad serve fault spec {spec!r}: replica/"
+                         "tick/ms must be integers")
+    if replica < 0 or val < 0:
+        raise ValueError(f"bad serve fault spec {spec!r}: replica/"
+                         "tick/ms must be >= 0")
+    if parts[0] == "slow_tick":
+        return parts[0], replica, 0, val
+    return parts[0], replica, val, 0
+
+
+def parse_serve_specs(specs: str) -> list:
+    """Comma-separated serve fault specs as the ``serve`` fault's list of
+    ``(kind, replica, tick, arg)``."""
+    return [parse_serve_fault(s.strip())
+            for s in specs.split(",") if s.strip()]
 
 
 def parse_poison(spec: str) -> tuple[str, int, int]:
@@ -252,11 +337,17 @@ class PreemptionGuard:
     before that boundary (a hung collective) restores the previous handler
     and delivers the signal again, so the process can still be killed. Off
     the main thread no handler can be installed; the guard is then a flag
-    set by :meth:`trigger`."""
+    set by :meth:`trigger`. ``journal`` (``train/journal.py``) records
+    the ``preempt_drain`` event, with the seconds from the signal to the
+    boundary, the first time :meth:`should_stop` sees the flag: on the
+    train loop's thread, never in the handler, which must stay
+    async-signal-safe."""
 
-    def __init__(self, signals: Iterable[int] = (signal.SIGTERM,)):
+    def __init__(self, signals: Iterable[int] = (signal.SIGTERM,), journal=None):
         self._flag = threading.Event()
         self._prev: dict[int, Any] = {}
+        self._journal = journal
+        self._drain_logged = False
         self.tripped_mono: Optional[float] = None
         for sig in signals:
             try:
@@ -282,7 +373,15 @@ class PreemptionGuard:
         self._flag.set()
 
     def should_stop(self) -> bool:
-        return self._flag.is_set()
+        tripped = self._flag.is_set()
+        if tripped and not self._drain_logged:
+            self._drain_logged = True
+            if self._journal is not None:
+                latency = (time.monotonic() - self.tripped_mono
+                           if self.tripped_mono is not None else 0.0)
+                self._journal.event("preempt_drain",
+                                    signal_to_boundary_s=round(latency, 6))
+        return tripped
 
     def close(self) -> None:
         """Restore the previous handlers."""

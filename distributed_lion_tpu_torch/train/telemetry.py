@@ -35,9 +35,19 @@ and momentum are flat buffers; :func:`nonfinite_leaf_counts` counts them
 per leaf through ``FlatParams``' windows and :func:`nonfinite_leaf_report`
 names the leaves with the JAX package's ``keystr`` (``['blocks'][0]...``;
 ``.exp_avg`` first for the optimizer state), so a bundle names the leaves
-the JAX package's names. Not ported yet (ROADMAP Queue 1 item 10): the
-bundle's ``journal_tail``, the measured-wire ledger (``measure_step_wire``)
-and the host step-skew heartbeat.
+the JAX package's names. With the run journal on, the bundle's directory
+also holds ``journal_tail.jsonl``: the journal's ring buffer, the last
+records before the trip.
+
+**The measured wire ledger** (JAX :249-274): torch has no abstract trace,
+so :func:`measure_step_wire` runs one real optimizer step under
+``parallel.collectives.WIRE_TALLY.capture()`` and returns the bytes each
+vote launch handed the backend, per leg (``ici``/``dcn``), under the JAX
+ledger's keys; the trainer logs it beside ``profiling.comm_report``'s
+analytic bytes (``comm_drift_bytes``, 0 while the two agree).
+**The step-skew heartbeat** (JAX :277-292): :func:`host_step_skew`, max −
+min of the ranks' step counters, gathered over a gloo side group
+(``collectives.side_group``), on the host, never on the card's stream.
 
 This module may import ``ops``; ``optim`` and ``train.loop`` import it.
 """
@@ -61,6 +71,8 @@ from distributed_lion_tpu_torch.ops.codec import (
     vote_chunk_elems,
 )
 from distributed_lion_tpu_torch.ops.fused_lion import margin_bins
+from distributed_lion_tpu_torch.parallel.collectives import WIRE_TALLY
+from distributed_lion_tpu_torch.train.journal import emit
 
 # bin k covers margin fractions [k/NBINS, (k+1)/NBINS); unanimity (margin 1)
 # is clipped into the top bin. Fixed, so records compare across runs.
@@ -216,6 +228,42 @@ def reset_counters(vh: VoteHealth) -> VoteHealth:
 
 
 # -------------------------------------------------------------- crash bundles
+def ledger_of(entries) -> dict:
+    """The measured wire ledger of one step's captured ``(leg, bytes)``
+    launches: the JAX ``measure_step_wire``'s keys."""
+    return {"bytes_per_step": sum(b for _, b in entries),
+            "dcn_bytes_per_step": sum(b for leg, b in entries if leg == "dcn"),
+            "calls_per_step": len(entries),
+            "per_call": [{"leg": leg, "bytes": b} for leg, b in entries]}
+
+
+def measure_step_wire(step_fn, *args):
+    """Run ``step_fn(*args)``, one real optimizer step, under
+    ``WIRE_TALLY.capture()``; returns ``(its result, the ledger)``
+    (:func:`ledger_of`). The capture only appends to a host list: the step
+    runs as it would without it."""
+    with WIRE_TALLY.capture() as entries:
+        out = step_fn(*args)
+    return out, ledger_of(entries)
+
+
+def host_step_skew(step: int, side_group) -> Optional[int]:
+    """Max − min of the ranks' step counters (a gloo ``all_gather`` of one
+    int64 over ``side_group``, on the host); None without a group (a world
+    of one)."""
+    if side_group is None:
+        return None
+    try:
+        mine = torch.tensor([int(step)], dtype=torch.int64)
+        steps = [torch.zeros_like(mine) for _ in range(side_group.size())]
+        dist.all_gather(steps, mine, group=side_group)
+        vals = [int(t) for t in steps]
+        return max(vals) - min(vals)
+    except Exception as e:  # the heartbeat must not stop training
+        emit(f"[telemetry] heartbeat unavailable: {e}")
+        return None
+
+
 def leaf_key(name: str) -> str:
     """The JAX package's ``keystr`` of the leaf a dotted parameter name
     spells: ``blocks.0.attn.proj`` → ``['blocks'][0]['attn']['proj']``."""
@@ -253,15 +301,21 @@ def _json_safe(obj):
 
 def write_crash_bundle(output_dir: str, step: int, reason: str, cfg_dict: dict,
                        nonfinite_params: dict, nonfinite_opt_state: dict, metrics_window,
-                       guard: Optional[dict] = None) -> str:
+                       guard: Optional[dict] = None, journal_tail=None) -> str:
     """Write ``<output_dir>/crash/step_<n:08d>/bundle.json``: the step, the
     trip reason, the train config, the per-leaf nonfinite counts of the
     params and of the optimizer state (:func:`nonfinite_leaf_report`), the
-    recent metrics window and (``guard``) the vote guard's per-rank health
-    report, so the bundle names the sick rank as well as the poisoned
-    leaves. Returns the bundle's directory."""
+    recent metrics window and (``guard``) the vote guard's (or the control
+    plane's) per-rank health report, so the bundle names the sick rank as
+    well as the poisoned leaves. ``journal_tail`` (the run journal's ring
+    buffer) is written beside it as ``journal_tail.jsonl``, in the live
+    journal's strict schema. Returns the bundle's directory."""
     crash_dir = os.path.join(output_dir, "crash", f"step_{step:08d}")
     os.makedirs(crash_dir, exist_ok=True)
+    if journal_tail:
+        with open(os.path.join(crash_dir, "journal_tail.jsonl"), "w") as f:
+            for rec in journal_tail:
+                f.write(json.dumps(_json_safe(rec), allow_nan=False) + "\n")
     bundle = {
         "step": step,
         "reason": reason,

@@ -150,3 +150,24 @@ def test_the_guard_sentinel_and_profiler_modules_are_among_the_checked_files():
     assert {"train/vote_guard.py", "train/profiling.py", "train/resilience.py",
             "train/telemetry.py", "parallel/collectives.py", "optim/distributed_lion.py",
             "optim/lion.py", "train/loop.py"} <= files
+
+
+def test_the_journal_and_control_plane_modules_are_among_the_checked_files():
+    """The run journal, its analyzer and the control plane (stdlib and
+    numpy copies of the JAX package's modules, which the port must not
+    import) and the modules that now journal (the metrics logger, the
+    checkpointer, the data path) are in the file list the checks above
+    walk, and none of them loads the JAX package's module of the same
+    name."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
+    new = {"train/journal.py", "cli/run_analyze.py", "train/control_plane.py"}
+    assert new | {"train/metrics.py", "train/checkpoint.py", "data/native_loader.py",
+                  "data/tokenizer.py"} <= files
+    for rel in new:
+        tree = ast.parse((PORT / rel).read_text())
+        imported = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                    for a in n.names}
+        imported |= {n.module or "" for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)}
+        allowed = ("distributed_lion_tpu_torch", "__future__", "numpy")
+        assert all(m.split(".")[0] in allowed or m.split(".")[0] in sys.stdlib_module_names
+                   for m in imported), (rel, imported)
