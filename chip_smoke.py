@@ -184,7 +184,36 @@ Phases (none of their failures is caught; any one fails the run):
    four journals (strict JSON) through ``cli/run_analyze.analyze_dir``: no
    schema error, every rank's attribution closing with coverage >= 0.95,
    and the membership timeline exactly the drop, the rejoin and the
-   probation's end. It prints the step times and each rank's buckets.
+   probation's end. Run (q), the cross-step DCN pipeline, rides it too:
+   (q1) ``hier:2 --dcn_pipeline_depth 2 --vote_guard enforce`` with (f)'s
+   ``--telemetry``, 6 steps, under the ``StepWatch``: steps 1-2 apply no
+   sign step (the params ``torch.equal`` to a plain decay of the previous
+   ones); from step 3 each step's applied election equal to the plain
+   ``hier:2`` election of the four ranks' gathered ballots of step t - 2,
+   and the stats kernel's disagreement (this step's ballots against that
+   stale election) equal to ``bucket_vote_stats_plain``'s; params equal on
+   every rank; each rank's ring ``[2, hier_ring_slot_bytes(N, 4, 2,
+   buckets)]`` uint8 (15,554,978 bytes a slot at one bucket);
+   ``comm_drift_bytes`` 0 and ``dcn_overlap_frac`` 1 in every row;
+   ``fused_ballots`` every step, ``fused_apply`` and ``bucket_vote_stats``
+   from step 3. (q2) ``hier:2 --vote_every 4 --dcn_pipeline_depth 1``, 5
+   steps: every landed slot's election equal to the plain election of its
+   slice ballots one step before, slot j first moving at step j + 2 (every
+   other coordinate equal to its decay), the cache after step 5 a plain
+   re-election of every landed slot, the wire's bytes a step equal to
+   ``wire_bytes_per_param``. (q3) the ``dcn_delay`` link (1.0 s, armed
+   through ``resilience.inject_fault`` before each trainer is built):
+   (q1)'s setup for 4 steps and a depth-0 twin for 3; the two
+   ``dcn_wait_s`` sums are printed, depth 2's below depth 0's and depth
+   0's at least twice the delay. Run (r), ZeRO-1, rides it too: (f)'s
+   setup with ``--lion false --async_grad false --zero1`` (no telemetry),
+   3 steps, under a ``ZeroWatch``: params equal on every rank after every
+   step; after step 1 the params and the gathered ``m`` and ``v`` chunks
+   ``torch.equal`` to zero.py's formula in plain ops over the full vector
+   from the step's averaged grads; ``m`` and ``v`` float32 [31,109,952] a
+   rank; finite losses; no optimizer kernel and (f)'s flash launches; the
+   state's bytes a rank printed beside the replicated AdamW's 995.5 MB. It
+   prints the step times and each rank's buckets.
 6. Run (g), resume on the card, in the 1-rank NCCL group: the repo's
    ``*.md`` files go through the port's GPT-2 BPE (``runs/parity/tok``,
    its C++ merge core, which must build) into a uint16 ``bin:`` shard, read
@@ -371,6 +400,7 @@ from distributed_lion_tpu_torch.ops import cuda_build, fused_lion, lion_math, qu
 from distributed_lion_tpu_torch.ops import flash_attention as fa
 from distributed_lion_tpu_torch.ops.codec import (
     bucket_bounds,
+    hier_ring_slot_bytes,
     pack_signs,
     parse_wire,
     unpack_signs,
@@ -382,6 +412,7 @@ from distributed_lion_tpu_torch.ops.xent import chunked_clm_loss_and_metrics
 from distributed_lion_tpu_torch.optim.distributed_lion import DistributedLion
 from distributed_lion_tpu_torch.optim.lion import FlatParams, resolve_lr
 from distributed_lion_tpu_torch.optim.optax_adapter import adamw
+from distributed_lion_tpu_torch.optim.zero import AdamWZero1, Zero1State, zero1_chunk
 from distributed_lion_tpu_torch.parallel import collectives
 from distributed_lion_tpu_torch.train import journal, resilience, vote_guard
 from distributed_lion_tpu_torch.train import loop as train_loop
@@ -475,6 +506,20 @@ W4_ARGS = ["--model_name", "gpt2_124m", "--dataset", "synthetic", "--synthetic_b
            "--gradient_accumulation_steps", "1", "--block_size", "1024",
            "--max_steps", str(W4_STEPS), "--logging_steps", "1", "--dropout", "0", "--telemetry",
            "--lr_scheduler_type", "constant"]
+# run (q), the cross-step DCN pipeline, rides the same spawn: (q1) hier:2 at
+# depth 2 under the guard and (f)'s telemetry, (q2) lazy refresh at depth 1,
+# (q3) the dcn_delay link at Q3_DELAY s, (q1)'s setup against its depth-0 twin
+Q1_ARGS = ["--wire", "hier:2", "--dcn_pipeline_depth", "2", "--vote_guard", "enforce"]
+Q1_STEPS = 6
+Q2_ARGS = ["--wire", "hier:2", "--vote_every", str(LAZY_K), "--dcn_pipeline_depth", "1"]
+Q2_STEPS = 5
+Q3_DELAY = 1.0
+Q3_RUNS = ((2, 4), (0, 3))   # (depth, steps)
+Q1_SLOT_ONE_BUCKET = 15_554_978   # hier_ring_slot_bytes(N_MAIN, 4, 2) at one bucket
+# run (r), ZeRO-1 AdamW in the same spawn: (f)'s setup without Lion and telemetry
+R_ARGS = [a for a in W4_ARGS if a not in ("--lion", "--async_grad", "--telemetry")] + [
+    "--lion", "false", "--async_grad", "false", "--zero1"]
+R_STEPS = 3
 RUNS = 25
 AHEAD_CYCLES = 50_000_000   # about 30 ms of the card's clock: the host queues the timed calls
 
@@ -1199,23 +1244,27 @@ def optimizer_launches(trainer, steps: int) -> dict:
     the slot's slice that holds real coordinates (the ballot kernel at
     float32 momentum and deterministic ballots only), and one apply a step
     over the voted slots (float32 params and momentum only); the stats
-    kernel with telemetry."""
+    kernel with telemetry. Under the DCN pipeline (depth d) the apply and
+    the stats kernel start at step d + 1, and lazy refresh launches no stats
+    kernel (its disagreement is 0 there)."""
     cfg, n, world = trainer.cfg, trainer.n_params, trainer.world
     if not cfg.lion:
         return {"fused_ballots": 0, "fused_apply": 0, "bucket_vote_stats": 0}
     m_dtype, p_dtype = trainer.state.exp_avg.dtype, trainer.flat.params.dtype
+    d = cfg.dcn_pipeline_depth   # the DCN pipeline: the first d steps apply no sign step
     if cfg.vote_every > 1:
         chunk = vote_chunk_elems(n, cfg.vote_every)
         voted = sum(sum(1 for start, _ in bucket_bounds(chunk, cfg.vote_buckets, world, cfg.wire)
                         if start < n - (t % cfg.vote_every) * chunk) for t in range(steps))
         f32 = m_dtype == torch.float32
         return {"fused_ballots": voted if f32 and cfg.max_grad_norm is None else 0,
-                "fused_apply": steps if f32 and p_dtype == torch.float32 else 0,
-                "bucket_vote_stats": voted if cfg.telemetry else 0}
+                "fused_apply": max(steps - d, 0) if f32 and p_dtype == torch.float32 else 0,
+                "bucket_vote_stats": voted if cfg.telemetry and not d else 0}
     buckets = len(bucket_bounds(n, cfg.vote_buckets, world, cfg.wire))
-    fused = 0 if cfg.max_grad_norm is not None else steps * buckets
-    return {"fused_ballots": fused, "fused_apply": fused,
-            "bucket_vote_stats": steps * buckets if cfg.telemetry else 0}
+    det = cfg.max_grad_norm is None
+    return {"fused_ballots": steps * buckets if det else 0,
+            "fused_apply": max(steps - d, 0) * buckets if det else 0,
+            "bucket_vote_stats": max(steps - d, 0) * buckets if cfg.telemetry else 0}
 
 
 def flash_launches(steps: int, accum: int = ACCUM, eval_batches: int = EVAL_BATCHES) -> dict:
@@ -1238,7 +1287,8 @@ def lazy_checks(label: str, trainer, watch, steps: int) -> float:
                                 vote_every=cfg.vote_every,
                                 vote_buckets=cfg.vote_buckets)["bytes_per_step"]
     cache_equal = steps < cfg.vote_every or torch.equal(watch.cache, trainer.state.elected)
-    if (watch.slices_equal != [True] * steps or not watch.cold_start or not cache_equal
+    landed = steps - cfg.dcn_pipeline_depth
+    if (watch.slices_equal != [True] * landed or not watch.cold_start or not cache_equal
             or watch.wire_bytes != [want] * steps):
         raise AssertionError(
             f"{label}: slice elections == plain {watch.slices_equal}, cold start (slots 1-"
@@ -1795,9 +1845,19 @@ class StepWatch:
     elections, so after K steps it is a plain re-election of every slot);
     the bytes the wire records per step (``wire_bytes``); and at the first
     step, the coordinates outside slot 0 must equal their decayed values
-    (no sign step) and those of slot 0 must all have moved."""
+    (no sign step) and those of slot 0 must all have moved. Under the DCN
+    pipeline (``dcn_pipeline_depth`` d > 0) the gathered ballots (or slice
+    ballots) of each step wait d steps: a step that consumes them must apply
+    the plain election of them (the health mask unchanged in flight), and
+    its stats kernel's disagreement (fresh ballots against that stale
+    election) must equal ``bucket_vote_stats_plain``'s; every-step, the
+    first d steps' params must equal the plain decay of the previous ones
+    (``cold_equal``); lazy, at every step the slots not landed yet must
+    equal their decayed values and the landed ones must all have moved."""
 
     def __init__(self):
+        self.pending: list = []   # the DCN pipeline's launches in flight
+        self.cold_equal: list = []
         self.params_equal: list = []
         self.election_equal: list = []
         self.hist: list = []
@@ -1832,6 +1892,8 @@ class StepWatch:
         check = (state.steps == 0 or guarded) and opt.max_grad_norm is None
         if lazy:
             return self._observe_lazy(opt, flat, state)
+        if opt.depth > 0:
+            return self._observe_pipelined(opt, flat, state)
         ballots = alive = None
         if check:
             g = flat.grads.to(state.exp_avg.dtype)
@@ -1856,6 +1918,40 @@ class StepWatch:
                 self.hist.append((frame["margin_hist"].tolist(), hist.tolist(),
                                   int(frame["disagree"]), int(dis)))
             del gathered, want, tally
+        return out
+
+    def _observe_pipelined(self, opt, flat, state):
+        g = flat.grads.to(state.exp_avg.dtype)
+        alive = None
+        if opt.guard == "enforce":
+            g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+            alive = state.health.clone()
+        ballots = fused_lion.fused_ballots_plain(g, state.exp_avg, opt.b1)
+        del g
+        p_before = flat.params.clone()
+        lr = resolve_lr(opt.learning_rate, state.count)
+        out = self._orig(opt, flat, state)
+        frame = out[1]
+        self._params_equal(opt, flat)
+        self.pending.append((self._gather(opt, ballots), alive))
+        if state.steps < opt.depth:   # nothing has landed: decay only
+            decayed = lion_math.decay_params(p_before, lr, opt.weight_decay)
+            self.cold_equal.append(torch.equal(flat.params, decayed))
+            del decayed
+        else:
+            launched, alive_then = self.pending.pop(0)
+            if (alive is None) != (alive_then is None) or (
+                    alive is not None and not torch.equal(alive, alive_then)):
+                raise AssertionError("StepWatch checks a pipeline whose mask does not change "
+                                     "in flight")
+            want, _ = plain_election(launched, opt.wire, alive)
+            self.election_equal.append(
+                torch.equal(unpack_signs(frame["elected"], (flat.numel,)), want))
+            _, dis = fused_lion.bucket_vote_stats_plain(
+                ballots, torch.where(want, 1, -1).to(torch.int8), opt.world, 8)
+            self.hist.append(([], [], int(frame["disagree"]), int(dis)))
+            del launched, want
+        del p_before
         return out
 
     def _params_equal(self, opt, flat) -> None:
@@ -1883,23 +1979,31 @@ class StepWatch:
             ballots[:real] = torch.where(opt.replay_slice_ballots(
                 flat.grads, state.exp_avg, state.steps), 1, -1).to(torch.int8)
         first = state.steps == 0
+        d = opt.depth
         if first:
+            self.cache = torch.zeros_like(state.elected)
+            self.cold_start = True
+        if first or d:
             p_before = flat.params.clone()
             lr = resolve_lr(opt.learning_rate, state.count)
-            self.cache = torch.zeros_like(state.elected)
         opt.tally = self.tally
         before = self.tally.total()
         new_state, frame = self._orig(opt, flat, state)
         self.wire_bytes.append(self.tally.total() - before)
         self._params_equal(opt, flat)
         want, _ = plain_election(self._gather(opt, ballots), opt.wire)
-        got = new_state.elected[lo // 8:(lo + chunk) // 8]
-        self.slices_equal.append(torch.equal(unpack_signs(got, (chunk,)), want))
-        self.cache[lo // 8:(lo + chunk) // 8] = pack_signs(want)
-        if first:
+        self.pending.append((lo, want))
+        if state.steps >= d:   # the election of the slice launched d steps ago lands
+            wlo, want = self.pending.pop(0)
+            got = new_state.elected[wlo // 8:(wlo + chunk) // 8]
+            self.slices_equal.append(torch.equal(unpack_signs(got, (chunk,)), want))
+            self.cache[wlo // 8:(wlo + chunk) // 8] = pack_signs(want)
+        if first or d:   # slots 0..count - d have landed and move; the rest decay only
+            valid = min(max(state.steps - d + 1, 0) * chunk, n)
             decayed = lion_math.decay_params(p_before, lr, opt.weight_decay)
-            self.cold_start = (torch.equal(flat.params[chunk:], decayed[chunk:])
-                               and bool((flat.params[:chunk] != decayed[:chunk]).all()))
+            self.cold_start = (self.cold_start
+                               and torch.equal(flat.params[valid:], decayed[valid:])
+                               and bool((flat.params[:valid] != decayed[:valid]).all()))
             del p_before, decayed
         return new_state, frame
 
@@ -1976,6 +2080,243 @@ class HealWatch:
 
     def close(self) -> None:
         train_loop.heal_rank_momentum = self._orig
+
+
+def q_run(rank: int) -> dict:
+    """Run (q) on one rank of the W4 spawn. (q1) ``Q1_ARGS``, Q1_STEPS steps,
+    under a :class:`StepWatch`: steps 1-2 ``torch.equal`` to a plain decay
+    of the previous params, from step 3 the applied election equal to the
+    plain ``hier:2`` election of the ballots of step t - 2 and the stats
+    kernel's disagreement to ``bucket_vote_stats_plain``'s; params equal on
+    every rank; the ring ``[2, hier_ring_slot_bytes]`` uint8;
+    ``comm_drift_bytes`` 0 and ``dcn_overlap_frac`` 1 in every row; no guard
+    transition. (q2) ``Q2_ARGS``, Q2_STEPS steps: slot j moves first at
+    step j + 2 and the cache after the run is a plain re-election of every
+    landed slot (``lazy_checks``). (q3) the ``dcn_delay`` link at Q3_DELAY
+    s, armed before each trainer is built: (q1)'s setup at depth 2 and at
+    0 (``Q3_RUNS``); their ``dcn_wait_s`` sums, depth 2's below depth 0's
+    and depth 0's at least 2 x the delay."""
+    watch, events = StepWatch(), GuardEvents()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        trainer = run_clm.main(W4_ARGS + Q1_ARGS + ["--max_steps", str(Q1_STEPS)])
+    finally:
+        watch.close()
+        events.close()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    expect(f"(q1) rank {rank}", launches, dict(optimizer_launches(trainer, Q1_STEPS),
+                                               **flash_launches(Q1_STEPS, accum=1,
+                                                                eval_batches=0)))
+    rows = [r for r in trainer.history if "loss" in r]
+    cfg, ring = trainer.cfg, trainer.state.dcn_ring
+    d = cfg.dcn_pipeline_depth
+    slot = hier_ring_slot_bytes(N_MAIN, W4, 2, cfg.vote_buckets)
+    q1 = {"run": "q1", "losses": [r["loss"] for r in rows], "step_ms": [r["step_ms"] for r in rows],
+          "params_equal": watch.params_equal, "cold_equal": watch.cold_equal,
+          "election_equal": watch.election_equal, "dis": [h[2:] for h in watch.hist],
+          "ring": [list(ring.shape), str(ring.dtype)], "slot": slot,
+          "buckets": cfg.vote_buckets, "drift": [r.get("comm_drift_bytes") for r in rows],
+          "overlap": [r.get("dcn_overlap_frac") for r in rows], "launches": launches,
+          "wall_s": wall, "events": events.events}
+    if not (len(rows) == Q1_STEPS and all(math.isfinite(x) for x in q1["losses"])
+            and watch.params_equal == [True] * Q1_STEPS and watch.cold_equal == [True] * d
+            and watch.election_equal == [True] * (Q1_STEPS - d)
+            and all(a == b for a, b in q1["dis"]) and len(q1["dis"]) == Q1_STEPS - d
+            and q1["ring"] == [[d, slot], "torch.uint8"] and trainer.state.exp_avg.numel() == N_MAIN
+            and hier_ring_slot_bytes(N_MAIN, W4, 2, 1) == Q1_SLOT_ONE_BUCKET
+            and q1["drift"] == [0] * Q1_STEPS and q1["overlap"] == [1.0] * Q1_STEPS
+            and not events.events and all(trainer.state.health.tolist())):
+        raise AssertionError(f"run (q1) rank {rank}: {q1}")
+    del trainer, ring
+    torch.cuda.empty_cache()
+    watch = StepWatch()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        trainer = run_clm.main(W4_ARGS + Q2_ARGS + ["--max_steps", str(Q2_STEPS)])
+    finally:
+        watch.close()
+    wall2 = time.perf_counter() - t0
+    launches2 = read_counts()
+    expect(f"(q2) rank {rank}", launches2, dict(optimizer_launches(trainer, Q2_STEPS),
+                                                **flash_launches(Q2_STEPS, accum=1,
+                                                                 eval_batches=0)))
+    bits = lazy_checks(f"run (q2) rank {rank}", trainer, watch, Q2_STEPS)
+    rows = [r for r in trainer.history if "loss" in r]
+    q2 = {"losses": [r["loss"] for r in rows], "step_ms": [r["step_ms"] for r in rows],
+          "valid_frac": [r["vote/valid_frac"] for r in rows], "bits": bits,
+          "slices_equal": watch.slices_equal, "launches": launches2, "wall_s": wall2,
+          "params_equal": watch.params_equal}
+    if watch.params_equal != [True] * Q2_STEPS or not all(map(math.isfinite, q2["losses"])):
+        raise AssertionError(f"run (q2) rank {rank}: {q2}")
+    del trainer
+    torch.cuda.empty_cache()
+    q3 = {}
+    for depth, steps in Q3_RUNS:
+        resilience.inject_fault("dcn_delay", Q3_DELAY)
+        collectives.dcn_link_reset()
+        t0 = time.perf_counter()
+        try:
+            trainer = run_clm.main(W4_ARGS + Q1_ARGS[:2] + [
+                "--dcn_pipeline_depth", str(depth), "--vote_guard", "enforce",
+                "--max_steps", str(steps)])
+        finally:
+            resilience.inject_fault("dcn_delay", None)
+            collectives.dcn_link_reset()
+        rows = [r for r in trainer.history if "loss" in r]
+        q3[depth] = {"waits": [r.get("dcn_wait_s", 0.0) for r in rows],
+                     "step_ms": [r["step_ms"] for r in rows],
+                     "wall_s": time.perf_counter() - t0}
+        del trainer
+        torch.cuda.empty_cache()
+    hidden, sync = sum(q3[2]["waits"]), sum(q3[0]["waits"])
+    if not (hidden < sync and sync >= 2 * Q3_DELAY):
+        raise AssertionError(f"run (q3) rank {rank}: dcn_wait_s at depth 2 {q3[2]}, at depth 0 "
+                             f"{q3[0]}")
+    return {"run": "dcn pipeline", "q1": q1, "q2": q2, "q3": q3}
+
+
+def q_report(rec: dict, card: str) -> None:
+    """Run (q)'s lines, rank 0's record."""
+    q1, q2, q3 = rec["q1"], rec["q2"], rec["q3"]
+    print(f"[w4] (q1) hier:2 --dcn_pipeline_depth 2 --vote_guard enforce --telemetry: GPT-2 124M, "
+          f"{W4} ranks on one card (gloo), B 2 x accum 1 x T 1024, {q1['buckets']} bucket(s), "
+          f"{Q1_STEPS} steps: losses {[round(x, 4) for x in q1['losses']]}; steps 1-2 == a plain "
+          f"decay {q1['cold_equal']}; from step 3 the applied election == plain hier:2 election "
+          f"of the 4 ranks' ballots of step t - 2 {q1['election_equal']}, stats-kernel "
+          f"disagreement == bucket_vote_stats_plain (fresh ballots against the stale election) "
+          f"{q1['dis']}; params equal on all ranks after each step {q1['params_equal']}; ring "
+          f"{q1['ring']} ({q1['slot']:,} bytes a slot; {Q1_SLOT_ONE_BUCKET:,} at one bucket), "
+          f"{q1['ring'][0][0] * q1['slot']:,} bytes a rank; comm_drift_bytes {q1['drift']}, "
+          f"dcn_overlap_frac {q1['overlap']}; guard transitions {q1['events']}; step ms "
+          f"{q1['step_ms']}; run_clm.main {q1['wall_s']:.1f} s on {card}; rank 0 launches "
+          f"{q1['launches']}", flush=True)
+    print(f"[w4] (q2) hier:2 --vote_every {LAZY_K} --dcn_pipeline_depth 1, {Q2_STEPS} steps: "
+          f"losses {[round(x, 4) for x in q2['losses']]}; each landed slot's election == the "
+          f"plain election of its slice ballots one step before {q2['slices_equal']}; slot j "
+          f"moves first at step j + 2 (the others equal their decay); the cache after step "
+          f"{Q2_STEPS} == a plain re-election of every landed slot; vote/valid_frac "
+          f"{q2['valid_frac']}; {q2['bits']:.4f} bits/param/step; step ms {q2['step_ms']}; "
+          f"run_clm.main {q2['wall_s']:.1f} s on {card}; rank 0 launches {q2['launches']}",
+          flush=True)
+    print(f"[w4] (q3) the dcn_delay link at {Q3_DELAY} s, (q1)'s setup: dcn_wait_s at depth 2 "
+          f"({Q3_RUNS[0][1]} steps) {q3['2']['waits']} = {sum(q3['2']['waits']):.4f} s; at depth "
+          f"0 ({Q3_RUNS[1][1]} steps) {q3['0']['waits']} = {sum(q3['0']['waits']):.4f} s; step ms "
+          f"{q3['2']['step_ms']} / {q3['0']['step_ms']}; run_clm.main {q3['2']['wall_s']:.1f} / "
+          f"{q3['0']['wall_s']:.1f} s on {card}", flush=True)
+
+
+class ZeroWatch:
+    """Checks, in every rank, around ``AdamWZero1.step`` while installed:
+    after every step all ranks' flat params ``torch.equal``; after step 1
+    the params, and the four ranks' gathered ``m`` and ``v`` chunks, equal
+    to zero.py's formula recomputed in plain ops over the full vector from
+    the step's averaged grads (``step1_equal``)."""
+
+    def __init__(self):
+        self.params_equal: list = []
+        self.step1_equal: Optional[list] = None
+        self._orig = AdamWZero1.step
+        watch = self
+
+        def step(opt, flat, state):
+            return watch._observe(opt, flat, state)
+
+        AdamWZero1.step = step
+
+    def close(self) -> None:
+        AdamWZero1.step = self._orig
+
+    def _gathered(self, opt, chunk: torch.Tensor, n: int) -> torch.Tensor:
+        full = chunk.new_empty(opt.world * chunk.numel())
+        collectives._all_gather(full, chunk, group=opt.group)
+        return full[:n]
+
+    def _observe(self, opt, flat, state):
+        first = self.step1_equal is None
+        if first:
+            p = flat.params.to(torch.float32, copy=True)   # the step updates params in place
+            g = flat.grads.to(torch.float32, copy=True)
+            lr = resolve_lr(opt.learning_rate, state.count)
+        new = self._orig(opt, flat, state)
+        if opt.world == 1:
+            self.params_equal.append(True)
+        else:
+            ref = flat.params.clone()
+            dist.broadcast(ref, 0, group=opt.group)
+            differ = torch.tensor([0 if torch.equal(ref, flat.params) else 1])
+            dist.all_reduce(differ, group=opt.group)
+            self.params_equal.append(int(differ) == 0)
+            del ref
+        if first:
+            def like(x):
+                return torch.tensor(x, dtype=torch.float32, device=p.device)
+
+            zero = torch.zeros_like(p)
+            m = zero * like(opt.b1) + g * like(1.0 - opt.b1)
+            v = zero * like(opt.b2) + g * like(1.0 - opt.b2) * g
+            tf = (state.count + 1).to(torch.float32)
+            mhat = m / (1.0 - like(opt.b1) ** tf)
+            vhat = v / (1.0 - like(opt.b2) ** tf)
+            p_ref = p - lr * (mhat / (torch.sqrt(vhat) + like(opt.eps))
+                              + p * like(opt.weight_decay))
+            self.step1_equal = [torch.equal(flat.params, p_ref.to(flat.params.dtype)),
+                                torch.equal(self._gathered(opt, new.m, p.numel()), m),
+                                torch.equal(self._gathered(opt, new.v, p.numel()), v)]
+            del p, g, zero, m, v, mhat, vhat, p_ref
+        return new
+
+
+def r_run(rank: int) -> dict:
+    """Run (r) on one rank of the W4 spawn: ZeRO-1 AdamW (``R_ARGS``),
+    R_STEPS steps, under a :class:`ZeroWatch`: params equal on every rank
+    after every step, step 1 equal to zero.py's formula over the full
+    vector, each rank's ``m`` and ``v`` float32 ``[zero1_chunk(N, 4)]``,
+    finite losses, no optimizer kernel and (f)'s flash launches; the
+    state's bytes a rank beside the replicated AdamW's."""
+    watch = ZeroWatch()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        trainer = run_clm.main(R_ARGS + ["--max_steps", str(R_STEPS)])
+    finally:
+        watch.close()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    expect(f"(r) rank {rank}", launches, dict(optimizer_launches(trainer, R_STEPS),
+                                              **flash_launches(R_STEPS, accum=1, eval_batches=0)))
+    rows = [r for r in trainer.history if "loss" in r]
+    st = trainer.state
+    chunk = zero1_chunk(N_MAIN, W4)
+    rec = {"run": "zero1", "losses": [r["loss"] for r in rows],
+           "step_ms": [r["step_ms"] for r in rows], "params_equal": watch.params_equal,
+           "step1_equal": watch.step1_equal,
+           "state": [[list(st.m.shape), str(st.m.dtype)], [list(st.v.shape), str(st.v.dtype)]],
+           "state_bytes": st.m.numel() * st.m.element_size() + st.v.numel() * st.v.element_size(),
+           "launches": launches, "wall_s": wall}
+    if not (len(rows) == R_STEPS and all(map(math.isfinite, rec["losses"]))
+            and watch.params_equal == [True] * R_STEPS and watch.step1_equal == [True] * 3
+            and rec["state"] == [[[chunk], "torch.float32"]] * 2
+            and isinstance(st, Zero1State) and int(st.count) == R_STEPS):
+        raise AssertionError(f"run (r) rank {rank}: {rec}")
+    del trainer, st
+    torch.cuda.empty_cache()
+    return rec
+
+
+def r_report(rec: dict, card: str) -> None:
+    adamw_bytes = 2 * 4 * N_MAIN
+    print(f"[w4] (r) --zero1 (AdamW, gradient all_reduce): GPT-2 124M, {W4} ranks on one card "
+          f"(gloo), B 2 x accum 1 x T 1024, {R_STEPS} steps: losses "
+          f"{[round(x, 4) for x in rec['losses']]}; params equal on all ranks after each step "
+          f"{rec['params_equal']}; step 1 == zero.py's formula over the full vector (params, "
+          f"gathered m, gathered v) {rec['step1_equal']}; m, v {rec['state']} a rank: "
+          f"{rec['state_bytes']:,} bytes ({rec['state_bytes'] / 1e6:.1f} MB) of optimizer state a "
+          f"rank, against the replicated AdamW's {adamw_bytes:,} ({adamw_bytes / 1e6:.1f} MB); "
+          f"step ms {rec['step_ms']}; run_clm.main {rec['wall_s']:.1f} s on {card}; rank 0 "
+          f"launches {rec['launches']}", flush=True)
 
 
 def plane_run(rank: int, tmp: str) -> dict:
@@ -2212,6 +2553,8 @@ def w4_rank(rank: int, tmp: str) -> None:
                             "launches": launches})
             del trainer
             torch.cuda.empty_cache()
+        records.append(q_run(rank))
+        records.append(r_run(rank))
         records.append(plane_run(rank, tmp))
         records.append(w4_async_commit(rank, tmp))
         if rank == 0:
@@ -2300,6 +2643,8 @@ def w4_phase(tmp: str, card: str) -> None:
         records = json.load(f)
     commit = records.pop()
     plane_report(tmp, records.pop(), card)
+    r_report(records.pop(), card)
+    q_report(records.pop(), card)
     print(f"[w4] (f) async checkpoint at W = {W4}: step 1 COMMITTED by the commit thread "
           f"{commit['seconds']:.3f} s after save() on rank 0, with no later save and no close(); "
           f"latest_valid_step() == 1 on every rank; on {card}", flush=True)

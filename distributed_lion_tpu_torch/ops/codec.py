@@ -4,8 +4,8 @@ Port of ``distributed_lion_tpu/ops/codec.py`` for the three flat wires
 (``sign_psum``, ``packed_allgather``, ``packed_a2a``) and the synchronous
 hierarchical wire ``hier:<g>``. Packed bytes, bucket boundaries and byte
 counts equal the JAX package's exactly, with the hier wire's cross-group
-(``dcn``) leg reported apart. The DCN pipeline's ring-slot sizes
-(``hier_chunk_slot_bytes``) wait for the pipeline (ROADMAP Queue 1 item 11).
+(``dcn``) leg reported apart, and so do the DCN pipeline's ring-slot sizes
+(:func:`hier_chunk_slot_bytes`, :func:`hier_ring_slot_bytes`).
 """
 
 from __future__ import annotations
@@ -83,6 +83,34 @@ def a2a_chunk_bytes(n: int, world_size: int) -> int:
     return max(1, -(-n // (8 * world_size)))
 
 
+def hier_chunk_slot_bytes(nb: int, world_size: int, group: int) -> int:
+    """uint8 bytes of one bucket's in-flight DCN slot segment for an
+    ``nb``-coordinate ballot on the ``hier:<g>`` wire: the ``[n_groups]``
+    launch-time group-alive bytes, then the ``[n_groups, chunk/8]`` packed
+    per-group verdicts of this rank's owned chunk
+    (``parallel.collectives.hier_launch``'s output)."""
+    n_groups = world_size // group
+    return n_groups * (1 + a2a_chunk_bytes(nb, group))
+
+
+def hier_ring_slot_bytes(n: int, world_size: int, group: int,
+                         vote_buckets: int = 1, vote_every: int = 1) -> int:
+    """uint8 bytes of one slot of the cross-step DCN ring
+    (``dcn_pipeline_depth``): the per-bucket segments
+    (:func:`hier_chunk_slot_bytes`) over ``bucket_bounds`` of the step's
+    ballot, which under lazy refresh is the padded rotating slice
+    (``vote_chunk_elems(n, vote_every)`` coordinates). The optimizer's
+    ``LionState.dcn_ring``, the launch and consume slicing and the
+    checkpoint's restore check all read it."""
+    if world_size % group:
+        raise ValueError(
+            f"hier wire: group size {group} does not divide world {world_size}")
+    ballot = n if vote_every <= 1 else vote_chunk_elems(n, vote_every)
+    return sum(hier_chunk_slot_bytes(size, world_size, group)
+               for _, size in bucket_bounds(ballot, max(vote_buckets, 1),
+                                            world_size, f"hier:{group}"))
+
+
 def pack_signs(positive: torch.Tensor) -> torch.Tensor:
     """Pack a bool tensor (True = +1 vote) into uint8, 8 votes per byte,
     LSB first; padding bits are zeros."""
@@ -144,10 +172,13 @@ def _recv_bytes(n: int, world_size: int, kind: str,
 
 def wire_bytes_per_param(num_params: int, world_size: int, wire: str,
                          vote_every: int = 1, accum_steps: int = 1,
-                         vote_buckets: int = 1) -> dict:
+                         vote_buckets: int = 1, dcn_pipeline_depth: int = 0) -> dict:
     """Bytes RECEIVED per worker per optimizer step, with the same keys and
-    values as the JAX package's accounting (at ``dcn_pipeline_depth`` 0);
-    the hier wire adds its group count and its cross-group leg alone."""
+    values as the JAX package's accounting; the hier wire adds its group
+    count, its cross-group leg alone, and ``dcn_overlap_frac``: 1.0 where
+    the cross-step pipeline (``dcn_pipeline_depth`` > 0) takes a leg that
+    moves bytes off the step's critical path, else 0.0. The bytes do not
+    depend on the depth: a step launches and consumes one slot."""
     kind, group = parse_wire(wire)
     n_voted = (num_params if vote_every <= 1
                else min(num_params, vote_chunk_elems(num_params, vote_every)))
@@ -166,8 +197,9 @@ def wire_bytes_per_param(num_params: int, world_size: int, wire: str,
         extras = {"hier_groups": world_size // group,
                   "dcn_bytes_per_step": dcn,
                   "dcn_bits_per_param": 8.0 * dcn / max(num_params, 1),
-                  "dcn_pipeline_depth": 0,
-                  "dcn_overlap_frac": 0.0}
+                  "dcn_pipeline_depth": max(dcn_pipeline_depth, 0),
+                  "dcn_overlap_frac": (1.0 if dcn_pipeline_depth > 0 and dcn > 0
+                                       and world_size > 1 else 0.0)}
     if world_size <= 1:
         ours = 0  # a one-voter wire moves nothing
     reference = world_size * packed_size(num_params) * 8

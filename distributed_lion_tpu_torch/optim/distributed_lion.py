@@ -112,13 +112,42 @@ all-healthy mask and finite inputs ``enforce`` is bit-identical to
 :func:`heal_rank_momentum` (rank-local rows over the group) re-average a
 quarantined rank's momentum from the healthy mean.
 
+**The cross-step DCN pipeline** (``dcn_pipeline_depth`` d > 0, the
+``hier:<g>`` wire only; JAX ``_hier_pipelined``, :521-571, and the
+pipelined branches of ``step``, :737-775, :573-650, :820-852). Each step,
+bucket by bucket, launches its ballots into ring slot ``count mod d``
+(``parallel.collectives.hier_launch``: legs 1 and 2) and consumes the
+segment it replaces, launched d steps ago (``hier_consume``: the masks and
+leg 3), so the step applies the complete election of step ``count − d``'s
+ballots, the same on every rank. ``LionState.dcn_ring`` holds this rank's
+``[d, codec.hier_ring_slot_bytes]`` uint8 slots, byte for byte the JAX
+package's row of its ``[world, d, …]`` ring. The JAX package routes these
+steps to its XLA path; the port keeps its kernels where they compute the
+same bits: the ballots are :func:`fused_lion.fused_ballots` (or the
+stochastic draws), and from step d + 1 each bucket runs
+:func:`fused_lion.fused_apply` with the consumed election as its ±1
+tally. For the first d steps nothing has landed: every coordinate decays
+and its momentum updates, in plain ops, and no sign step is taken. With
+telemetry the frame's histogram is zero (``hier`` is a proxy wire), its
+disagreement is the fresh ballots against the stale election
+(:func:`fused_lion.bucket_vote_stats`, from step d + 1), ``voted`` and
+``valid`` are 0 until an election has landed, ``flip_valid`` from step
+d + 2; the guard's ``prev_ballot`` tracks the launched ballots, its
+disagreement the stale election, 0 in the cold start. Under lazy refresh
+the launched slice is slot ``count mod K`` as always, the consumed
+election is of slot ``(count − d) mod K`` and lands in the cache there (the
+cache keeps its bytes while nothing has landed), a slot's coordinates move
+from step ``slot + d + 1`` on, the frame's disagreement is 0 (the two
+slices are different coordinates) and ``flip_valid`` starts at step
+K + d + 1. Leg 2 is waited on inside the launch: the bytes are those a
+handle kept pending across steps would give.
+
 Ported: the deterministic and the stochastic modes on the three flat wires
-and the synchronous ``hier:<g>`` wire, lazy refresh in both modes,
-``mom_dtype``, vote-health telemetry and the vote guard; and
+and the ``hier:<g>`` wire with its DCN pipeline, lazy refresh in both
+modes, ``mom_dtype``, vote-health telemetry and the vote guard; and
 :func:`remap_worker_momentum`, the elastic resume's remap of the per-rank
-momenta to another world size. Refused, naming its ROADMAP item: the DCN
-pipeline (``dcn_pipeline_depth``, Queue 1 item 11). Mixed param dtypes are
-refused by ``FlatParams``.
+momenta to another world size. Mixed param dtypes are refused by
+``FlatParams``.
 """
 
 from __future__ import annotations
@@ -131,6 +160,8 @@ import torch.distributed as dist
 from distributed_lion_tpu_torch.ops import fused_lion, lion_math
 from distributed_lion_tpu_torch.ops.codec import (
     bucket_bounds,
+    hier_chunk_slot_bytes,
+    hier_ring_slot_bytes,
     pack_signs,
     parse_wire,
     popcount,
@@ -149,10 +180,6 @@ from distributed_lion_tpu_torch.optim.lion import (
 from distributed_lion_tpu_torch.parallel import collectives
 from distributed_lion_tpu_torch.parallel.mesh import DATA_AXIS, rank_of
 from distributed_lion_tpu_torch.train import telemetry as _vt
-
-
-def _refuse(what: str, item: str) -> None:
-    raise NotImplementedError(f"{what} is not ported yet ({item})")
 
 
 GUARD_MODES = ("off", "observe", "enforce")
@@ -185,16 +212,18 @@ def guard_inputs(g: torch.Tensor, m: torch.Tensor, sanitize: bool) -> torch.Tens
 
 
 def guard_vote(guard: dict, prev: torch.Tensor, byte0: int, ballots: torch.Tensor,
-               total: torch.Tensor, real: int) -> None:
+               total: Optional[torch.Tensor], real: int) -> None:
     """The guard's reads of one bucket's vote, window by window: into
     ``guard['dis']`` the count of this rank's unmasked ballots that lost
-    the election, over the first ``real`` coordinates; into
-    ``guard['flips']`` the bit flips of the packed ballots against
-    ``prev`` from byte ``byte0``, which they then overwrite in place."""
+    the election ``total`` (None: none to compare with), over the first
+    ``real`` coordinates; into ``guard['flips']`` the bit flips of the
+    packed ballots against ``prev`` from byte ``byte0``, which they then
+    overwrite in place."""
     for lo in range(0, ballots.numel(), GUARD_WINDOW):
         mine = ballots[lo:lo + GUARD_WINDOW] > 0
         r = max(0, min(mine.numel(), real - lo))
-        guard["dis"] += (mine[:r] != (total[lo:lo + r] > 0)).sum()
+        if total is not None:
+            guard["dis"] += (mine[:r] != (total[lo:lo + r] > 0)).sum()
         now = pack_signs(mine)
         old = prev[byte0 + lo // 8:byte0 + lo // 8 + now.numel()]
         guard["flips"] += ballot_flips(now, old)
@@ -209,8 +238,10 @@ class DistributedLion:
     records the bytes each collective hands the backend
     (:class:`collectives.WireTally`); ``telemetry`` makes ``step`` return
     the vote-health frame too, and ``guard`` (``'observe'``,
-    ``'enforce'``) the guard frame after it. A ``hier:<g>`` wire builds its
-    process groups here, so every rank builds the optimizer."""
+    ``'enforce'``) the guard frame after it. ``dcn_pipeline_depth`` d > 0
+    pipelines a ``hier:<g>`` wire's cross-group leg across d steps. A
+    ``hier:<g>`` wire builds its process groups here, so every rank builds
+    the optimizer."""
 
     def __init__(self, learning_rate: Schedule = 1e-4, b1: float = 0.9,
                  b2: float = 0.99, weight_decay: float = 0.0, *, group=None,
@@ -218,10 +249,12 @@ class DistributedLion:
                  mom_dtype=None, max_grad_norm: Optional[float] = None,
                  seed: Optional[int] = None,
                  tally: Optional[collectives.WireTally] = None,
-                 telemetry: bool = False, guard: str = "off"):
+                 telemetry: bool = False, guard: str = "off",
+                 dcn_pipeline_depth: int = 0):
         kind, size = parse_wire(wire)
         if guard not in GUARD_MODES:
             raise ValueError(f"guard must be 'off', 'observe' or 'enforce', got {guard!r}")
+        _check_depth(dcn_pipeline_depth, kind, wire)
         _validate(learning_rate, b1, b2)
         if vote_buckets < 1:
             raise ValueError(f"vote_buckets must be >= 1, got {vote_buckets}")
@@ -241,13 +274,24 @@ class DistributedLion:
         self.telemetry = telemetry
         self.guard = guard
         self.world, self.rank = collectives.world_of(group), rank_of(group)
-        self.hier = (collectives.HierGroups(group, size)
-                     if kind == "hier" and group is not None else None)
+        self.depth = dcn_pipeline_depth
+        if kind == "hier" and group is not None:
+            self.hier = collectives.HierGroups(group, size)
+        elif kind == "hier" and dcn_pipeline_depth > 0:
+            if size != 1:
+                raise ValueError(f"hier wire: group size {size} does not divide world 1")
+            self.hier = collectives.HierGroups.local()
+        else:
+            self.hier = None
         self._g_cast: Optional[torch.Tensor] = None
 
     def init(self, flat: FlatParams) -> LionState:
+        ring = None
+        if self.depth > 0:
+            ring = (self.depth, hier_ring_slot_bytes(flat.numel, self.world, self.hier.size,
+                                                     self.vote_buckets, self.vote_every))
         return init_state(flat, self.mom_dtype, self.vote_every,
-                          self.world if self.guard != "off" else 0)
+                          self.world if self.guard != "off" else 0, ring)
 
     def _grads(self, flat: FlatParams, m: torch.Tensor) -> torch.Tensor:
         """The flat grads in the momentum dtype: the buffer itself, or one
@@ -277,15 +321,21 @@ class DistributedLion:
                      "dis": zero, "flips": zero.clone(), "prev": state.prev_ballot}
         if self.vote_every > 1:
             return self._step_lazy(flat, state, p, g, m, lr, frame, guard)
+        count, depth = state.steps, self.depth
+        # under the DCN pipeline the step applies the election launched
+        # depth steps ago: none in the first depth steps
+        landed = count >= depth
+        if depth:
+            row, segs = self._ring_row(state, flat.numel)
         stochastic = self.max_grad_norm is not None
         if stochastic:
-            gen = lion_math.stochastic_generator(self.seed, state.steps, self.rank, flat.device)
+            gen = lion_math.stochastic_generator(self.seed, count, self.rank, flat.device)
             if frame is not None:  # ballots that differ from the deterministic ones
                 flips = torch.zeros((), dtype=torch.int64, device=flat.device)
         packed: list = []
         pending = None
-        for start, size in bucket_bounds(flat.numel, self.vote_buckets,
-                                         self.world, self.wire):
+        for i, (start, size) in enumerate(bucket_bounds(flat.numel, self.vote_buckets,
+                                                        self.world, self.wire)):
             w = slice(start, start + size)
             if stochastic:
                 vote_pos = lion_math.stochastic_vote_bool(g[w], m[w], self.b1,
@@ -295,27 +345,33 @@ class DistributedLion:
                     flips += (vote_pos != lion_math.sign_vote_bool(g[w], m[w], self.b1)).sum()
             else:
                 ballots = fused_lion.fused_ballots(g[w], m[w], self.b1)
-            vote = self._vote(ballots, state, guard)
+            if depth:
+                total = self._pipe(ballots, state, row, segs[i], size)
+                vote = collectives.PendingVote(lambda total=total: total)
+            else:
+                vote = self._vote(ballots, state, guard)
             if pending is not None:  # apply k−1 while bucket k is on the wire
-                self._apply(p, g, m, lr, frame, packed, guard, *pending)
+                self._apply(p, g, m, lr, frame, packed, guard, landed, *pending)
             pending = (w, ballots, vote)
         if pending is not None:
-            self._apply(p, g, m, lr, frame, packed, guard, *pending)
+            self._apply(p, g, m, lr, frame, packed, guard, landed, *pending)
         gframe = None
         if guard is not None:  # prev_ballot now holds this step's ballots
-            gframe = self._guard_frame(guard["nf"], guard["flips"], state.steps >= 1,
+            gframe = self._guard_frame(guard["nf"], guard["flips"], count >= 1,
                                        guard["dis"], flat.numel)
-        state = state._replace(count=state.count + 1, steps=state.steps + 1)
+        state = state._replace(count=state.count + 1, steps=count + 1)
         if frame is None:
             return state if gframe is None else (state, gframe)
-        n = torch.tensor(flat.numel, dtype=torch.int32, device=flat.device)
+        n = torch.tensor(flat.numel if landed else 0, dtype=torch.int32, device=flat.device)
         if not _vt.tally_wire(self.wire):  # a ±1 proxy carries no margin
             frame["margin_hist"].zero_()
         # bucket boundaries are byte-aligned, so the per-bucket packed
-        # elections concatenate to the packed full vector
+        # elections concatenate to the packed full vector; a pipelined
+        # election is a real previous one from the second that lands
         frame.update(elected=torch.cat(packed) if packed else frame["elected"],
                      voted=n, valid=n,
-                     flip_valid=torch.ones_like(frame["flip_valid"]))
+                     flip_valid=torch.full_like(frame["flip_valid"],
+                                                count >= depth + 1 if depth else True))
         if stochastic:
             frame["stoch_flip_frac"] = flips.to(torch.float32) / flat.numel
         return (state, frame) if gframe is None else (state, frame, gframe)
@@ -327,7 +383,37 @@ class DistributedLion:
         return collectives.vote_total_async(
             ballots, self.wire, self.group, self.tally,
             keep_ballots=self.telemetry or guard is not None, hier=self.hier,
-            alive=state.health if self.guard == "enforce" else None)
+            alive=state.health if self.guard == "enforce" else None, count=state.steps)
+
+    def _ring_row(self, state: LionState, n_ballot: int) -> tuple:
+        """The DCN ring's row this step consumes and refills, slot ``count
+        mod d``, and each vote bucket's segment of it."""
+        segs, off = [], 0
+        for _, size in bucket_bounds(n_ballot, self.vote_buckets, self.world, self.wire):
+            seg = hier_chunk_slot_bytes(size, self.world, self.hier.size)
+            segs.append(slice(off, off + seg))
+            off += seg
+        ring = state.dcn_ring
+        if ring.shape[-1] != off:
+            raise ValueError(
+                f"dcn_ring slot holds {ring.shape[-1]} bytes but this ballot/bucket layout "
+                f"needs {off} — the ring was built for a different world/wire/bucket config "
+                "(init_global_state and the step must agree)")
+        return ring[state.steps % self.depth], segs
+
+    def _pipe(self, ballots, state: LionState, row: torch.Tensor, seg: slice,
+              n: int) -> torch.Tensor:
+        """One bucket of the DCN pipeline: launch ``ballots`` into
+        ``row[seg]`` and return the election of the segment they replace,
+        launched ``depth`` steps ago."""
+        alive = state.health if self.guard == "enforce" else None
+        tally = self.tally if self.tally is not None else collectives.WireTally()
+        launch = collectives.hier_launch(ballots, self.hier, tally, alive, self.group,
+                                         state.steps)
+        total = collectives.hier_consume(row[seg], n, self.hier, tally, alive, state.steps,
+                                         self.depth)
+        row[seg] = launch.wait()
+        return total
 
     def _guard_frame(self, nf, flips, flip_valid: bool, dis, voted: int) -> dict:
         """The guard frame (JAX ``_guard_frame``): the three per-rank
@@ -349,16 +435,25 @@ class DistributedLion:
                 "disagree": vec[2].to(torch.float32),
                 "voted": torch.full((), voted, dtype=torch.int64, device=dev)}
 
-    def _apply(self, p, g, m, lr, frame, packed, guard, w: slice, ballots, vote):
+    def _apply(self, p, g, m, lr, frame, packed, guard, landed: bool, w: slice, ballots,
+               vote):
+        """Apply one bucket's election; ``landed`` False (the DCN pipeline's
+        first steps): decay and momentum only, in plain ops."""
         total = vote.wait()
         if guard is not None:  # this rank's unmasked ballots against the election;
             # bucket boundaries are byte-aligned
-            guard_vote(guard, guard["prev"], w.start // 8, ballots, total, ballots.numel())
+            guard_vote(guard, guard["prev"], w.start // 8, ballots, total if landed else None,
+                       ballots.numel())
         if frame is not None:
-            hist, dis = fused_lion.bucket_vote_stats(ballots, total, self.world, _vt.NBINS)
-            frame["margin_hist"] += hist
-            frame["disagree"] += dis
+            if landed:
+                hist, dis = fused_lion.bucket_vote_stats(ballots, total, self.world, _vt.NBINS)
+                frame["margin_hist"] += hist
+                frame["disagree"] += dis
             packed.append(pack_signs(total > 0))
+        if not landed:
+            p[w] = lion_math.decay_params(p[w], lr, self.weight_decay)
+            m[w] = lion_math.momentum_update(g[w], m[w], self.b2)
+            return
         if self.max_grad_norm is None:
             fused_lion.fused_apply(p[w], g[w], m[w], total, lr, self.weight_decay, self.b2)
             return
@@ -392,11 +487,17 @@ class DistributedLion:
 
     def _step_lazy(self, flat: FlatParams, state: LionState, p, g, m, lr, frame, guard):
         """The lazy refresh of the module doc: vote slot ``count mod K``'s
-        slice bucket by bucket, write its election into a copy of the
-        cache, apply the cached signs."""
-        n, k, count = flat.numel, self.vote_every, state.steps
+        slice bucket by bucket, write its election (under the DCN pipeline
+        the election of slot ``(count − d) mod K``'s slice, launched d steps
+        ago) into a copy of the cache, apply the cached signs."""
+        n, k, count, depth = flat.numel, self.vote_every, state.steps, self.depth
         chunk = vote_chunk_elems(n, k)
         lo, real, buckets = self._slice_buckets(n, count)
+        landed = count >= depth
+        # the slice the applied election belongs to: the launched one at depth 0
+        wlo = ((count - depth) % k) * chunk
+        if depth:
+            row, segs = self._ring_row(state, chunk)
         stochastic = self.max_grad_norm is not None
         if stochastic:
             gen = lion_math.stochastic_generator(self.seed, count, self.rank, flat.device)
@@ -417,24 +518,33 @@ class DistributedLion:
                 ballots = lion_math.sign_vote_bool(g[w], m[w], self.b1).to(torch.int8) * 2 - 1
             if r < size:  # the slice past n votes −1
                 ballots = torch.cat([ballots, ballots.new_full((size - r,), -1)])
-            pending.append((start, size, r, ballots, self._vote(ballots, state, guard)))
+            if depth:
+                total = self._pipe(ballots, state, row, segs[len(pending)], size)
+                vote = collectives.PendingVote(lambda total=total: total)
+            else:
+                vote = self._vote(ballots, state, guard)
+            pending.append((start, size, r, ballots, vote))
         for start, size, r, ballots, vote in pending:
             total = vote.wait()
             if guard is not None:  # the slice's ballots, padding included, into
-                # the slot's bytes, which last held them one rotation (K steps) ago
-                guard_vote(guard, guard["prev"], (lo + start) // 8, ballots, total, r)
-            if frame is not None and r:
+                # the slot's bytes, which last held them one rotation (K steps)
+                # ago; under the pipeline the election is of another slice
+                guard_vote(guard, guard["prev"], (lo + start) // 8, ballots,
+                           None if depth else total, r)
+            if frame is not None and r and not depth:
                 hist, dis = fused_lion.bucket_vote_stats(ballots[:r], total[:r], self.world,
                                                          _vt.NBINS)
                 frame["margin_hist"] += hist
                 frame["disagree"] += dis
-            # bucket bounds and chunk are multiples of 8: whole bytes
-            cache[(lo + start) // 8:(lo + start + size) // 8] = pack_signs(total > 0)
-        valid = min((count + 1) * chunk, n)  # slots 0..count have voted
+            if landed:  # bucket bounds and chunk are multiples of 8: whole bytes
+                cache[(wlo + start) // 8:(wlo + start + size) // 8] = pack_signs(total > 0)
+        # the slots whose election has landed: 0..count − d
+        valid = min(max(count - depth + 1, 0) * chunk, n)
         tally = lion_math.cache_tally(cache, n)
         if p.dtype == m.dtype == torch.float32:
-            fused_lion.fused_apply(p[:valid], g[:valid], m[:valid], tally[:valid], lr,
-                                   self.weight_decay, self.b2)
+            if valid:
+                fused_lion.fused_apply(p[:valid], g[:valid], m[:valid], tally[:valid], lr,
+                                       self.weight_decay, self.b2)
             if valid < n:
                 p[valid:] = lion_math.decay_params(p[valid:], lr, self.weight_decay)
                 m[valid:] = lion_math.momentum_update(g[valid:], m[valid:], self.b2)
@@ -456,8 +566,10 @@ class DistributedLion:
         def i32(x):
             return torch.tensor(x, dtype=torch.int32, device=flat.device)
 
-        frame.update(elected=cache, voted=i32(real), valid=i32(valid),
-                     flip_valid=torch.tensor(count >= k, device=flat.device))
+        # the real coordinates of the slice whose election landed
+        voted = max(0, min(chunk, n - wlo)) if landed else 0
+        frame.update(elected=cache, voted=i32(voted), valid=i32(valid),
+                     flip_valid=torch.tensor(count >= k + depth, device=flat.device))
         if stochastic:
             # the full vector's flip share, as the JAX package's: the
             # coordinates outside the slice draw after it from the same
@@ -495,32 +607,43 @@ def distributed_lion(
     default process group, or to a world of one when there is none.
     ``seed`` seeds the stochastic mode (the JAX package's init rng); a
     stochastic optimizer without one is refused."""
-    parse_wire(wire)
+    kind, _ = parse_wire(wire)
     if guard not in GUARD_MODES:
         raise ValueError(f"guard must be 'off', 'observe' or 'enforce', got {guard!r}")
-    if dcn_pipeline_depth < 0:
-        raise ValueError(f"dcn_pipeline_depth must be >= 0, got {dcn_pipeline_depth}")
+    _check_depth(dcn_pipeline_depth, kind, wire)
     if axis_name is None:
         if max_grad_norm is not None:
             raise ValueError(
                 "max_grad_norm (stochastic binarization) requires a vote axis; "
                 "pass axis_name or use lion() for the local optimizer")
-        if telemetry or guard != "off" or dcn_pipeline_depth > 0:
+        if telemetry or guard != "off":
             raise ValueError(
-                "telemetry, the vote guard and the DCN pipeline act on the "
-                "vote; with axis_name=None there is none — use lion()")
+                "telemetry and the vote guard act on the vote; with "
+                "axis_name=None there is none — use lion()")
+        if dcn_pipeline_depth > 0:
+            raise ValueError(
+                "dcn_pipeline_depth pipelines the vote wire; with axis_name=None there "
+                "is no wire — use lion() for local training")
         return lion(learning_rate, b1, b2, weight_decay, mom_dtype)
     if vote_every < 1:
         raise ValueError(f"vote_every must be >= 1, got {vote_every}")
-    if dcn_pipeline_depth > 0:
-        _refuse("the cross-step DCN pipeline (dcn_pipeline_depth)",
-                "ROADMAP Queue 1 item 11")
     if group is None and dist.is_initialized():
         group = dist.group.WORLD
     return DistributedLion(learning_rate, b1, b2, weight_decay, group=group,
                            wire=wire, vote_buckets=vote_buckets, vote_every=vote_every,
                            mom_dtype=mom_dtype, max_grad_norm=max_grad_norm, seed=seed,
-                           tally=tally, telemetry=telemetry, guard=guard)
+                           tally=tally, telemetry=telemetry, guard=guard,
+                           dcn_pipeline_depth=dcn_pipeline_depth)
+
+
+def _check_depth(depth: int, kind: str, wire: str) -> None:
+    """The JAX package's ``dcn_pipeline_depth`` rules (:264-270)."""
+    if depth < 0:
+        raise ValueError(f"dcn_pipeline_depth must be >= 0, got {depth}")
+    if depth > 0 and kind != "hier":
+        raise ValueError(
+            f"dcn_pipeline_depth pipelines the hier wire's level-2 (DCN) leg; wire "
+            f"{wire!r} has no such leg — use 'hier:<g>' or depth 0")
 
 
 

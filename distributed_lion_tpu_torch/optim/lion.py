@@ -38,6 +38,8 @@ class LionState(NamedTuple):
     # mask, replicated; present only with the guard on
     prev_ballot: Optional[torch.Tensor] = None  # the guard's packed uint8
     # previous ballot of this rank (guard_ballot_len bytes); guard only
+    dcn_ring: Optional[torch.Tensor] = None  # this rank's uint8 [depth,
+    # codec.hier_ring_slot_bytes] in-flight hier slots; the DCN pipeline only
 
 
 class FlatParams:
@@ -144,11 +146,13 @@ def fresh_guard_state(n: int, vote_every: int, world: int, device) -> dict:
 
 
 def init_state(flat: FlatParams, mom_dtype: Optional[torch.dtype] = None,
-               vote_every: int = 1, guard_world: int = 0) -> LionState:
+               vote_every: int = 1, guard_world: int = 0,
+               ring: Optional[tuple[int, int]] = None) -> LionState:
     """Step 0 and zero momentum in ``mom_dtype``, else the param dtype (the
     reference's ``exp_avg = zeros_like(p)``); under ``vote_every`` K > 1 a
     zeroed elected cache of ``K * vote_chunk_elems(n, K) / 8`` bytes; with
-    ``guard_world`` W > 0 the vote guard's fresh state for W ranks."""
+    ``guard_world`` W > 0 the vote guard's fresh state for W ranks; with
+    ``ring`` ``(depth, slot bytes)`` the DCN pipeline's zeroed ring."""
     elected = None
     if vote_every > 1:
         chunk = vote_chunk_elems(flat.numel, vote_every)
@@ -158,7 +162,9 @@ def init_state(flat: FlatParams, mom_dtype: Optional[torch.dtype] = None,
     return LionState(
         count=torch.zeros((), dtype=torch.int32, device=flat.device),
         exp_avg=torch.zeros_like(flat.params, dtype=mom_dtype or flat.params.dtype),
-        elected=elected, **guard)
+        elected=elected, **guard,
+        dcn_ring=(None if ring is None
+                  else torch.zeros(ring, dtype=torch.uint8, device=flat.device)))
 
 
 class Lion:

@@ -1,8 +1,9 @@
 """Vote collectives over ``torch.distributed``: the wire layer.
 
 Port of ``distributed_lion_tpu/parallel/collectives.py`` (``vote_total``,
-:241-306, the packed_a2a election, :359-386, and the synchronous hier
-election, ``hier_launch`` + ``hier_consume`` at depth 0, :394-606):
+:241-306, the packed_a2a election, :359-386, the hier election,
+``hier_launch`` + ``hier_consume``, :394-606, and the DCN link emulator,
+:111-238):
 
 - ``sign_psum``: the int8 ±1 ballots are summed by one ``all_reduce``
   (int32 when W > 127, where int8 partial sums could overflow). Returns
@@ -13,13 +14,20 @@ election, ``hier_launch`` + ``hier_consume`` at depth 0, :394-606):
   tallies one chunk), then an all-gather of the packed verdicts.
   Returns a ±1 proxy of the elected sign (int8), never the magnitude.
 - ``hier:<g>``: a majority of group majorities over groups of g
-  consecutive ranks (:class:`HierGroups`). Leg 1, an ``all_to_all_single``
-  of ballot chunks inside the group, gives each member the tally of the
-  chunk it owns (int8, int32 when g > 127); leg 2 gathers the packed
-  per-group verdicts of that chunk from the members at the same position
-  in the other groups (the only cross-group, ``dcn``, leg); leg 3 gathers
-  the packed elected chunks inside the group. Returns a ±1 proxy (int8).
-  It equals the flat vote at g = 1 and g = W.
+  consecutive ranks (:class:`HierGroups`), split as the JAX package splits
+  it into :func:`hier_launch` and :func:`hier_consume` (:394-560). The
+  launch runs leg 1, an ``all_to_all_single`` of ballot chunks inside the
+  group, which gives member ``i`` the tally of the chunk it owns, ``(i + 1)
+  mod g`` (int8, int32 past g = 127), and leg 2, which gathers the packed
+  verdicts of that chunk from the members at the same position in the
+  other groups (the only cross-group, ``dcn``, leg); it returns a uint8
+  slot segment of the per-group verdicts and the launch-time group mask.
+  The consume weighs each group by that mask and by the current one, takes
+  the majority, and runs leg 3, the in-group gather of the packed elected
+  chunks. The synchronous wire consumes the slot in the step that launched
+  it; the DCN pipeline (``optim.distributed_lion``, ``dcn_pipeline_depth``
+  d) d steps later, the slot riding ``LionState.dcn_ring`` in between.
+  Returns a ±1 proxy (int8). It equals the flat vote at g = 1 and g = W.
 
 Every wire elects +1 exactly where the returned total is > 0; ties elect
 −1 (at both levels of the hier wire). With no process group (a world of
@@ -41,6 +49,12 @@ one. The zeroing goes into the wire's own buffer, never into ``ballots``.
 With ``alive`` all true the tally is bit-identical to ``alive=None``, and
 the bytes recorded in a :class:`WireTally` do not depend on the mask.
 
+The ``dcn_delay`` fault (``train.resilience``) emulates a slow
+cross-group link: each launch stamps the host clock for its optimizer step,
+each consume sleeps until the stamp of the step it consumes plus the delay
+and records what it paid in :data:`DCN_WAIT`. Unarmed, the gates do
+nothing.
+
 ``WIRE_TALLY.capture()`` collects every :class:`WireTally` record made
 inside it, one ``(leg, bytes)`` per launch, whichever tally the launch
 records into: the port's counterpart of the JAX package's
@@ -52,6 +66,8 @@ capture nothing is kept.
 from __future__ import annotations
 
 import contextlib
+import threading
+import time
 from datetime import timedelta
 from typing import Callable, Optional
 
@@ -65,6 +81,7 @@ from distributed_lion_tpu_torch.ops.codec import (
     parse_wire,
     unpack_signs,
 )
+from distributed_lion_tpu_torch.train import resilience
 
 # PyTorch 2.13 adds all_gather_single and deprecates all_gather_into_tensor
 # (same arguments); earlier releases have only the latter.
@@ -177,60 +194,179 @@ class HierGroups:
             if i == me % size:
                 self.cross = sub
 
+    @classmethod
+    def local(cls) -> "HierGroups":
+        """The ``hier:1`` wire of a world of one: one group of one rank, no
+        collective."""
+        self = cls.__new__(cls)
+        self.size, self.n_groups, self.intra, self.cross = 1, 1, None, None
+        return self
+
 
 def _own_bit(alive: torch.Tensor, group) -> torch.Tensor:
-    return alive[dist.get_rank(group)]
+    return alive[0 if group is None else dist.get_rank(group)]
 
 
-def _hier_vote(ballots: torch.Tensor, w: int, hier: HierGroups,
-               tally: WireTally, alive: Optional[torch.Tensor], group) -> PendingVote:
-    """The hier election of the module doc; member ``index`` owns chunk
-    ``index``. Each leg records the bytes ``codec.hier_legs`` counts."""
+class DcnWaitTally:
+    """The emulated DCN link's residual waits (the ``dcn_delay`` fault,
+    ``train.resilience``; JAX ``DcnWaitTally``): per step key, the longest
+    wait any bucket paid at the consume gate. A wait below the delay is the
+    cross-step pipeline hiding part of the round trip. The trainer drains it
+    at log cadence into ``dcn_wait_s``."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._waits: dict = {}
+
+    def add(self, key, wait_s: float) -> None:
+        with self._lock:
+            self._waits[key] = max(self._waits.get(key, 0.0), float(wait_s))
+
+    def pop(self) -> dict:
+        """``{step key: longest wait in seconds}`` since the last pop."""
+        with self._lock:
+            out, self._waits = self._waits, {}
+            return out
+
+
+DCN_WAIT = DcnWaitTally()
+# the link's launch stamps (host monotonic clock), keyed by the optimizer
+# step count; the first bucket to stamp a step wins
+_DCN_STAMPS: dict = {}
+_DCN_STAMPS_LOCK = threading.Lock()
+
+
+def dcn_link_reset() -> None:
+    """Forget the link's stamps and waits: the stamps are keyed by the step
+    count, so a fresh run reusing counts 0..N would otherwise find a former
+    run's expired stamps and wait for nothing. Call it between measured
+    runs."""
+    with _DCN_STAMPS_LOCK:
+        _DCN_STAMPS.clear()
+    DCN_WAIT.pop()
+
+
+def _dcn_launch_gate(count: Optional[int]) -> None:
+    """The launch half of the ``dcn_delay`` link: stamp "the transfer of
+    step ``count`` started now". A no-op unless the fault is armed."""
+    if not resilience.fault("dcn_delay") or count is None:
+        return
+    with _DCN_STAMPS_LOCK:
+        _DCN_STAMPS.setdefault(int(count), time.monotonic())
+        for k in [k for k in _DCN_STAMPS if k < int(count) - 64]:
+            del _DCN_STAMPS[k]
+
+
+def _dcn_consume_gate(count: Optional[int], depth: int) -> None:
+    """The consume half: sleep until the transfer launched at step ``count
+    - depth`` has been on the link for the delay, and record the residual
+    in :data:`DCN_WAIT`; the steps run since the launch count toward the
+    deadline. With no step count the link is synchronous: the whole delay.
+    A no-op unless the fault is armed."""
+    delay = resilience.fault("dcn_delay")
+    if not delay:
+        return
+    if count is None:
+        time.sleep(float(delay))
+        DCN_WAIT.add(None, float(delay))
+        return
+    key = int(count) - depth
+    if key < 0:
+        return
+    with _DCN_STAMPS_LOCK:
+        t0 = _DCN_STAMPS.get(key)
+    if t0 is not None:
+        rem = t0 + float(delay) - time.monotonic()
+        if rem > 0:
+            time.sleep(rem)
+        DCN_WAIT.add(key, max(rem, 0.0))
+
+
+def hier_launch(ballots: torch.Tensor, hier: HierGroups, tally: WireTally,
+                alive: Optional[torch.Tensor] = None, group=None,
+                count: Optional[int] = None) -> PendingVote:
+    """Legs 1 and 2 of the ``hier:<g>`` election (JAX ``hier_launch``):
+    everything up to the arrival of the cross-group traffic. Leg 1, an
+    ``all_to_all_single`` inside the group, is issued now; ``wait`` runs leg
+    2 and returns the uint8 slot segment of this rank
+    (``codec.hier_chunk_slot_bytes``): the ``[n_groups]`` launch-time
+    group-alive bytes, then the ``[n_groups, chunk/8]`` packed verdicts of
+    the chunk this rank owns, by source group. Member ``i`` of a group owns
+    chunk ``(i + 1) mod g``, where the JAX package's ring reduce-scatter
+    leaves it, so the bytes are the JAX package's for the same rank.
+    ``count`` (the optimizer step) stamps the ``dcn_delay`` link only."""
     n, g, n_groups = ballots.numel(), hier.size, hier.n_groups
-    legs = hier_legs(n, w, g)
+    legs = hier_legs(n, g * n_groups, g)
     chunk = legs["chunk"]
     acc = torch.int8 if g <= 127 else torch.int32
     buf = ballots.to(acc)
-    if g * chunk > n:  # padding votes −1; its elections are cut off below
+    if g * chunk > n:  # padding votes −1; its elections are cut off at consume
         buf = torch.cat([buf, buf.new_full((g * chunk - n,), -1)])
     group_alive = None
     if alive is not None:  # a quarantined member's ballots are 0 in leg 1
         buf = torch.where(_own_bit(alive, group), buf, torch.zeros_like(buf))
         group_alive = alive.view(n_groups, g).any(1)
-    if g > 1:  # leg 1: every member's ballots for the chunk I own
-        arrived = torch.empty_like(buf)
+    if g > 1:  # leg 1: member j receives every member's ballots for chunk (j + 1) mod g
+        send = torch.roll(buf.view(g, chunk), -1, 0).reshape(-1)
+        arrived = torch.empty_like(send)
         tally.record("ici", legs["leg1"])
-        work = dist.all_to_all_single(arrived, buf, group=hier.intra, async_op=True)
+        work = dist.all_to_all_single(arrived, send, group=hier.intra, async_op=True)
     else:
         arrived, work = buf, None
+    _dcn_launch_gate(count)
 
     def finish():
         if work is not None:
             work.wait()
-        verdict = arrived.view(g, chunk).sum(0, dtype=torch.int32) > 0  # tie → −1
-        if n_groups == 1 and group_alive is not None:
-            verdict = verdict & group_alive[0]  # a group with no healthy member abstains
-        mine = pack_signs(verdict)
+        mine = pack_signs(arrived.view(g, chunk).sum(0, dtype=torch.int32) > 0)  # tie → −1
         if n_groups > 1:  # leg 2: every group's verdict on my chunk
             stack = mine.new_empty(n_groups * mine.numel())
             tally.record("dcn", legs["leg2"])
             _all_gather(stack, mine, group=hier.cross)
-            bits = unpack_signs(stack, (n_groups, chunk))
-            if group_alive is None:
-                quorum = n_groups
-            else:  # a group with no healthy member abstains
-                bits = bits & group_alive[:, None]
-                quorum = group_alive.sum(dtype=torch.int32)
-            mine = pack_signs(bits.sum(0, dtype=torch.int32) * 2 > quorum)  # tie → −1
-        if g > 1:  # leg 3: the elected chunks of my group's members
-            elected = mine.new_empty(g * mine.numel())
-            tally.record("ici", legs["leg3"])
-            _all_gather(elected, mine, group=hier.intra)
         else:
-            elected = mine
-        return torch.where(unpack_signs(elected, (n,)), 1, -1).to(torch.int8)
+            stack = mine
+        mask = (torch.ones(n_groups, dtype=torch.uint8, device=mine.device)
+                if group_alive is None else group_alive.to(torch.uint8))
+        return torch.cat([mask, stack])
 
     return PendingVote(finish)
+
+
+def hier_consume(slot: torch.Tensor, n: int, hier: HierGroups, tally: WireTally,
+                 alive: Optional[torch.Tensor] = None, count: Optional[int] = None,
+                 depth: int = 0) -> torch.Tensor:
+    """Leg 3 of the ``hier:<g>`` election from a :func:`hier_launch` slot
+    segment, possibly ``depth`` steps old (JAX ``hier_consume``): a source
+    group counts where it held a healthy member at launch (the slot's mask)
+    AND holds one now (``alive``); the chunk's election is the strict
+    majority of the counting groups' verdicts (ties −1), and leg 3 gathers
+    the elected chunks inside the group. Returns the int8 ±1 proxy of the
+    ``n`` coordinates, the same on every rank."""
+    g, n_groups = hier.size, hier.n_groups
+    chunk = hier_legs(n, g * n_groups, g)["chunk"]
+    _dcn_consume_gate(count, depth)
+    counted = slot[:n_groups] > 0
+    if alive is not None:
+        counted = counted & alive.view(n_groups, g).any(1)
+    bits = unpack_signs(slot[n_groups:], (n_groups, chunk)) & counted[:, None]
+    mine = pack_signs(bits.sum(0, dtype=torch.int32) * 2 > counted.sum(dtype=torch.int32))
+    if g > 1:  # leg 3: the elected chunks of my group's members, chunk c from member c − 1
+        elected = mine.new_empty(g * mine.numel())
+        tally.record("ici", hier_legs(n, g * n_groups, g)["leg3"])
+        _all_gather(elected, mine, group=hier.intra)
+        elected = torch.roll(elected.view(g, -1), 1, 0).reshape(-1)
+    else:
+        elected = mine
+    return torch.where(unpack_signs(elected, (n,)), 1, -1).to(torch.int8)
+
+
+def _hier_vote(ballots: torch.Tensor, hier: HierGroups, tally: WireTally,
+               alive: Optional[torch.Tensor], group, count: Optional[int]) -> PendingVote:
+    """The synchronous hier election (depth 0): a launch consumed in the
+    same step."""
+    launch = hier_launch(ballots, hier, tally, alive, group, count)
+    return PendingVote(lambda: hier_consume(launch.wait(), ballots.numel(), hier, tally,
+                                            alive, count))
 
 
 def _healthy_count(bits: torch.Tensor, alive: Optional[torch.Tensor], w: int):
@@ -245,7 +381,8 @@ def vote_total_async(ballots: torch.Tensor, wire: str, group=None,
                      tally: Optional[WireTally] = None,
                      keep_ballots: bool = False,
                      hier: Optional[HierGroups] = None,
-                     alive: Optional[torch.Tensor] = None) -> PendingVote:
+                     alive: Optional[torch.Tensor] = None,
+                     count: Optional[int] = None) -> PendingVote:
     """Start the vote over int8 ±1 ``ballots`` ([n]); see the module doc.
     ``group`` is a process group, or None for a world of one without one.
     ``sign_psum`` at W <= 127 sums in place into ``ballots`` unless
@@ -254,7 +391,8 @@ def vote_total_async(ballots: torch.Tensor, wire: str, group=None,
     never write them. ``hier`` is the :class:`HierGroups` of a
     ``hier:<g>`` wire over ``group``, built here when not given. ``alive``
     masks the election (module doc); in a world of one an abstaining rank's
-    total is 0 everywhere (−1 elected), as on a one-device mesh."""
+    total is 0 everywhere (−1 elected), as on a one-device mesh. ``count``
+    (the optimizer step) feeds the hier wire's ``dcn_delay`` link only."""
     kind, size = parse_wire(wire)
     if group is None:
         if alive is not None:
@@ -268,7 +406,7 @@ def vote_total_async(ballots: torch.Tensor, wire: str, group=None,
             tally.record("ici", nbytes)
 
     if kind == "hier":
-        return _hier_vote(ballots, w, hier or HierGroups(group, size), tally, alive, group)
+        return _hier_vote(ballots, hier or HierGroups(group, size), tally, alive, group, count)
 
     if kind == "sign_psum":
         buf = ballots.to(torch.int8 if w <= 127 else torch.int32,
@@ -329,6 +467,8 @@ def vote_total(ballots: torch.Tensor, wire: str, group=None,
                tally: Optional[WireTally] = None,
                keep_ballots: bool = False,
                hier: Optional[HierGroups] = None,
-               alive: Optional[torch.Tensor] = None) -> torch.Tensor:
+               alive: Optional[torch.Tensor] = None,
+               count: Optional[int] = None) -> torch.Tensor:
     """Synchronous form of :func:`vote_total_async`."""
-    return vote_total_async(ballots, wire, group, tally, keep_ballots, hier, alive).wait()
+    return vote_total_async(ballots, wire, group, tally, keep_ballots, hier, alive,
+                            count).wait()

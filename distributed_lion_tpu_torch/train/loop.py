@@ -29,7 +29,17 @@ microbatches into the flat grad buffer and averaging them. With
 collective at all: the optimizer's vote is the only cross-rank traffic.
 With ``async_grad=False`` one ``all_reduce`` averages the flat grad buffer
 (DDP's all-reduce): the AdamW baseline (``lion=False``,
-``optim/optax_adapter.py``) runs so, as the reference's non-Lion branch.
+``optim/optax_adapter.py``) runs so, as the reference's non-Lion branch,
+and so does its ZeRO-1 form (``zero1``, ``optim/zero.py``: each rank keeps
+the float32 moments of its 1/W chunk and one all-gather reassembles the
+params; JAX loop.py:567-576 refuses it with ``lion`` or ``async_grad``).
+``dcn_pipeline_depth`` d > 0 pipelines a ``hier:<g>`` wire's cross-group
+leg over d steps (``optim.distributed_lion``); it needs ``lion`` and an
+explicitly named ``hier:<g>`` wire (JAX :590-611). Each logged row of a
+hier run carries ``dcn_overlap_frac``, and under the ``dcn_delay`` fault
+``dcn_wait_s``, the link's residual waits drained from
+``parallel.collectives.DCN_WAIT`` (a ``dcn_wait`` span on the
+``dcn-link`` thread under ``journal``, JAX :1715-1745).
 ``grad_clip_norm`` clips by the rank's global norm;
 unset, ``max_grad_norm`` (which selects stochastic binarization) clips,
 since the stochastic quantizer is unbiased only where ``|u| <= r``.
@@ -48,15 +58,21 @@ the JAX package's manifest and commit marker): every rank its own momentum
 own, the reference's resume keeps rank 0's only), rank 0 the params, the
 step and data counters, the world, the optimizer's count (device and host
 copies) and seed, under ``vote_every`` > 1 the replicated elected-sign
-cache, and with ``telemetry`` the vote-health accumulator. Under AdamW
-rank 0 writes the replicated count and moments instead of the momenta. At
+cache, with ``telemetry`` the vote-health accumulator, and under the DCN
+pipeline every rank its ring (``dcn_ring/rank<r>.pt``). Under AdamW rank 0
+writes the replicated count and moments instead of the momenta, and under
+ZeRO-1 every rank its chunks of them (``zero1/rank<r>.pt``). At
 construction it resumes from the newest step that verifies
 (``resume_from_checkpoint``), falling back past torn or uncommitted ones,
 and fails loudly when every candidate fails to restore. A checkpoint of
 another world size is refused unless ``elastic_resume``, which remaps the
 momenta (``optim.distributed_lion.remap_worker_momentum``; the elected
-cache and AdamW's state are replicated and pass through). A checkpoint of
-another ``vote_every`` is refused: its cache has another layout. The data
+cache is replicated and passes through); AdamW, ZeRO-1 and the DCN ring
+have no remap and refuse it (JAX loop.py:2309-2320). A checkpoint of
+another ``vote_every`` is refused: its cache has another layout; so is one
+of another ``dcn_pipeline_depth`` (JAX :2267-2285), whose ring holds
+another number of steps in flight, and a schedule that rejoins a worker at
+depth > 0 is refused when the trainer is built (JAX :881-894). The data
 iterator then skips the consumed batches (``skip``, else replay), and the
 restored count, host step count and seed make the dropout masks, the LR and
 the stochastic draws those of an uninterrupted run.
@@ -129,8 +145,8 @@ bytes) beside ``comm_bytes_per_step``, and ``host_step_skew`` (the ranks'
 step counters' spread over a gloo side group).
 
 ``TrainConfig`` holds only the fields the port runs, with their JAX
-defaults; the others (the parallel axes, ``--zero1``, …) are not flags
-here, so argparse refuses them.
+defaults; the others (the tensor, sequence, pipeline and expert axes,
+``--ep_dcn_pipeline``, …) are not flags here, so argparse refuses them.
 """
 
 from __future__ import annotations
@@ -150,7 +166,11 @@ import torch.distributed as dist
 from distributed_lion_tpu_torch.models.gpt2 import GPT2, GPT2Config, count_params, fold_seed
 from distributed_lion_tpu_torch.models.llama import Llama, LlamaConfig, as_parameters, llama_init
 from distributed_lion_tpu_torch.models.loss import clm_loss_and_metrics
-from distributed_lion_tpu_torch.ops.codec import vote_chunk_elems, wire_bytes_per_param
+from distributed_lion_tpu_torch.ops.codec import (
+    parse_wire,
+    vote_chunk_elems,
+    wire_bytes_per_param,
+)
 from distributed_lion_tpu_torch.ops.quant import map_tree
 from distributed_lion_tpu_torch.ops.xent import chunked_clm_loss_and_metrics
 from distributed_lion_tpu_torch.optim.distributed_lion import (
@@ -161,6 +181,7 @@ from distributed_lion_tpu_torch.optim.distributed_lion import (
 )
 from distributed_lion_tpu_torch.optim.lion import FlatParams, LionState, fresh_guard_state
 from distributed_lion_tpu_torch.optim.optax_adapter import AdamWState, adamw
+from distributed_lion_tpu_torch.optim.zero import Zero1State, adamw_zero1
 from distributed_lion_tpu_torch.parallel import collectives
 from distributed_lion_tpu_torch.parallel.mesh import rank_of, resolve_device
 from distributed_lion_tpu_torch.train import (
@@ -193,9 +214,11 @@ class TrainConfig:
 
     lion: bool = True
     async_grad: bool = True
+    zero1: bool = False  # AdamW only: each rank keeps the moments of its 1/W chunk (optim/zero.py)
     wire: str = "auto"  # 'auto' → resolve_auto_comm
     vote_every: int = 0  # 0 = auto (1); K > 1: lazy sign refresh, a 1/K slice a step
     vote_buckets: int = 0  # 0 = auto (resolve_auto_comm)
+    dcn_pipeline_depth: int = 0  # d > 0 (hier wire): consume the cross-group leg d steps later
     mom_dtype: str = ""  # Lion momentum dtype: '' = the param dtype, 'bfloat16'
     max_grad_norm: Optional[float] = None  # set → stochastic binarization
     grad_clip_norm: Optional[float] = None  # unset → clip at max_grad_norm
@@ -310,7 +333,19 @@ def make_optimizer(cfg: TrainConfig, group=None):
     """The reference's optimizer wiring (run_clm.py:580-585): ``--lion`` →
     majority-vote Lion under the configured schedule; otherwise AdamW
     (``optim/optax_adapter.py``, weight decay ``cfg.weight_decay``) over
-    synchronized grads."""
+    synchronized grads, with ``zero1`` its ZeRO-1 form (``optim/zero.py``).
+    The flag rules are the JAX package's (loop.py:563-611)."""
+    if cfg.zero1 and cfg.lion:
+        raise ValueError(
+            "--zero1 applies only to the AdamW path; with --lion the optimizer "
+            "state is the per-worker vote momentum, which ZeRO-1 sharding "
+            "would silently drop — drop one of the two flags")
+    if cfg.zero1 and cfg.async_grad:
+        raise ValueError(
+            "--zero1 requires synchronized gradients (async_grad=False): each "
+            "worker updates the Adam-state chunk it owns, so all workers must "
+            "see the same gradient for that chunk — with async_grad the "
+            "all_gather would stitch together chunk-wise single-worker updates")
     if cfg.telemetry and not cfg.lion:
         raise ValueError(
             "--telemetry instruments the majority-vote election; the AdamW "
@@ -319,12 +354,30 @@ def make_optimizer(cfg: TrainConfig, group=None):
         raise ValueError(
             "--vote_guard protects the majority-vote election; the AdamW "
             "path has no vote to guard — drop one of the two flags")
+    if cfg.dcn_pipeline_depth > 0:
+        if not cfg.lion:
+            raise ValueError(
+                "--dcn_pipeline_depth pipelines the vote wire; the AdamW "
+                "path has no vote collective — drop one of the two flags")
+        if cfg.wire == "auto":
+            raise ValueError(
+                f"--dcn_pipeline_depth {cfg.dcn_pipeline_depth} needs an "
+                "explicitly named hier wire, but the wire is the "
+                "unresolved 'auto' sentinel — pass --wire hier:<g>")
+        if parse_wire(cfg.wire)[0] != "hier":
+            raise ValueError(
+                f"--dcn_pipeline_depth {cfg.dcn_pipeline_depth} pipelines "
+                f"the hier wire's level-2 (DCN) leg, but the wire here is "
+                f"{cfg.wire!r} — a wire without a DCN leg has nothing to "
+                "overlap; pass --wire hier:<g>")
     if not cfg.lion:
         if cfg.async_grad:
             raise ValueError(
                 "--async_grad without --lion would let replicas diverge (no "
                 "grad sync and no vote); the reference silently permits this "
                 "broken combination — we refuse it")
+        if cfg.zero1:
+            return adamw_zero1(cfg.schedule(), weight_decay=cfg.weight_decay, group=group)
         return adamw(cfg.schedule(), weight_decay=cfg.weight_decay)
     return distributed_lion(
         cfg.schedule(), b1=cfg.beta1, b2=cfg.beta2,
@@ -333,6 +386,7 @@ def make_optimizer(cfg: TrainConfig, group=None):
         wire="sign_psum" if cfg.wire == "auto" else cfg.wire,
         vote_every=cfg.vote_every or 1, vote_buckets=cfg.vote_buckets or 1,
         mom_dtype=cfg.mom_dtype or None, telemetry=cfg.telemetry, guard=cfg.vote_guard,
+        dcn_pipeline_depth=cfg.dcn_pipeline_depth,
     )
 
 
@@ -392,6 +446,16 @@ ADAMW_FILE = "adamw.pt"  # AdamW's replicated moments
 
 def momentum_file(rank: int) -> str:
     return f"exp_avg/rank{rank:05d}.pt"
+
+
+def ring_file(rank: int) -> str:
+    """The DCN pipeline's in-flight slots of ``rank``."""
+    return f"dcn_ring/rank{rank:05d}.pt"
+
+
+def zero1_file(rank: int) -> str:
+    """ZeRO-1's moment chunks of ``rank``."""
+    return f"zero1/rank{rank:05d}.pt"
 
 
 def prev_ballot_file(rank: int) -> str:
@@ -466,24 +530,41 @@ def _announce(family: str, n: int, world: int, cfg: TrainConfig, device) -> None
     """The trainer's banner (JAX loop.py:2722-2731): params, world, and the
     vote wire with its bits per param per step."""
     if not cfg.lion:
-        emit(f"[trainer] {family} {n/1e6:.1f}M params | world={world} | AdamW, gradient "
-             f"all_reduce | device={device}")
+        emit(f"[trainer] {family} {n/1e6:.1f}M params | world={world} | AdamW"
+             + (" ZeRO-1" if cfg.zero1 else "") + f", gradient all_reduce | device={device}")
         return
     acct = wire_bytes_per_param(n, world, cfg.wire, vote_every=cfg.vote_every,
                                 accum_steps=cfg.gradient_accumulation_steps,
-                                vote_buckets=cfg.vote_buckets)
+                                vote_buckets=cfg.vote_buckets,
+                                dcn_pipeline_depth=cfg.dcn_pipeline_depth)
     emit(f"[trainer] {family} {n/1e6:.1f}M params | world={world} | vote wire={cfg.wire}"
          + (f" (vote_buckets={cfg.vote_buckets})" if cfg.vote_buckets > 1 else "")
          + (f" (vote_every={cfg.vote_every})" if cfg.vote_every > 1 else "")
-         + f": {acct['bits_per_param']:.2f} bits/param/step | device={device}")
+         + f": {acct['bits_per_param']:.2f} bits/param/step"
+         + (f" | DCN leg {acct['dcn_bits_per_param']:.3f} bits/param"
+            if "dcn_bits_per_param" in acct else "")
+         + (f" | DCN pipeline depth {cfg.dcn_pipeline_depth}"
+            if cfg.dcn_pipeline_depth > 0 else "")
+         + f" | device={device}")
 
 
 def announce_guards(trainer: "Trainer", prog: str) -> None:
-    """The CLIs' banner lines for the NaN sentinel, the vote guard (JAX
-    run_clm.py:454-466), the control plane and the run journal, on rank 0
-    (every rank journals them)."""
+    """The CLIs' banner lines for the DCN pipeline, ZeRO-1, the NaN
+    sentinel, the vote guard (JAX run_clm.py:454-466), the control plane and
+    the run journal, on rank 0 (every rank journals them)."""
     cfg = trainer.cfg
     say = trainer._emit
+    if cfg.dcn_pipeline_depth > 0:
+        d = cfg.dcn_pipeline_depth
+        say(f"[{prog}] DCN pipeline depth {d} on {cfg.wire}: each step applies the election of "
+            f"the ballots of {d} step(s) before, the first {d} step(s) decay only; "
+            f"{trainer.state.dcn_ring.numel():,} bytes of in-flight slots a rank"
+            + (f"; dcn_delay link {resilience.fault('dcn_delay')} s armed"
+               if resilience.fault("dcn_delay") else ""))
+    if cfg.zero1:
+        say(f"[{prog}] ZeRO-1: AdamW moments sharded over {trainer.world} rank(s), "
+            f"{8 * trainer.state.m.numel() / 1e6:.1f} MB of float32 state a rank (replicated: "
+            f"{8 * trainer.n_params / 1e6:.1f} MB)")
     if cfg.nan_sentinel:
         say(f"[{prog}] NaN sentinel armed: a non-finite loss or pre-clip grad norm "
             + (f"writes a crash bundle to {cfg.output_dir}/crash/step_<n>/bundle.json and "
@@ -572,9 +653,9 @@ class Trainer:
                                              journal=self.journal)
                        if cfg.lion else None)
         self._guard_pending = None  # (step, HostCopy of the observations, steps)
-        # the port runs no DCN pipeline (ROADMAP Queue 1 item 11): depth 0
         self._cplane = (control_plane.make_control_plane(
-            self._guard, self.world, cfg.rejoin_probe_steps, 0, journal=self.journal)
+            self._guard, self.world, cfg.rejoin_probe_steps, cfg.dcn_pipeline_depth,
+            journal=self.journal)
             if cfg.control_plane else None)
         if plane_armed:
             self._emit("[trainer] control plane: --vote_guard auto-armed to 'enforce' (the "
@@ -586,6 +667,14 @@ class Trainer:
             if bad:
                 raise ValueError(f"--inject_membership names worker(s) {bad} outside world "
                                  f"{self.world}: {cfg.inject_membership!r}")
+            if cfg.dcn_pipeline_depth > 0 and any(k == "worker_rejoin" for k, _, _ in sched):
+                # the elastic-resume depth rule, at construction
+                raise ValueError(
+                    "--inject_membership schedules a worker_rejoin but "
+                    f"--dcn_pipeline_depth {cfg.dcn_pipeline_depth} > 0: "
+                    "the in-flight DCN tally ring cannot re-absorb a "
+                    "worker mid-flight (the same reason --elastic_resume "
+                    "refuses depth > 0). Run the rejoin at depth 0")
             resilience.inject_fault("membership", sched)
             self._emit(f"[trainer] FAULT INJECTION armed: membership {cfg.inject_membership!r}")
         if cfg.inject_poison:
@@ -675,7 +764,8 @@ class Trainer:
         is the dense ``llama_apply`` one, or with ``vocab_chunks`` the final
         hidden states against the untied ``lm_head`` in its ``[d, V]``
         layout (``"dv"``). The model has no dropout. The tensor, sequence,
-        pipeline and expert axes are not ported (ROADMAP Queue 1 item 11)."""
+        pipeline and expert axes are not ported (ROADMAP Queue 1 item 11(c)
+        on)."""
         device = resolve_device(device)
         # no reference to the initial tensors outlives the parameters: the
         # flat buffers take their place (at Llama-3-8B, 16 GB)
@@ -707,7 +797,8 @@ class Trainer:
         return comm_report(self.n_params, self.world, cfg.wire, steps_per_sec,
                            vote_every=cfg.vote_every,
                            accum_steps=cfg.gradient_accumulation_steps,
-                           vote_buckets=cfg.vote_buckets or 1)
+                           vote_buckets=cfg.vote_buckets or 1,
+                           dcn_pipeline_depth=cfg.dcn_pipeline_depth)
 
     def global_train_batch(self) -> int:
         return (self.world * self.cfg.per_device_train_batch_size
@@ -905,6 +996,19 @@ class Trainer:
                     m["comm_bytes_per_step"] = comm["comm_bytes_per_step"]
                     m["comm_mbytes_per_sec"] = comm.get("comm_mbytes_per_sec", 0.0)
                     m["comm_overlap_frac"] = comm.get("comm_overlap_frac", 0.0)
+                    if "dcn_overlap_frac" in comm:
+                        m["dcn_overlap_frac"] = comm["dcn_overlap_frac"]
+                dcn_waits = collectives.DCN_WAIT.pop()
+                if dcn_waits:
+                    # the emulated link's unhidden waits this interval (the
+                    # dcn_delay fault only)
+                    wait_s = sum(dcn_waits.values())
+                    m["dcn_wait_s"] = wait_s
+                    if cfg.journal:
+                        # paid inside the step: run_analyze leaves the
+                        # dcn-link thread out of the step attribution
+                        jr.record({"kind": "span", "name": "dcn_wait", "dur": round(wait_s, 9),
+                                   "step": self.step_count, "thread": "dcn-link"})
                 hbm = peak_hbm_gb() if self.device.type == "cuda" else None
                 if hbm is not None:
                     m["peak_hbm_gb"] = hbm
@@ -1141,13 +1245,17 @@ class Trainer:
             counts["exp_avg"] = telemetry.nonfinite_leaf_counts(self.flat, self.state.exp_avg)
             if self.group is not None:
                 dist.all_reduce(counts["exp_avg"], group=self.group)
+        elif isinstance(self.state, Zero1State):  # the chunks, gathered to the flat layout
+            for key in ("m", "v"):
+                counts[key] = telemetry.nonfinite_leaf_counts(
+                    self.flat, self._zero1_full(getattr(self.state, key)))
         else:  # AdamW: the replicated moments
             counts["mu"] = telemetry.nonfinite_leaf_counts(self.flat, self.state.mu)
             counts["nu"] = telemetry.nonfinite_leaf_counts(self.flat, self.state.nu)
         crash_dir = os.path.join(self.cfg.output_dir, "crash", f"step_{step:08d}")
         if self.rank == 0:
             opt = {}
-            for key in ("exp_avg", "mu", "nu"):
+            for key in ("exp_avg", "mu", "nu", "m", "v"):
                 if key in counts:
                     opt.update(telemetry.nonfinite_leaf_report(self.flat.names, counts[key],
                                                                prefix=f".{key}"))
@@ -1161,6 +1269,14 @@ class Trainer:
                 journal_tail=self.journal.tail())
             self._emit(f"[trainer] crash bundle written to {crash_dir}")
         return crash_dir
+
+    def _zero1_full(self, chunk: torch.Tensor) -> torch.Tensor:
+        """A ZeRO-1 moment's chunks of every rank as one flat vector."""
+        if self.group is None:
+            return chunk[:self.n_params]
+        full = chunk.new_empty(self.world * chunk.numel())
+        collectives._all_gather(full, chunk, group=self.group)
+        return full[:self.n_params]
 
     @torch.no_grad()
     def evaluate(self, eval_blocks) -> dict:
@@ -1194,22 +1310,27 @@ class Trainer:
 
     # ------------------------------------------------------------ checkpoints
     def _payload(self) -> dict:
-        """This rank's files of a checkpoint: its momentum, and on rank 0 the
-        params, the counters and the vote-health accumulator."""
+        """This rank's files of a checkpoint: its momentum (its guard ballot
+        and DCN ring), or its ZeRO-1 chunks, and on rank 0 the params, the
+        counters and the vote-health accumulator."""
         st = self.state
-        adam = isinstance(st, AdamWState)
+        adam = not isinstance(st, LionState)
         files = {} if adam else {momentum_file(self.rank): st.exp_avg}
         if not adam and st.prev_ballot is not None:
             files[prev_ballot_file(self.rank)] = st.prev_ballot
+        if not adam and st.dcn_ring is not None:
+            files[ring_file(self.rank)] = st.dcn_ring
+        if isinstance(st, Zero1State):
+            files[zero1_file(self.rank)] = {"m": st.m, "v": st.v}
         if self.rank == 0:
             files[PARAMS_FILE] = {"names": list(self.flat.names),
                                   "shapes": [list(s) for s in self.flat.shapes],
                                   "flat": self.flat.params}
             files[STATE_FILE] = {"step": self.step_count, "batches_consumed": self.step_count,
                                  "world": self.world, "count": st.count}
-            if adam:
+            if isinstance(st, AdamWState):
                 files[ADAMW_FILE] = {"mu": st.mu, "nu": st.nu}
-            else:
+            elif not adam:
                 files[STATE_FILE].update(steps=int(st.steps), seed=self.opt.seed)
                 if st.elected is not None:
                     files[STATE_FILE]["elected"] = st.elected
@@ -1230,7 +1351,8 @@ class Trainer:
                 "batches_consumed": self.step_count,
                 "has_vote_health": self.vote_health is not None,
                 "has_guard": self._guard is not None,
-                "wire": cfg.wire, "vote_every": cfg.vote_every, "dcn_pipeline_depth": 0,
+                "wire": cfg.wire, "vote_every": cfg.vote_every,
+                "dcn_pipeline_depth": cfg.dcn_pipeline_depth,
                 "ep_dcn_pipeline": 0, "control_plane": self._cplane is not None,
                 **self.data_meta}
         if self._cplane is not None:
@@ -1269,6 +1391,17 @@ class Trainer:
                                     self.state.nu)
             self._restored_counters(state)
             return
+        if isinstance(self.state, Zero1State):
+            chunks = ck.restore(step, zero1_file(self.rank))
+            self._check_like(step, "ZeRO-1 moment chunks", [chunks["m"], chunks["v"]],
+                             [self.state.m, self.state.v])
+            with torch.no_grad():
+                self.flat.params.copy_(flat)
+                self.state.m.copy_(chunks["m"])
+                self.state.v.copy_(chunks["v"])
+            self.state = Zero1State(state["count"].to(self.device), self.state.m, self.state.v)
+            self._restored_counters(state)
+            return
         # the checkpoint's health mask (a guard on when it was written)
         health = state.get("health") if meta.get("has_guard", "health" in state) else None
         if ckpt_world == self.world:
@@ -1301,6 +1434,11 @@ class Trainer:
             if elected is None:
                 raise ValueError(f"checkpoint step {step} holds no elected-sign cache")
             self._check_like(step, "elected-sign cache", [elected], [self.state.elected])
+        ring = None
+        if self.state.dcn_ring is not None:  # the same world: an elastic resume refused it
+            ring = ck.restore(step, ring_file(self.rank))
+            self._check_like(step, "DCN ring", [ring], [self.state.dcn_ring])
+            ring = ring.to(self.device)
         vh = None
         ckpt_ve = int(meta.get("vote_every", cfg.vote_every or 1) or 1)
         if (ckpt_world == self.world and self.vote_health is not None
@@ -1314,7 +1452,8 @@ class Trainer:
             self.state.exp_avg.copy_(mom)
         self.state = LionState(state["count"].to(self.device), self.state.exp_avg,
                                int(state["steps"]),
-                               None if elected is None else elected.to(self.device), **guard)
+                               None if elected is None else elected.to(self.device), **guard,
+                               dcn_ring=ring)
         self.opt.seed = state["seed"]  # the stochastic draws', as JAX restores its key
         if self._guard is not None:
             mask = guard["health"].cpu().numpy()
@@ -1374,10 +1513,23 @@ class Trainer:
         for step in candidates:
             meta = metas[step]
             ckpt_world = int(meta.get("world", self.world))
-            for key in ("dcn_pipeline_depth", "ep_dcn_pipeline"):
-                if int(meta.get(key, 0) or 0):
-                    raise ValueError(f"checkpoint step {step} was written at --{key} "
-                                     f"{meta[key]}; the port runs 0 (ROADMAP Queue 1 item 11)")
+            if meta:
+                # the ring's slots are the depth's in-flight steps: no remap
+                ckpt_depth = int(meta.get("dcn_pipeline_depth", 0) or 0)
+                if ckpt_depth != cfg.dcn_pipeline_depth:
+                    raise ValueError(
+                        f"checkpoint step {step} was written at "
+                        f"--dcn_pipeline_depth {ckpt_depth} but this run "
+                        f"uses {cfg.dcn_pipeline_depth}: the in-flight"
+                        " DCN tally ring does not survive a depth change. "
+                        "Resume with the matching depth (then change it at "
+                        "the NEXT fresh start), or point --output_dir "
+                        "elsewhere")
+                if int(meta.get("ep_dcn_pipeline", 0) or 0):
+                    raise ValueError(
+                        f"checkpoint step {step} was written at --ep_dcn_pipeline "
+                        f"{meta['ep_dcn_pipeline']}; the port has no expert axis "
+                        "(ROADMAP Queue 1 item 11(e))")
             ckpt_ve = int(meta.get("vote_every", 0) or 0)  # 0: not recorded
             if cfg.lion and ckpt_ve and ckpt_ve != (cfg.vote_every or 1):
                 raise ValueError(
@@ -1390,6 +1542,19 @@ class Trainer:
                     f"checkpoint step {step} holds momenta for world={ckpt_world} but this run "
                     f"has world={self.world}; pass --elastic_resume to remap them (or match "
                     "the rank count)")
+            if ckpt_world != self.world and not cfg.lion:
+                raise NotImplementedError(
+                    "--elastic_resume remaps the stacked per-worker "
+                    "Lion momenta; the AdamW/ZeRO-1 states have no "
+                    "defined remap")
+            if ckpt_world != self.world and cfg.dcn_pipeline_depth > 0:
+                raise NotImplementedError(
+                    "--elastic_resume cannot remap the DCN pipeline "
+                    "ring: its slots are in-flight level-2 tallies "
+                    "whose chunk ownership and group count are "
+                    "functions of the world size. Resume at the "
+                    "original world (drain the pipeline), or restart "
+                    "with --dcn_pipeline_depth 0")
             error = None
             try:
                 self._restore_step(step, meta, ckpt_world)
@@ -1412,7 +1577,12 @@ class Trainer:
             raise RuntimeError(
                 f"resume_from_checkpoint: all {len(candidates)} verified checkpoint(s) (steps "
                 f"{candidates}) failed to restore into this run's state: likely a model or "
-                "optimizer config change since they were written. Refusing to silently "
+                "optimizer config change since they were written"
+                + (f" (this run's --dcn_pipeline_depth {cfg.dcn_pipeline_depth} is one "
+                   "candidate: a checkpoint without manifest meta cannot be depth-checked up "
+                   "front, and the DCN ring does not survive a depth change)"
+                   if cfg.dcn_pipeline_depth > 0 else "")
+                + ". Refusing to silently "
                 "restart from step 0; pass --resume_from_checkpoint false (or point "
                 "--output_dir elsewhere) to start fresh")
 

@@ -143,13 +143,15 @@ def peak_hbm_gb() -> Optional[float]:
 def comm_report(num_params: int, world: int, wire: str,
                 steps_per_sec: Optional[float] = None,
                 vote_every: int = 1, accum_steps: int = 1,
-                vote_buckets: int = 1) -> dict:
-    """The vote collective's wire accounting, the JAX package's keys (at
-    ``dcn_pipeline_depth`` 0), and its rate when ``steps_per_sec`` is
-    known. ``comm_overlap_frac`` is the analytic share of the wire that
-    bucketing lets ride behind the previous bucket's apply."""
+                vote_buckets: int = 1, dcn_pipeline_depth: int = 0) -> dict:
+    """The vote collective's wire accounting, the JAX package's keys, and
+    its rate when ``steps_per_sec`` is known. ``comm_overlap_frac`` is the
+    analytic share of the wire that bucketing lets ride behind the previous
+    bucket's apply; on the hier wire ``dcn_overlap_frac`` the share of the
+    cross-group leg's latency the DCN pipeline takes off the step."""
     acct = wire_bytes_per_param(num_params, world, wire, vote_every=vote_every,
-                                accum_steps=accum_steps, vote_buckets=vote_buckets)
+                                accum_steps=accum_steps, vote_buckets=vote_buckets,
+                                dcn_pipeline_depth=dcn_pipeline_depth)
     out = {
         "wire": acct["wire"],
         "comm_bytes_per_step": acct["bytes_per_step"],

@@ -19,7 +19,15 @@ package. Four parts:
   ``ckpt_crash_before_marker`` (bool: the commit dies before that file
   lands), ``ckpt_slow_commit`` (float: seconds the commit stalls);
   ``journal_torn_write`` (int: the next N writes of the run journal's
-  sink tear mid-line, ``train/journal.py``); ``ballot_poison`` (the
+  sink tear mid-line, ``train/journal.py``); ``dcn_delay`` (float: the
+  seconds of round trip the hier wire's cross-group leg is emulated to
+  take, read at every launch and consume by ``parallel.collectives``: the
+  launch stamps the host clock per optimizer step, the consume sleeps until
+  stamp + delay, so the steps run between them (the
+  ``dcn_pipeline_depth`` window) count toward it and only the unhidden
+  rest is paid, recorded in ``collectives.DCN_WAIT``; it changes timing
+  only. Arm it before the trainer is built, and call
+  ``collectives.dcn_link_reset()`` between measured runs); ``ballot_poison`` (the
   ``(kind, worker, start_step)`` of :func:`parse_poison`, the
   ``--inject_poison`` flag, read by the trainer's step); ``membership``
   (the ``(kind, worker, step)`` list of :func:`parse_membership_specs`,
@@ -33,8 +41,6 @@ package. Four parts:
 - :class:`PreemptionGuard`, the SIGTERM flag the trainer checks at every
   step boundary (``--on_preempt save_exit``), which journals the
   ``preempt_drain`` event when the loop first sees it.
-
-Not ported yet (ROADMAP Queue 1 item 11): ``dcn_delay``.
 """
 
 from __future__ import annotations

@@ -25,8 +25,9 @@ clean run; everything else of the port against itself is ``torch.equal``.
   refusal; strict-JSON metrics;
 - the trainer's flag rules and the CLIs' flags.
 
-The spawn also runs the wire-ledger cases of ``tests/test_torch_wire_ledger.py``,
-and the JAX trainer's journal of the pin is read by
+The spawn also runs the wire-ledger cases of ``tests/test_torch_wire_ledger.py``
+and the W = 4 cases of ``tests/test_torch_dcn_pipeline.py`` and
+``tests/test_torch_zero.py``, and the JAX trainer's journal of the pin is read by
 ``tests/test_torch_run_analyze.py``: :func:`shared_run` runs each once per
 test session, whichever module (or xdist worker) asks first, under a file
 lock. jax is imported inside the tests only, so the spawned ranks import
@@ -287,6 +288,13 @@ def _work(rank, out):
         _train(_cfg(6, 4, outdir=f"{out}/metrics", control_plane=True,
                     inject_membership="worker_drop:3:1"), world)
         res["ledger"] = _ledger_cases(world)
+        # the DCN pipeline's and ZeRO-1's W = 4 cases
+        from test_torch_dcn_pipeline import rank_cases as dcn_cases
+        from test_torch_zero import rank_cases as zero_cases
+
+        res["dcn"] = dcn_cases(world, out)
+        resilience.clear_faults()
+        res["zero"] = zero_cases(world, out)
         with open(f"{out}/rank{rank}.json", "w") as f:
             json.dump(res, f)
     finally:

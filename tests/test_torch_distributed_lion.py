@@ -109,9 +109,11 @@ def test_one_rank_group_runs_the_wire(tmp_path, wire):
 
 
 def test_refused_options_name_their_roadmap_item():
-    for kw, item in ((dict(dcn_pipeline_depth=1), "Queue 1 item 11"),):
-        with pytest.raises(NotImplementedError, match=item):
-            distributed_lion(0.01, **kw)
+    # the DCN pipeline is ported: it builds on a hier wire and is refused,
+    # as in the JAX package, on a wire without a cross-group leg
+    assert distributed_lion(0.01, wire="hier:1", dcn_pipeline_depth=1).depth == 1
+    with pytest.raises(ValueError, match="has no such leg"):
+        distributed_lion(0.01, dcn_pipeline_depth=1)
     assert distributed_lion(0.01, guard="enforce").guard == "enforce"  # ported: it builds
     assert distributed_lion(0.01, vote_every=4).vote_every == 4  # ported: it builds
     assert distributed_lion(0.01, telemetry=True).telemetry  # ported: no longer refused

@@ -171,3 +171,19 @@ def test_the_journal_and_control_plane_modules_are_among_the_checked_files():
         allowed = ("distributed_lion_tpu_torch", "__future__", "numpy")
         assert all(m.split(".")[0] in allowed or m.split(".")[0] in sys.stdlib_module_names
                    for m in imported), (rel, imported)
+
+
+def test_the_zero1_and_dcn_pipeline_modules_are_among_the_checked_files():
+    """ZeRO-1 (``optim/zero.py``, a copy of the JAX module's math, which the
+    port must not import) and the modules the DCN pipeline changed (the
+    codec's ring sizes, the wire's launch and consume, the ring in the
+    state, the optimizer, the fault registry, the trainer) are in the file
+    list the checks above walk."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
+    assert {"optim/zero.py", "ops/codec.py", "parallel/collectives.py", "optim/lion.py",
+            "optim/distributed_lion.py", "train/resilience.py", "train/loop.py"} <= files
+    tree = ast.parse((PORT / "optim/zero.py").read_text())
+    imported = {n.module or "" for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)}
+    imported |= {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
+    assert all(m.split(".")[0] in ("distributed_lion_tpu_torch", "__future__", "torch")
+               or m.split(".")[0] in sys.stdlib_module_names for m in imported), imported

@@ -1,8 +1,8 @@
 """``train/profiling.py`` against the JAX package's ``train/profiling.py``.
 
 Tolerances: exact. ``StepTimer`` from the same clock readings gives JAX's
-stats; ``comm_report`` gives JAX's dict (at ``dcn_pipeline_depth`` 0) for
-every wire; ``StepProfiler`` traces its window (``torch.profiler`` on the
+stats; ``comm_report`` gives JAX's dict for every wire, at
+``dcn_pipeline_depth`` 0 and 2; ``StepProfiler`` traces its window (``torch.profiler`` on the
 CPU), anchored at the first step it sees past ``start_step`` as a
 resumed run reaches it, and writes nothing without a ``trace_dir``.
 """
@@ -41,7 +41,8 @@ def test_comm_report_equals_jax(wire):
     from distributed_lion_tpu.train.profiling import comm_report as j_comm_report
 
     for world, kw in ((2, {}), (4, dict(vote_every=4, accum_steps=2)),
-                      (8, dict(vote_buckets=4, steps_per_sec=3.5))):
+                      (8, dict(vote_buckets=4, steps_per_sec=3.5)),
+                      (8, dict(vote_buckets=3, dcn_pipeline_depth=2))):
         assert comm_report(124_439_808, world, wire, **kw) == \
             j_comm_report(124_439_808, world, wire, **kw), (world, kw)
 
