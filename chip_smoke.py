@@ -212,8 +212,36 @@ Phases (none of their failures is caught; any one fails the run):
    ``torch.equal`` to zero.py's formula in plain ops over the full vector
    from the step's averaged grads; ``m`` and ``v`` float32 [31,109,952] a
    rank; finite losses; no optimizer kernel and (f)'s flash launches; the
-   state's bytes a rank printed beside the replicated AdamW's 995.5 MB. It
-   prints the step times and each rank's buckets.
+   state's bytes a rank printed beside the replicated AdamW's 995.5 MB.
+   Runs (s1), (s2), (t) and (u), tensor parallelism, ride it too, as dp 2 x
+   tp 2 (global rank r is data rank r // 2, tensor rank r % 2), 3 steps each
+   on ``sign_psum``: (s1) ``run_clm`` GPT-2 124M at full width, T 1024,
+   ``--dropout 0 --tensor_parallel 2``, B 2 x 1 (81,940,224 coordinates a
+   rank); (s2) (s1) + ``--tp_vocab --vocab_pad_multiple 64`` (62,659,584);
+   (t) ``run_sft`` at Llama-2-7B's widths and vocabulary (d 4096, 32 heads,
+   d_ff 11008, 32,000 rows) cut to 4 layers, NF4 base, LoRA r 8 on wq/wv, B
+   2 x T 1024; (u) ``run_clm --model_family llama`` at Llama-3-8B's widths
+   cut to 2 layers, bfloat16 params, T 2048, ``--tensor_parallel 2
+   --tp_vocab``, B 1 x 1 (the depth cut through ``llama_cut``: the CLIs have
+   no depth flag). Under a ``TPWatch`` on every rank: the replicated leaves
+   ``torch.equal`` across the tensor ranks after every step and the losses
+   equal across them; up to 2e8 coordinates every step's params and
+   momentum ``torch.equal`` to the plain apply of the plain election of the
+   data group's gathered ballots, and the params equal across the data
+   ranks; dp x tp == dp at step 1, and (t)'s at step 3 (B is zero until a
+   step with lr > 0 moves it, and the warmup's lr is 0 at step 1, so A's
+   gradient is zero at steps 1 and 2): the momentum step ``(1 - b2)·g`` gathered
+   over the tensor group into the whole leaves against the unsplit model's
+   gradient on the same microbatch and weights (through
+   ``attention_xla``), per-leaf median ratio within 1e-2 of 1 on every
+   leaf (a leaf without a nonzero gradient fails), the largest difference
+   and the share of equal ballots printed; (t)'s NF4 codes and
+   absmax ``torch.equal`` to the slices of the whole quantized base; each
+   rank's kernel launches against their formulas; peak device memory a
+   rank. The kernel phase holds the optimizer kernels at these runs'
+   windows and the flash kernels at their shapes (H 6 hd 64 with the q, k,
+   v views of the rank's projection; H 16 hd 128 at T 1024 and at T 2048).
+   It prints the step times and each rank's buckets.
 6. Run (g), resume on the card, in the 1-rank NCCL group: the repo's
    ``*.md`` files go through the port's GPT-2 BPE (``runs/parity/tok``,
    its C++ merge core, which must build) into a uint16 ``bin:`` shard, read
@@ -355,7 +383,9 @@ the ``_p_bf16`` ones, p, g and m bfloat16, run (k)'s); the last line is
 """
 
 import concurrent.futures
+import contextlib
 import dataclasses
+import gc
 import hashlib
 import json
 import math
@@ -387,11 +417,12 @@ from distributed_lion_tpu_torch.data.hf_tokenizer_json import TokenizerJSON, bpe
 from distributed_lion_tpu_torch.data.tokenizer import ByteTokenizer
 from distributed_lion_tpu_torch.models import hf_export, hf_import
 from distributed_lion_tpu_torch.models.gpt2 import GPT2, GPT2Config
-from distributed_lion_tpu_torch.models.llama import LlamaConfig, llama_init
+from distributed_lion_tpu_torch.models.llama import Llama, LlamaConfig, as_parameters, llama_init
 from distributed_lion_tpu_torch.models.loss import clm_loss_and_metrics
 from distributed_lion_tpu_torch.models.lora import (
     DPO_TARGET_PATTERNS,
     LoraConfig,
+    apply_adapters,
     iter_paths,
     lora_init,
     merge_lora,
@@ -414,6 +445,7 @@ from distributed_lion_tpu_torch.optim.lion import FlatParams, resolve_lr
 from distributed_lion_tpu_torch.optim.optax_adapter import adamw
 from distributed_lion_tpu_torch.optim.zero import AdamWZero1, Zero1State, zero1_chunk
 from distributed_lion_tpu_torch.parallel import collectives
+from distributed_lion_tpu_torch.parallel import tensor_parallel as tpar
 from distributed_lion_tpu_torch.train import journal, resilience, vote_guard
 from distributed_lion_tpu_torch.train import loop as train_loop
 from distributed_lion_tpu_torch.train.checkpoint import Checkpointer
@@ -443,8 +475,12 @@ FLASH_SMALL = ((2, 3, 40), (2, 3, 130))  # (B, H, T): shorter than one tile, one
 # run (j)'s DPO microbatch is B 2 at head_dim 128: one more shape there
 # run (k)'s (Llama-3-8B, GQA): B 1 at T 2048, q, k and v all contiguous
 # (repeat_interleave makes k and v new tensors)
-FLASH_CASES = ((64, 8, 12, 1024, (1000,), "qkv", ()),
-               (128, 4, 32, 1024, (2048, 1000), "v", ((2, 32, 1024), (1, 32, 2048, ""))))
+# the tensor-parallel runs' shapes: (s1)'s B 2 at H 6 (q, k, v views of the
+# rank's [d, 3, d/2] projection: a T stride of 2,304 bytes), (t)'s B 2 at H
+# 16, (u)'s B 1 at H 16 from 4 kv heads at T 2048
+FLASH_CASES = ((64, 8, 12, 1024, (1000,), "qkv", ((2, 6, 1024),)),
+               (128, 4, 32, 1024, (2048, 1000), "v", ((2, 32, 1024), (1, 32, 2048, ""),
+                                                      (2, 16, 1024), (1, 16, 2048, ""))))
 STEPS = 3
 ACCUM = 2
 EVAL_BATCHES = 2
@@ -520,6 +556,45 @@ Q1_SLOT_ONE_BUCKET = 15_554_978   # hier_ring_slot_bytes(N_MAIN, 4, 2) at one bu
 R_ARGS = [a for a in W4_ARGS if a not in ("--lion", "--async_grad", "--telemetry")] + [
     "--lion", "false", "--async_grad", "false", "--zero1"]
 R_STEPS = 3
+# runs (s1), (s2), (t), (u): tensor parallelism in the same spawn, dp 2 x tp 2
+# (global rank r: data rank r // 2, tensor rank r % 2), S_STEPS steps each
+TP, S_STEPS = 2, 3
+S1_ARGS = ["--model_name", "gpt2_124m", "--dataset", "synthetic", "--synthetic_blocks", "64",
+           "--lion", "--async_grad", "--wire", "sign_psum", "--per_device_train_batch_size",
+           "2", "--gradient_accumulation_steps", "1", "--block_size", "1024",
+           "--max_steps", str(S_STEPS), "--logging_steps", "1", "--dropout", "0",
+           "--lr_scheduler_type", "constant", "--tensor_parallel", str(TP)]
+S2_ARGS = S1_ARGS + ["--tp_vocab", "--vocab_pad_multiple", "64"]
+S_EVAL = 1   # (s1), (s2): 3 held-out blocks over 2 data ranks, one eval batch
+# (t): Llama-2-7B's widths and vocabulary, the depth cut to T_LAYERS
+T_MODEL, T_LAYERS, T_VOCAB = "llama2_7b", 4, 32_000
+T_ARGS = ["--model_name", T_MODEL, "--quant", "nf4", "--attn_impl", "flash",
+          "--seq_length", "1024", "--per_device_train_batch_size", "2",
+          "--gradient_accumulation_steps", "1", "--max_steps", str(S_STEPS), "--logging_steps",
+          "1", "--lion", "--async_grad", "--wire", "sign_psum", "--tensor_parallel", str(TP),
+          "--per_device_eval_batch_size", "2", "--eval_iters", "1"]
+T_LORA = dict(r=8, alpha=16, dropout=0.05)   # run_sft's defaults
+# (u): Llama-3-8B's widths, the depth cut to U_LAYERS, the head split by vocabulary
+U_LAYERS, U_T = 2, 2048
+U_ARGS = ["--model_family", "llama", "--model_name", "llama3_8b", "--param_dtype", "bfloat16",
+          "--compute_dtype", "bfloat16", "--dropout", "0", "--block_size", str(U_T),
+          "--per_device_train_batch_size", "1", "--gradient_accumulation_steps", "1",
+          "--max_steps", str(S_STEPS), "--logging_steps", "1", "--dataset", "synthetic",
+          "--synthetic_blocks", "16", "--lion", "--async_grad", "--wire", "sign_psum",
+          "--lr_scheduler_type", "constant", "--tensor_parallel", str(TP), "--tp_vocab"]
+# each rank's flat coordinates (reckoned from the leaf shapes): GPT-2 124M at
+# tp 2 (the 50,257-row table replicated; with --tp_vocab half of 50,304
+# padded rows), (t)'s adapters (A [4096, 8] whole, B [8, 2048] a rank, on
+# wq and wv of 4 blocks), (u)'s Llama-3-8B slices (wte whole, half the
+# lm_head, half of each block's projections)
+N_TP = 81_940_224
+N_TP_VOCAB = 62_659_584
+N_TP_SFT = T_LAYERS * 2 * (4096 * 8 + 8 * 2048)
+N_TP_LLAMA3 = 525_336_576 + 262_668_288 + 4096 + U_LAYERS * 109_060_096
+TP_DEVICE = "cuda"   # where (t)'s whole base is made
+MEDIAN_COORDS = 1 << 24   # the coordinates a leaf's median ratio is taken over, at most
+MEDIAN_TOL = 1e-2   # dp x tp == dp: per-leaf median momentum ratio (tests/test_tp_vocab.py)
+PLAIN_APPLY_MAX = 200_000_000   # coordinates up to which the watch re-applies in plain ops
 RUNS = 25
 AHEAD_CYCLES = 50_000_000   # about 30 ms of the card's clock: the host queues the timed calls
 
@@ -551,6 +626,11 @@ KERNELS = (*OPT_KERNELS, *FLASH, *(f"{k}_hd128" for k in FLASH))
 # (params, momentum) dtypes the kernel phase holds the optimizer kernels at
 MOM_BF16 = (torch.float32, torch.bfloat16)
 DTYPE_PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16), MOM_BF16)
+# the tensor-parallel runs' windows, at their runs' dtypes
+TP_DTYPES = {N_TP: ((torch.float32, torch.float32),),
+             N_TP_VOCAB: ((torch.float32, torch.float32),),
+             N_TP_SFT: ((torch.float32, torch.float32),),
+             N_TP_LLAMA3: ((torch.bfloat16, torch.bfloat16),)}
 # the optimizer kernels' wrappers count in ``.launches``; the flash
 # wrappers per head_dim in ``.by_head_dim``
 WRAPPERS = {"fused_ballots": fused_lion.fused_ballots, "fused_apply": fused_lion.fused_apply,
@@ -694,14 +774,16 @@ def build_cuda_kernels() -> dict:
     return regs
 
 
-def optimizer_kernel_phase(gen, rates):
-    """Compare and time the two Triton kernels and the stats kernel;
-    returns per-kernel records at the main path's shape (float32, int8
-    tally) and the max error over all cases."""
+def optimizer_kernel_phase(gen, rates, ns=(N_MAIN, N_SFT, N_DPO, N_RAGGED, *TP_DTYPES),
+                           big: bool = True):
+    """Compare and time the two Triton kernels and the stats kernel at each
+    window of ``ns`` (and with ``big`` the 2³¹ + 4097 window); returns
+    per-kernel records at the main path's shape (float32, int8 tally) and
+    the max error over all cases."""
     rec = {}
     err = dict.fromkeys(OPT_KERNELS, 0.0)
-    for n in (N_MAIN, N_SFT, N_DPO, N_RAGGED):
-        for pdt, mdt in DTYPE_PAIRS:
+    for n in ns:
+        for pdt, mdt in TP_DTYPES.get(n, DTYPE_PAIRS):
             if (pdt, mdt) == MOM_BF16 and n in (N_SFT, N_DPO):
                 continue   # bf16 momentum under float32 params: GPT-2's run (h2)
             suffix = {MOM_BF16: "_mom_bf16", (torch.bfloat16, torch.bfloat16): "_p_bf16"}.get(
@@ -763,9 +845,11 @@ def optimizer_kernel_phase(gen, rates):
             del g, m, p
             torch.cuda.empty_cache()
 
-        stats_cases(gen, rates, n, rec, err)
+        if n not in TP_DTYPES:   # no stats kernel under a tensor axis (no telemetry)
+            stats_cases(gen, rates, n, rec, err)
         torch.cuda.empty_cache()
-    big_window_check(gen, err)
+    if big:
+        big_window_check(gen, err)
     return rec, err
 
 
@@ -2319,6 +2403,342 @@ def r_report(rec: dict, card: str) -> None:
           f"launches {rec['launches']}", flush=True)
 
 
+@contextlib.contextmanager
+def llama_cut(**over):
+    """``LlamaConfig.named`` gives its preset with ``over`` replaced (the
+    depth a run is cut to, the vocabulary) while the block runs: the CLIs
+    have no flag for the depth."""
+    named = LlamaConfig.__dict__["named"]
+    LlamaConfig.named = classmethod(
+        lambda cls, name, **kw: dataclasses.replace(named.__func__(cls, name, **kw), **over))
+    try:
+        yield
+    finally:
+        LlamaConfig.named = named
+
+
+def adapter_dim(name: str):
+    """The tensor split of adapter factor ``path/A`` or ``path/B`` over a
+    Llama base (``models.lora.lora_adapter_specs``)."""
+    path, factor = name.rsplit("/", 1)
+    dim = tpar.llama_shard_dim(path)
+    if factor == "A":
+        return 0 if dim == 0 else None
+    return dim if dim is not None and dim >= 1 else None
+
+
+def dense_grad(trainer, local, whole: torch.Tensor, sft: Optional[dict]) -> list:
+    """The unsplit model's gradient on this data rank's microbatch ``local``
+    at the whole-leaf params ``whole`` (the trainer's flat order), one
+    tensor a leaf: GPT-2 or Llama with every leaf a parameter (Llama's
+    views of ``whole``), or the LoRA adapters over the whole NF4 base
+    ``sft["base"]`` with this step's adapter-dropout seed. Its attention is
+    ``attention_xla``, so it launches no counted kernel."""
+    names, shapes = trainer.flat.names, trainer.full_shapes
+    sizes = [math.prod(sh) for sh in shapes]
+    views = {n: t.view(sh) for n, t, sh in zip(names, whole.split(sizes), shapes)}
+    tokens = local
+    if sft is not None:
+        adapters: dict = {}
+        for n, t in views.items():
+            path, k = n.rsplit("/", 1)
+            adapters.setdefault(path, {})[k] = t.clone().requires_grad_()
+        seed = train_loop.fold_seed(trainer.cfg.seed + 1, trainer.rank, trainer.step_count, 0)
+        model = Llama(dataclasses.replace(sft["cfg"], attn_impl="xla"), sft["base"])
+        eff = apply_adapters(sft["base"], adapters, LoraConfig(**T_LORA), dropout_seed=seed)
+        loss, _ = clm_loss_and_metrics(model(tokens, eff), tokens)
+        loss.backward()
+        return [adapters[n.rsplit("/", 1)[0]][n.rsplit("/", 1)[1]].grad for n in names]
+    if isinstance(trainer.model, GPT2):
+        model = GPT2(dataclasses.replace(trainer.model.cfg, attn_impl="xla"), device=whole.device)
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(views[n])
+        loss, _ = clm_loss_and_metrics(model(tokens, None), tokens)
+        loss.backward()
+        named = dict(model.named_parameters())
+    else:
+        model = Llama(dataclasses.replace(trainer.model.cfg, attn_impl="xla"),
+                      as_parameters(tree_from_state_dict(views)))
+        loss, _ = clm_loss_and_metrics(model(tokens), tokens)
+        loss.backward()
+        named = dict(model.jax_named_parameters())
+    return [named[n].grad for n in names]
+
+
+def momentum_vs_grad(grads: list, momentum: torch.Tensor, b2: float) -> dict:
+    """dp x tp == dp: each leaf's momentum step ``(1 − β₂)·g`` against
+    ``(1 − β₂)·`` the unsplit model's gradient, in float32 a leaf at a
+    time: the median ratio over the coordinates above 1e-6 or, in a leaf
+    with fewer than 8 of those (LoRA's A: its gradient scales with B), above
+    1e-3 of the leaf's largest (over an even stride of at most
+    MEDIAN_COORDS of them); the leaves with fewer than 8 either way
+    (``skipped``: the check fails on any), the largest absolute difference
+    and the share of equal ballots ``sign(g)``."""
+    ratios, diff, top, equal, skipped = [], 0.0, 0.0, 0, 0
+    sizes = [g.numel() for g in grads]
+    for g, m in zip(grads, momentum.split(sizes)):
+        a, b = g.reshape(-1).float() * (1.0 - b2), m.float()
+        big = torch.nonzero(a.abs() > 1e-6).flatten()
+        if big.numel() < 8:
+            big = torch.nonzero(a.abs() > 1e-3 * a.abs().max()).flatten()
+        if big.numel() >= 8:
+            big = big[::max(1, big.numel() // MEDIAN_COORDS)]
+            ratios.append(float(torch.median(b[big] / a[big])))
+        else:
+            skipped += 1
+        diff = max(diff, float((b - a).abs().max()))
+        top = max(top, float(a.abs().max()))
+        equal += int(((b > 0) == (a > 0)).sum())
+        del a, b, big
+    return {"median_ratio": [min(ratios, default=math.nan), max(ratios, default=math.nan)],
+            "leaves": len(ratios), "skipped": skipped, "max_abs_diff": diff, "max_abs": top,
+            "equal_ballots": equal / sum(sizes)}
+
+
+class TPWatch:
+    """Checks around ``DistributedLion.step`` in a tensor-parallel run, on
+    every rank (the trainer and this rank's microbatch read from
+    ``Trainer._train_step``): after every step this rank's replicated
+    leaves equal its tensor peer's (``replicated_equal``), ``torch.equal``;
+    up to PLAIN_APPLY_MAX coordinates, every step's params and momentum
+    equal the plain apply (``fused_apply_plain``) of the plain election of
+    the data group's gathered ballots (``apply_equal``) and the params the
+    other data rank's (``params_equal``); and dp × tp == dp at step 1 (at
+    the last step for LoRA: B is zero until a step with lr > 0 moves it,
+    and run_sft's warmup gives step 1 lr 0, so A's gradient is zero at
+    steps 1 and 2): the momentum step ``m − β₂·m_before = (1 − β₂)·g`` gathered over the
+    tensor group into the whole leaves against ``(1 − β₂)·`` the unsplit
+    model's gradient on the same microbatch and weights (``dense_grad``),
+    one data rank at a time (``momentum_vs_grad``: ``dp``)."""
+
+    def __init__(self, sft: Optional[dict] = None):
+        self.sft = sft
+        self.check_step = S_STEPS - 1 if sft is not None else 0   # the steps before it
+        self.params_equal, self.replicated_equal, self.apply_equal = [], [], []
+        self.dp = None
+        self.trainer = self.local = None
+        self._step, self._train_step = DistributedLion.step, train_loop.Trainer._train_step
+        watch = self
+
+        def step(opt, flat, state):
+            return watch._observe(opt, flat, state)
+
+        def train_step(trainer, local):
+            watch.trainer, watch.local = trainer, local
+            return watch._train_step(trainer, local)
+
+        DistributedLion.step = step
+        train_loop.Trainer._train_step = train_step
+
+    def close(self) -> None:
+        DistributedLion.step = self._step
+        train_loop.Trainer._train_step = self._train_step
+
+    def _observe(self, opt, flat, state):
+        tr = self.trainer
+        plain = flat.numel <= PLAIN_APPLY_MAX
+        first = state.steps == self.check_step
+        if plain:
+            g = flat.grads.to(state.exp_avg.dtype)
+            ballots = fused_lion.fused_ballots_plain(g, state.exp_avg, opt.b1)
+            gathered = [torch.empty_like(ballots) for _ in range(opt.world)]
+            dist.all_gather(gathered, ballots, group=opt.group)
+            _, tally = plain_election(gathered, opt.wire)
+            want = fused_lion.fused_apply_plain(flat.params, g, state.exp_avg, tally,
+                                                resolve_lr(opt.learning_rate, state.count),
+                                                opt.weight_decay, opt.b2)
+            del g, ballots, gathered, tally
+        before = tr._whole(flat.params) if first else None
+        if tr.tensor.rank:   # only tensor rank 0 builds the unsplit model
+            before = None
+        # the step may update the momentum in place; step 1's before is zero
+        m_before = state.exp_avg.clone() if first and self.check_step else None
+        out = self._step(opt, flat, state)
+        if plain:
+            self.apply_equal.append(torch.equal(flat.params, want[0])
+                                    and torch.equal(out.exp_avg, want[1]))
+            del want
+        if plain:   # over PLAIN_APPLY_MAX the broadcast would take seconds a step
+            self.params_equal.append(self._equal_to(flat.params, opt.group))
+        views = flat.views(flat.params)
+        rep = torch.cat([views[n].reshape(-1) for n, d in zip(flat.names, tr._dims)
+                         if d is None])
+        self.replicated_equal.append(self._equal_to(rep, tr.tensor.group))
+        if first:
+            self.dp = self._dp_check(tr, opt, before, out.exp_avg, m_before)
+        del before, m_before
+        torch.cuda.empty_cache()
+        return out
+
+    @staticmethod
+    def _equal_to(t: torch.Tensor, group) -> bool:
+        """``t`` equals the first rank's of ``group`` on every rank of it."""
+        ref = t.clone()
+        dist.broadcast(ref, dist.get_global_rank(group, 0), group=group)
+        differ = torch.tensor([0 if torch.equal(ref, t) else 1])
+        dist.all_reduce(differ, group=group)
+        return int(differ) == 0
+
+    def _dp_check(self, tr, opt, before, momentum, m_before) -> dict:
+        """One data rank at a time, on its tensor rank 0 (the unsplit model
+        is large); every rank gets its tensor rank 0's record."""
+        out = None
+        for d in range(tr.world):
+            if d == tr.rank:
+                m = tr._whole(momentum)
+                if self.check_step:   # the momentum before step 1 is zero
+                    m = m - opt.b2 * tr._whole(m_before)
+                if tr.tensor.rank == 0:
+                    out = momentum_vs_grad(dense_grad(tr, self.local, before, self.sft), m,
+                                           opt.b2)
+                del m
+                torch.cuda.empty_cache()
+            dist.barrier()
+        box = [out]
+        dist.broadcast_object_list(box, dist.get_global_rank(tr.tensor.group, 0),
+                                   group=tr.tensor.group)
+        return box[0]
+
+
+def tp_eval_batches(trainer, rows: int) -> int:
+    """The eval batches ``Trainer.evaluate`` takes over ``rows`` rows."""
+    per_dev = trainer.cfg.per_device_eval_batch_size
+    if rows < trainer.world * per_dev:
+        per_dev = rows // trainer.world
+    return 0 if per_dev == 0 else min(trainer.cfg.eval_iters, rows // (trainer.world * per_dev))
+
+
+def tp_flash_launches(layers: int, steps: int, evals: int, hd: int) -> dict:
+    """A tensor-parallel run's flash launches a rank (accum 1): its heads'
+    forward twice a microbatch (remat) and once an eval batch."""
+    sfx = "" if hd == 64 else "_hd128"
+    return {"flash_attention_fwd" + sfx: layers * (2 * steps + evals),
+            "flash_attention_bwd_dkv" + sfx: layers * steps,
+            "flash_attention_bwd_dq" + sfx: layers * steps,
+            "flash_attention_di" + sfx: layers * steps,
+            **(NO_HD128 if hd == 64 else NO_HD64)}
+
+
+def tp_one(rank: int, label: str, run, n_local: int, hd: int, layers: int,
+           sft: Optional[dict] = None) -> dict:
+    """One tensor-parallel run under a :class:`TPWatch`: ``run()`` returns
+    (trainer, the eval rows it evaluated, the run's base tree or None);
+    checks every rank's record and its launches a rank."""
+    watch = TPWatch(sft)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        trainer, eval_rows, base = run()
+    finally:
+        watch.close()
+    wall = time.perf_counter() - t0
+    launches, peak = read_counts(), torch.cuda.max_memory_allocated()
+    rows = [r for r in trainer.history if "loss" in r]
+    evals = tp_eval_batches(trainer, eval_rows)
+    expect(f"{label} rank {rank}", launches, dict(optimizer_launches(trainer, S_STEPS),
+                                                  **tp_flash_launches(layers, S_STEPS, evals, hd)))
+    losses = torch.tensor([r["loss"] for r in rows], dtype=torch.float64,
+                          device=trainer.device)
+    peer = losses.clone()
+    dist.broadcast(peer, rank - rank % TP, group=trainer.tensor.group)
+    plain = trainer.n_params <= PLAIN_APPLY_MAX
+    rec = {"run": label, "losses": losses.tolist(), "step_ms": [r["step_ms"] for r in rows],
+           "n_params": trainer.n_params, "n_global": trainer.n_global,
+           "buckets": trainer.cfg.vote_buckets, "evals": evals,
+           "losses_equal": torch.equal(losses, peer), "params_equal": watch.params_equal,
+           "replicated_equal": watch.replicated_equal, "apply_equal": watch.apply_equal,
+           "dp": watch.dp, "dp_step": watch.check_step + 1, "peak_gib": peak / 2**30,
+           "wall_s": wall, "launches": launches,
+           "comm": trainer.comm_stats().get("comm_bytes_per_step")}
+    if base is not None:   # (t): the rank's NF4 codes and absmax, slices of the whole base
+        whole = dict(iter_paths(sft["base"]))
+        mine = dict(iter_paths(base))
+        rec["nf4_equal"] = all(
+            torch.equal(q.codes, tpar.shard(whole[p], tpar.llama_shard_dim(".".join(p)), TP,
+                                            trainer.tensor.rank).codes)
+            and torch.equal(q.absmax, tpar.shard(whole[p], tpar.llama_shard_dim(".".join(p)),
+                                                 TP, trainer.tensor.rank).absmax)
+            for p, q in mine.items() if isinstance(q, quant.QuantizedTensor))
+    dp = watch.dp
+    ok = (len(rows) == S_STEPS and all(map(math.isfinite, rec["losses"]))
+          and trainer.n_params == n_local and trainer.world == 2 and rec["losses_equal"]
+          and watch.params_equal == watch.apply_equal == ([True] * S_STEPS if plain else [])
+          and watch.replicated_equal == [True] * S_STEPS
+          and dp is not None and dp["skipped"] == 0
+          and dp["leaves"] == len(trainer.flat.names)
+          and abs(dp["median_ratio"][0] - 1) < MEDIAN_TOL
+          and abs(dp["median_ratio"][1] - 1) < MEDIAN_TOL
+          and rec.get("nf4_equal", True))
+    if not ok:
+        raise AssertionError(f"run {label} rank {rank}: {rec}")
+    del trainer
+    torch.cuda.empty_cache()
+    return rec
+
+
+def tp_runs(rank: int) -> dict:
+    """Runs (s1), (s2), (t) and (u) on one rank of the W4 spawn (dp 2 x tp
+    2); rank 0 returns the records."""
+    def clm(args):
+        def run():
+            trainer = run_clm.main(args)
+            return trainer, 3, None   # 5% of 64 synthetic blocks held out
+        return run
+
+    recs = [tp_one(rank, "(s1)", clm(S1_ARGS), N_TP, 64, N_LAYER),
+            tp_one(rank, "(s2)", clm(S2_ARGS), N_TP_VOCAB, 64, N_LAYER)]
+    with llama_cut(n_layer=T_LAYERS, vocab_size=T_VOCAB):
+        cfg = LlamaConfig.named(T_MODEL, attn_impl="flash")
+        sft = {"cfg": cfg, "base": llama_init(cfg, seed=42, device=TP_DEVICE, quant="nf4")}
+
+        def t_run():
+            trainer, model, _ = run_sft.main(T_ARGS)
+            args = run_sft.SFTArguments(seq_length=1024)
+            train, valid = run_sft.sft_records(args)
+            _, ev = run_sft.sft_batches(args, ByteTokenizer(), train, valid,
+                                        trainer.global_train_batch(), trainer.cfg.seed, 1.0)
+            return trainer, len(ev), model.params
+
+        recs.append(tp_one(rank, "(t)", t_run, N_TP_SFT, 128, T_LAYERS, sft))
+        del sft
+        torch.cuda.empty_cache()
+    with llama_cut(n_layer=U_LAYERS):
+        recs.append(tp_one(rank, "(u)", lambda: (run_clm.main(U_ARGS), 0, None), N_TP_LLAMA3,
+                           128, U_LAYERS))
+    return {"run": "tp", "records": recs}
+
+
+def tp_report(rec: dict, card: str) -> None:
+    what = {"(s1)": f"run_clm GPT-2 124M, --dropout 0 --tensor_parallel {TP}",
+            "(s2)": f"(s1) + --tp_vocab --vocab_pad_multiple 64",
+            "(t)": f"run_sft Llama-2-7B widths at {T_LAYERS} layers, vocabulary {T_VOCAB:,}, NF4 "
+                   f"base, LoRA r 8 on wq/wv, --tensor_parallel {TP}",
+            "(u)": f"run_clm --model_family llama, Llama-3-8B widths at {U_LAYERS} layers, bf16, "
+                   f"T {U_T}, --tensor_parallel {TP} --tp_vocab"}
+    for r in rec["records"]:
+        dp = r["dp"]
+        print(f"[w4] {r['run']} {what[r['run']]}: dp 2 x tp 2, 4 ranks on one card (gloo), "
+              f"{r['n_params']:,} coordinates a rank of {r['n_global']:,}, {r['buckets']} "
+              f"bucket(s), {r['evals']} eval batch(es): losses "
+              f"{[round(x, 4) for x in r['losses']]}, equal across the tensor ranks "
+              f"{r['losses_equal']}; params equal across the data ranks after each step "
+              f"{r['params_equal'] or 'not checked (over PLAIN_APPLY_MAX)'}; replicated leaves equal across the tensor ranks after each "
+              f"step {r['replicated_equal']}; plain apply of the plain election equal "
+              f"{r['apply_equal'] or 'not run (over PLAIN_APPLY_MAX)'}"
+              + (f"; NF4 codes and absmax == the slices of the whole base {r['nf4_equal']}"
+                 if "nf4_equal" in r else "")
+              + f"; dp x tp == dp at step {r['dp_step']} (rank 0): per-leaf "
+              f"median momentum ratio in [{dp['median_ratio'][0]:.6f}, "
+              f"{dp['median_ratio'][1]:.6f}] over {dp['leaves']} leaves ({dp['skipped']} "
+              f"skipped), max |diff| {dp['max_abs_diff']:.3e} (max |m| {dp['max_abs']:.3e}), equal "
+              f"ballots {dp['equal_ballots']:.6f}; analytic wire {r['comm']} bytes/step (the "
+              f"whole model's count, as the JAX package states it); step ms {r['step_ms']}; peak "
+              f"device memory {r['peak_gib']:.2f} GiB a rank; main {r['wall_s']:.1f} s on {card}; "
+              f"rank 0 launches {r['launches']}", flush=True)
+
+
 def plane_run(rank: int, tmp: str) -> dict:
     """Run (p) on one rank of the W4 spawn: ``run_clm.main`` with the
     control plane (``P_ARGS``) and the journal, under a :class:`StepWatch`,
@@ -2555,6 +2975,7 @@ def w4_rank(rank: int, tmp: str) -> None:
             torch.cuda.empty_cache()
         records.append(q_run(rank))
         records.append(r_run(rank))
+        records.append(tp_runs(rank))
         records.append(plane_run(rank, tmp))
         records.append(w4_async_commit(rank, tmp))
         if rank == 0:
@@ -2643,6 +3064,7 @@ def w4_phase(tmp: str, card: str) -> None:
         records = json.load(f)
     commit = records.pop()
     plane_report(tmp, records.pop(), card)
+    tp_report(records.pop(), card)
     r_report(records.pop(), card)
     q_report(records.pop(), card)
     print(f"[w4] (f) async checkpoint at W = {W4}: step 1 COMMITTED by the commit thread "
@@ -3554,6 +3976,10 @@ def main():
         (world, wire, buckets), runs, llama, dpo, mode_times, llama3, xent = slice_phase(
             tmp, gen, card, rates)
         t = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()   # the four ranks of the W4 phase share the card
+        print(f"[card] before the W = {W4} phase this process holds "
+              f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB", flush=True)
         w4_phase(tmp, card)
         phase_time(f"slice (f), GPT-2 124M at W = {W4} on one card", t)
     for label, rs, counts in runs:

@@ -31,6 +31,18 @@ embedding does not grow to a ``text:`` tokenizer, and GPT-2's table is
 padded to ``--vocab_pad_multiple`` with zero rows. ``--hf_export <dir>``
 writes the final weights as an HF ``save_pretrained`` directory with the
 tokenizer's files and a model card (``models/hf_export.py``, rank 0).
+
+``--tensor_parallel tp`` (it must divide ``WORLD_SIZE``) splits either
+family over tensor groups of tp consecutive ranks (``parallel/mesh.py``: rank
+``r`` is data rank ``r // tp``, tensor rank ``r % tp``), Megatron-style
+(``parallel/tensor_parallel.py``), and the vote runs over each data group;
+``--tp_vocab`` splits the embedding (GPT-2, padded by
+``--vocab_pad_multiple``) or the ``lm_head`` (Llama) by vocabulary too and
+takes the vocab-parallel loss (JAX run_clm.py:114-132, 327-342). ``model.npz``,
+``--hf_export`` and the checkpoints hold the whole leaves. The other axes
+are not flags, so argparse refuses them: ``--seq_parallel`` (ROADMAP Queue 1
+item 11(d)), ``--expert_parallel`` (11(e)) and ``--pipeline_parallel``
+(11(f)).
 """
 
 from __future__ import annotations
@@ -54,8 +66,8 @@ from distributed_lion_tpu_torch.models.gpt2 import GPT2Config, pad_wte
 from distributed_lion_tpu_torch.models.llama import LlamaConfig
 from distributed_lion_tpu_torch.parallel.mesh import (
     init_distributed,
+    make_grid,
     platform_device,
-    rank_of,
 )
 from distributed_lion_tpu_torch.train.loop import (
     TrainConfig,
@@ -295,19 +307,19 @@ def load_pretrained(model_args: ModelArguments, device, announce: bool = True) -
     return params, cfg
 
 
-def export_hf(trainer: Trainer, model_args: ModelArguments, data_args: DataArguments,
-              train_cfg: TrainConfig) -> None:
-    """``--hf_export``: the final weights as an HF directory, the tokenizer's
-    files beside them and a model card with the JAX CLI's summary keys
-    (run_clm.py:544-577)."""
+def export_hf(trainer: Trainer, whole: dict, model_args: ModelArguments,
+              data_args: DataArguments, train_cfg: TrainConfig) -> None:
+    """``--hf_export``: the final weights (``whole``, ``Trainer.full_named``)
+    as an HF directory, the tokenizer's files beside them and a model card
+    with the JAX CLI's summary keys (run_clm.py:544-577)."""
     model_cfg = trainer.model.cfg
     llama = isinstance(model_cfg, LlamaConfig)
     family = "llama" if llama else "gpt2"
     path = model_args.hf_export
     if llama:
-        hf_export.llama_to_hf(trainer.model.params, model_cfg, path)
+        hf_export.llama_to_hf(tree_from_state_dict(whole), model_cfg, path)
     else:
-        hf_export.gpt2_to_hf(tree_from_state_dict(trainer.model), model_cfg, path)
+        hf_export.gpt2_to_hf(tree_from_state_dict(whole), model_cfg, path)
     hf_export.copy_tokenizer_files(data_args.tokenizer_name, path)
     hf_export.write_model_card(path, model_type=family, train_summary={
         "optimizer": "distributed-lion" if train_cfg.lion else "adamw",
@@ -319,7 +331,7 @@ def export_hf(trainer: Trainer, model_args: ModelArguments, data_args: DataArgum
         "weight_decay": train_cfg.weight_decay,
         "global_batch": trainer.global_train_batch(),
         "block_size": train_cfg.block_size,
-        "n_params": trainer.n_params,
+        "n_params": trainer.n_global,
     })
     print(f"[run_clm] HF-format checkpoint at {path}")
 
@@ -334,7 +346,8 @@ def main(argv=None) -> Trainer:
         (ModelArguments, DataArguments, TrainConfig), argv)
     device = platform_device()
     group = init_distributed(device)
-    rank0 = rank_of(group) == 0
+    grid = make_grid(train_cfg.tensor_parallel, group)
+    rank0 = grid.rank == 0
     initial_params = None
     if model_args.model_path:
         initial_params, model_cfg = load_pretrained(model_args, device, announce=rank0)
@@ -354,10 +367,10 @@ def main(argv=None) -> Trainer:
     llama = isinstance(model_cfg, LlamaConfig)
     if llama:
         trainer = Trainer.for_llama(train_cfg, model_cfg, device=device,
-                                    initial_params=initial_params, group=group)
+                                    initial_params=initial_params, grid=grid)
     else:
         trainer = Trainer.for_gpt2(
-            train_cfg, model_cfg, device=device, group=group,
+            train_cfg, model_cfg, device=device, grid=grid,
             initial_params=None if initial_params is None else state_dict_from_tree(
                 initial_params))
     del initial_params
@@ -387,12 +400,15 @@ def main(argv=None) -> Trainer:
             trainer.evaluate(eval_blocks)
         if trainer.checkpointer:
             trainer.save()
-        if train_cfg.output_dir and rank0:
-            save_pytree(f"{train_cfg.output_dir}/model.npz",
-                        llama_params_to_jax(trainer.model.params) if llama
-                        else params_to_jax(trainer.model))
-        if model_args.hf_export and rank0:
-            export_hf(trainer, model_args, data_args, train_cfg)
+        if (train_cfg.output_dir or model_args.hf_export) and trainer.rank == 0:
+            # data rank 0's tensor group gathers the whole leaves; rank 0 writes
+            whole = trainer.full_named()
+            if train_cfg.output_dir and rank0:
+                save_pytree(f"{train_cfg.output_dir}/model.npz",
+                            llama_params_to_jax(tree_from_state_dict(whole)) if llama
+                            else params_to_jax(whole))
+            if model_args.hf_export and rank0:
+                export_hf(trainer, whole, model_args, data_args, train_cfg)
     finally:
         trainer.close()
         if loader is not None:

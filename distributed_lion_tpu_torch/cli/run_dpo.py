@@ -35,9 +35,16 @@ files (``models/hf_export.py``). It runs on the GPU unless
 trainer's ``tokens_per_sec`` counts pairs x T, as the JAX trainer does.
 ``--vocab_chunks N`` scores all four passes from final hidden states and
 the ``lm_head`` through the chunked-vocabulary cross entropy
-(``train.dpo.sequence_logprob_chunked``). Not ported, and refused by name:
-sequence and tensor parallelism (``--seq_parallel``, ``--tensor_parallel``,
-``--seq_impl``, ROADMAP Queue 1 item 11).
+(``train.dpo.sequence_logprob_chunked``).
+
+``--tensor_parallel tp`` (JAX run_dpo.py:78-83, 155-205) splits the policy's
+base and the reference over tensor groups of tp consecutive ranks
+(``cli.run_sft.TPLora``): the reference is quantized whole, then each rank
+keeps its slices (``ops.quant.validate_quant_tp`` first), and the adapters
+split with their targets. ``--vocab_chunks`` with it is refused, in the JAX
+package's words. Not ported, and refused by name: sequence parallelism
+(``--seq_parallel``, ``--seq_impl``, ROADMAP Queue 1 item 11(d)); the JAX
+package refuses tp × sp on this path.
 """
 
 from __future__ import annotations
@@ -47,9 +54,13 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
-from torch import nn
 
-from distributed_lion_tpu_torch.cli.run_sft import UnportedArguments, write_outputs
+from distributed_lion_tpu_torch.cli.run_sft import (
+    TPLora,
+    UnportedArguments,
+    refuse_tp_vocab,
+    write_outputs,
+)
 from distributed_lion_tpu_torch.data.dpo import dpo_batch_iterator, prepare_dpo_batch
 from distributed_lion_tpu_torch.data.sft import load_pairs_jsonl, synthetic_qa_pairs
 from distributed_lion_tpu_torch.data.tokenizer import load_tokenizer
@@ -63,7 +74,12 @@ from distributed_lion_tpu_torch.models.lora import (
     lora_init,
 )
 from distributed_lion_tpu_torch.ops.quant import map_tree, maybe_dequant, quantize_tree
-from distributed_lion_tpu_torch.parallel.mesh import init_distributed, platform_device, rank_of
+from distributed_lion_tpu_torch.parallel.mesh import (
+    TensorAxis,
+    init_distributed,
+    make_grid,
+    platform_device,
+)
 from distributed_lion_tpu_torch.train.dpo import make_dpo_loss_fn
 from distributed_lion_tpu_torch.train.loop import (
     TrainConfig,
@@ -102,17 +118,16 @@ class DPOArguments:
     merged_output: Optional[str] = None   # *.npz, or an HF save_pretrained directory
 
 
-def _refused(flag: str, item: int) -> NotImplementedError:
+def _refused(flag: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"--{flag} is not ported (ROADMAP Queue 1 item {item})")
 
 
 def refuse_unported(args: DPOArguments, unported: UnportedArguments) -> None:
     """Refuse, by name and ROADMAP item, what the port does not run."""
-    for flag in ("seq_parallel", "tensor_parallel"):
-        if getattr(unported, flag) != 1:
-            raise _refused(flag, 11)
+    if unported.seq_parallel != 1:
+        raise _refused("seq_parallel", "11(d)")
     if args.seq_impl != "ring":
-        raise _refused("seq_impl", 11)
+        raise _refused("seq_impl", "11(d)")
 
 
 def dpo_records(args: DPOArguments) -> list:
@@ -135,12 +150,14 @@ def load_sft_checkpoint(path: str, dtype: torch.dtype, device) -> Any:
 
 
 def dpo_loss_fn(model: Llama, base: Any, ref: Any, adapters: dict, lora_cfg: LoraConfig,
-                beta: float, vocab_chunks: int = 0):
+                beta: float, vocab_chunks: int = 0, tp: Optional[TensorAxis] = None,
+                base_rule=None):
     """The trainer's loss: the policy is ``model`` over ``base`` with
     ``adapters`` swapped in, the reference ``model`` over ``ref``; with
     ``vocab_chunks`` each pass gives ``(hidden, lm_head)`` (JAX
     run_dpo._hidden_and_head) and the logprobs stream through
-    ``ops/xent.py``."""
+    ``ops/xent.py``. Under ``tp`` the trees hold this rank's slices
+    (``base_rule``) and the model reduces over the tensor group."""
     if vocab_chunks > 0:
         def forward(params, tokens):
             return (model.hidden(tokens, params),
@@ -148,7 +165,7 @@ def dpo_loss_fn(model: Llama, base: Any, ref: Any, adapters: dict, lora_cfg: Lor
     else:
         def forward(params, tokens):
             return model(tokens, params)
-    policy = lora_apply_fn(forward, base, lora_cfg)
+    policy = lora_apply_fn(forward, base, lora_cfg, tp=tp, base_rule=base_rule)
     return make_dpo_loss_fn(lambda tokens, seed: policy(adapters, tokens, dropout_seed=seed),
                             lambda tokens: forward(ref, tokens), beta=beta,
                             vocab_chunks=vocab_chunks)
@@ -161,9 +178,15 @@ def main(argv=None) -> tuple[Trainer, Llama, dict, Any]:
     args, unported, train_cfg = parse_dataclasses((DPOArguments, UnportedArguments, TrainConfig),
                                                   argv)
     refuse_unported(args, unported)
+    refuse_tp_vocab(train_cfg, "run_dpo")
+    if train_cfg.vocab_chunks > 0 and train_cfg.tensor_parallel > 1:
+        raise NotImplementedError(
+            "--vocab_chunks x --tensor_parallel on the DPO path is not wired (the TP head is "
+            "already vocab-sharded; chunking it again buys nothing) — drop one")
     device = platform_device()
     group = init_distributed(device)
-    rank0 = rank_of(group) == 0
+    grid = make_grid(train_cfg.tensor_parallel, group)
+    rank0 = grid.rank == 0
     tok = load_tokenizer(args.tokenizer_name)
     pretrained = None
     if args.model_path:
@@ -190,9 +213,10 @@ def main(argv=None) -> tuple[Trainer, Llama, dict, Any]:
             print("[run_dpo] no --sft_checkpoint/--model_path given; starting from fresh init")
         base = llama_init(model_cfg, seed=train_cfg.seed, device=device)
     del pretrained
+    split = TPLora(grid, model_cfg)
     ref = base
     if args.quant_ref != "none":
-        ref = quantize_tree(base, args.quant_ref, block=args.quant_block)
+        ref = split.shard_base(quantize_tree(base, args.quant_ref, block=args.quant_block))
     if args.adapter_path:
         # r, alpha and the targets are the checkpoint's, not --lora_r/--lora_alpha
         adapters, lora_cfg = hf_import.peft_to_lora(args.adapter_path, model_cfg, device=device)
@@ -203,13 +227,16 @@ def main(argv=None) -> tuple[Trainer, Llama, dict, Any]:
         lora_cfg = LoraConfig(r=args.lora_r, alpha=args.lora_alpha, dropout=args.lora_dropout,
                               target_patterns=DPO_TARGET_PATTERNS)
         adapters = lora_init(base, lora_cfg, seed=train_cfg.seed + 1)
-    adapters = {path: {k: nn.Parameter(t) for k, t in ab.items()}
-                for path, ab in adapters.items()}
-    model = Llama(model_cfg, base)
+    # the adapters are drawn over the whole base, then cut with it
+    adapters = split.adapters(adapters, whole=True)
+    base = split.shard_base(base)
+    if args.quant_ref == "none":
+        ref = base
+    model = Llama(model_cfg, base, tp=grid.tensor)
     named = adapter_named_parameters(adapters)
     if rank0:
         print(f"[run_dpo] LoRA adapters: {len(adapters)} sites, "
-              f"{sum(p.numel() for _, p in named) / 1e3:.1f}k trainable params; policy base "
+              f"{split.whole_count(named) / 1e3:.1f}k trainable params; policy base "
               f"{tree_nbytes(base) / 2**30:.2f} GiB, reference "
               f"{'the same tensors' if ref is base else f'{args.quant_ref}, {tree_nbytes(ref) / 2**30:.2f} GiB'}"
               f" on {device}")
@@ -226,8 +253,9 @@ def main(argv=None) -> tuple[Trainer, Llama, dict, Any]:
 
     trainer = Trainer(train_cfg, named,
                       dpo_loss_fn(model, base, ref, adapters, lora_cfg, args.beta,
-                                  train_cfg.vocab_chunks),
-                      group=group, model=model)
+                                  train_cfg.vocab_chunks, tp=grid.tensor,
+                                  base_rule=split.base_rule),
+                      grid=grid, shard_rule=split.shard_rule(), model=model)
     announce_guards(trainer, "run_dpo")
     try:
         trainer.train(dpo_batch_iterator(train_data, trainer.global_train_batch(),
@@ -238,8 +266,11 @@ def main(argv=None) -> tuple[Trainer, Llama, dict, Any]:
             trainer.evaluate(eval_data)
         if trainer.checkpointer:
             trainer.save()
-        if rank0:
-            write_outputs(args, base, adapters, lora_cfg, model_cfg, "run_dpo", "merged policy")
+        if trainer.rank == 0 and (args.adapter_output or args.merged_output):
+            whole_base, whole = split.gather(base, adapters, bool(args.merged_output))
+            if rank0:
+                write_outputs(args, whole_base, whole, lora_cfg, model_cfg, "run_dpo",
+                              "merged policy")
     finally:
         trainer.close()
     return trainer, model, adapters, ref

@@ -28,14 +28,23 @@ The synthetic path takes its vocabulary from the byte tokenizer,
 ``max(tokenizer vocab, 259)``, as the JAX package does without a Llama
 tokenizer. ``--vocab_chunks N`` streams the (dequantized) ``lm_head``, in
 its ``[d, V]`` layout, through the chunked-vocabulary cross entropy
-(``ops/xent.py``), as the JAX package's ``_head_loss`` does. Not ported,
-and refused by name: sequence and tensor parallelism (ROADMAP Queue 1
-item 9).
+(``ops/xent.py``), as the JAX package's ``_head_loss`` does.
+
+``--tensor_parallel tp`` (JAX run_sft.py:235-294) splits the frozen base over
+tensor groups of tp consecutive ranks (``parallel/tensor_parallel.py``): each
+rank holds and dequantizes its slices of the (NF4) base, cut from the same
+seeded init (``ops.quant.validate_quant_tp`` refuses a quantized leaf whose
+blocks do not line up with the split), the adapters split with their targets
+(``models.lora.lora_adapter_specs``) and the vote runs over each data group.
+The outputs hold the whole adapters and base, gathered over the tensor
+group. Not ported, and refused by name: sequence parallelism
+(``--seq_parallel``, ``--seq_impl``; ROADMAP Queue 1 item 11(d)).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -55,12 +64,15 @@ from distributed_lion_tpu_torch.models.llama import Llama, LlamaConfig, llama_in
 from distributed_lion_tpu_torch.models.lora import (
     LoraConfig,
     adapter_named_parameters,
+    adapter_shard_rule,
     apply_adapters,
+    lora_adapter_specs,
     lora_init,
     merge_lora,
 )
-from distributed_lion_tpu_torch.ops.quant import dequantize_tree, maybe_dequant
-from distributed_lion_tpu_torch.parallel.mesh import init_distributed, platform_device, rank_of
+from distributed_lion_tpu_torch.ops.quant import dequantize_tree, maybe_dequant, validate_quant_tp
+from distributed_lion_tpu_torch.parallel import tensor_parallel as tpar
+from distributed_lion_tpu_torch.parallel.mesh import init_distributed, make_grid, platform_device
 from distributed_lion_tpu_torch.train.loop import (
     TrainConfig,
     Trainer,
@@ -72,7 +84,7 @@ from distributed_lion_tpu_torch.train.loop import (
 from distributed_lion_tpu_torch.utils.argparsing import parse_dataclasses
 from distributed_lion_tpu_torch.utils.serialization import save_pytree
 
-NOT_PORTED = "is not ported (ROADMAP Queue 1 item 9)"
+NOT_PORTED = "is not ported (ROADMAP Queue 1 item 11(d))"
 
 
 @dataclasses.dataclass
@@ -103,11 +115,10 @@ class SFTArguments:
 
 @dataclasses.dataclass
 class UnportedArguments:
-    """The JAX ``TrainConfig`` fields ``run_sft`` and ``run_dpo`` read that
+    """The JAX ``TrainConfig`` field ``run_sft`` and ``run_dpo`` read that
     the port does not have; any value but the default is refused."""
 
     seq_parallel: int = 1
-    tensor_parallel: int = 1
 
 
 def refuse_unported(args: SFTArguments, unported: UnportedArguments) -> None:
@@ -117,6 +128,15 @@ def refuse_unported(args: SFTArguments, unported: UnportedArguments) -> None:
             raise NotImplementedError(f"--{f.name} {NOT_PORTED}")
     if args.seq_impl != "ring":
         raise NotImplementedError(f"--seq_impl (sequence parallelism) {NOT_PORTED}")
+
+
+def refuse_tp_vocab(train_cfg: TrainConfig, prog: str) -> None:
+    """``--tp_vocab`` splits run_clm's dense heads only (JAX loop.py:802-811):
+    the LoRA CLIs' losses would ignore it."""
+    if train_cfg.tp_vocab:
+        raise NotImplementedError(
+            "--tp_vocab is wired for run_clm's dense dp x tp paths (gpt2 and llama families) "
+            f"only; {prog}'s loss would silently ignore it")
 
 
 def sft_records(args: SFTArguments) -> tuple:
@@ -154,6 +174,53 @@ def sft_batches(args: SFTArguments, tok, train, valid, global_batch: int, seed: 
     return it, {"tokens": ev_tokens, "mask": ev_mask}
 
 
+class TPLora:
+    """The tensor split of a LoRA run over a Llama base: the grid's tensor
+    axis, the base's shard rule and the adapters' (``lora_adapter_specs``);
+    at tp 1 nothing is split."""
+
+    def __init__(self, grid, model_cfg: LlamaConfig):
+        self.grid, self.tensor = grid, grid.tensor
+        self.base_rule = (tpar.llama_shard_dim if grid.tp > 1 else (lambda name: None))
+        if grid.tp > 1:
+            tpar.validate_tp(model_cfg, grid.tp, "llama")
+        self.specs: dict = {}
+
+    def shard_base(self, tree):
+        """This rank's slices of a whole base (quantized leaves checked
+        first)."""
+        if self.grid.tp == 1:
+            return tree
+        validate_quant_tp(tree, self.base_rule, self.grid.tp)
+        return tpar.shard_tree(tree, self.base_rule, self.grid.tp, self.tensor.rank)
+
+    def adapters(self, adapters: dict, whole: bool) -> dict:
+        """The adapters as parameters, cut to this rank's slices if
+        ``whole``; records their specs."""
+        self.specs = lora_adapter_specs(adapters, self.base_rule)
+        return {path: {k: nn.Parameter(tpar.shard(t, self.specs[path][k], self.grid.tp,
+                                                  self.tensor.rank) if whole else t)
+                       for k, t in ab.items()} for path, ab in adapters.items()}
+
+    def shard_rule(self):
+        return adapter_shard_rule(self.specs) if self.grid.tp > 1 else None
+
+    def whole_count(self, named) -> int:
+        rule = adapter_shard_rule(self.specs)
+        return sum(math.prod(tpar.full_shape(tuple(p.shape), rule(n) if self.grid.tp > 1
+                                             else None, self.grid.tp)) for n, p in named)
+
+    def gather(self, base, adapters: dict, with_base: bool) -> tuple:
+        """The whole base (if ``with_base``) and adapters (a collective over
+        the tensor group)."""
+        if self.grid.tp == 1:
+            return base, adapters
+        whole = {path: {k: tpar.gather(t.detach(), self.specs[path][k], self.tensor)
+                        for k, t in ab.items()} for path, ab in adapters.items()}
+        return (tpar.gather_tree(base, self.base_rule, self.tensor) if with_base else None,
+                whole)
+
+
 def write_outputs(args, base, adapters: dict, lora_cfg: LoraConfig, model_cfg: LlamaConfig,
                   cli: str, what: str) -> None:
     """``--adapter_output`` (a PEFT directory) and ``--merged_output`` (the
@@ -188,9 +255,11 @@ def main(argv=None) -> tuple[Trainer, Llama, dict]:
             "gradient_checkpointing with LoRA is rejected for parity with the reference "
             "(sft_llama2.py:56-59); every block is rematerialized regardless")
     refuse_unported(args, unported)
+    refuse_tp_vocab(train_cfg, "run_sft")
     device = platform_device()
     group = init_distributed(device)
-    rank0 = rank_of(group) == 0
+    grid = make_grid(train_cfg.tensor_parallel, group)
+    rank0 = grid.rank == 0
     tok = load_tokenizer(args.tokenizer_name)
     train, valid = sft_records(args)
     ratio = chars_token_ratio(train, tok)
@@ -214,31 +283,37 @@ def main(argv=None) -> tuple[Trainer, Llama, dict]:
                                       attn_impl=args.attn_impl)
     args.seq_length = min(args.seq_length, model_cfg.n_ctx)
     train_cfg.block_size = args.seq_length
+    split = TPLora(grid, model_cfg)
     if quant and rank0:
         print(f"[run_sft] quantizing frozen base to {quant}")
-    if not args.model_path:
+    if args.model_path:
+        base = split.shard_base(base)
+    else:
         base = llama_init(model_cfg, seed=train_cfg.seed, device=device, quant=quant,
-                          quant_block=args.quant_block)
+                          quant_block=args.quant_block, tp=grid.tensor)
     if args.adapter_path:
         # r, alpha and the targets are the checkpoint's, not --lora_r/--lora_alpha
         adapters, lora_cfg = hf_import.peft_to_lora(args.adapter_path, model_cfg, device=device)
+        adapters = split.adapters(adapters, whole=True)
         if rank0:
             print(f"[run_sft] resumed PEFT adapter from {args.adapter_path} "
                   f"(r={lora_cfg.r} alpha={lora_cfg.alpha})")
     else:
         lora_cfg = LoraConfig(r=args.lora_r, alpha=args.lora_alpha, dropout=args.lora_dropout)
-        adapters = lora_init(base, lora_cfg, seed=train_cfg.seed + 1)
-    adapters = {path: {k: nn.Parameter(t) for k, t in ab.items()}
-                for path, ab in adapters.items()}
-    model = Llama(model_cfg, base)
+        adapters = split.adapters(lora_init(base, lora_cfg, seed=train_cfg.seed + 1,
+                                            tp=grid.tensor, base_rule=split.base_rule),
+                                  whole=False)
+    model = Llama(model_cfg, base, tp=grid.tensor)
     named = adapter_named_parameters(adapters)
     if rank0:
         print(f"[run_sft] LoRA adapters: {len(adapters)} sites, "
-              f"{sum(p.numel() for _, p in named) / 1e3:.1f}k trainable params; frozen base "
-              f"{tree_nbytes(base) / 2**30:.2f} GiB on {device}")
+              f"{split.whole_count(named) / 1e3:.1f}k trainable params; frozen base "
+              f"{tree_nbytes(base) / 2**30:.2f} GiB on {device}"
+              + (f" (this rank's slices of {grid.tp})" if grid.tp > 1 else ""))
 
     def effective(seed):
-        return apply_adapters(base, adapters, lora_cfg, dropout_seed=seed)
+        return apply_adapters(base, adapters, lora_cfg, dropout_seed=seed, tp=grid.tensor,
+                              base_rule=split.base_rule)
 
     if train_cfg.vocab_chunks > 0:  # JAX run_sft._head_loss's chunked branch
         def hidden_and_head(tokens, seed):
@@ -249,7 +324,7 @@ def main(argv=None) -> tuple[Trainer, Llama, dict]:
         loss_fn = chunked_clm_loss_fn(hidden_and_head, train_cfg.vocab_chunks, emb_layout="dv")
     else:
         loss_fn = clm_loss_fn(lambda tokens, seed: model(tokens, effective(seed)))
-    trainer = Trainer(train_cfg, named, loss_fn, group=group)
+    trainer = Trainer(train_cfg, named, loss_fn, grid=grid, shard_rule=split.shard_rule())
     train_iter, eval_blocks = sft_batches(args, tok, train, valid, trainer.global_train_batch(),
                                           train_cfg.seed, ratio)
     announce_guards(trainer, "run_sft")
@@ -261,8 +336,11 @@ def main(argv=None) -> tuple[Trainer, Llama, dict]:
             trainer.evaluate(eval_blocks)
         if trainer.checkpointer:
             trainer.save()
-        if rank0:
-            write_outputs(args, base, adapters, lora_cfg, model_cfg, "run_sft", "merged model")
+        if trainer.rank == 0 and (args.adapter_output or args.merged_output):
+            whole_base, whole = split.gather(base, adapters, bool(args.merged_output))
+            if rank0:
+                write_outputs(args, whole_base, whole, lora_cfg, model_cfg, "run_sft",
+                              "merged model")
     finally:
         trainer.close()
     return trainer, model, adapters

@@ -14,6 +14,22 @@ to the compute dtype before their float32 softmax. Dropout masks come from
 ``torch.Generator``s seeded per call site from an integer ``dropout_seed``,
 so a rematerialized block (``torch.utils.checkpoint``) draws the same mask
 again.
+
+Under a tensor axis (``tp``, a ``parallel.mesh.TensorAxis`` of size > 1,
+JAX gpt2.py:230-302, 378-396) each rank holds its slices of the leaves
+``parallel.tensor_parallel.gpt2_shard_dim`` splits, cut from the same seeded
+init as the unsplit model: ``qkv [d, 3, d/tp]``, ``qkv_b [3, d/tp]`` and
+``proj [d/tp, d]`` run ``n_head/tp`` heads through the same attention
+dispatch, ``fc [d, 4d/tp]``, ``fc_b [4d/tp]`` and ``proj [4d/tp, d]`` the MLP,
+each region entered through *f* (``copy_to_tp_region``) and left through *g*
+(``reduce_from_tp_region``), the replicated ``proj_b`` added after the
+reduction. With ``vocab_parallel`` (``--tp_vocab``) ``wte`` is split by rows:
+:func:`vocab_parallel_embed` looks up the rank's rows and sums the partial
+embeddings, and the loss takes the rank's rows as its head
+(``ops.xent.tp_vocab_clm_loss_and_metrics``). The residual and embedding
+dropout seeds fold the step and the data rank only, so a replicated
+activation gets one mask on every tensor rank; the attention-probability
+masks, one per head, also fold the tensor rank.
 """
 
 from __future__ import annotations
@@ -29,7 +45,13 @@ from torch.utils.checkpoint import checkpoint
 
 from distributed_lion_tpu_torch.ops.attention import attention
 from distributed_lion_tpu_torch.ops.products import matmul_f32
-from distributed_lion_tpu_torch.parallel.mesh import resolve_device
+from distributed_lion_tpu_torch.parallel.mesh import TensorAxis, resolve_device
+from distributed_lion_tpu_torch.parallel.tensor_parallel import (
+    copy_to_tp_region,
+    gpt2_shard_dim,
+    reduce_from_tp_region,
+    shard,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,8 +152,9 @@ class LayerNorm(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: GPT2Config, device, gen):
+    def __init__(self, cfg: GPT2Config, device, gen, tp: TensorAxis = TensorAxis()):
         super().__init__()
+        self.tp = tp
         d, dt = cfg.d_model, cfg.param_dtype
         resid_std = 0.02 / math.sqrt(2 * cfg.n_layer)
         # [d, 3, d]: q/k/v stacked on axis 1, the JAX package's layout
@@ -142,9 +165,11 @@ class Attention(nn.Module):
 
     def forward(self, x, cfg: GPT2Config, seed: Optional[int]):
         B, T, D = x.shape
-        H, hd = cfg.n_head, cfg.head_dim
+        tp = self.tp
+        H, hd, Dl = cfg.n_head // tp.size, cfg.head_dim, D // tp.size
         dt = x.dtype
-        qkv = (x @ self.qkv.to(dt).reshape(D, 3 * D)).view(B, T, 3, D)
+        x = copy_to_tp_region(x, tp.group)
+        qkv = (x @ self.qkv.to(dt).reshape(D, 3 * Dl)).view(B, T, 3, Dl)
         qkv = qkv + self.qkv_b.to(dt)
         q, k, v = (qkv[:, :, i].reshape(B, T, H, hd).transpose(1, 2)
                    for i in range(3))
@@ -157,17 +182,19 @@ class Attention(nn.Module):
             causal = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
             scores = scores.masked_fill(~causal, -1e30)
             probs = torch.softmax(scores, dim=-1).to(dt)
-            probs = _dropout(probs, cfg.dropout, fold_seed(seed, 0))
+            probs = _dropout(probs, cfg.dropout, fold_seed(seed, 0) if tp.size == 1
+                             else fold_seed(seed, 0, tp.rank))
             out = torch.matmul(probs, v).to(dt)
         else:
             out = attention(q, k, v, causal=True, impl=cfg.attn_impl)
         out = out.transpose(1, 2).reshape(B, T, H * hd)
-        return out @ self.proj.to(dt) + self.proj_b.to(dt)
+        return reduce_from_tp_region(out @ self.proj.to(dt), tp.group) + self.proj_b.to(dt)
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: GPT2Config, device, gen):
+    def __init__(self, cfg: GPT2Config, device, gen, tp: TensorAxis = TensorAxis()):
         super().__init__()
+        self.tp = tp
         d, dt = cfg.d_model, cfg.param_dtype
         resid_std = 0.02 / math.sqrt(2 * cfg.n_layer)
         self.fc = _param((d, 4 * d), dt, device, 0.02, gen)
@@ -177,18 +204,19 @@ class MLP(nn.Module):
 
     def forward(self, x):
         dt = x.dtype
+        x = copy_to_tp_region(x, self.tp.group)
         h = F.gelu(x @ self.fc.to(dt) + self.fc_b.to(dt), approximate="tanh")
-        return h @ self.proj.to(dt) + self.proj_b.to(dt)
+        return reduce_from_tp_region(h @ self.proj.to(dt), self.tp.group) + self.proj_b.to(dt)
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: GPT2Config, device, gen):
+    def __init__(self, cfg: GPT2Config, device, gen, tp: TensorAxis = TensorAxis()):
         super().__init__()
         d = cfg.d_model
         self.ln_1 = LayerNorm(d, cfg.param_dtype, device)
-        self.attn = Attention(cfg, device, gen)
+        self.attn = Attention(cfg, device, gen, tp)
         self.ln_2 = LayerNorm(d, cfg.param_dtype, device)
-        self.mlp = MLP(cfg, device, gen)
+        self.mlp = MLP(cfg, device, gen, tp)
 
     def forward(self, x, cfg: GPT2Config, seed: Optional[int]):
         s = (None, None, None) if seed is None else tuple(fold_seed(seed, i) for i in (1, 2, 3))
@@ -199,19 +227,36 @@ class Block(nn.Module):
 
 class GPT2(nn.Module):
     """The model; ``forward(tokens, dropout_seed)`` returns float32 logits
-    ``[B, T, vocab_size]``. ``dropout_seed=None`` disables dropout (eval)."""
+    ``[B, T, vocab_size]``. ``dropout_seed=None`` disables dropout (eval).
+    ``tp`` (size > 1) holds this rank's slices (module doc); a
+    ``vocab_parallel`` model holds a slice of the head, so its :meth:`head`
+    (and :meth:`forward`) raise: its loss runs over :meth:`hidden` and
+    ``wte``."""
 
-    def __init__(self, cfg: GPT2Config, *, device="cuda", seed: int = 0):
+    def __init__(self, cfg: GPT2Config, *, device="cuda", seed: int = 0,
+                 tp: Optional[TensorAxis] = None, vocab_parallel: bool = False):
         super().__init__()
         device = resolve_device(device)
+        tp = tp or TensorAxis()
+        if vocab_parallel and tp.size == 1:
+            raise ValueError("vocab_parallel needs a tensor axis of size > 1")
         gen = torch.Generator().manual_seed(seed)  # CPU draws: same weights on any device
-        self.cfg = cfg
+        self.cfg, self.tp, self.vocab_parallel = cfg, tp, vocab_parallel
         d, dt = cfg.d_model, cfg.param_dtype
-        self.wte = nn.Parameter(pad_wte(
-            _param((cfg.vocab_size, d), dt, device, 0.02, gen).data, cfg))
-        self.wpe = _param((cfg.n_ctx, d), dt, device, 0.02, gen)
-        self.ln_f = LayerNorm(d, dt, device)
-        self.blocks = nn.ModuleList(Block(cfg, device, gen) for _ in range(cfg.n_layer))
+        # drawn whole on the CPU in the unsplit model's order, then sliced
+        cpu = torch.device("cpu")
+        self.wte = nn.Parameter(pad_wte(_param((cfg.vocab_size, d), dt, cpu, 0.02, gen).data,
+                                        cfg))
+        self.wpe = _param((cfg.n_ctx, d), dt, cpu, 0.02, gen)
+        self.ln_f = LayerNorm(d, dt, cpu)
+        self.blocks = nn.ModuleList(Block(cfg, cpu, gen, tp) for _ in range(cfg.n_layer))
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                p.data = shard(p.data, self.shard_dim(name), tp.size, tp.rank).to(device)
+
+    def shard_dim(self, name: str) -> Optional[int]:
+        """The dim of parameter ``name`` split over the tensor axis, or None."""
+        return gpt2_shard_dim(name, self.vocab_parallel) if self.tp.size > 1 else None
 
     def hidden(self, tokens: torch.Tensor, dropout_seed: Optional[int] = None):
         """Backbone: tokens [B, T] → final hidden [B, T, d] after ln_f."""
@@ -220,7 +265,11 @@ class GPT2(nn.Module):
         if T > cfg.n_ctx:
             raise ValueError(f"sequence length {T} exceeds n_ctx {cfg.n_ctx}")
         cd = cfg.compute_dtype
-        x = F.embedding(tokens, self.wte).to(cd) + self.wpe[:T].to(cd)
+        if self.vocab_parallel:
+            x = vocab_parallel_embed(self.wte, tokens, self.tp, cd)
+        else:
+            x = F.embedding(tokens, self.wte).to(cd)
+        x = x + self.wpe[:T].to(cd)
         x = _dropout(x, cfg.dropout,
                      None if dropout_seed is None else fold_seed(dropout_seed, cfg.n_layer))
         for i, block in enumerate(self.blocks):
@@ -236,6 +285,10 @@ class GPT2(nn.Module):
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
         """Tied head: hidden [B, T, d] → float32 logits [B, T, vocab_size]."""
+        if self.vocab_parallel:
+            raise NotImplementedError(
+                "a vocab-parallel GPT-2 holds a slice of the head: its loss is "
+                "ops.xent.tp_vocab_clm_loss_and_metrics over hidden() and wte")
         logits = matmul_f32(x, self.wte.to(x.dtype).t())
         return logits[..., : self.cfg.vocab_size]
 
@@ -243,6 +296,24 @@ class GPT2(nn.Module):
         """Named parameters in ``jax.tree.leaves`` order of the JAX pytree:
         the flat layout."""
         return jax_leaf_order(self.named_parameters())
+
+
+def vocab_parallel_embed(wte_shard: torch.Tensor, tokens: torch.Tensor, tp: TensorAxis,
+                         out_dtype=None) -> torch.Tensor:
+    """Megatron's VocabParallelEmbedding (JAX gpt2.py:378-396): ``wte_shard``
+    ``[V/tp, d]`` is the rank's contiguous rows; a token outside them
+    contributes zero and the partial embeddings are summed over the tensor
+    group (*g*). ``out_dtype`` casts before the sum: one rank contributes a
+    nonzero row per token, so the sum is exact in the narrower dtype at half
+    the bytes."""
+    vshard = wte_shard.shape[0]
+    start = tp.rank * vshard
+    in_range = (tokens >= start) & (tokens < start + vshard)
+    idx = torch.clamp(tokens - start, 0, vshard - 1)
+    part = F.embedding(idx, wte_shard) * in_range[..., None].to(wte_shard.dtype)
+    if out_dtype is not None:
+        part = part.to(out_dtype)
+    return reduce_from_tp_region(part, tp.group)
 
 
 def jax_leaf_order(named) -> list:

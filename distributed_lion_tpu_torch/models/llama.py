@@ -17,9 +17,19 @@ Rounding follows the JAX package: float32 RMSNorm, float32 rope tables cast
 to the compute dtype before the rotation, compute-dtype products, and the
 head's logits a compute-dtype product with a float32 result
 (``ops.products.matmul_f32``). Each block is rematerialized in the backward
-pass when ``remat`` is on (``torch.utils.checkpoint``). The decode paths
-(KV cache, paged serving), sequence and tensor parallelism and the ``dots``
-remat policy are not ported (ROADMAP Queue 1).
+pass when ``remat`` is on (``torch.utils.checkpoint``).
+
+Under a tensor axis (``tp``, JAX llama.py:175-220) the tree holds this
+rank's slices (``parallel.tensor_parallel.llama_shard_dim``; :func:`llama_init`
+cuts them from the unsplit init, quantized leaves included): ``wq``, ``wk``
+and ``wv`` column-parallel with ``n_head/tp`` query and ``n_kv_head/tp`` kv
+heads (GQA repeats the local kv heads), ``wo`` row-parallel; ``w_gate`` and
+``w_up`` column-parallel, ``w_down`` row-parallel; each region entered
+through *f* and left through *g*. With ``vocab_parallel`` the ``lm_head`` is
+split by vocab columns and the loss runs over the rank's columns
+(``ops.xent.tp_vocab_clm_loss_and_metrics``). The decode paths (KV cache,
+paged serving), sequence parallelism and the ``dots`` remat policy are not
+ported (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -37,8 +47,19 @@ from distributed_lion_tpu_torch.models.gpt2 import fold_seed, jax_leaf_order
 from distributed_lion_tpu_torch.models.lora import iter_paths, lora_embed, lora_matmul
 from distributed_lion_tpu_torch.ops.attention import attention
 from distributed_lion_tpu_torch.ops.products import matmul_f32
-from distributed_lion_tpu_torch.ops.quant import map_tree, maybe_dequant, quantize_leaf
-from distributed_lion_tpu_torch.parallel.mesh import resolve_device
+from distributed_lion_tpu_torch.ops.quant import (
+    map_tree,
+    maybe_dequant,
+    quantize_leaf,
+    validate_quant_tp,
+)
+from distributed_lion_tpu_torch.parallel.mesh import TensorAxis, resolve_device
+from distributed_lion_tpu_torch.parallel.tensor_parallel import (
+    copy_to_tp_region,
+    llama_shard_dim,
+    reduce_from_tp_region,
+    shard,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,39 +114,49 @@ class LlamaConfig:
 
 
 def llama_init(cfg: LlamaConfig, *, seed: int = 0, device="cuda", quant: Optional[str] = None,
-               quant_block: Optional[int] = None) -> dict:
+               quant_block: Optional[int] = None, tp: Optional[TensorAxis] = None,
+               vocab_parallel: bool = False) -> dict:
     """Random weights (std 0.02, the residual projections 0.02/sqrt(2L);
     norm scales 1) in the JAX package's tree, made leaf by leaf on
     ``device`` from ``seed``. With ``quant`` ('nf4' or 'int8') each leaf is
     quantized as it is made (``ops.quant.quantize_leaf``, the leaves
-    ``quantize_tree`` would pick), so the dense tree never exists whole."""
+    ``quantize_tree`` would pick), so the dense tree never exists whole.
+    With ``tp`` (size > 1) each leaf is then cut to this rank's slice
+    (``llama_shard_dim``): the slices of the unsplit init."""
     device = resolve_device(device)
+    tp = tp or TensorAxis()
     d, dt, hd = cfg.d_model, cfg.param_dtype, cfg.head_dim
     counter = iter(range(2 + 7 * cfg.n_layer))
 
-    def normal(shape, std):
+    def normal(name, shape, std):
         gen = torch.Generator(device=device).manual_seed(fold_seed(seed, next(counter)))
         w = (torch.randn(shape, generator=gen, device=device) * std).to(dt)
-        return w if quant is None else quantize_leaf(w, quant, block=quant_block)
+        w = w if quant is None else quantize_leaf(w, quant, block=quant_block)
+        if tp.size == 1:
+            return w
+        dim = llama_shard_dim(name, vocab_parallel)
+        validate_quant_tp({name: w}, lambda _: dim, tp.size)
+        return shard(w, dim, tp.size, tp.rank)
 
     def ones():
         return torch.ones(d, dtype=dt, device=device)
 
     resid = 0.02 / math.sqrt(2 * cfg.n_layer)
-    params: dict = {"wte": normal((cfg.vocab_size, d), 0.02),
-                    "lm_head": normal((d, cfg.vocab_size), 0.02),
+    params: dict = {"wte": normal("wte", (cfg.vocab_size, d), 0.02),
+                    "lm_head": normal("lm_head", (d, cfg.vocab_size), 0.02),
                     "ln_f": {"scale": ones()}, "blocks": []}
-    for _ in range(cfg.n_layer):
+    for i in range(cfg.n_layer):
+        b = f"blocks.{i}."
         params["blocks"].append({
             "ln_attn": {"scale": ones()},
-            "attn": {"wq": normal((d, cfg.n_head * hd), 0.02),
-                     "wk": normal((d, cfg.n_kv_head * hd), 0.02),
-                     "wv": normal((d, cfg.n_kv_head * hd), 0.02),
-                     "wo": normal((cfg.n_head * hd, d), resid)},
+            "attn": {"wq": normal(b + "attn.wq", (d, cfg.n_head * hd), 0.02),
+                     "wk": normal(b + "attn.wk", (d, cfg.n_kv_head * hd), 0.02),
+                     "wv": normal(b + "attn.wv", (d, cfg.n_kv_head * hd), 0.02),
+                     "wo": normal(b + "attn.wo", (cfg.n_head * hd, d), resid)},
             "ln_mlp": {"scale": ones()},
-            "mlp": {"w_gate": normal((d, cfg.d_ff), 0.02),
-                    "w_up": normal((d, cfg.d_ff), 0.02),
-                    "w_down": normal((cfg.d_ff, d), resid)},
+            "mlp": {"w_gate": normal(b + "mlp.w_gate", (d, cfg.d_ff), 0.02),
+                    "w_up": normal(b + "mlp.w_up", (d, cfg.d_ff), 0.02),
+                    "w_down": normal(b + "mlp.w_down", (cfg.d_ff, d), resid)},
         })
     return params
 
@@ -153,9 +184,10 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.stack([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).reshape(x.shape)
 
 
-def _attention(x, p, cfg: LlamaConfig, cos, sin):
+def _attention(x, p, cfg: LlamaConfig, cos, sin, tp: TensorAxis):
     B, T, _ = x.shape
-    H, KV, hd = cfg.n_head, cfg.n_kv_head, cfg.head_dim
+    H, KV, hd = cfg.n_head // tp.size, cfg.n_kv_head // tp.size, cfg.head_dim
+    x = copy_to_tp_region(x, tp.group)
     q = lora_matmul(x, p["wq"]).reshape(B, T, H, hd).transpose(1, 2)
     k = lora_matmul(x, p["wk"]).reshape(B, T, KV, hd).transpose(1, 2)
     v = lora_matmul(x, p["wv"]).reshape(B, T, KV, hd).transpose(1, 2)
@@ -164,17 +196,20 @@ def _attention(x, p, cfg: LlamaConfig, cos, sin):
         k = k.repeat_interleave(H // KV, dim=1)
         v = v.repeat_interleave(H // KV, dim=1)
     out = attention(q, k, v, causal=True, impl=cfg.attn_impl)
-    return lora_matmul(out.transpose(1, 2).reshape(B, T, H * hd), p["wo"])
+    return reduce_from_tp_region(lora_matmul(out.transpose(1, 2).reshape(B, T, H * hd), p["wo"]),
+                                 tp.group)
 
 
-def _mlp(x, p):
+def _mlp(x, p, tp: TensorAxis):
+    x = copy_to_tp_region(x, tp.group)
     gate = F.silu(lora_matmul(x, p["w_gate"]))
-    return lora_matmul(gate * lora_matmul(x, p["w_up"]), p["w_down"])
+    return reduce_from_tp_region(lora_matmul(gate * lora_matmul(x, p["w_up"]), p["w_down"]),
+                                 tp.group)
 
 
-def _block(x, p, cfg: LlamaConfig, cos, sin):
-    x = x + _attention(rms_norm(x, p["ln_attn"], cfg.rms_eps), p["attn"], cfg, cos, sin)
-    return x + _mlp(rms_norm(x, p["ln_mlp"], cfg.rms_eps), p["mlp"])
+def _block(x, p, cfg: LlamaConfig, cos, sin, tp: TensorAxis):
+    x = x + _attention(rms_norm(x, p["ln_attn"], cfg.rms_eps), p["attn"], cfg, cos, sin, tp)
+    return x + _mlp(rms_norm(x, p["ln_mlp"], cfg.rms_eps), p["mlp"], tp)
 
 
 def as_parameters(params: Any) -> Any:
@@ -190,12 +225,14 @@ class Llama(nn.Module):
     swapped in (``models.lora.apply_adapters``). The tree's tensors are not
     registered as module parameters: a frozen base stays out of autograd,
     and a trainable tree (:func:`as_parameters`) is listed by
-    :meth:`jax_named_parameters`."""
+    :meth:`jax_named_parameters`. ``tp`` (size > 1): the tree holds this
+    rank's slices (module doc)."""
 
-    def __init__(self, cfg: LlamaConfig, params: dict):
+    def __init__(self, cfg: LlamaConfig, params: dict, tp: Optional[TensorAxis] = None):
         super().__init__()
         self.cfg = cfg
         self.params = params
+        self.tp = tp or TensorAxis()
 
     def hidden(self, tokens: torch.Tensor, params: Optional[dict] = None) -> torch.Tensor:
         """Backbone: tokens ``[B, T]`` → final hidden ``[B, T, d]`` after the
@@ -208,9 +245,9 @@ class Llama(nn.Module):
         cos, sin = rope_angles(T, cfg.head_dim, cfg.rope_theta, tokens.device)
         for p in params["blocks"]:
             if cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(_block, x, p, cfg, cos, sin, use_reentrant=False)
+                x = checkpoint(_block, x, p, cfg, cos, sin, self.tp, use_reentrant=False)
             else:
-                x = _block(x, p, cfg, cos, sin)
+                x = _block(x, p, cfg, cos, sin, self.tp)
         return rms_norm(x, params["ln_f"], cfg.rms_eps)
 
     def head(self, x: torch.Tensor, params: Optional[dict] = None) -> torch.Tensor:

@@ -18,9 +18,17 @@ again. The two frameworks' masks differ; their statistics agree.
 
 :data:`DPO_TARGET_PATTERNS` is the reference's wider DPO target set, and
 :func:`lora_apply_fn` wraps a model over a closed-over frozen base into a
-function of the adapters (the DPO policy). Tensor parallelism
-(``copy_to_tp_region``, ``lora_adapter_specs``) is not ported (ROADMAP
-Queue 1 item 9).
+function of the adapters (the DPO policy).
+
+Under tensor parallelism (JAX lora.py:214-286) the base holds this rank's
+slices and the adapters shard with their targets
+(:func:`lora_adapter_specs`): ``A`` takes the base's dim-0 split, ``B`` its
+output-dim split. The factor that is replicated while its partner is split
+(``A`` of a column-parallel target, ``B`` of a row-parallel one) enters
+through *f* (``copy_to_tp_region``, :func:`apply_adapters`): its backward
+carries only the local slice's share, which the tensor group sums. A target
+split nowhere computes the whole gradient on every rank and is not wrapped.
+:func:`lora_init` cuts each rank's slices from the unsplit draws.
 """
 
 from __future__ import annotations
@@ -34,6 +42,8 @@ import torch
 
 from distributed_lion_tpu_torch.models.gpt2 import fold_seed
 from distributed_lion_tpu_torch.ops.quant import QuantizedTensor, maybe_dequant
+from distributed_lion_tpu_torch.parallel.mesh import TensorAxis
+from distributed_lion_tpu_torch.parallel.tensor_parallel import copy_to_tp_region, shard
 
 
 @dataclasses.dataclass
@@ -126,11 +136,14 @@ def iter_paths(tree, prefix=()):
 
 
 def lora_init(base_params: Any, cfg: LoraConfig, *, seed: int = 0,
-              dtype=torch.float32, device=None) -> dict:
+              dtype=torch.float32, device=None, tp: Optional[TensorAxis] = None,
+              base_rule: Optional[Callable] = None) -> dict:
     """``{path: {"A", "B"}}`` for every weight leaf whose last path
     component matches a target pattern: A ~ N(0, 1/r), B = 0 (the adapter
     starts as the identity). Draws are made on the CPU from ``seed``, one
-    generator per site in the tree's order."""
+    generator per site in the tree's order. Over a base of ``tp`` slices
+    (``base_rule(path) -> dim or None``) A is drawn whole and sliced."""
+    tp = tp or TensorAxis()
     paths = [(path, leaf) for path, leaf in iter_paths(base_params)
              if _is_weight_leaf(leaf)
              and any(re.fullmatch(p, path[-1]) for p in cfg.target_patterns)]
@@ -139,12 +152,34 @@ def lora_init(base_params: Any, cfg: LoraConfig, *, seed: int = 0,
     adapters = {}
     for i, (path, leaf) in enumerate(paths):
         d_in, out_dims = leaf.shape[0], tuple(leaf.shape[1:])
+        split_in = tp.size > 1 and base_rule("/".join(path)) == 0
         dev = device if device is not None else leaf.device
         gen = torch.Generator().manual_seed(fold_seed(seed, i))
-        a = torch.randn(d_in, cfg.r, generator=gen) / math.sqrt(cfg.r)
+        rows = d_in * (tp.size if split_in else 1)
+        a = torch.randn(rows, cfg.r, generator=gen) / math.sqrt(cfg.r)
+        if split_in:
+            a = shard(a, 0, tp.size, tp.rank)
         adapters["/".join(path)] = {"A": a.to(dtype=dtype, device=dev),
                                     "B": torch.zeros((cfg.r, *out_dims), dtype=dtype, device=dev)}
     return adapters
+
+
+def lora_adapter_specs(adapters: dict, base_rule: Callable) -> dict:
+    """``{path: {"A": dim or None, "B": dim or None}}``, the dims of each
+    adapter factor split over the tensor axis (JAX lora.py:270-286): ``A
+    [d_in, r]`` inherits the base's dim-0 split, ``B [r, *out_dims]`` its
+    output-dim split."""
+    specs = {}
+    for path in adapters:
+        dim = base_rule(path)
+        specs[path] = {"A": 0 if dim == 0 else None,
+                       "B": dim if dim is not None and dim >= 1 else None}
+    return specs
+
+
+def adapter_shard_rule(specs: dict) -> Callable:
+    """The shard rule of the adapters' flat names (``path/A``, ``path/B``)."""
+    return lambda name: specs[name.rsplit("/", 1)[0]][name.rsplit("/", 1)[1]]
 
 
 def adapter_named_parameters(adapters: dict) -> list:
@@ -194,30 +229,45 @@ def merge_lora(base_params: Any, adapters: dict, cfg: LoraConfig,
 
 
 def apply_adapters(base_params: Any, adapters: dict, cfg: LoraConfig,
-                   dropout_seed: Optional[int] = None) -> Any:
+                   dropout_seed: Optional[int] = None, tp: Optional[TensorAxis] = None,
+                   base_rule: Optional[Callable] = None) -> Any:
     """The base tree with each adapted leaf swapped for a :class:`LoraTensor`
     (factored form). ``dropout_seed`` (training only) arms ``cfg.dropout``
     on every adapter branch, site ``i`` of the sorted paths seeded
-    ``fold_seed(dropout_seed, i)``."""
+    ``fold_seed(dropout_seed, i)``. Under ``tp`` (size > 1, the base split by
+    ``base_rule``) the replicated factor of a split target enters through
+    *f* (module doc)."""
     effective = _copy_tree(base_params)
     rate = cfg.dropout if dropout_seed is not None else 0.0
     site = {p: i for i, p in enumerate(sorted(adapters))}
+    group = tp.group if tp is not None and tp.size > 1 else None
     for path_str, ab in adapters.items():
         path = tuple(path_str.split("/"))
         seed = fold_seed(dropout_seed, site[path_str]) if rate > 0.0 else None
-        _tree_set(effective, path, LoraTensor(_tree_get(base_params, path), ab["A"], ab["B"],
+        a, b = ab["A"], ab["B"]
+        if group is not None:
+            dim = base_rule(path_str)
+            if dim is not None and dim >= 1:   # column-parallel: A replicated
+                a = copy_to_tp_region(a, group)
+            elif dim == 0:                     # row-parallel: B replicated
+                b = copy_to_tp_region(b, group)
+        _tree_set(effective, path, LoraTensor(_tree_get(base_params, path), a, b,
                                               cfg.scaling, rate, seed))
     return effective
 
 
-def lora_apply_fn(base_apply: Callable, base_params: Any, cfg: LoraConfig) -> Callable:
+def lora_apply_fn(base_apply: Callable, base_params: Any, cfg: LoraConfig,
+                  tp: Optional[TensorAxis] = None, base_rule: Optional[Callable] = None
+                  ) -> Callable:
     """Wrap ``base_apply(params, tokens, *args, **kw)`` into ``apply(adapters,
     tokens, *args, dropout_seed=None, **kw)`` over the closed-over frozen
     ``base_params``: the adapted leaves are swapped in per call
-    (:func:`apply_adapters`), so only the adapters take gradients."""
+    (:func:`apply_adapters`, with ``tp`` and ``base_rule``), so only the
+    adapters take gradients."""
 
     def apply(adapters, tokens, *args, dropout_seed: Optional[int] = None, **kwargs):
-        return base_apply(apply_adapters(base_params, adapters, cfg, dropout_seed=dropout_seed),
+        return base_apply(apply_adapters(base_params, adapters, cfg, dropout_seed=dropout_seed,
+                                         tp=tp, base_rule=base_rule),
                           tokens, *args, **kwargs)
 
     return apply

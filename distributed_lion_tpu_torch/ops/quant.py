@@ -17,6 +17,12 @@ flattened weight, zero-padded to whole blocks). Codes and absmax are
 byte-identical to the JAX package's on the same weights, and dequantized
 values bit-identical: ``levels × absmax`` in float32, cast once.
 
+Under tensor parallelism a ``shaped`` leaf shards along the dense weight's
+dims (``parallel.tensor_parallel.shard``): its codes and absmax are sliced on
+the same dims, and each rank dequantizes only its slice, which is the slice
+of the dequantized weight wherever :func:`validate_quant_tp` lets it through
+(block-aligned on the last dim, whole bytes of NF4's two codes).
+
 Plain PyTorch: the JAX package computes this in XLA, outside any Pallas
 kernel. A fused dequantize-and-multiply kernel is later work (ROADMAP
 Queue 2).
@@ -184,3 +190,46 @@ def quantize_tree(params: Any, fmt: str = "nf4", min_size: int = 4096,
 def dequantize_tree(params: Any, dtype=torch.float32) -> Any:
     """A dense copy of a tree with quantized leaves (for the merged save)."""
     return map_tree(lambda w: maybe_dequant(w, dtype), params)
+
+
+def validate_quant_tp(params: Any, rule, tp: int) -> None:
+    """Refuse, with the leaf's path, a quantized leaf that cannot shard
+    under the shard rule ``rule(dotted path) -> dim or None`` (JAX
+    quant.py:208-245, same words): a flat-layout leaf cannot shard at all;
+    a shaped one needs each split dim divisible, on the last dim both
+    ``last / (2 for nf4, else 1)`` and ``last / block``."""
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, prefix + (str(k),))
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                walk(v, prefix + (str(i),))
+        elif isinstance(tree, QuantizedTensor):
+            check("/".join(prefix), tree, rule(".".join(prefix)))
+
+    def check(path, leaf, dim):
+        if dim is None or tp == 1:
+            return
+        if leaf.layout != "shaped":
+            raise ValueError(
+                f"quantized leaf {path!r} has the flat layout (block {leaf.block} does not "
+                f"divide last dim {leaf.shape[-1]}"
+                + (", or is odd for nf4's 2-codes/byte packing"
+                   if leaf.fmt == "nf4" and leaf.block % 2 else "")
+                + ") and cannot shard over 'tensor'; pick a block size that divides the "
+                "last dim (--quant_block)")
+        if dim < len(leaf.shape) - 1:
+            if leaf.shape[dim] % tp:
+                raise ValueError(f"quantized leaf {path!r} dim {dim} ({leaf.shape[dim]}) not "
+                                 f"divisible by tensor axis {tp}")
+            return
+        last = leaf.shape[-1]
+        pack = 2 if leaf.fmt == "nf4" else 1
+        if (last // pack) % tp or (last // leaf.block) % tp:
+            raise ValueError(
+                f"quantized leaf {path!r} last dim {last} cannot shard {tp}-way: needs "
+                f"last/{pack} and last/block ({last}/{leaf.block}={last // leaf.block}) both "
+                f"divisible by {tp}; shrink --quant_block")
+
+    walk(params, ())

@@ -1,4 +1,4 @@
-"""Chunked-vocabulary cross entropy: port of ``distributed_lion_tpu/ops/xent.py`` (its collective-free part).
+"""Chunked and vocab-parallel cross entropy: port of ``distributed_lion_tpu/ops/xent.py``.
 
 The causal-LM loss without the ``[N, V]`` float32 logits: the head's
 product, the streaming logsumexp, the label gather and the argmax of the
@@ -41,10 +41,21 @@ memory is one ``[N, vc]`` float32 chunk in each pass.
 
 :func:`chunked_clm_loss_and_metrics` is the shift-by-one causal-LM loss
 from final hidden states (``models.loss.clm_loss_and_metrics``' contract);
-:func:`masked_local_nll` gives the masked sums for a loss of its own. The
-tensor- and sequence-parallel variants (``tp_vocab_xent``,
-``tp_vocab_clm_loss_and_metrics``, ``chunked_clm_loss_seq_parallel``) are
-not ported (ROADMAP Queue 1 item 11).
+:func:`masked_local_nll` gives the masked sums for a loss of its own.
+
+:func:`tp_vocab_xent` is Megatron's vocab-parallel cross entropy
+(xent.py:123-190): each tensor rank holds ``[d, V/tp]`` contiguous columns of
+the head and computes only their logits. The normalizer comes from the
+maximum over ranks of the detached logits and the sum over ranks of the
+rank's ``Σ exp`` (*g*); the label logit from the one rank whose columns hold
+it (*g*); columns at or above ``valid_v`` are −inf; the argmax of the
+accuracy metric is the maximum over ranks, then the minimum id among the
+ranks that reach it, which keeps the dense argmax's lowest-index tie rule.
+``hidden`` enters through *f*, so its cotangent is summed over the tensor
+group. :func:`tp_vocab_clm_loss_and_metrics` is its shift-by-one causal-LM
+loss (xent.py:290-305). The sequence-parallel variant
+(``chunked_clm_loss_seq_parallel``) is not ported (ROADMAP Queue 1 item
+11(d)).
 """
 
 from __future__ import annotations
@@ -54,6 +65,13 @@ from typing import Callable, Optional
 import torch
 
 from distributed_lion_tpu_torch.ops.products import matmul_f32, product_f32
+from distributed_lion_tpu_torch.parallel.mesh import TensorAxis
+from distributed_lion_tpu_torch.parallel.tensor_parallel import (
+    all_max,
+    all_min,
+    copy_to_tp_region,
+    reduce_from_tp_region,
+)
 
 LAYOUTS = ("vd", "dv")
 
@@ -200,6 +218,50 @@ def chunked_clm_loss_and_metrics(hidden: torch.Tensor, emb: torch.Tensor,
     return _shifted_clm_metrics(
         lambda h, lab: chunked_softmax_xent(h, emb, lab, n_chunks, emb_layout, valid_v),
         hidden, tokens, loss_mask)
+
+
+def tp_vocab_xent(hidden: torch.Tensor, head_shard: torch.Tensor, labels: torch.Tensor,
+                  tp: TensorAxis, valid_v: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Vocab-parallel cross entropy (module doc). ``hidden`` ``[N, d]``,
+    replicated over the tensor group; ``head_shard`` ``[d, V/tp]``, this
+    rank's columns ``[t·V/tp, (t+1)·V/tp)``; ``labels`` ``[N]``. Returns
+    ``(nll [N] float32, correct [N] bool)``, the same on every rank."""
+    vshard = head_shard.shape[1]
+    start = tp.rank * vshard
+    hidden = copy_to_tp_region(hidden, tp.group)
+    logits = matmul_f32(hidden, head_shard.to(hidden.dtype))
+    cols = start + torch.arange(vshard, device=hidden.device)
+    if valid_v > 0:
+        # padding columns: out of the normalizer and the argmax, zero grad
+        logits = logits.masked_fill((cols >= valid_v)[None, :], float("-inf"))
+    with torch.no_grad():
+        # the shift cancels in the softmax's gradient: detached, exactly
+        m = all_max(logits.max(-1).values, tp.group)
+    se = reduce_from_tp_region(torch.exp(logits - m[:, None]).sum(-1), tp.group)
+    lse = torch.log(se) + m
+    labels = labels.long()
+    in_range = (labels >= start) & (labels < start + vshard)
+    idx = torch.clamp(labels - start, 0, vshard - 1)
+    lab = torch.gather(logits, 1, idx[:, None])[:, 0]
+    label_logit = reduce_from_tp_region(torch.where(in_range, lab, 0.0), tp.group)
+    nll = lse - label_logit
+    with torch.no_grad():
+        stopped = logits.detach()
+        cand = torch.where(stopped.max(-1).values == m, stopped.argmax(-1) + start,
+                           torch.full_like(labels, 2**30))
+        best = all_min(cand, tp.group)
+    return nll, best == labels
+
+
+def tp_vocab_clm_loss_and_metrics(hidden: torch.Tensor, head_shard: torch.Tensor,
+                                  tokens: torch.Tensor, tp: TensorAxis,
+                                  loss_mask: Optional[torch.Tensor] = None, valid_v: int = 0):
+    """The shift-by-one causal-LM loss over a vocab-split head (xent.py:290-305):
+    the contract of :func:`chunked_clm_loss_and_metrics`; ``valid_v`` masks a
+    padded head's alignment columns."""
+    return _shifted_clm_metrics(
+        lambda h, lab: tp_vocab_xent(h, head_shard, lab, tp, valid_v), hidden, tokens,
+        loss_mask)
 
 
 def masked_local_nll(hidden: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,

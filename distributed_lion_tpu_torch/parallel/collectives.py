@@ -175,7 +175,9 @@ class HierGroups:
     position in every group (``cross``); None where a group would hold one
     rank. ``dist.new_group`` is collective over the default group, so every
     rank of it builds this, in the same order, once (the optimizer does so
-    at init)."""
+    at init). Where ``group`` is one of several vote groups (the data groups
+    of a dp × tp grid), the ranks first gather every group's members and
+    each process builds the subgroups of all of them, in one order."""
 
     def __init__(self, group, size: int):
         ranks = dist.get_process_group_ranks(group)
@@ -185,14 +187,21 @@ class HierGroups:
         me = dist.get_rank(group)
         self.size, self.n_groups = size, w // size
         self.intra = self.cross = None
-        for k in range(self.n_groups if size > 1 else 0):
-            sub = dist.new_group(ranks[k * size:(k + 1) * size])
-            if k == me // size:
-                self.intra = sub
-        for i in range(size if self.n_groups > 1 else 0):
-            sub = dist.new_group(ranks[i::size])
-            if i == me % size:
-                self.cross = sub
+        peers = [tuple(ranks)]
+        if w < dist.get_world_size():
+            every = [None] * dist.get_world_size()
+            dist.all_gather_object(every, tuple(ranks))
+            peers = sorted(set(every))
+        for part in peers:
+            mine = part == tuple(ranks)
+            for k in range(self.n_groups if size > 1 else 0):
+                sub = dist.new_group(list(part[k * size:(k + 1) * size]))
+                if mine and k == me // size:
+                    self.intra = sub
+            for i in range(size if self.n_groups > 1 else 0):
+                sub = dist.new_group(list(part[i::size]))
+                if mine and i == me % size:
+                    self.cross = sub
 
     @classmethod
     def local(cls) -> "HierGroups":

@@ -21,10 +21,12 @@ With ``vocab_chunks`` > 0 the apply functions return ``(hidden, head)``
 in place of logits and the label logprobs stream through the
 chunked-vocabulary cross entropy (:func:`sequence_logprob_chunked`,
 ``ops/xent.py``): none of the four passes writes a ``[B, T, V]`` float32
-``log_softmax``. Not ported, and refused by name: the sequence-parallel
-logprobs (``seq_axis``) and the frozen-as-argument variant that tensor
-parallelism uses (``make_dpo_loss_fn_frozen``), both ROADMAP Queue 1 item
-11.
+``log_softmax``. Under tensor parallelism the apply functions close over
+this rank's slices and reduce over the tensor group inside the model, so
+the loss needs no variant of its own (the JAX package threads the frozen
+trees through its step as arguments, ``make_dpo_loss_fn_frozen``; here they
+stay in the closures). Not ported, and refused by name: the
+sequence-parallel logprobs (``seq_axis``, ROADMAP Queue 1 item 11(d)).
 """
 
 from __future__ import annotations
@@ -70,7 +72,7 @@ def make_dpo_loss_fn(policy_apply: Callable, ref_apply: Callable, beta: float = 
     if seq_axis is not None:
         raise NotImplementedError(
             "seq_axis (the sequence-parallel DPO logprobs) is not ported "
-            "(ROADMAP Queue 1 item 11)")
+            "(ROADMAP Queue 1 item 11(d))")
 
     def seqlp(out, tokens, mask):
         if vocab_chunks <= 0:

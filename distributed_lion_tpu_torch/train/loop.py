@@ -144,8 +144,32 @@ the first step runs under ``WIRE_TALLY.capture()`` and every row carries
 bytes) beside ``comm_bytes_per_step``, and ``host_step_skew`` (the ranks'
 step counters' spread over a gloo side group).
 
+**Tensor parallelism** (``tensor_parallel`` tp > 1, JAX loop.py:720-860,
+:2395-2698, :2877-2915). The trainer takes a ``parallel.mesh.Grid``: the
+vote, ``_mean_over_ranks``, the sentinel and the eval mean run on the data
+group, the model's reductions on the tensor group, and the flat buffers
+hold the rank's slices (``shard_rule`` names the split dim of each leaf),
+so each data group votes on its own coordinates. Every decision of "rank
+0" (the logger, the banners, the params of a checkpoint, the crash bundle)
+is global rank 0's, and the journal and trace files are named by the
+global rank. The pre-clip norm (``--max_grad_norm``, the sentinel) sums a
+split leaf's squares over the tensor group and counts a replicated leaf
+once. Checkpoints keep a data-parallel run's files: the params gathered
+over the tensor group into whole JAX-layout leaves (global rank 0), each
+data rank's momentum gathered the same way (its tensor rank 0); a resume
+slices them, so a tp checkpoint resumes at another tp. The DCN pipeline's
+ring is the exception: it holds a rank's own ballot bytes, one file a
+tensor rank (``dcn_ring/rank<r>_tensor<t>.pt``), so a checkpoint with a
+ring resumes only at its own tp (``check_resume_meta``). The JAX package's
+refusals under split params hold, in its words: ``vote_every`` > 1,
+``telemetry``, ``vote_guard`` (so ``control_plane``), ``zero1``, AdamW;
+``tp_vocab`` without tp > 1 or with ``vocab_chunks``, and a vocabulary,
+head count or width that does not divide. The banner's bits per param and
+``comm_stats`` count the whole model's coordinates at the data world, as
+the JAX package does.
+
 ``TrainConfig`` holds only the fields the port runs, with their JAX
-defaults; the others (the tensor, sequence, pipeline and expert axes,
+defaults; the others (the sequence, pipeline and expert axes,
 ``--ep_dcn_pipeline``, …) are not flags here, so argparse refuses them.
 """
 
@@ -163,7 +187,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from distributed_lion_tpu_torch.models.gpt2 import GPT2, GPT2Config, count_params, fold_seed
+from distributed_lion_tpu_torch.models.gpt2 import GPT2, GPT2Config, fold_seed
 from distributed_lion_tpu_torch.models.llama import Llama, LlamaConfig, as_parameters, llama_init
 from distributed_lion_tpu_torch.models.loss import clm_loss_and_metrics
 from distributed_lion_tpu_torch.ops.codec import (
@@ -172,7 +196,10 @@ from distributed_lion_tpu_torch.ops.codec import (
     wire_bytes_per_param,
 )
 from distributed_lion_tpu_torch.ops.quant import map_tree
-from distributed_lion_tpu_torch.ops.xent import chunked_clm_loss_and_metrics
+from distributed_lion_tpu_torch.ops.xent import (
+    chunked_clm_loss_and_metrics,
+    tp_vocab_clm_loss_and_metrics,
+)
 from distributed_lion_tpu_torch.optim.distributed_lion import (
     distributed_lion,
     heal_rank_momentum,
@@ -183,7 +210,8 @@ from distributed_lion_tpu_torch.optim.lion import FlatParams, LionState, fresh_g
 from distributed_lion_tpu_torch.optim.optax_adapter import AdamWState, adamw
 from distributed_lion_tpu_torch.optim.zero import Zero1State, adamw_zero1
 from distributed_lion_tpu_torch.parallel import collectives
-from distributed_lion_tpu_torch.parallel.mesh import rank_of, resolve_device
+from distributed_lion_tpu_torch.parallel import tensor_parallel as tpar
+from distributed_lion_tpu_torch.parallel.mesh import Grid, data_grid, resolve_device
 from distributed_lion_tpu_torch.train import (
     control_plane,
     journal,
@@ -262,6 +290,8 @@ class TrainConfig:
     control_plane: bool = False  # membership lifecycle (train/control_plane.py); arms enforce
     rejoin_probe_steps: int = 0  # a rejoiner's probation; 0 = guard_cooldown
     inject_membership: str = ""  # 'worker_drop:<w>[:<s>],worker_rejoin:<w>:<s>' (needs the plane)
+    tensor_parallel: int = 1  # the tensor axis: tp consecutive ranks split the model
+    tp_vocab: bool = False  # with tp > 1: split the embedding/head by vocabulary too
 
     def schedule(self) -> Callable:
         if self.lr_scheduler_type == "cosine":
@@ -285,13 +315,14 @@ AUTO_LAZY_MIN_PARAMS = 10_000_000
 
 def resolve_auto_comm(cfg: TrainConfig, world: int, n_params: int,
                       nodes: int = 1, local_world: int = 1,
-                      announce: bool = False) -> TrainConfig:
+                      announce: bool = False, params_replicated: bool = True) -> TrainConfig:
     """Resolve ``wire='auto'``, ``vote_every=0`` and ``vote_buckets=0``, the
     JAX package's decision table (loop.py:436-532) with the torchrun world
     in place of the mesh: W=1 → sign_psum; several nodes whose local ranks
     form whole groups → hier:<local ranks>; else packed_a2a. vote_every →
     1; with ``announce``, a Lion run at W > 1 of at least
-    ``AUTO_LAZY_MIN_PARAMS`` coordinates prints what ``--vote_every 4``
+    ``AUTO_LAZY_MIN_PARAMS`` coordinates over replicated params (lazy
+    refresh is refused over split ones) prints what ``--vote_every 4``
     would cut the wire to (JAX loop.py:489-500). vote_buckets → 4 when
     there is a wire and the ballot has at least ``AUTO_BUCKET_MIN_COORDS``
     coordinates, else 1."""
@@ -307,7 +338,8 @@ def resolve_auto_comm(cfg: TrainConfig, world: int, n_params: int,
             wire = "packed_a2a"
     if ve == 0:
         ve = 1  # lazy refresh is opt-in, as in the JAX package
-        if announce and cfg.lion and world > 1 and n_params >= AUTO_LAZY_MIN_PARAMS:
+        if (announce and params_replicated and cfg.lion and world > 1
+                and n_params >= AUTO_LAZY_MIN_PARAMS):
             bits = wire_bytes_per_param(n_params, world, wire, vote_every=4)["bits_per_param"]
             emit(f"[trainer] auto comm: wire={wire} vote_every=1 (strict every-step voting). "
                  f"Lazy --vote_every 4 would cut the {n_params / 1e6:.0f}M-coordinate ballot "
@@ -321,12 +353,15 @@ def resolve_auto_comm(cfg: TrainConfig, world: int, n_params: int,
 
 
 def _resolve_for_world(cfg: TrainConfig, world: int, n_params: int,
-                       announce: bool = False) -> TrainConfig:
+                       announce: bool = False, tp: int = 1) -> TrainConfig:
     """resolve_auto_comm with torchrun's host layout: ``LOCAL_WORLD_SIZE``
-    ranks share a node."""
-    local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    ranks share a node, ``LOCAL_WORLD_SIZE / tp`` data ranks of it (JAX
+    loop.py:455-466: the hier groups are data ranks sharing a host); params
+    split over a tensor axis are not replicated (JAX :2405-2410)."""
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", world * tp))
+    local = local // tp if local % tp == 0 else 0
     return resolve_auto_comm(cfg, world, n_params, nodes=max(1, world // max(local, 1)),
-                             local_world=local, announce=announce)
+                             local_world=local, announce=announce, params_replicated=tp == 1)
 
 
 def make_optimizer(cfg: TrainConfig, group=None):
@@ -435,6 +470,57 @@ def arm_control_plane(cfg: TrainConfig) -> tuple[TrainConfig, bool]:
     return cfg, armed
 
 
+def _refuse_split_params(cfg: TrainConfig, tp: int) -> None:
+    """The JAX trainer's refusals under params split over the tensor axis
+    (loop.py:761-771, 823-860), in its words."""
+    axes = ["tensor"]
+    if cfg.zero1:
+        raise ValueError(
+            f"--zero1 is incompatible with a 'tensor' mesh axis of size {tp}: inside "
+            "shard_map each tensor rank ravels its own local param shard, so the m/v chunks "
+            "diverge across ranks while the out_specs assume tensor-replication — one rank's "
+            "moments would silently win. Use pure data parallelism with ZeRO-1.")
+    if not cfg.lion:
+        raise NotImplementedError("tensor-parallel param_specs require the Lion path")
+    if cfg.vote_every > 1:
+        raise ValueError(
+            f"--vote_every > 1 is incompatible with params sharded over {axes}: each rank's "
+            "ballot covers its own local param shards, so the elected-sign caches differ "
+            "across ranks while the P() spec declares them replicated — one rank's cache "
+            "would silently win and stale signs would land on the wrong coordinates. Use "
+            "lazy vote refresh with replicated params (dp / dp x sp).")
+    if cfg.telemetry:
+        raise ValueError(
+            f"--telemetry is incompatible with params sharded over {axes}: each rank's "
+            "ballot covers its own local shards, so the packed election state the "
+            "accumulator carries would differ across ranks while its P() spec declares it "
+            "replicated. Use vote-health telemetry with replicated params (dp / dp x sp).")
+    if vote_guard.parse_guard_mode(cfg.vote_guard) != "off":
+        raise ValueError(
+            f"--vote_guard is incompatible with params sharded over {axes}: the guard's "
+            "per-worker ballot state covers each rank's LOCAL shards, so health decisions "
+            "would mix different coordinate sets. Use the vote guard with replicated params "
+            "(dp / dp x sp).")
+
+
+def _check_tp_vocab(cfg: TrainConfig, tp: int, rows: int, gpt2: bool) -> None:
+    """``--tp_vocab``'s rules (JAX loop.py:2596-2617, 2788-2805): ``rows``
+    are GPT-2's padded embedding rows or Llama's vocabulary."""
+    if not cfg.tp_vocab:
+        return
+    if tp <= 1:
+        raise ValueError("--tp_vocab needs --tensor_parallel > 1 (it shards the "
+                         + ("tied embedding" if gpt2 else "lm_head") + " over the tensor axis)")
+    if cfg.vocab_chunks > 0:
+        raise NotImplementedError(
+            "--tp_vocab and --vocab_chunks are alternative head strategies; pick one")
+    if rows % tp:
+        raise ValueError(
+            f"--tp_vocab: embedding rows {rows} not divisible by tensor axis {tp}; "
+            "vocab_pad_multiple (models/gpt2) pads a ragged vocab so it shards evenly" if gpt2
+            else f"--tp_vocab: vocab {rows} not divisible by tensor axis {tp}")
+
+
 LossFn = Callable[[object, Optional[int]], tuple]
 
 # a checkpoint step's files (train/checkpoint.py): rank 0's, and each rank's
@@ -448,9 +534,12 @@ def momentum_file(rank: int) -> str:
     return f"exp_avg/rank{rank:05d}.pt"
 
 
-def ring_file(rank: int) -> str:
-    """The DCN pipeline's in-flight slots of ``rank``."""
-    return f"dcn_ring/rank{rank:05d}.pt"
+def ring_file(rank: int, tensor_rank: Optional[int] = None) -> str:
+    """The DCN pipeline's in-flight slots of ``rank`` (of its tensor rank's
+    slice under a tensor axis: the slots are of a rank's own ballot)."""
+    if tensor_rank is None:
+        return f"dcn_ring/rank{rank:05d}.pt"
+    return f"dcn_ring/rank{rank:05d}_tensor{tensor_rank:05d}.pt"
 
 
 def zero1_file(rank: int) -> str:
@@ -462,6 +551,35 @@ def prev_ballot_file(rank: int) -> str:
     """The vote guard's previous ballot of ``rank`` (the mask is in
     ``STATE_FILE``)."""
     return f"prev_ballot/rank{rank:05d}.pt"
+
+
+def check_resume_meta(step: int, meta: dict, cfg: TrainConfig, tp: int) -> None:
+    """Refuse, before any file is read, a checkpoint whose in-flight state
+    this run cannot take: a DCN ring written at another depth or, its files
+    being a tensor rank's each, at another tp; an expert-axis ring."""
+    # the ring's slots are the depth's in-flight steps: no remap
+    ckpt_depth = int(meta.get("dcn_pipeline_depth", 0) or 0)
+    if ckpt_depth != cfg.dcn_pipeline_depth:
+        raise ValueError(
+            f"checkpoint step {step} was written at "
+            f"--dcn_pipeline_depth {ckpt_depth} but this run "
+            f"uses {cfg.dcn_pipeline_depth}: the in-flight"
+            " DCN tally ring does not survive a depth change. "
+            "Resume with the matching depth (then change it at "
+            "the NEXT fresh start), or point --output_dir "
+            "elsewhere")
+    ckpt_tp = int(meta.get("tensor_parallel", 1) or 1)
+    if ckpt_depth > 0 and ckpt_tp != tp:
+        raise ValueError(
+            f"checkpoint step {step} was written at --tensor_parallel {ckpt_tp} with a DCN "
+            f"ring, and this run has --tensor_parallel {tp}: the ring holds each tensor "
+            "rank's own ballot bytes (dcn_ring/rank<r>_tensor<t>.pt), which do not reshard. "
+            f"Resume at --tensor_parallel {ckpt_tp}")
+    if int(meta.get("ep_dcn_pipeline", 0) or 0):
+        raise ValueError(
+            f"checkpoint step {step} was written at --ep_dcn_pipeline "
+            f"{meta['ep_dcn_pipeline']}; the port has no expert axis "
+            "(ROADMAP Queue 1 item 11(e))")
 
 
 class HostCopy:
@@ -526,18 +644,20 @@ def chunked_clm_loss_fn(hidden_and_head: Callable, n_chunks: int, emb_layout: st
     return loss_fn
 
 
-def _announce(family: str, n: int, world: int, cfg: TrainConfig, device) -> None:
-    """The trainer's banner (JAX loop.py:2722-2731): params, world, and the
-    vote wire with its bits per param per step."""
+def _announce(family: str, n: int, world: int, cfg: TrainConfig, device, tp: int = 1) -> None:
+    """The trainer's banner (JAX loop.py:2722-2731): params, world (and tp),
+    and the vote wire with its bits per param per step, of the whole
+    model's ``n`` coordinates as the JAX package counts them."""
+    where = f"world={world}" + (f" tp={tp}" if tp > 1 else "")
     if not cfg.lion:
-        emit(f"[trainer] {family} {n/1e6:.1f}M params | world={world} | AdamW"
+        emit(f"[trainer] {family} {n/1e6:.1f}M params | {where} | AdamW"
              + (" ZeRO-1" if cfg.zero1 else "") + f", gradient all_reduce | device={device}")
         return
     acct = wire_bytes_per_param(n, world, cfg.wire, vote_every=cfg.vote_every,
                                 accum_steps=cfg.gradient_accumulation_steps,
                                 vote_buckets=cfg.vote_buckets,
                                 dcn_pipeline_depth=cfg.dcn_pipeline_depth)
-    emit(f"[trainer] {family} {n/1e6:.1f}M params | world={world} | vote wire={cfg.wire}"
+    emit(f"[trainer] {family} {n/1e6:.1f}M params | {where} | vote wire={cfg.wire}"
          + (f" (vote_buckets={cfg.vote_buckets})" if cfg.vote_buckets > 1 else "")
          + (f" (vote_every={cfg.vote_every})" if cfg.vote_every > 1 else "")
          + f": {acct['bits_per_param']:.2f} bits/param/step"
@@ -546,6 +666,12 @@ def _announce(family: str, n: int, world: int, cfg: TrainConfig, device) -> None
          + (f" | DCN pipeline depth {cfg.dcn_pipeline_depth}"
             if cfg.dcn_pipeline_depth > 0 else "")
          + f" | device={device}")
+
+
+def _whole_count(named, rule, tp: int) -> int:
+    """The coordinates of the whole leaves of which ``named`` holds slices."""
+    return sum(math.prod(tpar.full_shape(tuple(p.shape), rule(name) if tp > 1 else None, tp))
+               for name, p in named)
 
 
 def announce_guards(trainer: "Trainer", prog: str) -> None:
@@ -588,7 +714,7 @@ def announce_guards(trainer: "Trainer", prog: str) -> None:
     if cfg.journal:
         where = trainer.journal.directory
         say(f"[{prog}] run journal on: "
-            + (f"{where}/{journal.journal_filename(trainer.rank)} per rank"
+            + (f"{where}/{journal.journal_filename(trainer.global_rank)} per rank"
                if where else "ring-only (no --journal_dir or --output_dir)")
             + f"; python -m distributed_lion_tpu_torch.cli.run_analyze {where or '<dir>'}")
 
@@ -607,20 +733,30 @@ def report_preempted(trainer: "Trainer", prog: str) -> bool:
 class Trainer:
     """Train/eval loop on one rank over ``named_params`` (in the JAX
     package's leaf order: the flat buffers' layout) and ``loss_fn``.
-    ``group`` is the vote's process group (None: a world of one);
-    ``model``, where given, is the module ``loss_fn`` runs, for the caller
-    (``for_gpt2``'s GPT-2: ``run_clm`` saves it)."""
+    ``grid`` is the dp × tp grid (``parallel.mesh.make_grid``; a
+    data-parallel run over a process group passes ``data_grid(group)``;
+    None: a world of one) with ``shard_rule(name) -> dim or None`` naming
+    the tensor split of each parameter (module doc); ``model``, where
+    given, is the module ``loss_fn`` runs, for the caller (``for_gpt2``'s
+    GPT-2: ``run_clm`` saves it)."""
 
-    def __init__(self, cfg: TrainConfig, named_params, loss_fn: LossFn, *, group=None,
-                 model=None):
-        self.world = collectives.world_of(group)
-        self.rank = rank_of(group)
-        self.group = group
+    def __init__(self, cfg: TrainConfig, named_params, loss_fn: LossFn, *, model=None,
+                 grid: Optional[Grid] = None, shard_rule=None):
+        grid = grid or data_grid()
+        if grid.tp != cfg.tensor_parallel:
+            raise ValueError(f"--tensor_parallel {cfg.tensor_parallel} but the grid's tensor "
+                             f"axis is {grid.tp}: pass parallel.mesh.make_grid's grid")
+        self.grid, self.tensor = grid, grid.tensor
+        self.world = grid.dp
+        self.rank = grid.data_rank     # the vote's rank: batch rows, seeds, momentum files
+        self.global_rank = grid.rank   # files, logs and every "rank 0" decision
+        self.chief = grid.rank == 0
+        self.group = grid.data
         cfg, plane_armed = arm_control_plane(cfg)
         # the journal comes up first, so every message below is in it
         jdir = cfg.journal_dir or (os.path.join(cfg.output_dir, "journal")
                                    if cfg.output_dir else "")
-        self.journal = (journal.Journal(jdir or None, rank=self.rank) if cfg.journal
+        self.journal = (journal.Journal(jdir or None, rank=self.global_rank) if cfg.journal
                         else journal.NULL)
         if cfg.journal:
             journal.install(self.journal)
@@ -628,8 +764,18 @@ class Trainer:
             raise NotImplementedError(
                 "--vocab_chunks is not wired into this entry point's loss function "
                 "(supported: run_clm, run_sft, run_dpo)")
-        n = sum(p.numel() for _, p in named_params)
-        cfg = _resolve_for_world(cfg, self.world, n, announce=self.rank == 0)
+        tp = grid.tp
+        self._dims = [None if tp == 1 or shard_rule is None else shard_rule(name)
+                      for name, _ in named_params]
+        self._local_shapes = [tuple(p.shape) for _, p in named_params]
+        self.full_shapes = [tpar.full_shape(s, d, tp)
+                            for s, d in zip(self._local_shapes, self._dims)]
+        # the whole model's coordinates: what the JAX package counts
+        n = sum(math.prod(s) for s in self.full_shapes)
+        self.n_global = n
+        if tp > 1:
+            _refuse_split_params(cfg, tp)
+        cfg = _resolve_for_world(cfg, self.world, n, announce=self.chief, tp=tp)
         check_telemetry_size(n, cfg.vote_every, cfg.telemetry)
         self.cfg = cfg
         self.model = model
@@ -646,7 +792,7 @@ class Trainer:
         if cfg.on_preempt not in ("save_exit", "off"):
             raise ValueError(f"--on_preempt {cfg.on_preempt!r}: expected 'save_exit' (drain + "
                              "emergency checkpoint + clean return) or 'off'")
-        self.opt = make_optimizer(cfg, group)
+        self.opt = make_optimizer(cfg, self.group)
         self.state = self.opt.init(self.flat)
         self._guard = (vote_guard.make_guard(self.world, cfg.vote_guard, cfg.guard_strikes,
                                              cfg.guard_cooldown, cfg.min_quorum,
@@ -692,13 +838,15 @@ class Trainer:
         # heartbeat ride a gloo group of their own, on the host: neither
         # waits for the card
         self._side = (
-            collectives.side_group(group, timedelta(seconds=1800))
-            if self.world > 1 and (self._preempt is not None or cfg.telemetry or cfg.journal)
+            collectives.side_group(grid.world, timedelta(seconds=1800))
+            if grid.world is not None and (self._preempt is not None or cfg.telemetry
+                                           or cfg.journal)
+            and dist.get_world_size(grid.world) > 1
             else None)
         self._preempt_pending = None  # (work, flag) started at the last boundary
         self.profiler = StepProfiler(cfg.profile_dir, cfg.profile_start_step,
                                      cfg.profile_num_steps, cuda=self.device.type == "cuda",
-                                     rank=self.rank)
+                                     rank=self.global_rank)
         self.timer = StepTimer()
         self._wire_measured: Optional[dict] = None  # the first step's captured wire ledger
         self.margin_exact = telemetry.tally_wire(cfg.wire)
@@ -712,80 +860,124 @@ class Trainer:
         # (run_clm: the native loader's served shards)
         self.data_meta: dict = {}
         self.history: list[dict] = []
-        self.logger = MetricsLogger(cfg.output_dir if self.rank == 0 else None)
+        self.logger = MetricsLogger(cfg.output_dir if self.chief else None)
+        # every process of the run writes into one step and agrees on its commit
         self.checkpointer = (
             Checkpointer(f"{cfg.output_dir}/checkpoints", cfg.save_total_limit,
-                         async_save=cfg.async_ckpt, integrity=cfg.ckpt_integrity, group=group,
-                         journal=self.journal)
+                         async_save=cfg.async_ckpt, integrity=cfg.ckpt_integrity,
+                         group=grid.world, journal=self.journal)
             if cfg.output_dir else None)
         t0 = time.perf_counter()
         self._maybe_resume()
         self.resume_s = time.perf_counter() - t0  # verify + restore, host clock
 
     def _emit(self, msg: str) -> None:
-        """A trainer message: printed on rank 0, journaled on every rank."""
-        emit(msg, echo=self.rank == 0)
+        """A trainer message: printed on global rank 0, journaled on every rank."""
+        emit(msg, echo=self.chief)
 
     @staticmethod
     def for_gpt2(cfg: TrainConfig, model_cfg: GPT2Config, *, device="cuda",
-                 initial_params: Optional[dict] = None, group=None) -> "Trainer":
+                 initial_params: Optional[dict] = None,
+                 grid: Optional[Grid] = None) -> "Trainer":
         """A trainer for a fresh GPT-2 (init seeded by ``cfg.seed``) or for
-        ``initial_params``, a state dict such as
+        ``initial_params``, a state dict of whole leaves such as
         ``utils.serialization.params_from_jax`` returns. With
         ``vocab_chunks`` the loss streams the tied ``wte`` (``"vd"``, the
-        padded rows masked by ``valid_v``; JAX loop.py:2685-2697)."""
+        padded rows masked by ``valid_v``; JAX loop.py:2685-2697). Under
+        ``tensor_parallel`` (``grid``'s tensor axis; None: a world of one)
+        the model holds this rank's slices, and with ``tp_vocab`` the loss is
+        the vocab-parallel one over its ``wte`` rows (JAX :2596-2683)."""
         device = resolve_device(device)
-        model = GPT2(model_cfg, device=device, seed=cfg.seed)
+        grid = grid or data_grid()
+        tp = grid.tp
+        if tp > 1:
+            tpar.validate_tp(model_cfg, tp, "gpt2")
+        _check_tp_vocab(cfg, tp, model_cfg.padded_vocab, gpt2=True)
+        model = GPT2(model_cfg, device=device, seed=cfg.seed, tp=grid.tensor,
+                     vocab_parallel=cfg.tp_vocab)
         if initial_params is not None:
             with torch.no_grad():
                 for name, p in model.named_parameters():
-                    p.copy_(initial_params[name])
-        n = count_params(model)
-        world = collectives.world_of(group)
-        cfg = _resolve_for_world(cfg, world, n, announce=rank_of(group) == 0)
-        if rank_of(group) == 0:
-            _announce("GPT-2", n, world, cfg, device)
-        if cfg.vocab_chunks > 0:
+                    p.copy_(tpar.shard(initial_params[name], model.shard_dim(name), tp,
+                                       grid.tensor.rank))
+        named = model.jax_named_parameters()
+        n = _whole_count(named, model.shard_dim, tp)
+        cfg = _resolve_for_world(cfg, grid.dp, n, announce=grid.rank == 0, tp=tp)
+        if grid.rank == 0:
+            _announce("GPT-2", n, grid.dp, cfg, device, tp)
+        if cfg.tp_vocab:
+            def loss_fn(batch, seed):
+                tokens, mask = _tokens_and_mask(batch)
+                # the rank's [V/tp, d] rows: the embedding's and, transposed, the head's
+                return tp_vocab_clm_loss_and_metrics(model.hidden(tokens, seed), model.wte.t(),
+                                                     tokens, grid.tensor, mask,
+                                                     valid_v=model_cfg.vocab_size)
+        elif cfg.vocab_chunks > 0:
             loss_fn = chunked_clm_loss_fn(lambda tokens, seed: (model.hidden(tokens, seed),
                                                                 model.wte),
                                           cfg.vocab_chunks, valid_v=model_cfg.vocab_size)
         else:
             loss_fn = clm_loss_fn(model)
-        return Trainer(cfg, model.jax_named_parameters(), loss_fn, group=group, model=model)
+        return Trainer(cfg, named, loss_fn, model=model, grid=grid, shard_rule=model.shard_dim)
 
     @staticmethod
     def for_llama(cfg: TrainConfig, model_cfg: LlamaConfig, *, device="cuda",
-                  initial_params=None, group=None) -> "Trainer":
-        """Full-parameter causal-LM training of a Llama (the data-parallel
-        branch of JAX loop.py:2701-2871): a fresh init seeded by
-        ``cfg.seed`` or ``initial_params`` (a weight tree such as
+                  initial_params=None, grid: Optional[Grid] = None) -> "Trainer":
+        """Full-parameter causal-LM training of a Llama (the dp and dp × tp
+        branches of JAX loop.py:2701-2871): a fresh init seeded by
+        ``cfg.seed`` or ``initial_params`` (a tree of whole leaves such as
         ``utils.serialization.llama_params_from_jax`` returns, cast to the
-        param dtype), every leaf a parameter in the JAX leaf order. The loss
-        is the dense ``llama_apply`` one, or with ``vocab_chunks`` the final
-        hidden states against the untied ``lm_head`` in its ``[d, V]``
-        layout (``"dv"``). The model has no dropout. The tensor, sequence,
-        pipeline and expert axes are not ported (ROADMAP Queue 1 item 11(c)
+        param dtype), every leaf a parameter in the JAX leaf order; under
+        ``tensor_parallel`` this rank's slices of it. The loss is the dense
+        ``llama_apply`` one, or with ``vocab_chunks`` the final hidden states
+        against the untied ``lm_head`` in its ``[d, V]`` layout (``"dv"``),
+        or with ``tp_vocab`` the vocab-parallel one over the rank's
+        ``lm_head`` columns. The model has no dropout. The sequence,
+        pipeline and expert axes are not ported (ROADMAP Queue 1 item 11(d)
         on)."""
         device = resolve_device(device)
+        grid = grid or data_grid()
+        tp = grid.tp
+        if tp > 1:
+            tpar.validate_tp(model_cfg, tp, "llama")
+        _check_tp_vocab(cfg, tp, model_cfg.vocab_size, gpt2=False)
+
+        def rule(name):
+            return tpar.llama_shard_dim(name, cfg.tp_vocab) if tp > 1 else None
+
         # no reference to the initial tensors outlives the parameters: the
         # flat buffers take their place (at Llama-3-8B, 16 GB)
         params = as_parameters(
-            llama_init(model_cfg, seed=cfg.seed, device=device) if initial_params is None
-            else map_tree(lambda t: t.to(device, model_cfg.param_dtype), initial_params))
-        model = Llama(model_cfg, params)
+            llama_init(model_cfg, seed=cfg.seed, device=device, tp=grid.tensor,
+                       vocab_parallel=cfg.tp_vocab) if initial_params is None
+            else map_tree(lambda t: t.to(device, model_cfg.param_dtype),
+                          tpar.shard_tree(initial_params, rule, tp, grid.tensor.rank)))
+        model = Llama(model_cfg, params, tp=grid.tensor)
         named = model.jax_named_parameters()
-        n = sum(p.numel() for _, p in named)
-        world = collectives.world_of(group)
-        cfg = _resolve_for_world(cfg, world, n, announce=rank_of(group) == 0)
-        if rank_of(group) == 0:
-            _announce("Llama", n, world, cfg, device)
-        if cfg.vocab_chunks > 0:
+        n = _whole_count(named, rule, tp)
+        cfg = _resolve_for_world(cfg, grid.dp, n, announce=grid.rank == 0, tp=tp)
+        if grid.rank == 0:
+            _announce("Llama", n, grid.dp, cfg, device, tp)
+        if cfg.tp_vocab:
+            def loss_fn(batch, seed):
+                tokens, mask = _tokens_and_mask(batch)
+                # params["lm_head"] is this rank's [d, V/tp] columns
+                return tp_vocab_clm_loss_and_metrics(model.hidden(tokens), params["lm_head"],
+                                                     tokens, grid.tensor, mask)
+        elif cfg.vocab_chunks > 0:
             loss_fn = chunked_clm_loss_fn(lambda tokens, seed: (model.hidden(tokens),
                                                                 params["lm_head"]),
                                           cfg.vocab_chunks, emb_layout="dv")
         else:
             loss_fn = clm_loss_fn(lambda tokens, seed: model(tokens))
-        return Trainer(cfg, named, loss_fn, group=group, model=model)
+        return Trainer(cfg, named, loss_fn, model=model, grid=grid, shard_rule=rule)
+
+    def full_named(self) -> dict:
+        """``{name: whole leaf}`` of the trained parameters, gathered over the
+        tensor group (a collective: every rank of it calls it)."""
+        views = self.flat.views(self.flat.params)
+        return {name: tpar.gather(views[name], dim, self.tensor)
+                for name, dim in zip(self.flat.names, self._dims)}
 
     def comm_stats(self, steps_per_sec: Optional[float] = None) -> dict:
         """The vote's analytic wire bytes (JAX ``Trainer.comm_stats``,
@@ -794,7 +986,9 @@ class Trainer:
         cfg = self.cfg
         if not cfg.lion or self.world <= 1:
             return {}
-        return comm_report(self.n_params, self.world, cfg.wire, steps_per_sec,
+        # the whole model's coordinates under a tensor axis, as the JAX
+        # package counts them (ROADMAP Queue 3: each rank's ballot is its slice)
+        return comm_report(self.n_global, self.world, cfg.wire, steps_per_sec,
                            vote_every=cfg.vote_every,
                            accum_steps=cfg.gradient_accumulation_steps,
                            vote_buckets=cfg.vote_buckets or 1,
@@ -835,12 +1029,11 @@ class Trainer:
                 grads.div_(self.world)
             self._inject_poison(grads)
             # pre-clip: clipping would hide the explosion the sentinel watches for
-            gsq = (torch.sum(torch.square(grads.to(torch.float32))) if cfg.nan_sentinel
-                   else None)
+            gsq = self._global_grad_sq(grads) if cfg.nan_sentinel else None
             clip = (cfg.grad_clip_norm if cfg.grad_clip_norm is not None
                     else cfg.max_grad_norm)
             if clip:
-                sq = gsq if gsq is not None else torch.sum(torch.square(grads.to(torch.float32)))
+                sq = gsq if gsq is not None else self._global_grad_sq(grads)
                 scale = torch.clamp_max(clip / torch.clamp_min(torch.sqrt(sq), 1e-12), 1.0)
                 grads.mul_(scale.to(grads.dtype))
         out = self.opt.step(self.flat, self.state)
@@ -854,6 +1047,33 @@ class Trainer:
         obs = self._guard_observations(frames.pop(0)) if self._guard is not None else None
         sentinel = self._sentinel_values(metrics, gsq) if gsq is not None else None
         return metrics, sentinel, obs
+
+    def _global_grad_sq(self, grads: torch.Tensor) -> torch.Tensor:
+        """The squared L2 norm of this rank's gradient (JAX ``global_grad_sq``,
+        loop.py:2877-2915): under a tensor axis a split leaf's squares are
+        summed over the tensor group and a replicated leaf, whose gradient
+        every tensor rank holds whole, counts once, so every tensor rank gets
+        the same value; never summed over the data group."""
+        g32 = grads.to(torch.float32)
+        if self.tensor.size == 1:
+            return torch.sum(torch.square(g32))
+        parts = [torch.zeros((), dtype=torch.float32, device=grads.device) for _ in range(2)]
+        for (off, n), split in self._split_runs():
+            parts[split] = parts[split] + torch.sum(torch.square(g32[off:off + n]))
+        return parts[0] + tpar.reduce_from_tp_region(parts[1], self.tensor.group)
+
+    def _split_runs(self) -> list:
+        """``((offset, length), split)`` over the flat buffer, adjacent leaves
+        of one kind merged."""
+        runs: list = []
+        for off, shape, dim in zip(self.flat.offsets, self._local_shapes, self._dims):
+            split, n = int(tpar.spec_uses_axis(dim)), math.prod(shape)
+            if runs and runs[-1][1] == split:
+                (o, m), _ = runs[-1]
+                runs[-1] = ((o, m + n), split)
+            else:
+                runs.append(((off, n), split))
+        return runs
 
     def _inject_poison(self, grads: torch.Tensor) -> None:
         """``--inject_poison`` (JAX loop.py:1428-1448): this rank becomes a
@@ -1051,7 +1271,7 @@ class Trainer:
                     m.update(self._cplane.summary())
                 self.history.append({"step": self.step_count, **m})
                 self._metrics_window.append({"step": self.step_count, **m})
-                if self.rank == 0:
+                if self.chief:
                     self.logger.log(self.step_count, m, prefix="train")
                 if cfg.journal:
                     # the step-skew heartbeat as a journal event: run_analyze
@@ -1225,7 +1445,8 @@ class Trainer:
                 self.profiler.close()
                 self.profiler = StepProfiler(os.path.join(trace_base, "trace"), self.step_count,
                                              self.cfg.profile_num_steps,
-                                             cuda=self.device.type == "cuda", rank=self.rank)
+                                             cuda=self.device.type == "cuda",
+                                             rank=self.global_rank)
                 self._anomaly_deadline = self.step_count + self.cfg.profile_num_steps + 1
                 self._anomaly_reason = reason
                 self._emit(f"[trainer] armed anomaly trace window for steps "
@@ -1240,9 +1461,9 @@ class Trainer:
         """Every rank counts its nonfinite momentum per leaf (summed over the
         ranks, as the JAX package counts its stacked momenta); rank 0 writes
         the bundle. Returns its directory."""
-        counts = {"params": telemetry.nonfinite_leaf_counts(self.flat, self.flat.params)}
+        counts = {"params": self._leaf_counts(self.flat.params)}
         if isinstance(self.state, LionState):
-            counts["exp_avg"] = telemetry.nonfinite_leaf_counts(self.flat, self.state.exp_avg)
+            counts["exp_avg"] = self._leaf_counts(self.state.exp_avg)
             if self.group is not None:
                 dist.all_reduce(counts["exp_avg"], group=self.group)
         elif isinstance(self.state, Zero1State):  # the chunks, gathered to the flat layout
@@ -1253,7 +1474,7 @@ class Trainer:
             counts["mu"] = telemetry.nonfinite_leaf_counts(self.flat, self.state.mu)
             counts["nu"] = telemetry.nonfinite_leaf_counts(self.flat, self.state.nu)
         crash_dir = os.path.join(self.cfg.output_dir, "crash", f"step_{step:08d}")
-        if self.rank == 0:
+        if self.chief:
             opt = {}
             for key in ("exp_avg", "mu", "nu", "m", "v"):
                 if key in counts:
@@ -1269,6 +1490,17 @@ class Trainer:
                 journal_tail=self.journal.tail())
             self._emit(f"[trainer] crash bundle written to {crash_dir}")
         return crash_dir
+
+    def _leaf_counts(self, buf: torch.Tensor) -> torch.Tensor:
+        """Nonfinite values per leaf of a flat buffer, over the whole leaves:
+        a split leaf's counts summed over the tensor group, a replicated
+        leaf's taken once."""
+        counts = telemetry.nonfinite_leaf_counts(self.flat, buf)
+        if self.tensor.size > 1:
+            if self.tensor.rank:
+                counts[[i for i, d in enumerate(self._dims) if not tpar.spec_uses_axis(d)]] = 0
+            dist.all_reduce(counts, group=self.tensor.group)
+        return counts
 
     def _zero1_full(self, chunk: torch.Tensor) -> torch.Tensor:
         """A ZeRO-1 moment's chunks of every rank as one flat vector."""
@@ -1291,7 +1523,7 @@ class Trainer:
             per_dev = n // self.world  # shrink rather than skip a small split
         bs = self.world * per_dev
         if per_dev == 0:
-            emit(f"[trainer] eval skipped: {n} examples < {self.world} ranks")
+            self._emit(f"[trainer] eval skipped: {n} examples < {self.world} ranks")
             return {"eval/loss": math.nan, "eval/accuracy": math.nan,
                     "eval/perplexity": math.nan}
         per_key: dict = {}
@@ -1304,28 +1536,47 @@ class Trainer:
         out = {f"eval/{k}": float(np.mean(v)) for k, v in per_key.items() if k != "n_tokens"}
         if "n_tokens" in per_key:  # a token-level loss: perplexity applies
             out["eval/perplexity"] = float(np.exp(min(out["eval/loss"], 80.0)))
-        if self.rank == 0:
+        if self.chief:
             self.logger.log(self.step_count, out, prefix="")
         return out
 
     # ------------------------------------------------------------ checkpoints
+    def _whole(self, buf: torch.Tensor) -> torch.Tensor:
+        """A flat buffer over the whole leaves from every tensor rank's
+        (collective over the tensor group; ``buf`` itself at tp 1)."""
+        return tpar.gather_flat(buf, self._local_shapes, self._dims, self.tensor)
+
+    def _slice(self, full: torch.Tensor) -> torch.Tensor:
+        """This tensor rank's flat buffer from one over the whole leaves."""
+        return tpar.shard_flat(full, self._local_shapes, self._dims, self.tensor.size,
+                               self.tensor.rank)
+
     def _payload(self) -> dict:
         """This rank's files of a checkpoint: its momentum (its guard ballot
-        and DCN ring), or its ZeRO-1 chunks, and on rank 0 the params, the
-        counters and the vote-health accumulator."""
+        and DCN ring), or its ZeRO-1 chunks, and on global rank 0 the params,
+        the counters and the vote-health accumulator. Under a tensor axis the
+        momentum and the params are gathered into whole leaves first, and
+        each data rank's tensor rank 0 writes its momentum: a data-parallel
+        run's files."""
         st = self.state
         adam = not isinstance(st, LionState)
-        files = {} if adam else {momentum_file(self.rank): st.exp_avg}
+        tp, lead = self.tensor.size, self.tensor.rank == 0
+        files = {}
+        if not adam:
+            mom = self._whole(st.exp_avg)
+            if lead:
+                files[momentum_file(self.rank)] = mom
         if not adam and st.prev_ballot is not None:
             files[prev_ballot_file(self.rank)] = st.prev_ballot
         if not adam and st.dcn_ring is not None:
-            files[ring_file(self.rank)] = st.dcn_ring
+            files[ring_file(self.rank, self.tensor.rank if tp > 1 else None)] = st.dcn_ring
         if isinstance(st, Zero1State):
             files[zero1_file(self.rank)] = {"m": st.m, "v": st.v}
-        if self.rank == 0:
+        params = self._whole(self.flat.params) if self.rank == 0 else None
+        if self.chief:
             files[PARAMS_FILE] = {"names": list(self.flat.names),
-                                  "shapes": [list(s) for s in self.flat.shapes],
-                                  "flat": self.flat.params}
+                                  "shapes": [list(s) for s in self.full_shapes],
+                                  "flat": params}
             files[STATE_FILE] = {"step": self.step_count, "batches_consumed": self.step_count,
                                  "world": self.world, "count": st.count}
             if isinstance(st, AdamWState):
@@ -1354,6 +1605,8 @@ class Trainer:
                 "wire": cfg.wire, "vote_every": cfg.vote_every,
                 "dcn_pipeline_depth": cfg.dcn_pipeline_depth,
                 "ep_dcn_pipeline": 0, "control_plane": self._cplane is not None,
+                # a dp run's meta has no tp: a resume reads 1
+                **({"tensor_parallel": self.tensor.size} if self.tensor.size > 1 else {}),
                 **self.data_meta}
         if self._cplane is not None:
             # departed-vs-quarantined, the consumed-schedule watermark, the
@@ -1375,10 +1628,11 @@ class Trainer:
         params = ck.restore(step, PARAMS_FILE)
         flat = params["flat"]
         if (list(params["names"]) != self.flat.names
-                or [tuple(s) for s in params["shapes"]] != self.flat.shapes
+                or [tuple(s) for s in params["shapes"]] != self.full_shapes
                 or flat.dtype != self.flat.params.dtype):
             raise ValueError(f"checkpoint step {step} holds other parameters than this run "
                              "(names, shapes or dtype)")
+        flat = self._slice(flat)
         if isinstance(self.state, AdamWState):
             moments = ck.restore(step, ADAMW_FILE)
             self._check_like(step, "AdamW moments", [moments["mu"], moments["nu"]],
@@ -1405,7 +1659,7 @@ class Trainer:
         # the checkpoint's health mask (a guard on when it was written)
         health = state.get("health") if meta.get("has_guard", "health" in state) else None
         if ckpt_world == self.world:
-            mom = ck.restore(step, momentum_file(self.rank))
+            mom = self._slice(ck.restore(step, momentum_file(self.rank)))
         else:
             rows = torch.stack([ck.restore(step, momentum_file(r)) for r in range(ckpt_world)])
             sick = [] if health is None else torch.nonzero(~health).flatten().tolist()
@@ -1415,7 +1669,7 @@ class Trainer:
                 rows = heal_worker_momentum(rows, health, sick)
                 self._emit(f"[trainer] elastic resume: healed quarantined worker momenta "
                            f"{sick} from the healthy mean before the world remap")
-            mom = remap_worker_momentum(rows, ckpt_world, self.world)[self.rank]
+            mom = self._slice(remap_worker_momentum(rows, ckpt_world, self.world)[self.rank])
         self._check_like(step, "momentum", [mom], [self.state.exp_avg])
         guard = {"health": None, "prev_ballot": None}
         if self._guard is not None:
@@ -1436,7 +1690,8 @@ class Trainer:
             self._check_like(step, "elected-sign cache", [elected], [self.state.elected])
         ring = None
         if self.state.dcn_ring is not None:  # the same world: an elastic resume refused it
-            ring = ck.restore(step, ring_file(self.rank))
+            ring = ck.restore(step, ring_file(
+                self.rank, self.tensor.rank if self.tensor.size > 1 else None))
             self._check_like(step, "DCN ring", [ring], [self.state.dcn_ring])
             ring = ring.to(self.device)
         vh = None
@@ -1501,35 +1756,21 @@ class Trainer:
         if not (ck and cfg.resume_from_checkpoint):
             return
         found = [None, None]
-        if self.rank == 0:
+        if self.chief:
             cands = (ck.valid_steps() if cfg.ckpt_integrity
                      else [s for s in [ck.latest_step()] if s is not None])
             found = [cands, {s: (ck.manifest_meta(s) if cfg.ckpt_integrity else None) or {}
                              for s in cands}]
-        if self.world > 1:
-            dist.broadcast_object_list(found, src=dist.get_global_rank(self.group, 0),
-                                       group=self.group)
+        every = self.grid.world   # every process of the run agrees
+        many = every is not None and dist.get_world_size(every) > 1
+        if many:
+            dist.broadcast_object_list(found, src=dist.get_global_rank(every, 0), group=every)
         candidates, metas = found
         for step in candidates:
             meta = metas[step]
             ckpt_world = int(meta.get("world", self.world))
             if meta:
-                # the ring's slots are the depth's in-flight steps: no remap
-                ckpt_depth = int(meta.get("dcn_pipeline_depth", 0) or 0)
-                if ckpt_depth != cfg.dcn_pipeline_depth:
-                    raise ValueError(
-                        f"checkpoint step {step} was written at "
-                        f"--dcn_pipeline_depth {ckpt_depth} but this run "
-                        f"uses {cfg.dcn_pipeline_depth}: the in-flight"
-                        " DCN tally ring does not survive a depth change. "
-                        "Resume with the matching depth (then change it at "
-                        "the NEXT fresh start), or point --output_dir "
-                        "elsewhere")
-                if int(meta.get("ep_dcn_pipeline", 0) or 0):
-                    raise ValueError(
-                        f"checkpoint step {step} was written at --ep_dcn_pipeline "
-                        f"{meta['ep_dcn_pipeline']}; the port has no expert axis "
-                        "(ROADMAP Queue 1 item 11(e))")
+                check_resume_meta(step, meta, cfg, self.tensor.size)
             ckpt_ve = int(meta.get("vote_every", 0) or 0)  # 0: not recorded
             if cfg.lion and ckpt_ve and ckpt_ve != (cfg.vote_every or 1):
                 raise ValueError(
@@ -1561,8 +1802,8 @@ class Trainer:
             except Exception as e:
                 error = e
             ok = torch.tensor([0 if error else 1], dtype=torch.int32, device=self.device)
-            if self.world > 1:
-                dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=self.group)
+            if many:
+                dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=every)
             if not int(ok):
                 self._emit(f"[trainer] checkpoint step {step} failed to restore "
                            f"({error or 'on another rank'}); falling back to the previous good "

@@ -20,6 +20,12 @@ the JAX package's ``model.npz``. On top of it:
   :func:`adapter_momentum_from_jax` takes one rank's row of the adapters'
   stacked momentum.
 
+Under tensor parallelism each converter takes ``(tp, t)`` and returns the
+slices of tensor rank ``t`` (``parallel.tensor_parallel.shard`` by the
+family's shard rule, ``vocab_parallel`` for ``--tp_vocab``; the adapters by
+their base's rule): the JAX package's arrays are whole, and its stacked
+momentum ``[world, ...]`` is sliced along the same dims as its leaf.
+
 bfloat16 tensors are written as float32 (numpy has no bfloat16 without
 extra packages); every value stays exact.
 """
@@ -33,6 +39,13 @@ import numpy as np
 import torch
 
 from distributed_lion_tpu_torch.ops.quant import QuantizedTensor, map_tree
+from distributed_lion_tpu_torch.parallel.tensor_parallel import (
+    gpt2_shard_dim,
+    llama_shard_dim,
+    shard,
+    shard_named,
+    shard_tree,
+)
 
 
 def _flatten(tree, prefix=()):
@@ -103,12 +116,15 @@ def tree_from_state_dict(state: Union[dict, torch.nn.Module]) -> Any:
     return _listify(root)
 
 
-def params_from_jax(tree_or_npz: Union[dict, str, pathlib.Path]) -> dict[str, torch.Tensor]:
-    """The JAX package's params (numpy pytree or ``model.npz`` path) as the
-    port's state dict of CPU tensors."""
+def params_from_jax(tree_or_npz: Union[dict, str, pathlib.Path], tp: int = 1, t: int = 0,
+                    vocab_parallel: bool = False) -> dict[str, torch.Tensor]:
+    """The JAX package's GPT-2 params (numpy pytree or ``model.npz`` path) as
+    the port's state dict of CPU tensors: tensor rank ``t``'s slices of
+    ``tp``."""
     tree = (load_pytree(tree_or_npz) if isinstance(tree_or_npz, (str, pathlib.Path))
             else tree_or_npz)
-    return {k: torch.from_numpy(np.array(v)) for k, v in state_dict_from_tree(tree).items()}
+    state = {k: torch.from_numpy(np.array(v)) for k, v in state_dict_from_tree(tree).items()}
+    return shard_named(state, lambda k: gpt2_shard_dim(k, vocab_parallel), tp, t)
 
 
 def params_to_jax(state: Union[dict, torch.nn.Module]) -> dict:
@@ -117,10 +133,14 @@ def params_to_jax(state: Union[dict, torch.nn.Module]) -> dict:
     return map_tree(_to_numpy, tree_from_state_dict(state))
 
 
-def momentum_from_jax(exp_avg: dict, rank: int) -> dict[str, torch.Tensor]:
+def momentum_from_jax(exp_avg: dict, rank: int, tp: int = 1, t: int = 0,
+                      vocab_parallel: bool = False, family: str = "gpt2") -> dict:
     """Row ``rank`` of the JAX package's stacked ``[world, ...]`` momentum
-    pytree, as a state dict keyed like the params."""
-    return {name: t[rank] for name, t in params_from_jax(exp_avg).items()}
+    pytree, as a state dict keyed like the params: tensor rank ``t``'s
+    slices of ``tp`` by ``family``'s shard rule."""
+    rule = gpt2_shard_dim if family == "gpt2" else llama_shard_dim
+    return {name: shard(m[rank], rule(name, vocab_parallel), tp, t)
+            for name, m in params_from_jax(exp_avg).items()}
 
 
 def _leaf_from_jax(leaf, device) -> Any:
@@ -135,10 +155,13 @@ def _leaf_from_jax(leaf, device) -> Any:
     return torch.from_numpy(np.array(leaf)).to(device)
 
 
-def llama_params_from_jax(tree: Any, device="cpu") -> Any:
+def llama_params_from_jax(tree: Any, device="cpu", tp: int = 1, t: int = 0,
+                          vocab_parallel: bool = False) -> Any:
     """The JAX package's Llama params (nested dicts and lists of numpy
-    arrays and quantized leaves) as the port's weight tree on ``device``."""
-    return map_tree(lambda leaf: _leaf_from_jax(leaf, device), tree)
+    arrays and quantized leaves) as the port's weight tree on ``device``:
+    tensor rank ``t``'s slices of ``tp``."""
+    return shard_tree(map_tree(lambda leaf: _leaf_from_jax(leaf, device), tree),
+                      lambda k: llama_shard_dim(k, vocab_parallel), tp, t)
 
 
 def llama_params_to_jax(tree: Any) -> Any:
@@ -148,15 +171,30 @@ def llama_params_to_jax(tree: Any) -> Any:
     return map_tree(_to_numpy, tree)
 
 
-def adapters_from_jax(adapters: dict, device="cpu") -> dict:
-    """The JAX package's ``{path: {"A", "B"}}`` adapters as float tensors."""
-    return {path: {k: torch.from_numpy(np.array(ab[k])).to(device) for k in ("A", "B")}
+def _adapter_dim(base_rule, path: str, factor: str):
+    """The split dim of an adapter factor over a base split by
+    ``base_rule`` (``models.lora.lora_adapter_specs``)."""
+    dim = None if base_rule is None else base_rule(path)
+    if factor == "A":
+        return 0 if dim == 0 else None
+    return dim if dim is not None and dim >= 1 else None
+
+
+def adapters_from_jax(adapters: dict, device="cpu", tp: int = 1, t: int = 0,
+                      base_rule=None) -> dict:
+    """The JAX package's ``{path: {"A", "B"}}`` adapters as float tensors:
+    tensor rank ``t``'s slices of ``tp`` over a base split by
+    ``base_rule``."""
+    return {path: {k: shard(torch.from_numpy(np.array(ab[k])), _adapter_dim(base_rule, path, k),
+                            tp, t).to(device) for k in ("A", "B")}
             for path, ab in adapters.items()}
 
 
-def adapter_momentum_from_jax(exp_avg: dict, rank: int, device="cpu") -> dict:
+def adapter_momentum_from_jax(exp_avg: dict, rank: int, device="cpu", tp: int = 1, t: int = 0,
+                              base_rule=None) -> dict:
     """Row ``rank`` of the JAX package's stacked ``[world, ...]`` adapter
     momentum, keyed like :func:`models.lora.adapter_named_parameters`
-    (``"path/A"``, ``"path/B"``)."""
-    return {f"{path}/{k}": torch.from_numpy(np.array(ab[k][rank])).to(device)
+    (``"path/A"``, ``"path/B"``): tensor rank ``t``'s slices of ``tp``."""
+    return {f"{path}/{k}": shard(torch.from_numpy(np.array(ab[k][rank])),
+                                 _adapter_dim(base_rule, path, k), tp, t).to(device)
             for path, ab in exp_avg.items() for k in ("A", "B")}

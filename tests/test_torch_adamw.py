@@ -34,6 +34,7 @@ from distributed_lion_tpu_torch.data.sources import batch_iterator, synthetic_lm
 from distributed_lion_tpu_torch.models.gpt2 import GPT2Config
 from distributed_lion_tpu_torch.optim.lion import FlatParams
 from distributed_lion_tpu_torch.optim.optax_adapter import AdamWState, adamw
+from distributed_lion_tpu_torch.parallel.mesh import data_grid
 from distributed_lion_tpu_torch.train.loop import TrainConfig, Trainer, make_optimizer
 from distributed_lion_tpu_torch.train.schedule import cosine_schedule_with_warmup
 from distributed_lion_tpu_torch.utils.serialization import params_from_jax, save_pytree
@@ -131,7 +132,7 @@ def _port_losses(out, group=None):
     tr = Trainer.for_gpt2(TrainConfig(**TRAIN),
                           GPT2Config.tiny(compute_dtype=torch.float32, dropout=0.0),
                           device="cpu", initial_params=params_from_jax(f"{out}/init.npz"),
-                          group=group)
+                          grid=data_grid(group))
     assert isinstance(tr.state, AdamWState) and tr.comm_stats() == {}
     hist = tr.train(batch_iterator(synthetic_lm_dataset(256, 32, 256), tr.global_train_batch(),
                                    seed=0))

@@ -54,6 +54,7 @@ import distributed_lion_tpu_torch.train.loop as loop_module
 from distributed_lion_tpu_torch.cli import run_analyze, run_clm, run_dpo, run_sft
 from distributed_lion_tpu_torch.data.sources import batch_iterator, synthetic_lm_dataset
 from distributed_lion_tpu_torch.models.gpt2 import GPT2Config
+from distributed_lion_tpu_torch.parallel.mesh import data_grid
 from distributed_lion_tpu_torch.train import control_plane, resilience
 from distributed_lion_tpu_torch.train.control_plane import ControlPlane
 from distributed_lion_tpu_torch.train.loop import TrainConfig, Trainer
@@ -139,7 +140,7 @@ class _Boundaries:
 
 def _trainer(cfg: dict, group, init=None):
     return Trainer.for_gpt2(TrainConfig(**cfg), GPT2Config.tiny(**TINY), device="cpu",
-                            group=group, initial_params=init)
+                            grid=data_grid(group), initial_params=init)
 
 
 def _train(cfg: dict, group, init=None, trainer=None, record=False):

@@ -379,11 +379,25 @@ def test_sft_merged_output_feeds_run_dpo_and_dpo_merged_output_round_trips(tmp_p
 def test_unported_flags_are_refused_by_name(flag, item, monkeypatch, tmp_path):
     """Item 9's flags run since the HF slice: each gets the JAX package's own
     outcome for the same argument (an error from its importer, or the
-    written directory). Item 11's stay refused by name."""
+    written directory). Item 11's sequence parallelism stays refused by
+    name. ``--tensor_parallel`` runs since item 11(c): with ``--vocab_chunks``
+    it meets the JAX package's refusal in its words, and alone in a world of
+    one the grid's refusal (the multi-rank runs are
+    tests/test_torch_tensor_parallel.py's)."""
     from distributed_lion_tpu.models import hf_import as j_hf_import
 
     monkeypatch.setenv("DLION_PLATFORM", "cpu")
     monkeypatch.chdir(tmp_path)
+    if flag == ["--tensor_parallel", "2", "--vocab_chunks", "4"]:
+        with pytest.raises(NotImplementedError,
+                           match="--vocab_chunks x --tensor_parallel on the DPO path is not "
+                                 "wired"):
+            run_dpo.main(["--model_name", "tiny", *flag])
+        return
+    if flag == ["--tensor_parallel", "2"]:
+        with pytest.raises(ValueError, match="--tensor_parallel 2 needs 2 ranks"):
+            run_dpo.main(["--model_name", "tiny", *flag])
+        return
     if item == 11:
         with pytest.raises(NotImplementedError, match=f"{flag[0]}.*Queue 1 item {item}\\b"):
             run_dpo.main(["--model_name", "tiny", *flag])

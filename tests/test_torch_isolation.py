@@ -187,3 +187,15 @@ def test_the_zero1_and_dcn_pipeline_modules_are_among_the_checked_files():
     imported |= {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
     assert all(m.split(".")[0] in ("distributed_lion_tpu_torch", "__future__", "torch")
                or m.split(".")[0] in sys.stdlib_module_names for m in imported), imported
+
+
+def test_the_tensor_parallel_modules_are_among_the_checked_files():
+    """The tensor axis's module, beside every module the tensor-parallel
+    slice touched (the grid, the models, the losses, LoRA, NF4, the
+    converters, the trainer, the CLIs), is in the file list both checks
+    above walk."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
+    assert {"parallel/tensor_parallel.py", "parallel/mesh.py", "parallel/collectives.py",
+            "models/gpt2.py", "models/llama.py", "models/lora.py", "ops/xent.py",
+            "ops/quant.py", "utils/serialization.py", "train/loop.py", "train/dpo.py",
+            "cli/run_clm.py", "cli/run_sft.py", "cli/run_dpo.py"} <= files

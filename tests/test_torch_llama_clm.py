@@ -39,6 +39,7 @@ from distributed_lion_tpu.utils.serialization import load_pytree as j_load_pytre
 from distributed_lion_tpu_torch.cli import run_clm
 from distributed_lion_tpu_torch.data.sources import batch_iterator
 from distributed_lion_tpu_torch.models.llama import Llama, LlamaConfig, as_parameters
+from distributed_lion_tpu_torch.parallel.mesh import data_grid
 from distributed_lion_tpu_torch.train.loop import (
     TrainConfig,
     Trainer,
@@ -104,7 +105,7 @@ def _jax_losses(world: int, vocab_chunks: int, init, blocks) -> list:
 def _port_losses(vocab_chunks: int, init, blocks, group=None) -> list:
     trainer = Trainer.for_llama(TrainConfig(**COMMON, vocab_chunks=vocab_chunks),
                                 LlamaConfig.tiny(compute_dtype=torch.float32), device="cpu",
-                                initial_params=llama_params_from_jax(init), group=group)
+                                initial_params=llama_params_from_jax(init), grid=data_grid(group))
     hist = trainer.train(batch_iterator(blocks, trainer.global_train_batch(), seed=0))
     trainer.close()
     return [h["loss"] for h in hist if "loss" in h]

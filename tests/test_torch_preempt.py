@@ -26,6 +26,7 @@ import torch.multiprocessing as mp
 from distributed_lion_tpu_torch.cli import run_clm
 from distributed_lion_tpu_torch.data.sources import batch_iterator, synthetic_lm_dataset
 from distributed_lion_tpu_torch.models.gpt2 import GPT2Config
+from distributed_lion_tpu_torch.parallel.mesh import data_grid
 from distributed_lion_tpu_torch.train import resilience
 from distributed_lion_tpu_torch.train.checkpoint import Checkpointer
 from distributed_lion_tpu_torch.train.loop import TrainConfig, Trainer
@@ -44,7 +45,7 @@ def _cfg(out, **kw):
 
 def _trainer(cfg, group=None):
     return Trainer.for_gpt2(cfg, GPT2Config.tiny(compute_dtype=torch.float32, dropout=0.1),
-                            device="cpu", group=group)
+                            device="cpu", grid=data_grid(group))
 
 
 class SignallingIter:

@@ -28,6 +28,7 @@ from distributed_lion_tpu_torch.cli import run_sft
 from distributed_lion_tpu_torch.data.sources import batch_iterator, synthetic_lm_dataset
 from distributed_lion_tpu_torch.models.gpt2 import GPT2Config
 from distributed_lion_tpu_torch.optim.distributed_lion import remap_worker_momentum
+from distributed_lion_tpu_torch.parallel.mesh import data_grid
 from distributed_lion_tpu_torch.train.loop import TrainConfig, Trainer, momentum_file
 
 torch.set_num_threads(2)
@@ -45,7 +46,7 @@ def _cfg(out, steps, **kw):
 
 def _trainer(cfg, group=None, model=None):
     model = model or GPT2Config.tiny(compute_dtype=torch.float32, dropout=0.1)
-    return Trainer.for_gpt2(cfg, model, device="cpu", group=group)
+    return Trainer.for_gpt2(cfg, model, device="cpu", grid=data_grid(group))
 
 
 def _losses(history):

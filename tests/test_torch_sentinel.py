@@ -33,6 +33,7 @@ import torch.multiprocessing as mp
 
 from distributed_lion_tpu_torch.data.sources import batch_iterator, synthetic_lm_dataset
 from distributed_lion_tpu_torch.models.gpt2 import GPT2Config
+from distributed_lion_tpu_torch.parallel.mesh import data_grid
 from distributed_lion_tpu_torch.train import resilience
 from distributed_lion_tpu_torch.train.loop import TrainConfig, Trainer
 from distributed_lion_tpu_torch.utils.serialization import params_from_jax, save_pytree
@@ -59,7 +60,7 @@ def _blocks():
 def _run(cfg: dict, group=None, init=None):
     """Train a port trainer; returns (trainer, the exception raised or None)."""
     tr = Trainer.for_gpt2(TrainConfig(**cfg), GPT2Config.tiny(**TINY), device="cpu",
-                          group=group, initial_params=init)
+                          grid=data_grid(group), initial_params=init)
     err = None
     try:
         tr.train(batch_iterator(_blocks(), tr.global_train_batch(), seed=0))

@@ -209,8 +209,10 @@ def _jax_outcome(fn):
     ["--seq_impl", "ulysses"], ["--tokenizer_name", "sp:tokenizer.model"]])
 def test_unported_flags_are_refused_by_name(flag, monkeypatch, tmp_path):
     """Since the HF slice the first four flags and SentencePiece run; each
-    gets the JAX package's own outcome for the same argument. Sequence and
-    tensor parallelism stay refused by name."""
+    gets the JAX package's own outcome for the same argument. Sequence
+    parallelism stays refused by name (item 11(d)); ``--tensor_parallel``
+    runs since item 11(c), and in a world of one meets the grid's refusal
+    (the multi-rank runs are tests/test_torch_tensor_parallel.py's)."""
     from distributed_lion_tpu.data.tokenizer import load_tokenizer as j_load_tokenizer
     from distributed_lion_tpu.models import hf_import as j_hf_import
 
@@ -226,8 +228,12 @@ def test_unported_flags_are_refused_by_name(flag, monkeypatch, tmp_path):
         "--model_path": lambda: j_hf_import.llama_from_hf(value),
         "--adapter_path": lambda: j_hf_import.peft_to_lora(value, JConfig.tiny()),
         "--tokenizer_name": lambda: j_load_tokenizer(value)}
+    if name == "--tensor_parallel":
+        with pytest.raises(ValueError, match="--tensor_parallel 2 needs 2 ranks"):
+            run_sft.main(["--model_name", "tiny", *flag])
+        return
     if name not in jax_side:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
             run_sft.main(["--model_name", "tiny", *flag])
         return
     kind, msg = _jax_outcome(jax_side[name])

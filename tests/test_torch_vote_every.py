@@ -65,6 +65,7 @@ from distributed_lion_tpu_torch.ops.codec import vote_chunk_elems, wire_bytes_pe
 from distributed_lion_tpu_torch.optim.distributed_lion import distributed_lion
 from distributed_lion_tpu_torch.optim.lion import FlatParams
 from distributed_lion_tpu_torch.parallel import collectives
+from distributed_lion_tpu_torch.parallel.mesh import data_grid
 from distributed_lion_tpu_torch.train.loop import TrainConfig, Trainer
 from distributed_lion_tpu_torch.utils.serialization import params_from_jax, save_pytree
 
@@ -175,7 +176,7 @@ def _four_rank_work(rank, out):
         tr = Trainer.for_gpt2(TrainConfig(**GPT_CFG, output_dir=f"{out}/gpt", save_steps=GPT_STEPS),
                               GPT2Config.tiny(compute_dtype=torch.float32, dropout=0.0),
                               device="cpu", initial_params=params_from_jax(f"{out}/init.npz"),
-                              group=dist.group.WORLD)
+                              grid=data_grid(dist.group.WORLD))
         hist = tr.train(batch_iterator(blocks, tr.global_train_batch(), seed=0))
         tr.close()
         np.save(f"{out}/gpt_loss_{rank}.npy", np.array([h["loss"] for h in hist]))

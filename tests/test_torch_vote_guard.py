@@ -53,6 +53,7 @@ from distributed_lion_tpu_torch.optim.distributed_lion import (
 )
 from distributed_lion_tpu_torch.optim.lion import FlatParams
 from distributed_lion_tpu_torch.parallel import collectives
+from distributed_lion_tpu_torch.parallel.mesh import data_grid
 from distributed_lion_tpu_torch.train import resilience
 from distributed_lion_tpu_torch.train.loop import TrainConfig, Trainer
 from distributed_lion_tpu_torch.train.vote_guard import VoteGuard
@@ -95,7 +96,7 @@ def _train(cfg: dict, group, init=None, events=None):
     ``events`` each guard transition is appended as (step, quarantined,
     readmitted)."""
     tr = Trainer.for_gpt2(TrainConfig(**cfg), GPT2Config.tiny(**TINY), device="cpu",
-                          group=group, initial_params=init)
+                          grid=data_grid(group), initial_params=init)
     if events is not None:
         update = tr._guard.update
 
@@ -239,7 +240,7 @@ def _trainer_cases(rank, out, init):
     resilience.clear_faults()
     tr2 = Trainer.for_gpt2(TrainConfig(**_cfg(2, 12, guard="enforce", outdir=run,
                                               save_steps=6)),
-                           GPT2Config.tiny(**TINY), device="cpu", group=world)
+                           GPT2Config.tiny(**TINY), device="cpu", grid=data_grid(world))
     res["mask_resume"] = {"saved": saved, "step": tr2.step_count,
                           "health": tr2.state.health.tolist(),
                           "guard": tr2._guard.healthy.tolist()}
@@ -247,13 +248,13 @@ def _trainer_cases(rank, out, init):
     # a guard toggle across a checkpoint, both ways
     tr, _ = _train(_cfg(2, 4, guard="enforce", outdir=f"{out}/t1", save_steps=4), world)
     tr = Trainer.for_gpt2(TrainConfig(**_cfg(2, 8, outdir=f"{out}/t1", save_steps=4)),
-                          GPT2Config.tiny(**TINY), device="cpu", group=world)
+                          GPT2Config.tiny(**TINY), device="cpu", grid=data_grid(world))
     res["toggle_off"] = [tr.step_count, tr.state.health is None, tr.state.prev_ballot is None]
     tr.close()
     _train(_cfg(2, 4, outdir=f"{out}/t2", save_steps=4), world)
     tr = Trainer.for_gpt2(TrainConfig(**_cfg(2, 8, guard="enforce", outdir=f"{out}/t2",
                                              save_steps=4)),
-                          GPT2Config.tiny(**TINY), device="cpu", group=world)
+                          GPT2Config.tiny(**TINY), device="cpu", grid=data_grid(world))
     res["toggle_on"] = [tr.step_count, tr.state.health.tolist(),
                         int(tr.state.prev_ballot.sum())]
     tr.close()
@@ -261,7 +262,7 @@ def _trainer_cases(rank, out, init):
     run = f"{out}/elastic"
     tr, _ = _train(_cfg(2, 4, guard="enforce", outdir=run, save_steps=4), world)
     tr = Trainer.for_gpt2(TrainConfig(**_cfg(2, 4, guard="enforce", outdir=run, save_steps=4)),
-                          GPT2Config.tiny(**TINY), device="cpu", group=world)
+                          GPT2Config.tiny(**TINY), device="cpu", grid=data_grid(world))
     if rank == 1:
         tr.state.exp_avg.fill_(1e9)
     tr.state = tr.state._replace(health=torch.tensor([True, False, True, True]))
@@ -271,7 +272,7 @@ def _trainer_cases(rank, out, init):
     if rank < 2:
         tr = Trainer.for_gpt2(TrainConfig(**_cfg(4, 10, guard="enforce", outdir=run,
                                                  save_steps=100, elastic_resume=True)),
-                              GPT2Config.tiny(**TINY), device="cpu", group=sub2)
+                              GPT2Config.tiny(**TINY), device="cpu", grid=data_grid(sub2))
         res["elastic"] = {"exp_avg": tr.state.exp_avg.tolist(),
                           "health": tr.state.health.tolist(), "step": tr.step_count}
         tr.close()

@@ -35,6 +35,7 @@ from distributed_lion_tpu_torch.models.gpt2 import GPT2Config
 from distributed_lion_tpu_torch.ops.codec import unpack_signs
 from distributed_lion_tpu_torch.optim.distributed_lion import distributed_lion
 from distributed_lion_tpu_torch.optim.lion import FlatParams
+from distributed_lion_tpu_torch.parallel.mesh import data_grid
 from distributed_lion_tpu_torch.train.loop import TrainConfig, Trainer
 from distributed_lion_tpu_torch.utils.serialization import params_from_jax, save_pytree
 
@@ -94,7 +95,7 @@ def _four_rank_work(rank, out):
             tr = Trainer.for_gpt2(TrainConfig(**COMMON, wire=wire),
                                   GPT2Config.tiny(compute_dtype=torch.float32, dropout=0.0),
                                   device="cpu", initial_params=params_from_jax(f"{out}/init.npz"),
-                                  group=dist.group.WORLD)
+                                  grid=data_grid(dist.group.WORLD))
             hist = tr.train(batch_iterator(blocks, tr.global_train_batch(), seed=0))
             tr.close()
             np.save(f"{out}/{_name(wire)}_loss_{rank}.npy", np.array([h["loss"] for h in hist]))
