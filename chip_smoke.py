@@ -94,7 +94,10 @@ Phases (none of their failures is caught; any one fails the run):
    ``cudaDeviceSynchronize``, ``cudaEventSynchronize``, ``cudaMemcpy``)
    and of device-to-host copies must be equal (the journal adds no sync);
    both runs' step times and the journal's attribution
-   (``cli/run_analyze.py``) are printed. (d) ``cli.run_sft.main``: Llama-2-7B at full width and depth
+   (``cli/run_analyze.py``) are printed. (c-dots) ``--dropout 0
+   --remat_policy dots``: losses, final params and momentum ``torch.equal``
+   to (c)'s, (c)'s launches; its peak device memory and median step are
+   printed beside (c)'s. (d) ``cli.run_sft.main``: Llama-2-7B at full width and depth
    (32 layers, d 4096, 32 heads of 128, d_ff 11008; the byte vocabulary,
    259), an NF4 base, LoRA r 8 on wq/wv (4,194,304 trainable coordinates),
    ``--attn_impl flash``, B 4 x accumulation 2 x T 1024, 3 steps and the
@@ -223,7 +226,7 @@ Phases (none of their failures is caught; any one fails the run):
    2 x T 1024; (u) ``run_clm --model_family llama`` at Llama-3-8B's widths
    cut to 2 layers, bfloat16 params, T 2048, ``--tensor_parallel 2
    --tp_vocab``, B 1 x 1 (the depth cut through ``llama_cut``: the CLIs have
-   no depth flag). Under a ``TPWatch`` on every rank: the replicated leaves
+   no depth flag). Under a ``GridWatch`` on every rank: the replicated leaves
    ``torch.equal`` across the tensor ranks after every step and the losses
    equal across them; up to 2e8 coordinates every step's params and
    momentum ``torch.equal`` to the plain apply of the plain election of the
@@ -242,6 +245,32 @@ Phases (none of their failures is caught; any one fails the run):
    windows and the flash kernels at their shapes (H 6 hd 64 with the q, k,
    v views of the rank's projection; H 16 hd 128 at T 1024 and at T 2048).
    It prints the step times and each rank's buckets.
+   Runs (v1)-(x2), sequence parallelism, ride it too (global rank r = (d·tp +
+   t)·sp + s), 3 steps each on ``sign_psum``: (v1) ``run_clm`` GPT-2 124M at
+   full width, T 1024, float32 compute, dp 2 x sp 2, ring, ``--dropout 0
+   --telemetry``, B 2 x 1; (v2) (v1) with ``--seq_impl ulysses`` and no
+   telemetry; (v3) dp 1 x tp 2 x sp 2, ring; (w) ``run_clm --model_family llama`` at Llama-3-8B's
+   widths cut to 2 layers, bfloat16, T 8192 over dp 1 x sp 4 (2,048 tokens a
+   rank), ring, ``--vocab_chunks 8``, B 1 x 1; (x1) ``run_sft --packing
+   --seq_parallel 2`` at Llama-2-7B's widths and 32,000 rows cut to 4
+   layers, NF4 base, LoRA r 8 on wq/wv, T 2048, no adapter dropout (its
+   masks would differ by chunk from the unsplit model's), dp 2 x sp 2; (x2)
+   ``run_dpo --seq_parallel 2`` at Llama-2-7B's widths cut to 2 layers,
+   ``--max_length 1024``, dp 2 x sp 2. The same ``GridWatch`` adds: each
+   rank's params and momentum hash (sha256) to its seq peers' after every
+   step; losses equal across every rank of a data rank; with telemetry each
+   step's margin histogram and disagreement equal ``bucket_vote_stats_plain``
+   of the gathered tally; sp == dp at step 1 ((x1) at step 3) against the
+   unsplit model on the data rank's whole rows (at (w)'s T 8192 through the
+   flash kernels, their launches taken back out of the counts, and the head
+   chunked as the run's), median ratio within 1e-3 of 1 at float32 ((v1)-(v3))
+   and 1e-2 at bfloat16 ((w), (x1)), and >= 99% equal ballots; (x2) has no
+   such check. The seq axis's two collectives are timed on the host clock
+   at (v1)'s shapes (the gradient's ``all_reduce`` over the seq pair and one
+   ring hop of a layer's k and v, through gloo). No flash kernel launches in these runs
+   (every seq-parallel attention, eval's too, is the ring's or Ulysses');
+   the kernel phase holds the optimizer kernels at (w)'s, (x1)'s and (x2)'s
+   windows.
 6. Run (g), resume on the card, in the 1-rank NCCL group: the repo's
    ``*.md`` files go through the port's GPT-2 BPE (``runs/parity/tok``,
    its C++ merge core, which must build) into a uint16 ``bin:`` shard, read
@@ -446,6 +475,7 @@ from distributed_lion_tpu_torch.optim.optax_adapter import adamw
 from distributed_lion_tpu_torch.optim.zero import AdamWZero1, Zero1State, zero1_chunk
 from distributed_lion_tpu_torch.parallel import collectives
 from distributed_lion_tpu_torch.parallel import tensor_parallel as tpar
+from distributed_lion_tpu_torch.parallel.mesh import make_grid
 from distributed_lion_tpu_torch.train import journal, resilience, vote_guard
 from distributed_lion_tpu_torch.train import loop as train_loop
 from distributed_lion_tpu_torch.train.checkpoint import Checkpointer
@@ -591,10 +621,51 @@ N_TP = 81_940_224
 N_TP_VOCAB = 62_659_584
 N_TP_SFT = T_LAYERS * 2 * (4096 * 8 + 8 * 2048)
 N_TP_LLAMA3 = 525_336_576 + 262_668_288 + 4096 + U_LAYERS * 109_060_096
+# runs (v1)-(x2): sequence parallelism in the same spawn, S_STEPS steps each
+# (global rank r = (d·tp + t)·sp + s)
+SP = 2
+# (v1)-(v3) at float32 compute: their dp check holds the ring to the unsplit
+# model within MEDIAN_TOL_F32, where bfloat16 rounding would blur it
+V_BASE = S1_ARGS[:-2] + ["--compute_dtype", "float32"]   # (s1) without its tensor axis
+V1_ARGS = V_BASE + ["--seq_parallel", str(SP), "--telemetry"]
+V2_ARGS = V_BASE + ["--seq_parallel", str(SP), "--seq_impl", "ulysses"]
+V3_ARGS = S1_ARGS + ["--compute_dtype", "float32", "--seq_parallel", str(SP)]
+# (w): Llama-3-8B's widths at W_LAYERS layers, T 8192 over four seq ranks
+W_LAYERS, W_T, W_SP, W_CHUNKS = 2, 8192, 4, 8
+W_ARGS = ["--model_family", "llama", "--model_name", "llama3_8b", "--param_dtype", "bfloat16",
+          "--compute_dtype", "bfloat16", "--dropout", "0", "--block_size", str(W_T),
+          "--per_device_train_batch_size", "1", "--gradient_accumulation_steps", "1",
+          "--max_steps", str(S_STEPS), "--logging_steps", "1", "--dataset", "synthetic",
+          "--synthetic_blocks", "16", "--lion", "--async_grad", "--wire", "sign_psum",
+          "--lr_scheduler_type", "constant", "--seq_parallel", str(W_SP), "--vocab_chunks",
+          str(W_CHUNKS)]
+# (x1): run_sft at Llama-2-7B's widths and vocabulary, X1_LAYERS layers, T
+# 2048; no adapter dropout, whose masks would differ by chunk from the
+# unsplit model's; (x2): run_dpo at X2_LAYERS layers, T 1024
+X1_LAYERS, X2_LAYERS = 4, 2
+X1_ARGS = ["--model_name", T_MODEL, "--quant", "nf4", "--packing", "--seq_length", "2048",
+           "--per_device_train_batch_size", "2", "--gradient_accumulation_steps", "1",
+           "--max_steps", str(S_STEPS), "--logging_steps", "1", "--lion", "--async_grad",
+           "--wire", "sign_psum", "--seq_parallel", str(SP), "--lora_dropout", "0",
+           "--per_device_eval_batch_size", "2", "--eval_iters", "1"]
+X2_ARGS = ["--model_name", T_MODEL, "--quant_ref", "nf4", "--max_length", "1024",
+           "--max_prompt_length", "512", "--num_train_samples", "64", "--size_valid_set", "8",
+           "--per_device_train_batch_size", "1", "--gradient_accumulation_steps", "1",
+           "--max_steps", str(S_STEPS), "--logging_steps", "1", "--lion", "--async_grad",
+           "--wire", "sign_psum", "--seq_parallel", str(SP), "--eval_iters", "1",
+           "--per_device_eval_batch_size", "1"]
+# each rank's flat coordinates: (w)'s whole Llama-3-8B at 2 layers (dp 1 x
+# sp 4: nothing split), (x1)'s adapters (A [4096, 8], B [8, 4096] on wq and
+# wv), (x2)'s DPO adapters (run (j)'s sites at X2_LAYERS layers)
+N_SP_LLAMA3 = 2 * 525_336_576 + 4096 + W_LAYERS * 218_112_000
+N_SP_SFT = X1_LAYERS * 2 * (4096 * 8 + 8 * 4096)
+N_SP_DPO = X2_LAYERS * (4 * 2 * 4096 * 8 + 3 * (4096 * 8 + 8 * 11008)) + 259 * 8 + 8 * 4096
 TP_DEVICE = "cuda"   # where (t)'s whole base is made
 MEDIAN_COORDS = 1 << 24   # the coordinates a leaf's median ratio is taken over, at most
 MEDIAN_TOL = 1e-2   # dp x tp == dp: per-leaf median momentum ratio (tests/test_tp_vocab.py)
+MEDIAN_TOL_F32 = 1e-3   # the same at float32 compute
 PLAIN_APPLY_MAX = 200_000_000   # coordinates up to which the watch re-applies in plain ops
+HASH_CHUNK = 1 << 28   # bytes a seq-equality hash copies to the host at a time
 RUNS = 25
 AHEAD_CYCLES = 50_000_000   # about 30 ms of the card's clock: the host queues the timed calls
 
@@ -631,6 +702,10 @@ TP_DTYPES = {N_TP: ((torch.float32, torch.float32),),
              N_TP_VOCAB: ((torch.float32, torch.float32),),
              N_TP_SFT: ((torch.float32, torch.float32),),
              N_TP_LLAMA3: ((torch.bfloat16, torch.bfloat16),)}
+# the sequence-parallel runs' windows ((v1), (v2) vote N_MAIN, (v3) N_TP)
+SP_DTYPES = {N_SP_LLAMA3: ((torch.bfloat16, torch.bfloat16),),
+             N_SP_SFT: ((torch.float32, torch.float32),),
+             N_SP_DPO: ((torch.float32, torch.float32),)}
 # the optimizer kernels' wrappers count in ``.launches``; the flash
 # wrappers per head_dim in ``.by_head_dim``
 WRAPPERS = {"fused_ballots": fused_lion.fused_ballots, "fused_apply": fused_lion.fused_apply,
@@ -675,6 +750,15 @@ def read_counts() -> dict:
         counts[k] = fn.by_head_dim[64]
         counts[f"{k}_hd128"] = fn.by_head_dim[128]
     return counts
+
+
+def restore_counts(counts: dict) -> None:
+    """Every launch count back to ``counts`` (``read_counts``'s): a check's
+    own launches taken back out of a main path's run."""
+    for name, fn in WRAPPERS.items():
+        fn.launches = counts[name]
+    for k, fn in FLASH_WRAPPERS.items():
+        fn.by_head_dim[64], fn.by_head_dim[128] = counts[k], counts[f"{k}_hd128"]
 
 
 def card_rates(name: str) -> tuple[float, float, float]:
@@ -774,8 +858,8 @@ def build_cuda_kernels() -> dict:
     return regs
 
 
-def optimizer_kernel_phase(gen, rates, ns=(N_MAIN, N_SFT, N_DPO, N_RAGGED, *TP_DTYPES),
-                           big: bool = True):
+def optimizer_kernel_phase(gen, rates, ns=(N_MAIN, N_SFT, N_DPO, N_RAGGED, *TP_DTYPES,
+                                           *SP_DTYPES), big: bool = True):
     """Compare and time the two Triton kernels and the stats kernel at each
     window of ``ns`` (and with ``big`` the 2³¹ + 4097 window); returns
     per-kernel records at the main path's shape (float32, int8 tally) and
@@ -783,7 +867,7 @@ def optimizer_kernel_phase(gen, rates, ns=(N_MAIN, N_SFT, N_DPO, N_RAGGED, *TP_D
     rec = {}
     err = dict.fromkeys(OPT_KERNELS, 0.0)
     for n in ns:
-        for pdt, mdt in TP_DTYPES.get(n, DTYPE_PAIRS):
+        for pdt, mdt in {**TP_DTYPES, **SP_DTYPES}.get(n, DTYPE_PAIRS):
             if (pdt, mdt) == MOM_BF16 and n in (N_SFT, N_DPO):
                 continue   # bf16 momentum under float32 params: GPT-2's run (h2)
             suffix = {MOM_BF16: "_mom_bf16", (torch.bfloat16, torch.bfloat16): "_p_bf16"}.get(
@@ -845,7 +929,7 @@ def optimizer_kernel_phase(gen, rates, ns=(N_MAIN, N_SFT, N_DPO, N_RAGGED, *TP_D
             del g, m, p
             torch.cuda.empty_cache()
 
-        if n not in TP_DTYPES:   # no stats kernel under a tensor axis (no telemetry)
+        if n not in TP_DTYPES and n not in SP_DTYPES:   # no telemetry in those runs
             stats_cases(gen, rates, n, rec, err)
         torch.cuda.empty_cache()
     if big:
@@ -2427,13 +2511,17 @@ def adapter_dim(name: str):
     return dim if dim is not None and dim >= 1 else None
 
 
-def dense_grad(trainer, local, whole: torch.Tensor, sft: Optional[dict]) -> list:
+def dense_grad(trainer, local, whole: torch.Tensor, sft: Optional[dict], attn: str = "xla",
+               vocab_chunks: int = 0) -> list:
     """The unsplit model's gradient on this data rank's microbatch ``local``
-    at the whole-leaf params ``whole`` (the trainer's flat order), one
-    tensor a leaf: GPT-2 or Llama with every leaf a parameter (Llama's
-    views of ``whole``), or the LoRA adapters over the whole NF4 base
-    ``sft["base"]`` with this step's adapter-dropout seed. Its attention is
-    ``attention_xla``, so it launches no counted kernel."""
+    (its whole rows) at the whole-leaf params ``whole`` (the trainer's flat
+    order), one tensor a leaf: GPT-2 or Llama with every leaf a parameter
+    (Llama's views of ``whole``; with ``vocab_chunks`` its head chunked as
+    the run's), or the LoRA adapters over the whole NF4 base ``sft["base"]``
+    with this step's adapter-dropout seed. Its attention is ``attn``:
+    ``attention_xla``, which launches no counted kernel, or the flash
+    kernels where the scores would not fit beside the ranks' state (the
+    caller takes their launches back out)."""
     names, shapes = trainer.flat.names, trainer.full_shapes
     sizes = [math.prod(sh) for sh in shapes]
     views = {n: t.view(sh) for n, t, sh in zip(names, whole.split(sizes), shapes)}
@@ -2444,13 +2532,14 @@ def dense_grad(trainer, local, whole: torch.Tensor, sft: Optional[dict]) -> list
             path, k = n.rsplit("/", 1)
             adapters.setdefault(path, {})[k] = t.clone().requires_grad_()
         seed = train_loop.fold_seed(trainer.cfg.seed + 1, trainer.rank, trainer.step_count, 0)
-        model = Llama(dataclasses.replace(sft["cfg"], attn_impl="xla"), sft["base"])
-        eff = apply_adapters(sft["base"], adapters, LoraConfig(**T_LORA), dropout_seed=seed)
+        model = Llama(dataclasses.replace(sft["cfg"], attn_impl=attn), sft["base"])
+        eff = apply_adapters(sft["base"], adapters, LoraConfig(**sft.get("lora", T_LORA)),
+                             dropout_seed=seed)
         loss, _ = clm_loss_and_metrics(model(tokens, eff), tokens)
         loss.backward()
         return [adapters[n.rsplit("/", 1)[0]][n.rsplit("/", 1)[1]].grad for n in names]
     if isinstance(trainer.model, GPT2):
-        model = GPT2(dataclasses.replace(trainer.model.cfg, attn_impl="xla"), device=whole.device)
+        model = GPT2(dataclasses.replace(trainer.model.cfg, attn_impl=attn), device=whole.device)
         with torch.no_grad():
             for n, p in model.named_parameters():
                 p.copy_(views[n])
@@ -2458,9 +2547,14 @@ def dense_grad(trainer, local, whole: torch.Tensor, sft: Optional[dict]) -> list
         loss.backward()
         named = dict(model.named_parameters())
     else:
-        model = Llama(dataclasses.replace(trainer.model.cfg, attn_impl="xla"),
+        model = Llama(dataclasses.replace(trainer.model.cfg, attn_impl=attn),
                       as_parameters(tree_from_state_dict(views)))
-        loss, _ = clm_loss_and_metrics(model(tokens), tokens)
+        if vocab_chunks:
+            loss, _ = chunked_clm_loss_and_metrics(model.hidden(tokens),
+                                                   model.params["lm_head"], tokens,
+                                                   vocab_chunks, emb_layout="dv")
+        else:
+            loss, _ = clm_loss_and_metrics(model(tokens), tokens)
         loss.backward()
         named = dict(model.jax_named_parameters())
     return [named[n].grad for n in names]
@@ -2475,7 +2569,7 @@ def momentum_vs_grad(grads: list, momentum: torch.Tensor, b2: float) -> dict:
     MEDIAN_COORDS of them); the leaves with fewer than 8 either way
     (``skipped``: the check fails on any), the largest absolute difference
     and the share of equal ballots ``sign(g)``."""
-    ratios, diff, top, equal, skipped = [], 0.0, 0.0, 0, 0
+    ratios, worst, diff, top, equal, skipped = [], (0.0, -1), 0.0, 0.0, 0, 0
     sizes = [g.numel() for g in grads]
     for g, m in zip(grads, momentum.split(sizes)):
         a, b = g.reshape(-1).float() * (1.0 - b2), m.float()
@@ -2485,6 +2579,7 @@ def momentum_vs_grad(grads: list, momentum: torch.Tensor, b2: float) -> dict:
         if big.numel() >= 8:
             big = big[::max(1, big.numel() // MEDIAN_COORDS)]
             ratios.append(float(torch.median(b[big] / a[big])))
+            worst = max(worst, (abs(ratios[-1] - 1), len(ratios) + skipped - 1))
         else:
             skipped += 1
         diff = max(diff, float((b - a).abs().max()))
@@ -2492,33 +2587,43 @@ def momentum_vs_grad(grads: list, momentum: torch.Tensor, b2: float) -> dict:
         equal += int(((b > 0) == (a > 0)).sum())
         del a, b, big
     return {"median_ratio": [min(ratios, default=math.nan), max(ratios, default=math.nan)],
-            "leaves": len(ratios), "skipped": skipped, "max_abs_diff": diff, "max_abs": top,
+            "leaves": len(ratios), "skipped": skipped, "worst_leaf": worst[1],
+            "max_abs_diff": diff, "max_abs": top,
             "equal_ballots": equal / sum(sizes)}
 
 
-class TPWatch:
-    """Checks around ``DistributedLion.step`` in a tensor-parallel run, on
-    every rank (the trainer and this rank's microbatch read from
-    ``Trainer._train_step``): after every step this rank's replicated
-    leaves equal its tensor peer's (``replicated_equal``), ``torch.equal``;
-    up to PLAIN_APPLY_MAX coordinates, every step's params and momentum
-    equal the plain apply (``fused_apply_plain``) of the plain election of
-    the data group's gathered ballots (``apply_equal``) and the params the
-    other data rank's (``params_equal``); and dp × tp == dp at step 1 (at
-    the last step for LoRA: B is zero until a step with lr > 0 moves it,
-    and run_sft's warmup gives step 1 lr 0, so A's gradient is zero at
-    steps 1 and 2): the momentum step ``m − β₂·m_before = (1 − β₂)·g`` gathered over the
-    tensor group into the whole leaves against ``(1 − β₂)·`` the unsplit
-    model's gradient on the same microbatch and weights (``dense_grad``),
-    one data rank at a time (``momentum_vs_grad``: ``dp``)."""
+class GridWatch:
+    """Checks around ``DistributedLion.step`` in a tensor- or
+    sequence-parallel run, on every rank (the trainer and this rank's
+    microbatch read from ``Trainer._train_step``; under a seq axis the data
+    rank's whole rows from ``Trainer._local_batch``): after every step this
+    rank's replicated leaves equal its tensor peer's (``replicated_equal``),
+    ``torch.equal``, and its params and momentum hash (sha256) to its seq
+    peers' (``seq_equal``); up to PLAIN_APPLY_MAX coordinates, every step's
+    params and momentum equal the plain apply (``fused_apply_plain``) of the
+    plain election of the data group's gathered ballots (``apply_equal``),
+    the params the other data rank's (``params_equal``), and with telemetry
+    the frame's margin histogram and disagreement ``bucket_vote_stats_plain``
+    of the gathered tally (``hist``); and dp x tp x sp == dp at step 1 (at
+    the last step for LoRA: B is zero until a step with lr > 0 moves it, and
+    run_sft's warmup gives step 1 lr 0, so A's gradient is zero at steps 1
+    and 2; never with ``check`` False): the momentum step ``m − β₂·m_before
+    = (1 − β₂)·g`` gathered over the tensor group into the whole leaves
+    against ``(1 − β₂)·`` the unsplit model's gradient on the same rows and
+    weights (``dense_grad`` through ``attn``, its flash launches taken back
+    out of the counts), one data rank at a time, on its tensor and seq rank
+    0 (``momentum_vs_grad``: ``dp``)."""
 
-    def __init__(self, sft: Optional[dict] = None):
-        self.sft = sft
-        self.check_step = S_STEPS - 1 if sft is not None else 0   # the steps before it
+    def __init__(self, sft: Optional[dict] = None, check: bool = True, attn: str = "xla",
+                 vocab_chunks: int = 0):
+        self.sft, self.attn, self.vocab_chunks = sft, attn, vocab_chunks
+        self.check_step = None if not check else S_STEPS - 1 if sft is not None else 0
         self.params_equal, self.replicated_equal, self.apply_equal = [], [], []
+        self.seq_equal, self.hist = [], []
         self.dp = None
-        self.trainer = self.local = None
+        self.trainer = self.local = self.rows = None
         self._step, self._train_step = DistributedLion.step, train_loop.Trainer._train_step
+        self._local_batch = train_loop.Trainer._local_batch
         watch = self
 
         def step(opt, flat, state):
@@ -2528,17 +2633,29 @@ class TPWatch:
             watch.trainer, watch.local = trainer, local
             return watch._train_step(trainer, local)
 
+        def local_batch(trainer, batch):
+            if trainer.seq.size > 1:   # the data rank's whole rows
+                accum = trainer.cfg.gradient_accumulation_steps
+                bs = trainer.cfg.per_device_train_batch_size
+                watch.rows = train_loop._to_device(
+                    train_loop._rows(batch, trainer.rank * accum * bs,
+                                     (trainer.rank + 1) * accum * bs), trainer.device)
+            return watch._local_batch(trainer, batch)
+
         DistributedLion.step = step
         train_loop.Trainer._train_step = train_step
+        train_loop.Trainer._local_batch = local_batch
 
     def close(self) -> None:
         DistributedLion.step = self._step
         train_loop.Trainer._train_step = self._train_step
+        train_loop.Trainer._local_batch = self._local_batch
 
     def _observe(self, opt, flat, state):
         tr = self.trainer
         plain = flat.numel <= PLAIN_APPLY_MAX
         first = state.steps == self.check_step
+        checker = tr.tensor.rank == 0 and tr.seq.rank == 0   # builds the unsplit model
         if plain:
             g = flat.grads.to(state.exp_avg.dtype)
             ballots = fused_lion.fused_ballots_plain(g, state.exp_avg, opt.b1)
@@ -2548,25 +2665,48 @@ class TPWatch:
             want = fused_lion.fused_apply_plain(flat.params, g, state.exp_avg, tally,
                                                 resolve_lr(opt.learning_rate, state.count),
                                                 opt.weight_decay, opt.b2)
-            del g, ballots, gathered, tally
+            del g, gathered
         before = tr._whole(flat.params) if first else None
-        if tr.tensor.rank:   # only tensor rank 0 builds the unsplit model
+        if before is not None and tr.tensor.size == 1:
+            before = before.clone() if checker else None   # the step updates it in place
+        if not checker:
             before = None
         # the step may update the momentum in place; step 1's before is zero
         m_before = state.exp_avg.clone() if first and self.check_step else None
         out = self._step(opt, flat, state)
+        # (state, *frames) with telemetry; a state alone is a NamedTuple
+        st, frame = (out[0], out[1]) if type(out) is tuple else (out, None)
         if plain:
             self.apply_equal.append(torch.equal(flat.params, want[0])
-                                    and torch.equal(out.exp_avg, want[1]))
-            del want
-        if plain:   # over PLAIN_APPLY_MAX the broadcast would take seconds a step
+                                    and torch.equal(st.exp_avg, want[1]))
+            if frame is not None and opt.wire == "sign_psum":
+                hist, dis = fused_lion.bucket_vote_stats_plain(ballots, tally, opt.world, 8)
+                self.hist.append(frame["margin_hist"].tolist() == hist.tolist()
+                                 and int(frame["disagree"]) == int(dis))
+            del want, ballots, tally
+            # over PLAIN_APPLY_MAX the broadcast would take seconds a step
             self.params_equal.append(self._equal_to(flat.params, opt.group))
-        views = flat.views(flat.params)
-        rep = torch.cat([views[n].reshape(-1) for n, d in zip(flat.names, tr._dims)
-                         if d is None])
-        self.replicated_equal.append(self._equal_to(rep, tr.tensor.group))
+        if tr.tensor.size > 1:
+            views = flat.views(flat.params)
+            rep = torch.cat([views[n].reshape(-1) for n, d in zip(flat.names, tr._dims)
+                             if d is None])
+            self.replicated_equal.append(self._equal_to(rep, tr.tensor.group))
+            del rep
+        else:
+            self.replicated_equal.append(True)
+        if tr.seq.size > 1:
+            # hashed a chunk at a time: at (w)'s 1.49B coordinates whole host
+            # copies of both buffers on four ranks would fill the host
+            digest = hashlib.sha256()
+            for t in (flat.params, st.exp_avg):
+                b = t.detach().reshape(-1).view(torch.uint8)
+                for i in range(0, b.numel(), HASH_CHUNK):
+                    digest.update(b[i:i + HASH_CHUNK].cpu().numpy())
+            every = [None] * tr.seq.size
+            dist.all_gather_object(every, digest.hexdigest(), group=tr.seq.group)
+            self.seq_equal.append(len(set(every)) == 1)
         if first:
-            self.dp = self._dp_check(tr, opt, before, out.exp_avg, m_before)
+            self.dp = self._dp_check(tr, opt, before, st.exp_avg, m_before)
         del before, m_before
         torch.cuda.empty_cache()
         return out
@@ -2581,24 +2721,27 @@ class TPWatch:
         return int(differ) == 0
 
     def _dp_check(self, tr, opt, before, momentum, m_before) -> dict:
-        """One data rank at a time, on its tensor rank 0 (the unsplit model
-        is large); every rank gets its tensor rank 0's record."""
+        """One data rank at a time, on its tensor and seq rank 0 (the
+        unsplit model is large); every rank gets its data rank's record."""
         out = None
         for d in range(tr.world):
             if d == tr.rank:
                 m = tr._whole(momentum)
                 if self.check_step:   # the momentum before step 1 is zero
                     m = m - opt.b2 * tr._whole(m_before)
-                if tr.tensor.rank == 0:
-                    out = momentum_vs_grad(dense_grad(tr, self.local, before, self.sft), m,
-                                           opt.b2)
+                if before is not None:
+                    counts = read_counts()
+                    rows = self.rows if tr.seq.size > 1 else self.local
+                    out = momentum_vs_grad(dense_grad(tr, rows, before, self.sft, self.attn,
+                                                      self.vocab_chunks), m, opt.b2)
+                    out["worst_leaf"] = tr.flat.names[out["worst_leaf"]]
+                    restore_counts(counts)
                 del m
                 torch.cuda.empty_cache()
             dist.barrier()
-        box = [out]
-        dist.broadcast_object_list(box, dist.get_global_rank(tr.tensor.group, 0),
-                                   group=tr.tensor.group)
-        return box[0]
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, (tr.rank, out))
+        return next(o for r, o in every if r == tr.rank and o is not None)
 
 
 def tp_eval_batches(trainer, rows: int) -> int:
@@ -2620,12 +2763,15 @@ def tp_flash_launches(layers: int, steps: int, evals: int, hd: int) -> dict:
             **(NO_HD128 if hd == 64 else NO_HD64)}
 
 
-def tp_one(rank: int, label: str, run, n_local: int, hd: int, layers: int,
-           sft: Optional[dict] = None) -> dict:
-    """One tensor-parallel run under a :class:`TPWatch`: ``run()`` returns
-    (trainer, the eval rows it evaluated, the run's base tree or None);
-    checks every rank's record and its launches a rank."""
-    watch = TPWatch(sft)
+def grid_one(rank: int, label: str, run, n_local: int, flash, dp_world: int = 2,
+             sft: Optional[dict] = None, tol: float = MEDIAN_TOL, **watch_kw) -> dict:
+    """One tensor- or sequence-parallel run under a :class:`GridWatch`
+    (``watch_kw`` its options): ``run()`` returns (trainer, the eval rows it
+    evaluated, the run's base tree or None); checks every rank's record and
+    its launches a rank (the optimizer kernels' by formula, the flash
+    kernels' ``flash(eval batches)``); the dp check's median ratios within
+    ``tol`` of 1."""
+    watch = GridWatch(sft, **watch_kw)
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2638,20 +2784,21 @@ def tp_one(rank: int, label: str, run, n_local: int, hd: int, layers: int,
     rows = [r for r in trainer.history if "loss" in r]
     evals = tp_eval_batches(trainer, eval_rows)
     expect(f"{label} rank {rank}", launches, dict(optimizer_launches(trainer, S_STEPS),
-                                                  **tp_flash_launches(layers, S_STEPS, evals, hd)))
-    losses = torch.tensor([r["loss"] for r in rows], dtype=torch.float64,
-                          device=trainer.device)
-    peer = losses.clone()
-    dist.broadcast(peer, rank - rank % TP, group=trainer.tensor.group)
+                                                  **flash(evals)))
+    losses = [r["loss"] for r in rows]
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (trainer.rank, losses))   # the data rank's ranks agree
     plain = trainer.n_params <= PLAIN_APPLY_MAX
-    rec = {"run": label, "losses": losses.tolist(), "step_ms": [r["step_ms"] for r in rows],
+    sp = trainer.seq.size
+    rec = {"run": label, "losses": losses, "step_ms": [r["step_ms"] for r in rows],
            "n_params": trainer.n_params, "n_global": trainer.n_global,
            "buckets": trainer.cfg.vote_buckets, "evals": evals,
-           "losses_equal": torch.equal(losses, peer), "params_equal": watch.params_equal,
-           "replicated_equal": watch.replicated_equal, "apply_equal": watch.apply_equal,
-           "dp": watch.dp, "dp_step": watch.check_step + 1, "peak_gib": peak / 2**30,
-           "wall_s": wall, "launches": launches,
-           "comm": trainer.comm_stats().get("comm_bytes_per_step")}
+           "losses_equal": all(l == losses for d, l in every if d == trainer.rank),
+           "params_equal": watch.params_equal, "replicated_equal": watch.replicated_equal,
+           "apply_equal": watch.apply_equal, "seq_equal": watch.seq_equal, "hist": watch.hist,
+           "dp": watch.dp, "dp_step": None if watch.check_step is None else watch.check_step + 1,
+           "peak_gib": peak / 2**30, "rss_gib": peak_rss_bytes() / 2**30, "wall_s": wall,
+           "launches": launches, "comm": trainer.comm_stats().get("comm_bytes_per_step")}
     if base is not None:   # (t): the rank's NF4 codes and absmax, slices of the whole base
         whole = dict(iter_paths(sft["base"]))
         mine = dict(iter_paths(base))
@@ -2663,13 +2810,17 @@ def tp_one(rank: int, label: str, run, n_local: int, hd: int, layers: int,
             for p, q in mine.items() if isinstance(q, quant.QuantizedTensor))
     dp = watch.dp
     ok = (len(rows) == S_STEPS and all(map(math.isfinite, rec["losses"]))
-          and trainer.n_params == n_local and trainer.world == 2 and rec["losses_equal"]
+          and trainer.n_params == n_local and trainer.world == dp_world and rec["losses_equal"]
           and watch.params_equal == watch.apply_equal == ([True] * S_STEPS if plain else [])
           and watch.replicated_equal == [True] * S_STEPS
-          and dp is not None and dp["skipped"] == 0
-          and dp["leaves"] == len(trainer.flat.names)
-          and abs(dp["median_ratio"][0] - 1) < MEDIAN_TOL
-          and abs(dp["median_ratio"][1] - 1) < MEDIAN_TOL
+          and watch.seq_equal == ([True] * S_STEPS if sp > 1 else [])
+          and all(watch.hist) and (len(watch.hist) == S_STEPS) == (
+              plain and trainer.cfg.telemetry)
+          and (watch.check_step is None or (
+              dp is not None and dp["skipped"] == 0
+              and dp["leaves"] == len(trainer.flat.names) and dp["equal_ballots"] >= 0.99
+              and abs(dp["median_ratio"][0] - 1) < tol
+              and abs(dp["median_ratio"][1] - 1) < tol))
           and rec.get("nf4_equal", True))
     if not ok:
         raise AssertionError(f"run {label} rank {rank}: {rec}")
@@ -2687,8 +2838,11 @@ def tp_runs(rank: int) -> dict:
             return trainer, 3, None   # 5% of 64 synthetic blocks held out
         return run
 
-    recs = [tp_one(rank, "(s1)", clm(S1_ARGS), N_TP, 64, N_LAYER),
-            tp_one(rank, "(s2)", clm(S2_ARGS), N_TP_VOCAB, 64, N_LAYER)]
+    def flash(layers, hd):
+        return lambda evals: tp_flash_launches(layers, S_STEPS, evals, hd)
+
+    recs = [grid_one(rank, "(s1)", clm(S1_ARGS), N_TP, flash(N_LAYER, 64)),
+            grid_one(rank, "(s2)", clm(S2_ARGS), N_TP_VOCAB, flash(N_LAYER, 64))]
     with llama_cut(n_layer=T_LAYERS, vocab_size=T_VOCAB):
         cfg = LlamaConfig.named(T_MODEL, attn_impl="flash")
         sft = {"cfg": cfg, "base": llama_init(cfg, seed=42, device=TP_DEVICE, quant="nf4")}
@@ -2701,12 +2855,12 @@ def tp_runs(rank: int) -> dict:
                                         trainer.global_train_batch(), trainer.cfg.seed, 1.0)
             return trainer, len(ev), model.params
 
-        recs.append(tp_one(rank, "(t)", t_run, N_TP_SFT, 128, T_LAYERS, sft))
+        recs.append(grid_one(rank, "(t)", t_run, N_TP_SFT, flash(T_LAYERS, 128), sft=sft))
         del sft
         torch.cuda.empty_cache()
     with llama_cut(n_layer=U_LAYERS):
-        recs.append(tp_one(rank, "(u)", lambda: (run_clm.main(U_ARGS), 0, None), N_TP_LLAMA3,
-                           128, U_LAYERS))
+        recs.append(grid_one(rank, "(u)", lambda: (run_clm.main(U_ARGS), 0, None),
+                             N_TP_LLAMA3, flash(U_LAYERS, 128)))
     return {"run": "tp", "records": recs}
 
 
@@ -2737,6 +2891,109 @@ def tp_report(rec: dict, card: str) -> None:
               f"whole model's count, as the JAX package states it); step ms {r['step_ms']}; peak "
               f"device memory {r['peak_gib']:.2f} GiB a rank; main {r['wall_s']:.1f} s on {card}; "
               f"rank 0 launches {r['launches']}", flush=True)
+
+
+def no_flash(evals: int) -> dict:
+    """A sequence-parallel run's flash launches: none (every attention of it,
+    eval's too, is the ring's or Ulysses')."""
+    return {**NO_HD64, **NO_HD128}
+
+
+def sp_runs(rank: int) -> dict:
+    """Runs (v1)-(x2) on one rank of the W4 spawn (dp 2 x sp 2; (v3) dp 1 x
+    tp 2 x sp 2; (w) dp 1 x sp 4); rank 0 returns the records."""
+    def clm(args):
+        return lambda: (run_clm.main(args), 3, None)   # 5% of 64 synthetic blocks held out
+
+    recs = [grid_one(rank, "(v1)", clm(V1_ARGS), N_MAIN, no_flash, tol=MEDIAN_TOL_F32),
+            grid_one(rank, "(v2)", clm(V2_ARGS), N_MAIN, no_flash, tol=MEDIAN_TOL_F32),
+            grid_one(rank, "(v3)", clm(V3_ARGS), N_TP, no_flash, dp_world=1,
+                     tol=MEDIAN_TOL_F32)]
+    with llama_cut(n_layer=W_LAYERS):
+        # the unsplit check model's scores at T 8192 would not fit beside the
+        # four ranks' state: it takes the flash kernels
+        recs.append(grid_one(rank, "(w)", lambda: (run_clm.main(W_ARGS), 1, None), N_SP_LLAMA3,
+                             no_flash, dp_world=1, attn="flash", vocab_chunks=W_CHUNKS))
+    torch.cuda.empty_cache()
+    with llama_cut(n_layer=X1_LAYERS, vocab_size=T_VOCAB):
+        cfg = LlamaConfig.named(T_MODEL)
+        sft = {"cfg": cfg, "base": llama_init(cfg, seed=42, device=TP_DEVICE, quant="nf4"),
+               "lora": dict(T_LORA, dropout=0.0)}
+        recs.append(grid_one(rank, "(x1)", lambda: (run_sft.main(X1_ARGS)[0], 0, None),
+                             N_SP_SFT, no_flash, sft=sft))
+        del sft
+        torch.cuda.empty_cache()
+    with llama_cut(n_layer=X2_LAYERS):
+        recs.append(grid_one(rank, "(x2)", lambda: (run_dpo.main(X2_ARGS)[0], 0, None),
+                             N_SP_DPO, no_flash, check=False))
+    return {"run": "sp", "records": recs, "wire": seq_wire_times()}
+
+
+def seq_wire_times() -> dict:
+    """Host-clock ms (median of 5 after a warm-up, each ended by a
+    synchronize) of the seq axis's two collectives at (v1)'s shapes on its dp
+    2 x sp 2 grid, through gloo: the gradient's ``all_reduce`` over the seq
+    pair (N_MAIN float32) and one ring hop of a layer's stacked k and v (``[2,
+    2, 12, 512, 64]`` float32, ``parallel.ring_attention._shift``)."""
+    from distributed_lion_tpu_torch.parallel.ring_attention import _shift
+
+    grid = make_grid(1, sp=SP)
+    grads = torch.ones(N_MAIN, device="cuda")
+    kv = torch.ones(2, 2, 12, 1024 // SP, 64, device="cuda")
+    out = {}
+    for name, fn in (("grad_all_reduce_ms",
+                      lambda: dist.all_reduce(grads, group=grid.seq.group)),
+                     ("ring_hop_ms", lambda: _shift(kv, grid.seq, 1))):
+        times = []
+        for i in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if i:
+                times.append(1e3 * (time.perf_counter() - t0))
+        out[name] = statistics.median(times)
+    return out
+
+
+def sp_report(rec: dict, card: str) -> None:
+    what = {"(v1)": f"run_clm GPT-2 124M, T 1024, dp 2 x sp {SP}, ring, --dropout 0 --telemetry",
+            "(v2)": f"(v1) with --seq_impl ulysses, no --telemetry",
+            "(v3)": f"run_clm GPT-2 124M, T 1024, dp 1 x tp {TP} x sp {SP}, ring",
+            "(w)": f"run_clm --model_family llama, Llama-3-8B widths at {W_LAYERS} layers, bf16, "
+                   f"T {W_T}, dp 1 x sp {W_SP}, ring, --vocab_chunks {W_CHUNKS}",
+            "(x1)": f"run_sft --packing, Llama-2-7B widths at {X1_LAYERS} layers, vocabulary "
+                    f"{T_VOCAB:,}, NF4 base, LoRA r 8 on wq/wv, T 2048, dp 2 x sp {SP}",
+            "(x2)": f"run_dpo, Llama-2-7B widths at {X2_LAYERS} layers, --max_length 1024, "
+                    f"dp 2 x sp {SP}"}
+    for r in rec["records"]:
+        dp = r["dp"]
+        check = ("no dp check" if dp is None else
+                 f"sp == dp at step {r['dp_step']} (rank 0's data rank): per-leaf median momentum "
+                 f"ratio in [{dp['median_ratio'][0]:.6f}, {dp['median_ratio'][1]:.6f}] over "
+                 f"{dp['leaves']} leaves ({dp['skipped']} skipped; farthest from 1: "
+                 f"{dp['worst_leaf']}), max |diff| "
+                 f"{dp['max_abs_diff']:.3e} (max |m| {dp['max_abs']:.3e}), equal ballots "
+                 f"{dp['equal_ballots']:.6f}")
+        print(f"[w4] {r['run']} {what[r['run']]}: 4 ranks on one card (gloo), "
+              f"{r['n_params']:,} coordinates a rank of {r['n_global']:,}, {r['buckets']} "
+              f"bucket(s), {r['evals']} eval batch(es): losses "
+              f"{[round(x, 4) for x in r['losses']]}, equal across the data rank's ranks "
+              f"{r['losses_equal']}; params and momentum sha256-equal across the seq ranks after "
+              f"each step {r['seq_equal']}; replicated leaves equal across the tensor ranks "
+              f"{r['replicated_equal']}; params equal across the data ranks "
+              f"{r['params_equal'] or 'not checked (over PLAIN_APPLY_MAX)'}; plain apply of the "
+              f"plain election equal {r['apply_equal'] or 'not run (over PLAIN_APPLY_MAX)'}"
+              + (f"; margin histogram and disagreement == bucket_vote_stats_plain of the gathered "
+                 f"tally at each step {r['hist']}" if r["hist"] else "")
+              + f"; {check}; step ms {r['step_ms']}; peak device memory {r['peak_gib']:.2f} GiB "
+              f"a rank, rank 0's process peak host RSS so far {r['rss_gib']:.2f} GiB; main "
+              f"{r['wall_s']:.1f} s on {card}; rank 0 launches {r['launches']}",
+              flush=True)
+    print(f"[w4] seq axis collectives through gloo on one card (host clock, rank 0, median of "
+          f"5): the gradient's all_reduce over the seq pair, {N_MAIN:,} float32, "
+          f"{rec['wire']['grad_all_reduce_ms']:.1f} ms; one ring hop of a layer's k and v at "
+          f"(v1)'s shape, {rec['wire']['ring_hop_ms']:.2f} ms; on {card}", flush=True)
 
 
 def plane_run(rank: int, tmp: str) -> dict:
@@ -2976,6 +3233,7 @@ def w4_rank(rank: int, tmp: str) -> None:
         records.append(q_run(rank))
         records.append(r_run(rank))
         records.append(tp_runs(rank))
+        records.append(sp_runs(rank))
         records.append(plane_run(rank, tmp))
         records.append(w4_async_commit(rank, tmp))
         if rank == 0:
@@ -3064,6 +3322,7 @@ def w4_phase(tmp: str, card: str) -> None:
         records = json.load(f)
     commit = records.pop()
     plane_report(tmp, records.pop(), card)
+    sp_report(records.pop(), card)
     tp_report(records.pop(), card)
     r_report(records.pop(), card)
     q_report(records.pop(), card)
@@ -3886,12 +4145,18 @@ def slice_phase(tmp, gen, card, rates):
         world, wire, buckets_cfg = trainer.world, trainer.cfg.wire, trainer.cfg.vote_buckets
         del trainer
         torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         plain, plain_rows, plain_launches = run_counted(["--dropout", "0"])
+        plain_peak = torch.cuda.max_memory_allocated()
         expect("dropout 0", plain_launches, dict(launches, bucket_vote_stats=0))
+        # (c)'s end state, before the journal run's profiled step moves it
+        plain_end = (plain.flat.params.detach().cpu(), plain.state.exp_avg.cpu())
         profile_step(plain, plain.model, gen, 8, "GPT-2 (c)")
         journal_run(tmp, plain, plain_rows, plain_launches, card)
         del plain
         torch.cuda.empty_cache()
+        dots_run(plain_end, plain_rows, plain_launches, plain_peak, card)
+        del plain_end
         t = phase_time("slice (a)-(c), GPT-2 124M", t)
         stoch, stoch_rows, stoch_launches = run_counted(STOCH_ARGS)
         # the stochastic ballots and update are plain PyTorch, as the JAX
@@ -3930,6 +4195,34 @@ def slice_phase(tmp, gen, card, rates):
         ("(c) dropout 0", plain_rows, plain_launches),
         ("(e) dropout 0 + max_grad_norm 1.0 (stochastic)", stoch_rows, stoch_launches),
         *mode_runs], llama, dpo, mode_times, llama3, xent
+
+
+def dots_run(plain_end: tuple, plain_rows: list, plain_launches: dict, plain_peak: int,
+             card: str) -> None:
+    """Run (c-dots): (c) with ``--remat_policy dots`` (each block keeps the
+    outputs of its products without batch dims and recomputes the rest).
+    Its losses, final params and momentum must be ``torch.equal`` to (c)'s
+    and its launches (c)'s (the flash kernels are recomputed either way);
+    its peak device memory and median step are printed beside (c)'s."""
+    torch.cuda.reset_peak_memory_stats()
+    dots, rows, launches = run_counted(["--dropout", "0", "--remat_policy", "dots"])
+    peak = torch.cuda.max_memory_allocated()
+    expect("(c-dots)", launches, plain_launches)
+    same = {"losses": [r["loss"] for r in rows] == [r["loss"] for r in plain_rows],
+            "params": torch.equal(dots.flat.params.detach().cpu(), plain_end[0]),
+            "momentum": torch.equal(dots.state.exp_avg.cpu(), plain_end[1])}
+    if dots.model.cfg.remat_policy != "dots" or not all(same.values()):
+        raise AssertionError(f"run (c-dots): policy {dots.model.cfg.remat_policy}, equal to "
+                             f"(c) {same}")
+    del dots
+    torch.cuda.empty_cache()
+    med, plain_med = (statistics.median(r["step_ms"] for r in rs[1:])
+                      for rs in (rows, plain_rows))
+    print(f"[slice] (c-dots) --dropout 0 --remat_policy dots: GPT-2 124M, 1 rank, losses "
+          f"{[round(r['loss'], 4) for r in rows]}, torch.equal to (c)'s {same}; steps 2-"
+          f"{len(rows)} {[r['step_ms'] for r in rows[1:]]} ms, median {med:.1f} ms/step beside "
+          f"(c)'s {plain_med:.1f}; peak device memory {peak / 2**30:.2f} GiB beside (c)'s "
+          f"{plain_peak / 2**30:.2f} GiB on {card}; launches (c)'s", flush=True)
 
 
 def phase_time(name: str, since: float) -> float:

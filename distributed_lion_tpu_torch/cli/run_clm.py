@@ -39,10 +39,20 @@ family over tensor groups of tp consecutive ranks (``parallel/mesh.py``: rank
 ``--tp_vocab`` splits the embedding (GPT-2, padded by
 ``--vocab_pad_multiple``) or the ``lm_head`` (Llama) by vocabulary too and
 takes the vocab-parallel loss (JAX run_clm.py:114-132, 327-342). ``model.npz``,
-``--hf_export`` and the checkpoints hold the whole leaves. The other axes
-are not flags, so argparse refuses them: ``--seq_parallel`` (ROADMAP Queue 1
-item 11(d)), ``--expert_parallel`` (11(e)) and ``--pipeline_parallel``
-(11(f)).
+``--hf_export`` and the checkpoints hold the whole leaves. ``--seq_parallel
+sp`` splits every row's tokens over seq groups of sp consecutive ranks
+(``parallel/mesh.py``: rank ``r = (d·tp + t)·sp + s``), either family, with
+or without ``--tensor_parallel``: attention rings the k/v blocks over the
+group (``--seq_impl ring``) or swaps tokens for heads with two all-to-alls
+(``--seq_impl ulysses``, n_head % sp == 0), the loss takes a chunk's last
+label from the next chunk, and the trainer sums the gradient over the group
+(``parallel/ring_attention.py``, ``train/loop.py``). GPT-2's default
+dropout is 0 under it (an explicit ``--dropout`` keeps residual and
+embedding dropout only; the trainer warns). ``--remat_policy dots`` keeps
+the outputs of the products without batch dims in each rematerialized block
+(``models.gpt2.remat``; JAX run_clm.py:62-72, 347-349). The other axes are
+not flags, so argparse refuses them: ``--expert_parallel`` (ROADMAP Queue 1
+item 11(e)) and ``--pipeline_parallel`` (11(f)).
 """
 
 from __future__ import annotations
@@ -94,18 +104,23 @@ class ModelArguments:
     hf_export: Optional[str] = None   # write an HF save_pretrained directory here
     vocab_size: Optional[int] = None
     n_ctx: Optional[int] = None
-    dropout: Optional[float] = None  # None = family default: 0.1 for GPT-2, 0 for Llama
+    dropout: Optional[float] = None  # None = family default: 0.1 for GPT-2 (0 under
+    # --seq_parallel), 0 for Llama
+    seq_impl: str = "ring"  # under --seq_parallel: ring | ulysses (n_head % sp == 0)
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     remat: bool = True
+    remat_policy: str = "full"  # full (recompute the whole block) | dots (keep the products)
     vocab_pad_multiple: int = 0
 
 
-def resolve_dropout(dropout: Optional[float], family: str) -> float:
-    """0.1 for GPT-2 when unset, the HF GPT-2 config's every pdrop."""
+def resolve_dropout(dropout: Optional[float], family: str, sp: int = 1) -> float:
+    """0.1 for GPT-2 when unset, the HF GPT-2 config's every pdrop; 0 under
+    sequence parallelism, which skips attention-probability dropout (JAX
+    run_clm.py:80-97)."""
     if dropout is not None:
         return dropout
-    return 0.1 if family == "gpt2" else 0.0
+    return 0.1 if family == "gpt2" and sp <= 1 else 0.0
 
 
 @dataclasses.dataclass
@@ -237,10 +252,12 @@ def check_shard_fleet(trainer: Trainer, loader) -> None:
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def dtype_args(model_args: ModelArguments) -> dict:
-    """``param_dtype``, ``compute_dtype`` and ``remat``, either family's."""
+def config_args(model_args: ModelArguments) -> dict:
+    """``param_dtype``, ``compute_dtype``, ``remat``, ``remat_policy`` and
+    ``seq_impl``: the config fields of either family the flags set."""
     return dict(param_dtype=DTYPES[model_args.param_dtype],
-                compute_dtype=DTYPES[model_args.compute_dtype], remat=model_args.remat)
+                compute_dtype=DTYPES[model_args.compute_dtype], remat=model_args.remat,
+                remat_policy=model_args.remat_policy, seq_impl=model_args.seq_impl)
 
 
 def check_family(model_args: ModelArguments, family: str) -> None:
@@ -255,12 +272,12 @@ def check_family(model_args: ModelArguments, family: str) -> None:
                          "(32000/128256) are already 128-multiples")
 
 
-def model_config(model_args: ModelArguments):
+def model_config(model_args: ModelArguments, sp: int = 1):
     """The ``GPT2Config`` or ``LlamaConfig`` of a seeded init, with the JAX
     CLI's family guards."""
     family = model_args.model_family
     check_family(model_args, family)
-    common = dtype_args(model_args)
+    common = config_args(model_args)
     if family == "llama":
         cfg = LlamaConfig.named(model_args.model_name, **common)
     else:
@@ -269,7 +286,7 @@ def model_config(model_args: ModelArguments):
         if model_args.model_name not in presets:
             raise ValueError(f"unknown gpt2 model_name {model_args.model_name!r}")
         cfg = presets[model_args.model_name](
-            dropout=resolve_dropout(model_args.dropout, family),
+            dropout=resolve_dropout(model_args.dropout, family, sp),
             vocab_pad_multiple=model_args.vocab_pad_multiple, **common)
     if model_args.vocab_size:
         cfg = dataclasses.replace(cfg, vocab_size=model_args.vocab_size)
@@ -278,7 +295,8 @@ def model_config(model_args: ModelArguments):
     return cfg
 
 
-def load_pretrained(model_args: ModelArguments, device, announce: bool = True) -> tuple:
+def load_pretrained(model_args: ModelArguments, device, announce: bool = True,
+                    sp: int = 1) -> tuple:
     """``--model_path``: ``(initial weight tree on device, config)`` of the
     checkpoint, its family detected first (JAX run_clm.py:331-339,
     372-398, 415); GPT-2's table padded to ``--vocab_pad_multiple``."""
@@ -289,11 +307,11 @@ def load_pretrained(model_args: ModelArguments, device, announce: bool = True) -
               "(detected from --model_path)")
     check_family(model_args, family)
     if family == "llama":
-        params, cfg = hf_import.llama_from_hf(path, device=device, **dtype_args(model_args))
+        params, cfg = hf_import.llama_from_hf(path, device=device, **config_args(model_args))
     else:
         params, cfg = hf_import.gpt2_from_hf(
-            path, device=device, dropout=resolve_dropout(model_args.dropout, family),
-            **dtype_args(model_args))
+            path, device=device, dropout=resolve_dropout(model_args.dropout, family, sp),
+            **config_args(model_args))
     if announce:
         print(f"[run_clm] loaded pretrained {family} from {path}: {cfg.n_layer}L "
               f"d={cfg.d_model} vocab={cfg.vocab_size}")
@@ -346,13 +364,14 @@ def main(argv=None) -> Trainer:
         (ModelArguments, DataArguments, TrainConfig), argv)
     device = platform_device()
     group = init_distributed(device)
-    grid = make_grid(train_cfg.tensor_parallel, group)
+    grid = make_grid(train_cfg.tensor_parallel, group, sp=train_cfg.seq_parallel)
     rank0 = grid.rank == 0
     initial_params = None
     if model_args.model_path:
-        initial_params, model_cfg = load_pretrained(model_args, device, announce=rank0)
+        initial_params, model_cfg = load_pretrained(model_args, device, announce=rank0,
+                                                    sp=grid.sp)
     else:
-        model_cfg = model_config(model_args)
+        model_cfg = model_config(model_args, grid.sp)
     if (initial_params is None and not model_args.vocab_size
             and data_args.dataset.startswith("text:")):
         # (a loaded checkpoint's embedding is fixed: out-of-range tokenizer

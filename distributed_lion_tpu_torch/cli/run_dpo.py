@@ -42,9 +42,13 @@ base and the reference over tensor groups of tp consecutive ranks
 (``cli.run_sft.TPLora``): the reference is quantized whole, then each rank
 keeps its slices (``ops.quant.validate_quant_tp`` first), and the adapters
 split with their targets. ``--vocab_chunks`` with it is refused, in the JAX
-package's words. Not ported, and refused by name: sequence parallelism
-(``--seq_parallel``, ``--seq_impl``, ROADMAP Queue 1 item 11(d)); the JAX
-package refuses tp × sp on this path.
+package's words. ``--seq_parallel sp`` (JAX run_dpo.py:77-104, 207-228)
+splits every ``[B, T]`` leaf's tokens over seq groups of sp ranks: policy and
+reference run ring or Ulysses attention (``--seq_impl``), and each chunk's
+partial logprobs are summed over the group before the pairwise loss
+(``train.dpo.sequence_logprob_seq_parallel``, or its chunked form under
+``--vocab_chunks``). ``--max_length`` (after the ``n_ctx`` clamp) must divide
+over sp, and tp × sp is refused, both in the JAX package's words.
 """
 
 from __future__ import annotations
@@ -55,12 +59,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from distributed_lion_tpu_torch.cli.run_sft import (
-    TPLora,
-    UnportedArguments,
-    refuse_tp_vocab,
-    write_outputs,
-)
+from distributed_lion_tpu_torch.cli.run_sft import TPLora, refuse_tp_vocab, write_outputs
 from distributed_lion_tpu_torch.data.dpo import dpo_batch_iterator, prepare_dpo_batch
 from distributed_lion_tpu_torch.data.sft import load_pairs_jsonl, synthetic_qa_pairs
 from distributed_lion_tpu_torch.data.tokenizer import load_tokenizer
@@ -75,6 +74,7 @@ from distributed_lion_tpu_torch.models.lora import (
 )
 from distributed_lion_tpu_torch.ops.quant import map_tree, maybe_dequant, quantize_tree
 from distributed_lion_tpu_torch.parallel.mesh import (
+    SeqAxis,
     TensorAxis,
     init_distributed,
     make_grid,
@@ -106,7 +106,7 @@ class DPOArguments:
     size_valid_set: int = 64
     sanity_check: bool = False
     attn_impl: str = "auto"        # ops.attention: auto | xla | flash | splash
-    seq_impl: str = "ring"         # read only under --seq_parallel (not ported)
+    seq_impl: str = "ring"         # under --seq_parallel: ring | ulysses
     quant_ref: str = "none"        # none | int8 | nf4: the frozen reference
     quant_block: Optional[int] = None  # default: nf4 64, int8 256
     lora_r: int = 8
@@ -116,18 +116,6 @@ class DPOArguments:
     adapter_path: Optional[str] = None    # a PEFT adapter directory to start the policy from
     adapter_output: Optional[str] = None  # write the trained adapters as a PEFT directory
     merged_output: Optional[str] = None   # *.npz, or an HF save_pretrained directory
-
-
-def _refused(flag: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"--{flag} is not ported (ROADMAP Queue 1 item {item})")
-
-
-def refuse_unported(args: DPOArguments, unported: UnportedArguments) -> None:
-    """Refuse, by name and ROADMAP item, what the port does not run."""
-    if unported.seq_parallel != 1:
-        raise _refused("seq_parallel", "11(d)")
-    if args.seq_impl != "ring":
-        raise _refused("seq_impl", "11(d)")
 
 
 def dpo_records(args: DPOArguments) -> list:
@@ -151,13 +139,14 @@ def load_sft_checkpoint(path: str, dtype: torch.dtype, device) -> Any:
 
 def dpo_loss_fn(model: Llama, base: Any, ref: Any, adapters: dict, lora_cfg: LoraConfig,
                 beta: float, vocab_chunks: int = 0, tp: Optional[TensorAxis] = None,
-                base_rule=None):
+                base_rule=None, seq: Optional[SeqAxis] = None):
     """The trainer's loss: the policy is ``model`` over ``base`` with
     ``adapters`` swapped in, the reference ``model`` over ``ref``; with
     ``vocab_chunks`` each pass gives ``(hidden, lm_head)`` (JAX
     run_dpo._hidden_and_head) and the logprobs stream through
     ``ops/xent.py``. Under ``tp`` the trees hold this rank's slices
-    (``base_rule``) and the model reduces over the tensor group."""
+    (``base_rule``) and the model reduces over the tensor group; under
+    ``seq`` the tokens are the rank's chunk (the model's seq axis too)."""
     if vocab_chunks > 0:
         def forward(params, tokens):
             return (model.hidden(tokens, params),
@@ -168,24 +157,26 @@ def dpo_loss_fn(model: Llama, base: Any, ref: Any, adapters: dict, lora_cfg: Lor
     policy = lora_apply_fn(forward, base, lora_cfg, tp=tp, base_rule=base_rule)
     return make_dpo_loss_fn(lambda tokens, seed: policy(adapters, tokens, dropout_seed=seed),
                             lambda tokens: forward(ref, tokens), beta=beta,
-                            vocab_chunks=vocab_chunks)
+                            vocab_chunks=vocab_chunks, seq_axis=seq)
 
 
 def main(argv=None) -> tuple[Trainer, Llama, dict, Any]:
     """Train, evaluate, and write ``--merged_output``; returns the (closed)
     trainer, the :class:`Llama` over the policy's dense base, the trained
     adapters (``{path: {"A", "B"}}``) and the frozen reference's tree."""
-    args, unported, train_cfg = parse_dataclasses((DPOArguments, UnportedArguments, TrainConfig),
-                                                  argv)
-    refuse_unported(args, unported)
+    args, train_cfg = parse_dataclasses((DPOArguments, TrainConfig), argv)
     refuse_tp_vocab(train_cfg, "run_dpo")
     if train_cfg.vocab_chunks > 0 and train_cfg.tensor_parallel > 1:
         raise NotImplementedError(
             "--vocab_chunks x --tensor_parallel on the DPO path is not wired (the TP head is "
             "already vocab-sharded; chunking it again buys nothing) — drop one")
+    sp = train_cfg.seq_parallel
+    if sp > 1 and train_cfg.tensor_parallel > 1:
+        raise NotImplementedError(
+            "--tensor_parallel x --seq_parallel on the DPO path is not wired; pick one")
     device = platform_device()
     group = init_distributed(device)
-    grid = make_grid(train_cfg.tensor_parallel, group)
+    grid = make_grid(train_cfg.tensor_parallel, group, sp=sp)
     rank0 = grid.rank == 0
     tok = load_tokenizer(args.tokenizer_name)
     pretrained = None
@@ -194,11 +185,16 @@ def main(argv=None) -> tuple[Trainer, Llama, dict, Any]:
         if rank0:
             print(f"[run_dpo] loaded pretrained Llama from {args.model_path}: "
                   f"{model_cfg.n_layer}L d={model_cfg.d_model} vocab={model_cfg.vocab_size}")
-        model_cfg = dataclasses.replace(model_cfg, attn_impl=args.attn_impl)
+        model_cfg = dataclasses.replace(model_cfg, attn_impl=args.attn_impl,
+                                        seq_impl=args.seq_impl)
     else:
         model_cfg = LlamaConfig.named(args.model_name, vocab_size=max(tok.vocab_size, 259),
-                                      attn_impl=args.attn_impl)
+                                      attn_impl=args.attn_impl, seq_impl=args.seq_impl)
     args.max_length = min(args.max_length, model_cfg.n_ctx)
+    if sp > 1 and args.max_length % sp:
+        # checked after the n_ctx clamp: the padded rows use this value
+        raise ValueError(f"--max_length {args.max_length} (after the n_ctx clamp) must divide "
+                         f"evenly over the {sp}-way seq axis")
     train_cfg.block_size = args.max_length
 
     # policy and reference both start from the SFT model (dpo_llama2.py:133-152)
@@ -232,7 +228,7 @@ def main(argv=None) -> tuple[Trainer, Llama, dict, Any]:
     base = split.shard_base(base)
     if args.quant_ref == "none":
         ref = base
-    model = Llama(model_cfg, base, tp=grid.tensor)
+    model = Llama(model_cfg, base, tp=grid.tensor, seq=grid.seq)
     named = adapter_named_parameters(adapters)
     if rank0:
         print(f"[run_dpo] LoRA adapters: {len(adapters)} sites, "
@@ -254,7 +250,7 @@ def main(argv=None) -> tuple[Trainer, Llama, dict, Any]:
     trainer = Trainer(train_cfg, named,
                       dpo_loss_fn(model, base, ref, adapters, lora_cfg, args.beta,
                                   train_cfg.vocab_chunks, tp=grid.tensor,
-                                  base_rule=split.base_rule),
+                                  base_rule=split.base_rule, seq=grid.seq),
                       grid=grid, shard_rule=split.shard_rule(), model=model)
     announce_guards(trainer, "run_dpo")
     try:

@@ -37,8 +37,14 @@ seeded init (``ops.quant.validate_quant_tp`` refuses a quantized leaf whose
 blocks do not line up with the split), the adapters split with their targets
 (``models.lora.lora_adapter_specs``) and the vote runs over each data group.
 The outputs hold the whole adapters and base, gathered over the tensor
-group. Not ported, and refused by name: sequence parallelism
-(``--seq_parallel``, ``--seq_impl``; ROADMAP Queue 1 item 11(d)).
+group. ``--seq_parallel sp`` (JAX run_sft.py:67-90, 130-182) splits every
+packed row's tokens over seq groups of sp ranks (ring or Ulysses attention,
+``--seq_impl``): it needs ``--packing`` and a ``--seq_length`` (after the
+``n_ctx`` clamp) that divides over sp, in the JAX package's words; the loss
+is the chunk's, dense or ``--vocab_chunks``
+(``models.loss.clm_loss_seq_parallel``,
+``ops.xent.chunked_clm_loss_seq_parallel``), and composes with
+``--tensor_parallel``.
 """
 
 from __future__ import annotations
@@ -84,8 +90,6 @@ from distributed_lion_tpu_torch.train.loop import (
 from distributed_lion_tpu_torch.utils.argparsing import parse_dataclasses
 from distributed_lion_tpu_torch.utils.serialization import save_pytree
 
-NOT_PORTED = "is not ported (ROADMAP Queue 1 item 11(d))"
-
 
 @dataclasses.dataclass
 class SFTArguments:
@@ -106,28 +110,11 @@ class SFTArguments:
     group_by_length: bool = False
     gradient_checkpointing: bool = False
     attn_impl: str = "auto"        # ops.attention: auto | xla | flash | splash
-    seq_impl: str = "ring"         # read only under --seq_parallel (not ported)
+    seq_impl: str = "ring"         # under --seq_parallel: ring | ulysses
     tokenizer_name: Optional[str] = None
     adapter_path: Optional[str] = None    # a PEFT adapter directory to start from
     adapter_output: Optional[str] = None  # write the trained adapters as a PEFT directory
     merged_output: Optional[str] = None   # *.npz, or an HF save_pretrained directory
-
-
-@dataclasses.dataclass
-class UnportedArguments:
-    """The JAX ``TrainConfig`` field ``run_sft`` and ``run_dpo`` read that
-    the port does not have; any value but the default is refused."""
-
-    seq_parallel: int = 1
-
-
-def refuse_unported(args: SFTArguments, unported: UnportedArguments) -> None:
-    """Refuse, by name, what the port does not run."""
-    for f in dataclasses.fields(unported):
-        if getattr(unported, f.name) != f.default:
-            raise NotImplementedError(f"--{f.name} {NOT_PORTED}")
-    if args.seq_impl != "ring":
-        raise NotImplementedError(f"--seq_impl (sequence parallelism) {NOT_PORTED}")
 
 
 def refuse_tp_vocab(train_cfg: TrainConfig, prog: str) -> None:
@@ -245,8 +232,7 @@ def main(argv=None) -> tuple[Trainer, Llama, dict]:
     """Train, evaluate, and write ``--merged_output``; returns the (closed)
     trainer, the :class:`Llama` over the frozen base and the trained
     adapters (``{path: {"A", "B"}}``)."""
-    args, unported, train_cfg = parse_dataclasses(
-        (SFTArguments, UnportedArguments, TrainConfig), argv)
+    args, train_cfg = parse_dataclasses((SFTArguments, TrainConfig), argv)
     # the reference's guards (sft_llama2.py:53-59)
     if args.packing and args.group_by_length:
         raise ValueError("Cannot use both packing and group by length")
@@ -254,11 +240,15 @@ def main(argv=None) -> tuple[Trainer, Llama, dict]:
         raise ValueError(
             "gradient_checkpointing with LoRA is rejected for parity with the reference "
             "(sft_llama2.py:56-59); every block is rematerialized regardless")
-    refuse_unported(args, unported)
+    sp = train_cfg.seq_parallel
+    if sp > 1 and not args.packing:
+        raise NotImplementedError(
+            "--seq_parallel needs --packing: padded/masked per-example rows are not wired "
+            "across sequence shards")
     refuse_tp_vocab(train_cfg, "run_sft")
     device = platform_device()
     group = init_distributed(device)
-    grid = make_grid(train_cfg.tensor_parallel, group)
+    grid = make_grid(train_cfg.tensor_parallel, group, sp=sp)
     rank0 = grid.rank == 0
     tok = load_tokenizer(args.tokenizer_name)
     train, valid = sft_records(args)
@@ -277,11 +267,16 @@ def main(argv=None) -> tuple[Trainer, Llama, dict]:
             raise ValueError(
                 f"tokenizer vocab {tok.vocab_size} exceeds the checkpoint's "
                 f"{model_cfg.vocab_size}; pass the checkpoint's own tokenizer")
-        model_cfg = dataclasses.replace(model_cfg, attn_impl=args.attn_impl)
+        model_cfg = dataclasses.replace(model_cfg, attn_impl=args.attn_impl,
+                                        seq_impl=args.seq_impl)
     else:
         model_cfg = LlamaConfig.named(args.model_name, vocab_size=max(tok.vocab_size, 259),
-                                      attn_impl=args.attn_impl)
+                                      attn_impl=args.attn_impl, seq_impl=args.seq_impl)
     args.seq_length = min(args.seq_length, model_cfg.n_ctx)
+    if sp > 1 and args.seq_length % sp:
+        # checked after the n_ctx clamp: the packed rows use this value
+        raise ValueError(f"--seq_length {args.seq_length} (after the n_ctx clamp) must divide "
+                         f"evenly over the {sp}-way seq axis")
     train_cfg.block_size = args.seq_length
     split = TPLora(grid, model_cfg)
     if quant and rank0:
@@ -303,7 +298,7 @@ def main(argv=None) -> tuple[Trainer, Llama, dict]:
         adapters = split.adapters(lora_init(base, lora_cfg, seed=train_cfg.seed + 1,
                                             tp=grid.tensor, base_rule=split.base_rule),
                                   whole=False)
-    model = Llama(model_cfg, base, tp=grid.tensor)
+    model = Llama(model_cfg, base, tp=grid.tensor, seq=grid.seq)
     named = adapter_named_parameters(adapters)
     if rank0:
         print(f"[run_sft] LoRA adapters: {len(adapters)} sites, "
@@ -321,9 +316,10 @@ def main(argv=None) -> tuple[Trainer, Llama, dict]:
             return (model.hidden(tokens, eff),
                     maybe_dequant(eff["lm_head"], model_cfg.compute_dtype))
 
-        loss_fn = chunked_clm_loss_fn(hidden_and_head, train_cfg.vocab_chunks, emb_layout="dv")
+        loss_fn = chunked_clm_loss_fn(hidden_and_head, train_cfg.vocab_chunks, emb_layout="dv",
+                                      seq=grid.seq)
     else:
-        loss_fn = clm_loss_fn(lambda tokens, seed: model(tokens, effective(seed)))
+        loss_fn = clm_loss_fn(lambda tokens, seed: model(tokens, effective(seed)), grid.seq)
     trainer = Trainer(train_cfg, named, loss_fn, grid=grid, shard_rule=split.shard_rule())
     train_iter, eval_blocks = sft_batches(args, tok, train, valid, trainer.global_train_batch(),
                                           train_cfg.seed, ratio)

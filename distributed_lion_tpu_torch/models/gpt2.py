@@ -30,22 +30,43 @@ embeddings, and the loss takes the rank's rows as its head
 dropout seeds fold the step and the data rank only, so a replicated
 activation gets one mask on every tensor rank; the attention-probability
 masks, one per head, also fold the tensor rank.
+
+Under a seq axis (``seq``, a ``parallel.mesh.SeqAxis`` of size > 1, JAX
+gpt2.py:230-275, 428-440) the tokens are this rank's chunk: positions start
+at ``s·T``, every attention (eval's too) is ``cfg.seq_impl``'s
+(``parallel.ring_attention``: ring or Ulysses) whatever ``attn_impl`` says,
+attention-probability dropout is skipped (the scores never exist in one
+place), and the dropout seed folds the seq index.
+
+``remat_policy`` says what a rematerialized block keeps (JAX
+gpt2.py:321-331): ``full`` nothing (``torch.utils.checkpoint`` of the whole
+block), ``dots`` the outputs of the products without batch dims (JAX's
+``dots_with_no_batch_dims_saveable``; here selective checkpointing that
+saves ``aten.mm`` and ``aten.addmm`` and recomputes everything else:
+``bmm``, the elementwise work, the flash kernels' calls and the NF4
+dequantization). :func:`remat` runs a block under either.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from distributed_lion_tpu_torch.ops.attention import attention
 from distributed_lion_tpu_torch.ops.products import matmul_f32
-from distributed_lion_tpu_torch.parallel.mesh import TensorAxis, resolve_device
+from distributed_lion_tpu_torch.parallel.mesh import SeqAxis, TensorAxis, resolve_device
+from distributed_lion_tpu_torch.parallel.ring_attention import seq_attention
 from distributed_lion_tpu_torch.parallel.tensor_parallel import (
     copy_to_tp_region,
     gpt2_shard_dim,
@@ -63,7 +84,9 @@ class GPT2Config:
     n_ctx: int = 1024
     dropout: float = 0.0
     attn_impl: str = "auto"   # ops.attention: auto | xla | flash | splash
+    seq_impl: str = "ring"    # under a seq axis: ring | ulysses (n_head % sp == 0)
     remat: bool = True        # recompute each block in backward
+    remat_policy: str = "full"  # what a remat block keeps: full (nothing) | dots
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
     vocab_pad_multiple: int = 0  # > 0: round the embedding rows up to a
@@ -73,6 +96,7 @@ class GPT2Config:
         if self.vocab_pad_multiple < 0:
             raise ValueError(
                 f"vocab_pad_multiple must be >= 0, got {self.vocab_pad_multiple}")
+        check_remat_policy(self.remat_policy)
 
     @property
     def head_dim(self) -> int:
@@ -99,6 +123,31 @@ class GPT2Config:
     @staticmethod
     def gpt2_124m(**kw) -> "GPT2Config":
         return GPT2Config(**kw)
+
+
+REMAT_POLICIES = ("full", "dots")
+# the products without batch dims: what the dots policy keeps
+DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def check_remat_policy(name: str) -> None:
+    if name not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {name!r} (full | dots)")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in DOT_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn, cfg, *args):
+    """``fn(*args)``, rematerialized in the backward when ``cfg.remat`` and
+    grad is on, keeping what ``cfg.remat_policy`` names (module doc)."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn(*args)
+    if cfg.remat_policy == "dots":
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy))
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 def pad_wte(wte: torch.Tensor, cfg: GPT2Config) -> torch.Tensor:
@@ -152,9 +201,10 @@ class LayerNorm(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: GPT2Config, device, gen, tp: TensorAxis = TensorAxis()):
+    def __init__(self, cfg: GPT2Config, device, gen, tp: TensorAxis = TensorAxis(),
+                 seq: SeqAxis = SeqAxis()):
         super().__init__()
-        self.tp = tp
+        self.tp, self.seq = tp, seq
         d, dt = cfg.d_model, cfg.param_dtype
         resid_std = 0.02 / math.sqrt(2 * cfg.n_layer)
         # [d, 3, d]: q/k/v stacked on axis 1, the JAX package's layout
@@ -173,7 +223,10 @@ class Attention(nn.Module):
         qkv = qkv + self.qkv_b.to(dt)
         q, k, v = (qkv[:, :, i].reshape(B, T, H, hd).transpose(1, 2)
                    for i in range(3))
-        if cfg.dropout > 0.0 and seed is not None:
+        if self.seq.size > 1:
+            # the scores never exist in one place: no attention-prob dropout
+            out = seq_attention(q, k, v, self.seq, cfg.seq_impl)
+        elif cfg.dropout > 0.0 and seed is not None:
             # attention-prob dropout needs materialized scores, so training
             # with dropout always takes this branch (gpt2.py:253-265); eval
             # and dropout-0 training take ops.attention (flash on the card
@@ -210,11 +263,12 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: GPT2Config, device, gen, tp: TensorAxis = TensorAxis()):
+    def __init__(self, cfg: GPT2Config, device, gen, tp: TensorAxis = TensorAxis(),
+                 seq: SeqAxis = SeqAxis()):
         super().__init__()
         d = cfg.d_model
         self.ln_1 = LayerNorm(d, cfg.param_dtype, device)
-        self.attn = Attention(cfg, device, gen, tp)
+        self.attn = Attention(cfg, device, gen, tp, seq)
         self.ln_2 = LayerNorm(d, cfg.param_dtype, device)
         self.mlp = MLP(cfg, device, gen, tp)
 
@@ -231,13 +285,16 @@ class GPT2(nn.Module):
     ``tp`` (size > 1) holds this rank's slices (module doc); a
     ``vocab_parallel`` model holds a slice of the head, so its :meth:`head`
     (and :meth:`forward`) raise: its loss runs over :meth:`hidden` and
-    ``wte``."""
+    ``wte``. ``seq`` (size > 1): the tokens are this rank's chunk (module
+    doc)."""
 
     def __init__(self, cfg: GPT2Config, *, device="cuda", seed: int = 0,
-                 tp: Optional[TensorAxis] = None, vocab_parallel: bool = False):
+                 tp: Optional[TensorAxis] = None, vocab_parallel: bool = False,
+                 seq: Optional[SeqAxis] = None):
         super().__init__()
         device = resolve_device(device)
         tp = tp or TensorAxis()
+        self.seq = seq or SeqAxis()
         if vocab_parallel and tp.size == 1:
             raise ValueError("vocab_parallel needs a tensor axis of size > 1")
         gen = torch.Generator().manual_seed(seed)  # CPU draws: same weights on any device
@@ -249,7 +306,8 @@ class GPT2(nn.Module):
                                         cfg))
         self.wpe = _param((cfg.n_ctx, d), dt, cpu, 0.02, gen)
         self.ln_f = LayerNorm(d, dt, cpu)
-        self.blocks = nn.ModuleList(Block(cfg, cpu, gen, tp) for _ in range(cfg.n_layer))
+        self.blocks = nn.ModuleList(Block(cfg, cpu, gen, tp, self.seq)
+                                    for _ in range(cfg.n_layer))
         with torch.no_grad():
             for name, p in self.named_parameters():
                 p.data = shard(p.data, self.shard_dim(name), tp.size, tp.rank).to(device)
@@ -262,22 +320,22 @@ class GPT2(nn.Module):
         """Backbone: tokens [B, T] → final hidden [B, T, d] after ln_f."""
         cfg = self.cfg
         T = tokens.shape[1]
-        if T > cfg.n_ctx:
+        start = self.seq.rank * T   # this chunk's first position
+        if self.seq.size == 1 and T > cfg.n_ctx:
             raise ValueError(f"sequence length {T} exceeds n_ctx {cfg.n_ctx}")
+        if self.seq.size > 1 and dropout_seed is not None:
+            dropout_seed = fold_seed(dropout_seed, self.seq.rank)
         cd = cfg.compute_dtype
         if self.vocab_parallel:
             x = vocab_parallel_embed(self.wte, tokens, self.tp, cd)
         else:
             x = F.embedding(tokens, self.wte).to(cd)
-        x = x + self.wpe[:T].to(cd)
+        x = x + self.wpe[start:start + T].to(cd)
         x = _dropout(x, cfg.dropout,
                      None if dropout_seed is None else fold_seed(dropout_seed, cfg.n_layer))
         for i, block in enumerate(self.blocks):
             seed = None if dropout_seed is None else fold_seed(dropout_seed, i)
-            if cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(block, x, cfg, seed, use_reentrant=False)
-            else:
-                x = block(x, cfg, seed)
+            x = remat(block, cfg, x, cfg, seed)
         return _layer_norm(x, self.ln_f)
 
     def forward(self, tokens: torch.Tensor, dropout_seed: Optional[int] = None):

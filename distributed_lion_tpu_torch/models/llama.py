@@ -27,9 +27,12 @@ heads (GQA repeats the local kv heads), ``wo`` row-parallel; ``w_gate`` and
 ``w_up`` column-parallel, ``w_down`` row-parallel; each region entered
 through *f* and left through *g*. With ``vocab_parallel`` the ``lm_head`` is
 split by vocab columns and the loss runs over the rank's columns
-(``ops.xent.tp_vocab_clm_loss_and_metrics``). The decode paths (KV cache,
-paged serving), sequence parallelism and the ``dots`` remat policy are not
-ported (ROADMAP Queue 1).
+(``ops.xent.tp_vocab_clm_loss_and_metrics``). Under a seq axis (``seq``,
+JAX llama.py:174-205, 403-415) the tokens are this rank's chunk: the rope
+angles start at position ``s·T``, the GQA repeat runs before the ring, and
+attention is ``cfg.seq_impl``'s (``parallel.ring_attention``).
+``remat_policy`` (``full`` | ``dots``) is GPT-2's (``models.gpt2.remat``).
+The decode paths (KV cache, paged serving) are not ported (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -41,9 +44,13 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
-from distributed_lion_tpu_torch.models.gpt2 import fold_seed, jax_leaf_order
+from distributed_lion_tpu_torch.models.gpt2 import (
+    check_remat_policy,
+    fold_seed,
+    jax_leaf_order,
+    remat,
+)
 from distributed_lion_tpu_torch.models.lora import iter_paths, lora_embed, lora_matmul
 from distributed_lion_tpu_torch.ops.attention import attention
 from distributed_lion_tpu_torch.ops.products import matmul_f32
@@ -53,7 +60,8 @@ from distributed_lion_tpu_torch.ops.quant import (
     quantize_leaf,
     validate_quant_tp,
 )
-from distributed_lion_tpu_torch.parallel.mesh import TensorAxis, resolve_device
+from distributed_lion_tpu_torch.parallel.mesh import SeqAxis, TensorAxis, resolve_device
+from distributed_lion_tpu_torch.parallel.ring_attention import seq_attention
 from distributed_lion_tpu_torch.parallel.tensor_parallel import (
     copy_to_tp_region,
     llama_shard_dim,
@@ -74,9 +82,14 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     rms_eps: float = 1e-5
     attn_impl: str = "auto"      # ops.attention: auto | xla | flash | splash
+    seq_impl: str = "ring"       # under a seq axis: ring | ulysses
     remat: bool = True           # recompute each block in backward
+    remat_policy: str = "full"   # what a remat block keeps: full | dots
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
+
+    def __post_init__(self):
+        check_remat_policy(self.remat_policy)
 
     @property
     def head_dim(self) -> int:
@@ -168,11 +181,13 @@ def rms_norm(x: torch.Tensor, p: dict, eps: float) -> torch.Tensor:
     return (x32 * scale * p["scale"].to(torch.float32)).to(x.dtype)
 
 
-def rope_angles(t: int, head_dim: int, theta: float, device=None) -> tuple:
-    """float32 cos and sin tables ``[t, head_dim / 2]``."""
+def rope_angles(t: int, head_dim: int, theta: float, device=None, offset: int = 0) -> tuple:
+    """float32 cos and sin tables ``[t, head_dim / 2]`` of positions
+    ``offset`` … ``offset + t − 1`` (a seq chunk's)."""
     inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
                                              device=device) / head_dim))
-    ang = torch.outer(torch.arange(t, dtype=torch.float32, device=device), inv_freq)
+    pos = torch.arange(t, dtype=torch.float32, device=device) + offset
+    ang = torch.outer(pos, inv_freq)
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -184,7 +199,7 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.stack([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).reshape(x.shape)
 
 
-def _attention(x, p, cfg: LlamaConfig, cos, sin, tp: TensorAxis):
+def _attention(x, p, cfg: LlamaConfig, cos, sin, tp: TensorAxis, seq: SeqAxis):
     B, T, _ = x.shape
     H, KV, hd = cfg.n_head // tp.size, cfg.n_kv_head // tp.size, cfg.head_dim
     x = copy_to_tp_region(x, tp.group)
@@ -195,7 +210,10 @@ def _attention(x, p, cfg: LlamaConfig, cos, sin, tp: TensorAxis):
     if KV != H:  # GQA: repeat each kv head for its query heads (jnp.repeat)
         k = k.repeat_interleave(H // KV, dim=1)
         v = v.repeat_interleave(H // KV, dim=1)
-    out = attention(q, k, v, causal=True, impl=cfg.attn_impl)
+    if seq.size > 1:
+        out = seq_attention(q, k, v, seq, cfg.seq_impl)
+    else:
+        out = attention(q, k, v, causal=True, impl=cfg.attn_impl)
     return reduce_from_tp_region(lora_matmul(out.transpose(1, 2).reshape(B, T, H * hd), p["wo"]),
                                  tp.group)
 
@@ -207,8 +225,9 @@ def _mlp(x, p, tp: TensorAxis):
                                  tp.group)
 
 
-def _block(x, p, cfg: LlamaConfig, cos, sin, tp: TensorAxis):
-    x = x + _attention(rms_norm(x, p["ln_attn"], cfg.rms_eps), p["attn"], cfg, cos, sin, tp)
+def _block(x, p, cfg: LlamaConfig, cos, sin, tp: TensorAxis, seq: SeqAxis):
+    x = x + _attention(rms_norm(x, p["ln_attn"], cfg.rms_eps), p["attn"], cfg, cos, sin, tp,
+                       seq)
     return x + _mlp(rms_norm(x, p["ln_mlp"], cfg.rms_eps), p["mlp"], tp)
 
 
@@ -226,28 +245,29 @@ class Llama(nn.Module):
     registered as module parameters: a frozen base stays out of autograd,
     and a trainable tree (:func:`as_parameters`) is listed by
     :meth:`jax_named_parameters`. ``tp`` (size > 1): the tree holds this
-    rank's slices (module doc)."""
+    rank's slices; ``seq`` (size > 1): the tokens are this rank's chunk
+    (module doc)."""
 
-    def __init__(self, cfg: LlamaConfig, params: dict, tp: Optional[TensorAxis] = None):
+    def __init__(self, cfg: LlamaConfig, params: dict, tp: Optional[TensorAxis] = None,
+                 seq: Optional[SeqAxis] = None):
         super().__init__()
         self.cfg = cfg
         self.params = params
         self.tp = tp or TensorAxis()
+        self.seq = seq or SeqAxis()
 
     def hidden(self, tokens: torch.Tensor, params: Optional[dict] = None) -> torch.Tensor:
         """Backbone: tokens ``[B, T]`` → final hidden ``[B, T, d]`` after the
         last RMSNorm."""
         cfg, params = self.cfg, self.params if params is None else params
         T = tokens.shape[1]
-        if T > cfg.n_ctx:
+        if self.seq.size == 1 and T > cfg.n_ctx:
             raise ValueError(f"sequence length {T} exceeds n_ctx {cfg.n_ctx}")
         x = lora_embed(params["wte"], tokens, cfg.compute_dtype)
-        cos, sin = rope_angles(T, cfg.head_dim, cfg.rope_theta, tokens.device)
+        cos, sin = rope_angles(T, cfg.head_dim, cfg.rope_theta, tokens.device,
+                               offset=self.seq.rank * T)
         for p in params["blocks"]:
-            if cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(_block, x, p, cfg, cos, sin, self.tp, use_reentrant=False)
-            else:
-                x = _block(x, p, cfg, cos, sin, self.tp)
+            x = remat(_block, cfg, x, p, cfg, cos, sin, self.tp, self.seq)
         return rms_norm(x, params["ln_f"], cfg.rms_eps)
 
     def head(self, x: torch.Tensor, params: Optional[dict] = None) -> torch.Tensor:

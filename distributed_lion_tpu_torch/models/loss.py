@@ -1,10 +1,20 @@
-"""Causal-LM loss and eval metrics: port of ``distributed_lion_tpu/models/loss.py``."""
+"""Causal-LM loss and eval metrics: port of ``distributed_lion_tpu/models/loss.py``.
+
+:func:`clm_loss_and_metrics` is the dense loss; under a seq axis
+(``parallel.mesh.SeqAxis``) :func:`clm_loss_seq_parallel` is one chunk's,
+with the shard-boundary protocol (:func:`shift_in_next_shard`) that the
+chunked head (``ops.xent.chunked_clm_loss_seq_parallel``) and DPO's
+logprobs (``train.dpo``) share.
+"""
 
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.distributed as dist
+
+from distributed_lion_tpu_torch.parallel.ring_attention import ppermute
 
 
 def clm_loss_and_metrics(logits: torch.Tensor, tokens: torch.Tensor,
@@ -30,3 +40,53 @@ def clm_loss_and_metrics(logits: torch.Tensor, tokens: torch.Tensor,
     pred = shift_logits.argmax(-1)
     acc = ((pred == shift_labels) * mask).sum() / n
     return loss, {"loss": loss, "accuracy": acc, "n_tokens": mask.sum()}
+
+
+def shift_in_next_shard(x: torch.Tensor, seq) -> tuple[torch.Tensor, bool]:
+    """The seq-parallel shard boundary (loss.py:95-111): ``x`` ``[..., T]``
+    shifted left by one column, its last column the NEXT seq rank's first,
+    from one ppermute toward the previous rank; and whether this rank holds
+    the last chunk, whose filled column (rank 0's) the caller masks."""
+    nxt = ppermute(x[..., :1].detach(), seq, shift=-1)
+    return torch.cat([x[..., 1:], nxt], dim=-1), seq.rank == seq.size - 1
+
+
+def shifted_labels_and_mask(tokens: torch.Tensor, seq) -> tuple:
+    """Labels ``[B, T]`` and their float32 mask, the last chunk's last
+    position masked: it has no next token (loss.py:114-124)."""
+    labels, is_last = shift_in_next_shard(tokens, seq)
+    mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+    if is_last:
+        mask[:, -1] = 0.0
+    return labels.long(), mask
+
+
+def seq_parallel_sums(nll_sum: torch.Tensor, correct_sum: torch.Tensor, mask: torch.Tensor,
+                      seq) -> tuple:
+    """The loss of a seq-parallel chunk and the metrics of the whole
+    sequence (loss.py:127-162), from the chunk's masked sums: ``loss_local =
+    nll_sum / n_global``, whose gradient summed over the seq group is the
+    whole sequence's, and ``{"loss", "accuracy", "n_tokens"}`` summed over
+    the group (one ``all_reduce``, outside autograd: only ``loss_local`` is
+    differentiated)."""
+    with torch.no_grad():
+        sums = torch.stack([mask.sum(), correct_sum.detach().to(torch.float32),
+                            nll_sum.detach().to(torch.float32)])
+        dist.all_reduce(sums, group=seq.group)
+        n_global = torch.clamp_min(sums[0], 1.0)
+    loss_local = nll_sum / n_global
+    return loss_local, {"loss": sums[2] / n_global, "accuracy": sums[1] / n_global,
+                        "n_tokens": n_global / seq.size}
+
+
+def clm_loss_seq_parallel(logits: torch.Tensor, tokens: torch.Tensor, seq) -> tuple:
+    """The causal-LM loss of one seq rank's chunk: ``logits`` ``[B, T, V]``
+    and ``tokens`` ``[B, T]`` of positions ``[s·T, (s+1)·T)``; a chunk's last
+    label is the next chunk's first token (:func:`shifted_labels_and_mask`).
+    Returns ``(loss_local, metrics)``: the trainer sums the gradient over the
+    seq group."""
+    labels, mask = shifted_labels_and_mask(tokens, seq)
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    correct = (logits.argmax(-1) == labels).to(torch.float32)
+    return seq_parallel_sums((nll * mask).sum(), (correct * mask).sum(), mask, seq)

@@ -53,9 +53,11 @@ accuracy metric is the maximum over ranks, then the minimum id among the
 ranks that reach it, which keeps the dense argmax's lowest-index tie rule.
 ``hidden`` enters through *f*, so its cotangent is summed over the tensor
 group. :func:`tp_vocab_clm_loss_and_metrics` is its shift-by-one causal-LM
-loss (xent.py:290-305). The sequence-parallel variant
-(``chunked_clm_loss_seq_parallel``) is not ported (ROADMAP Queue 1 item
-11(d)).
+loss (xent.py:290-305). :func:`chunked_clm_loss_seq_parallel` is the
+chunked loss of one seq rank's chunk (xent.py:213-252): the labels and mask
+of ``models.loss.shifted_labels_and_mask``, the chunk's masked sums from
+:func:`masked_local_nll`, the loss and metrics of
+``models.loss.seq_parallel_sums``.
 """
 
 from __future__ import annotations
@@ -64,6 +66,7 @@ from typing import Callable, Optional
 
 import torch
 
+from distributed_lion_tpu_torch.models.loss import seq_parallel_sums, shifted_labels_and_mask
 from distributed_lion_tpu_torch.ops.products import matmul_f32, product_f32
 from distributed_lion_tpu_torch.parallel.mesh import TensorAxis
 from distributed_lion_tpu_torch.parallel.tensor_parallel import (
@@ -287,3 +290,16 @@ def masked_local_nll(hidden: torch.Tensor, head: torch.Tensor, labels: torch.Ten
         correct = logp.argmax(-1) == flat_labels
     fm = mask.reshape(-1).to(torch.float32)
     return (nll * fm).sum(), (correct.to(torch.float32) * fm).sum()
+
+
+def chunked_clm_loss_seq_parallel(hidden: torch.Tensor, emb: torch.Tensor,
+                                  tokens: torch.Tensor, n_chunks: int, seq,
+                                  emb_layout: str = "vd", valid_v: int = 0):
+    """The chunked-vocabulary loss of one seq rank's chunk ``hidden`` ``[B,
+    T, d]``, ``tokens`` ``[B, T]``: ``(loss_local, metrics)`` with
+    ``models.loss.clm_loss_seq_parallel``'s contract, and no ``[B, T, V]``
+    logits."""
+    labels, mask = shifted_labels_and_mask(tokens, seq)
+    nll_sum, correct_sum = masked_local_nll(hidden, emb, labels, mask, n_chunks, emb_layout,
+                                            valid_v)
+    return seq_parallel_sums(nll_sum, correct_sum, mask, seq)

@@ -8,15 +8,17 @@ Here the vote axis is the ``torch.distributed`` world, one process per GPU:
 - a process group the caller already started is used as it is;
 - otherwise the run is a world of one, with no process group.
 
-With a ``tensor`` axis (``--tensor_parallel`` tp > 1) the world is the JAX
-package's ``(data, tensor)`` reshape of its devices (``make_mesh``,
-mesh.py:36-68): global rank ``r`` has data index ``r // tp`` and tensor
-index ``r % tp``, so a tensor group is tp consecutive ranks (NVLink
-neighbours on a node) and data group ``t`` is ranks ``t, t + tp, …``.
-:func:`make_grid` builds every data group and every tensor group on every
-process, in one order (``dist.new_group`` is collective over the default
-group), and returns this rank's :class:`Grid`: the vote runs on its data
-group, the model's reductions on its tensor group.
+With a ``tensor`` axis (``--tensor_parallel`` tp > 1) and a ``seq`` axis
+(``--seq_parallel`` sp > 1) the world is the JAX package's ``(data, tensor,
+seq)`` reshape of its devices (``make_mesh``, mesh.py:31-68): global rank
+``r = (d·tp + t)·sp + s``, so a seq group is sp consecutive ranks, a tensor
+group the tp ranks of stride sp that share ``(d, s)``, and a data group the
+ranks that share ``(t, s)``. At sp 1 that is data index ``r // tp`` and
+tensor index ``r % tp``. :func:`make_grid` builds every data, tensor and
+seq group on every process, in one order (``dist.new_group`` is collective
+over the default group), and returns this rank's :class:`Grid`: the vote
+runs on its data group, the model's reductions on its tensor group, the
+ring's hops and the gradient's sum on its seq group.
 
 :func:`resolve_device` is the one place the port decides where to run:
 on the card unless the caller asks for the CPU, and never quietly on the
@@ -34,6 +36,7 @@ import torch.distributed as dist
 
 DATA_AXIS = "data"
 TENSOR_AXIS = "tensor"
+SEQ_AXIS = "seq"
 
 
 def platform_device() -> torch.device:
@@ -89,11 +92,17 @@ class TensorAxis:
 
 
 @dataclasses.dataclass(frozen=True)
+class SeqAxis(TensorAxis):
+    """This rank's place on the seq axis: its group (None at sp 1), the
+    axis size and its index on it, which is its token chunk's."""
+
+
+@dataclasses.dataclass(frozen=True)
 class Grid:
-    """This rank's place in the dp × tp grid: ``data`` is the vote's group
-    (None for a data axis of one), ``world`` the group of every rank of the
-    run (None for a world of one), ``rank`` the rank in it; ``data_rank``
-    and ``tensor`` the indices on the two axes."""
+    """This rank's place in the dp × tp × sp grid: ``data`` is the vote's
+    group (None in a world of one), ``world`` the group of every rank of the
+    run (None for a world of one), ``rank`` the rank in it;
+    ``data_rank``, ``tensor`` and ``seq`` the places on the three axes."""
 
     data: Any
     world: Any
@@ -101,10 +110,15 @@ class Grid:
     rank: int
     data_rank: int
     tensor: TensorAxis = TensorAxis()
+    seq: SeqAxis = SeqAxis()
 
     @property
     def tp(self) -> int:
         return self.tensor.size
+
+    @property
+    def sp(self) -> int:
+        return self.seq.size
 
 
 def data_grid(group=None) -> Grid:
@@ -115,32 +129,73 @@ def data_grid(group=None) -> Grid:
     return Grid(data=group, world=group, dp=w, rank=r, data_rank=r)
 
 
-def make_grid(tp: int = 1, group=None) -> Grid:
-    """The ``(data, tensor)`` grid of tp-wide tensor groups over the ranks of
-    ``group`` (None: the default group, or a world of one); tp 1 is
-    :func:`data_grid`."""
+def make_grid(tp: int = 1, group=None, sp: int = 1) -> Grid:
+    """The ``(data, tensor, seq)`` grid of tp-wide tensor groups and sp-wide
+    seq groups over the ranks of ``group`` (None: the default group, or a
+    world of one); tp 1 and sp 1 is :func:`data_grid`. Where ``group`` is
+    one of several groups whose processes build their grids at the same
+    time, the processes first gather every such group's members and each
+    builds every grid's groups, in one order (as
+    ``collectives.HierGroups`` does)."""
     if tp < 1:
         raise ValueError(f"--tensor_parallel must be >= 1, got {tp}")
-    if tp == 1:
+    if sp < 1:
+        raise ValueError(f"--seq_parallel must be >= 1, got {sp}")
+    if tp == 1 and sp == 1:
         return data_grid(group)
+    axes = (f"--tensor_parallel {tp}" if sp == 1 else f"--seq_parallel {sp}" if tp == 1
+            else f"--tensor_parallel {tp} x --seq_parallel {sp}")
     if not dist.is_initialized():
-        raise ValueError(f"--tensor_parallel {tp} needs {tp} ranks or a multiple of it "
+        raise ValueError(f"{axes} needs {tp * sp} ranks or a multiple of it "
                          "(torchrun --nproc_per_node); this is a world of one")
     group = group or dist.group.WORLD
-    ranks = dist.get_process_group_ranks(group)
-    world = len(ranks)
-    if world % tp:
-        raise ValueError(f"--tensor_parallel {tp} does not divide the world of {world} ranks")
-    dp, me = world // tp, dist.get_rank(group)
-    data = tensor = None
-    # every process builds every group, in this order
-    for t in range(tp if dp > 1 else 0):
-        g = dist.new_group(ranks[t::tp])
-        if t == me % tp:
-            data = g
-    for d in range(dp):
-        g = dist.new_group(ranks[d * tp:(d + 1) * tp])
-        if d == me // tp:
-            tensor = g
-    return Grid(data=data, world=group, dp=dp, rank=me, data_rank=me // tp,
-                tensor=TensorAxis(tensor, tp, me % tp))
+    ranks = tuple(dist.get_process_group_ranks(group))
+    if len(ranks) % (tp * sp):
+        raise ValueError(f"{axes} does not divide the world of {len(ranks)} ranks")
+    parts = [ranks]
+    if len(ranks) < dist.get_world_size():
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, ranks)
+        parts = sorted(set(every))
+    me = dist.get_rank()
+    for part in parts:
+        groups = _grid_groups(part, tp, sp)
+        if me in part:
+            mine = groups
+    data, tensor, seq, (d, t, s) = mine
+    return Grid(data=data, world=group, dp=len(ranks) // (tp * sp), rank=ranks.index(me),
+                data_rank=d, tensor=TensorAxis(tensor, tp, t), seq=SeqAxis(seq, sp, s))
+
+
+def _grid_groups(ranks: tuple, tp: int, sp: int) -> tuple:
+    """Every data, tensor and seq group of the grid over ``ranks``, built in
+    one order (``dist.new_group`` is collective over the default group; a
+    data axis of one is a group of the one rank, where None would read as
+    the whole world): ``(data, tensor, seq, (d, t, s))`` of this process,
+    which need not be one of ``ranks``."""
+    dp = len(ranks) // (tp * sp)
+    d = t = s = None
+    if dist.get_rank() in ranks:
+        me = ranks.index(dist.get_rank())
+        d, t, s = me // (tp * sp), me // sp % tp, me % sp
+
+    def at(d_, t_, s_):
+        return ranks[(d_ * tp + t_) * sp + s_]
+
+    data = tensor = seq = None
+    for t_ in range(tp):
+        for s_ in range(sp):
+            g = dist.new_group([at(d_, t_, s_) for d_ in range(dp)])
+            if (t_, s_) == (t, s):
+                data = g
+    for d_ in range(dp if tp > 1 else 0):
+        for s_ in range(sp):
+            g = dist.new_group([at(d_, t_, s_) for t_ in range(tp)])
+            if (d_, s_) == (d, s):
+                tensor = g
+    for d_ in range(dp if sp > 1 else 0):
+        for t_ in range(tp):
+            g = dist.new_group([at(d_, t_, s_) for s_ in range(sp)])
+            if (d_, t_) == (d, t):
+                seq = g
+    return data, tensor, seq, (d, t, s)

@@ -168,9 +168,35 @@ head count or width that does not divide. The banner's bits per param and
 ``comm_stats`` count the whole model's coordinates at the data world, as
 the JAX package does.
 
+**Sequence parallelism** (``seq_parallel`` sp > 1, JAX loop.py:387-401,
+:761-771, :1396-1400, :2604-2661, :2810-2841). The grid's seq groups
+(``parallel.mesh.make_grid``: sp consecutive ranks) split every row's
+tokens: a rank takes its data rank's rows and its token columns
+``[s·T/sp, (s+1)·T/sp)`` of each ``[B, T]`` leaf, in training and in eval.
+The models run ring or Ulysses attention over the seq group
+(``parallel/ring_attention.py``) and the loss is the chunk's
+(``models.loss.clm_loss_seq_parallel``, ``ops.xent.
+chunked_clm_loss_seq_parallel``, DPO's ``train.dpo`` logprobs), whose
+gradient summed over the seq group is the whole sequence's: after
+accumulation one ``all_reduce`` of the flat gradient buffer over the seq
+group sums it, before the data mean, the clip, the sentinel and the vote.
+The params are replicated over the seq group, so each seq rank votes in its
+own data group on the same ballots and every seq rank's params and momentum
+stay the same bits; AdamW, ``vote_every``, ``telemetry``, ``vote_guard``,
+the control plane and the DCN pipeline run as at dp (a departure or a
+rejoin is a data rank's, all its seq ranks together). A checkpoint holds a
+dp run's files: seq rank 0 of each data rank writes what tensor rank 0
+writes (its momentum, guard ballot and DCN ring); every "rank 0" decision
+stays global rank 0's. Refused in the JAX words: ``zero1``, ``tp_vocab``,
+a ``block_size`` that does not divide over sp or exceeds ``n_ctx``
+(:func:`validate_seq_block`). GPT-2 skips attention-probability dropout
+under sp (warned). ``remat_policy`` (programmatic, no flag: run_clm's
+model-level ``--remat_policy`` sets the model config) overrides the model's
+policy (:func:`apply_remat_policy`).
+
 ``TrainConfig`` holds only the fields the port runs, with their JAX
-defaults; the others (the sequence, pipeline and expert axes,
-``--ep_dcn_pipeline``, …) are not flags here, so argparse refuses them.
+defaults; the others (the pipeline and expert axes, ``--ep_dcn_pipeline``,
+…) are not flags here, so argparse refuses them.
 """
 
 from __future__ import annotations
@@ -189,7 +215,7 @@ import torch.distributed as dist
 
 from distributed_lion_tpu_torch.models.gpt2 import GPT2, GPT2Config, fold_seed
 from distributed_lion_tpu_torch.models.llama import Llama, LlamaConfig, as_parameters, llama_init
-from distributed_lion_tpu_torch.models.loss import clm_loss_and_metrics
+from distributed_lion_tpu_torch.models.loss import clm_loss_and_metrics, clm_loss_seq_parallel
 from distributed_lion_tpu_torch.ops.codec import (
     parse_wire,
     vote_chunk_elems,
@@ -198,6 +224,7 @@ from distributed_lion_tpu_torch.ops.codec import (
 from distributed_lion_tpu_torch.ops.quant import map_tree
 from distributed_lion_tpu_torch.ops.xent import (
     chunked_clm_loss_and_metrics,
+    chunked_clm_loss_seq_parallel,
     tp_vocab_clm_loss_and_metrics,
 )
 from distributed_lion_tpu_torch.optim.distributed_lion import (
@@ -292,6 +319,9 @@ class TrainConfig:
     inject_membership: str = ""  # 'worker_drop:<w>[:<s>],worker_rejoin:<w>:<s>' (needs the plane)
     tensor_parallel: int = 1  # the tensor axis: tp consecutive ranks split the model
     tp_vocab: bool = False  # with tp > 1: split the embedding/head by vocabulary too
+    seq_parallel: int = 1  # the seq axis: sp consecutive ranks split each row's tokens
+    remat_policy: str = dataclasses.field(default="", metadata={"cli": False})
+    # '' = the model config's own; 'full' | 'dots' overrides it (for_gpt2, for_llama)
 
     def schedule(self) -> Callable:
         if self.lr_scheduler_type == "cosine":
@@ -303,6 +333,34 @@ class TrainConfig:
         if self.lr_scheduler_type == "constant":
             return constant_schedule(self.learning_rate)
         raise ValueError(f"unknown lr_scheduler_type {self.lr_scheduler_type!r}")
+
+
+def apply_remat_policy(cfg: TrainConfig, model_cfg):
+    """``cfg.remat_policy`` into the model config (JAX loop.py:368-384): ''
+    keeps the model's; 'full' | 'dots' replaces it; refused when unknown or
+    when the model does not rematerialize."""
+    if not cfg.remat_policy:
+        return model_cfg
+    if cfg.remat_policy not in ("full", "dots"):
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r} (full | dots)")
+    if not model_cfg.remat:
+        raise ValueError(
+            "TrainConfig.remat_policy set but the model config has remat=False — the policy "
+            "would silently never apply; drop the override or enable remat")
+    return dataclasses.replace(model_cfg, remat_policy=cfg.remat_policy)
+
+
+def validate_seq_block(cfg: TrainConfig, model_cfg, sp: int) -> None:
+    """The block must split evenly over the seq axis and fit the positions
+    (JAX loop.py:387-401): past ``n_ctx`` the later chunks would have no
+    position rows (GPT-2) or extrapolated rope angles (Llama)."""
+    if cfg.block_size % sp:
+        raise ValueError(f"block_size {cfg.block_size} not divisible by seq axis {sp}")
+    if cfg.block_size > model_cfg.n_ctx:
+        raise ValueError(
+            f"seq-parallel block_size {cfg.block_size} (total tokens across the {sp}-way seq "
+            f"axis) exceeds n_ctx {model_cfg.n_ctx}: the positional scheme (wpe table / rope "
+            "range) is too small")
 
 
 # Auto bucket trigger, kept at the JAX package's value, which was measured
@@ -503,8 +561,18 @@ def _refuse_split_params(cfg: TrainConfig, tp: int) -> None:
             "(dp / dp x sp).")
 
 
-def _check_tp_vocab(cfg: TrainConfig, tp: int, rows: int, gpt2: bool) -> None:
-    """``--tp_vocab``'s rules (JAX loop.py:2596-2617, 2788-2805): ``rows``
+def _refuse_zero1_seq(cfg: TrainConfig, sp: int) -> None:
+    """ZeRO-1 under a seq axis (JAX loop.py:761-771), in its words."""
+    if cfg.zero1 and sp > 1:
+        raise ValueError(
+            f"--zero1 is incompatible with a 'seq' mesh axis of size {sp}: inside shard_map "
+            "each seq rank ravels its own local param shard, so the m/v chunks diverge across "
+            "ranks while the out_specs assume seq-replication — one rank's moments would "
+            "silently win. Use pure data parallelism with ZeRO-1.")
+
+
+def _check_tp_vocab(cfg: TrainConfig, tp: int, rows: int, gpt2: bool, sp: int = 1) -> None:
+    """``--tp_vocab``'s rules (JAX loop.py:2596-2617, 2788-2816): ``rows``
     are GPT-2's padded embedding rows or Llama's vocabulary."""
     if not cfg.tp_vocab:
         return
@@ -514,6 +582,8 @@ def _check_tp_vocab(cfg: TrainConfig, tp: int, rows: int, gpt2: bool) -> None:
     if cfg.vocab_chunks > 0:
         raise NotImplementedError(
             "--tp_vocab and --vocab_chunks are alternative head strategies; pick one")
+    if sp > 1:
+        raise NotImplementedError("--tp_vocab under --seq_parallel is not wired; pick one")
     if rows % tp:
         raise ValueError(
             f"--tp_vocab: embedding rows {rows} not divisible by tensor axis {tp}; "
@@ -610,6 +680,17 @@ def _rows(batch, lo: int, hi: int):
     return batch[lo:hi]
 
 
+def _seq_cols(batch, seq):
+    """The seq rank's token columns of every ``[B, T]`` leaf of a batch."""
+    if seq.size == 1:
+        return batch
+    t = (next(iter(batch.values())) if isinstance(batch, dict) else batch).shape[1] // seq.size
+    lo, hi = seq.rank * t, (seq.rank + 1) * t
+    if isinstance(batch, dict):
+        return {k: v[:, lo:hi] for k, v in batch.items()}
+    return batch[:, lo:hi]
+
+
 def _to_device(batch, device):
     if isinstance(batch, dict):
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
@@ -621,21 +702,30 @@ def _tokens_and_mask(batch):
     return (batch["tokens"], batch["mask"]) if isinstance(batch, dict) else (batch, None)
 
 
-def clm_loss_fn(model) -> LossFn:
+def clm_loss_fn(model, seq=None) -> LossFn:
     """``loss_fn(batch, seed)`` of a causal LM ``model(tokens, seed)``; a dict
-    batch carries its loss mask to ``clm_loss_and_metrics``."""
+    batch carries its loss mask to ``clm_loss_and_metrics``. Under a seq
+    axis (``seq``, size > 1) the batch is a chunk of packed rows and the
+    loss ``models.loss.clm_loss_seq_parallel``."""
     def loss_fn(batch, seed):
+        if seq is not None and seq.size > 1:
+            return clm_loss_seq_parallel(model(batch, seed), batch, seq)
         tokens, mask = _tokens_and_mask(batch)
         return clm_loss_and_metrics(model(tokens, seed), tokens, mask)
     return loss_fn
 
 
 def chunked_clm_loss_fn(hidden_and_head: Callable, n_chunks: int, emb_layout: str = "vd",
-                        valid_v: int = 0) -> LossFn:
+                        valid_v: int = 0, seq=None) -> LossFn:
     """``loss_fn(batch, seed)`` of ``hidden_and_head(tokens, seed) ->
     (hidden [B, T, d], head)`` through the chunked-vocabulary cross entropy
-    (``ops.xent.chunked_clm_loss_and_metrics``), marked ``_vocab_chunked``."""
+    (``ops.xent.chunked_clm_loss_and_metrics``, under a seq axis
+    ``chunked_clm_loss_seq_parallel``), marked ``_vocab_chunked``."""
     def loss_fn(batch, seed):
+        if seq is not None and seq.size > 1:
+            hidden, head = hidden_and_head(batch, seed)
+            return chunked_clm_loss_seq_parallel(hidden, head, batch, n_chunks, seq,
+                                                 emb_layout, valid_v)
         tokens, mask = _tokens_and_mask(batch)
         hidden, head = hidden_and_head(tokens, seed)
         return chunked_clm_loss_and_metrics(hidden, head, tokens, n_chunks, mask,
@@ -644,11 +734,12 @@ def chunked_clm_loss_fn(hidden_and_head: Callable, n_chunks: int, emb_layout: st
     return loss_fn
 
 
-def _announce(family: str, n: int, world: int, cfg: TrainConfig, device, tp: int = 1) -> None:
-    """The trainer's banner (JAX loop.py:2722-2731): params, world (and tp),
-    and the vote wire with its bits per param per step, of the whole
-    model's ``n`` coordinates as the JAX package counts them."""
-    where = f"world={world}" + (f" tp={tp}" if tp > 1 else "")
+def _announce(family: str, n: int, world: int, cfg: TrainConfig, device, tp: int = 1,
+              sp: int = 1) -> None:
+    """The trainer's banner (JAX loop.py:2722-2731): params, world (and tp
+    and sp), and the vote wire with its bits per param per step, of the
+    whole model's ``n`` coordinates as the JAX package counts them."""
+    where = f"world={world}" + (f" tp={tp}" if tp > 1 else "") + (f" sp={sp}" if sp > 1 else "")
     if not cfg.lion:
         emit(f"[trainer] {family} {n/1e6:.1f}M params | {where} | AdamW"
              + (" ZeRO-1" if cfg.zero1 else "") + f", gradient all_reduce | device={device}")
@@ -733,7 +824,7 @@ def report_preempted(trainer: "Trainer", prog: str) -> bool:
 class Trainer:
     """Train/eval loop on one rank over ``named_params`` (in the JAX
     package's leaf order: the flat buffers' layout) and ``loss_fn``.
-    ``grid`` is the dp × tp grid (``parallel.mesh.make_grid``; a
+    ``grid`` is the dp × tp × sp grid (``parallel.mesh.make_grid``; a
     data-parallel run over a process group passes ``data_grid(group)``;
     None: a world of one) with ``shard_rule(name) -> dim or None`` naming
     the tensor split of each parameter (module doc); ``model``, where
@@ -746,7 +837,12 @@ class Trainer:
         if grid.tp != cfg.tensor_parallel:
             raise ValueError(f"--tensor_parallel {cfg.tensor_parallel} but the grid's tensor "
                              f"axis is {grid.tp}: pass parallel.mesh.make_grid's grid")
-        self.grid, self.tensor = grid, grid.tensor
+        if grid.sp != cfg.seq_parallel:
+            raise ValueError(f"--seq_parallel {cfg.seq_parallel} but the grid's seq axis is "
+                             f"{grid.sp}: pass parallel.mesh.make_grid's grid")
+        if grid.sp > 1 and cfg.block_size % grid.sp:
+            raise ValueError(f"block_size {cfg.block_size} not divisible by seq axis {grid.sp}")
+        self.grid, self.tensor, self.seq = grid, grid.tensor, grid.seq
         self.world = grid.dp
         self.rank = grid.data_rank     # the vote's rank: batch rows, seeds, momentum files
         self.global_rank = grid.rank   # files, logs and every "rank 0" decision
@@ -775,6 +871,7 @@ class Trainer:
         self.n_global = n
         if tp > 1:
             _refuse_split_params(cfg, tp)
+        _refuse_zero1_seq(cfg, grid.sp)
         cfg = _resolve_for_world(cfg, self.world, n, announce=self.chief, tp=tp)
         check_telemetry_size(n, cfg.vote_every, cfg.telemetry)
         self.cfg = cfg
@@ -889,12 +986,20 @@ class Trainer:
         the vocab-parallel one over its ``wte`` rows (JAX :2596-2683)."""
         device = resolve_device(device)
         grid = grid or data_grid()
-        tp = grid.tp
+        tp, sp = grid.tp, grid.sp
         if tp > 1:
             tpar.validate_tp(model_cfg, tp, "gpt2")
-        _check_tp_vocab(cfg, tp, model_cfg.padded_vocab, gpt2=True)
+        _check_tp_vocab(cfg, tp, model_cfg.padded_vocab, gpt2=True, sp=sp)
+        model_cfg = apply_remat_policy(cfg, model_cfg)
+        if sp > 1:
+            validate_seq_block(cfg, model_cfg, sp)
+            if model_cfg.dropout > 0.0 and grid.rank == 0:
+                emit("[trainer] WARNING: attention-probability dropout is disabled under "
+                     "sequence parallelism (scores never exist in one place on the ring path); "
+                     "residual/embedding dropout still applies — semantics differ from "
+                     "replicated training at the same dropout rate")
         model = GPT2(model_cfg, device=device, seed=cfg.seed, tp=grid.tensor,
-                     vocab_parallel=cfg.tp_vocab)
+                     vocab_parallel=cfg.tp_vocab, seq=grid.seq)
         if initial_params is not None:
             with torch.no_grad():
                 for name, p in model.named_parameters():
@@ -904,7 +1009,7 @@ class Trainer:
         n = _whole_count(named, model.shard_dim, tp)
         cfg = _resolve_for_world(cfg, grid.dp, n, announce=grid.rank == 0, tp=tp)
         if grid.rank == 0:
-            _announce("GPT-2", n, grid.dp, cfg, device, tp)
+            _announce("GPT-2", n, grid.dp, cfg, device, tp, sp)
         if cfg.tp_vocab:
             def loss_fn(batch, seed):
                 tokens, mask = _tokens_and_mask(batch)
@@ -915,9 +1020,10 @@ class Trainer:
         elif cfg.vocab_chunks > 0:
             loss_fn = chunked_clm_loss_fn(lambda tokens, seed: (model.hidden(tokens, seed),
                                                                 model.wte),
-                                          cfg.vocab_chunks, valid_v=model_cfg.vocab_size)
+                                          cfg.vocab_chunks, valid_v=model_cfg.vocab_size,
+                                          seq=grid.seq)
         else:
-            loss_fn = clm_loss_fn(model)
+            loss_fn = clm_loss_fn(model, grid.seq)
         return Trainer(cfg, named, loss_fn, model=model, grid=grid, shard_rule=model.shard_dim)
 
     @staticmethod
@@ -932,15 +1038,19 @@ class Trainer:
         ``llama_apply`` one, or with ``vocab_chunks`` the final hidden states
         against the untied ``lm_head`` in its ``[d, V]`` layout (``"dv"``),
         or with ``tp_vocab`` the vocab-parallel one over the rank's
-        ``lm_head`` columns. The model has no dropout. The sequence,
-        pipeline and expert axes are not ported (ROADMAP Queue 1 item 11(d)
+        ``lm_head`` columns; under ``seq_parallel`` the seq-parallel dense or
+        chunked loss of the rank's token chunk. The model has no dropout. The
+        pipeline and expert axes are not ported (ROADMAP Queue 1 item 11(e)
         on)."""
         device = resolve_device(device)
         grid = grid or data_grid()
-        tp = grid.tp
+        tp, sp = grid.tp, grid.sp
         if tp > 1:
             tpar.validate_tp(model_cfg, tp, "llama")
-        _check_tp_vocab(cfg, tp, model_cfg.vocab_size, gpt2=False)
+        _check_tp_vocab(cfg, tp, model_cfg.vocab_size, gpt2=False, sp=sp)
+        model_cfg = apply_remat_policy(cfg, model_cfg)
+        if sp > 1:
+            validate_seq_block(cfg, model_cfg, sp)
 
         def rule(name):
             return tpar.llama_shard_dim(name, cfg.tp_vocab) if tp > 1 else None
@@ -952,12 +1062,12 @@ class Trainer:
                        vocab_parallel=cfg.tp_vocab) if initial_params is None
             else map_tree(lambda t: t.to(device, model_cfg.param_dtype),
                           tpar.shard_tree(initial_params, rule, tp, grid.tensor.rank)))
-        model = Llama(model_cfg, params, tp=grid.tensor)
+        model = Llama(model_cfg, params, tp=grid.tensor, seq=grid.seq)
         named = model.jax_named_parameters()
         n = _whole_count(named, rule, tp)
         cfg = _resolve_for_world(cfg, grid.dp, n, announce=grid.rank == 0, tp=tp)
         if grid.rank == 0:
-            _announce("Llama", n, grid.dp, cfg, device, tp)
+            _announce("Llama", n, grid.dp, cfg, device, tp, sp)
         if cfg.tp_vocab:
             def loss_fn(batch, seed):
                 tokens, mask = _tokens_and_mask(batch)
@@ -967,9 +1077,9 @@ class Trainer:
         elif cfg.vocab_chunks > 0:
             loss_fn = chunked_clm_loss_fn(lambda tokens, seed: (model.hidden(tokens),
                                                                 params["lm_head"]),
-                                          cfg.vocab_chunks, emb_layout="dv")
+                                          cfg.vocab_chunks, emb_layout="dv", seq=grid.seq)
         else:
-            loss_fn = clm_loss_fn(lambda tokens, seed: model(tokens))
+            loss_fn = clm_loss_fn(lambda tokens, seed: model(tokens), grid.seq)
         return Trainer(cfg, named, loss_fn, model=model, grid=grid, shard_rule=rule)
 
     def full_named(self) -> dict:
@@ -999,10 +1109,11 @@ class Trainer:
                 * self.cfg.gradient_accumulation_steps)
 
     def _local_batch(self, batch):
-        """This rank's shard of a global ``batch``, on the device."""
+        """This rank's shard of a global ``batch`` (its data rank's rows, its
+        seq rank's token columns), on the device."""
         accum, bs = self.cfg.gradient_accumulation_steps, self.cfg.per_device_train_batch_size
-        return _to_device(_rows(batch, self.rank * accum * bs, (self.rank + 1) * accum * bs),
-                          self.device)
+        rows = _rows(batch, self.rank * accum * bs, (self.rank + 1) * accum * bs)
+        return _to_device(_seq_cols(rows, self.seq), self.device)
 
     def _train_step(self, local) -> tuple:
         """One optimizer step on this rank's shard ``local``
@@ -1023,6 +1134,10 @@ class Trainer:
         grads = self.flat.grads
         with torch.no_grad():
             grads.div_(accum)
+            if self.seq.size > 1:
+                # each seq rank's gradient is its chunk's share of the loss:
+                # the whole sequence's is their sum (JAX loop.py:1396-1400)
+                dist.all_reduce(grads, group=self.seq.group)
             if not cfg.async_grad:
                 if self.group is not None:
                     dist.all_reduce(grads, group=self.group)
@@ -1530,7 +1645,7 @@ class Trainer:
         for i in range(min(cfg.eval_iters, n // bs)):
             rows = _rows(eval_blocks, i * bs + self.rank * per_dev,
                          i * bs + (self.rank + 1) * per_dev)
-            _, metrics = self.loss_fn(_to_device(rows, self.device), None)
+            _, metrics = self.loss_fn(_to_device(_seq_cols(rows, self.seq), self.device), None)
             for k, v in self._mean_over_ranks(metrics).items():
                 per_key.setdefault(k, []).append(v)
         out = {f"eval/{k}": float(np.mean(v)) for k, v in per_key.items() if k != "n_tokens"}
@@ -1557,18 +1672,20 @@ class Trainer:
         the counters and the vote-health accumulator. Under a tensor axis the
         momentum and the params are gathered into whole leaves first, and
         each data rank's tensor rank 0 writes its momentum: a data-parallel
-        run's files."""
+        run's files. Under a seq axis only seq rank 0 writes a data rank's
+        files: its seq ranks hold the same bits."""
         st = self.state
         adam = not isinstance(st, LionState)
-        tp, lead = self.tensor.size, self.tensor.rank == 0
+        tp, first = self.tensor.size, self.seq.rank == 0
+        lead = first and self.tensor.rank == 0
         files = {}
         if not adam:
             mom = self._whole(st.exp_avg)
             if lead:
                 files[momentum_file(self.rank)] = mom
-        if not adam and st.prev_ballot is not None:
+        if not adam and st.prev_ballot is not None and first:
             files[prev_ballot_file(self.rank)] = st.prev_ballot
-        if not adam and st.dcn_ring is not None:
+        if not adam and st.dcn_ring is not None and first:
             files[ring_file(self.rank, self.tensor.rank if tp > 1 else None)] = st.dcn_ring
         if isinstance(st, Zero1State):
             files[zero1_file(self.rank)] = {"m": st.m, "v": st.v}

@@ -1,6 +1,7 @@
 """Dataclass-driven CLI parsing: port of ``distributed_lion_tpu/utils/argparsing.py``.
 
-Every dataclass field becomes a ``--flag``; booleans accept ``--flag`` /
+Every dataclass field becomes a ``--flag``, except one whose metadata says
+``cli: False`` (a programmatic knob); booleans accept ``--flag`` /
 ``--flag false``; a single JSON-file argument populates all groups. A field
 a dataclass does not have is not a flag, so argparse refuses it.
 """
@@ -43,6 +44,8 @@ def build_parser(dataclass_types: Sequence[Type]) -> argparse.ArgumentParser:
         group = parser.add_argument_group(dc.__name__)
         hints = typing.get_type_hints(dc)
         for f in dataclasses.fields(dc):
+            if not f.metadata.get("cli", True):
+                continue
             if f.name in seen:
                 raise ValueError(f"duplicate field {f.name!r} across dataclasses")
             seen.add(f.name)
@@ -72,5 +75,5 @@ def parse_dataclasses(dataclass_types: Sequence[Type],
         values = vars(build_parser(dataclass_types).parse_args(argv))
     return tuple(
         dc(**{f.name: values[f.name] for f in dataclasses.fields(dc)
-              if f.name in values})
+              if f.name in values and f.metadata.get("cli", True)})
         for dc in dataclass_types)

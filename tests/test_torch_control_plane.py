@@ -670,8 +670,8 @@ def test_control_plane_auto_arms_enforce(capsys):
 
 
 CLI_GROUPS = {"run_clm": (run_clm.ModelArguments, run_clm.DataArguments),
-              "run_sft": (run_sft.SFTArguments, run_sft.UnportedArguments),
-              "run_dpo": (run_dpo.DPOArguments, run_dpo.UnportedArguments)}
+              "run_sft": (run_sft.SFTArguments,),
+              "run_dpo": (run_dpo.DPOArguments,)}
 
 
 @pytest.mark.parametrize("cli", sorted(CLI_GROUPS))

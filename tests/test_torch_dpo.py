@@ -59,6 +59,7 @@ from distributed_lion_tpu_torch.models.lora import (
     lora_init,
 )
 from distributed_lion_tpu_torch.ops.quant import quantize_tree
+from distributed_lion_tpu_torch.parallel.mesh import SeqAxis
 from distributed_lion_tpu_torch.train.dpo import make_dpo_loss_fn, sequence_logprob
 from distributed_lion_tpu_torch.train.loop import TrainConfig, Trainer
 from distributed_lion_tpu_torch.utils.serialization import (
@@ -148,8 +149,10 @@ def test_dpo_loss_is_ln2_at_the_reference_and_falls_as_the_policy_prefers_chosen
     assert float(m1["reward_margin"]) > 0 and float(m1["reward_accuracy"]) == 1.0
     with pytest.raises(TypeError, match=r"\(hidden, head\)"):  # chunked scoring takes hidden states
         make_dpo_loss_fn(lambda t, s: pol(t), ref, vocab_chunks=4)(batch, None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        make_dpo_loss_fn(pol, ref, seq_axis="seq")
+    # a seq axis of one is the unsplit loss (the seq-parallel logprobs run in
+    # tests/test_torch_seq_parallel.py's ranks)
+    loss2, _ = make_dpo_loss_fn(lambda t, s: pol(t), ref, seq_axis=SeqAxis())(batch, 7)
+    assert float(loss2) == float(loss1)
 
 
 def _tiny(quant_ref="none", b_scale=0.0):
@@ -374,16 +377,17 @@ def test_sft_merged_output_feeds_run_dpo_and_dpo_merged_output_round_trips(tmp_p
 @pytest.mark.parametrize("flag,item", [
     (["--model_path", "/nonexistent"], 9), (["--adapter_path", "x"], 9),
     (["--adapter_output", "x"], 9), (["--merged_output", "hf_dir"], 9),
-    (["--tensor_parallel", "2", "--vocab_chunks", "4"], 11), (["--seq_parallel", "2"], 11),
-    (["--tensor_parallel", "2"], 11), (["--seq_impl", "ulysses"], 11)])
-def test_unported_flags_are_refused_by_name(flag, item, monkeypatch, tmp_path):
+    (["--tensor_parallel", "2", "--vocab_chunks", "4"], 11), (["--pipeline_parallel", "2"], 11),
+    (["--tensor_parallel", "2"], 11), (["--moe_experts", "2"], 11)])
+def test_unported_flags_are_refused_by_name(flag, item, monkeypatch, tmp_path, capsys):
     """Item 9's flags run since the HF slice: each gets the JAX package's own
     outcome for the same argument (an error from its importer, or the
-    written directory). Item 11's sequence parallelism stays refused by
-    name. ``--tensor_parallel`` runs since item 11(c): with ``--vocab_chunks``
-    it meets the JAX package's refusal in its words, and alone in a world of
-    one the grid's refusal (the multi-rank runs are
-    tests/test_torch_tensor_parallel.py's)."""
+    written directory). Item 11's pipeline and expert axes stay refused by
+    name: argparse names the flag it does not know. ``--tensor_parallel``
+    runs since item 11(c): with ``--vocab_chunks`` it meets the JAX
+    package's refusal in its words, and alone in a world of one the grid's
+    refusal (the multi-rank runs are tests/test_torch_tensor_parallel.py's,
+    and ``--seq_parallel``'s tests/test_torch_seq_parallel.py's)."""
     from distributed_lion_tpu.models import hf_import as j_hf_import
 
     monkeypatch.setenv("DLION_PLATFORM", "cpu")
@@ -399,8 +403,9 @@ def test_unported_flags_are_refused_by_name(flag, item, monkeypatch, tmp_path):
             run_dpo.main(["--model_name", "tiny", *flag])
         return
     if item == 11:
-        with pytest.raises(NotImplementedError, match=f"{flag[0]}.*Queue 1 item {item}\\b"):
+        with pytest.raises(SystemExit):
             run_dpo.main(["--model_name", "tiny", *flag])
+        assert f"unrecognized arguments: {' '.join(flag)}" in capsys.readouterr().err
         return
     name, value = flag
     run = ["--model_name", "tiny", *flag, "--max_length", "96", "--max_prompt_length", "48",

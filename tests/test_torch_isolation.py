@@ -199,3 +199,14 @@ def test_the_tensor_parallel_modules_are_among_the_checked_files():
             "models/gpt2.py", "models/llama.py", "models/lora.py", "ops/xent.py",
             "ops/quant.py", "utils/serialization.py", "train/loop.py", "train/dpo.py",
             "cli/run_clm.py", "cli/run_sft.py", "cli/run_dpo.py"} <= files
+
+
+def test_the_sequence_parallel_modules_are_among_the_checked_files():
+    """The seq axis's module, beside every module the sequence-parallel
+    slice touched (the grid, the models, the losses, the trainer, DPO's
+    logprobs, the CLIs), is in the file list both checks above walk."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
+    assert {"parallel/ring_attention.py", "parallel/mesh.py", "models/gpt2.py",
+            "models/llama.py", "models/loss.py", "ops/xent.py", "train/loop.py",
+            "train/dpo.py", "utils/argparsing.py", "cli/run_clm.py", "cli/run_sft.py",
+            "cli/run_dpo.py"} <= files

@@ -205,14 +205,16 @@ def _jax_outcome(fn):
 
 @pytest.mark.parametrize("flag", [
     ["--model_path", "/nonexistent"], ["--adapter_path", "x"], ["--adapter_output", "x"],
-    ["--merged_output", "hf_dir"], ["--seq_parallel", "2"], ["--tensor_parallel", "2"],
-    ["--seq_impl", "ulysses"], ["--tokenizer_name", "sp:tokenizer.model"]])
-def test_unported_flags_are_refused_by_name(flag, monkeypatch, tmp_path):
+    ["--merged_output", "hf_dir"], ["--pipeline_parallel", "2"], ["--tensor_parallel", "2"],
+    ["--moe_experts", "2"], ["--tokenizer_name", "sp:tokenizer.model"]])
+def test_unported_flags_are_refused_by_name(flag, monkeypatch, tmp_path, capsys):
     """Since the HF slice the first four flags and SentencePiece run; each
-    gets the JAX package's own outcome for the same argument. Sequence
-    parallelism stays refused by name (item 11(d)); ``--tensor_parallel``
-    runs since item 11(c), and in a world of one meets the grid's refusal
-    (the multi-rank runs are tests/test_torch_tensor_parallel.py's)."""
+    gets the JAX package's own outcome for the same argument. The pipeline
+    and expert axes stay refused by name (items 11(e), 11(f)): argparse names
+    the flag it does not know. ``--tensor_parallel`` runs since item 11(c),
+    and in a world of one meets the grid's refusal (the multi-rank runs are
+    tests/test_torch_tensor_parallel.py's, and ``--seq_parallel``'s
+    tests/test_torch_seq_parallel.py's)."""
     from distributed_lion_tpu.data.tokenizer import load_tokenizer as j_load_tokenizer
     from distributed_lion_tpu.models import hf_import as j_hf_import
 
@@ -233,8 +235,9 @@ def test_unported_flags_are_refused_by_name(flag, monkeypatch, tmp_path):
             run_sft.main(["--model_name", "tiny", *flag])
         return
     if name not in jax_side:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        with pytest.raises(SystemExit):
             run_sft.main(["--model_name", "tiny", *flag])
+        assert f"unrecognized arguments: {name} {value}" in capsys.readouterr().err
         return
     kind, msg = _jax_outcome(jax_side[name])
     with pytest.raises(Exception) as got:
