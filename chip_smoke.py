@@ -140,6 +140,17 @@ Phases (none of their failures is caught; any one fails the run):
    kernels; the launches are 6 steps' and no eval batch; with
    ``--journal`` the bundle holds ``journal_tail.jsonl`` (strict JSON)
    whose last record is the trip's ``[trainer] ANOMALY`` message.
+   (y1) GPT-2-MoE, right after (c-dots): (b)'s setup with ``--moe_experts 8
+   --moe_every 2 --moe_capacity_factor 1.25`` (GPT-2 124M's widths and 12
+   blocks, 6 of them with 8 experts of d_ff 3072: 322,818,816 coordinates):
+   finite losses, that count, (b)'s launch formulas (every block's attention
+   takes flash), ``vote/hist_mass == 1``, eval through flash within 0.002 of
+   attention_xla's; the optimizer kernels are held ``torch.equal`` to their
+   plain versions at this window in the kernel phase. Then the first MoE
+   block's routing of B 8 x T 1024 tokens through the trained model on the
+   card (``parallel.expert.route``): every kept token in a slot of its own
+   and each expert's drops ``max(0, count - C)`` at C = 1,280; and a profiled
+   microbatch. Its step ms, tokens/s and peak device memory are printed.
 5. Run (f), the vote across four ranks: four processes on cuda:0 in a
    gloo process group the script starts itself (NCCL refuses two ranks
    on one device) each run ``cli.run_clm.main`` on GPT-2 124M at full
@@ -271,6 +282,22 @@ Phases (none of their failures is caught; any one fails the run):
    (every seq-parallel attention, eval's too, is the ring's or Ulysses');
    the kernel phase holds the optimizer kernels at (w)'s, (x1)'s and (x2)'s
    windows.
+   Runs (y2) and (y3), expert parallelism, follow in a W = 4 spawn of their
+   own, fresh processes (global rank r =
+   ((d·tp + t)·sp + s)·ep + e), GPT-2-MoE at (y1)'s widths and depth, B 2 x
+   1: (y2) dp 2 x ep 2, float32 compute, capacity factor 8 (nothing drops),
+   ``--ep_dcn_pipeline 0``, 3 steps (209,480,448 coordinates a rank); (y3) dp
+   1 x tp 2 x ep 2, bfloat16, capacity factor 1.25, ``--ep_dcn_pipeline 2``,
+   5 steps (124,485,888). The ``GridWatch`` holds every leaf replicated over
+   the expert axis (and over tensor) ``torch.equal`` across those ranks after
+   every step, the losses equal across a data rank's ranks, the launches by
+   formula, and for (y2) ep == the unsplit model at step 1 on the expert
+   pair's rows (loss + 0.01·aux, median momentum ratio within 1e-3 of 1 on
+   every leaf); a ``RingWatch`` holds (y3)'s ring: steps 1-2 read an
+   all-zero slot (the local aux), each later step the slot the step two
+   before wrote, and each slot the step's tallies of every microbatch
+   summed over the expert group by the watch itself, 4,096 lanes a block.
+   The kernel phase holds the optimizer kernels at (y2)'s window.
 6. Run (g), resume on the card, in the 1-rank NCCL group: the repo's
    ``*.md`` files go through the port's GPT-2 BPE (``runs/parity/tok``,
    its C++ merge core, which must build) into a uint16 ``bin:`` shard, read
@@ -446,6 +473,7 @@ from distributed_lion_tpu_torch.data.hf_tokenizer_json import TokenizerJSON, bpe
 from distributed_lion_tpu_torch.data.tokenizer import ByteTokenizer
 from distributed_lion_tpu_torch.models import hf_export, hf_import
 from distributed_lion_tpu_torch.models.gpt2 import GPT2, GPT2Config
+from distributed_lion_tpu_torch.models.gpt2 import _layer_norm as gpt2_layer_norm
 from distributed_lion_tpu_torch.models.llama import Llama, LlamaConfig, as_parameters, llama_init
 from distributed_lion_tpu_torch.models.loss import clm_loss_and_metrics
 from distributed_lion_tpu_torch.models.lora import (
@@ -475,6 +503,7 @@ from distributed_lion_tpu_torch.optim.optax_adapter import adamw
 from distributed_lion_tpu_torch.optim.zero import AdamWZero1, Zero1State, zero1_chunk
 from distributed_lion_tpu_torch.parallel import collectives
 from distributed_lion_tpu_torch.parallel import tensor_parallel as tpar
+from distributed_lion_tpu_torch.parallel.expert import AUX_WEIGHT, capacity, route
 from distributed_lion_tpu_torch.parallel.mesh import make_grid
 from distributed_lion_tpu_torch.train import journal, resilience, vote_guard
 from distributed_lion_tpu_torch.train import loop as train_loop
@@ -660,6 +689,32 @@ X2_ARGS = ["--model_name", T_MODEL, "--quant_ref", "nf4", "--max_length", "1024"
 N_SP_LLAMA3 = 2 * 525_336_576 + 4096 + W_LAYERS * 218_112_000
 N_SP_SFT = X1_LAYERS * 2 * (4096 * 8 + 8 * 4096)
 N_SP_DPO = X2_LAYERS * (4 * 2 * 4096 * 8 + 3 * (4096 * 8 + 8 * 11008)) + 259 * 8 + 8 * 4096
+# runs (y1)-(y3): GPT-2-MoE at GPT-2 124M's widths and depth, 8 experts in
+# every second block at capacity factor 1.25, on sign_psum at dropout 0. (y1)
+# one rank in the slice phase, (b)'s setup with --telemetry; (y2) dp 2 x ep 2
+# and (y3) dp 1 x tp 2 x ep 2 in the W4 spawn (global rank r = ((d·tp + t)·sp
+# + s)·ep + e), B 2 x 1. (y2) at float32 compute and capacity factor 8
+# (nothing drops, so the step-1 momentum is the unsplit model's), the tallies
+# summed in the forward (--ep_dcn_pipeline 0); (y3) bfloat16, the ring at
+# depth 2, Y3_STEPS steps
+MOE_ARGS = ["--moe_experts", "8", "--moe_every", "2", "--moe_capacity_factor", "1.25"]
+MOE_E = 8
+Y1_ARGS = ["--dropout", "0", "--telemetry", *MOE_ARGS]
+Y2_ARGS = V_BASE + MOE_ARGS + ["--moe_capacity_factor", "8", "--expert_parallel", "2",
+                               "--ep_dcn_pipeline", "0"]
+Y3_STEPS = 5
+Y3_ARGS = S1_ARGS + MOE_ARGS + ["--expert_parallel", "2", "--ep_dcn_pipeline", "2",
+                                "--max_steps", str(Y3_STEPS)]
+Y3_DEPTH = 2
+Y_LANES = 2 * 2 * 1024   # a MoE block's tallied lanes a step in (y3): ep x B x T
+# each rank's coordinates: (y1) the whole model (124,439,808 - 6 dense MLPs of
+# 4,722,432 + 6 MoE FFNs of 37,785,600), (y2) half of each FFN's experts, (y3)
+# half of those experts' d_ff and the tensor slices of (s1)
+N_MOE = 322_818_816
+N_EP = 209_480_448
+N_EP_TP = 124_485_888
+MOE_DTYPES = {N_MOE: ((torch.float32, torch.float32),),
+              N_EP: ((torch.float32, torch.float32),)}
 TP_DEVICE = "cuda"   # where (t)'s whole base is made
 MEDIAN_COORDS = 1 << 24   # the coordinates a leaf's median ratio is taken over, at most
 MEDIAN_TOL = 1e-2   # dp x tp == dp: per-leaf median momentum ratio (tests/test_tp_vocab.py)
@@ -859,7 +914,7 @@ def build_cuda_kernels() -> dict:
 
 
 def optimizer_kernel_phase(gen, rates, ns=(N_MAIN, N_SFT, N_DPO, N_RAGGED, *TP_DTYPES,
-                                           *SP_DTYPES), big: bool = True):
+                                           *SP_DTYPES, *MOE_DTYPES), big: bool = True):
     """Compare and time the two Triton kernels and the stats kernel at each
     window of ``ns`` (and with ``big`` the 2³¹ + 4097 window); returns
     per-kernel records at the main path's shape (float32, int8 tally) and
@@ -867,7 +922,7 @@ def optimizer_kernel_phase(gen, rates, ns=(N_MAIN, N_SFT, N_DPO, N_RAGGED, *TP_D
     rec = {}
     err = dict.fromkeys(OPT_KERNELS, 0.0)
     for n in ns:
-        for pdt, mdt in {**TP_DTYPES, **SP_DTYPES}.get(n, DTYPE_PAIRS):
+        for pdt, mdt in {**TP_DTYPES, **SP_DTYPES, **MOE_DTYPES}.get(n, DTYPE_PAIRS):
             if (pdt, mdt) == MOM_BF16 and n in (N_SFT, N_DPO):
                 continue   # bf16 momentum under float32 params: GPT-2's run (h2)
             suffix = {MOM_BF16: "_mom_bf16", (torch.bfloat16, torch.bfloat16): "_p_bf16"}.get(
@@ -929,7 +984,7 @@ def optimizer_kernel_phase(gen, rates, ns=(N_MAIN, N_SFT, N_DPO, N_RAGGED, *TP_D
             del g, m, p
             torch.cuda.empty_cache()
 
-        if n not in TP_DTYPES and n not in SP_DTYPES:   # no telemetry in those runs
+        if n not in TP_DTYPES and n not in SP_DTYPES and n != N_EP:   # no telemetry there
             stats_cases(gen, rates, n, rec, err)
         torch.cuda.empty_cache()
     if big:
@@ -2543,7 +2598,10 @@ def dense_grad(trainer, local, whole: torch.Tensor, sft: Optional[dict], attn: s
         with torch.no_grad():
             for n, p in model.named_parameters():
                 p.copy_(views[n])
-        loss, _ = clm_loss_and_metrics(model(tokens, None), tokens)
+        logits, aux = model(tokens, None, return_aux=True)
+        loss, _ = clm_loss_and_metrics(logits, tokens)
+        if model.cfg.moe_experts:   # GPT-2-MoE's loss at ep 1 (train/loop.py)
+            loss = loss + AUX_WEIGHT * aux
         loss.backward()
         named = dict(model.named_parameters())
     else:
@@ -2593,12 +2651,13 @@ def momentum_vs_grad(grads: list, momentum: torch.Tensor, b2: float) -> dict:
 
 
 class GridWatch:
-    """Checks around ``DistributedLion.step`` in a tensor- or
-    sequence-parallel run, on every rank (the trainer and this rank's
-    microbatch read from ``Trainer._train_step``; under a seq axis the data
-    rank's whole rows from ``Trainer._local_batch``): after every step this
-    rank's replicated leaves equal its tensor peer's (``replicated_equal``),
-    ``torch.equal``, and its params and momentum hash (sha256) to its seq
+    """Checks around ``DistributedLion.step`` in a tensor-, sequence- or
+    expert-parallel run, on every rank (the trainer and this rank's
+    microbatch read from ``Trainer._train_step``; under a seq or expert axis
+    the data rank's whole rows from ``Trainer._local_batch``): after every
+    step this rank's leaves replicated over the tensor axis equal its tensor
+    peer's and those replicated over the expert axis its expert peer's
+    (``replicated_equal``), ``torch.equal``, and its params and momentum hash (sha256) to its seq
     peers' (``seq_equal``); up to PLAIN_APPLY_MAX coordinates, every step's
     params and momentum equal the plain apply (``fused_apply_plain``) of the
     plain election of the data group's gathered ballots (``apply_equal``),
@@ -2611,13 +2670,13 @@ class GridWatch:
     = (1 − β₂)·g`` gathered over the tensor group into the whole leaves
     against ``(1 − β₂)·`` the unsplit model's gradient on the same rows and
     weights (``dense_grad`` through ``attn``, its flash launches taken back
-    out of the counts), one data rank at a time, on its tensor and seq rank
-    0 (``momentum_vs_grad``: ``dp``)."""
+    out of the counts), one data rank at a time, on its tensor, seq and
+    expert rank 0 (``momentum_vs_grad``: ``dp``)."""
 
     def __init__(self, sft: Optional[dict] = None, check: bool = True, attn: str = "xla",
-                 vocab_chunks: int = 0):
+                 vocab_chunks: int = 0, steps: int = S_STEPS):
         self.sft, self.attn, self.vocab_chunks = sft, attn, vocab_chunks
-        self.check_step = None if not check else S_STEPS - 1 if sft is not None else 0
+        self.check_step = None if not check else steps - 1 if sft is not None else 0
         self.params_equal, self.replicated_equal, self.apply_equal = [], [], []
         self.seq_equal, self.hist = [], []
         self.dp = None
@@ -2634,12 +2693,12 @@ class GridWatch:
             return watch._train_step(trainer, local)
 
         def local_batch(trainer, batch):
-            if trainer.seq.size > 1:   # the data rank's whole rows
-                accum = trainer.cfg.gradient_accumulation_steps
-                bs = trainer.cfg.per_device_train_batch_size
+            if trainer.seq.size > 1 or trainer.expert.size > 1:   # the data rank's whole rows
+                n = (trainer.cfg.gradient_accumulation_steps
+                     * trainer.cfg.per_device_train_batch_size * trainer.expert.size)
                 watch.rows = train_loop._to_device(
-                    train_loop._rows(batch, trainer.rank * accum * bs,
-                                     (trainer.rank + 1) * accum * bs), trainer.device)
+                    train_loop._rows(batch, trainer.rank * n, (trainer.rank + 1) * n),
+                    trainer.device)
             return watch._local_batch(trainer, batch)
 
         DistributedLion.step = step
@@ -2655,7 +2714,8 @@ class GridWatch:
         tr = self.trainer
         plain = flat.numel <= PLAIN_APPLY_MAX
         first = state.steps == self.check_step
-        checker = tr.tensor.rank == 0 and tr.seq.rank == 0   # builds the unsplit model
+        # builds the unsplit model
+        checker = tr.tensor.rank == 0 and tr.seq.rank == 0 and tr.expert.rank == 0
         if plain:
             g = flat.grads.to(state.exp_avg.dtype)
             ballots = fused_lion.fused_ballots_plain(g, state.exp_avg, opt.b1)
@@ -2686,14 +2746,15 @@ class GridWatch:
             del want, ballots, tally
             # over PLAIN_APPLY_MAX the broadcast would take seconds a step
             self.params_equal.append(self._equal_to(flat.params, opt.group))
-        if tr.tensor.size > 1:
-            views = flat.views(flat.params)
-            rep = torch.cat([views[n].reshape(-1) for n, d in zip(flat.names, tr._dims)
-                             if d is None])
-            self.replicated_equal.append(self._equal_to(rep, tr.tensor.group))
-            del rep
-        else:
-            self.replicated_equal.append(True)
+        equal = True
+        for axis, dims in ((tr.tensor, tr._dims), (tr.expert, tr._edims)):
+            if axis.size > 1:
+                views = flat.views(flat.params)
+                rep = torch.cat([views[n].reshape(-1) for n, d in zip(flat.names, dims)
+                                 if d is None])
+                equal = self._equal_to(rep, axis.group) and equal
+                del rep
+        self.replicated_equal.append(equal)
         if tr.seq.size > 1:
             # hashed a chunk at a time: at (w)'s 1.49B coordinates whole host
             # copies of both buffers on four ranks would fill the host
@@ -2731,7 +2792,7 @@ class GridWatch:
                     m = m - opt.b2 * tr._whole(m_before)
                 if before is not None:
                     counts = read_counts()
-                    rows = self.rows if tr.seq.size > 1 else self.local
+                    rows = self.rows if tr.seq.size > 1 or tr.expert.size > 1 else self.local
                     out = momentum_vs_grad(dense_grad(tr, rows, before, self.sft, self.attn,
                                                       self.vocab_chunks), m, opt.b2)
                     out["worst_leaf"] = tr.flat.names[out["worst_leaf"]]
@@ -2745,11 +2806,13 @@ class GridWatch:
 
 
 def tp_eval_batches(trainer, rows: int) -> int:
-    """The eval batches ``Trainer.evaluate`` takes over ``rows`` rows."""
-    per_dev = trainer.cfg.per_device_eval_batch_size
-    if rows < trainer.world * per_dev:
-        per_dev = rows // trainer.world
-    return 0 if per_dev == 0 else min(trainer.cfg.eval_iters, rows // (trainer.world * per_dev))
+    """The eval batches ``Trainer.evaluate`` takes over ``rows`` rows, split
+    over the data ranks' row shards (under an expert axis each expert rank
+    takes its own)."""
+    per_dev, shards = trainer.cfg.per_device_eval_batch_size, trainer._row_shards
+    if rows < shards * per_dev:
+        per_dev = rows // shards
+    return 0 if per_dev == 0 else min(trainer.cfg.eval_iters, rows // (shards * per_dev))
 
 
 def tp_flash_launches(layers: int, steps: int, evals: int, hd: int) -> dict:
@@ -2764,14 +2827,15 @@ def tp_flash_launches(layers: int, steps: int, evals: int, hd: int) -> dict:
 
 
 def grid_one(rank: int, label: str, run, n_local: int, flash, dp_world: int = 2,
-             sft: Optional[dict] = None, tol: float = MEDIAN_TOL, **watch_kw) -> dict:
-    """One tensor- or sequence-parallel run under a :class:`GridWatch`
-    (``watch_kw`` its options): ``run()`` returns (trainer, the eval rows it
-    evaluated, the run's base tree or None); checks every rank's record and
-    its launches a rank (the optimizer kernels' by formula, the flash
-    kernels' ``flash(eval batches)``); the dp check's median ratios within
-    ``tol`` of 1."""
-    watch = GridWatch(sft, **watch_kw)
+             sft: Optional[dict] = None, tol: float = MEDIAN_TOL, steps: int = S_STEPS,
+             **watch_kw) -> dict:
+    """One tensor-, sequence- or expert-parallel run of ``steps`` steps under
+    a :class:`GridWatch` (``watch_kw`` its options): ``run()`` returns
+    (trainer, the eval rows it evaluated, the run's base tree or None);
+    checks every rank's record and its launches a rank (the optimizer
+    kernels' by formula, the flash kernels' ``flash(eval batches)``); the dp
+    check's median ratios within ``tol`` of 1."""
+    watch = GridWatch(sft, steps=steps, **watch_kw)
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2783,7 +2847,7 @@ def grid_one(rank: int, label: str, run, n_local: int, flash, dp_world: int = 2,
     launches, peak = read_counts(), torch.cuda.max_memory_allocated()
     rows = [r for r in trainer.history if "loss" in r]
     evals = tp_eval_batches(trainer, eval_rows)
-    expect(f"{label} rank {rank}", launches, dict(optimizer_launches(trainer, S_STEPS),
+    expect(f"{label} rank {rank}", launches, dict(optimizer_launches(trainer, steps),
                                                   **flash(evals)))
     losses = [r["loss"] for r in rows]
     every = [None] * dist.get_world_size()
@@ -2809,12 +2873,12 @@ def grid_one(rank: int, label: str, run, n_local: int, flash, dp_world: int = 2,
                                                  TP, trainer.tensor.rank).absmax)
             for p, q in mine.items() if isinstance(q, quant.QuantizedTensor))
     dp = watch.dp
-    ok = (len(rows) == S_STEPS and all(map(math.isfinite, rec["losses"]))
+    ok = (len(rows) == steps and all(map(math.isfinite, rec["losses"]))
           and trainer.n_params == n_local and trainer.world == dp_world and rec["losses_equal"]
-          and watch.params_equal == watch.apply_equal == ([True] * S_STEPS if plain else [])
-          and watch.replicated_equal == [True] * S_STEPS
-          and watch.seq_equal == ([True] * S_STEPS if sp > 1 else [])
-          and all(watch.hist) and (len(watch.hist) == S_STEPS) == (
+          and watch.params_equal == watch.apply_equal == ([True] * steps if plain else [])
+          and watch.replicated_equal == [True] * steps
+          and watch.seq_equal == ([True] * steps if sp > 1 else [])
+          and all(watch.hist) and (len(watch.hist) == steps) == (
               plain and trainer.cfg.telemetry)
           and (watch.check_step is None or (
               dp is not None and dp["skipped"] == 0
@@ -2994,6 +3058,141 @@ def sp_report(rec: dict, card: str) -> None:
           f"5): the gradient's all_reduce over the seq pair, {N_MAIN:,} float32, "
           f"{rec['wire']['grad_all_reduce_ms']:.1f} ms; one ring hop of a layer's k and v at "
           f"(v1)'s shape, {rec['wire']['ring_hop_ms']:.2f} ms; on {card}", flush=True)
+
+
+class RingWatch:
+    """Around ``Trainer._train_step`` in a run with the MoE balance ring:
+    for each step the ring slot the step reads (``stale``), this rank's
+    microbatches' tallies summed and then summed over the expert group by
+    the watch itself (``fresh``), and the slot the step wrote
+    (``written``)."""
+
+    def __init__(self):
+        self.stale, self.fresh, self.written = [], [], []
+        self._orig = train_loop.Trainer._train_step
+        watch = self
+
+        def step(trainer, local):
+            ring = trainer.state.moe_ring
+            slot = trainer.state.steps % ring.shape[0]
+            watch.stale.append(ring[slot].clone())
+            mine, loss_fn = [], trainer.loss_fn
+
+            def counting(batch, seed, *balance):
+                loss, metrics = loss_fn(batch, seed, *balance)
+                mine.append(metrics["moe_tallies"].clone())
+                return loss, metrics
+
+            trainer.loss_fn = counting
+            try:
+                out = watch._orig(trainer, local)
+            finally:
+                trainer.loss_fn = loss_fn
+            fresh = torch.stack(mine).sum(0)
+            dist.all_reduce(fresh, group=trainer.expert.group)
+            watch.fresh.append(fresh)
+            watch.written.append(trainer.state.moe_ring[slot].clone())
+            return out
+
+        train_loop.Trainer._train_step = step
+
+    def close(self) -> None:
+        train_loop.Trainer._train_step = self._orig
+
+    def report(self, depth: int) -> dict:
+        """Whether each step read the slot of the step ``depth`` before (all
+        zeros, the local aux, for the first ``depth``) and wrote its own
+        tallies summed over the expert group; the MoE blocks' lane counts
+        and whether their expert counts sum to them."""
+        steps = len(self.fresh)
+        return {
+            "cold": [bool((self.stale[t] == 0).all()) for t in range(min(depth, steps))],
+            "stale_equal": [torch.equal(self.stale[t], self.fresh[t - depth])
+                            for t in range(depth, steps)],
+            "written_equal": [torch.equal(w, f) for w, f in zip(self.written, self.fresh)],
+            "lanes": sorted({int(x) for f in self.fresh for x in f[:, -1].tolist()}),
+            "counts_sum": all(torch.equal(f[:, :-1].sum(-1), f[:, -1]) for f in self.fresh),
+            "last": self.fresh[-1].tolist()}
+
+
+def ep_runs(rank: int) -> dict:
+    """Runs (y2) and (y3) on one rank of the W4 spawn (dp 2 x ep 2; dp 1 x tp
+    2 x ep 2); rank 0 returns the records."""
+    recs = [grid_one(rank, "(y2)", lambda: (run_clm.main(Y2_ARGS), 3, None), N_EP, no_flash,
+                     tol=MEDIAN_TOL_F32)]
+    ring = {}
+
+    def y3():
+        watch = RingWatch()
+        try:
+            trainer = run_clm.main(Y3_ARGS)
+        finally:
+            watch.close()
+        ring.update(watch.report(Y3_DEPTH))
+        return trainer, 3, None
+
+    rec = grid_one(rank, "(y3)", y3, N_EP_TP, lambda evals: tp_flash_launches(
+        N_LAYER, Y3_STEPS, evals, 64), dp_world=1, check=False, steps=Y3_STEPS)
+    rec["ring"] = ring
+    if (ring["cold"] != [True] * Y3_DEPTH or ring["stale_equal"] != [True] * (Y3_STEPS - Y3_DEPTH)
+            or ring["written_equal"] != [True] * Y3_STEPS or ring["lanes"] != [Y_LANES]
+            or not ring["counts_sum"]):
+        raise AssertionError(f"run (y3) rank {rank}: ring {ring}")
+    recs.append(rec)
+    return {"run": "ep", "records": recs}
+
+
+def ep_rank(rank: int, tmp: str) -> None:
+    """One rank of the expert-parallel spawn: W4 fresh processes on cuda:0 in
+    a gloo group of their own (the W4 spawn's ranks hold up to 22 GiB of
+    host memory each by its end, and four of them beside (y2)'s whole-model
+    draws passed the machine's 96 GiB); rank 0 writes ``tmp/ep.json``."""
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/pg_ep", rank=rank,
+                            world_size=W4)
+    try:
+        rec = ep_runs(rank)
+        if rank == 0:
+            with open(f"{tmp}/ep.json", "w") as f:
+                json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def ep_phase(tmp: str, card: str) -> None:
+    """Runs (y2) and (y3) in their own W4 spawn; prints rank 0's records."""
+    mp.spawn(ep_rank, args=(tmp,), nprocs=W4, join=True)
+    with open(f"{tmp}/ep.json") as f:
+        ep_report(json.load(f), card)
+
+
+def ep_report(rec: dict, card: str) -> None:
+    what = {"(y2)": "run_clm GPT-2-MoE (8 experts every 2 blocks), float32 compute, capacity "
+                    "factor 8, dp 2 x ep 2, --ep_dcn_pipeline 0",
+            "(y3)": "run_clm GPT-2-MoE, bfloat16 compute, capacity factor 1.25, dp 1 x tp 2 x "
+                    f"ep 2, --ep_dcn_pipeline {Y3_DEPTH}"}
+    for r in rec["records"]:
+        dp = r["dp"]
+        check = ("no unsplit check" if dp is None else
+                 f"ep == the unsplit model on the expert pair's rows at step {r['dp_step']} "
+                 f"(rank 0's data rank): per-leaf median momentum ratio in "
+                 f"[{dp['median_ratio'][0]:.6f}, {dp['median_ratio'][1]:.6f}] over {dp['leaves']} "
+                 f"leaves ({dp['skipped']} skipped; farthest from 1: {dp['worst_leaf']}), max "
+                 f"|diff| {dp['max_abs_diff']:.3e} (max |m| {dp['max_abs']:.3e}), equal ballots "
+                 f"{dp['equal_ballots']:.6f}")
+        ring = r.get("ring")
+        ring_text = "" if not ring else (
+            f"; ring: steps 1-{Y3_DEPTH} read an all-zero slot (the local aux) {ring['cold']}, "
+            f"each later step the tallies of the step {Y3_DEPTH} before summed over the expert "
+            f"group {ring['stale_equal']}, each step wrote its own {ring['written_equal']}, lane "
+            f"counts {ring['lanes']}, last tallies {ring['last']}")
+        print(f"[w4] {r['run']} {what[r['run']]}: 4 ranks on one card (gloo), {r['n_params']:,} "
+              f"coordinates a rank of {r['n_global']:,}, {r['buckets']} bucket(s), {r['evals']} "
+              f"eval batch(es): losses {[round(x, 4) for x in r['losses']]}, equal across the "
+              f"data rank's ranks {r['losses_equal']}; replicated leaves equal across the expert "
+              f"(and tensor) ranks after each step {r['replicated_equal']}; {check}{ring_text}; "
+              f"step ms {r['step_ms']}; peak device memory {r['peak_gib']:.2f} GiB a rank; main "
+              f"{r['wall_s']:.1f} s on {card}; rank 0 launches {r['launches']}", flush=True)
 
 
 def plane_run(rank: int, tmp: str) -> dict:
@@ -4158,6 +4357,8 @@ def slice_phase(tmp, gen, card, rates):
         dots_run(plain_end, plain_rows, plain_launches, plain_peak, card)
         del plain_end
         t = phase_time("slice (a)-(c), GPT-2 124M", t)
+        moe = moe_one_rank(gen, card)
+        t = phase_time("slice (y1), GPT-2-MoE", t)
         stoch, stoch_rows, stoch_launches = run_counted(STOCH_ARGS)
         # the stochastic ballots and update are plain PyTorch, as the JAX
         # package's XLA path; the flash kernels run as in (c)
@@ -4194,7 +4395,65 @@ def slice_phase(tmp, gen, card, rates):
         ("(b) dropout 0 + telemetry", rows, launches),
         ("(c) dropout 0", plain_rows, plain_launches),
         ("(e) dropout 0 + max_grad_norm 1.0 (stochastic)", stoch_rows, stoch_launches),
+        ("(y1) GPT-2-MoE, 8 experts every 2 blocks, dropout 0 + telemetry (peak device memory "
+         f"{moe[2] / 2**30:.2f} GiB; {N_MOE:,} coordinates)", moe[0], moe[1]),
         *mode_runs], llama, dpo, mode_times, llama3, xent
+
+
+def moe_one_rank(gen, card: str) -> tuple:
+    """Run (y1): GPT-2-MoE at full width and depth in the 1-rank group,
+    (b)'s setup with MOE_ARGS: finite losses, N_MOE coordinates, (b)'s
+    launch formulas (every block's attention takes flash), ``vote/hist_mass
+    == 1``, eval through flash within EVAL_TOL of attention_xla's; then one
+    MoE block's routing on the card (:func:`routing_check`) and a profiled
+    microbatch. Returns (rows, launches, peak bytes)."""
+    torch.cuda.reset_peak_memory_stats()
+    trainer, rows, launches = run_counted(Y1_ARGS)
+    peak = torch.cuda.max_memory_allocated()
+    expect("(y1) GPT-2-MoE", launches, dict(optimizer_launches(trainer, STEPS),
+                                            **flash_launches(STEPS)))
+    if trainer.n_params != N_MOE or any(r["vote/hist_mass"] != 1.0 for r in rows):
+        raise AssertionError(f"run (y1): {trainer.n_params:,} coordinates (expected {N_MOE:,}), "
+                             f"rows {rows}")
+    _, eval_blocks = run_clm.load_blocks(run_clm.DataArguments(synthetic_blocks=400), 1024,
+                                         trainer.model.cfg.vocab_size)
+    flash_vs_xla_eval(trainer, trainer.model, eval_blocks, "GPT-2-MoE (y1)")
+    routing_check(trainer.model, gen, card)
+    profile_step(trainer, trainer.model, gen, 8, "GPT-2-MoE (y1)")
+    del trainer
+    torch.cuda.empty_cache()
+    return rows, launches, peak
+
+
+@torch.no_grad()
+def routing_check(model, gen, card: str) -> None:
+    """The first MoE block's routing of a microbatch (B 8 x T 1024 random
+    tokens through the trained model up to that block's FFN) on the card:
+    every kept token in a slot of its own, and each expert's drops
+    ``max(0, count - C)`` with C = ``capacity(8192, 8, 1.25)``."""
+    cfg = model.cfg
+    tokens = torch.randint(0, cfg.vocab_size, (8, 1024), generator=gen, device="cuda")
+    x = model.wte[tokens].to(cfg.compute_dtype) + model.wpe[:1024].to(cfg.compute_dtype)
+    block = next(b for b in model.blocks if hasattr(b, "moe"))
+    for b in model.blocks:
+        if b is block:
+            break
+        x = b(x, cfg, None)
+    x = x + block.attn(gpt2_layer_norm(x, block.ln_1), cfg, None)
+    h = gpt2_layer_norm(x, block.ln_2).reshape(-1, cfg.d_model)
+    n, cap = h.shape[0], capacity(h.shape[0], MOE_E, cfg.moe_capacity_factor)
+    _, idx, pos, keep = route(h, block.moe.gate, MOE_E, cap)
+    counts = torch.bincount(idx, minlength=MOE_E)
+    kept = torch.bincount(idx[keep], minlength=MOE_E)
+    slots = (idx * cap + pos)[keep]
+    unique = torch.unique(slots).numel() == slots.numel()
+    drops = (counts - kept).tolist()
+    want = [max(0, c - cap) for c in counts.tolist()]
+    print(f"[slice] (y1) routing of the first MoE block on {card}: {n} tokens, capacity {cap}, "
+          f"tokens per expert {counts.tolist()}, drops {drops} (max(0, count - C) {want}), every "
+          f"kept token in a slot of its own {unique}", flush=True)
+    if not unique or drops != want:
+        raise AssertionError(f"run (y1) routing: slots unique {unique}, drops {drops} != {want}")
 
 
 def dots_run(plain_end: tuple, plain_rows: list, plain_launches: dict, plain_peak: int,
@@ -4274,7 +4533,9 @@ def main():
         print(f"[card] before the W = {W4} phase this process holds "
               f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB", flush=True)
         w4_phase(tmp, card)
-        phase_time(f"slice (f), GPT-2 124M at W = {W4} on one card", t)
+        t = phase_time(f"slice (f), GPT-2 124M at W = {W4} on one card", t)
+        ep_phase(tmp, card)
+        phase_time(f"slice (y2), (y3), GPT-2-MoE at W = {W4} on one card", t)
     for label, rs, counts in runs:
         step_ms = statistics.median(r["step_ms"] for r in rs[1:])
         tok_s = statistics.median(r["tokens_per_sec"] for r in rs[1:])

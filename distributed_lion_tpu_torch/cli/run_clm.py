@@ -50,9 +50,18 @@ label from the next chunk, and the trainer sums the gradient over the group
 dropout is 0 under it (an explicit ``--dropout`` keeps residual and
 embedding dropout only; the trainer warns). ``--remat_policy dots`` keeps
 the outputs of the products without batch dims in each rematerialized block
-(``models.gpt2.remat``; JAX run_clm.py:62-72, 347-349). The other axes are
-not flags, so argparse refuses them: ``--expert_parallel`` (ROADMAP Queue 1
-item 11(e)) and ``--pipeline_parallel`` (11(f)).
+(``models.gpt2.remat``; JAX run_clm.py:62-72, 347-349). ``--moe_experts E``
+makes every ``--moe_every``-th GPT-2 block's MLP a Switch-MoE FFN of E
+experts at ``--moe_capacity_factor`` (``parallel/expert.py``), and
+``--expert_parallel ep`` (it must divide E and ``WORLD_SIZE``) splits the
+experts, and each data rank's batch rows, over expert groups of ep
+consecutive ranks (``parallel/mesh.py``: rank ``r = ((d·tp + t)·sp + s)·ep
++ e``), composing with ``--tensor_parallel``; ``--ep_dcn_pipeline`` 0 feeds
+the balance loss the load summed over the expert group in the forward, d >
+0 the load of d steps before (``train/loop.py``). Llama and ``--hf_export``
+refuse MoE (JAX run_clm.py:355-363, 431-435). The pipeline axis is not a
+flag, so argparse refuses ``--pipeline_parallel`` (ROADMAP Queue 1 item
+11(f)).
 """
 
 from __future__ import annotations
@@ -112,6 +121,9 @@ class ModelArguments:
     remat: bool = True
     remat_policy: str = "full"  # full (recompute the whole block) | dots (keep the products)
     vocab_pad_multiple: int = 0
+    moe_experts: int = 0  # > 0: Switch-MoE FFN every moe_every-th block (GPT-2)
+    moe_every: int = 2
+    moe_capacity_factor: float = 1.25
 
 
 def resolve_dropout(dropout: Optional[float], family: str, sp: int = 1) -> float:
@@ -260,11 +272,15 @@ def config_args(model_args: ModelArguments) -> dict:
                 remat_policy=model_args.remat_policy, seq_impl=model_args.seq_impl)
 
 
-def check_family(model_args: ModelArguments, family: str) -> None:
+def check_family(model_args: ModelArguments, family: str, ep: int = 1) -> None:
     """The JAX CLI's family guards (run_clm.py:355-370), judged on the
-    family that will run."""
+    family that will run (``ep`` the expert axis)."""
     if family not in ("gpt2", "llama"):
         raise ValueError(f"unknown model family {family!r}")
+    if family == "llama" and (model_args.moe_experts > 0 or ep > 1):
+        raise NotImplementedError(
+            "--model_family llama composes with dp x tp x sp x pp; MoE and "
+            "the expert axis are wired for GPT-2 only")
     if family == "llama" and (model_args.dropout or 0.0) > 0.0:
         raise ValueError("our Llama (like HF's) has no dropout; set --dropout 0")
     if family == "llama" and model_args.vocab_pad_multiple:
@@ -272,11 +288,11 @@ def check_family(model_args: ModelArguments, family: str) -> None:
                          "(32000/128256) are already 128-multiples")
 
 
-def model_config(model_args: ModelArguments, sp: int = 1):
+def model_config(model_args: ModelArguments, sp: int = 1, ep: int = 1):
     """The ``GPT2Config`` or ``LlamaConfig`` of a seeded init, with the JAX
     CLI's family guards."""
     family = model_args.model_family
-    check_family(model_args, family)
+    check_family(model_args, family, ep)
     common = config_args(model_args)
     if family == "llama":
         cfg = LlamaConfig.named(model_args.model_name, **common)
@@ -287,7 +303,9 @@ def model_config(model_args: ModelArguments, sp: int = 1):
             raise ValueError(f"unknown gpt2 model_name {model_args.model_name!r}")
         cfg = presets[model_args.model_name](
             dropout=resolve_dropout(model_args.dropout, family, sp),
-            vocab_pad_multiple=model_args.vocab_pad_multiple, **common)
+            vocab_pad_multiple=model_args.vocab_pad_multiple,
+            moe_experts=model_args.moe_experts, moe_every=model_args.moe_every,
+            moe_capacity_factor=model_args.moe_capacity_factor, **common)
     if model_args.vocab_size:
         cfg = dataclasses.replace(cfg, vocab_size=model_args.vocab_size)
     if model_args.n_ctx:
@@ -296,7 +314,7 @@ def model_config(model_args: ModelArguments, sp: int = 1):
 
 
 def load_pretrained(model_args: ModelArguments, device, announce: bool = True,
-                    sp: int = 1) -> tuple:
+                    sp: int = 1, ep: int = 1) -> tuple:
     """``--model_path``: ``(initial weight tree on device, config)`` of the
     checkpoint, its family detected first (JAX run_clm.py:331-339,
     372-398, 415); GPT-2's table padded to ``--vocab_pad_multiple``."""
@@ -305,7 +323,7 @@ def load_pretrained(model_args: ModelArguments, device, announce: bool = True,
     if family != model_args.model_family and announce:
         print(f"[run_clm] --model_family {model_args.model_family} -> {family} "
               "(detected from --model_path)")
-    check_family(model_args, family)
+    check_family(model_args, family, ep)
     if family == "llama":
         params, cfg = hf_import.llama_from_hf(path, device=device, **config_args(model_args))
     else:
@@ -364,14 +382,15 @@ def main(argv=None) -> Trainer:
         (ModelArguments, DataArguments, TrainConfig), argv)
     device = platform_device()
     group = init_distributed(device)
-    grid = make_grid(train_cfg.tensor_parallel, group, sp=train_cfg.seq_parallel)
+    grid = make_grid(train_cfg.tensor_parallel, group, sp=train_cfg.seq_parallel,
+                     ep=train_cfg.expert_parallel)
     rank0 = grid.rank == 0
     initial_params = None
     if model_args.model_path:
         initial_params, model_cfg = load_pretrained(model_args, device, announce=rank0,
-                                                    sp=grid.sp)
+                                                    sp=grid.sp, ep=grid.ep)
     else:
-        model_cfg = model_config(model_args, grid.sp)
+        model_cfg = model_config(model_args, grid.sp, grid.ep)
     if (initial_params is None and not model_args.vocab_size
             and data_args.dataset.startswith("text:")):
         # (a loaded checkpoint's embedding is fixed: out-of-range tokenizer
@@ -380,6 +399,11 @@ def main(argv=None) -> Trainer:
         if tok_vocab > model_cfg.vocab_size:
             print(f"[run_clm] growing vocab_size {model_cfg.vocab_size} -> tokenizer {tok_vocab}")
             model_cfg = dataclasses.replace(model_cfg, vocab_size=tok_vocab)
+    if model_args.hf_export and getattr(model_cfg, "moe_experts", 0) > 0:
+        # refused before the training budget is spent: an MoE block has no
+        # HF GPT-2 equivalent
+        raise ValueError("--hf_export is incompatible with --moe_experts: "
+                         "MoE blocks have no HF GPT-2 equivalent")
     if train_cfg.block_size > model_cfg.n_ctx:
         print(f"[run_clm] capping block_size {train_cfg.block_size} -> n_ctx {model_cfg.n_ctx}")
         train_cfg.block_size = model_cfg.n_ctx
@@ -420,7 +444,8 @@ def main(argv=None) -> Trainer:
         if trainer.checkpointer:
             trainer.save()
         if (train_cfg.output_dir or model_args.hf_export) and trainer.rank == 0:
-            # data rank 0's tensor group gathers the whole leaves; rank 0 writes
+            # data rank 0's tensor and expert groups gather the whole leaves;
+            # rank 0 writes
             whole = trainer.full_named()
             if train_cfg.output_dir and rank0:
                 save_pytree(f"{train_cfg.output_dir}/model.npz",

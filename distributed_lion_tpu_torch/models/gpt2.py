@@ -1,7 +1,8 @@
 """GPT-2-class decoder as an ``nn.Module``: port of ``distributed_lion_tpu/models/gpt2.py``.
 
-The dense, non-MoE, single-axis model: pre-LN residual blocks, learned
-positions, tanh-GELU MLP, head tied to ``wte``. Parameter names keep the
+Pre-LN residual blocks, learned positions, tanh-GELU MLP, head tied to
+``wte``; with ``moe_experts`` > 0 every ``moe_every``-th block's MLP is a
+Switch-MoE FFN (``parallel/expert.py``, JAX gpt2.py:62-81, 143-183, 334-376). Parameter names keep the
 JAX pytree paths (``wte``, ``blocks.0.attn.qkv``, …) and the JAX layouts
 (``qkv`` is ``[d, 3, d]``), so weights carry over one to one
 (``utils.serialization.params_from_jax``).
@@ -38,6 +39,19 @@ at ``s·T``, every attention (eval's too) is ``cfg.seq_impl``'s
 attention-probability dropout is skipped (the scores never exist in one
 place), and the dropout seed folds the seq index.
 
+Under an expert axis (``expert``, a ``parallel.mesh.ExpertAxis`` of size >
+1, JAX gpt2.py:334-376, 530-560) each rank holds its ``E/ep`` experts of
+every MoE block (``parallel.expert.expert_shard_dim``, cut from the unsplit
+model's init like the tensor slices; under both axes each expert's FFN is
+also split over tensor), the tokens of its own batch rows reach their
+experts over the expert group, and the rest of the model is replicated. An
+MoE block's FFN runs over the ``[B·T, d]`` tokens, capacity from that local
+count; :meth:`GPT2.hidden` and :meth:`GPT2.forward` return the blocks'
+summed aux loss with ``return_aux`` and the stacked ``[n_moe, E+1]`` tallies
+with ``return_tallies``; ``moe_balance`` feeds each MoE block its row of a
+fed load tally and ``moe_balance_axis`` sums the tallies over that axis in
+the forward (``parallel.expert.moe_ffn``).
+
 ``remat_policy`` says what a rematerialized block keeps (JAX
 gpt2.py:321-331): ``full`` nothing (``torch.utils.checkpoint`` of the whole
 block), ``dots`` the outputs of the products without batch dims (JAX's
@@ -65,7 +79,13 @@ from torch.utils.checkpoint import (
 
 from distributed_lion_tpu_torch.ops.attention import attention
 from distributed_lion_tpu_torch.ops.products import matmul_f32
-from distributed_lion_tpu_torch.parallel.mesh import SeqAxis, TensorAxis, resolve_device
+from distributed_lion_tpu_torch.parallel.expert import expert_shard_dim, moe_ffn, moe_init
+from distributed_lion_tpu_torch.parallel.mesh import (
+    ExpertAxis,
+    SeqAxis,
+    TensorAxis,
+    resolve_device,
+)
 from distributed_lion_tpu_torch.parallel.ring_attention import seq_attention
 from distributed_lion_tpu_torch.parallel.tensor_parallel import (
     copy_to_tp_region,
@@ -91,8 +111,14 @@ class GPT2Config:
     compute_dtype: torch.dtype = torch.bfloat16
     vocab_pad_multiple: int = 0  # > 0: round the embedding rows up to a
     # multiple (zero rows); logits are sliced back to vocab_size
+    moe_experts: int = 0  # > 0: a Switch-MoE FFN in every moe_every-th block
+    moe_every: int = 2    # MoE in the blocks i with i % moe_every == moe_every - 1
+    moe_capacity_factor: float = 1.25
 
     def __post_init__(self):
+        if self.moe_experts > 0 and self.moe_every < 1:
+            raise ValueError(
+                f"moe_every must be >= 1 when moe_experts is set, got {self.moe_every}")
         if self.vocab_pad_multiple < 0:
             raise ValueError(
                 f"vocab_pad_multiple must be >= 0, got {self.vocab_pad_multiple}")
@@ -123,6 +149,14 @@ class GPT2Config:
     @staticmethod
     def gpt2_124m(**kw) -> "GPT2Config":
         return GPT2Config(**kw)
+
+
+def is_moe_block(cfg: GPT2Config, i: int) -> bool:
+    return cfg.moe_experts > 0 and i % cfg.moe_every == cfg.moe_every - 1
+
+
+def n_moe_blocks(cfg: GPT2Config) -> int:
+    return sum(is_moe_block(cfg, i) for i in range(cfg.n_layer))
 
 
 REMAT_POLICIES = ("full", "dots")
@@ -262,6 +296,49 @@ class MLP(nn.Module):
         return reduce_from_tp_region(h @ self.proj.to(dt), self.tp.group) + self.proj_b.to(dt)
 
 
+class MoE(nn.Module):
+    """A Switch-MoE FFN's leaves (``parallel.expert.moe_init``): the gate
+    ``[d, E]`` and the experts' ``w_in [E, d, 4d]``, ``b_in [E, 4d]``,
+    ``w_out [E, 4d, d]``, ``b_out [E, d]``."""
+
+    def __init__(self, cfg: GPT2Config, device, gen):
+        super().__init__()
+        d = cfg.d_model
+        for k, t in moe_init(cfg.moe_experts, d, 4 * d, cfg.param_dtype, gen).items():
+            setattr(self, k, nn.Parameter(t.to(device)))
+
+
+class MoEBlock(nn.Module):
+    """A pre-LN block whose FFN is the MoE layer (JAX ``_moe_block``): the
+    attention half is :class:`Block`'s, the FFN :func:`moe_ffn` over the
+    ``[B·T, d]`` tokens."""
+
+    def __init__(self, cfg: GPT2Config, device, gen, tp: TensorAxis = TensorAxis(),
+                 expert: ExpertAxis = ExpertAxis()):
+        super().__init__()
+        d = cfg.d_model
+        self.tp, self.expert = tp, expert
+        self.ln_1 = LayerNorm(d, cfg.param_dtype, device)
+        self.attn = Attention(cfg, device, gen, tp)
+        self.ln_2 = LayerNorm(d, cfg.param_dtype, device)
+        self.moe = MoE(cfg, device, gen)
+
+    def forward(self, x, cfg: GPT2Config, seed: Optional[int], balance=None,
+                balance_axis=None, return_tallies: bool = False):
+        s = (None, None, None) if seed is None else tuple(fold_seed(seed, i) for i in (1, 2, 3))
+        x = x + _dropout(self.attn(_layer_norm(x, self.ln_1), cfg, s[0]), cfg.dropout, s[1])
+        B, T, D = x.shape
+        h = _layer_norm(x, self.ln_2).reshape(B * T, D)
+        out = moe_ffn(dict(self.moe.named_parameters()), h,
+                      capacity_factor=cfg.moe_capacity_factor,
+                      expert=self.expert if self.expert.size > 1 else None,
+                      tp=self.tp if self.tp.size > 1 else None, balance_tokens=balance,
+                      balance_axis=balance_axis, return_tallies=return_tallies)
+        y, aux = out[0], out[1]
+        x = x + _dropout(y.reshape(B, T, D), cfg.dropout, s[2])
+        return x, aux, (out[2] if return_tallies else None)
+
+
 class Block(nn.Module):
     def __init__(self, cfg: GPT2Config, device, gen, tp: TensorAxis = TensorAxis(),
                  seq: SeqAxis = SeqAxis()):
@@ -286,15 +363,16 @@ class GPT2(nn.Module):
     ``vocab_parallel`` model holds a slice of the head, so its :meth:`head`
     (and :meth:`forward`) raise: its loss runs over :meth:`hidden` and
     ``wte``. ``seq`` (size > 1): the tokens are this rank's chunk (module
-    doc)."""
+    doc). ``expert`` (size > 1): this rank's experts of the MoE blocks."""
 
     def __init__(self, cfg: GPT2Config, *, device="cuda", seed: int = 0,
                  tp: Optional[TensorAxis] = None, vocab_parallel: bool = False,
-                 seq: Optional[SeqAxis] = None):
+                 seq: Optional[SeqAxis] = None, expert: Optional[ExpertAxis] = None):
         super().__init__()
         device = resolve_device(device)
         tp = tp or TensorAxis()
         self.seq = seq or SeqAxis()
+        self.expert = expert or ExpertAxis()
         if vocab_parallel and tp.size == 1:
             raise ValueError("vocab_parallel needs a tensor axis of size > 1")
         gen = torch.Generator().manual_seed(seed)  # CPU draws: same weights on any device
@@ -306,18 +384,31 @@ class GPT2(nn.Module):
                                         cfg))
         self.wpe = _param((cfg.n_ctx, d), dt, cpu, 0.02, gen)
         self.ln_f = LayerNorm(d, dt, cpu)
-        self.blocks = nn.ModuleList(Block(cfg, cpu, gen, tp, self.seq)
-                                    for _ in range(cfg.n_layer))
+        self.blocks = nn.ModuleList(
+            MoEBlock(cfg, cpu, gen, tp, self.expert) if is_moe_block(cfg, i)
+            else Block(cfg, cpu, gen, tp, self.seq) for i in range(cfg.n_layer))
+        ep = self.expert
         with torch.no_grad():
             for name, p in self.named_parameters():
-                p.data = shard(p.data, self.shard_dim(name), tp.size, tp.rank).to(device)
+                p.data = shard(shard(p.data, self.shard_dim(name), tp.size, tp.rank),
+                               self.expert_dim(name), ep.size, ep.rank).to(device)
 
     def shard_dim(self, name: str) -> Optional[int]:
         """The dim of parameter ``name`` split over the tensor axis, or None."""
         return gpt2_shard_dim(name, self.vocab_parallel) if self.tp.size > 1 else None
 
-    def hidden(self, tokens: torch.Tensor, dropout_seed: Optional[int] = None):
-        """Backbone: tokens [B, T] → final hidden [B, T, d] after ln_f."""
+    def expert_dim(self, name: str) -> Optional[int]:
+        """The dim of parameter ``name`` split over the expert axis, or None."""
+        return expert_shard_dim(name) if self.expert.size > 1 else None
+
+    def hidden(self, tokens: torch.Tensor, dropout_seed: Optional[int] = None, *,
+               moe_balance: Optional[torch.Tensor] = None,
+               moe_balance_axis: Optional[ExpertAxis] = None, return_aux: bool = False,
+               return_tallies: bool = False):
+        """Backbone: tokens [B, T] → final hidden [B, T, d] after ln_f; with
+        ``return_aux`` also the MoE blocks' summed aux loss, with
+        ``return_tallies`` also their stacked ``[n_moe, E+1]`` tallies
+        (``(hidden, aux, tallies)``)."""
         cfg = self.cfg
         T = tokens.shape[1]
         start = self.seq.rank * T   # this chunk's first position
@@ -333,13 +424,34 @@ class GPT2(nn.Module):
         x = x + self.wpe[start:start + T].to(cd)
         x = _dropout(x, cfg.dropout,
                      None if dropout_seed is None else fold_seed(dropout_seed, cfg.n_layer))
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        tallies = []
         for i, block in enumerate(self.blocks):
             seed = None if dropout_seed is None else fold_seed(dropout_seed, i)
-            x = remat(block, cfg, x, cfg, seed)
-        return _layer_norm(x, self.ln_f)
+            if isinstance(block, MoEBlock):
+                bt = None if moe_balance is None else moe_balance[len(tallies)]
+                x, a, tally = remat(block, cfg, x, cfg, seed, bt, moe_balance_axis,
+                                    return_tallies)
+                aux = aux + a
+                tallies.append(tally)
+            else:
+                x = remat(block, cfg, x, cfg, seed)
+        x = _layer_norm(x, self.ln_f)
+        if not (return_aux or return_tallies):
+            return x
+        out = (x, aux)
+        if return_tallies:
+            out += (torch.stack(tallies) if tallies
+                    else torch.zeros(0, 1, dtype=torch.float32, device=x.device),)
+        return out
 
-    def forward(self, tokens: torch.Tensor, dropout_seed: Optional[int] = None):
-        return self.head(self.hidden(tokens, dropout_seed))
+    def forward(self, tokens: torch.Tensor, dropout_seed: Optional[int] = None, **moe):
+        """Float32 logits ``[B, T, vocab_size]``; with :meth:`hidden`'s MoE
+        options the logits in the hidden state's place of its tuple."""
+        out = self.hidden(tokens, dropout_seed, **moe)
+        if isinstance(out, tuple):
+            return (self.head(out[0]), *out[1:])
+        return self.head(out)
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
         """Tied head: hidden [B, T, d] → float32 logits [B, T, vocab_size]."""

@@ -1,6 +1,8 @@
 """Causal-LM loss and eval metrics: port of ``distributed_lion_tpu/models/loss.py``.
 
-:func:`clm_loss_and_metrics` is the dense loss; under a seq axis
+:func:`clm_loss_and_metrics` is the dense loss; under an expert axis,
+whose ranks split a data rank's batch rows, :func:`clm_loss_sharded_rows`
+is one rank's rows' (with the MoE aux); under a seq axis
 (``parallel.mesh.SeqAxis``) :func:`clm_loss_seq_parallel` is one chunk's,
 with the shard-boundary protocol (:func:`shift_in_next_shard`) that the
 chunked head (``ops.xent.chunked_clm_loss_seq_parallel``) and DPO's
@@ -40,6 +42,37 @@ def clm_loss_and_metrics(logits: torch.Tensor, tokens: torch.Tensor,
     pred = shift_logits.argmax(-1)
     acc = ((pred == shift_labels) * mask).sum() / n
     return loss, {"loss": loss, "accuracy": acc, "n_tokens": mask.sum()}
+
+
+def clm_loss_sharded_rows(logits: torch.Tensor, tokens: torch.Tensor, axis,
+                          aux: Optional[torch.Tensor] = None, aux_weight: float = 0.01):
+    """The causal-LM loss when batch rows are split over ``axis`` (a
+    ``parallel.mesh.ExpertAxis``) and the params replicated along it
+    (loss.py:50-87): ``local NLL sum / global token count`` (+
+    ``aux_weight·aux/shards``), so that the sum of its gradient over the axis
+    is the whole batch's; the metrics (``loss`` the cross entropy alone,
+    ``accuracy``, ``n_tokens`` a shard's average, ``aux_loss`` the shards'
+    mean aux) summed over the axis's group by one ``all_reduce``, outside
+    autograd."""
+    shift_logits = logits[:, :-1]
+    labels = tokens[:, 1:].long()
+    logp = torch.log_softmax(shift_logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    shards = axis.size
+    with torch.no_grad():
+        correct = (shift_logits.argmax(-1) == labels).sum().to(torch.float32)
+        sums = torch.stack([torch.tensor(float(nll.numel()), device=nll.device), correct,
+                            nll.sum(), torch.zeros((), device=nll.device) if aux is None
+                            else aux.detach().to(torch.float32) / shards])
+        dist.all_reduce(sums, group=axis.group)
+        n_global = torch.clamp_min(sums[0], 1.0)
+    loss_local = nll.sum() / n_global
+    metrics = {"loss": sums[2] / n_global, "accuracy": sums[1] / n_global,
+               "n_tokens": n_global / shards}
+    if aux is not None:
+        loss_local = loss_local + aux_weight * aux / shards
+        metrics["aux_loss"] = sums[3]
+    return loss_local, metrics
 
 
 def shift_in_next_shard(x: torch.Tensor, seq) -> tuple[torch.Tensor, bool]:

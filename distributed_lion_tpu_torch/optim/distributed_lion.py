@@ -121,7 +121,9 @@ segment it replaces, launched d steps ago (``hier_consume``: the masks and
 leg 3), so the step applies the complete election of step ``count − d``'s
 ballots, the same on every rank. ``LionState.dcn_ring`` holds this rank's
 ``[d, codec.hier_ring_slot_bytes]`` uint8 slots, byte for byte the JAX
-package's row of its ``[world, d, …]`` ring. The JAX package routes these
+package's row of its ``[world, d, …]`` ring. (``LionState.moe_ring``, the
+MoE balance ring of ``--ep_dcn_pipeline``, is the trainer's: every step
+here passes it through untouched, as JAX :941-953.) The JAX package routes these
 steps to its XLA path; the port keeps its kernels where they compute the
 same bits: the ballots are :func:`fused_lion.fused_ballots` (or the
 stochastic draws), and from step d + 1 each bucket runs

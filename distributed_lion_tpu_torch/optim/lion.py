@@ -40,6 +40,12 @@ class LionState(NamedTuple):
     # previous ballot of this rank (guard_ballot_len bytes); guard only
     dcn_ring: Optional[torch.Tensor] = None  # this rank's uint8 [depth,
     # codec.hier_ring_slot_bytes] in-flight hier slots; the DCN pipeline only
+    moe_ring: Optional[torch.Tensor] = None  # this data rank's float32 [depth,
+    # n_moe, E+1] in-flight MoE balance tallies (--ep_dcn_pipeline d > 0):
+    # slot (count mod d) holds the tallies of step count - d, summed over the
+    # expert group, each MoE block's per-expert token counts and lane count.
+    # Made by the trainer (its shape is the model's); the optimizer passes it
+    # through untouched
 
 
 class FlatParams:

@@ -8,17 +8,21 @@ Here the vote axis is the ``torch.distributed`` world, one process per GPU:
 - a process group the caller already started is used as it is;
 - otherwise the run is a world of one, with no process group.
 
-With a ``tensor`` axis (``--tensor_parallel`` tp > 1) and a ``seq`` axis
-(``--seq_parallel`` sp > 1) the world is the JAX package's ``(data, tensor,
-seq)`` reshape of its devices (``make_mesh``, mesh.py:31-68): global rank
-``r = (d·tp + t)·sp + s``, so a seq group is sp consecutive ranks, a tensor
-group the tp ranks of stride sp that share ``(d, s)``, and a data group the
-ranks that share ``(t, s)``. At sp 1 that is data index ``r // tp`` and
-tensor index ``r % tp``. :func:`make_grid` builds every data, tensor and
-seq group on every process, in one order (``dist.new_group`` is collective
-over the default group), and returns this rank's :class:`Grid`: the vote
-runs on its data group, the model's reductions on its tensor group, the
-ring's hops and the gradient's sum on its seq group.
+With a ``tensor`` axis (``--tensor_parallel`` tp > 1), a ``seq`` axis
+(``--seq_parallel`` sp > 1) and an ``expert`` axis (``--expert_parallel`` ep
+> 1) the world is the JAX package's ``(data, tensor, seq, pipe, expert)``
+reshape of its devices with pipe 1 (``make_mesh``, mesh.py:31-68): global
+rank ``r = ((d·tp + t)·sp + s)·ep + e``, so an expert group is ep
+consecutive ranks (one per ``(d, t, s)``), a seq group the sp ranks of
+stride ep that share ``(d, t, e)``, a tensor group the tp ranks that share
+``(d, s, e)``, and a data group the ranks that share ``(t, s, e)``. At sp 1
+and ep 1 that is data index ``r // tp`` and tensor index ``r % tp``.
+:func:`make_grid` builds every data, tensor, seq and expert group on every
+process, in one order (``dist.new_group`` is collective over the default
+group), and returns this rank's :class:`Grid`: the vote runs on its data
+group, the model's reductions on its tensor group, the ring's hops and the
+gradient's sum on its seq group, the MoE dispatch and return hops and the
+replicated leaves' gradient sum on its expert group.
 
 :func:`resolve_device` is the one place the port decides where to run:
 on the card unless the caller asks for the CPU, and never quietly on the
@@ -37,6 +41,7 @@ import torch.distributed as dist
 DATA_AXIS = "data"
 TENSOR_AXIS = "tensor"
 SEQ_AXIS = "seq"
+EXPERT_AXIS = "expert"
 
 
 def platform_device() -> torch.device:
@@ -98,11 +103,19 @@ class SeqAxis(TensorAxis):
 
 
 @dataclasses.dataclass(frozen=True)
+class ExpertAxis(TensorAxis):
+    """This rank's place on the expert axis: its group (None at ep 1), the
+    axis size and its index on it, which is its share of the MoE experts
+    and of the data rank's batch rows."""
+
+
+@dataclasses.dataclass(frozen=True)
 class Grid:
-    """This rank's place in the dp × tp × sp grid: ``data`` is the vote's
-    group (None in a world of one), ``world`` the group of every rank of the
-    run (None for a world of one), ``rank`` the rank in it;
-    ``data_rank``, ``tensor`` and ``seq`` the places on the three axes."""
+    """This rank's place in the dp × tp × sp × ep grid: ``data`` is the
+    vote's group (None in a world of one), ``world`` the group of every rank
+    of the run (None for a world of one), ``rank`` the rank in it;
+    ``data_rank``, ``tensor``, ``seq`` and ``expert`` the places on the four
+    axes."""
 
     data: Any
     world: Any
@@ -111,6 +124,7 @@ class Grid:
     data_rank: int
     tensor: TensorAxis = TensorAxis()
     seq: SeqAxis = SeqAxis()
+    expert: ExpertAxis = ExpertAxis()
 
     @property
     def tp(self) -> int:
@@ -119,6 +133,10 @@ class Grid:
     @property
     def sp(self) -> int:
         return self.seq.size
+
+    @property
+    def ep(self) -> int:
+        return self.expert.size
 
 
 def data_grid(group=None) -> Grid:
@@ -129,10 +147,11 @@ def data_grid(group=None) -> Grid:
     return Grid(data=group, world=group, dp=w, rank=r, data_rank=r)
 
 
-def make_grid(tp: int = 1, group=None, sp: int = 1) -> Grid:
-    """The ``(data, tensor, seq)`` grid of tp-wide tensor groups and sp-wide
-    seq groups over the ranks of ``group`` (None: the default group, or a
-    world of one); tp 1 and sp 1 is :func:`data_grid`. Where ``group`` is
+def make_grid(tp: int = 1, group=None, sp: int = 1, ep: int = 1) -> Grid:
+    """The ``(data, tensor, seq, expert)`` grid of tp-wide tensor groups,
+    sp-wide seq groups and ep-wide expert groups over the ranks of ``group``
+    (None: the default group, or a world of one); tp, sp and ep 1 is
+    :func:`data_grid`. Where ``group`` is
     one of several groups whose processes build their grids at the same
     time, the processes first gather every such group's members and each
     builds every grid's groups, in one order (as
@@ -141,16 +160,19 @@ def make_grid(tp: int = 1, group=None, sp: int = 1) -> Grid:
         raise ValueError(f"--tensor_parallel must be >= 1, got {tp}")
     if sp < 1:
         raise ValueError(f"--seq_parallel must be >= 1, got {sp}")
-    if tp == 1 and sp == 1:
+    if ep < 1:
+        raise ValueError(f"--expert_parallel must be >= 1, got {ep}")
+    if tp == 1 and sp == 1 and ep == 1:
         return data_grid(group)
-    axes = (f"--tensor_parallel {tp}" if sp == 1 else f"--seq_parallel {sp}" if tp == 1
-            else f"--tensor_parallel {tp} x --seq_parallel {sp}")
+    axes = " x ".join(f"--{name}_parallel {n}" for name, n in
+                      (("tensor", tp), ("seq", sp), ("expert", ep)) if n > 1)
+    model = tp * sp * ep
     if not dist.is_initialized():
-        raise ValueError(f"{axes} needs {tp * sp} ranks or a multiple of it "
+        raise ValueError(f"{axes} needs {model} ranks or a multiple of it "
                          "(torchrun --nproc_per_node); this is a world of one")
     group = group or dist.group.WORLD
     ranks = tuple(dist.get_process_group_ranks(group))
-    if len(ranks) % (tp * sp):
+    if len(ranks) % model:
         raise ValueError(f"{axes} does not divide the world of {len(ranks)} ranks")
     parts = [ranks]
     if len(ranks) < dist.get_world_size():
@@ -159,43 +181,53 @@ def make_grid(tp: int = 1, group=None, sp: int = 1) -> Grid:
         parts = sorted(set(every))
     me = dist.get_rank()
     for part in parts:
-        groups = _grid_groups(part, tp, sp)
+        groups = _grid_groups(part, tp, sp, ep)
         if me in part:
             mine = groups
-    data, tensor, seq, (d, t, s) = mine
-    return Grid(data=data, world=group, dp=len(ranks) // (tp * sp), rank=ranks.index(me),
-                data_rank=d, tensor=TensorAxis(tensor, tp, t), seq=SeqAxis(seq, sp, s))
+    data, tensor, seq, expert, (d, t, s, e) = mine
+    return Grid(data=data, world=group, dp=len(ranks) // model, rank=ranks.index(me),
+                data_rank=d, tensor=TensorAxis(tensor, tp, t), seq=SeqAxis(seq, sp, s),
+                expert=ExpertAxis(expert, ep, e))
 
 
-def _grid_groups(ranks: tuple, tp: int, sp: int) -> tuple:
-    """Every data, tensor and seq group of the grid over ``ranks``, built in
-    one order (``dist.new_group`` is collective over the default group; a
-    data axis of one is a group of the one rank, where None would read as
-    the whole world): ``(data, tensor, seq, (d, t, s))`` of this process,
-    which need not be one of ``ranks``."""
-    dp = len(ranks) // (tp * sp)
-    d = t = s = None
+def _grid_groups(ranks: tuple, tp: int, sp: int, ep: int = 1) -> tuple:
+    """Every data, tensor, seq and expert group of the grid over ``ranks``,
+    built in one order (``dist.new_group`` is collective over the default
+    group; a data axis of one is a group of the one rank, where None would
+    read as the whole world): ``(data, tensor, seq, expert, (d, t, s, e))``
+    of this process, which need not be one of ``ranks``."""
+    dp = len(ranks) // (tp * sp * ep)
+    d = t = s = e = None
     if dist.get_rank() in ranks:
         me = ranks.index(dist.get_rank())
-        d, t, s = me // (tp * sp), me // sp % tp, me % sp
+        d, t, s, e = me // (tp * sp * ep), me // (sp * ep) % tp, me // ep % sp, me % ep
 
-    def at(d_, t_, s_):
-        return ranks[(d_ * tp + t_) * sp + s_]
+    def at(d_, t_, s_, e_):
+        return ranks[((d_ * tp + t_) * sp + s_) * ep + e_]
 
-    data = tensor = seq = None
+    data = tensor = seq = expert = None
     for t_ in range(tp):
         for s_ in range(sp):
-            g = dist.new_group([at(d_, t_, s_) for d_ in range(dp)])
-            if (t_, s_) == (t, s):
-                data = g
+            for e_ in range(ep):
+                g = dist.new_group([at(d_, t_, s_, e_) for d_ in range(dp)])
+                if (t_, s_, e_) == (t, s, e):
+                    data = g
     for d_ in range(dp if tp > 1 else 0):
         for s_ in range(sp):
-            g = dist.new_group([at(d_, t_, s_) for t_ in range(tp)])
-            if (d_, s_) == (d, s):
-                tensor = g
+            for e_ in range(ep):
+                g = dist.new_group([at(d_, t_, s_, e_) for t_ in range(tp)])
+                if (d_, s_, e_) == (d, s, e):
+                    tensor = g
     for d_ in range(dp if sp > 1 else 0):
         for t_ in range(tp):
-            g = dist.new_group([at(d_, t_, s_) for s_ in range(sp)])
-            if (d_, t_) == (d, t):
-                seq = g
-    return data, tensor, seq, (d, t, s)
+            for e_ in range(ep):
+                g = dist.new_group([at(d_, t_, s_, e_) for s_ in range(sp)])
+                if (d_, t_, e_) == (d, t, e):
+                    seq = g
+    for d_ in range(dp if ep > 1 else 0):
+        for t_ in range(tp):
+            for s_ in range(sp):
+                g = dist.new_group([at(d_, t_, s_, e_) for e_ in range(ep)])
+                if (d_, t_, s_) == (d, t, s):
+                    expert = g
+    return data, tensor, seq, expert, (d, t, s, e)

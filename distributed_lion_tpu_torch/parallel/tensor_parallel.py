@@ -101,8 +101,11 @@ def all_min(x: torch.Tensor, group) -> torch.Tensor:
 # ------------------------------------------------------------ shard rules
 # (the block leaf, the dim split over the tensor axis): column-parallel
 # projections on their output dim, row-parallel ones on their input dim
+# (a MoE FFN's, JAX expert.py:43-65: each expert's w_in column-parallel, w_out
+# row-parallel; the gate and b_out, added after the reduction, replicated)
 GPT2_BLOCK_RULES = {"attn.qkv": 2, "attn.qkv_b": 1, "attn.proj": 0,
-                    "mlp.fc": 1, "mlp.fc_b": 0, "mlp.proj": 0}
+                    "mlp.fc": 1, "mlp.fc_b": 0, "mlp.proj": 0,
+                    "moe.w_in": 2, "moe.b_in": 1, "moe.w_out": 1}
 LLAMA_BLOCK_RULES = {"attn.wq": 1, "attn.wk": 1, "attn.wv": 1, "attn.wo": 0,
                      "mlp.w_gate": 1, "mlp.w_up": 1, "mlp.w_down": 0}
 
@@ -133,8 +136,9 @@ def llama_shard_dim(name: str, vocab_parallel: bool = False) -> Optional[int]:
 
 
 def spec_uses_axis(dim: Optional[int]) -> bool:
-    """True if a leaf's shard rule splits it over the tensor axis (JAX
-    ``spec_uses_axis`` on a ``PartitionSpec``)."""
+    """True if a leaf's shard rule for an axis (the tensor rule, or the
+    expert rule ``parallel.expert.expert_shard_dim``) splits it over that
+    axis (JAX ``spec_uses_axis`` on a ``PartitionSpec``)."""
     return dim is not None
 
 

@@ -194,9 +194,40 @@ under sp (warned). ``remat_policy`` (programmatic, no flag: run_clm's
 model-level ``--remat_policy`` sets the model config) overrides the model's
 policy (:func:`apply_remat_policy`).
 
+**Expert parallelism** (``expert_parallel`` ep > 1, GPT-2-MoE only; JAX
+loop.py:612-622, :1320-1420, :2288-2328, :2484-2594). The grid's expert
+groups (``parallel.mesh.make_grid``: ep consecutive ranks) split each MoE
+block's experts (``expert_rule``, ``parallel.expert.expert_shard_dim``) and
+each data rank's batch rows: rank ``(d, e)`` takes row shard ``d·ep + e`` of
+``dp·ep`` (JAX's ``P((data, expert))`` batch), in training and in eval, so
+the global batch is ``dp·ep·B·accum``. The loss is the rows' share
+(``models.loss.clm_loss_sharded_rows``, its metrics summed over the expert
+group), so after accumulation one ``all_reduce`` over the expert group sums
+the gradient of every leaf replicated over it; an expert's own leaves
+already hold every rank's cotangents through the return hop. The dropout
+seed folds the expert rank. Each data group votes on its own ranks'
+coordinates, as under tp, and composes with tp (dp × ep × tp); a seq axis,
+``tp_vocab`` and ``vocab_chunks`` beside MoE are refused in the JAX words,
+and so are ``vote_every``, ``telemetry`` and ``vote_guard`` under split
+experts (at ep 1 and tp 1 a MoE model's params are replicated and they
+run). ``ep_dcn_pipeline`` schedules the aux loss's load estimate: None the
+rank's own, 0 the tallies summed over the expert group in the forward, d >
+0 those of d steps before: ``LionState.moe_ring`` (``[d, n_moe, E+1]``
+float32 per data rank, made here from the loss's ``_moe_tally_shape``; the
+optimizer passes it through) is read at slot ``count mod d`` before the
+step and that slot overwritten after the backward with the step's tallies,
+summed over the microbatches and the expert group; no data-axis collective.
+Checkpoints hold whole leaves (gathered over the tensor, then the expert
+group; ``_whole``), each data rank's momentum and ring
+(``moe_ring/rank<d>.pt``) written by its tensor, seq and expert rank 0, and
+``ep_dcn_pipeline`` and ``expert_parallel`` in the meta; a resume at
+another depth, or elastic with a ring, is refused in the JAX words (a
+checkpoint's ep may differ: its leaves are whole). The banner and
+``comm_stats`` state the whole model's coordinates.
+
 ``TrainConfig`` holds only the fields the port runs, with their JAX
-defaults; the others (the pipeline and expert axes, ``--ep_dcn_pipeline``,
-…) are not flags here, so argparse refuses them.
+defaults; the others (the pipeline axis, …) are not flags here, so argparse
+refuses them.
 """
 
 from __future__ import annotations
@@ -213,9 +244,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from distributed_lion_tpu_torch.models.gpt2 import GPT2, GPT2Config, fold_seed
+from distributed_lion_tpu_torch.models.gpt2 import GPT2, GPT2Config, fold_seed, n_moe_blocks
 from distributed_lion_tpu_torch.models.llama import Llama, LlamaConfig, as_parameters, llama_init
-from distributed_lion_tpu_torch.models.loss import clm_loss_and_metrics, clm_loss_seq_parallel
+from distributed_lion_tpu_torch.models.loss import (
+    clm_loss_and_metrics,
+    clm_loss_seq_parallel,
+    clm_loss_sharded_rows,
+)
 from distributed_lion_tpu_torch.ops.codec import (
     parse_wire,
     vote_chunk_elems,
@@ -238,6 +273,7 @@ from distributed_lion_tpu_torch.optim.optax_adapter import AdamWState, adamw
 from distributed_lion_tpu_torch.optim.zero import Zero1State, adamw_zero1
 from distributed_lion_tpu_torch.parallel import collectives
 from distributed_lion_tpu_torch.parallel import tensor_parallel as tpar
+from distributed_lion_tpu_torch.parallel.expert import AUX_WEIGHT, expert_shard_dim
 from distributed_lion_tpu_torch.parallel.mesh import Grid, data_grid, resolve_device
 from distributed_lion_tpu_torch.train import (
     control_plane,
@@ -320,6 +356,11 @@ class TrainConfig:
     tensor_parallel: int = 1  # the tensor axis: tp consecutive ranks split the model
     tp_vocab: bool = False  # with tp > 1: split the embedding/head by vocabulary too
     seq_parallel: int = 1  # the seq axis: sp consecutive ranks split each row's tokens
+    expert_parallel: int = 1  # the expert axis: ep consecutive ranks split the MoE experts
+    # and a data rank's batch rows (the CLI's grid; run_clm's GPT-2-MoE)
+    ep_dcn_pipeline: Optional[int] = None  # MoE balance feedback: None = each rank's
+    # local aux; 0 = the tallies summed over the expert group in the forward; d > 0
+    # = the summed tallies of d steps before, from LionState.moe_ring
     remat_policy: str = dataclasses.field(default="", metadata={"cli": False})
     # '' = the model config's own; 'full' | 'dots' overrides it (for_gpt2, for_llama)
 
@@ -411,15 +452,18 @@ def resolve_auto_comm(cfg: TrainConfig, world: int, n_params: int,
 
 
 def _resolve_for_world(cfg: TrainConfig, world: int, n_params: int,
-                       announce: bool = False, tp: int = 1) -> TrainConfig:
+                       announce: bool = False, tp: int = 1,
+                       replicated: Optional[bool] = None) -> TrainConfig:
     """resolve_auto_comm with torchrun's host layout: ``LOCAL_WORLD_SIZE``
-    ranks share a node, ``LOCAL_WORLD_SIZE / tp`` data ranks of it (JAX
-    loop.py:455-466: the hier groups are data ranks sharing a host); params
-    split over a tensor axis are not replicated (JAX :2405-2410)."""
+    ranks share a node, ``LOCAL_WORLD_SIZE / tp`` data ranks of it (``tp``
+    the ranks of a data rank; JAX loop.py:455-466: the hier groups are data
+    ranks sharing a host); params split over a tensor or expert axis are not
+    ``replicated`` (default: tp 1; JAX :2405-2410)."""
     local = int(os.environ.get("LOCAL_WORLD_SIZE", world * tp))
     local = local // tp if local % tp == 0 else 0
     return resolve_auto_comm(cfg, world, n_params, nodes=max(1, world // max(local, 1)),
-                             local_world=local, announce=announce, params_replicated=tp == 1)
+                             local_world=local, announce=announce,
+                             params_replicated=tp == 1 if replicated is None else replicated)
 
 
 def make_optimizer(cfg: TrainConfig, group=None):
@@ -463,6 +507,7 @@ def make_optimizer(cfg: TrainConfig, group=None):
                 f"the hier wire's level-2 (DCN) leg, but the wire here is "
                 f"{cfg.wire!r} — a wire without a DCN leg has nothing to "
                 "overlap; pass --wire hier:<g>")
+    _check_ep_dcn_pipeline(cfg)
     if not cfg.lion:
         if cfg.async_grad:
             raise ValueError(
@@ -481,6 +526,21 @@ def make_optimizer(cfg: TrainConfig, group=None):
         mom_dtype=cfg.mom_dtype or None, telemetry=cfg.telemetry, guard=cfg.vote_guard,
         dcn_pipeline_depth=cfg.dcn_pipeline_depth,
     )
+
+
+def _check_ep_dcn_pipeline(cfg: TrainConfig) -> None:
+    """``--ep_dcn_pipeline``'s flag rules (JAX loop.py:612-622)."""
+    if cfg.ep_dcn_pipeline is None:
+        return
+    if cfg.ep_dcn_pipeline < 0:
+        raise ValueError(f"--ep_dcn_pipeline must be >= 0, got {cfg.ep_dcn_pipeline}")
+    if cfg.ep_dcn_pipeline > 0 and not cfg.lion:
+        raise ValueError(
+            f"--ep_dcn_pipeline {cfg.ep_dcn_pipeline} stores the "
+            "in-flight MoE balance tallies on LionState.moe_ring; the "
+            "AdamW path has no per-worker optimizer state to carry "
+            "them — use --lion, or --ep_dcn_pipeline 0 (the "
+            "synchronous global balance needs no ring)")
 
 
 # telemetry's per-step counters (voted, valid, the margin histogram) are
@@ -528,16 +588,18 @@ def arm_control_plane(cfg: TrainConfig) -> tuple[TrainConfig, bool]:
     return cfg, armed
 
 
-def _refuse_split_params(cfg: TrainConfig, tp: int) -> None:
-    """The JAX trainer's refusals under params split over the tensor axis
-    (loop.py:761-771, 823-860), in its words."""
-    axes = ["tensor"]
-    if cfg.zero1:
+def _refuse_split_params(cfg: TrainConfig, tp: int, axes: tuple = ("tensor",)) -> None:
+    """The JAX trainer's refusals under params split over the mesh ``axes``
+    (the tensor axis, and the expert axis of an MoE model's experts; JAX
+    loop.py:761-771, 823-860), in its words."""
+    axes = sorted(axes)
+    if cfg.zero1 and tp > 1:
         raise ValueError(
             f"--zero1 is incompatible with a 'tensor' mesh axis of size {tp}: inside "
             "shard_map each tensor rank ravels its own local param shard, so the m/v chunks "
             "diverge across ranks while the out_specs assume tensor-replication — one rank's "
             "moments would silently win. Use pure data parallelism with ZeRO-1.")
+    _check_ep_dcn_pipeline(cfg)   # the optimizer's flag rules come first in JAX's order
     if not cfg.lion:
         raise NotImplementedError("tensor-parallel param_specs require the Lion path")
     if cfg.vote_every > 1:
@@ -604,12 +666,20 @@ def momentum_file(rank: int) -> str:
     return f"exp_avg/rank{rank:05d}.pt"
 
 
-def ring_file(rank: int, tensor_rank: Optional[int] = None) -> str:
-    """The DCN pipeline's in-flight slots of ``rank`` (of its tensor rank's
-    slice under a tensor axis: the slots are of a rank's own ballot)."""
-    if tensor_rank is None:
-        return f"dcn_ring/rank{rank:05d}.pt"
-    return f"dcn_ring/rank{rank:05d}_tensor{tensor_rank:05d}.pt"
+def ring_file(rank: int, tensor_rank: Optional[int] = None,
+              expert_rank: Optional[int] = None) -> str:
+    """The DCN pipeline's in-flight slots of ``rank`` (of its tensor and
+    expert rank's slice under those axes: the slots are of a rank's own
+    ballot)."""
+    return (f"dcn_ring/rank{rank:05d}"
+            + ("" if tensor_rank is None else f"_tensor{tensor_rank:05d}")
+            + ("" if expert_rank is None else f"_expert{expert_rank:05d}") + ".pt")
+
+
+def moe_ring_file(rank: int) -> str:
+    """The MoE balance ring of data rank ``rank`` (``--ep_dcn_pipeline`` d >
+    0): summed over the expert group, the same on every rank of it."""
+    return f"moe_ring/rank{rank:05d}.pt"
 
 
 def zero1_file(rank: int) -> str:
@@ -623,10 +693,12 @@ def prev_ballot_file(rank: int) -> str:
     return f"prev_ballot/rank{rank:05d}.pt"
 
 
-def check_resume_meta(step: int, meta: dict, cfg: TrainConfig, tp: int) -> None:
+def check_resume_meta(step: int, meta: dict, cfg: TrainConfig, tp: int, ep: int = 1) -> None:
     """Refuse, before any file is read, a checkpoint whose in-flight state
     this run cannot take: a DCN ring written at another depth or, its files
-    being a tensor rank's each, at another tp; an expert-axis ring."""
+    being a tensor and expert rank's each, at another tp or ep; an MoE
+    balance ring written at another ``--ep_dcn_pipeline`` (JAX
+    loop.py:2264-2298)."""
     # the ring's slots are the depth's in-flight steps: no remap
     ckpt_depth = int(meta.get("dcn_pipeline_depth", 0) or 0)
     if ckpt_depth != cfg.dcn_pipeline_depth:
@@ -645,11 +717,24 @@ def check_resume_meta(step: int, meta: dict, cfg: TrainConfig, tp: int) -> None:
             f"ring, and this run has --tensor_parallel {tp}: the ring holds each tensor "
             "rank's own ballot bytes (dcn_ring/rank<r>_tensor<t>.pt), which do not reshard. "
             f"Resume at --tensor_parallel {ckpt_tp}")
-    if int(meta.get("ep_dcn_pipeline", 0) or 0):
+    ckpt_ep = int(meta.get("expert_parallel", 1) or 1)
+    if ckpt_depth > 0 and ckpt_ep != ep:
         raise ValueError(
-            f"checkpoint step {step} was written at --ep_dcn_pipeline "
-            f"{meta['ep_dcn_pipeline']}; the port has no expert axis "
-            "(ROADMAP Queue 1 item 11(e))")
+            f"checkpoint step {step} was written at --expert_parallel {ckpt_ep} with a DCN "
+            f"ring, and this run has --expert_parallel {ep}: the ring holds each expert "
+            "rank's own ballot bytes (dcn_ring/rank<r>_expert<e>.pt), which do not reshard. "
+            f"Resume at --expert_parallel {ckpt_ep}")
+    # the MoE balance ring: its slot count is the staleness (None and 0 both
+    # mean no ring)
+    ckpt_moe = int(meta.get("ep_dcn_pipeline", 0) or 0)
+    run_moe = int(cfg.ep_dcn_pipeline or 0)
+    if ckpt_moe != run_moe:
+        raise ValueError(
+            f"checkpoint step {step} was written at "
+            f"--ep_dcn_pipeline {ckpt_moe} but this run uses "
+            f"{run_moe}: the in-flight MoE balance ring does "
+            "not survive a depth change. Resume with the "
+            "matching depth, or point --output_dir elsewhere")
 
 
 class HostCopy:
@@ -734,12 +819,80 @@ def chunked_clm_loss_fn(hidden_and_head: Callable, n_chunks: int, emb_layout: st
     return loss_fn
 
 
+def _refuse_moe(cfg: TrainConfig, model_cfg: GPT2Config, sp: int, ep: int) -> None:
+    """GPT-2's expert-axis and MoE refusals, in the JAX trainer's words and
+    order (loop.py:2433-2437, 2485-2520)."""
+    moe = model_cfg.moe_experts > 0
+    if cfg.vocab_chunks > 0 and moe:
+        raise NotImplementedError(
+            "--vocab_chunks is wired for the dense dp/tp/sp/pp paths "
+            "(the MoE branch carries its own loss function); drop one")
+    if ep > 1 and not moe:
+        raise ValueError(
+            f"an 'expert' mesh axis of size {ep} needs MoE blocks "
+            "(--moe_experts); a dense model would silently duplicate all "
+            "compute across the axis")
+    if cfg.ep_dcn_pipeline is not None and not moe:
+        raise ValueError(
+            "--ep_dcn_pipeline schedules the MoE balance feedback; a "
+            "dense model (--moe_experts 0) has no routing to balance. "
+            "Drop the flag or add --moe_experts")
+    if not moe:
+        return
+    if sp > 1:
+        raise NotImplementedError(
+            "MoE composes with data, expert and tensor parallelism "
+            "(dp x ep x tp); a seq axis alongside MoE is not wired")
+    if model_cfg.moe_experts % ep:
+        raise ValueError(
+            f"moe_experts {model_cfg.moe_experts} not divisible by expert axis {ep}")
+    if cfg.tp_vocab:
+        raise NotImplementedError(
+            "--tp_vocab on the MoE path is not wired (the MoE loss "
+            "uses the replicated tied head); drop one")
+
+
+def _moe_loss_fn(model: GPT2, cfg: TrainConfig, grid: Grid) -> LossFn:
+    """GPT-2-MoE's ``loss_fn(batch, seed, moe_balance=None)`` (JAX
+    loop.py:2526-2584): under the expert axis the rows' loss
+    (``clm_loss_sharded_rows``, its metrics summed over the expert group),
+    at ep 1 the dense loss + 0.01·aux with ``aux_loss`` reported;
+    ``ep_dcn_pipeline`` 0 at ep > 1 sums the tallies over the expert group
+    in the forward, d > 0 takes the ring's ``[n_moe, E+1]`` slot as
+    ``moe_balance`` and returns this microbatch's tallies as
+    ``metrics["moe_tallies"]`` (the trainer takes them out)."""
+    ep = grid.ep
+    depth = cfg.ep_dcn_pipeline
+    balance_axis = grid.expert if (depth == 0 and ep > 1) else None
+
+    def loss_fn(batch, seed, moe_balance=None):
+        tokens, _ = _tokens_and_mask(batch)
+        out = model(tokens, seed, moe_balance=moe_balance, moe_balance_axis=balance_axis,
+                    return_aux=True, return_tallies=moe_balance is not None)
+        logits, aux = out[0], out[1]
+        if ep > 1:
+            loss, metrics = clm_loss_sharded_rows(logits, tokens, grid.expert, aux=aux,
+                                                  aux_weight=AUX_WEIGHT)
+        else:
+            loss, metrics = clm_loss_and_metrics(logits, tokens)
+            metrics["aux_loss"] = aux.detach()
+            loss = loss + AUX_WEIGHT * aux
+        if moe_balance is not None:
+            metrics["moe_tallies"] = out[2]
+        return loss, metrics
+
+    if (depth or 0) > 0:   # the trainer sizes LionState.moe_ring from it
+        loss_fn._moe_tally_shape = (n_moe_blocks(model.cfg), model.cfg.moe_experts + 1)
+    return loss_fn
+
+
 def _announce(family: str, n: int, world: int, cfg: TrainConfig, device, tp: int = 1,
-              sp: int = 1) -> None:
-    """The trainer's banner (JAX loop.py:2722-2731): params, world (and tp
-    and sp), and the vote wire with its bits per param per step, of the
+              sp: int = 1, ep: int = 1) -> None:
+    """The trainer's banner (JAX loop.py:2722-2731): params, world (and tp,
+    sp and ep), and the vote wire with its bits per param per step, of the
     whole model's ``n`` coordinates as the JAX package counts them."""
-    where = f"world={world}" + (f" tp={tp}" if tp > 1 else "") + (f" sp={sp}" if sp > 1 else "")
+    where = (f"world={world}" + (f" tp={tp}" if tp > 1 else "") + (f" sp={sp}" if sp > 1 else "")
+             + (f" ep={ep}" if ep > 1 else ""))
     if not cfg.lion:
         emit(f"[trainer] {family} {n/1e6:.1f}M params | {where} | AdamW"
              + (" ZeRO-1" if cfg.zero1 else "") + f", gradient all_reduce | device={device}")
@@ -759,10 +912,12 @@ def _announce(family: str, n: int, world: int, cfg: TrainConfig, device, tp: int
          + f" | device={device}")
 
 
-def _whole_count(named, rule, tp: int) -> int:
-    """The coordinates of the whole leaves of which ``named`` holds slices."""
-    return sum(math.prod(tpar.full_shape(tuple(p.shape), rule(name) if tp > 1 else None, tp))
-               for name, p in named)
+def _whole_count(named, rule, tp: int, expert_rule=None, ep: int = 1) -> int:
+    """The coordinates of the whole leaves of which ``named`` holds slices
+    (split by ``rule`` over tp and by ``expert_rule`` over ep)."""
+    return sum(math.prod(tpar.full_shape(
+        tpar.full_shape(tuple(p.shape), rule(name) if tp > 1 else None, tp),
+        expert_rule(name) if ep > 1 else None, ep)) for name, p in named)
 
 
 def announce_guards(trainer: "Trainer", prog: str) -> None:
@@ -824,15 +979,17 @@ def report_preempted(trainer: "Trainer", prog: str) -> bool:
 class Trainer:
     """Train/eval loop on one rank over ``named_params`` (in the JAX
     package's leaf order: the flat buffers' layout) and ``loss_fn``.
-    ``grid`` is the dp × tp × sp grid (``parallel.mesh.make_grid``; a
+    ``grid`` is the dp × tp × sp × ep grid (``parallel.mesh.make_grid``; a
     data-parallel run over a process group passes ``data_grid(group)``;
     None: a world of one) with ``shard_rule(name) -> dim or None`` naming
-    the tensor split of each parameter (module doc); ``model``, where
+    the tensor split of each parameter and ``expert_rule(name)`` its expert
+    split (module doc; given for an MoE model whose experts are split over
+    the expert or tensor axis, as the JAX trainer's MoE param specs); ``model``, where
     given, is the module ``loss_fn`` runs, for the caller (``for_gpt2``'s
     GPT-2: ``run_clm`` saves it)."""
 
     def __init__(self, cfg: TrainConfig, named_params, loss_fn: LossFn, *, model=None,
-                 grid: Optional[Grid] = None, shard_rule=None):
+                 grid: Optional[Grid] = None, shard_rule=None, expert_rule=None):
         grid = grid or data_grid()
         if grid.tp != cfg.tensor_parallel:
             raise ValueError(f"--tensor_parallel {cfg.tensor_parallel} but the grid's tensor "
@@ -842,9 +999,13 @@ class Trainer:
                              f"{grid.sp}: pass parallel.mesh.make_grid's grid")
         if grid.sp > 1 and cfg.block_size % grid.sp:
             raise ValueError(f"block_size {cfg.block_size} not divisible by seq axis {grid.sp}")
-        self.grid, self.tensor, self.seq = grid, grid.tensor, grid.seq
+        self.grid, self.tensor, self.seq, self.expert = grid, grid.tensor, grid.seq, grid.expert
         self.world = grid.dp
-        self.rank = grid.data_rank     # the vote's rank: batch rows, seeds, momentum files
+        self.rank = grid.data_rank     # the vote's rank: seeds, momentum files
+        # a data rank's batch rows split over its expert ranks (JAX's
+        # P((data, expert)) batch): this rank's share of the global batch
+        self._row_shard = grid.data_rank * grid.ep + grid.expert.rank
+        self._row_shards = grid.dp * grid.ep
         self.global_rank = grid.rank   # files, logs and every "rank 0" decision
         self.chief = grid.rank == 0
         self.group = grid.data
@@ -860,19 +1021,25 @@ class Trainer:
             raise NotImplementedError(
                 "--vocab_chunks is not wired into this entry point's loss function "
                 "(supported: run_clm, run_sft, run_dpo)")
-        tp = grid.tp
+        tp, ep = grid.tp, grid.ep
         self._dims = [None if tp == 1 or shard_rule is None else shard_rule(name)
                       for name, _ in named_params]
+        self._edims = [None if ep == 1 or expert_rule is None else expert_rule(name)
+                       for name, _ in named_params]
         self._local_shapes = [tuple(p.shape) for _, p in named_params]
-        self.full_shapes = [tpar.full_shape(s, d, tp)
+        self._mid_shapes = [tpar.full_shape(s, d, tp)   # whole over tensor, split over experts
                             for s, d in zip(self._local_shapes, self._dims)]
+        self.full_shapes = [tpar.full_shape(s, d, ep)
+                            for s, d in zip(self._mid_shapes, self._edims)]
         # the whole model's coordinates: what the JAX package counts
         n = sum(math.prod(s) for s in self.full_shapes)
         self.n_global = n
-        if tp > 1:
-            _refuse_split_params(cfg, tp)
+        split_axes = (("tensor",) if tp > 1 else ()) + (("expert",) if expert_rule else ())
+        if split_axes:
+            _refuse_split_params(cfg, tp, split_axes)
         _refuse_zero1_seq(cfg, grid.sp)
-        cfg = _resolve_for_world(cfg, self.world, n, announce=self.chief, tp=tp)
+        cfg = _resolve_for_world(cfg, self.world, n, announce=self.chief, tp=tp * ep,
+                                 replicated=not split_axes)
         check_telemetry_size(n, cfg.vote_every, cfg.telemetry)
         self.cfg = cfg
         self.model = model
@@ -891,6 +1058,19 @@ class Trainer:
                              "emergency checkpoint + clean return) or 'off'")
         self.opt = make_optimizer(cfg, self.group)
         self.state = self.opt.init(self.flat)
+        if (cfg.ep_dcn_pipeline or 0) > 0:
+            # the MoE balance ring: one [n_moe, E+1] tally slot per in-flight
+            # step (JAX loop.py:936-953), its shape stamped by the MoE loss
+            tshape = getattr(loss_fn, "_moe_tally_shape", None)
+            if tshape is None:
+                raise ValueError(
+                    f"--ep_dcn_pipeline {cfg.ep_dcn_pipeline} > 0 "
+                    "needs the MoE trainer's loss (make_trainer with "
+                    "--moe_experts), which stamps the balance-tally "
+                    "shape the ring is sized from; this loss carries "
+                    "none")
+            self.state = self.state._replace(moe_ring=torch.zeros(
+                (cfg.ep_dcn_pipeline, *tshape), dtype=torch.float32, device=self.device))
         self._guard = (vote_guard.make_guard(self.world, cfg.vote_guard, cfg.guard_strikes,
                                              cfg.guard_cooldown, cfg.min_quorum,
                                              journal=self.journal)
@@ -983,10 +1163,19 @@ class Trainer:
         padded rows masked by ``valid_v``; JAX loop.py:2685-2697). Under
         ``tensor_parallel`` (``grid``'s tensor axis; None: a world of one)
         the model holds this rank's slices, and with ``tp_vocab`` the loss is
-        the vocab-parallel one over its ``wte`` rows (JAX :2596-2683)."""
+        the vocab-parallel one over its ``wte`` rows (JAX :2596-2683). With
+        ``moe_experts`` the model is GPT-2-MoE (JAX :2484-2594): under the
+        expert axis (``grid``'s) each rank holds its experts and its data
+        rank's share of the batch rows, and the loss is
+        ``models.loss.clm_loss_sharded_rows`` with the aux; at ep 1 the dense
+        loss + 0.01·aux; ``ep_dcn_pipeline`` feeds the aux the load summed
+        over the expert group (0: in the forward; d > 0: of d steps before,
+        from ``LionState.moe_ring``)."""
         device = resolve_device(device)
         grid = grid or data_grid()
-        tp, sp = grid.tp, grid.sp
+        tp, sp, ep = grid.tp, grid.sp, grid.ep
+        moe = model_cfg.moe_experts > 0
+        _refuse_moe(cfg, model_cfg, sp, ep)
         if tp > 1:
             tpar.validate_tp(model_cfg, tp, "gpt2")
         _check_tp_vocab(cfg, tp, model_cfg.padded_vocab, gpt2=True, sp=sp)
@@ -999,17 +1188,29 @@ class Trainer:
                      "residual/embedding dropout still applies — semantics differ from "
                      "replicated training at the same dropout rate")
         model = GPT2(model_cfg, device=device, seed=cfg.seed, tp=grid.tensor,
-                     vocab_parallel=cfg.tp_vocab, seq=grid.seq)
+                     vocab_parallel=cfg.tp_vocab, seq=grid.seq, expert=grid.expert)
         if initial_params is not None:
             with torch.no_grad():
                 for name, p in model.named_parameters():
-                    p.copy_(tpar.shard(initial_params[name], model.shard_dim(name), tp,
-                                       grid.tensor.rank))
+                    p.copy_(tpar.shard(tpar.shard(initial_params[name], model.shard_dim(name),
+                                                  tp, grid.tensor.rank),
+                                       model.expert_dim(name), ep, grid.expert.rank))
         named = model.jax_named_parameters()
-        n = _whole_count(named, model.shard_dim, tp)
-        cfg = _resolve_for_world(cfg, grid.dp, n, announce=grid.rank == 0, tp=tp)
+        n = _whole_count(named, model.shard_dim, tp, model.expert_dim, ep)
+        cfg = _resolve_for_world(cfg, grid.dp, n, announce=grid.rank == 0, tp=tp * ep,
+                                 replicated=tp == 1 and ep == 1)
         if grid.rank == 0:
-            _announce("GPT-2", n, grid.dp, cfg, device, tp, sp)
+            _announce("GPT-2", n, grid.dp, cfg, device, tp, sp, ep)
+        if moe:
+            n_dense = n - _whole_count([(k, p) for k, p in named if ".moe." in k],
+                                       model.shard_dim, tp, model.expert_dim, ep)
+            if grid.rank == 0:
+                emit(f"[trainer] GPT-2-MoE: {n/1e6:.1f}M total ({n_dense/1e6:.1f}M dense) | "
+                     f"{model_cfg.moe_experts} experts every {model_cfg.moe_every} blocks | "
+                     f"ep={ep}")
+            return Trainer(cfg, named, _moe_loss_fn(model, cfg, grid), model=model, grid=grid,
+                           shard_rule=model.shard_dim,
+                           expert_rule=expert_shard_dim if (ep > 1 or tp > 1) else None)
         if cfg.tp_vocab:
             def loss_fn(batch, seed):
                 tokens, mask = _tokens_and_mask(batch)
@@ -1039,11 +1240,15 @@ class Trainer:
         against the untied ``lm_head`` in its ``[d, V]`` layout (``"dv"``),
         or with ``tp_vocab`` the vocab-parallel one over the rank's
         ``lm_head`` columns; under ``seq_parallel`` the seq-parallel dense or
-        chunked loss of the rank's token chunk. The model has no dropout. The
-        pipeline and expert axes are not ported (ROADMAP Queue 1 item 11(e)
-        on)."""
+        chunked loss of the rank's token chunk. The model has no dropout. An
+        expert axis is GPT-2-MoE's (refused, JAX :2721-2725); the pipeline
+        axis is not ported (ROADMAP Queue 1 item 11(f))."""
         device = resolve_device(device)
         grid = grid or data_grid()
+        if grid.ep > 1:
+            raise NotImplementedError(
+                "an 'expert' mesh axis is wired for GPT-2-MoE only; Llama "
+                "composes with dp x tp x sp x pp")
         tp, sp = grid.tp, grid.sp
         if tp > 1:
             tpar.validate_tp(model_cfg, tp, "llama")
@@ -1084,10 +1289,11 @@ class Trainer:
 
     def full_named(self) -> dict:
         """``{name: whole leaf}`` of the trained parameters, gathered over the
-        tensor group (a collective: every rank of it calls it)."""
+        tensor and expert groups (a collective: every rank of the data rank
+        calls it)."""
         views = self.flat.views(self.flat.params)
-        return {name: tpar.gather(views[name], dim, self.tensor)
-                for name, dim in zip(self.flat.names, self._dims)}
+        return {name: tpar.gather(tpar.gather(views[name], dim, self.tensor), edim, self.expert)
+                for name, dim, edim in zip(self.flat.names, self._dims, self._edims)}
 
     def comm_stats(self, steps_per_sec: Optional[float] = None) -> dict:
         """The vote's analytic wire bytes (JAX ``Trainer.comm_stats``,
@@ -1105,14 +1311,16 @@ class Trainer:
                            dcn_pipeline_depth=cfg.dcn_pipeline_depth)
 
     def global_train_batch(self) -> int:
-        return (self.world * self.cfg.per_device_train_batch_size
+        return (self._row_shards * self.cfg.per_device_train_batch_size
                 * self.cfg.gradient_accumulation_steps)
 
     def _local_batch(self, batch):
-        """This rank's shard of a global ``batch`` (its data rank's rows, its
-        seq rank's token columns), on the device."""
+        """This rank's shard of a global ``batch`` (its data rank's rows, or
+        its expert rank's share of them; its seq rank's token columns), on
+        the device."""
         accum, bs = self.cfg.gradient_accumulation_steps, self.cfg.per_device_train_batch_size
-        rows = _rows(batch, self.rank * accum * bs, (self.rank + 1) * accum * bs)
+        r = self._row_shard
+        rows = _rows(batch, r * accum * bs, (r + 1) * accum * bs)
         return _to_device(_seq_cols(rows, self.seq), self.device)
 
     def _train_step(self, local) -> tuple:
@@ -1124,20 +1332,44 @@ class Trainer:
         accum, bs = cfg.gradient_accumulation_steps, cfg.per_device_train_batch_size
         self.flat.zero_grad()
         sums: dict = {}
+        # the MoE balance ring: slot (count mod d) holds the tallies of step
+        # count - d, read now and overwritten after the backward (JAX
+        # loop.py:1348-1394)
+        ring = getattr(self.state, "moe_ring", None)
+        slot = stale = fresh = None
+        if ring is not None:
+            slot = self.state.steps % ring.shape[0]
+            stale = ring[slot].clone()
         for i in range(accum):
             seed = fold_seed(cfg.seed + 1, self.rank, self.step_count, i)
-            loss, metrics = self.loss_fn(_rows(local, i * bs, (i + 1) * bs), seed)
+            if self.expert.size > 1:   # the expert ranks hold other rows
+                seed = fold_seed(seed, self.expert.rank)
+            loss, metrics = self.loss_fn(_rows(local, i * bs, (i + 1) * bs), seed,
+                                         *(() if ring is None else (stale,)))
             loss.backward()
+            if ring is not None:
+                t = metrics.pop("moe_tallies")
+                fresh = t if fresh is None else fresh + t
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + v.detach()
         metrics = {k: v / accum for k, v in sums.items()}
         grads = self.flat.grads
         with torch.no_grad():
             grads.div_(accum)
+            if ring is not None and self.expert.size > 1:
+                # this data rank's tallies over its expert group; no data-axis
+                # collective: each data rank balances against its own batch
+                dist.all_reduce(fresh, group=self.expert.group)
             if self.seq.size > 1:
                 # each seq rank's gradient is its chunk's share of the loss:
                 # the whole sequence's is their sum (JAX loop.py:1396-1400)
                 dist.all_reduce(grads, group=self.seq.group)
+            if self.expert.size > 1:
+                # a replicated leaf's gradient is the rank's rows' share: the
+                # whole batch's is their sum; an expert's own leaves already
+                # got every rank's cotangents through the return hop (JAX
+                # loop.py:1401-1417)
+                self._sum_replicated_over_experts(grads)
             if not cfg.async_grad:
                 if self.group is not None:
                     dist.all_reduce(grads, group=self.group)
@@ -1156,6 +1388,10 @@ class Trainer:
             self.state, *frames = out
         else:
             self.state, frames = out, []
+        if ring is not None:   # the optimizer passed the ring through
+            with torch.no_grad():
+                ring[slot] = fresh
+            self.state = self.state._replace(moe_ring=ring)
         if self.vote_health is not None:
             self.vote_health = telemetry.fold(self.vote_health, frames.pop(0), self.group,
                                               self.world, self.n_params)
@@ -1165,30 +1401,50 @@ class Trainer:
 
     def _global_grad_sq(self, grads: torch.Tensor) -> torch.Tensor:
         """The squared L2 norm of this rank's gradient (JAX ``global_grad_sq``,
-        loop.py:2877-2915): under a tensor axis a split leaf's squares are
-        summed over the tensor group and a replicated leaf, whose gradient
-        every tensor rank holds whole, counts once, so every tensor rank gets
-        the same value; never summed over the data group."""
+        loop.py:2877-2915): under a tensor or expert axis a leaf's squares are
+        summed over each axis that splits it, and a leaf replicated over an
+        axis (its gradient whole on every rank of it) counts once, so every
+        rank of a data rank gets the same value; never summed over the data
+        group."""
         g32 = grads.to(torch.float32)
-        if self.tensor.size == 1:
+        if self.tensor.size == 1 and self.expert.size == 1:
             return torch.sum(torch.square(g32))
-        parts = [torch.zeros((), dtype=torch.float32, device=grads.device) for _ in range(2)]
-        for (off, n), split in self._split_runs():
-            parts[split] = parts[split] + torch.sum(torch.square(g32[off:off + n]))
-        return parts[0] + tpar.reduce_from_tp_region(parts[1], self.tensor.group)
+        zero = torch.zeros((), dtype=torch.float32, device=grads.device)
+        parts: dict = {}
+        for (off, n), key in self._split_runs():
+            parts[key] = parts.get(key, zero) + torch.sum(torch.square(g32[off:off + n]))
+        total = zero
+        for (t_split, e_split), part in sorted(parts.items()):
+            if t_split:
+                part = tpar.reduce_from_tp_region(part, self.tensor.group)
+            if e_split:
+                part = tpar.reduce_from_tp_region(part, self.expert.group)
+            total = total + part
+        return total
 
     def _split_runs(self) -> list:
-        """``((offset, length), split)`` over the flat buffer, adjacent leaves
-        of one kind merged."""
+        """``((offset, length), (split over tensor, split over experts))``
+        over the flat buffer, adjacent leaves of one kind merged."""
         runs: list = []
-        for off, shape, dim in zip(self.flat.offsets, self._local_shapes, self._dims):
-            split, n = int(tpar.spec_uses_axis(dim)), math.prod(shape)
-            if runs and runs[-1][1] == split:
+        for off, shape, dim, edim in zip(self.flat.offsets, self._local_shapes, self._dims,
+                                         self._edims):
+            key, n = (int(tpar.spec_uses_axis(dim)), int(tpar.spec_uses_axis(edim))), \
+                math.prod(shape)
+            if runs and runs[-1][1] == key:
                 (o, m), _ = runs[-1]
-                runs[-1] = ((o, m + n), split)
+                runs[-1] = ((o, m + n), key)
             else:
-                runs.append(((off, n), split))
+                runs.append(((off, n), key))
         return runs
+
+    def _sum_replicated_over_experts(self, grads: torch.Tensor) -> None:
+        """Sum the leaves replicated over the expert axis over the expert
+        group, in place, by one ``all_reduce`` of their runs."""
+        runs = [r for r, (_, e_split) in self._split_runs() if not e_split]
+        buf = torch.cat([grads[o:o + n] for o, n in runs])
+        dist.all_reduce(buf, group=self.expert.group)
+        for (o, n), part in zip(runs, buf.split([n for _, n in runs])):
+            grads[o:o + n].copy_(part)
 
     def _inject_poison(self, grads: torch.Tensor) -> None:
         """``--inject_poison`` (JAX loop.py:1428-1448): this rank becomes a
@@ -1611,10 +1867,11 @@ class Trainer:
         a split leaf's counts summed over the tensor group, a replicated
         leaf's taken once."""
         counts = telemetry.nonfinite_leaf_counts(self.flat, buf)
-        if self.tensor.size > 1:
-            if self.tensor.rank:
-                counts[[i for i, d in enumerate(self._dims) if not tpar.spec_uses_axis(d)]] = 0
-            dist.all_reduce(counts, group=self.tensor.group)
+        for axis, dims in ((self.tensor, self._dims), (self.expert, self._edims)):
+            if axis.size > 1:
+                if axis.rank:
+                    counts[[i for i, d in enumerate(dims) if not tpar.spec_uses_axis(d)]] = 0
+                dist.all_reduce(counts, group=axis.group)
         return counts
 
     def _zero1_full(self, chunk: torch.Tensor) -> torch.Tensor:
@@ -1634,17 +1891,17 @@ class Trainer:
         per_dev = cfg.per_device_eval_batch_size
         n = len(next(iter(eval_blocks.values())) if isinstance(eval_blocks, dict)
                 else eval_blocks)
-        if n < self.world * per_dev:
-            per_dev = n // self.world  # shrink rather than skip a small split
-        bs = self.world * per_dev
+        shards, r = self._row_shards, self._row_shard
+        if n < shards * per_dev:
+            per_dev = n // shards  # shrink rather than skip a small split
+        bs = shards * per_dev
         if per_dev == 0:
-            self._emit(f"[trainer] eval skipped: {n} examples < {self.world} ranks")
+            self._emit(f"[trainer] eval skipped: {n} examples < {shards} ranks")
             return {"eval/loss": math.nan, "eval/accuracy": math.nan,
                     "eval/perplexity": math.nan}
         per_key: dict = {}
         for i in range(min(cfg.eval_iters, n // bs)):
-            rows = _rows(eval_blocks, i * bs + self.rank * per_dev,
-                         i * bs + (self.rank + 1) * per_dev)
+            rows = _rows(eval_blocks, i * bs + r * per_dev, i * bs + (r + 1) * per_dev)
             _, metrics = self.loss_fn(_to_device(_seq_cols(rows, self.seq), self.device), None)
             for k, v in self._mean_over_ranks(metrics).items():
                 per_key.setdefault(k, []).append(v)
@@ -1657,13 +1914,17 @@ class Trainer:
 
     # ------------------------------------------------------------ checkpoints
     def _whole(self, buf: torch.Tensor) -> torch.Tensor:
-        """A flat buffer over the whole leaves from every tensor rank's
-        (collective over the tensor group; ``buf`` itself at tp 1)."""
-        return tpar.gather_flat(buf, self._local_shapes, self._dims, self.tensor)
+        """A flat buffer over the whole leaves from every tensor and expert
+        rank's (collective over the tensor group, then the expert group;
+        ``buf`` itself at tp 1 and ep 1)."""
+        mid = tpar.gather_flat(buf, self._local_shapes, self._dims, self.tensor)
+        return tpar.gather_flat(mid, self._mid_shapes, self._edims, self.expert)
 
     def _slice(self, full: torch.Tensor) -> torch.Tensor:
-        """This tensor rank's flat buffer from one over the whole leaves."""
-        return tpar.shard_flat(full, self._local_shapes, self._dims, self.tensor.size,
+        """This rank's flat buffer from one over the whole leaves."""
+        mid = tpar.shard_flat(full, self._mid_shapes, self._edims, self.expert.size,
+                              self.expert.rank)
+        return tpar.shard_flat(mid, self._local_shapes, self._dims, self.tensor.size,
                                self.tensor.rank)
 
     def _payload(self) -> dict:
@@ -1676,8 +1937,8 @@ class Trainer:
         files: its seq ranks hold the same bits."""
         st = self.state
         adam = not isinstance(st, LionState)
-        tp, first = self.tensor.size, self.seq.rank == 0
-        lead = first and self.tensor.rank == 0
+        tp, ep, first = self.tensor.size, self.expert.size, self.seq.rank == 0
+        lead = first and self.tensor.rank == 0 and self.expert.rank == 0
         files = {}
         if not adam:
             mom = self._whole(st.exp_avg)
@@ -1686,7 +1947,10 @@ class Trainer:
         if not adam and st.prev_ballot is not None and first:
             files[prev_ballot_file(self.rank)] = st.prev_ballot
         if not adam and st.dcn_ring is not None and first:
-            files[ring_file(self.rank, self.tensor.rank if tp > 1 else None)] = st.dcn_ring
+            files[ring_file(self.rank, self.tensor.rank if tp > 1 else None,
+                            self.expert.rank if ep > 1 else None)] = st.dcn_ring
+        if not adam and st.moe_ring is not None and lead:
+            files[moe_ring_file(self.rank)] = st.moe_ring
         if isinstance(st, Zero1State):
             files[zero1_file(self.rank)] = {"m": st.m, "v": st.v}
         params = self._whole(self.flat.params) if self.rank == 0 else None
@@ -1721,9 +1985,11 @@ class Trainer:
                 "has_guard": self._guard is not None,
                 "wire": cfg.wire, "vote_every": cfg.vote_every,
                 "dcn_pipeline_depth": cfg.dcn_pipeline_depth,
-                "ep_dcn_pipeline": 0, "control_plane": self._cplane is not None,
-                # a dp run's meta has no tp: a resume reads 1
+                "ep_dcn_pipeline": int(cfg.ep_dcn_pipeline or 0),
+                "control_plane": self._cplane is not None,
+                # a dp run's meta has no tp or ep: a resume reads 1
                 **({"tensor_parallel": self.tensor.size} if self.tensor.size > 1 else {}),
+                **({"expert_parallel": self.expert.size} if self.expert.size > 1 else {}),
                 **self.data_meta}
         if self._cplane is not None:
             # departed-vs-quarantined, the consumed-schedule watermark, the
@@ -1808,9 +2074,15 @@ class Trainer:
         ring = None
         if self.state.dcn_ring is not None:  # the same world: an elastic resume refused it
             ring = ck.restore(step, ring_file(
-                self.rank, self.tensor.rank if self.tensor.size > 1 else None))
+                self.rank, self.tensor.rank if self.tensor.size > 1 else None,
+                self.expert.rank if self.expert.size > 1 else None))
             self._check_like(step, "DCN ring", [ring], [self.state.dcn_ring])
             ring = ring.to(self.device)
+        moe_ring = None
+        if self.state.moe_ring is not None:  # the same world and depth (refused otherwise)
+            moe_ring = ck.restore(step, moe_ring_file(self.rank))
+            self._check_like(step, "MoE balance ring", [moe_ring], [self.state.moe_ring])
+            moe_ring = moe_ring.to(self.device)
         vh = None
         ckpt_ve = int(meta.get("vote_every", cfg.vote_every or 1) or 1)
         if (ckpt_world == self.world and self.vote_health is not None
@@ -1825,7 +2097,7 @@ class Trainer:
         self.state = LionState(state["count"].to(self.device), self.state.exp_avg,
                                int(state["steps"]),
                                None if elected is None else elected.to(self.device), **guard,
-                               dcn_ring=ring)
+                               dcn_ring=ring, moe_ring=moe_ring)
         self.opt.seed = state["seed"]  # the stochastic draws', as JAX restores its key
         if self._guard is not None:
             mask = guard["health"].cpu().numpy()
@@ -1887,7 +2159,7 @@ class Trainer:
             meta = metas[step]
             ckpt_world = int(meta.get("world", self.world))
             if meta:
-                check_resume_meta(step, meta, cfg, self.tensor.size)
+                check_resume_meta(step, meta, cfg, self.tensor.size, self.expert.size)
             ckpt_ve = int(meta.get("vote_every", 0) or 0)  # 0: not recorded
             if cfg.lion and ckpt_ve and ckpt_ve != (cfg.vote_every or 1):
                 raise ValueError(
@@ -1913,6 +2185,13 @@ class Trainer:
                     "functions of the world size. Resume at the "
                     "original world (drain the pipeline), or restart "
                     "with --dcn_pipeline_depth 0")
+            if ckpt_world != self.world and (cfg.ep_dcn_pipeline or 0) > 0:
+                raise NotImplementedError(
+                    "--elastic_resume cannot remap the MoE balance "
+                    "ring: its rows are per-data-worker stale tallies "
+                    "of batches the new world never routed. Resume at "
+                    "the original world, or restart with "
+                    "--ep_dcn_pipeline 0")
             error = None
             try:
                 self._restore_step(step, meta, ckpt_world)

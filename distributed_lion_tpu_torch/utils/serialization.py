@@ -20,7 +20,10 @@ the JAX package's ``model.npz``. On top of it:
   :func:`adapter_momentum_from_jax` takes one rank's row of the adapters'
   stacked momentum.
 
-Under tensor parallelism each converter takes ``(tp, t)`` and returns the
+Under expert parallelism the GPT-2 converters also take ``(ep, e)`` and
+return expert rank ``e``'s experts of every MoE FFN
+(``parallel.expert.expert_shard_dim``), the tensor slices of them under
+both axes. Under tensor parallelism each converter takes ``(tp, t)`` and returns the
 slices of tensor rank ``t`` (``parallel.tensor_parallel.shard`` by the
 family's shard rule, ``vocab_parallel`` for ``--tp_vocab``; the adapters by
 their base's rule): the JAX package's arrays are whole, and its stacked
@@ -39,6 +42,7 @@ import numpy as np
 import torch
 
 from distributed_lion_tpu_torch.ops.quant import QuantizedTensor, map_tree
+from distributed_lion_tpu_torch.parallel.expert import expert_shard_dim
 from distributed_lion_tpu_torch.parallel.tensor_parallel import (
     gpt2_shard_dim,
     llama_shard_dim,
@@ -117,14 +121,16 @@ def tree_from_state_dict(state: Union[dict, torch.nn.Module]) -> Any:
 
 
 def params_from_jax(tree_or_npz: Union[dict, str, pathlib.Path], tp: int = 1, t: int = 0,
-                    vocab_parallel: bool = False) -> dict[str, torch.Tensor]:
+                    vocab_parallel: bool = False, ep: int = 1,
+                    e: int = 0) -> dict[str, torch.Tensor]:
     """The JAX package's GPT-2 params (numpy pytree or ``model.npz`` path) as
     the port's state dict of CPU tensors: tensor rank ``t``'s slices of
-    ``tp``."""
+    ``tp``, expert rank ``e``'s experts of ``ep``."""
     tree = (load_pytree(tree_or_npz) if isinstance(tree_or_npz, (str, pathlib.Path))
             else tree_or_npz)
     state = {k: torch.from_numpy(np.array(v)) for k, v in state_dict_from_tree(tree).items()}
-    return shard_named(state, lambda k: gpt2_shard_dim(k, vocab_parallel), tp, t)
+    return shard_named(shard_named(state, lambda k: gpt2_shard_dim(k, vocab_parallel), tp, t),
+                       expert_shard_dim, ep, e)
 
 
 def params_to_jax(state: Union[dict, torch.nn.Module]) -> dict:
@@ -134,12 +140,15 @@ def params_to_jax(state: Union[dict, torch.nn.Module]) -> dict:
 
 
 def momentum_from_jax(exp_avg: dict, rank: int, tp: int = 1, t: int = 0,
-                      vocab_parallel: bool = False, family: str = "gpt2") -> dict:
+                      vocab_parallel: bool = False, family: str = "gpt2", ep: int = 1,
+                      e: int = 0) -> dict:
     """Row ``rank`` of the JAX package's stacked ``[world, ...]`` momentum
     pytree, as a state dict keyed like the params: tensor rank ``t``'s
-    slices of ``tp`` by ``family``'s shard rule."""
+    slices of ``tp`` by ``family``'s shard rule, expert rank ``e``'s experts
+    of ``ep``."""
     rule = gpt2_shard_dim if family == "gpt2" else llama_shard_dim
-    return {name: shard(m[rank], rule(name, vocab_parallel), tp, t)
+    return {name: shard(shard(m[rank], rule(name, vocab_parallel), tp, t),
+                        expert_shard_dim(name), ep, e)
             for name, m in params_from_jax(exp_avg).items()}
 
 

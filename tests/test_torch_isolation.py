@@ -210,3 +210,14 @@ def test_the_sequence_parallel_modules_are_among_the_checked_files():
             "models/llama.py", "models/loss.py", "ops/xent.py", "train/loop.py",
             "train/dpo.py", "utils/argparsing.py", "cli/run_clm.py", "cli/run_sft.py",
             "cli/run_dpo.py"} <= files
+
+
+def test_the_expert_parallel_modules_are_among_the_checked_files():
+    """The expert axis's module, beside every module the expert-parallel
+    slice touched (the grid, the tensor split rules, GPT-2, the losses, the
+    optimizer state, the trainer, the converters, the CLI), is in the file
+    list both checks above walk."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
+    assert {"parallel/expert.py", "parallel/mesh.py", "parallel/tensor_parallel.py",
+            "models/gpt2.py", "models/loss.py", "optim/lion.py", "train/loop.py",
+            "utils/serialization.py", "cli/run_clm.py"} <= files

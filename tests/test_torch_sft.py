@@ -206,13 +206,18 @@ def _jax_outcome(fn):
 @pytest.mark.parametrize("flag", [
     ["--model_path", "/nonexistent"], ["--adapter_path", "x"], ["--adapter_output", "x"],
     ["--merged_output", "hf_dir"], ["--pipeline_parallel", "2"], ["--tensor_parallel", "2"],
-    ["--moe_experts", "2"], ["--tokenizer_name", "sp:tokenizer.model"]])
+    ["--moe_experts", "2"], ["--tokenizer_name", "sp:tokenizer.model"],
+    ["--expert_parallel", "2"]])
 def test_unported_flags_are_refused_by_name(flag, monkeypatch, tmp_path, capsys):
     """Since the HF slice the first four flags and SentencePiece run; each
     gets the JAX package's own outcome for the same argument. The pipeline
-    and expert axes stay refused by name (items 11(e), 11(f)): argparse names
-    the flag it does not know. ``--tensor_parallel`` runs since item 11(c),
-    and in a world of one meets the grid's refusal (the multi-rank runs are
+    axis stays refused by name (item 11(f)), and so does ``--moe_experts``,
+    as in the JAX package, whose run_sft has no MoE: argparse names the flag
+    it does not know. ``--expert_parallel`` is a trainer flag since item
+    11(e), and the JAX run_sft builds its mesh without it (run_sft.py:140):
+    the run trains as if it were absent, the same losses on a grid of ep 1.
+    ``--tensor_parallel`` runs since item 11(c), and in a world of one meets
+    the grid's refusal (the multi-rank runs are
     tests/test_torch_tensor_parallel.py's, and ``--seq_parallel``'s
     tests/test_torch_seq_parallel.py's)."""
     from distributed_lion_tpu.data.tokenizer import load_tokenizer as j_load_tokenizer
@@ -233,6 +238,12 @@ def test_unported_flags_are_refused_by_name(flag, monkeypatch, tmp_path, capsys)
     if name == "--tensor_parallel":
         with pytest.raises(ValueError, match="--tensor_parallel 2 needs 2 ranks"):
             run_sft.main(["--model_name", "tiny", *flag])
+        return
+    if name == "--expert_parallel":
+        runs = [run_sft.main(["--model_name", "tiny", *f, *TINY_RUN])[0] for f in ([], flag)]
+        assert runs[1].cfg.expert_parallel == 2 and runs[1].grid.ep == 1
+        assert ([h["loss"] for h in runs[1].history if "loss" in h]
+                == [h["loss"] for h in runs[0].history if "loss" in h])
         return
     if name not in jax_side:
         with pytest.raises(SystemExit):
