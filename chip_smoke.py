@@ -298,6 +298,29 @@ Phases (none of their failures is caught; any one fails the run):
    before wrote, and each slot the step's tallies of every microbatch
    summed over the expert group by the watch itself, 4,096 lanes a block.
    The kernel phase holds the optimizer kernels at (y2)'s window.
+   Runs (z1)-(z4), pipeline parallelism, follow in a W = 4 spawn of their
+   own (global rank r = (((d·tp + t)·sp + s)·pp + p)·ep + e; its gloo
+   group under a 600 s timeout), 3 steps each on ``sign_psum`` at dropout 0
+   and bfloat16 compute, one eval batch each: (z1) ``run_clm`` GPT-2 124M at
+   full width, T 1024, float32 params, dp 2 x pp 2, 4 microbatches of B 4
+   (81,912,576 coordinates a rank: 6 blocks and the replicated wte, wpe and
+   ln_f); (z2) dp 1 x pp 4, 8 microbatches of B 8 (60,648,960: stages 1 and
+   2 neither embed nor take the loss); (z3) dp 1 x tp 2 x pp 2, 4
+   microbatches of B 4 (60,662,784); (z4) ``run_clm --model_family llama``
+   at Llama-3-8B's widths cut to 4 layers (2 a stage), bfloat16 params, T
+   2048, ``--vocab_chunks 8``, dp 2 x pp 2, 2 microbatches of B 2
+   (1,486,901,248). The ``GridWatch`` holds every rank's replicated leaves
+   (wte, wpe, ln_f; Llama's lm_head) sha256-equal to every stage's after
+   every step, the losses equal across a data rank's ranks, up to 2e8
+   coordinates the plain apply of the plain election, the launches by formula
+   (a stage's blocks x microbatches: forward twice a step (remat) and once an
+   eval batch, each backward kernel once), and for (z1) and (z2) pp == the
+   unsplit model at step 1: each leaf's momentum step, gathered from the
+   stages to stage 0, against the unsplit model's gradient on the data
+   rank's rows (median ratio within 1e-2 of 1 on every leaf). Each run's
+   line gives its bubble fraction (pp - 1)/(M + pp - 1), step ms and peak a
+   rank. The kernel phase holds the optimizer kernels at (z1)-(z3)'s windows
+   ((z4)'s is (w)'s) and the flash kernels at their microbatches' shapes.
 6. Run (g), resume on the card, in the 1-rank NCCL group: the repo's
    ``*.md`` files go through the port's GPT-2 BPE (``runs/parity/tok``,
    its C++ merge core, which must build) into a uint16 ``bin:`` shard, read
@@ -435,12 +458,14 @@ suffix ``_hd128``, the bfloat16-momentum optimizer kernels ``_mom_bf16``;
 launches of the optimizer and head_dim 64 kernels are run (b)'s, of the
 head_dim 128 kernels run (d)'s, of the ``_mom_bf16`` ones run (h2)'s, of
 the ``_p_bf16`` ones, p, g and m bfloat16, run (k)'s); the last line is
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``. Each entry of the kernel record also
+carries ``pipeline_launches``, rank 0's launches summed over (z1)-(z4).
 """
 
 import concurrent.futures
 import contextlib
 import dataclasses
+import datetime
 import gc
 import hashlib
 import json
@@ -474,6 +499,7 @@ from distributed_lion_tpu_torch.data.tokenizer import ByteTokenizer
 from distributed_lion_tpu_torch.models import hf_export, hf_import
 from distributed_lion_tpu_torch.models.gpt2 import GPT2, GPT2Config
 from distributed_lion_tpu_torch.models.gpt2 import _layer_norm as gpt2_layer_norm
+from distributed_lion_tpu_torch.models.gpt2_pipe import GPT2Stage
 from distributed_lion_tpu_torch.models.llama import Llama, LlamaConfig, as_parameters, llama_init
 from distributed_lion_tpu_torch.models.loss import clm_loss_and_metrics
 from distributed_lion_tpu_torch.models.lora import (
@@ -505,6 +531,7 @@ from distributed_lion_tpu_torch.parallel import collectives
 from distributed_lion_tpu_torch.parallel import tensor_parallel as tpar
 from distributed_lion_tpu_torch.parallel.expert import AUX_WEIGHT, capacity, route
 from distributed_lion_tpu_torch.parallel.mesh import make_grid
+from distributed_lion_tpu_torch.parallel.pipeline import bubble_fraction
 from distributed_lion_tpu_torch.train import journal, resilience, vote_guard
 from distributed_lion_tpu_torch.train import loop as train_loop
 from distributed_lion_tpu_torch.train.checkpoint import Checkpointer
@@ -537,7 +564,9 @@ FLASH_SMALL = ((2, 3, 40), (2, 3, 130))  # (B, H, T): shorter than one tile, one
 # the tensor-parallel runs' shapes: (s1)'s B 2 at H 6 (q, k, v views of the
 # rank's [d, 3, d/2] projection: a T stride of 2,304 bytes), (t)'s B 2 at H
 # 16, (u)'s B 1 at H 16 from 4 kv heads at T 2048
-FLASH_CASES = ((64, 8, 12, 1024, (1000,), "qkv", ((2, 6, 1024),)),
+# the pipelined runs' microbatches: (z1)/(z2)'s B 1 at H 12, (z3)'s B 1 at H 6,
+# (z4)'s B 1 at H 32 at T 2048 (run (k)'s shape)
+FLASH_CASES = ((64, 8, 12, 1024, (1000,), "qkv", ((2, 6, 1024), (1, 12, 1024), (1, 6, 1024))),
                (128, 4, 32, 1024, (2048, 1000), "v", ((2, 32, 1024), (1, 32, 2048, ""),
                                                       (2, 16, 1024), (1, 16, 2048, ""))))
 STEPS = 3
@@ -715,6 +744,48 @@ N_EP = 209_480_448
 N_EP_TP = 124_485_888
 MOE_DTYPES = {N_MOE: ((torch.float32, torch.float32),),
               N_EP: ((torch.float32, torch.float32),)}
+# runs (z1)-(z4): pipeline parallelism in a W4 spawn of its own (global rank r
+# = (((d·tp + t)·sp + s)·pp + p)·ep + e), Z_STEPS steps each on sign_psum at
+# dropout 0 and bfloat16 compute: (z1) GPT-2 124M at dp 2 x pp 2, 4
+# microbatches of B 4; (z2) dp 1 x pp 4, 8 microbatches of B 8 (stages 1 and
+# 2 neither embed nor take the loss); (z3) dp 1 x tp 2 x pp 2, 4 microbatches
+# of B 4; (z4) run_clm --model_family llama at Llama-3-8B's widths cut to
+# Z4_LAYERS layers (2 a stage), bfloat16 params, T 2048, --vocab_chunks 8, dp
+# 2 x pp 2, 2 microbatches of B 2. One eval batch each (their held-out blocks
+# fill one batch of every data rank)
+Z_STEPS = 3
+Z_BASE = ["--model_name", "gpt2_124m", "--dataset", "synthetic", "--synthetic_blocks", "200",
+          "--lion", "--async_grad", "--wire", "sign_psum", "--gradient_accumulation_steps", "1",
+          "--block_size", "1024", "--max_steps", str(Z_STEPS), "--logging_steps", "1",
+          "--dropout", "0", "--lr_scheduler_type", "constant", "--eval_iters", "1"]
+
+
+def z_args(pp: int, micro: int, batch: int, extra=()) -> list:
+    return Z_BASE + ["--pipeline_parallel", str(pp), "--pipeline_microbatches", str(micro),
+                     "--per_device_train_batch_size", str(batch),
+                     "--per_device_eval_batch_size", str(batch), *extra]
+
+
+Z1_ARGS = z_args(2, 4, 4)
+Z2_ARGS = z_args(4, 8, 8)
+Z3_ARGS = z_args(2, 4, 4, ("--tensor_parallel", "2"))
+Z4_LAYERS, Z4_T = 4, 2048
+Z4_ARGS = ["--model_family", "llama", "--model_name", "llama3_8b", "--param_dtype", "bfloat16",
+           "--compute_dtype", "bfloat16", "--dropout", "0", "--block_size", str(Z4_T),
+           "--per_device_train_batch_size", "2", "--per_device_eval_batch_size", "2",
+           "--gradient_accumulation_steps", "1", "--max_steps", str(Z_STEPS), "--logging_steps",
+           "1", "--dataset", "synthetic", "--synthetic_blocks", "80", "--lion", "--async_grad",
+           "--wire", "sign_psum", "--lr_scheduler_type", "constant", "--vocab_chunks", "8",
+           "--pipeline_parallel", "2", "--eval_iters", "1"]
+# each rank's coordinates: a stage's blocks (GPT-2 124M's are 7,087,872 each,
+# 3,546,240 a tensor rank's) and the replicated wte, wpe and ln_f
+# (39,385,344); (z4) 2 of Llama-3-8B's blocks, wte, lm_head and ln_f: (w)'s
+# window
+N_PP = 6 * 7_087_872 + 39_385_344
+N_PP4 = 3 * 7_087_872 + 39_385_344
+N_PP_TP = 6 * 3_546_240 + 39_385_344
+N_PP_LLAMA3 = N_SP_LLAMA3
+PP_DTYPES = {n: ((torch.float32, torch.float32),) for n in (N_PP, N_PP4, N_PP_TP)}
 TP_DEVICE = "cuda"   # where (t)'s whole base is made
 MEDIAN_COORDS = 1 << 24   # the coordinates a leaf's median ratio is taken over, at most
 MEDIAN_TOL = 1e-2   # dp x tp == dp: per-leaf median momentum ratio (tests/test_tp_vocab.py)
@@ -914,7 +985,8 @@ def build_cuda_kernels() -> dict:
 
 
 def optimizer_kernel_phase(gen, rates, ns=(N_MAIN, N_SFT, N_DPO, N_RAGGED, *TP_DTYPES,
-                                           *SP_DTYPES, *MOE_DTYPES), big: bool = True):
+                                           *SP_DTYPES, *MOE_DTYPES, *PP_DTYPES),
+                           big: bool = True):
     """Compare and time the two Triton kernels and the stats kernel at each
     window of ``ns`` (and with ``big`` the 2³¹ + 4097 window); returns
     per-kernel records at the main path's shape (float32, int8 tally) and
@@ -922,7 +994,8 @@ def optimizer_kernel_phase(gen, rates, ns=(N_MAIN, N_SFT, N_DPO, N_RAGGED, *TP_D
     rec = {}
     err = dict.fromkeys(OPT_KERNELS, 0.0)
     for n in ns:
-        for pdt, mdt in {**TP_DTYPES, **SP_DTYPES, **MOE_DTYPES}.get(n, DTYPE_PAIRS):
+        for pdt, mdt in {**TP_DTYPES, **SP_DTYPES, **MOE_DTYPES, **PP_DTYPES}.get(n,
+                                                                               DTYPE_PAIRS):
             if (pdt, mdt) == MOM_BF16 and n in (N_SFT, N_DPO):
                 continue   # bf16 momentum under float32 params: GPT-2's run (h2)
             suffix = {MOM_BF16: "_mom_bf16", (torch.bfloat16, torch.bfloat16): "_p_bf16"}.get(
@@ -984,7 +1057,8 @@ def optimizer_kernel_phase(gen, rates, ns=(N_MAIN, N_SFT, N_DPO, N_RAGGED, *TP_D
             del g, m, p
             torch.cuda.empty_cache()
 
-        if n not in TP_DTYPES and n not in SP_DTYPES and n != N_EP:   # no telemetry there
+        if n not in TP_DTYPES and n not in SP_DTYPES and n not in PP_DTYPES and n != N_EP:
+            # no telemetry there
             stats_cases(gen, rates, n, rec, err)
         torch.cuda.empty_cache()
     if big:
@@ -2567,7 +2641,8 @@ def adapter_dim(name: str):
 
 
 def dense_grad(trainer, local, whole: torch.Tensor, sft: Optional[dict], attn: str = "xla",
-               vocab_chunks: int = 0) -> list:
+               vocab_chunks: int = 0, names: Optional[list] = None,
+               shapes: Optional[list] = None) -> list:
     """The unsplit model's gradient on this data rank's microbatch ``local``
     (its whole rows) at the whole-leaf params ``whole`` (the trainer's flat
     order), one tensor a leaf: GPT-2 or Llama with every leaf a parameter
@@ -2576,8 +2651,10 @@ def dense_grad(trainer, local, whole: torch.Tensor, sft: Optional[dict], attn: s
     with this step's adapter-dropout seed. Its attention is ``attn``:
     ``attention_xla``, which launches no counted kernel, or the flash
     kernels where the scores would not fit beside the ranks' state (the
-    caller takes their launches back out)."""
-    names, shapes = trainer.flat.names, trainer.full_shapes
+    caller takes their launches back out). ``names`` and ``shapes`` (default
+    the trainer's) say what ``whole`` holds: a pipelined run's every stage's
+    leaves."""
+    names, shapes = names or trainer.flat.names, shapes or trainer.full_shapes
     sizes = [math.prod(sh) for sh in shapes]
     views = {n: t.view(sh) for n, t, sh in zip(names, whole.split(sizes), shapes)}
     tokens = local
@@ -2593,7 +2670,7 @@ def dense_grad(trainer, local, whole: torch.Tensor, sft: Optional[dict], attn: s
         loss, _ = clm_loss_and_metrics(model(tokens, eff), tokens)
         loss.backward()
         return [adapters[n.rsplit("/", 1)[0]][n.rsplit("/", 1)[1]].grad for n in names]
-    if isinstance(trainer.model, GPT2):
+    if isinstance(trainer.model, (GPT2, GPT2Stage)):
         model = GPT2(dataclasses.replace(trainer.model.cfg, attn_impl=attn), device=whole.device)
         with torch.no_grad():
             for n, p in model.named_parameters():
@@ -2658,7 +2735,8 @@ class GridWatch:
     step this rank's leaves replicated over the tensor axis equal its tensor
     peer's and those replicated over the expert axis its expert peer's
     (``replicated_equal``), ``torch.equal``, and its params and momentum hash (sha256) to its seq
-    peers' (``seq_equal``); up to PLAIN_APPLY_MAX coordinates, every step's
+    peers' (``seq_equal``), and under a pipe axis its replicated leaves hash to
+    every stage's (``pipe_equal``); up to PLAIN_APPLY_MAX coordinates, every step's
     params and momentum equal the plain apply (``fused_apply_plain``) of the
     plain election of the data group's gathered ballots (``apply_equal``),
     the params the other data rank's (``params_equal``), and with telemetry
@@ -2671,14 +2749,15 @@ class GridWatch:
     against ``(1 − β₂)·`` the unsplit model's gradient on the same rows and
     weights (``dense_grad`` through ``attn``, its flash launches taken back
     out of the counts), one data rank at a time, on its tensor, seq and
-    expert rank 0 (``momentum_vs_grad``: ``dp``)."""
+    expert rank 0 (``momentum_vs_grad``: ``dp``); under a pipe axis every
+    stage's leaves, gathered to stage 0, against the whole unsplit model."""
 
     def __init__(self, sft: Optional[dict] = None, check: bool = True, attn: str = "xla",
                  vocab_chunks: int = 0, steps: int = S_STEPS):
         self.sft, self.attn, self.vocab_chunks = sft, attn, vocab_chunks
         self.check_step = None if not check else steps - 1 if sft is not None else 0
         self.params_equal, self.replicated_equal, self.apply_equal = [], [], []
-        self.seq_equal, self.hist = [], []
+        self.seq_equal, self.hist, self.pipe_equal = [], [], []
         self.dp = None
         self.trainer = self.local = self.rows = None
         self._step, self._train_step = DistributedLion.step, train_loop.Trainer._train_step
@@ -2756,21 +2835,55 @@ class GridWatch:
                 del rep
         self.replicated_equal.append(equal)
         if tr.seq.size > 1:
-            # hashed a chunk at a time: at (w)'s 1.49B coordinates whole host
-            # copies of both buffers on four ranks would fill the host
-            digest = hashlib.sha256()
-            for t in (flat.params, st.exp_avg):
-                b = t.detach().reshape(-1).view(torch.uint8)
-                for i in range(0, b.numel(), HASH_CHUNK):
-                    digest.update(b[i:i + HASH_CHUNK].cpu().numpy())
-            every = [None] * tr.seq.size
-            dist.all_gather_object(every, digest.hexdigest(), group=tr.seq.group)
-            self.seq_equal.append(len(set(every)) == 1)
+            self.seq_equal.append(self._hash_equal((flat.params, st.exp_avg), tr.seq))
+        if tr.pipe.size > 1:   # wte, wpe and ln_f (Llama's lm_head) on every stage
+            views = flat.views(flat.params)
+            self.pipe_equal.append(self._hash_equal(
+                [views[n] for n, split in zip(flat.names, tr._pdims) if not split], tr.pipe))
         if first:
             self.dp = self._dp_check(tr, opt, before, st.exp_avg, m_before)
         del before, m_before
         torch.cuda.empty_cache()
         return out
+
+    @staticmethod
+    def _hash_equal(tensors, axis) -> bool:
+        """The sha256 of ``tensors`` the same on every rank of ``axis``'s
+        group, hashed a chunk at a time: at (w)'s and (z4)'s 1.49B
+        coordinates whole host copies on four ranks would fill the host."""
+        digest = hashlib.sha256()
+        for t in tensors:
+            b = t.detach().reshape(-1).view(torch.uint8)
+            for i in range(0, b.numel(), HASH_CHUNK):
+                digest.update(b[i:i + HASH_CHUNK].cpu().numpy())
+        every = [None] * axis.size
+        dist.all_gather_object(every, digest.hexdigest(), group=axis.group)
+        return len(set(every)) == 1
+
+    @staticmethod
+    def _stages(tr, before, m) -> tuple:
+        """Every stage's leaf names, whole shapes, params before the step and
+        momentum step, gathered to stage 0 (a replicated leaf once): ``(names,
+        shapes, before, m)`` there, Nones elsewhere."""
+        every = [None] * tr.pipe.size if tr.pipe.rank == 0 else None
+        mine = (tr.flat.names, tr.full_shapes, None if before is None else before.cpu(),
+                m.cpu())
+        dist.gather_object(mine, every, dst=dist.get_global_rank(tr.pipe.group, 0),
+                           group=tr.pipe.group)
+        if tr.pipe.rank or before is None:
+            return None, None, None, None
+        seen, names, shapes, ps, ms = set(), [], [], [], []
+        for stage_names, stage_shapes, b, mm in every:
+            sizes = [math.prod(x) for x in stage_shapes]
+            for name, shape, bp, mp in zip(stage_names, stage_shapes, b.split(sizes),
+                                           mm.split(sizes)):
+                if name not in seen:
+                    seen.add(name)
+                    names.append(name)
+                    shapes.append(shape)
+                    ps.append(bp)
+                    ms.append(mp)
+        return names, shapes, torch.cat(ps).to(m.device), torch.cat(ms).to(m.device)
 
     @staticmethod
     def _equal_to(t: torch.Tensor, group) -> bool:
@@ -2790,12 +2903,17 @@ class GridWatch:
                 m = tr._whole(momentum)
                 if self.check_step:   # the momentum before step 1 is zero
                     m = m - opt.b2 * tr._whole(m_before)
+                names = shapes = None
+                if tr.pipe.size > 1:
+                    names, shapes, before, m = self._stages(tr, before, m)
                 if before is not None:
                     counts = read_counts()
                     rows = self.rows if tr.seq.size > 1 or tr.expert.size > 1 else self.local
                     out = momentum_vs_grad(dense_grad(tr, rows, before, self.sft, self.attn,
-                                                      self.vocab_chunks), m, opt.b2)
-                    out["worst_leaf"] = tr.flat.names[out["worst_leaf"]]
+                                                      self.vocab_chunks, names, shapes),
+                                           m, opt.b2)
+                    names = names or tr.flat.names
+                    out["worst_leaf"], out["all_leaves"] = names[out["worst_leaf"]], len(names)
                     restore_counts(counts)
                 del m
                 torch.cuda.empty_cache()
@@ -2860,6 +2978,7 @@ def grid_one(rank: int, label: str, run, n_local: int, flash, dp_world: int = 2,
            "losses_equal": all(l == losses for d, l in every if d == trainer.rank),
            "params_equal": watch.params_equal, "replicated_equal": watch.replicated_equal,
            "apply_equal": watch.apply_equal, "seq_equal": watch.seq_equal, "hist": watch.hist,
+           "pipe_equal": watch.pipe_equal,
            "dp": watch.dp, "dp_step": None if watch.check_step is None else watch.check_step + 1,
            "peak_gib": peak / 2**30, "rss_gib": peak_rss_bytes() / 2**30, "wall_s": wall,
            "launches": launches, "comm": trainer.comm_stats().get("comm_bytes_per_step")}
@@ -2878,11 +2997,12 @@ def grid_one(rank: int, label: str, run, n_local: int, flash, dp_world: int = 2,
           and watch.params_equal == watch.apply_equal == ([True] * steps if plain else [])
           and watch.replicated_equal == [True] * steps
           and watch.seq_equal == ([True] * steps if sp > 1 else [])
+          and watch.pipe_equal == ([True] * steps if trainer.pipe.size > 1 else [])
           and all(watch.hist) and (len(watch.hist) == steps) == (
               plain and trainer.cfg.telemetry)
           and (watch.check_step is None or (
               dp is not None and dp["skipped"] == 0
-              and dp["leaves"] == len(trainer.flat.names) and dp["equal_ballots"] >= 0.99
+              and dp["leaves"] == dp["all_leaves"] and dp["equal_ballots"] >= 0.99
               and abs(dp["median_ratio"][0] - 1) < tol
               and abs(dp["median_ratio"][1] - 1) < tol))
           and rec.get("nf4_equal", True))
@@ -3193,6 +3313,93 @@ def ep_report(rec: dict, card: str) -> None:
               f"(and tensor) ranks after each step {r['replicated_equal']}; {check}{ring_text}; "
               f"step ms {r['step_ms']}; peak device memory {r['peak_gib']:.2f} GiB a rank; main "
               f"{r['wall_s']:.1f} s on {card}; rank 0 launches {r['launches']}", flush=True)
+
+
+# (label, args, pp, microbatches, a rank's coordinates, data world, unsplit check)
+PP_RUNS = (("(z1)", Z1_ARGS, 2, 4, N_PP, 2, True), ("(z2)", Z2_ARGS, 4, 8, N_PP4, 1, True),
+           ("(z3)", Z3_ARGS, 2, 4, N_PP_TP, 1, False))
+
+
+def pp_runs(rank: int) -> dict:
+    """Runs (z1)-(z4) on one rank of the pipeline spawn; rank 0 returns the
+    records. A rank's flash launches are a tensor-parallel run's over its
+    stage's blocks times the microbatches (accum 1): each block's forward
+    twice a microbatch (remat), the backward kernels once, and an eval
+    batch's microbatches forward."""
+    recs = []
+    for label, args, pp, micro, n, dp_world, check in PP_RUNS:
+        rec = grid_one(rank, label, lambda args=args: (run_clm.main(args), 10, None), n,
+                       lambda evals, pp=pp, micro=micro: tp_flash_launches(
+                           N_LAYER // pp * micro, Z_STEPS, evals, 64),
+                       dp_world=dp_world, check=check, steps=Z_STEPS)
+        recs.append(dict(rec, pp=pp, micro=micro))
+    with llama_cut(n_layer=Z4_LAYERS):
+        rec = grid_one(rank, "(z4)", lambda: (run_clm.main(Z4_ARGS), 4, None), N_PP_LLAMA3,
+                       lambda evals: tp_flash_launches(Z4_LAYERS // 2 * 2, Z_STEPS, evals, 128),
+                       check=False, steps=Z_STEPS)
+        recs.append(dict(rec, pp=2, micro=2))
+    return {"run": "pp", "records": recs}
+
+
+def pp_rank(rank: int, tmp: str) -> None:
+    """One rank of the pipeline spawn: W4 fresh processes on cuda:0 in a gloo
+    group of their own (as the expert-parallel spawn's, for the host's
+    memory), its collectives under a 600 s timeout so that a hop made out of
+    order fails the run; rank 0 writes ``tmp/pp.json``."""
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/pg_pp", rank=rank,
+                            world_size=W4, timeout=datetime.timedelta(seconds=600))
+    try:
+        rec = pp_runs(rank)
+        if rank == 0:
+            with open(f"{tmp}/pp.json", "w") as f:
+                json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def pp_phase(tmp: str, card: str) -> dict:
+    """Runs (z1)-(z4) in their own W4 spawn; prints rank 0's records and
+    returns its launches summed over the runs, per entry of KERNELS ((z4)'s
+    optimizer launches are the all-bfloat16 instantiation's)."""
+    mp.spawn(pp_rank, args=(tmp,), nprocs=W4, join=True)
+    with open(f"{tmp}/pp.json") as f:
+        rec = json.load(f)
+    pp_report(rec, card)
+    total = dict.fromkeys(KERNELS, 0)
+    for r in rec["records"]:
+        for k, v in r["launches"].items():
+            total[f"{k}_p_bf16" if r["run"] == "(z4)" and k in WRAPPERS
+                  and k != "bucket_vote_stats" else k] += v
+    return total
+
+
+def pp_report(rec: dict, card: str) -> None:
+    what = {"(z1)": "run_clm GPT-2 124M, dp 2 x pp 2, 4 microbatches of B 4",
+            "(z2)": "run_clm GPT-2 124M, dp 1 x pp 4, 8 microbatches of B 8",
+            "(z3)": "run_clm GPT-2 124M, dp 1 x tp 2 x pp 2, 4 microbatches of B 4",
+            "(z4)": f"run_clm --model_family llama, Llama-3-8B widths at {Z4_LAYERS} layers, "
+                    f"bf16, T {Z4_T}, --vocab_chunks 8, dp 2 x pp 2, 2 microbatches of B 2"}
+    for r in rec["records"]:
+        dp = r["dp"]
+        check = ("no unsplit check" if dp is None else
+                 f"pp == the unsplit model at step {r['dp_step']} (rank 0's data rank, every "
+                 f"stage's leaves): per-leaf median momentum ratio in "
+                 f"[{dp['median_ratio'][0]:.6f}, {dp['median_ratio'][1]:.6f}] over {dp['leaves']} "
+                 f"leaves ({dp['skipped']} skipped; farthest from 1: {dp['worst_leaf']}), max "
+                 f"|diff| {dp['max_abs_diff']:.3e} (max |m| {dp['max_abs']:.3e}), equal ballots "
+                 f"{dp['equal_ballots']:.6f}")
+        print(f"[pp] {r['run']} {what[r['run']]}: 4 ranks on one card (gloo), bubble fraction "
+              f"{bubble_fraction(r['pp'], r['micro']):.4f}, {r['n_params']:,} coordinates a "
+              f"rank of {r['n_global']:,}, {r['buckets']} bucket(s), {r['evals']} eval "
+              f"batch(es): losses {[round(x, 4) for x in r['losses']]}, equal across the data "
+              f"rank's ranks {r['losses_equal']}; replicated leaves equal across the stages "
+              f"after each step {r['pipe_equal']} (and across the tensor ranks "
+              f"{r['replicated_equal']}); plain apply of the plain election equal "
+              f"{r['apply_equal'] or 'not run (over PLAIN_APPLY_MAX)'}; {check}; step ms "
+              f"{r['step_ms']} (four ranks share the card: not a rate); peak device memory "
+              f"{r['peak_gib']:.2f} GiB a rank; main {r['wall_s']:.1f} s on {card}; rank 0 "
+              f"launches {r['launches']}", flush=True)
 
 
 def plane_run(rank: int, tmp: str) -> dict:
@@ -4535,7 +4742,9 @@ def main():
         w4_phase(tmp, card)
         t = phase_time(f"slice (f), GPT-2 124M at W = {W4} on one card", t)
         ep_phase(tmp, card)
-        phase_time(f"slice (y2), (y3), GPT-2-MoE at W = {W4} on one card", t)
+        t = phase_time(f"slice (y2), (y3), GPT-2-MoE at W = {W4} on one card", t)
+        pp_launches = pp_phase(tmp, card)
+        phase_time(f"slice (z1)-(z4), pipeline parallelism at W = {W4} on one card", t)
     for label, rs, counts in runs:
         step_ms = statistics.median(r["step_ms"] for r in rs[1:])
         tok_s = statistics.median(r["tokens_per_sec"] for r in rs[1:])
@@ -4590,7 +4799,7 @@ def main():
         kernels.append({"name": k, "route": route, "source": source, "replaces": replaces,
                         "launches": launches[k], "max_abs_err": err[k], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                        "library_ms": library})
+                        "library_ms": library, "pipeline_launches": pp_launches[k]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -59,9 +59,15 @@ consecutive ranks (``parallel/mesh.py``: rank ``r = ((d·tp + t)·sp + s)·ep
 + e``), composing with ``--tensor_parallel``; ``--ep_dcn_pipeline`` 0 feeds
 the balance loss the load summed over the expert group in the forward, d >
 0 the load of d steps before (``train/loop.py``). Llama and ``--hf_export``
-refuse MoE (JAX run_clm.py:355-363, 431-435). The pipeline axis is not a
-flag, so argparse refuses ``--pipeline_parallel`` (ROADMAP Queue 1 item
-11(f)).
+refuse MoE (JAX run_clm.py:355-363, 431-435). ``--pipeline_parallel pp``
+splits either family's blocks into pp stages over pipe groups
+(``parallel/mesh.py``: rank ``r = (((d·tp + t)·sp + s)·pp + p)·ep + e``),
+each rank's batch cut into ``--pipeline_microbatches`` (0: pp) GPipe
+microbatches (``parallel/pipeline.py``, ``models/gpt2_pipe.py``,
+``models/llama_pipe.py``), composing with ``--tensor_parallel`` and
+``--seq_parallel``; GPT-2's default dropout is 0 under it, and an explicit
+one is refused (JAX run_clm.py:82-96). ``model.npz`` and ``--hf_export``
+hold the whole model, every stage's blocks (JAX :525-537).
 """
 
 from __future__ import annotations
@@ -114,7 +120,7 @@ class ModelArguments:
     vocab_size: Optional[int] = None
     n_ctx: Optional[int] = None
     dropout: Optional[float] = None  # None = family default: 0.1 for GPT-2 (0 under
-    # --seq_parallel), 0 for Llama
+    # --seq_parallel and --pipeline_parallel), 0 for Llama
     seq_impl: str = "ring"  # under --seq_parallel: ring | ulysses (n_head % sp == 0)
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
@@ -126,13 +132,14 @@ class ModelArguments:
     moe_capacity_factor: float = 1.25
 
 
-def resolve_dropout(dropout: Optional[float], family: str, sp: int = 1) -> float:
+def resolve_dropout(dropout: Optional[float], family: str, pp: int = 1, sp: int = 1) -> float:
     """0.1 for GPT-2 when unset, the HF GPT-2 config's every pdrop; 0 under
-    sequence parallelism, which skips attention-probability dropout (JAX
-    run_clm.py:80-97)."""
+    pipeline parallelism, where dropout is refused (an explicit value still
+    fails there), and under sequence parallelism, which skips
+    attention-probability dropout (JAX run_clm.py:80-97)."""
     if dropout is not None:
         return dropout
-    return 0.1 if family == "gpt2" and sp <= 1 else 0.0
+    return 0.1 if family == "gpt2" and pp <= 1 and sp <= 1 else 0.0
 
 
 @dataclasses.dataclass
@@ -288,7 +295,7 @@ def check_family(model_args: ModelArguments, family: str, ep: int = 1) -> None:
                          "(32000/128256) are already 128-multiples")
 
 
-def model_config(model_args: ModelArguments, sp: int = 1, ep: int = 1):
+def model_config(model_args: ModelArguments, sp: int = 1, ep: int = 1, pp: int = 1):
     """The ``GPT2Config`` or ``LlamaConfig`` of a seeded init, with the JAX
     CLI's family guards."""
     family = model_args.model_family
@@ -302,7 +309,7 @@ def model_config(model_args: ModelArguments, sp: int = 1, ep: int = 1):
         if model_args.model_name not in presets:
             raise ValueError(f"unknown gpt2 model_name {model_args.model_name!r}")
         cfg = presets[model_args.model_name](
-            dropout=resolve_dropout(model_args.dropout, family, sp),
+            dropout=resolve_dropout(model_args.dropout, family, pp, sp),
             vocab_pad_multiple=model_args.vocab_pad_multiple,
             moe_experts=model_args.moe_experts, moe_every=model_args.moe_every,
             moe_capacity_factor=model_args.moe_capacity_factor, **common)
@@ -314,7 +321,7 @@ def model_config(model_args: ModelArguments, sp: int = 1, ep: int = 1):
 
 
 def load_pretrained(model_args: ModelArguments, device, announce: bool = True,
-                    sp: int = 1, ep: int = 1) -> tuple:
+                    sp: int = 1, ep: int = 1, pp: int = 1) -> tuple:
     """``--model_path``: ``(initial weight tree on device, config)`` of the
     checkpoint, its family detected first (JAX run_clm.py:331-339,
     372-398, 415); GPT-2's table padded to ``--vocab_pad_multiple``."""
@@ -328,7 +335,7 @@ def load_pretrained(model_args: ModelArguments, device, announce: bool = True,
         params, cfg = hf_import.llama_from_hf(path, device=device, **config_args(model_args))
     else:
         params, cfg = hf_import.gpt2_from_hf(
-            path, device=device, dropout=resolve_dropout(model_args.dropout, family, sp),
+            path, device=device, dropout=resolve_dropout(model_args.dropout, family, pp, sp),
             **config_args(model_args))
     if announce:
         print(f"[run_clm] loaded pretrained {family} from {path}: {cfg.n_layer}L "
@@ -383,14 +390,14 @@ def main(argv=None) -> Trainer:
     device = platform_device()
     group = init_distributed(device)
     grid = make_grid(train_cfg.tensor_parallel, group, sp=train_cfg.seq_parallel,
-                     ep=train_cfg.expert_parallel)
+                     ep=train_cfg.expert_parallel, pp=train_cfg.pipeline_parallel)
     rank0 = grid.rank == 0
     initial_params = None
     if model_args.model_path:
         initial_params, model_cfg = load_pretrained(model_args, device, announce=rank0,
-                                                    sp=grid.sp, ep=grid.ep)
+                                                    sp=grid.sp, ep=grid.ep, pp=grid.pp)
     else:
-        model_cfg = model_config(model_args, grid.sp, grid.ep)
+        model_cfg = model_config(model_args, grid.sp, grid.ep, grid.pp)
     if (initial_params is None and not model_args.vocab_size
             and data_args.dataset.startswith("text:")):
         # (a loaded checkpoint's embedding is fixed: out-of-range tokenizer
@@ -444,8 +451,8 @@ def main(argv=None) -> Trainer:
         if trainer.checkpointer:
             trainer.save()
         if (train_cfg.output_dir or model_args.hf_export) and trainer.rank == 0:
-            # data rank 0's tensor and expert groups gather the whole leaves;
-            # rank 0 writes
+            # data rank 0's tensor, expert and pipe groups gather the whole
+            # leaves (every stage's blocks); rank 0 writes
             whole = trainer.full_named()
             if train_cfg.output_dir and rank0:
                 save_pytree(f"{train_cfg.output_dir}/model.npz",

@@ -128,14 +128,16 @@ class LlamaConfig:
 
 def llama_init(cfg: LlamaConfig, *, seed: int = 0, device="cuda", quant: Optional[str] = None,
                quant_block: Optional[int] = None, tp: Optional[TensorAxis] = None,
-               vocab_parallel: bool = False) -> dict:
+               vocab_parallel: bool = False, layers: Optional[range] = None) -> dict:
     """Random weights (std 0.02, the residual projections 0.02/sqrt(2L);
     norm scales 1) in the JAX package's tree, made leaf by leaf on
     ``device`` from ``seed``. With ``quant`` ('nf4' or 'int8') each leaf is
     quantized as it is made (``ops.quant.quantize_leaf``, the leaves
     ``quantize_tree`` would pick), so the dense tree never exists whole.
     With ``tp`` (size > 1) each leaf is then cut to this rank's slice
-    (``llama_shard_dim``): the slices of the unsplit init."""
+    (``llama_shard_dim``): the slices of the unsplit init. With ``layers``
+    the tree's ``blocks`` hold only those layers (a pipeline stage's), the
+    same leaves as the whole init's."""
     device = resolve_device(device)
     tp = tp or TensorAxis()
     d, dt, hd = cfg.d_model, cfg.param_dtype, cfg.head_dim
@@ -159,6 +161,10 @@ def llama_init(cfg: LlamaConfig, *, seed: int = 0, device="cuda", quant: Optiona
                     "lm_head": normal("lm_head", (d, cfg.vocab_size), 0.02),
                     "ln_f": {"scale": ones()}, "blocks": []}
     for i in range(cfg.n_layer):
+        if layers is not None and i not in layers:
+            for _ in range(7):   # the leaves another stage draws
+                next(counter)
+            continue
         b = f"blocks.{i}."
         params["blocks"].append({
             "ln_attn": {"scale": ones()},

@@ -6,7 +6,8 @@ is one rank's rows' (with the MoE aux); under a seq axis
 (``parallel.mesh.SeqAxis``) :func:`clm_loss_seq_parallel` is one chunk's,
 with the shard-boundary protocol (:func:`shift_in_next_shard`) that the
 chunked head (``ops.xent.chunked_clm_loss_seq_parallel``) and DPO's
-logprobs (``train.dpo``) share.
+logprobs (``train.dpo``) share; under a seq and a pipe axis together
+:func:`pipelined_seq_parallel_loss` is the last pipeline stage's.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from distributed_lion_tpu_torch.parallel.pipeline import from_last_stage
 from distributed_lion_tpu_torch.parallel.ring_attention import ppermute
 
 
@@ -123,3 +125,26 @@ def clm_loss_seq_parallel(logits: torch.Tensor, tokens: torch.Tensor, seq) -> tu
     nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
     correct = (logits.argmax(-1) == labels).to(torch.float32)
     return seq_parallel_sums((nll * mask).sum(), (correct * mask).sum(), mask, seq)
+
+
+def pipelined_seq_parallel_loss(head_partials, acc: Optional[torch.Tensor],
+                                tokens: torch.Tensor, seq, pipe) -> tuple:
+    """The sp × pp loss scaffold of the pipelined models (loss.py:164-203):
+    the boundary labels (a hop over the seq group) and the global token
+    count on every stage, as the JAX package hoists its collectives out of
+    the last-stage branch; ``head_partials(acc, labels, mask) -> (masked nll
+    sum, masked correct sum)`` on the last stage only (``acc`` its outputs,
+    None elsewhere; zeros stand in on the other stages). Returns
+    ``(loss_local, metrics)``: ``loss_local = nll_sum / n_global``, whose
+    gradient summed over the seq group (and, for the replicated leaves, the
+    pipe group) is the whole batch's; the loss and accuracy summed over the
+    seq group, then the pipe group, and ``n_tokens`` the per-seq-shard
+    count, the same on every rank."""
+    labels, mask = shifted_labels_and_mask(tokens, seq)
+    if acc is not None:
+        nll_sum, correct_sum = head_partials(acc, labels, mask)
+    else:
+        nll_sum = correct_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    loss_local, metrics = seq_parallel_sums(nll_sum, correct_sum, mask, seq)
+    over = from_last_stage(torch.stack([metrics["loss"], metrics["accuracy"]]), pipe)
+    return loss_local, {"loss": over[0], "accuracy": over[1], "n_tokens": metrics["n_tokens"]}

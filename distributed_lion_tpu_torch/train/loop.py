@@ -225,8 +225,35 @@ another depth, or elastic with a ring, is refused in the JAX words (a
 checkpoint's ep may differ: its leaves are whole). The banner and
 ``comm_stats`` state the whole model's coordinates.
 
+**Pipeline parallelism** (``pipeline_parallel`` pp > 1, JAX
+loop.py:196-200, :1401-1452, :1875-1882, :2432-2483, :2742-2787). The
+grid's pipe groups (``parallel.mesh.make_grid``: rank ``r = (((d·tp +
+t)·sp + s)·pp + p)·ep + e``) split the blocks into pp stages
+(``models/gpt2_pipe.py``, ``models/llama_pipe.py``): each rank holds its
+stage's blocks (``pipe_rule`` names them) and the replicated embedding, head
+and final norm, and takes its data rank's rows (every stage the same), cut
+into ``pipeline_microbatches`` (0: pp) GPipe microbatches
+(``parallel/pipeline.py``). The pipelined loss runs its own backward: a
+loss function marked ``_runs_backward`` returns a loss whose gradient is
+already in the flat grad buffer, and the trainer does not call
+``backward()`` on it. After accumulation one ``all_reduce`` over the pipe
+group sums the replicated leaves' disjoint partials (stage 0's embedding,
+the last stage's head and norm); the stage leaves' gradients are complete.
+The pre-clip norm sums a stage leaf's squares over the pipe group and counts
+a replicated leaf once. Each data group votes on its own stage's
+coordinates; the banner and ``comm_stats`` state the whole model's count.
+Composes with tp and sp (dp × tp × sp × pp); refused in the JAX words: an
+expert axis or MoE beside it, ``tp_vocab``, and under params split over
+``pipe`` ``vote_every``, ``telemetry``, ``vote_guard`` and AdamW/ZeRO-1;
+dropout, a layer count or a batch that does not divide. Eval splits each
+rank's batch into the microbatches too. Checkpoints hold whole leaves (over
+tensor): each stage's params (``params/stage<p>.pt``, data rank 0's tensor
+and seq rank 0) and each data rank's momentum of its stage
+(``exp_avg/rank<d>_stage<p>.pt``), ``pipeline_parallel`` in the meta; a
+checkpoint resumes only at its own pp (:func:`check_resume_meta`).
+
 ``TrainConfig`` holds only the fields the port runs, with their JAX
-defaults; the others (the pipeline axis, …) are not flags here, so argparse
+defaults; the others (``steps_per_call``, …) are not flags here, so argparse
 refuses them.
 """
 
@@ -245,7 +272,22 @@ import torch
 import torch.distributed as dist
 
 from distributed_lion_tpu_torch.models.gpt2 import GPT2, GPT2Config, fold_seed, n_moe_blocks
+from distributed_lion_tpu_torch.models.gpt2_pipe import (
+    GPT2Stage,
+    make_pipeline_loss,
+    pipeline_param_specs,
+    pipeline_params,
+    unpipeline_params,
+    validate_pipeline,
+)
 from distributed_lion_tpu_torch.models.llama import Llama, LlamaConfig, as_parameters, llama_init
+from distributed_lion_tpu_torch.models.llama_pipe import (
+    LlamaStage,
+    llama_pipeline_param_specs,
+    llama_pipeline_params,
+    make_llama_pipeline_loss,
+    validate_llama_pipeline,
+)
 from distributed_lion_tpu_torch.models.loss import (
     clm_loss_and_metrics,
     clm_loss_seq_parallel,
@@ -275,6 +317,7 @@ from distributed_lion_tpu_torch.parallel import collectives
 from distributed_lion_tpu_torch.parallel import tensor_parallel as tpar
 from distributed_lion_tpu_torch.parallel.expert import AUX_WEIGHT, expert_shard_dim
 from distributed_lion_tpu_torch.parallel.mesh import Grid, data_grid, resolve_device
+from distributed_lion_tpu_torch.parallel.pipeline import stage_layers
 from distributed_lion_tpu_torch.train import (
     control_plane,
     journal,
@@ -356,6 +399,9 @@ class TrainConfig:
     tensor_parallel: int = 1  # the tensor axis: tp consecutive ranks split the model
     tp_vocab: bool = False  # with tp > 1: split the embedding/head by vocabulary too
     seq_parallel: int = 1  # the seq axis: sp consecutive ranks split each row's tokens
+    pipeline_parallel: int = 1  # the pipe axis: pp stages over the blocks (GPipe schedule)
+    pipeline_microbatches: int = 0  # GPipe microbatches per accumulation step (0: pp);
+    # bubble fraction (pp - 1)/(M + pp - 1)
     expert_parallel: int = 1  # the expert axis: ep consecutive ranks split the MoE experts
     # and a data rank's batch rows (the CLI's grid; run_clm's GPT-2-MoE)
     ep_dcn_pipeline: Optional[int] = None  # MoE balance feedback: None = each rank's
@@ -588,10 +634,12 @@ def arm_control_plane(cfg: TrainConfig) -> tuple[TrainConfig, bool]:
     return cfg, armed
 
 
-def _refuse_split_params(cfg: TrainConfig, tp: int, axes: tuple = ("tensor",)) -> None:
+def _refuse_split_params(cfg: TrainConfig, tp: int, axes: tuple = ("tensor",),
+                         sp: int = 1) -> None:
     """The JAX trainer's refusals under params split over the mesh ``axes``
-    (the tensor axis, and the expert axis of an MoE model's experts; JAX
-    loop.py:761-771, 823-860), in its words."""
+    (the tensor axis, the expert axis of an MoE model's experts, the pipe
+    axis of a pipelined model's stages; JAX loop.py:761-771, 823-860), in
+    its words."""
     axes = sorted(axes)
     if cfg.zero1 and tp > 1:
         raise ValueError(
@@ -599,6 +647,7 @@ def _refuse_split_params(cfg: TrainConfig, tp: int, axes: tuple = ("tensor",)) -
             "shard_map each tensor rank ravels its own local param shard, so the m/v chunks "
             "diverge across ranks while the out_specs assume tensor-replication — one rank's "
             "moments would silently win. Use pure data parallelism with ZeRO-1.")
+    _refuse_zero1_seq(cfg, sp)
     _check_ep_dcn_pipeline(cfg)   # the optimizer's flag rules come first in JAX's order
     if not cfg.lion:
         raise NotImplementedError("tensor-parallel param_specs require the Lion path")
@@ -662,18 +711,31 @@ VOTE_HEALTH_FILE = "vote_health.pt"
 ADAMW_FILE = "adamw.pt"  # AdamW's replicated moments
 
 
-def momentum_file(rank: int) -> str:
-    return f"exp_avg/rank{rank:05d}.pt"
+def _stage_suffix(stage: Optional[int]) -> str:
+    return "" if stage is None else f"_stage{stage:05d}"
+
+
+def params_file(stage: Optional[int] = None) -> str:
+    """The params of a checkpoint step: the whole model's, or under a pipe
+    axis pipeline stage ``stage``'s."""
+    return PARAMS_FILE if stage is None else f"params/stage{stage:05d}.pt"
+
+
+def momentum_file(rank: int, stage: Optional[int] = None) -> str:
+    """Data rank ``rank``'s momentum (of its pipeline stage ``stage``'s
+    leaves under a pipe axis)."""
+    return f"exp_avg/rank{rank:05d}{_stage_suffix(stage)}.pt"
 
 
 def ring_file(rank: int, tensor_rank: Optional[int] = None,
-              expert_rank: Optional[int] = None) -> str:
-    """The DCN pipeline's in-flight slots of ``rank`` (of its tensor and
-    expert rank's slice under those axes: the slots are of a rank's own
-    ballot)."""
+              expert_rank: Optional[int] = None, stage: Optional[int] = None) -> str:
+    """The DCN pipeline's in-flight slots of ``rank`` (of its tensor,
+    expert rank's and pipeline stage's slice under those axes: the slots are
+    of a rank's own ballot)."""
     return (f"dcn_ring/rank{rank:05d}"
             + ("" if tensor_rank is None else f"_tensor{tensor_rank:05d}")
-            + ("" if expert_rank is None else f"_expert{expert_rank:05d}") + ".pt")
+            + ("" if expert_rank is None else f"_expert{expert_rank:05d}")
+            + _stage_suffix(stage) + ".pt")
 
 
 def moe_ring_file(rank: int) -> str:
@@ -693,12 +755,21 @@ def prev_ballot_file(rank: int) -> str:
     return f"prev_ballot/rank{rank:05d}.pt"
 
 
-def check_resume_meta(step: int, meta: dict, cfg: TrainConfig, tp: int, ep: int = 1) -> None:
+def check_resume_meta(step: int, meta: dict, cfg: TrainConfig, tp: int, ep: int = 1,
+                      pp: int = 1) -> None:
     """Refuse, before any file is read, a checkpoint whose in-flight state
     this run cannot take: a DCN ring written at another depth or, its files
     being a tensor and expert rank's each, at another tp or ep; an MoE
     balance ring written at another ``--ep_dcn_pipeline`` (JAX
-    loop.py:2264-2298)."""
+    loop.py:2264-2298); one written at another pp, whose stages' files hold
+    other blocks."""
+    ckpt_pp = int(meta.get("pipeline_parallel", 1) or 1)
+    if ckpt_pp != pp:
+        raise ValueError(
+            f"checkpoint step {step} was written at --pipeline_parallel {ckpt_pp}, and this run "
+            f"has --pipeline_parallel {pp}: each pipeline stage's files hold its own blocks "
+            "(params/stage<p>.pt, exp_avg/rank<r>_stage<p>.pt), which do not restage. Resume "
+            f"at --pipeline_parallel {ckpt_pp}")
     # the ring's slots are the depth's in-flight steps: no remap
     ckpt_depth = int(meta.get("dcn_pipeline_depth", 0) or 0)
     if ckpt_depth != cfg.dcn_pipeline_depth:
@@ -887,12 +958,12 @@ def _moe_loss_fn(model: GPT2, cfg: TrainConfig, grid: Grid) -> LossFn:
 
 
 def _announce(family: str, n: int, world: int, cfg: TrainConfig, device, tp: int = 1,
-              sp: int = 1, ep: int = 1) -> None:
+              sp: int = 1, ep: int = 1, pp: int = 1) -> None:
     """The trainer's banner (JAX loop.py:2722-2731): params, world (and tp,
-    sp and ep), and the vote wire with its bits per param per step, of the
-    whole model's ``n`` coordinates as the JAX package counts them."""
+    sp, pp and ep), and the vote wire with its bits per param per step, of
+    the whole model's ``n`` coordinates as the JAX package counts them."""
     where = (f"world={world}" + (f" tp={tp}" if tp > 1 else "") + (f" sp={sp}" if sp > 1 else "")
-             + (f" ep={ep}" if ep > 1 else ""))
+             + (f" pp={pp}" if pp > 1 else "") + (f" ep={ep}" if ep > 1 else ""))
     if not cfg.lion:
         emit(f"[trainer] {family} {n/1e6:.1f}M params | {where} | AdamW"
              + (" ZeRO-1" if cfg.zero1 else "") + f", gradient all_reduce | device={device}")
@@ -912,12 +983,21 @@ def _announce(family: str, n: int, world: int, cfg: TrainConfig, device, tp: int
          + f" | device={device}")
 
 
-def _whole_count(named, rule, tp: int, expert_rule=None, ep: int = 1) -> int:
+def _whole_count(named, rule, tp: int, expert_rule=None, ep: int = 1, pipe_rule=None,
+                 pp: int = 1) -> int:
     """The coordinates of the whole leaves of which ``named`` holds slices
-    (split by ``rule`` over tp and by ``expert_rule`` over ep)."""
+    (split by ``rule`` over tp and by ``expert_rule`` over ep), and under a
+    pipe axis of pp equal stages, of every stage's (``pipe_rule`` names a
+    stage's own leaves)."""
     return sum(math.prod(tpar.full_shape(
         tpar.full_shape(tuple(p.shape), rule(name) if tp > 1 else None, tp),
-        expert_rule(name) if ep > 1 else None, ep)) for name, p in named)
+        expert_rule(name) if ep > 1 else None, ep))
+        * (pp if pp > 1 and pipe_rule(name) else 1) for name, p in named)
+
+
+# JAX loop.py:2457-2461, 2761-2765
+TP_VOCAB_UNDER_PIPE = ("--tp_vocab under --pipeline_parallel is not wired (the pipeline loss "
+                       "carries its own replicated head); drop one")
 
 
 def announce_guards(trainer: "Trainer", prog: str) -> None:
@@ -979,17 +1059,22 @@ def report_preempted(trainer: "Trainer", prog: str) -> bool:
 class Trainer:
     """Train/eval loop on one rank over ``named_params`` (in the JAX
     package's leaf order: the flat buffers' layout) and ``loss_fn``.
-    ``grid`` is the dp × tp × sp × ep grid (``parallel.mesh.make_grid``; a
+    ``grid`` is the dp × tp × sp × pp × ep grid (``parallel.mesh.make_grid``; a
     data-parallel run over a process group passes ``data_grid(group)``;
     None: a world of one) with ``shard_rule(name) -> dim or None`` naming
     the tensor split of each parameter and ``expert_rule(name)`` its expert
     split (module doc; given for an MoE model whose experts are split over
-    the expert or tensor axis, as the JAX trainer's MoE param specs); ``model``, where
+    the expert or tensor axis, as the JAX trainer's MoE param specs), and
+    ``pipe_rule(name) -> bool`` whether a parameter is its pipeline stage's
+    own (split over the pipe axis) rather than replicated over it; ``model``, where
     given, is the module ``loss_fn`` runs, for the caller (``for_gpt2``'s
-    GPT-2: ``run_clm`` saves it)."""
+    GPT-2: ``run_clm`` saves it). A ``loss_fn`` marked ``_runs_backward``
+    (the pipelined models') puts its gradient into the params' ``.grad``
+    itself, and the trainer does not call ``backward()`` on its loss."""
 
     def __init__(self, cfg: TrainConfig, named_params, loss_fn: LossFn, *, model=None,
-                 grid: Optional[Grid] = None, shard_rule=None, expert_rule=None):
+                 grid: Optional[Grid] = None, shard_rule=None, expert_rule=None,
+                 pipe_rule=None):
         grid = grid or data_grid()
         if grid.tp != cfg.tensor_parallel:
             raise ValueError(f"--tensor_parallel {cfg.tensor_parallel} but the grid's tensor "
@@ -1000,6 +1085,7 @@ class Trainer:
         if grid.sp > 1 and cfg.block_size % grid.sp:
             raise ValueError(f"block_size {cfg.block_size} not divisible by seq axis {grid.sp}")
         self.grid, self.tensor, self.seq, self.expert = grid, grid.tensor, grid.seq, grid.expert
+        self.pipe = grid.pipe
         self.world = grid.dp
         self.rank = grid.data_rank     # the vote's rank: seeds, momentum files
         # a data rank's batch rows split over its expert ranks (JAX's
@@ -1026,19 +1112,26 @@ class Trainer:
                       for name, _ in named_params]
         self._edims = [None if ep == 1 or expert_rule is None else expert_rule(name)
                        for name, _ in named_params]
+        # a stage's own leaves (split over the pipe axis), or replicated over it
+        self._pdims = [grid.pp > 1 and pipe_rule is not None and bool(pipe_rule(name))
+                       for name, _ in named_params]
         self._local_shapes = [tuple(p.shape) for _, p in named_params]
         self._mid_shapes = [tpar.full_shape(s, d, tp)   # whole over tensor, split over experts
                             for s, d in zip(self._local_shapes, self._dims)]
         self.full_shapes = [tpar.full_shape(s, d, ep)
                             for s, d in zip(self._mid_shapes, self._edims)]
-        # the whole model's coordinates: what the JAX package counts
-        n = sum(math.prod(s) for s in self.full_shapes)
+        # the whole model's coordinates: what the JAX package counts (the
+        # stages hold equal shares of the blocks)
+        n = sum(math.prod(s) * (grid.pp if p else 1)
+                for s, p in zip(self.full_shapes, self._pdims))
         self.n_global = n
-        split_axes = (("tensor",) if tp > 1 else ()) + (("expert",) if expert_rule else ())
+        split_axes = ((("tensor",) if tp > 1 else ()) + (("expert",) if expert_rule else ())
+                      + (("pipe",) if any(self._pdims) else ()))
         if split_axes:
-            _refuse_split_params(cfg, tp, split_axes)
+            _refuse_split_params(cfg, tp, split_axes, grid.sp)
         _refuse_zero1_seq(cfg, grid.sp)
-        cfg = _resolve_for_world(cfg, self.world, n, announce=self.chief, tp=tp * ep,
+        self._loss_runs_backward = getattr(loss_fn, "_runs_backward", False)
+        cfg = _resolve_for_world(cfg, self.world, n, announce=self.chief, tp=tp * ep * grid.pp,
                                  replicated=not split_axes)
         check_telemetry_size(n, cfg.vote_every, cfg.telemetry)
         self.cfg = cfg
@@ -1152,6 +1245,12 @@ class Trainer:
         """A trainer message: printed on global rank 0, journaled on every rank."""
         emit(msg, echo=self.chief)
 
+    @property
+    def _stage(self) -> Optional[int]:
+        """This rank's pipeline stage, which names its checkpoint files; None
+        without a pipe axis."""
+        return self.pipe.rank if self.pipe.size > 1 else None
+
     @staticmethod
     def for_gpt2(cfg: TrainConfig, model_cfg: GPT2Config, *, device="cuda",
                  initial_params: Optional[dict] = None,
@@ -1175,6 +1274,8 @@ class Trainer:
         grid = grid or data_grid()
         tp, sp, ep = grid.tp, grid.sp, grid.ep
         moe = model_cfg.moe_experts > 0
+        if grid.pp > 1:
+            return Trainer._gpt2_pipeline(cfg, model_cfg, device, initial_params, grid)
         _refuse_moe(cfg, model_cfg, sp, ep)
         if tp > 1:
             tpar.validate_tp(model_cfg, tp, "gpt2")
@@ -1228,6 +1329,60 @@ class Trainer:
         return Trainer(cfg, named, loss_fn, model=model, grid=grid, shard_rule=model.shard_dim)
 
     @staticmethod
+    def _gpt2_pipeline(cfg: TrainConfig, model_cfg: GPT2Config, device, initial_params,
+                       grid: Grid) -> "Trainer":
+        """``for_gpt2`` under a pipe axis (JAX loop.py:2432-2483): this
+        rank's stage (``models.gpt2_pipe.GPT2Stage``, its tensor slices
+        under tp, its token chunk under sp) and the pipelined loss, after
+        the JAX trainer's refusals in its words and order."""
+        tp, sp, pp = grid.tp, grid.sp, grid.pp
+        if cfg.vocab_chunks > 0 and model_cfg.moe_experts > 0:
+            raise NotImplementedError(
+                "--vocab_chunks is wired for the dense dp/tp/sp/pp paths "
+                "(the MoE branch carries its own loss function); drop one")
+        if grid.ep > 1:
+            raise NotImplementedError(
+                "pipeline parallelism composes with data, tensor and "
+                "sequence parallelism (dp x tp x sp x pp); an expert "
+                "axis alongside pipe is not wired")
+        if model_cfg.moe_experts > 0:
+            raise NotImplementedError(
+                "MoE blocks under pipeline parallelism are not wired "
+                "(mixed dense/MoE stage structures); drop one of the two")
+        if cfg.tp_vocab:
+            raise NotImplementedError(TP_VOCAB_UNDER_PIPE)
+        if tp > 1:
+            tpar.validate_tp(model_cfg, tp, "gpt2")
+        model_cfg = apply_remat_policy(cfg, model_cfg)
+        if sp > 1:
+            validate_seq_block(cfg, model_cfg, sp)
+        n_micro = cfg.pipeline_microbatches or pp
+        validate_pipeline(model_cfg, cfg, pp, n_micro)
+        stage = GPT2Stage(model_cfg, grid.pipe, device=device, seed=cfg.seed, tp=grid.tensor,
+                          seq=grid.seq)
+        named = stage.jax_named_parameters()
+        specs = pipeline_param_specs(tensor=tp > 1)
+
+        def rule(name):
+            return specs(name)[1]
+
+        def pipe_rule(name):
+            return specs(name)[0]
+
+        if initial_params is not None:
+            mine = pipeline_params(initial_params, model_cfg.n_layer, grid.pipe)
+            with torch.no_grad():
+                for name, p in named:
+                    p.copy_(tpar.shard(mine[name], rule(name), tp, grid.tensor.rank))
+        n = _whole_count(named, rule, tp, pipe_rule=pipe_rule, pp=pp)
+        cfg = _resolve_for_world(cfg, grid.dp, n, announce=grid.rank == 0, tp=tp * pp,
+                                 replicated=False)
+        if grid.rank == 0:
+            _announce("GPT-2", n, grid.dp, cfg, device, tp, sp, pp=pp)
+        return Trainer(cfg, named, make_pipeline_loss(stage, n_micro, cfg.vocab_chunks),
+                       model=stage, grid=grid, shard_rule=rule, pipe_rule=pipe_rule)
+
+    @staticmethod
     def for_llama(cfg: TrainConfig, model_cfg: LlamaConfig, *, device="cuda",
                   initial_params=None, grid: Optional[Grid] = None) -> "Trainer":
         """Full-parameter causal-LM training of a Llama (the dp and dp × tp
@@ -1241,15 +1396,20 @@ class Trainer:
         or with ``tp_vocab`` the vocab-parallel one over the rank's
         ``lm_head`` columns; under ``seq_parallel`` the seq-parallel dense or
         chunked loss of the rank's token chunk. The model has no dropout. An
-        expert axis is GPT-2-MoE's (refused, JAX :2721-2725); the pipeline
-        axis is not ported (ROADMAP Queue 1 item 11(f))."""
+        expert axis is GPT-2-MoE's (refused, JAX :2721-2725). Under a pipe
+        axis (JAX :2742-2787) the rank holds its stage
+        (``models.llama_pipe.LlamaStage``, made by ``llama_init`` with its
+        layers, or cut from ``initial_params``) and the loss is the pipelined
+        one."""
         device = resolve_device(device)
         grid = grid or data_grid()
         if grid.ep > 1:
             raise NotImplementedError(
                 "an 'expert' mesh axis is wired for GPT-2-MoE only; Llama "
                 "composes with dp x tp x sp x pp")
-        tp, sp = grid.tp, grid.sp
+        tp, sp, pp = grid.tp, grid.sp, grid.pp
+        if pp > 1 and cfg.tp_vocab:
+            raise NotImplementedError(TP_VOCAB_UNDER_PIPE)
         if tp > 1:
             tpar.validate_tp(model_cfg, tp, "llama")
         _check_tp_vocab(cfg, tp, model_cfg.vocab_size, gpt2=False, sp=sp)
@@ -1259,6 +1419,30 @@ class Trainer:
 
         def rule(name):
             return tpar.llama_shard_dim(name, cfg.tp_vocab) if tp > 1 else None
+
+        if pp > 1:
+            n_micro = cfg.pipeline_microbatches or pp
+            validate_llama_pipeline(model_cfg, cfg, pp, n_micro)
+            params = as_parameters(
+                llama_init(model_cfg, seed=cfg.seed, device=device, tp=grid.tensor,
+                           layers=stage_layers(model_cfg.n_layer, grid.pipe))
+                if initial_params is None
+                else map_tree(lambda t: t.to(device, model_cfg.param_dtype),
+                              tpar.shard_tree(llama_pipeline_params(initial_params, grid.pipe),
+                                              rule, tp, grid.tensor.rank)))
+            stage = LlamaStage(model_cfg, grid.pipe, params, tp=grid.tensor, seq=grid.seq)
+            named = stage.jax_named_parameters()
+
+            def pipe_rule(name):
+                return llama_pipeline_param_specs()(name)[0]
+
+            n = _whole_count(named, rule, tp, pipe_rule=pipe_rule, pp=pp)
+            cfg = _resolve_for_world(cfg, grid.dp, n, announce=grid.rank == 0, tp=tp * pp,
+                                     replicated=False)
+            if grid.rank == 0:
+                _announce("Llama", n, grid.dp, cfg, device, tp, sp, pp=pp)
+            return Trainer(cfg, named, make_llama_pipeline_loss(stage, n_micro, cfg.vocab_chunks),
+                           model=stage, grid=grid, shard_rule=rule, pipe_rule=pipe_rule)
 
         # no reference to the initial tensors outlives the parameters: the
         # flat buffers take their place (at Llama-3-8B, 16 GB)
@@ -1289,11 +1473,17 @@ class Trainer:
 
     def full_named(self) -> dict:
         """``{name: whole leaf}`` of the trained parameters, gathered over the
-        tensor and expert groups (a collective: every rank of the data rank
-        calls it)."""
+        tensor and expert groups, and under a pipe axis every stage's leaves
+        on the host (a collective: every rank of the data rank calls it)."""
         views = self.flat.views(self.flat.params)
-        return {name: tpar.gather(tpar.gather(views[name], dim, self.tensor), edim, self.expert)
-                for name, dim, edim in zip(self.flat.names, self._dims, self._edims)}
+        whole = {name: tpar.gather(tpar.gather(views[name], dim, self.tensor), edim, self.expert)
+                 for name, dim, edim in zip(self.flat.names, self._dims, self._edims)}
+        if self.pipe.size == 1:
+            return whole
+        every = [None] * self.pipe.size
+        dist.all_gather_object(every, {k: v.detach().cpu() for k, v in whole.items()},
+                               group=self.pipe.group)
+        return unpipeline_params(every)
 
     def comm_stats(self, steps_per_sec: Optional[float] = None) -> dict:
         """The vote's analytic wire bytes (JAX ``Trainer.comm_stats``,
@@ -1346,7 +1536,8 @@ class Trainer:
                 seed = fold_seed(seed, self.expert.rank)
             loss, metrics = self.loss_fn(_rows(local, i * bs, (i + 1) * bs), seed,
                                          *(() if ring is None else (stale,)))
-            loss.backward()
+            if not self._loss_runs_backward:
+                loss.backward()
             if ring is not None:
                 t = metrics.pop("moe_tallies")
                 fresh = t if fresh is None else fresh + t
@@ -1364,12 +1555,18 @@ class Trainer:
                 # each seq rank's gradient is its chunk's share of the loss:
                 # the whole sequence's is their sum (JAX loop.py:1396-1400)
                 dist.all_reduce(grads, group=self.seq.group)
+            if self.pipe.size > 1:
+                # a replicated leaf's gradient is the stage's disjoint share
+                # (stage 0 the embedding's, the last stage the head's): the
+                # whole model's is their sum; a stage's blocks are complete
+                # (JAX loop.py:1401-1417)
+                self._sum_replicated(grads, self.pipe, 2)
             if self.expert.size > 1:
                 # a replicated leaf's gradient is the rank's rows' share: the
                 # whole batch's is their sum; an expert's own leaves already
                 # got every rank's cotangents through the return hop (JAX
                 # loop.py:1401-1417)
-                self._sum_replicated_over_experts(grads)
+                self._sum_replicated(grads, self.expert, 1)
             if not cfg.async_grad:
                 if self.group is not None:
                     dist.all_reduce(grads, group=self.group)
@@ -1401,35 +1598,34 @@ class Trainer:
 
     def _global_grad_sq(self, grads: torch.Tensor) -> torch.Tensor:
         """The squared L2 norm of this rank's gradient (JAX ``global_grad_sq``,
-        loop.py:2877-2915): under a tensor or expert axis a leaf's squares are
-        summed over each axis that splits it, and a leaf replicated over an
-        axis (its gradient whole on every rank of it) counts once, so every
-        rank of a data rank gets the same value; never summed over the data
-        group."""
+        loop.py:2877-2915): under a tensor, expert or pipe axis a leaf's
+        squares are summed over each axis that splits it, and a leaf
+        replicated over an axis (its gradient whole on every rank of it)
+        counts once, so every rank of a data rank gets the same value; never
+        summed over the data group."""
         g32 = grads.to(torch.float32)
-        if self.tensor.size == 1 and self.expert.size == 1:
+        if self.tensor.size == 1 and self.expert.size == 1 and self.pipe.size == 1:
             return torch.sum(torch.square(g32))
         zero = torch.zeros((), dtype=torch.float32, device=grads.device)
         parts: dict = {}
         for (off, n), key in self._split_runs():
             parts[key] = parts.get(key, zero) + torch.sum(torch.square(g32[off:off + n]))
         total = zero
-        for (t_split, e_split), part in sorted(parts.items()):
-            if t_split:
-                part = tpar.reduce_from_tp_region(part, self.tensor.group)
-            if e_split:
-                part = tpar.reduce_from_tp_region(part, self.expert.group)
+        for key, part in sorted(parts.items()):
+            for split, axis in zip(key, (self.tensor, self.expert, self.pipe)):
+                if split:
+                    part = tpar.reduce_from_tp_region(part, axis.group)
             total = total + part
         return total
 
     def _split_runs(self) -> list:
-        """``((offset, length), (split over tensor, split over experts))``
-        over the flat buffer, adjacent leaves of one kind merged."""
+        """``((offset, length), (split over tensor, over experts, over
+        pipe))`` over the flat buffer, adjacent leaves of one kind merged."""
         runs: list = []
-        for off, shape, dim, edim in zip(self.flat.offsets, self._local_shapes, self._dims,
-                                         self._edims):
-            key, n = (int(tpar.spec_uses_axis(dim)), int(tpar.spec_uses_axis(edim))), \
-                math.prod(shape)
+        for off, shape, dim, edim, pdim in zip(self.flat.offsets, self._local_shapes, self._dims,
+                                               self._edims, self._pdims):
+            key = (int(tpar.spec_uses_axis(dim)), int(tpar.spec_uses_axis(edim)), int(pdim))
+            n = math.prod(shape)
             if runs and runs[-1][1] == key:
                 (o, m), _ = runs[-1]
                 runs[-1] = ((o, m + n), key)
@@ -1437,12 +1633,13 @@ class Trainer:
                 runs.append(((off, n), key))
         return runs
 
-    def _sum_replicated_over_experts(self, grads: torch.Tensor) -> None:
-        """Sum the leaves replicated over the expert axis over the expert
-        group, in place, by one ``all_reduce`` of their runs."""
-        runs = [r for r, (_, e_split) in self._split_runs() if not e_split]
+    def _sum_replicated(self, grads: torch.Tensor, axis, which: int) -> None:
+        """Sum the leaves replicated over ``axis`` (entry ``which`` of a
+        :meth:`_split_runs` key) over its group, in place, by one
+        ``all_reduce`` of their runs."""
+        runs = [r for r, key in self._split_runs() if not key[which]]
         buf = torch.cat([grads[o:o + n] for o, n in runs])
-        dist.all_reduce(buf, group=self.expert.group)
+        dist.all_reduce(buf, group=axis.group)
         for (o, n), part in zip(runs, buf.split([n for _, n in runs])):
             grads[o:o + n].copy_(part)
 
@@ -1845,16 +2042,29 @@ class Trainer:
             counts["mu"] = telemetry.nonfinite_leaf_counts(self.flat, self.state.mu)
             counts["nu"] = telemetry.nonfinite_leaf_counts(self.flat, self.state.nu)
         crash_dir = os.path.join(self.cfg.output_dir, "crash", f"step_{step:08d}")
+        names = list(self.flat.names)
+        if self.pipe.size > 1:   # every stage's leaves, a replicated one once
+            every = [None] * self.pipe.size
+            dist.all_gather_object(every, (names, {k: v.cpu() for k, v in counts.items()}),
+                                   group=self.pipe.group)
+            keep, seen = [], set()
+            for j, (stage_names, _) in enumerate(every):
+                for i, name in enumerate(stage_names):
+                    if name not in seen:
+                        seen.add(name)
+                        keep.append((j, i))
+            names = [every[j][0][i] for j, i in keep]
+            counts = {k: torch.stack([every[j][1][k][i] for j, i in keep]) for k in counts}
         if self.chief:
             opt = {}
             for key in ("exp_avg", "mu", "nu", "m", "v"):
                 if key in counts:
-                    opt.update(telemetry.nonfinite_leaf_report(self.flat.names, counts[key],
+                    opt.update(telemetry.nonfinite_leaf_report(names, counts[key],
                                                                prefix=f".{key}"))
             window = list(self._metrics_window) + [{"step": step, "tripped": True, **values}]
             telemetry.write_crash_bundle(
                 self.cfg.output_dir, step, reason, dataclasses.asdict(self.cfg),
-                telemetry.nonfinite_leaf_report(self.flat.names, counts["params"]), opt,
+                telemetry.nonfinite_leaf_report(names, counts["params"]), opt,
                 window, guard=(self._cplane.report() if self._cplane is not None
                                else None if self._guard is None
                                else self._guard.sick_report()),
@@ -1892,8 +2102,11 @@ class Trainer:
         n = len(next(iter(eval_blocks.values())) if isinstance(eval_blocks, dict)
                 else eval_blocks)
         shards, r = self._row_shards, self._row_shard
+        # under a pipe axis a rank's batch splits into the GPipe microbatches
+        # (JAX loop.py:1875-1882)
+        div = (cfg.pipeline_microbatches or self.pipe.size) if self.pipe.size > 1 else 1
         if n < shards * per_dev:
-            per_dev = n // shards  # shrink rather than skip a small split
+            per_dev = n // shards // div * div  # shrink rather than skip a small split
         bs = shards * per_dev
         if per_dev == 0:
             self._emit(f"[trainer] eval skipped: {n} examples < {shards} ranks")
@@ -1934,30 +2147,33 @@ class Trainer:
         momentum and the params are gathered into whole leaves first, and
         each data rank's tensor rank 0 writes its momentum: a data-parallel
         run's files. Under a seq axis only seq rank 0 writes a data rank's
-        files: its seq ranks hold the same bits."""
+        files: its seq ranks hold the same bits. Under a pipe axis each
+        stage writes its own params and momentum files."""
         st = self.state
         adam = not isinstance(st, LionState)
         tp, ep, first = self.tensor.size, self.expert.size, self.seq.rank == 0
         lead = first and self.tensor.rank == 0 and self.expert.rank == 0
+        stage = self._stage
         files = {}
         if not adam:
             mom = self._whole(st.exp_avg)
             if lead:
-                files[momentum_file(self.rank)] = mom
+                files[momentum_file(self.rank, stage)] = mom
         if not adam and st.prev_ballot is not None and first:
             files[prev_ballot_file(self.rank)] = st.prev_ballot
         if not adam and st.dcn_ring is not None and first:
             files[ring_file(self.rank, self.tensor.rank if tp > 1 else None,
-                            self.expert.rank if ep > 1 else None)] = st.dcn_ring
+                            self.expert.rank if ep > 1 else None, stage)] = st.dcn_ring
         if not adam and st.moe_ring is not None and lead:
             files[moe_ring_file(self.rank)] = st.moe_ring
         if isinstance(st, Zero1State):
             files[zero1_file(self.rank)] = {"m": st.m, "v": st.v}
         params = self._whole(self.flat.params) if self.rank == 0 else None
+        if self.rank == 0 and lead:
+            files[params_file(stage)] = {"names": list(self.flat.names),
+                                         "shapes": [list(s) for s in self.full_shapes],
+                                         "flat": params}
         if self.chief:
-            files[PARAMS_FILE] = {"names": list(self.flat.names),
-                                  "shapes": [list(s) for s in self.full_shapes],
-                                  "flat": params}
             files[STATE_FILE] = {"step": self.step_count, "batches_consumed": self.step_count,
                                  "world": self.world, "count": st.count}
             if isinstance(st, AdamWState):
@@ -1990,6 +2206,7 @@ class Trainer:
                 # a dp run's meta has no tp or ep: a resume reads 1
                 **({"tensor_parallel": self.tensor.size} if self.tensor.size > 1 else {}),
                 **({"expert_parallel": self.expert.size} if self.expert.size > 1 else {}),
+                **({"pipeline_parallel": self.pipe.size} if self.pipe.size > 1 else {}),
                 **self.data_meta}
         if self._cplane is not None:
             # departed-vs-quarantined, the consumed-schedule watermark, the
@@ -2008,7 +2225,7 @@ class Trainer:
         and checked before anything is overwritten."""
         ck, cfg = self.checkpointer, self.cfg
         state = ck.restore(step, STATE_FILE)
-        params = ck.restore(step, PARAMS_FILE)
+        params = ck.restore(step, params_file(self._stage))
         flat = params["flat"]
         if (list(params["names"]) != self.flat.names
                 or [tuple(s) for s in params["shapes"]] != self.full_shapes
@@ -2042,9 +2259,10 @@ class Trainer:
         # the checkpoint's health mask (a guard on when it was written)
         health = state.get("health") if meta.get("has_guard", "health" in state) else None
         if ckpt_world == self.world:
-            mom = self._slice(ck.restore(step, momentum_file(self.rank)))
+            mom = self._slice(ck.restore(step, momentum_file(self.rank, self._stage)))
         else:
-            rows = torch.stack([ck.restore(step, momentum_file(r)) for r in range(ckpt_world)])
+            rows = torch.stack([ck.restore(step, momentum_file(r, self._stage))
+                                for r in range(ckpt_world)])
             sick = [] if health is None else torch.nonzero(~health).flatten().tolist()
             if sick:
                 # only healthy momenta enter the remap: the quarantined rows
@@ -2075,7 +2293,7 @@ class Trainer:
         if self.state.dcn_ring is not None:  # the same world: an elastic resume refused it
             ring = ck.restore(step, ring_file(
                 self.rank, self.tensor.rank if self.tensor.size > 1 else None,
-                self.expert.rank if self.expert.size > 1 else None))
+                self.expert.rank if self.expert.size > 1 else None, self._stage))
             self._check_like(step, "DCN ring", [ring], [self.state.dcn_ring])
             ring = ring.to(self.device)
         moe_ring = None
@@ -2159,7 +2377,8 @@ class Trainer:
             meta = metas[step]
             ckpt_world = int(meta.get("world", self.world))
             if meta:
-                check_resume_meta(step, meta, cfg, self.tensor.size, self.expert.size)
+                check_resume_meta(step, meta, cfg, self.tensor.size, self.expert.size,
+                                  self.pipe.size)
             ckpt_ve = int(meta.get("vote_every", 0) or 0)  # 0: not recorded
             if cfg.lion and ckpt_ve and ckpt_ve != (cfg.vote_every or 1):
                 raise ValueError(

@@ -20,6 +20,14 @@ the JAX package's ``model.npz``. On top of it:
   :func:`adapter_momentum_from_jax` takes one rank's row of the adapters'
   stacked momentum.
 
+Under pipeline parallelism :func:`pipeline_params_from_jax` and
+:func:`pipeline_momentum_from_jax` read the JAX package's pipeline layout
+(``pipeline_params`` / ``llama_pipeline_params``: the blocks' leaves stacked
+``[pp, L/pp, ...]`` under ``stages``; its momentum stacked ``[world, ...]``
+over that) into pipeline stage ``p``'s named leaves (its blocks under the
+unsplit model's names, and the replicated ones), and
+:func:`pipeline_params_to_jax` writes every stage's leaves back into it.
+
 Under expert parallelism the GPT-2 converters also take ``(ep, e)`` and
 return expert rank ``e``'s experts of every MoE FFN
 (``parallel.expert.expert_shard_dim``), the tensor slices of them under
@@ -43,6 +51,12 @@ import torch
 
 from distributed_lion_tpu_torch.ops.quant import QuantizedTensor, map_tree
 from distributed_lion_tpu_torch.parallel.expert import expert_shard_dim
+from distributed_lion_tpu_torch.parallel.pipeline import (
+    stack_stage_params,
+    stage_layers,
+    unstack_stage_params,
+)
+from distributed_lion_tpu_torch.parallel.mesh import PipeAxis
 from distributed_lion_tpu_torch.parallel.tensor_parallel import (
     gpt2_shard_dim,
     llama_shard_dim,
@@ -207,3 +221,36 @@ def adapter_momentum_from_jax(exp_avg: dict, rank: int, device="cpu", tp: int = 
     return {f"{path}/{k}": shard(torch.from_numpy(np.array(ab[k][rank])),
                                  _adapter_dim(base_rule, path, k), tp, t).to(device)
             for path, ab in exp_avg.items() for k in ("A", "B")}
+
+
+def pipeline_params_from_jax(tree: Any, n_layer: int, pp: int, stage: int, tp: int = 1,
+                             t: int = 0, family: str = "gpt2") -> dict:
+    """The JAX package's pipeline-layout params (numpy) as stage ``stage``
+    of ``pp``'s ``{name: CPU tensor}``: its blocks (under the unsplit
+    model's names) and the replicated leaves, tensor rank ``t``'s slices of
+    ``tp`` by ``family``'s shard rule."""
+    whole = {k: v for k, v in tree.items() if k != "stages"}
+    whole["blocks"] = unstack_stage_params(tree["stages"], n_layer)
+    mine = stage_layers(n_layer, PipeAxis(None, pp, stage))
+    rule = gpt2_shard_dim if family == "gpt2" else llama_shard_dim
+    return {k: shard(torch.from_numpy(np.array(v)), rule(k), tp, t)
+            for k, v in state_dict_from_tree(whole).items()
+            if not k.startswith("blocks.") or int(k.split(".")[1]) in mine}
+
+
+def pipeline_momentum_from_jax(exp_avg: Any, rank: int, n_layer: int, pp: int, stage: int,
+                               tp: int = 1, t: int = 0, family: str = "gpt2") -> dict:
+    """Row ``rank`` of the JAX package's stacked ``[world, ...]``
+    pipeline-layout momentum as :func:`pipeline_params_from_jax` gives the
+    params."""
+    return pipeline_params_from_jax(map_tree(lambda m: np.asarray(m)[rank], exp_avg), n_layer,
+                                    pp, stage, tp, t, family)
+
+
+def pipeline_params_to_jax(whole: dict, pp: int) -> dict:
+    """Whole leaves of every stage (``{name: tensor}``, such as
+    ``Trainer.full_named`` gathers) in the JAX package's pipeline layout:
+    the blocks stacked ``[pp, L/pp, ...]`` under ``stages``."""
+    tree = params_to_jax(whole)
+    tree["stages"] = stack_stage_params(tree.pop("blocks"), pp)
+    return tree

@@ -383,12 +383,13 @@ def test_sft_merged_output_feeds_run_dpo_and_dpo_merged_output_round_trips(tmp_p
 def test_unported_flags_are_refused_by_name(flag, item, monkeypatch, tmp_path, capsys):
     """Item 9's flags run since the HF slice: each gets the JAX package's own
     outcome for the same argument (an error from its importer, or the
-    written directory). Item 11's pipeline axis stays refused by name, and
-    so does ``--moe_experts``, as in the JAX package, whose run_dpo has no
-    MoE: argparse names the flag it does not know. ``--expert_parallel`` is
-    a trainer flag since item 11(e), and the JAX run_dpo builds its mesh
-    without it (run_dpo.py:83): the run trains as if it were absent, the
-    same losses on a grid of ep 1. ``--tensor_parallel``
+    written directory). ``--moe_experts`` stays refused by name, as in the
+    JAX package, whose run_dpo has no MoE: argparse names the flag it does
+    not know. ``--expert_parallel`` is
+    a trainer flag since item 11(e), and ``--pipeline_parallel`` since item
+    11(f), and the JAX run_dpo builds its mesh without either (run_dpo.py:83):
+    the run trains as if it were absent, the same losses on a grid of ep 1
+    and pp 1. ``--tensor_parallel``
     runs since item 11(c): with ``--vocab_chunks`` it meets the JAX
     package's refusal in its words, and alone in a world of one the grid's
     refusal (the multi-rank runs are tests/test_torch_tensor_parallel.py's,
@@ -407,12 +408,12 @@ def test_unported_flags_are_refused_by_name(flag, item, monkeypatch, tmp_path, c
         with pytest.raises(ValueError, match="--tensor_parallel 2 needs 2 ranks"):
             run_dpo.main(["--model_name", "tiny", *flag])
         return
-    if flag == ["--expert_parallel", "2"]:
+    if flag in (["--expert_parallel", "2"], ["--pipeline_parallel", "2"]):
         run = ["--model_name", "tiny", "--max_length", "96", "--max_prompt_length", "48",
                "--num_train_samples", "32", "--size_valid_set", "0", "--max_steps", "1",
                "--per_device_train_batch_size", "1", "--gradient_accumulation_steps", "1"]
         runs = [run_dpo.main(run + f)[0] for f in ([], flag)]
-        assert runs[1].cfg.expert_parallel == 2 and runs[1].grid.ep == 1
+        assert getattr(runs[1].cfg, flag[0][2:]) == 2 and runs[1].grid.ep == runs[1].grid.pp == 1
         assert ([h["loss"] for h in runs[1].history if "loss" in h]
                 == [h["loss"] for h in runs[0].history if "loss" in h])
         return

@@ -233,7 +233,7 @@ def test_run_clm_writes_a_model_the_jax_package_reproduces(tmp_path, monkeypatch
 
 def test_unported_options_refused():
     with pytest.raises(SystemExit):  # not a flag of the port: argparse refuses it
-        run_clm.main(["--pipeline_parallel", "2"])
+        run_clm.main(["--steps_per_call", "2"])
     with pytest.raises(ValueError, match="unrecognized checkpoint format"):  # HF import runs
         run_clm.load_pretrained(run_clm.ModelArguments(model_family="llama", model_path="x"),
                                 "cpu")

@@ -221,3 +221,14 @@ def test_the_expert_parallel_modules_are_among_the_checked_files():
     assert {"parallel/expert.py", "parallel/mesh.py", "parallel/tensor_parallel.py",
             "models/gpt2.py", "models/loss.py", "optim/lion.py", "train/loop.py",
             "utils/serialization.py", "cli/run_clm.py"} <= files
+
+
+def test_the_pipeline_modules_are_among_the_checked_files():
+    """The pipe axis's modules and the standalone optimizer step, beside
+    every module the pipeline slice touched (the grid, the models and their
+    loss, the trainer, the converters, the CLI), are in the file list both
+    checks above walk."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
+    assert {"parallel/pipeline.py", "models/gpt2_pipe.py", "models/llama_pipe.py",
+            "optim/sharded.py", "parallel/mesh.py", "models/llama.py", "models/loss.py",
+            "train/loop.py", "utils/serialization.py", "cli/run_clm.py"} <= files

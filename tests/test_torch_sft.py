@@ -210,12 +210,12 @@ def _jax_outcome(fn):
     ["--expert_parallel", "2"]])
 def test_unported_flags_are_refused_by_name(flag, monkeypatch, tmp_path, capsys):
     """Since the HF slice the first four flags and SentencePiece run; each
-    gets the JAX package's own outcome for the same argument. The pipeline
-    axis stays refused by name (item 11(f)), and so does ``--moe_experts``,
-    as in the JAX package, whose run_sft has no MoE: argparse names the flag
-    it does not know. ``--expert_parallel`` is a trainer flag since item
-    11(e), and the JAX run_sft builds its mesh without it (run_sft.py:140):
-    the run trains as if it were absent, the same losses on a grid of ep 1.
+    gets the JAX package's own outcome for the same argument.
+    ``--moe_experts`` stays refused by name, as in the JAX package, whose
+    run_sft has no MoE: argparse names the flag it does not know. ``--expert_parallel`` is a trainer flag since item
+    11(e), and ``--pipeline_parallel`` since item 11(f), and the JAX
+    run_sft builds its mesh without either (run_sft.py:140): the run trains
+    as if it were absent, the same losses on a grid of ep 1 and pp 1.
     ``--tensor_parallel`` runs since item 11(c), and in a world of one meets
     the grid's refusal (the multi-rank runs are
     tests/test_torch_tensor_parallel.py's, and ``--seq_parallel``'s
@@ -239,9 +239,9 @@ def test_unported_flags_are_refused_by_name(flag, monkeypatch, tmp_path, capsys)
         with pytest.raises(ValueError, match="--tensor_parallel 2 needs 2 ranks"):
             run_sft.main(["--model_name", "tiny", *flag])
         return
-    if name == "--expert_parallel":
+    if name in ("--expert_parallel", "--pipeline_parallel"):
         runs = [run_sft.main(["--model_name", "tiny", *f, *TINY_RUN])[0] for f in ([], flag)]
-        assert runs[1].cfg.expert_parallel == 2 and runs[1].grid.ep == 1
+        assert getattr(runs[1].cfg, name[2:]) == 2 and runs[1].grid.ep == runs[1].grid.pp == 1
         assert ([h["loss"] for h in runs[1].history if "loss" in h]
                 == [h["loss"] for h in runs[0].history if "loss" in h])
         return
