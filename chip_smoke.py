@@ -228,8 +228,8 @@ Phases (none of their failures is caught; any one fails the run):
    rank; finite losses; no optimizer kernel and (f)'s flash launches; the
    state's bytes a rank printed beside the replicated AdamW's 995.5 MB.
    Runs (s1), (s2), (t) and (u), tensor parallelism, ride it too, as dp 2 x
-   tp 2 (global rank r is data rank r // 2, tensor rank r % 2), 3 steps each
-   on ``sign_psum``: (s1) ``run_clm`` GPT-2 124M at full width, T 1024,
+   tp 2 (global rank r is data rank r // 2, tensor rank r % 2), 2 steps each
+   ((t) 3) on ``sign_psum``: (s1) ``run_clm`` GPT-2 124M at full width, T 1024,
    ``--dropout 0 --tensor_parallel 2``, B 2 x 1 (81,940,224 coordinates a
    rank); (s2) (s1) + ``--tp_vocab --vocab_pad_multiple 64`` (62,659,584);
    (t) ``run_sft`` at Llama-2-7B's widths and vocabulary (d 4096, 32 heads,
@@ -257,7 +257,7 @@ Phases (none of their failures is caught; any one fails the run):
    v views of the rank's projection; H 16 hd 128 at T 1024 and at T 2048).
    It prints the step times and each rank's buckets.
    Runs (v1)-(x2), sequence parallelism, ride it too (global rank r = (d·tp +
-   t)·sp + s), 3 steps each on ``sign_psum``: (v1) ``run_clm`` GPT-2 124M at
+   t)·sp + s), 2 steps each ((x1) 3) on ``sign_psum``: (v1) ``run_clm`` GPT-2 124M at
    full width, T 1024, float32 compute, dp 2 x sp 2, ring, ``--dropout 0
    --telemetry``, B 2 x 1; (v2) (v1) with ``--seq_impl ulysses`` and no
    telemetry; (v3) dp 1 x tp 2 x sp 2, ring; (w) ``run_clm --model_family llama`` at Llama-3-8B's
@@ -286,7 +286,7 @@ Phases (none of their failures is caught; any one fails the run):
    own, fresh processes (global rank r =
    ((d·tp + t)·sp + s)·ep + e), GPT-2-MoE at (y1)'s widths and depth, B 2 x
    1: (y2) dp 2 x ep 2, float32 compute, capacity factor 8 (nothing drops),
-   ``--ep_dcn_pipeline 0``, 3 steps (209,480,448 coordinates a rank); (y3) dp
+   ``--ep_dcn_pipeline 0``, 2 steps (209,480,448 coordinates a rank); (y3) dp
    1 x tp 2 x ep 2, bfloat16, capacity factor 1.25, ``--ep_dcn_pipeline 2``,
    5 steps (124,485,888). The ``GridWatch`` holds every leaf replicated over
    the expert axis (and over tensor) ``torch.equal`` across those ranks after
@@ -300,7 +300,7 @@ Phases (none of their failures is caught; any one fails the run):
    The kernel phase holds the optimizer kernels at (y2)'s window.
    Runs (z1)-(z4), pipeline parallelism, follow in a W = 4 spawn of their
    own (global rank r = (((d·tp + t)·sp + s)·pp + p)·ep + e; its gloo
-   group under a 600 s timeout), 3 steps each on ``sign_psum`` at dropout 0
+   group under a 600 s timeout), 2 steps each on ``sign_psum`` at dropout 0
    and bfloat16 compute, one eval batch each: (z1) ``run_clm`` GPT-2 124M at
    full width, T 1024, float32 params, dp 2 x pp 2, 4 microbatches of B 4
    (81,912,576 coordinates a rank: 6 blocks and the replicated wte, wpe and
@@ -444,6 +444,39 @@ Phases (none of their failures is caught; any one fails the run):
    RSS before and during the import and the run (sampled every 5 ms) and
    the process's peak (``getrusage``), and the steps beside (d)'s and
    (c)'s.
+11. ``[chunk]`` and ``[generate]``, in the 1-rank NCCL group right after
+   (c-dots). ``[chunk]``: run (c) (``--dropout 0``) for 8 steps step by
+   step, then with ``--steps_per_call 4`` (two chunks of four steps, each
+   chunk's batches staged in one copy and its steps issued back to back),
+   every kernel counter at 0 before each run and read after: final params
+   and momentum ``torch.equal``, launches equal to each other and to (c)'s
+   formulas, the chunked run logged at steps 4 and 8 with each loss the
+   mean of its chunk's four; both runs' step times printed (host clock,
+   not a claim). ``[generate]`` (``models/generate.py``, no kernel: the
+   counters must stay 0): GPT-2 124M at full width and depth (random
+   weights from seed 0, bfloat16 compute) decodes a left-padded batch of 8
+   random prompts of 32-512 tokens and 128 greedy tokens from a dense KV
+   cache; each row's prefill and decode logits against the model's own
+   forward on its prompt and tokens (bfloat16, flash), both held to the
+   same weights at float32 compute: ``max|decode - f32| <= 2 max|forward -
+   f32| + 2^-8 max|f32|``; each row decoded solo gives the same tokens up
+   to the first whose solo top-2 margin is below the batched-vs-solo logit
+   gap measured up to it (the gap is printed: cuBLAS may take other
+   algorithms at another batch size). Prefill ms and ms a decode token
+   (CUDA events), tokens/s (host clock around the call) and peak device
+   memory are printed. Then the same for Llama-3-8B's widths (GQA 32/8,
+   vocabulary 128,256, rope theta 500,000, bfloat16 params) cut to 2
+   layers, and one ``cli.run_generate.main`` over a ``--prompt_file`` of
+   three prompts (GPT-2 124M, random init, byte vocabulary).
+12. ``[mixed]``, right after the optimizer kernel phase, no process group:
+   one ``DistributedLion`` step (a world of one, 3 buckets, weight decay
+   0.1) over GPT-2 124M's leaves as a mixed-dtype tree in leaf order
+   (matrices bfloat16, biases and LayerNorm params float32, momenta in the
+   params' dtypes) from random params, grads and momenta, every counter at
+   0 before and read after: the ballot and apply kernels must launch once
+   a window of each bucket on the window's dtype (``.by_dtype``), and the
+   params and momenta must be ``torch.equal`` to the plain per-window
+   version of the same step. The step's device time is printed.
 
 Times are medians of 25 CUDA-event runs after 3 warm-up calls, queued
 while the card sleeps (``torch.cuda._sleep``) so that they time the card's
@@ -459,7 +492,11 @@ launches of the optimizer and head_dim 64 kernels are run (b)'s, of the
 head_dim 128 kernels run (d)'s, of the ``_mom_bf16`` ones run (h2)'s, of
 the ``_p_bf16`` ones, p, g and m bfloat16, run (k)'s); the last line is
 ``{"ok": true, "device": {...}}``. Each entry of the kernel record also
-carries ``pipeline_launches``, rank 0's launches summed over (z1)-(z4).
+carries ``pipeline_launches``, rank 0's launches summed over (z1)-(z4),
+``chunk_launches``, the chunked run's of ``[chunk]``, ``generate_launches``,
+``[generate]``'s (0: decoding runs no kernel), and ``mixed_launches``,
+``[mixed]``'s; these three split the ballot and apply launches by the
+momentum dtype each ran on (``.by_dtype`` of the wrappers).
 """
 
 import concurrent.futures
@@ -489,7 +526,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 import torch.nn.functional as F
 
-from distributed_lion_tpu_torch.cli import run_analyze, run_clm, run_dpo, run_sft
+from distributed_lion_tpu_torch.cli import run_analyze, run_clm, run_dpo, run_generate, run_sft
 from distributed_lion_tpu_torch.data import spm
 from distributed_lion_tpu_torch.data.bpe import BPETokenizer, unicode_to_bytes
 from distributed_lion_tpu_torch.data.sources import batch_iterator
@@ -497,10 +534,24 @@ from distributed_lion_tpu_torch.data.dpo import prepare_dpo_batch
 from distributed_lion_tpu_torch.data.hf_tokenizer_json import TokenizerJSON, bpe_tokenizer_json
 from distributed_lion_tpu_torch.data.tokenizer import ByteTokenizer
 from distributed_lion_tpu_torch.models import hf_export, hf_import
-from distributed_lion_tpu_torch.models.gpt2 import GPT2, GPT2Config
+from distributed_lion_tpu_torch.models.generate import generate
+from distributed_lion_tpu_torch.models.gpt2 import (
+    GPT2,
+    GPT2Config,
+    gpt2_decode,
+    gpt2_init_cache,
+    jax_leaf_order,
+)
 from distributed_lion_tpu_torch.models.gpt2 import _layer_norm as gpt2_layer_norm
 from distributed_lion_tpu_torch.models.gpt2_pipe import GPT2Stage
-from distributed_lion_tpu_torch.models.llama import Llama, LlamaConfig, as_parameters, llama_init
+from distributed_lion_tpu_torch.models.llama import (
+    Llama,
+    LlamaConfig,
+    as_parameters,
+    llama_decode,
+    llama_init,
+    llama_init_cache,
+)
 from distributed_lion_tpu_torch.models.loss import clm_loss_and_metrics
 from distributed_lion_tpu_torch.models.lora import (
     DPO_TARGET_PATTERNS,
@@ -524,7 +575,7 @@ from distributed_lion_tpu_torch.ops.codec import (
 from distributed_lion_tpu_torch.ops.products import matmul_f32
 from distributed_lion_tpu_torch.ops.xent import chunked_clm_loss_and_metrics
 from distributed_lion_tpu_torch.optim.distributed_lion import DistributedLion
-from distributed_lion_tpu_torch.optim.lion import FlatParams, resolve_lr
+from distributed_lion_tpu_torch.optim.lion import FlatParams, momenta, resolve_lr
 from distributed_lion_tpu_torch.optim.optax_adapter import adamw
 from distributed_lion_tpu_torch.optim.zero import AdamWZero1, Zero1State, zero1_chunk
 from distributed_lion_tpu_torch.parallel import collectives
@@ -579,6 +630,16 @@ STOCH_ARGS = ["--dropout", "0", "--max_grad_norm", "1.0"]   # run (e)
 STOCH_MGN, STOCH_SEED, B1 = 1.0, 42, 0.9   # run (e)'s quantizer: run_clm's seed and beta1
 STOCH_SIGMAS = 6   # the unbiasedness bound of run (e)'s ballot check
 W4 = 4             # run (f): ranks sharing cuda:0 in a gloo group
+CHUNK_STEPS = 8    # [chunk]: run (c) in chunks of CHUNK_K steps and step by step
+CHUNK_K = 4
+GEN_LENS = (32, 96, 160, 224, 288, 352, 416, 512)   # [generate]: a left-padded batch's prompts
+GEN_NEW = 128      # new tokens a row
+GEN_LLAMA_LAYERS = 2   # Llama-3-8B's widths, cut to 2 layers
+GEN_FILE_PROMPTS = ("The answer is", "Once upon a time", "Q: what is Lion? A:")
+GEN_DEVICE = "cuda"   # where [generate] runs
+MIXED_BUCKETS = 3  # [mixed]: GPT-2 124M's leaves as a mixed-dtype tree, voted in 3 buckets
+MIXED_WD = 0.1
+MIXED_DEVICE = "cuda"   # where [mixed] runs
 W4_STEPS = 2
 COMMIT_POLL_S = 60.0   # run (f)'s async commit at W4: the bounded wait for COMMITTED
 LAZY_K, LAZY_STEPS = 4, 5   # runs (h1) and (f)'s lazy entry: a rotation and one slot more
@@ -645,8 +706,9 @@ R_ARGS = [a for a in W4_ARGS if a not in ("--lion", "--async_grad", "--telemetry
     "--lion", "false", "--async_grad", "false", "--zero1"]
 R_STEPS = 3
 # runs (s1), (s2), (t), (u): tensor parallelism in the same spawn, dp 2 x tp 2
-# (global rank r: data rank r // 2, tensor rank r % 2), S_STEPS steps each
-TP, S_STEPS = 2, 3
+# (global rank r: data rank r // 2, tensor rank r % 2), S_STEPS steps each;
+# the LoRA runs (t) and (x1) LORA_STEPS, their dp check at the last step
+TP, S_STEPS, LORA_STEPS = 2, 2, 3
 S1_ARGS = ["--model_name", "gpt2_124m", "--dataset", "synthetic", "--synthetic_blocks", "64",
            "--lion", "--async_grad", "--wire", "sign_psum", "--per_device_train_batch_size",
            "2", "--gradient_accumulation_steps", "1", "--block_size", "1024",
@@ -658,8 +720,9 @@ S_EVAL = 1   # (s1), (s2): 3 held-out blocks over 2 data ranks, one eval batch
 T_MODEL, T_LAYERS, T_VOCAB = "llama2_7b", 4, 32_000
 T_ARGS = ["--model_name", T_MODEL, "--quant", "nf4", "--attn_impl", "flash",
           "--seq_length", "1024", "--per_device_train_batch_size", "2",
-          "--gradient_accumulation_steps", "1", "--max_steps", str(S_STEPS), "--logging_steps",
-          "1", "--lion", "--async_grad", "--wire", "sign_psum", "--tensor_parallel", str(TP),
+          "--gradient_accumulation_steps", "1", "--max_steps", str(LORA_STEPS),
+          "--logging_steps", "1", "--lion", "--async_grad", "--wire", "sign_psum",
+          "--tensor_parallel", str(TP),
           "--per_device_eval_batch_size", "2", "--eval_iters", "1"]
 T_LORA = dict(r=8, alpha=16, dropout=0.05)   # run_sft's defaults
 # (u): Llama-3-8B's widths, the depth cut to U_LAYERS, the head split by vocabulary
@@ -680,6 +743,7 @@ N_TP_VOCAB = 62_659_584
 N_TP_SFT = T_LAYERS * 2 * (4096 * 8 + 8 * 2048)
 N_TP_LLAMA3 = 525_336_576 + 262_668_288 + 4096 + U_LAYERS * 109_060_096
 # runs (v1)-(x2): sequence parallelism in the same spawn, S_STEPS steps each
+# ((x1) LORA_STEPS)
 # (global rank r = (d·tp + t)·sp + s)
 SP = 2
 # (v1)-(v3) at float32 compute: their dp check holds the ring to the unsplit
@@ -703,7 +767,7 @@ W_ARGS = ["--model_family", "llama", "--model_name", "llama3_8b", "--param_dtype
 X1_LAYERS, X2_LAYERS = 4, 2
 X1_ARGS = ["--model_name", T_MODEL, "--quant", "nf4", "--packing", "--seq_length", "2048",
            "--per_device_train_batch_size", "2", "--gradient_accumulation_steps", "1",
-           "--max_steps", str(S_STEPS), "--logging_steps", "1", "--lion", "--async_grad",
+           "--max_steps", str(LORA_STEPS), "--logging_steps", "1", "--lion", "--async_grad",
            "--wire", "sign_psum", "--seq_parallel", str(SP), "--lora_dropout", "0",
            "--per_device_eval_batch_size", "2", "--eval_iters", "1"]
 X2_ARGS = ["--model_name", T_MODEL, "--quant_ref", "nf4", "--max_length", "1024",
@@ -753,7 +817,7 @@ MOE_DTYPES = {N_MOE: ((torch.float32, torch.float32),),
 # Z4_LAYERS layers (2 a stage), bfloat16 params, T 2048, --vocab_chunks 8, dp
 # 2 x pp 2, 2 microbatches of B 2. One eval batch each (their held-out blocks
 # fill one batch of every data rank)
-Z_STEPS = 3
+Z_STEPS = 2
 Z_BASE = ["--model_name", "gpt2_124m", "--dataset", "synthetic", "--synthetic_blocks", "200",
           "--lion", "--async_grad", "--wire", "sign_psum", "--gradient_accumulation_steps", "1",
           "--block_size", "1024", "--max_steps", str(Z_STEPS), "--logging_steps", "1",
@@ -836,6 +900,7 @@ SP_DTYPES = {N_SP_LLAMA3: ((torch.bfloat16, torch.bfloat16),),
 # wrappers per head_dim in ``.by_head_dim``
 WRAPPERS = {"fused_ballots": fused_lion.fused_ballots, "fused_apply": fused_lion.fused_apply,
             "bucket_vote_stats": fused_lion.bucket_vote_stats}
+BY_DTYPE = ("fused_ballots", "fused_apply")   # the wrappers that count by momentum dtype
 FLASH_WRAPPERS = {"flash_attention_fwd": fa.flash_attention_fwd,
                   "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
                   "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
@@ -866,6 +931,8 @@ def reset_counts() -> None:
     """Every kernel wrapper's launch counts to 0."""
     for fn in WRAPPERS.values():
         fn.launches = 0
+    for k in BY_DTYPE:
+        WRAPPERS[k].by_dtype = {}
     fa.reset_counts()
 
 
@@ -876,6 +943,21 @@ def read_counts() -> dict:
         counts[k] = fn.by_head_dim[64]
         counts[f"{k}_hd128"] = fn.by_head_dim[128]
     return counts
+
+
+def split_counts(p_bf16: bool) -> dict:
+    """The launches since ``reset_counts`` per entry of KERNELS, the ballot
+    and apply kernels split by the momentum dtype they ran on
+    (``.by_dtype``): float32 is the plain entry, bfloat16 the ``_p_bf16``
+    one where the run's bfloat16 momenta sit under bfloat16 params
+    (``p_bf16``), else the ``_mom_bf16`` one."""
+    out = dict.fromkeys(KERNELS, 0)
+    out.update(read_counts())
+    for k in BY_DTYPE:
+        by = WRAPPERS[k].by_dtype
+        out[k] = by.get("float32", 0)
+        out[k + ("_p_bf16" if p_bf16 else "_mom_bf16")] = by.get("bfloat16", 0)
+    return out
 
 
 def restore_counts(counts: dict) -> None:
@@ -3022,8 +3104,8 @@ def tp_runs(rank: int) -> dict:
             return trainer, 3, None   # 5% of 64 synthetic blocks held out
         return run
 
-    def flash(layers, hd):
-        return lambda evals: tp_flash_launches(layers, S_STEPS, evals, hd)
+    def flash(layers, hd, steps=S_STEPS):
+        return lambda evals: tp_flash_launches(layers, steps, evals, hd)
 
     recs = [grid_one(rank, "(s1)", clm(S1_ARGS), N_TP, flash(N_LAYER, 64)),
             grid_one(rank, "(s2)", clm(S2_ARGS), N_TP_VOCAB, flash(N_LAYER, 64))]
@@ -3039,7 +3121,8 @@ def tp_runs(rank: int) -> dict:
                                         trainer.global_train_batch(), trainer.cfg.seed, 1.0)
             return trainer, len(ev), model.params
 
-        recs.append(grid_one(rank, "(t)", t_run, N_TP_SFT, flash(T_LAYERS, 128), sft=sft))
+        recs.append(grid_one(rank, "(t)", t_run, N_TP_SFT, flash(T_LAYERS, 128, LORA_STEPS),
+                             sft=sft, steps=LORA_STEPS))
         del sft
         torch.cuda.empty_cache()
     with llama_cut(n_layer=U_LAYERS):
@@ -3104,7 +3187,7 @@ def sp_runs(rank: int) -> dict:
         sft = {"cfg": cfg, "base": llama_init(cfg, seed=42, device=TP_DEVICE, quant="nf4"),
                "lora": dict(T_LORA, dropout=0.0)}
         recs.append(grid_one(rank, "(x1)", lambda: (run_sft.main(X1_ARGS)[0], 0, None),
-                             N_SP_SFT, no_flash, sft=sft))
+                             N_SP_SFT, no_flash, sft=sft, steps=LORA_STEPS))
         del sft
         torch.cuda.empty_cache()
     with llama_cut(n_layer=X2_LAYERS):
@@ -4564,6 +4647,10 @@ def slice_phase(tmp, gen, card, rates):
         dots_run(plain_end, plain_rows, plain_launches, plain_peak, card)
         del plain_end
         t = phase_time("slice (a)-(c), GPT-2 124M", t)
+        phases = {"chunk": chunk_run(card)}
+        t = phase_time("[chunk], GPT-2 124M --steps_per_call", t)
+        phases["generate"] = generate_phase(gen, card)
+        t = phase_time("[generate], GPT-2 124M and Llama-3-8B widths", t)
         moe = moe_one_rank(gen, card)
         t = phase_time("slice (y1), GPT-2-MoE", t)
         stoch, stoch_rows, stoch_launches = run_counted(STOCH_ARGS)
@@ -4604,7 +4691,7 @@ def slice_phase(tmp, gen, card, rates):
         ("(e) dropout 0 + max_grad_norm 1.0 (stochastic)", stoch_rows, stoch_launches),
         ("(y1) GPT-2-MoE, 8 experts every 2 blocks, dropout 0 + telemetry (peak device memory "
          f"{moe[2] / 2**30:.2f} GiB; {N_MOE:,} coordinates)", moe[0], moe[1]),
-        *mode_runs], llama, dpo, mode_times, llama3, xent
+        *mode_runs], llama, dpo, mode_times, llama3, xent, phases
 
 
 def moe_one_rank(gen, card: str) -> tuple:
@@ -4691,6 +4778,251 @@ def dots_run(plain_end: tuple, plain_rows: list, plain_launches: dict, plain_pea
           f"{plain_peak / 2**30:.2f} GiB on {card}; launches (c)'s", flush=True)
 
 
+@torch.no_grad()
+def mixed_phase(gen, card: str) -> dict:
+    """[mixed]: one Distributed Lion step (a world of one, MIXED_BUCKETS
+    buckets, weight decay MIXED_WD) over GPT-2 124M's leaves as a mixed tree
+    in leaf order, its matrices bfloat16 and its biases and LayerNorm params
+    float32 (momenta in the params' dtypes), from random params, grads and
+    momenta, with every kernel counter at 0 before and read after: each
+    kernel must launch once a window of each bucket, on the window's dtype.
+    Params and momenta must be ``torch.equal`` to the plain per-window
+    version of the same step (``fused_ballots_plain`` of each window, the
+    one-rank election of the bucket, ``fused_apply_plain`` of each window).
+    Prints the step's device time (median of RUNS CUDA-event runs). Returns
+    the checked step's launches per entry of KERNELS."""
+    model = GPT2(GPT2Config.gpt2_124m(), device=MIXED_DEVICE, seed=0)
+    flat = FlatParams([(name, torch.nn.Parameter(
+        p.detach().to(torch.bfloat16 if p.dim() >= 2 else torch.float32)))
+        for name, p in jax_leaf_order(list(model.named_parameters()))])
+    del model
+    opt = DistributedLion(3e-4, weight_decay=MIXED_WD, vote_buckets=MIXED_BUCKETS)
+    state = opt.init(flat)
+    for buf in (*flat.param_bufs, *flat.grad_bufs, *momenta(state)):
+        buf.copy_(torch.randn(buf.numel(), generator=gen, device=MIXED_DEVICE))
+    ps, ms = [b.clone() for b in flat.param_bufs], [b.clone() for b in momenta(state)]
+    gs = flat.grad_bufs
+    lr = resolve_lr(opt.learning_rate, state.count)
+    reset_counts()
+    state = opt.step(flat, state)
+    launches = split_counts(p_bf16=True)
+    windows = {"float32": 0, "bfloat16": 0}
+    for start, size in bucket_bounds(flat.numel, MIXED_BUCKETS, 1, "sign_psum"):
+        runs = flat.runs(start, start + size)
+        ballots = torch.cat([fused_lion.fused_ballots_plain(gs[k][a:b], ms[k][a:b], opt.b1)
+                             for k, a, b, _ in runs])
+        _, tally = plain_election([ballots], "sign_psum")
+        for k, a, b, rel in runs:
+            ps[k][a:b], ms[k][a:b] = fused_lion.fused_apply_plain(
+                ps[k][a:b], gs[k][a:b], ms[k][a:b], tally[rel:rel + b - a], lr, MIXED_WD,
+                opt.b2)
+            windows[str(ms[k].dtype)[6:]] += 1
+    equal = {"params": all(map(torch.equal, flat.param_bufs, ps)),
+             "momenta": all(map(torch.equal, momenta(state), ms))}
+    want = dict.fromkeys(KERNELS, 0)
+    for k in BY_DTYPE:
+        want[k], want[k + "_p_bf16"] = windows["float32"], windows["bfloat16"]
+    if not (all(equal.values()) and launches == want and all(windows.values())):
+        raise AssertionError(f"[mixed]: equal to the plain per-window step {equal}, windows "
+                             f"{windows}, launches {launches} against {want}")
+    del ps, ms
+    step_ms = time_ms(lambda: opt.step(flat, state))
+    sizes = {str(b.dtype)[6:]: b.numel() for b in flat.param_bufs}
+    print(f"[mixed] Distributed Lion, 1 rank, {MIXED_BUCKETS} buckets, GPT-2 124M's "
+          f"{len(flat.names)} leaves as a mixed tree ({sizes['float32']:,} float32 and "
+          f"{sizes['bfloat16']:,} bfloat16 coordinates in {windows['float32']} and "
+          f"{windows['bfloat16']} windows): params and momenta torch.equal to the plain "
+          f"per-window step; launches {launches}; step {step_ms:.4f} ms of device time on "
+          f"{card}", flush=True)
+    return launches
+
+
+def chunk_run(card: str) -> dict:
+    """Run [chunk]: (c) (``--dropout 0``) for CHUNK_STEPS steps step by step,
+    then in chunks of CHUNK_K (``--steps_per_call``), each with every kernel
+    counter at 0 before and read after. The two runs' final params and
+    momentum must be ``torch.equal``, their launches equal to each other and
+    to (c)'s formulas, and each chunk's logged loss the mean of its steps'.
+    Prints both runs' steps (host clock; not a claim). Returns the chunked
+    run's launches."""
+    runs = []
+    for extra in ([], ["--steps_per_call", str(CHUNK_K)]):
+        reset_counts()
+        trainer = run_clm.main(SLICE_ARGS + ["--dropout", "0"] + extra
+                               + ["--max_steps", str(CHUNK_STEPS)])
+        launches = read_counts()
+        want = dict(optimizer_launches(trainer, CHUNK_STEPS), **flash_launches(CHUNK_STEPS))
+        expect(f"[chunk] {extra or 'step by step'}", launches, want)
+        # (c)'s params and momenta are float32: no bfloat16 instantiation runs
+        split = split_counts(p_bf16=False)
+        if any(split[k + sfx] for k in BY_DTYPE for sfx in ("_mom_bf16", "_p_bf16")):
+            raise AssertionError(f"[chunk] {extra or 'step by step'}: launches by dtype {split}")
+        runs.append(([r for r in trainer.history if "loss" in r], split,
+                     trainer.flat.params.detach().clone(), trainer.state.exp_avg.clone()))
+        del trainer
+        torch.cuda.empty_cache()
+    (rows1, l1, p1, m1), (rowsk, lk, pk, mk) = runs
+    means = [statistics.mean(r["loss"] for r in rows1[i:i + CHUNK_K])
+             for i in range(0, CHUNK_STEPS, CHUNK_K)]
+    same = {"params": torch.equal(p1, pk), "momentum": torch.equal(m1, mk),
+            "launches": l1 == lk, "logged steps": [r["step"] for r in rowsk] == list(
+                range(CHUNK_K, CHUNK_STEPS + 1, CHUNK_K)),
+            "chunk-mean losses": all(math.isclose(r["loss"], m, rel_tol=1e-6)
+                                     for r, m in zip(rowsk, means))}
+    print(f"[chunk] run (c) --dropout 0, GPT-2 124M, 1 rank, {CHUNK_STEPS} steps: step by step "
+          f"{[round(r['step_ms'], 1) for r in rows1]} ms/step (median of steps 2-{CHUNK_STEPS} "
+          f"{statistics.median(r['step_ms'] for r in rows1[1:]):.1f}); --steps_per_call "
+          f"{CHUNK_K} {[round(r['step_ms'], 1) for r in rowsk]} ms/step a chunk, on the host "
+          f"clock, not a claim; equal {same}; launches {lk} on {card}", flush=True)
+    if not all(same.values()):
+        raise AssertionError(f"[chunk]: {same}")
+    return lk
+
+
+def decode_recorder(decode):
+    """``decode`` that also keeps each call's logits and CUDA events around
+    it (no host read)."""
+    rec = {"logits": [], "events": []}
+
+    def fn(params, tokens, cache, pos, offset=None):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = decode(params, tokens, cache, pos, offset)
+        end.record()
+        rec["logits"].append(out[0])
+        rec["events"].append((start, end))
+        return out
+
+    return fn, rec
+
+
+def row_logits(rec: dict, row: int, n: int) -> torch.Tensor:
+    """A row's logits at its own positions: its n prompt positions of the
+    prefill (right-aligned), then each decode step's."""
+    prefill = rec["logits"][0][row, -n:]
+    return torch.cat([prefill] + [lg[row, -1:] for lg in rec["logits"][1:]])
+
+
+@torch.no_grad()
+def generate_check(label: str, cfg, params, decode, init_cache, forward, forward32, gen,
+                   card: str) -> dict:
+    """[generate] of one model: GEN_LENS prompts of random tokens in one
+    left-padded batch, GEN_NEW greedy tokens, with every kernel counter at 0
+    before and read after (decoding launches none). Each row's prefill and
+    decode logits are held to ``forward`` (the model's own forward, bfloat16
+    compute, flash) on the row's prompt and tokens: against ``forward32``
+    (the same weights at float32 compute, materialized attention),
+    ``max|decode - f32| <= 2 max|forward - f32| + 2^-8 max|f32|``. Each row
+    is then decoded solo: the tokens equal up to the first one whose solo
+    top-2 margin is below the batched-vs-solo logit gap measured up to it
+    (cuBLAS may take other algorithms at another batch size). Prints prefill
+    ms, ms a decode token (CUDA events), tokens/s (host clock around the
+    whole call) and peak device memory, after an untimed two-token call on
+    the same batch."""
+    B, T = len(GEN_LENS), max(GEN_LENS)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen, device=GEN_DEVICE)
+               for n in GEN_LENS]
+    batch = torch.zeros(B, T, dtype=torch.long, device=GEN_DEVICE)
+    for i, p in enumerate(prompts):
+        batch[i, T - len(p):] = p
+    lens = torch.tensor(GEN_LENS, device=GEN_DEVICE)
+    # untimed: the first calls' allocator growth and cuBLAS setup at these shapes
+    generate(decode, init_cache, params, batch, 2, prompt_lens=lens)
+    dec, rec = decode_recorder(decode)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = generate(dec, init_cache, params, batch, GEN_NEW, prompt_lens=lens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = split_counts(p_bf16=False)   # no optimizer step: every entry must stay 0
+    peak = torch.cuda.max_memory_allocated()
+    if any(launches.values()):
+        raise AssertionError(f"[generate] {label}: decoding launched kernels {launches}")
+    prefill_ms = rec["events"][0][0].elapsed_time(rec["events"][0][1])
+    token_ms = statistics.mean(s.elapsed_time(e) for s, e in rec["events"][1:])
+    err, gaps, diverged = [], [], []
+    for i, p in enumerate(prompts):
+        n = len(p)
+        seq = torch.cat([p, out[i, :-1]])[None]
+        got = row_logits(rec, i, n)
+        ref = forward32(seq)[0]
+        e_dec = float((got - ref).abs().max())
+        e_fwd = float((forward(seq)[0] - ref).abs().max())
+        tol = 2 * e_fwd + 2 ** -8 * float(ref.abs().max())
+        err.append((round(e_dec, 5), round(e_fwd, 5)))
+        if not e_dec <= tol:
+            raise AssertionError(f"[generate] {label} row {i}: max|decode - f32| {e_dec} > "
+                                 f"2 max|forward - f32| + 2^-8 max|f32| = {tol}")
+        sdec, srec = decode_recorder(decode)
+        solo = generate(sdec, init_cache, params, p[None], GEN_NEW)[0]
+        alone = row_logits(srec, 0, n)
+        differ = torch.nonzero(solo != out[i]).flatten().tolist()
+        last = n - 1 + (differ[0] if differ else GEN_NEW - 1)   # inputs equal up to here
+        gap = float((got[:last + 1] - alone[:last + 1]).abs().max())
+        gaps.append(round(gap, 5))
+        if differ:
+            top2 = torch.topk(alone[last], 2).values
+            margin = float(top2[0] - top2[1])
+            diverged.append((i, differ[0], round(margin, 5)))
+            if not margin <= gap:
+                raise AssertionError(
+                    f"[generate] {label} row {i}: solo and batched tokens part at {differ[0]} "
+                    f"where the solo top-2 margin {margin} exceeds the logit gap {gap}")
+    print(f"[generate] {label}: B {B}, prompts {list(GEN_LENS)} left-padded, {GEN_NEW} greedy "
+          f"tokens: prefill {prefill_ms:.2f} ms, {token_ms:.3f} ms a decode token, "
+          f"{B * GEN_NEW / wall:.0f} tokens/s ({wall:.2f} s for the call), peak device memory "
+          f"{peak / 2**30:.2f} GiB; max|decode - f32| vs max|forward - f32| by row {err}; "
+          f"batched-vs-solo logit gap by row {gaps}, rows parting from solo (row, token, solo "
+          f"margin) {diverged}; no kernel launched; on {card}", flush=True)
+    return launches
+
+
+def generate_phase(gen, card: str) -> dict:
+    """[generate]: GPT-2 124M at full width and depth (random weights from
+    seed 0, bfloat16 compute), then Llama-3-8B's widths (GQA 32/8,
+    vocabulary 128,256, rope theta 500,000) cut to GEN_LLAMA_LAYERS layers,
+    bfloat16 params, through :func:`generate_check`; then one
+    ``run_generate.main`` (GPT-2 124M, byte vocabulary, random init) over a
+    ``--prompt_file`` of three prompts, with no kernel launched. Returns the
+    three decodes' launches summed, per entry of KERNELS."""
+    cfg = GPT2Config.gpt2_124m()
+    model = GPT2(cfg, device=GEN_DEVICE, seed=0).eval()
+    model32 = GPT2(dataclasses.replace(cfg, compute_dtype=torch.float32, attn_impl="xla"),
+                   device=GEN_DEVICE, seed=0).eval()
+    counts = [generate_check(
+        "GPT-2 124M", cfg, tree_from_state_dict(model),
+        lambda p, t, k, pos, off=None: gpt2_decode(p, t, cfg, k, pos, off),
+        lambda b, n: gpt2_init_cache(cfg, b, n, device=GEN_DEVICE), model, model32, gen, card)]
+    del model, model32
+    torch.cuda.empty_cache()
+    lcfg = LlamaConfig.llama3_8b(n_layer=GEN_LLAMA_LAYERS, param_dtype=torch.bfloat16)
+    params = llama_init(lcfg, seed=0, device=GEN_DEVICE)
+    counts.append(generate_check(
+        f"Llama-3-8B widths, {GEN_LLAMA_LAYERS} layers", lcfg, params,
+        lambda p, t, k, pos, off=None: llama_decode(p, t, lcfg, k, pos, off),
+        lambda b, n: llama_init_cache(lcfg, b, n, device=GEN_DEVICE), Llama(lcfg, params),
+        Llama(dataclasses.replace(lcfg, compute_dtype=torch.float32, attn_impl="xla"), params),
+        gen, card))
+    del params
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "prompts.txt")
+        pathlib.Path(path).write_text("\n".join(GEN_FILE_PROMPTS) + "\n")
+        reset_counts()
+        texts = run_generate.main(["--model_name", "gpt2_124m", "--prompt_file", path,
+                                   "--max_new_tokens", "16", "--temperature", "0"])
+        launches = split_counts(p_bf16=False)
+        counts.append(launches)
+    if len(texts) != len(GEN_FILE_PROMPTS) or any(launches.values()):
+        raise AssertionError(f"[generate] run_generate.main --prompt_file: {texts!r}, "
+                             f"launches {launches}")
+    print(f"[generate] run_generate.main --model_name gpt2_124m --prompt_file (3 prompts), 16 "
+          f"greedy tokens a row: {len(texts)} texts, no kernel launched, on {card}", flush=True)
+    return {k: sum(c[k] for c in counts) for k in KERNELS}
+
+
 def phase_time(name: str, since: float) -> float:
     """Print the wall time of a phase that began at ``since``; returns now."""
     now = time.perf_counter()
@@ -4722,6 +5054,8 @@ def main():
     rec, err = optimizer_kernel_phase(gen, rates)
     print(f"[card] Triton kernels built with triton {fused_lion.triton.__version__}", flush=True)
     t = phase_time("optimizer kernels", t)
+    mixed = mixed_phase(gen, card)
+    t = phase_time("[mixed], a mixed-dtype tree's step", t)
     for case in FLASH_CASES:
         frec, ferr = flash_kernel_phase(gen, rates, regs, *case)
         rec.update(frec)
@@ -4732,7 +5066,7 @@ def main():
     nf4_check(gen)
     phase_time("model, products, NF4", t)
     with tempfile.TemporaryDirectory() as tmp:
-        (world, wire, buckets), runs, llama, dpo, mode_times, llama3, xent = slice_phase(
+        (world, wire, buckets), runs, llama, dpo, mode_times, llama3, xent, phases = slice_phase(
             tmp, gen, card, rates)
         t = time.perf_counter()
         gc.collect()
@@ -4799,7 +5133,9 @@ def main():
         kernels.append({"name": k, "route": route, "source": source, "replaces": replaces,
                         "launches": launches[k], "max_abs_err": err[k], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                        "library_ms": library, "pipeline_launches": pp_launches[k]})
+                        "library_ms": library, "pipeline_launches": pp_launches[k],
+                        "chunk_launches": phases["chunk"][k],
+                        "generate_launches": phases["generate"][k], "mixed_launches": mixed[k]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -52,6 +52,19 @@ with ``return_tallies``; ``moe_balance`` feeds each MoE block its row of a
 fed load tally and ``moe_balance_axis`` sums the tallies over that axis in
 the forward (``parallel.expert.moe_ffn``).
 
+**Decoding** (JAX gpt2.py:566-714): :func:`gpt2_decode` runs the next S
+tokens of a batch over a weight tree in the JAX package's layout (the
+module's leaves through ``utils.serialization.tree_from_state_dict``, a
+``model.npz``, an HF import; dense, NF4 or LoRA leaves through
+``models.lora``) against a static per-layer KV cache (:func:`gpt2_init_cache`,
+``[B, H, max_len, hd]`` in the compute dtype) written in place at a
+position index. Attention is over materialized scores (a float32-result
+product, the mask, a float32 softmax), as the JAX package's
+``_decode_attention`` computes it outside any Pallas kernel. ``offset``
+(``[B]``, a left-padded batch's pad widths) masks each row's pad slots out
+of attention and of MoE routing and shifts its position ids, so each row
+decodes as its solo run. MoE blocks decode with no drop (capacity ``B·S``).
+
 ``remat_policy`` says what a rematerialized block keeps (JAX
 gpt2.py:321-331): ``full`` nothing (``torch.utils.checkpoint`` of the whole
 block), ``dots`` the outputs of the products without batch dims (JAX's
@@ -79,6 +92,7 @@ from torch.utils.checkpoint import (
 
 from distributed_lion_tpu_torch.ops.attention import attention
 from distributed_lion_tpu_torch.ops.products import matmul_f32
+from distributed_lion_tpu_torch.ops.quant import maybe_dequant
 from distributed_lion_tpu_torch.parallel.expert import expert_shard_dim, moe_ffn, moe_init
 from distributed_lion_tpu_torch.parallel.mesh import (
     ExpertAxis,
@@ -211,12 +225,15 @@ def _dropout(x: torch.Tensor, rate: float, seed: Optional[int]) -> torch.Tensor:
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
-def _layer_norm(x: torch.Tensor, ln: "LayerNorm", eps: float = 1e-5) -> torch.Tensor:
+def _layer_norm(x: torch.Tensor, ln, eps: float = 1e-5) -> torch.Tensor:
+    """In float32, cast back to x's dtype; ``ln`` a :class:`LayerNorm` or a
+    tree's ``{"scale", "bias"}``."""
+    scale, bias = (ln["scale"], ln["bias"]) if isinstance(ln, dict) else (ln.scale, ln.bias)
     x32 = x.to(torch.float32)
     mu = x32.mean(-1, keepdim=True)
     var = x32.var(-1, keepdim=True, correction=0)
     y = (x32 - mu) * torch.rsqrt(var + eps)
-    return (y * ln.scale.to(torch.float32) + ln.bias.to(torch.float32)).to(x.dtype)
+    return (y * scale.to(torch.float32) + bias.to(torch.float32)).to(x.dtype)
 
 
 def _param(shape, dtype, device, std=None, gen=None) -> nn.Parameter:
@@ -498,3 +515,118 @@ def jax_leaf_order(named) -> list:
 
 def count_params(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
+
+
+# ------------------------------------------------------------------ decoding
+def gpt2_init_cache(cfg: GPT2Config, batch: int, max_len: int, device=None) -> list:
+    """Per-layer KV cache ``[B, H, max_len, hd]`` in the compute dtype (JAX
+    ``gpt2_init_cache``): static, written at a position index."""
+    shape = (batch, cfg.n_head, max_len, cfg.head_dim)
+    return [{"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
+             "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device)}
+            for _ in range(cfg.n_layer)]
+
+
+def decode_mask(t: int, pos: int, s: int, offset: Optional[torch.Tensor],
+                device) -> torch.Tensor:
+    """Which of ``t`` cache slots each of ``s`` new tokens at ``pos`` attends
+    (``[S, T]``, or ``[B, 1, S, T]`` with ``offset``): causal over the
+    written slots, and with ``offset`` no slot below a row's pad width."""
+    slots = torch.arange(t, device=device)
+    valid = slots[None, :] <= (pos + torch.arange(s, device=device))[:, None]
+    if offset is None:
+        return valid
+    return (valid[None] & (slots[None, None, :] >= offset[:, None, None]))[:, None]
+
+
+def _qkv_project(x: torch.Tensor, w) -> torch.Tensor:
+    """``[B, S, d]`` times the stacked ``[d, 3, d]`` qkv (JAX ``_qkv_project``),
+    dense, quantized or LoRA-adapted, as ``[B, S, 3d]``."""
+    from distributed_lion_tpu_torch.models.lora import LoraTensor
+
+    d, dt = x.shape[-1], x.dtype
+    if isinstance(w, LoraTensor):
+        base = x @ maybe_dequant(w.base, dt).to(dt).reshape(d, -1)
+        delta = (x @ w.A.to(dt)) @ w.B.to(dt).reshape(w.B.shape[0], -1)
+        return base + w.scaling * delta
+    return x @ maybe_dequant(w, dt).to(dt).reshape(d, -1)
+
+
+def _decode_attention(x, p, cfg: GPT2Config, c: dict, pos: int, offset=None):
+    """Attention of S new tokens at cache slots ``[pos, pos+S)`` (JAX
+    :579-607): project q, k, v, write k and v into the cache in place,
+    attend q over the masked cache."""
+    from distributed_lion_tpu_torch.models.lora import lora_matmul   # lora imports this module
+
+    B, S, D = x.shape
+    H, hd, dt = cfg.n_head, cfg.head_dim, x.dtype
+    qkv = _qkv_project(x, p["qkv"]).view(B, S, 3, D) + p["qkv_b"].to(dt)
+    q, k, v = (qkv[:, :, i].reshape(B, S, H, hd).transpose(1, 2) for i in range(3))
+    c["k"][:, :, pos:pos + S] = k.to(c["k"].dtype)
+    c["v"][:, :, pos:pos + S] = v.to(c["v"].dtype)
+    scores = matmul_f32(q, c["k"].to(dt).transpose(-1, -2)) / math.sqrt(hd)
+    scores = scores.masked_fill(~decode_mask(c["k"].shape[2], pos, S, offset, x.device), -1e30)
+    probs = torch.softmax(scores, dim=-1).to(dt)
+    out = matmul_f32(probs, c["v"].to(dt)).to(dt).transpose(1, 2).reshape(B, S, H * hd)
+    return lora_matmul(out, p["proj"]) + p["proj_b"].to(dt)
+
+
+def _decode_mlp(x, p, cfg: GPT2Config, valid=None):
+    """The block's second half (JAX :610-656): the dense MLP, or the MoE FFN
+    with no drop (capacity ``B·S``) and ``valid`` ``[B, S]`` masking dead
+    lanes out of routing."""
+    from distributed_lion_tpu_torch.models.lora import lora_matmul
+
+    h = _layer_norm(x, p["ln_2"])
+    dt = x.dtype
+    if "moe" in p:
+        B, S, D = x.shape
+        y, _ = moe_ffn(p["moe"], h.reshape(B * S, D), capacity_factor=cfg.moe_capacity_factor,
+                       capacity_override=B * S,
+                       valid=None if valid is None else valid.reshape(B * S))
+        return x + y.reshape(B, S, D)
+    m = p["mlp"]
+    h = F.gelu(lora_matmul(h, m["fc"]) + m["fc_b"].to(dt), approximate="tanh")
+    return x + lora_matmul(h, m["proj"]) + m["proj_b"].to(dt)
+
+
+def _decode_embed(params, tokens, cfg: GPT2Config, pos: int, offset=None):
+    """Token and position embeddings of a decode chunk (JAX :658-676): the
+    slots' positions, or with ``offset`` each row's shifted positions
+    (clamped at 0: a pad slot is masked out of attention anyway), both
+    through ``lora_embed``/``maybe_dequant``."""
+    from distributed_lion_tpu_torch.models.lora import lora_embed
+
+    cd = cfg.compute_dtype
+    S = tokens.shape[1]
+    x = lora_embed(params["wte"], tokens, cd)
+    if offset is None:
+        return x + maybe_dequant(params["wpe"], cd)[pos:pos + S].to(cd)
+    ids = pos + torch.arange(S, device=tokens.device)[None, :] - offset[:, None]
+    return x + lora_embed(params["wpe"], torch.clamp(ids, 0, cfg.n_ctx - 1), cd)
+
+
+def _tied_logits(x, params, cfg: GPT2Config):
+    """Float32 logits ``[B, S, vocab_size]`` of the tied head."""
+    logits = matmul_f32(x, maybe_dequant(params["wte"], x.dtype).to(x.dtype).t())
+    return logits[..., :cfg.vocab_size]
+
+
+@torch.no_grad()
+def gpt2_decode(params: dict, tokens: torch.Tensor, cfg: GPT2Config, cache: list, pos: int,
+                offset: Optional[torch.Tensor] = None):
+    """The next S tokens ``[B, S]`` at cache slots ``[pos, pos+S)`` (JAX
+    :687-714): returns ``(float32 logits [B, S, vocab_size], cache)``, the
+    cache written in place. ``pos`` 0 with the prompt is the prefill,
+    single tokens the decode loop; position for position the logits are
+    :meth:`GPT2.forward`'s. ``offset`` ``[B]``: each row's left-pad width."""
+    valid = None
+    if offset is not None:
+        # lane (b, s) sits at slot pos + s: below the row's pad width it is dead
+        valid = (pos + torch.arange(tokens.shape[1], device=tokens.device))[None, :] \
+            >= offset[:, None]
+    x = _decode_embed(params, tokens, cfg, pos, offset)
+    for p, c in zip(params["blocks"], cache):
+        x = x + _decode_attention(_layer_norm(x, p["ln_1"]), p["attn"], cfg, c, pos, offset)
+        x = _decode_mlp(x, p, cfg, valid)
+    return _tied_logits(_layer_norm(x, params["ln_f"]), params, cfg), cache

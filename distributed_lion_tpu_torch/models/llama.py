@@ -32,7 +32,14 @@ JAX llama.py:174-205, 403-415) the tokens are this rank's chunk: the rope
 angles start at position ``s·T``, the GQA repeat runs before the ring, and
 attention is ``cfg.seq_impl``'s (``parallel.ring_attention``).
 ``remat_policy`` (``full`` | ``dots``) is GPT-2's (``models.gpt2.remat``).
-The decode paths (KV cache, paged serving) are not ported (ROADMAP Queue 1).
+
+**Decoding** (JAX llama.py:237-318): :func:`llama_decode` runs the next S
+tokens against a static per-layer KV cache of the kv heads,
+un-repeated (:func:`llama_init_cache`, ``[B, n_kv_head, max_len, hd]``), the
+GQA repeat at attend time, the rope angles of a ``max_len`` table taken at
+the slots' positions or, with ``offset``, at each row's shifted positions;
+materialized scores as :func:`models.gpt2.gpt2_decode`. The paged cache
+waits for ROADMAP Queue 1 item 12(b).
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from torch import nn
 
 from distributed_lion_tpu_torch.models.gpt2 import (
     check_remat_policy,
+    decode_mask,
     fold_seed,
     jax_leaf_order,
     remat,
@@ -199,9 +207,11 @@ def rope_angles(t: int, head_dim: int, theta: float, device=None, offset: int = 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """x ``[B, H, T, hd]``: rotate the (even, odd) column pairs, the tables
-    cast to x's dtype first (llama.py:140-163)."""
+    (``[T, hd/2]``, or ``[B, T, hd/2]``: a row's own positions) cast to x's
+    dtype first (llama.py:140-163)."""
     x1, x2 = x[..., 0::2], x[..., 1::2]
-    c, s = cos[None, None].to(x.dtype), sin[None, None].to(x.dtype)
+    lead = (slice(None), None) if cos.dim() == 3 else (None, None)
+    c, s = cos[lead].to(x.dtype), sin[lead].to(x.dtype)
     return torch.stack([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).reshape(x.shape)
 
 
@@ -309,3 +319,65 @@ def tree_nbytes(params: Any) -> int:
     if isinstance(params, torch.Tensor):
         return params.numel() * params.element_size()
     return params.nbytes()
+
+
+# ------------------------------------------------------------------ decoding
+def llama_init_cache(cfg: LlamaConfig, batch: int, max_len: int, device=None) -> list:
+    """Per-layer KV cache ``[B, n_kv_head, max_len, hd]`` in the compute
+    dtype, the kv heads un-repeated (JAX ``llama_init_cache``)."""
+    shape = (batch, cfg.n_kv_head, max_len, cfg.head_dim)
+    return [{"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
+             "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device)}
+            for _ in range(cfg.n_layer)]
+
+
+def _decode_attention(x, p, cfg: LlamaConfig, c: dict, pos: int, cos, sin, offset=None):
+    """Attention of S new tokens at cache slots ``[pos, pos+S)`` (JAX
+    :248-279): roped k and v written into the cache in place, each kv head
+    repeated for its query heads, q over the masked cache."""
+    B, S, _ = x.shape
+    H, KV, hd, dt = cfg.n_head, cfg.n_kv_head, cfg.head_dim, x.dtype
+    q = apply_rope(lora_matmul(x, p["wq"]).reshape(B, S, H, hd).transpose(1, 2), cos, sin)
+    k = apply_rope(lora_matmul(x, p["wk"]).reshape(B, S, KV, hd).transpose(1, 2), cos, sin)
+    v = lora_matmul(x, p["wv"]).reshape(B, S, KV, hd).transpose(1, 2)
+    c["k"][:, :, pos:pos + S] = k.to(c["k"].dtype)
+    c["v"][:, :, pos:pos + S] = v.to(c["v"].dtype)
+    k_all, v_all = c["k"].to(dt), c["v"].to(dt)
+    if KV != H:
+        k_all = k_all.repeat_interleave(H // KV, dim=1)
+        v_all = v_all.repeat_interleave(H // KV, dim=1)
+    scores = matmul_f32(q, k_all.transpose(-1, -2)) / math.sqrt(hd)
+    scores = scores.masked_fill(~decode_mask(k_all.shape[2], pos, S, offset, x.device), -1e30)
+    probs = torch.softmax(scores, dim=-1).to(dt)
+    out = matmul_f32(probs, v_all).to(dt).transpose(1, 2).reshape(B, S, H * hd)
+    return lora_matmul(out, p["wo"])
+
+
+def _head_logits(x, params) -> torch.Tensor:
+    return matmul_f32(x, maybe_dequant(params["lm_head"], x.dtype).to(x.dtype))
+
+
+@torch.no_grad()
+def llama_decode(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, cache: list, pos: int,
+                 offset: Optional[torch.Tensor] = None):
+    """The next S tokens ``[B, S]`` at cache slots ``[pos, pos+S)`` (JAX
+    :288-318): returns ``(float32 logits [B, S, vocab_size], cache)``, the
+    cache written in place; position for position :meth:`Llama.forward`'s
+    logits. ``offset`` ``[B]``: each row's left-pad width; its slot ``t``
+    gets rotary position ``t - offset`` and attends no slot below it."""
+    S = tokens.shape[1]
+    x = lora_embed(params["wte"], tokens, cfg.compute_dtype)
+    max_len = cache[0]["k"].shape[2]
+    cos_all, sin_all = rope_angles(max_len, cfg.head_dim, cfg.rope_theta, tokens.device)
+    if offset is None:
+        cos, sin = cos_all[pos:pos + S], sin_all[pos:pos + S]
+    else:
+        ids = torch.clamp(pos + torch.arange(S, device=tokens.device)[None, :] - offset[:, None],
+                          0, max_len - 1)
+        cos, sin = cos_all[ids], sin_all[ids]
+    no_tp = TensorAxis()
+    for p, c in zip(params["blocks"], cache):
+        x = x + _decode_attention(rms_norm(x, p["ln_attn"], cfg.rms_eps), p["attn"], cfg, c,
+                                  pos, cos, sin, offset)
+        x = x + _mlp(rms_norm(x, p["ln_mlp"], cfg.rms_eps), p["mlp"], no_tp)
+    return _head_logits(rms_norm(x, params["ln_f"], cfg.rms_eps), params), cache

@@ -55,8 +55,9 @@ not depend on the order. The library is instantiated for ``nbins`` 8
 (``train.telemetry.NBINS``, the only caller's) and raises on another.
 
 Each wrapper runs its kernel for a CUDA tensor and its plain PyTorch
-version for a CPU tensor, counts its launches in ``.launches``, and raises
-on anything else. Triton is imported at the first launch, never at module
+version for a CPU tensor, counts its launches in ``.launches`` (the ballot
+and apply wrappers also by the momentum dtype they ran on, in
+``.by_dtype``), and raises on anything else. Triton is imported at the first launch, never at module
 import, and caches its builds under ``build/triton/`` of the checkout
 unless ``TRITON_CACHE_DIR`` is set; the stats library is built by ``nvcc``
 at its first launch (``ops/cuda_build.py``), and a missing ``nvcc`` or a
@@ -172,6 +173,13 @@ def _stats_lib() -> ctypes.CDLL:
     return _STATS_LIB
 
 
+def _count(wrapper, m: torch.Tensor) -> None:
+    """One launch of ``wrapper``'s kernel over momentum ``m``."""
+    wrapper.launches += 1
+    key = str(m.dtype).removeprefix("torch.")
+    wrapper.by_dtype[key] = wrapper.by_dtype.get(key, 0) + 1
+
+
 def _check_window(name: str, *ts: torch.Tensor) -> None:
     dev, n = ts[0].device, ts[0].numel()
     for t in ts:
@@ -198,11 +206,12 @@ def fused_ballots(g: torch.Tensor, m: torch.Tensor, b1: float) -> torch.Tensor:
         _kernels()["ballot"][(triton.cdiv(g.numel(), BLOCK),)](
             g, m, out, g.numel(), b1, 1.0 - b1, BLOCK=BLOCK,
             num_warps=NUM_WARPS, enable_fp_fusion=False)
-        fused_ballots.launches += 1
+        _count(fused_ballots, m)
     return out
 
 
 fused_ballots.launches = 0
+fused_ballots.by_dtype = {}
 
 
 def fused_apply(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
@@ -231,11 +240,12 @@ def fused_apply(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
         _kernels()["apply"][(triton.cdiv(p.numel(), BLOCK),)](
             p, g, m, tot, lr, p.numel(), wd, b2, 1.0 - b2, BLOCK=BLOCK,
             num_warps=NUM_WARPS, enable_fp_fusion=False)
-        fused_apply.launches += 1
+        _count(fused_apply, m)
     return p, m
 
 
 fused_apply.launches = 0
+fused_apply.by_dtype = {}
 
 
 def bucket_vote_stats(ballots: torch.Tensor, total: torch.Tensor, world: int,

@@ -144,12 +144,25 @@ slices are different coordinates) and ``flip_valid`` starts at step
 K + d + 1. Leg 2 is waited on inside the launch: the bytes are those a
 handle kept pending across steps would give.
 
+**Mixed param dtypes** (JAX ``step``'s XLA path for a tree whose leaves do
+not share one dtype, :696-701, :703-731, :863-868). ``FlatParams`` keeps one
+buffer per dtype and the momentum one buffer per param buffer; the ballots,
+the packed vote bytes, the buckets, the elections, the lazy slices, the DCN
+ring, the telemetry frame and the guard's previous ballot all run over the
+leaf-order flat coordinates, whose windows :meth:`FlatParams.runs` maps onto
+the buffers, so the ballot vector is JAX's ``_flatten_votes`` of the tree.
+Each window's ballots and update run through the kernels, as a
+single-dtype tree's do: they read and write the window's own dtypes and
+compute in float32. For float32 windows that is the XLA path's bits up to
+its FMAs; for bfloat16 ones it rounds once where the XLA path rounds every
+op in bfloat16 (ROADMAP Queue 3, "two apply paths"), so a ballot whose
+u-term lies within those roundings of zero can differ from JAX's.
+
 Ported: the deterministic and the stochastic modes on the three flat wires
 and the ``hier:<g>`` wire with its DCN pipeline, lazy refresh in both
-modes, ``mom_dtype``, vote-health telemetry and the vote guard; and
-:func:`remap_worker_momentum`, the elastic resume's remap of the per-rank
-momenta to another world size. Mixed param dtypes are refused by
-``FlatParams``.
+modes, ``mom_dtype``, mixed param dtypes, vote-health telemetry and the
+vote guard; and :func:`remap_worker_momentum`, the elastic resume's remap of
+the per-rank momenta to another world size.
 """
 
 from __future__ import annotations
@@ -176,6 +189,7 @@ from distributed_lion_tpu_torch.optim.lion import (
     _validate,
     init_state,
     lion,
+    momenta,
     resolve_lr,
     resolve_mom_dtype,
 )
@@ -285,7 +299,7 @@ class DistributedLion:
             self.hier = collectives.HierGroups.local()
         else:
             self.hier = None
-        self._g_cast: Optional[torch.Tensor] = None
+        self._g_cast: dict = {}   # buffer index -> the grads cast to its momentum dtype
 
     def init(self, flat: FlatParams) -> LionState:
         ring = None
@@ -295,15 +309,45 @@ class DistributedLion:
         return init_state(flat, self.mom_dtype, self.vote_every,
                           self.world if self.guard != "off" else 0, ring)
 
-    def _grads(self, flat: FlatParams, m: torch.Tensor) -> torch.Tensor:
-        """The flat grads in the momentum dtype: the buffer itself, or one
+    def _grads(self, flat: FlatParams, ms: list) -> list:
+        """Each grad buffer in its momentum's dtype: the buffer itself, or one
         cast into a buffer this optimizer owns."""
-        g = flat.grads
-        if g.dtype == m.dtype:
-            return g
-        if self._g_cast is None or self._g_cast.shape != m.shape:
-            self._g_cast = torch.empty_like(m)
-        return self._g_cast.copy_(g)
+        out = []
+        for k, (g, m) in enumerate(zip(flat.grad_bufs, ms)):
+            if g.dtype != m.dtype:
+                cast = self._g_cast.get(k)
+                if cast is None or cast.shape != m.shape or cast.dtype != m.dtype:
+                    cast = self._g_cast[k] = torch.empty_like(m)
+                g = cast.copy_(g)
+            out.append(g)
+        return out
+
+    def _ballots(self, flat: FlatParams, gs: list, ms: list, lo: int, hi: int, gen,
+                 flips) -> torch.Tensor:
+        """The int8 ±1 ballots of the flat coordinates ``[lo, hi)``, window
+        by window of the buffers: stochastic draws from ``gen`` (their
+        differences from the deterministic ballots counted into ``flips``
+        where it is a tensor), else the ballot kernel, or under lazy
+        refresh with a momentum that is not float32 the XLA path's plain
+        ops (``sign_vote_bool`` in the momentum dtype), as JAX's lazy
+        refresh votes."""
+        plain = self.vote_every > 1
+        parts = []
+        for k, a, b, _ in flat.runs(lo, hi):
+            g, m = gs[k][a:b], ms[k][a:b]
+            if gen is not None:
+                vote_pos = lion_math.stochastic_vote_bool(g, m, self.b1, self.max_grad_norm, gen)
+                if flips is not None:
+                    flips += (vote_pos != lion_math.sign_vote_bool(g, m, self.b1)).sum()
+                parts.append(torch.where(vote_pos, 1, -1).to(torch.int8))
+            elif plain and m.dtype != torch.float32:
+                parts.append(lion_math.sign_vote_bool(g, m, self.b1).to(torch.int8) * 2 - 1)
+            else:
+                parts.append(fused_lion.fused_ballots(g, m, self.b1))
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat(parts) if parts else torch.empty(0, dtype=torch.int8,
+                                                          device=flat.device)
 
     @torch.no_grad()
     def step(self, flat: FlatParams, state: LionState):
@@ -311,18 +355,21 @@ class DistributedLion:
         and ``state.exp_avg`` in place. Returns the new state, or
         ``(state, frame)`` with telemetry on."""
         lr = resolve_lr(self.learning_rate, state.count)
-        p, m = flat.params, state.exp_avg
-        g = self._grads(flat, m)
+        ps, ms = flat.param_bufs, momenta(state)
+        gs = self._grads(flat, ms)
+        bufs = (flat, ps, gs, ms)
         frame = _vt.empty_frame(0, flat.device) if self.telemetry else None
         guard = None
         if self.guard != "off":
             # nonfinite ballot inputs, counted before the sanitize and
             # before the sign hides them (a NaN u-term votes −1)
             zero = torch.zeros((), dtype=torch.int64, device=flat.device)
-            guard = {"nf": guard_inputs(g, m, self.guard == "enforce"),
-                     "dis": zero, "flips": zero.clone(), "prev": state.prev_ballot}
+            nf = zero.clone()
+            for g, m in zip(gs, ms):
+                nf += guard_inputs(g, m, self.guard == "enforce")
+            guard = {"nf": nf, "dis": zero, "flips": zero.clone(), "prev": state.prev_ballot}
         if self.vote_every > 1:
-            return self._step_lazy(flat, state, p, g, m, lr, frame, guard)
+            return self._step_lazy(bufs, state, lr, frame, guard)
         count, depth = state.steps, self.depth
         # under the DCN pipeline the step applies the election launched
         # depth steps ago: none in the first depth steps
@@ -330,6 +377,7 @@ class DistributedLion:
         if depth:
             row, segs = self._ring_row(state, flat.numel)
         stochastic = self.max_grad_norm is not None
+        gen = flips = None
         if stochastic:
             gen = lion_math.stochastic_generator(self.seed, count, self.rank, flat.device)
             if frame is not None:  # ballots that differ from the deterministic ones
@@ -339,24 +387,17 @@ class DistributedLion:
         for i, (start, size) in enumerate(bucket_bounds(flat.numel, self.vote_buckets,
                                                         self.world, self.wire)):
             w = slice(start, start + size)
-            if stochastic:
-                vote_pos = lion_math.stochastic_vote_bool(g[w], m[w], self.b1,
-                                                          self.max_grad_norm, gen)
-                ballots = torch.where(vote_pos, 1, -1).to(torch.int8)
-                if frame is not None:
-                    flips += (vote_pos != lion_math.sign_vote_bool(g[w], m[w], self.b1)).sum()
-            else:
-                ballots = fused_lion.fused_ballots(g[w], m[w], self.b1)
+            ballots = self._ballots(flat, gs, ms, start, start + size, gen, flips)
             if depth:
                 total = self._pipe(ballots, state, row, segs[i], size)
                 vote = collectives.PendingVote(lambda total=total: total)
             else:
                 vote = self._vote(ballots, state, guard)
             if pending is not None:  # apply k−1 while bucket k is on the wire
-                self._apply(p, g, m, lr, frame, packed, guard, landed, *pending)
+                self._apply(bufs, lr, frame, packed, guard, landed, *pending)
             pending = (w, ballots, vote)
         if pending is not None:
-            self._apply(p, g, m, lr, frame, packed, guard, landed, *pending)
+            self._apply(bufs, lr, frame, packed, guard, landed, *pending)
         gframe = None
         if guard is not None:  # prev_ballot now holds this step's ballots
             gframe = self._guard_frame(guard["nf"], guard["flips"], count >= 1,
@@ -437,10 +478,12 @@ class DistributedLion:
                 "disagree": vec[2].to(torch.float32),
                 "voted": torch.full((), voted, dtype=torch.int64, device=dev)}
 
-    def _apply(self, p, g, m, lr, frame, packed, guard, landed: bool, w: slice, ballots,
+    def _apply(self, bufs: tuple, lr, frame, packed, guard, landed: bool, w: slice, ballots,
                vote):
-        """Apply one bucket's election; ``landed`` False (the DCN pipeline's
-        first steps): decay and momentum only, in plain ops."""
+        """Apply one bucket's election, window by window of the buffers;
+        ``landed`` False (the DCN pipeline's first steps): decay and
+        momentum only, in plain ops. The apply kernel, except under
+        stochastic binarization: the XLA path's plain ops there."""
         total = vote.wait()
         if guard is not None:  # this rank's unmasked ballots against the election;
             # bucket boundaries are byte-aligned
@@ -452,16 +495,18 @@ class DistributedLion:
                 frame["margin_hist"] += hist
                 frame["disagree"] += dis
             packed.append(pack_signs(total > 0))
-        if not landed:
-            p[w] = lion_math.decay_params(p[w], lr, self.weight_decay)
-            m[w] = lion_math.momentum_update(g[w], m[w], self.b2)
-            return
-        if self.max_grad_norm is None:
-            fused_lion.fused_apply(p[w], g[w], m[w], total, lr, self.weight_decay, self.b2)
-            return
-        decayed = lion_math.decay_params(p[w], lr, self.weight_decay)
-        p[w] = lion_math.apply_signed_update(decayed, total > 0, lr)
-        m[w] = lion_math.momentum_update(g[w], m[w], self.b2)
+        flat, ps, gs, ms = bufs
+        for k, a, b, rel in flat.runs(w.start, w.stop):
+            p, g, m, t = ps[k][a:b], gs[k][a:b], ms[k][a:b], total[rel:rel + b - a]
+            if not landed:
+                p.copy_(lion_math.decay_params(p, lr, self.weight_decay))
+                m.copy_(lion_math.momentum_update(g, m, self.b2))
+            elif self.max_grad_norm is None:
+                fused_lion.fused_apply(p, g, m, t, lr, self.weight_decay, self.b2)
+            else:
+                decayed = lion_math.decay_params(p, lr, self.weight_decay)
+                p.copy_(lion_math.apply_signed_update(decayed, t > 0, lr))
+                m.copy_(lion_math.momentum_update(g, m, self.b2))
 
     def _slice_buckets(self, n: int, count: int) -> tuple:
         """``(lo, real, [(start, size, r)])`` of slot ``count mod K``'s slice:
@@ -487,11 +532,12 @@ class DistributedLion:
             g[lo + start:lo + start + r], m[lo + start:lo + start + r], self.b1,
             self.max_grad_norm, gen) for start, _, r in buckets])
 
-    def _step_lazy(self, flat: FlatParams, state: LionState, p, g, m, lr, frame, guard):
+    def _step_lazy(self, bufs: tuple, state: LionState, lr, frame, guard):
         """The lazy refresh of the module doc: vote slot ``count mod K``'s
         slice bucket by bucket, write its election (under the DCN pipeline
         the election of slot ``(count − d) mod K``'s slice, launched d steps
         ago) into a copy of the cache, apply the cached signs."""
+        flat, ps, gs, ms = bufs
         n, k, count, depth = flat.numel, self.vote_every, state.steps, self.depth
         chunk = vote_chunk_elems(n, k)
         lo, real, buckets = self._slice_buckets(n, count)
@@ -501,23 +547,15 @@ class DistributedLion:
         if depth:
             row, segs = self._ring_row(state, chunk)
         stochastic = self.max_grad_norm is not None
+        gen = flips = None
         if stochastic:
             gen = lion_math.stochastic_generator(self.seed, count, self.rank, flat.device)
             flips = torch.zeros((), dtype=torch.int64, device=flat.device)
         cache = state.elected.clone()      # the frame keeps the old one as its flip base
         pending = []
         for start, size, r in buckets:
-            w = slice(lo + start, lo + start + r)
-            if stochastic:
-                vote_pos = lion_math.stochastic_vote_bool(g[w], m[w], self.b1,
-                                                          self.max_grad_norm, gen)
-                ballots = torch.where(vote_pos, 1, -1).to(torch.int8)
-                if frame is not None:
-                    flips += (vote_pos != lion_math.sign_vote_bool(g[w], m[w], self.b1)).sum()
-            elif m.dtype == torch.float32:
-                ballots = fused_lion.fused_ballots(g[w], m[w], self.b1)
-            else:
-                ballots = lion_math.sign_vote_bool(g[w], m[w], self.b1).to(torch.int8) * 2 - 1
+            ballots = self._ballots(flat, gs, ms, lo + start, lo + start + r, gen,
+                                    flips if frame is not None else None)
             if r < size:  # the slice past n votes −1
                 ballots = torch.cat([ballots, ballots.new_full((size - r,), -1)])
             if depth:
@@ -543,18 +581,21 @@ class DistributedLion:
         # the slots whose election has landed: 0..count − d
         valid = min(max(count - depth + 1, 0) * chunk, n)
         tally = lion_math.cache_tally(cache, n)
-        if p.dtype == m.dtype == torch.float32:
-            if valid:
-                fused_lion.fused_apply(p[:valid], g[:valid], m[:valid], tally[:valid], lr,
-                                       self.weight_decay, self.b2)
-            if valid < n:
-                p[valid:] = lion_math.decay_params(p[valid:], lr, self.weight_decay)
-                m[valid:] = lion_math.momentum_update(g[valid:], m[valid:], self.b2)
-        else:
-            p_new, m_new = lion_math.lazy_update(p, g, m, tally, valid, lr,
-                                                 self.weight_decay, self.b2)
-            p.copy_(p_new)
-            m.copy_(m_new)
+        for j, a, b, rel in flat.runs(0, n):
+            p, g, m, t = ps[j][a:b], gs[j][a:b], ms[j][a:b], tally[rel:rel + b - a]
+            v = min(max(valid - rel, 0), b - a)   # this window's voted coordinates
+            if p.dtype == m.dtype == torch.float32:
+                if v:
+                    fused_lion.fused_apply(p[:v], g[:v], m[:v], t[:v], lr,
+                                           self.weight_decay, self.b2)
+                if v < b - a:
+                    p[v:] = lion_math.decay_params(p[v:], lr, self.weight_decay)
+                    m[v:] = lion_math.momentum_update(g[v:], m[v:], self.b2)
+            else:
+                p_new, m_new = lion_math.lazy_update(p, g, m, t, v, lr,
+                                                     self.weight_decay, self.b2)
+                p.copy_(p_new)
+                m.copy_(m_new)
         gframe = None
         if guard is not None:
             gframe = self._guard_frame(guard["nf"], guard["flips"], count >= k,
@@ -576,10 +617,12 @@ class DistributedLion:
             # the full vector's flip share, as the JAX package's: the
             # coordinates outside the slice draw after it from the same
             # stream, so the voted ballots do not depend on telemetry
-            for w in (slice(0, lo), slice(lo + real, n)):
-                flips += (lion_math.stochastic_vote_bool(g[w], m[w], self.b1,
-                                                         self.max_grad_norm, gen)
-                          != lion_math.sign_vote_bool(g[w], m[w], self.b1)).sum()
+            for wlo, whi in ((0, lo), (lo + real, n)):
+                for j, a, b, _ in flat.runs(wlo, whi):
+                    g, m = gs[j][a:b], ms[j][a:b]
+                    flips += (lion_math.stochastic_vote_bool(g, m, self.b1,
+                                                             self.max_grad_norm, gen)
+                              != lion_math.sign_vote_bool(g, m, self.b1)).sum()
             frame["stoch_flip_frac"] = flips.to(torch.float32) / n
         return (state, frame) if gframe is None else (state, frame, gframe)
 

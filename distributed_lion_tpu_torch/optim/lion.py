@@ -6,7 +6,12 @@ params as a pytree and addresses them through a flat-offset layout; here
 live in one contiguous buffer each, in the JAX package's leaf order, and
 every ``nn.Parameter``'s ``.data`` and ``.grad`` are views into those
 buffers, so autograd accumulates into the flat grad buffer in place and an
-optimizer pass over a bucket is one kernel launch over one window.
+optimizer pass over a bucket is one kernel launch over one window. A tree
+of mixed dtypes keeps one buffer per dtype (its leaves in leaf order), and
+the leaf-order coordinates of the whole tree, which the ballots and the
+vote follow, map onto windows of those buffers (:meth:`FlatParams.runs`);
+its momentum is one buffer per param buffer (a tuple in
+``LionState.exp_avg``).
 
 Hyperparameter defaults and validation follow the reference's ``Lion``
 (lr 1e-4, betas (0.9, 0.99), weight decay 0). ``mom_dtype`` stores the
@@ -29,7 +34,8 @@ Schedule = Union[float, Callable[[torch.Tensor], torch.Tensor]]
 
 class LionState(NamedTuple):
     count: torch.Tensor    # int32 step counter on the params' device
-    exp_avg: torch.Tensor  # flat momentum buffer, rank-local, in the momentum dtype
+    exp_avg: Union[torch.Tensor, tuple]  # flat momentum buffer, rank-local, in the
+    # momentum dtype; for a mixed-dtype tree one per FlatParams.param_bufs buffer
     steps: int = 0         # the same count on the host: seeds stochastic ballots
     # and picks the lazy slot
     elected: Optional[torch.Tensor] = None  # packed uint8 elected-sign cache,
@@ -49,22 +55,22 @@ class LionState(NamedTuple):
 
 
 class FlatParams:
-    """One contiguous param buffer and one grad buffer for a list of named
-    parameters of one dtype; each parameter's ``.data`` and ``.grad``
-    become views of its window. Parameters of mixed dtypes would need one
-    buffer per dtype (the JAX package's non-uniform XLA path), which is not
-    ported (ROADMAP Queue 1 item 4)."""
+    """Contiguous param and grad buffers for a list of named parameters;
+    each parameter's ``.data`` and ``.grad`` become views of its window.
+    The leaves' order is the JAX package's and defines the flat coordinates
+    ``[0, numel)`` (``offsets``). Parameters of one dtype share one buffer
+    each (``params``, ``grads``); a mixed tree keeps one buffer per dtype,
+    in the order its dtypes first appear (``param_bufs``, ``grad_bufs``),
+    each holding its leaves in leaf order, as the JAX package's XLA path
+    keeps its leaves (``distributed_lion.py:696-701``); :meth:`runs` maps
+    flat coordinates onto them."""
 
     def __init__(self, named_params: Sequence[tuple[str, torch.nn.Parameter]]):
         if not named_params:
             raise ValueError("FlatParams needs at least one parameter")
-        dtypes = {p.dtype for _, p in named_params}
         devices = {p.device for _, p in named_params}
-        if len(dtypes) != 1 or len(devices) != 1:
-            raise NotImplementedError(
-                f"flat buffers over mixed dtypes {sorted(map(str, dtypes))} "
-                f"or devices {sorted(map(str, devices))} are not ported "
-                "(ROADMAP Queue 1 item 4)")
+        if len(devices) != 1:
+            raise ValueError(f"flat buffers over several devices {sorted(map(str, devices))}")
         self.names = [name for name, _ in named_params]
         self.shapes = [tuple(p.shape) for _, p in named_params]
         sizes = [p.numel() for _, p in named_params]
@@ -72,37 +78,94 @@ class FlatParams:
         for n in sizes[:-1]:
             self.offsets.append(self.offsets[-1] + n)
         self.numel = sum(sizes)
-        (dtype,), (device,) = dtypes, devices
-        self.params = torch.empty(self.numel, dtype=dtype, device=device)
-        self.grads = torch.zeros(self.numel, dtype=dtype, device=device)
+        (device,) = devices
+        dtypes: list = []
+        for _, p in named_params:
+            if p.dtype not in dtypes:
+                dtypes.append(p.dtype)
+        self.dtypes = dtypes
+        self.group = [dtypes.index(p.dtype) for _, p in named_params]  # each leaf's buffer
+        self.group_offsets, fill = [], [0] * len(dtypes)
+        for k, n in zip(self.group, sizes):
+            self.group_offsets.append(fill[k])
+            fill[k] += n
+        self.param_bufs = [torch.empty(n, dtype=dt, device=device) for n, dt in zip(fill, dtypes)]
+        self.grad_bufs = [torch.zeros(n, dtype=dt, device=device) for n, dt in zip(fill, dtypes)]
         with torch.no_grad():
-            for (_, p), off, n in zip(named_params, self.offsets, sizes):
-                window = self.params[off:off + n]
+            for (_, p), k, off, n in zip(named_params, self.group, self.group_offsets, sizes):
+                window = self.param_bufs[k][off:off + n]
                 window.copy_(p.reshape(-1))
                 p.data = window.view_as(p)
-                p.grad = self.grads[off:off + n].view_as(p)
+                p.grad = self.grad_bufs[k][off:off + n].view_as(p)
         self._params = [p for _, p in named_params]
+        # maximal runs of adjacent leaves in one buffer: (flat lo, flat hi,
+        # buffer, its offset), contiguous in both
+        self._runs: list = []
+        for k, off, goff, n in zip(self.group, self.offsets, self.group_offsets, sizes):
+            if self._runs and self._runs[-1][2] == k:
+                lo, hi, _, g0 = self._runs[-1]
+                self._runs[-1] = (lo, hi + n, k, g0)
+            else:
+                self._runs.append((off, off + n, k, goff))
+
+    @property
+    def mixed(self) -> bool:
+        return len(self.dtypes) > 1
+
+    @property
+    def params(self) -> torch.Tensor:
+        """The one param buffer of a single-dtype tree."""
+        return self._single(self.param_bufs)
+
+    @property
+    def grads(self) -> torch.Tensor:
+        """The one grad buffer of a single-dtype tree."""
+        return self._single(self.grad_bufs)
+
+    def _single(self, bufs: list) -> torch.Tensor:
+        if self.mixed:
+            raise NotImplementedError(
+                f"a tree of mixed dtypes {[str(d) for d in self.dtypes]} has one buffer per "
+                "dtype (param_bufs, grad_bufs): only local Lion and Distributed Lion "
+                "take it")
+        return bufs[0]
 
     @property
     def device(self) -> torch.device:
-        return self.params.device
+        return self.param_bufs[0].device
+
+    def runs(self, lo: int, hi: int) -> list[tuple[int, int, int, int]]:
+        """``(buffer, start, stop, offset from lo)`` windows covering the flat
+        coordinates ``[lo, hi)`` in order; one window for a single-dtype
+        tree."""
+        if not self.mixed:
+            return [(0, lo, hi, 0)]
+        out = []
+        for r_lo, r_hi, k, g0 in self._runs:
+            a, b = max(lo, r_lo), min(hi, r_hi)
+            if a < b:
+                out.append((k, g0 + a - r_lo, g0 + b - r_lo, a - lo))
+        return out
 
     def zero_grad(self) -> None:
-        """Zero the flat grad buffer; the ``.grad`` views stay bound, so the
-        next backward accumulates into it in place."""
-        for name, p, off in zip(self.names, self._params, self.offsets):
-            if p.grad is None or p.grad.data_ptr() != self.grads[off:].data_ptr():
+        """Zero the flat grad buffers; the ``.grad`` views stay bound, so the
+        next backward accumulates into them in place."""
+        for name, p, k, off in zip(self.names, self._params, self.group, self.group_offsets):
+            if p.grad is None or p.grad.data_ptr() != self.grad_bufs[k][off:].data_ptr():
                 raise RuntimeError(
                     f"{name}.grad is no longer a view of the flat grad buffer "
                     "(set to None or replaced); the optimizer would not see it")
-        self.grads.zero_()
+        for g in self.grad_bufs:
+            g.zero_()
 
-    def views(self, buf: torch.Tensor) -> dict[str, torch.Tensor]:
+    def views(self, buf) -> dict[str, torch.Tensor]:
         """Each parameter's window of a flat buffer (params, grads or
-        momentum), in the parameter's shape."""
-        return {name: buf[off:off + p.numel()].view(shape)
-                for name, p, off, shape in zip(self.names, self._params,
-                                               self.offsets, self.shapes)}
+        momentum; for a mixed tree a list or tuple of one buffer per
+        dtype), in the parameter's shape."""
+        bufs = buf if isinstance(buf, (list, tuple)) else [buf]
+        return {name: bufs[k][off:off + p.numel()].view(shape)
+                for name, p, k, off, shape in zip(self.names, self._params, self.group,
+                                                  self.group_offsets, self.shapes)}
 
 
 def _validate(lr_init, b1: float, b2: float) -> None:
@@ -131,6 +194,11 @@ def resolve_mom_dtype(mom_dtype) -> Optional[torch.dtype]:
     if mom_dtype not in MOM_DTYPES:
         raise ValueError(f"mom_dtype must be one of {sorted(MOM_DTYPES)}, got {mom_dtype!r}")
     return MOM_DTYPES[mom_dtype]
+
+
+def momenta(state: LionState) -> list:
+    """The momentum buffers of a state, one per param buffer."""
+    return list(state.exp_avg) if isinstance(state.exp_avg, tuple) else [state.exp_avg]
 
 
 def guard_ballot_len(n: int, vote_every: int) -> int:
@@ -165,9 +233,10 @@ def init_state(flat: FlatParams, mom_dtype: Optional[torch.dtype] = None,
         elected = torch.zeros(vote_every * chunk // 8, dtype=torch.uint8, device=flat.device)
     guard = (fresh_guard_state(flat.numel, vote_every, guard_world, flat.device)
              if guard_world else {})
+    moms = tuple(torch.zeros_like(p, dtype=mom_dtype or p.dtype) for p in flat.param_bufs)
     return LionState(
         count=torch.zeros((), dtype=torch.int32, device=flat.device),
-        exp_avg=torch.zeros_like(flat.params, dtype=mom_dtype or flat.params.dtype),
+        exp_avg=moms if flat.mixed else moms[0],
         elected=elected, **guard,
         dcn_ring=(None if ring is None
                   else torch.zeros(ring, dtype=torch.uint8, device=flat.device)))
@@ -191,13 +260,14 @@ class Lion:
     @torch.no_grad()
     def step(self, flat: FlatParams, state: LionState) -> LionState:
         lr = resolve_lr(self.learning_rate, state.count)
-        m = state.exp_avg
-        p_new, m_new = lion_math.local_lion_leaf(
-            flat.params, flat.grads.to(m.dtype), m, lr, self.weight_decay,
-            self.b1, self.b2)
-        flat.params.copy_(p_new)
-        m.copy_(m_new)
-        return LionState(state.count + 1, m, state.steps + 1)
+        for p, g, m in zip(flat.param_bufs, flat.grad_bufs, momenta(state)):
+            # elementwise in each buffer's dtype: a mixed tree's buffers step
+            # as the JAX package's per-leaf tree map
+            p_new, m_new = lion_math.local_lion_leaf(p, g.to(m.dtype), m, lr,
+                                                     self.weight_decay, self.b1, self.b2)
+            p.copy_(p_new)
+            m.copy_(m_new)
+        return LionState(state.count + 1, state.exp_avg, state.steps + 1)
 
 
 def lion(learning_rate: Schedule = 1e-4, b1: float = 0.9, b2: float = 0.99,

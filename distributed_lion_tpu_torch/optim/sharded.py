@@ -79,7 +79,12 @@ def make_sharded_step(opt: DistributedLion, group=None, has_elected: bool = Fals
 def shard_state(state: LionState, rank: int) -> LionState:
     """Rank ``rank``'s state from a stacked one: row ``rank`` of the
     momentum ``[world, n]`` (and of the guard's previous ballot); the
-    replicated fields as they are."""
+    replicated fields as they are. A mixed-dtype tree's momentum (one
+    buffer per dtype, a tuple) has no stacked form: refused."""
+    if isinstance(state.exp_avg, tuple):
+        raise NotImplementedError(
+            "shard_state: a mixed-dtype tree's momentum is one buffer per dtype, not a "
+            "stacked [world, n] tensor with a row per rank")
     return state._replace(
         exp_avg=state.exp_avg[rank].clone(),
         prev_ballot=None if state.prev_ballot is None else state.prev_ballot[rank].clone())

@@ -1,4 +1,4 @@
-"""Expert parallelism: port of ``distributed_lion_tpu/parallel/expert.py`` (training).
+"""Expert parallelism: port of ``distributed_lion_tpu/parallel/expert.py``.
 
 A Switch-style MoE FFN: top-1 routing (each token to the argmax of a learned
 gate's softmax), a fixed capacity ``ceil(cf · N / E)`` per expert with the
@@ -24,9 +24,15 @@ the same function with one rounding per product (module tests: float32
 within 1e-6 of JAX's einsums). The expert FFN is two batched products with
 the tanh GELU.
 
-The serving engine's arguments (``valid``, ``return_stats``,
-``stats_axis``, ``stats_lanes``, ``capacity_override``) are not ported
-(ROADMAP Queue 1 item 12).
+Decoding passes JAX's two inference arguments: ``capacity_override``
+(the decode paths give ``B·S``, so no token is dropped and routing is a
+per-token function) and ``valid`` (dead lanes, a left-padded batch's pad
+slots, leave the assignment before the queue count: they take no slot,
+route nowhere and give exact-zero rows; the aux loss averages over the
+valid lanes). Every leaf goes through ``ops.quant.maybe_dequant``, so NF4
+and int8 expert banks serve. The serving engine's ``return_stats``,
+``stats_axis`` and ``stats_lanes`` are not ported (ROADMAP Queue 1 item
+12(d)).
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from distributed_lion_tpu_torch.ops.quant import maybe_dequant
 from distributed_lion_tpu_torch.parallel.mesh import ExpertAxis, TensorAxis
 from distributed_lion_tpu_torch.parallel.tensor_parallel import (
     copy_to_tp_region,
@@ -122,33 +129,43 @@ class _Return(torch.autograd.Function):
         return _to_experts(g, ctx.ep, ctx.group), None, None
 
 
-def route(x: torch.Tensor, gate: torch.Tensor, n_experts: int, cap: int) -> tuple:
+def route(x: torch.Tensor, gate: torch.Tensor, n_experts: int, cap: int,
+          valid: Optional[torch.Tensor] = None) -> tuple:
     """Top-1 routing of ``x [N, d]`` (JAX expert.py:185-201): ``(probs [N, E]
     in x's dtype, expert index [N], the token's slot in its expert's queue
-    [N] int32, kept [N] bool)``; the slot counts in int32 in token order.
+    [N] int32, kept [N] bool)``; the slot counts in int32 in token order
+    over the ``valid`` lanes (all when None), a dead lane taking no slot
+    and never kept.
     The softmax is ``jax.nn.softmax``'s, each op in x's dtype (the shifted
     exponent, its sum, the quotient), so a bfloat16 near-tie breaks as in the
     JAX package (``torch.softmax`` rounds once and may pick another expert)."""
-    logits = x @ gate.to(x.dtype)
+    logits = x @ maybe_dequant(gate, x.dtype).to(x.dtype)
     unnorm = torch.exp(logits - logits.amax(dim=-1, keepdim=True).detach())
     probs = unnorm / unnorm.sum(dim=-1, keepdim=True)
     idx = torch.argmax(probs, dim=-1)
     # [E, N]: the queue count runs along the inner dim (a scan along the outer
     # dim of [N, E] took 1.3 ms a call at N 8192 on the H100, run (y1)'s profile)
     one_hot = F.one_hot(idx, n_experts).t().to(torch.int32)
+    if valid is not None:
+        one_hot = one_hot * valid.to(torch.int32)
     pos = (torch.cumsum(one_hot, dim=1, dtype=torch.int32) * one_hot).sum(0) - 1
-    return probs, idx, pos, pos < cap
+    return probs, idx, pos, (pos >= 0) & (pos < cap)
 
 
 def moe_ffn(params: Mapping[str, torch.Tensor], x: torch.Tensor, *,
             capacity_factor: float = 1.25, expert: Optional[ExpertAxis] = None,
-            tp: Optional[TensorAxis] = None, balance_tokens: Optional[torch.Tensor] = None,
+            tp: Optional[TensorAxis] = None, capacity_override: Optional[int] = None,
+            valid: Optional[torch.Tensor] = None,
+            balance_tokens: Optional[torch.Tensor] = None,
             balance_axis: Optional[ExpertAxis] = None, return_tallies: bool = False):
-    """The MoE FFN of local tokens ``x [N, d]`` (JAX ``moe_ffn``'s training
-    arguments). ``params`` holds this rank's experts ``[E/ep, ...]`` (and its
-    tensor slices under ``tp``) and the whole gate ``[d, E]``; with
-    ``expert`` (size > 1) the tokens cross the expert group. Capacity comes
-    from the local N. ``balance_tokens`` (``[E+1]`` float32: per-expert
+    """The MoE FFN of local tokens ``x [N, d]`` (JAX ``moe_ffn``, all but the
+    serving stats). ``capacity_override`` replaces the capacity (the decode
+    paths: ``N``, no drop); ``valid`` ``[N]`` bool masks dead lanes out of
+    the routing and the aux loss (module doc). ``params`` holds this rank's
+    experts ``[E/ep, ...]`` (and its tensor slices under ``tp``) and the
+    whole gate ``[d, E]``; with ``expert`` (size > 1) the tokens cross the
+    expert group. Capacity comes from the local N. ``balance_tokens``
+    (``[E+1]`` float32: per-expert
     token counts and the lane count) replaces the local load fraction in the
     aux loss, except an all-zero tally (lane count 0, a ring's cold start),
     which falls back to the local one; ``balance_axis`` instead sums the
@@ -158,19 +175,27 @@ def moe_ffn(params: Mapping[str, torch.Tensor], x: torch.Tensor, *,
     if balance_tokens is not None and balance_axis is not None:
         raise ValueError("balance_tokens and balance_axis are alternatives; pass one")
     dt = x.dtype
-    w_in, b_in, w_out, b_out = (params[k].to(dt) for k in EXPERT_LEAVES)
+    w_in, b_in, w_out, b_out = (maybe_dequant(params[k], dt).to(dt) for k in EXPERT_LEAVES)
     n, d = x.shape
     ep = 1 if expert is None else expert.size
     n_experts = w_in.shape[0] * ep
-    cap = capacity(n, n_experts, capacity_factor)
+    cap = (capacity_override if capacity_override is not None
+           else capacity(n, n_experts, capacity_factor))
 
-    probs, idx, pos, keep = route(x, params["gate"], n_experts, cap)
+    probs, idx, pos, keep = route(x, params["gate"], n_experts, cap, valid)
     gate_p = probs.gather(-1, idx[:, None])[:, 0]
 
-    # the load-balance aux on the pre-drop assignment
-    counts = torch.bincount(idx, minlength=n_experts).to(torch.float32)
-    n_lanes = torch.tensor(float(n), device=x.device)
-    frac_probs = probs.mean(dim=0)
+    # the load-balance aux on the pre-drop assignment, over the valid lanes
+    if valid is None:
+        counts = torch.bincount(idx, minlength=n_experts).to(torch.float32)
+        n_lanes = torch.tensor(float(n), device=x.device)
+        frac_probs = probs.mean(dim=0)
+    else:
+        v32 = valid.to(torch.float32)
+        counts = torch.zeros(n_experts, dtype=torch.float32, device=x.device).index_add_(
+            0, idx, v32)
+        n_lanes = v32.sum()
+        frac_probs = (probs * v32[:, None]).sum(0) / torch.clamp_min(n_lanes, 1.0)
     local_frac = counts / torch.clamp_min(n_lanes, 1.0)
     if balance_tokens is not None:
         fed = balance_tokens[:n_experts] / torch.clamp_min(balance_tokens[n_experts], 1.0)

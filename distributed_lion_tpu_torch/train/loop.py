@@ -252,9 +252,26 @@ and seq rank 0) and each data rank's momentum of its stage
 (``exp_avg/rank<d>_stage<p>.pt``), ``pipeline_parallel`` in the meta; a
 checkpoint resumes only at its own pp (:func:`check_resume_meta`).
 
+**Chunked dispatch** (``steps_per_call`` k > 1, JAX loop.py:220-223,
+:1535-1556, :1618-1700, :1822-1827). A dispatch of k steps runs when
+``min(k, max_steps - step)`` is k; a shorter tail runs step by step. The
+chunk's k global batches are drawn, each rank's shards stacked
+``[k, ...]`` and staged onto the device in one host-to-device copy, and the
+k steps issued back to back with no host read between them (the JAX
+trainer's ``lax.scan``; no CUDA graph is captured). Every step keeps its own
+dropout seed, LR and poison step, so k-step chunks are ``torch.equal`` to k
+single steps. The chunk's metrics are its steps' mean, the guard's
+observations their sum (counts of bad steps, folded with ``advanced = k``),
+and the sentinel reads the chunk's mean one dispatch behind. Membership,
+the profiler window, preemption and the anomaly deadline act at dispatch
+boundaries; logging, eval and save fire where the dispatch crossed a
+multiple of their interval (``step % N < advanced``). The measured wire
+ledger is the chunk's first step's, and the journal's ``data_wait`` and
+``dispatch`` spans carry ``steps=k``.
+
 ``TrainConfig`` holds only the fields the port runs, with their JAX
-defaults; the others (``steps_per_call``, …) are not flags here, so argparse
-refuses them.
+defaults; the others (``row_block``, ``kernel``, …) are not flags here, so
+argparse refuses them.
 """
 
 from __future__ import annotations
@@ -407,6 +424,8 @@ class TrainConfig:
     ep_dcn_pipeline: Optional[int] = None  # MoE balance feedback: None = each rank's
     # local aux; 0 = the tallies summed over the expert group in the forward; d > 0
     # = the summed tallies of d steps before, from LionState.moe_ring
+    steps_per_call: int = 1  # optimizer steps a dispatch: k > 1 issues k steps back to
+    # back from one staged [k, ...] batch copy, the tail shorter than k step by step
     remat_policy: str = dataclasses.field(default="", metadata={"cli": False})
     # '' = the model config's own; 'full' | 'dots' overrides it (for_gpt2, for_llama)
 
@@ -1138,6 +1157,11 @@ class Trainer:
         self.model = model
         self.loss_fn = loss_fn
         self.flat = FlatParams(named_params)
+        if self.flat.mixed:
+            raise NotImplementedError(
+                f"params of mixed dtypes {[str(d) for d in self.flat.dtypes]}: the trainer's "
+                "checkpoints, heals and crash bundles read one flat buffer; such a tree "
+                "trains through optim.lion / optim.distributed_lion")
         if cfg.lion and cfg.learning_rate < 1e-3 and self.flat.params.dtype == torch.bfloat16:
             self._emit(f"[trainer] WARNING: bf16 param storage with Lion lr "
                        f"{cfg.learning_rate:g} < 1e-3 — the fixed ±lr update is below bf16 ULP "
@@ -1146,6 +1170,8 @@ class Trainer:
                        "a throughput bench.")
         self.device = self.flat.device
         self.n_params = self.flat.numel
+        if cfg.steps_per_call < 1:
+            raise ValueError(f"--steps_per_call must be >= 1, got {cfg.steps_per_call}")
         if cfg.on_preempt not in ("save_exit", "off"):
             raise ValueError(f"--on_preempt {cfg.on_preempt!r}: expected 'save_exit' (drain + "
                              "emergency checkpoint + clean return) or 'off'")
@@ -1504,20 +1530,60 @@ class Trainer:
         return (self._row_shards * self.cfg.per_device_train_batch_size
                 * self.cfg.gradient_accumulation_steps)
 
-    def _local_batch(self, batch):
+    def _host_shard(self, batch):
         """This rank's shard of a global ``batch`` (its data rank's rows, or
         its expert rank's share of them; its seq rank's token columns), on
-        the device."""
+        the host."""
         accum, bs = self.cfg.gradient_accumulation_steps, self.cfg.per_device_train_batch_size
         r = self._row_shard
-        rows = _rows(batch, r * accum * bs, (r + 1) * accum * bs)
-        return _to_device(_seq_cols(rows, self.seq), self.device)
+        return _seq_cols(_rows(batch, r * accum * bs, (r + 1) * accum * bs), self.seq)
+
+    def _local_batch(self, batch):
+        """This rank's shard of a global ``batch`` on the device."""
+        return _to_device(self._host_shard(batch), self.device)
+
+    def _stage_chunk(self, batches: list) -> list:
+        """The shards of a chunk's global batches stacked ``[k, ...]`` and
+        staged onto the device in one copy; returns each step's shard, a
+        view of the staged stack."""
+        shards = [self._host_shard(b) for b in batches]
+        if isinstance(shards[0], dict):
+            staged = _to_device({k: np.stack([s[k] for s in shards]) for k in shards[0]},
+                                self.device)
+            return [{k: v[i] for k, v in staged.items()} for i in range(len(shards))]
+        return list(_to_device(np.stack(shards), self.device).unbind(0))
+
+    def _dispatch(self, locals_: list) -> tuple:
+        """``len(locals_)`` optimizer steps issued back to back, one a staged
+        shard, with no host read between them (the JAX ``lax.scan`` of a
+        chunk). Returns the steps' mean metrics, the sentinel's keys and
+        values (their mean) and the guard's observations (their sum: counts
+        of bad steps), the two last on their way to the host
+        (:class:`HostCopy`) or None."""
+        outs = []
+        for local in locals_:
+            if self._wire_measured is None and self.vote_health is not None and self.world > 1:
+                # the measured wire ledger: the first step's launches
+                out, self._wire_measured = telemetry.measure_step_wire(self._train_step, local)
+            else:
+                out = self._train_step(local)
+            outs.append(out)
+            self.step_count += 1
+        if len(outs) == 1:
+            metrics, sentinel, obs = outs[0]
+        else:
+            metrics = {k: torch.stack([m[k] for m, _, _ in outs]).mean(0) for k in outs[0][0]}
+            sentinel = (None if outs[0][1] is None else
+                        (outs[0][1][0], torch.stack([s[1] for _, s, _ in outs]).mean(0)))
+            obs = None if outs[0][2] is None else torch.stack([o for _, _, o in outs]).sum(0)
+        return (metrics, None if sentinel is None else (sentinel[0], HostCopy(sentinel[1])),
+                None if obs is None else HostCopy(obs))
 
     def _train_step(self, local) -> tuple:
         """One optimizer step on this rank's shard ``local``
-        (:meth:`_local_batch`); returns the microbatch-meaned local metrics,
-        and the sentinel's values and the guard's observations
-        (:class:`HostCopy` each, or None)."""
+        (:meth:`_local_batch`) at ``step_count``; returns the
+        microbatch-meaned local metrics, and the sentinel's keys and values
+        and the guard's observations (device tensors each, or None)."""
         cfg = self.cfg
         accum, bs = cfg.gradient_accumulation_steps, cfg.per_device_train_batch_size
         self.flat.zero_grad()
@@ -1661,23 +1727,22 @@ class Trainer:
         else:  # flipped_ballot
             grads.neg_()
 
-    def _guard_observations(self, gframe: dict) -> HostCopy:
+    def _guard_observations(self, gframe: dict) -> torch.Tensor:
         """The guard frame as the ``vote_guard.OBS_KEYS`` rows of one
-        ``[4, W]`` float64 tensor, on its way to the host: nonfinite inputs,
-        a frozen ballot (no bit flipped against a real previous vote), the
-        disagreement fraction, and whether anything was voted."""
+        ``[4, W]`` float64 tensor: nonfinite inputs, a frozen ballot (no bit
+        flipped against a real previous vote), the disagreement fraction,
+        and whether anything was voted."""
         voted = (gframe["voted"] > 0).expand(self.world)
         frozen = (gframe["flips"] == 0) & gframe["flip_valid"] & voted
-        return HostCopy(torch.stack([(gframe["nonfinite"] > 0).double(), frozen.double(),
-                                     gframe["disagree"].double(), voted.double()]))
+        return torch.stack([(gframe["nonfinite"] > 0).double(), frozen.double(),
+                            gframe["disagree"].double(), voted.double()])
 
     def _sentinel_values(self, metrics: dict, gsq: torch.Tensor) -> tuple:
         """The step's metrics meaned over the ranks and the pre-clip global
-        grad norm, from one ``all_reduce``, on their way to the host: the
-        norm is the root of the ranks' mean squared norm, or under
-        ``enforce`` of the mean over the ranks where it is finite (a
-        quarantined rank's NaN must not trip the sentinel on a run the
-        guard keeps healthy; JAX loop.py:1452-1471)."""
+        grad norm, from one ``all_reduce``: the norm is the root of the
+        ranks' mean squared norm, or under ``enforce`` of the mean over the
+        ranks where it is finite (a quarantined rank's NaN must not trip the
+        sentinel on a run the guard keeps healthy; JAX loop.py:1452-1471)."""
         keys = list(metrics)
         enforce = self.cfg.vote_guard == "enforce"
         finite = torch.isfinite(gsq)
@@ -1689,7 +1754,7 @@ class Trainer:
         n = len(keys)
         norm = (torch.sqrt(vec[n] / torch.clamp_min(vec[n + 1], 1.0)) if enforce
                 else torch.sqrt(vec[n] / self.world))
-        return keys + ["grad_norm"], HostCopy(torch.cat([vec[:n] / self.world, norm[None]]))
+        return keys + ["grad_norm"], torch.cat([vec[:n] / self.world, norm[None]])
 
     def _mean_over_ranks(self, metrics: dict) -> dict:
         vals = torch.stack([v.to(torch.float32) for v in metrics.values()])
@@ -1727,29 +1792,26 @@ class Trainer:
                 with jr.span("dispatch/membership", step=self.step_count):
                     self._apply_membership(self.step_count)
             self.profiler.maybe_start(self.step_count)
-            with jr.span("data_wait", step=self.step_count, steps=1):
+            # a chunk of k steps where k fit before max_steps; the tail step by step
+            k = min(cfg.steps_per_call, total - self.step_count)
+            advanced = k if k == cfg.steps_per_call else 1
+            with jr.span("data_wait", step=self.step_count, steps=advanced):
                 t_data = time.perf_counter()
-                batch = next(train_iter)
+                batches = [next(train_iter) for _ in range(advanced)]
                 data_wait += time.perf_counter() - t_data
-                local = self._local_batch(batch)
+                locals_ = (self._stage_chunk(batches) if advanced > 1
+                           else [self._local_batch(batches[0])])
             with self.profiler.annotate(self.step_count), \
-                    jr.span("dispatch", step=self.step_count, steps=1):
-                if (self._wire_measured is None and self.vote_health is not None
-                        and self.world > 1):
-                    # the measured wire ledger: this first step's launches
-                    (metrics, sentinel, obs), self._wire_measured = \
-                        telemetry.measure_step_wire(self._train_step, local)
-                else:
-                    metrics, sentinel, obs = self._train_step(local)
-            self.step_count += 1
-            self.timer.tick()
+                    jr.span("dispatch", step=self.step_count, steps=advanced):
+                metrics, sentinel, obs = self._dispatch(locals_)
+            self.timer.tick(advanced)
             self.profiler.maybe_stop(self.step_count)
             if obs is not None:
-                # the previous step's observations, read now that this one
-                # is issued: the JAX trainer's one-dispatch-behind read
+                # the previous dispatch's observations, read now that this
+                # one is issued: the JAX trainer's one-dispatch-behind read
                 if self._guard_pending is not None:
                     self._apply_guard(*self._guard_pending)
-                self._guard_pending = (self.step_count, obs, 1)
+                self._guard_pending = (self.step_count, obs, advanced)
             if sentinel is not None:
                 if self._sentinel_pending is not None:
                     self._check_sentinel(*self._sentinel_pending)
@@ -1760,7 +1822,8 @@ class Trainer:
                 if self.checkpointer:
                     self.checkpointer.finalize()
                 raise FloatingPointError(self._anomaly_reason)
-            if self.step_count % cfg.logging_steps == 0 or self.step_count == total:
+            # "crossed a multiple of N in this dispatch": a chunk never skips one
+            if self.step_count % cfg.logging_steps < advanced or self.step_count == total:
                 with jr.span("device_wait", step=self.step_count):
                     # the sync the loop makes at log cadence anyway (the
                     # ranks' metric mean reads the card), made a span
@@ -1852,11 +1915,11 @@ class Trainer:
                                "dur": round(time.monotonic() - t_log, 9),
                                "step": self.step_count})
                     jr.flush()
-            if eval_blocks is not None and self.step_count % cfg.eval_steps == 0:
+            if eval_blocks is not None and self.step_count % cfg.eval_steps < advanced:
                 with jr.span("eval", step=self.step_count):
                     self.history.append({"step": self.step_count,
                                          **self.evaluate(eval_blocks)})
-            if self.checkpointer and self.step_count % cfg.save_steps == 0:
+            if self.checkpointer and self.step_count % cfg.save_steps < advanced:
                 self.save()
             if self._preempt_due():
                 if self._cplane is not None:

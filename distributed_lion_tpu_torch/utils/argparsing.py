@@ -2,7 +2,8 @@
 
 Every dataclass field becomes a ``--flag``, except one whose metadata says
 ``cli: False`` (a programmatic knob); booleans accept ``--flag`` /
-``--flag false``; a single JSON-file argument populates all groups. A field
+``--flag false``; a list field takes any number of values (``--prompt a
+b``); a single JSON-file argument populates all groups. A field
 a dataclass does not have is not a flag, so argparse refuses it.
 """
 
@@ -58,6 +59,8 @@ def build_parser(dataclass_types: Sequence[Type]) -> argparse.ArgumentParser:
                 kw.update(type=_str2bool, nargs="?", const=True)
             elif tp in (int, float, str):
                 kw.update(type=tp)
+            elif typing.get_origin(tp) is list:
+                kw.update(type=typing.get_args(tp)[0] if typing.get_args(tp) else str, nargs="*")
             else:
                 kw.update(type=str)
             group.add_argument(f"--{f.name}", **kw)

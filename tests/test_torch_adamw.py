@@ -108,8 +108,9 @@ def _jax_losses(world):
     from distributed_lion_tpu.train.loop import Trainer as JTrainer
 
     mesh = make_mesh(data=world, devices=jax.devices()[:world])
+    # no remat on the reference side: the same numbers, less to compile
     jtr = JTrainer.for_gpt2(JTrainConfig(**TRAIN), mesh,
-                            JConfig.tiny(compute_dtype=jnp.float32, dropout=0.0))
+                            JConfig.tiny(compute_dtype=jnp.float32, dropout=0.0, remat=False))
     hist = jtr.train(j_batch_iterator(j_synthetic(256, 32, 256), jtr.global_train_batch(),
                                       seed=0))
     jtr.close()

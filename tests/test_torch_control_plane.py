@@ -355,8 +355,10 @@ def _jax_pin_run(out: pathlib.Path) -> None:
     cfg = _cfg(6, PIN_STEPS, journal=True, journal_dir=str(out / "journal"), seed=42, **PIN)
     j_resilience.clear_faults()
     try:
+        # no remat on the reference side: the same numbers, less to compile
         jtr = JTrainer.for_gpt2(JTrainConfig(**cfg), mesh,
-                                JConfig.tiny(compute_dtype=jnp.float32, dropout=0.0))
+                                JConfig.tiny(compute_dtype=jnp.float32, dropout=0.0,
+                                             remat=False))
         rows = _Boundaries(jtr).rows
         hist = jtr.train(j_batch_iterator(j_synthetic(96, 32, 256, seed=4),
                                           jtr.global_train_batch(), seed=0))

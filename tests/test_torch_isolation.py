@@ -232,3 +232,15 @@ def test_the_pipeline_modules_are_among_the_checked_files():
     assert {"parallel/pipeline.py", "models/gpt2_pipe.py", "models/llama_pipe.py",
             "optim/sharded.py", "parallel/mesh.py", "models/llama.py", "models/loss.py",
             "train/loop.py", "utils/serialization.py", "cli/run_clm.py"} <= files
+
+
+def test_the_generation_modules_are_among_the_checked_files():
+    """Dense-cache generation (``models/generate.py``, ``cli/run_generate.py``),
+    beside every module its slice touched (the decode paths of both models,
+    MoE's inference arguments, the list flags of the CLI parser) and the
+    chunked trainer and mixed-dtype optimizer, is in the file list both
+    checks above walk."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
+    assert {"models/generate.py", "cli/run_generate.py", "models/gpt2.py", "models/llama.py",
+            "parallel/expert.py", "utils/argparsing.py", "train/loop.py", "optim/lion.py",
+            "optim/distributed_lion.py"} <= files

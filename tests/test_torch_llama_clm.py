@@ -95,8 +95,10 @@ def test_named_parameters_are_the_jax_leaf_order_and_offsets():
 
 def _jax_losses(world: int, vocab_chunks: int, init, blocks) -> list:
     mesh = make_mesh(data=world, devices=jax.devices()[:world])
+    # no remat on the reference side: the same numbers, less to compile
     jtr = JTrainer.for_llama(JTrainConfig(**COMMON, vocab_chunks=vocab_chunks), mesh,
-                             JConfig.tiny(compute_dtype=jnp.float32), initial_params=init)
+                             JConfig.tiny(compute_dtype=jnp.float32, remat=False),
+                             initial_params=init)
     hist = jtr.train(j_batch_iterator(blocks, jtr.global_train_batch(), seed=0))
     jtr.close()
     return [h["loss"] for h in hist if "loss" in h]

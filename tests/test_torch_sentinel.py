@@ -104,9 +104,10 @@ def test_sentinel_trips_on_jax_step_with_jax_leaves(init, tmp_path):
     j_out = str(tmp_path / "jax")
     j_resilience.clear_faults()
     try:
+        # no remat on the reference side: the same numbers, less to compile
         jtr = JTrainer.for_gpt2(JTrainConfig(**_cfg(j_out)), make_mesh(
             data=1, devices=jax.devices()[:1]), JConfig.tiny(compute_dtype=jnp.float32,
-                                                              dropout=0.0))
+                                                              dropout=0.0, remat=False))
         with pytest.raises(FloatingPointError) as j_err:
             jtr.train(j_batch_iterator(j_synthetic(96, 32, 256, seed=4),
                                        jtr.global_train_batch(), seed=0))
