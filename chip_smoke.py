@@ -153,8 +153,11 @@ Phases (none of their failures is caught; any one fails the run):
    microbatch. Its step ms, tokens/s and peak device memory are printed.
 5. Run (f), the vote across four ranks: four processes on cuda:0 in a
    gloo process group the script starts itself (NCCL refuses two ranks
-   on one device) each run ``cli.run_clm.main`` on GPT-2 124M at full
-   width, B 2 x accumulation 1 x T 1024, ``--dropout 0 --telemetry``,
+   on one device) each run ``cli.run_clm.main`` on GPT-2 124M's widths cut
+   to 2 layers (53,561,088 coordinates; every GPT-2 run of this spawn is cut
+   so, through ``gpt2_cut``: the CLIs have no depth flag, and the vote's
+   checks do not depend on the depth), B 2 x accumulation 1 x T 1024,
+   ``--dropout 0 --telemetry``,
    constant LR, 2 steps, on ``sign_psum``, ``sign_psum --max_grad_norm
    1.0``, ``packed_a2a`` and ``hier:2``. After every step all four
    ranks' flat params must be ``torch.equal``; at step 1 each
@@ -207,7 +210,7 @@ Phases (none of their failures is caught; any one fails the run):
    and the stats kernel's disagreement (this step's ballots against that
    stale election) equal to ``bucket_vote_stats_plain``'s; params equal on
    every rank; each rank's ring ``[2, hier_ring_slot_bytes(N, 4, 2,
-   buckets)]`` uint8 (15,554,978 bytes a slot at one bucket);
+   buckets)]`` uint8 (6,695,138 bytes a slot at one bucket);
    ``comm_drift_bytes`` 0 and ``dcn_overlap_frac`` 1 in every row;
    ``fused_ballots`` every step, ``fused_apply`` and ``bucket_vote_stats``
    from step 3. (q2) ``hier:2 --vote_every 4 --dcn_pipeline_depth 1``, 5
@@ -224,14 +227,15 @@ Phases (none of their failures is caught; any one fails the run):
    3 steps, under a ``ZeroWatch``: params equal on every rank after every
    step; after step 1 the params and the gathered ``m`` and ``v`` chunks
    ``torch.equal`` to zero.py's formula in plain ops over the full vector
-   from the step's averaged grads; ``m`` and ``v`` float32 [31,109,952] a
+   from the step's averaged grads; ``m`` and ``v`` float32 [13,390,272] a
    rank; finite losses; no optimizer kernel and (f)'s flash launches; the
-   state's bytes a rank printed beside the replicated AdamW's 995.5 MB.
+   state's bytes a rank printed beside the replicated AdamW's.
    Runs (s1), (s2), (t) and (u), tensor parallelism, ride it too, as dp 2 x
    tp 2 (global rank r is data rank r // 2, tensor rank r % 2), 2 steps each
-   ((t) 3) on ``sign_psum``: (s1) ``run_clm`` GPT-2 124M at full width, T 1024,
-   ``--dropout 0 --tensor_parallel 2``, B 2 x 1 (81,940,224 coordinates a
-   rank); (s2) (s1) + ``--tp_vocab --vocab_pad_multiple 64`` (62,659,584);
+   ((t) 3) on ``sign_psum``: (s1) ``run_clm`` GPT-2 124M's widths at 2 layers,
+   T 1024, ``--dropout 0 --tensor_parallel 2``, B 2 x 1 (46,477,824
+   coordinates a rank); (s2) (s1) + ``--tp_vocab --vocab_pad_multiple 64``
+   (27,197,184);
    (t) ``run_sft`` at Llama-2-7B's widths and vocabulary (d 4096, 32 heads,
    d_ff 11008, 32,000 rows) cut to 4 layers, NF4 base, LoRA r 8 on wq/wv, B
    2 x T 1024; (u) ``run_clm --model_family llama`` at Llama-3-8B's widths
@@ -257,8 +261,8 @@ Phases (none of their failures is caught; any one fails the run):
    v views of the rank's projection; H 16 hd 128 at T 1024 and at T 2048).
    It prints the step times and each rank's buckets.
    Runs (v1)-(x2), sequence parallelism, ride it too (global rank r = (d·tp +
-   t)·sp + s), 2 steps each ((x1) 3) on ``sign_psum``: (v1) ``run_clm`` GPT-2 124M at
-   full width, T 1024, float32 compute, dp 2 x sp 2, ring, ``--dropout 0
+   t)·sp + s), 2 steps each ((x1) 3) on ``sign_psum``: (v1) ``run_clm`` GPT-2 124M's
+   widths at 2 layers, T 1024, float32 compute, dp 2 x sp 2, ring, ``--dropout 0
    --telemetry``, B 2 x 1; (v2) (v1) with ``--seq_impl ulysses`` and no
    telemetry; (v3) dp 1 x tp 2 x sp 2, ring; (w) ``run_clm --model_family llama`` at Llama-3-8B's
    widths cut to 2 layers, bfloat16, T 8192 over dp 1 x sp 4 (2,048 tokens a
@@ -301,12 +305,12 @@ Phases (none of their failures is caught; any one fails the run):
    Runs (z1)-(z4), pipeline parallelism, follow in a W = 4 spawn of their
    own (global rank r = (((d·tp + t)·sp + s)·pp + p)·ep + e; its gloo
    group under a 600 s timeout), 2 steps each on ``sign_psum`` at dropout 0
-   and bfloat16 compute, one eval batch each: (z1) ``run_clm`` GPT-2 124M at
-   full width, T 1024, float32 params, dp 2 x pp 2, 4 microbatches of B 4
-   (81,912,576 coordinates a rank: 6 blocks and the replicated wte, wpe and
-   ln_f); (z2) dp 1 x pp 4, 8 microbatches of B 8 (60,648,960: stages 1 and
-   2 neither embed nor take the loss); (z3) dp 1 x tp 2 x pp 2, 4
-   microbatches of B 4 (60,662,784); (z4) ``run_clm --model_family llama``
+   and bfloat16 compute, one eval batch each: (z1) ``run_clm`` GPT-2 124M's
+   widths cut to 4 blocks (``gpt2_cut``), T 1024, float32 params, dp 2 x pp
+   2, 4 microbatches of B 4 (53,561,088 coordinates a rank: 2 blocks and the
+   replicated wte, wpe and ln_f); (z2) dp 1 x pp 4, 8 microbatches of B 8
+   (46,473,216: stages 1 and 2 neither embed nor take the loss); (z3) dp 1 x
+   tp 2 x pp 2, 4 microbatches of B 4 (46,477,824); (z4) ``run_clm --model_family llama``
    at Llama-3-8B's widths cut to 4 layers (2 a stage), bfloat16 params, T
    2048, ``--vocab_chunks 8``, dp 2 x pp 2, 2 microbatches of B 2
    (1,486,901,248). The ``GridWatch`` holds every rank's replicated leaves
@@ -477,6 +481,28 @@ Phases (none of their failures is caught; any one fails the run):
    a window of each bucket on the window's dtype (``.by_dtype``), and the
    params and momenta must be ``torch.equal`` to the plain per-window
    version of the same step. The step's device time is printed.
+13. ``[serve]``, in the 1-rank NCCL group right after ``[generate]``
+   (``serve/``, no kernel: the counters must stay 0). GPT-2 124M at full
+   width and depth (random weights from seed 0, bfloat16 compute) through
+   the serving engine: 8 slots, pages of 16 tokens, 64 pages a sequence
+   (1,024 tokens, n_ctx), a pool of 512 pages; 16 requests of 32-512
+   random tokens, one every 3 engine ticks, 64 greedy tokens each, every
+   completion at its budget. Each completion against its solo dense
+   ``models.generate.generate``: the same tokens up to the first whose solo
+   top-2 margin is below the engine-vs-solo logit gap measured up to it
+   (``[generate]``'s criterion). Paged against dense decode on the card
+   (a prompt of 288 tokens and 8 greedy steps at 1,024 slots through a
+   shuffled table): ``torch.equal``, or where that fails the
+   float32-anchored bound of ``[generate]`` (the line says which held).
+   ``prefix_cache`` on 16 prompts sharing 256 tokens against the same
+   prompts unshared: the same tokens (or the same criterion, the line
+   counts both), fewer physical pages. Then ``cli.run_serve.main
+   --quant nf4`` over a request file (8 random prompts and a text one,
+   staggered) at Llama-3-8B's widths and vocabulary cut to 2 layers: every
+   record stops at its budget or at EOS, and the served tree's bytes are
+   printed against bfloat16's. Prefill ms by bucket and ms a decode tick at
+   batch 8 (CUDA events around each dispatch), tokens/s over the workload
+   (host clock), peak device memory and the pool's bytes are printed.
 
 Times are medians of 25 CUDA-event runs after 3 warm-up calls, queued
 while the card sleeps (``torch.cuda._sleep``) so that they time the card's
@@ -494,7 +520,8 @@ the ``_p_bf16`` ones, p, g and m bfloat16, run (k)'s); the last line is
 ``{"ok": true, "device": {...}}``. Each entry of the kernel record also
 carries ``pipeline_launches``, rank 0's launches summed over (z1)-(z4),
 ``chunk_launches``, the chunked run's of ``[chunk]``, ``generate_launches``,
-``[generate]``'s (0: decoding runs no kernel), and ``mixed_launches``,
+``[generate]``'s and ``serve_launches``, ``[serve]``'s (0: decoding runs
+no kernel), and ``mixed_launches``,
 ``[mixed]``'s; these three split the ballot and apply launches by the
 momentum dtype each ran on (``.by_dtype`` of the wrappers).
 """
@@ -526,7 +553,14 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 import torch.nn.functional as F
 
-from distributed_lion_tpu_torch.cli import run_analyze, run_clm, run_dpo, run_generate, run_sft
+from distributed_lion_tpu_torch.cli import (
+    run_analyze,
+    run_clm,
+    run_dpo,
+    run_generate,
+    run_serve,
+    run_sft,
+)
 from distributed_lion_tpu_torch.data import spm
 from distributed_lion_tpu_torch.data.bpe import BPETokenizer, unicode_to_bytes
 from distributed_lion_tpu_torch.data.sources import batch_iterator
@@ -539,6 +573,7 @@ from distributed_lion_tpu_torch.models.gpt2 import (
     GPT2,
     GPT2Config,
     gpt2_decode,
+    gpt2_decode_paged,
     gpt2_init_cache,
     jax_leaf_order,
 )
@@ -586,6 +621,14 @@ from distributed_lion_tpu_torch.parallel.pipeline import bubble_fraction
 from distributed_lion_tpu_torch.train import journal, resilience, vote_guard
 from distributed_lion_tpu_torch.train import loop as train_loop
 from distributed_lion_tpu_torch.train.checkpoint import Checkpointer
+from distributed_lion_tpu_torch.serve import kv_cache
+from distributed_lion_tpu_torch.serve.engine import (
+    Request,
+    ServeConfig,
+    ServeModel,
+    ServingEngine,
+    weight_bytes,
+)
 from distributed_lion_tpu_torch.utils.serialization import tree_from_state_dict
 
 N_MAIN = 124_439_808   # GPT-2 124M coordinates: the main path's window
@@ -630,6 +673,9 @@ STOCH_ARGS = ["--dropout", "0", "--max_grad_norm", "1.0"]   # run (e)
 STOCH_MGN, STOCH_SEED, B1 = 1.0, 42, 0.9   # run (e)'s quantizer: run_clm's seed and beta1
 STOCH_SIGMAS = 6   # the unbiasedness bound of run (e)'s ballot check
 W4 = 4             # run (f): ranks sharing cuda:0 in a gloo group
+W4_LAYERS = 2      # the (f) spawn's GPT-2 runs: GPT-2 124M's widths cut to 2 layers
+W4_GPT2 = f"GPT-2 124M's widths at {W4_LAYERS} layers"
+N_W4 = W4_LAYERS * 7_087_872 + 39_385_344   # their window: 53,561,088 coordinates
 CHUNK_STEPS = 8    # [chunk]: run (c) in chunks of CHUNK_K steps and step by step
 CHUNK_K = 4
 GEN_LENS = (32, 96, 160, 224, 288, 352, 416, 512)   # [generate]: a left-padded batch's prompts
@@ -637,6 +683,23 @@ GEN_NEW = 128      # new tokens a row
 GEN_LLAMA_LAYERS = 2   # Llama-3-8B's widths, cut to 2 layers
 GEN_FILE_PROMPTS = ("The answer is", "Once upon a time", "Q: what is Lion? A:")
 GEN_DEVICE = "cuda"   # where [generate] runs
+SERVE_GEOM = dict(max_seqs=8, block_size=16, max_blocks_per_seq=64, num_blocks=512)
+SERVE_LENS = tuple(range(32, 513, 32))   # [serve]: 16 requests' prompt lengths
+SERVE_ARRIVE_EVERY = 3   # request i becomes visible at engine tick 3·i
+SERVE_NEW = 64           # greedy tokens a request
+SERVE_PREFIX = 256       # the shared prefix of the prefix-cache run, and each prompt's
+SERVE_SUFFIX = 16        # own suffix: SERVE_SUFFIX·(1 + i % 8) tokens
+SERVE_DUPLICATES = (0, 5)   # prefix-cache run: these prompts again, whole (a copy-on-write
+# of the shared last page, the prompt's last token re-prefilled)
+SERVE_PAGED_STEPS = 8    # greedy steps of the paged-against-dense check
+F32_REL = 2 ** -12       # a float32-compute engine's logits against the float32 forward,
+# relative to max|f32| (the prefix-cache runs)
+SERVE_LLAMA_LAYERS = 2   # Llama-3-8B's widths, cut to 2 layers, through run_serve.main
+SERVE_LLAMA, SERVE_LLAMA_VOCAB = "llama3_8b", 128_256
+SERVE_LLAMA_GEOM = ["--max_seqs", "8", "--block_size", "16", "--max_blocks_per_seq", "32"]
+SERVE_LLAMA_LENS = (16, 40, 64, 100, 128, 180, 200, 250)
+SERVE_LLAMA_NEW = 16
+SERVE_DEVICE = "cuda"    # where [serve] runs
 MIXED_BUCKETS = 3  # [mixed]: GPT-2 124M's leaves as a mixed-dtype tree, voted in 3 buckets
 MIXED_WD = 0.1
 MIXED_DEVICE = "cuda"   # where [mixed] runs
@@ -700,7 +763,7 @@ Q2_ARGS = ["--wire", "hier:2", "--vote_every", str(LAZY_K), "--dcn_pipeline_dept
 Q2_STEPS = 5
 Q3_DELAY = 1.0
 Q3_RUNS = ((2, 4), (0, 3))   # (depth, steps)
-Q1_SLOT_ONE_BUCKET = 15_554_978   # hier_ring_slot_bytes(N_MAIN, 4, 2) at one bucket
+Q1_SLOT_ONE_BUCKET = 6_695_138   # hier_ring_slot_bytes(N_W4, 4, 2) at one bucket
 # run (r), ZeRO-1 AdamW in the same spawn: (f)'s setup without Lion and telemetry
 R_ARGS = [a for a in W4_ARGS if a not in ("--lion", "--async_grad", "--telemetry")] + [
     "--lion", "false", "--async_grad", "false", "--zero1"]
@@ -738,8 +801,8 @@ U_ARGS = ["--model_family", "llama", "--model_name", "llama3_8b", "--param_dtype
 # padded rows), (t)'s adapters (A [4096, 8] whole, B [8, 2048] a rank, on
 # wq and wv of 4 blocks), (u)'s Llama-3-8B slices (wte whole, half the
 # lm_head, half of each block's projections)
-N_TP = 81_940_224
-N_TP_VOCAB = 62_659_584
+N_TP = W4_LAYERS * 3_546_240 + 39_385_344   # 46,477,824 a rank
+N_TP_VOCAB = 27_197_184   # (s2): wte split by its 50,304 padded rows
 N_TP_SFT = T_LAYERS * 2 * (4096 * 8 + 8 * 2048)
 N_TP_LLAMA3 = 525_336_576 + 262_668_288 + 4096 + U_LAYERS * 109_060_096
 # runs (v1)-(x2): sequence parallelism in the same spawn, S_STEPS steps each
@@ -802,7 +865,7 @@ Y3_DEPTH = 2
 Y_LANES = 2 * 2 * 1024   # a MoE block's tallied lanes a step in (y3): ep x B x T
 # each rank's coordinates: (y1) the whole model (124,439,808 - 6 dense MLPs of
 # 4,722,432 + 6 MoE FFNs of 37,785,600), (y2) half of each FFN's experts, (y3)
-# half of those experts' d_ff and the tensor slices of (s1)
+# half of those experts' d_ff and the tensor slices of (s1) at full depth
 N_MOE = 322_818_816
 N_EP = 209_480_448
 N_EP_TP = 124_485_888
@@ -841,13 +904,14 @@ Z4_ARGS = ["--model_family", "llama", "--model_name", "llama3_8b", "--param_dtyp
            "1", "--dataset", "synthetic", "--synthetic_blocks", "80", "--lion", "--async_grad",
            "--wire", "sign_psum", "--lr_scheduler_type", "constant", "--vocab_chunks", "8",
            "--pipeline_parallel", "2", "--eval_iters", "1"]
+Z_LAYERS = 4   # (z1)-(z3): GPT-2 124M's widths cut to 4 blocks
 # each rank's coordinates: a stage's blocks (GPT-2 124M's are 7,087,872 each,
 # 3,546,240 a tensor rank's) and the replicated wte, wpe and ln_f
 # (39,385,344); (z4) 2 of Llama-3-8B's blocks, wte, lm_head and ln_f: (w)'s
 # window
-N_PP = 6 * 7_087_872 + 39_385_344
-N_PP4 = 3 * 7_087_872 + 39_385_344
-N_PP_TP = 6 * 3_546_240 + 39_385_344
+N_PP = Z_LAYERS // 2 * 7_087_872 + 39_385_344
+N_PP4 = Z_LAYERS // 4 * 7_087_872 + 39_385_344
+N_PP_TP = Z_LAYERS // 2 * 3_546_240 + 39_385_344
 N_PP_LLAMA3 = N_SP_LLAMA3
 PP_DTYPES = {n: ((torch.float32, torch.float32),) for n in (N_PP, N_PP4, N_PP_TP)}
 TP_DEVICE = "cuda"   # where (t)'s whole base is made
@@ -893,6 +957,8 @@ TP_DTYPES = {N_TP: ((torch.float32, torch.float32),),
              N_TP_SFT: ((torch.float32, torch.float32),),
              N_TP_LLAMA3: ((torch.bfloat16, torch.bfloat16),)}
 # the sequence-parallel runs' windows ((v1), (v2) vote N_MAIN, (v3) N_TP)
+# the (f) spawn's GPT-2 runs' window ((f), (m), (p), (q), (r), (v1), (v2))
+W4_DTYPES = {N_W4: ((torch.float32, torch.float32),)}
 SP_DTYPES = {N_SP_LLAMA3: ((torch.bfloat16, torch.bfloat16),),
              N_SP_SFT: ((torch.float32, torch.float32),),
              N_SP_DPO: ((torch.float32, torch.float32),)}
@@ -1066,8 +1132,8 @@ def build_cuda_kernels() -> dict:
     return regs
 
 
-def optimizer_kernel_phase(gen, rates, ns=(N_MAIN, N_SFT, N_DPO, N_RAGGED, *TP_DTYPES,
-                                           *SP_DTYPES, *MOE_DTYPES, *PP_DTYPES),
+def optimizer_kernel_phase(gen, rates, ns=(N_MAIN, N_SFT, N_DPO, N_RAGGED, *W4_DTYPES,
+                                           *TP_DTYPES, *SP_DTYPES, *MOE_DTYPES, *PP_DTYPES),
                            big: bool = True):
     """Compare and time the two Triton kernels and the stats kernel at each
     window of ``ns`` (and with ``big`` the 2³¹ + 4097 window); returns
@@ -1075,9 +1141,9 @@ def optimizer_kernel_phase(gen, rates, ns=(N_MAIN, N_SFT, N_DPO, N_RAGGED, *TP_D
     the max error over all cases."""
     rec = {}
     err = dict.fromkeys(OPT_KERNELS, 0.0)
-    for n in ns:
-        for pdt, mdt in {**TP_DTYPES, **SP_DTYPES, **MOE_DTYPES, **PP_DTYPES}.get(n,
-                                                                               DTYPE_PAIRS):
+    for n in dict.fromkeys(ns):   # a window two runs share is checked once
+        for pdt, mdt in {**W4_DTYPES, **TP_DTYPES, **SP_DTYPES, **MOE_DTYPES,
+                         **PP_DTYPES}.get(n, DTYPE_PAIRS):
             if (pdt, mdt) == MOM_BF16 and n in (N_SFT, N_DPO):
                 continue   # bf16 momentum under float32 params: GPT-2's run (h2)
             suffix = {MOM_BF16: "_mom_bf16", (torch.bfloat16, torch.bfloat16): "_p_bf16"}.get(
@@ -1139,8 +1205,8 @@ def optimizer_kernel_phase(gen, rates, ns=(N_MAIN, N_SFT, N_DPO, N_RAGGED, *TP_D
             del g, m, p
             torch.cuda.empty_cache()
 
-        if n not in TP_DTYPES and n not in SP_DTYPES and n not in PP_DTYPES and n != N_EP:
-            # no telemetry there
+        if n in W4_DTYPES or not (n in TP_DTYPES or n in SP_DTYPES or n in PP_DTYPES
+                                  or n == N_EP):   # no telemetry in those runs
             stats_cases(gen, rates, n, rec, err)
         torch.cuda.empty_cache()
     if big:
@@ -1646,13 +1712,15 @@ def optimizer_launches(trainer, steps: int) -> dict:
             "bucket_vote_stats": max(steps - d, 0) * buckets if cfg.telemetry else 0}
 
 
-def flash_launches(steps: int, accum: int = ACCUM, eval_batches: int = EVAL_BATCHES) -> dict:
-    """The hd 64 flash kernels' launches of a GPT-2 run at dropout 0:
-    forward twice per microbatch (remat) and once per eval batch."""
-    return {"flash_attention_fwd": N_LAYER * (accum * 2 * steps + eval_batches),
-            "flash_attention_bwd_dkv": N_LAYER * accum * steps,
-            "flash_attention_bwd_dq": N_LAYER * accum * steps,
-            "flash_attention_di": N_LAYER * accum * steps, **NO_HD128}
+def flash_launches(steps: int, accum: int = ACCUM, eval_batches: int = EVAL_BATCHES,
+                   layers: int = N_LAYER) -> dict:
+    """The hd 64 flash kernels' launches of a GPT-2 run of ``layers`` blocks
+    at dropout 0: forward twice per microbatch (remat) and once per eval
+    batch."""
+    return {"flash_attention_fwd": layers * (accum * 2 * steps + eval_batches),
+            "flash_attention_bwd_dkv": layers * accum * steps,
+            "flash_attention_bwd_dq": layers * accum * steps,
+            "flash_attention_di": layers * accum * steps, **NO_HD128}
 
 
 def lazy_checks(label: str, trainer, watch, steps: int) -> float:
@@ -2486,12 +2554,12 @@ def q_run(rank: int) -> dict:
     wall = time.perf_counter() - t0
     launches = read_counts()
     expect(f"(q1) rank {rank}", launches, dict(optimizer_launches(trainer, Q1_STEPS),
-                                               **flash_launches(Q1_STEPS, accum=1,
-                                                                eval_batches=0)))
+                                               **flash_launches(Q1_STEPS, accum=1, eval_batches=0,
+                                                                layers=W4_LAYERS)))
     rows = [r for r in trainer.history if "loss" in r]
     cfg, ring = trainer.cfg, trainer.state.dcn_ring
     d = cfg.dcn_pipeline_depth
-    slot = hier_ring_slot_bytes(N_MAIN, W4, 2, cfg.vote_buckets)
+    slot = hier_ring_slot_bytes(N_W4, W4, 2, cfg.vote_buckets)
     q1 = {"run": "q1", "losses": [r["loss"] for r in rows], "step_ms": [r["step_ms"] for r in rows],
           "params_equal": watch.params_equal, "cold_equal": watch.cold_equal,
           "election_equal": watch.election_equal, "dis": [h[2:] for h in watch.hist],
@@ -2503,8 +2571,8 @@ def q_run(rank: int) -> dict:
             and watch.params_equal == [True] * Q1_STEPS and watch.cold_equal == [True] * d
             and watch.election_equal == [True] * (Q1_STEPS - d)
             and all(a == b for a, b in q1["dis"]) and len(q1["dis"]) == Q1_STEPS - d
-            and q1["ring"] == [[d, slot], "torch.uint8"] and trainer.state.exp_avg.numel() == N_MAIN
-            and hier_ring_slot_bytes(N_MAIN, W4, 2, 1) == Q1_SLOT_ONE_BUCKET
+            and q1["ring"] == [[d, slot], "torch.uint8"] and trainer.state.exp_avg.numel() == N_W4
+            and hier_ring_slot_bytes(N_W4, W4, 2, 1) == Q1_SLOT_ONE_BUCKET
             and q1["drift"] == [0] * Q1_STEPS and q1["overlap"] == [1.0] * Q1_STEPS
             and not events.events and all(trainer.state.health.tolist())):
         raise AssertionError(f"run (q1) rank {rank}: {q1}")
@@ -2520,8 +2588,8 @@ def q_run(rank: int) -> dict:
     wall2 = time.perf_counter() - t0
     launches2 = read_counts()
     expect(f"(q2) rank {rank}", launches2, dict(optimizer_launches(trainer, Q2_STEPS),
-                                                **flash_launches(Q2_STEPS, accum=1,
-                                                                 eval_batches=0)))
+                                                **flash_launches(Q2_STEPS, accum=1, eval_batches=0,
+                                                                 layers=W4_LAYERS)))
     bits = lazy_checks(f"run (q2) rank {rank}", trainer, watch, Q2_STEPS)
     rows = [r for r in trainer.history if "loss" in r]
     q2 = {"losses": [r["loss"] for r in rows], "step_ms": [r["step_ms"] for r in rows],
@@ -2560,7 +2628,7 @@ def q_run(rank: int) -> dict:
 def q_report(rec: dict, card: str) -> None:
     """Run (q)'s lines, rank 0's record."""
     q1, q2, q3 = rec["q1"], rec["q2"], rec["q3"]
-    print(f"[w4] (q1) hier:2 --dcn_pipeline_depth 2 --vote_guard enforce --telemetry: GPT-2 124M, "
+    print(f"[w4] (q1) hier:2 --dcn_pipeline_depth 2 --vote_guard enforce --telemetry: {W4_GPT2}, "
           f"{W4} ranks on one card (gloo), B 2 x accum 1 x T 1024, {q1['buckets']} bucket(s), "
           f"{Q1_STEPS} steps: losses {[round(x, 4) for x in q1['losses']]}; steps 1-2 == a plain "
           f"decay {q1['cold_equal']}; from step 3 the applied election == plain hier:2 election "
@@ -2665,10 +2733,11 @@ def r_run(rank: int) -> dict:
     wall = time.perf_counter() - t0
     launches = read_counts()
     expect(f"(r) rank {rank}", launches, dict(optimizer_launches(trainer, R_STEPS),
-                                              **flash_launches(R_STEPS, accum=1, eval_batches=0)))
+                                              **flash_launches(R_STEPS, accum=1, eval_batches=0,
+                                                             layers=W4_LAYERS)))
     rows = [r for r in trainer.history if "loss" in r]
     st = trainer.state
-    chunk = zero1_chunk(N_MAIN, W4)
+    chunk = zero1_chunk(N_W4, W4)
     rec = {"run": "zero1", "losses": [r["loss"] for r in rows],
            "step_ms": [r["step_ms"] for r in rows], "params_equal": watch.params_equal,
            "step1_equal": watch.step1_equal,
@@ -2686,8 +2755,8 @@ def r_run(rank: int) -> dict:
 
 
 def r_report(rec: dict, card: str) -> None:
-    adamw_bytes = 2 * 4 * N_MAIN
-    print(f"[w4] (r) --zero1 (AdamW, gradient all_reduce): GPT-2 124M, {W4} ranks on one card "
+    adamw_bytes = 2 * 4 * N_W4
+    print(f"[w4] (r) --zero1 (AdamW, gradient all_reduce): {W4_GPT2}, {W4} ranks on one card "
           f"(gloo), B 2 x accum 1 x T 1024, {R_STEPS} steps: losses "
           f"{[round(x, 4) for x in rec['losses']]}; params equal on all ranks after each step "
           f"{rec['params_equal']}; step 1 == zero.py's formula over the full vector (params, "
@@ -2710,6 +2779,18 @@ def llama_cut(**over):
         yield
     finally:
         LlamaConfig.named = named
+
+
+@contextlib.contextmanager
+def gpt2_cut(n_layer: int):
+    """``GPT2Config.gpt2_124m`` gives GPT-2 124M's widths at ``n_layer``
+    blocks while the block runs (the CLIs have no flag for the depth)."""
+    full = GPT2Config.__dict__["gpt2_124m"]
+    GPT2Config.gpt2_124m = staticmethod(lambda **kw: GPT2Config(**({"n_layer": n_layer} | kw)))
+    try:
+        yield
+    finally:
+        GPT2Config.gpt2_124m = full
 
 
 def adapter_dim(name: str):
@@ -2785,8 +2866,10 @@ def momentum_vs_grad(grads: list, momentum: torch.Tensor, b2: float) -> dict:
     1e-3 of the leaf's largest (over an even stride of at most
     MEDIAN_COORDS of them); the leaves with fewer than 8 either way
     (``skipped``: the check fails on any), the largest absolute difference
-    and the share of equal ballots ``sign(g)``."""
+    and the share of equal ballots ``sign(g)``; ``per_leaf``, each leaf's
+    median ratio in order (None where skipped)."""
     ratios, worst, diff, top, equal, skipped = [], (0.0, -1), 0.0, 0.0, 0, 0
+    per_leaf = []
     sizes = [g.numel() for g in grads]
     for g, m in zip(grads, momentum.split(sizes)):
         a, b = g.reshape(-1).float() * (1.0 - b2), m.float()
@@ -2797,8 +2880,10 @@ def momentum_vs_grad(grads: list, momentum: torch.Tensor, b2: float) -> dict:
             big = big[::max(1, big.numel() // MEDIAN_COORDS)]
             ratios.append(float(torch.median(b[big] / a[big])))
             worst = max(worst, (abs(ratios[-1] - 1), len(ratios) + skipped - 1))
+            per_leaf.append(ratios[-1])
         else:
             skipped += 1
+            per_leaf.append(None)
         diff = max(diff, float((b - a).abs().max()))
         top = max(top, float(a.abs().max()))
         equal += int(((b > 0) == (a > 0)).sum())
@@ -2806,7 +2891,7 @@ def momentum_vs_grad(grads: list, momentum: torch.Tensor, b2: float) -> dict:
     return {"median_ratio": [min(ratios, default=math.nan), max(ratios, default=math.nan)],
             "leaves": len(ratios), "skipped": skipped, "worst_leaf": worst[1],
             "max_abs_diff": diff, "max_abs": top,
-            "equal_ballots": equal / sum(sizes)}
+            "equal_ballots": equal / sum(sizes), "per_leaf": per_leaf}
 
 
 class GridWatch:
@@ -2996,6 +3081,7 @@ class GridWatch:
                                            m, opt.b2)
                     names = names or tr.flat.names
                     out["worst_leaf"], out["all_leaves"] = names[out["worst_leaf"]], len(names)
+                    out["per_leaf"] = dict(zip(names, out["per_leaf"]))
                     restore_counts(counts)
                 del m
                 torch.cuda.empty_cache()
@@ -3107,8 +3193,8 @@ def tp_runs(rank: int) -> dict:
     def flash(layers, hd, steps=S_STEPS):
         return lambda evals: tp_flash_launches(layers, steps, evals, hd)
 
-    recs = [grid_one(rank, "(s1)", clm(S1_ARGS), N_TP, flash(N_LAYER, 64)),
-            grid_one(rank, "(s2)", clm(S2_ARGS), N_TP_VOCAB, flash(N_LAYER, 64))]
+    recs = [grid_one(rank, "(s1)", clm(S1_ARGS), N_TP, flash(W4_LAYERS, 64)),
+            grid_one(rank, "(s2)", clm(S2_ARGS), N_TP_VOCAB, flash(W4_LAYERS, 64))]
     with llama_cut(n_layer=T_LAYERS, vocab_size=T_VOCAB):
         cfg = LlamaConfig.named(T_MODEL, attn_impl="flash")
         sft = {"cfg": cfg, "base": llama_init(cfg, seed=42, device=TP_DEVICE, quant="nf4")}
@@ -3132,7 +3218,7 @@ def tp_runs(rank: int) -> dict:
 
 
 def tp_report(rec: dict, card: str) -> None:
-    what = {"(s1)": f"run_clm GPT-2 124M, --dropout 0 --tensor_parallel {TP}",
+    what = {"(s1)": f"run_clm {W4_GPT2}, --dropout 0 --tensor_parallel {TP}",
             "(s2)": f"(s1) + --tp_vocab --vocab_pad_multiple 64",
             "(t)": f"run_sft Llama-2-7B widths at {T_LAYERS} layers, vocabulary {T_VOCAB:,}, NF4 "
                    f"base, LoRA r 8 on wq/wv, --tensor_parallel {TP}",
@@ -3172,8 +3258,8 @@ def sp_runs(rank: int) -> dict:
     def clm(args):
         return lambda: (run_clm.main(args), 3, None)   # 5% of 64 synthetic blocks held out
 
-    recs = [grid_one(rank, "(v1)", clm(V1_ARGS), N_MAIN, no_flash, tol=MEDIAN_TOL_F32),
-            grid_one(rank, "(v2)", clm(V2_ARGS), N_MAIN, no_flash, tol=MEDIAN_TOL_F32),
+    recs = [grid_one(rank, "(v1)", clm(V1_ARGS), N_W4, no_flash, tol=MEDIAN_TOL_F32),
+            grid_one(rank, "(v2)", clm(V2_ARGS), N_W4, no_flash, tol=MEDIAN_TOL_F32),
             grid_one(rank, "(v3)", clm(V3_ARGS), N_TP, no_flash, dp_world=1,
                      tol=MEDIAN_TOL_F32)]
     with llama_cut(n_layer=W_LAYERS):
@@ -3200,12 +3286,12 @@ def seq_wire_times() -> dict:
     """Host-clock ms (median of 5 after a warm-up, each ended by a
     synchronize) of the seq axis's two collectives at (v1)'s shapes on its dp
     2 x sp 2 grid, through gloo: the gradient's ``all_reduce`` over the seq
-    pair (N_MAIN float32) and one ring hop of a layer's stacked k and v (``[2,
+    pair (N_W4 float32) and one ring hop of a layer's stacked k and v (``[2,
     2, 12, 512, 64]`` float32, ``parallel.ring_attention._shift``)."""
     from distributed_lion_tpu_torch.parallel.ring_attention import _shift
 
     grid = make_grid(1, sp=SP)
-    grads = torch.ones(N_MAIN, device="cuda")
+    grads = torch.ones(N_W4, device="cuda")
     kv = torch.ones(2, 2, 12, 1024 // SP, 64, device="cuda")
     out = {}
     for name, fn in (("grad_all_reduce_ms",
@@ -3224,9 +3310,10 @@ def seq_wire_times() -> dict:
 
 
 def sp_report(rec: dict, card: str) -> None:
-    what = {"(v1)": f"run_clm GPT-2 124M, T 1024, dp 2 x sp {SP}, ring, --dropout 0 --telemetry",
+    what = {"(v1)": f"run_clm {W4_GPT2}, T 1024, dp 2 x sp {SP}, ring, --dropout 0 "
+                    "--telemetry",
             "(v2)": f"(v1) with --seq_impl ulysses, no --telemetry",
-            "(v3)": f"run_clm GPT-2 124M, T 1024, dp 1 x tp {TP} x sp {SP}, ring",
+            "(v3)": f"run_clm {W4_GPT2}, T 1024, dp 1 x tp {TP} x sp {SP}, ring",
             "(w)": f"run_clm --model_family llama, Llama-3-8B widths at {W_LAYERS} layers, bf16, "
                    f"T {W_T}, dp 1 x sp {W_SP}, ring, --vocab_chunks {W_CHUNKS}",
             "(x1)": f"run_sft --packing, Llama-2-7B widths at {X1_LAYERS} layers, vocabulary "
@@ -3258,7 +3345,7 @@ def sp_report(rec: dict, card: str) -> None:
               f"{r['wall_s']:.1f} s on {card}; rank 0 launches {r['launches']}",
               flush=True)
     print(f"[w4] seq axis collectives through gloo on one card (host clock, rank 0, median of "
-          f"5): the gradient's all_reduce over the seq pair, {N_MAIN:,} float32, "
+          f"5): the gradient's all_reduce over the seq pair, {N_W4:,} float32, "
           f"{rec['wire']['grad_all_reduce_ms']:.1f} ms; one ring hop of a layer's k and v at "
           f"(v1)'s shape, {rec['wire']['ring_hop_ms']:.2f} ms; on {card}", flush=True)
 
@@ -3413,7 +3500,7 @@ def pp_runs(rank: int) -> dict:
     for label, args, pp, micro, n, dp_world, check in PP_RUNS:
         rec = grid_one(rank, label, lambda args=args: (run_clm.main(args), 10, None), n,
                        lambda evals, pp=pp, micro=micro: tp_flash_launches(
-                           N_LAYER // pp * micro, Z_STEPS, evals, 64),
+                           Z_LAYERS // pp * micro, Z_STEPS, evals, 64),
                        dp_world=dp_world, check=check, steps=Z_STEPS)
         recs.append(dict(rec, pp=pp, micro=micro))
     with llama_cut(n_layer=Z4_LAYERS):
@@ -3433,7 +3520,8 @@ def pp_rank(rank: int, tmp: str) -> None:
     dist.init_process_group("gloo", init_method=f"file://{tmp}/pg_pp", rank=rank,
                             world_size=W4, timeout=datetime.timedelta(seconds=600))
     try:
-        rec = pp_runs(rank)
+        with gpt2_cut(Z_LAYERS):
+            rec = pp_runs(rank)
         if rank == 0:
             with open(f"{tmp}/pp.json", "w") as f:
                 json.dump(rec, f)
@@ -3458,9 +3546,10 @@ def pp_phase(tmp: str, card: str) -> dict:
 
 
 def pp_report(rec: dict, card: str) -> None:
-    what = {"(z1)": "run_clm GPT-2 124M, dp 2 x pp 2, 4 microbatches of B 4",
-            "(z2)": "run_clm GPT-2 124M, dp 1 x pp 4, 8 microbatches of B 8",
-            "(z3)": "run_clm GPT-2 124M, dp 1 x tp 2 x pp 2, 4 microbatches of B 4",
+    gpt2 = f"GPT-2 124M's widths at {Z_LAYERS} layers"
+    what = {"(z1)": f"run_clm {gpt2}, dp 2 x pp 2, 4 microbatches of B 4",
+            "(z2)": f"run_clm {gpt2}, dp 1 x pp 4, 8 microbatches of B 8",
+            "(z3)": f"run_clm {gpt2}, dp 1 x tp 2 x pp 2, 4 microbatches of B 4",
             "(z4)": f"run_clm --model_family llama, Llama-3-8B widths at {Z4_LAYERS} layers, "
                     f"bf16, T {Z4_T}, --vocab_chunks 8, dp 2 x pp 2, 2 microbatches of B 2"}
     for r in rec["records"]:
@@ -3509,7 +3598,7 @@ def plane_run(rank: int, tmp: str) -> dict:
     launches = read_counts()
     expect(f"(p) rank {rank}", launches,
            dict(optimizer_launches(trainer, P_STEPS),
-                **flash_launches(P_STEPS, accum=1, eval_batches=0)))
+                **flash_launches(P_STEPS, accum=1, eval_batches=0, layers=W4_LAYERS)))
     rows = [r for r in trainer.history if "loss" in r]
     everyone = [None] * W4
     dist.all_gather_object(everyone, bounds.rows)
@@ -3565,7 +3654,7 @@ def plane_report(tmp: str, rec: dict, card: str) -> None:
         raise AssertionError(f"run (p): journals {[f.name for f in files]}, schema errors "
                              f"{report['schema_errors']}, timeline {timeline}, attribution "
                              f"{atts}")
-    print(f"[w4] (p) control plane + journal: GPT-2 124M, {W4} ranks on one card (gloo), "
+    print(f"[w4] (p) control plane + journal: {W4_GPT2}, {W4} ranks on one card (gloo), "
           f"sign_psum, --telemetry, {P_SPEC}, --rejoin_probe_steps 2: losses "
           f"{[round(x, 4) for x in rec['losses']]}; every step's election == the plain election "
           f"of the gathered ballots under its mask {rec['election_equal']}, voters "
@@ -3663,71 +3752,74 @@ def journal_run(tmp: str, plain, plain_rows: list, plain_launches: dict, card: s
 
 def w4_rank(rank: int, tmp: str) -> None:
     """One of run (f)'s ranks: every W4_RUNS entry through ``run_clm.main``
-    on cuda:0 in the gloo group, under a :class:`StepWatch`; raises on a
-    failed check; rank 0 writes the runs' records to ``tmp/w4.json``."""
+    on cuda:0 in the gloo group, under a :class:`StepWatch`, GPT-2 at
+    W4_LAYERS blocks; raises on a failed check; rank 0 writes the runs'
+    records to ``tmp/w4.json``."""
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"file://{tmp}/pg4", rank=rank, world_size=W4)
     try:
-        records = []
-        for wire, extra, steps in W4_RUNS:
-            label = wire + (" " + " ".join(extra) if extra else "")
-            watch, events = StepWatch(), GuardEvents()
-            reset_counts()
-            t0 = time.perf_counter()
-            try:
-                trainer = run_clm.main(W4_ARGS + ["--wire", wire, "--max_steps", str(steps)]
-                                       + extra)
-            finally:
-                watch.close()
-                events.close()
-            wall = time.perf_counter() - t0
-            launches = read_counts()
-            rows = [r for r in trainer.history if "loss" in r]
-            cfg = trainer.cfg
-            lazy = cfg.vote_every > 1
-            buckets = len(bucket_bounds(vote_chunk_elems(trainer.n_params, cfg.vote_every)
-                                        if lazy else trainer.n_params,
-                                        cfg.vote_buckets, W4, cfg.wire))
-            stochastic = cfg.max_grad_norm is not None
-            expect(f"(f) {label} rank {rank}", launches,
-                   dict(optimizer_launches(trainer, steps),
-                        **flash_launches(steps, accum=1, eval_batches=0)))
-            bits = lazy_checks(f"run (f) {label} rank {rank}", trainer, watch, steps) \
-                if lazy else None
-            if (trainer.world != W4 or cfg.wire != wire or len(rows) != steps
-                    or not all(math.isfinite(r["loss"]) for r in rows)
-                    or watch.params_equal != [True] * steps
-                    or (not stochastic and not lazy and not watch.election_equal)
-                    or not all(watch.election_equal)
-                    or any(h[0] != h[1] or h[2] != h[3] for h in watch.hist)
-                    or (stochastic and not rows[0]["vote/stoch_flip_frac"] > 0)):
-                raise AssertionError(
-                    f"run (f) {label} rank {rank}: world {trainer.world}, wire {cfg.wire}, "
-                    f"rows {rows}, params equal after each step {watch.params_equal}, "
-                    f"election == plain {watch.election_equal}, histogram and disagreement "
-                    f"(frame, plain) {watch.hist}")
-            guard = guard_checks(label, rank, trainer, watch, events.events, rows, extra)
-            records.append({"run": label, "buckets": buckets, "wall_s": wall, "guard": guard,
-                            "params_sha256": params_sha(trainer),
-                            "losses": [r["loss"] for r in rows],
-                            "step_ms": [r["step_ms"] for r in rows],
-                            "params_equal": watch.params_equal,
-                            "election_equal": watch.election_equal, "hist": watch.hist,
-                            "slices_equal": watch.slices_equal, "bits_per_param": bits,
-                            "comm_stats": trainer.comm_stats(),
-                            "stoch_flip_frac": [r["vote/stoch_flip_frac"] for r in rows],
-                            "launches": launches})
-            del trainer
-            torch.cuda.empty_cache()
-        records.append(q_run(rank))
-        records.append(r_run(rank))
-        records.append(tp_runs(rank))
-        records.append(sp_runs(rank))
-        records.append(plane_run(rank, tmp))
-        records.append(w4_async_commit(rank, tmp))
-        if rank == 0:
-            with open(f"{tmp}/w4.json", "w") as f:
-                json.dump(records, f)
+        with gpt2_cut(W4_LAYERS):   # every GPT-2 run of this spawn
+            records = []
+            for wire, extra, steps in W4_RUNS:
+                label = wire + (" " + " ".join(extra) if extra else "")
+                watch, events = StepWatch(), GuardEvents()
+                reset_counts()
+                t0 = time.perf_counter()
+                try:
+                    trainer = run_clm.main(W4_ARGS + ["--wire", wire, "--max_steps", str(steps)]
+                                           + extra)
+                finally:
+                    watch.close()
+                    events.close()
+                wall = time.perf_counter() - t0
+                launches = read_counts()
+                rows = [r for r in trainer.history if "loss" in r]
+                cfg = trainer.cfg
+                lazy = cfg.vote_every > 1
+                buckets = len(bucket_bounds(vote_chunk_elems(trainer.n_params, cfg.vote_every)
+                                            if lazy else trainer.n_params,
+                                            cfg.vote_buckets, W4, cfg.wire))
+                stochastic = cfg.max_grad_norm is not None
+                expect(f"(f) {label} rank {rank}", launches,
+                       dict(optimizer_launches(trainer, steps),
+                            **flash_launches(steps, accum=1, eval_batches=0,
+                                             layers=W4_LAYERS)))
+                bits = lazy_checks(f"run (f) {label} rank {rank}", trainer, watch, steps) \
+                    if lazy else None
+                if (trainer.world != W4 or cfg.wire != wire or len(rows) != steps
+                        or not all(math.isfinite(r["loss"]) for r in rows)
+                        or watch.params_equal != [True] * steps
+                        or (not stochastic and not lazy and not watch.election_equal)
+                        or not all(watch.election_equal)
+                        or any(h[0] != h[1] or h[2] != h[3] for h in watch.hist)
+                        or (stochastic and not rows[0]["vote/stoch_flip_frac"] > 0)):
+                    raise AssertionError(
+                        f"run (f) {label} rank {rank}: world {trainer.world}, wire {cfg.wire}, "
+                        f"rows {rows}, params equal after each step {watch.params_equal}, "
+                        f"election == plain {watch.election_equal}, histogram and disagreement "
+                        f"(frame, plain) {watch.hist}")
+                guard = guard_checks(label, rank, trainer, watch, events.events, rows, extra)
+                records.append({"run": label, "buckets": buckets, "wall_s": wall, "guard": guard,
+                                "params_sha256": params_sha(trainer),
+                                "losses": [r["loss"] for r in rows],
+                                "step_ms": [r["step_ms"] for r in rows],
+                                "params_equal": watch.params_equal,
+                                "election_equal": watch.election_equal, "hist": watch.hist,
+                                "slices_equal": watch.slices_equal, "bits_per_param": bits,
+                                "comm_stats": trainer.comm_stats(),
+                                "stoch_flip_frac": [r["vote/stoch_flip_frac"] for r in rows],
+                                "launches": launches})
+                del trainer
+                torch.cuda.empty_cache()
+            records.append(q_run(rank))
+            records.append(r_run(rank))
+            records.append(tp_runs(rank))
+            records.append(sp_runs(rank))
+            records.append(plane_run(rank, tmp))
+            records.append(w4_async_commit(rank, tmp))
+            if rank == 0:
+                with open(f"{tmp}/w4.json", "w") as f:
+                    json.dump(records, f)
     finally:
         dist.destroy_process_group()
 
@@ -3853,7 +3945,7 @@ def w4_phase(tmp: str, card: str) -> None:
             election = "step-1 election == the plain election of the 4 gathered ballots"
         else:
             election = f"stochastic: stoch_flip_frac {rec['stoch_flip_frac']}"
-        print(f"[w4] {'(m)' if rec['guard'] else '(f)'} {rec['run']}: GPT-2 124M, {W4} ranks on "
+        print(f"[w4] {'(m)' if rec['guard'] else '(f)'} {rec['run']}: {W4_GPT2}, {W4} ranks on "
               f"one card (gloo), B 2 x accum 1 x T 1024, {rec['buckets']} bucket(s): losses "
               f"{[round(x, 4) for x in rec['losses']]}; params equal on all ranks after each "
               f"step {rec['params_equal']}; {election}{hist}{guard}; step ms {rec['step_ms']} "
@@ -4651,6 +4743,8 @@ def slice_phase(tmp, gen, card, rates):
         t = phase_time("[chunk], GPT-2 124M --steps_per_call", t)
         phases["generate"] = generate_phase(gen, card)
         t = phase_time("[generate], GPT-2 124M and Llama-3-8B widths", t)
+        phases["serve"] = serve_phase(tmp, gen, card)
+        t = phase_time("[serve], GPT-2 124M and Llama-3-8B widths", t)
         moe = moe_one_rank(gen, card)
         t = phase_time("slice (y1), GPT-2-MoE", t)
         stoch, stoch_rows, stoch_launches = run_counted(STOCH_ARGS)
@@ -4904,6 +4998,31 @@ def row_logits(rec: dict, row: int, n: int) -> torch.Tensor:
 
 
 @torch.no_grad()
+def f32_anchored(label: str, got: torch.Tensor, seq: torch.Tensor, forward, forward32,
+                 start: int = 0) -> tuple:
+    """``got``, the logits at positions ``start`` onwards of ``seq``
+    ``[1, T]``, against ``forward32`` (the same weights at float32 compute,
+    materialized attention) on ``seq``: ``max|got - f32| <= 2 max|forward -
+    f32| + 2^-8 max|f32|``, ``forward`` the bfloat16 model; or, with
+    ``forward`` None (``got`` computed at float32 too), ``max|got - f32| <=
+    F32_REL max|f32|``. Raises otherwise; returns (max|got - f32|,
+    max|forward - f32| or 0, the bound)."""
+    ref = forward32(seq)[0, start:]
+    e_got = float((got.float() - ref).abs().max())
+    if forward is None:
+        e_fwd, tol = 0.0, F32_REL * float(ref.abs().max())
+    else:
+        e_fwd = float((forward(seq)[0, start:].float() - ref).abs().max())
+        tol = 2 * e_fwd + 2 ** -8 * float(ref.abs().max())
+    if got.shape != ref.shape or not e_got <= tol:
+        raise AssertionError(
+            f"{label}: logits {tuple(got.shape)} against {tuple(ref.shape)}, max|got - f32| "
+            f"{e_got} > " + ("F32_REL max|f32|" if forward is None else
+                             "2 max|forward - f32| + 2^-8 max|f32|") + f" = {tol}")
+    return e_got, e_fwd, tol
+
+
+@torch.no_grad()
 def generate_check(label: str, cfg, params, decode, init_cache, forward, forward32, gen,
                    card: str) -> dict:
     """[generate] of one model: GEN_LENS prompts of random tokens in one
@@ -4947,14 +5066,9 @@ def generate_check(label: str, cfg, params, decode, init_cache, forward, forward
         n = len(p)
         seq = torch.cat([p, out[i, :-1]])[None]
         got = row_logits(rec, i, n)
-        ref = forward32(seq)[0]
-        e_dec = float((got - ref).abs().max())
-        e_fwd = float((forward(seq)[0] - ref).abs().max())
-        tol = 2 * e_fwd + 2 ** -8 * float(ref.abs().max())
+        e_dec, e_fwd, _ = f32_anchored(f"[generate] {label} row {i}", got, seq, forward,
+                                       forward32)
         err.append((round(e_dec, 5), round(e_fwd, 5)))
-        if not e_dec <= tol:
-            raise AssertionError(f"[generate] {label} row {i}: max|decode - f32| {e_dec} > "
-                                 f"2 max|forward - f32| + 2^-8 max|f32| = {tol}")
         sdec, srec = decode_recorder(decode)
         solo = generate(sdec, init_cache, params, p[None], GEN_NEW)[0]
         alone = row_logits(srec, 0, n)
@@ -5021,6 +5135,338 @@ def generate_phase(gen, card: str) -> dict:
     print(f"[generate] run_generate.main --model_name gpt2_124m --prompt_file (3 prompts), 16 "
           f"greedy tokens a row: {len(texts)} texts, no kernel launched, on {card}", flush=True)
     return {k: sum(c[k] for c in counts) for k in KERNELS}
+
+
+class RecordingEngine(ServingEngine):
+    """A :class:`ServingEngine` that also keeps, with no host read, each
+    dispatch of the model between two CUDA events (its kind, and the
+    bucket or the batch) and the float32 logits every request sampled from:
+    the prefill's at the prompt's last position, each decode tick's last
+    column with the request each row held."""
+
+    def __init__(self, model: ServeModel, cfg: ServeConfig):
+        self.calls, self.ticks, self.first = [], [], {}
+        self._prefill = None
+        inner = model.decode_paged
+
+        def decode(params, toks, pages, tables, pos, valid=None):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits, pages = inner(params, toks, pages, tables, pos, valid)
+            end.record()
+            if self._prefill is not None:
+                req_id, last = self._prefill
+                self.first[req_id] = logits[0, last].clone()
+                self.calls.append(("prefill", toks.shape[1], start, end))
+            else:
+                ids = [s.req.req_id if s is not None else None for s in self.slots]
+                self.ticks.append((ids, logits[:, -1].clone()))
+                self.calls.append(("decode", sum(i is not None for i in ids), start, end))
+            return logits, pages
+
+        super().__init__(ServeModel(model.family, model.cfg, model.params, decode,
+                                    model.n_layer, model.kv_heads, model.head_dim,
+                                    model.cache_dtype, model.max_positions), cfg)
+
+    def _dispatch_prefill(self, req, slot, covered, suffix, padded):
+        self._prefill = (req.req_id, len(suffix) - 1)
+        try:
+            return super()._dispatch_prefill(req, slot, covered, suffix, padded)
+        finally:
+            self._prefill = None
+
+    def logits_of(self, req_id) -> torch.Tensor:
+        """``[n_sampled, V]``: the logits each of the request's tokens came from."""
+        return torch.stack([self.first[req_id]] + [lg[ids.index(req_id)] for ids, lg in self.ticks
+                                                   if req_id in ids])
+
+
+def held_equal(label: str, got: list, want: list, got_logits, want_logits, cap: float) -> tuple:
+    """``[generate]``'s criterion: ``got`` equals ``want`` up to the first
+    token where ``want``'s top-2 logit margin is below the logit gap
+    measured up to it, and that gap is at most ``cap`` (the float32-anchored
+    bound ``got_logits`` were held to), so wrong logits fail however they
+    part (raises otherwise). Returns (gap, where they part or None, margin
+    there)."""
+    differ = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    if len(got) != len(want) and not differ:
+        raise AssertionError(f"[serve] {label}: {len(got)} tokens against {len(want)}")
+    last = differ[0] if differ else len(want) - 1
+    gap = float((got_logits[:last + 1].float() - want_logits[:last + 1].float()).abs().max())
+    if not gap <= cap:
+        raise AssertionError(f"[serve] {label}: logit gap {gap} up to token {last} exceeds the "
+                             f"float32-anchored bound {cap}")
+    if not differ:
+        return gap, None, None
+    top2 = torch.topk(want_logits[last].float(), 2).values
+    margin = float(top2[0] - top2[1])
+    if not margin <= gap:
+        raise AssertionError(f"[serve] {label}: the tokens part at {last} where the reference's "
+                             f"top-2 margin {margin} exceeds the logit gap {gap}")
+    return gap, last, margin
+
+
+def serve_requests(prompts: list, new: int = SERVE_NEW) -> list:
+    return [Request(i, [int(t) for t in p.tolist()], new, i) for i, p in enumerate(prompts)]
+
+
+def serve_run(model, prompts: list, **kw) -> tuple:
+    """The prompts through a fresh :class:`RecordingEngine` (SERVE_GEOM,
+    greedy), request i visible at tick SERVE_ARRIVE_EVERY·i, every counter
+    at 0 before and read after; returns the engine, its completions, the
+    host-clock seconds of ``run`` (synchronized) and the launches."""
+    engine = RecordingEngine(model, ServeConfig(**SERVE_GEOM, max_new_tokens=SERVE_NEW, **kw))
+    reqs = serve_requests(prompts)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    done = engine.run(reqs, arrivals={r.req_id: SERVE_ARRIVE_EVERY * r.req_id for r in reqs})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = split_counts(p_bf16=False)
+    bad = [(r.req_id, done[r.req_id].reason, len(done[r.req_id].tokens)) for r in reqs
+           if done[r.req_id].reason != "length" or len(done[r.req_id].tokens) != SERVE_NEW]
+    if bad or any(launches.values()) or engine.stats["serve_retraces"]:
+        raise AssertionError(f"[serve] {kw}: completions not at their budget {bad}, launches "
+                             f"{launches}, retraces {engine.stats['serve_retraces']}")
+    # drained: every page free, or (prefix cache) held by one cache ref alone
+    held = int(engine.tables.refs.sum()) if engine.prefix is not None else 0
+    if engine.tables.physical_pages != held or any(s is not None for s in engine.slots):
+        raise AssertionError(f"[serve] {kw}: pages leaked ({engine.tables.physical_pages} "
+                             f"physical, {held} cache refs)")
+    return engine, done, wall, launches
+
+
+def paged_against_dense(cfg, params, prompt, gen, card: str) -> str:
+    """GPT-2 124M's paged decode (a shuffled 64-page table of the 512-page
+    pool) against its dense decode at the same attended length (1024
+    slots): the prefill and SERVE_PAGED_STEPS greedy steps, ``torch.equal``
+    where that holds; else each against the same weights at float32
+    compute, ``max|paged - f32| <= 2 max|dense - f32| + 2^-8 max|f32|``.
+    Returns which held."""
+    nbw, bs = SERVE_GEOM["max_blocks_per_seq"], SERVE_GEOM["block_size"]
+    pages = kv_cache.init_pages(cfg.n_layer, SERVE_GEOM["num_blocks"], bs, cfg.n_head,
+                                cfg.head_dim, cfg.compute_dtype, SERVE_DEVICE)
+    table = torch.randperm(SERVE_GEOM["num_blocks"], generator=gen,
+                           device=SERVE_DEVICE)[:nbw][None]
+    cache = gpt2_init_cache(cfg, 1, nbw * bs, device=SERVE_DEVICE)
+    toks, pos, dense_l, paged_l = prompt[None], 0, [], []
+    for _ in range(SERVE_PAGED_STEPS + 1):
+        d, cache = gpt2_decode(params, toks, cfg, cache, pos)
+        p, pages = gpt2_decode_paged(params, toks, cfg, pages, table,
+                                     torch.full((1,), pos, device=SERVE_DEVICE))
+        dense_l.append(d[0])
+        paged_l.append(p[0])
+        pos += toks.shape[1]
+        toks = torch.argmax(d[:, -1], -1)[:, None]
+    if all(torch.equal(a, b) for a, b in zip(dense_l, paged_l)):
+        return "torch.equal"
+    model32 = GPT2(dataclasses.replace(cfg, compute_dtype=torch.float32, attn_impl="xla"),
+                   device=SERVE_DEVICE, seed=0).eval()
+    seq = torch.cat([prompt] + [torch.argmax(d[-1:], -1) for d in dense_l[:-1]])[None]
+    with torch.no_grad():
+        ref = model32(seq)[0]
+    dense, paged = torch.cat(dense_l), torch.cat(paged_l)
+    e_paged, e_dense = (float((x - ref).abs().max()) for x in (paged, dense))
+    tol = 2 * e_dense + 2 ** -8 * float(ref.abs().max())
+    if not e_paged <= tol:
+        raise AssertionError(f"[serve] paged against dense: max|paged - f32| {e_paged} > 2 "
+                             f"max|dense - f32| + 2^-8 max|f32| = {tol}")
+    return (f"not torch.equal; float32-anchored bound held: max|paged - f32| {e_paged:.5f}, "
+            f"max|dense - f32| {e_dense:.5f}, bound {tol:.5f}")
+
+
+def llama_serve_run(tmp: str, gen, card: str) -> dict:
+    """Llama-3-8B's widths (vocabulary 128,256) cut to SERVE_LLAMA_LAYERS
+    layers, random init, through ``cli.run_serve.main --quant nf4`` on a
+    request file of SERVE_LLAMA_LENS random prompts (and one text prompt),
+    SERVE_LLAMA_NEW greedy tokens each, every counter at 0 before and read
+    after. Every record must stop at its budget (``length``) or at the
+    tokenizer's EOS; prints the served tree's bytes against bfloat16's."""
+    path, out = os.path.join(tmp, "serve_requests.jsonl"), os.path.join(tmp, "serve_out.jsonl")
+    lines = [{"id": f"l{i}", "tokens": torch.randint(0, SERVE_LLAMA_VOCAB, (n,), generator=gen,
+                                                     device=SERVE_DEVICE).tolist(),
+              "arrival_tick": i} for i, n in enumerate(SERVE_LLAMA_LENS)]
+    lines.append({"id": "text", "prompt": "Q: what is Lion? A:", "arrival_tick": 1})
+    pathlib.Path(path).write_text("".join(json.dumps(d) + "\n" for d in lines))
+    built = {}
+    build = run_serve.build_engine
+
+    def capture(*args, **kw):
+        tok, engine = build(*args, **kw)
+        built["engine"] = engine
+        return tok, engine
+
+    run_serve.build_engine = capture
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with llama_cut(n_layer=SERVE_LLAMA_LAYERS):
+            records = run_serve.main(["--model_family", "llama", "--model_name", SERVE_LLAMA,
+                                      "--vocab_size", str(SERVE_LLAMA_VOCAB), "--quant", "nf4",
+                                      "--requests", path, "--out", out, "--temperature", "0",
+                                      "--max_new_tokens", str(SERVE_LLAMA_NEW),
+                                      *SERVE_LLAMA_GEOM])
+    finally:
+        run_serve.build_engine = build
+    wall = time.perf_counter() - t0
+    launches = split_counts(p_bf16=False)
+    engine = built.pop("engine")
+    eos = engine.cfg.eos_id
+    bad = [r for r in records if not (
+        (r["reason"] == "length" and r["n_generated"] == SERVE_LLAMA_NEW)
+        or (r["reason"] == "eos" and r["tokens"][-1] == eos
+            and r["n_generated"] <= SERVE_LLAMA_NEW))]
+    lens = [r["prompt_len"] for r in records]
+    if (bad or any(launches.values()) or [r["id"] for r in records] != [d["id"] for d in lines]
+            or lens[:-1] != list(SERVE_LLAMA_LENS)
+            or [json.loads(x) for x in pathlib.Path(out).read_text().splitlines()] != records):
+        raise AssertionError(f"[serve] run_serve.main Llama nf4: records {bad or records}, "
+                             f"launches {launches}")
+    n = sum(x.numel() for _, x in iter_paths(engine.model.params))
+    served, peak = weight_bytes(engine.params), torch.cuda.max_memory_allocated()
+    print(f"[serve] run_serve.main --model_family llama ({SERVE_LLAMA} widths, vocabulary "
+          f"{SERVE_LLAMA_VOCAB:,}, {SERVE_LLAMA_LAYERS} layers, {n:,} params) --quant nf4 "
+          f"--requests ({len(records)} "
+          f"requests, staggered): reasons {sorted({r['reason'] for r in records})}, tokens "
+          f"{[r['n_generated'] for r in records]}; weight bytes served {served:,} against "
+          f"{2 * n:,} at bfloat16 ({served / (2 * n):.3f}x); peak device memory "
+          f"{peak / 2**30:.2f} GiB; {wall:.1f} s with the load; no kernel launched; on {card}",
+          flush=True)
+    del engine
+    return launches
+
+
+def serve_phase(tmp: str, gen, card: str) -> dict:
+    """[serve]: GPT-2 124M at full width and depth (random weights from
+    seed 0, bfloat16 compute) through the serving engine (SERVE_GEOM: 8
+    slots, pages of 16 tokens, 64 a sequence, a pool of 512): 16 requests
+    of SERVE_LENS random tokens arriving every SERVE_ARRIVE_EVERY ticks,
+    SERVE_NEW greedy tokens each. Every logit a request sampled from is held
+    to the float32 forward of its own sequence (:func:`f32_anchored`,
+    [generate]'s bound), and its tokens to its solo dense
+    ``models.generate.generate`` (:func:`held_equal`, the gap capped at that
+    bound); paged against dense on the card (:func:`paged_against_dense`);
+    at float32 compute, a prefix-cache run of 16 prompts sharing
+    SERVE_PREFIX tokens and SERVE_DUPLICATES repeated whole (copy-on-write)
+    against the same prompts unshared: token-identical, every logit of both
+    within F32_REL of the float32 forward, fewer physical pages, at least one
+    copy-on-write; then :func:`llama_serve_run`. No kernel may launch.
+    Prints prefill ms by bucket and ms a decode tick at batch 8 (CUDA
+    events), tokens/s over the workload (host clock), peak device memory and
+    the pool's bytes. Returns the launches summed over the runs, per entry
+    of KERNELS."""
+    cfg = GPT2Config.gpt2_124m()
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32, attn_impl="xla")
+    gpt2 = GPT2(cfg, device=SERVE_DEVICE, seed=0).eval()
+    gpt2_32 = GPT2(cfg32, device=SERVE_DEVICE, seed=0).eval()
+    params = tree_from_state_dict(gpt2)
+    model = ServeModel.for_gpt2(params, cfg)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen, device=SERVE_DEVICE)
+               for n in SERVE_LENS]
+    warm = ServingEngine(model, ServeConfig(**SERVE_GEOM, max_new_tokens=2))
+    warm.run(serve_requests(prompts, 2))   # untimed: allocator growth, cuBLAS at these shapes
+    del warm
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engine, done, wall, launches = serve_run(model, prompts)
+    peak = torch.cuda.max_memory_allocated()
+    pool = sum(t.numel() * t.element_size() for layer in engine.pages for t in layer.values())
+    buckets: dict = {}
+    for kind, size, start, end in engine.calls:
+        buckets.setdefault((kind, size), []).append(start.elapsed_time(end))
+    prefill = {b: round(statistics.mean(v), 3) for (k, b), v in sorted(buckets.items())
+               if k == "prefill"}
+    full = buckets.get(("decode", SERVE_GEOM["max_seqs"]), [])
+    if not full:
+        raise AssertionError(f"[serve] no decode tick at batch {SERVE_GEOM['max_seqs']}")
+    dec = lambda p, t, k, pos, off=None: gpt2_decode(p, t, cfg, k, pos, off)
+    init = lambda b, n: gpt2_init_cache(cfg, b, n, device=SERVE_DEVICE)
+    solos = []
+    for p in prompts:
+        sdec, srec = decode_recorder(dec)
+        solo = generate(sdec, init, params, p[None], SERVE_NEW)[0].tolist()
+        solos.append((solo, row_logits(srec, 0, len(p))[len(p) - 1:]))
+    counts = [launches, split_counts(p_bf16=False)]   # the solo decodes launched none either
+    errs, gaps, parted = [], [], []
+    for i, (p, (solo, want)) in enumerate(zip(prompts, solos)):
+        got = engine.logits_of(i)
+        seq = torch.cat([p, torch.tensor(done[i].tokens[:-1], device=SERVE_DEVICE)])[None]
+        e_got, e_fwd, tol = f32_anchored(f"[serve] request {i}", got, seq, gpt2, gpt2_32,
+                                         len(p) - 1)
+        errs.append((round(e_got, 5), round(e_fwd, 5)))
+        gap, where, margin = held_equal(f"request {i} against its solo dense decode",
+                                        done[i].tokens, solo, got, want, tol)
+        gaps.append(round(gap, 5))
+        if where is not None:
+            parted.append((i, where, round(margin, 5)))
+    del solos
+    print(f"[serve] GPT-2 124M, bfloat16, random weights: {len(prompts)} requests of "
+          f"{SERVE_LENS[0]}-{SERVE_LENS[-1]} random tokens, one every {SERVE_ARRIVE_EVERY} ticks, "
+          f"{SERVE_NEW} greedy tokens each, {SERVE_GEOM}: {engine.stats['ticks']} ticks, "
+          f"{engine.stats['decode_ticks']} decode ticks, {engine.stats['prefill_dispatches']} "
+          f"prefills; prefill ms by bucket {prefill}; {statistics.mean(full):.3f} ms a decode "
+          f"tick at batch {SERVE_GEOM['max_seqs']} (median {statistics.median(full):.3f}, "
+          f"{len(full)} ticks; CUDA events); {len(prompts) * SERVE_NEW / wall:.1f} tokens/s over "
+          f"the workload ({wall:.2f} s, host clock, the recording's slices included); peak device "
+          f"memory {peak / 2**30:.2f} GiB, pool {pool:,} bytes ({SERVE_GEOM['num_blocks']} pages "
+          f"+ the scratch page); on {card}", flush=True)
+    print(f"[serve] every sampled logit against the float32 forward of its request's sequence: "
+          f"(max|engine - f32|, max|forward - f32|) by request {errs}, each within 2 "
+          f"max|forward - f32| + 2^-8 max|f32|; against its solo dense generate: logit gap by "
+          f"request {gaps}, each within that bound; requests parting from solo (request, token, "
+          f"solo margin) {parted}; no kernel launched; on {card}", flush=True)
+    del engine
+    held = paged_against_dense(cfg, params, prompts[8], gen, card)
+    slots = SERVE_GEOM["block_size"] * SERVE_GEOM["max_blocks_per_seq"]
+    print(f"[serve] paged against dense decode, GPT-2 124M, prompt of {len(prompts[8])} tokens "
+          f"and {SERVE_PAGED_STEPS} greedy steps at {slots:,} slots: {held}; on {card}",
+          flush=True)
+    prefix = torch.randint(0, cfg.vocab_size, (SERVE_PREFIX,), generator=gen,
+                           device=SERVE_DEVICE)
+    shared_prompts = [torch.cat([prefix, torch.randint(
+        0, cfg.vocab_size, (SERVE_SUFFIX * (1 + i % 8),), generator=gen, device=SERVE_DEVICE)])
+        for i in range(len(SERVE_LENS))]
+    shared_prompts += [shared_prompts[i] for i in SERVE_DUPLICATES]
+    model32 = ServeModel.for_gpt2(tree_from_state_dict(gpt2_32), cfg32)
+    plain, base, _, l1 = serve_run(model32, shared_prompts)
+    shared, got, s_wall, l2 = serve_run(model32, shared_prompts, prefix_cache=True)
+    counts += [l1, l2]
+    differ = [i for i in base if got[i].tokens != base[i].tokens]
+    if (differ or not shared.stats["prefix_hits"] or not shared.stats["cow_copies"]
+            or shared.tables.pages_allocated >= plain.tables.pages_allocated):
+        raise AssertionError(f"[serve] prefix cache: requests {differ} not token-identical to "
+                             f"the unshared run, {shared.stats}, pages "
+                             f"{shared.tables.pages_allocated} against "
+                             f"{plain.tables.pages_allocated}")
+    errs = []
+    for i, p in enumerate(shared_prompts):
+        seq = torch.cat([p, torch.tensor(base[i].tokens[:-1], device=SERVE_DEVICE)])[None]
+        for kind, run in (("unshared", plain), ("shared", shared)):
+            errs.append(f32_anchored(f"[serve] prefix-cache run, {kind} request {i}",
+                                     run.logits_of(i), seq, None, gpt2_32, len(p) - 1)[0])
+    gap = max(float((shared.logits_of(i) - plain.logits_of(i)).abs().max()) for i in base)
+    print(f"[serve] --prefix_cache, GPT-2 124M at float32 compute, {len(shared_prompts)} prompts "
+          f"sharing {SERVE_PREFIX} tokens (the last {len(SERVE_DUPLICATES)} repeat earlier ones "
+          f"whole): "
+          f"{len(base)} of {len(base)} completions token-identical to the unshared run; "
+          f"max|shared - unshared| logit {gap:.3e}; max|engine - f32| over both runs "
+          f"{max(errs):.3e} (bound F32_REL max|f32|, F32_REL = {F32_REL}); physical pages "
+          f"allocated {shared.tables.pages_allocated} against {plain.tables.pages_allocated}; "
+          f"prefix hits {shared.stats['prefix_hits']}, shared tokens "
+          f"{shared.stats['shared_tokens']}, copy-on-write {shared.stats['cow_copies']}; "
+          f"{len(base) * SERVE_NEW / s_wall:.1f} tokens/s; on {card}", flush=True)
+    del plain, shared, model, model32, params, gpt2, gpt2_32
+    gc.collect()   # a RecordingEngine and its hook's closure hold each other
+    torch.cuda.empty_cache()
+    counts.append(llama_serve_run(tmp, gen, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = {k: sum(c[k] for c in counts) for k in KERNELS}
+    if any(total.values()):
+        raise AssertionError(f"[serve]: kernels launched {total}")
+    return total
 
 
 def phase_time(name: str, since: float) -> float:
@@ -5135,7 +5581,8 @@ def main():
                         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                         "library_ms": library, "pipeline_launches": pp_launches[k],
                         "chunk_launches": phases["chunk"][k],
-                        "generate_launches": phases["generate"][k], "mixed_launches": mixed[k]})
+                        "generate_launches": phases["generate"][k],
+                        "serve_launches": phases["serve"][k], "mixed_launches": mixed[k]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

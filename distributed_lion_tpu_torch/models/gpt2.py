@@ -64,6 +64,11 @@ product, the mask, a float32 softmax), as the JAX package's
 (``[B]``, a left-padded batch's pad widths) masks each row's pad slots out
 of attention and of MoE routing and shifts its position ids, so each row
 decodes as its solo run. MoE blocks decode with no drop (capacity ``B·S``).
+:func:`gpt2_decode_paged` (JAX :717-850) is the serving engine's hook: the
+same chain over a page pool and per-row block tables
+(``ops.attention.paged_*``), per-row positions, ``valid`` lanes (a
+right-padded prefill's tail, an idle slot) dropped from the pages and
+from MoE routing.
 
 ``remat_policy`` says what a rematerialized block keeps (JAX
 gpt2.py:321-331): ``full`` nothing (``torch.utils.checkpoint`` of the whole
@@ -90,7 +95,11 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from distributed_lion_tpu_torch.ops.attention import attention
+from distributed_lion_tpu_torch.ops.attention import (
+    attention,
+    paged_decode_attention,
+    paged_scatter_kv,
+)
 from distributed_lion_tpu_torch.ops.products import matmul_f32
 from distributed_lion_tpu_torch.ops.quant import maybe_dequant
 from distributed_lion_tpu_torch.parallel.expert import expert_shard_dim, moe_ffn, moe_init
@@ -630,3 +639,52 @@ def gpt2_decode(params: dict, tokens: torch.Tensor, cfg: GPT2Config, cache: list
         x = x + _decode_attention(_layer_norm(x, p["ln_1"]), p["attn"], cfg, c, pos, offset)
         x = _decode_mlp(x, p, cfg, valid)
     return _tied_logits(_layer_norm(x, params["ln_f"]), params, cfg), cache
+
+
+def _paged_attention_block(x, p, cfg: GPT2Config, c: dict, tables, pos, valid):
+    """The paged twin of :func:`_decode_attention` (JAX :717): scatter the
+    new k and v into the rows' pages in place, attend over the gathered
+    history through the dense chain."""
+    from distributed_lion_tpu_torch.models.lora import lora_matmul
+
+    B, S, D = x.shape
+    H, hd, dt = cfg.n_head, cfg.head_dim, x.dtype
+    qkv = _qkv_project(x, p["qkv"]).view(B, S, 3, D) + p["qkv_b"].to(dt)
+    q, k, v = (qkv[:, :, i].reshape(B, S, H, hd) for i in range(3))
+    paged_scatter_kv(c["k"], tables, pos, k, valid)
+    paged_scatter_kv(c["v"], tables, pos, v, valid)
+    out = paged_decode_attention(q.transpose(1, 2), c["k"], c["v"], tables, pos)
+    out = out.transpose(1, 2).reshape(B, S, H * hd)
+    return lora_matmul(out, p["proj"]) + p["proj_b"].to(dt)
+
+
+@torch.no_grad()
+def gpt2_decode_paged(params: dict, tokens: torch.Tensor, cfg: GPT2Config, pages: list,
+                      tables: torch.Tensor, pos: torch.Tensor,
+                      valid: Optional[torch.Tensor] = None, tp_axis=None, ep_axis=None,
+                      return_moe_stats: bool = False, stats_axis=None, stats_lanes=None):
+    """Block-table decode (JAX :750): row b's ``tokens`` ``[B, S]`` sit at
+    positions ``pos[b] … pos[b]+S-1`` of its own sequence (position ids
+    clipped to ``n_ctx − 1``); ``pages`` is the per-layer ``{"k", "v"}``
+    pool (``serve.kv_cache.init_pages``), written in place; ``tables``
+    ``[B, blocks_per_seq]``; ``valid`` optional ``[B, S]`` (False: no page
+    write, no expert capacity, logits the caller drops). Returns ``(float32
+    logits [B, S, vocab_size], pages)``. One call serves the bucketed
+    prefill (S the padded prompt) and the decode tick (S 1). The axes and
+    the routing stats are refused by name (Queue 1 item 12(d))."""
+    from distributed_lion_tpu_torch.models.lora import lora_embed
+    from distributed_lion_tpu_torch.serve.unported import ITEM_D, refuse
+
+    refuse(ITEM_D, dict(tp_axis=tp_axis, ep_axis=ep_axis, return_moe_stats=return_moe_stats,
+                        stats_axis=stats_axis, stats_lanes=stats_lanes))
+
+    cd = cfg.compute_dtype
+    S = tokens.shape[1]
+    ids = torch.clamp(pos.to(torch.int64)[:, None]
+                      + torch.arange(S, device=tokens.device)[None, :], 0, cfg.n_ctx - 1)
+    x = lora_embed(params["wte"], tokens, cd) + lora_embed(params["wpe"], ids, cd)
+    for p, c in zip(params["blocks"], pages):
+        x = x + _paged_attention_block(_layer_norm(x, p["ln_1"]), p["attn"], cfg, c, tables,
+                                       pos, valid)
+        x = _decode_mlp(x, p, cfg, valid)
+    return _tied_logits(_layer_norm(x, params["ln_f"]), params, cfg), pages

@@ -38,8 +38,10 @@ tokens against a static per-layer KV cache of the kv heads,
 un-repeated (:func:`llama_init_cache`, ``[B, n_kv_head, max_len, hd]``), the
 GQA repeat at attend time, the rope angles of a ``max_len`` table taken at
 the slots' positions or, with ``offset``, at each row's shifted positions;
-materialized scores as :func:`models.gpt2.gpt2_decode`. The paged cache
-waits for ROADMAP Queue 1 item 12(b).
+materialized scores as :func:`models.gpt2.gpt2_decode`.
+:func:`llama_decode_paged` (JAX llama.py:321-395) is the serving engine's
+hook over a page pool of the kv heads, un-repeated, each row's rope angles
+gathered at its own positions (``[B, S, hd/2]``).
 """
 
 from __future__ import annotations
@@ -60,7 +62,11 @@ from distributed_lion_tpu_torch.models.gpt2 import (
     remat,
 )
 from distributed_lion_tpu_torch.models.lora import iter_paths, lora_embed, lora_matmul
-from distributed_lion_tpu_torch.ops.attention import attention
+from distributed_lion_tpu_torch.ops.attention import (
+    attention,
+    paged_decode_attention,
+    paged_scatter_kv,
+)
 from distributed_lion_tpu_torch.ops.products import matmul_f32
 from distributed_lion_tpu_torch.ops.quant import (
     map_tree,
@@ -381,3 +387,47 @@ def llama_decode(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, cache: li
                                   pos, cos, sin, offset)
         x = x + _mlp(rms_norm(x, p["ln_mlp"], cfg.rms_eps), p["mlp"], no_tp)
     return _head_logits(rms_norm(x, params["ln_f"], cfg.rms_eps), params), cache
+
+
+def _paged_attention_block(x, p, cfg: LlamaConfig, c: dict, tables, pos, cos, sin, valid):
+    """The paged twin of :func:`_decode_attention` (JAX :321): the roped k
+    and v scattered into the rows' pages in place, q over the gathered
+    history through the dense chain (GQA repeated at attend time)."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_head, cfg.n_kv_head, cfg.head_dim
+    q = apply_rope(lora_matmul(x, p["wq"]).reshape(B, S, H, hd).transpose(1, 2), cos, sin)
+    k = apply_rope(lora_matmul(x, p["wk"]).reshape(B, S, KV, hd).transpose(1, 2), cos, sin)
+    v = lora_matmul(x, p["wv"]).reshape(B, S, KV, hd)
+    paged_scatter_kv(c["k"], tables, pos, k.transpose(1, 2), valid)
+    paged_scatter_kv(c["v"], tables, pos, v, valid)
+    out = paged_decode_attention(q, c["k"], c["v"], tables, pos)
+    return lora_matmul(out.transpose(1, 2).reshape(B, S, H * hd), p["wo"])
+
+
+@torch.no_grad()
+def llama_decode_paged(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, pages: list,
+                       tables: torch.Tensor, pos: torch.Tensor,
+                       valid: Optional[torch.Tensor] = None, tp_axis=None):
+    """Block-table decode (JAX :356): row b's ``tokens`` ``[B, S]`` sit at
+    positions ``pos[b] … pos[b]+S-1`` of its own sequence, their rope
+    angles taken from a ``blocks_per_seq · block_size`` table at those
+    positions (clipped to it); ``pages`` the per-layer pool of ``[num_blocks
+    + 1, block_size, n_kv_head, hd]``, written in place. Returns ``(float32
+    logits [B, S, vocab_size], pages)``. ``tp_axis`` is refused by name
+    (Queue 1 item 12(d))."""
+    from distributed_lion_tpu_torch.serve.unported import ITEM_D, refuse
+
+    refuse(ITEM_D, dict(tp_axis=tp_axis))
+    S = tokens.shape[1]
+    x = lora_embed(params["wte"], tokens, cfg.compute_dtype)
+    max_pos = tables.shape[1] * pages[0]["k"].shape[1]
+    cos_all, sin_all = rope_angles(max_pos, cfg.head_dim, cfg.rope_theta, tokens.device)
+    ids = torch.clamp(pos.to(torch.int64)[:, None]
+                      + torch.arange(S, device=tokens.device)[None, :], 0, max_pos - 1)
+    cos, sin = cos_all[ids], sin_all[ids]
+    no_tp = TensorAxis()
+    for p, c in zip(params["blocks"], pages):
+        x = x + _paged_attention_block(rms_norm(x, p["ln_attn"], cfg.rms_eps), p["attn"], cfg, c,
+                                       tables, pos, cos, sin, valid)
+        x = x + _mlp(rms_norm(x, p["ln_mlp"], cfg.rms_eps), p["mlp"], no_tp)
+    return _head_logits(rms_norm(x, params["ln_f"], cfg.rms_eps), params), pages

@@ -4,8 +4,11 @@ importing every port module leaves both out of ``sys.modules``."""
 
 import ast
 import pathlib
+import re
 import subprocess
 import sys
+
+import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "distributed_lion_tpu_torch"
@@ -244,3 +247,87 @@ def test_the_generation_modules_are_among_the_checked_files():
     assert {"models/generate.py", "cli/run_generate.py", "models/gpt2.py", "models/llama.py",
             "parallel/expert.py", "utils/argparsing.py", "train/loop.py", "optim/lion.py",
             "optim/distributed_lion.py"} <= files
+
+
+def test_the_serving_modules_are_among_the_checked_files():
+    """Serving over the paged cache (``serve/``, ``cli/run_serve.py``), beside
+    the modules its slice touched (the paged primitives, both models' paged
+    decode), is in the file list both checks above walk; the host-side
+    modules copied from the JAX package (``kv_cache``, ``metrics``, ``api``)
+    import only the standard library, numpy, torch and the port."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
+    new = {"serve/__init__.py", "serve/kv_cache.py", "serve/metrics.py", "serve/engine.py",
+           "serve/api.py", "serve/unported.py", "cli/run_serve.py"}
+    assert new | {"ops/attention.py", "models/gpt2.py", "models/llama.py"} <= files
+    for rel in ("serve/kv_cache.py", "serve/metrics.py", "serve/api.py", "serve/unported.py"):
+        tree = ast.parse((PORT / rel).read_text())
+        imported = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                    for a in n.names}
+        imported |= {n.module or "" for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)}
+        allowed = ("distributed_lion_tpu_torch", "__future__", "numpy", "torch")
+        assert all(m.split(".")[0] in allowed or m.split(".")[0] in sys.stdlib_module_names
+                   for m in imported), (rel, imported)
+
+
+def _engine_refusal(field, value):
+    from distributed_lion_tpu_torch.models.gpt2 import GPT2Config
+    from distributed_lion_tpu_torch.serve.engine import ServeConfig, ServeModel, ServingEngine
+
+    model = ServeModel.for_gpt2(None, GPT2Config.tiny())
+    if field == "draft_model":
+        return lambda: ServingEngine(model, ServeConfig(), draft_model=model)
+    return lambda: ServingEngine(model, ServeConfig(**{field: value}))
+
+
+def _decode_refusal(family, arg):
+    import torch
+
+    from distributed_lion_tpu_torch.models import gpt2, llama
+
+    fn = gpt2.gpt2_decode_paged if family == "gpt2" else llama.llama_decode_paged
+    cfg = gpt2.GPT2Config.tiny() if family == "gpt2" else llama.LlamaConfig.tiny()
+    zero = torch.zeros(1, dtype=torch.long)
+    return lambda: fn({}, zero[None], cfg, [], zero[None], zero, **{arg: "x"})
+
+
+def _cli_refusal(*flags):
+    from distributed_lion_tpu_torch.cli import run_serve
+
+    return lambda: run_serve.main(["--model_name", "tiny", *flags])
+
+
+ITEM_D = "ROADMAP Queue 1 item 12\\(d\\)"
+ITEM_E = "ROADMAP Queue 1 item 12\\(e\\)"
+SERVING_REFUSALS = {
+    **{f"engine {f}": (lambda f=f, v=v: _engine_refusal(f, v), f"ServeConfig.{f}={v!r}", ITEM_D)
+       for f, v in (("tp", 2), ("ep", 1), ("ep_batch", True), ("ep_overlap", True),
+                    ("moe_stats", True), ("speculate", "ngram:4"))},
+    "engine draft_model": (lambda: _engine_refusal("draft_model", None), "draft_model", ITEM_D),
+    **{f"gpt2_decode_paged {a}": (lambda a=a: _decode_refusal("gpt2", a), f"{a}='x'", ITEM_D)
+       for a in ("tp_axis", "ep_axis", "return_moe_stats", "stats_axis", "stats_lanes")},
+    "llama_decode_paged tp_axis": (lambda: _decode_refusal("llama", "tp_axis"), "tp_axis='x'",
+                                   ITEM_D),
+    **{f"run_serve --{f}": (lambda f=f, v=v: _cli_refusal(f"--{f}", v), f"--{f}", ITEM_D)
+       for f, v in (("serve_tp", "2"), ("serve_ep", "2"), ("serve_ep_batch", "true"),
+                    ("serve_ep_overlap", "true"), ("speculate", "ngram:4"),
+                    ("draft_model_path", "d.npz"), ("draft_model_name", "tiny"))},
+    "run_serve --replicas": (lambda: _cli_refusal("--replicas", "2"), "--replicas=2", ITEM_E),
+    **{f"run_serve --{f}": (lambda f=f, v=v: _cli_refusal(f"--{f}", v), f"--{f}", ITEM_E)
+       for f, v in (("inject_serve", "replica_crash:0:3"), ("listen", "0"),
+                    ("replica_procs", "true"), ("fleet_state_dir", "state"),
+                    ("resume_fleet", "true"), ("listen_wall_s", "5"),
+                    ("heartbeat_timeout_s", "1"), ("heartbeat_max_misses", "0"),
+                    ("fleet_persist_every", "4"))},
+}
+
+
+@pytest.mark.parametrize("case", sorted(SERVING_REFUSALS))
+def test_unported_serving_refused_by_name(case):
+    """Every part of serving still to port is refused by name, citing its
+    ROADMAP item: the engine's and the paged decode's parallel, stats and
+    speculation knobs (Queue 1 item 12(d)) and ``run_serve``'s flags of
+    those and of the fleet (item 12(e)); the CLI refuses before it loads a
+    model."""
+    make, what, item = SERVING_REFUSALS[case]
+    with pytest.raises(NotImplementedError, match=f"{re.escape(what)}.*{item}"):
+        make()()
